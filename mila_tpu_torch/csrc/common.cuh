@@ -1,0 +1,46 @@
+// Shared helpers for the port's CUDA kernels (sm_90a, plain C entry points
+// loaded through ctypes). Every entry point launches on the caller's stream,
+// allocates nothing and returns cudaGetLastError() right after its launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+extern "C" const char* mila_cuda_error_string(int e) {
+  return cudaGetErrorString(static_cast<cudaError_t>(e));
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Round an f32 value to bf16 and back (the kernels' bf16(x) before a product).
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Byte j of a 32-bit word, as a signed int8 value in f32.
+__device__ __forceinline__ float s8_to_f(uint32_t w, int j) {
+  return static_cast<float>(static_cast<int8_t>((w >> (8 * j)) & 0xffu));
+}

@@ -1,0 +1,122 @@
+"""Build and load the CUDA kernels in ``mila_tpu_torch/csrc``.
+
+Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` for ``sm_90a``
+into ``csrc/build/lib<name>-<hash>.so``, a library with a plain C interface
+loaded through ``ctypes``. ``<hash>`` covers the source and the shared
+header, so an edited source rebuilds at its next use and an unchanged one
+loads from the build directory. ``build_all`` starts one ``nvcc`` per
+source at once and waits for all of them.
+
+Nothing here runs at import: the CPU tests import every module of the
+package on machines without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+KERNELS = ("qmm_int8", "qgemv_int8", "paged_decode_attn")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
+                       "with the CUDA toolkit (set CUDA_HOME)")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256()
+    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; None when its library is already built."""
+    out = lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    log = open(BUILD_DIR / f"{name}.log", "w")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+    return proc, tmp, out, log
+
+
+def _finish(name: str, started) -> None:
+    proc, tmp, out, log = started
+    rc = proc.wait()
+    log.close()
+    text = (BUILD_DIR / f"{name}.log").read_text()
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (rc {rc}):\n{text[-4000:]}")
+    os.replace(tmp, out)
+
+
+def build_all(names=KERNELS) -> None:
+    """Compile every source that has no up-to-date library, in parallel."""
+    with _lock:
+        started = {n: _start(n) for n in names}
+        errors = []
+        for n, s in started.items():
+            if s is not None:
+                try:
+                    _finish(n, s)
+                except RuntimeError as e:
+                    errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all((name,))
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(lib_path(name)))
+                _libs[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise on the cudaError_t a C entry point returned (after its launch)."""
+    if rc != 0:
+        lib.mila_cuda_error_string.restype = ctypes.c_char_p
+        lib.mila_cuda_error_string.argtypes = [ctypes.c_int]
+        msg = lib.mila_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

@@ -1,0 +1,136 @@
+"""Paged decode attention: one query token per row, GQA, through a page table.
+
+Replaces the TPU kernel ``mila_tpu/kernels/paged_attention.py:_paged_kernel``
+(entry ``paged_decode_attention``), reached from the engine's decode step
+through ``inference/kv_cache.paged_attention_read``.
+
+Pages keep the JAX layout [P, NKV, HD, ps] (page-major, token-minor), so a
+page's tile for one KV head is a contiguous [HD, ps] slab.
+
+What bounds it on the H100: the K/V bytes of the live tokens (one query per
+row does 2 operations per byte read). The CUDA kernel
+(``csrc/paged_decode_attn.cu``) runs one block per (row, KV head); the G
+query heads of that KV head share the block so each K/V element is read
+once; the block walks its row's pages up to ``seq_lens[b]`` with an online
+softmax in f32, reading its own page-table entries (there is no scalar
+prefetch). Threads run along the token axis, which is the contiguous one.
+Known weakness: B*NKV blocks (64 at the served shape) fill half of the 132
+SMs; splitting a row's pages across blocks is later work.
+
+The plain version is the gather reference
+(``mila_tpu/inference/kv_cache.py:paged_decode_attention_ref``), which is
+what the JAX entry point itself runs on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from mila_tpu_torch.kernels import _build
+from mila_tpu_torch.ops.attention import NEG_INF
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, page_table, seq_lens, *,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """Gather-based oracle. q [B, 1, NH, HD]; pages [P, ps, NKV, HD] (one
+    layer, token-major); page_table [B, W]; seq_lens [B] -> [B, 1, NH, HD]."""
+    B, _, NH, HD = q.shape
+    W = page_table.shape[1]
+    ps, NKV = k_pages.shape[1], k_pages.shape[2]
+    scale = 1.0 / math.sqrt(HD) if scale is None else scale
+    tbl = page_table.long()
+    k = k_pages[tbl].reshape(B, W * ps, NKV, HD)
+    v = v_pages[tbl].reshape(B, W * ps, NKV, HD)
+    group = NH // NKV
+    qg = q.reshape(B, 1, NKV, group, HD)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    pos = torch.arange(W * ps, device=q.device)[None, :]
+    valid = pos < seq_lens.to(q.device)[:, None]
+    s = torch.where(valid[:, None, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.float(), v.float())
+    return out.reshape(B, 1, NH, HD).to(q.dtype)
+
+
+def paged_decode_attention_plain(q, k_pages, v_pages, page_table, seq_lens, *,
+                                 k_scale=None, v_scale=None,
+                                 scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of :func:`paged_decode_attention` (pages [P, NKV, HD, ps];
+    int8 pages with [P, NKV, ps] scales are dequantized first)."""
+    paged_decode_attention_plain.calls += 1
+    HD = q.shape[-1]
+    sm_scale = 1.0 / math.sqrt(HD) if scale is None else scale
+    kp = k_pages.permute(0, 3, 1, 2)  # [P, ps, NKV, HD]
+    vp = v_pages.permute(0, 3, 1, 2)
+    if k_scale is not None:
+        ks = k_scale.permute(0, 2, 1)[..., None]  # [P, ps, NKV, 1]
+        vs = v_scale.permute(0, 2, 1)[..., None]
+        kp = (kp.float() * ks).to(q.dtype)
+        vp = (vp.float() * vs).to(q.dtype)
+    return paged_decode_attention_ref(q, kp, vp, page_table, seq_lens, scale=sm_scale)
+
+
+paged_decode_attention_plain.calls = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("paged_decode_attn")
+    if not getattr(lib, "_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.paged_decode_attn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                                          ci, ci, ctypes.c_float, ci, vp]
+        lib.paged_decode_attn.restype = ci
+        lib._typed = True
+    return lib
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                           page_table: torch.Tensor, seq_lens: torch.Tensor, *,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Paged KV decode attention. q [B, 1, NH, HD]; pages [P, NKV, HD, ps];
+    page_table [B, W] int32; seq_lens [B] int32. Returns [B, 1, NH, HD].
+
+    CUDA tensors launch ``paged_decode_attn`` (bf16/f32 pages; int8 pages
+    raise); CPU tensors take :func:`paged_decode_attention_plain`."""
+    if not q.is_cuda:
+        return paged_decode_attention_plain(q, k_pages, v_pages, page_table, seq_lens,
+                                            k_scale=k_scale, v_scale=v_scale, scale=scale)
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError("paged_decode_attn takes bf16/f32 pages; int8 pages "
+                                  "are not ported yet")
+    B, one, NH, HD = q.shape
+    _, NKV, HD2, ps = k_pages.shape
+    W = page_table.shape[1]
+    if one != 1 or HD2 != HD or v_pages.shape != k_pages.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} pages {tuple(k_pages.shape)}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise TypeError(f"paged_decode_attn takes bf16/f32 q and pages of q's dtype "
+                        f"(q {q.dtype}, pages {k_pages.dtype})")
+    if NH % NKV or NH // NKV > 8 or HD not in (8, 16, 32, 64, 128) or ps % 8:
+        raise ValueError(f"paged_decode_attn needs NH/NKV <= 8, HD in (8, 16, 32, 64, 128) "
+                         f"and ps % 8 == 0 (NH={NH}, NKV={NKV}, HD={HD}, ps={ps})")
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError("paged_decode_attn: pages must be contiguous")
+    tbl = page_table.to(device=q.device, dtype=torch.int32).contiguous()
+    lens = seq_lens.to(device=q.device, dtype=torch.int32).contiguous()
+    qc = q.contiguous()
+    out = torch.empty_like(qc)
+    sm_scale = 1.0 / math.sqrt(HD) if scale is None else scale
+    lib = _lib()
+    rc = lib.paged_decode_attn(
+        _build.ptr(qc), _build.ptr(k_pages), _build.ptr(v_pages), _build.ptr(tbl),
+        _build.ptr(lens), _build.ptr(out), B, NH, NKV, HD, ps, W, sm_scale,
+        int(q.dtype == torch.float32), _build.stream_of(q))
+    _build.check(lib, rc, "paged_decode_attn")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

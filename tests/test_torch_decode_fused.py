@@ -1,0 +1,102 @@
+"""The three decode entry points (plain path) against the JAX Pallas kernels
+in interpret mode, at decode shapes (M in {1, 8}, K 256, N 512) and at a
+shape where both sides fall back to the unfused ops (M 40 > 32).
+
+Tolerance: the same bf16-rounded operands, f32 accumulation in another
+order: f32 outputs within 1e-5, bf16 outputs within one bf16 step (1e-2).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mila_tpu.inference import quantize as jq
+from mila_tpu.kernels import decode_fused as jdf
+from mila_tpu_torch.inference import quantize as tq
+from mila_tpu_torch.kernels import decode_fused as tdf
+
+_TORCH = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
+
+
+def _inputs(M, K, N, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    g = (1.0 + 0.1 * rng.standard_normal(K)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) * 0.05).astype(np.float32)
+    r = rng.standard_normal((M, N)).astype(np.float32)
+    return x, g, w, r
+
+
+def _check(got, want, xdt):
+    assert got.dtype == _TORCH[xdt]
+    tol = 1e-5 if xdt == jnp.float32 else 1e-2
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("M", [1, 8, 40])
+@pytest.mark.parametrize("xdt", [jnp.float32, jnp.bfloat16])
+def test_rms_quant_linear(M, xdt):
+    x, g, w, _ = _inputs(M, 256, 512)
+    want = jdf.rms_quant_linear(jnp.asarray(x, xdt), jnp.asarray(g),
+                                jq.quantize(jnp.asarray(w)), eps=1e-5)
+    got = tdf.rms_quant_linear(torch.from_numpy(x).to(_TORCH[xdt]), torch.from_numpy(g),
+                               tq.quantize(torch.from_numpy(w)), eps=1e-5)
+    _check(got, want, xdt)
+
+
+@pytest.mark.parametrize("M", [1, 8, 40])
+@pytest.mark.parametrize("xdt", [jnp.float32, jnp.bfloat16])
+def test_quant_linear_residual(M, xdt):
+    x, _, w, r = _inputs(M, 256, 512, seed=1)
+    want = jdf.quant_linear_residual(jnp.asarray(x, xdt), jq.quantize(jnp.asarray(w)),
+                                     jnp.asarray(r, xdt))
+    got = tdf.quant_linear_residual(torch.from_numpy(x).to(_TORCH[xdt]),
+                                    tq.quantize(torch.from_numpy(w)),
+                                    torch.from_numpy(r).to(_TORCH[xdt]))
+    _check(got, want, xdt)
+
+
+@pytest.mark.parametrize("M", [1, 8, 40])
+@pytest.mark.parametrize("xdt", [jnp.float32, jnp.bfloat16])
+def test_rms_quant_linear_swiglu(M, xdt):
+    x, g, w, _ = _inputs(M, 256, 2 * 512, seed=2)
+    want = jdf.rms_quant_linear_swiglu(jnp.asarray(x, xdt), jnp.asarray(g),
+                                       jq.quantize(jnp.asarray(w)), eps=1e-5)
+    got = tdf.rms_quant_linear_swiglu(torch.from_numpy(x).to(_TORCH[xdt]),
+                                      torch.from_numpy(g), tq.quantize(torch.from_numpy(w)),
+                                      eps=1e-5)
+    assert got.shape == (M, 512)
+    _check(got, want, xdt)
+
+
+def test_block_scales_match_jax():
+    x, g, w, r = _inputs(8, 256, 512, seed=3)
+    jqt, tqt = jq.quantize(jnp.asarray(w), "int8", 128), tq.quantize(torch.from_numpy(w), "int8", 128)
+    want = jdf.rms_quant_linear(jnp.asarray(x), jnp.asarray(g), jqt)
+    got = tdf.rms_quant_linear(torch.from_numpy(x), torch.from_numpy(g), tqt)
+    _check(got, want, jnp.float32)
+
+
+def test_plain_versions_count_and_cpu_never_launches():
+    x, g, w, r = _inputs(8, 256, 512, seed=4)
+    qt = tq.quantize(torch.from_numpy(w))
+    before = (tdf.rms_quant_linear.launches, tdf.rms_quant_linear_plain.calls)
+    tdf.rms_quant_linear(torch.from_numpy(x), torch.from_numpy(g), qt)
+    assert tdf.rms_quant_linear.launches == before[0]
+    assert tdf.rms_quant_linear_plain.calls == before[1] + 1
+
+
+def test_ksplit_plan_covers_the_served_shapes():
+    """The decode launch plan (pure host arithmetic) for Llama-3.2-1B's
+    shapes: every slice inside one scale block, staged x within 64 KB."""
+    for K, n_cols in ((2048, 3072), (2048, 2048), (2048, 8192), (8192, 2048), (2048, 129024)):
+        for M in (1, 8, 32):
+            mt, ks = tdf._plan_ksplit(M, K, n_cols, K, 132)
+            kc = K // ks
+            assert K % ks == 0 and kc % 32 == 0 and kc * mt * 4 <= 64 * 1024
+    assert tdf._plan_ksplit(8, 2048, 3072, 2048, 132) == (8, 16)
+    assert tdf._plan_ksplit(8, 2048, 129024, 2048, 132) == (8, 1)
+    with pytest.raises(ValueError):
+        tdf._plan_ksplit(8, 2048, 3072, 16, 132)  # slices of 16 rows are too thin
