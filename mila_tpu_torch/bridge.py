@@ -5,7 +5,11 @@ arrays (the caller runs ``np.asarray`` on the JAX side, so this module never
 sees JAX) and returns the port's dict of tensors with the same nesting.
 Quantized weights (any object with ``q``, ``scale``, ``block_size`` and
 ``packed_rows``) become :class:`~mila_tpu_torch.inference.quantize.QTensor`
-with those fields carried unchanged.
+with those fields carried unchanged. The decode weight packs
+(``LayerPack``, ``LayerStream``: named tuples of arrays and int fields)
+become the port's named tuples of the same name and fields, arrays
+converted and ints unchanged, so a JAX-packed tree runs the port's kernels
+on the same bytes.
 """
 
 from __future__ import annotations
@@ -17,6 +21,10 @@ import torch
 
 from mila_tpu_torch.device import DeviceLike, resolve_device
 from mila_tpu_torch.inference.quantize import QTensor
+from mila_tpu_torch.kernels.layer_fused import LayerPack
+from mila_tpu_torch.kernels.layer_stream import LayerStream
+
+_PACKS = {"LayerPack": LayerPack, "LayerStream": LayerStream}
 
 # numpy cannot name these dtypes without extra packages; move their bytes.
 _BITCAST = {
@@ -46,6 +54,10 @@ def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
         if all(hasattr(node, f) for f in ("q", "scale", "block_size", "packed_rows")):
             return QTensor(tensor_from_numpy(node.q, dev), tensor_from_numpy(node.scale, dev),
                            int(node.block_size), int(node.packed_rows))
+        port = _PACKS.get(type(node).__name__)
+        if port is not None and getattr(node, "_fields", None) == port._fields:
+            return port(*(tensor_from_numpy(v, dev) if isinstance(v, np.ndarray) else int(v)
+                          for v in node))
         if isinstance(node, np.ndarray):
             return tensor_from_numpy(node, dev)
         raise TypeError(f"cannot bridge a {type(node).__name__} leaf")

@@ -1,10 +1,11 @@
 // qgemv_int8: decode-shape (M <= 32 rows) int8 weight stream with an
 // optional RMSNorm prologue and a store / +residual / SwiGLU epilogue.
 //
-// Replaces three TPU kernels of mila_tpu/kernels/decode_fused.py:
+// Replaces four TPU kernels of mila_tpu/kernels/decode_fused.py:
 //   _rms_qmm_kernel        (rms_quant_linear)         prologue rms, epilogue store
 //   _qmm_res_kernel        (quant_linear_residual)    no prologue, epilogue +res
 //   _rms_qmm_swiglu_kernel (rms_quant_linear_swiglu)  prologue rms, epilogue swiglu
+//   _rms_qmm_argmax_kernel (rms_quant_linear_argmax)  prologue rms, epilogue argmax
 //
 // Bound on the H100: the K x N int8 weight bytes (2*M operations per byte,
 // M <= 32). Design: a block of 8 warps owns 128 output columns (each lane 4
@@ -21,6 +22,12 @@
 // is scaled by the slice's scale row.
 // With one slice the block applies the epilogue; otherwise it writes f32
 // partials and qgemv_finish sums the slices and applies it.
+// The argmax epilogue never writes logits: each warp reduces its 32 columns
+// to one 64-bit key (order-preserving bits of the f32 value above the
+// inverted column index, so the larger value, then the lower index, wins;
+// padded vocab columns are left out) and merges it into the row's key with
+// one atomicMax. The entry point clears the keys on the stream first and
+// turns them into indices last, so the call captures into a CUDA graph.
 #include "common.cuh"
 
 namespace {
@@ -57,6 +64,26 @@ __device__ __forceinline__ void load_words(const int8_t* p, int ldq, int N,
   }
 }
 
+constexpr int MODE_ARGMAX = 3;
+
+__device__ __forceinline__ unsigned long long argmax_key(float v, int n) {
+  unsigned int u = __float_as_uint(v);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(u) << 32) | (0xffffffffu - static_cast<unsigned int>(n));
+}
+
+// Warp-wide max of the lanes' keys (column n of row slot, value v), merged
+// into *slot. All 32 lanes must call it (they share one row).
+__device__ __forceinline__ void argmax_merge(unsigned long long* slot, float v, int n, int vocab) {
+  unsigned long long k = n < vocab ? argmax_key(v, n) : 0ull;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned long long other = __shfl_xor_sync(0xffffffffu, k, o);
+    k = other > k ? other : k;
+  }
+  if ((threadIdx.x & 31) == 0 && k) atomicMax(slot, k);
+}
+
 template <typename T>
 __device__ __forceinline__ float epilogue(int mode, float v, float vu, const T* res, size_t i) {
   if (mode == 1) return v + to_f(res[i]);
@@ -69,6 +96,7 @@ __global__ void __launch_bounds__(THREADS)
 qgemv_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
              const int8_t* __restrict__ q, const float* __restrict__ scale,
              const T* __restrict__ res, T* __restrict__ out, float* __restrict__ ws,
+             unsigned long long* __restrict__ keys, int vocab,
              int M, int N, int K, int ldq, int bs, int mode, int rms, float eps, int kc) {
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;                                  // [kc][MT]
@@ -177,7 +205,9 @@ qgemv_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
     if (n >= N) continue;
     const float v = red[i] * srow[n];
     const float vu = SWIGLU ? redu[i] * srow[N + n] : 0.f;
-    if (nks == 1) {
+    if (nks == 1 && mode == MODE_ARGMAX) {  // N % COLS == 0: whole warps, one row each
+      argmax_merge(keys + m, v, n, vocab);
+    } else if (nks == 1) {
       out[(size_t)m * N + n] = from_f<T>(epilogue<T>(mode, v, vu, res, (size_t)m * N + n));
     } else {
       float* wrow = ws + ((size_t)ks * M + m) * ldq;
@@ -189,9 +219,10 @@ qgemv_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 
 template <typename T>
 __global__ void qgemv_finish(const float* __restrict__ ws, const T* __restrict__ res,
-                             T* __restrict__ out, int M, int N, int ldq, int nks, int mode) {
+                             T* __restrict__ out, unsigned long long* __restrict__ keys, int vocab,
+                             int M, int N, int ldq, int nks, int mode) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= M * N) return;
+  if (i >= M * N) return;  // argmax: N % 32 == 0, so whole warps leave together
   const int m = i / N, n = i % N;
   float v = 0.f, vu = 0.f;
   for (int s = 0; s < nks; ++s) {
@@ -199,13 +230,23 @@ __global__ void qgemv_finish(const float* __restrict__ ws, const T* __restrict__
     v += wrow[n];
     if (mode == 2) vu += wrow[N + n];
   }
-  out[i] = from_f<T>(epilogue<T>(mode, v, vu, res, i));
+  if (mode == MODE_ARGMAX)
+    argmax_merge(keys + m, v, n, vocab);
+  else
+    out[i] = from_f<T>(epilogue<T>(mode, v, vu, res, i));
+}
+
+// Row keys -> column indices (the low 32 bits hold the inverted index).
+__global__ void argmax_index(const unsigned long long* __restrict__ keys, int* __restrict__ out,
+                             int M) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m < M) out[m] = static_cast<int>(0xffffffffu - static_cast<unsigned int>(keys[m]));
 }
 
 template <int MT, typename T, bool SWIGLU>
 void launch(const void* x, const void* gamma, const void* q, const void* scale, const void* res,
-            void* out, void* ws, int M, int N, int K, int ldq, int bs, int mode, int rms,
-            float eps, int ksplit, cudaStream_t stream) {
+            void* out, void* ws, unsigned long long* keys, int vocab, int M, int N, int K, int ldq,
+            int bs, int mode, int rms, float eps, int ksplit, cudaStream_t stream) {
   const int kc = K / ksplit;
   const size_t smem = sizeof(float) * ((size_t)kc * MT + (size_t)MT * COLS * (SWIGLU ? 2 : 1));
   auto kern = qgemv_kernel<MT, T, SWIGLU>;
@@ -222,29 +263,34 @@ void launch(const void* x, const void* gamma, const void* q, const void* scale, 
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(gamma), static_cast<const int8_t*>(q),
       static_cast<const float*>(scale), static_cast<const T*>(res), static_cast<T*>(out),
-      static_cast<float*>(ws), M, N, K, ldq, bs, mode, rms, eps, kc);
+      static_cast<float*>(ws), keys, vocab, M, N, K, ldq, bs, mode, rms, eps, kc);
   if (ksplit > 1) {
     const int total = M * N;
     qgemv_finish<T><<<(total + 255) / 256, 256, 0, stream>>>(
-        static_cast<const float*>(ws), static_cast<const T*>(res), static_cast<T*>(out), M, N,
-        ldq, ksplit, mode);
+        static_cast<const float*>(ws), static_cast<const T*>(res), static_cast<T*>(out), keys,
+        vocab, M, N, ldq, ksplit, mode);
   }
 }
 
 template <typename T>
 void dispatch(int mt, bool swiglu, const void* x, const void* gamma, const void* q,
-              const void* scale, const void* res, void* out, void* ws, int M, int N, int K,
-              int ldq, int bs, int mode, int rms, float eps, int ksplit, cudaStream_t s) {
+              const void* scale, const void* res, void* out, void* ws, unsigned long long* keys,
+              int vocab, int M, int N, int K, int ldq, int bs, int mode, int rms, float eps,
+              int ksplit, cudaStream_t s) {
   if (mt == 8) {
     if (swiglu)
-      launch<8, T, true>(x, gamma, q, scale, res, out, ws, M, N, K, ldq, bs, mode, rms, eps, ksplit, s);
+      launch<8, T, true>(x, gamma, q, scale, res, out, ws, keys, vocab, M, N, K, ldq, bs, mode,
+                         rms, eps, ksplit, s);
     else
-      launch<8, T, false>(x, gamma, q, scale, res, out, ws, M, N, K, ldq, bs, mode, rms, eps, ksplit, s);
+      launch<8, T, false>(x, gamma, q, scale, res, out, ws, keys, vocab, M, N, K, ldq, bs, mode,
+                          rms, eps, ksplit, s);
   } else {
     if (swiglu)
-      launch<32, T, true>(x, gamma, q, scale, res, out, ws, M, N, K, ldq, bs, mode, rms, eps, ksplit, s);
+      launch<32, T, true>(x, gamma, q, scale, res, out, ws, keys, vocab, M, N, K, ldq, bs, mode,
+                          rms, eps, ksplit, s);
     else
-      launch<32, T, false>(x, gamma, q, scale, res, out, ws, M, N, K, ldq, bs, mode, rms, eps, ksplit, s);
+      launch<32, T, false>(x, gamma, q, scale, res, out, ws, keys, vocab, M, N, K, ldq, bs, mode,
+                           rms, eps, ksplit, s);
   }
 }
 
@@ -263,10 +309,31 @@ extern "C" int qgemv_int8(const void* x, const void* gamma, const void* q, const
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool swiglu = mode == 2;
   if (is_f32)
-    dispatch<float>(m_tile, swiglu, x, gamma, q, scale, res, out, ws, M, N, K, ldq, block_size,
-                    mode, rms, eps, ksplit, s);
+    dispatch<float>(m_tile, swiglu, x, gamma, q, scale, res, out, ws, nullptr, 0, M, N, K, ldq,
+                    block_size, mode, rms, eps, ksplit, s);
   else
-    dispatch<__nv_bfloat16>(m_tile, swiglu, x, gamma, q, scale, res, out, ws, M, N, K, ldq,
-                            block_size, mode, rms, eps, ksplit, s);
+    dispatch<__nv_bfloat16>(m_tile, swiglu, x, gamma, q, scale, res, out, ws, nullptr, 0, M, N,
+                            K, ldq, block_size, mode, rms, eps, ksplit, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Greedy head: out[m] = argmax over n < vocab of rmsnorm(x)[m] @ dequant(q)[:, n]
+// (first index on ties), with the same arithmetic as qgemv_int8's store mode.
+// keys [M] u64 scratch (cleared here); out [M] int32; ws as for qgemv_int8.
+// Needs N % 128 == 0 (checked by the Python wrapper).
+extern "C" int qgemv_int8_argmax(const void* x, const void* gamma, const void* q,
+                                 const void* scale, void* keys, void* out, void* ws, int M, int N,
+                                 int K, int block_size, int vocab, float eps, int ksplit,
+                                 int m_tile, int is_f32, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned long long* k = static_cast<unsigned long long*>(keys);
+  cudaMemsetAsync(k, 0, sizeof(unsigned long long) * M, s);
+  if (is_f32)
+    dispatch<float>(m_tile, false, x, gamma, q, scale, nullptr, nullptr, ws, k, vocab, M, N, K,
+                    N, block_size, MODE_ARGMAX, 1, eps, ksplit, s);
+  else
+    dispatch<__nv_bfloat16>(m_tile, false, x, gamma, q, scale, nullptr, nullptr, ws, k, vocab, M,
+                            N, K, N, block_size, MODE_ARGMAX, 1, eps, ksplit, s);
+  argmax_index<<<1, 32, 0, s>>>(k, static_cast<int*>(out), M);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,19 +1,31 @@
-"""Inference engine: continuous batching over a paged KV cache (port of the
-paged layout of ``mila_tpu/inference/engine.py``).
+"""Inference engine: continuous batching over a paged or a contiguous KV
+cache (port of ``mila_tpu/inference/engine.py``).
 
-Request admission is gated on a worst-case page reservation; admitted
-requests prefill together, one call per prompt bucket; then every engine
-step decodes ``decode_chunk`` tokens for all active slots in lock step,
-sampling on the device, with one device-to-host copy per chunk. Slots that
-finish mid-chunk overshoot harmlessly; their pages are reclaimed at
-retirement.
+Two layouts share the engine logic:
+
+- ``paged`` (``auto`` picks it when the model has the paged protocol):
+  admission is gated on a worst-case page reservation; admitted requests
+  prefill together, one call per prompt bucket, writing pages through the
+  table; decode reads pages through the paged attention kernel.
+- ``contiguous``: per-slot [max_batch, maxT] caches (``init_kv_cache``);
+  each admitted request prefills alone at its bucket, writing its slot's
+  rows in place (JAX runs the prefill on a one-row cache and merges it
+  into the slot with a one-hot ``where``); decode runs
+  ``forward_with_cache_ragged``, the dense or, with ``pack_decode_layers``
+  params, the fused decode kernels.
+
+Every engine step then decodes ``decode_chunk`` tokens for all active slots
+in lock step, sampling on the device, with one device-to-host copy per
+chunk. Slots that finish mid-chunk overshoot harmlessly; their pages are
+reclaimed (paged) or their rows rewritten by the next prefill (contiguous).
 
 Differences from the JAX engine: PyTorch runs eagerly, so the chunk is a
-Python loop of ``forward_paged_ragged`` calls where JAX traced a
-``lax.scan``; rows without a request keep their position frozen at 0
-instead of advancing (their writes go to the reserved page 0 either way);
-random draws come from a ``torch.Generator``. The contiguous and giga
-layouts and speculative decoding are not ported yet and raise.
+Python loop of forward calls where JAX traced a ``lax.scan``; rows without
+a request keep their position frozen at 0 instead of advancing (their
+writes go to the reserved page 0, or to row 0 of their own slot, and are
+never read); random draws come from a ``torch.Generator``. The giga
+decode (params with ``giga_pack``) and speculative decoding are not ported
+yet and raise.
 """
 
 from __future__ import annotations
@@ -66,7 +78,7 @@ class EngineConfig:
     prefill_buckets: tuple = (32, 64, 128, 256, 512, 1024)
     cache_dtype: str = "bfloat16"
     decode_chunk: int = 8  # tokens decoded per step before one host fetch
-    kv_layout: str = "auto"  # auto | paged (contiguous is not ported yet)
+    kv_layout: str = "auto"  # auto | paged | contiguous
     page_size: int = 128
     num_pages: int = 0  # 0 -> max_batch * ceil(max_len / page_size) + 1
     speculative_k: int = 0  # not ported yet; must stay 0
@@ -74,7 +86,9 @@ class EngineConfig:
 
 class InferenceEngine:
     """Continuous-batching engine over a model with the paged protocol
-    (``init_paged_cache``, ``forward_paged_prefill``, ``forward_paged_ragged``).
+    (``init_paged_cache``, ``forward_paged_prefill``, ``forward_paged_ragged``)
+    or the contiguous one (``init_kv_cache``, ``forward_with_cache``,
+    ``forward_with_cache_ragged``).
 
     Runs on ``device``: the GPU unless the caller passes ``device="cpu"``.
     """
@@ -87,18 +101,33 @@ class InferenceEngine:
         self.device = resolve_device(device)
         if getattr(model, "device", self.device).type != self.device.type:
             raise ValueError(f"model lives on {model.device}, engine on {self.device}")
-        if c.kv_layout not in ("auto", "paged"):
-            raise NotImplementedError(f"kv_layout={c.kv_layout!r} is not ported yet "
-                                      "(the port serves the paged layout)")
-        if not hasattr(model, "forward_paged_ragged"):
+        paged_capable = hasattr(model, "forward_paged_ragged")
+        if c.kv_layout == "auto":
+            self.kv_layout = "paged" if paged_capable else "contiguous"
+        elif c.kv_layout == "paged" and not paged_capable:
             raise ValueError("model has no paged-forward protocol")
+        elif c.kv_layout not in ("paged", "contiguous"):
+            raise ValueError(f"unknown kv_layout {c.kv_layout!r}")
+        else:
+            self.kv_layout = c.kv_layout
+        dt = CACHE_DTYPES[c.cache_dtype]
+        if dt == torch.int8 and self.kv_layout != "paged":
+            raise ValueError("int8 KV cache requires the paged layout")
         if c.speculative_k:
             raise NotImplementedError("speculative decoding is not ported yet")
-        ps = c.page_size
-        num_pages = c.num_pages or (c.max_batch * -(-c.max_len // ps) + 1)
-        self.pools = model.init_paged_cache(num_pages, ps, CACHE_DTYPES[c.cache_dtype])
-        self.alloc = PageAllocator(num_pages, ps, c.max_batch, c.max_len)
-        self.num_pages_total = num_pages
+        if self.kv_layout == "paged":
+            ps = c.page_size
+            num_pages = c.num_pages or (c.max_batch * -(-c.max_len // ps) + 1)
+            self.pools = model.init_paged_cache(num_pages, ps, dt)
+            self.alloc = PageAllocator(num_pages, ps, c.max_batch, c.max_len)
+            self.num_pages_total = num_pages
+            self.cache = None
+        else:
+            if isinstance(params, dict) and "giga_pack" in params:
+                raise NotImplementedError("the giga decode (giga_decode_step, kernel table "
+                                          "row 10) is not ported yet")
+            self.cache = model.init_kv_cache(c.max_batch, c.max_len, dt)
+            self.pools = self.alloc = None
         self._slots: list[Optional[Request]] = [None] * c.max_batch
         self._queue: list[Request] = []
         self._req_ids = itertools.count()
@@ -123,10 +152,11 @@ class InferenceEngine:
                       priority=priority, on_token=on_token, submitted_at=time.monotonic())
         if len(req.prompt) + max_new_tokens + self._overshoot_margin() > self.config.max_len:
             raise ValueError("prompt + max_new_tokens exceeds engine max_len")
-        worst = self.alloc.pages_for(self._worst_len(req))
-        if worst > self.num_pages_total - 1:
-            raise ValueError(f"request needs {worst} KV pages; pool has "
-                             f"{self.num_pages_total - 1}")
+        if self.kv_layout == "paged":
+            worst = self.alloc.pages_for(self._worst_len(req))
+            if worst > self.num_pages_total - 1:
+                raise ValueError(f"request needs {worst} KV pages; pool has "
+                                 f"{self.num_pages_total - 1}")
         self._queue.append(req)
         self._queue.sort(key=lambda r: (r.priority, r.id))
         return req
@@ -158,8 +188,9 @@ class InferenceEngine:
         if 0 < bound < chunk:
             chunk = 1 << (bound - 1).bit_length()
         t0 = time.monotonic()
-        for i in active:
-            self.alloc.ensure(i, int(self._positions[i]) + chunk)
+        if self.kv_layout == "paged":
+            for i in active:
+                self.alloc.ensure(i, int(self._positions[i]) + chunk)
         dev = self._device_operands()
         start_pos = self._positions.copy()
         toks_dev = self._decode_chunk(chunk, dev)
@@ -236,10 +267,11 @@ class InferenceEngine:
                 "table": None,
             }
             self._dev_dirty = False
-        tbl = self.alloc.table
-        if self._dev["table_np"] is None or not np.array_equal(self._dev["table_np"], tbl):
-            self._dev["table_np"] = tbl.copy()
-            self._dev["table"] = torch.from_numpy(tbl.copy()).to(self.device)
+        if self.kv_layout == "paged":
+            tbl = self.alloc.table
+            if self._dev["table_np"] is None or not np.array_equal(self._dev["table_np"], tbl):
+                self._dev["table_np"] = tbl.copy()
+                self._dev["table"] = torch.from_numpy(tbl.copy()).to(self.device)
         return self._dev
 
     def _decode_chunk(self, chunk: int, dev: dict) -> torch.Tensor:
@@ -249,8 +281,12 @@ class InferenceEngine:
         out = torch.empty((self.config.max_batch, chunk), dtype=torch.int32,
                           device=self.device)
         for j in range(chunk):
-            logits, self.pools = self.model.forward_paged_ragged(
-                self.params, toks, self.pools, dev["table"], pos)
+            if self.kv_layout == "paged":
+                logits, self.pools = self.model.forward_paged_ragged(
+                    self.params, toks, self.pools, dev["table"], pos)
+            else:
+                logits, self.cache = self.model.forward_with_cache_ragged(
+                    self.params, toks, self.cache, pos)
             nxt = self._sample(logits[:, -1, :V], dev["greedy"], dev["temps"],
                                dev["all_greedy"])
             out[:, j] = nxt
@@ -276,18 +312,24 @@ class InferenceEngine:
         one batched call per bucket. A request whose worst-case pages are
         not available stays queued until retirements free them."""
         admitted, skipped = [], []
+        paged = self.kv_layout == "paged"
         while self._queue and any(s is None for s in self._slots):
             req = self._queue.pop(0)
-            if not self.alloc.can_admit(self._worst_len(req)):
+            if paged and not self.alloc.can_admit(self._worst_len(req)):
                 skipped.append(req)
                 continue
             slot = next(i for i, s in enumerate(self._slots) if s is None)
             req.slot = slot
             self._slots[slot] = req
-            self.alloc.reserve(slot, self._worst_len(req))
+            if paged:
+                self.alloc.reserve(slot, self._worst_len(req))
             admitted.append(req)
         if skipped:
             self._queue = sorted(skipped + self._queue, key=lambda r: (r.priority, r.id))
+        if not paged:
+            for req in admitted:
+                self._contiguous_prefill(req, finished)
+            return
         groups: dict[int, list[Request]] = {}
         for req in admitted:
             groups.setdefault(self._bucket_for(len(req.prompt)), []).append(req)
@@ -334,6 +376,32 @@ class InferenceEngine:
             self.stats["prefills"] += 1
             self._maybe_finish(req, finished)
 
+    def _contiguous_prefill(self, req: Request, finished: list) -> None:
+        """Prefill one admission at its bucket into its own slot: the
+        forward runs on views of the slot's cache rows, so its writes land
+        in place."""
+        T0 = len(req.prompt)
+        bucket = self._bucket_for(T0)
+        tokens = np.zeros((1, bucket), np.int32)
+        tokens[0, :T0] = req.prompt
+        s = req.slot
+        rows = {name: {"k": lc["k"][s:s + 1], "v": lc["v"][s:s + 1]}
+                for name, lc in self.cache.items()}
+        t0 = time.monotonic()
+        logits, _ = self.model.forward_with_cache(
+            self.params, torch.from_numpy(tokens).to(self.device), rows, 0)
+        V = self.model.config.vocab_size
+        tok = int(sample_logits(logits[0, T0 - 1, :V], self._gen, req.sampling))
+        self.stats["t_prefill_s"] += time.monotonic() - t0
+        self.stats["prefill_groups"] += 1
+        self._emit(req, tok)
+        req.first_token_at = time.monotonic()
+        self._positions[s] = T0
+        self._last_token[s] = tok
+        self._dev_dirty = True
+        self.stats["prefills"] += 1
+        self._maybe_finish(req, finished)
+
     def _emit(self, req: Request, tok: int) -> None:
         req.output.append(tok)
         self.stats["tokens_out"] += 1
@@ -353,7 +421,8 @@ class InferenceEngine:
             self.stats["cancelled"] += 1
         finished.append(req)
         if req.slot >= 0 and self._slots[req.slot] is req:
-            self.alloc.release(req.slot)
+            if self.kv_layout == "paged":
+                self.alloc.release(req.slot)
             self._positions[req.slot] = 0
             self._last_token[req.slot] = 0
             self._slots[req.slot] = None

@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("qmm_int8", "qgemv_int8", "paged_decode_attn")
+KERNELS = ("qmm_int8", "qgemv_int8", "paged_decode_attn", "dense_decode_attn",
+           "layer_tail_int8")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

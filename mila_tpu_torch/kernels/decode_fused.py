@@ -1,17 +1,23 @@
-"""Decode-shape fused weight streams (M <= 32 rows): RMSNorm, residual add
-and SwiGLU folded into the int8 dequant matmul.
+"""Decode-shape fused weight streams (M <= 32 rows): RMSNorm, residual add,
+SwiGLU and the greedy argmax folded into the int8 dequant matmul.
 
-Replaces three TPU kernels of ``mila_tpu/kernels/decode_fused.py``:
+Replaces four TPU kernels of ``mila_tpu/kernels/decode_fused.py``:
 
 - ``rms_quant_linear`` (``_rms_qmm_kernel``): y = bf16(rmsnorm(x)*gamma) @ W
   -- wqkv at decode, and norm_f -> lm_head;
 - ``quant_linear_residual`` (``_qmm_res_kernel``): y = x @ W + res -- wo, down;
 - ``rms_quant_linear_swiglu`` (``_rms_qmm_swiglu_kernel``): rmsnorm ->
-  [gate|up] -> silu(g)*u -- wgu.
+  [gate|up] -> silu(g)*u -- wgu;
+- ``rms_quant_linear_argmax`` (``_rms_qmm_argmax_kernel``): norm_f ->
+  lm_head -> per-row argmax token; the logits are never written. Each
+  block reduces its columns to a 64-bit key (order-preserving f32 bits
+  above the inverted column index, so the larger value and then the lower
+  index win) and merges it with one ``atomicMax`` per warp into a per-row
+  key the call resets first; a last tiny pass turns keys into indices.
 
 What bounds it on the H100: the int8 weight stream (K*N bytes against
 2*M*K*N operations, M <= 32: far below the card's operations-per-byte
-balance). One CUDA kernel family (``csrc/qgemv_int8.cu``) serves all three:
+balance). One CUDA kernel family (``csrc/qgemv_int8.cu``) serves all four:
 a block owns 128 output columns and a slice of K, each thread streams
 4-byte coalesced weight words, activations are staged per K slice in shared
 memory (the whole [M, K] x of the TPU kernel does not fit: 32x8192 bf16 is
@@ -30,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -110,8 +117,21 @@ def rms_quant_linear_swiglu_plain(x, gamma, qt: QTensor, eps: float = 1e-5):
     return (g * torch.sigmoid(g) * u).to(x.dtype).reshape(*x.shape[:-1], I)
 
 
+def rms_quant_linear_argmax_plain(x, gamma, qt: QTensor, *, vocab_size: int,
+                                  eps: float = 1e-5):
+    """Plain version of :func:`rms_quant_linear_argmax` for a shape the
+    kernel takes: argmax over the f32 scaled partial sums (not over
+    bf16-rounded logits), padded vocab columns excluded, first index on ties."""
+    rms_quant_linear_argmax_plain.calls += 1
+    K = qt.q.shape[0]
+    x2 = x.reshape(-1, K)
+    logits = scaled_partials(_rms_scaled(x2, gamma, eps), qt)[:, :vocab_size]
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    return tok.reshape(*x.shape[:-1], 1)
+
+
 for _f in (rms_quant_linear_plain, quant_linear_residual_plain,
-           rms_quant_linear_swiglu_plain):
+           rms_quant_linear_swiglu_plain, rms_quant_linear_argmax_plain):
     _f.calls = 0
 
 # ---------------------------------------------------------------------------
@@ -153,6 +173,9 @@ def _qgemv_lib() -> ctypes.CDLL:
         lib.qgemv_int8.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
                                    ci, ci, ci, ctypes.c_float, ci, ci, ci, vp]
         lib.qgemv_int8.restype = ci
+        lib.qgemv_int8_argmax.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                          ctypes.c_float, ci, ci, ci, vp]
+        lib.qgemv_int8_argmax.restype = ci
         lib._typed = True
     return lib
 
@@ -160,7 +183,8 @@ def _qgemv_lib() -> ctypes.CDLL:
 _MODE = {"store": 0, "residual": 1, "swiglu": 2}
 
 
-def _launch(x, qt: QTensor, *, mode: str, gamma=None, res=None, eps: float = 0.0):
+def _launch(x, qt: QTensor, *, mode: str, gamma=None, res=None, eps: float = 0.0,
+            vocab: int = 0):
     K = qt.packed_rows or qt.q.shape[0]
     ldq = qt.q.shape[1]
     n_out = ldq // 2 if mode == "swiglu" else ldq
@@ -194,11 +218,23 @@ def _launch(x, qt: QTensor, *, mode: str, gamma=None, res=None, eps: float = 0.0
         r2 = r2.contiguous()
     mt, ks = _plan_ksplit(M, K, n_out, qt.block_size,
                            _sm_count(x2.device.index or 0))
-    out = torch.empty((M, n_out), dtype=x2.dtype, device=x2.device)
     ws = None
     if ks > 1:
         ws = torch.empty((ks, M, ldq), dtype=torch.float32, device=x2.device)
     lib = _qgemv_lib()
+    if mode == "argmax":
+        if ldq % 128:
+            raise ValueError(f"qgemv_int8 argmax needs N % 128 == 0 (N={ldq})")
+        keys = torch.empty((M,), dtype=torch.int64, device=x2.device)  # reset in the call
+        tok = torch.empty((M,), dtype=torch.int32, device=x2.device)
+        rc = lib.qgemv_int8_argmax(
+            _build.ptr(x2), _build.ptr(g32), _build.ptr(qt.q), _build.ptr(qt.scale),
+            _build.ptr(keys), _build.ptr(tok), None if ws is None else _build.ptr(ws),
+            M, ldq, K, qt.block_size, vocab, eps, ks, mt, int(x2.dtype == torch.float32),
+            _build.stream_of(x2))
+        _build.check(lib, rc, "qgemv_int8_argmax")
+        return tok
+    out = torch.empty((M, n_out), dtype=x2.dtype, device=x2.device)
     rc = lib.qgemv_int8(
         _build.ptr(x2), None if g32 is None else _build.ptr(g32),
         _build.ptr(qt.q), _build.ptr(qt.scale),
@@ -244,5 +280,25 @@ def rms_quant_linear_swiglu(x: torch.Tensor, gamma: torch.Tensor, qt: QTensor, *
     return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
-for _f in (rms_quant_linear, quant_linear_residual, rms_quant_linear_swiglu):
+def rms_quant_linear_argmax(x: torch.Tensor, gamma: torch.Tensor, qt: QTensor, *,
+                            vocab_size: int, eps: float = 1e-5) -> Optional[torch.Tensor]:
+    """Greedy head: argmax over rmsnorm(x, gamma) @ dequant(qt), the argmax
+    fused into the weight stream. Returns [..., 1] int32 token ids, or None
+    exactly where the JAX entry point does (a shape its kernel does not
+    take, or vocab_size > N): the caller then takes the unfused head and
+    argmaxes its logits."""
+    K = qt.packed_rows or qt.q.shape[0]
+    N = qt.q.shape[1]
+    M = x.numel() // K
+    if not (_decode_ok(M, K, N, qt, resident=True) and vocab_size <= N):
+        return None
+    if not x.is_cuda:
+        return rms_quant_linear_argmax_plain(x, gamma, qt, vocab_size=vocab_size, eps=eps)
+    tok = _launch(x, qt, mode="argmax", gamma=gamma, eps=eps, vocab=vocab_size)
+    rms_quant_linear_argmax.launches += 1
+    return tok.reshape(*x.shape[:-1], 1)
+
+
+for _f in (rms_quant_linear, quant_linear_residual, rms_quant_linear_swiglu,
+           rms_quant_linear_argmax):
     _f.launches = 0

@@ -1,16 +1,27 @@
-"""Llama-3.x: RMSNorm + RoPE + GQA + SwiGLU with the paged KV-cache protocol
-(port of ``mila_tpu/models/llama.py``, paged path).
+"""Llama-3.x: RMSNorm + RoPE + GQA + SwiGLU with the paged and the
+contiguous KV-cache protocols (port of ``mila_tpu/models/llama.py``).
 
 Parameters are a plain dict of tensors with the JAX package's tree layout
 (``embed/wte``, ``h{i}/{ln_attn,wq,...}/...``, ``norm_f/gamma``, optional
-``lm_head_q``), so ``mila_tpu_torch.bridge.params_from_jax`` maps a JAX
-tree 1:1. Weights are [in, out].
+``lm_head_q`` and ``layer_stream``), so
+``mila_tpu_torch.bridge.params_from_jax`` maps a JAX tree 1:1. Weights are
+[in, out].
 
 The kernel dispatch mirrors the JAX model exactly, so that both sides take
 the same arithmetic: quantized fused projections at B*T <= 32 rows run the
 decode kernels (``kernels/decode_fused.py``), every other quantized weight
-goes through ``quant_linear`` (``kernels/quant_matmul.py``), and decode
-attention reads pages through ``kernels/paged_attention.py``.
+goes through ``quant_linear`` (``kernels/quant_matmul.py``), paged decode
+attention reads pages through ``kernels/paged_attention.py``, and
+contiguous decode attention reads the cache through
+``kernels/dense_attention.py``. With ``pack_decode_layers`` params a decode
+step runs two kernels per layer: ``fused_decode_attention`` and
+``layer_tail_stream`` (``kernels/layer_stream.py``); the greedy head fuses
+its argmax (``rms_quant_linear_argmax``).
+
+JAX's caches are immutable values; the port's contiguous caches are
+written in place (the new rows of each step go into the tensors passed
+in), and the functions return the same tensors, so callers may rebind as
+with JAX.
 """
 
 from __future__ import annotations
@@ -31,8 +42,15 @@ from mila_tpu_torch.inference.quantize import QTensor, quantize
 from mila_tpu_torch.kernels.decode_fused import (
     quant_linear_residual,
     rms_quant_linear,
+    rms_quant_linear_argmax,
     rms_quant_linear_swiglu,
 )
+from mila_tpu_torch.kernels.dense_attention import (
+    dense_decode_attention,
+    fused_decode_attention,
+)
+from mila_tpu_torch.kernels.layer_fused import pack_layer
+from mila_tpu_torch.kernels.layer_stream import layer_tail_stream, pack_layer_stream
 from mila_tpu_torch.kernels.quant_matmul import quant_linear
 from mila_tpu_torch.utils.config import BaseConfig, ConfigError
 
@@ -161,6 +179,31 @@ class LlamaBlock:
         att = ops.dot_product_attention(q, k, v, causal=True)
         return self._finish_attn(params, x, att)
 
+    def apply_with_cache(self, params: dict, x: torch.Tensor, cache: dict, pos: int,
+                         cos, sin):
+        """Incremental step: x [B, t, H] at absolute position ``pos``; the
+        cache [B, maxT, NKV, HD] (token-major) takes rows pos..pos+t-1 in
+        place. One token attends through the dense decode kernel, a prompt
+        through the plain masked attention. Returns (x, cache)."""
+        q, k, v = self._qkv(params, x)
+        q = ops.apply_rope(q, cos, sin)
+        k = ops.apply_rope(k, cos, sin)
+        kc, vc = cache["k"], cache["v"]
+        B, t = x.shape[:2]
+        kc[:, pos:pos + t] = k.to(kc.dtype)
+        vc[:, pos:pos + t] = v.to(vc.dtype)
+        total = pos + t
+        if t == 1:
+            lens = torch.full((B,), total, dtype=torch.int32, device=x.device)
+            att = dense_decode_attention(q, kc, vc, lens)
+        else:
+            maxT = kc.shape[1]
+            kj = torch.arange(maxT, device=x.device)[None, :]
+            qi = torch.arange(t, device=x.device)[:, None] + pos
+            mask = (kj <= qi)[None].expand(B, t, maxT)
+            att = ops.dot_product_attention(q, kc, vc, causal=False, mask=mask)
+        return self._finish_attn(params, x, att), {"k": kc, "v": vc}
+
 
 class Llama:
     """The model's forward passes over a params dict (see module doc).
@@ -269,6 +312,127 @@ class Llama:
             x = blk._finish_attn(bp, x, att)
         return self._norm_logits(params, x), pools
 
+    # --- contiguous KV-cache protocol (Generator, bench decode, engine) ---
+
+    def init_kv_cache(self, batch_size: int, max_len: int = 0, dtype=torch.bfloat16) -> dict:
+        """Per-layer token-major caches {"h{i}": {"k", "v"}} of [B, maxT, NKV,
+        HD] zeros; maxT rounded up to a multiple of 8 (the fused decode
+        kernel's alignment rule)."""
+        cfg = self.config
+        maxT = max_len or min(cfg.max_seq_len, 4096)
+        maxT = (maxT + 7) // 8 * 8
+        shape = (batch_size, maxT, cfg.num_kv_heads, cfg.hd)
+        return {f"h{i}": {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                          "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+                for i in range(cfg.num_layers)}
+
+    @staticmethod
+    def _fused_decode_ready(params: dict) -> bool:
+        return "layer_stream" in params or "mega_pack" in params.get("h0", {})
+
+    def _backbone_with_cache(self, params: dict, tokens: torch.Tensor, cache: dict, pos: int):
+        """Embed + decoder stack (no head): returns (x [B, t, H], cache)."""
+        B, t = tokens.shape
+        pos = int(pos)
+        x = params["embed"]["wte"][tokens.long()]
+        positions = pos + torch.arange(t, device=tokens.device)[None].expand(B, t)
+        cos, sin = self._rope(positions)
+        if t == 1 and B <= 32 and self._fused_decode_ready(params):
+            old_lens = torch.full((B,), pos, dtype=torch.int32, device=tokens.device)
+            return self._backbone_fused_decode(params, x, cache, old_lens, cos, sin)
+        new_cache = {}
+        for i, blk in enumerate(self.blocks):
+            x, new_cache[f"h{i}"] = blk.apply_with_cache(params[f"h{i}"], x, cache[f"h{i}"],
+                                                         pos, cos, sin)
+        return x, new_cache
+
+    def _backbone_fused_decode(self, params: dict, x: torch.Tensor, cache: dict,
+                               old_lens: torch.Tensor, cos, sin):
+        """Two kernels per layer: fused decode attention (RoPE, attention,
+        cache write-back) then the layer tail with the NEXT layer's
+        rms + wqkv (``layer_stream``). Per-row ``old_lens`` (ragged)."""
+        if "mega_pack" in params.get("h0", {}):
+            raise NotImplementedError("layer_megakernel (kernel table row 14, "
+                                      "pack_decode_megalayers) is not ported yet")
+        cfg = self.config
+        B = x.shape[0]
+        NH, NKV, HD = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+        NQ, KD = NH * HD, NKV * HD
+        # Full-width tiled RoPE tables, once per step: cos duplicated across
+        # the split halves, sin pre-signed [-sin | sin].
+        c2, s2 = cos.reshape(B, HD // 2), sin.reshape(B, HD // 2)
+        cos_t = torch.cat([c2, c2], dim=-1).repeat(1, NKV)
+        sin_t = torch.cat([-s2, s2], dim=-1).repeat(1, NKV)
+        qkv = rms_quant_linear(x, params["h0"]["ln_attn"]["gamma"],
+                               params["h0"]["wqkv"]["weight"], eps=cfg.rms_eps)
+        new_cache = {}
+        for i in range(cfg.num_layers):
+            lc = cache[f"h{i}"]
+            att, _, k_c, v_c = fused_decode_attention(
+                qkv.reshape(B, NQ + 2 * KD), None, cos_t, sin_t, lc["k"], lc["v"], old_lens,
+                num_heads=NH)
+            new_cache[f"h{i}"] = {"k": k_c, "v": v_c}
+            gamma_next = (params[f"h{i + 1}"]["ln_attn"]["gamma"]
+                          if i + 1 < cfg.num_layers else None)
+            x, qkv = layer_tail_stream(att.reshape(B, 1, NQ), x,
+                                       params[f"h{i}"]["ln_mlp"]["gamma"],
+                                       params["layer_stream"], i, gamma_next, eps=cfg.rms_eps)
+        return x, new_cache
+
+    def forward_with_cache(self, params: dict, tokens: torch.Tensor, cache: dict, pos: int):
+        """tokens [B, t] at absolute position ``pos`` -> (logits [B, t, V],
+        cache)."""
+        x, new_cache = self._backbone_with_cache(params, tokens, cache, pos)
+        return self._norm_logits(params, x), new_cache
+
+    def greedy_step_with_cache(self, params: dict, tokens: torch.Tensor, cache: dict,
+                               pos: int):
+        """Greedy decode step: (next_token [B, 1] int32, cache). At decode
+        shapes with a quantized head the argmax fuses into the head's weight
+        stream; otherwise forward_with_cache + argmax."""
+        V = self.config.vocab_size
+        B, t = tokens.shape
+        if "lm_head_q" in params and B * t <= 32:
+            x, new_cache = self._backbone_with_cache(params, tokens, cache, pos)
+            tok = rms_quant_linear_argmax(x[:, -1:, :], params["norm_f"]["gamma"],
+                                          params["lm_head_q"], vocab_size=V,
+                                          eps=self.config.rms_eps)
+            if tok is not None:
+                return tok.reshape(B, 1), new_cache
+            logits = self._norm_logits(params, x[:, -1:, :])
+        else:
+            logits, new_cache = self.forward_with_cache(params, tokens, cache, pos)
+        nxt = torch.argmax(logits[:, -1, :V], dim=-1)
+        return nxt.to(torch.int32)[:, None], new_cache
+
+    def forward_with_cache_ragged(self, params: dict, tokens: torch.Tensor, cache: dict,
+                                  positions: torch.Tensor):
+        """Single-token decode with per-row positions (continuous batching):
+        tokens [B, 1], positions [B] = rows already stored per sequence.
+        Returns (logits [B, 1, V], cache)."""
+        B = tokens.shape[0]
+        x = params["embed"]["wte"][tokens.long()]
+        cos, sin = self._rope(positions[:, None])
+        if B <= 32 and self._fused_decode_ready(params):
+            x, new_cache = self._backbone_fused_decode(
+                params, x, cache, positions.to(torch.int32), cos, sin)
+            return self._norm_logits(params, x), new_cache
+        rows = torch.arange(B, device=tokens.device)
+        pos = positions.long()
+        lens = (positions + 1).to(torch.int32)
+        new_cache = {}
+        for i, blk in enumerate(self.blocks):
+            bp, lc = params[f"h{i}"], cache[f"h{i}"]
+            q, k, v = blk._qkv(bp, x)
+            q = ops.apply_rope(q, cos, sin)
+            k = ops.apply_rope(k, cos, sin)
+            lc["k"][rows, pos] = k[:, 0].to(lc["k"].dtype)
+            lc["v"][rows, pos] = v[:, 0].to(lc["v"].dtype)
+            att = dense_decode_attention(q, lc["k"], lc["v"], lens)
+            x = blk._finish_attn(bp, x, att)
+            new_cache[f"h{i}"] = {"k": lc["k"], "v": lc["v"]}
+        return self._norm_logits(params, x), new_cache
+
 
 def fuse_llama_projections(params: dict) -> dict:
     """[wq|wk|wv] -> wqkv and [gate|up] -> wgu per block (concatenated on the
@@ -285,6 +449,70 @@ def fuse_llama_projections(params: dict) -> dict:
             del b[k]
         out[name] = b
     return out
+
+
+def pack_decode_layers(params: dict, *, bn: int = 512) -> dict:
+    """Add the whole-layer decode weight stream (``layer_stream``: wo, wgu
+    and down of layer i plus wqkv of layer i+1, stacked for every layer).
+    Run after ``fuse_llama_projections`` + ``quantize_model_params``. The
+    original QTensors stay for prefill, so the stream is a second int8 image
+    of those weights. All or nothing: params come back unchanged when any
+    layer does not pack."""
+
+    def get_qt(blk, name):
+        w = blk.get(name, {}).get("weight") if isinstance(blk, dict) else None
+        return w if isinstance(w, QTensor) else None
+
+    names = sorted((n for n in params if n.startswith("h") and n[1:].isdigit()),
+                   key=lambda n: int(n[1:]))
+    packs = []
+    for idx, name in enumerate(names):
+        wo, wgu, down = (get_qt(params[name], k) for k in ("wo", "wgu", "down"))
+        if not all((wo, wgu, down)):
+            return params
+        wqkv_next = None
+        if idx + 1 < len(names):
+            wqkv_next = get_qt(params[names[idx + 1]], "wqkv")
+            if wqkv_next is None:
+                return params
+        pack = pack_layer(wo, wgu, down, wqkv_next, bn=bn)
+        if pack is None:
+            return params
+        packs.append(pack)
+    stream = pack_layer_stream(packs)
+    if stream is None:
+        return params
+    return {**params, "layer_stream": stream}
+
+
+def decode_step_bytes(params: dict, cfg: LlamaConfig, batch: int, cache_len: int,
+                      kv_bytes_per_el: int = 2) -> dict:
+    """Device-memory bytes one decode step must move (port of
+    ``benchmarks/llama_bench.py:decode_step_bytes``): every quantized weight
+    (q and scales) and 2-D weight once, the bf16 embedding only when it is
+    the head, and the K/V cache rows read at ``cache_len``. The decode packs
+    (``layer_stream``) are a second image of weights already counted."""
+    has_qhead = isinstance(params.get("lm_head_q"), QTensor)
+    weight = 0
+
+    def visit(node):
+        nonlocal weight
+        if isinstance(node, QTensor):
+            weight += node.q.nbytes + node.scale.nbytes
+        elif isinstance(node, dict):
+            for v in node.values():
+                visit(v)
+        elif isinstance(node, torch.Tensor) and node.ndim == 2:
+            weight += node.nbytes
+
+    for name, sub in params.items():
+        if name == "embed":
+            if not has_qhead and "lm_head" not in params:
+                weight += sub["wte"].nbytes
+        elif name != "layer_stream":
+            visit(sub)
+    kv = 2 * batch * cache_len * cfg.num_kv_heads * cfg.hd * kv_bytes_per_el * cfg.num_layers
+    return {"weight_bytes": int(weight), "kv_read_bytes": int(kv)}
 
 
 def add_quantized_lm_head(params: dict, dtype: str = "int8", pad_to: int = 2048) -> dict:

@@ -137,8 +137,9 @@ def test_sampled_requests_run(engine):
 
 def test_unported_layouts_raise(pair):
     _, _, tmodel, tparams = pair
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(tmodel, tparams, EngineConfig(kv_layout="contiguous"), device="cpu")
+    with pytest.raises(NotImplementedError):  # the giga decode of the contiguous layout
+        InferenceEngine(tmodel, {**tparams, "giga_pack": None},
+                        EngineConfig(kv_layout="contiguous"), device="cpu")
     with pytest.raises(NotImplementedError):
         InferenceEngine(tmodel, tparams, EngineConfig(speculative_k=2), device="cpu")
 

@@ -87,7 +87,9 @@ def test_port_imports_no_jax():
     """Importing the port pulls in neither jax nor mila_tpu."""
     code = ("import sys, mila_tpu_torch, mila_tpu_torch.models.llama, "
             "mila_tpu_torch.inference.engine, mila_tpu_torch.bridge, "
-            "mila_tpu_torch.kernels.decode_fused, mila_tpu_torch.kernels.paged_attention\n"
+            "mila_tpu_torch.kernels.decode_fused, mila_tpu_torch.kernels.paged_attention, "
+            "mila_tpu_torch.kernels.dense_attention, mila_tpu_torch.kernels.layer_fused, "
+            "mila_tpu_torch.kernels.layer_stream, mila_tpu_torch.inference.generator\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'mila_tpu.'))"
             " or m == 'mila_tpu']\n"
             "assert not bad, bad\n")
