@@ -12,28 +12,36 @@ exits non-zero without the final line):
            plain PyTorch version on the same inputs on the card: max abs
            error and tolerance, kernel / plain / library ms (CUDA events),
            and the least time the card could take (bound_ms);
-  parity   Llama-3.2-1B widths at 2 layers, int8, kernels on the card against
-           the same weights through the plain path on the CPU: the paged
-           prefill of 8 prompts and 8 decode steps; the contiguous prefill
-           (forward_with_cache) and 8 greedy_step_with_cache steps, with
-           pack_decode_layers params and without;
+  parity   Llama-3.2-1B widths at 2 layers (G = 4: the slot head order is
+           exercised), int8, kernels on the card against the same weights
+           through the plain path on the CPU: the paged prefill of 8 prompts
+           and 8 decode steps; the contiguous prefill (forward_with_cache) and
+           8 greedy_step_with_cache steps with pack_decode_layers params,
+           pack_decode_megalayers params and neither; 8 giga_step steps on
+           pack_decode_giga params; 4 forward_with_cache_ragged steps on
+           pack_decode_mlp params;
   decode   the full 16-layer Llama-3.2-1B int8 with pack_decode_layers at the
            JAX bench's decode shape (B 8, prompt 128, cache 512): prefill, 64
            greedy_step_with_cache steps (ms/step eager and as a CUDA-graph
            replay of one step, tok/s, the step's byte bound);
-  generate Generator.generate on the unpacked int8 params (B 8, 64-token
-           prompts, 16 new tokens);
+  giga     the same shape on pack_decode_giga params: prefill, stack_kv_cache,
+           64 giga_step steps (one kernel per step), the same numbers;
+  mega     the same shape on pack_decode_megalayers params: prefill and 16
+           greedy_step_with_cache steps (one kernel per layer);
+  generate Generator.generate on the unpacked int8 params and on
+           pack_decode_mlp params (B 8, 64-token prompts, 16 new tokens);
   serve    the full 16-layer Llama-3.2-1B int8 (random weights from a seed)
            served by the engine: 16 requests, 32 new tokens each, max_batch
            8, max_len 512, buckets (32, 64, 128), greedy; three identical
-           paged runs (medians reported) and one contiguous-layout run on
-           the packed params; one paged decode step timed eagerly and as a
-           CUDA-graph replay.
+           paged runs (medians reported), one contiguous-layout run on the
+           packed params and one on the giga params; one paged decode step
+           timed eagerly and as a CUDA-graph replay.
 
-On every path (decode prefill, decode, generate, each serve run) the
-launch counts are set to 0 just before it and must equal, just after it,
-the counts the path implies for all ten entry points (0 for those it does
-not reach), and no plain version may run. Then the kernel summary line
+On every path (decode prefill, decode, giga prefill, giga, mega prefill,
+mega, generate, generate mlp, each serve run) the launch counts are set to
+0 just before it and must equal, just after it, the counts the path implies
+for all thirteen entry points (0 for those it does not reach), and no plain
+version may run. Then the kernel summary line
 ({"kernels": [...]}), the card line, and as the last line
 {"ok": true, "device": {...}}. Imports only torch, numpy, the standard
 library and mila_tpu_torch.
@@ -183,12 +191,15 @@ def to_cpu(tree):
 # kernels
 # ---------------------------------------------------------------------------
 
-def phase_kernels(params, packed, cfg, bw, peak_ops, rng):
+def phase_kernels(params, packs, cfg, bw, peak_ops, rng):
     from mila_tpu_torch.inference.kv_cache import make_paged_pools
     from mila_tpu_torch.inference.quantize import dequantize
     from mila_tpu_torch.kernels import decode_fused as df
+    from mila_tpu_torch.kernels import decode_giga as dg
+    from mila_tpu_torch.kernels import decode_mlp as dm
     from mila_tpu_torch.kernels import dense_attention as da
     from mila_tpu_torch.kernels import layer_fused as lf
+    from mila_tpu_torch.kernels import layer_mega as lm
     from mila_tpu_torch.kernels import layer_stream as ls
     from mila_tpu_torch.kernels import paged_attention as pa
     from mila_tpu_torch.kernels import quant_matmul as qm
@@ -208,12 +219,15 @@ def phase_kernels(params, packed, cfg, bw, peak_ops, rng):
         """Distinct weight copies to cycle through so that they exceed L2."""
         return min(L, max(2, int(2e8 // nbytes) + 1))
 
-    def record(entry, shape, err, ref, calls, plain, library, nbytes, nops, **extra):
-        if err > ERR_TOL * ref:
+    def record(entry, shape, err, ref, calls, plain, library, nbytes, nops, gate=None,
+               **extra):
+        """gate: the description of a gate the caller has checked already;
+        otherwise err must be within ERR_TOL x ref."""
+        if gate is None and err > ERR_TOL * ref:
             raise AssertionError(f"{entry}[{shape}]: max abs err {err} > {ERR_TOL} x {ref}")
         b_ms, b_by = bound(nbytes, nops, bw, peak_ops)
         rows.append({"entry": entry, "shape": shape, "max_abs_err": err,
-                     "tolerance": ERR_TOL * ref, "ms": time_graph(calls),
+                     "tolerance": gate or ERR_TOL * ref, "ms": time_graph(calls),
                      "plain_ms": time_eager(plain),
                      "library_ms": None if library is None else time_graph(library),
                      "bound_ms": b_ms, "bound_by": b_by, **extra})
@@ -375,7 +389,7 @@ def phase_kernels(params, packed, cfg, bw, peak_ops, rng):
     # The layer tail over the packed stream: a middle layer (cycling over
     # layers 0..L-2 for the timing) and the last layer; mlp_qkv_fused over
     # per-layer pack views of the same stream.
-    stream = packed["layer_stream"]
+    stream = packs["layer_stream"]["layer_stream"]
     H, I, bn = stream.h_dim, stream.i_dim, stream.bn
     Nq = stream.n_qkv * bn
     att, x = rand(M, 1, H), rand(M, 1, H)
@@ -414,6 +428,100 @@ def phase_kernels(params, packed, cfg, bw, peak_ops, rng):
            [lambda v=v: lf.mlp_qkv_fused(att, x, g1, v, g2) for v in views],
            lambda: lf.tail_plain(att[:, 0], x[:, 0], g1, views[0], g2, eps=cfg.rms_eps),
            None, tail_bytes(n_full, Nq), ops_tail + 2 * M * H * Nq)
+
+    # The MLP-block stream (bn 2048, no next wqkv) at layer 0, M = 8,
+    # cycling over the 16 layers' packs for the timing.
+    mps = [packs["mlp"][f"h{i}"]["mlp_pack"] for i in range(L)]
+    n_mlp = mps[0].n_wo + mps[0].n_gu + mps[0].n_down
+    got = dm.mlp_block_fused(att, x, g1, mps[0])
+    want = dm.mlp_block_plain(att[:, 0], x[:, 0], g1, mps[0], eps=cfg.rms_eps)
+    record("mlp_block_fused", f"layer 0 M={M} bn={mps[0].bn}", *max_err(got[:, 0], want),
+           [lambda p=p: dm.mlp_block_fused(att, x, g1, p) for p in mps],
+           lambda: dm.mlp_block_plain(att[:, 0], x[:, 0], g1, mps[0], eps=cfg.rms_eps), None,
+           n_mlp * (H * mps[0].bn + mps[0].bn * 4) + 3 * M * H * 2 + H * 4, ops_tail)
+
+    # The per-layer megakernel at layer 7 (B 8, old rows 128-191 in a T 512
+    # cache, q in slot order), cycling over layers 0..14 and their caches.
+    T = 512
+    megas = [packs["mega"][f"h{i}"]["mega_pack"] for i in range(L)]
+    caches = [(rand(B, T, NKV, HD), rand(B, T, NKV, HD)) for _ in range(L)]
+    old_np = rng.integers(128, 192, B).astype(np.int32)
+    old = torch.from_numpy(old_np).to(dev)
+    live_old = int(old_np.sum())
+    cos, sin = Llama(cfg)._rope(old[:, None].long())
+    cos_t, sin_t = Llama._tiled_tables(cos, sin, NKV)
+    qkv, xm = rand(B, NQ + 2 * KD), rand(B, H)
+    kg, vg = (t.clone() for t in caches[mid])
+    kp, vp = (t.clone() for t in caches[mid])
+    got = lm.layer_megakernel(qkv, xm, g1, megas[mid], kg, vg, old, cos_t, sin_t, g2,
+                              num_heads=NH)
+    want = lm.layer_megakernel_plain(qkv, xm, g1, megas[mid], kp, vp, old, cos_t, sin_t, g2,
+                                     num_heads=NH, eps=cfg.rms_eps, scale=HD ** -0.5)
+    rows_b = torch.arange(B, device=dev)
+    errs = [max_err(got[0], want[0]), max_err(got[1], want[1]),
+            max_err(kg[rows_b, old.long()], kp[rows_b, old.long()]),
+            max_err(vg[rows_b, old.long()], vp[rows_b, old.long()])]
+    worst = max(errs, key=lambda e: e[0] / e[1])
+    record("layer_megakernel", f"layer {mid} B={B} old 128-191 T={T}", *worst,
+           [lambda i=i: lm.layer_megakernel(qkv, xm, g1, megas[i], caches[i][0], caches[i][1],
+                                            old, cos_t, sin_t, g2, num_heads=NH)
+            for i in range(L - 1)],
+           lambda: lm.layer_megakernel_plain(qkv, xm, g1, megas[mid], kp, vp, old, cos_t, sin_t,
+                                             g2, num_heads=NH, eps=cfg.rms_eps,
+                                             scale=HD ** -0.5), None,
+           tail_bytes(n_full, Nq) + live_old * KD * 2 * 2 + B * (NQ + 2 * KD) * 2
+           + 2 * B * KD * 2 + 2 * B * KD * 4,
+           ops_tail + 2 * M * H * Nq + 4 * (live_old + B) * NH * HD,
+           grid=lm._grid(dev.index or 0, 8, 0),
+           errors={"x_out": errs[0][0], "qkv_next": errs[1][0], "k_row": errs[2][0],
+                   "v_row": errs[3][0]})
+    del caches, kg, vg, kp, vp
+
+    # The whole step (giga) at full depth, tokens mode: B 8, old rows
+    # 128-191 in T 512 pools, against its plain version (_giga_ref) with the
+    # JAX package's gate for this kernel (benchmarks/r5_giga.py): tokens
+    # agree on >= 7/8 of the rows, logits and the written K/V rows within
+    # 5e-2 * max(1, L/4) + 5e-2 relative. The kernel's f32 residual drifts
+    # from the plain version's bf16 one with depth, so layer 0's rows (no
+    # drift yet: the write, RoPE and slot order) must also be within
+    # ERR_TOL of their largest value.
+    gp = packs["giga"]["giga_pack"]
+    wte = params["embed"]["wte"]
+    tokens = torch.from_numpy(rng.integers(0, V, B).astype(np.int32)).to(dev)
+    kpool, vpool = rand(L, B, T, KD), rand(L, B, T, KD)
+    kw, vw = kpool.clone(), vpool.clone()
+    got = dg.giga_decode_step(wte, None, None, old, gp, kpool, vpool, tokens=tokens)
+    xe, cos_e, sin_e = dg._embed_rope(wte, tokens, old, gp)
+    want = dg.giga_decode_plain(xe, cos_e, sin_e, old, gp, kw, vw, sm_scale=HD ** -0.5)
+    agree = int((got[0] == want[0]).sum())
+    atol = 5e-2 * max(1.0, L / 4)
+    lg, lw = got[1].float(), want[1].float()
+    l_err = (lg - lw).abs().max().item()
+    written = [(p[:, rows_b, old.long()], r[:, rows_b, old.long()])
+               for p, r in ((kpool, kw), (vpool, vw))]  # [L, B, KD] each
+    row_errs = [max_err(g, w) for g, w in written]
+    first = [max_err(g[0], w[0]) for g, w in written]
+    by_layer = [max(max_err(g[i], w[i])[0] for g, w in written) for i in range(L)]
+    if agree < (B * 7) // 8 or not torch.isfinite(lg).all() \
+            or not torch.allclose(lg, lw, rtol=5e-2, atol=atol) \
+            or not all(torch.allclose(g.float(), w.float(), rtol=5e-2, atol=atol)
+                       for g, w in written) \
+            or any(e > ERR_TOL * r for e, r in first):
+        raise AssertionError(f"giga_decode_step: tokens {agree}/{B}, logits max err {l_err} "
+                             f"(atol {atol}), K/V rows {row_errs}, layer 0 {first}")
+    ops_giga = 2 * B * gp.w.numel() + 4 * (live_old + B) * NH * HD * L
+    record("giga_decode_step", f"L={L} B={B} old 128-191 T={T} tokens", l_err,
+           lw.abs().max().item(),
+           [lambda: dg.giga_decode_step(wte, None, None, old, gp, kpool, vpool, tokens=tokens)],
+           lambda: dg.giga_decode_plain(xe, cos_e, sin_e, old, gp, kw, vw, sm_scale=HD ** -0.5),
+           None, gp.w.nbytes + gp.s.nbytes + live_old * KD * 2 * 2 * L + B * H * 2
+           + 2 * L * B * KD * 2 + B * gp.n_head * gp.bn * 2 + B * 4, ops_giga,
+           gate=f"tokens >= 7/8; logits, K/V rows atol {atol} rtol 5e-2; layer-0 rows "
+                f"{ERR_TOL} x max|ref|",
+           token_agreement=agree / B, grid=lm._grid(dev.index or 0, 8, 1),
+           errors={"logits": l_err, "k_rows": row_errs[0][0], "v_rows": row_errs[1][0],
+                   "kv_rows_by_layer": by_layer})
+    del kpool, vpool, kw, vw
     torch.cuda.synchronize()
     return rows
 
@@ -438,7 +546,9 @@ def parity_compare(steps: list, what: str, g: torch.Tensor, c: torch.Tensor, B: 
 
 
 def phase_parity(rng):
-    from mila_tpu_torch.models.llama import Llama, LlamaConfig, pack_decode_layers
+    from mila_tpu_torch.models.llama import (Llama, LlamaConfig, pack_decode_giga,
+                                             pack_decode_layers, pack_decode_megalayers,
+                                             pack_decode_mlp)
 
     cfg = LlamaConfig.llama32_1b().replace(num_layers=2, max_seq_len=512)
     params = build_params(cfg, seed=1, device="cuda")
@@ -478,13 +588,16 @@ def phase_parity(rng):
     # Contiguous: prefill with forward_with_cache, then greedy steps fed the
     # CPU's tokens; each step's gate is the new K row of the last layer (it
     # depends on every layer before), and a last forward_with_cache step
-    # compares logits.
+    # compares logits. "mega": the per-layer megakernel path.
     packed = pack_decode_layers(params)
-    cpu_packed = to_cpu(packed)
+    mega = pack_decode_megalayers(params, cfg)
+    if "layer_stream" not in packed or "mega_pack" not in mega["h0"]:
+        raise AssertionError("parity: the 2-layer model did not pack")
     T0, V = 16, cfg.vocab_size
     prompt = torch.from_numpy(rng.integers(0, V, (B, T0)).astype(np.int32))
     agree = {}
-    for variant, gp, cp in (("packed", packed, cpu_packed), ("unpacked", params, cpu_params)):
+    for variant, gp, cp in (("packed", packed, to_cpu(packed)), ("mega", mega, to_cpu(mega)),
+                            ("unpacked", params, cpu_params)):
         gc = gpu.init_kv_cache(B, 64, torch.bfloat16)
         cc = cpu.init_kv_cache(B, 64, torch.bfloat16)
         glog, gc = gpu.forward_with_cache(gp, prompt.cuda(), gc, 0)
@@ -504,7 +617,52 @@ def phase_parity(rng):
         clog, _ = cpu.forward_with_cache(cp, tok, cc, T0 + 8)
         compare(f"contiguous {variant} logits after 8 steps", glog, clog)
         agree[variant] = float(np.mean(hits))
-    del params, cpu_params, packed, cpu_packed
+    del packed, mega
+
+    # Giga: the same prefill, stack_kv_cache, then 8 giga_step steps fed the
+    # CPU's tokens (the kernel keeps the residual in f32 where the plain
+    # version rounds it to bf16 per layer: the parity gate still holds at 2
+    # layers); each step's logits are compared.
+    giga = pack_decode_giga(params, cfg)
+    if "giga_pack" not in giga:
+        raise AssertionError("parity: pack_decode_giga did not pack the 2-layer model")
+    cpu_giga = to_cpu(giga)
+    gc, cc = gpu.init_kv_cache(B, 64, torch.bfloat16), cpu.init_kv_cache(B, 64, torch.bfloat16)
+    glog, gc = gpu.forward_with_cache(giga, prompt.cuda(), gc, 0)
+    clog, cc = cpu.forward_with_cache(cpu_giga, prompt, cc, 0)
+    tok = compare("giga prefill", glog[:, -1], clog[:, -1])[:, None]
+    (gkp, gvp), (ckp, cvp) = gpu.stack_kv_cache(gc), cpu.stack_kv_cache(cc)
+    del gc, cc
+    hits = []
+    for step in range(8):
+        lens = torch.full((B,), T0 + step, dtype=torch.int32)
+        gtok, glg, gkp, gvp = gpu.giga_step(giga, tok.cuda(), gkp, gvp, lens.cuda())
+        ctok, clg, ckp, cvp = cpu.giga_step(cpu_giga, tok, ckp, cvp, lens)
+        parity_compare(steps, f"giga step {step} logits", glg, clg, B)
+        hits.append(float((gtok.cpu() == ctok).float().mean()))
+        tok = ctok
+    parity_compare(steps, "giga K pool rows after 8 steps", gkp[:, :, :T0 + 8], ckp[:, :, :T0 + 8],
+                   B * cfg.num_layers)
+    agree["giga"] = float(np.mean(hits))
+    del giga, cpu_giga, gkp, gvp
+
+    # MLP-block packs: prefill, then 4 forward_with_cache_ragged steps at
+    # ragged positions (T0 - b % 4), logits compared.
+    mlp = pack_decode_mlp(params)
+    if "mlp_pack" not in mlp["h0"]:
+        raise AssertionError("parity: pack_decode_mlp did not pack the 2-layer model")
+    cpu_mlp = to_cpu(mlp)
+    gc, cc = gpu.init_kv_cache(B, 64, torch.bfloat16), cpu.init_kv_cache(B, 64, torch.bfloat16)
+    glog, gc = gpu.forward_with_cache(mlp, prompt.cuda(), gc, 0)
+    clog, cc = cpu.forward_with_cache(cpu_mlp, prompt, cc, 0)
+    tok = compare("mlp prefill", glog[:, -1], clog[:, -1])[:, None]
+    pos = T0 - torch.arange(B, dtype=torch.int32) % 4
+    for step in range(4):
+        glog, gc = gpu.forward_with_cache_ragged(mlp, tok.cuda(), gc, pos.cuda())
+        clog, cc = cpu.forward_with_cache_ragged(cpu_mlp, tok, cc, pos)
+        tok = compare(f"mlp ragged step {step}", glog, clog)[:, None]
+        pos = pos + 1
+    del params, cpu_params, mlp, cpu_mlp
     return {"layers": cfg.num_layers, "tolerance": f"max|d| <= {ERR_TOL} x max|ref| "
             "or min cosine >= 0.999", "steps": steps,
             "greedy_agree_mean": float(np.mean([s["greedy_agree"] for s in steps
@@ -566,9 +724,96 @@ def phase_decode(model, packed, cfg, rng, bw):
             "launches_per_step": {k: v / STEPS for k, v in counts.items() if v}}
 
 
-def phase_generate(model, params, cfg, rng):
-    """Generator.generate on the unpacked int8 params: the dense decode
-    attention with the decode weight streams."""
+def phase_giga(model, giga, cfg, rng, bw):
+    """The JAX bench's decode shape on the giga params: prefill,
+    stack_kv_cache, then 64 giga_step steps, exactly one kernel launch each."""
+    from mila_tpu_torch.models.llama import decode_step_bytes
+
+    B, P, C, STEPS, L = 8, 128, 512, 64, cfg.num_layers
+    V = cfg.vocab_size
+    prompt = torch.from_numpy(rng.integers(0, V, (B, P)).astype(np.int32)).cuda()
+    cache = model.init_kv_cache(B, C, torch.bfloat16)
+    t0 = time.monotonic()
+    (logits, cache), pre_counts = run_counted(
+        "giga prefill", lambda: model.forward_with_cache(giga, prompt, cache, 0),
+        {"quant_linear": 4 * L + 1})
+    prefill_s = time.monotonic() - t0
+    tok = torch.argmax(logits[:, -1, :V].float(), dim=-1).to(torch.int32)[:, None]
+    del logits
+    kp, vp = model.stack_kv_cache(cache)
+    del cache
+    lens = (P + torch.arange(STEPS + 1, dtype=torch.int32, device="cuda"))[:, None].repeat(1, B)
+    state = {"tok": tok, "kp": kp, "vp": vp}
+    out = []
+
+    def loop():
+        for s in range(STEPS):
+            state["tok"], _, state["kp"], state["vp"] = model.giga_step(
+                giga, state["tok"], state["kp"], state["vp"], lens[s])
+            out.append(state["tok"])
+
+    t0 = time.monotonic()
+    _, counts = run_counted("giga", loop, {"giga_decode_step": STEPS})
+    wall = time.monotonic() - t0
+    toks = torch.cat(out, dim=1)
+    if toks.shape != (B, STEPS) or int(toks.min()) < 0 or int(toks.max()) >= V:
+        raise AssertionError("giga: tokens outside the vocabulary")
+
+    def step():
+        return model.giga_step(giga, state["tok"], state["kp"], state["vp"], lens[STEPS])
+
+    graph_ms = time_graph([step])
+    nbytes = decode_step_bytes(giga, cfg, B, C)
+    bound_ms = (nbytes["weight_bytes"] + nbytes["kv_read_bytes"]) / bw * 1e3
+    eager_ms = 1e3 * wall / STEPS
+    return {"batch": B, "prompt": P, "cache": C, "steps": STEPS, "prefill_s": prefill_s,
+            "ms_per_step_eager": eager_ms, "tok_s_eager": B / eager_ms * 1e3,
+            "ms_per_step_events": time_eager(step, reps=5), "ms_per_step_graph": graph_ms,
+            "tok_s_graph": B / graph_ms * 1e3, "bound_ms": bound_ms, **nbytes,
+            "launches_prefill": pre_counts, "launches": counts,
+            "launches_per_step": {k: v / STEPS for k, v in counts.items() if v}}
+
+
+def phase_mega(model, mega, cfg, rng):
+    """The decode shape on the per-layer megakernel params: prefill, then 16
+    greedy_step_with_cache steps (h0 wqkv, L megakernels, the argmax head)."""
+    B, P, C, STEPS, L = 8, 128, 512, 16, cfg.num_layers
+    V = cfg.vocab_size
+    prompt = torch.from_numpy(rng.integers(0, V, (B, P)).astype(np.int32)).cuda()
+    cache = model.init_kv_cache(B, C, torch.bfloat16)
+    (logits, cache), pre_counts = run_counted(
+        "mega prefill", lambda: model.forward_with_cache(mega, prompt, cache, 0),
+        {"quant_linear": 4 * L + 1})
+    state = {"tok": torch.argmax(logits[:, -1, :V].float(), dim=-1).to(torch.int32)[:, None],
+             "cache": cache}
+    del logits
+
+    def loop():
+        for s in range(STEPS):
+            state["tok"], state["cache"] = model.greedy_step_with_cache(
+                mega, state["tok"], state["cache"], P + s)
+
+    t0 = time.monotonic()
+    _, counts = run_counted("mega", loop, {
+        "rms_quant_linear": STEPS, "layer_megakernel": STEPS * L,
+        "rms_quant_linear_argmax": STEPS})
+    wall = time.monotonic() - t0
+    if int(state["tok"].min()) < 0 or int(state["tok"].max()) >= V:
+        raise AssertionError("mega: tokens outside the vocabulary")
+
+    def step():
+        return model.greedy_step_with_cache(mega, state["tok"], state["cache"], P + STEPS)
+
+    return {"batch": B, "prompt": P, "cache": C, "steps": STEPS,
+            "ms_per_step_eager": 1e3 * wall / STEPS, "ms_per_step_graph": time_graph([step]),
+            "launches_prefill": pre_counts, "launches": counts,
+            "launches_per_step": {k: v / STEPS for k, v in counts.items() if v}}
+
+
+def phase_generate(model, params, cfg, rng, mlp: bool = False):
+    """Generator.generate on the unpacked int8 params (the dense decode
+    attention with the decode weight streams), or on pack_decode_mlp params
+    (the MLP block of each decode layer through mlp_block_fused)."""
     from mila_tpu_torch.inference.generator import Generator
 
     B, T0, NEW, L = 8, 64, 16, cfg.num_layers
@@ -576,11 +821,13 @@ def phase_generate(model, params, cfg, rng):
     prompt = rng.integers(0, V, (B, T0)).astype(np.int32)
     gen = Generator(model, params, max_len=T0 + NEW)
     steps = NEW - 1
+    tail = ({"mlp_block_fused": steps * L} if mlp else
+            {"quant_linear_residual": steps * 2 * L, "rms_quant_linear_swiglu": steps * L})
     t0 = time.monotonic()
-    out, counts = run_counted("generate", lambda: gen.generate(prompt, NEW), {
+    out, counts = run_counted("generate mlp" if mlp else "generate",
+                              lambda: gen.generate(prompt, NEW), {
         "quant_linear": 4 * L + 1, "rms_quant_linear": steps * (L + 1),
-        "quant_linear_residual": steps * 2 * L, "rms_quant_linear_swiglu": steps * L,
-        "dense_decode_attention": steps * L})
+        "dense_decode_attention": steps * L, **tail})
     wall = time.monotonic() - t0
     out = out.cpu().numpy()
     if out.shape != (B, T0 + NEW) or not (out[:, :T0] == prompt).all() \
@@ -603,9 +850,16 @@ def serve_once(model, params, cfg, prompts, layout: str):
         page_size=128, kv_layout=layout))
     L = cfg.num_layers
 
+    giga = "giga_pack" in params
+
     def expected(_):
         st = engine.stats
         it, groups = st["decode_iters"], st["prefill_groups"]
+        if giga:  # contiguous prefills as below; each decode step one kernel
+            small = sum(len(p) <= 32 for p in prompts)
+            return {"quant_linear": (4 * L + 1) * (len(prompts) - small),
+                    "rms_quant_linear": (L + 1) * small, "quant_linear_residual": 2 * L * small,
+                    "rms_quant_linear_swiglu": L * small, "giga_decode_step": it}
         if layout == "paged":
             return {"quant_linear": 4 * L * groups, "rms_quant_linear": (L + 1) * it + groups,
                     "quant_linear_residual": 2 * L * it, "rms_quant_linear_swiglu": L * it,
@@ -624,8 +878,10 @@ def serve_once(model, params, cfg, prompts, layout: str):
         engine.run()
         return reqs
 
+    if giga and not engine._use_giga_decode():
+        raise AssertionError("serve giga: the engine did not select the giga decode")
     t0 = time.monotonic()
-    reqs, counts = run_counted(f"serve {layout}", run, expected)
+    reqs, counts = run_counted(f"serve {'giga' if giga else layout}", run, expected)
     wall = time.monotonic() - t0
     for r in reqs:
         if not (r.done and len(r.output) == 32 and all(0 <= t < cfg.vocab_size
@@ -636,7 +892,7 @@ def serve_once(model, params, cfg, prompts, layout: str):
     ttft = sorted(r.ttft_s for r in reqs)
     tokens = sum(len(r.output) for r in reqs)
     return counts, {
-        "layout": layout, "new_tokens": tokens, "wall_s": wall, "tok_s": tokens / wall,
+        "layout": "contiguous giga" if giga else layout, "new_tokens": tokens, "wall_s": wall, "tok_s": tokens / wall,
         "ttft_p50_ms": 1e3 * float(np.percentile(ttft, 50)),
         "ttft_p95_ms": 1e3 * float(np.percentile(ttft, 95)),
         "decode_ms_per_step": 1e3 * st["t_decode_s"] / it, "decode_steps": it,
@@ -663,10 +919,11 @@ def decode_step_times(model, params, cfg, rng):
     return {"decode_step_eager_ms": eager, "decode_step_graph_ms": time_graph([step])}
 
 
-def phase_serve(model, params, packed, cfg, rng, repeats: int = 3):
+def phase_serve(model, params, packed, giga, cfg, rng, repeats: int = 3):
     """``repeats`` identical paged serving runs (the host clock varies
     between runs more than the device does; medians plus every run), then
-    one contiguous-layout run of the same requests on the packed params."""
+    one contiguous-layout run of the same requests on the packed params and
+    one on the giga params."""
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
                for n in rng.integers(8, 101, 16)]
     runs = []
@@ -676,12 +933,14 @@ def phase_serve(model, params, packed, cfg, rng, repeats: int = 3):
     med = {k: float(np.median([r[k] for r in runs]))
            for k in ("tok_s", "ttft_p50_ms", "ttft_p95_ms", "decode_ms_per_step", "wall_s")}
     c_counts, contiguous = serve_once(model, packed, cfg, prompts, "contiguous")
-    return counts, c_counts, {
+    g_counts, giga_run = serve_once(model, giga, cfg, prompts, "contiguous")
+    return counts, c_counts, g_counts, {
         "requests": len(prompts), **med, "launches": counts,
         "launches_per_decode_step": runs[-1]["launches_per_decode_step"],
         **decode_step_times(model, params, cfg, rng),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "runs": runs,
-        "contiguous": {**contiguous, "launches": c_counts}}
+        "contiguous": {**contiguous, "launches": c_counts},
+        "giga": {**giga_run, "launches": g_counts}}
 
 
 SOURCES = {
@@ -705,13 +964,27 @@ SOURCES = {
                           "mila_tpu/kernels/layer_stream.py:107 (_stream_kernel)"),
     "mlp_qkv_fused": ("mila_tpu_torch/csrc/layer_tail_int8.cu",
                       "mila_tpu/kernels/layer_fused.py:141 (_tail_kernel)"),
+    "giga_decode_step": ("mila_tpu_torch/csrc/decode_step_int8.cu",
+                         "mila_tpu/kernels/decode_giga.py:207 (_giga_kernel)"),
+    "layer_megakernel": ("mila_tpu_torch/csrc/decode_step_int8.cu",
+                         "mila_tpu/kernels/layer_mega.py:126 (_mega_kernel)"),
+    "mlp_block_fused": ("mila_tpu_torch/csrc/layer_tail_int8.cu",
+                        "mila_tpu/kernels/decode_mlp.py:136 (_mlp_mega_kernel)"),
 }
 # The shape whose numbers head each entry of the summary line.
 PRIMARY = {"quant_linear": "wgu", "rms_quant_linear": "lm_head",
            "quant_linear_residual": "down", "rms_quant_linear_swiglu": "wgu",
            "paged_decode_attention": "B=8", "rms_quant_linear_argmax": "lm_head",
            "dense_decode_attention": "B=8", "fused_decode_attention": "B=8",
-           "layer_tail_stream": "layer 7", "mlp_qkv_fused": "layer 0"}
+           "layer_tail_stream": "layer 7", "mlp_qkv_fused": "layer 0",
+           "giga_decode_step": "L=16", "layer_megakernel": "layer 7",
+           "mlp_block_fused": "layer 0"}
+# "none" reasons for the library yardstick, where no one PyTorch call computes it.
+NO_LIBRARY = {
+    "giga_decode_step": "none: no one call computes a whole decode step",
+    "layer_megakernel": "none: no one call computes attention + cache write + layer tail",
+    "mlp_block_fused": "none: no one call computes wo + RMSNorm + SwiGLU + down",
+}
 
 
 def main() -> int:
@@ -722,7 +995,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
     from mila_tpu_torch.kernels import _build
-    from mila_tpu_torch.models.llama import Llama, LlamaConfig, pack_decode_layers
+    from mila_tpu_torch.models.llama import (Llama, LlamaConfig, pack_decode_giga,
+                                             pack_decode_layers, pack_decode_megalayers,
+                                             pack_decode_mlp)
 
     t_start = time.monotonic()
     card = card_line()
@@ -741,13 +1016,18 @@ def main() -> int:
     cfg = LlamaConfig.llama32_1b().replace(max_seq_len=512)
     t0 = time.monotonic()
     params = build_params(cfg, seed=0, device="cuda")
-    packed = pack_decode_layers(params)
-    if "layer_stream" not in packed:
-        raise AssertionError("pack_decode_layers did not pack Llama-3.2-1B")
+    packs = {"layer_stream": pack_decode_layers(params),
+             "giga": pack_decode_giga(params, cfg),
+             "mega": pack_decode_megalayers(params, cfg),
+             "mlp": pack_decode_mlp(params)}
+    if ("layer_stream" not in packs["layer_stream"] or "giga_pack" not in packs["giga"]
+            or "mega_pack" not in packs["mega"]["h0"] or "mlp_pack" not in packs["mlp"]["h0"]):
+        raise AssertionError("a decode pack did not pack Llama-3.2-1B")
+    packed = packs["layer_stream"]
     torch.cuda.synchronize()
     setup_s = time.monotonic() - t0
 
-    rows = phase_kernels(params, packed, cfg, bw, peak_ops, rng)
+    rows = phase_kernels(params, packs, cfg, bw, peak_ops, rng)
     emit({"phase": "kernels", "card": card, "rows": rows})
     parity = phase_parity(rng)
     emit({"phase": "parity", "card": card, **parity})
@@ -755,16 +1035,28 @@ def main() -> int:
     decode = phase_decode(model, packed, cfg, rng, bw)
     emit({"phase": "decode", "card": card, "model": "llama-3.2-1b int8 + layer_stream, "
           "random weights", **decode})
+    giga = phase_giga(model, packs["giga"], cfg, rng, bw)
+    emit({"phase": "giga", "card": card, "model": "llama-3.2-1b int8 + giga_pack, "
+          "random weights", **giga})
+    mega = phase_mega(model, packs["mega"], cfg, rng)
+    emit({"phase": "mega", "card": card, "model": "llama-3.2-1b int8 + mega_pack, "
+          "random weights", **mega})
     generate = phase_generate(model, params, cfg, rng)
     emit({"phase": "generate", "card": card, **generate})
+    generate_mlp = phase_generate(model, packs["mlp"], cfg, rng, mlp=True)
+    emit({"phase": "generate mlp", "card": card, **generate_mlp})
+    del packs["mega"], packs["mlp"]
     torch.cuda.reset_peak_memory_stats()
-    counts, c_counts, serve = phase_serve(model, params, packed, cfg, rng)
+    counts, c_counts, g_counts, serve = phase_serve(model, params, packed, packs["giga"], cfg,
+                                                    rng)
     emit({"phase": "serve", "card": card, "model": "llama-3.2-1b int8, random weights",
           "setup_s": setup_s, **serve})
 
-    by_path = {"serve paged": counts, "serve contiguous": c_counts,
+    by_path = {"serve paged": counts, "serve contiguous": c_counts, "serve giga": g_counts,
                "decode prefill": decode["launches_prefill"], "decode": decode["launches"],
-               "generate": generate["launches"]}
+               "giga prefill": giga["launches_prefill"], "giga": giga["launches"],
+               "mega prefill": mega["launches_prefill"], "mega": mega["launches"],
+               "generate": generate["launches"], "generate mlp": generate_mlp["launches"]}
     summary = []
     for entry, (source, replaces) in SOURCES.items():
         mine = [r for r in rows if r["entry"] == entry]
@@ -775,6 +1067,8 @@ def main() -> int:
             "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "library": NO_LIBRARY.get(entry, "timed" if top["library_ms"] is not None
+                                      else "none: no one call computes it"),
             "shape": top["shape"],
             "launches_by_path": {p: c[entry] for p, c in by_path.items() if c[entry]},
             "shapes": mine})
@@ -785,7 +1079,8 @@ def main() -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"header": header, "kernels": rows, "parity": parity, "decode": decode,
-                       "generate": generate, "serve": serve, "summary": summary,
+                       "giga": giga, "mega": mega, "generate": generate,
+                       "generate_mlp": generate_mlp, "serve": serve, "summary": summary,
                        "total_s": time.monotonic() - t_start}, f, indent=1)
     emit({"kernels": summary})
     print(card, flush=True)

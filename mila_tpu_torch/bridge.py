@@ -6,10 +6,12 @@ sees JAX) and returns the port's dict of tensors with the same nesting.
 Quantized weights (any object with ``q``, ``scale``, ``block_size`` and
 ``packed_rows``) become :class:`~mila_tpu_torch.inference.quantize.QTensor`
 with those fields carried unchanged. The decode weight packs
-(``LayerPack``, ``LayerStream``: named tuples of arrays and int fields)
-become the port's named tuples of the same name and fields, arrays
-converted and ints unchanged, so a JAX-packed tree runs the port's kernels
-on the same bytes.
+(``LayerPack``, ``LayerStream``, ``MLPPack``, ``MegaPack``, ``GigaPack``:
+named tuples of arrays and scalar fields) become the port's named tuples of
+the same name and fields: arrays converted, ints kept ints, floats kept
+floats (``GigaPack.eps``) and ``None`` kept ``None`` (a ``GigaPack``
+without RoPE rows), so a JAX-packed tree runs the port's kernels on the
+same bytes.
 """
 
 from __future__ import annotations
@@ -21,10 +23,13 @@ import torch
 
 from mila_tpu_torch.device import DeviceLike, resolve_device
 from mila_tpu_torch.inference.quantize import QTensor
+from mila_tpu_torch.kernels.decode_giga import GigaPack
+from mila_tpu_torch.kernels.decode_mlp import MLPPack
 from mila_tpu_torch.kernels.layer_fused import LayerPack
+from mila_tpu_torch.kernels.layer_mega import MegaPack
 from mila_tpu_torch.kernels.layer_stream import LayerStream
 
-_PACKS = {"LayerPack": LayerPack, "LayerStream": LayerStream}
+_PACKS = {p.__name__: p for p in (LayerPack, LayerStream, MLPPack, MegaPack, GigaPack)}
 
 # numpy cannot name these dtypes without extra packages; move their bytes.
 _BITCAST = {
@@ -43,6 +48,20 @@ def tensor_from_numpy(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a.view(raw).copy()).view(dtype).to(device)
 
 
+def _pack_field(v, device: torch.device):
+    """One field of a decode pack: an array, None, or a Python/numpy scalar
+    that keeps its kind (int stays int, float stays float)."""
+    if v is None:
+        return None
+    if isinstance(v, np.ndarray):
+        return tensor_from_numpy(v, device)
+    if isinstance(v, (int, np.integer)):
+        return int(v)
+    if isinstance(v, (float, np.floating)):
+        return float(v)
+    raise TypeError(f"cannot bridge a {type(v).__name__} pack field")
+
+
 def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
     """Convert a numpy-leaved params tree (dicts, QTensor-like tuples,
     arrays) to the port's params on ``device``; other leaves raise."""
@@ -53,11 +72,10 @@ def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
             return {k: visit(v) for k, v in node.items()}
         if all(hasattr(node, f) for f in ("q", "scale", "block_size", "packed_rows")):
             return QTensor(tensor_from_numpy(node.q, dev), tensor_from_numpy(node.scale, dev),
-                           int(node.block_size), int(node.packed_rows))
+                           int(node.block_size), int(node.packed_rows or 0))
         port = _PACKS.get(type(node).__name__)
         if port is not None and getattr(node, "_fields", None) == port._fields:
-            return port(*(tensor_from_numpy(v, dev) if isinstance(v, np.ndarray) else int(v)
-                          for v in node))
+            return port(*(_pack_field(v, dev) for v in node))
         if isinstance(node, np.ndarray):
             return tensor_from_numpy(node, dev)
         raise TypeError(f"cannot bridge a {type(node).__name__} leaf")

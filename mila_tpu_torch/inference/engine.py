@@ -12,7 +12,14 @@ Two layouts share the engine logic:
   rows in place (JAX runs the prefill on a one-row cache and merges it
   into the slot with a one-hot ``where``); decode runs
   ``forward_with_cache_ragged``, the dense or, with ``pack_decode_layers``
-  params, the fused decode kernels.
+  params, the fused decode kernels. With ``giga_pack`` params (and a bf16
+  cache of a multiple of 8 rows) decode runs ``giga_step``, the whole step
+  as one kernel, over stacked [L, B, T, NKV*HD] pools; when every active
+  slot is greedy its token is the kernel's own argmax and the logits are
+  not read. The engine keeps one stacked allocation for the whole run and
+  hands the prefill per-layer views of it, so the prefill writes the
+  pools in place (JAX stacks the dict cache after each admission wave and
+  folds it back before the next prefill; the values are the same).
 
 Every engine step then decodes ``decode_chunk`` tokens for all active slots
 in lock step, sampling on the device, with one device-to-host copy per
@@ -23,9 +30,8 @@ Differences from the JAX engine: PyTorch runs eagerly, so the chunk is a
 Python loop of forward calls where JAX traced a ``lax.scan``; rows without
 a request keep their position frozen at 0 instead of advancing (their
 writes go to the reserved page 0, or to row 0 of their own slot, and are
-never read); random draws come from a ``torch.Generator``. The giga
-decode (params with ``giga_pack``) and speculative decoding are not ported
-yet and raise.
+never read); random draws come from a ``torch.Generator``. Speculative
+decoding is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -123,11 +129,13 @@ class InferenceEngine:
             self.num_pages_total = num_pages
             self.cache = None
         else:
-            if isinstance(params, dict) and "giga_pack" in params:
-                raise NotImplementedError("the giga decode (giga_decode_step, kernel table "
-                                          "row 10) is not ported yet")
             self.cache = model.init_kv_cache(c.max_batch, c.max_len, dt)
             self.pools = self.alloc = None
+        self.giga_pools = None
+        if self._use_giga_decode():
+            # One stacked allocation; the dict cache becomes views of it.
+            self.giga_pools = model.stack_kv_cache(self.cache)
+            self.cache = model.unstack_kv_cache(*self.giga_pools)
         self._slots: list[Optional[Request]] = [None] * c.max_batch
         self._queue: list[Request] = []
         self._req_ids = itertools.count()
@@ -238,11 +246,24 @@ class InferenceEngine:
             temps[req.slot] = max(s.temperature, 1e-6)
         return greedy, temps
 
+    def _use_giga_decode(self) -> bool:
+        """The contiguous layout can decode with the whole-step giga kernel:
+        the params carry a ``giga_pack``, the model has the stacked-pool
+        protocol, and the cache is bf16 with a multiple of 8 rows (the
+        kernel's rules)."""
+        c = self.config
+        return (self.kv_layout == "contiguous" and isinstance(self.params, dict)
+                and "giga_pack" in self.params and hasattr(self.model, "giga_step")
+                and hasattr(self.model, "stack_kv_cache") and c.max_len % 8 == 0
+                and CACHE_DTYPES[c.cache_dtype] == torch.bfloat16)
+
     def _sample(self, logits: torch.Tensor, greedy: torch.Tensor, temps: torch.Tensor,
-                all_greedy: bool) -> torch.Tensor:
-        """Greedy or temperature sampling on the device, [B, V] -> [B] int32."""
+                all_greedy: bool, greedy_tok: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Greedy or temperature sampling on the device, [B, V] -> [B] int32.
+        ``greedy_tok``: the argmax when the caller has it already."""
         logits = logits.float()
-        greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        if greedy_tok is None:
+            greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         if all_greedy:
             return greedy_tok
         sampled = sample_categorical(logits, temps, self._gen)
@@ -281,14 +302,21 @@ class InferenceEngine:
         out = torch.empty((self.config.max_batch, chunk), dtype=torch.int32,
                           device=self.device)
         for j in range(chunk):
-            if self.kv_layout == "paged":
-                logits, self.pools = self.model.forward_paged_ragged(
-                    self.params, toks, self.pools, dev["table"], pos)
+            if self.giga_pools is not None:
+                tok_g, logits, *self.giga_pools = self.model.giga_step(
+                    self.params, toks, *self.giga_pools, pos)
+                nxt = (tok_g[:, 0] if dev["all_greedy"] else
+                       self._sample(logits[:, :V], dev["greedy"], dev["temps"], False,
+                                    greedy_tok=tok_g[:, 0]))
             else:
-                logits, self.cache = self.model.forward_with_cache_ragged(
-                    self.params, toks, self.cache, pos)
-            nxt = self._sample(logits[:, -1, :V], dev["greedy"], dev["temps"],
-                               dev["all_greedy"])
+                if self.kv_layout == "paged":
+                    logits, self.pools = self.model.forward_paged_ragged(
+                        self.params, toks, self.pools, dev["table"], pos)
+                else:
+                    logits, self.cache = self.model.forward_with_cache_ragged(
+                        self.params, toks, self.cache, pos)
+                nxt = self._sample(logits[:, -1, :V], dev["greedy"], dev["temps"],
+                                   dev["all_greedy"])
             out[:, j] = nxt
             toks = nxt[:, None]
             pos = pos + dev["active"]

@@ -69,6 +69,14 @@ def quantize(w: torch.Tensor, dtype="int8", block_size: int = 0) -> QTensor:
     return QTensor(q.reshape(In, Out), scale, bs)
 
 
+def unit_qtensor(w: torch.Tensor) -> QTensor:
+    """A plain weight matrix as a bf16 QTensor with unit scales, so the
+    decode stream packers carry bf16 tiles through the same code."""
+    w = w.to(torch.bfloat16)
+    K, N = w.shape
+    return QTensor(w, torch.ones((1, N), dtype=torch.float32, device=w.device), K, 0)
+
+
 def pack_int4(qt: QTensor) -> QTensor:
     """Two signed nibbles per byte, split-halves layout: byte row r holds
     value row r (low nibble) and row r + K/2 (high nibble)."""

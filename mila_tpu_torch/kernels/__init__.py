@@ -13,8 +13,11 @@ def entry_points() -> dict:
     """name -> wrapper, for every kernel entry point of the package."""
     from mila_tpu_torch.kernels import (
         decode_fused,
+        decode_giga,
+        decode_mlp,
         dense_attention,
         layer_fused,
+        layer_mega,
         layer_stream,
         paged_attention,
         quant_matmul,
@@ -31,6 +34,9 @@ def entry_points() -> dict:
         "fused_decode_attention": dense_attention.fused_decode_attention,
         "layer_tail_stream": layer_stream.layer_tail_stream,
         "mlp_qkv_fused": layer_fused.mlp_qkv_fused,
+        "giga_decode_step": decode_giga.giga_decode_step,
+        "layer_megakernel": layer_mega.layer_megakernel,
+        "mlp_block_fused": decode_mlp.mlp_block_fused,
     }
 
 
@@ -38,8 +44,11 @@ def plain_versions() -> tuple:
     """Every plain version that counts its calls (``calls``)."""
     from mila_tpu_torch.kernels import (
         decode_fused,
+        decode_giga,
+        decode_mlp,
         dense_attention,
         layer_fused,
+        layer_mega,
         paged_attention,
         quant_matmul,
     )
@@ -51,7 +60,9 @@ def plain_versions() -> tuple:
             paged_attention.paged_decode_attention_plain,
             dense_attention.dense_decode_attention_plain,
             dense_attention.fused_decode_attention_plain,
-            layer_fused.layer_tail_plain, layer_fused.qkv_tail_plain)
+            layer_fused.layer_tail_plain, layer_fused.qkv_tail_plain,
+            decode_giga.giga_decode_plain, layer_mega.layer_megakernel_plain,
+            decode_mlp.mlp_block_plain)
 
 
 def reset_launches() -> None:

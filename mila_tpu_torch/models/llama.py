@@ -16,7 +16,12 @@ contiguous decode attention reads the cache through
 ``kernels/dense_attention.py``. With ``pack_decode_layers`` params a decode
 step runs two kernels per layer: ``fused_decode_attention`` and
 ``layer_tail_stream`` (``kernels/layer_stream.py``); the greedy head fuses
-its argmax (``rms_quant_linear_argmax``).
+its argmax (``rms_quant_linear_argmax``). With ``pack_decode_megalayers``
+params a step runs one kernel per layer (``layer_megakernel``); with
+``pack_decode_mlp`` params the MLP block of a decode layer is one weight
+stream (``mlp_block_fused``); with ``pack_decode_giga`` params ``giga_step``
+runs the whole step, embedding to argmax, as one kernel
+(``giga_decode_step``) over stacked [L, B, T, NKV*HD] pools.
 
 JAX's caches are immutable values; the port's contiguous caches are
 written in place (the new rows of each step go into the tensors passed
@@ -38,18 +43,26 @@ from mila_tpu_torch.inference.kv_cache import (
     paged_attention_read,
     paged_scatter,
 )
-from mila_tpu_torch.inference.quantize import QTensor, quantize
+from mila_tpu_torch.inference.quantize import QTensor, quantize, unit_qtensor, unpack_int4
+from mila_tpu_torch.inference.requant import requantize_int8
 from mila_tpu_torch.kernels.decode_fused import (
     quant_linear_residual,
     rms_quant_linear,
     rms_quant_linear_argmax,
     rms_quant_linear_swiglu,
 )
+from mila_tpu_torch.kernels.decode_giga import giga_decode_step, pack_giga
+from mila_tpu_torch.kernels.decode_mlp import mlp_block_fused, pack_mlp
 from mila_tpu_torch.kernels.dense_attention import (
     dense_decode_attention,
     fused_decode_attention,
 )
 from mila_tpu_torch.kernels.layer_fused import pack_layer
+from mila_tpu_torch.kernels.layer_mega import (
+    layer_megakernel,
+    pack_mega_layer,
+    permute_q_columns,
+)
 from mila_tpu_torch.kernels.layer_stream import layer_tail_stream, pack_layer_stream
 from mila_tpu_torch.kernels.quant_matmul import quant_linear
 from mila_tpu_torch.utils.config import BaseConfig, ConfigError
@@ -155,6 +168,9 @@ class LlamaBlock:
         cfg = self.cfg
         B, T = att.shape[:2]
         if self._fused_decode(params, x):
+            if "mlp_pack" in params:
+                return mlp_block_fused(att.reshape(B, T, -1), x, params["ln_mlp"]["gamma"],
+                                       params["mlp_pack"], eps=cfg.rms_eps)
             wo_q, down_q = params["wo"]["weight"], params["down"]["weight"]
             if _is_q(wo_q) and _is_q(down_q):
                 x = quant_linear_residual(att.reshape(B, T, -1), wo_q, x)
@@ -346,23 +362,34 @@ class Llama:
                                                          pos, cos, sin)
         return x, new_cache
 
+    @staticmethod
+    def _tiled_tables(cos, sin, nkv: int):
+        """Full-width tiled RoPE tables [B, NKV*HD]: cos duplicated across the
+        split halves, sin pre-signed [-sin | sin]."""
+        B = cos.shape[0]
+        c2, s2 = cos.reshape(B, -1), sin.reshape(B, -1)
+        return (torch.cat([c2, c2], dim=-1).repeat(1, nkv),
+                torch.cat([-s2, s2], dim=-1).repeat(1, nkv))
+
     def _backbone_fused_decode(self, params: dict, x: torch.Tensor, cache: dict,
                                old_lens: torch.Tensor, cos, sin):
         """Two kernels per layer: fused decode attention (RoPE, attention,
         cache write-back) then the layer tail with the NEXT layer's
-        rms + wqkv (``layer_stream``). Per-row ``old_lens`` (ragged)."""
-        if "mega_pack" in params.get("h0", {}):
-            raise NotImplementedError("layer_megakernel (kernel table row 14, "
-                                      "pack_decode_megalayers) is not ported yet")
+        rms + wqkv (``layer_stream``); or one (``layer_megakernel``) with
+        ``mega_pack`` params. Per-row ``old_lens`` (ragged)."""
         cfg = self.config
         B = x.shape[0]
         NH, NKV, HD = cfg.num_heads, cfg.num_kv_heads, cfg.hd
         NQ, KD = NH * HD, NKV * HD
-        # Full-width tiled RoPE tables, once per step: cos duplicated across
-        # the split halves, sin pre-signed [-sin | sin].
-        c2, s2 = cos.reshape(B, HD // 2), sin.reshape(B, HD // 2)
-        cos_t = torch.cat([c2, c2], dim=-1).repeat(1, NKV)
-        sin_t = torch.cat([-s2, s2], dim=-1).repeat(1, NKV)
+        cos_t, sin_t = self._tiled_tables(cos, sin, NKV)
+        # The JAX package's route rule, kept so that both sides take the same
+        # route: its megakernel holds a layer's whole cache in VMEM (double-
+        # buffered, within 72 MB) unless there is no layer_stream to fall back to.
+        kc0 = cache["h0"]["k"]
+        fits = (2 * 2 * kc0.numel() * kc0.element_size() <= 72 * 1024 * 1024
+                or "layer_stream" not in params)
+        if "mega_pack" in params["h0"] and fits:
+            return self._backbone_mega_decode(params, x, cache, old_lens, cos_t, sin_t)
         qkv = rms_quant_linear(x, params["h0"]["ln_attn"]["gamma"],
                                params["h0"]["wqkv"]["weight"], eps=cfg.rms_eps)
         new_cache = {}
@@ -378,6 +405,65 @@ class Llama:
                                        params[f"h{i}"]["ln_mlp"]["gamma"],
                                        params["layer_stream"], i, gamma_next, eps=cfg.rms_eps)
         return x, new_cache
+
+    def _backbone_mega_decode(self, params: dict, x: torch.Tensor, cache: dict,
+                              old_lens: torch.Tensor, cos_t, sin_t):
+        """One kernel per layer (``layer_megakernel``): attention with the
+        cache write and the whole layer tail, from the slot-ordered qkv row
+        of layer 0's ``wqkv_slot``."""
+        cfg = self.config
+        B, H = x.shape[0], cfg.hidden_size
+        qkv = rms_quant_linear(x, params["h0"]["ln_attn"]["gamma"], params["h0"]["wqkv_slot"],
+                               eps=cfg.rms_eps).reshape(B, -1)
+        x2 = x.reshape(B, H)
+        new_cache = {}
+        for i in range(cfg.num_layers):
+            bp, lc = params[f"h{i}"], cache[f"h{i}"]
+            gamma_next = (params[f"h{i + 1}"]["ln_attn"]["gamma"]
+                          if i + 1 < cfg.num_layers else None)
+            x2, qkv, k_c, v_c = layer_megakernel(
+                qkv, x2, bp["ln_mlp"]["gamma"], bp["mega_pack"], lc["k"], lc["v"], old_lens,
+                cos_t, sin_t, gamma_next, num_heads=cfg.num_heads, eps=cfg.rms_eps)
+            new_cache[f"h{i}"] = {"k": k_c, "v": v_c}
+        return x2.reshape(B, 1, H), new_cache
+
+    # --- whole-model single-kernel decode (kernels/decode_giga.py) ---
+
+    def stack_kv_cache(self, cache: dict):
+        """Per-layer dict cache -> stacked (k_pool, v_pool) [L, B, T,
+        NKV*HD] (a copy; kept 4-D, as JAX keeps them)."""
+        L = self.config.num_layers
+        k = torch.stack([cache[f"h{i}"]["k"] for i in range(L)])
+        v = torch.stack([cache[f"h{i}"]["v"] for i in range(L)])
+        _, B, T, NKV, HD = k.shape
+        return k.reshape(L, B, T, NKV * HD), v.reshape(L, B, T, NKV * HD)
+
+    def unstack_kv_cache(self, k_pool: torch.Tensor, v_pool: torch.Tensor) -> dict:
+        """Stacked pools -> the per-layer dict cache. The layers are views of
+        the pools (JAX returns new arrays): writes through either side land
+        in the other."""
+        cfg = self.config
+        L, B, T, _ = k_pool.shape
+        NKV, HD = cfg.num_kv_heads, cfg.hd
+        return {f"h{i}": {"k": k_pool[i].view(B, T, NKV, HD), "v": v_pool[i].view(B, T, NKV, HD)}
+                for i in range(L)}
+
+    def _giga_tables(self, lens: torch.Tensor):
+        """Full-width tiled RoPE tables for the giga kernel's x mode."""
+        cos, sin = self._rope(lens[:, None])
+        return self._tiled_tables(cos, sin, self.config.num_kv_heads)
+
+    def giga_step(self, params: dict, tokens: torch.Tensor, k_pool: torch.Tensor,
+                  v_pool: torch.Tensor, lens: torch.Tensor):
+        """One whole-model decode step as one kernel (``giga_decode_step`` in
+        the tokens mode: embedding, RoPE tables, every layer, the head and
+        its argmax). ``lens`` [B] int32 = live cache rows per sequence (the
+        current token excluded). Returns (next_token [B, 1] int32, logits
+        [B, vocab], k_pool, v_pool), the pools written in place."""
+        tok, logits, k_pool, v_pool = giga_decode_step(
+            params["embed"]["wte"], None, None, lens, params["giga_pack"], k_pool, v_pool,
+            tokens=tokens.reshape(-1))
+        return tok, logits[:, :self.config.vocab_size], k_pool, v_pool
 
     def forward_with_cache(self, params: dict, tokens: torch.Tensor, cache: dict, pos: int):
         """tokens [B, t] at absolute position ``pos`` -> (logits [B, t, V],
@@ -485,13 +571,133 @@ def pack_decode_layers(params: dict, *, bn: int = 512) -> dict:
     return {**params, "layer_stream": stream}
 
 
+def _layer_names(params: dict) -> list:
+    return sorted((n for n in params if n.startswith("h") and n[1:].isdigit()),
+                  key=lambda n: int(n[1:]))
+
+
+def _get_qt(blk, name: str) -> Optional[QTensor]:
+    w = blk.get(name, {}).get("weight") if isinstance(blk, dict) else None
+    return w if isinstance(w, QTensor) else None
+
+
+def pack_decode_mlp(params: dict, *, bn: int = 2048) -> dict:
+    """Add the MLP-block weight stream (``mlp_pack``: wo, wgu and down) to
+    every quantized block that packs. Run after ``fuse_llama_projections``
+    + ``quantize_model_params``; the QTensors stay for prefill."""
+    out = dict(params)
+    for name, blk in params.items():
+        if not (isinstance(blk, dict) and "wgu" in blk and "wo" in blk):
+            continue
+        wo, wgu, down = (_get_qt(blk, k) for k in ("wo", "wgu", "down"))
+        if not all((wo, wgu, down)):
+            continue
+        pack = pack_mlp(wo, wgu, down, bn=bn)
+        if pack is not None:
+            out[name] = {**blk, "mlp_pack": pack}
+    return out
+
+
+def pack_decode_megalayers(params: dict, cfg: LlamaConfig, *, bn: int = 512) -> dict:
+    """Per-layer single-kernel decode packs (``mega_pack``: layer i's
+    slot-permuted wo, its wgu and down, layer i+1's slot-permuted wqkv) and
+    a slot-permuted copy of layer 0's wqkv (``wqkv_slot``) for the first
+    projection. Run after ``fuse_llama_projections`` +
+    ``quantize_model_params``. All or nothing."""
+    NH, NKV, HD = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    names = _layer_names(params)
+    megas = []
+    for idx, name in enumerate(names):
+        wo, wgu, down = (_get_qt(params[name], k) for k in ("wo", "wgu", "down"))
+        if not all((wo, wgu, down)):
+            return params
+        wqkv_next = None
+        if idx + 1 < len(names):
+            wqkv_next = _get_qt(params[names[idx + 1]], "wqkv")
+            if wqkv_next is None:
+                return params
+        mp = pack_mega_layer(wo, wgu, down, wqkv_next, nh=NH, nkv=NKV, hd=HD, bn=bn)
+        if mp is None:
+            return params
+        megas.append(mp)
+    wqkv0 = _get_qt(params[names[0]], "wqkv")
+    if wqkv0 is None:
+        return params
+    out = dict(params)
+    for name, mp in zip(names, megas):
+        out[name] = {**out[name], "mega_pack": mp}
+    out[names[0]] = {**out[names[0]], "wqkv_slot": permute_q_columns(wqkv0, NH, NKV, HD)}
+    return out
+
+
+def pack_decode_giga(params: dict, cfg: LlamaConfig, *, bn: int = 512,
+                     bf16_stream: bool = False) -> dict:
+    """Add the whole-model decode weight stream (``giga_pack``): every
+    layer's slot-permuted wo, wgu, down and the next layer's wqkv, layer 0's
+    wqkv first, the padded quantized head last (``kernels/decode_giga.py``).
+    Run after ``fuse_llama_projections`` + ``quantize_model_params`` +
+    ``add_quantized_lm_head``. fp8 weights go onto an int8 grid
+    (``requantize_int8``) and int4 weights are unpacked to int8 rows first,
+    as JAX does. An unquantized model packs bf16 tiles with unit scales only
+    with ``bf16_stream=True`` (the CPU path runs them; the kernel raises).
+    All or nothing: params come back unchanged when a shape does not fit."""
+    head = params.get("lm_head_q")
+    if isinstance(head, QTensor):
+        bf16_mode = False
+        head = requantize_int8(unpack_int4(head))
+    elif bf16_stream:
+        bf16_mode = True
+        wt = params["embed"]["wte"].T
+        V = wt.shape[1]
+        vpad = -(-V // bn) * bn
+        if vpad != V:
+            wt = torch.nn.functional.pad(wt, (0, vpad - V))
+        head = unit_qtensor(wt)
+    else:
+        return params
+
+    def stream_qt(blk, name):
+        w = blk.get(name, {}).get("weight") if isinstance(blk, dict) else None
+        if bf16_mode:
+            if isinstance(w, QTensor) or w is None or w.ndim != 2:
+                return None
+            return unit_qtensor(w)
+        if not isinstance(w, QTensor):
+            return None
+        return requantize_int8(unpack_int4(w))
+
+    weights, ga, gm = [], [], []
+    for name in _layer_names(params):
+        blk = params[name]
+        ws = tuple(stream_qt(blk, k) for k in ("wo", "wgu", "down", "wqkv"))
+        if not all(w is not None for w in ws):
+            return params
+        weights.append(ws)
+        ga.append(blk["ln_attn"]["gamma"].float())
+        gm.append(blk["ln_mlp"]["gamma"].float())
+    pack = pack_giga(weights, head, torch.stack(ga), torch.stack(gm),
+                     params["norm_f"]["gamma"].float(), nh=cfg.num_heads,
+                     nkv=cfg.num_kv_heads, hd=cfg.hd, vocab=cfg.vocab_size, eps=cfg.rms_eps,
+                     bn=bn, rope_inv_freq=ops.rope_frequencies(cfg.hd, cfg.rope_theta,
+                                                               cfg.rope_scaling))
+    if pack is None:
+        return params
+    return {**params, "giga_pack": pack}
+
+
 def decode_step_bytes(params: dict, cfg: LlamaConfig, batch: int, cache_len: int,
                       kv_bytes_per_el: int = 2) -> dict:
     """Device-memory bytes one decode step must move (port of
     ``benchmarks/llama_bench.py:decode_step_bytes``): every quantized weight
     (q and scales) and 2-D weight once, the bf16 embedding only when it is
     the head, and the K/V cache rows read at ``cache_len``. The decode packs
-    (``layer_stream``) are a second image of weights already counted."""
+    (``layer_stream``, ``mlp_pack``, ``mega_pack``) are a second image of
+    weights already counted. With a ``giga_pack`` the stream is the step's
+    whole weight image: its tiles and scale rows are what is counted."""
+    kv = 2 * batch * cache_len * cfg.num_kv_heads * cfg.hd * kv_bytes_per_el * cfg.num_layers
+    if "giga_pack" in params:
+        gp = params["giga_pack"]
+        return {"weight_bytes": int(gp.w.nbytes + gp.s.nbytes), "kv_read_bytes": int(kv)}
     has_qhead = isinstance(params.get("lm_head_q"), QTensor)
     weight = 0
 
@@ -511,7 +717,6 @@ def decode_step_bytes(params: dict, cfg: LlamaConfig, batch: int, cache_len: int
                 weight += sub["wte"].nbytes
         elif name != "layer_stream":
             visit(sub)
-    kv = 2 * batch * cache_len * cfg.num_kv_heads * cfg.hd * kv_bytes_per_el * cfg.num_layers
     return {"weight_bytes": int(weight), "kv_read_bytes": int(kv)}
 
 

@@ -1,4 +1,5 @@
-"""Time each phase of the layer-tail kernel (``csrc/layer_tail_int8.cu``) on
+"""Time each phase of the layer-tail kernel (``csrc/layer_tail_int8.cu`` with
+``csrc/tail_phases.cuh``) on
 the GPU, at Llama-3.2-1B's tail (H 2048, I 8192, wqkv 3072 columns, bn 512,
 M 8, random int8 weights).
 
@@ -56,17 +57,27 @@ extern "C" void get_trace(unsigned long long* out) {
 
 
 def stamped_source() -> str:
-    src = (_build.CSRC / "layer_tail_int8.cu").read_text()
-    src = src.replace('#include "common.cuh"',
-                      f'#include "{_build.CSRC / "common.cuh"}"\n{_STAMP}')
-    count = iter(range(1, 32))
-    src = re.sub(r"grid\.sync\(\);", lambda _: f"grid.sync(); stamp({next(count)});", src)
-    src = src.replace("  // 1 wo.", "  stamp(0);\n  // 1 wo.")
-    src = src.replace("  if (p.n_qkv == 0) return;", "  if (p.n_qkv == 0) { stamp(20); return; }")
-    src = src.replace("    qkv[i] = from_f<T>(v);\n  }\n}", "    qkv[i] = from_f<T>(v);\n  }\n  stamp(20);\n}")
-    if src.count("stamp(") < 10:
+    """layer_tail_int8.cu with tail_phases.cuh inlined and a stamp after
+    every barrier, numbered in the order a layer meets them (qkv_phases,
+    defined first, holds the seventh)."""
+    head = (_build.CSRC / "tail_phases.cuh").read_text()
+    head = head.replace('#include "common.cuh"',
+                        f'#include "{_build.CSRC / "common.cuh"}"\n{_STAMP}')
+    split = head.index("__device__ void tail_phases")
+    first, rest = head[:split], head[split:]
+    first = first.replace("grid.sync();", "grid.sync(); stamp(7);")
+    count = iter(range(1, 7))
+    rest = re.sub(r"grid\.sync\(\);", lambda _: f"grid.sync(); stamp({next(count)});", rest)
+    head = first + rest
+    head = head.replace("  // 1 wo.", "  stamp(0);\n  // 1 wo.")
+    head = head.replace("  if (p.n_qkv == 0) return;",
+                        "  if (p.n_qkv == 0) { stamp(20); return; }")
+    head = head.replace("    qkv[i] = from_f<T>(v);\n  }\n}",
+                        "    qkv[i] = from_f<T>(v);\n  }\n  stamp(20);\n}")
+    if head.count("stamp(") < 10:
         raise RuntimeError("the kernel source no longer has the expected phase markers")
-    return src + _EXTRA
+    src = (_build.CSRC / "layer_tail_int8.cu").read_text()
+    return src.replace('#include "tail_phases.cuh"', head) + _EXTRA
 
 
 def build(min_blocks) -> dict:

@@ -142,11 +142,19 @@ def test_forward_with_cache_ragged_matches_jax(models, which):
 
 
 def test_mega_pack_raises(models):
+    """mega_pack params no longer raise: a decode step runs one megakernel
+    per layer (held against JAX in tests/test_torch_layer_mega.py)."""
+    from mila_tpu_torch.kernels import layer_mega as tmg
+
     _, _, tmodel, tp = models["int8"]
-    params = {**tp, "h0": {**tp["h0"], "mega_pack": object()}}
+    params = tl.pack_decode_megalayers(tp, tmodel.config, bn=128)
+    assert "mega_pack" in params["h0"] and "wqkv_slot" in params["h0"]
     cache = tmodel.init_kv_cache(B, MAXLEN, torch.float32)
-    with pytest.raises(NotImplementedError, match="row 14"):
-        tmodel.forward_with_cache(params, torch.zeros((B, 1), dtype=torch.int32), cache, 0)
+    before = tmg.layer_megakernel_plain.calls
+    logits, _ = tmodel.forward_with_cache(params, torch.zeros((B, 1), dtype=torch.int32),
+                                          cache, 0)
+    assert tmg.layer_megakernel_plain.calls == before + tmodel.config.num_layers
+    assert logits.shape == (B, 1, V) and torch.isfinite(logits).all()
 
 
 @pytest.mark.parametrize("which", ["f32", "int8"])

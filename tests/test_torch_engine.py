@@ -137,10 +137,11 @@ def test_sampled_requests_run(engine):
 
 def test_unported_layouts_raise(pair):
     _, _, tmodel, tparams = pair
-    with pytest.raises(NotImplementedError):  # the giga decode of the contiguous layout
-        InferenceEngine(tmodel, {**tparams, "giga_pack": None},
-                        EngineConfig(kv_layout="contiguous"), device="cpu")
-    with pytest.raises(NotImplementedError):
+    # The giga decode of the contiguous layout is ported: giga params select it.
+    eng = InferenceEngine(tmodel, {**tparams, "giga_pack": None},
+                          EngineConfig(kv_layout="contiguous", max_len=64), device="cpu")
+    assert eng._use_giga_decode() and eng.giga_pools is not None
+    with pytest.raises(NotImplementedError):  # speculative decoding is not
         InferenceEngine(tmodel, tparams, EngineConfig(speculative_k=2), device="cpu")
 
 

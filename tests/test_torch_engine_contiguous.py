@@ -96,9 +96,11 @@ def test_layout_choice_and_refusals(pair):
     assert auto.kv_layout == "paged"  # the model has the paged protocol
     with pytest.raises(ValueError, match="int8 KV cache"):
         InferenceEngine(tmodel, tparams, _config(EngineConfig, cache_dtype="int8"), device="cpu")
-    with pytest.raises(NotImplementedError, match="row 10"):
-        InferenceEngine(tmodel, {**tparams, "giga_pack": None}, _config(EngineConfig),
-                        device="cpu")
+    giga = InferenceEngine(tmodel, {**tparams, "giga_pack": None},
+                           _config(EngineConfig, cache_dtype="bfloat16"), device="cpu")
+    assert giga.giga_pools is not None  # giga params take the whole-step decode
+    assert InferenceEngine(tmodel, {**tparams, "giga_pack": None}, _config(EngineConfig),
+                           device="cpu").giga_pools is None  # only over a bf16 cache
     with pytest.raises(ValueError):
         InferenceEngine(tmodel, tparams, _config(EngineConfig, kv_layout="ring"), device="cpu")
 

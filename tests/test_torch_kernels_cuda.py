@@ -11,8 +11,14 @@ in f32, in different orders. Outputs rounded to bf16 may then differ by one
 bf16 step (2^-8 relative); we allow 2e-2 of the output's max magnitude.
 The layer tail's plain version is the JAX package's reference, which
 rounds more often than the kernel (see ``kernels/layer_fused.py``): the
-same 2e-2. The argmax head's token must carry a plain logit within 1e-3 of
-the row's largest (f32 sums in another order may swap near-ties).
+same 2e-2, and so for the per-layer megakernel (``_mega_ref``) and the
+MLP-block stream. The argmax head's token must carry a plain logit within
+1e-3 of the row's largest (f32 sums in another order may swap near-ties).
+The whole-step giga kernel keeps the residual in f32 where its plain
+version (``_giga_ref``) rounds it to bf16 at every layer, so it is held to
+the JAX package's own gate for it (``benchmarks/r5_giga.py``): greedy
+tokens agree on at least 7/8 of the rows, logits within 5e-2 * max(1, L/4)
++ 5e-2 relative, the written K/V rows within 2e-2 of their largest value.
 """
 
 import numpy as np
@@ -21,8 +27,11 @@ import torch
 
 from mila_tpu_torch.inference.quantize import quantize
 from mila_tpu_torch.kernels import decode_fused as df
+from mila_tpu_torch.kernels import decode_giga as dg
+from mila_tpu_torch.kernels import decode_mlp as dm
 from mila_tpu_torch.kernels import dense_attention as da
 from mila_tpu_torch.kernels import layer_fused as lf
+from mila_tpu_torch.kernels import layer_mega as lm
 from mila_tpu_torch.kernels import layer_stream as ls
 from mila_tpu_torch.kernels import paged_attention as pa
 from mila_tpu_torch.kernels import quant_matmul as qm
@@ -236,3 +245,186 @@ def test_layer_tail_kernel(cuda, H, I, NQ, bn, M, dtype):
     torch.cuda.synchronize()
     _close(out, wout)
     _close(qkv, wqkv)
+
+
+@pytest.mark.parametrize("H,I,bn,M,dtype", [
+    (256, 512, 128, 4, torch.bfloat16),
+    (256, 512, 256, 20, torch.float32),
+    (2048, 8192, 2048, 8, torch.bfloat16),  # Llama-3.2-1B's MLP block
+])
+def test_mlp_block_kernel(cuda, H, I, bn, M, dtype):
+    rng = np.random.default_rng(30)
+
+    def w(*shape):
+        return quantize(torch.from_numpy((rng.standard_normal(shape) * 0.05).astype(
+            np.float32)).cuda(), "int8")
+
+    pack = dm.pack_mlp(w(H, H), w(H, 2 * I), w(I, H), bn=bn)
+    att, x = _rand((M, H), 31, dtype=dtype), _rand((M, H), 32, dtype=dtype)
+    g = 1.0 + _rand((H,), 33, 0.1, torch.float32)
+    before = dm.mlp_block_fused.launches
+    got = dm.mlp_block_fused(att, x, g, pack)
+    torch.cuda.synchronize()
+    assert dm.mlp_block_fused.launches == before + 1 and got.dtype == dtype
+    _close(got, dm.mlp_block_plain(att, x, g, pack, eps=1e-5))
+    dm.mlp_block_fused(att.cpu(), x.cpu(), g.cpu(), dm.MLPPack(pack.w.cpu(), pack.s.cpu(),
+                                                               *pack[2:]))
+    assert dm.mlp_block_fused.launches == before + 1  # a CPU tensor takes the plain version
+
+
+def _tables(rng, lens, NKV, HD):
+    ang = torch.from_numpy(lens[:, None].astype(np.float32) * rng.uniform(
+        0.001, 1.0, (1, HD // 2)).astype(np.float32)).cuda()
+    c2, s2 = torch.cos(ang), torch.sin(ang)
+    return torch.cat([c2, c2], -1).repeat(1, NKV), torch.cat([-s2, s2], -1).repeat(1, NKV)
+
+
+def _mega_case(H, I, NH, NKV, HD, bn, seed, with_qkv=True):
+    rng = np.random.default_rng(seed)
+
+    def w(*shape):
+        return quantize(torch.from_numpy((rng.standard_normal(shape) * 0.05).astype(
+            np.float32)).cuda(), "int8")
+
+    KD = NKV * HD
+    return lm.pack_mega_layer(w(NH * HD, H), w(H, 2 * I), w(I, H),
+                              w(H, NH * HD + 2 * KD) if with_qkv else None, nh=NH, nkv=NKV,
+                              hd=HD, bn=bn)
+
+
+@pytest.mark.parametrize("H,I,NH,NKV,HD,bn,B,T,dtype,with_qkv", [
+    (512, 1024, 8, 2, 64, 128, 5, 64, torch.bfloat16, True),   # G = 4
+    (512, 1024, 8, 8, 64, 512, 3, 32, torch.float32, False),   # G = 1
+    (2048, 8192, 32, 8, 64, 512, 8, 512, torch.bfloat16, True),  # Llama-3.2-1B
+])
+def test_layer_megakernel_kernel(cuda, H, I, NH, NKV, HD, bn, B, T, dtype, with_qkv):
+    pack = _mega_case(H, I, NH, NKV, HD, bn, 40, with_qkv)
+    rng = np.random.default_rng(41)
+    KD = NKV * HD
+    lens = rng.integers(1, T, B).astype(np.int32)
+    lens[0] = T - 1
+    cos_t, sin_t = _tables(rng, lens, NKV, HD)
+    qkv = _rand((B, NH * HD + 2 * KD), 42, dtype=dtype)
+    x = _rand((B, H), 43, dtype=dtype)
+    g1, g2 = 1.0 + _rand((H,), 44, 0.1, torch.float32), 1.0 + _rand((H,), 45, 0.1, torch.float32)
+    k, v = _rand((B, T, NKV, HD), 46), _rand((B, T, NKV, HD), 47)
+    kp, vp = k.clone(), v.clone()
+    ln = torch.from_numpy(lens).cuda()
+    gn = g2 if with_qkv else None
+    before = lm.layer_megakernel.launches
+    out, qkv_n, k2, v2 = lm.layer_megakernel(qkv, x, g1, pack, k, v, ln, cos_t, sin_t, gn,
+                                             num_heads=NH)
+    torch.cuda.synchronize()
+    assert lm.layer_megakernel.launches == before + 1 and k2 is k and v2 is v
+    wout, wqkv, _, _ = lm.layer_megakernel_plain(qkv, x, g1, pack, kp, vp, ln, cos_t, sin_t,
+                                                 g2, num_heads=NH, eps=1e-5,
+                                                 scale=HD ** -0.5)
+    _close(out, wout)
+    if with_qkv:
+        _close(qkv_n, wqkv)
+    else:
+        assert qkv_n is None
+    rows = torch.arange(B, device="cuda")
+    _close(k[rows, ln.long()], kp[rows, ln.long()])
+    _close(v[rows, ln.long()], vp[rows, ln.long()])
+    keep = torch.ones(B, T, dtype=torch.bool, device="cuda")
+    keep[rows, ln.long()] = False
+    assert torch.equal(k[keep], kp[keep]) and torch.equal(v[keep], vp[keep])
+
+
+def _giga_case(L, H, I, NH, NKV, HD, bn, VP, vocab, seed):
+    rng = np.random.default_rng(seed)
+
+    def w(*shape):
+        return quantize(torch.from_numpy((rng.standard_normal(shape) * 0.05).astype(
+            np.float32)).cuda(), "int8")
+
+    KD = NKV * HD
+    layers = [(w(NH * HD, H), w(H, 2 * I), w(I, H), w(H, NH * HD + 2 * KD)) for _ in range(L)]
+    g = lambda *s: 1.0 + _rand(s, seed + len(s), 0.1, torch.float32)  # noqa: E731
+    inv = (1.0 / 10000.0 ** (np.arange(0, HD, 2) / HD)).astype(np.float32)
+    return dg.pack_giga(layers, w(H, VP), g(L, H), g(L, H) * 0.9, g(H), nh=NH, nkv=NKV, hd=HD,
+                        vocab=vocab, bn=bn, rope_inv_freq=inv)
+
+
+def _giga_gate(got, want, L, B):
+    tok, logits = got[0].reshape(-1), got[1].float()
+    wtok, wlogits = want[0].reshape(-1), want[1].float()
+    assert int((tok == wtok).sum()) >= (B * 7) // 8, (tok, wtok)
+    assert torch.isfinite(logits).all()
+    torch.testing.assert_close(logits, wlogits, rtol=5e-2, atol=5e-2 * max(1.0, L / 4))
+
+
+@pytest.mark.parametrize("mode", ["x", "tokens"])
+@pytest.mark.parametrize("L,H,I,NH,NKV,HD,bn,VP,vocab,B,T", [
+    (2, 512, 1024, 8, 2, 64, 128, 1024, 1000, 5, 64),  # G = 4
+    (2, 512, 1024, 8, 8, 64, 512, 1024, 1000, 3, 32),  # G = 1 (the JAX tests' shape)
+])
+def test_giga_kernel(cuda, mode, L, H, I, NH, NKV, HD, bn, VP, vocab, B, T):
+    pack = _giga_case(L, H, I, NH, NKV, HD, bn, VP, vocab, 50)
+    rng = np.random.default_rng(51)
+    KD = NKV * HD
+    lens = rng.integers(1, T, B).astype(np.int32)
+    lens[0] = T - 1
+    ln = torch.from_numpy(lens).cuda()
+    kpool, vpool = _rand((L, B, T, KD), 52), _rand((L, B, T, KD), 53)
+    k0, v0 = kpool.clone(), vpool.clone()
+    kw, vw = kpool.clone(), vpool.clone()
+    if mode == "x":
+        x = _rand((B, H), 54)
+        cos_t, sin_t = _tables(rng, lens, NKV, HD)
+        args, kwargs = (x, cos_t, sin_t), {}
+        plain_in = (x, cos_t, sin_t)
+    else:
+        wte = _rand((1000, H), 55)
+        tokens = torch.from_numpy(rng.integers(0, 1000, B).astype(np.int32)).cuda()
+        args, kwargs = (wte, None, None), {"tokens": tokens}
+        plain_in = dg._embed_rope(wte, tokens, ln, pack)
+    before = dg.giga_decode_step.launches
+    got = dg.giga_decode_step(*args, ln, pack, kpool, vpool, **kwargs)
+    torch.cuda.synchronize()
+    assert dg.giga_decode_step.launches == before + 1
+    assert got[2] is kpool and got[3] is vpool
+    assert got[0].dtype == torch.int32 and got[1].shape == (B, pack.n_head * bn)
+    want = dg.giga_decode_plain(*plain_in, ln, pack, kw, vw, sm_scale=HD ** -0.5)
+    _giga_gate(got, want, L, B)
+    assert int(got[0].max()) < vocab
+    assert not got[1][:, -(pack.n_head * bn - VP):].float().any()  # the zero pad tiles
+    rows = torch.arange(B, device="cuda")
+    for pool, ref, orig in ((kpool, kw, k0), (vpool, vw, v0)):
+        for l in range(L):
+            _close(pool[l][rows, ln.long()], ref[l][rows, ln.long()])
+        pool[:, rows, ln.long()] = orig[:, rows, ln.long()]
+        assert torch.equal(pool, orig)  # no other row was touched
+
+
+def test_giga_kernel_leaves_a_full_cache_alone(cuda):
+    """At lens[b] == T nothing is written (the token is still attended)."""
+    L, H, I, NH, NKV, HD, bn, B, T = 2, 512, 1024, 8, 2, 64, 128, 3, 32
+    pack = _giga_case(L, H, I, NH, NKV, HD, bn, 1024, 1000, 60)
+    lens = np.array([T, 4, T - 1], np.int32)
+    ln = torch.from_numpy(lens).cuda()
+    kpool, vpool = _rand((L, B, T, NKV * HD), 61), _rand((L, B, T, NKV * HD), 62)
+    k0, v0 = kpool.clone(), vpool.clone()
+    wte = _rand((1000, H), 63)
+    tok, logits, _, _ = dg.giga_decode_step(wte, None, None, ln, pack, kpool, vpool,
+                                            tokens=torch.tensor([1, 2, 3], device="cuda"))
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits.float()).all() and 0 <= int(tok.min()) <= int(tok.max()) < 1000
+    assert torch.equal(kpool[:, 0], k0[:, 0]) and torch.equal(vpool[:, 0], v0[:, 0])
+    assert not torch.equal(kpool[:, 1, 4], k0[:, 1, 4])
+
+
+def test_giga_and_mega_refuse_other_streams(cuda):
+    pack = _giga_case(2, 512, 1024, 8, 2, 64, 128, 1024, 1000, 70)
+    bf = pack._replace(w=pack.w.to(torch.bfloat16))
+    kpool = _rand((2, 2, 32, 128), 71)
+    with pytest.raises(NotImplementedError):
+        dg.giga_decode_step(_rand((1000, 512), 72), None, None,
+                            torch.tensor([1, 2], device="cuda"), bf, kpool, kpool.clone(),
+                            tokens=torch.tensor([1, 2], device="cuda"))
+    before = dg.giga_decode_step.launches
+    cpu = dg.GigaPack(*(v.cpu() if isinstance(v, torch.Tensor) else v for v in pack))
+    dg.giga_decode_step(_rand((1000, 512), 72).cpu(), None, None, torch.tensor([1, 2]), cpu,
+                        kpool.cpu(), kpool.cpu(), tokens=torch.tensor([1, 2]))
+    assert dg.giga_decode_step.launches == before  # a CPU tensor takes the plain version

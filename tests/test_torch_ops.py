@@ -89,7 +89,9 @@ def test_port_imports_no_jax():
             "mila_tpu_torch.inference.engine, mila_tpu_torch.bridge, "
             "mila_tpu_torch.kernels.decode_fused, mila_tpu_torch.kernels.paged_attention, "
             "mila_tpu_torch.kernels.dense_attention, mila_tpu_torch.kernels.layer_fused, "
-            "mila_tpu_torch.kernels.layer_stream, mila_tpu_torch.inference.generator\n"
+            "mila_tpu_torch.kernels.layer_stream, mila_tpu_torch.inference.generator, "
+            "mila_tpu_torch.kernels.decode_giga, mila_tpu_torch.kernels.layer_mega, "
+            "mila_tpu_torch.kernels.decode_mlp, mila_tpu_torch.inference.requant\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'mila_tpu.'))"
             " or m == 'mila_tpu']\n"
             "assert not bad, bad\n")
