@@ -11,7 +11,10 @@ exits non-zero without the final line):
   kernels  each kernel entry point at the served shapes, kernel against its
            plain PyTorch version on the same inputs on the card: max abs
            error and tolerance, kernel / plain / library ms (CUDA events),
-           and the least time the card could take (bound_ms);
+           and the least time the card could take (bound_ms); the int4
+           weight stream, flash attention and int8 pages included;
+  crossover one layer's prefill attention at T 512-4096: the flash kernel
+           against the plain product (FLASH_MIN_SEQ stays 2048);
   parity   Llama-3.2-1B widths at 2 layers (G = 4: the slot head order is
            exercised), int8, kernels on the card against the same weights
            through the plain path on the CPU: the paged prefill of 8 prompts
@@ -20,6 +23,9 @@ exits non-zero without the final line):
            pack_decode_megalayers params and neither; 8 giga_step steps on
            pack_decode_giga params; 4 forward_with_cache_ragged steps on
            pack_decode_mlp params;
+  parity long  the same widths at 2 layers with int4 weights and int8
+           pages: a paged prefill in a 2048-token bucket (flash on the card,
+           the plain product on the CPU) and 8 decode steps;
   decode   the full 16-layer Llama-3.2-1B int8 with pack_decode_layers at the
            JAX bench's decode shape (B 8, prompt 128, cache 512): prefill, 64
            greedy_step_with_cache steps (ms/step eager and as a CUDA-graph
@@ -35,13 +41,19 @@ exits non-zero without the final line):
            8, max_len 512, buckets (32, 64, 128), greedy; three identical
            paged runs (medians reported), one contiguous-layout run on the
            packed params and one on the giga params; one paged decode step
-           timed eagerly and as a CUDA-graph replay.
+           timed eagerly and as a CUDA-graph replay;
+  serve long  the 16-layer Llama-3.2-1B with int4 weights served over int8
+           KV pages: 8 requests (4 prompts of 2048-4000 tokens, 4 of
+           64-1000), 32 new tokens each, max_batch 8, max_len 4224, buckets
+           64-4096; tok/s, TTFT of long and short prompts, decode ms/step,
+           prefill seconds per bucket, peak memory; one int4 paged decode
+           step timed eagerly and as a CUDA-graph replay.
 
 On every path (decode prefill, decode, giga prefill, giga, mega prefill,
-mega, generate, generate mlp, each serve run) the launch counts are set to
-0 just before it and must equal, just after it, the counts the path implies
-for all thirteen entry points (0 for those it does not reach), and no plain
-version may run. Then the kernel summary line
+mega, generate, generate mlp, each serve run, serve long) the launch counts
+are set to 0 just before it and must equal, just after it, the counts the
+path implies for all fifteen entry points (0 for those it does not reach),
+and no plain version may run. Then the kernel summary line
 ({"kernels": [...]}), the card line, and as the last line
 {"ok": true, "device": {...}}. Imports only torch, numpy, the standard
 library and mila_tpu_torch.
@@ -140,6 +152,18 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return (got - want).abs().max().item(), want.abs().max().item()
 
 
+def max_row_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max over rows (the last axis) of |got - want| / max |want row|. The
+    flash gate: a query row that attends to n keys holds values of about
+    sqrt(e / n), far under the first rows' |v|, so each row is held to its
+    own size."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError("kernel output is not finite")
+    d = (got - want).abs().amax(dim=-1)
+    return (d / want.abs().amax(dim=-1).clamp_min(1e-30)).max().item()
+
+
 def run_counted(path: str, fn, expected):
     """Run ``fn`` with every launch count set to 0 just before it; fail
     unless the counts just after equal ``expected`` (a dict, or a function
@@ -163,7 +187,7 @@ def run_counted(path: str, fn, expected):
     return out, counts
 
 
-def build_params(cfg, seed: int, device):
+def build_params(cfg, seed: int, device, dtype: str = "int8"):
     from mila_tpu_torch.inference.quantize import quantize_model_params
     from mila_tpu_torch.models.llama import (add_quantized_lm_head, fuse_llama_projections,
                                              init_llama_params)
@@ -171,8 +195,8 @@ def build_params(cfg, seed: int, device):
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params = init_llama_params(cfg, gen, device=device)
-    params = quantize_model_params(fuse_llama_projections(params), "int8", device=device)
-    return add_quantized_lm_head(params, "int8")
+    params = quantize_model_params(fuse_llama_projections(params), dtype, device=device)
+    return add_quantized_lm_head(params, dtype)
 
 
 def to_cpu(tree):
@@ -191,13 +215,14 @@ def to_cpu(tree):
 # kernels
 # ---------------------------------------------------------------------------
 
-def phase_kernels(params, packs, cfg, bw, peak_ops, rng):
+def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
     from mila_tpu_torch.inference.kv_cache import make_paged_pools
     from mila_tpu_torch.inference.quantize import dequantize
     from mila_tpu_torch.kernels import decode_fused as df
     from mila_tpu_torch.kernels import decode_giga as dg
     from mila_tpu_torch.kernels import decode_mlp as dm
     from mila_tpu_torch.kernels import dense_attention as da
+    from mila_tpu_torch.kernels import flash_attention as fa
     from mila_tpu_torch.kernels import layer_fused as lf
     from mila_tpu_torch.kernels import layer_mega as lm
     from mila_tpu_torch.kernels import layer_stream as ls
@@ -522,8 +547,125 @@ def phase_kernels(params, packs, cfg, bw, peak_ops, rng):
            errors={"logits": l_err, "k_rows": row_errs[0][0], "v_rows": row_errs[1][0],
                    "kv_rows_by_layer": by_layer})
     del kpool, vpool, kw, vw
+
+    # Packed int4 weights (the long path's decode projections and head) at
+    # M 8, and wqkv at M 32, cycling over the 16 layers' weights.
+    layers4 = [params4[f"h{i}"] for i in range(L)]
+    for name, M4 in (("wqkv", 8), ("wo", 8), ("wgu", 8), ("down", 8), ("lm_head", 8),
+                     ("wqkv", 32)):
+        ws = ([params4["lm_head_q"]] if name == "lm_head"
+              else [blk[name]["weight"] for blk in layers4])
+        K, N = ws[0].packed_rows, ws[0].q.shape[1]
+        x = rand(M4, K)
+        w_bf = [dequantize(w, bf16) for w in ws[:copies(K * N * 2)]]
+        record("quant_linear_int4", f"{name} M={M4}",
+               *max_err(qm.quant_linear_int4(x, ws[0]), qm.quant_linear_int4_plain(x, ws[0])),
+               [lambda w=w: qm.quant_linear_int4(x, w) for w in ws],
+               lambda: qm.quant_linear_int4_plain(x, ws[0]),
+               [lambda w=w: torch.matmul(x, w) for w in w_bf],
+               K // 2 * N + ws[0].scale.numel() * 4 + M4 * K * 2 + M4 * N * 2, 2 * M4 * K * N)
+        del w_bf
+
+    # Flash attention (causal, bf16): Llama-3.2-1B's heads at B 1 T 4096 and
+    # B 4 T 2048, a D 128 case (Llama-3.2-3B's 24 heads over 8), a kv_offset
+    # window (Tq 512 over Tkv 2048). Bound: the causal pairs' operations (4
+    # per pair and head dim) against q, k, v and out read or written once.
+    # Gate: each (b, t, head) row within ERR_TOL of its own largest value.
+    from mila_tpu_torch.ops import causal_mask
+    for Bf, Tkv, Tq, NHf, NKVf, Df in ((1, 4096, 4096, NH, NKV, HD), (4, 2048, 2048, NH, NKV, HD),
+                                       (1, 2048, 2048, 24, 8, 128), (1, 2048, 512, NH, NKV, HD)):
+        off = Tkv - Tq
+        q, k, v = rand(Bf, Tq, NHf, Df), rand(Bf, Tkv, NKVf, Df), rand(Bf, Tkv, NKVf, Df)
+        got = fa.flash_attention(q, k, v, kv_offset=off)
+        want = fa.flash_attention_plain(q, k, v, kv_offset=off)
+        err, row_err = max_err(got, want), max_row_err(got, want)
+        shape = (f"B={Bf} T={Tkv} NH={NHf} NKV={NKVf} D={Df}"
+                 + (f" Tq={Tq} kv_offset={off}" if off else ""))
+        if row_err > ERR_TOL:
+            raise AssertionError(f"flash_attention[{shape}]: a row's max abs err is "
+                                 f"{row_err} > {ERR_TOL} of its largest value")
+        pairs = sum(min(Tkv, i + off + 1) for i in range(Tq))
+        # SDPA: is_causal where Tq == Tkv (its diagonal is top-left); the
+        # kv_offset window takes the same causal mask as an explicit one.
+        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        cm = None if off == 0 else causal_mask(Tq, Tkv, off, device=dev)
+        library = [lambda: sdpa(qs, ks, vs, attn_mask=cm, is_causal=cm is None,
+                                enable_gqa=True)]
+        record("flash_attention", shape, *err,
+               [lambda q=q, k=k, v=v, o=off: fa.flash_attention(q, k, v, kv_offset=o)],
+               lambda: fa.flash_attention_plain(q, k, v, kv_offset=off), library,
+               2 * (2 * q.numel() + 2 * k.numel()), 4 * Bf * NHf * Df * pairs,
+               gate=f"each (b, t, head) row: max |d| <= {ERR_TOL} x its max |ref|",
+               max_row_rel_err=row_err)
+        del q, k, v, got, want, qs, ks, vs, library
+
+    # Paged decode attention over int8 pages: B 8, lengths up to 4096 in
+    # 128-token pages (one row at 4096), cycling over distinct pools.
+    B, ps, W = 8, 128, 32
+    P = B * W + 1
+    n_pools = copies(2 * P * NKV * HD * ps)
+    pools = make_paged_pools(n_pools, NKV, HD, P, ps, torch.int8, dev)
+    for name in ("k", "v"):
+        pools[name].copy_(torch.randint(-127, 128, pools[name].shape, device=dev,
+                                        dtype=torch.int8))
+        pools[name + "_scale"].uniform_(0.002, 0.02)
+    lens_np = rng.integers(1, W * ps + 1, B).astype(np.int32)
+    lens_np[0] = W * ps
+    table_np = (1 + rng.permutation(P - 1)[: B * W]).reshape(B, W).astype(np.int32)
+    lens, table = torch.from_numpy(lens_np).to(dev), torch.from_numpy(table_np).to(dev)
+    q = rand(B, 1, NH, HD)
+
+    def layer(i):
+        return (pools["k"][i], pools["v"][i],
+                {"k_scale": pools["k_scale"][i], "v_scale": pools["v_scale"][i]})
+
+    kp0, vp0, sc0 = layer(0)
+    got = pa.paged_decode_attention(q, kp0, vp0, table, lens, **sc0)
+    want = pa.paged_decode_attention_plain(q, kp0, vp0, table, lens, **sc0)
+    T = W * ps
+
+    def dequant_gathered(pool, scale):
+        deq = (pool.float() * scale[:, :, None, :]).to(bf16)  # [P, NKV, HD, ps]
+        return deq[table.long()].permute(0, 2, 1, 4, 3).reshape(B, NKV, T, HD).contiguous()
+
+    kv = [(dequant_gathered(pools["k"][i], pools["k_scale"][i]),
+           dequant_gathered(pools["v"][i], pools["v_scale"][i])) for i in range(n_pools)]
+    mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    qs = q.transpose(1, 2)
+    live = int(lens_np.sum())
+    record("paged_decode_attention", f"int8 pages B={B} lens<=4096 ps={ps}", *max_err(got, want),
+           [lambda i=i: pa.paged_decode_attention(q, *layer(i)[:2], table, lens, **layer(i)[2])
+            for i in range(n_pools)],
+           lambda: pa.paged_decode_attention_plain(q, kp0, vp0, table, lens, **sc0),
+           [lambda k=k, v=v: sdpa(qs, k, v, attn_mask=mask, enable_gqa=True) for k, v in kv],
+           live * NKV * (HD + 4) * 2 + 2 * B * NH * HD * 2 + B * W * 4 + B * 4,
+           4 * live * NH * HD)
+    del pools, kv
     torch.cuda.synchronize()
     return rows
+
+
+def phase_crossover(cfg, rng):
+    """One layer's prefill attention (B 1, Llama-3.2-1B's heads, causal,
+    bf16) at T 512-4096: the flash kernel against the plain product that
+    ``attention_impl="auto"`` runs below FLASH_MIN_SEQ, each timed eagerly
+    as the prefill calls it (CUDA events around the call, median of 5)."""
+    from mila_tpu_torch.kernels import flash_attention as fa
+    from mila_tpu_torch.ops import FLASH_MIN_SEQ, dot_product_attention
+
+    NH, NKV, HD = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    rows = []
+    for T in (512, 1024, 2048, 4096):
+        q, k, v = (torch.from_numpy(rng.standard_normal((1, T, n, HD)).astype(np.float32))
+                   .to("cuda", torch.bfloat16) for n in (NH, NKV, NKV))
+        flash_ms = time_eager(lambda: fa.flash_attention(q, k, v), reps=5)
+        plain_ms = time_eager(lambda: dot_product_attention(q, k, v, causal=True), reps=5)
+        rows.append({"T": T, "flash_ms": flash_ms, "plain_ms": plain_ms,
+                     "plain_over_flash": plain_ms / flash_ms,
+                     "auto_takes": "flash" if T >= FLASH_MIN_SEQ else "plain"})
+        del q, k, v
+    return {"batch": 1, "heads": NH, "kv_heads": NKV, "head_dim": HD,
+            "flash_min_seq": FLASH_MIN_SEQ, "rows": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -668,6 +810,61 @@ def phase_parity(rng):
             "greedy_agree_mean": float(np.mean([s["greedy_agree"] for s in steps
                                                 if "row" not in s["what"]])),
             "greedy_step_token_agreement": agree}
+
+
+def phase_parity_long(rng):
+    """Llama-3.2-1B widths at 2 layers, int4 weights and int8 pages, on the
+    card against the same weights through the plain path on the CPU: a
+    paged prefill of 2 prompts in a 2048-token bucket (the card attends
+    through the flash kernel, the CPU through the plain product), then 8
+    decode steps fed the CPU's tokens; the parity gate on every step."""
+    from mila_tpu_torch.kernels import flash_attention as fa
+    from mila_tpu_torch.models.llama import Llama, LlamaConfig
+
+    cfg = LlamaConfig.llama32_1b().replace(num_layers=2, max_seq_len=4224)
+    params = build_params(cfg, seed=3, device="cuda", dtype="int4")
+    cpu_params = to_cpu(params)
+    gpu, cpu = Llama(cfg), Llama(cfg, device="cpu")
+    B, bucket, ps = 2, 2048, 128
+    W = -(-(bucket + 8) // ps)
+    lens = np.array([bucket, 1531], np.int32)
+    tokens = np.zeros((B, bucket), np.int32)
+    for i, n in enumerate(lens):
+        tokens[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    table = (1 + np.arange(B * W)).reshape(B, W).astype(np.int32)
+    gpools = gpu.init_paged_cache(B * W + 1, ps, torch.int8)
+    cpools = cpu.init_paged_cache(B * W + 1, ps, torch.int8)
+    gt, ct = torch.from_numpy(table).cuda(), torch.from_numpy(table)
+    flash0 = fa.flash_attention.launches
+    glog, gpools = gpu.forward_paged_prefill(params, torch.from_numpy(tokens).cuda(), gpools, gt,
+                                             torch.from_numpy(lens).cuda())
+    torch.cuda.synchronize()
+    if fa.flash_attention.launches - flash0 != cfg.num_layers:
+        raise AssertionError("parity long: the 2048-token prefill did not run the flash kernel")
+    clog, cpools = cpu.forward_paged_prefill(cpu_params, torch.from_numpy(tokens), cpools, ct,
+                                             torch.from_numpy(lens))
+    steps, hits = [], []
+
+    def compare(what, g, c):
+        parity_compare(steps, what, g, c, B)
+        return c.float().reshape(B, -1).argmax(-1).to(torch.int32)
+
+    nxt = compare("int4 paged prefill (flash)", glog, clog)
+    pos = lens.copy()
+    for step in range(8):
+        tok = nxt[:, None]
+        glog, gpools = gpu.forward_paged_ragged(params, tok.cuda(), gpools, gt,
+                                                torch.from_numpy(pos).cuda())
+        clog, cpools = cpu.forward_paged_ragged(cpu_params, tok, cpools, ct,
+                                                torch.from_numpy(pos))
+        nxt = compare(f"int4 int8-page decode {step}", glog, clog)
+        hits.append(float((glog.float().cpu().reshape(B, -1).argmax(-1) == nxt).float().mean()))
+        pos = pos + 1
+    del params, cpu_params, gpools, cpools
+    return {"layers": cfg.num_layers, "weights": "int4", "cache": "int8 pages",
+            "prompt_lens": lens.tolist(), "bucket": bucket,
+            "tolerance": f"max|d| <= {ERR_TOL} x max|ref| or min cosine >= 0.999",
+            "steps": steps, "greedy_token_agreement": float(np.mean(hits))}
 
 
 # ---------------------------------------------------------------------------
@@ -902,11 +1099,11 @@ def serve_once(model, params, cfg, prompts, layout: str):
     }
 
 
-def decode_step_times(model, params, cfg, rng):
+def decode_step_times(model, params, cfg, rng, cache_dtype=torch.bfloat16):
     """One 8-row paged decode step (forward_paged_ragged + argmax) timed
     eagerly and as a CUDA-graph replay: the difference is what the host adds."""
     B, ps, W = 8, 128, 4
-    pools = model.init_paged_cache(B * W + 1, ps, torch.bfloat16)
+    pools = model.init_paged_cache(B * W + 1, ps, cache_dtype)
     table = torch.from_numpy((1 + np.arange(B * W)).reshape(B, W).astype(np.int32)).cuda()
     pos = torch.from_numpy(rng.integers(40, 130, B).astype(np.int32)).cuda()
     tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)).cuda()
@@ -943,6 +1140,74 @@ def phase_serve(model, params, packed, giga, cfg, rng, repeats: int = 3):
         "giga": {**giga_run, "launches": g_counts}}
 
 
+def phase_serve_long(model, params, cfg, rng):
+    """The long-prompt low-bit path: the 16-layer Llama-3.2-1B with int4
+    weights served by the paged engine over int8 pages, max_batch 8,
+    max_len 4224, buckets 64-4096, greedy; 4 prompts of 2048-4000 tokens
+    and 4 of 64-1000, 32 new tokens each. Launch counts: flash_attention L
+    per prefill group of a bucket >= FLASH_MIN_SEQ, quant_linear_int4 4L + 1
+    per decode iteration plus each group's head (and 4L per group of <= 32
+    rows), quant_linear 4L per group of more rows (after unpack_int4),
+    paged_decode_attention L per decode iteration, nothing else."""
+    from mila_tpu_torch.inference.engine import EngineConfig, InferenceEngine
+    from mila_tpu_torch.ops import FLASH_MIN_SEQ
+
+    mb, L = 8, cfg.num_layers
+    engine = InferenceEngine(model, params, EngineConfig(
+        max_batch=mb, max_len=4224, prefill_buckets=(64, 128, 256, 512, 1024, 2048, 4096),
+        cache_dtype="int8", page_size=128))
+    lengths = (4000, 64, 2600, 300, 3300, 700, 2048, 1000)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lengths]
+
+    def expected(_):
+        st = engine.stats
+        it, by = st["decode_iters"], st["prefill_by_bucket"]
+        groups = sum(e["groups"] for e in by.values())
+        small = sum(e["groups"] for b, e in by.items() if mb * b <= 32)
+        long_groups = sum(e["groups"] for b, e in by.items() if b >= FLASH_MIN_SEQ)
+        return {"flash_attention": L * long_groups,
+                "quant_linear_int4": (4 * L + 1) * it + groups + 4 * L * small,
+                "quant_linear": 4 * L * (groups - small), "paged_decode_attention": L * it}
+
+    def run():
+        reqs = [engine.submit(p, max_new_tokens=32) for p in prompts]
+        engine.run()
+        return reqs
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    reqs, counts = run_counted("serve long", run, expected)
+    wall = time.monotonic() - t0
+    for r in reqs:
+        if not (r.done and len(r.output) == 32 and all(0 <= t < cfg.vocab_size
+                                                       for t in r.output)):
+            raise AssertionError(f"serve long: request {r.id} did not finish with 32 valid "
+                                 "tokens")
+    if min(counts["flash_attention"], counts["quant_linear_int4"],
+           counts["paged_decode_attention"]) <= 0:
+        raise AssertionError(f"serve long: a kernel of the path did not run: {counts}")
+    st = engine.stats
+    it = st["decode_iters"]
+    tokens = sum(len(r.output) for r in reqs)
+
+    def ttft(pick):
+        t = [r.ttft_s for r in reqs if pick(len(r.prompt))]
+        return {"p50_ms": 1e3 * float(np.percentile(t, 50)),
+                "p95_ms": 1e3 * float(np.percentile(t, 95))}
+
+    return counts, {
+        "requests": len(reqs), "prompt_lens": list(lengths), "new_tokens": tokens,
+        "wall_s": wall, "tok_s": tokens / wall,
+        "ttft_long": ttft(lambda n: n >= 2048), "ttft_short": ttft(lambda n: n < 2048),
+        "decode_ms_per_step": 1e3 * st["t_decode_s"] / it, "decode_steps": it,
+        "prefill_s": st["t_prefill_s"],
+        "prefill_by_bucket": {str(b): e for b, e in sorted(st["prefill_by_bucket"].items())},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
+        "launches_per_decode_step": {k: v / it for k, v in counts.items()
+                                     if v and k in ("quant_linear_int4", "paged_decode_attention")},
+        "int4_int8_page_step": decode_step_times(model, params, cfg, rng, torch.int8)}
+
+
 SOURCES = {
     "quant_linear": ("mila_tpu_torch/csrc/qmm_int8.cu",
                      "mila_tpu/kernels/quant_matmul.py:74 (_qmm_kernel)"),
@@ -970,6 +1235,10 @@ SOURCES = {
                          "mila_tpu/kernels/layer_mega.py:126 (_mega_kernel)"),
     "mlp_block_fused": ("mila_tpu_torch/csrc/layer_tail_int8.cu",
                         "mila_tpu/kernels/decode_mlp.py:136 (_mlp_mega_kernel)"),
+    "quant_linear_int4": ("mila_tpu_torch/csrc/qgemv_int4.cu",
+                          "mila_tpu/kernels/quant_matmul.py:244 (_qmm4_kernel)"),
+    "flash_attention": ("mila_tpu_torch/csrc/flash_fwd.cu",
+                        "mila_tpu/kernels/flash_attention.py:39 (_fa_kernel; _fa_kernel_t :114)"),
 }
 # The shape whose numbers head each entry of the summary line.
 PRIMARY = {"quant_linear": "wgu", "rms_quant_linear": "lm_head",
@@ -978,7 +1247,8 @@ PRIMARY = {"quant_linear": "wgu", "rms_quant_linear": "lm_head",
            "dense_decode_attention": "B=8", "fused_decode_attention": "B=8",
            "layer_tail_stream": "layer 7", "mlp_qkv_fused": "layer 0",
            "giga_decode_step": "L=16", "layer_megakernel": "layer 7",
-           "mlp_block_fused": "layer 0"}
+           "mlp_block_fused": "layer 0", "quant_linear_int4": "wgu",
+           "flash_attention": "B=1 T=4096"}
 # "none" reasons for the library yardstick, where no one PyTorch call computes it.
 NO_LIBRARY = {
     "giga_decode_step": "none: no one call computes a whole decode step",
@@ -1024,13 +1294,18 @@ def main() -> int:
             or "mega_pack" not in packs["mega"]["h0"] or "mlp_pack" not in packs["mlp"]["h0"]):
         raise AssertionError("a decode pack did not pack Llama-3.2-1B")
     packed = packs["layer_stream"]
+    params4 = build_params(cfg.replace(max_seq_len=4224), seed=2, device="cuda", dtype="int4")
     torch.cuda.synchronize()
     setup_s = time.monotonic() - t0
 
-    rows = phase_kernels(params, packs, cfg, bw, peak_ops, rng)
+    rows = phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng)
     emit({"phase": "kernels", "card": card, "rows": rows})
+    crossover = phase_crossover(cfg, rng)
+    emit({"phase": "crossover", "card": card, **crossover})
     parity = phase_parity(rng)
     emit({"phase": "parity", "card": card, **parity})
+    parity_long = phase_parity_long(rng)
+    emit({"phase": "parity long", "card": card, **parity_long})
     model = Llama(cfg)
     decode = phase_decode(model, packed, cfg, rng, bw)
     emit({"phase": "decode", "card": card, "model": "llama-3.2-1b int8 + layer_stream, "
@@ -1051,12 +1326,18 @@ def main() -> int:
                                                     rng)
     emit({"phase": "serve", "card": card, "model": "llama-3.2-1b int8, random weights",
           "setup_s": setup_s, **serve})
+    del packs, packed, params
+    cfg4 = cfg.replace(max_seq_len=4224)
+    l_counts, serve_long = phase_serve_long(Llama(cfg4), params4, cfg4, rng)
+    emit({"phase": "serve long", "card": card, "model": "llama-3.2-1b int4, int8 KV pages, "
+          "random weights", **serve_long})
 
     by_path = {"serve paged": counts, "serve contiguous": c_counts, "serve giga": g_counts,
                "decode prefill": decode["launches_prefill"], "decode": decode["launches"],
                "giga prefill": giga["launches_prefill"], "giga": giga["launches"],
                "mega prefill": mega["launches_prefill"], "mega": mega["launches"],
-               "generate": generate["launches"], "generate mlp": generate_mlp["launches"]}
+               "generate": generate["launches"], "generate mlp": generate_mlp["launches"],
+               "serve long": l_counts}
     summary = []
     for entry, (source, replaces) in SOURCES.items():
         mine = [r for r in rows if r["entry"] == entry]
@@ -1078,10 +1359,11 @@ def main() -> int:
                                    "the decode path as layer_tail_stream")
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"header": header, "kernels": rows, "parity": parity, "decode": decode,
+            json.dump({"header": header, "kernels": rows, "crossover": crossover,
+                       "parity": parity, "parity_long": parity_long, "decode": decode,
                        "giga": giga, "mega": mega, "generate": generate,
-                       "generate_mlp": generate_mlp, "serve": serve, "summary": summary,
-                       "total_s": time.monotonic() - t_start}, f, indent=1)
+                       "generate_mlp": generate_mlp, "serve": serve, "serve_long": serve_long,
+                       "summary": summary, "total_s": time.monotonic() - t_start}, f, indent=1)
     emit({"kernels": summary})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,12 +1,14 @@
 // paged_decode_attn: one-query GQA decode attention through a page table.
 //
 // Replaces the TPU kernel mila_tpu/kernels/paged_attention.py:_paged_kernel
-// (entry paged_decode_attention), bf16/f32 pages. Pages are [P, NKV, HD, ps]
-// (token-minor), so the tile of KV head h in page p is a contiguous [HD, ps]
-// slab.
+// (entry paged_decode_attention), bf16/f32 pages and int8 pages with f32
+// scales [P, NKV, ps], one per (page, head, token). Pages are
+// [P, NKV, HD, ps] (token-minor), so the tile of KV head h in page p is a
+// contiguous [HD, ps] slab.
 //
 // Bound on the H100: the K/V bytes of the live tokens (2 operations per
-// byte). Design: one block of 128 threads per (row b, KV head h); the
+// byte; int8 pages halve them and add 8 bytes of scales per token and
+// head). Design: one block of 128 threads per (row b, KV head h); the
 // G = NH / NKV query heads of h share the block, so each K/V element is read
 // once. The block reads its own page-table entries and walks the row's
 // tokens in chunks of 128 up to seq_lens[b]:
@@ -19,6 +21,10 @@
 //   values  thread (d, part) owns one head-dim row d and a run of the chunk's
 //           tokens, reading V[d][t..t+7] as 16-byte loads, four in flight.
 // Tokens >= seq_lens[b] are masked; a row with length 0 gives zeros.
+// int8 pages: the loads carry 8 tokens in 8 bytes; as in the TPU kernel the
+// scales never touch the [HD, ps] tiles: k_scale[token] multiplies the
+// token's scaled score after the q.k dot, v_scale[token] its probability
+// before P.V (the row sum l adds the unscaled probabilities), both in f32.
 // Known weakness: B * NKV blocks (64 at the served shape) fill half of the
 // 132 SMs.
 #include "common.cuh"
@@ -35,6 +41,15 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
+__device__ __forceinline__ void load8(const int8_t* p, float* v) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[i] = s8_to_f(r.x, i);
+    v[4 + i] = s8_to_f(r.y, i);
+  }
+}
+
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
   const uint4 r = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
@@ -46,11 +61,14 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
   }
 }
 
-template <typename T>
+// T: q and out; TP: pages (T, or int8_t with the scale planes ks and vs).
+template <typename T, typename TP>
 __global__ void __launch_bounds__(THREADS)
-paged_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
+paged_kernel(const T* __restrict__ q, const TP* __restrict__ kp, const TP* __restrict__ vp,
+             const float* __restrict__ ks, const float* __restrict__ vs,
              const int* __restrict__ table, const int* __restrict__ lens, T* __restrict__ out,
              int NH, int NKV, int HD, int ps, int W, float scale) {
+  constexpr bool QUANT = sizeof(TP) == 1;
   __shared__ float q_s[MAXG][MAXHD];
   __shared__ float p_s[MAXG][CH];
   __shared__ float o_s[MAXG][MAXHD];
@@ -94,7 +112,7 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* __restr
 #pragma unroll
       for (int j = 0; j < 8; ++j) sp[g][j] = 0.f;
     if (p0 < len) {  // the 8 tokens share a page (ps % 8 == 0)
-      const T* kt = kp + ((size_t)trow[p0 / ps] * NKV + h) * head_stride + p0 % ps;
+      const TP* kt = kp + ((size_t)trow[p0 / ps] * NKV + h) * head_stride + p0 % ps;
 #pragma unroll 4
       for (int i = 0; i < dpt; ++i) {
         const int dd = dg * dpt + i;
@@ -118,14 +136,21 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* __restr
     __syncthreads();
 
     // Softmax: thread tid owns token tid of the chunk.
-    const bool valid = c * CH + tid < len;
+    const int tok = c * CH + tid;
+    const bool valid = tok < len;
+    float ksc = 1.f, vsc = 1.f;  // the token's scales (int8 pages)
+    if (QUANT && valid) {
+      const size_t si = ((size_t)trow[tok / ps] * NKV + h) * ps + tok % ps;
+      ksc = ks[si];
+      vsc = vs[si];
+    }
     float s[MAXG];
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) {
       if (g >= G) break;
       float v = 0.f;
       for (int k = 0; k < DG; ++k) v += s_part[k][g][tid];
-      s[g] = valid ? v * scale : -INFINITY;
+      s[g] = valid ? v * scale * ksc : -INFINITY;
       const float mx = warp_max(s[g]);
       if (lane == 0) red_s[g][warp] = mx;
     }
@@ -142,7 +167,7 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* __restr
     for (int g = 0; g < MAXG; ++g) {
       if (g >= G) break;
       const float p = valid ? expf(s[g] - m_s[g]) : 0.f;
-      p_s[g][tid] = p;
+      p_s[g][tid] = p * vsc;
       const float sm = warp_sum(p);
       if (lane == 0) red_s[g][warp] = sm;
     }
@@ -197,33 +222,46 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* __restr
   }
 }
 
-template <typename T>
-void launch(const void* q, const void* kp, const void* vp, const void* table, const void* lens,
-            void* out, int B, int NH, int NKV, int HD, int ps, int W, float scale,
-            cudaStream_t stream) {
-  paged_kernel<T><<<B * NKV, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
+template <typename T, typename TP>
+void launch(const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
+            const void* table, const void* lens, void* out, int B, int NH, int NKV, int HD, int ps,
+            int W, float scale, cudaStream_t stream) {
+  paged_kernel<T, TP><<<B * NKV, THREADS, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const TP*>(kp), static_cast<const TP*>(vp),
+      static_cast<const float*>(ks), static_cast<const float*>(vs),
       static_cast<const int*>(table), static_cast<const int*>(lens), static_cast<T*>(out), NH,
       NKV, HD, ps, W, scale);
 }
 
+template <typename T>
+void dispatch(const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
+              const void* table, const void* lens, void* out, int B, int NH, int NKV, int HD,
+              int ps, int W, float scale, cudaStream_t s) {
+  if (ks)
+    launch<T, int8_t>(q, kp, vp, ks, vs, table, lens, out, B, NH, NKV, HD, ps, W, scale, s);
+  else
+    launch<T, T>(q, kp, vp, ks, vs, table, lens, out, B, NH, NKV, HD, ps, W, scale, s);
+}
+
 }  // namespace
 
-// q [B, NH, HD]; k_pages, v_pages [P, NKV, HD, ps]; table [B, W] int32;
-// lens [B] int32; out [B, NH, HD]. q, pages and out are f32 when is_f32,
-// else bf16. Needs NH / NKV <= 8, HD in {8, 16, 32, 64, 128} and ps % 8 == 0
-// (checked by the Python wrapper).
+// q [B, NH, HD]; k_pages, v_pages [P, NKV, HD, ps]; k_scale, v_scale
+// [P, NKV, ps] f32 for int8 pages, else null; table [B, W] int32; lens [B]
+// int32; out [B, NH, HD]. q and out are f32 when is_f32, else bf16; pages
+// are int8 with scales, else q's type. Needs NH / NKV <= 8, HD in
+// {8, 16, 32, 64, 128} and ps % 8 == 0 (checked by the Python wrapper).
 extern "C" int paged_decode_attn(const void* q, const void* k_pages, const void* v_pages,
-                                 const void* table, const void* lens, void* out, int B, int NH,
-                                 int NKV, int HD, int ps, int W, float scale, int is_f32,
-                                 void* stream) {
+                                 const void* k_scale, const void* v_scale, const void* table,
+                                 const void* lens, void* out, int B, int NH, int NKV, int HD,
+                                 int ps, int W, float scale, int is_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B > 0) {
     if (is_f32)
-      launch<float>(q, k_pages, v_pages, table, lens, out, B, NH, NKV, HD, ps, W, scale, s);
+      dispatch<float>(q, k_pages, v_pages, k_scale, v_scale, table, lens, out, B, NH, NKV, HD,
+                      ps, W, scale, s);
     else
-      launch<__nv_bfloat16>(q, k_pages, v_pages, table, lens, out, B, NH, NKV, HD, ps, W, scale,
-                            s);
+      dispatch<__nv_bfloat16>(q, k_pages, v_pages, k_scale, v_scale, table, lens, out, B, NH,
+                              NKV, HD, ps, W, scale, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -147,7 +147,7 @@ class InferenceEngine:
         self._dev_dirty = True
         self.stats = {"steps": 0, "decode_iters": 0, "prefills": 0, "tokens_out": 0,
                       "cancelled": 0, "prefill_groups": 0, "t_prefill_s": 0.0,
-                      "t_decode_s": 0.0}
+                      "t_decode_s": 0.0, "prefill_by_bucket": {}}
 
     # ------------- public API -------------
 
@@ -386,8 +386,7 @@ class InferenceEngine:
         toks_dev = self._sample(logits[:, :V], to_dev(greedy), to_dev(temps),
                                 bool(greedy.all()))
         toks = toks_dev.cpu().numpy()  # the one small fetch per group
-        self.stats["t_prefill_s"] += time.monotonic() - t0
-        self.stats["prefill_groups"] += 1
+        self._count_prefill(bucket, time.monotonic() - t0)
         for req in reqs:
             T0 = len(req.prompt)
             self.alloc.trim(req.slot, T0)  # release bucket-padding pages
@@ -420,8 +419,7 @@ class InferenceEngine:
             self.params, torch.from_numpy(tokens).to(self.device), rows, 0)
         V = self.model.config.vocab_size
         tok = int(sample_logits(logits[0, T0 - 1, :V], self._gen, req.sampling))
-        self.stats["t_prefill_s"] += time.monotonic() - t0
-        self.stats["prefill_groups"] += 1
+        self._count_prefill(bucket, time.monotonic() - t0)
         self._emit(req, tok)
         req.first_token_at = time.monotonic()
         self._positions[s] = T0
@@ -429,6 +427,14 @@ class InferenceEngine:
         self._dev_dirty = True
         self.stats["prefills"] += 1
         self._maybe_finish(req, finished)
+
+    def _count_prefill(self, bucket: int, seconds: float) -> None:
+        """One prefill call: totals, and per bucket {"groups", "s"}."""
+        self.stats["t_prefill_s"] += seconds
+        self.stats["prefill_groups"] += 1
+        per = self.stats["prefill_by_bucket"].setdefault(bucket, {"groups": 0, "s": 0.0})
+        per["groups"] += 1
+        per["s"] += seconds
 
     def _emit(self, req: Request, tok: int) -> None:
         req.output.append(tok)

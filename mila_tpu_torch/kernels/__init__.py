@@ -16,6 +16,7 @@ def entry_points() -> dict:
         decode_giga,
         decode_mlp,
         dense_attention,
+        flash_attention,
         layer_fused,
         layer_mega,
         layer_stream,
@@ -37,6 +38,8 @@ def entry_points() -> dict:
         "giga_decode_step": decode_giga.giga_decode_step,
         "layer_megakernel": layer_mega.layer_megakernel,
         "mlp_block_fused": decode_mlp.mlp_block_fused,
+        "quant_linear_int4": quant_matmul.quant_linear_int4,
+        "flash_attention": flash_attention.flash_attention,
     }
 
 
@@ -47,6 +50,7 @@ def plain_versions() -> tuple:
         decode_giga,
         decode_mlp,
         dense_attention,
+        flash_attention,
         layer_fused,
         layer_mega,
         paged_attention,
@@ -62,7 +66,8 @@ def plain_versions() -> tuple:
             dense_attention.fused_decode_attention_plain,
             layer_fused.layer_tail_plain, layer_fused.qkv_tail_plain,
             decode_giga.giga_decode_plain, layer_mega.layer_megakernel_plain,
-            decode_mlp.mlp_block_plain)
+            decode_mlp.mlp_block_plain, quant_matmul.quant_linear_int4_plain,
+            flash_attention.flash_attention_plain)
 
 
 def reset_launches() -> None:

@@ -30,12 +30,17 @@ times the scale row, then the epilogue in f32 and a cast to the output
 dtype. The plain versions below compute the same; on the CPU they mirror
 the JAX dispatch, which falls back to unfused ops when a shape does not
 fit its kernel.
+
+Packed int4 weights have no fused kernel here, as in the JAX package: on
+the card the three streams take JAX's int4 routes (``rms_norm`` and
+``quant_linear``, whose int4 kernel is ``csrc/qgemv_int4.cu``; the
+residual added, or ``swiglu`` applied, outside it) and the argmax head
+returns None. fp8 weights raise on the card (not ported yet).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional
 
 import torch
@@ -45,6 +50,8 @@ from mila_tpu_torch.kernels import _build
 from mila_tpu_torch.kernels.quant_matmul import (
     _DECODE_TILE_BYTES,
     _pick_blocks,
+    _sm_count,
+    quant_linear,
     quant_linear_plain,
     scaled_partials,
 )
@@ -142,11 +149,6 @@ _COLS = 128  # output columns per block (csrc/qgemv_int8.cu)
 _X_SMEM_BYTES = 64 * 1024  # staged activations per block
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _plan_ksplit(M: int, K: int, n_cols: int, block_size: int,
                  sms: int) -> tuple[int, int]:
     """(m_tile, ksplit): K slices per column tile so that the launch has
@@ -190,9 +192,8 @@ def _launch(x, qt: QTensor, *, mode: str, gamma=None, res=None, eps: float = 0.0
     n_out = ldq // 2 if mode == "swiglu" else ldq
     x2 = x.reshape(-1, K)
     M = x2.shape[0]
-    if qt.packed_rows or qt.q.dtype != torch.int8:
-        raise NotImplementedError(f"qgemv_int8 takes int8 weights; got {qt.q.dtype}"
-                                  f"{' (int4-packed)' if qt.packed_rows else ''}")
+    if qt.packed_rows or qt.q.dtype != torch.int8:  # int4 routes before; fp8 is not ported
+        raise NotImplementedError(f"qgemv_int8 takes int8 weights; got {qt.q.dtype}")
     if x2.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"qgemv_int8 takes bf16/f32 activations, got {x2.dtype}")
     if not 0 < M <= 32:
@@ -252,18 +253,25 @@ def _launch(x, qt: QTensor, *, mode: str, gamma=None, res=None, eps: float = 0.0
 
 def rms_quant_linear(x: torch.Tensor, gamma: torch.Tensor, qt: QTensor, *,
                      eps: float = 1e-5) -> torch.Tensor:
-    """Fused rmsnorm(x, gamma) @ dequant(qt) for decode shapes (M <= 32)."""
+    """Fused rmsnorm(x, gamma) @ dequant(qt) for decode shapes (M <= 32).
+    Packed int4 weights take the JAX entry's route: ``rms_norm``, then
+    ``quant_linear`` (the int4 kernel)."""
     if not x.is_cuda:
         return rms_quant_linear_plain(x, gamma, qt, eps)
+    if qt.packed_rows:
+        return quant_linear(rms_norm(x, gamma, eps), qt)
     out = _launch(x, qt, mode="store", gamma=gamma, eps=eps)
     rms_quant_linear.launches += 1
     return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
 def quant_linear_residual(x: torch.Tensor, qt: QTensor, res: torch.Tensor) -> torch.Tensor:
-    """Fused x @ dequant(qt) + res for decode shapes (M <= 32)."""
+    """Fused x @ dequant(qt) + res for decode shapes (M <= 32). Packed int4
+    weights: ``quant_linear``, then the residual added in x's dtype."""
     if not x.is_cuda:
         return quant_linear_residual_plain(x, qt, res)
+    if qt.packed_rows:
+        return (quant_linear(x, qt) + res.to(x.dtype)).reshape(res.shape)
     out = _launch(x, qt, mode="residual", res=res)
     quant_linear_residual.launches += 1
     return out.reshape(res.shape)
@@ -272,9 +280,13 @@ def quant_linear_residual(x: torch.Tensor, qt: QTensor, res: torch.Tensor) -> to
 def rms_quant_linear_swiglu(x: torch.Tensor, gamma: torch.Tensor, qt: QTensor, *,
                             eps: float = 1e-5) -> torch.Tensor:
     """Fused rmsnorm -> [gate|up] projection -> silu(g)*u for decode shapes;
-    ``qt`` holds the fused [K, 2I] weight, the result is [..., I]."""
+    ``qt`` holds the fused [K, 2I] weight, the result is [..., I]. Packed
+    int4 weights: ``rms_norm``, ``quant_linear``, ``swiglu``."""
     if not x.is_cuda:
         return rms_quant_linear_swiglu_plain(x, gamma, qt, eps)
+    if qt.packed_rows:
+        g, u = quant_linear(rms_norm(x, gamma, eps), qt).chunk(2, dim=-1)
+        return swiglu(g, u)
     out = _launch(x, qt, mode="swiglu", gamma=gamma, eps=eps)
     rms_quant_linear_swiglu.launches += 1
     return out.reshape(*x.shape[:-1], out.shape[-1])

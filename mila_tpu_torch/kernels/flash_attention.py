@@ -1,0 +1,153 @@
+"""Flash attention (forward): causal grouped-query attention without the
+[Tq, Tkv] score matrix in device memory.
+
+Replaces the TPU kernels ``mila_tpu/kernels/flash_attention.py:_fa_kernel``
+and ``_fa_kernel_t`` (entry ``flash_attention`` ->
+``_flash_attention_forward(save_stats=False)``, the primal path that writes
+no row statistics). The model's prefill reaches it through
+``ops.attention.attention`` from ``FLASH_MIN_SEQ`` keys up on the card, where the
+plain product would materialise f32 scores [B, NKV, G, T, T] (2.1 GB per
+layer at T 4096, 32 heads).
+
+What bounds it on the H100: tensor-core operations (4 * Tq * Tkv * D per
+head, about half of them skipped by the causal tiles) against Tq + 2 Tkv
+rows of D bf16 values. The CUDA kernel (``csrc/flash_fwd.cu``) runs a block
+of 4 warps per (64 query rows, head, batch row), streams 64-key K/V tiles
+through shared memory (cp.async, double-buffered) and runs both products on
+bf16 ``mma.sync`` with f32 accumulators and the online softmax in f32.
+
+Semantics kept from the TPU kernel: the causal tile skip with
+``kv_offset``, masked scores at -0.7 * f32max, p rounded to V's dtype
+before P @ V while the row sum l adds the f32 p, l == 0 guarded at the
+store, and query head h reading KV head h // G. Its tiling gate stays too
+(``ops.flash_tiles_ok``): ``ops.attention`` sends Tq % 16, Tkv % 128 or D %
+64 not 0 to the plain product (``ops.dot_product_attention``), as JAX's
+wrapper sends them to its jnp reference; on the card this wrapper raises
+for them. The kernel takes D 64 and 128 and bf16 inputs; f32 inputs and
+other head sizes raise on the card. The backward (kernel table row 16,
+``flash_attention_bwd``) is not ported yet: a call that needs a gradient
+through the kernel raises.
+
+``flash_attention_plain`` is the kernel's arithmetic in one pass over all
+keys (the running max of the tiles is the row max here; the results agree
+to f32 and bf16 rounding).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from mila_tpu_torch.kernels import _build
+from mila_tpu_torch.ops.attention import causal_mask, dot_product_attention, flash_tiles_ok
+
+DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+_KV_TILE = 64  # keys per tile in csrc/flash_fwd.cu
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
+                          kv_offset: int = 0) -> torch.Tensor:
+    """Plain version of :func:`flash_attention` (q [B, Tq, NH, D], k/v [B,
+    Tkv, NKV, D]): f32 scores, the -0.7 * f32max mask, p = exp(s - max),
+    l = sum of the f32 p, out = (bf16(p) @ v) / l."""
+    flash_attention_plain.calls += 1
+    B, Tq, NH, D = q.shape
+    _, Tkv, NKV, _ = k.shape
+    G = NH // NKV
+    sm_scale = 1.0 / math.sqrt(D) if scale is None else scale
+    qg = q.float().reshape(B, Tq, NKV, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * sm_scale
+    if causal:
+        cm = causal_mask(Tq, Tkv, kv_offset, device=q.device)
+        s = torch.where(cm[None, None, None], s, DEFAULT_MASK_VALUE)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    del s
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
+    out = acc * torch.where(l == 0, 1.0, 1.0 / l)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Tq, NH, D).to(q.dtype)
+
+
+flash_attention_plain.calls = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("flash_fwd")
+    if not getattr(lib, "_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.flash_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_float, ci,
+                                  ci, vp]
+        lib.flash_fwd.restype = ci
+        lib._typed = True
+    return lib
+
+
+def _launch(q, k, v, causal: bool, sm_scale: float, kv_offset: int) -> torch.Tensor:
+    B, Tq, NH, D = q.shape
+    _, Tkv, NKV, _ = k.shape
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise NotImplementedError(
+            "flash_fwd is the forward only: its backward (kernel table row 16, "
+            "flash_attention_bwd) is not ported yet")
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise NotImplementedError(f"flash_fwd takes bf16 q/k/v; got {q.dtype}, {k.dtype}, "
+                                  f"{v.dtype} (f32 inputs are not ported yet)")
+    if D not in (64, 128) or Tkv % _KV_TILE or v.shape != k.shape or k.shape[0] != B:
+        raise ValueError(f"flash_fwd needs D in (64, 128) and Tkv % {_KV_TILE} == 0 "
+                         f"(q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)})")
+    if causal and kv_offset < 0:
+        raise ValueError("flash_fwd: a negative kv_offset leaves rows with no key")
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    if not (kc.device == qc.device and vc.device == qc.device):
+        raise ValueError("flash_fwd: q, k and v must be on one device")
+    out = torch.empty_like(qc)
+    lib = _lib()
+    rc = lib.flash_fwd(_build.ptr(qc), _build.ptr(kc), _build.ptr(vc), _build.ptr(out), B, Tq,
+                       Tkv, NH, NKV, D, sm_scale, kv_offset, int(causal), _build.stream_of(q))
+    _build.check(lib, rc, "flash_fwd")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    scale: Optional[float] = None, kv_offset: int = 0) -> torch.Tensor:
+    """Drop-in for :func:`mila_tpu_torch.ops.dot_product_attention`: q [B,
+    Tq, NH, D]; k, v [B, Tkv, NKV, D] -> [B, Tq, NH, D].
+
+    CUDA tensors launch ``flash_fwd`` and raise at a shape the tiling gate
+    (``ops.flash_tiles_ok``) refuses: ``ops.attention`` routes those to the
+    plain product before this call. CPU tensors take
+    :func:`flash_attention_plain`, or at a refused shape the plain product,
+    as JAX's wrapper does."""
+    B, Tq, NH, D = q.shape
+    _, Tkv, NKV, _ = k.shape
+    if NH % NKV != 0:
+        raise ValueError(f"num_heads {NH} not divisible by num_kv_heads {NKV}")
+    sm_scale = 1.0 / math.sqrt(D) if scale is None else scale
+    tiles_ok = flash_tiles_ok(Tq, Tkv, D)
+    if q.is_cuda:
+        if not tiles_ok:
+            raise ValueError(f"flash_fwd: the tiling gate refuses Tq {Tq}, Tkv {Tkv}, D {D} "
+                             "(Tq % 16, Tkv % 128 and D % 64 must be 0)")
+        return _launch(q, k, v, causal, sm_scale, kv_offset)
+    if not tiles_ok:
+        return dot_product_attention(q, k, v, causal=causal, scale=sm_scale,
+                                     kv_offset=kv_offset)
+    return flash_attention_plain(q, k, v, causal=causal, scale=sm_scale, kv_offset=kv_offset)
+
+
+flash_attention.launches = 0
+
+
+def flash_mha_qkv(qkv: torch.Tensor, num_heads: int, *, causal: bool = True) -> torch.Tensor:
+    """Fused-QKV convenience wrapper: qkv [B, T, 3C] -> [B, T, C]."""
+    B, T, C3 = qkv.shape
+    C = C3 // 3
+    HS = C // num_heads
+    q, k, v = qkv.split(C, dim=-1)
+    out = flash_attention(q.reshape(B, T, num_heads, HS), k.reshape(B, T, num_heads, HS),
+                          v.reshape(B, T, num_heads, HS), causal=causal)
+    return out.reshape(B, T, C)

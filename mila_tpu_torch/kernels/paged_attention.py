@@ -17,9 +17,17 @@ prefetch). Threads run along the token axis, which is the contiguous one.
 Known weakness: B*NKV blocks (64 at the served shape) fill half of the 132
 SMs; splitting a row's pages across blocks is later work.
 
+int8 pages (``k_scale``/``v_scale`` [P, NKV, ps] f32, one scale per page,
+head and token) halve the K/V bytes. The kernel keeps the TPU kernel's
+folding: k_scale multiplies each token's score after the q.k dot, v_scale
+its probability before P.V, in f32; the pages themselves are never
+dequantized.
+
 The plain version is the gather reference
 (``mila_tpu/inference/kv_cache.py:paged_decode_attention_ref``), which is
-what the JAX entry point itself runs on the CPU.
+what the JAX entry point itself runs on the CPU; for int8 pages it
+dequantizes the pages to q's dtype first, as JAX's CPU path does, so it
+rounds K and V where the kernel folds the scales in f32.
 """
 
 from __future__ import annotations
@@ -81,7 +89,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("paged_decode_attn")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.paged_decode_attn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+        lib.paged_decode_attn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
                                           ci, ci, ctypes.c_float, ci, vp]
         lib.paged_decode_attn.restype = ci
         lib._typed = True
@@ -96,23 +104,29 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     """Paged KV decode attention. q [B, 1, NH, HD]; pages [P, NKV, HD, ps];
     page_table [B, W] int32; seq_lens [B] int32. Returns [B, 1, NH, HD].
 
-    CUDA tensors launch ``paged_decode_attn`` (bf16/f32 pages; int8 pages
-    raise); CPU tensors take :func:`paged_decode_attention_plain`."""
+    CUDA tensors launch ``paged_decode_attn`` (pages of q's dtype, or int8
+    pages with their f32 scales); CPU tensors take
+    :func:`paged_decode_attention_plain`."""
     if not q.is_cuda:
         return paged_decode_attention_plain(q, k_pages, v_pages, page_table, seq_lens,
                                             k_scale=k_scale, v_scale=v_scale, scale=scale)
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("paged_decode_attn takes bf16/f32 pages; int8 pages "
-                                  "are not ported yet")
     B, one, NH, HD = q.shape
-    _, NKV, HD2, ps = k_pages.shape
+    P, NKV, HD2, ps = k_pages.shape
     W = page_table.shape[1]
     if one != 1 or HD2 != HD or v_pages.shape != k_pages.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)} pages {tuple(k_pages.shape)}")
-    if q.dtype not in (torch.bfloat16, torch.float32) or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
-        raise TypeError(f"paged_decode_attn takes bf16/f32 q and pages of q's dtype "
-                        f"(q {q.dtype}, pages {k_pages.dtype})")
+    quant = k_scale is not None or v_scale is not None
+    page_dtype = torch.int8 if quant else q.dtype
+    if q.dtype not in (torch.bfloat16, torch.float32) or k_pages.dtype != page_dtype \
+            or v_pages.dtype != page_dtype:
+        raise TypeError(f"paged_decode_attn takes bf16/f32 q with pages of q's dtype, or "
+                        f"int8 pages with scales (q {q.dtype}, pages {k_pages.dtype})")
+    if quant:
+        for t in (k_scale, v_scale):
+            if t is None or t.shape != (P, NKV, ps) or t.dtype != torch.float32 \
+                    or not t.is_contiguous() or t.device != q.device:
+                raise ValueError(f"paged_decode_attn: int8 pages need contiguous f32 "
+                                 f"k_scale and v_scale of shape {(P, NKV, ps)} on q's device")
     if NH % NKV or NH // NKV > 8 or HD not in (8, 16, 32, 64, 128) or ps % 8:
         raise ValueError(f"paged_decode_attn needs NH/NKV <= 8, HD in (8, 16, 32, 64, 128) "
                          f"and ps % 8 == 0 (NH={NH}, NKV={NKV}, HD={HD}, ps={ps})")
@@ -125,7 +139,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     sm_scale = 1.0 / math.sqrt(HD) if scale is None else scale
     lib = _lib()
     rc = lib.paged_decode_attn(
-        _build.ptr(qc), _build.ptr(k_pages), _build.ptr(v_pages), _build.ptr(tbl),
+        _build.ptr(qc), _build.ptr(k_pages), _build.ptr(v_pages),
+        _build.ptr(k_scale) if quant else None, _build.ptr(v_scale) if quant else None,
+        _build.ptr(tbl),
         _build.ptr(lens), _build.ptr(out), B, NH, NKV, HD, ps, W, sm_scale,
         int(q.dtype == torch.float32), _build.stream_of(q))
     _build.check(lib, rc, "paged_decode_attn")

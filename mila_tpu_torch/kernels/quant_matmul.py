@@ -2,7 +2,14 @@
 
 Replaces the TPU kernel ``mila_tpu/kernels/quant_matmul.py:_qmm_kernel``
 (entry ``quant_linear`` -> ``_quant_matmul_2d``). On this path it serves
-every prefill projection (M = max_batch * bucket rows, up to 1024).
+every prefill projection (M = max_batch * bucket rows).
+
+Packed int4 weights take the JAX package's ``_quant_linear_int4`` route:
+shapes its gate passes (M <= 32, a K window of at least 128 packed rows
+inside one scale block, M*K*2 <= 1 MB) go to :func:`quant_linear_int4`,
+which replaces ``_qmm4_kernel`` (CUDA: ``csrc/qgemv_int4.cu``, counted as
+its own entry point); the others (prefill) are unpacked to int8 rows and
+take the int8 kernel.
 
 What bounds it on the H100: at prefill shapes (M >= 256) the product is
 bound by tensor-core operations, not by the int8 weight stream. The CUDA
@@ -22,6 +29,7 @@ the JAX dispatch there (shapes that do not tile fall to
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -105,24 +113,88 @@ def _tiles_ok(M: int, K: int, N: int, qt: QTensor) -> bool:
             and qt.q.element_size() == 1)
 
 
+def _int4_blocks(M: int, K: int, N: int, qblock: int) -> tuple[bool, int]:
+    """Mirror of the gate of ``mila_tpu.kernels.quant_matmul._quant_linear_int4``:
+    (whether its nibble kernel takes this shape, its packed-row K window)."""
+    Kp = K // 2
+    bkp = min(2048, Kp)
+    while bkp >= 128 and (Kp % bkp or qblock % bkp):
+        bkp //= 2
+    bn = 1024
+    for cand in (4096, 3072, 2048, 1536, 1024, 512, 256):
+        if N % cand == 0 and cand * bkp <= _DECODE_TILE_BYTES:
+            bn = cand
+            break
+    ok = M <= 32 and bkp >= 128 and N % bn == 0 and M * K * 2 <= 1024 * 1024
+    return ok, bkp
+
+
+def _epilogue(out: torch.Tensor, bias: Optional[torch.Tensor],
+              activation: Optional[str]) -> torch.Tensor:
+    """The int4 route's bias and activation, applied to the kernel's output
+    as the JAX package applies them outside its nibble kernel."""
+    if bias is not None:
+        out = (out.float() + bias.float()).to(out.dtype)
+    return activate(out, activation)
+
+
+def quant_linear_int4_plain(x2: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """Plain version of :func:`quant_linear_int4`: ``_qmm4_kernel``'s
+    arithmetic. For each window of ``bkp`` packed rows, the low and high
+    halves' products (bf16 operands, f32 sums) times their scale rows,
+    summed over windows, cast to x's dtype."""
+    quant_linear_int4_plain.calls += 1
+    M, K = x2.shape
+    Kp, N = qt.q.shape
+    _, bkp = _int4_blocks(M, K, N, qt.block_size)
+    nw = Kp // bkp
+    b = qt.q.to(torch.int32)
+    lo, hi = (b << 28) >> 28, (b << 24) >> 28  # sign-extended low and high nibbles
+    xb = x2.to(torch.bfloat16).float()
+    x_lo, x_hi = xb[:, :Kp].reshape(M, nw, bkp), xb[:, Kp:].reshape(M, nw, bkp)
+    win = torch.arange(nw, device=x2.device) * bkp
+    s_lo = qt.scale[win // qt.block_size]  # [nw, N]
+    s_hi = qt.scale[(Kp + win) // qt.block_size]
+    p_lo = torch.einsum("mjk,jkn->mjn", x_lo, lo.float().reshape(nw, bkp, N))
+    p_hi = torch.einsum("mjk,jkn->mjn", x_hi, hi.float().reshape(nw, bkp, N))
+    return (p_lo * s_lo[None] + p_hi * s_hi[None]).sum(dim=1).to(x2.dtype)
+
+
+quant_linear_int4_plain.calls = 0
+
+
+def _route(x: torch.Tensor, qt: QTensor, bias: Optional[torch.Tensor],
+           activation: Optional[str], int4, int8) -> torch.Tensor:
+    """The JAX ``quant_linear``'s routing, for the wrapper and its plain
+    version alike: packed int4 weights at a shape the int4 gate passes go to
+    ``int4(x2, qt)`` and the epilogue; others (prefill) are unpacked to
+    int8 rows; int8 rows go to ``int8(x2, qt, bias, activation)``."""
+    K, N = qt.packed_rows or qt.q.shape[0], qt.q.shape[1]
+    x2 = x.reshape(-1, K)
+    if qt.packed_rows:
+        if _int4_blocks(x2.shape[0], K, N, qt.block_size)[0]:
+            out = _epilogue(int4(x2, qt), bias, activation)
+            return out.reshape(*x.shape[:-1], N)
+        qt = unpack_int4(qt)
+    return int8(x2, qt, bias, activation).reshape(*x.shape[:-1], N)
+
+
+def _int8_plain(x2: torch.Tensor, qt: QTensor, bias: Optional[torch.Tensor],
+                activation: Optional[str]) -> torch.Tensor:
+    K, N = qt.q.shape
+    if not _tiles_ok(x2.shape[0], K, N, qt):
+        return activate(quant_linear_ref(x2, qt, bias), activation)
+    y = scaled_partials(x2.to(torch.bfloat16), qt)
+    if bias is not None:
+        y = y + bias.float()
+    return activate(y, activation).to(x2.dtype)
+
+
 def quant_linear_plain(x: torch.Tensor, qt: QTensor, bias: Optional[torch.Tensor] = None,
                        activation: Optional[str] = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`quant_linear` (same arithmetic)."""
     quant_linear_plain.calls += 1
-    if qt.packed_rows:
-        # int4: the reference unpacks to int8 rows for prefill shapes; its
-        # nibble kernel computes the same scaled partial sums at decode.
-        qt = unpack_int4(qt)
-    K, N = qt.q.shape
-    x2 = x.reshape(-1, K)
-    M = x2.shape[0]
-    if not _tiles_ok(M, K, N, qt):
-        out = activate(quant_linear_ref(x2, qt, bias), activation)
-        return out.reshape(*x.shape[:-1], N)
-    y = scaled_partials(x2.to(torch.bfloat16), qt)
-    if bias is not None:
-        y = y + bias.float()
-    return activate(y, activation).to(x.dtype).reshape(*x.shape[:-1], N)
+    return _route(x, qt, bias, activation, quant_linear_int4_plain, _int8_plain)
 
 
 quant_linear_plain.calls = 0
@@ -144,10 +216,8 @@ def _launch(x2: torch.Tensor, qt: QTensor, bias: Optional[torch.Tensor],
             activation: Optional[str]) -> torch.Tensor:
     K, N = qt.q.shape
     M = x2.shape[0]
-    if qt.packed_rows or qt.q.dtype != torch.int8:
-        raise NotImplementedError(
-            f"qmm_int8 takes int8 weights; got {qt.q.dtype}"
-            f"{' (int4-packed)' if qt.packed_rows else ''}")
+    if qt.packed_rows or qt.q.dtype != torch.int8:  # int4 is unpacked before; fp8 is not ported
+        raise NotImplementedError(f"qmm_int8 takes int8 weights; got {qt.q.dtype}")
     if x2.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"qmm_int8 takes bf16/f32 activations, got {x2.dtype}")
     if K % 32 or N % 8 or qt.block_size % 16:
@@ -176,20 +246,97 @@ def _launch(x2: torch.Tensor, qt: QTensor, bias: Optional[torch.Tensor],
     return out
 
 
+_INT4_X_BYTES = 64 * 1024  # staged activations per block (both halves)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plan_int4(M: int, K: int, N: int, block_size: int, sms: int) -> tuple[int, int]:
+    """(m_tile, ksplit) for ``qgemv_int4``: slices of packed rows, each inside
+    one scale block for both halves, until the launch has about two blocks
+    per SM (slices of at least 128 packed rows) and the staged x fits."""
+    Kp = K // 2
+    mt, cpl = (8, 4) if M <= 8 else (32, 2)
+    tiles = -(-N // (32 * cpl))
+    ks = 1
+    while Kp % (2 * ks) == 0 and (
+        (Kp // ks) * mt * 8 > _INT4_X_BYTES
+        or block_size % (Kp // ks)
+        or (tiles * ks < 2 * sms and Kp // (2 * ks) >= 128)
+    ):
+        ks *= 2
+    kc = Kp // ks
+    if Kp % ks or kc % 32 or block_size % kc or kc * mt * 8 > _INT4_X_BYTES or N % cpl:
+        raise ValueError(f"qgemv_int4 cannot slice K={K}, N={N} (block_size={block_size})")
+    return mt, ks
+
+
+def _int4_lib() -> ctypes.CDLL:
+    lib = _build.library("qgemv_int4")
+    if not getattr(lib, "_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.qgemv_int4.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
+        lib.qgemv_int4.restype = ci
+        lib._typed = True
+    return lib
+
+
+def quant_linear_int4(x2: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """x2 [M, K] @ dequant(qt) for packed int4 ``qt`` ([K/2, N]) at a shape
+    the int4 gate passes, in x2's dtype (no bias or activation: the caller
+    applies them, as JAX's ``_quant_linear_int4`` does).
+
+    CUDA tensors launch ``qgemv_int4``; CPU tensors take
+    :func:`quant_linear_int4_plain`."""
+    if not x2.is_cuda:
+        return quant_linear_int4_plain(x2, qt)
+    M, K = x2.shape
+    N = qt.q.shape[1]
+    if not qt.packed_rows or qt.q.dtype != torch.int8 or K != qt.packed_rows:
+        raise ValueError("qgemv_int4 takes int4-packed weights [K/2, N] int8")
+    if x2.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"qgemv_int4 takes bf16/f32 activations, got {x2.dtype}")
+    if not 0 < M <= 32:
+        raise ValueError(f"qgemv_int4 is a decode kernel: 1 <= M <= 32, got M={M}")
+    if qt.scale.dtype != torch.float32:
+        raise TypeError("qgemv_int4: scales must be f32")
+    for t in (qt.q, qt.scale):
+        if not (t.is_cuda and t.is_contiguous() and t.device == x2.device):
+            raise ValueError("qgemv_int4: weights must be contiguous on x's device")
+    mt, ks = _plan_int4(M, K, N, qt.block_size, _sm_count(x2.device.index or 0))
+    xc = x2.contiguous()
+    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
+    ws = torch.empty((ks, M, N), dtype=torch.float32, device=x2.device) if ks > 1 else None
+    lib = _int4_lib()
+    rc = lib.qgemv_int4(
+        _build.ptr(xc), _build.ptr(qt.q), _build.ptr(qt.scale), _build.ptr(out),
+        None if ws is None else _build.ptr(ws), M, N, K, qt.block_size, ks, mt,
+        int(x2.dtype == torch.float32), _build.stream_of(x2))
+    _build.check(lib, rc, "qgemv_int4")
+    quant_linear_int4.launches += 1
+    return out
+
+
+quant_linear_int4.launches = 0
+
+
 def quant_linear(x: torch.Tensor, qt: QTensor, bias: Optional[torch.Tensor] = None,
                  activation: Optional[str] = None) -> torch.Tensor:
     """Weight-only quantized linear: x [..., K] @ dequant(qt) [K, N] (+bias).
 
-    CUDA tensors launch the ``qmm_int8`` kernel (int8 weights only; other
-    weight types raise); CPU tensors take :func:`quant_linear_plain`.
+    CUDA tensors launch ``qmm_int8`` for int8 weights, and for packed int4
+    weights either ``qgemv_int4`` (shapes the int4 gate passes) or, after
+    ``unpack_int4``, ``qmm_int8``; other weight types raise. CPU tensors
+    take :func:`quant_linear_plain`.
     """
     if activation not in _ACT_CODES:
         raise ValueError(f"unknown activation {activation!r}")
     if not x.is_cuda:
         return quant_linear_plain(x, qt, bias, activation)
-    K = qt.packed_rows or qt.q.shape[0]
-    out = _launch(x.reshape(-1, K), qt, bias, activation)
-    return out.reshape(*x.shape[:-1], qt.q.shape[1])
+    return _route(x, qt, bias, activation, quant_linear_int4, _launch)
 
 
 quant_linear.launches = 0

@@ -10,7 +10,12 @@ Parameters are a plain dict of tensors with the JAX package's tree layout
 The kernel dispatch mirrors the JAX model exactly, so that both sides take
 the same arithmetic: quantized fused projections at B*T <= 32 rows run the
 decode kernels (``kernels/decode_fused.py``), every other quantized weight
-goes through ``quant_linear`` (``kernels/quant_matmul.py``), paged decode
+goes through ``quant_linear`` (``kernels/quant_matmul.py``; packed int4
+weights take its int4 kernel at decode shapes and are unpacked to int8 for
+prefill), the full forward and the paged prefill attend through
+``ops.attention.attention`` (``config.attention_impl``: the flash kernel of
+``kernels/flash_attention.py`` on the card from ``FLASH_MIN_SEQ`` keys,
+else the plain product), paged decode
 attention reads pages through ``kernels/paged_attention.py``, and
 contiguous decode attention reads the cache through
 ``kernels/dense_attention.py``. With ``pack_decode_layers`` params a decode
@@ -65,6 +70,7 @@ from mila_tpu_torch.kernels.layer_mega import (
 )
 from mila_tpu_torch.kernels.layer_stream import layer_tail_stream, pack_layer_stream
 from mila_tpu_torch.kernels.quant_matmul import quant_linear
+from mila_tpu_torch.ops.attention import attention
 from mila_tpu_torch.utils.config import BaseConfig, ConfigError
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -85,6 +91,7 @@ class LlamaConfig(BaseConfig):
     rms_eps: float = 1e-5
     tie_embeddings: bool = True
     param_dtype: str = "bfloat16"
+    attention_impl: str = "auto"  # auto | xla (the plain product) | flash
 
     def validate(self):
         if min(self.vocab_size, self.hidden_size, self.num_layers, self.num_heads) <= 0:
@@ -192,7 +199,7 @@ class LlamaBlock:
         q, k, v = self._qkv(params, x)
         q = ops.apply_rope(q, cos, sin)
         k = ops.apply_rope(k, cos, sin)
-        att = ops.dot_product_attention(q, k, v, causal=True)
+        att = attention(q, k, v, causal=True, impl=self.cfg.attention_impl)
         return self._finish_attn(params, x, att)
 
     def apply_with_cache(self, params: dict, x: torch.Tensor, cache: dict, pos: int,
@@ -295,7 +302,7 @@ class Llama:
             q, k, v = blk._qkv(bp, x)
             q = ops.apply_rope(q, cos, sin)
             k = ops.apply_rope(k, cos, sin)
-            att = ops.dot_product_attention(q, k, v, causal=True)
+            att = attention(q, k, v, causal=True, impl=self.config.attention_impl)
             pools = paged_scatter(pools, i, page_ids, offs, k, v)
             x = blk._finish_attn(bp, x, att)
         rows = torch.arange(B, device=x.device)

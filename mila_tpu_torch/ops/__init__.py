@@ -1,10 +1,13 @@
 """Plain PyTorch ops, forward only (counterparts of ``mila_tpu/ops``)."""
 
 from mila_tpu_torch.ops.attention import (
+    FLASH_MIN_SEQ,
     NEG_INF,
     causal_mask,
     decode_attention,
     dot_product_attention,
+    flash_tiles_ok,
+    resolve_attention_impl,
 )
 from mila_tpu_torch.ops.linear import linear
 from mila_tpu_torch.ops.residual import residual
@@ -13,7 +16,7 @@ from mila_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_frequencies
 from mila_tpu_torch.ops.swiglu import silu, swiglu
 
 __all__ = [
-    "NEG_INF", "apply_rope", "causal_mask", "decode_attention", "dot_product_attention",
-    "linear",
+    "FLASH_MIN_SEQ", "NEG_INF", "apply_rope", "causal_mask", "decode_attention",
+    "dot_product_attention", "flash_tiles_ok", "linear", "resolve_attention_impl",
     "residual", "rms_norm", "rope_cos_sin", "rope_frequencies", "silu", "swiglu",
 ]

@@ -1,8 +1,13 @@
 """Grouped-query attention (port of ``mila_tpu/ops/attention.py``).
 
-``dot_product_attention`` is the prefill attention of both KV layouts: a
-plain product outside any kernel (the JAX package hands it to XLA below
-``FLASH_MIN_SEQ``). ``decode_attention`` is the one-query attention over
+``attention`` is the backend dispatcher the model's prefill calls route
+through: ``resolve_attention_impl`` sends a CUDA call of at least
+``FLASH_MIN_SEQ`` keys to the flash kernel
+(``kernels/flash_attention.py``) where ``flash_tiles_ok`` passes its shape,
+and everything else, CPU tensors always, to ``dot_product_attention``, a
+plain product outside any kernel (the
+backend the JAX package names ``"xla"``; the port keeps the name so that
+configs carry over). ``decode_attention`` is the one-query attention over
 the contiguous cache, the plain version of the dense decode kernel
 (``kernels/dense_attention.py``). Scores, softmax and the
 probability-value product run in f32; probabilities are rounded to v's
@@ -17,6 +22,44 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30  # large-negative mask value, safe in bf16/f32
+
+# The JAX package's crossover, kept as it is; the H100's own is measured by
+# chip_smoke.py's crossover table (PERF.md).
+FLASH_MIN_SEQ = 2048
+
+
+def resolve_attention_impl(impl: str = "auto", seq_len: int = 0, device=None) -> str:
+    """Resolve an attention backend name: ``"auto"`` is the flash kernel
+    for a CUDA call over at least ``FLASH_MIN_SEQ`` keys (or an unknown
+    length, 0) and the plain product otherwise; CPU tensors always take the
+    plain product, as the JAX package does on its CPU backend."""
+    if impl == "auto":
+        if device is None or torch.device(device).type != "cuda":
+            return "xla"
+        return "flash" if (seq_len == 0 or seq_len >= FLASH_MIN_SEQ) else "xla"
+    if impl not in ("xla", "flash"):
+        raise ValueError(f"unknown attention impl '{impl}'")
+    return impl
+
+
+def flash_tiles_ok(t_q: int, t_kv: int, head_dim: int) -> bool:
+    """The JAX flash wrapper's tiling gate: shapes it refuses (Tq % 16,
+    Tkv % 128 or D % 64 not 0) take its plain reference instead."""
+    return not (t_q % 16 or t_kv % 128 or head_dim % 64)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, impl: str = "auto",
+              **kw) -> torch.Tensor:
+    """Backend-dispatching attention (the model routes through this; the
+    plain :func:`dot_product_attention` stays the oracle). A flash call at
+    a shape the tiling gate refuses takes the plain product here, as the
+    JAX package's flash wrapper sends it to its reference."""
+    if (resolve_attention_impl(impl, seq_len=k.shape[1], device=q.device) == "flash"
+            and flash_tiles_ok(q.shape[1], k.shape[1], q.shape[3])):
+        from mila_tpu_torch.kernels.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, **kw)
+    return dot_product_attention(q, k, v, **kw)
 
 
 def causal_mask(t_q: int, t_kv: int, offset: int = 0, device=None) -> torch.Tensor:

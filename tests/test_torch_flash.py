@@ -1,0 +1,135 @@
+"""Flash attention (forward) and the attention dispatcher against the JAX
+package.
+
+The port's ``flash_attention`` on CPU tensors runs its plain version (the
+kernel's arithmetic in one pass over the keys); JAX's ``flash_attention``
+runs its Pallas kernel in interpret mode, tile by tile with the online
+softmax. Same seeded numpy inputs on both sides, causal, GQA with NKV 4, 2
+and 1 under NH 4, D 64 and 128, a ``kv_offset`` window (Tq 128 over Tkv
+512), the gate's fallback shape, ``flash_mha_qkv``, and the routing of
+``resolve_attention_impl`` / ``attention``.
+
+Tolerances: f32 inputs differ by summation order and by the online
+rescaling only (1e-5 of the output's largest value); bf16 inputs also
+round p to bf16 against a running max on the JAX side and the final max on
+the port's, and the outputs to bf16 (2e-2 of the largest value).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mila_tpu.kernels.flash_attention import flash_attention as j_flash
+from mila_tpu.kernels.flash_attention import flash_mha_qkv as j_flash_mha_qkv
+from mila_tpu.ops import attention as jatt
+from mila_tpu_torch import ops
+from mila_tpu_torch.ops.attention import attention
+from mila_tpu_torch.kernels import flash_attention as tfa
+
+_TORCH = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
+_TOL = {jnp.float32: 1e-5, jnp.bfloat16: 2e-2}
+
+
+def _qkv(B, Tq, Tkv, NH, NKV, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Tq, NH, D)).astype(np.float32),
+            rng.standard_normal((B, Tkv, NKV, D)).astype(np.float32),
+            rng.standard_normal((B, Tkv, NKV, D)).astype(np.float32))
+
+
+def _both(arrays, dt):
+    return [jnp.asarray(a, dt) for a in arrays], [torch.from_numpy(a).to(_TORCH[dt])
+                                                   for a in arrays]
+
+
+def _close(got, want, dt):
+    want = np.asarray(want.astype(jnp.float32))
+    assert got.dtype == _TORCH[dt] and got.shape == want.shape
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=_TOL[dt] * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("T", [256, 512])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("nkv", [4, 2, 1])
+@pytest.mark.parametrize("dt", [jnp.float32, jnp.bfloat16])
+def test_flash_attention_matches_jax(T, D, nkv, dt):
+    (jq, jk, jv), (q, k, v) = _both(_qkv(2, T, T, 4, nkv, D, seed=T + D + nkv), dt)
+    want = j_flash(jq, jk, jv, causal=True, interpret=True)
+    before = tfa.flash_attention_plain.calls
+    got = tfa.flash_attention(q, k, v, causal=True)
+    assert tfa.flash_attention_plain.calls == before + 1  # the kernel's plain version ran
+    _close(got, want, dt)
+
+
+@pytest.mark.parametrize("dt", [jnp.float32, jnp.bfloat16])
+def test_flash_attention_kv_offset(dt):
+    (jq, jk, jv), (q, k, v) = _both(_qkv(2, 128, 512, 4, 2, 64, seed=3), dt)
+    want = j_flash(jq, jk, jv, causal=True, kv_offset=384, interpret=True)
+    _close(tfa.flash_attention(q, k, v, causal=True, kv_offset=384), want, dt)
+
+
+def test_flash_attention_small_tiles_match_one_pass():
+    """JAX with 128-row tiles (four key tiles, the online rescaling) against
+    the port's one-pass arithmetic."""
+    (jq, jk, jv), (q, k, v) = _both(_qkv(1, 512, 512, 4, 1, 64, seed=4), jnp.float32)
+    want = j_flash(jq, jk, jv, causal=True, block_q=128, block_k=128, interpret=True)
+    _close(tfa.flash_attention(q, k, v, causal=True), want, jnp.float32)
+
+
+def test_gate_fallback_shape():
+    """Tq % 16 != 0: both wrappers take the plain product."""
+    (jq, jk, jv), (q, k, v) = _both(_qkv(2, 200, 200, 4, 2, 64, seed=5), jnp.float32)
+    assert not ops.flash_tiles_ok(200, 200, 64)
+    before = tfa.flash_attention_plain.calls
+    got = tfa.flash_attention(q, k, v, causal=True)
+    assert tfa.flash_attention_plain.calls == before
+    _close(got, j_flash(jq, jk, jv, causal=True, interpret=True), jnp.float32)
+
+
+def test_flash_mha_qkv_matches_jax():
+    qkv = np.random.default_rng(6).standard_normal((2, 256, 3 * 4 * 64)).astype(np.float32)
+    want = j_flash_mha_qkv(jnp.asarray(qkv), 4, causal=True)
+    _close(tfa.flash_mha_qkv(torch.from_numpy(qkv), 4, causal=True), want, jnp.float32)
+
+
+def test_resolve_attention_impl_routes():
+    assert ops.FLASH_MIN_SEQ == jatt.FLASH_MIN_SEQ == 2048
+    # CPU tensors: the plain product, as JAX on its CPU backend.
+    assert ops.resolve_attention_impl("auto", 4096, "cpu") == "xla"
+    assert jatt.resolve_attention_impl("auto", 4096) == "xla"  # the tests' JAX backend is the CPU
+    # CUDA tensors: flash from FLASH_MIN_SEQ keys (and for an unknown length).
+    assert ops.resolve_attention_impl("auto", 2047, "cuda") == "xla"
+    assert ops.resolve_attention_impl("auto", 2048, "cuda") == "flash"
+    assert ops.resolve_attention_impl("auto", 0, torch.device("cuda")) == "flash"
+    for impl in ("xla", "flash"):
+        assert ops.resolve_attention_impl(impl, 16, "cpu") == impl
+    with pytest.raises(ValueError):
+        ops.resolve_attention_impl("pallas")
+
+
+def test_attention_dispatch_on_cpu():
+    _, (q, k, v) = _both(_qkv(1, 256, 256, 4, 2, 64, seed=7), jnp.float32)
+    plain = ops.dot_product_attention(q, k, v, causal=True)
+    before = tfa.flash_attention_plain.calls
+    torch.testing.assert_close(attention(q, k, v, causal=True), plain, rtol=0, atol=0)
+    assert tfa.flash_attention_plain.calls == before  # "auto" on the CPU: plain product
+    flash = attention(q, k, v, causal=True, impl="flash")
+    assert tfa.flash_attention_plain.calls == before + 1
+    torch.testing.assert_close(flash, plain, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("Tq,Tkv,D", [(200, 256, 64), (128, 320, 64), (128, 256, 32)])
+def test_attention_routes_refused_shapes_to_plain(Tq, Tkv, D):
+    """impl="flash" at a shape the tiling gate refuses: the dispatcher takes
+    the plain product without entering the flash wrapper; JAX's dispatcher
+    reaches the same product through its wrapper's fallback."""
+    assert not ops.flash_tiles_ok(Tq, Tkv, D)
+    (jq, jk, jv), (q, k, v) = _both(_qkv(1, Tq, Tkv, 4, 2, D, seed=8), jnp.float32)
+    off = Tkv - Tq
+    before = tfa.flash_attention_plain.calls
+    got = attention(q, k, v, causal=True, kv_offset=off, impl="flash")
+    assert tfa.flash_attention_plain.calls == before
+    _close(got, jatt.attention(jq, jk, jv, causal=True, kv_offset=off, impl="flash"),
+           jnp.float32)

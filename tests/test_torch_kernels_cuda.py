@@ -428,3 +428,134 @@ def test_giga_and_mega_refuse_other_streams(cuda):
     dg.giga_decode_step(_rand((1000, 512), 72).cpu(), None, None, torch.tensor([1, 2]), cpu,
                         kpool.cpu(), kpool.cpu(), tokens=torch.tensor([1, 2]))
     assert dg.giga_decode_step.launches == before  # a CPU tensor takes the plain version
+
+
+@pytest.mark.parametrize("M,K,N,bs,dtype", [
+    (1, 2048, 3072, 0, torch.bfloat16),
+    (8, 2048, 3072, 0, torch.bfloat16),
+    (32, 2048, 3072, 0, torch.bfloat16),
+    (8, 8192, 2048, 0, torch.bfloat16),
+    (8, 2048, 128256, 0, torch.bfloat16),  # the unpadded vocab: N divides by 256 only
+    (1, 2048, 2048, 128, torch.bfloat16),  # blocked: the halves read different scale rows
+    (8, 2048, 2048, 128, torch.bfloat16),
+    (32, 2048, 2048, 128, torch.bfloat16),
+    (20, 512, 1024, 128, torch.float32),
+    (3, 1024, 768, 0, torch.float32),
+])
+def test_int4_kernel(cuda, M, K, N, bs, dtype):
+    x = _rand((M, K), 40, dtype=dtype)
+    w = _rand((K, N), 41, 0.05, torch.float32)
+    w[K // 2:] *= 4.0  # the high half's scales differ from the low half's
+    qt = quantize(w, "int4", bs)
+    assert qm._int4_blocks(M, K, N, qt.block_size)[0]
+    before = qm.quant_linear_int4.launches
+    got = qm.quant_linear(x, qt)
+    torch.cuda.synchronize()
+    assert qm.quant_linear_int4.launches == before + 1
+    _close(got, qm.quant_linear_int4_plain(x, qt))
+
+
+def test_int4_prefill_unpacks_to_the_int8_kernel(cuda):
+    x = _rand((64, 2048), 42)
+    qt = quantize(_rand((2048, 2048), 43, 0.05, torch.float32), "int4")
+    before = (qm.quant_linear.launches, qm.quant_linear_int4.launches)
+    got = qm.quant_linear(x, qt)
+    torch.cuda.synchronize()
+    assert (qm.quant_linear.launches, qm.quant_linear_int4.launches) == (before[0] + 1,
+                                                                          before[1])
+    _close(got, qm.quant_linear_plain(x, qt))
+
+
+def test_int4_decode_entries_route_to_the_int4_kernel(cuda):
+    M, K, N = 8, 2048, 4096
+    x = _rand((M, K), 44)
+    gamma = 1.0 + _rand((K,), 45, 0.1, torch.float32)
+    qt = quantize(_rand((K, N), 46, 0.05, torch.float32), "int4")
+    res = _rand((M, N), 47)
+    before = qm.quant_linear_int4.launches
+    _close(df.rms_quant_linear(x, gamma, qt), df.rms_quant_linear_plain(x, gamma, qt))
+    _close(df.quant_linear_residual(x, qt, res), df.quant_linear_residual_plain(x, qt, res))
+    _close(df.rms_quant_linear_swiglu(x, gamma, qt),
+           df.rms_quant_linear_swiglu_plain(x, gamma, qt))
+    assert df.rms_quant_linear_argmax(x, gamma, qt, vocab_size=N) is None
+    torch.cuda.synchronize()
+    assert qm.quant_linear_int4.launches == before + 3
+
+
+@pytest.mark.parametrize("B,Tq,Tkv,NH,NKV,D,off", [
+    (1, 512, 512, 4, 1, 64, 0),
+    (2, 256, 256, 8, 2, 64, 0),  # G 4
+    (1, 512, 512, 4, 4, 128, 0),  # D 128, G 1
+    (2, 256, 256, 8, 2, 128, 0),
+    (1, 128, 512, 8, 2, 64, 384),  # kv_offset window
+    (2, 80, 256, 4, 1, 64, 176),  # a ragged last q tile
+])
+def test_flash_kernel(cuda, B, Tq, Tkv, NH, NKV, D, off):
+    from mila_tpu_torch.kernels import flash_attention as fa
+
+    q = _rand((B, Tq, NH, D), 48)
+    k = _rand((B, Tkv, NKV, D), 49)
+    v = _rand((B, Tkv, NKV, D), 50)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=True, kv_offset=off)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    # Each (b, t, head) row against its own largest value: a row that
+    # attends to n keys holds values of about sqrt(e / n), far under |v|.
+    got, want = got.float(), fa.flash_attention_plain(q, k, v, causal=True,
+                                                      kv_offset=off).float()
+    assert torch.isfinite(got).all()
+    row_err = (got - want).abs().amax(-1) / want.abs().amax(-1)
+    assert row_err.max().item() <= 2e-2, f"worst row's relative err {row_err.max().item()}"
+
+
+def test_flash_kernel_refuses_grad_and_f32(cuda):
+    from mila_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v = (_rand((1, 128, 4, 64), s) for s in (51, 52, 53))
+    with pytest.raises(NotImplementedError, match="row 16"):
+        fa.flash_attention(q.requires_grad_(), k, v)
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention(q.detach().float(), k.float(), v.float())
+
+
+def test_flash_gate_routes_before_the_kernel(cuda):
+    # A shape JAX's tiling gate refuses (Tq % 16) never reaches the kernel
+    # wrapper: attention(impl="flash") takes the plain product, and the
+    # wrapper itself raises rather than run it.
+    from mila_tpu_torch.kernels import flash_attention as fa
+    from mila_tpu_torch.ops.attention import attention, dot_product_attention
+
+    q, k, v = _rand((1, 200, 4, 64), 56), _rand((1, 256, 2, 64), 57), _rand((1, 256, 2, 64), 58)
+    before = fa.flash_attention.launches
+    got = attention(q, k, v, causal=True, kv_offset=56, impl="flash")
+    assert fa.flash_attention.launches == before
+    _close(got, dot_product_attention(q, k, v, causal=True, kv_offset=56))
+    with pytest.raises(ValueError, match="gate"):
+        fa.flash_attention(q, k, v, kv_offset=56)
+
+
+@pytest.mark.parametrize("B,NH,NKV,HD,ps,W,dtype", [
+    (8, 32, 8, 64, 128, 8, torch.bfloat16),
+    (3, 8, 2, 32, 16, 6, torch.float32),
+    (4, 16, 2, 128, 16, 9, torch.bfloat16),
+])
+def test_paged_attention_int8_pages(cuda, B, NH, NKV, HD, ps, W, dtype):
+    rng = np.random.default_rng(54)
+    P = W * B + 1
+    lens = rng.integers(1, W * ps + 1, B).astype(np.int32)
+    lens[0] = W * ps
+    table = (1 + rng.permutation(P - 1)[: B * W].reshape(B, W)).astype(np.int32)
+    q = _rand((B, 1, NH, HD), 55, dtype=dtype)
+    kp = torch.from_numpy(rng.integers(-127, 128, (P, NKV, HD, ps)).astype(np.int8)).cuda()
+    vp = torch.from_numpy(rng.integers(-127, 128, (P, NKV, HD, ps)).astype(np.int8)).cuda()
+    ks = torch.from_numpy(rng.uniform(0.002, 0.02, (P, NKV, ps)).astype(np.float32)).cuda()
+    vs = torch.from_numpy(rng.uniform(0.002, 0.02, (P, NKV, ps)).astype(np.float32)).cuda()
+    t, ln = torch.from_numpy(table).cuda(), torch.from_numpy(lens).cuda()
+    before = pa.paged_decode_attention.launches
+    got = pa.paged_decode_attention(q, kp, vp, t, ln, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention.launches == before + 1
+    # The plain version dequantizes the pages to q's dtype first (the JAX CPU
+    # path); the kernel folds the scales in f32: one bf16 step apart at most.
+    _close(got, pa.paged_decode_attention_plain(q, kp, vp, t, ln, k_scale=ks, v_scale=vs))
