@@ -47,13 +47,28 @@ exits non-zero without the final line):
            64-1000), 32 new tokens each, max_batch 8, max_len 4224, buckets
            64-4096; tok/s, TTFT of long and short prompts, decode ms/step,
            prefill seconds per bucket, peak memory; one int4 paged decode
-           step timed eagerly and as a CUDA-graph replay.
+           step timed eagerly and as a CUDA-graph replay;
+  kernels train  the training kernels against their plain versions at the
+           training path's shapes: flash forward with statistics and flash
+           backward (GPT-2 B 8 T 1024, Llama-3.2-1B's GQA heads at T 2048, D
+           128), fused AdamW on wte with and without stochastic rounding
+           (bit-equal), softmax-CE forward and backward at [8192, 50304];
+  parity train  a 2-layer GPT-2 at full width (B 2, T 1024, bf16 + SR
+           masters, flash): loss, every gradient leaf and one Model train
+           step's m, v and masters, on the card against the CPU path from the
+           same params, batch and noise;
+  train    GPT-2 124M (bf16 params, f32 SR masters, grad clip 1.0, flash),
+           B 8, T 1024: Model.train over 12 batches of synthetic windows
+           (4 fixed sequences, so the loss must fall), then Model.evaluate:
+           ms/step, tokens/s, model TFLOP/step and its share of the bf16
+           peak (MFU), first and last loss, peak memory, one step split into
+           forward, backward and AdamW.
 
 On every path (decode prefill, decode, giga prefill, giga, mega prefill,
-mega, generate, generate mlp, each serve run, serve long) the launch counts
-are set to 0 just before it and must equal, just after it, the counts the
-path implies for all fifteen entry points (0 for those it does not reach),
-and no plain version may run. Then the kernel summary line
+mega, generate, generate mlp, each serve run, serve long, train, evaluate)
+the launch counts are set to 0 just before it and must equal, just after
+it, the counts the path implies for all twenty entry points (0 for those
+it does not reach), and no plain version may run. Then the kernel summary line
 ({"kernels": [...]}), the card line, and as the last line
 {"ok": true, "device": {...}}. Imports only torch, numpy, the standard
 library and mila_tpu_torch.
@@ -152,16 +167,29 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return (got - want).abs().max().item(), want.abs().max().item()
 
 
-def max_row_err(got: torch.Tensor, want: torch.Tensor) -> float:
+def max_row_err(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> float:
     """max over rows (the last axis) of |got - want| / max |want row|. The
     flash gate: a query row that attends to n keys holds values of about
     sqrt(e / n), far under the first rows' |v|, so each row is held to its
-    own size."""
+    own size. ``floor``: each row's scale is at least that fraction of the
+    tensor's max |want| (a gradient row whose exact value is 0, dq of query
+    0 under the causal mask, holds rounding noise on both sides)."""
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError("kernel output is not finite")
     d = (got - want).abs().amax(dim=-1)
-    return (d / want.abs().amax(dim=-1).clamp_min(1e-30)).max().item()
+    scale = want.abs().amax(dim=-1).clamp_min(floor * want.abs().max().item() + 1e-30)
+    return (d / scale).max().item()
+
+
+def max_elem_rel_err(got: torch.Tensor, want: torch.Tensor, floor: float) -> float:
+    """max over elements of |got - want| / (|want| + floor x max |want|): each
+    element held to its own size, so a small wrong value fails too."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError("kernel output is not finite")
+    scale = want.abs() + (floor * want.abs().max().item() + 1e-30)
+    return ((got - want).abs() / scale).max().item()
 
 
 def run_counted(path: str, fn, expected):
@@ -185,6 +213,33 @@ def run_counted(path: str, fn, expected):
     if counts != want:
         raise AssertionError(f"{path}: launch counts {counts} != expected {want}")
     return out, counts
+
+
+def recorder(rows: list, bw: float, peak_ops: float):
+    """record(entry, shape, err, ref, calls, plain, library, nbytes, nops,
+    gate=None, **extra) appends one kernel row to ``rows``: ``calls`` and
+    ``library`` (lists of closures, or None) are timed as CUDA-graph
+    replays, ``plain`` eagerly; ``library_eager`` instead of ``library``:
+    a closure a graph cannot hold (autograd, an optimizer's step), timed
+    eagerly. ``peak``: the operations' rate where it is not the bf16
+    tensor-core one. gate: the description of a gate the caller has checked
+    already; otherwise err must be within ERR_TOL x ref."""
+    def record(entry, shape, err, ref, calls, plain, library, nbytes, nops, gate=None,
+               library_eager=None, peak=None, **extra):
+        if gate is None and err > ERR_TOL * ref:
+            raise AssertionError(f"{entry}[{shape}]: max abs err {err} > {ERR_TOL} x {ref}")
+        if library is not None and library_eager is not None:
+            raise ValueError(f"{entry}: the library call is timed one way, graph or eager")
+        b_ms, b_by = bound(nbytes, nops, bw, peak or peak_ops)
+        lib_ms = None if library is None else time_graph(library)
+        if library_eager is not None:
+            lib_ms = time_eager(library_eager)
+        rows.append({"entry": entry, "shape": shape, "max_abs_err": err,
+                     "tolerance": gate or ERR_TOL * ref, "ms": time_graph(calls),
+                     "plain_ms": time_eager(plain), "library_ms": lib_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, **extra})
+
+    return record
 
 
 def build_params(cfg, seed: int, device, dtype: str = "int8"):
@@ -244,18 +299,7 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
         """Distinct weight copies to cycle through so that they exceed L2."""
         return min(L, max(2, int(2e8 // nbytes) + 1))
 
-    def record(entry, shape, err, ref, calls, plain, library, nbytes, nops, gate=None,
-               **extra):
-        """gate: the description of a gate the caller has checked already;
-        otherwise err must be within ERR_TOL x ref."""
-        if gate is None and err > ERR_TOL * ref:
-            raise AssertionError(f"{entry}[{shape}]: max abs err {err} > {ERR_TOL} x {ref}")
-        b_ms, b_by = bound(nbytes, nops, bw, peak_ops)
-        rows.append({"entry": entry, "shape": shape, "max_abs_err": err,
-                     "tolerance": gate or ERR_TOL * ref, "ms": time_graph(calls),
-                     "plain_ms": time_eager(plain),
-                     "library_ms": None if library is None else time_graph(library),
-                     "bound_ms": b_ms, "bound_by": b_by, **extra})
+    record = recorder(rows, bw, peak_ops)
 
     # quant_linear at prefill: M = max_batch * largest bucket = 1024 rows.
     M = 8 * 128
@@ -1208,6 +1252,435 @@ def phase_serve_long(model, params, cfg, rng):
         "int4_int8_page_step": decode_step_times(model, params, cfg, rng, torch.int8)}
 
 
+# ---------------------------------------------------------------------------
+# training: GPT-2 124M (kernel table rows 15's statistics launch, 16-18)
+# ---------------------------------------------------------------------------
+
+F32_OPS = 67e12  # H100 SXM f32 outside the tensor cores (NVIDIA data sheet)
+
+
+def gpt2_config(layers=None):
+    """GPT-2 124M at full width (L 12, C 768, NH 12, vocab 50257 -> 50304,
+    T 1024, tied), bf16 params, the flash kernels; ``layers`` cuts depth."""
+    from mila_tpu_torch.models.gpt2 import GPT2Config
+
+    cfg = GPT2Config.gpt2_124m().replace(param_dtype="bfloat16", attention_impl="flash")
+    return cfg if layers is None else cfg.replace(num_layers=layers)
+
+
+def train_optimizer():
+    from mila_tpu_torch.optim import AdamW, AdamWConfig
+
+    return AdamW(AdamWConfig(learning_rate=1e-3, weight_decay=0.1, stochastic_rounding=True,
+                             grad_clip_norm=1.0))
+
+
+def phase_train_kernels(bw, peak_ops, rng):
+    """Rows 15 (the statistics launch), 16, 17 and 18 at the training
+    path's shapes, each against its plain version on the card."""
+    import torch.nn.functional as F
+
+    from mila_tpu_torch.kernels import flash_attention as fa
+    from mila_tpu_torch.kernels import flash_attention_bwd as fb
+    from mila_tpu_torch.kernels import fused_adamw as fw
+    from mila_tpu_torch.kernels import softmax_ce as ce
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    sdpa = F.scaled_dot_product_attention
+    rows = []
+    record = recorder(rows, bw, peak_ops)
+
+    def rand(*shape, scale=1.0, dtype=bf16):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to(dev,
+                                                                                         dtype)
+
+    # K10' (flash_fwd with l, m) and K11 (flash_bwd): GPT-2's training shape,
+    # Llama-3.2-1B's GQA heads at T 2048, and D 128 (24 heads over 8), all
+    # causal. Gate: each (b, t, head) row of o, dq, dk, dv within ERR_TOL of
+    # its own largest value (max_row_err; floored for the gradients); l and
+    # m within 1e-4 / 1e-3 of the plain version's. Library: SDPA forward, and SDPA forward + backward
+    # through autograd beside ours (fwd_bwd_ms).
+    for B, T, NH, NKV, D in ((8, 1024, 12, 12, 64), (2, 2048, 32, 8, 64), (1, 2048, 24, 8, 128)):
+        sm = D ** -0.5
+        shape = f"B={B} T={T} NH={NH} NKV={NKV} D={D}"
+        q, k, v, do = rand(B, T, NH, D), rand(B, T, NKV, D), rand(B, T, NKV, D), rand(B, T, NH, D)
+        o, l, m = fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm)
+        o_ref, l_ref, m_ref = fa.flash_attention_plain(q, k, v, scale=sm, save_stats=True)
+        o_err = max_row_err(o, o_ref)
+        l_err = ((l - l_ref).abs() / l_ref).max().item()
+        m_err = (m - m_ref).abs().max().item()
+        if o_err > ERR_TOL or l_err > 1e-4 or m_err > 1e-3:
+            raise AssertionError(f"flash_attention_forward[{shape}]: row err {o_err}, l rel "
+                                 f"{l_err}, m abs {m_err}")
+        pairs = B * NH * T * (T + 1) // 2
+        gqa = NKV != NH
+        qs, ks, vs, dos = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+        record("flash_attention_forward", shape, *max_err(o, o_ref),
+               [lambda: fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm)],
+               lambda: fa.flash_attention_plain(q, k, v, scale=sm, save_stats=True),
+               [lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=gqa)],
+               2 * (2 * q.numel() + 2 * k.numel()) + 2 * 4 * B * NH * T, 4 * D * pairs,
+               gate=f"each (b, t, head) row of o within {ERR_TOL} of its max |ref|; l rel 1e-4, "
+                    "m abs 1e-3",
+               max_row_rel_err=o_err, l_rel_err=l_err, m_abs_err=m_err)
+        del o_ref, l_ref, m_ref
+        hm = [t.transpose(1, 2) for t in (q, k, v, o, do)]
+        got = fb.flash_attention_bwd(*hm[:4], l, m, hm[4], causal=True, sm_scale=sm)
+        want = fb.flash_attention_bwd_plain(*hm[:4], l, m, hm[4], causal=True, sm_scale=sm)
+        errs = {name: max_row_err(a.transpose(1, 2), b.transpose(1, 2), floor=1e-3)
+                for name, a, b in zip(("dq", "dk", "dv"), got, want)}
+        if max(errs.values()) > ERR_TOL:
+            raise AssertionError(f"flash_attention_bwd[{shape}]: row errors {errs}")
+        abs_errs = [max_err(a, b) for a, b in zip(got, want)]
+        del got, want
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        s_leaves = [t.detach().requires_grad_() for t in (qs, ks, vs)]
+
+        def ours():
+            out = fa.flash_attention(*leaves, causal=True)
+            return torch.autograd.grad(out, leaves, do)
+
+        def library():
+            out = sdpa(*s_leaves, is_causal=True, enable_gqa=gqa)
+            return torch.autograd.grad(out, s_leaves, dos)
+
+        record("flash_attention_bwd", shape, max(e for e, _ in abs_errs),
+               max(r for _, r in abs_errs),
+               [lambda: fb.flash_attention_bwd(*hm[:4], l, m, hm[4], causal=True, sm_scale=sm)],
+               lambda: fb.flash_attention_bwd_plain(*hm[:4], l, m, hm[4], causal=True,
+                                                    sm_scale=sm),
+               None, 2 * (4 * q.numel() + 4 * k.numel()) + 2 * 4 * B * NH * T, 10 * D * pairs,
+               gate=f"each (b, t, head) row of dq, dk, dv within {ERR_TOL} of its max |ref| "
+                    "(floored at 1e-3 of the tensor's)",
+               library_eager=library, library_what="SDPA is_causal forward + backward",
+               row_rel_errs=errs, fwd_bwd_ms=time_eager(ours))
+        del q, k, v, do, o, l, m, hm, qs, ks, vs, dos, leaves, s_leaves
+
+    # K12 on wte (50304 x 768 = 38.6M elements): bf16 param and grad, f32
+    # moments and master, uint16 noise in int32, with stochastic rounding;
+    # without it, a bf16 param rounded to nearest and no master; and an f32
+    # LayerNorm leaf (768) with its master, as the trainer updates gamma
+    # and beta (p' = master'). Gate: every output bit-equal to the plain
+    # version (the same f32 operations, no FMA contraction). Library:
+    # torch.optim.AdamW(fused=True) on the same leaf in f32 without SR.
+    n, c = 50304 * 768, 768
+    w = rand(n, scale=0.02, dtype=torch.float32)
+    p, g = w.to(bf16), rand(n, scale=1e-3)
+    mom, vel = rand(n, scale=1e-4, dtype=torch.float32), rand(n, scale=1e-4,
+                                                             dtype=torch.float32).square()
+    noise = torch.randint(0, 1 << 16, (n,), device=dev, dtype=torch.int32)
+    ln = 1.0 + rand(c, scale=0.1, dtype=torch.float32)
+    ln_g = rand(c, scale=1e-3, dtype=torch.float32)
+    ln_m, ln_v = rand(c, scale=1e-4, dtype=torch.float32), rand(c, scale=1e-4,
+                                                                dtype=torch.float32).square()
+
+    def lib_step(leaf, grad):
+        lib_p = torch.nn.Parameter(leaf.clone())
+        lib_p.grad = grad.float()
+        return torch.optim.AdamW([lib_p], lr=1e-3, weight_decay=0.1, fused=True).step
+
+    # (label, p, g, m, v, master, noise, bytes per element read and written once)
+    cases = ((f"wte SR n={n}", p, g, mom, vel, w, noise, 34),
+             (f"wte nearest, no master n={n}", p, g, mom, vel, None, None, 22),
+             (f"LayerNorm f32 + master n={c}", ln, ln_g, ln_m, ln_v, ln, None, 36))
+    for label, p_, g_, m_, v_, w_, nz, per in cases:
+        kw = dict(step=10, lr=1e-3, weight_decay=0.1, noise=nz, grad_scale=0.5)
+        args = (p_, g_, m_, v_, w_)
+        got = fw.fused_adamw_update(*args, **kw)
+        want = fw.fused_adamw_update_plain(*args, **kw)
+        for name, a, b in zip(("p", "m", "v", "master"), got, want):
+            if b is not None and not torch.equal(a, b):
+                raise AssertionError(f"fused_adamw_update[{label}]: {name} differs from the "
+                                     f"plain version (max {max_err(a, b)[0]})")
+        record("fused_adamw_update", label, 0.0, 1.0,
+               [lambda a_=args, kw_=kw: fw.fused_adamw_update(*a_, **kw_)],
+               lambda a_=args, kw_=kw: fw.fused_adamw_update_plain(*a_, **kw_),
+               None, per * p_.numel(), 14 * p_.numel(), gate="bit-equal to the plain version",
+               library_eager=lib_step(w if p_ is p else ln, g_),
+               library_what="torch.optim.AdamW(fused=True), f32, no SR",
+               peak=F32_OPS)
+        del got, want
+    del w, p, g, mom, vel, noise, cases, args
+
+    # K13 at GPT-2's logits, [8192, 50304] bf16, every 7th row ignored.
+    # Gates: each loss within 1e-4 + 1e-5 |ref| of the plain version's (a
+    # quarter of a row's exp-sum dropped would move it by 0.29); each
+    # dlogit within one bf16 step (2^-7) of its own size, floored at 1e-8 of
+    # the largest, so a wrong small probability fails as a wrong large one.
+    M, V = 8 * 1024, 50304
+    x = rand(M, V, scale=2.0)
+    t = torch.from_numpy(rng.integers(0, 50257, M)).to(dev)
+    t[::7] = -100
+    t32 = t.to(torch.int32)
+    gl = torch.full((M,), 1.0 / M, device=dev)
+    loss = ce.fused_softmax_cross_entropy(x, t)
+    want = ce.fused_softmax_cross_entropy_plain(x, t32)
+    excess = ((loss - want).abs() - 1e-5 * want.abs()).max().item()
+    if not torch.isfinite(loss).all() or excess > 1e-4:
+        raise AssertionError(f"fused_softmax_cross_entropy: a loss is {excess} beyond "
+                             "1e-5 |ref| + 1e-4 from the plain version's")
+    record("fused_softmax_cross_entropy", f"M={M} V={V} bf16", *max_err(loss, want),
+           [lambda: ce.fused_softmax_cross_entropy(x, t)],
+           lambda: ce.fused_softmax_cross_entropy_plain(x, t32),
+           [lambda: F.cross_entropy(x, t, reduction="none")], 2 * M * V + 8 * M,
+           4 * M * V, gate="each loss within 1e-4 + 1e-5 |ref|",
+           library_what="F.cross_entropy forward", peak=F32_OPS, excess_over_rtol=excess)
+    d = ce.fused_softmax_cross_entropy_bwd(x, t32, gl)
+    want = ce.fused_softmax_cross_entropy_bwd_plain(x, t32, gl)
+    d_rel = max_elem_rel_err(d, want, floor=1e-8)
+    if d_rel > 2 ** -7:
+        raise AssertionError(f"fused_softmax_cross_entropy_bwd: a dlogit is {d_rel} of its "
+                             "own size from the plain version's (gate 2^-7)")
+    xr = x.detach().requires_grad_()
+
+    def library():
+        return torch.autograd.grad(F.cross_entropy(xr, t, reduction="none"), xr, gl)
+
+    record("fused_softmax_cross_entropy_bwd", f"M={M} V={V} bf16", *max_err(d, want),
+           [lambda: ce.fused_softmax_cross_entropy_bwd(x, t32, gl)],
+           lambda: ce.fused_softmax_cross_entropy_bwd_plain(x, t32, gl), None,
+           4 * M * V + 8 * M, 6 * M * V,
+           gate="each dlogit within 2^-7 of |ref| + 1e-8 max |ref|", library_eager=library,
+           library_what="F.cross_entropy forward + backward", peak=F32_OPS,
+           max_elem_rel_err=d_rel)
+    del x, d, want, xr
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def masters_agree(ref, got, m_ref, lr: float) -> float:
+    """The masters after one AdamW step, both sides from the same masters:
+    each moves by about lr * sign(g), so a master may differ by 2 lr where a
+    gradient's sign differs, which happens where the gradient is rounding
+    noise (|m| under 3e-2 of its leaf's max: the K third of the qkv bias has
+    an exact gradient of 0). Elsewhere at most 2 % of a leaf may differ by
+    more than 1e-3 lr. Returns the worst such fraction."""
+    from mila_tpu_torch.utils.tree import tree_leaves
+
+    worst = 0.0
+    for a, b, mm in zip(tree_leaves(got), tree_leaves(ref), tree_leaves(m_ref)):
+        d = (a.float().cpu() - b.float()).abs()
+        mm = mm.abs()
+        if d.max().item() > 2 * lr * 1.01:
+            raise AssertionError(f"parity train: a master moved {d.max().item()} > 2 lr apart")
+        signal = mm > 3e-2 * mm.max()
+        frac = (d[signal] > 1e-3 * lr).float().mean().item() if signal.any() else 0.0
+        worst = max(worst, frac)
+    if worst > 2e-2:
+        raise AssertionError(f"parity train: {worst} of a leaf's masters differ")
+    return worst
+
+
+def tree_cosines(ref, got) -> tuple[float, float]:
+    """(min cosine, max of max|d| / max|ref|) over the leaves of two trees;
+    a leaf passes with cosine >= 0.999 or max|d| <= ERR_TOL x max|ref|."""
+    from mila_tpu_torch.utils.tree import tree_leaves
+
+    cos_min, rel_max = 1.0, 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(ref)):
+        # In f64 and scaled to max |ref| = 1: v (0.001 g^2) reaches 1e-13,
+        # under cosine_similarity's eps on the product of the norms.
+        top = b.abs().max().double().clamp_min(1e-300)
+        a, b = a.double().cpu().reshape(-1) / top, b.double().reshape(-1) / top
+        if not torch.isfinite(a).all():
+            raise AssertionError("parity train: a tensor is not finite")
+        cos = (a @ b / (a.norm() * b.norm()).clamp_min(1e-300)).item()
+        rel = (a - b).abs().max().item()
+        if cos < 0.999 and rel > ERR_TOL:
+            raise AssertionError(f"parity train: a leaf has cosine {cos}, max rel {rel}")
+        cos_min, rel_max = min(cos_min, cos), max(rel_max, rel)
+    return cos_min, rel_max
+
+
+def phase_parity_train(rng):
+    """A 2-layer GPT-2 at full width (C 768, NH 12, T 1024, vocab 50304), B
+    2, bf16 with SR masters, flash: the loss and every gradient leaf, then
+    one Model train step (clip, AdamW), on the card and on the port's CPU
+    path from the same params, batch and noise (one CPU generator's
+    draws)."""
+    from mila_tpu_torch.models.gpt2 import GPT2
+    from mila_tpu_torch.models.model import Model, ModelConfig
+    from mila_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = gpt2_config(layers=2)
+    B, T, lr = 2, 1024, 1e-3
+    toks = rng.integers(0, cfg.vocab_size, (B, T + 1))
+    out = {}
+    params = None
+    for dev in ("cpu", "cuda"):
+        model = Model(GPT2(cfg), train_optimizer(), ModelConfig(epochs=1, verbose=False),
+                      device=dev)
+        if params is None:
+            model.build(0, (B, T))
+            params = model.params
+        else:
+            model.params = tree_map(lambda p: p.to(dev), params)
+            model.opt_state = model.optimizer.init(model.params)
+            model._compile()
+        x, y = (torch.from_numpy(a).to(dev) for a in (toks[:, :-1], toks[:, 1:]))
+        t0 = time.monotonic()
+        loss, grads = model._value_and_grad(model.params, x, y)
+        model.sr_rng = torch.Generator().manual_seed(5)
+        p2, state, loss2 = model._train_step(model.params, model.opt_state, x, y)
+        out[dev] = (float(loss), grads, state, p2, time.monotonic() - t0)
+    (l_c, g_c, s_c, p_c, t_c), (l_g, g_g, s_g, p_g, t_g) = out["cpu"], out["cuda"]
+    if not abs(l_g - l_c) <= 1e-2 * abs(l_c):
+        raise AssertionError(f"parity train: loss {l_g} on the card vs {l_c} on the CPU")
+    g_cos, g_rel = tree_cosines(g_c, g_g)
+    m_cos, m_rel = tree_cosines(s_c.m, s_g.m)
+    v_cos, v_rel = tree_cosines(s_c.v, s_g.v)
+    worst = masters_agree(s_c.master, s_g.master, s_c.m, lr)
+    return {"model": "gpt2-124m widths, 2 layers, bf16 + SR masters, flash, random weights",
+            "shape": f"B={B} T={T}", "loss_card": l_g, "loss_cpu": l_c,
+            "grads": {"min_cosine": g_cos, "max_rel_err": g_rel, "leaves": len(tree_leaves(g_g))},
+            "m": {"min_cosine": m_cos, "max_rel_err": m_rel},
+            "v": {"min_cosine": v_cos, "max_rel_err": v_rel},
+            "masters_worst_fraction_apart": worst,
+            "gate": "loss within 1e-2; each leaf cosine >= 0.999 or max|d| <= 2e-2 max|ref|; "
+                    "masters within 2 lr, <= 2 % of a leaf's signal elements > 1e-3 lr apart",
+            "seconds": {"cpu": t_c, "card": t_g}}
+
+
+def adamw_device_ms(model, grads) -> float:
+    """ms of the device's work in one AdamW.step of ``model`` on ``grads``
+    (a tree like its params): the clip's global norm and one fused_adamw_update
+    per leaf, with the step's clip factor and its noise drawn beforehand,
+    as a CUDA-graph replay (no host in the way)."""
+    from mila_tpu_torch.kernels.fused_adamw import fused_adamw_update
+    from mila_tpu_torch.optim.adamw import global_norm
+    from mila_tpu_torch.utils.tree import tree_leaves
+
+    cfg, st = model.optimizer.config, model.opt_state
+    leaves = tree_leaves(model.params)
+    gen = torch.Generator(device=leaves[0].device).manual_seed(0)
+    noises = [torch.randint(0, 1 << 16, p.shape, generator=gen, device=p.device,
+                            dtype=torch.int32) if p.dtype == torch.bfloat16 else None
+              for p in leaves]
+    scale = float(torch.clamp(cfg.grad_clip_norm / (global_norm(grads) + 1e-6), max=1.0))
+    kw = dict(step=int(st.step) + 1, lr=cfg.learning_rate, beta1=cfg.beta1, beta2=cfg.beta2,
+              eps=cfg.eps, weight_decay=cfg.weight_decay, grad_scale=scale)
+
+    def update():
+        global_norm(grads)
+        for p, w, m, v, g, nz in zip(leaves, tree_leaves(st.master), tree_leaves(st.m),
+                                     tree_leaves(st.v), tree_leaves(grads), noises):
+            fused_adamw_update(p, g, m, v, w, noise=nz, **kw)
+
+    return time_graph([update], reps=5)
+
+
+def phase_train(peak_ops, rng, steps: int = 12):
+    """GPT-2 124M at full size (bf16 params, f32 SR masters, clip 1.0, flash),
+    B 8, T 1024: Model.train over ``steps`` batches of synthetic windows with
+    structure (each one of 4 fixed random sequences, so the loss must fall),
+    then Model.evaluate on one batch. Launch counts per train step:
+    flash_attention_forward L, flash_attention_bwd L, the CE forward and
+    backward once each, fused_adamw_update once per parameter leaf (148);
+    per eval step flash_attention L and the CE forward once; no plain
+    version anywhere."""
+    from mila_tpu_torch.data.loader import ArrayReader
+    from mila_tpu_torch.models.gpt2 import GPT2
+    from mila_tpu_torch.models.model import Model, ModelConfig
+    from mila_tpu_torch.utils.tree import tree_leaves, tree_unflatten
+
+    cfg = gpt2_config()
+    B, T, L = 8, 1024, cfg.num_layers
+    t0 = time.monotonic()
+    model = Model(GPT2(cfg), train_optimizer(), ModelConfig(epochs=1, verbose=False))
+    model.build(0, (B, T))
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    n_leaves, n_params = len(tree_leaves(model.params)), model.parameter_count()
+    if n_leaves != 2 + 12 * L + 2:
+        raise AssertionError(f"GPT-2 has {n_leaves} parameter leaves")
+    base = rng.integers(0, cfg.vocab_size, (4, T + 1)).astype(np.int32)
+    data = base[rng.integers(0, 4, B * steps)]
+    reader = ArrayReader(data[:, :-1], data[:, 1:], B, seed=0)
+
+    times, losses = [], []
+    inner = model._train_step
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = inner(*args)
+        losses.append(float(res[2]))
+        times.append(time.perf_counter() - t)
+        return res
+
+    model._train_step = timed
+    per_step = {"flash_attention_forward": L, "flash_attention_bwd": L,
+                "fused_softmax_cross_entropy": 1, "fused_softmax_cross_entropy_bwd": 1,
+                "fused_adamw_update": n_leaves}
+    torch.cuda.reset_peak_memory_stats()
+    _, t_counts = run_counted("train", lambda: model.train(reader),
+                              {k: v * steps for k, v in per_step.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model._train_step = inner
+    ev = ArrayReader(data[:B, :-1], data[:B, 1:], B, shuffle=False)
+    val, e_counts = run_counted("evaluate", lambda: model.evaluate(ev),
+                                {"flash_attention": L, "fused_softmax_cross_entropy": 1})
+    # Falling: the median of the last 4 steps' losses (lr 1e-3 with no warm-up
+    # spikes a step now and then) and the eval loss at least 1 nat under the
+    # first step's.
+    tail = statistics.median(losses[-4:])
+    if (not all(np.isfinite(losses)) or not np.isfinite(val) or not tail < losses[0] - 1.0
+            or not val < losses[0] - 1.0):
+        raise AssertionError(f"train: losses {losses}, eval {val}: not finite and falling")
+
+    # Three more steps, each split into forward + loss, backward and AdamW:
+    # the device's time between CUDA events and the host's clock between
+    # the same marks (no sync but AdamW's own, the clip's factor). Where a
+    # segment's device time is about its host time, the device waited on
+    # the host's launches. Then AdamW's device work alone: the clip's norm
+    # and the 148 kernel updates (noise drawn beforehand) as a graph replay.
+    x, y = (torch.from_numpy(a).cuda() for a in (data[:B, :-1], data[:B, 1:]))
+    names = ("forward_loss", "backward", "adamw")
+    split, host = {k: [] for k in names}, {k: [] for k in names}
+    for _ in range(3):
+        ev_ = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(model.params)]
+        torch.cuda.synchronize()
+        marks = []
+        ev_[0].record()
+        marks.append(time.perf_counter())
+        with torch.enable_grad():
+            loss = model._loss_fn(model.module, tree_unflatten(model.params, leaves), x, y)
+            ev_[1].record()
+            marks.append(time.perf_counter())
+            grads = torch.autograd.grad(loss, leaves)
+        ev_[2].record()
+        marks.append(time.perf_counter())
+        model.optimizer.step(model.opt_state, model.params, tree_unflatten(model.params,
+                                                                           list(grads)))
+        ev_[3].record()
+        marks.append(time.perf_counter())
+        torch.cuda.synchronize()
+        for i, k in enumerate(names):
+            split[k].append(ev_[i].elapsed_time(ev_[i + 1]))
+            host[k].append((marks[i + 1] - marks[i]) * 1e3)
+    adamw_graph_ms = adamw_device_ms(model, tree_unflatten(model.params, list(grads)))
+    del grads, leaves, loss
+
+    step_s = statistics.median(times[2:])
+    D, NH = cfg.embedding_dim // cfg.num_heads, cfg.num_heads
+    flops = 6 * n_params * B * T + 7 * T * T * D * B * NH * L
+    return t_counts, e_counts, {
+        "model": "gpt2-124m, bf16 params + f32 SR masters, flash, random weights",
+        "shape": f"B={B} T={T}", "steps": steps, "params": n_params, "leaves": n_leaves,
+        "build_s": build_s, "ms_per_step": step_s * 1e3, "step_ms_all": [t * 1e3 for t in times],
+        "tokens_per_s": B * T / step_s, "model_tflop_per_step": flops / 1e12,
+        "mfu": flops / step_s / peak_ops, "mfu_note": "model FLOPs utilisation against the "
+        "published bf16 peak", "loss_first": losses[0], "loss_last": losses[-1],
+        "loss_median_last4": tail,
+        "losses": losses, "eval_loss": val, "peak_mem_gb": peak_gb,
+        "step_split_ms": {k: statistics.median(v) for k, v in split.items()},
+        "step_split_ms_all": split, "step_split_host_ms_all": host,
+        "adamw_graph_ms": adamw_graph_ms, "adamw_bound_ms": 34 * n_params / 3.35e12 * 1e3,
+        "launches_per_step": per_step, "launches": t_counts, "launches_eval": e_counts}
+
+
 SOURCES = {
     "quant_linear": ("mila_tpu_torch/csrc/qmm_int8.cu",
                      "mila_tpu/kernels/quant_matmul.py:74 (_qmm_kernel)"),
@@ -1239,6 +1712,18 @@ SOURCES = {
                           "mila_tpu/kernels/quant_matmul.py:244 (_qmm4_kernel)"),
     "flash_attention": ("mila_tpu_torch/csrc/flash_fwd.cu",
                         "mila_tpu/kernels/flash_attention.py:39 (_fa_kernel; _fa_kernel_t :114)"),
+    "flash_attention_forward": ("mila_tpu_torch/csrc/flash_fwd.cu",
+                                "mila_tpu/kernels/flash_attention.py:39 (_fa_kernel with "
+                                "save_stats; _fa_kernel_t :114)"),
+    "flash_attention_bwd": ("mila_tpu_torch/csrc/flash_bwd.cu",
+                            "mila_tpu/kernels/flash_attention_bwd.py:43 (_dkv_kernel; "
+                            "_dq_kernel :98)"),
+    "fused_adamw_update": ("mila_tpu_torch/csrc/fused_adamw.cu",
+                           "mila_tpu/kernels/fused_adamw.py:27 (_adamw_kernel)"),
+    "fused_softmax_cross_entropy": ("mila_tpu_torch/csrc/softmax_ce.cu",
+                                    "mila_tpu/kernels/softmax_ce.py:28 (_ce_fwd_kernel)"),
+    "fused_softmax_cross_entropy_bwd": ("mila_tpu_torch/csrc/softmax_ce.cu",
+                                        "mila_tpu/kernels/softmax_ce.py:41 (_ce_bwd_kernel)"),
 }
 # The shape whose numbers head each entry of the summary line.
 PRIMARY = {"quant_linear": "wgu", "rms_quant_linear": "lm_head",
@@ -1248,7 +1733,9 @@ PRIMARY = {"quant_linear": "wgu", "rms_quant_linear": "lm_head",
            "layer_tail_stream": "layer 7", "mlp_qkv_fused": "layer 0",
            "giga_decode_step": "L=16", "layer_megakernel": "layer 7",
            "mlp_block_fused": "layer 0", "quant_linear_int4": "wgu",
-           "flash_attention": "B=1 T=4096"}
+           "flash_attention": "B=1 T=4096", "flash_attention_forward": "B=8 T=1024",
+           "flash_attention_bwd": "B=8 T=1024", "fused_adamw_update": "wte SR",
+           "fused_softmax_cross_entropy": "M=8192", "fused_softmax_cross_entropy_bwd": "M=8192"}
 # "none" reasons for the library yardstick, where no one PyTorch call computes it.
 NO_LIBRARY = {
     "giga_decode_step": "none: no one call computes a whole decode step",
@@ -1331,13 +1818,22 @@ def main() -> int:
     l_counts, serve_long = phase_serve_long(Llama(cfg4), params4, cfg4, rng)
     emit({"phase": "serve long", "card": card, "model": "llama-3.2-1b int4, int8 KV pages, "
           "random weights", **serve_long})
+    del params4, model
+    torch.cuda.empty_cache()
+    train_rows = phase_train_kernels(bw, peak_ops, rng)
+    emit({"phase": "kernels train", "card": card, "rows": train_rows})
+    rows += train_rows
+    parity_train = phase_parity_train(rng)
+    emit({"phase": "parity train", "card": card, **parity_train})
+    t_counts, e_counts, train = phase_train(peak_ops, rng)
+    emit({"phase": "train", "card": card, **train})
 
     by_path = {"serve paged": counts, "serve contiguous": c_counts, "serve giga": g_counts,
                "decode prefill": decode["launches_prefill"], "decode": decode["launches"],
                "giga prefill": giga["launches_prefill"], "giga": giga["launches"],
                "mega prefill": mega["launches_prefill"], "mega": mega["launches"],
                "generate": generate["launches"], "generate mlp": generate_mlp["launches"],
-               "serve long": l_counts}
+               "serve long": l_counts, "train": t_counts, "evaluate": e_counts}
     summary = []
     for entry, (source, replaces) in SOURCES.items():
         mine = [r for r in rows if r["entry"] == entry]
@@ -1363,7 +1859,8 @@ def main() -> int:
                        "parity": parity, "parity_long": parity_long, "decode": decode,
                        "giga": giga, "mega": mega, "generate": generate,
                        "generate_mlp": generate_mlp, "serve": serve, "serve_long": serve_long,
-                       "summary": summary, "total_s": time.monotonic() - t_start}, f, indent=1)
+                       "parity_train": parity_train, "train": train, "summary": summary,
+                       "total_s": time.monotonic() - t_start}, f, indent=1)
     emit({"kernels": summary})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

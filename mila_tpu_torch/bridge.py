@@ -11,7 +11,9 @@ named tuples of arrays and scalar fields) become the port's named tuples of
 the same name and fields: arrays converted, ints kept ints, floats kept
 floats (``GigaPack.eps``) and ``None`` kept ``None`` (a ``GigaPack``
 without RoPE rows), so a JAX-packed tree runs the port's kernels on the
-same bytes.
+same bytes. ``adamw_state_from_jax`` carries an ``AdamWState`` (step, m,
+v and master trees, numpy-leaved) over to the port's, so that both
+optimizers can start from one state.
 """
 
 from __future__ import annotations
@@ -81,3 +83,13 @@ def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
         raise TypeError(f"cannot bridge a {type(node).__name__} leaf")
 
     return visit(tree)
+
+
+def adamw_state_from_jax(state: Any, device: DeviceLike = None):
+    """The port's ``AdamWState`` from a JAX one whose trees hold numpy
+    arrays (``step`` an int or a 0-dim array; ``master`` a tree or None)."""
+    from mila_tpu_torch.optim.adamw import AdamWState
+
+    master = None if state.master is None else params_from_jax(state.master, device)
+    return AdamWState(step=int(np.asarray(state.step)), m=params_from_jax(state.m, device),
+                      v=params_from_jax(state.v, device), master=master)

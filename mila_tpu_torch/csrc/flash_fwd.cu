@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernels mila_tpu/kernels/flash_attention.py:_fa_kernel
 // (D >= 128) and _fa_kernel_t (D < 128), entry flash_attention ->
-// _flash_attention_forward(save_stats=False): the inference path, which
-// writes no row statistics. The TPU's transposed layout for D < 128 exists
+// _flash_attention_forward, with and without save_stats (below). The
+// TPU's transposed layout for D < 128 exists
 // for its 128-lane matrix unit only; here one kernel serves D 64 and 128.
 //
 // Bound on the H100: tensor-core operations at prefill lengths (2 * Tq * Tkv
@@ -19,6 +19,10 @@
 // tiles heaviest first (the causal skip leaves the last tiles the most
 // keys).
 //
+// With l_out/m_out (the launch under autograd, _flash_attention_forward(
+// save_stats=True)) it also writes each row's final sum l and max m, f32
+// [B, NH, Tq], without the TPU's 128-lane padding.
+//
 // The TPU kernel's semantics: the causal tile skip with kv_offset (a key
 // tile runs when its first key <= the tile's last row + kv_offset); masked
 // scores are -0.7 * f32max, not -inf; p is rounded to V's dtype (bf16)
@@ -28,57 +32,19 @@
 // D], contiguous. Rows past Tq in the last q tile are computed on zeros and
 // never stored.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
 constexpr int BQ = 64, BKV = 64, THREADS = 128;
 constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
 
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Two 8x8 bf16 matrices at rows p (threads 0-7) and p + 8 rows (threads
-// 8-15), transposed: the B fragment of m16n8k16 for a row-major [k][n] tile.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int Tq,
-                 int Tkv, int NH, int NKV, float sm_scale, int kv_offset, int causal) {
+                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                 float* __restrict__ l_out, float* __restrict__ m_out, int Tq, int Tkv, int NH,
+                 int NKV, float sm_scale, int kv_offset, int causal) {
   constexpr int RS = D + 8;  // bf16 per shared row (16-byte aligned, staggers banks)
   constexpr int TILE = BKV * RS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -227,6 +193,11 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     const int row = r0 + 8 * hr;
     if (row >= Tq) continue;
     const float inv = l[hr] == 0.f ? 1.f : 1.f / l[hr];
+    if (l_out != nullptr && tig == 0) {  // the backward's row statistics
+      const size_t srow = ((size_t)b * NH + h) * Tq + row;
+      l_out[srow] = l[hr];
+      m_out[srow] = m[hr];
+    }
     __nv_bfloat16* orow = out + (size_t)b * Tq * qstride + (size_t)row * qstride + (size_t)h * D;
 #pragma unroll
     for (int di = 0; di < D / 8; ++di)
@@ -236,8 +207,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Tq, int Tkv, int NH,
-           int NKV, float sm_scale, int kv_offset, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* l_out, float* m_out,
+           int B, int Tq, int Tkv, int NH, int NKV, float sm_scale, int kv_offset, int causal,
+           cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) * 4 * BKV * (D + 8);
   auto kern = flash_fwd_kernel<D>;
   static bool opted[64] = {};
@@ -250,8 +222,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Tq
   dim3 grid((Tq + BQ - 1) / BQ, NH, B);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Tq, Tkv, NH, NKV,
-      sm_scale, kv_offset, causal);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), l_out, m_out, Tq, Tkv,
+      NH, NKV, sm_scale, kv_offset, causal);
   return 0;
 }
 
@@ -260,16 +232,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Tq
 // q [B, Tq, NH, D], k and v [B, Tkv, NKV, D], out [B, Tq, NH, D], all bf16
 // and contiguous. Needs D in {64, 128}, Tkv % 64 == 0 and NH % NKV == 0
 // (checked by the Python wrapper). causal != 0 masks key j for query i
-// unless j <= i + kv_offset.
-extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out, int B, int Tq,
-                         int Tkv, int NH, int NKV, int D, float sm_scale, int kv_offset,
-                         int causal, void* stream) {
+// unless j <= i + kv_offset. l_out and m_out are null (the primal launch)
+// or f32 [B, NH, Tq]: each row's softmax sum l and max m (of the scaled
+// scores), the statistics flash_bwd recomputes p from.
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out, void* l_out,
+                         void* m_out, int B, int Tq, int Tkv, int NH, int NKV, int D,
+                         float sm_scale, int kv_offset, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lo = static_cast<float*>(l_out);
+  float* mo = static_cast<float*>(m_out);
   if (B > 0 && Tq > 0) {
     if (D == 64)
-      launch<64>(q, k, v, out, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset, causal, s);
+      launch<64>(q, k, v, out, lo, mo, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset, causal, s);
     else if (D == 128)
-      launch<128>(q, k, v, out, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset, causal, s);
+      launch<128>(q, k, v, out, lo, mo, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset, causal, s);
     else
       return static_cast<int>(cudaErrorInvalidValue);
   }

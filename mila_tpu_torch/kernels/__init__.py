@@ -17,11 +17,14 @@ def entry_points() -> dict:
         decode_mlp,
         dense_attention,
         flash_attention,
+        flash_attention_bwd,
+        fused_adamw,
         layer_fused,
         layer_mega,
         layer_stream,
         paged_attention,
         quant_matmul,
+        softmax_ce,
     )
 
     return {
@@ -40,6 +43,11 @@ def entry_points() -> dict:
         "mlp_block_fused": decode_mlp.mlp_block_fused,
         "quant_linear_int4": quant_matmul.quant_linear_int4,
         "flash_attention": flash_attention.flash_attention,
+        "flash_attention_forward": flash_attention.flash_attention_forward,
+        "flash_attention_bwd": flash_attention_bwd.flash_attention_bwd,
+        "fused_adamw_update": fused_adamw.fused_adamw_update,
+        "fused_softmax_cross_entropy": softmax_ce.fused_softmax_cross_entropy,
+        "fused_softmax_cross_entropy_bwd": softmax_ce.fused_softmax_cross_entropy_bwd,
     }
 
 
@@ -51,10 +59,13 @@ def plain_versions() -> tuple:
         decode_mlp,
         dense_attention,
         flash_attention,
+        flash_attention_bwd,
+        fused_adamw,
         layer_fused,
         layer_mega,
         paged_attention,
         quant_matmul,
+        softmax_ce,
     )
 
     return (quant_matmul.quant_linear_plain, decode_fused.rms_quant_linear_plain,
@@ -67,7 +78,9 @@ def plain_versions() -> tuple:
             layer_fused.layer_tail_plain, layer_fused.qkv_tail_plain,
             decode_giga.giga_decode_plain, layer_mega.layer_megakernel_plain,
             decode_mlp.mlp_block_plain, quant_matmul.quant_linear_int4_plain,
-            flash_attention.flash_attention_plain)
+            flash_attention.flash_attention_plain, flash_attention_bwd.flash_attention_bwd_plain,
+            fused_adamw.fused_adamw_update_plain, softmax_ce.fused_softmax_cross_entropy_plain,
+            softmax_ce.fused_softmax_cross_entropy_bwd_plain)
 
 
 def reset_launches() -> None:

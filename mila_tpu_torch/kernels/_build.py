@@ -24,7 +24,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNELS = ("qmm_int8", "qgemv_int8", "paged_decode_attn", "dense_decode_attn",
-           "layer_tail_int8", "decode_step_int8", "qgemv_int4", "flash_fwd")
+           "layer_tail_int8", "decode_step_int8", "qgemv_int4", "flash_fwd", "flash_bwd",
+           "fused_adamw", "softmax_ce")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

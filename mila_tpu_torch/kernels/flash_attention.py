@@ -1,10 +1,16 @@
-"""Flash attention (forward): causal grouped-query attention without the
-[Tq, Tkv] score matrix in device memory.
+"""Flash attention: causal grouped-query attention without the [Tq, Tkv]
+score matrix in device memory, forward and (through autograd) backward.
 
 Replaces the TPU kernels ``mila_tpu/kernels/flash_attention.py:_fa_kernel``
 and ``_fa_kernel_t`` (entry ``flash_attention`` ->
-``_flash_attention_forward(save_stats=False)``, the primal path that writes
-no row statistics). The model's prefill reaches it through
+``_flash_attention_forward``): ``flash_attention`` is the primal launch,
+which writes no row statistics; ``flash_attention_forward`` is the launch
+under autograd (``save_stats=True``), which also writes each row's softmax
+sum l and max m, f32 [B, NH, Tq] (the TPU pads them to 128 lanes; here they
+are not padded). When grad is enabled and an input requires it,
+``flash_attention`` runs ``_FlashFn``: that forward and, in its backward,
+``kernels.flash_attention_bwd.flash_attention_bwd`` (JAX's ``_fa_fwd`` /
+``_fa_bwd``). The model's prefill reaches it through
 ``ops.attention.attention`` from ``FLASH_MIN_SEQ`` keys up on the card, where the
 plain product would materialise f32 scores [B, NKV, G, T, T] (2.1 GB per
 layer at T 4096, 32 heads).
@@ -24,13 +30,13 @@ store, and query head h reading KV head h // G. Its tiling gate stays too
 64 not 0 to the plain product (``ops.dot_product_attention``), as JAX's
 wrapper sends them to its jnp reference; on the card this wrapper raises
 for them. The kernel takes D 64 and 128 and bf16 inputs; f32 inputs and
-other head sizes raise on the card. The backward (kernel table row 16,
-``flash_attention_bwd``) is not ported yet: a call that needs a gradient
-through the kernel raises.
+other head sizes raise on the card. GPT-2's ``Attention`` reaches it
+through ``nn.layers.Attention`` with ``impl="flash"``, under grad in
+training.
 
 ``flash_attention_plain`` is the kernel's arithmetic in one pass over all
 keys (the running max of the tiles is the row max here; the results agree
-to f32 and bf16 rounding).
+to f32 and bf16 rounding); with ``save_stats`` it returns l and m too.
 """
 
 from __future__ import annotations
@@ -49,10 +55,12 @@ _KV_TILE = 64  # keys per tile in csrc/flash_fwd.cu
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
-                          kv_offset: int = 0) -> torch.Tensor:
+                          kv_offset: int = 0, save_stats: bool = False):
     """Plain version of :func:`flash_attention` (q [B, Tq, NH, D], k/v [B,
     Tkv, NKV, D]): f32 scores, the -0.7 * f32max mask, p = exp(s - max),
-    l = sum of the f32 p, out = (bf16(p) @ v) / l."""
+    l = sum of the f32 p, out = (bf16(p) @ v) / l. With ``save_stats`` it
+    returns (out, l, m), l and m f32 [B, NH, Tq], as
+    :func:`flash_attention_forward` does."""
     flash_attention_plain.calls += 1
     B, Tq, NH, D = q.shape
     _, Tkv, NKV, _ = k.shape
@@ -63,12 +71,16 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale: Optional[float
     if causal:
         cm = causal_mask(Tq, Tkv, kv_offset, device=q.device)
         s = torch.where(cm[None, None, None], s, DEFAULT_MASK_VALUE)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
     del s
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
     out = acc * torch.where(l == 0, 1.0, 1.0 / l)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Tq, NH, D).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Tq, NH, D).to(q.dtype)
+    if not save_stats:
+        return out
+    return out, l.reshape(B, NH, Tq), m.reshape(B, NH, Tq)
 
 
 flash_attention_plain.calls = 0
@@ -78,20 +90,17 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("flash_fwd")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.flash_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_float, ci,
-                                  ci, vp]
+        lib.flash_fwd.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_float,
+                                  ci, ci, vp]
         lib.flash_fwd.restype = ci
         lib._typed = True
     return lib
 
 
-def _launch(q, k, v, causal: bool, sm_scale: float, kv_offset: int) -> torch.Tensor:
+def _launch(q, k, v, causal: bool, sm_scale: float, kv_offset: int, stats: bool = False):
+    """One flash_fwd launch; (out, l, m) with ``stats``, else out."""
     B, Tq, NH, D = q.shape
     _, Tkv, NKV, _ = k.shape
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError(
-            "flash_fwd is the forward only: its backward (kernel table row 16, "
-            "flash_attention_bwd) is not ported yet")
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise NotImplementedError(f"flash_fwd takes bf16 q/k/v; got {q.dtype}, {k.dtype}, "
                                   f"{v.dtype} (f32 inputs are not ported yet)")
@@ -104,12 +113,67 @@ def _launch(q, k, v, causal: bool, sm_scale: float, kv_offset: int) -> torch.Ten
     if not (kc.device == qc.device and vc.device == qc.device):
         raise ValueError("flash_fwd: q, k and v must be on one device")
     out = torch.empty_like(qc)
+    l = m = None
+    if stats:
+        l = torch.empty(B, NH, Tq, device=q.device, dtype=torch.float32)
+        m = torch.empty_like(l)
     lib = _lib()
-    rc = lib.flash_fwd(_build.ptr(qc), _build.ptr(kc), _build.ptr(vc), _build.ptr(out), B, Tq,
-                       Tkv, NH, NKV, D, sm_scale, kv_offset, int(causal), _build.stream_of(q))
+    rc = lib.flash_fwd(_build.ptr(qc), _build.ptr(kc), _build.ptr(vc), _build.ptr(out),
+                       None if l is None else _build.ptr(l), None if m is None else _build.ptr(m),
+                       B, Tq, Tkv, NH, NKV, D, sm_scale, kv_offset, int(causal),
+                       _build.stream_of(q))
     _build.check(lib, rc, "flash_fwd")
+    if stats:
+        flash_attention_forward.launches += 1
+        return out, l, m
     flash_attention.launches += 1
     return out
+
+
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            causal: bool = True, sm_scale: float, kv_offset: int = 0):
+    """The forward under autograd (JAX's ``_flash_attention_forward(...,
+    save_stats=True)``, in the model's layout): (out [B, Tq, NH, D], l, m
+    f32 [B, NH, Tq]). CUDA tensors launch ``flash_fwd`` with its statistics
+    outputs; CPU tensors take :func:`flash_attention_plain`."""
+    if q.is_cuda:
+        return _launch(q, k, v, causal, sm_scale, kv_offset, stats=True)
+    return flash_attention_plain(q, k, v, causal=causal, scale=sm_scale, kv_offset=kv_offset,
+                                 save_stats=True)
+
+
+flash_attention_forward.launches = 0
+
+
+class _FlashFn(torch.autograd.Function):
+    """JAX's ``_flash_attention`` custom VJP: the forward saves q, k, v, out,
+    l and m; the backward is ``flash_attention_bwd`` on them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, kv_offset):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, l, m = flash_attention_forward(q, k, v, causal=causal, sm_scale=sm_scale,
+                                            kv_offset=kv_offset)
+        ctx.save_for_backward(q, k, v, out, l, m)
+        ctx.cfg = (causal, sm_scale, kv_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        from mila_tpu_torch.kernels.flash_attention_bwd import flash_attention_bwd
+
+        q, k, v, out, l, m = ctx.saved_tensors
+        causal, sm_scale, kv_offset = ctx.cfg
+        def hm(t):  # the JAX entry's head-major layout, as a view
+            return t.transpose(1, 2)
+
+        dq, dk, dv = flash_attention_bwd(hm(q), hm(k), hm(v), hm(out), l, m, hm(do),
+                                         causal=causal, sm_scale=sm_scale, kv_offset=kv_offset)
+        return hm(dq), hm(dk), hm(dv), None, None, None
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -121,7 +185,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     (``ops.flash_tiles_ok``) refuses: ``ops.attention`` routes those to the
     plain product before this call. CPU tensors take
     :func:`flash_attention_plain`, or at a refused shape the plain product,
-    as JAX's wrapper does."""
+    as JAX's wrapper does. Under grad the call goes through ``_FlashFn``
+    (the launch with statistics, then the backward kernel)."""
     B, Tq, NH, D = q.shape
     _, Tkv, NKV, _ = k.shape
     if NH % NKV != 0:
@@ -132,10 +197,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         if not tiles_ok:
             raise ValueError(f"flash_fwd: the tiling gate refuses Tq {Tq}, Tkv {Tkv}, D {D} "
                              "(Tq % 16, Tkv % 128 and D % 64 must be 0)")
-        return _launch(q, k, v, causal, sm_scale, kv_offset)
-    if not tiles_ok:
+    elif not tiles_ok:
         return dot_product_attention(q, k, v, causal=causal, scale=sm_scale,
                                      kv_offset=kv_offset)
+    if _needs_grad(q, k, v):
+        return _FlashFn.apply(q, k, v, causal, sm_scale, kv_offset)
+    if q.is_cuda:
+        return _launch(q, k, v, causal, sm_scale, kv_offset)
     return flash_attention_plain(q, k, v, causal=causal, scale=sm_scale, kv_offset=kv_offset)
 
 

@@ -1,0 +1,134 @@
+"""Flash attention backward: dq, dk, dv from q, k, v, o, the forward's row
+statistics l, m and the output cotangent do.
+
+Replaces the TPU kernels ``mila_tpu/kernels/flash_attention_bwd.py:
+_dkv_kernel`` and ``_dq_kernel`` (entry ``flash_attention_bwd``), which
+``kernels/flash_attention.py``'s autograd Function calls in its backward
+(JAX's ``_fa_bwd``). The math, per (query i, key j) pair and head:
+
+    p_ij  = exp(s_ij * scale - m_i) / l_i      (l == 0 taken as 1)
+    dv_j  = sum_i bf16(p_ij) do_i
+    ds_ij = p_ij * (do_i . v_j - D_i) * scale,  D_i = sum_d do_id o_id (f32)
+    dq_i  = sum_j bf16(ds_ij) k_j,  dk_j = sum_i bf16(ds_ij) q_i
+
+with the causal mask under ``kv_offset`` (query i sees keys j <= i +
+kv_offset) and GQA (query head h reads KV head h // G). dk and dv sum over
+the G query heads of a KV head: the JAX kernel writes f32 per query head
+and sums afterwards; the CUDA kernel sums inside its block, so the two
+differ in f32 order only.
+
+What bounds it on the H100: tensor-core operations (about 10 * D per
+visible pair and head) against q, k, v, do, dq, dk, dv moved once. The CUDA
+kernels (``csrc/flash_bwd.cu``) run a dK/dV pass per 64-key tile and KV head
+and a dQ pass per 64-row q tile and head, both on bf16 ``mma.sync`` with f32
+accumulators; D is computed here with PyTorch, as JAX computes it outside
+its kernels.
+
+The entry keeps the JAX entry's head-major layout (q, o, do [B, NH, Tq,
+D], k, v [B, NKV, Tkv, D]), here as any views: the autograd Function passes
+transposed views of the model-layout tensors, which the launch reads
+without a copy. l and m are f32 [B, NH, Tq] (JAX's carry 128 padded lanes;
+the tests compare its column 0). The kernel takes bf16 and D 64 or 128; f32
+inputs and other head sizes raise on the card, and so does a causal call
+with a negative ``kv_offset`` (rows with no visible key), as the forward
+does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mila_tpu_torch.kernels import _build
+from mila_tpu_torch.ops.attention import causal_mask
+
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+_TILE = 64  # keys per tile in csrc/flash_bwd.cu
+
+
+def flash_attention_bwd_plain(q, k, v, o, l, m, do, *, causal: bool, sm_scale: float,
+                              kv_offset: int = 0):
+    """Plain version of :func:`flash_attention_bwd`, all pairs at once in f32
+    (the JAX kernels' tile math with one tile)."""
+    flash_attention_bwd_plain.calls += 1
+    B, NH, Tq, D = q.shape
+    NKV, Tkv = k.shape[1], k.shape[2]
+    G = NH // NKV
+    qg = q.float().reshape(B, NKV, G, Tq, D)
+    dog = do.float().reshape(B, NKV, G, Tq, D)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf) * sm_scale
+    if causal:
+        cm = causal_mask(Tq, Tkv, kv_offset, device=q.device)
+        s = torch.where(cm, s, MASK_VALUE)
+    l5, m5 = l.float().reshape(B, NKV, G, Tq, 1), m.float().reshape(B, NKV, G, Tq, 1)
+    p = torch.exp(s - m5) / torch.where(l5 == 0, 1.0, l5)
+    del s
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p.to(do.dtype).float(), dog)
+    di = (o.float() * do.float()).sum(-1).reshape(B, NKV, G, Tq, 1)
+    ds = p * (torch.einsum("bhgqd,bhkd->bhgqk", dog, vf) - di) * sm_scale
+    del p
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds.to(q.dtype).float(), qg)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds.to(k.dtype).float(), kf)
+    return dq.reshape(B, NH, Tq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+flash_attention_bwd_plain.calls = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("flash_bwd")
+    if not getattr(lib, "_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.flash_bwd.argtypes = [vp] * 10 + [ci] * 6 + [ctypes.c_float, ci, ci, vp]
+        lib.flash_bwd.restype = ci
+        lib._typed = True
+    return lib
+
+
+def _launch(q, k, v, o, l, m, do, causal: bool, sm_scale: float, kv_offset: int):
+    B, NH, Tq, D = q.shape
+    NKV, Tkv = k.shape[1], k.shape[2]
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v, do)):
+        raise NotImplementedError(f"flash_bwd takes bf16 q/k/v/do; got {q.dtype}, {k.dtype}, "
+                                  f"{v.dtype}, {do.dtype} (f32 inputs are not ported yet)")
+    if D not in (64, 128) or Tkv % _TILE or v.shape != k.shape or k.shape[0] != B:
+        raise ValueError(f"flash_bwd needs D in (64, 128) and Tkv % {_TILE} == 0 "
+                         f"(q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)})")
+    if causal and kv_offset < 0:
+        raise ValueError("flash_bwd: a negative kv_offset leaves rows with no key")
+
+    def model_layout(t):  # [B, H, T, D] view -> contiguous [B, T, H, D] (a view if it is one)
+        return t.transpose(1, 2).contiguous()
+
+    qm, km, vm, dom = (model_layout(t) for t in (q, k, v, do))
+    delta = (o.float() * do.float()).sum(-1).contiguous()  # [B, NH, Tq]
+    lc, mc = l.float().contiguous(), m.float().contiguous()
+    dq, dk, dv = torch.empty_like(qm), torch.empty_like(km), torch.empty_like(vm)
+    lib = _lib()
+    rc = lib.flash_bwd(*(_build.ptr(t) for t in (qm, km, vm, dom, mc, lc, delta, dq, dk, dv)),
+                       B, Tq, Tkv, NH, NKV, D, sm_scale, kv_offset, int(causal),
+                       _build.stream_of(q))
+    _build.check(lib, rc, "flash_bwd")
+    flash_attention_bwd.launches += 1
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        l: torch.Tensor, m: torch.Tensor, do: torch.Tensor, *, causal: bool,
+                        sm_scale: float, kv_offset: int = 0):
+    """(dq [B, NH, Tq, D] in q's dtype, dk, dv [B, NKV, Tkv, D] in k's and
+    v's) for head-major q, o, do [B, NH, Tq, D], k, v [B, NKV, Tkv, D] and
+    l, m f32 [B, NH, Tq]. CUDA tensors launch ``flash_bwd`` (one call, its
+    dK/dV and dQ kernels); CPU tensors take
+    :func:`flash_attention_bwd_plain`."""
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(f"num_heads {q.shape[1]} not divisible by num_kv_heads {k.shape[1]}")
+    if q.is_cuda:
+        return _launch(q, k, v, o, l, m, do, causal, sm_scale, kv_offset)
+    return flash_attention_bwd_plain(q, k, v, o, l, m, do, causal=causal, sm_scale=sm_scale,
+                                     kv_offset=kv_offset)
+
+
+flash_attention_bwd.launches = 0

@@ -1,0 +1,276 @@
+"""The trainer: a module, its parameters, an optimizer and the training step
+(port of ``mila_tpu/models/model.py``).
+
+JAX compiles one XLA program per step (value_and_grad of the loss, then
+``opt.step``). Here the step is eager: the parameter leaves are detached
+copies that require grad, the loss's ``torch.autograd.grad`` runs the ops'
+``torch.autograd.Function`` backwards (the flash, softmax-CE kernels on the
+card), and ``AdamW.step`` updates every leaf through the fused kernel.
+With ``grad_accum_steps`` > 1 the batch splits into microbatches whose f32
+gradients are summed and averaged before the one update, as JAX's scan
+does.
+
+Not ported yet (ROADMAP item A.11, ``data/prefetch.py`` and
+``serialization/``): ``prefetch_depth`` > 0 and the checkpoint methods
+raise ``NotImplementedError``. The port's ``ModelConfig`` therefore
+defaults ``prefetch_depth`` to 0 where JAX's defaults it to 2 (a
+synchronous loop; the batches are the same).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from mila_tpu_torch.data.loader import ArrayReader, DatasetReader
+from mila_tpu_torch.device import DeviceLike, resolve_device
+from mila_tpu_torch.nn.module import Module
+from mila_tpu_torch.optim.adamw import AdamW
+from mila_tpu_torch.utils.config import BaseConfig, ConfigError
+from mila_tpu_torch.utils.rng import GeneratorLike, generator
+from mila_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+log = logging.getLogger("mila_tpu_torch")
+
+_CHECKPOINT_GAP = ("checkpoints are not ported yet (ROADMAP item A.11: serialization/ and "
+                   "data/prefetch.py)")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig(BaseConfig):
+    """Training-loop config (the JAX ModelConfig's fields)."""
+
+    epochs: int = 10
+    checkpoint_dir: str = ""
+    checkpoint_frequency: int = 0  # epochs; 0 = off
+    early_stopping_patience: int = 0  # 0 = off
+    validation_split: float = 0.0
+    verbose: bool = True
+    grad_accum_steps: int = 1
+    prefetch_depth: int = 0  # > 0 is not ported (ROADMAP A.11)
+
+    def validate(self):
+        if self.epochs <= 0:
+            raise ConfigError("epochs must be positive")
+        if not 0.0 <= self.validation_split < 1.0:
+            raise ConfigError("validation_split must be in [0,1)")
+        if self.grad_accum_steps < 1:
+            raise ConfigError("grad_accum_steps must be >= 1")
+
+
+@dataclasses.dataclass
+class TrainingHistory:
+    """Per-epoch record."""
+
+    train_losses: list = dataclasses.field(default_factory=list)
+    val_losses: list = dataclasses.field(default_factory=list)
+    best_val_loss: float = float("inf")
+    best_epoch: int = -1
+    epochs_without_improvement: int = 0
+    samples_per_sec: list = dataclasses.field(default_factory=list)
+
+    def record(self, train_loss: float, val_loss: Optional[float], sps: float) -> None:
+        self.train_losses.append(float(train_loss))
+        if val_loss is not None:
+            self.val_losses.append(float(val_loss))
+            if val_loss < self.best_val_loss:
+                self.best_val_loss = float(val_loss)
+                self.best_epoch = len(self.train_losses) - 1
+                self.epochs_without_improvement = 0
+            else:
+                self.epochs_without_improvement += 1
+        self.samples_per_sec.append(float(sps))
+
+
+class Callback:
+    """Training-loop hooks; override any subset."""
+
+    def on_train_begin(self, model: "Model") -> None: ...
+
+    def on_epoch_begin(self, model: "Model", epoch: int) -> None: ...
+
+    def on_epoch_end(self, model: "Model", epoch: int, train_loss: float,
+                     val_loss: Optional[float]) -> None: ...
+
+    def on_train_end(self, model: "Model") -> None: ...
+
+
+def split_validation(reader: DatasetReader, fraction: float):
+    """Split an ArrayReader into (train, val) readers, JAX's permutation."""
+    if not isinstance(reader, ArrayReader):
+        raise TypeError("validation_split requires an ArrayReader; pass val_reader explicitly")
+    n = len(reader)
+    n_val = max(int(n * fraction), 1)
+    perm = np.random.default_rng(reader.seed).permutation(n)
+    tr_idx, va_idx = perm[n_val:], perm[:n_val]
+    train = ArrayReader(reader._inputs[tr_idx], reader._targets[tr_idx], reader.batch_size,
+                        shuffle=reader.shuffle, seed=reader.seed)
+    val = ArrayReader(reader._inputs[va_idx], reader._targets[va_idx], reader.batch_size,
+                      shuffle=False, drop_last=False)
+    return train, val
+
+
+class Model:
+    """Owns a module, its params, an optimizer and the training step.
+
+    ``loss_fn(module, params, inputs, targets)`` defaults to the mean
+    softmax cross-entropy of the module's logits. ``device`` defaults to the
+    GPU. ``sr_rng``, when set, is the generator of AdamW's
+    stochastic-rounding noise (JAX's trainer passes no key, so AdamW takes
+    its ``key(0)``; here None gives AdamW's seed-0 generator likewise).
+    """
+
+    def __init__(self, module: Module, optimizer: Optional[AdamW] = None,
+                 config: Optional[ModelConfig] = None, loss_fn: Optional[Callable] = None,
+                 device: DeviceLike = None):
+        self.module = module
+        self.optimizer = optimizer or AdamW()
+        self.config = config or ModelConfig()
+        self.config.validate()
+        self.device = resolve_device(device)
+        self._loss_fn = loss_fn or self._default_loss
+        self.params: Any = None
+        self.opt_state: Any = None
+        self.history = TrainingHistory()
+        self.sr_rng: Optional[torch.Generator] = None
+        self._train_step = None
+        self._eval_step = None
+
+    @staticmethod
+    def _default_loss(module: Module, params, inputs, targets) -> torch.Tensor:
+        from mila_tpu_torch.ops import softmax_cross_entropy
+
+        logits = module.apply(params, inputs, training=True)
+        return softmax_cross_entropy(logits, targets).mean()
+
+    # --- lifecycle ---
+
+    def build(self, seed: GeneratorLike, input_shape) -> None:
+        """Allocate params from ``seed`` (an int or a ``torch.Generator``;
+        draws on the generator's device, the CPU for an int) and set up the
+        steps."""
+        self.params = self.module.init(generator(seed), tuple(input_shape), device=self.device)
+        self.opt_state = self.optimizer.init(self.params)
+        self._compile()
+
+    def _value_and_grad(self, params, inputs, targets):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        with torch.enable_grad():
+            loss = self._loss_fn(self.module, tree_unflatten(params, leaves), inputs, targets)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        return loss.detach(), tree_unflatten(params, grads)
+
+    def _compile(self) -> None:
+        opt, accum = self.optimizer, self.config.grad_accum_steps
+
+        def train_step(params, opt_state, inputs, targets):
+            if accum == 1:
+                loss, grads = self._value_and_grad(params, inputs, targets)
+            else:
+                mb = inputs.shape[0] // accum
+                grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                       device=p.device), params)
+                loss = 0.0
+                for i in range(accum):
+                    sl = slice(i * mb, (i + 1) * mb)
+                    l, g = self._value_and_grad(params, inputs[sl], targets[sl])
+                    grads = tree_map(torch.add, grads, g)
+                    loss = loss + l
+                grads = tree_map(lambda g: g / accum, grads)
+                loss = loss / accum
+            params, opt_state = opt.step(opt_state, params, grads, rng=self.sr_rng)
+            return params, opt_state, loss
+
+        @torch.no_grad()
+        def eval_step(params, inputs, targets):
+            return self._loss_fn(self.module, params, inputs, targets)
+
+        self._train_step = train_step
+        self._eval_step = eval_step
+
+    def parameter_count(self) -> int:
+        return self.module.parameter_count(self.params)
+
+    def _to_device(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a)).to(self.device)
+
+    # --- training ---
+
+    def train(self, reader: DatasetReader, val_reader: Optional[DatasetReader] = None,
+              step_logger=None, callbacks: Optional[list] = None) -> TrainingHistory:
+        if self.params is None:
+            raise RuntimeError("call build() before train()")
+        cfg = self.config
+        if cfg.prefetch_depth > 0:
+            raise NotImplementedError("prefetch_depth > 0: the batch prefetcher is not ported "
+                                      "yet (ROADMAP item A.11, data/prefetch.py)")
+        callbacks = callbacks or []
+        if val_reader is None and cfg.validation_split > 0:
+            reader, val_reader = split_validation(reader, cfg.validation_split)
+        for cb in callbacks:
+            cb.on_train_begin(self)
+        for epoch in range(cfg.epochs):
+            for cb in callbacks:
+                cb.on_epoch_begin(self, epoch)
+            t0 = time.monotonic()
+            reader.reset(epoch)
+            losses, n_seen = [], 0
+            for inputs, targets in reader:
+                self.params, self.opt_state, loss = self._train_step(
+                    self.params, self.opt_state, self._to_device(inputs),
+                    self._to_device(targets))
+                losses.append(loss)
+                n_seen += len(inputs)
+            train_loss = float(torch.stack(losses).mean()) if losses else 0.0
+            dt = time.monotonic() - t0
+            val_loss = self.evaluate(val_reader) if val_reader is not None else None
+            self.history.record(train_loss, val_loss, n_seen / max(dt, 1e-9))
+            for cb in callbacks:
+                cb.on_epoch_end(self, epoch, train_loss, val_loss)
+            if step_logger is not None:
+                step_logger.log_step(epoch, loss=train_loss,
+                                     val_loss=val_loss if val_loss is not None else "")
+            if cfg.verbose:
+                log.info("epoch %d/%d: train_loss=%.4f%s (%.0f samples/s)", epoch + 1, cfg.epochs,
+                         train_loss, f" val_loss={val_loss:.4f}" if val_loss is not None else "",
+                         n_seen / max(dt, 1e-9))
+            if (cfg.checkpoint_frequency > 0 and cfg.checkpoint_dir
+                    and (epoch + 1) % cfg.checkpoint_frequency == 0):
+                self.save_checkpoint(epoch=epoch)
+            if (cfg.early_stopping_patience > 0
+                    and self.history.epochs_without_improvement >= cfg.early_stopping_patience):
+                log.info("early stopping at epoch %d", epoch + 1)
+                break
+        for cb in callbacks:
+            cb.on_train_end(self)
+        return self.history
+
+    def evaluate(self, reader: DatasetReader) -> float:
+        losses = [self._eval_step(self.params, self._to_device(x), self._to_device(y))
+                  for x, y in reader]
+        return float(torch.stack(losses).mean()) if losses else 0.0
+
+    @torch.no_grad()
+    def predict(self, inputs) -> torch.Tensor:
+        return self.module.apply(self.params, self._to_device(inputs), training=False)
+
+    # --- checkpointing (not ported yet) ---
+
+    def save_checkpoint(self, path=None, epoch: int = 0):
+        raise NotImplementedError(_CHECKPOINT_GAP)
+
+    def load_checkpoint(self, path) -> None:
+        raise NotImplementedError(_CHECKPOINT_GAP)
+
+    def resume_training(self, reader: DatasetReader,
+                        val_reader: Optional[DatasetReader] = None) -> TrainingHistory:
+        raise NotImplementedError(_CHECKPOINT_GAP)
+
+    def export(self, path) -> None:
+        raise NotImplementedError(_CHECKPOINT_GAP)

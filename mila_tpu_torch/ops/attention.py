@@ -7,7 +7,8 @@ through: ``resolve_attention_impl`` sends a CUDA call of at least
 and everything else, CPU tensors always, to ``dot_product_attention``, a
 plain product outside any kernel (the
 backend the JAX package names ``"xla"``; the port keeps the name so that
-configs carry over). ``decode_attention`` is the one-query attention over
+configs carry over). ``mha_qkv`` is the fused-QKV
+convention of the GPT-2 block. ``decode_attention`` is the one-query attention over
 the contiguous cache, the plain version of the dense decode kernel
 (``kernels/dense_attention.py``). Scores, softmax and the
 probability-value product run in f32; probabilities are rounded to v's
@@ -91,6 +92,23 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.float(), v.float())
     return out.reshape(B, Tq, NH, HS).to(q.dtype)
+
+
+def mha_qkv(qkv: torch.Tensor, num_heads: int, *, causal: bool = True,
+            scale: Optional[float] = None) -> torch.Tensor:
+    """Causal MHA from fused QKV [B, T, 3C] (Q|K|V, C = num_heads * head
+    size) -> [B, T, C], through :func:`dot_product_attention` (the JAX
+    package's ``mha_qkv``; differentiable by PyTorch's autograd, as JAX's is
+    by its own)."""
+    B, T, C3 = qkv.shape
+    if C3 % 3 != 0:
+        raise ValueError(f"fused QKV last dim {C3} not divisible by 3")
+    C = C3 // 3
+    if C % num_heads != 0:
+        raise ValueError(f"embedding dim {C} not divisible by num_heads {num_heads}")
+    HS = C // num_heads
+    q, k, v = (t.reshape(B, T, num_heads, HS) for t in qkv.split(C, dim=-1))
+    return dot_product_attention(q, k, v, causal=causal, scale=scale).reshape(B, T, C)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

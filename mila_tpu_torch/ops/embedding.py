@@ -1,0 +1,42 @@
+"""Token + positional embedding (port of ``mila_tpu/ops/embedding.py``) with
+JAX's manual VJP: no gradient for the integer tokens; dwte is the
+segment sum of the f32 cotangent rows by token (``index_add_``), dwpe the
+sum over the batch of the first T rows, both cast to the cotangent's
+dtype."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+class _EncoderFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tokens, wte, wpe):
+        x = wte[tokens]
+        if wpe is not None:
+            x = x + wpe[: tokens.shape[-1]][None]
+        ctx.save_for_backward(tokens)
+        ctx.shapes = (wte.shape, None if wpe is None else wpe.shape)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        (V, C), wpe_shape = ctx.shapes
+        g32 = g.float().reshape(-1, C)
+        dwte = torch.zeros(V, C, device=g.device, dtype=torch.float32)
+        dwte = dwte.index_add_(0, tokens.reshape(-1).long(), g32).to(g.dtype)
+        if wpe_shape is None:
+            return None, dwte, None
+        T = tokens.shape[-1]
+        dwpe = torch.zeros(wpe_shape, device=g.device, dtype=torch.float32)
+        dwpe[:T] = g.float().reshape(-1, T, C).sum(dim=0)
+        return None, dwte, dwpe.to(g.dtype)
+
+
+def encoder(tokens: torch.Tensor, wte: torch.Tensor,
+            wpe: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens [B, T] int; wte [V, C]; wpe [maxT, C] or None -> [B, T, C]."""
+    return _EncoderFn.apply(tokens, wte, wpe)

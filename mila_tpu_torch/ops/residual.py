@@ -1,9 +1,20 @@
-"""Residual add (port of ``mila_tpu/ops/residual.py``)."""
+"""Residual add (port of ``mila_tpu/ops/residual.py``) with JAX's manual
+VJP: the cotangent flows unchanged to both inputs."""
 
 from __future__ import annotations
 
 import torch
 
 
+class _ResidualFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, skip):
+        return x + skip
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, g
+
+
 def residual(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-    return x + skip
+    return _ResidualFn.apply(x, skip)

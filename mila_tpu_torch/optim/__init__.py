@@ -1,0 +1,13 @@
+"""Optimizers (port of ``mila_tpu/optim``; SGD is not ported yet)."""
+
+from mila_tpu_torch.optim.adamw import AdamW, AdamWConfig, AdamWState, global_norm, zero_grads
+from mila_tpu_torch.optim.schedules import (
+    Schedule,
+    constant,
+    step_decay,
+    warmup_cosine,
+    warmup_linear,
+)
+
+__all__ = ["AdamW", "AdamWConfig", "AdamWState", "global_norm", "zero_grads", "Schedule",
+           "constant", "step_decay", "warmup_cosine", "warmup_linear"]

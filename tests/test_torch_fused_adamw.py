@@ -1,0 +1,224 @@
+"""Fused AdamW and the port's ``AdamW`` against the JAX package.
+
+``fused_adamw_update`` on CPU tensors runs its plain version: JAX's
+per-leaf update in the same f32 operations. Against JAX's
+``fused_adamw_update`` (its Pallas kernel in interpret mode) and JAX's
+``AdamW.step``, on the same seeded numpy inputs.
+
+Tolerances: every value is a few f32 operations from the same inputs, in
+the same order; XLA contracts ``b1 * m + (1 - b1) * g`` and the like into
+FMAs, which round once where PyTorch rounds twice, so a result differs by
+up to an ulp of its largest term, not of itself (m and v cancel to small
+values): rtol 3e-7 plus 2 ulps of the output's largest value per step
+(the three-step tree test: 8). With
+stochastic rounding fed JAX's own noise bits the bf16 params are compared
+bit for bit (a master one ulp off flips its param only if the noise's carry
+lands exactly there). Params rounded from f32 masters by different noise
+(the tree-level step, whose noise each side draws itself) are held to one
+bf16 step of the master.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mila_tpu.kernels.fused_adamw import fused_adamw_update as j_fused
+from mila_tpu.optim import AdamW as JAdamW
+from mila_tpu.optim import AdamWConfig as JConfig
+from mila_tpu.optim import schedules as jsched
+from mila_tpu_torch.bridge import adamw_state_from_jax, params_from_jax
+from mila_tpu_torch.kernels import fused_adamw as tfw
+from mila_tpu_torch.optim import AdamW, AdamWConfig, global_norm
+from mila_tpu_torch.optim import schedules as tsched
+from mila_tpu_torch.utils.tree import tree_leaves
+
+def _allclose(got, want, ulps=2):
+    want = np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=3e-7,
+                               atol=ulps * 2 ** -23 * float(np.abs(want).max()))
+
+
+def _np(seed, *shape, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+def _f(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _jax_noise(n, seed):
+    """The bits JAX's fused_adamw_update draws for a flat leaf of n elements
+    (rows of 128 lanes, padded to 1024), in the leaf's order, as int32."""
+    padded = -(-n // 1024) * 1024
+    bits = jax.random.bits(jax.random.fold_in(jax.random.key(0), jnp.asarray(seed, jnp.int32)),
+                           (padded // 128, 128), jnp.uint32)
+    return torch.from_numpy(np.asarray(bits).reshape(-1)[:n].view(np.int32).copy())
+
+
+@pytest.mark.parametrize("n,step,wd", [(1000, 1, 0.01), (4096, 5, 0.1), (3, 1000, 0.0)])
+def test_plain_matches_jax_kernel_f32(n, step, wd):
+    p, g = _np(n, n), _np(n + 1, n, scale=0.1)
+    m, v = _np(n + 2, n, scale=0.01), np.abs(_np(n + 3, n, scale=0.01))
+    want = j_fused(jnp.asarray(p), jnp.asarray(g), jnp.asarray(m), jnp.asarray(v), None,
+                   step=jnp.int32(step), lr=3e-4, weight_decay=wd, interpret=True)
+    calls = tfw.fused_adamw_update_plain.calls
+    got = tfw.fused_adamw_update(*(torch.from_numpy(a) for a in (p, g, m, v)), None, step=step,
+                                 lr=3e-4, weight_decay=wd)
+    assert tfw.fused_adamw_update_plain.calls == calls + 1
+    assert got[3] is None and want[3] is None
+    for a, b in zip(got[:3], want[:3]):
+        _allclose(a.numpy(), _f(b))
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_plain_matches_jax_kernel_stochastic_rounding(seed):
+    n = 5000
+    w, g = _np(seed, n), _np(seed + 1, n, scale=0.1)
+    m, v = _np(seed + 2, n, scale=0.01), np.abs(_np(seed + 3, n, scale=0.01))
+    p = jnp.asarray(w).astype(jnp.bfloat16)
+    gb = jnp.asarray(g).astype(jnp.bfloat16)
+    want = j_fused(p, gb, jnp.asarray(m), jnp.asarray(v), jnp.asarray(w), step=jnp.int32(3),
+                   lr=1e-3, weight_decay=0.1, seed=seed, interpret=True)
+    got = tfw.fused_adamw_update(
+        torch.from_numpy(np.array(p.astype(jnp.float32))).bfloat16(),
+        torch.from_numpy(np.array(gb.astype(jnp.float32))).bfloat16(),
+        torch.from_numpy(m), torch.from_numpy(v), torch.from_numpy(w), step=3, lr=1e-3,
+        weight_decay=0.1, noise=_jax_noise(n, seed))
+    for a, b in zip(got[1:], want[1:]):
+        _allclose(a.numpy(), _f(b))
+    assert got[0].dtype == torch.bfloat16
+    np.testing.assert_array_equal(got[0].float().numpy(), _f(want[0]))
+    # Stochastic, not nearest: some params round away from the nearest value.
+    assert (got[0] != got[3].bfloat16()).any()
+
+
+def test_plain_rounds_bf16_to_nearest_without_a_master():
+    n = 2048
+    p, g = jnp.asarray(_np(1, n)).astype(jnp.bfloat16), jnp.asarray(_np(2, n)).astype(
+        jnp.bfloat16)
+    z = jnp.zeros((n,), jnp.float32)
+    want = j_fused(p, g, z, z, None, step=jnp.int32(1), lr=1e-2, interpret=True)
+    got = tfw.fused_adamw_update(torch.from_numpy(_f(p).copy()).bfloat16(),
+                                 torch.from_numpy(_f(g).copy()).bfloat16(), torch.zeros(n),
+                                 torch.zeros(n), None, step=1, lr=1e-2)
+    np.testing.assert_array_equal(got[0].float().numpy(), _f(want[0]))
+    with pytest.raises(ValueError, match="noise"):
+        tfw.fused_adamw_update(got[0], got[0], got[1], got[2], got[1], step=1, lr=1e-2)
+
+
+def _tree(dtype):
+    """A GPT-2-like tree: bf16 or f32 weights, f32 LayerNorm params."""
+    return {"encoder": {"wte": _np(30, 64, 16, scale=0.02)},
+            "h0": {"ln1": {"gamma": 1 + _np(31, 16, scale=0.1), "beta": _np(32, 16)},
+                   "qkv": {"weight": _np(33, 16, 48, scale=0.2), "bias": _np(34, 48)}},
+            "_dtype": dtype}
+
+
+def _split(tree):
+    dt = tree.pop("_dtype")
+    is_w = {("encoder", "wte"), ("h0", "qkv", "weight"), ("h0", "qkv", "bias")}
+
+    def conv(node, path=()):
+        if isinstance(node, dict):
+            return {k: conv(v, path + (k,)) for k, v in node.items()}
+        return jnp.asarray(node).astype(dt if path in is_w else jnp.float32)
+
+    return conv(tree)
+
+
+def _to_np(tree):
+    return jax.tree_util.tree_map(lambda a: np.asarray(a.astype(jnp.float32)) if a.dtype ==
+                                  jnp.bfloat16 else np.asarray(a), tree)
+
+
+def _bridge(tree):
+    """JAX tree -> port tree with each leaf in its JAX dtype."""
+    out = params_from_jax(_to_np(tree), device="cpu")
+    return jax.tree_util.tree_map(lambda t, a: t.to(torch.bfloat16) if a.dtype == jnp.bfloat16
+                                  else t, out, tree)
+
+
+@pytest.mark.parametrize("dtype,sr", [(jnp.float32, False), (jnp.bfloat16, True),
+                                      (jnp.bfloat16, False)])
+def test_adamw_step_over_a_tree_matches_jax(dtype, sr):
+    # Three steps with a global-norm clip (active: grads of norm ~10) and a
+    # warmup-cosine schedule, from one state bridged from JAX's init.
+    cfg = dict(learning_rate=1e-3, weight_decay=0.1, grad_clip_norm=1.0, stochastic_rounding=sr)
+    jopt, topt = JAdamW(JConfig(**cfg)), AdamW(AdamWConfig(**cfg))
+    jp = _split(_tree(dtype))
+    jstate = jopt.init(jp)
+    tp = _bridge(jp)
+    tstate = adamw_state_from_jax(jax.tree_util.tree_map(np.asarray, jstate), device="cpu")
+    assert tstate.step == 0 and (tstate.master is None) == (not sr)
+    js, ts = jsched.warmup_cosine(1e-3, 2, 10), tsched.warmup_cosine(1e-3, 2, 10)
+    gen = torch.Generator().manual_seed(0)
+    for step in range(3):
+        jg = jax.tree_util.tree_map(
+            lambda a, s=step: (jnp.asarray(_np(40 + s, *a.shape)) * 3.0).astype(a.dtype), jp)
+        tg = _bridge(jg)
+        np.testing.assert_allclose(float(global_norm(tg)), float(
+            jnp.sqrt(sum(jnp.sum(jnp.square(g.astype(jnp.float32)))
+                         for g in jax.tree_util.tree_leaves(jg)))), rtol=1e-6)
+        jp, jstate = jopt.step(jstate, jp, jg, lr=js(step))
+        tp, tstate = topt.step(tstate, tp, tg, lr=ts(step), rng=gen)
+    assert tstate.step == int(jstate.step) == 3
+    # JAX's and the port's trees keep their own key orders; compare by path.
+    # With SR the masters are compared (each side drew its own noise; the
+    # update reads the master, not the rounded param).
+    for tree_t, tree_j in ((tstate.m, jstate.m), (tstate.v, jstate.v)) + (
+            ((tstate.master, jstate.master),) if sr else ((tp, jp),)):
+        flat_j = dict(jax.tree_util.tree_flatten_with_path(tree_j)[0])
+        for path, leaf in jax.tree_util.tree_flatten_with_path(tree_t)[0]:
+            _allclose(leaf.float().numpy(), _f(flat_j[path]), ulps=8)
+
+
+def test_adamw_sr_params_are_a_bf16_neighbour_of_the_master():
+    opt = AdamW(AdamWConfig(stochastic_rounding=True, learning_rate=1e-2))
+    p = {"w": torch.from_numpy(_np(50, 4096)).bfloat16(),
+         "ln": torch.ones(8)}
+    st = opt.init(p)
+    g = {"w": torch.from_numpy(_np(51, 4096)).bfloat16(), "ln": torch.ones(8)}
+    p2, st2 = opt.step(st, p, g, rng=torch.Generator().manual_seed(3))
+    w = st2.master["w"]
+    lo = w.bfloat16().float()
+    step = (lo.abs() * 2 ** -7).clamp_min(1e-38)
+    assert ((p2["w"].float() - w).abs() <= step).all()
+    assert torch.equal(p2["ln"], st2.master["ln"]) and p2["ln"].dtype == torch.float32
+    # The same generator state draws the same noise; none draws seed 0's.
+    p3, _ = opt.step(st, p, g, rng=torch.Generator().manual_seed(3))
+    assert torch.equal(p2["w"], p3["w"])
+    p4, _ = opt.step(st, p, g)
+    p5, _ = opt.step(st, p, g, rng=torch.Generator().manual_seed(0))
+    assert torch.equal(p4["w"], p5["w"])
+
+
+def test_adamw_fp16_stochastic_rounding_on_the_cpu():
+    # JAX's fp16 route (a lower or upper neighbour, by the distance): the
+    # masters, m and v equal JAX's; the params lie within one fp16 step.
+    cfg = dict(stochastic_rounding=True, learning_rate=1e-2)
+    w = _np(60, 512)
+    jp = {"w": jnp.asarray(w).astype(jnp.float16)}
+    jg = {"w": jnp.asarray(_np(61, 512)).astype(jnp.float16)}
+    jopt, topt = JAdamW(JConfig(**cfg)), AdamW(AdamWConfig(**cfg))
+    js = jopt.init(jp)
+    jp2, js2 = jopt.step(js, jp, jg)
+    tp = {"w": torch.from_numpy(np.array(jp["w"]))}
+    ts = topt.init(tp)
+    tp2, ts2 = topt.step(ts, tp, {"w": torch.from_numpy(np.array(jg["w"]))},
+                         rng=torch.Generator().manual_seed(1))
+    _allclose(ts2.master["w"].numpy(), js2.master["w"])
+    _allclose(ts2.m["w"].numpy(), js2.m["w"])
+    assert tp2["w"].dtype == torch.float16
+    gap = np.abs(np.asarray(jp2["w"], np.float32) - ts2.master["w"].numpy())
+    assert (np.abs(tp2["w"].float().numpy() - ts2.master["w"].numpy()) <= 2 * gap + 1e-3).all()
+
+
+def test_zero_grads_and_leaf_order():
+    from mila_tpu_torch.optim import zero_grads
+
+    p = {"b": torch.ones(2), "a": {"x": torch.ones(3, dtype=torch.bfloat16)}}
+    z = zero_grads(p)
+    assert [t.dtype for t in tree_leaves(z)] == [torch.float32, torch.bfloat16]
+    assert all(float(t.abs().sum()) == 0 for t in tree_leaves(z))

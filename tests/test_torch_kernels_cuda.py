@@ -510,11 +510,19 @@ def test_flash_kernel(cuda, B, Tq, Tkv, NH, NKV, D, off):
 
 
 def test_flash_kernel_refuses_grad_and_f32(cuda):
+    # A call under grad no longer raises: it takes the launch with
+    # statistics and the backward kernel (row 16). f32 inputs still raise.
     from mila_tpu_torch.kernels import flash_attention as fa
+    from mila_tpu_torch.kernels import flash_attention_bwd as fb
 
     q, k, v = (_rand((1, 128, 4, 64), s) for s in (51, 52, 53))
-    with pytest.raises(NotImplementedError, match="row 16"):
-        fa.flash_attention(q.requires_grad_(), k, v)
+    before = (fa.flash_attention_forward.launches, fb.flash_attention_bwd.launches)
+    out = fa.flash_attention(q.requires_grad_(), k, v)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_forward.launches, fb.flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert q.grad is not None and torch.isfinite(q.grad.float()).all()
     with pytest.raises(NotImplementedError):
         fa.flash_attention(q.detach().float(), k.float(), v.float())
 
@@ -559,3 +567,162 @@ def test_paged_attention_int8_pages(cuda, B, NH, NKV, HD, ps, W, dtype):
     # The plain version dequantizes the pages to q's dtype first (the JAX CPU
     # path); the kernel folds the scales in f32: one bf16 step apart at most.
     _close(got, pa.paged_decode_attention_plain(q, kp, vp, t, ln, k_scale=ks, v_scale=vs))
+
+
+def _row_err(got, want, floor=1e-3):
+    """max over (.., row) of max |got - want| / max |want| in that row, the
+    row's scale floored at ``floor`` x the tensor's max |want|: a row whose
+    exact value is 0 (dq of query 0 under the causal mask, whose one key
+    gives ds = p (do.v - do.o) = 0) holds rounding noise on both sides."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    d = (got - want).abs().amax(-1)
+    scale = want.abs().amax(-1).clamp_min(floor * want.abs().max().item() + 1e-30)
+    return (d / scale).max().item()
+
+
+@pytest.mark.parametrize("B,Tq,Tkv,NH,NKV,D,off,causal", [
+    (2, 256, 256, 4, 4, 64, 0, True),
+    (1, 512, 512, 8, 2, 64, 0, True),  # G 4
+    (2, 256, 256, 4, 2, 128, 0, True),  # D 128
+    (1, 128, 512, 8, 2, 64, 384, True),  # kv_offset window
+    (2, 80, 256, 4, 1, 64, 176, True),  # a ragged last q tile
+    (1, 192, 256, 4, 2, 64, 0, False),  # not causal
+])
+def test_flash_bwd_kernel(cuda, B, Tq, Tkv, NH, NKV, D, off, causal):
+    # The statistics launch against the plain forward, then the backward
+    # kernel against its plain version on the same (q, k, v, o, l, m, do).
+    # Gate: each (b, t, head) row within 2e-2 of its own largest value (a
+    # row of dk/dv over few queries is far smaller than the first rows').
+    from mila_tpu_torch.kernels import flash_attention as fa
+    from mila_tpu_torch.kernels import flash_attention_bwd as fb
+
+    q, k, v = _rand((B, Tq, NH, D), 60), _rand((B, Tkv, NKV, D), 61), _rand((B, Tkv, NKV, D), 62)
+    do = _rand((B, Tq, NH, D), 63)
+    sm = D ** -0.5
+    before = fa.flash_attention_forward.launches
+    o, l, m = fa.flash_attention_forward(q, k, v, causal=causal, sm_scale=sm, kv_offset=off)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_forward.launches == before + 1
+    o_ref, l_ref, m_ref = fa.flash_attention_plain(q, k, v, causal=causal, scale=sm,
+                                                   kv_offset=off, save_stats=True)
+    assert _row_err(o, o_ref) <= 2e-2
+    torch.testing.assert_close(m, m_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, l_ref, rtol=1e-4, atol=1e-5)
+    hm = [t.transpose(1, 2) for t in (q, k, v, o, do)]
+    before = fb.flash_attention_bwd.launches
+    got = fb.flash_attention_bwd(*hm[:4], l, m, hm[4], causal=causal, sm_scale=sm, kv_offset=off)
+    torch.cuda.synchronize()
+    assert fb.flash_attention_bwd.launches == before + 1
+    want = fb.flash_attention_bwd_plain(*hm[:4], l, m, hm[4], causal=causal, sm_scale=sm,
+                                        kv_offset=off)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        err = _row_err(a.transpose(1, 2), b.transpose(1, 2))
+        assert err <= 2e-2, f"{name}: worst row's relative err {err}"
+
+
+def test_flash_autograd_matches_plain_autograd(cuda):
+    # torch.autograd.grad through the kernels against autograd through the
+    # plain forward (PyTorch differentiating its einsums), GPT-2's head size.
+    from mila_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v = (_rand((2, 256, 4, 64), s).requires_grad_() for s in (64, 65, 66))
+    w = _rand((2, 256, 4, 64), 67)
+    got = torch.autograd.grad((fa.flash_attention(q, k, v).float() * w.float()).sum(), (q, k, v))
+    want = torch.autograd.grad(
+        (fa.flash_attention_plain(q, k, v).float() * w.float()).sum(), (q, k, v))
+    for a, b in zip(got, want):
+        assert _row_err(a, b) <= 2e-2
+
+
+@pytest.mark.parametrize("n,dtype,master,scale", [
+    (1 << 20, torch.bfloat16, True, 1.0),
+    (1000003, torch.bfloat16, True, 0.37),  # a ragged tail, a clipped gradient
+    (4099, torch.float32, True, 1.0),  # an f32 leaf with a master: p' = master'
+    (65537, torch.float32, False, 1.0),
+    (65536, torch.bfloat16, False, 1.0),  # round to nearest without a master
+])
+def test_fused_adamw_kernel(cuda, n, dtype, master, scale):
+    # Same operations in the same order, no FMA contraction: every output
+    # equal bit for bit to the plain version on the card, the rounded bf16
+    # param included, given the same noise.
+    from mila_tpu_torch.kernels import fused_adamw as fw
+
+    w = _rand((n,), 70, dtype=torch.float32)
+    p = w.to(dtype)
+    g = _rand((n,), 71, scale=0.1, dtype=dtype)
+    m = _rand((n,), 72, scale=0.01, dtype=torch.float32)
+    v = _rand((n,), 73, scale=0.01, dtype=torch.float32).square()
+    noise = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), device="cuda", dtype=torch.int32)
+    kw = dict(step=7, lr=3e-4, weight_decay=0.1, noise=noise, grad_scale=scale)
+    before = fw.fused_adamw_update.launches
+    got = fw.fused_adamw_update(p, g, m, v, w if master else None, **kw)
+    torch.cuda.synchronize()
+    assert fw.fused_adamw_update.launches == before + 1
+    want = fw.fused_adamw_update_plain(p, g, m, v, w if master else None, **kw)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+            continue
+        assert a.dtype == b.dtype
+        assert torch.equal(a.view(-1), b.view(-1)), (a - b).abs().max()
+
+
+def test_linear_weight_grad_sums_in_f32(cuda):
+    # dw = x^T g reduces over B*T = 8192 rows (GPT-2's train shape). Each
+    # element lies within one bf16 step of the f32 product's (plus 1e-5 of
+    # the largest, for f32 order): a split-K product that summed its
+    # partials in bf16 would miss by ~2^-9 |x| |g| sqrt(K).
+    from mila_tpu_torch.ops.linear import linear
+
+    x = _rand((8192, 768), 90).requires_grad_()
+    w = _rand((768, 2304), 91, scale=0.02).requires_grad_()
+    g = _rand((8192, 2304), 92)
+    flags = torch.backends.cuda.matmul
+    before = flags.allow_bf16_reduced_precision_reduction
+    (dw,) = torch.autograd.grad(linear(x, w), w, g)
+    assert flags.allow_bf16_reduced_precision_reduction == before
+    want = x.detach().float().t() @ g.float()
+    err = (dw.float() - want).abs()
+    assert (err <= 2 ** -7 * want.abs() + 1e-5 * want.abs().max()).all(), err.max()
+
+
+def test_fused_adamw_refuses_fp16(cuda):
+    from mila_tpu_torch.kernels import fused_adamw as fw
+
+    p = torch.zeros(64, device="cuda", dtype=torch.float16)
+    z = torch.zeros(64, device="cuda")
+    with pytest.raises(NotImplementedError, match="fp16"):
+        fw.fused_adamw_update(p, p, z, z, z, step=1, lr=1e-3)
+
+
+@pytest.mark.parametrize("M,V,dtype", [
+    (64, 50304, torch.bfloat16),
+    (37, 1000, torch.bfloat16),  # V % 8 != 0: the scalar path
+    (16, 4096, torch.float32),
+    (8, 1027, torch.float32),
+])
+def test_softmax_ce_kernel(cuda, M, V, dtype):
+    from mila_tpu_torch.kernels import softmax_ce as ce
+
+    x = _rand((M, V), 80, scale=3.0, dtype=dtype)
+    t = torch.from_numpy(np.random.default_rng(81).integers(0, V, M)).cuda()
+    t[::5] = -100
+    g = _rand((M,), 82, dtype=torch.float32)
+    before = (ce.fused_softmax_cross_entropy.launches, ce.fused_softmax_cross_entropy_bwd.launches)
+    xr = x.clone().requires_grad_()
+    loss = ce.fused_softmax_cross_entropy(xr, t)
+    (dx,) = torch.autograd.grad(loss, xr, g)
+    torch.cuda.synchronize()
+    assert (ce.fused_softmax_cross_entropy.launches,
+            ce.fused_softmax_cross_entropy_bwd.launches) == (before[0] + 1, before[1] + 1)
+    t32 = t.to(torch.int32)
+    torch.testing.assert_close(loss, ce.fused_softmax_cross_entropy_plain(x, t32),
+                               rtol=1e-5, atol=1e-4)
+    assert (loss[::5] == 0).all() and (dx[::5] == 0).all()
+    # Each dlogit within one bf16 step of its own size (floored at 1e-8 of
+    # the largest), so a wrong small probability fails too.
+    want = ce.fused_softmax_cross_entropy_bwd_plain(x, t32, g).float()
+    err = (dx.float() - want).abs()
+    assert (err <= 2 ** -7 * want.abs() + 1e-8 * want.abs().max()).all(), err.max()

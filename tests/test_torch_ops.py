@@ -91,7 +91,11 @@ def test_port_imports_no_jax():
             "mila_tpu_torch.kernels.dense_attention, mila_tpu_torch.kernels.layer_fused, "
             "mila_tpu_torch.kernels.layer_stream, mila_tpu_torch.inference.generator, "
             "mila_tpu_torch.kernels.decode_giga, mila_tpu_torch.kernels.layer_mega, "
-            "mila_tpu_torch.kernels.decode_mlp, mila_tpu_torch.inference.requant\n"
+            "mila_tpu_torch.kernels.decode_mlp, mila_tpu_torch.inference.requant, "
+            "mila_tpu_torch.kernels.flash_attention_bwd, mila_tpu_torch.kernels.fused_adamw, "
+            "mila_tpu_torch.kernels.softmax_ce, mila_tpu_torch.nn, mila_tpu_torch.optim, "
+            "mila_tpu_torch.models.gpt2, mila_tpu_torch.models.model, mila_tpu_torch.data, "
+            "mila_tpu_torch.tensor.init, mila_tpu_torch.utils.rng\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'mila_tpu.'))"
             " or m == 'mila_tpu']\n"
             "assert not bad, bad\n")
