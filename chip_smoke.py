@@ -12,7 +12,10 @@ exits non-zero without the final line):
            plain PyTorch version on the same inputs on the card: max abs
            error and tolerance, kernel / plain / library ms (CUDA events),
            and the least time the card could take (bound_ms); the int4
-           weight stream, flash attention and int8 pages included;
+           weight stream, flash attention and int8 pages included; the
+           prefill GEMM at every projection for 1024 rows and wgu for 4096
+           (with its host us per call), the paged attention over int8 pages
+           at B 8 and B 1 and over bf16 pages at B 8, up to 4096 tokens;
   crossover one layer's prefill attention at T 512-4096: the flash kernel
            against the plain product (FLASH_MIN_SEQ stays 2048);
   parity   Llama-3.2-1B widths at 2 layers (G = 4: the slot head order is
@@ -47,7 +50,9 @@ exits non-zero without the final line):
            64-1000), 32 new tokens each, max_batch 8, max_len 4224, buckets
            64-4096; tok/s, TTFT of long and short prompts, decode ms/step,
            prefill seconds per bucket, peak memory; one int4 paged decode
-           step timed eagerly and as a CUDA-graph replay;
+           step timed eagerly and as a CUDA-graph replay at short context,
+           and one at the run's own lengths split on CUDA events into the
+           16 paged attention calls and the rest;
   kernels train  the training kernels against their plain versions at the
            training path's shapes: flash forward with statistics and flash
            backward (GPT-2 B 8 T 1024, Llama-3.2-1B's GQA heads at T 2048, D
@@ -270,6 +275,10 @@ def to_cpu(tree):
 # kernels
 # ---------------------------------------------------------------------------
 
+def _sm_count() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
     from mila_tpu_torch.inference.kv_cache import make_paged_pools
     from mila_tpu_torch.inference.quantize import dequantize
@@ -290,8 +299,13 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
     layers = [params[f"h{i}"] for i in range(L)]
     bf16 = torch.bfloat16
 
-    def rand(*shape):
-        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, bf16)
+    # Rows added after a path's gates were set draw from their own stream, so
+    # the inputs of every earlier row (and of the phases after) stay as they were.
+    extra = np.random.default_rng(6)
+
+    def rand(*shape, gen=None):
+        return torch.from_numpy((gen or rng).standard_normal(shape).astype(np.float32)).to(
+            dev, bf16)
 
     rows = []
 
@@ -301,21 +315,30 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
 
     record = recorder(rows, bw, peak_ops)
 
-    # quant_linear at prefill: M = max_batch * largest bucket = 1024 rows.
-    M = 8 * 128
-    for name in ("wgu", "down"):
+    # quant_linear at prefill: M = max_batch * largest bucket = 1024 rows for
+    # every projection, and wgu at 4096 rows (serve long's 4096-token
+    # bucket). host_us_per_call: the wrapper's host time per call (checks,
+    # two TMA descriptors, the launch), enqueued back to back.
+    for name, M in (("wgu", 1024), ("down", 1024), ("wqkv", 1024), ("wo", 1024),
+                    ("wgu", 4096)):
         K, N = LAYER_SHAPES[name]
-        x = rand(M, K)
+        x = rand(M, K, gen=None if M == 1024 and name in ("wgu", "down") else extra)
         ws = [blk[name]["weight"] for blk in layers]
         w_bf = [dequantize(w, bf16) for w in ws[:copies(K * N * 2)]]
         got = qm.quant_linear(x, ws[0])
         want = qm.quant_linear_plain(x, ws[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for w in ws:
+            qm.quant_linear(x, w)
+        host_us = (time.perf_counter() - t0) / len(ws) * 1e6
+        torch.cuda.synchronize()
         record("quant_linear", f"{name} M={M}", *max_err(got, want),
                [lambda w=w: qm.quant_linear(x, w) for w in ws],
                lambda: qm.quant_linear_plain(x, ws[0]),
                [lambda w=w: torch.matmul(x, w) for w in w_bf],
-               M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * K * N)
-        del w_bf
+               M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * K * N, host_us_per_call=host_us)
+        del w_bf, got, want
 
     # decode entry points at M = 8 rows (max_batch decode step).
     M = 8
@@ -643,48 +666,65 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
                max_row_rel_err=row_err)
         del q, k, v, got, want, qs, ks, vs, library
 
-    # Paged decode attention over int8 pages: B 8, lengths up to 4096 in
-    # 128-token pages (one row at 4096), cycling over distinct pools.
-    B, ps, W = 8, 128, 32
-    P = B * W + 1
-    n_pools = copies(2 * P * NKV * HD * ps)
-    pools = make_paged_pools(n_pools, NKV, HD, P, ps, torch.int8, dev)
-    for name in ("k", "v"):
-        pools[name].copy_(torch.randint(-127, 128, pools[name].shape, device=dev,
-                                        dtype=torch.int8))
-        pools[name + "_scale"].uniform_(0.002, 0.02)
-    lens_np = rng.integers(1, W * ps + 1, B).astype(np.int32)
-    lens_np[0] = W * ps
-    table_np = (1 + rng.permutation(P - 1)[: B * W]).reshape(B, W).astype(np.int32)
-    lens, table = torch.from_numpy(lens_np).to(dev), torch.from_numpy(table_np).to(dev)
-    q = rand(B, 1, NH, HD)
-
-    def layer(i):
-        return (pools["k"][i], pools["v"][i],
-                {"k_scale": pools["k_scale"][i], "v_scale": pools["v_scale"][i]})
-
-    kp0, vp0, sc0 = layer(0)
-    got = pa.paged_decode_attention(q, kp0, vp0, table, lens, **sc0)
-    want = pa.paged_decode_attention_plain(q, kp0, vp0, table, lens, **sc0)
+    # Paged decode attention up to 4096 tokens in 128-token pages, cycling
+    # over distinct pools: int8 pages at B 8 (one row at 4096) and at B 1
+    # (one request of 4096 tokens), bf16 pages at B 8. Library: SDPA over
+    # the same K/V (int8 dequantized) gathered to contiguous bf16 first.
+    ps, W = 128, 32
     T = W * ps
+    for B, dtype in ((8, torch.int8), (1, torch.int8), (8, bf16)):
+        gen = rng if (B, dtype) == (8, torch.int8) else extra
+        P = B * W + 1
+        quant = dtype == torch.int8
+        n_pools = copies(2 * P * NKV * HD * ps * (1 if quant else 2))
+        pools = make_paged_pools(n_pools, NKV, HD, P, ps, dtype, dev)
+        tgen = None if gen is rng else torch.Generator(device=dev).manual_seed(B)
+        for name in ("k", "v"):
+            if quant:
+                pools[name].copy_(torch.randint(-127, 128, pools[name].shape, device=dev,
+                                                dtype=torch.int8, generator=tgen))
+                pools[name + "_scale"].uniform_(0.002, 0.02, generator=tgen)
+            else:
+                pools[name].normal_(generator=tgen)
+        lens_np = gen.integers(1, W * ps + 1, B).astype(np.int32)
+        lens_np[0] = W * ps
+        table_np = (1 + gen.permutation(P - 1)[: B * W]).reshape(B, W).astype(np.int32)
+        lens, table = torch.from_numpy(lens_np).to(dev), torch.from_numpy(table_np).to(dev)
+        q = rand(B, 1, NH, HD, gen=gen)
 
-    def dequant_gathered(pool, scale):
-        deq = (pool.float() * scale[:, :, None, :]).to(bf16)  # [P, NKV, HD, ps]
-        return deq[table.long()].permute(0, 2, 1, 4, 3).reshape(B, NKV, T, HD).contiguous()
+        def layer(i, pools=pools, quant=quant):
+            return (pools["k"][i], pools["v"][i],
+                    {"k_scale": pools["k_scale"][i], "v_scale": pools["v_scale"][i]}
+                    if quant else {})
 
-    kv = [(dequant_gathered(pools["k"][i], pools["k_scale"][i]),
-           dequant_gathered(pools["v"][i], pools["v_scale"][i])) for i in range(n_pools)]
-    mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-    qs = q.transpose(1, 2)
-    live = int(lens_np.sum())
-    record("paged_decode_attention", f"int8 pages B={B} lens<=4096 ps={ps}", *max_err(got, want),
-           [lambda i=i: pa.paged_decode_attention(q, *layer(i)[:2], table, lens, **layer(i)[2])
-            for i in range(n_pools)],
-           lambda: pa.paged_decode_attention_plain(q, kp0, vp0, table, lens, **sc0),
-           [lambda k=k, v=v: sdpa(qs, k, v, attn_mask=mask, enable_gqa=True) for k, v in kv],
-           live * NKV * (HD + 4) * 2 + 2 * B * NH * HD * 2 + B * W * 4 + B * 4,
-           4 * live * NH * HD)
-    del pools, kv
+        kp0, vp0, sc0 = layer(0)
+        got = pa.paged_decode_attention(q, kp0, vp0, table, lens, **sc0)
+        want = pa.paged_decode_attention_plain(q, kp0, vp0, table, lens, **sc0)
+
+        def dequant_gathered(pool, scale, table=table, B=B):
+            deq = pool if scale is None else (pool.float() * scale[:, :, None, :]).to(bf16)
+            return deq[table.long()].permute(0, 2, 1, 4, 3).reshape(B, NKV, T, HD).contiguous()
+
+        kv = [(dequant_gathered(pools["k"][i], pools["k_scale"][i] if quant else None),
+               dequant_gathered(pools["v"][i], pools["v_scale"][i] if quant else None))
+              for i in range(n_pools)]
+        mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        qs = q.transpose(1, 2)
+        live = int(lens_np.sum())
+        kv_bytes = live * NKV * (HD + 4) * 2 if quant else live * NKV * HD * 2 * 2
+        what = "int8" if quant else "bf16"
+        shape = (f"{what} pages B={B} " + ("len=4096" if B == 1 else "lens<=4096")
+                 + f" ps={ps}")
+        record("paged_decode_attention", shape, *max_err(got, want),
+               [lambda i=i, layer=layer, q=q, table=table, lens=lens:
+                pa.paged_decode_attention(q, *layer(i)[:2], table, lens, **layer(i)[2])
+                for i in range(n_pools)],
+               lambda: pa.paged_decode_attention_plain(q, kp0, vp0, table, lens, **sc0),
+               [lambda k=k, v=v, qs=qs, mask=mask: sdpa(qs, k, v, attn_mask=mask,
+                                                        enable_gqa=True) for k, v in kv],
+               kv_bytes + 2 * B * NH * HD * 2 + B * W * 4 + B * 4, 4 * live * NH * HD,
+               splits=pa.plan_splits(B, NKV, W, ps, _sm_count()))
+        del pools, kv, got, want
     torch.cuda.synchronize()
     return rows
 
@@ -1144,8 +1184,9 @@ def serve_once(model, params, cfg, prompts, layout: str):
 
 
 def decode_step_times(model, params, cfg, rng, cache_dtype=torch.bfloat16):
-    """One 8-row paged decode step (forward_paged_ragged + argmax) timed
-    eagerly and as a CUDA-graph replay: the difference is what the host adds."""
+    """One 8-row paged decode step (forward_paged_ragged + argmax) at short
+    context (positions 40-130 in a 4-page table row) timed eagerly and as a
+    CUDA-graph replay: the difference is what the host adds."""
     B, ps, W = 8, 128, 4
     pools = model.init_paged_cache(B * W + 1, ps, cache_dtype)
     table = torch.from_numpy((1 + np.arange(B * W)).reshape(B, W).astype(np.int32)).cuda()
@@ -1158,6 +1199,42 @@ def decode_step_times(model, params, cfg, rng, cache_dtype=torch.bfloat16):
 
     eager = time_eager(step, reps=5)
     return {"decode_step_eager_ms": eager, "decode_step_graph_ms": time_graph([step])}
+
+
+def long_step_split(model, params, cfg, lengths):
+    """One 8-row int4 decode step over int8 pages at serve long's lengths
+    (each prompt plus 16 decoded tokens, a 33-page table row as max_len 4224
+    gives), timed eagerly and as a CUDA-graph replay, split on CUDA events:
+    the step's L paged attention calls alone (graph replay at the step's
+    shapes, lengths and table) and everything else, with their shares."""
+    from mila_tpu_torch.inference.kv_cache import paged_attention_read
+
+    B, ps, W, L = len(lengths), 128, 33, cfg.num_layers
+    rng, tgen = np.random.default_rng(7), torch.Generator(device="cuda").manual_seed(7)
+    pools = model.init_paged_cache(B * W + 1, ps, torch.int8)
+    for name in ("k", "v"):
+        pools[name].copy_(torch.randint(-127, 128, pools[name].shape, device="cuda",
+                                        dtype=torch.int8, generator=tgen))
+        pools[name + "_scale"].uniform_(0.002, 0.02, generator=tgen)
+    table = torch.from_numpy((1 + np.arange(B * W)).reshape(B, W).astype(np.int32)).cuda()
+    pos = torch.tensor([n + 16 for n in lengths], dtype=torch.int32, device="cuda")
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)).cuda()
+    q = torch.from_numpy(rng.standard_normal((B, 1, cfg.num_heads, cfg.hd)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    lens = pos + 1
+
+    def step():
+        logits, _ = model.forward_paged_ragged(params, tok, pools, table, pos)
+        return torch.argmax(logits[:, -1], dim=-1)
+
+    eager = time_eager(step, reps=5)
+    graph = time_graph([step])
+    attn = time_graph([lambda i=i: paged_attention_read(pools, i, q, table, lens)
+                       for i in range(L)]) * L
+    del pools
+    return {"lens": [int(n) for n in lens.tolist()], "step_eager_ms": eager,
+            "step_graph_ms": graph, "paged_attention_ms": attn, "rest_ms": graph - attn,
+            "paged_attention_share": attn / graph}
 
 
 def phase_serve(model, params, packed, giga, cfg, rng, repeats: int = 3):
@@ -1249,7 +1326,8 @@ def phase_serve_long(model, params, cfg, rng):
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
         "launches_per_decode_step": {k: v / it for k, v in counts.items()
                                      if v and k in ("quant_linear_int4", "paged_decode_attention")},
-        "int4_int8_page_step": decode_step_times(model, params, cfg, rng, torch.int8)}
+        "int4_int8_page_step": decode_step_times(model, params, cfg, rng, torch.int8),
+        "long_step_split": long_step_split(model, params, cfg, lengths)}
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 // Warp-level tensor-core and async-copy helpers shared by the flash kernels
-// (flash_fwd.cu, flash_bwd.cu): bf16 mma.sync m16n8k16 with f32
-// accumulators, cp.async copies into shared memory and ldmatrix.trans.
+// (flash_fwd.cu, flash_bwd.cu) and the paged decode attention
+// (paged_decode_attn.cu): bf16 mma.sync m16n8k16 with f32 accumulators,
+// cp.async copies into shared memory and ldmatrix.trans.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4): A (16 x 16,
 // row-major) a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3
@@ -33,6 +34,10 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {

@@ -9,13 +9,18 @@ page's tile for one KV head is a contiguous [HD, ps] slab.
 
 What bounds it on the H100: the K/V bytes of the live tokens (one query per
 row does 2 operations per byte read). The CUDA kernel
-(``csrc/paged_decode_attn.cu``) runs one block per (row, KV head); the G
-query heads of that KV head share the block so each K/V element is read
-once; the block walks its row's pages up to ``seq_lens[b]`` with an online
-softmax in f32, reading its own page-table entries (there is no scalar
-prefetch). Threads run along the token axis, which is the contiguous one.
-Known weakness: B*NKV blocks (64 at the served shape) fill half of the 132
-SMs; splitting a row's pages across blocks is later work.
+(``csrc/paged_decode_attn.cu``) splits each row's pages across blocks
+(flash-decoding): the grid is (B * NKV, S), where :func:`plan_splits`
+chooses S on the host from B, NKV, the table width W, the page size and the
+SM count (never from ``seq_lens``, a device tensor: reading it would stall
+the stream and break CUDA-graph capture). Split s owns the pages
+:func:`split_pages` gives, the G query heads of a KV head share its block
+so each K/V element is read once, and the block rings its chunks through
+``cp.async`` (two stages, three for int8 pages) with an online softmax in
+f32. With S > 1 the splits
+write f32 partials (o, m, l) into scratch this wrapper allocates, and a
+second launch merges them with the log-sum-exp rescale; one wrapper call
+is one count of ``paged_decode_attention.launches`` either way.
 
 int8 pages (``k_scale``/``v_scale`` [P, NKV, ps] f32, one scale per page,
 head and token) halve the K/V bytes. The kernel keeps the TPU kernel's
@@ -39,7 +44,30 @@ from typing import Optional
 import torch
 
 from mila_tpu_torch.kernels import _build
+from mila_tpu_torch.kernels.quant_matmul import _sm_count
 from mila_tpu_torch.ops.attention import NEG_INF
+
+SPLIT_MIN_TOKENS = 128  # a split holds at least one of the kernel's 128-token chunks
+SPLIT_BLOCKS_PER_SM = 4  # splits until the grid has this many blocks per SM
+
+
+def plan_splits(B: int, NKV: int, W: int, ps: int, sms: int) -> int:
+    """The number S of sequence splits per (row, KV head) for a table of
+    width W and page size ps: enough for B * NKV * S to reach
+    ``SPLIT_BLOCKS_PER_SM`` blocks per SM, each split at least
+    ``SPLIT_MIN_TOKENS`` tokens of pages (fewer only if the whole row is
+    shorter); 1 <= S <= W. Independent of the rows' lengths."""
+    if W <= 1:
+        return 1
+    min_pages = min(W, -(-SPLIT_MIN_TOKENS // ps))
+    want = -(-SPLIT_BLOCKS_PER_SM * sms // max(1, B * NKV))
+    return max(1, min(W // min_pages, want))
+
+
+def split_pages(W: int, S: int) -> list[tuple[int, int]]:
+    """Split s's pages [s W / S, (s + 1) W / S) of a table row, as the kernel
+    computes them: page-aligned, covering [0, W) once, sizes within one."""
+    return [(s * W // S, (s + 1) * W // S) for s in range(S)]
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, page_table, seq_lens, *,
@@ -89,8 +117,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("paged_decode_attn")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.paged_decode_attn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                          ci, ci, ctypes.c_float, ci, vp]
+        lib.paged_decode_attn.argtypes = [vp] * 11 + [ci] * 7 + [ctypes.c_float, ci, vp]
         lib.paged_decode_attn.restype = ci
         lib._typed = True
     return lib
@@ -137,13 +164,20 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     qc = q.contiguous()
     out = torch.empty_like(qc)
     sm_scale = 1.0 / math.sqrt(HD) if scale is None else scale
+    S = plan_splits(B, NKV, W, ps, _sm_count(q.device.index or 0))
+    o_part = ml_part = None
+    if S > 1:
+        o_part = torch.empty((B, NH, S, HD), dtype=torch.float32, device=q.device)
+        ml_part = torch.empty((2, B, NH, S), dtype=torch.float32, device=q.device)
     lib = _lib()
     rc = lib.paged_decode_attn(
         _build.ptr(qc), _build.ptr(k_pages), _build.ptr(v_pages),
         _build.ptr(k_scale) if quant else None, _build.ptr(v_scale) if quant else None,
-        _build.ptr(tbl),
-        _build.ptr(lens), _build.ptr(out), B, NH, NKV, HD, ps, W, sm_scale,
-        int(q.dtype == torch.float32), _build.stream_of(q))
+        _build.ptr(tbl), _build.ptr(lens), _build.ptr(out),
+        None if o_part is None else _build.ptr(o_part),
+        None if ml_part is None else _build.ptr(ml_part[0]),
+        None if ml_part is None else _build.ptr(ml_part[1]),
+        B, NH, NKV, HD, ps, W, S, sm_scale, int(q.dtype == torch.float32), _build.stream_of(q))
     _build.check(lib, rc, "paged_decode_attn")
     paged_decode_attention.launches += 1
     return out

@@ -12,11 +12,16 @@ its own entry point); the others (prefill) are unpacked to int8 rows and
 take the int8 kernel.
 
 What bounds it on the H100: at prefill shapes (M >= 256) the product is
-bound by tensor-core operations, not by the int8 weight stream. The CUDA
-kernel (``csrc/qmm_int8.cu``) tiles 128x128 outputs per block, converts
-each int8 weight tile to bf16 once in shared memory (int8 -> bf16 is
-exact) and runs bf16 ``mma.sync`` with f32 accumulation, so the weight is
-read from device memory once per 128-row block of x.
+bound by tensor-core operations once each block's tiles are large enough
+that the L2-to-SM traffic keeps up. The CUDA kernel (``csrc/qmm_int8.cu``)
+tiles 128x256 outputs per block where that grid covers most of the card,
+else (and with block scales) 128x128: one thread
+keeps TMA loads of x and the int8 weight tile in flight through a ring of
+shared-memory stages, and two consumer warpgroups run bf16 ``wgmma`` with
+f32 accumulation while they convert the next weight tile to bf16 (int8 ->
+bf16 is exact), so the weight is read from device memory once per 128-row
+block of x. The wrapper needs x's bf16 copy and the weight on
+16-byte-aligned bases (TMA); it copies either one that is not.
 
 Arithmetic (the Pallas kernel's, not ``quant_linear_ref``'s): y =
 sum over K-blocks of (bf16(x) @ bf16(q))_f32 * scale_row, + bias, then
@@ -229,6 +234,9 @@ def _launch(x2: torch.Tensor, qt: QTensor, bias: Optional[torch.Tensor],
     if qt.scale.dtype != torch.float32:
         raise TypeError("qmm_int8: scales must be f32")
     xb = x2.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:  # TMA reads from 16-byte-aligned bases only
+        xb = xb.clone()
+    wq = qt.q if qt.q.data_ptr() % 16 == 0 else qt.q.clone()
     b32 = None
     if bias is not None:
         b32 = bias.to(device=x2.device, dtype=torch.float32).contiguous()
@@ -237,7 +245,7 @@ def _launch(x2: torch.Tensor, qt: QTensor, bias: Optional[torch.Tensor],
         return out
     lib = _qmm_lib()
     rc = lib.qmm_int8(
-        _build.ptr(xb), _build.ptr(qt.q), _build.ptr(qt.scale),
+        _build.ptr(xb), _build.ptr(wq), _build.ptr(qt.scale),
         None if b32 is None else _build.ptr(b32), _build.ptr(out),
         M, N, K, qt.block_size, _ACT_CODES[activation],
         int(x2.dtype == torch.float32), _build.stream_of(x2))

@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 
 from mila_tpu_torch import ops
+from mila_tpu_torch.device import resolve_device
 from mila_tpu_torch.nn import (
     Encoder,
     EncoderConfig,
@@ -91,6 +92,7 @@ class GPT2(CompositeModule):
                 param_dtype=cfg.param_dtype)))
 
     def init(self, gen, input_shape, device=None) -> Params:
+        device = resolve_device(device)
         gens = split_named(gen, *[n for n, _ in self.children()])
         B, T = input_shape
         params: Params = {"encoder": self.get("encoder").init(gens["encoder"], (B, T), device)}

@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 
 from mila_tpu_torch import ops
+from mila_tpu_torch.device import resolve_device
 from mila_tpu_torch.nn.module import Module, Params
 from mila_tpu_torch.tensor import init as tinit
 from mila_tpu_torch.utils.config import BaseConfig, ConfigError
@@ -51,6 +52,7 @@ class Linear(Module):
     ``inference.quantize``) routes to the quantized kernel."""
 
     def init(self, gen, input_shape, device=None):
+        device = resolve_device(device)
         cfg: LinearConfig = self.config
         if input_shape[-1] != cfg.in_features:
             raise ValueError(f"{self.name}: input last dim {input_shape[-1]} != in_features "
@@ -119,6 +121,7 @@ class LayerNormConfig(BaseConfig):
 
 class LayerNorm(Module):
     def init(self, gen, input_shape, device=None):
+        device = resolve_device(device)
         cfg = self.config
         dtype = torch_dtype(cfg.param_dtype)
         return {"gamma": tinit.ones((cfg.features,), dtype, device),
@@ -130,6 +133,7 @@ class LayerNorm(Module):
 
 class RMSNorm(Module):
     def init(self, gen, input_shape, device=None):
+        device = resolve_device(device)
         cfg = self.config
         return {"gamma": tinit.ones((cfg.features,), torch_dtype(cfg.param_dtype), device)}
 
@@ -201,6 +205,7 @@ class Encoder(Module):
     """Token (+ positional) embedding of int token ids [B, T]."""
 
     def init(self, gen, input_shape, device=None):
+        device = resolve_device(device)
         cfg = self.config
         dtype = torch_dtype(cfg.param_dtype)
         gens = split_named(gen, "wte", "wpe")
@@ -230,6 +235,7 @@ class Residual(Module):
         self.inner = inner
 
     def init(self, gen, input_shape, device=None):
+        device = resolve_device(device)
         return {"inner": self.inner.init(gen, input_shape, device=device)}
 
     def apply(self, params, x, *, training=False, rngs=None):

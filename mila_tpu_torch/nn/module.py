@@ -14,6 +14,7 @@ from typing import Any, Callable, Iterator, Optional, Sequence
 
 import torch
 
+from mila_tpu_torch.device import resolve_device
 from mila_tpu_torch.utils.config import BaseConfig
 from mila_tpu_torch.utils.rng import split_named
 from mila_tpu_torch.utils.tree import tree_leaves
@@ -22,7 +23,8 @@ Params = dict  # nested dict: child name -> subtree | tensor
 
 
 class Module:
-    """Base class: ``init(gen, input_shape, device=None) -> Params``,
+    """Base class: ``init(gen, input_shape, device=None) -> Params`` (``None``
+    means the GPU, through ``device.resolve_device``),
     ``apply(params, x, *, training=False, rngs=None)``, ``output_shape``.
     ``rngs`` maps a stream name ("dropout") to a ``torch.Generator``."""
 
@@ -37,6 +39,7 @@ class Module:
         return self.config.name or type(self).__name__
 
     def init(self, gen: torch.Generator, input_shape: Sequence[int], device=None) -> Params:
+        resolve_device(device)
         return {}
 
     def apply(self, params: Params, x: torch.Tensor, *, training: bool = False,
@@ -89,7 +92,9 @@ class CompositeModule(Module):
         return iter(self._children.items())
 
     def init(self, gen: torch.Generator, input_shape: Sequence[int], device=None) -> Params:
-        """Default: sequential shape propagation through the children."""
+        """Default: sequential shape propagation through the children, each
+        given the resolved device."""
+        device = resolve_device(device)
         gens = split_named(gen, *self._children.keys())
         params: Params = {}
         shape = tuple(input_shape)

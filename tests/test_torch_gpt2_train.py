@@ -226,3 +226,29 @@ def test_gpt2_config_and_entry_points_default_to_cuda():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Model(GPT2(GPT2Config(**TINY)))
+
+
+@pytest.mark.parametrize("kind", ["gpt2", "linear", "layer_norm", "residual", "sequential"])
+def test_init_without_a_device_means_the_gpu(kind):
+    # Every public init resolves device=None to the GPU, as Model does: with
+    # no CUDA device it raises resolve_device's error; device="cpu" builds
+    # every leaf on the CPU.
+    from mila_tpu_torch import nn
+    from mila_tpu_torch.utils.rng import generator
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    lin = nn.Linear(nn.LinearConfig(in_features=16, out_features=8))
+    module, shape = {
+        "gpt2": (GPT2(GPT2Config(**TINY)), (2, 16)),
+        "linear": (lin, (4, 16)),
+        "layer_norm": (nn.LayerNorm(nn.LayerNormConfig(features=16)), (4, 16)),
+        "residual": (nn.Residual(nn.Linear(nn.LinearConfig(in_features=16, out_features=16))),
+                     (4, 16)),
+        "sequential": (nn.Sequential([("fc", lin), ("sm", nn.Softmax())]), (4, 16)),
+    }[kind]
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        module.init(generator(0), shape)
+    params = module.init(generator(0), shape, device="cpu")
+    leaves = tree_leaves(params)
+    assert leaves and all(p.device.type == "cpu" for p in leaves)

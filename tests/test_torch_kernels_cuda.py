@@ -60,12 +60,25 @@ def _rand(shape, seed, scale=1.0, dtype=torch.bfloat16, device="cuda"):
         device=device, dtype=dtype)
 
 
+# Ragged M (1, 17, 33, 1000, 4096 rows) against N 136 (the cp.async weight
+# route: N % 16 == 8), 3072 and 16384; per-channel, 128- and 16-row scale
+# blocks; bias with GELU or SiLU; bf16 and f32 out.
+_QL_GRID = [(M, 1024, N, 0, ("gelu", "silu", None)[i % 3], (torch.bfloat16, torch.float32)[i % 2])
+            for i, (M, N) in enumerate((M, N) for M in (1, 17, 33, 1000, 4096)
+                                       for N in (136, 3072, 16384))]
+_QL_BLOCKS = [(M, 512, N, bs, act, dtype) for M, N, bs, act, dtype in (
+    (1, 3072, 128, None, torch.bfloat16), (17, 136, 16, "silu", torch.float32),
+    (33, 16384, 128, "gelu", torch.bfloat16), (1000, 3072, 16, None, torch.bfloat16),
+    (4096, 136, 128, "silu", torch.float32), (1000, 16384, 128, "gelu", torch.float32))]
+
+
 @pytest.mark.parametrize("M,K,N,bs,act,dtype", [
     (64, 256, 384, 0, None, torch.bfloat16),
     (100, 512, 520, 128, "gelu", torch.bfloat16),
     (1024, 2048, 3072, 0, None, torch.bfloat16),
     (37, 256, 128, 64, "silu", torch.float32),
-])
+    (200, 96, 264, 32, "gelu", torch.bfloat16),  # K % 64 == 32: a half last K step
+] + _QL_GRID + _QL_BLOCKS)
 def test_quant_linear_kernel(cuda, M, K, N, bs, act, dtype):
     x = _rand((M, K), 0, dtype=dtype)
     qt = quantize(_rand((K, N), 1, 0.05, torch.float32), "int8", bs)
@@ -108,26 +121,95 @@ def test_kernels_refuse_other_weight_types(cuda):
         df.rms_quant_linear(x, torch.ones(256, device="cuda"), qt)
 
 
-@pytest.mark.parametrize("B,NH,NKV,HD,ps,dtype", [
-    (8, 32, 8, 64, 128, torch.bfloat16),
-    (3, 8, 2, 32, 16, torch.float32),
-    (2, 16, 2, 128, 8, torch.bfloat16),
-    (5, 3, 1, 16, 24, torch.float32),
+def _paged_lens(rng, B, NKV, W, ps):
+    """Batches of B lengths: 1, ps - 1, ps, ps + 1, W ps and every split end
+    +- 1 under the kernel's plan for this card, the other rows random. (A
+    length of 0 gives zeros where the plain version averages V: held apart
+    in test_paged_attention_zero_length.)"""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    S = pa.plan_splits(B, NKV, W, ps, sms)
+    ends = [hi * ps for _, hi in pa.split_pages(W, S)]
+    edge = sorted({x for x in [1, ps - 1, ps, ps + 1, W * ps]
+                   + [e + d for e in ends for d in (-1, 0, 1)] if 1 <= x <= W * ps})
+    out = []
+    for i in range(0, len(edge), B):
+        chunk = np.asarray(edge[i:i + B], np.int64)
+        chunk = np.concatenate([chunk, rng.integers(1, W * ps + 1, B - len(chunk))])
+        out.append(torch.from_numpy(chunk.astype(np.int32)).cuda())
+    return out
+
+
+def _paged_inputs(rng, B, NH, NKV, HD, ps, W, dtype, int8, seed):
+    P = B * W + 1
+    table = torch.from_numpy((1 + rng.permutation(P - 1)[: B * W].reshape(B, W)).astype(np.int32))
+    q = _rand((B, 1, NH, HD), seed, dtype=dtype)
+    if not int8:
+        return q, _rand((P, NKV, HD, ps), seed + 1, dtype=dtype), \
+            _rand((P, NKV, HD, ps), seed + 2, dtype=dtype), {}, table.cuda()
+    kp = torch.from_numpy(rng.integers(-127, 128, (P, NKV, HD, ps)).astype(np.int8)).cuda()
+    vp = torch.from_numpy(rng.integers(-127, 128, (P, NKV, HD, ps)).astype(np.int8)).cuda()
+    ks = torch.from_numpy(rng.uniform(0.002, 0.02, (P, NKV, ps)).astype(np.float32)).cuda()
+    vs = torch.from_numpy(rng.uniform(0.002, 0.02, (P, NKV, ps)).astype(np.float32)).cuda()
+    return q, kp, vp, {"k_scale": ks, "v_scale": vs}, table.cuda()
+
+
+@pytest.mark.parametrize("B,NH,NKV,HD,ps,W,dtype", [
+    (8, 32, 8, 64, 128, 4, torch.bfloat16),
+    (3, 8, 2, 32, 16, 4, torch.float32),
+    (2, 16, 2, 128, 8, 4, torch.bfloat16),
+    (5, 3, 1, 16, 24, 4, torch.float32),
+    (8, 8, 8, 64, 128, 12, torch.bfloat16),    # G 1, split rows
+    (4, 32, 8, 128, 16, 40, torch.bfloat16),   # G 4, HD 128, 8 pages a split
+    (2, 64, 8, 64, 128, 20, torch.bfloat16),   # G 8
+    (3, 16, 2, 128, 32, 24, torch.float32),    # f32 pages in 64-token chunks
+    (1, 32, 8, 64, 128, 32, torch.bfloat16),   # one row of 4096 tokens
 ])
-def test_paged_attention_kernel(cuda, B, NH, NKV, HD, ps, dtype):
+def test_paged_attention_kernel(cuda, B, NH, NKV, HD, ps, W, dtype):
     rng = np.random.default_rng(9)
-    W, P = 4, 4 * B + 1
-    lens = rng.integers(1, W * ps + 1, B).astype(np.int32)
-    lens[0] = W * ps
-    table = (1 + rng.permutation(P - 1)[: B * W].reshape(B, W)).astype(np.int32)
-    q = _rand((B, 1, NH, HD), 10, dtype=dtype)
-    kp = _rand((P, NKV, HD, ps), 11, dtype=dtype)
-    vp = _rand((P, NKV, HD, ps), 12, dtype=dtype)
-    t, ln = torch.from_numpy(table).cuda(), torch.from_numpy(lens).cuda()
-    got = pa.paged_decode_attention(q, kp, vp, t, ln)
-    want = pa.paged_decode_attention_plain(q, kp, vp, t, ln)
+    q, kp, vp, _, t = _paged_inputs(rng, B, NH, NKV, HD, ps, W, dtype, False, 10)
+    for ln in _paged_lens(rng, B, NKV, W, ps):
+        got = pa.paged_decode_attention(q, kp, vp, t, ln)
+        want = pa.paged_decode_attention_plain(q, kp, vp, t, ln)
+        torch.cuda.synchronize()
+        _close(got, want)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_attention_zero_length(cuda, int8):
+    # A row of length 0 gives zeros (the TPU kernel's l == 0 branch); its
+    # neighbours are unaffected.
+    rng = np.random.default_rng(13)
+    q, kp, vp, sc, t = _paged_inputs(rng, 4, 32, 8, 64, 128, 8, torch.bfloat16, int8, 14)
+    ln = torch.tensor([0, 5, 1024, 0], dtype=torch.int32, device="cuda")
+    got = pa.paged_decode_attention(q, kp, vp, t, ln, **sc)
     torch.cuda.synchronize()
-    _close(got, want)
+    assert torch.equal(got[0], torch.zeros_like(got[0])) and torch.equal(got[3], got[0])
+    _close(got[1:3], pa.paged_decode_attention_plain(q, kp, vp, t, ln, **sc)[1:3])
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_attention_graph_reads_lengths_on_the_card(cuda, int8):
+    # One call captured in a CUDA graph, replayed after seq_lens is rewritten
+    # in place, equals an eager call at the new lengths: no host read of the
+    # lengths (the split plan depends on shapes only).
+    rng = np.random.default_rng(15)
+    B, W, ps = 8, 32, 128
+    q, kp, vp, sc, t = _paged_inputs(rng, B, 32, 8, 64, ps, W, torch.bfloat16, int8, 16)
+    ln = torch.from_numpy(rng.integers(1, 257, B).astype(np.int32)).cuda()
+    pa.paged_decode_attention(q, kp, vp, t, ln, **sc)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = pa.paged_decode_attention(q, kp, vp, t, ln, **sc)
+    new = rng.integers(1, W * ps + 1, B).astype(np.int32)
+    new[0] = W * ps
+    ln.copy_(torch.from_numpy(new))
+    g.replay()
+    torch.cuda.synchronize()
+    want = pa.paged_decode_attention(q, kp, vp, t, ln, **sc)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    _close(out, pa.paged_decode_attention_plain(q, kp, vp, t, ln, **sc))
 
 
 @pytest.mark.parametrize("M,K,N,vocab,bs,dtype", [
@@ -547,26 +629,23 @@ def test_flash_gate_routes_before_the_kernel(cuda):
     (8, 32, 8, 64, 128, 8, torch.bfloat16),
     (3, 8, 2, 32, 16, 6, torch.float32),
     (4, 16, 2, 128, 16, 9, torch.bfloat16),
+    (8, 8, 8, 64, 128, 32, torch.bfloat16),    # G 1, B 8 up to 4096 tokens
+    (8, 32, 8, 64, 128, 32, torch.bfloat16),   # serve long's shape
+    (2, 64, 8, 128, 16, 40, torch.bfloat16),   # G 8, HD 128
+    (1, 32, 8, 64, 128, 32, torch.bfloat16),   # one row of 4096 tokens
+    (1, 32, 8, 128, 128, 32, torch.float32),
 ])
 def test_paged_attention_int8_pages(cuda, B, NH, NKV, HD, ps, W, dtype):
     rng = np.random.default_rng(54)
-    P = W * B + 1
-    lens = rng.integers(1, W * ps + 1, B).astype(np.int32)
-    lens[0] = W * ps
-    table = (1 + rng.permutation(P - 1)[: B * W].reshape(B, W)).astype(np.int32)
-    q = _rand((B, 1, NH, HD), 55, dtype=dtype)
-    kp = torch.from_numpy(rng.integers(-127, 128, (P, NKV, HD, ps)).astype(np.int8)).cuda()
-    vp = torch.from_numpy(rng.integers(-127, 128, (P, NKV, HD, ps)).astype(np.int8)).cuda()
-    ks = torch.from_numpy(rng.uniform(0.002, 0.02, (P, NKV, ps)).astype(np.float32)).cuda()
-    vs = torch.from_numpy(rng.uniform(0.002, 0.02, (P, NKV, ps)).astype(np.float32)).cuda()
-    t, ln = torch.from_numpy(table).cuda(), torch.from_numpy(lens).cuda()
-    before = pa.paged_decode_attention.launches
-    got = pa.paged_decode_attention(q, kp, vp, t, ln, k_scale=ks, v_scale=vs)
-    torch.cuda.synchronize()
-    assert pa.paged_decode_attention.launches == before + 1
-    # The plain version dequantizes the pages to q's dtype first (the JAX CPU
-    # path); the kernel folds the scales in f32: one bf16 step apart at most.
-    _close(got, pa.paged_decode_attention_plain(q, kp, vp, t, ln, k_scale=ks, v_scale=vs))
+    q, kp, vp, sc, t = _paged_inputs(rng, B, NH, NKV, HD, ps, W, dtype, True, 55)
+    for ln in _paged_lens(rng, B, NKV, W, ps):
+        before = pa.paged_decode_attention.launches
+        got = pa.paged_decode_attention(q, kp, vp, t, ln, **sc)
+        torch.cuda.synchronize()
+        assert pa.paged_decode_attention.launches == before + 1
+        # The plain version dequantizes the pages to q's dtype first (the JAX
+        # CPU path); the kernel folds the scales in f32: one bf16 step apart.
+        _close(got, pa.paged_decode_attention_plain(q, kp, vp, t, ln, **sc))
 
 
 def _row_err(got, want, floor=1e-3):

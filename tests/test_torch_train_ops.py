@@ -275,7 +275,7 @@ def test_layers_match_jax_on_bridged_params():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
     assert tm.parameter_count(tp) == jm.parameter_count(jp)
     assert tm.output_shape((4, 16)) == jm.output_shape((4, 16))
-    tshapes = {k: tuple(v.shape) for k, v in tm.init(torch.Generator(), (4, 16))["fc"].items()}
+    tshapes = {k: tuple(v.shape) for k, v in tm.init(torch.Generator(), (4, 16), device="cpu")["fc"].items()}
     assert tshapes == {k: tuple(v.shape) for k, v in jp["fc"].items()}
     logits, t = _np(22, 6, 10), np.array([1, 2, -100, 4, 0, 9], np.int32)
     for red in ("mean", "sum", "none"):
@@ -315,7 +315,7 @@ def test_remat_block_same_values_and_grads():
 
     cfg = TransformerBlockConfig(embedding_dim=32, num_heads=4, dropout=0.1)
     blk, blk_r = TransformerBlock(cfg), TransformerBlock(cfg.replace(remat=True))
-    params = blk.init(generator(0), (2, 8, 32))
+    params = blk.init(generator(0), (2, 8, 32), device="cpu")
     x = torch.from_numpy(_np(26, 2, 8, 32))
     outs = []
     for b in (blk, blk_r):
