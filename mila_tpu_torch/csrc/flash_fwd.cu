@@ -1,208 +1,254 @@
-// flash_fwd: causal grouped-query flash-attention forward, bf16 in and out.
+// flash_fwd: causal grouped-query flash-attention forward, bf16 in and out,
+// on Hopper's TMA and warpgroup MMA.
 //
 // Replaces the TPU kernels mila_tpu/kernels/flash_attention.py:_fa_kernel
 // (D >= 128) and _fa_kernel_t (D < 128), entry flash_attention ->
 // _flash_attention_forward, with and without save_stats (below). The
-// TPU's transposed layout for D < 128 exists
-// for its 128-lane matrix unit only; here one kernel serves D 64 and 128.
+// TPU's transposed layout for D < 128 exists for its 128-lane matrix unit
+// only; here one kernel serves D 64 and 128.
 //
-// Bound on the H100: tensor-core operations at prefill lengths (2 * Tq * Tkv
-// * D multiply-adds per head, halved by the causal skip, against Tq + 2 Tkv
-// rows of D bf16 values read). Design: one block of 4 warps per (q tile of
-// 64 rows, head, batch row); each warp owns 16 query rows, its Q fragments
-// in registers. K/V tiles of 64 keys stream through shared memory with
-// cp.async, double-buffered (tile j + 1 loads while tile j computes). S =
-// Q K^T and O += P V run on mma.sync m16n8k16 bf16 with f32 accumulators;
-// V's B fragments come from its row-major tile through ldmatrix.trans; P
-// goes from the S accumulators to A fragments in registers. The online
-// softmax runs in f32 per row (4 lanes share a row). Blocks take the q
-// tiles heaviest first (the causal skip leaves the last tiles the most
-// keys).
+// Bound on the H100: tensor-core operations at prefill lengths (4 Tq Tkv D
+// per head, about half skipped by the causal tiles, against Tq + 2 Tkv rows
+// of D bf16 values), and at D 64 nearly as much the exponentials: one MUFU
+// op per score at 16 a clock per SM takes as long as the score's 4 D = 256
+// tensor-core operations.
+// Design: one block of 288 threads per (q tile of 128 rows, head, batch
+// row), the q tiles heaviest first (the causal skip leaves the last tiles
+// the most keys):
+//   warp 8, one thread: TMA loads of the q tile (once) and of each 128-key K
+//     and V tile into a ring of NT stages (full / empty mbarriers), 128-byte
+//     swizzled, through 3-D maps over [B][T][heads * D] in boxes of {64
+//     columns, 128 rows, 1}: rows past Tq or Tkv read zeros inside their own
+//     batch row. D 128 is two 64-column panels per tile.
+//   warpgroups 0-1 (consumers, 64 query rows each, sharing every K/V tile):
+//     S = Q K^T as wgmma m64n128k16 with both operands in shared memory (K
+//     K-major, as TMA writes it); the online softmax in f32 on S's
+//     registers (row max and sum over the 4 lanes of a row); O += P V as
+//     wgmma with P in registers (S's accumulator packs into P's A fragment
+//     without a shuffle) and V read MN-major (the transpose bit): m64n64k16
+//     at D 64, m64n128k16 at D 128.
+// The softmax keeps the row max m of the raw scores q.k and folds sm_scale *
+// log2(e) into one FFMA per score: p = 2^(s c - m c) with c = sm_scale *
+// log2(e), which is exp(s sm_scale - m sm_scale).
 //
 // With l_out/m_out (the launch under autograd, _flash_attention_forward(
 // save_stats=True)) it also writes each row's final sum l and max m, f32
-// [B, NH, Tq], without the TPU's 128-lane padding.
+// [B, NH, Tq], without the TPU's 128-lane padding; m in natural units (the
+// max of the scaled scores, m_raw sm_scale), which flash_bwd reads.
 //
 // The TPU kernel's semantics: the causal tile skip with kv_offset (a key
-// tile runs when its first key <= the tile's last row + kv_offset); masked
-// scores are -0.7 * f32max, not -inf; p is rounded to V's dtype (bf16)
-// before P V while l sums the f32 p; 1 / l with l == 0 guarded at the
-// store; query head h reads KV head h / G (G = NH / NKV, natural order).
-// Layouts are the model's: q and out [B, Tq, NH, D], k and v [B, Tkv, NKV,
-// D], contiguous. Rows past Tq in the last q tile are computed on zeros and
-// never stored.
+// tile runs when its first key <= the q tile's last row + kv_offset);
+// masked scores take the finite -0.7 * f32max (as raw scores, before the
+// scaling, so that s c cannot overflow to -inf for sm_scale < 1); p is
+// rounded to V's dtype (bf16) before P V while l sums the f32 p, both
+// against the running max of the 128-key tiles; 1 / l with l == 0 guarded
+// at the store; query head h reads KV head h / G (G = NH / NKV, natural
+// order). Layouts are the model's: q and out [B, Tq, NH, D], k and v [B,
+// Tkv, NKV, D], contiguous, 16-byte-aligned bases. Rows past Tq in the last
+// q tile are computed on zeros and never stored.
 #include "common.cuh"
 #include "mma.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int BQ = 64, BKV = 64, THREADS = 128;
+constexpr int BQ = 128, BKV = 128;
+constexpr int THREADS = 288;  // warpgroups 0-1 consume, warp 8 loads
+constexpr int CONSUMERS = 256;
+constexpr int PANEL = BKV * 128;  // bytes of one 64-column panel of a 128-row tile
 constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+struct Cfg {
+  static constexpr int PANELS = D / 64;
+  static constexpr int TILE = PANELS * PANEL;     // a q, K or V tile
+  static constexpr int NT = D == 64 ? 3 : 2;      // stages of the K/V ring
+  static constexpr int SMEM = TILE + NT * 2 * TILE + (2 * NT + 1) * 8 + 1024;
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a, uint64_t b) {
+  if constexpr (D == 64)
+    wgmma_m64n64k16_bf16_rs<1>(o, a, b, 1);
+  else
+    wgmma_m64n128k16_bf16_rs<1>(o, a, b, 1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
+                 const __grid_constant__ CUtensorMap tmv, __nv_bfloat16* __restrict__ out,
                  float* __restrict__ l_out, float* __restrict__ m_out, int Tq, int Tkv, int NH,
                  int NKV, float sm_scale, int kv_offset, int causal) {
-  constexpr int RS = D + 8;  // bf16 per shared row (16-byte aligned, staggers banks)
-  constexpr int TILE = BKV * RS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][BKV][RS]
-  __nv_bfloat16* Vs = Ks + 2 * TILE;                                // [2][BKV][RS]
+  using C = Cfg<D>;
+  constexpr int NT = C::NT, TILE = C::TILE, NO = D / 2;  // NO: O's f32 registers
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (sm90_smem(smem_raw) & 1023)) & 1023);
+  unsigned char* qs = smem;                  // [PANELS][BQ][64] bf16, swizzled
+  unsigned char* ks = qs + TILE;             // [NT] K tiles, as qs
+  unsigned char* vs = ks + NT * TILE;        // [NT] V tiles, as qs
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + NT * TILE);
+  uint64_t* empty = full + NT;
+  uint64_t* q_full = empty + NT;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
+  const int tid = threadIdx.x;
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (NH / NKV);
   const int q0 = qt * BQ;
-  const int wrow = q0 + warp * 16;  // the warp's first query row
-  const int r0 = wrow + g;          // this thread's rows r0 and r0 + 8
-  const size_t qstride = (size_t)NH * D, kstride = (size_t)NKV * D;
-  const __nv_bfloat16* qb = q + (size_t)b * Tq * qstride + (size_t)h * D;
-  const __nv_bfloat16* kb = k + (size_t)b * Tkv * kstride + (size_t)hk * D;
-  const __nv_bfloat16* vb = v + (size_t)b * Tkv * kstride + (size_t)hk * D;
-
   int n_kv = Tkv / BKV;
   if (causal) {
     const int last = q0 + BQ - 1 + kv_offset;  // the TPU kernel's tile-skip rule
     n_kv = last < 0 ? 0 : min(n_kv, last / BKV + 1);
   }
-
-  auto load_tile = [&](int buf, int j) {
-    const int k0 = j * BKV;
-    constexpr int CHUNKS = BKV * D / 8;  // 16-byte pieces per tile
-#pragma unroll
-    for (int i = tid; i < CHUNKS; i += THREADS) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      cp_async16(Ks + buf * TILE + r * RS + c, kb + (size_t)(k0 + r) * kstride + c);
-      cp_async16(Vs + buf * TILE + r * RS + c, vb + (size_t)(k0 + r) * kstride + c);
+  if (tid == 0) {
+    for (int s = 0; s < NT; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
     }
-    cp_async_commit();
-  };
-  if (n_kv > 0) load_tile(0, 0);
-
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + tig * 2;
-    const bool a = r0 < Tq, bb = r0 + 8 < Tq;
-    qf[kk][0] = a ? ld32(qb + (size_t)r0 * qstride + c) : 0u;
-    qf[kk][1] = bb ? ld32(qb + (size_t)(r0 + 8) * qstride + c) : 0u;
-    qf[kk][2] = a ? ld32(qb + (size_t)r0 * qstride + c + 8) : 0u;
-    qf[kk][3] = bb ? ld32(qb + (size_t)(r0 + 8) * qstride + c + 8) : 0u;
+    mbar_init(q_full, 1);
+    mbar_fence_init();
   }
-  float o[D / 8][4];
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // warp 8, one thread: the TMA ring
+    if (tid == CONSUMERS) {
+      mbar_expect_tx(q_full, TILE);
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+      for (int p = 0; p < C::PANELS; ++p)
+        tma_load_3d(qs + p * PANEL, &tmq, q_full, h * D + 64 * p, q0, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % NT;
+        if (j >= NT) mbar_wait(&empty[s], (j / NT - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * TILE);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+        for (int p = 0; p < C::PANELS; ++p) {
+          tma_load_3d(ks + s * TILE + p * PANEL, &tmk, &full[s], hk * D + 64 * p, j * BKV, b);
+          tma_load_3d(vs + s * TILE + p * PANEL, &tmv, &full[s], hk * D + 64 * p, j * BKV, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: query rows [q0 + 64 wg, q0 + 64 wg + 64) ----
+  const int wg = tid >> 7, lane = tid & 31, w = (tid >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = q0 + 64 * wg + 16 * w;  // the warp's first query row
+  const int r0 = wrow + g;                 // this thread's rows r0 and r0 + 8
+  const float c = sm_scale * 1.4426950408889634f;
+
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this thread's columns
+  mbar_wait(q_full, 0);
+  const unsigned char* qw = qs + wg * 64 * 128;  // the warpgroup's 64 rows of each panel
 
   for (int j = 0; j < n_kv; ++j) {
-    const int buf = j & 1, k0 = j * BKV;
-    if (j + 1 < n_kv) {
-      load_tile(buf ^ 1, j + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    const int s = j % NT, k0 = j * BKV;
+    mbar_wait(&full[s], (j / NT) & 1);
+    const unsigned char* kt = ks + s * TILE;
+    const unsigned char* vt = vs + s * TILE;
+
+    // S = Q K^T: 64 rows x 128 keys, D / 16 k-slices (32 bytes apart in a
+    // panel's 128-byte rows).
+    float sc[64];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int p = kk / 4, off = 32 * (kk % 4);
+      wgmma_m64n128k16_bf16<0>(sc, wgmma_desc(qw + p * PANEL + off, 16, 1024),
+                               wgmma_desc(kt + p * PANEL + off, 16, 1024), kk > 0);
     }
-    __syncthreads();
-    const __nv_bfloat16* kt = Ks + buf * TILE;
-    const __nv_bfloat16* vt = Vs + buf * TILE;
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operand<64>(sc);
 
-    // S = Q K^T for the warp's 16 rows x 64 keys.
-    float s[BKV / 8][4];
+    // Mask (only tiles that reach past the warp's first row), row max.
+    // sc[4 jj + i]: row r0 + 8 (i / 2), key k0 + 8 jj + 2 t + i % 2.
+    if (causal && k0 + BKV - 1 > wrow + kv_offset) {
 #pragma unroll
-    for (int ni = 0; ni < BKV / 8; ++ni)
+      for (int jj = 0; jj < 16; ++jj)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[ni][e] = 0.f;
+        for (int i = 0; i < 4; ++i)
+          if (k0 + 8 * jj + 2 * t + (i & 1) > r0 + 8 * (i >> 1) + kv_offset)
+            sc[4 * jj + i] = MASK_VALUE;
+    }
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-      for (int ni = 0; ni < BKV / 8; ++ni) {
-        const __nv_bfloat16* p = kt + (ni * 8 + g) * RS + kk * 16 + tig * 2;
-        const uint32_t bf[2] = {ld32(p), ld32(p + 8)};
-        mma_bf16(s[ni], qf[kk], bf);
-      }
-
-    // Scale, mask (only tiles that reach past the warp's first row), row max.
-    const bool diag = causal && k0 + BKV - 1 > wrow + kv_offset;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int ni = 0; ni < BKV / 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1;
-        float val = s[ni][e] * sm_scale;
-        if (diag && k0 + ni * 8 + tig * 2 + (e & 1) > r0 + 8 * hr + kv_offset) val = MASK_VALUE;
-        s[ni][e] = val;
-        mx[hr] = fmaxf(mx[hr], val);
-      }
-    float alpha[2], ls[2] = {0.f, 0.f};
+    for (int jj = 0; jj < 16; ++jj) {
+      mx[0] = fmaxf(mx[0], fmaxf(sc[4 * jj], sc[4 * jj + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(sc[4 * jj + 2], sc[4 * jj + 3]));
+    }
+    float alpha[2], mc[2];
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
       mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
-      const float m_new = fmaxf(m[hr], mx[hr]);
-      alpha[hr] = expf(m[hr] - m_new);
-      m[hr] = m_new;
+      alpha[hr] = ex2((m[hr] - mx[hr]) * c);
+      m[hr] = mx[hr];
+      mc[hr] = mx[hr] * c;
+      l[hr] *= alpha[hr];
     }
-#pragma unroll
-    for (int ni = 0; ni < BKV / 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[ni][e] - m[e >> 1]);
-        s[ni][e] = p;
-        ls[e >> 1] += p;
-      }
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      ls[hr] += __shfl_xor_sync(0xffffffffu, ls[hr], 1);
-      ls[hr] += __shfl_xor_sync(0xffffffffu, ls[hr], 2);
-      l[hr] = alpha[hr] * l[hr] + ls[hr];
-    }
-#pragma unroll
-    for (int di = 0; di < D / 8; ++di) {
-      o[di][0] *= alpha[0];
-      o[di][1] *= alpha[0];
-      o[di][2] *= alpha[1];
-      o[di][3] *= alpha[1];
-    }
-
-    // O += bf16(P) V: two S column tiles make one A fragment of 16 keys.
+    uint32_t pa[BKV / 16][4];  // bf16(p) as the A fragments of P V
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk) {
-      const uint32_t a[4] = {pack2(s[2 * kk][0], s[2 * kk][1]), pack2(s[2 * kk][2], s[2 * kk][3]),
-                             pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const __nv_bfloat16* vrow = vt + (kk * 16 + (lane & 15)) * RS;
+      float p[8];
 #pragma unroll
-      for (int di = 0; di < D / 8; ++di) {
-        uint32_t bf[2];
-        ldmatrix_x2_trans(bf, vrow + di * 8);
-        mma_bf16(o[di], a, bf);
+      for (int e = 0; e < 8; ++e) {
+        p[e] = ex2(fmaf(sc[8 * kk + e], c, -mc[(e >> 1) & 1]));
+        l[(e >> 1) & 1] += p[e];
       }
+      pa[kk][0] = pack2(p[0], p[1]);
+      pa[kk][1] = pack2(p[2], p[3]);
+      pa[kk][2] = pack2(p[4], p[5]);
+      pa[kk][3] = pack2(p[6], p[7]);
     }
-    __syncthreads();  // the next iteration's load overwrites the other buffer's last reader
+#pragma unroll
+    for (int i = 0; i < NO; i += 4) {
+      o[i] *= alpha[0];
+      o[i + 1] *= alpha[0];
+      o[i + 2] *= alpha[1];
+      o[i + 3] *= alpha[1];
+    }
+
+    // O += bf16(P) V: 8 k-slices of 16 keys, 2048 bytes apart in V's panels;
+    // LBO: the bytes between V's 64-column panels.
+    wgmma_fence_operand<NO>(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      wgmma_pv<D>(o, pa[kk], wgmma_desc(vt + 2048 * kk, PANEL, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operand<NO>(o);
+    mbar_arrive(&empty[s]);
   }
 
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
     const int row = r0 + 8 * hr;
     if (row >= Tq) continue;
     const float inv = l[hr] == 0.f ? 1.f : 1.f / l[hr];
-    if (l_out != nullptr && tig == 0) {  // the backward's row statistics
+    if (l_out != nullptr && t == 0) {  // the backward's row statistics
       const size_t srow = ((size_t)b * NH + h) * Tq + row;
       l_out[srow] = l[hr];
-      m_out[srow] = m[hr];
+      m_out[srow] = m[hr] * sm_scale;
     }
-    __nv_bfloat16* orow = out + (size_t)b * Tq * qstride + (size_t)row * qstride + (size_t)h * D;
+    __nv_bfloat16* orow = out + ((size_t)b * Tq + row) * NH * D + (size_t)h * D;
 #pragma unroll
-    for (int di = 0; di < D / 8; ++di)
-      *reinterpret_cast<__nv_bfloat162*>(orow + di * 8 + tig * 2) =
-          __floats2bfloat162_rn(o[di][2 * hr] * inv, o[di][2 * hr + 1] * inv);
+    for (int jj = 0; jj < D / 8; ++jj)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj + 2 * t) =
+          __floats2bfloat162_rn(o[4 * jj + 2 * hr] * inv, o[4 * jj + 2 * hr + 1] * inv);
   }
 }
 
@@ -210,44 +256,49 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, float* l_out, float* m_out,
            int B, int Tq, int Tkv, int NH, int NKV, float sm_scale, int kv_offset, int causal,
            cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) * 4 * BKV * (D + 8);
+  using C = Cfg<D>;
+  CUtensorMap tmq, tmk, tmv;
+  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!encode_3d(&tmq, bf, 2, q, B, Tq, (uint64_t)NH * D, BQ, 64, sw) ||
+      !encode_3d(&tmk, bf, 2, k, B, Tkv, (uint64_t)NKV * D, BKV, 64, sw) ||
+      !encode_3d(&tmv, bf, 2, v, B, Tkv, (uint64_t)NKV * D, BKV, 64, sw))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto kern = flash_fwd_kernel<D>;
-  static bool opted[64] = {};
+  static bool sized[64] = {};
   int dev = 0;
   cudaGetDevice(&dev);
-  if (dev >= 64 || !opted[dev]) {
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (dev < 64) opted[dev] = true;
+  if (dev >= 64 || !sized[dev]) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < 64) sized[dev] = true;
   }
   dim3 grid((Tq + BQ - 1) / BQ, NH, B);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), l_out, m_out, Tq, Tkv,
-      NH, NKV, sm_scale, kv_offset, causal);
-  return 0;
+  kern<<<grid, THREADS, C::SMEM, stream>>>(tmq, tmk, tmv, static_cast<__nv_bfloat16*>(out), l_out,
+                                           m_out, Tq, Tkv, NH, NKV, sm_scale, kv_offset, causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q [B, Tq, NH, D], k and v [B, Tkv, NKV, D], out [B, Tq, NH, D], all bf16
-// and contiguous. Needs D in {64, 128}, Tkv % 64 == 0 and NH % NKV == 0
-// (checked by the Python wrapper). causal != 0 masks key j for query i
-// unless j <= i + kv_offset. l_out and m_out are null (the primal launch)
-// or f32 [B, NH, Tq]: each row's softmax sum l and max m (of the scaled
-// scores), the statistics flash_bwd recomputes p from.
+// q [B, Tq, NH, D], k and v [B, Tkv, NKV, D], out [B, Tq, NH, D], all bf16,
+// contiguous, with 16-byte-aligned bases (TMA). Needs D in {64, 128}, Tkv %
+// 128 == 0 and NH % NKV == 0 (checked by the Python wrapper). causal != 0
+// masks key j for query i unless j <= i + kv_offset. l_out and m_out are
+// null (the primal launch) or f32 [B, NH, Tq]: each row's softmax sum l and
+// max m (of the scaled scores), the statistics flash_bwd recomputes p from.
+// Returns a cudaError_t (cudaErrorInvalidValue when a TMA descriptor cannot
+// be encoded or D is not 64 or 128).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out, void* l_out,
                          void* m_out, int B, int Tq, int Tkv, int NH, int NKV, int D,
                          float sm_scale, int kv_offset, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lo = static_cast<float*>(l_out);
   float* mo = static_cast<float*>(m_out);
-  if (B > 0 && Tq > 0) {
-    if (D == 64)
-      launch<64>(q, k, v, out, lo, mo, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset, causal, s);
-    else if (D == 128)
-      launch<128>(q, k, v, out, lo, mo, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset, causal, s);
-    else
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (B <= 0 || Tq <= 0) return static_cast<int>(cudaGetLastError());
+  if (D == 64) return launch<64>(q, k, v, out, lo, mo, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset,
+                                 causal, s);
+  if (D == 128) return launch<128>(q, k, v, out, lo, mo, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset,
+                                   causal, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) helpers for kernels that stage tiles through the Tensor
 // Memory Accelerator and multiply them with warpgroup MMAs: mbarriers, 2-D
-// TMA loads, the proxy fence, wgmma shared-memory descriptors, the bf16
-// m64n128k16 and m64n256k16 wgmma with f32 accumulators, named barriers,
-// and the host-side encoder of TMA descriptors (reached through the
-// runtime's entry-point lookup, so a library needs no -lcuda). Used by
-// qmm_int8.cu.
+// and 3-D TMA loads, the proxy fence, wgmma shared-memory descriptors, the
+// bf16 wgmma with f32 accumulators (m64n128k16 and m64n256k16 with both
+// operands in shared memory; m64n64k16 and m64n128k16 with A in registers),
+// named barriers, and the host-side encoders of TMA descriptors (reached
+// through the runtime's entry-point lookup, so a library needs no -lcuda).
+// Used by qmm_int8.cu and flash_fwd.cu.
 //
 // Layouts the descriptors describe (128-byte swizzle: inside each
 // 1024-byte atom of 8 rows of 128 bytes, the 16-byte chunk c of row r sits
@@ -76,6 +77,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(sm90_smem(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(sm90_smem(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The box at (c0 inner, c1, c2 outer) of a 3-D tensor map, as tma_load_2d.
+// Out-of-range elements read 0 within the box's own c2 slice, so a box of
+// rows past the end of one batch row never reads the next batch row.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(sm90_smem(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(sm90_smem(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -195,6 +208,56 @@ __device__ __forceinline__ void wgmma_m64n256k16_bf16(float* d, uint64_t a, uint
       : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
 }
 
+// d (+)= A (64 x 16, in registers) x B (16 x N, desc b; MN-major when
+// TRANS_B) in f32, N = 64 or 128. A's fragment is mma.sync m16n8k16's for
+// each warp's 16 rows: warp w, lane l, g = l / 4, t = l % 4: a[0] = A[16 w +
+// g][2 t .. 2 t + 1], a[1] = A[16 w + g + 8][2 t ..], a[2] = A[16 w + g][2 t +
+// 8 ..], a[3] = A[16 w + g + 8][2 t + 8 ..] (bf16 pairs, low half first). d
+// has the SS form's fragment, so d[8 kk .. 8 kk + 7] of one product packs in
+// pairs into a[0..3] of k-slice kk of the next. a must hold until the wgmma
+// retires.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_rs(float* d, const uint32_t* a, uint64_t b,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_rs(float* d, const uint32_t* a, uint64_t b,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
+}
+
 // ---- host: TMA descriptors ---------------------------------------------------
 
 typedef CUresult (*TensorMapEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -233,6 +296,25 @@ static inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int ele
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t estr[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A row-major [d2][d1][d0] tensor (d0 innermost) of `elem` bytes per
+// element, read in boxes of [1][box1][box0]. Returns false if it cannot be
+// encoded (among others: a base not 16-byte aligned, or a row stride not a
+// multiple of 16 bytes).
+static inline bool encode_3d(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* ptr,
+                             uint64_t d2, uint64_t d1, uint64_t d0, uint32_t box1, uint32_t box0,
+                             CUtensorMapSwizzle swizzle) {
+  TensorMapEncodeTiled fn = tensor_map_encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * static_cast<uint64_t>(elem),
+                                 d0 * d1 * static_cast<uint64_t>(elem)};
+  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, estr,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

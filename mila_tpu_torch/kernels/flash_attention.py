@@ -17,10 +17,15 @@ layer at T 4096, 32 heads).
 
 What bounds it on the H100: tensor-core operations (4 * Tq * Tkv * D per
 head, about half of them skipped by the causal tiles) against Tq + 2 Tkv
-rows of D bf16 values. The CUDA kernel (``csrc/flash_fwd.cu``) runs a block
-of 4 warps per (64 query rows, head, batch row), streams 64-key K/V tiles
-through shared memory (cp.async, double-buffered) and runs both products on
-bf16 ``mma.sync`` with f32 accumulators and the online softmax in f32.
+rows of D bf16 values, and at D 64 nearly as much the exponentials. The
+CUDA kernel (``csrc/flash_fwd.cu``) runs a block per (128 query rows, head,
+batch row): one thread streams the q tile and 128-key K/V tiles through
+shared memory with TMA (3-D maps, 128-byte swizzle, a ring of mbarriers),
+and two warpgroups of 64 query rows each run S = Q K^T and O += P V on
+``wgmma`` (P from registers), with the online softmax in f32 between them
+(one FFMA and one ``ex2`` per score). The wrapper encodes the three TMA
+descriptors per call, so a CUDA graph replays valid ones; a base that is
+not 16-byte aligned is copied first.
 
 Semantics kept from the TPU kernel: the causal tile skip with
 ``kv_offset``, masked scores at -0.7 * f32max, p rounded to V's dtype
@@ -51,7 +56,7 @@ from mila_tpu_torch.kernels import _build
 from mila_tpu_torch.ops.attention import causal_mask, dot_product_attention, flash_tiles_ok
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-_KV_TILE = 64  # keys per tile in csrc/flash_fwd.cu
+_KV_TILE = 128  # keys per tile in csrc/flash_fwd.cu
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
@@ -109,7 +114,9 @@ def _launch(q, k, v, causal: bool, sm_scale: float, kv_offset: int, stats: bool 
                          f"(q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)})")
     if causal and kv_offset < 0:
         raise ValueError("flash_fwd: a negative kv_offset leaves rows with no key")
-    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    # TMA reads from 16-byte-aligned bases only: an offset view is copied.
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    qc, kc, vc = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (qc, kc, vc))
     if not (kc.device == qc.device and vc.device == qc.device):
         raise ValueError("flash_fwd: q, k and v must be on one device")
     out = torch.empty_like(qc)

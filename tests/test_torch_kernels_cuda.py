@@ -564,31 +564,109 @@ def test_int4_decode_entries_route_to_the_int4_kernel(cuda):
     assert qm.quant_linear_int4.launches == before + 3
 
 
-@pytest.mark.parametrize("B,Tq,Tkv,NH,NKV,D,off", [
-    (1, 512, 512, 4, 1, 64, 0),
-    (2, 256, 256, 8, 2, 64, 0),  # G 4
-    (1, 512, 512, 4, 4, 128, 0),  # D 128, G 1
-    (2, 256, 256, 8, 2, 128, 0),
-    (1, 128, 512, 8, 2, 64, 384),  # kv_offset window
-    (2, 80, 256, 4, 1, 64, 176),  # a ragged last q tile
+@pytest.mark.parametrize("B,Tq,Tkv,NH,NKV,D,off,causal", [
+    (1, 512, 512, 4, 1, 64, 0, True),
+    (2, 256, 256, 8, 2, 64, 0, True),  # G 4
+    (1, 512, 512, 4, 4, 128, 0, True),  # D 128, G 1
+    (2, 256, 256, 8, 2, 128, 0, True),
+    (1, 128, 512, 8, 2, 64, 384, True),  # kv_offset window
+    (2, 80, 256, 4, 1, 64, 176, True),  # a ragged last q tile
+    (2, 256, 384, 8, 2, 64, 0, False),  # not causal
+    (2, 208, 384, 8, 2, 128, 0, False),
+    (1, 512, 512, 24, 8, 128, 0, True),  # G 3 at D 128
+    (2, 128, 128, 4, 2, 64, 0, True),  # one key tile
+    (3, 208, 384, 4, 2, 64, 176, True),  # a ragged q tile in a middle batch row
+    (3, 208, 384, 4, 2, 128, 176, True),
+    (8, 1024, 1024, 12, 12, 64, 0, True),  # GPT-2's training shape
 ])
-def test_flash_kernel(cuda, B, Tq, Tkv, NH, NKV, D, off):
+def test_flash_kernel(cuda, B, Tq, Tkv, NH, NKV, D, off, causal):
     from mila_tpu_torch.kernels import flash_attention as fa
 
     q = _rand((B, Tq, NH, D), 48)
     k = _rand((B, Tkv, NKV, D), 49)
     v = _rand((B, Tkv, NKV, D), 50)
     before = fa.flash_attention.launches
-    got = fa.flash_attention(q, k, v, causal=True, kv_offset=off)
+    got = fa.flash_attention(q, k, v, causal=causal, kv_offset=off)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
     # Each (b, t, head) row against its own largest value: a row that
     # attends to n keys holds values of about sqrt(e / n), far under |v|.
-    got, want = got.float(), fa.flash_attention_plain(q, k, v, causal=True,
+    got, want = got.float(), fa.flash_attention_plain(q, k, v, causal=causal,
                                                       kv_offset=off).float()
     assert torch.isfinite(got).all()
     row_err = (got - want).abs().amax(-1) / want.abs().amax(-1)
     assert row_err.max().item() <= 2e-2, f"worst row's relative err {row_err.max().item()}"
+
+
+@pytest.mark.parametrize("B,T,NH,NKV,D,off,causal", [
+    (8, 1024, 12, 12, 64, 0, True),  # GPT-2's training shape
+    (2, 1024, 32, 8, 64, 0, True),  # Llama-3.2-1B's GQA heads
+    (1, 1024, 24, 8, 128, 0, True),  # D 128
+    (3, 208, 4, 2, 64, 176, True),  # ragged q tiles, kv_offset (Tkv 384)
+    (2, 256, 8, 2, 128, 0, False),
+])
+def test_flash_stats_kernel(cuda, B, T, NH, NKV, D, off, causal):
+    # The statistics launch's l and m against the plain version's at
+    # chip_smoke's limits: l within 1e-4 relative (f32 sums in another
+    # order), m within 1e-3 absolute (the max of the scaled scores, m in
+    # natural units though the kernel works in base 2).
+    from mila_tpu_torch.kernels import flash_attention as fa
+
+    q = _rand((B, T, NH, D), 100)
+    k, v = _rand((B, T + off, NKV, D), 101), _rand((B, T + off, NKV, D), 102)
+    sm = D ** -0.5
+    o, l, m = fa.flash_attention_forward(q, k, v, causal=causal, sm_scale=sm, kv_offset=off)
+    o_ref, l_ref, m_ref = fa.flash_attention_plain(q, k, v, causal=causal, scale=sm,
+                                                   kv_offset=off, save_stats=True)
+    assert l.shape == l_ref.shape == m.shape == (B, NH, T)
+    assert _row_err(o, o_ref) <= 2e-2
+    assert ((l - l_ref).abs() / l_ref).max().item() <= 1e-4
+    assert (m - m_ref).abs().max().item() <= 1e-3
+
+
+def test_flash_kernel_graph_replay_and_determinism(cuda):
+    # One call captured in a CUDA graph (the TMA descriptors are kernel
+    # parameters, encoded at capture); q, k, v rewritten in place, then the
+    # replay equals an eager call on the new values bit for bit. Two eager
+    # launches on the same inputs are bit-equal (no atomics, a fixed order).
+    from mila_tpu_torch.kernels import flash_attention as fa
+
+    shape_q, shape_kv = (2, 384, 8, 128), (2, 512, 2, 128)
+    q, k, v = _rand(shape_q, 103), _rand(shape_kv, 104), _rand(shape_kv, 105)
+    sm = 128 ** -0.5
+    first = fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm, kv_offset=128)
+    again = fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm, kv_offset=128)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        graphed = fa.flash_attention(q, k, v, kv_offset=128)
+    q.copy_(_rand(shape_q, 106))
+    k.copy_(_rand(shape_kv, 107))
+    v.copy_(_rand(shape_kv, 108))
+    g.replay()
+    torch.cuda.synchronize()
+    eager = fa.flash_attention(q, k, v, kv_offset=128)
+    assert torch.equal(graphed, eager)
+    assert _row_err(eager, fa.flash_attention_plain(q, k, v, kv_offset=128)) <= 2e-2
+
+
+def test_flash_kernel_copies_an_unaligned_view(cuda):
+    # q as a contiguous view whose base sits 2 bytes past a 16-byte
+    # boundary: TMA cannot read it, so the wrapper copies it and computes.
+    from mila_tpu_torch.kernels import flash_attention as fa
+
+    B, T, NH, NKV, D = 1, 256, 4, 2, 64
+    flat = _rand((B * T * NH * D + 1,), 109)
+    q = flat[1:].view(B, T, NH, D)
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    k, v = _rand((B, T, NKV, D), 110), _rand((B, T, NKV, D), 111)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert _row_err(got, fa.flash_attention_plain(q, k, v)) <= 2e-2
 
 
 def test_flash_kernel_refuses_grad_and_f32(cuda):
