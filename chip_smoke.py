@@ -56,7 +56,8 @@ exits non-zero without the final line):
   kernels train  the training kernels against their plain versions at the
            training path's shapes: flash forward with statistics and flash
            backward (GPT-2 B 8 T 1024, Llama-3.2-1B's GQA heads at T 2048, D
-           128), fused AdamW on wte with and without stochastic rounding
+           128; beside SDPA's forward, its forward + backward and its
+           backward alone), fused AdamW on wte with and without stochastic rounding
            (bit-equal), softmax-CE forward and backward at [8192, 50304];
   parity train  a 2-layer GPT-2 at full width (B 2, T 1024, bf16 + SR
            masters, flash): loss, every gradient leaf and one Model train
@@ -664,6 +665,7 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
                2 * (2 * q.numel() + 2 * k.numel()), 4 * Bf * NHf * Df * pairs,
                gate=f"each (b, t, head) row: max |d| <= {ERR_TOL} x its max |ref|",
                max_row_rel_err=row_err)
+        rows[-1]["tflops"] = 4 * Bf * NHf * Df * pairs / rows[-1]["ms"] / 1e9
         del q, k, v, got, want, qs, ks, vs, library
 
     # Paged decode attention up to 4096 tokens in 128-token pages, cycling
@@ -1401,6 +1403,7 @@ def phase_train_kernels(bw, peak_ops, rng):
                gate=f"each (b, t, head) row of o within {ERR_TOL} of its max |ref|; l rel 1e-4, "
                     "m abs 1e-3",
                max_row_rel_err=o_err, l_rel_err=l_err, m_abs_err=m_err)
+        rows[-1]["tflops"] = 4 * D * pairs / rows[-1]["ms"] / 1e9
         del o_ref, l_ref, m_ref
         hm = [t.transpose(1, 2) for t in (q, k, v, o, do)]
         got = fb.flash_attention_bwd(*hm[:4], l, m, hm[4], causal=True, sm_scale=sm)
@@ -1422,6 +1425,12 @@ def phase_train_kernels(bw, peak_ops, rng):
             out = sdpa(*s_leaves, is_causal=True, enable_gqa=gqa)
             return torch.autograd.grad(out, s_leaves, dos)
 
+        # SDPA's backward alone, the yardstick of the same function as
+        # flash_attention_bwd: one saved forward, its graph kept between calls.
+        s_out = sdpa(*s_leaves, is_causal=True, enable_gqa=gqa)
+        library_bwd_ms = time_eager(
+            lambda: torch.autograd.grad(s_out, s_leaves, dos, retain_graph=True))
+        del s_out
         record("flash_attention_bwd", shape, max(e for e, _ in abs_errs),
                max(r for _, r in abs_errs),
                [lambda: fb.flash_attention_bwd(*hm[:4], l, m, hm[4], causal=True, sm_scale=sm)],
@@ -1431,7 +1440,8 @@ def phase_train_kernels(bw, peak_ops, rng):
                gate=f"each (b, t, head) row of dq, dk, dv within {ERR_TOL} of its max |ref| "
                     "(floored at 1e-3 of the tensor's)",
                library_eager=library, library_what="SDPA is_causal forward + backward",
-               row_rel_errs=errs, fwd_bwd_ms=time_eager(ours))
+               row_rel_errs=errs, fwd_bwd_ms=time_eager(ours), library_bwd_ms=library_bwd_ms)
+        rows[-1]["tflops"] = 10 * D * pairs / rows[-1]["ms"] / 1e9
         del q, k, v, do, o, l, m, hm, qs, ks, vs, dos, leaves, s_leaves
 
     # K12 on wte (50304 x 768 = 38.6M elements): bf16 param and grad, f32

@@ -52,18 +52,23 @@
 
 namespace {
 
-constexpr int BQ = 128, BKV = 128;
+constexpr int BQ = 128;
 constexpr int THREADS = 288;  // warpgroups 0-1 consume, warp 8 loads
 constexpr int CONSUMERS = 256;
-constexpr int PANEL = BKV * 128;  // bytes of one 64-column panel of a 128-row tile
+constexpr int SCHED = 1;  // named barriers SCHED + wg: warpgroup wg's turn to issue
 constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
 
+// BKV keys per K/V tile: 128 at D 64; 64 at D 128, where S (BKV / 2 f32), O
+// (D / 2) and the last tile's P (BKV / 4) live at once in a thread's 168
+// registers. A panel is 64 columns (128 bytes) of a tile's rows.
 template <int D>
 struct Cfg {
+  static constexpr int BKV = D == 64 ? 128 : 64;
   static constexpr int PANELS = D / 64;
-  static constexpr int TILE = PANELS * PANEL;     // a q, K or V tile
-  static constexpr int NT = D == 64 ? 3 : 2;      // stages of the K/V ring
-  static constexpr int SMEM = TILE + NT * 2 * TILE + (2 * NT + 1) * 8 + 1024;
+  static constexpr int Q_PANEL = BQ * 128, KV_PANEL = BKV * 128;
+  static constexpr int Q_TILE = PANELS * Q_PANEL, KV_TILE = PANELS * KV_PANEL;
+  static constexpr int NT = D == 64 ? 3 : 4;  // stages of the K/V ring
+  static constexpr int SMEM = Q_TILE + NT * 2 * KV_TILE + (2 * NT + 1) * 8 + 1024;
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -72,12 +77,105 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// The two consumer warpgroups take turns to issue their products, so one's
+// softmax runs under the other's wgmma: wait for this warpgroup's turn, and
+// pass the turn to the other one.
+__device__ __forceinline__ void sched_wait(int wg) { named_bar_sync(SCHED + wg, CONSUMERS); }
+__device__ __forceinline__ void sched_pass(int wg) { named_bar_arrive(SCHED + 1 - wg, CONSUMERS); }
+
+// S = Q K^T for the warpgroup's 64 rows (qw) against one K tile (kt): D /
+// 16 k-slices, 32 bytes apart in a panel's 128-byte rows. Issued and
+// committed as one group.
 template <int D>
-__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a, uint64_t b) {
-  if constexpr (D == 64)
-    wgmma_m64n64k16_bf16_rs<1>(o, a, b, 1);
-  else
-    wgmma_m64n128k16_bf16_rs<1>(o, a, b, 1);
+__device__ __forceinline__ void issue_s(float* sc, const unsigned char* qw,
+                                        const unsigned char* kt) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int p = kk / 4, off = 32 * (kk % 4);
+    const uint64_t a = wgmma_desc(qw + p * C::Q_PANEL + off, 16, 1024);
+    const uint64_t b = wgmma_desc(kt + p * C::KV_PANEL + off, 16, 1024);
+    if constexpr (C::BKV == 128)
+      wgmma_m64n128k16_bf16<0>(sc, a, b, kk > 0);
+    else
+      wgmma_m64n64k16_bf16<0>(sc, a, b, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += bf16(P) V for one V tile (vt): BKV / 16 k-slices of 16 keys, 2048
+// bytes apart in V's panels; LBO the bytes between V's 64-column panels.
+template <int D>
+__device__ __forceinline__ void issue_pv(float* o, const uint32_t (*pa)[4],
+                                         const unsigned char* vt) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < C::BKV / 16; ++kk) {
+    const uint64_t b = wgmma_desc(vt + 2048 * kk, C::KV_PANEL, 1024);
+    if constexpr (D == 64)
+      wgmma_m64n64k16_bf16_rs<1>(o, pa[kk], b, 1);
+    else
+      wgmma_m64n128k16_bf16_rs<1>(o, pa[kk], b, 1);
+  }
+  wgmma_commit();
+}
+
+// The online softmax of one S tile, in place: sc[4 jj + i] is row r0 + 8
+// (i / 2), key k0 + 8 jj + 2 t + i % 2. Masks (only tiles that reach past
+// the warp's first row, wrow), takes the new row max m of the raw scores
+// over the 4 lanes of each row, alpha = 2^((m_old - m) c), this thread's
+// share of l rescaled and summed, and p = 2^(s c - m c) (one FFMA and one
+// ex2 a score) left in sc.
+template <int BKV>
+__device__ __forceinline__ void softmax_tile(float* sc, float* m, float* l, float* alpha, int k0,
+                                             int wrow, int r0, int t, int kv_offset, int causal,
+                                             float c) {
+  if (causal && k0 + BKV - 1 > wrow + kv_offset) {
+#pragma unroll
+    for (int jj = 0; jj < BKV / 8; ++jj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (k0 + 8 * jj + 2 * t + (i & 1) > r0 + 8 * (i >> 1) + kv_offset)
+          sc[4 * jj + i] = MASK_VALUE;
+  }
+  float mx[2] = {m[0], m[1]}, mc[2];
+#pragma unroll
+  for (int jj = 0; jj < BKV / 8; ++jj) {
+    mx[0] = fmaxf(mx[0], fmaxf(sc[4 * jj], sc[4 * jj + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(sc[4 * jj + 2], sc[4 * jj + 3]));
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+    alpha[hr] = ex2((m[hr] - mx[hr]) * c);
+    m[hr] = mx[hr];
+    mc[hr] = mx[hr] * c;
+    l[hr] *= alpha[hr];
+  }
+#pragma unroll
+  for (int e = 0; e < BKV / 2; ++e) {
+    sc[e] = ex2(fmaf(sc[e], c, -mc[(e >> 1) & 1]));
+    l[(e >> 1) & 1] += sc[e];
+  }
+}
+
+// O *= alpha per row, then p packs into P V's A fragments: d[8 kk .. 8 kk +
+// 7] of S are the four bf16 pairs of k-slice kk.
+template <int NO, int BKV>
+__device__ __forceinline__ void rescale_pack(float* o, uint32_t (*pa)[4], const float* sc,
+                                             const float* alpha) {
+#pragma unroll
+  for (int i = 0; i < NO; i += 4) {
+    o[i] *= alpha[0];
+    o[i + 1] *= alpha[0];
+    o[i + 2] *= alpha[1];
+    o[i + 3] *= alpha[1];
+  }
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kk][r] = pack2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 }
 
 template <int D>
@@ -87,13 +185,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant_
                  float* __restrict__ l_out, float* __restrict__ m_out, int Tq, int Tkv, int NH,
                  int NKV, float sm_scale, int kv_offset, int causal) {
   using C = Cfg<D>;
-  constexpr int NT = C::NT, TILE = C::TILE, NO = D / 2;  // NO: O's f32 registers
+  constexpr int NT = C::NT, BKV = C::BKV, KV_TILE = C::KV_TILE;
+  constexpr int NO = D / 2, NS = BKV / 2;  // O's and S's f32 registers
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (sm90_smem(smem_raw) & 1023)) & 1023);
-  unsigned char* qs = smem;                  // [PANELS][BQ][64] bf16, swizzled
-  unsigned char* ks = qs + TILE;             // [NT] K tiles, as qs
-  unsigned char* vs = ks + NT * TILE;        // [NT] V tiles, as qs
-  uint64_t* full = reinterpret_cast<uint64_t*>(vs + NT * TILE);
+  unsigned char* qs = smem;            // [PANELS][BQ][64] bf16, swizzled
+  unsigned char* ks = qs + C::Q_TILE;  // [NT][PANELS][BKV][64]
+  unsigned char* vs = ks + NT * KV_TILE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + NT * KV_TILE);
   uint64_t* empty = full + NT;
   uint64_t* q_full = empty + NT;
 
@@ -119,18 +218,19 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant_
 
   if (tid >= CONSUMERS) {  // warp 8, one thread: the TMA ring
     if (tid == CONSUMERS) {
-      mbar_expect_tx(q_full, TILE);
+      mbar_expect_tx(q_full, C::Q_TILE);
 #pragma unroll
       for (int p = 0; p < C::PANELS; ++p)
-        tma_load_3d(qs + p * PANEL, &tmq, q_full, h * D + 64 * p, q0, b);
+        tma_load_3d(qs + p * C::Q_PANEL, &tmq, q_full, h * D + 64 * p, q0, b);
       for (int j = 0; j < n_kv; ++j) {
         const int s = j % NT;
         if (j >= NT) mbar_wait(&empty[s], (j / NT - 1) & 1);
-        mbar_expect_tx(&full[s], 2 * TILE);
+        mbar_expect_tx(&full[s], 2 * KV_TILE);
 #pragma unroll
         for (int p = 0; p < C::PANELS; ++p) {
-          tma_load_3d(ks + s * TILE + p * PANEL, &tmk, &full[s], hk * D + 64 * p, j * BKV, b);
-          tma_load_3d(vs + s * TILE + p * PANEL, &tmv, &full[s], hk * D + 64 * p, j * BKV, b);
+          const int col = hk * D + 64 * p;
+          tma_load_3d(ks + s * KV_TILE + p * C::KV_PANEL, &tmk, &full[s], col, j * BKV, b);
+          tma_load_3d(vs + s * KV_TILE + p * C::KV_PANEL, &tmv, &full[s], col, j * BKV, b);
         }
       }
     }
@@ -143,93 +243,59 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant_
   const int wrow = q0 + 64 * wg + 16 * w;  // the warp's first query row
   const int r0 = wrow + g;                 // this thread's rows r0 and r0 + 8
   const float c = sm_scale * 1.4426950408889634f;
+  const unsigned char* qw = qs + wg * 64 * 128;  // the warpgroup's 64 rows of each panel
 
   float o[NO];
 #pragma unroll
   for (int i = 0; i < NO; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this thread's columns
+  float alpha[2];
+  uint32_t pa[BKV / 16][4];  // bf16(p) of the last tile, the A fragments of P V
   mbar_wait(q_full, 0);
-  const unsigned char* qw = qs + wg * 64 * 128;  // the warpgroup's 64 rows of each panel
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int s = j % NT, k0 = j * BKV;
-    mbar_wait(&full[s], (j / NT) & 1);
-    const unsigned char* kt = ks + s * TILE;
-    const unsigned char* vt = vs + s * TILE;
-
-    // S = Q K^T: 64 rows x 128 keys, D / 16 k-slices (32 bytes apart in a
-    // panel's 128-byte rows).
-    float sc[64];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int p = kk / 4, off = 32 * (kk % 4);
-      wgmma_m64n128k16_bf16<0>(sc, wgmma_desc(qw + p * PANEL + off, 16, 1024),
-                               wgmma_desc(kt + p * PANEL + off, 16, 1024), kk > 0);
+  if (n_kv > 0) {
+    // Each turn issues S of tile j and P V of tile j - 1, then runs tile j's
+    // softmax while P V is in flight. Warpgroup 0 takes the first turn; each
+    // warpgroup takes n_kv + 1 turns.
+    if (wg == 1) sched_pass(wg);
+    {
+      float sc[NS];
+      mbar_wait(&full[0], 0);
+      sched_wait(wg);
+      wgmma_fence();
+      issue_s<D>(sc, qw, ks);
+      sched_pass(wg);
+      wgmma_wait<0>();
+      wgmma_fence_operand<NS>(sc);
+      softmax_tile<BKV>(sc, m, l, alpha, 0, wrow, r0, t, kv_offset, causal, c);
+      rescale_pack<NO, BKV>(o, pa, sc, alpha);
     }
-    wgmma_commit();
-    wgmma_wait<0>();
-    wgmma_fence_operand<64>(sc);
-
-    // Mask (only tiles that reach past the warp's first row), row max.
-    // sc[4 jj + i]: row r0 + 8 (i / 2), key k0 + 8 jj + 2 t + i % 2.
-    if (causal && k0 + BKV - 1 > wrow + kv_offset) {
-#pragma unroll
-      for (int jj = 0; jj < 16; ++jj)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (k0 + 8 * jj + 2 * t + (i & 1) > r0 + 8 * (i >> 1) + kv_offset)
-            sc[4 * jj + i] = MASK_VALUE;
+    for (int j = 1; j < n_kv; ++j) {
+      float sc[NS];
+      const int s = j % NT, sp = (j - 1) % NT;
+      mbar_wait(&full[s], (j / NT) & 1);
+      sched_wait(wg);
+      wgmma_fence_operand<NO>(o);
+      wgmma_fence();
+      issue_s<D>(sc, qw, ks + s * KV_TILE);
+      issue_pv<D>(o, pa, vs + sp * KV_TILE);
+      sched_pass(wg);
+      wgmma_wait<1>();
+      wgmma_fence_operand<NS>(sc);
+      softmax_tile<BKV>(sc, m, l, alpha, j * BKV, wrow, r0, t, kv_offset, causal, c);
+      wgmma_wait<0>();
+      wgmma_fence_operand<NO>(o);
+      mbar_arrive(&empty[sp]);
+      rescale_pack<NO, BKV>(o, pa, sc, alpha);
     }
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int jj = 0; jj < 16; ++jj) {
-      mx[0] = fmaxf(mx[0], fmaxf(sc[4 * jj], sc[4 * jj + 1]));
-      mx[1] = fmaxf(mx[1], fmaxf(sc[4 * jj + 2], sc[4 * jj + 3]));
-    }
-    float alpha[2], mc[2];
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
-      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
-      alpha[hr] = ex2((m[hr] - mx[hr]) * c);
-      m[hr] = mx[hr];
-      mc[hr] = mx[hr] * c;
-      l[hr] *= alpha[hr];
-    }
-    uint32_t pa[BKV / 16][4];  // bf16(p) as the A fragments of P V
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      float p[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        p[e] = ex2(fmaf(sc[8 * kk + e], c, -mc[(e >> 1) & 1]));
-        l[(e >> 1) & 1] += p[e];
-      }
-      pa[kk][0] = pack2(p[0], p[1]);
-      pa[kk][1] = pack2(p[2], p[3]);
-      pa[kk][2] = pack2(p[4], p[5]);
-      pa[kk][3] = pack2(p[6], p[7]);
-    }
-#pragma unroll
-    for (int i = 0; i < NO; i += 4) {
-      o[i] *= alpha[0];
-      o[i + 1] *= alpha[0];
-      o[i + 2] *= alpha[1];
-      o[i + 3] *= alpha[1];
-    }
-
-    // O += bf16(P) V: 8 k-slices of 16 keys, 2048 bytes apart in V's panels;
-    // LBO: the bytes between V's 64-column panels.
+    const int sp = (n_kv - 1) % NT;
+    sched_wait(wg);
     wgmma_fence_operand<NO>(o);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk)
-      wgmma_pv<D>(o, pa[kk], wgmma_desc(vt + 2048 * kk, PANEL, 1024));
-    wgmma_commit();
+    issue_pv<D>(o, pa, vs + sp * KV_TILE);
+    if (wg == 0) sched_pass(wg);  // warpgroup 1's last turn follows; nothing follows it
     wgmma_wait<0>();
     wgmma_fence_operand<NO>(o);
-    mbar_arrive(&empty[s]);
+    mbar_arrive(&empty[sp]);
   }
 
 #pragma unroll
@@ -261,8 +327,8 @@ int launch(const void* q, const void* k, const void* v, void* out, float* l_out,
   const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
   if (!encode_3d(&tmq, bf, 2, q, B, Tq, (uint64_t)NH * D, BQ, 64, sw) ||
-      !encode_3d(&tmk, bf, 2, k, B, Tkv, (uint64_t)NKV * D, BKV, 64, sw) ||
-      !encode_3d(&tmv, bf, 2, v, B, Tkv, (uint64_t)NKV * D, BKV, 64, sw))
+      !encode_3d(&tmk, bf, 2, k, B, Tkv, (uint64_t)NKV * D, C::BKV, 64, sw) ||
+      !encode_3d(&tmv, bf, 2, v, B, Tkv, (uint64_t)NKV * D, C::BKV, 64, sw))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = flash_fwd_kernel<D>;
   static bool sized[64] = {};

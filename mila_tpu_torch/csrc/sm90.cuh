@@ -1,8 +1,9 @@
 // Hopper (sm_90a) helpers for kernels that stage tiles through the Tensor
 // Memory Accelerator and multiply them with warpgroup MMAs: mbarriers, 2-D
 // and 3-D TMA loads, the proxy fence, wgmma shared-memory descriptors, the
-// bf16 wgmma with f32 accumulators (m64n128k16 and m64n256k16 with both
-// operands in shared memory; m64n64k16 and m64n128k16 with A in registers),
+// bf16 wgmma with f32 accumulators (m64n64k16, m64n128k16 and m64n256k16
+// with both operands in shared memory; m64n64k16 and m64n128k16 with A in
+// registers),
 // named barriers, and the host-side encoders of TMA descriptors (reached
 // through the runtime's entry-point lookup, so a library needs no -lcuda).
 // Used by qmm_int8.cu and flash_fwd.cu.
@@ -137,6 +138,11 @@ __device__ __forceinline__ void named_bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
+// Arrive at named barrier `id` over `n` threads without waiting for it.
+__device__ __forceinline__ void named_bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // d[64] (+)= A (64 x 16, K-major, desc a) x B (16 x 128, desc b; MN-major when
 // TRANS_B) in f32; accumulate = 0 overwrites d. Fragment of d: warp w of the
 // warpgroup, lane l: d[4 j + i] is row 16 w + l / 4 + 8 (i / 2), column
@@ -163,6 +169,24 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float* d, uint64_t a, uint
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+}
+
+// d[32] (+)= A (64 x 16) x B (16 x 64): as m64n128k16, half as wide.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_bf16(float* d, uint64_t a, uint64_t b,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
 }
 

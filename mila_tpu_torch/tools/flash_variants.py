@@ -33,6 +33,22 @@ from mila_tpu_torch.ops import causal_mask
 SRC = "flash_fwd.cu"
 VARIANTS = {  # name -> [(file, old text, new text)]
     "committed": [],
+    # the two consumer warpgroups issue their products whenever they are
+    # ready, without taking turns
+    "no_pingpong": [(SRC, "{ named_bar_sync(SCHED + wg, CONSUMERS); }", "{}"),
+                    (SRC, "{ named_bar_arrive(SCHED + 1 - wg, CONSUMERS); }", "{}")],
+    # what each part costs (wrong results; only their times mean anything):
+    # no exponentials (the FFMA stays), no S = Q K^T, no O += P V, neither product
+    "no_ex2": [(SRC, "sc[e] = ex2(fmaf(", "sc[e] = (fmaf(")],
+    "no_s": [(SRC, "for (int kk = 0; kk < D / 16; ++kk) {", "for (int kk = 0; kk < 0; ++kk) {")],
+    "no_pv": [(SRC, "for (int kk = 0; kk < C::BKV / 16; ++kk) {",
+               "for (int kk = 0; kk < 0; ++kk) {")],
+    "no_mma": [(SRC, "for (int kk = 0; kk < D / 16; ++kk) {", "for (int kk = 0; kk < 0; ++kk) {"),
+               (SRC, "for (int kk = 0; kk < C::BKV / 16; ++kk) {",
+                "for (int kk = 0; kk < 0; ++kk) {")],
+    # 128-key tiles at D 128 too (S, O and P then exceed the registers)
+    "bkv128": [(SRC, "BKV = D == 64 ? 128 : 64;", "BKV = 128;"),
+               (SRC, "NT = D == 64 ? 3 : 4;", "NT = D == 64 ? 3 : 2;")],
 }
 # (B, Tq, Tkv, NH, NKV, D, statistics): chip_smoke's four primal rows and its
 # three statistics rows.
@@ -70,7 +86,7 @@ def build(names) -> dict:
         if proc.returncode:
             raise RuntimeError(f"variant {name}: nvcc failed\n{log[-3000:]}")
         ptxas = [ln.strip() for ln in log.splitlines()
-                 if re.search(r"registers|spill|Compiling entry", ln)]
+                 if re.search(r"registers|spill|Compiling entry|warning", ln)]
         print(json.dumps({"variant": name, "ptxas": ptxas}), flush=True)
         lib = ctypes.CDLL(str(_build.BUILD_DIR / f"flash_variant_{name}" / "libflash.so"))
         vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -133,9 +149,12 @@ def main() -> None:
                                    sm, off, 1, stream)
                 if rc:
                     raise RuntimeError(f"{vname}: CUDA error {rc}")
+            for t in (out, l, m):  # nothing left over from the variant before
+                if t is not None:
+                    t.fill_(float("nan"))
             call()
             torch.cuda.synchronize()
-            res = {"row_err": row_err(out, o_ref)}
+            res = {"row_err": row_err(out, o_ref)}  # inf where the output is not finite
             if stats:
                 res["l_rel_err"] = ((l - l_ref).abs() / l_ref).max().item()
                 res["m_abs_err"] = (m - m_ref).abs().max().item()
