@@ -15,18 +15,27 @@
 // Design: one block of 288 threads per (q tile of 128 rows, head, batch
 // row), the q tiles heaviest first (the causal skip leaves the last tiles
 // the most keys):
-//   warp 8, one thread: TMA loads of the q tile (once) and of each 128-key K
-//     and V tile into a ring of NT stages (full / empty mbarriers), 128-byte
-//     swizzled, through 3-D maps over [B][T][heads * D] in boxes of {64
-//     columns, 128 rows, 1}: rows past Tq or Tkv read zeros inside their own
+//   warp 8, one thread: TMA loads of the q tile (once) and of each K and V
+//     tile of BKV keys into a ring of NT stages (full / empty mbarriers),
+//     128-byte swizzled, through 3-D maps over [B][T][heads * D] in boxes of
+//     {64 columns, rows, 1}: rows past Tq or Tkv read zeros inside their own
 //     batch row. D 128 is two 64-column panels per tile.
 //   warpgroups 0-1 (consumers, 64 query rows each, sharing every K/V tile):
-//     S = Q K^T as wgmma m64n128k16 with both operands in shared memory (K
+//     S = Q K^T as wgmma m64nBKVk16 with both operands in shared memory (K
 //     K-major, as TMA writes it); the online softmax in f32 on S's
 //     registers (row max and sum over the 4 lanes of a row); O += P V as
 //     wgmma with P in registers (S's accumulator packs into P's A fragment
 //     without a shuffle) and V read MN-major (the transpose bit): m64n64k16
 //     at D 64, m64n128k16 at D 128.
+//   Each consumer issues S of tile j, rescales O while it runs, issues P V
+//     of tile j - 1 behind it, and runs tile j's softmax once S is in. The
+//     two warpgroups take turns to issue (two named barriers), so one's
+//     softmax runs under the other's products. (ptxas issues the wait for
+//     P V before the softmax, not after it: forcing it after, behind a
+//     branch, measured slower; tools/flash_variants.)
+// BKV is 128 at D 64 and 64 at D 128: S, O and the last tile's P live at
+// once, and at D 128 with 128-key tiles they would need more than the 168
+// registers a thread has under one 288-thread block per SM (ptxas spills).
 // The softmax keeps the row max m of the raw scores q.k and folds sm_scale *
 // log2(e) into one FFMA per score: p = 2^(s c - m c) with c = sm_scale *
 // log2(e), which is exp(s sm_scale - m sm_scale).
@@ -41,7 +50,7 @@
 // masked scores take the finite -0.7 * f32max (as raw scores, before the
 // scaling, so that s c cannot overflow to -inf for sm_scale < 1); p is
 // rounded to V's dtype (bf16) before P V while l sums the f32 p, both
-// against the running max of the 128-key tiles; 1 / l with l == 0 guarded
+// against the running max of the key tiles; 1 / l with l == 0 guarded
 // at the store; query head h reads KV head h / G (G = NH / NKV, natural
 // order). Layouts are the model's: q and out [B, Tq, NH, D], k and v [B,
 // Tkv, NKV, D], contiguous, 16-byte-aligned bases. Rows past Tq in the last
@@ -160,11 +169,9 @@ __device__ __forceinline__ void softmax_tile(float* sc, float* m, float* l, floa
   }
 }
 
-// O *= alpha per row, then p packs into P V's A fragments: d[8 kk .. 8 kk +
-// 7] of S are the four bf16 pairs of k-slice kk.
-template <int NO, int BKV>
-__device__ __forceinline__ void rescale_pack(float* o, uint32_t (*pa)[4], const float* sc,
-                                             const float* alpha) {
+// O *= alpha per row (alpha of the tile whose P V comes next).
+template <int NO>
+__device__ __forceinline__ void rescale_o(float* o, const float* alpha) {
 #pragma unroll
   for (int i = 0; i < NO; i += 4) {
     o[i] *= alpha[0];
@@ -172,6 +179,12 @@ __device__ __forceinline__ void rescale_pack(float* o, uint32_t (*pa)[4], const 
     o[i + 2] *= alpha[1];
     o[i + 3] *= alpha[1];
   }
+}
+
+// p packs into P V's A fragments: d[8 kk .. 8 kk + 7] of S are the four
+// bf16 pairs of k-slice kk.
+template <int BKV>
+__device__ __forceinline__ void pack_p(uint32_t (*pa)[4], const float* sc) {
 #pragma unroll
   for (int kk = 0; kk < BKV / 16; ++kk)
 #pragma unroll
@@ -253,9 +266,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant_
   uint32_t pa[BKV / 16][4];  // bf16(p) of the last tile, the A fragments of P V
   mbar_wait(q_full, 0);
   if (n_kv > 0) {
-    // Each turn issues S of tile j and P V of tile j - 1, then runs tile j's
-    // softmax while P V is in flight. Warpgroup 0 takes the first turn; each
-    // warpgroup takes n_kv + 1 turns.
+    // Each turn issues S of tile j, rescales O while it runs and issues P V
+    // of tile j - 1; then tile j's softmax. Warpgroup 0 takes the first
+    // turn; each warpgroup takes n_kv + 1 turns.
     if (wg == 1) sched_pass(wg);
     {
       float sc[NS];
@@ -267,16 +280,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant_
       wgmma_wait<0>();
       wgmma_fence_operand<NS>(sc);
       softmax_tile<BKV>(sc, m, l, alpha, 0, wrow, r0, t, kv_offset, causal, c);
-      rescale_pack<NO, BKV>(o, pa, sc, alpha);
+      pack_p<BKV>(pa, sc);
     }
     for (int j = 1; j < n_kv; ++j) {
       float sc[NS];
       const int s = j % NT, sp = (j - 1) % NT;
       mbar_wait(&full[s], (j / NT) & 1);
       sched_wait(wg);
-      wgmma_fence_operand<NO>(o);
       wgmma_fence();
       issue_s<D>(sc, qw, ks + s * KV_TILE);
+      rescale_o<NO>(o, alpha);
+      wgmma_fence_operand<NO>(o);
+      wgmma_fence();
       issue_pv<D>(o, pa, vs + sp * KV_TILE);
       sched_pass(wg);
       wgmma_wait<1>();
@@ -285,10 +300,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant_
       wgmma_wait<0>();
       wgmma_fence_operand<NO>(o);
       mbar_arrive(&empty[sp]);
-      rescale_pack<NO, BKV>(o, pa, sc, alpha);
+      pack_p<BKV>(pa, sc);
     }
     const int sp = (n_kv - 1) % NT;
     sched_wait(wg);
+    rescale_o<NO>(o, alpha);
     wgmma_fence_operand<NO>(o);
     wgmma_fence();
     issue_pv<D>(o, pa, vs + sp * KV_TILE);

@@ -19,11 +19,12 @@ What bounds it on the H100: tensor-core operations (4 * Tq * Tkv * D per
 head, about half of them skipped by the causal tiles) against Tq + 2 Tkv
 rows of D bf16 values, and at D 64 nearly as much the exponentials. The
 CUDA kernel (``csrc/flash_fwd.cu``) runs a block per (128 query rows, head,
-batch row): one thread streams the q tile and 128-key K/V tiles through
-shared memory with TMA (3-D maps, 128-byte swizzle, a ring of mbarriers),
-and two warpgroups of 64 query rows each run S = Q K^T and O += P V on
-``wgmma`` (P from registers), with the online softmax in f32 between them
-(one FFMA and one ``ex2`` per score). The wrapper encodes the three TMA
+batch row): one thread streams the q tile and the K/V tiles (128 keys at D
+64, 64 at D 128) through shared memory with TMA (3-D maps, 128-byte
+swizzle, a ring of mbarriers), and two warpgroups of 64 query rows each run
+S = Q K^T and O += P V on ``wgmma`` (P from registers), taking turns so
+that one's online softmax in f32 (one FFMA and one ``ex2`` per score) runs
+under the other's products. The wrapper encodes the three TMA
 descriptors per call, so a CUDA graph replays valid ones; a base that is
 not 16-byte aligned is copied first.
 
@@ -56,7 +57,7 @@ from mila_tpu_torch.kernels import _build
 from mila_tpu_torch.ops.attention import causal_mask, dot_product_attention, flash_tiles_ok
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-_KV_TILE = 128  # keys per tile in csrc/flash_fwd.cu
+_KV_TILE = 128  # Tkv's multiple: csrc/flash_fwd.cu's key tiles are 128 or 64 keys
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, scale: Optional[float] = None,

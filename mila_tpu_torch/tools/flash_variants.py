@@ -38,14 +38,41 @@ VARIANTS = {  # name -> [(file, old text, new text)]
     "no_pingpong": [(SRC, "{ named_bar_sync(SCHED + wg, CONSUMERS); }", "{}"),
                     (SRC, "{ named_bar_arrive(SCHED + 1 - wg, CONSUMERS); }", "{}")],
     # what each part costs (wrong results; only their times mean anything):
-    # no exponentials (the FFMA stays), no S = Q K^T, no O += P V, neither product
+    # no exponentials (the FFMA stays), neither product
     "no_ex2": [(SRC, "sc[e] = ex2(fmaf(", "sc[e] = (fmaf(")],
-    "no_s": [(SRC, "for (int kk = 0; kk < D / 16; ++kk) {", "for (int kk = 0; kk < 0; ++kk) {")],
-    "no_pv": [(SRC, "for (int kk = 0; kk < C::BKV / 16; ++kk) {",
-               "for (int kk = 0; kk < 0; ++kk) {")],
     "no_mma": [(SRC, "for (int kk = 0; kk < D / 16; ++kk) {", "for (int kk = 0; kk < 0; ++kk) {"),
                (SRC, "for (int kk = 0; kk < C::BKV / 16; ++kk) {",
                 "for (int kk = 0; kk < 0; ++kk) {")],
+    # no softmax (nor O's rescale and P's packing), and then no products either
+    "no_softmax": [(SRC, "float c) {\n  if (causal && k0", "float c) {\n  return;\n  if (causal && k0"),
+                   (SRC, "const float* alpha) {\n", "const float* alpha) {\n  return;\n"),
+                   (SRC, "const float* sc) {\n", "const float* sc) {\n  return;\n")],
+    "loads_only": [(SRC, "float c) {\n  if (causal && k0", "float c) {\n  return;\n  if (causal && k0"),
+                   (SRC, "const float* alpha) {\n", "const float* alpha) {\n  return;\n"),
+                   (SRC, "const float* sc) {\n", "const float* sc) {\n  return;\n"),
+                   (SRC, "for (int kk = 0; kk < D / 16; ++kk) {",
+                    "for (int kk = 0; kk < 0; ++kk) {"),
+                   (SRC, "for (int kk = 0; kk < C::BKV / 16; ++kk) {",
+                    "for (int kk = 0; kk < 0; ++kk) {")],
+    # no K/V loads: the products and the softmax run on whatever the ring holds
+    "no_kv_loads": [(SRC, "mbar_expect_tx(&full[s], 2 * KV_TILE);", "mbar_expect_tx(&full[s], 0);"),
+                    (SRC, "tma_load_3d(ks + s * KV_TILE", "if (0) tma_load_3d(ks + s * KV_TILE"),
+                    (SRC, "tma_load_3d(vs + s * KV_TILE", "if (0) tma_load_3d(vs + s * KV_TILE")],
+    # P V's wait behind a branch on the softmax's sum: ptxas otherwise issues
+    # it before the softmax, so P V of the last tile does not run under it
+    "wait_after_branch": [(SRC, "      wgmma_wait<0>();\n      wgmma_fence_operand<NO>(o);\n"
+                                "      mbar_arrive(&empty[sp]);",
+                           "      if (l[0] >= 0.f) wgmma_wait<0>(); else { asm volatile("
+                           "\"wgmma.wait_group.sync.aligned 0; // nan\\n\" ::: \"memory\"); }\n"
+                           "      wgmma_fence_operand<NO>(o);\n      mbar_arrive(&empty[sp]);")],
+    # p truncated to bf16 by a byte permute instead of cvt.rn (wrong rounding)
+    "no_cvt": [(SRC, "pa[kk][r] = pack2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);",
+                "pa[kk][r] = __byte_perm(__float_as_uint(sc[8 * kk + 2 * r]), "
+                "__float_as_uint(sc[8 * kk + 2 * r + 1]), 0x7632);")],
+    # O never rescaled (wrong results)
+    "no_rescale": [(SRC, "(float* o, const float* alpha) {\n", "(float* o, const float* alpha) {\n  return;\n")],
+    # a deeper K/V ring
+    "more_stages": [(SRC, "NT = D == 64 ? 3 : 4;", "NT = D == 64 ? 5 : 6;")],
     # 128-key tiles at D 128 too (S, O and P then exceed the registers)
     "bkv128": [(SRC, "BKV = D == 64 ? 128 : 64;", "BKV = 128;"),
                (SRC, "NT = D == 64 ? 3 : 4;", "NT = D == 64 ? 3 : 2;")],
