@@ -11,7 +11,8 @@
 // per head, about half skipped by the causal tiles, against Tq + 2 Tkv rows
 // of D bf16 values), and at D 64 nearly as much the exponentials: one MUFU
 // op per score at 16 a clock per SM takes as long as the score's 4 D = 256
-// tensor-core operations.
+// tensor-core operations. Measured, the softmax sets the pace: without the
+// products it takes 70-80 % of the kernel's time (tools/flash_variants).
 // Design: one block of 288 threads per (q tile of 128 rows, head, batch
 // row), the q tiles heaviest first (the causal skip leaves the last tiles
 // the most keys):
@@ -67,9 +68,8 @@ constexpr int CONSUMERS = 256;
 constexpr int SCHED = 1;  // named barriers SCHED + wg: warpgroup wg's turn to issue
 constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
 
-// BKV keys per K/V tile: 128 at D 64; 64 at D 128, where S (BKV / 2 f32), O
-// (D / 2) and the last tile's P (BKV / 4) live at once in a thread's 168
-// registers. A panel is 64 columns (128 bytes) of a tile's rows.
+// BKV keys per K/V tile (see above). A panel is 64 columns (128 bytes) of a
+// tile's rows.
 template <int D>
 struct Cfg {
   static constexpr int BKV = D == 64 ? 128 : 64;
