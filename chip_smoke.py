@@ -165,6 +165,24 @@ def time_eager(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
+def time_back_to_back(fn, calls: int = 20, reps: int = 5) -> float:
+    """ms per call of ``fn``: CUDA events around ``calls`` back-to-back
+    calls, the median of ``reps`` repeats. For closures a graph cannot hold
+    (autograd), and for a kernel timed the same way beside them."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
 def max_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     """(max |got - want|, max |want|)."""
     got, want = got.float(), want.float()
@@ -228,18 +246,21 @@ def recorder(rows: list, bw: float, peak_ops: float):
     replays, ``plain`` eagerly; ``library_eager`` instead of ``library``:
     a closure a graph cannot hold (autograd, an optimizer's step), timed
     eagerly. ``peak``: the operations' rate where it is not the bf16
-    tensor-core one. gate: the description of a gate the caller has checked
-    already; otherwise err must be within ERR_TOL x ref."""
+    tensor-core one. ``library_timed``: the library call's ms, timed by the
+    caller. gate: the description of a gate the caller has checked already;
+    otherwise err must be within ERR_TOL x ref."""
     def record(entry, shape, err, ref, calls, plain, library, nbytes, nops, gate=None,
-               library_eager=None, peak=None, **extra):
+               library_eager=None, peak=None, library_timed=None, **extra):
         if gate is None and err > ERR_TOL * ref:
             raise AssertionError(f"{entry}[{shape}]: max abs err {err} > {ERR_TOL} x {ref}")
-        if library is not None and library_eager is not None:
-            raise ValueError(f"{entry}: the library call is timed one way, graph or eager")
+        if sum(x is not None for x in (library, library_eager, library_timed)) > 1:
+            raise ValueError(f"{entry}: the library call is timed one way")
         b_ms, b_by = bound(nbytes, nops, bw, peak or peak_ops)
         lib_ms = None if library is None else time_graph(library)
         if library_eager is not None:
             lib_ms = time_eager(library_eager)
+        if library_timed is not None:
+            lib_ms = library_timed
         rows.append({"entry": entry, "shape": shape, "max_abs_err": err,
                      "tolerance": gate or ERR_TOL * ref, "ms": time_graph(calls),
                      "plain_ms": time_eager(plain), "library_ms": lib_ms,
@@ -1378,8 +1399,9 @@ def phase_train_kernels(bw, peak_ops, rng):
     # Llama-3.2-1B's GQA heads at T 2048, and D 128 (24 heads over 8), all
     # causal. Gate: each (b, t, head) row of o, dq, dk, dv within ERR_TOL of
     # its own largest value (max_row_err; floored for the gradients); l and
-    # m within 1e-4 / 1e-3 of the plain version's. Library: SDPA forward, and SDPA forward + backward
-    # through autograd beside ours (fwd_bwd_ms).
+    # m within 1e-4 / 1e-3 of the plain version's. Library: SDPA forward;
+    # SDPA's backward alone; SDPA forward + backward through autograd beside
+    # ours (fwd_bwd_ms).
     for B, T, NH, NKV, D in ((8, 1024, 12, 12, 64), (2, 2048, 32, 8, 64), (1, 2048, 24, 8, 128)):
         sm = D ** -0.5
         shape = f"B={B} T={T} NH={NH} NKV={NKV} D={D}"
@@ -1426,21 +1448,29 @@ def phase_train_kernels(bw, peak_ops, rng):
             return torch.autograd.grad(out, s_leaves, dos)
 
         # SDPA's backward alone, the yardstick of the same function as
-        # flash_attention_bwd: one saved forward, its graph kept between calls.
+        # flash_attention_bwd (one saved forward, its graph kept between
+        # calls), and ours timed the same way: CUDA events around 20
+        # back-to-back calls, the median of 5 (ours also as a graph replay).
+        def ours_bwd():
+            return fb.flash_attention_bwd(*hm[:4], l, m, hm[4], causal=True, sm_scale=sm)
+
         s_out = sdpa(*s_leaves, is_causal=True, enable_gqa=gqa)
-        library_bwd_ms = time_eager(
+        library_bwd_ms = time_back_to_back(
             lambda: torch.autograd.grad(s_out, s_leaves, dos, retain_graph=True))
         del s_out
         record("flash_attention_bwd", shape, max(e for e, _ in abs_errs),
-               max(r for _, r in abs_errs),
-               [lambda: fb.flash_attention_bwd(*hm[:4], l, m, hm[4], causal=True, sm_scale=sm)],
+               max(r for _, r in abs_errs), [ours_bwd],
                lambda: fb.flash_attention_bwd_plain(*hm[:4], l, m, hm[4], causal=True,
                                                     sm_scale=sm),
                None, 2 * (4 * q.numel() + 4 * k.numel()) + 2 * 4 * B * NH * T, 10 * D * pairs,
                gate=f"each (b, t, head) row of dq, dk, dv within {ERR_TOL} of its max |ref| "
                     "(floored at 1e-3 of the tensor's)",
-               library_eager=library, library_what="SDPA is_causal forward + backward",
-               row_rel_errs=errs, fwd_bwd_ms=time_eager(ours), library_bwd_ms=library_bwd_ms)
+               library_timed=library_bwd_ms,
+               library_what="SDPA is_causal backward alone (autograd.grad on one saved "
+                            "forward), 20 back-to-back calls between CUDA events",
+               row_rel_errs=errs, library_bwd_ms=library_bwd_ms,
+               bwd_back_to_back_ms=time_back_to_back(ours_bwd), fwd_bwd_ms=time_eager(ours),
+               library_fwd_bwd_ms=time_eager(library))
         rows[-1]["tflops"] = 10 * D * pairs / rows[-1]["ms"] / 1e9
         del q, k, v, do, o, l, m, hm, qs, ks, vs, dos, leaves, s_leaves
 

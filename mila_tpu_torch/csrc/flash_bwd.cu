@@ -1,51 +1,117 @@
 // flash_bwd: the causal grouped-query flash-attention backward, bf16 in and
-// out, from the forward's row statistics.
+// out, from the forward's row statistics, on Hopper's TMA and warpgroup MMA.
 //
 // Replaces the TPU kernels mila_tpu/kernels/flash_attention_bwd.py:
 // _dkv_kernel (dK, dV) and _dq_kernel (dQ), entry flash_attention_bwd,
 // reached from _fa_bwd (flash_attention.py). Per tile, as there:
 //   p  = exp(s * scale - m) / l        (l == 0 taken as 1; masked p = 0)
 //   dv += bf16(p)^T do
-//   ds = p * (do v^T - D) * scale,     D = rowsum(o * do) in f32 (the
-//                                      wrapper computes it, as JAX does)
+//   ds = p * (do v^T - D) * scale,     D = rowsum(o * do) in f32
 //   dk += bf16(ds)^T q,  dq += bf16(ds) k
 // with the causal tile skip under kv_offset >= 0. dq is rounded to q's
 // dtype, dk and dv to k's.
 //
 // Bound on the H100: tensor-core operations (five products of 2 * D
-// multiply-adds per visible (query, key) pair and head: S and dP in both
-// kernels, dV, dK, dQ) against q, k, v, do, dq, dk, dv read or written
-// once. Design: two kernels, both 4 warps of 16 rows each over 64 x 64
-// tiles on mma.sync m16n8k16 bf16 with f32 accumulators, the same fragment
-// moves as flash_fwd.cu (an accumulator tile becomes an A fragment through
-// pack2; a row-major [k][n] tile gives B through ldmatrix.trans).
-//   dkv: one block per (64 keys, KV head, batch row). K and V stay in
-//        shared memory; the block sweeps the q tiles that see its keys for
-//        every query head of the group (h = hk * G .. hk * G + G - 1),
-//        streaming Q, dO and the rows' m, l, D through shared memory with
-//        cp.async, double-buffered. Each warp computes S^T and dP^T for its
-//        16 keys, so P^T and dS^T are A fragments in place. dK and dV sum
-//        over the group in one f32 accumulator inside the block (the TPU
-//        kernel writes f32 per query head and sums afterwards: the results
-//        differ in f32 order only) and are written once, in k's dtype.
-//   dq:  one block per (64 query rows, head, batch row), the layout of
-//        flash_fwd: Q and dO tiles in shared memory, K/V tiles streamed
-//        and double-buffered, the rows' m, l, D in registers.
-// Layouts are the model's: q, do, dq [B, Tq, NH, D], k, v, dk, dv [B, Tkv,
-// NKV, D], contiguous; m, l, D f32 [B, NH, Tq]. Query rows past Tq in the
-// last q tile load as zeros and have p = 0.
+// multiply-adds per visible (query, key) pair and head) against q, k, v, o,
+// do, dq, dk, dv read or written once. Three launches:
+//   stats: per (batch, head, query row) D = sum_d o do in f32 and lse2 =
+//     (m + ln l) log2(e) (l == 0 taken as 1), one warp per 4 (D 64) or 2
+//     (D 128) rows with 16-byte loads of o and do in the model layout, into
+//     f32 [B, NH, Tq64] (Tq rounded up to 64; rows past Tq get lse2 = +inf
+//     and D = 0, so their p is 0). Both passes then form p = 2^(s c - lse2)
+//     with c = scale log2(e): one FFMA and one ex2 a score, no divide.
+//   dkv: one block per (64 keys, KV head, batch row) on mma.sync (the PR 5
+//     design): K and V stay in shared memory; the block sweeps the q tiles
+//     that see its keys for every query head of the group, streaming Q, dO
+//     and the rows' lse2 and D with cp.async, double-buffered; dK and dV
+//     sum over the group in one f32 accumulator inside the block.
+//   dq: the forward's skeleton (flash_fwd.cu): one block of 288 threads per
+//     (128 query rows, head, batch row), heaviest q tiles first; warp 8, one
+//     thread, loads Q and dO once and streams 64-key K/V tiles through a TMA
+//     ring (3-D maps over [B][T][heads * D], boxes {64 columns, 64 rows, 1},
+//     128-byte swizzle; rows past T read zeros within their batch row); two
+//     consumer warpgroups of 64 rows run S = Q K^T and dP = dO V^T as SS
+//     wgmma m64n64k16, form dS in S's registers, and dQ += bf16(dS) K as RS
+//     wgmma (dS packs into A's fragment, K read MN-major through the
+//     transpose bit). Each issues S and dP of tile j with dQ of tile j - 1
+//     behind them, and the two take turns to issue (named barriers), so one
+//     warpgroup's exponentials run under the other's products. The rows'
+//     lse2 and D stay in registers.
+// Layouts are the model's: q, o, do, dq [B, Tq, NH, D], k, v, dk, dv [B,
+// Tkv, NKV, D], contiguous, 16-byte-aligned bases; l, m f32 [B, NH, Tq].
 #include "common.cuh"
 #include "mma.cuh"
+#include "sm90.cuh"
 
 namespace {
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int STATS_THREADS = 256;
+constexpr int TQ_ALIGN = 64;  // the statistics rows are padded to this
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- stats -------------------------------------------------------------------
+
+// Rows in the model's order (b, t, h), D / 8 lanes a row, each lane 8 of
+// its values (16 bytes); the sum over the row's lanes by shuffles.
+template <int D>
+__global__ void __launch_bounds__(STATS_THREADS)
+flash_bwd_stats_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ l, const float* __restrict__ m,
+                       float* __restrict__ lse2, float* __restrict__ delta, int B, int Tq,
+                       int Tq64, int NH) {
+  constexpr int LPR = D / 8;
+  const int part = threadIdx.x % LPR;
+  const long long r = (long long)blockIdx.x * (STATS_THREADS / LPR) + threadIdx.x / LPR;
+  const long long rows = (long long)B * Tq64 * NH;
+  const int h = static_cast<int>(r % NH);
+  const int t = static_cast<int>((r / NH) % Tq64);
+  const int b = static_cast<int>(r / ((long long)NH * Tq64));
+  const bool live = r < rows && t < Tq;
+  float acc = 0.f;
+  if (live) {
+    const size_t off = (((size_t)b * Tq + t) * NH + h) * D + 8 * part;
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + off);
+    const uint4 dv = *reinterpret_cast<const uint4*>(dout + off);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 a = __bfloat1622float2(o2[i]), c = __bfloat1622float2(d2[i]);
+      acc = fmaf(a.x, c.x, acc);
+      acc = fmaf(a.y, c.y, acc);
+    }
+  }
+#pragma unroll
+  for (int s = LPR / 2; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
+  if (r < rows && part == 0) {
+    const size_t out = ((size_t)b * NH + h) * Tq64 + t;
+    if (live) {
+      const size_t in = ((size_t)b * NH + h) * Tq + t;
+      const float lv = l[in];
+      lse2[out] = fmaf(m[in], LOG2E, log2f(lv == 0.f ? 1.f : lv));
+      delta[out] = acc;
+    } else {
+      lse2[out] = INFINITY;
+      delta[out] = 0.f;
+    }
+  }
+}
+
+// ---- dkv (mma.sync) --------------------------------------------------------------
 
 constexpr int BQ = 64, BKV = 64, THREADS = 128;
 
 struct Args {
   const __nv_bfloat16 *q, *k, *v, *dout;
-  const float *m, *l, *delta;
+  const float *lse2, *delta;
   __nv_bfloat16 *dq, *dk, *dv;
-  int Tq, Tkv, NH, NKV;
+  int Tq, Tq64, Tkv, NH, NKV;
   float sm_scale;
   int kv_offset, causal;
 };
@@ -75,13 +141,14 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Args a) {
   __nv_bfloat16* Vs = Ks + TILE;                                    // [BKV][RS]
   __nv_bfloat16* Qs = Vs + TILE;                                    // [2][BQ][RS]
   __nv_bfloat16* Os = Qs + 2 * TILE;                                // dO [2][BQ][RS]
-  float* St = reinterpret_cast<float*>(Os + 2 * TILE);             // [2][m, l, D][BQ]
+  float* St = reinterpret_cast<float*>(Os + 2 * TILE);             // [2][lse2, D][BQ]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tig = lane & 3;
   const int hk = blockIdx.y, b = blockIdx.z;
   const int k0 = blockIdx.x * BKV;
   const int G = a.NH / a.NKV;
+  const float c = a.sm_scale * LOG2E;
   const size_t qstride = (size_t)a.NH * D, kstride = (size_t)a.NKV * D;
   const size_t koff = (size_t)b * a.Tkv * kstride + (size_t)hk * D;
 
@@ -104,18 +171,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Args a) {
     load_rows<D>(Qs + buf * TILE, a.q + qoff, qstride, q0, a.Tq, tid);
     load_rows<D>(Os + buf * TILE, a.dout + qoff, qstride, q0, a.Tq, tid);
     if (tid < BQ) {
-      float* st = St + buf * 3 * BQ;
-      const int row = q0 + tid;
-      if (row < a.Tq) {
-        const size_t s = ((size_t)b * a.NH + h) * a.Tq + row;
-        cp_async4(st + tid, a.m + s);
-        cp_async4(st + BQ + tid, a.l + s);
-        cp_async4(st + 2 * BQ + tid, a.delta + s);
-      } else {
-        st[tid] = 0.f;
-        st[BQ + tid] = 1.f;
-        st[2 * BQ + tid] = 0.f;
-      }
+      float* st = St + buf * 2 * BQ;
+      const size_t s = ((size_t)b * a.NH + h) * a.Tq64 + q0 + tid;
+      cp_async4(st + tid, a.lse2 + s);
+      cp_async4(st + BQ + tid, a.delta + s);
     }
     cp_async_commit();
   };
@@ -140,7 +199,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Args a) {
     const int q0 = (i0 + it % per_head) * BQ;
     const __nv_bfloat16* qt = Qs + buf * TILE;
     const __nv_bfloat16* ot = Os + buf * TILE;
-    const float* st = St + buf * 3 * BQ;
+    const float* st = St + buf * 2 * BQ;
 
     // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys x 64 queries.
     float s[BQ / 8][4], dp[BQ / 8][4];
@@ -171,12 +230,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Args a) {
         const int col = ni * 8 + tig * 2 + (e & 1);
         const int qrow = q0 + col, key = key0 + 8 * (e >> 1);
         float p = 0.f;
-        if (qrow < a.Tq && !(a.causal && key > qrow + a.kv_offset)) {
-          const float lv = st[BQ + col];
-          p = expf(s[ni][e] * a.sm_scale - st[col]) / (lv == 0.f ? 1.f : lv);
-        }
+        if (qrow < a.Tq && !(a.causal && key > qrow + a.kv_offset))
+          p = ex2(fmaf(s[ni][e], c, -st[col]));
         s[ni][e] = p;
-        dp[ni][e] = (p * (dp[ni][e] - st[2 * BQ + col])) * a.sm_scale;
+        dp[ni][e] = (p * (dp[ni][e] - st[BQ + col])) * a.sm_scale;
       }
 
     // dV += bf16(P^T) dO, dK += bf16(dS^T) Q over the tile's 64 queries.
@@ -217,189 +274,341 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Args a) {
   }
 }
 
+// ---- dq (wgmma) ----------------------------------------------------------------
+
+constexpr int DQ_BQ = 128, DQ_BKV = 64;
+constexpr int DQ_THREADS = 288;  // warpgroups 0-1 consume, warp 8 loads
+constexpr int CONSUMERS = 256;
+constexpr int SCHED = 1;  // named barriers SCHED + wg: warpgroup wg's turn to issue
+constexpr int PANEL64 = 64 * 128;  // 64 rows of one 64-column panel, bytes
+
 template <int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Args a) {
-  constexpr int RS = D + 8;
-  constexpr int TILE = 64 * RS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][RS]
-  __nv_bfloat16* Os = Qs + TILE;                                    // dO [BQ][RS]
-  __nv_bfloat16* Ks = Os + TILE;                                    // [2][BKV][RS]
-  __nv_bfloat16* Vs = Ks + 2 * TILE;                                // [2][BKV][RS]
+struct DqCfg {
+  static constexpr int PANELS = D / 64;
+  static constexpr int Q_PANEL = DQ_BQ * 128, KV_PANEL = PANEL64;
+  static constexpr int Q_TILE = PANELS * Q_PANEL, KV_TILE = PANELS * KV_PANEL;
+  static constexpr int NT = 4;  // stages of the K/V ring
+  static constexpr int SMEM = 2 * Q_TILE + NT * 2 * KV_TILE + (2 * NT + 1) * 8 + 1024;
+};
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest q tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.NH / a.NKV);
-  const int q0 = qt * BQ;
-  const int r0 = q0 + warp * 16 + g;  // this thread's rows r0 and r0 + 8
-  const size_t qstride = (size_t)a.NH * D, kstride = (size_t)a.NKV * D;
-  const size_t qoff = (size_t)b * a.Tq * qstride + (size_t)h * D;
-  const size_t koff = (size_t)b * a.Tkv * kstride + (size_t)hk * D;
+__device__ __forceinline__ void sched_wait(int wg) { named_bar_sync(SCHED + wg, CONSUMERS); }
+__device__ __forceinline__ void sched_pass(int wg) { named_bar_arrive(SCHED + 1 - wg, CONSUMERS); }
 
-  int n_kv = a.Tkv / BKV;
-  if (a.causal) {
-    const int last = q0 + BQ - 1 + a.kv_offset;
-    n_kv = last < 0 ? 0 : min(n_kv, last / BKV + 1);
+// acc = A B^T for a warpgroup's 64 rows of A (a, K-major) against 64 rows of
+// B (b, K-major): D / 16 k-slices, 32 bytes apart in a panel's 128-byte
+// rows; a_panel and b_panel the bytes between their 64-column panels.
+// Issued and committed as one group.
+template <int D>
+__device__ __forceinline__ void issue_abt(float* acc, const unsigned char* a, int a_panel,
+                                          const unsigned char* b, int b_panel) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int p = kk / 4, off = 32 * (kk % 4);
+    wgmma_m64n64k16_bf16<0>(acc, wgmma_desc(a + p * a_panel + off, 16, 1024),
+                            wgmma_desc(b + p * b_panel + off, 16, 1024), kk > 0);
   }
+  wgmma_commit();
+}
 
-  auto load_kv = [&](int buf, int j) {
-    load_rows<D>(Ks + buf * TILE, a.k + koff, kstride, j * BKV, a.Tkv, tid);
-    load_rows<D>(Vs + buf * TILE, a.v + koff, kstride, j * BKV, a.Tkv, tid);
-    cp_async_commit();
-  };
-  load_rows<D>(Qs, a.q + qoff, qstride, q0, a.Tq, tid);
-  load_rows<D>(Os, a.dout + qoff, qstride, q0, a.Tq, tid);
-  if (n_kv > 0)
-    load_kv(0, 0);  // one group with Q and dO
-  else
-    cp_async_commit();
-
-  float mr[2], lr[2], dr[2];
+// acc += bf16(A) B for A's 64 rows x 64 in registers (4 k-slices of 16) and
+// B a 64-row tile read MN-major (the k-th slice 2048 k bytes in, LBO the
+// bytes between its 64-column panels). Issued and committed as one group.
+template <int D>
+__device__ __forceinline__ void issue_ab(float* acc, const uint32_t (*a)[4],
+                                         const unsigned char* b, int b_panel) {
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = r0 + 8 * hr;
-    mr[hr] = 0.f;
-    lr[hr] = 1.f;
-    dr[hr] = 0.f;
-    if (row < a.Tq) {
-      const size_t s = ((size_t)b * a.NH + h) * a.Tq + row;
-      mr[hr] = a.m[s];
-      lr[hr] = a.l[s] == 0.f ? 1.f : a.l[s];
-      dr[hr] = a.delta[s];
-    }
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t bd = wgmma_desc(b + 2048 * kk, b_panel, 1024);
+    if constexpr (D == 64)
+      wgmma_m64n64k16_bf16_rs<1>(acc, a[kk], bd, 1);
+    else
+      wgmma_m64n128k16_bf16_rs<1>(acc, a[kk], bd, 1);
   }
-  float dq[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[i][e] = 0.f;
+  wgmma_commit();
+}
 
-  for (int j = 0; j < n_kv; ++j) {
-    const int buf = j & 1, k0 = j * BKV;
-    if (j + 1 < n_kv) {
-      load_kv(buf ^ 1, j + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+// An accumulator of 64 x 64 packs into the A fragments of the next product
+// (d[8 kk .. 8 kk + 7] are the four bf16 pairs of k-slice kk).
+__device__ __forceinline__ void pack_a(uint32_t (*a)[4], const float* d) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack2(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+}
+
+// dS of one S tile in place of dP: sc[4 jj + i] is row r0 + 8 (i / 2), key
+// k0 + 8 jj + 2 t + i % 2. p = 2^(s c - lse2) (0 where masked; the compare
+// only on tiles that reach past the warp's first row, wrow), ds = p (dp -
+// D) scale.
+__device__ __forceinline__ void ds_rows(const float* sc, float* dp, int k0, int wrow, int r0,
+                                        int t, int kv_offset, int causal, float c,
+                                        const float* lse2, const float* dl, float scale) {
+  const bool diag = causal && k0 + DQ_BKV - 1 > wrow + kv_offset;
+#pragma unroll
+  for (int jj = 0; jj < DQ_BKV / 8; ++jj)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = 4 * jj + i, hr = i >> 1;
+      float p = ex2(fmaf(sc[e], c, -lse2[hr]));
+      if (diag && k0 + 8 * jj + 2 * t + (i & 1) > r0 + 8 * hr + kv_offset) p = 0.f;
+      dp[e] = (p * (dp[e] - dl[hr])) * scale;
     }
-    __syncthreads();
-    const __nv_bfloat16* kt = Ks + buf * TILE;
-    const __nv_bfloat16* vt = Vs + buf * TILE;
-
-    // S = Q K^T and dP = dO V^T for the warp's 16 rows x 64 keys.
-    float s[BKV / 8][4], dp[BKV / 8][4];
-#pragma unroll
-    for (int ni = 0; ni < BKV / 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[ni][e] = dp[ni][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], oa[4];
-      load_a(qa, Qs, RS, warp * 16, kk * 16, lane);
-      load_a(oa, Os, RS, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int ni = 0; ni < BKV / 8; ++ni) {
-        uint32_t bk[2], bv[2];
-        load_b_rows(bk, kt, RS, ni * 8, kk * 16, lane);
-        load_b_rows(bv, vt, RS, ni * 8, kk * 16, lane);
-        mma_bf16(s[ni], qa, bk);
-        mma_bf16(dp[ni], oa, bv);
-      }
-    }
-
-#pragma unroll
-    for (int ni = 0; ni < BKV / 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1, row = r0 + 8 * hr;
-        const int key = k0 + ni * 8 + tig * 2 + (e & 1);
-        float p = 0.f;
-        if (row < a.Tq && !(a.causal && key > row + a.kv_offset))
-          p = expf(s[ni][e] * a.sm_scale - mr[hr]) / lr[hr];
-        dp[ni][e] = (p * (dp[ni][e] - dr[hr])) * a.sm_scale;
-      }
-
-    // dQ += bf16(dS) K: K's row-major [key][d] tile is B through ldmatrix.trans.
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      const uint32_t da[4] = {pack2(dp[2 * kk][0], dp[2 * kk][1]),
-                              pack2(dp[2 * kk][2], dp[2 * kk][3]),
-                              pack2(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                              pack2(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-      const __nv_bfloat16* krow = kt + (kk * 16 + (lane & 15)) * RS;
-#pragma unroll
-      for (int di = 0; di < D / 8; ++di) {
-        uint32_t bf[2];
-        ldmatrix_x2_trans(bf, krow + di * 8);
-        mma_bf16(dq[di], da, bf);
-      }
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = r0 + 8 * hr;
-    if (row >= a.Tq) continue;
-    __nv_bfloat16* drow = a.dq + qoff + (size_t)row * qstride;
-#pragma unroll
-    for (int di = 0; di < D / 8; ++di)
-      *reinterpret_cast<__nv_bfloat162*>(drow + di * 8 + tig * 2) =
-          __floats2bfloat162_rn(dq[di][2 * hr], dq[di][2 * hr + 1]);
-  }
 }
 
 template <int D>
-int launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t tiles = sizeof(__nv_bfloat16) * 6 * 64 * (D + 8);
-  const size_t smem_dkv = tiles + sizeof(float) * 2 * 3 * BQ;
-  auto dkv = flash_bwd_dkv_kernel<D>;
-  auto dq = flash_bwd_dq_kernel<D>;
-  // Above 48 KB of dynamic shared memory a kernel must opt in (per device).
-  cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkv);
-  cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tiles);
-  dkv<<<dim3(a.Tkv / BKV, a.NKV, B), THREADS, smem_dkv, stream>>>(a);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dq<<<dim3((a.Tq + BQ - 1) / BQ, a.NH, B), THREADS, tiles, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
+                    const __grid_constant__ CUtensorMap tmv, const __grid_constant__ CUtensorMap tmo,
+                    const float* __restrict__ lse2_in, const float* __restrict__ delta_in,
+                    __nv_bfloat16* __restrict__ dq_out, int Tq, int Tq64, int Tkv, int NH, int NKV,
+                    float sm_scale, int kv_offset, int causal) {
+  using C = DqCfg<D>;
+  constexpr int NT = C::NT, KV_TILE = C::KV_TILE;
+  constexpr int NO = D / 2, NS = DQ_BKV / 2;  // dQ's and S's f32 registers
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (sm90_smem(smem_raw) & 1023)) & 1023);
+  unsigned char* qs = smem;            // [PANELS][128][64] bf16, swizzled
+  unsigned char* os = qs + C::Q_TILE;  // dO, the same
+  unsigned char* ks = os + C::Q_TILE;  // [NT][PANELS][64][64]
+  unsigned char* vs = ks + NT * KV_TILE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + NT * KV_TILE);
+  uint64_t* empty = full + NT;
+  uint64_t* q_full = empty + NT;
+
+  const int tid = threadIdx.x;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // heaviest q tiles first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int hk = h / (NH / NKV);
+  const int q0 = qt * DQ_BQ;
+  int n_kv = Tkv / DQ_BKV;
+  if (causal) {
+    const int last = q0 + DQ_BQ - 1 + kv_offset;  // the TPU kernel's tile-skip rule
+    n_kv = last < 0 ? 0 : min(n_kv, last / DQ_BKV + 1);
+  }
+  if (tid == 0) {
+    for (int s = 0; s < NT; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_init(q_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // warp 8, one thread: the TMA ring
+    if (tid == CONSUMERS) {
+      // Q and dO in two boxes of 64 rows per panel; a box that starts past
+      // Tq is not loaded (its warpgroup's rows are never stored).
+      const int halves = q0 + 64 < Tq ? 2 : 1;
+      mbar_expect_tx(q_full, 2 * halves * C::PANELS * PANEL64);
+#pragma unroll
+      for (int p = 0; p < C::PANELS; ++p)
+        for (int hf = 0; hf < halves; ++hf) {
+          const int off = p * C::Q_PANEL + hf * PANEL64;
+          tma_load_3d(qs + off, &tmq, q_full, h * D + 64 * p, q0 + 64 * hf, b);
+          tma_load_3d(os + off, &tmo, q_full, h * D + 64 * p, q0 + 64 * hf, b);
+        }
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % NT;
+        if (j >= NT) mbar_wait(&empty[s], (j / NT - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * KV_TILE);
+#pragma unroll
+        for (int p = 0; p < C::PANELS; ++p) {
+          const int col = hk * D + 64 * p;
+          tma_load_3d(ks + s * KV_TILE + p * PANEL64, &tmk, &full[s], col, j * DQ_BKV, b);
+          tma_load_3d(vs + s * KV_TILE + p * PANEL64, &tmv, &full[s], col, j * DQ_BKV, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: query rows [q0 + 64 wg, q0 + 64 wg + 64) ----
+  const int wg = tid >> 7, lane = tid & 31, w = (tid >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = q0 + 64 * wg + 16 * w;  // the warp's first query row
+  const int r0 = wrow + g;                 // this thread's rows r0 and r0 + 8
+  const float c = sm_scale * LOG2E;
+  const unsigned char* qw = qs + wg * PANEL64;  // the warpgroup's 64 rows of each panel
+  const unsigned char* ow = os + wg * PANEL64;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + 8 * hr;
+    const size_t s = ((size_t)b * NH + h) * Tq64 + row;
+    lse2[hr] = row < Tq ? lse2_in[s] : INFINITY;
+    dl[hr] = row < Tq ? delta_in[s] : 0.f;
+  }
+
+  float dq[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dq[i] = 0.f;
+  uint32_t da[4][4];  // bf16(dS) of the last tile, the A fragments of dQ += dS K
+  mbar_wait(q_full, 0);
+  if (n_kv > 0) {
+    // Each turn issues S and dP of tile j and dQ of tile j - 1; then tile
+    // j's dS. Warpgroup 0 takes the first turn; each takes n_kv + 1 turns.
+    if (wg == 1) sched_pass(wg);
+    {
+      float sc[NS], dp[NS];
+      mbar_wait(&full[0], 0);
+      sched_wait(wg);
+      wgmma_fence();
+      issue_abt<D>(sc, qw, C::Q_PANEL, ks, PANEL64);
+      issue_abt<D>(dp, ow, C::Q_PANEL, vs, PANEL64);
+      sched_pass(wg);
+      wgmma_wait<0>();
+      wgmma_fence_operand<NS>(sc);
+      wgmma_fence_operand<NS>(dp);
+      ds_rows(sc, dp, 0, wrow, r0, t, kv_offset, causal, c, lse2, dl, sm_scale);
+      pack_a(da, dp);
+    }
+    for (int j = 1; j < n_kv; ++j) {
+      float sc[NS], dp[NS];
+      const int s = j % NT, sp = (j - 1) % NT;
+      mbar_wait(&full[s], (j / NT) & 1);
+      sched_wait(wg);
+      wgmma_fence();
+      issue_abt<D>(sc, qw, C::Q_PANEL, ks + s * KV_TILE, PANEL64);
+      issue_abt<D>(dp, ow, C::Q_PANEL, vs + s * KV_TILE, PANEL64);
+      wgmma_fence_operand<NO>(dq);
+      issue_ab<D>(dq, da, ks + sp * KV_TILE, PANEL64);
+      sched_pass(wg);
+      wgmma_wait<1>();
+      wgmma_fence_operand<NS>(sc);
+      wgmma_fence_operand<NS>(dp);
+      ds_rows(sc, dp, j * DQ_BKV, wrow, r0, t, kv_offset, causal, c, lse2, dl, sm_scale);
+      wgmma_wait<0>();
+      wgmma_fence_operand<NO>(dq);
+      mbar_arrive(&empty[sp]);
+      pack_a(da, dp);
+    }
+    const int sp = (n_kv - 1) % NT;
+    sched_wait(wg);
+    wgmma_fence_operand<NO>(dq);
+    wgmma_fence();
+    issue_ab<D>(dq, da, ks + sp * KV_TILE, PANEL64);
+    if (wg == 0) sched_pass(wg);  // warpgroup 1's last turn follows; nothing follows it
+    wgmma_wait<0>();
+    wgmma_fence_operand<NO>(dq);
+    mbar_arrive(&empty[sp]);
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + 8 * hr;
+    if (row >= Tq) continue;
+    __nv_bfloat16* drow = dq_out + ((size_t)b * Tq + row) * NH * D + (size_t)h * D;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+      *reinterpret_cast<__nv_bfloat162*>(drow + 8 * jj + 2 * t) =
+          __floats2bfloat162_rn(dq[4 * jj + 2 * hr], dq[4 * jj + 2 * hr + 1]);
+  }
 }
 
-}  // namespace
+// Opts a kernel into `bytes` of dynamic shared memory, once per device.
+template <typename K>
+cudaError_t size_smem(K kern, int bytes, bool* sized) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 64 && sized[dev]) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             bytes);
+  if (e == cudaSuccess && dev < 64) sized[dev] = true;
+  return e;
+}
 
-// q, dout, dq [B, Tq, NH, D]; k, v, dk, dv [B, Tkv, NKV, D], bf16 and
-// contiguous; m, l, delta f32 [B, NH, Tq] (delta = rowsum(o * dout)).
-// Needs D in {64, 128}, Tkv % 64 == 0, NH % NKV == 0 and, when causal,
-// kv_offset >= 0 (checked by the Python wrapper). Two launches (dK/dV, then
-// dQ) on `stream`.
-extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
-                         const void* m, const void* l, const void* delta, void* dq, void* dk,
-                         void* dv, int B, int Tq, int Tkv, int NH, int NKV, int D, float sm_scale,
-                         int kv_offset, int causal, void* stream) {
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+           const float* l, const float* m, float* lse2, float* delta, void* dq, void* dk,
+           void* dv, int B, int Tq, int Tkv, int NH, int NKV, float sm_scale, int kv_offset,
+           int causal, cudaStream_t stream) {
+  const int Tq64 = (Tq + TQ_ALIGN - 1) / TQ_ALIGN * TQ_ALIGN;
+  const auto bf = static_cast<const __nv_bfloat16*>(dout);
+  {
+    const long long rows = (long long)B * Tq64 * NH;
+    const int per_block = STATS_THREADS / (D / 8);
+    const unsigned blocks = static_cast<unsigned>((rows + per_block - 1) / per_block);
+    flash_bwd_stats_kernel<D><<<blocks, STATS_THREADS, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(o), bf, l, m, lse2, delta, B, Tq, Tq64, NH);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+
   Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = static_cast<const __nv_bfloat16*>(k);
   a.v = static_cast<const __nv_bfloat16*>(v);
-  a.dout = static_cast<const __nv_bfloat16*>(dout);
-  a.m = static_cast<const float*>(m);
-  a.l = static_cast<const float*>(l);
-  a.delta = static_cast<const float*>(delta);
+  a.dout = bf;
+  a.lse2 = lse2;
+  a.delta = delta;
   a.dq = static_cast<__nv_bfloat16*>(dq);
   a.dk = static_cast<__nv_bfloat16*>(dk);
   a.dv = static_cast<__nv_bfloat16*>(dv);
   a.Tq = Tq;
+  a.Tq64 = Tq64;
   a.Tkv = Tkv;
   a.NH = NH;
   a.NKV = NKV;
   a.sm_scale = sm_scale;
   a.kv_offset = kv_offset;
   a.causal = causal;
+  {
+    const int smem = sizeof(__nv_bfloat16) * 6 * 64 * (D + 8) + sizeof(float) * 2 * 2 * BQ;
+    static bool sized[64] = {};
+    auto kern = flash_bwd_dkv_kernel<D>;
+    cudaError_t e = size_smem(kern, smem, sized);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kern<<<dim3(Tkv / BKV, NKV, B), THREADS, smem, stream>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+
+  using C = DqCfg<D>;
+  CUtensorMap tmq, tmk, tmv, tmo;
+  const auto bt = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!encode_3d(&tmq, bt, 2, q, B, Tq, (uint64_t)NH * D, 64, 64, sw) ||
+      !encode_3d(&tmo, bt, 2, dout, B, Tq, (uint64_t)NH * D, 64, 64, sw) ||
+      !encode_3d(&tmk, bt, 2, k, B, Tkv, (uint64_t)NKV * D, 64, 64, sw) ||
+      !encode_3d(&tmv, bt, 2, v, B, Tkv, (uint64_t)NKV * D, 64, 64, sw))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool sized_dq[64] = {};
+  auto kern = flash_bwd_dq_kernel<D>;
+  cudaError_t e = size_smem(kern, C::SMEM, sized_dq);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(NH, B, (Tq + DQ_BQ - 1) / DQ_BQ);
+  kern<<<grid, DQ_THREADS, C::SMEM, stream>>>(tmq, tmk, tmv, tmo, lse2, delta,
+                                               static_cast<__nv_bfloat16*>(dq), Tq, Tq64, Tkv, NH,
+                                               NKV, sm_scale, kv_offset, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q, o, dout, dq [B, Tq, NH, D]; k, v, dk, dv [B, Tkv, NKV, D], bf16,
+// contiguous, with 16-byte-aligned bases (TMA); l, m f32 [B, NH, Tq] (the
+// forward's row sum and max); lse2, delta f32 scratch [B, NH, Tq64], Tq64 =
+// Tq rounded up to 64. Needs D in {64, 128}, Tkv % 64 == 0, NH % NKV == 0
+// and, when causal, kv_offset >= 0 (checked by the Python wrapper). Three
+// launches on `stream`: the statistics, dK/dV, dQ. Returns a cudaError_t
+// (cudaErrorInvalidValue when a TMA descriptor cannot be encoded or D is not
+// 64 or 128).
+extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* o,
+                         const void* dout, const void* l, const void* m, void* lse2, void* delta,
+                         void* dq, void* dk, void* dv, int B, int Tq, int Tkv, int NH, int NKV,
+                         int D, float sm_scale, int kv_offset, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* lf = static_cast<const float*>(l);
+  const float* mf = static_cast<const float*>(m);
+  float* ls = static_cast<float*>(lse2);
+  float* ds = static_cast<float*>(delta);
   if (B <= 0 || Tq <= 0 || Tkv <= 0) return static_cast<int>(cudaGetLastError());
-  if (D == 64) return launch<64>(a, B, s);
-  if (D == 128) return launch<128>(a, B, s);
+  if (D == 64)
+    return launch<64>(q, k, v, o, dout, lf, mf, ls, ds, dq, dk, dv, B, Tq, Tkv, NH, NKV, sm_scale,
+                      kv_offset, causal, s);
+  if (D == 128)
+    return launch<128>(q, k, v, o, dout, lf, mf, ls, ds, dq, dk, dv, B, Tq, Tkv, NH, NKV,
+                       sm_scale, kv_offset, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

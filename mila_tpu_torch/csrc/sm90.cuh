@@ -1,12 +1,12 @@
 // Hopper (sm_90a) helpers for kernels that stage tiles through the Tensor
 // Memory Accelerator and multiply them with warpgroup MMAs: mbarriers, 2-D
-// and 3-D TMA loads, the proxy fence, wgmma shared-memory descriptors, the
-// bf16 wgmma with f32 accumulators (m64n64k16, m64n128k16 and m64n256k16
-// with both operands in shared memory; m64n64k16 and m64n128k16 with A in
-// registers),
-// named barriers, and the host-side encoders of TMA descriptors (reached
-// through the runtime's entry-point lookup, so a library needs no -lcuda).
-// Used by qmm_int8.cu and flash_fwd.cu.
+// and 3-D TMA loads, 1-D bulk copies, the proxy fence, wgmma shared-memory
+// descriptors, the bf16 wgmma with f32 accumulators (m64n64k16, m64n128k16
+// and m64n256k16 with both operands in shared memory; m64n64k16 and
+// m64n128k16 with A in registers), named barriers, and the host-side
+// encoders of TMA descriptors (reached through the runtime's entry-point
+// lookup, so a library needs no -lcuda).
+// Used by qmm_int8.cu, flash_fwd.cu and flash_bwd.cu.
 //
 // Layouts the descriptors describe (128-byte swizzle: inside each
 // 1024-byte atom of 8 rows of 128 bytes, the 16-byte chunk c of row r sits
@@ -90,6 +90,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(sm90_smem(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(sm90_smem(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` into shared `dst`, both
+// 16-byte aligned, by the bulk-copy engine; completion counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(sm90_smem(dst)), "l"(static_cast<uint64_t>(__cvta_generic_to_global(src))),
+      "r"(bytes), "r"(sm90_smem(bar))
       : "memory");
 }
 

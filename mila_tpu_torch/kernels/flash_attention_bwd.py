@@ -18,11 +18,11 @@ and sums afterwards; the CUDA kernel sums inside its block, so the two
 differ in f32 order only.
 
 What bounds it on the H100: tensor-core operations (about 10 * D per
-visible pair and head) against q, k, v, do, dq, dk, dv moved once. The CUDA
-kernels (``csrc/flash_bwd.cu``) run a dK/dV pass per 64-key tile and KV head
-and a dQ pass per 64-row q tile and head, both on bf16 ``mma.sync`` with f32
-accumulators; D is computed here with PyTorch, as JAX computes it outside
-its kernels.
+visible pair and head) against q, k, v, o, do, dq, dk, dv moved once. The
+CUDA launch (``csrc/flash_bwd.cu``) is three kernels: the row statistics (D
+and lse = m + ln l, per row, in the kernel's own launch), a dK/dV pass per
+key block and KV head and a dQ pass per q tile and head, on TMA-fed
+``wgmma``. One call counts as one launch.
 
 The entry keeps the JAX entry's head-major layout (q, o, do [B, NH, Tq,
 D], k, v [B, NKV, Tkv, D]), here as any views: the autograd Function passes
@@ -45,6 +45,7 @@ from mila_tpu_torch.ops.attention import causal_mask
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _TILE = 64  # keys per tile in csrc/flash_bwd.cu
+_TQ_ALIGN = 64  # the kernel's statistics rows are padded to this
 
 
 def flash_attention_bwd_plain(q, k, v, o, l, m, do, *, causal: bool, sm_scale: float,
@@ -81,7 +82,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("flash_bwd")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.flash_bwd.argtypes = [vp] * 10 + [ci] * 6 + [ctypes.c_float, ci, ci, vp]
+        lib.flash_bwd.argtypes = [vp] * 12 + [ci] * 6 + [ctypes.c_float, ci, ci, vp]
         lib.flash_bwd.restype = ci
         lib._typed = True
     return lib
@@ -90,24 +91,30 @@ def _lib() -> ctypes.CDLL:
 def _launch(q, k, v, o, l, m, do, causal: bool, sm_scale: float, kv_offset: int):
     B, NH, Tq, D = q.shape
     NKV, Tkv = k.shape[1], k.shape[2]
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v, do)):
-        raise NotImplementedError(f"flash_bwd takes bf16 q/k/v/do; got {q.dtype}, {k.dtype}, "
-                                  f"{v.dtype}, {do.dtype} (f32 inputs are not ported yet)")
-    if D not in (64, 128) or Tkv % _TILE or v.shape != k.shape or k.shape[0] != B:
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v, o, do)):
+        raise NotImplementedError(f"flash_bwd takes bf16 q/k/v/o/do; got {q.dtype}, {k.dtype}, "
+                                  f"{v.dtype}, {o.dtype}, {do.dtype} (f32 inputs are not ported "
+                                  "yet)")
+    if (D not in (64, 128) or Tkv % _TILE or v.shape != k.shape or k.shape[0] != B
+            or o.shape != q.shape or do.shape != q.shape):
         raise ValueError(f"flash_bwd needs D in (64, 128) and Tkv % {_TILE} == 0 "
                          f"(q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)})")
     if causal and kv_offset < 0:
         raise ValueError("flash_bwd: a negative kv_offset leaves rows with no key")
 
     def model_layout(t):  # [B, H, T, D] view -> contiguous [B, T, H, D] (a view if it is one)
-        return t.transpose(1, 2).contiguous()
+        t = t.transpose(1, 2).contiguous()
+        return t if t.data_ptr() % 16 == 0 else t.clone()  # TMA reads 16-byte-aligned bases
 
-    qm, km, vm, dom = (model_layout(t) for t in (q, k, v, do))
-    delta = (o.float() * do.float()).sum(-1).contiguous()  # [B, NH, Tq]
+    qm, km, vm, om, dom = (model_layout(t) for t in (q, k, v, o, do))
     lc, mc = l.float().contiguous(), m.float().contiguous()
+    tq64 = -(-Tq // _TQ_ALIGN) * _TQ_ALIGN
+    lse2 = torch.empty(B, NH, tq64, device=q.device, dtype=torch.float32)  # scratch
+    delta = torch.empty_like(lse2)
     dq, dk, dv = torch.empty_like(qm), torch.empty_like(km), torch.empty_like(vm)
     lib = _lib()
-    rc = lib.flash_bwd(*(_build.ptr(t) for t in (qm, km, vm, dom, mc, lc, delta, dq, dk, dv)),
+    rc = lib.flash_bwd(*(_build.ptr(t) for t in (qm, km, vm, om, dom, lc, mc, lse2, delta, dq, dk,
+                                                 dv)),
                        B, Tq, Tkv, NH, NKV, D, sm_scale, kv_offset, int(causal),
                        _build.stream_of(q))
     _build.check(lib, rc, "flash_bwd")
@@ -121,7 +128,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     """(dq [B, NH, Tq, D] in q's dtype, dk, dv [B, NKV, Tkv, D] in k's and
     v's) for head-major q, o, do [B, NH, Tq, D], k, v [B, NKV, Tkv, D] and
     l, m f32 [B, NH, Tq]. CUDA tensors launch ``flash_bwd`` (one call, its
-    dK/dV and dQ kernels); CPU tensors take
+    statistics, dK/dV and dQ kernels); CPU tensors take
     :func:`flash_attention_bwd_plain`."""
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"num_heads {q.shape[1]} not divisible by num_kv_heads {k.shape[1]}")
