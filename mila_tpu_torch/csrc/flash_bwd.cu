@@ -20,11 +20,21 @@
 //     f32 [B, NH, Tq64] (Tq rounded up to 64; rows past Tq get lse2 = +inf
 //     and D = 0, so their p is 0). Both passes then form p = 2^(s c - lse2)
 //     with c = scale log2(e): one FFMA and one ex2 a score, no divide.
-//   dkv: one block per (64 keys, KV head, batch row) on mma.sync (the PR 5
-//     design): K and V stay in shared memory; the block sweeps the q tiles
-//     that see its keys for every query head of the group, streaming Q, dO
-//     and the rows' lse2 and D with cp.async, double-buffered; dK and dV
-//     sum over the group in one f32 accumulator inside the block.
+//   dkv: one block of 256 threads per (128 keys, KV head, batch row), the
+//     first key blocks (which see the most q tiles) first. One thread loads
+//     K and V of the block once by TMA and the first stages of a ring; the
+//     block sweeps the (query head of the group, 64-row q tile) pairs that
+//     see its keys, Q, dO and the tile's lse2 and D streaming through the
+//     ring (full / empty mbarriers; warpgroup 1's first thread refills a
+//     stage once both warpgroups are done with it, so no producer warp
+//     takes registers). Each consumer warpgroup owns 64 keys: S^T = K Q^T
+//     and dP^T = V dO^T as SS wgmma m64n64k16 (both operands K-major, as
+//     TMA writes them); P^T and dS^T in their registers, the statistics of
+//     a lane's 16 query columns read from the stage (the reads broadcast);
+//     dV += bf16(P^T) dO and dK += bf16(dS^T) Q as RS wgmma (the
+//     accumulators pack into A's fragments, dO and Q read MN-major through
+//     the transpose bit). Nothing round-trips through shared memory. dK and
+//     dV sum over the GQA group in one f32 accumulator inside the block.
 //   dq: the forward's skeleton (flash_fwd.cu): one block of 288 threads per
 //     (128 query rows, head, batch row), heaviest q tiles first; warp 8, one
 //     thread, loads Q and dO once and streams 64-key K/V tiles through a TMA
@@ -103,193 +113,11 @@ flash_bwd_stats_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16*
   }
 }
 
-// ---- dkv (mma.sync) --------------------------------------------------------------
+// ---- wgmma helpers (both passes) ---------------------------------------------
 
-constexpr int BQ = 64, BKV = 64, THREADS = 128;
-
-struct Args {
-  const __nv_bfloat16 *q, *k, *v, *dout;
-  const float *lse2, *delta;
-  __nv_bfloat16 *dq, *dk, *dv;
-  int Tq, Tq64, Tkv, NH, NKV;
-  float sm_scale;
-  int kv_offset, causal;
-};
-
-// Copy rows [r0, r0 + 64) of one head of a [.., T, H, D] tensor into a
-// shared tile of 64 rows x RS; rows at or past T are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          size_t stride, int r0, int T, int tid) {
-  constexpr int RS = D + 8;
-#pragma unroll
-  for (int i = tid; i < 64 * D / 8; i += THREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    if (r0 + r < T)
-      cp_async16(dst + r * RS + c, src + (size_t)(r0 + r) * stride + c);
-    else
-      *reinterpret_cast<uint4*>(dst + r * RS + c) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Args a) {
-  constexpr int RS = D + 8;
-  constexpr int TILE = 64 * RS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BKV][RS]
-  __nv_bfloat16* Vs = Ks + TILE;                                    // [BKV][RS]
-  __nv_bfloat16* Qs = Vs + TILE;                                    // [2][BQ][RS]
-  __nv_bfloat16* Os = Qs + 2 * TILE;                                // dO [2][BQ][RS]
-  float* St = reinterpret_cast<float*>(Os + 2 * TILE);             // [2][lse2, D][BQ]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int k0 = blockIdx.x * BKV;
-  const int G = a.NH / a.NKV;
-  const float c = a.sm_scale * LOG2E;
-  const size_t qstride = (size_t)a.NH * D, kstride = (size_t)a.NKV * D;
-  const size_t koff = (size_t)b * a.Tkv * kstride + (size_t)hk * D;
-
-  load_rows<D>(Ks, a.k + koff, kstride, k0, a.Tkv, tid);
-  load_rows<D>(Vs, a.v + koff, kstride, k0, a.Tkv, tid);
-  cp_async_commit();
-
-  // The q tiles that see key k0 or later: from the tile holding query
-  // k0 - kv_offset on (the TPU kernel's skip rule, per 64-row tile).
-  const int nq = (a.Tq + BQ - 1) / BQ;
-  int i0 = 0;
-  if (a.causal) i0 = k0 - a.kv_offset > 0 ? (k0 - a.kv_offset) / BQ : 0;
-  const int per_head = nq > i0 ? nq - i0 : 0;
-  const int n_it = per_head * G;
-
-  auto load_q = [&](int buf, int it) {
-    const int h = hk * G + it / per_head;
-    const int q0 = (i0 + it % per_head) * BQ;
-    const size_t qoff = (size_t)b * a.Tq * qstride + (size_t)h * D;
-    load_rows<D>(Qs + buf * TILE, a.q + qoff, qstride, q0, a.Tq, tid);
-    load_rows<D>(Os + buf * TILE, a.dout + qoff, qstride, q0, a.Tq, tid);
-    if (tid < BQ) {
-      float* st = St + buf * 2 * BQ;
-      const size_t s = ((size_t)b * a.NH + h) * a.Tq64 + q0 + tid;
-      cp_async4(st + tid, a.lse2 + s);
-      cp_async4(st + BQ + tid, a.delta + s);
-    }
-    cp_async_commit();
-  };
-  if (n_it > 0) load_q(0, 0);
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
-  const int key0 = k0 + warp * 16 + g;  // this thread's keys key0 and key0 + 8
-
-  for (int it = 0; it < n_it; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_it) {
-      load_q(buf ^ 1, it + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int q0 = (i0 + it % per_head) * BQ;
-    const __nv_bfloat16* qt = Qs + buf * TILE;
-    const __nv_bfloat16* ot = Os + buf * TILE;
-    const float* st = St + buf * 2 * BQ;
-
-    // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys x 64 queries.
-    float s[BQ / 8][4], dp[BQ / 8][4];
-#pragma unroll
-    for (int ni = 0; ni < BQ / 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[ni][e] = dp[ni][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a(ka, Ks, RS, warp * 16, kk * 16, lane);
-      load_a(va, Vs, RS, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int ni = 0; ni < BQ / 8; ++ni) {
-        uint32_t bq[2], bo[2];
-        load_b_rows(bq, qt, RS, ni * 8, kk * 16, lane);
-        load_b_rows(bo, ot, RS, ni * 8, kk * 16, lane);
-        mma_bf16(s[ni], ka, bq);
-        mma_bf16(dp[ni], va, bo);
-      }
-    }
-
-    // P^T and dS^T in place (the columns are queries).
-#pragma unroll
-    for (int ni = 0; ni < BQ / 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = ni * 8 + tig * 2 + (e & 1);
-        const int qrow = q0 + col, key = key0 + 8 * (e >> 1);
-        float p = 0.f;
-        if (qrow < a.Tq && !(a.causal && key > qrow + a.kv_offset))
-          p = ex2(fmaf(s[ni][e], c, -st[col]));
-        s[ni][e] = p;
-        dp[ni][e] = (p * (dp[ni][e] - st[BQ + col])) * a.sm_scale;
-      }
-
-    // dV += bf16(P^T) dO, dK += bf16(dS^T) Q over the tile's 64 queries.
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      const uint32_t pa[4] = {pack2(s[2 * kk][0], s[2 * kk][1]), pack2(s[2 * kk][2], s[2 * kk][3]),
-                              pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const uint32_t da[4] = {pack2(dp[2 * kk][0], dp[2 * kk][1]),
-                              pack2(dp[2 * kk][2], dp[2 * kk][3]),
-                              pack2(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                              pack2(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-      const __nv_bfloat16* orow = ot + (kk * 16 + (lane & 15)) * RS;
-      const __nv_bfloat16* qrow = qt + (kk * 16 + (lane & 15)) * RS;
-#pragma unroll
-      for (int di = 0; di < D / 8; ++di) {
-        uint32_t bf[2];
-        ldmatrix_x2_trans(bf, orow + di * 8);
-        mma_bf16(dv[di], pa, bf);
-        ldmatrix_x2_trans(bf, qrow + di * 8);
-        mma_bf16(dk[di], da, bf);
-      }
-    }
-    __syncthreads();  // the next iteration's load overwrites the other buffer's last reader
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const size_t row = koff + (size_t)(key0 + 8 * hr) * kstride;
-#pragma unroll
-    for (int di = 0; di < D / 8; ++di) {
-      *reinterpret_cast<__nv_bfloat162*>(a.dk + row + di * 8 + tig * 2) =
-          __floats2bfloat162_rn(dk[di][2 * hr], dk[di][2 * hr + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(a.dv + row + di * 8 + tig * 2) =
-          __floats2bfloat162_rn(dv[di][2 * hr], dv[di][2 * hr + 1]);
-    }
-  }
-}
-
-// ---- dq (wgmma) ----------------------------------------------------------------
-
-constexpr int DQ_BQ = 128, DQ_BKV = 64;
-constexpr int DQ_THREADS = 288;  // warpgroups 0-1 consume, warp 8 loads
 constexpr int CONSUMERS = 256;
 constexpr int SCHED = 1;  // named barriers SCHED + wg: warpgroup wg's turn to issue
 constexpr int PANEL64 = 64 * 128;  // 64 rows of one 64-column panel, bytes
-
-template <int D>
-struct DqCfg {
-  static constexpr int PANELS = D / 64;
-  static constexpr int Q_PANEL = DQ_BQ * 128, KV_PANEL = PANEL64;
-  static constexpr int Q_TILE = PANELS * Q_PANEL, KV_TILE = PANELS * KV_PANEL;
-  static constexpr int NT = 4;  // stages of the K/V ring
-  static constexpr int SMEM = 2 * Q_TILE + NT * 2 * KV_TILE + (2 * NT + 1) * 8 + 1024;
-};
 
 __device__ __forceinline__ void sched_wait(int wg) { named_bar_sync(SCHED + wg, CONSUMERS); }
 __device__ __forceinline__ void sched_pass(int wg) { named_bar_arrive(SCHED + 1 - wg, CONSUMERS); }
@@ -335,6 +163,192 @@ __device__ __forceinline__ void pack_a(uint32_t (*a)[4], const float* d) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[kk][r] = pack2(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
 }
+
+// ---- dkv (wgmma) ---------------------------------------------------------------
+
+constexpr int KV_BK = 128;  // keys per block: 64 per consumer warpgroup
+constexpr int KV_BQ = 64;   // queries per tile of the sweep
+constexpr int KV_THREADS = 256;
+
+template <int D>
+struct KvCfg {
+  static constexpr int PANELS = D / 64;
+  static constexpr int K_PANEL = KV_BK * 128, Q_PANEL = PANEL64;
+  static constexpr int K_TILE = PANELS * K_PANEL, Q_TILE = PANELS * Q_PANEL;
+  static constexpr int ST = 2 * KV_BQ * 4;  // a tile's lse2 and D, bytes
+  static constexpr int NT = 4;              // stages of the Q/dO ring
+  static constexpr int SMEM = 2 * K_TILE + NT * (2 * Q_TILE + ST) + (2 * NT + 1) * 8 + 1024;
+};
+
+// P^T and dS^T of one tile in place of S^T and dP^T: sc[4 jj + i] is key
+// r0 + 8 (i / 2), query q0 + 8 jj + 2 t + i % 2, whose lse2 and D are st[8 jj
+// + 2 t + i % 2] and st[KV_BQ + ...] (a lane's columns depend on t only, so
+// the reads broadcast). p = 2^(s c - lse2), 0 where masked (the compare only
+// on tiles that reach past the warp's last key, wkey + 15); ds = p (dp - D)
+// scale.
+__device__ __forceinline__ void dst_cols(float* sc, float* dp, int q0, int wkey, int r0, int t,
+                                         int kv_offset, int causal, float c, const float* st,
+                                         float scale) {
+  const bool diag = causal && wkey + 15 > q0 + kv_offset;
+#pragma unroll
+  for (int jj = 0; jj < KV_BQ / 8; ++jj) {
+    const float2 ls = *reinterpret_cast<const float2*>(st + 8 * jj + 2 * t);
+    const float2 dl = *reinterpret_cast<const float2*>(st + KV_BQ + 8 * jj + 2 * t);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = 4 * jj + i;
+      float p = ex2(fmaf(sc[e], c, -((i & 1) ? ls.y : ls.x)));
+      if (diag && r0 + 8 * (i >> 1) > q0 + 8 * jj + 2 * t + (i & 1) + kv_offset) p = 0.f;
+      sc[e] = p;
+      dp[e] = (p * (dp[e] - ((i & 1) ? dl.y : dl.x))) * scale;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(KV_THREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
+                     const __grid_constant__ CUtensorMap tmv, const __grid_constant__ CUtensorMap tmo,
+                     const float* __restrict__ lse2_in, const float* __restrict__ delta_in,
+                     __nv_bfloat16* __restrict__ dk_out, __nv_bfloat16* __restrict__ dv_out, int Tq,
+                     int Tq64, int Tkv, int NH, int NKV, float sm_scale, int kv_offset,
+                     int causal) {
+  using C = KvCfg<D>;
+  constexpr int NT = C::NT, Q_TILE = C::Q_TILE;
+  constexpr int NO = D / 2, NS = KV_BQ / 2;  // dK's (and dV's) and S^T's f32 registers
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (sm90_smem(smem_raw) & 1023)) & 1023);
+  unsigned char* ks = smem;            // [PANELS][128][64] bf16, swizzled
+  unsigned char* vs = ks + C::K_TILE;  // the same
+  unsigned char* qs = vs + C::K_TILE;  // [NT][PANELS][64][64]
+  unsigned char* os = qs + NT * Q_TILE;
+  float* st = reinterpret_cast<float*>(os + NT * Q_TILE);  // [NT][lse2, D][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(st + NT * 2 * KV_BQ);
+  uint64_t* empty = full + NT;
+  uint64_t* kv_full = empty + NT;
+
+  const int tid = threadIdx.x;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * KV_BK;  // the first key blocks see the most q tiles: they go first
+  const int G = NH / NKV;
+  // The q tiles that see key k0 or later: from the tile holding query
+  // k0 - kv_offset on (the TPU kernel's skip rule, per 64-row tile), for
+  // every query head of the group.
+  const int nq = (Tq + KV_BQ - 1) / KV_BQ;
+  const int i0 = causal && k0 > kv_offset ? (k0 - kv_offset) / KV_BQ : 0;
+  const int per_head = nq > i0 ? nq - i0 : 0;
+  const int n_it = per_head * G;
+
+  // One thread fills stage it % NT with sweep step it: the q tile's Q and
+  // dO, and its rows' lse2 and D.
+  auto load_stage = [&](int it) {
+    const int s = it % NT, h = hk * G + it / per_head, q0 = (i0 + it % per_head) * KV_BQ;
+    mbar_expect_tx(&full[s], 2 * Q_TILE + C::ST);
+#pragma unroll
+    for (int p = 0; p < C::PANELS; ++p) {
+      tma_load_3d(qs + s * Q_TILE + p * PANEL64, &tmq, &full[s], h * D + 64 * p, q0, b);
+      tma_load_3d(os + s * Q_TILE + p * PANEL64, &tmo, &full[s], h * D + 64 * p, q0, b);
+    }
+    const size_t row = ((size_t)b * NH + h) * Tq64 + q0;
+    bulk_load(st + s * 2 * KV_BQ, lse2_in + row, KV_BQ * 4, &full[s]);
+    bulk_load(st + s * 2 * KV_BQ + KV_BQ, delta_in + row, KV_BQ * 4, &full[s]);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < NT; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], KV_THREADS);
+    }
+    mbar_init(kv_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // K and V of the block in two boxes of 64 keys per panel; a box that
+    // starts past Tkv is not loaded (its warpgroup's keys are never stored).
+    const int halves = k0 + 64 < Tkv ? 2 : 1;
+    mbar_expect_tx(kv_full, 2 * halves * C::PANELS * PANEL64);
+#pragma unroll
+    for (int p = 0; p < C::PANELS; ++p)
+      for (int hf = 0; hf < halves; ++hf) {
+        const int off = p * C::K_PANEL + hf * PANEL64;
+        tma_load_3d(ks + off, &tmk, kv_full, hk * D + 64 * p, k0 + 64 * hf, b);
+        tma_load_3d(vs + off, &tmv, kv_full, hk * D + 64 * p, k0 + 64 * hf, b);
+      }
+    for (int it = 0; it < min(NT, n_it); ++it) load_stage(it);
+  }
+
+  // ---- consumer warpgroups: keys [k0 + 64 wg, k0 + 64 wg + 64) ----
+  const int wg = tid >> 7, lane = tid & 31, w = (tid >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int wkey = k0 + 64 * wg + 16 * w;  // the warp's first key
+  const int r0 = wkey + g;                 // this thread's keys r0 and r0 + 8
+  const float c = sm_scale * LOG2E;
+  const unsigned char* kw = ks + wg * PANEL64;  // the warpgroup's 64 keys of each panel
+  const unsigned char* vw = vs + wg * PANEL64;
+
+  float dk[NO], dv[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % NT, q0 = (i0 + it % per_head) * KV_BQ;
+    const unsigned char* qt = qs + s * Q_TILE;
+    const unsigned char* ot = os + s * Q_TILE;
+    float sc[NS], dp[NS];
+    uint32_t pa[4][4], da[4][4];
+    mbar_wait(&full[s], (it / NT) & 1);
+    wgmma_fence();
+    issue_abt<D>(sc, kw, C::K_PANEL, qt, PANEL64);  // S^T = K Q^T
+    issue_abt<D>(dp, vw, C::K_PANEL, ot, PANEL64);  // dP^T = V dO^T
+    wgmma_wait<0>();
+    wgmma_fence_operand<NS>(sc);
+    wgmma_fence_operand<NS>(dp);
+    dst_cols(sc, dp, q0, wkey, r0, t, kv_offset, causal, c, st + s * 2 * KV_BQ, sm_scale);
+    pack_a(pa, sc);
+    pack_a(da, dp);
+    wgmma_fence_operand<NO>(dv);
+    wgmma_fence_operand<NO>(dk);
+    wgmma_fence();
+    issue_ab<D>(dv, pa, ot, PANEL64);  // dV += P^T dO
+    issue_ab<D>(dk, da, qt, PANEL64);  // dK += dS^T Q
+    wgmma_wait<0>();
+    wgmma_fence_operand<NO>(dv);
+    wgmma_fence_operand<NO>(dk);
+    mbar_arrive(&empty[s]);
+    if (tid == 128 && it + NT < n_it) {  // refill the stage once both warpgroups are done with it
+      mbar_wait(&empty[s], (it / NT) & 1);
+      load_stage(it + NT);
+    }
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int key = r0 + 8 * hr;
+    if (key >= Tkv) continue;
+    const size_t row = (((size_t)b * Tkv + key) * NKV + hk) * D;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      *reinterpret_cast<__nv_bfloat162*>(dk_out + row + 8 * jj + 2 * t) =
+          __floats2bfloat162_rn(dk[4 * jj + 2 * hr], dk[4 * jj + 2 * hr + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv_out + row + 8 * jj + 2 * t) =
+          __floats2bfloat162_rn(dv[4 * jj + 2 * hr], dv[4 * jj + 2 * hr + 1]);
+    }
+  }
+}
+
+// ---- dq (wgmma) ----------------------------------------------------------------
+
+constexpr int DQ_BQ = 128, DQ_BKV = 64;
+constexpr int DQ_THREADS = 288;  // warpgroups 0-1 consume, warp 8 loads
+
+template <int D>
+struct DqCfg {
+  static constexpr int PANELS = D / 64;
+  static constexpr int Q_PANEL = DQ_BQ * 128, KV_PANEL = PANEL64;
+  static constexpr int Q_TILE = PANELS * Q_PANEL, KV_TILE = PANELS * KV_PANEL;
+  static constexpr int NT = 4;  // stages of the K/V ring
+  static constexpr int SMEM = 2 * Q_TILE + NT * 2 * KV_TILE + (2 * NT + 1) * 8 + 1024;
+};
 
 // dS of one S tile in place of dP: sc[4 jj + i] is row r0 + 8 (i / 2), key
 // k0 + 8 jj + 2 t + i % 2. p = 2^(s c - lse2) (0 where masked; the compare
@@ -535,35 +549,6 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
     if (e != cudaSuccess) return static_cast<int>(e);
   }
 
-  Args a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.v = static_cast<const __nv_bfloat16*>(v);
-  a.dout = bf;
-  a.lse2 = lse2;
-  a.delta = delta;
-  a.dq = static_cast<__nv_bfloat16*>(dq);
-  a.dk = static_cast<__nv_bfloat16*>(dk);
-  a.dv = static_cast<__nv_bfloat16*>(dv);
-  a.Tq = Tq;
-  a.Tq64 = Tq64;
-  a.Tkv = Tkv;
-  a.NH = NH;
-  a.NKV = NKV;
-  a.sm_scale = sm_scale;
-  a.kv_offset = kv_offset;
-  a.causal = causal;
-  {
-    const int smem = sizeof(__nv_bfloat16) * 6 * 64 * (D + 8) + sizeof(float) * 2 * 2 * BQ;
-    static bool sized[64] = {};
-    auto kern = flash_bwd_dkv_kernel<D>;
-    cudaError_t e = size_smem(kern, smem, sized);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kern<<<dim3(Tkv / BKV, NKV, B), THREADS, smem, stream>>>(a);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-
   using C = DqCfg<D>;
   CUtensorMap tmq, tmk, tmv, tmo;
   const auto bt = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -573,6 +558,18 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
       !encode_3d(&tmk, bt, 2, k, B, Tkv, (uint64_t)NKV * D, 64, 64, sw) ||
       !encode_3d(&tmv, bt, 2, v, B, Tkv, (uint64_t)NKV * D, 64, 64, sw))
     return static_cast<int>(cudaErrorInvalidValue);
+  {
+    using KC = KvCfg<D>;
+    static bool sized[64] = {};
+    auto kern = flash_bwd_dkv_kernel<D>;
+    cudaError_t e = size_smem(kern, KC::SMEM, sized);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kern<<<dim3(NKV, B, (Tkv + KV_BK - 1) / KV_BK), KV_THREADS, KC::SMEM, stream>>>(
+        tmq, tmk, tmv, tmo, lse2, delta, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), Tq, Tq64, Tkv, NH, NKV, sm_scale, kv_offset, causal);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   static bool sized_dq[64] = {};
   auto kern = flash_bwd_dq_kernel<D>;
   cudaError_t e = size_smem(kern, C::SMEM, sized_dq);

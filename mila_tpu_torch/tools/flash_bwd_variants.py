@@ -40,13 +40,38 @@ from mila_tpu_torch.kernels import flash_attention as fa
 from mila_tpu_torch.kernels import flash_attention_bwd as fb
 
 SRC = "flash_bwd.cu"
+DKV_LAUNCH = "    kern<<<dim3(NKV, B, (Tkv + KV_BK - 1) / KV_BK)"
+DQ_LAUNCH = "  kern<<<grid, DQ_THREADS"
+# (file, old, new) edits that drop one part (wrong results: only their
+# times mean anything)
+NO_EX2 = [(SRC, "float p = ex2(fmaf(sc[e], c, -((i & 1) ? ls.y : ls.x)));",
+           "float p = fmaf(sc[e], c, -((i & 1) ? ls.y : ls.x));"),
+          (SRC, "float p = ex2(fmaf(sc[e], c, -lse2[hr]));", "float p = fmaf(sc[e], c, -lse2[hr]);")]
+NO_MMA = [(SRC, "for (int kk = 0; kk < D / 16; ++kk) {", "for (int kk = 0; kk < 0; ++kk) {"),
+          (SRC, "for (int kk = 0; kk < 4; ++kk) {\n    const uint64_t bd",
+           "for (int kk = 0; kk < 0; ++kk) {\n    const uint64_t bd")]
+NO_ELEMENTWISE = [(SRC, "const float* st,\n                                         float scale) {\n",
+                   "const float* st,\n                                         float scale) {\n"
+                   "  return;\n"),
+                  (SRC, "const float* dl, float scale) {\n",
+                   "const float* dl, float scale) {\n  return;\n"),
+                  (SRC, "const float* d) {\n", "const float* d) {\n  return;\n")]
 VARIANTS = {  # name -> [(file, old text, new text)]
     "committed": [],
-    # one launch at a time: the others do not run (wrong results)
-    "stats_only": [(SRC, "  kern<<<grid, DQ_THREADS", "  if (0) kern<<<grid, DQ_THREADS"),
-                   (SRC, "    kern<<<dim3(Tkv / BKV", "    if (0) kern<<<dim3(Tkv / BKV")],
-    "no_dkv": [(SRC, "    kern<<<dim3(Tkv / BKV", "    if (0) kern<<<dim3(Tkv / BKV")],
-    "no_dq": [(SRC, "  kern<<<grid, DQ_THREADS", "  if (0) kern<<<grid, DQ_THREADS")],
+    # one pass at a time (the statistics launch always runs)
+    "stats_only": [(SRC, DQ_LAUNCH, "  if (0)" + DQ_LAUNCH[1:]),
+                   (SRC, DKV_LAUNCH, "    if (0)" + DKV_LAUNCH[3:])],
+    "no_dkv": [(SRC, DKV_LAUNCH, "    if (0)" + DKV_LAUNCH[3:])],
+    "no_dq": [(SRC, DQ_LAUNCH, "  if (0)" + DQ_LAUNCH[1:])],
+    # what each part costs: no exponentials (the FFMA stays), no products,
+    # no element-wise work (p, ds and their packing), neither (the rings)
+    "no_ex2": NO_EX2,
+    "no_mma": NO_MMA,
+    "no_elementwise": NO_ELEMENTWISE,
+    "loads_only": NO_MMA + NO_ELEMENTWISE,
+    # the dQ pass's warpgroups issue whenever they are ready, without turns
+    "no_pingpong": [(SRC, "{ named_bar_sync(SCHED + wg, CONSUMERS); }", "{}"),
+                    (SRC, "{ named_bar_arrive(SCHED + 1 - wg, CONSUMERS); }", "{}")],
 }
 # (B, T, NH, NKV, D): chip_smoke's three flash backward rows, all causal.
 SHAPES = {
@@ -55,6 +80,23 @@ SHAPES = {
     "D128_T2048": (1, 2048, 24, 8, 128),
 }
 NEW_ABI = "void* lse2"  # the entry takes the statistics scratch, not D
+
+
+def ptxas_report(log: str) -> dict:
+    """{"<kernel> D<d>": "<registers> registers, <spills>"} from nvcc's
+    -Xptxas -v output (kernels named flash_bwd_<kernel>_kernel<D>)."""
+    out, entry = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '.*?\dflash_bwd_(\w+?)_kernelILi(\d+)E", ln)
+        if m:
+            entry = f"{m.group(1)} D{m.group(2)}"
+        elif entry and "spill" in ln:
+            out[entry] = ln.strip()
+        elif entry and "registers" in ln:
+            out[entry] = re.search(r"Used \d+ registers", ln).group(0) + "; " + out.get(entry, "")
+        elif "warning" in ln:
+            out.setdefault("warnings", []).append(ln.strip())
+    return out
 
 
 def build(names, sources) -> dict:
@@ -85,9 +127,7 @@ def build(names, sources) -> dict:
         log = proc.communicate()[0].decode()
         if proc.returncode:
             raise RuntimeError(f"variant {name}: nvcc failed\n{log[-3000:]}")
-        ptxas = [ln.strip() for ln in log.splitlines()
-                 if re.search(r"registers|spill|Compiling entry|warning", ln)]
-        print(json.dumps({"variant": name, "ptxas": ptxas}), flush=True)
+        print(json.dumps({"variant": name, "ptxas": ptxas_report(log)}), flush=True)
         lib = ctypes.CDLL(str(_build.BUILD_DIR / f"flash_bwd_variant_{name}" / "libflash_bwd.so"))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.flash_bwd.argtypes = [vp] * (12 if new_abi else 10) + [ci] * 6 + [ctypes.c_float, ci,
