@@ -12,39 +12,52 @@
 // dtype, dk and dv to k's.
 //
 // Bound on the H100: tensor-core operations (five products of 2 * D
-// multiply-adds per visible (query, key) pair and head) against q, k, v, o,
-// do, dq, dk, dv read or written once. Three launches:
+// multiply-adds per visible (query, key) pair and head; the two passes here
+// run seven, S and dP in each) against q, k, v, o, do, dq, dk, dv read or
+// written once. Three launches:
 //   stats: per (batch, head, query row) D = sum_d o do in f32 and lse2 =
 //     (m + ln l) log2(e) (l == 0 taken as 1), one warp per 4 (D 64) or 2
 //     (D 128) rows with 16-byte loads of o and do in the model layout, into
 //     f32 [B, NH, Tq64] (Tq rounded up to 64; rows past Tq get lse2 = +inf
 //     and D = 0, so their p is 0). Both passes then form p = 2^(s c - lse2)
 //     with c = scale log2(e): one FFMA and one ex2 a score, no divide.
-//   dkv: one block of 256 threads per (128 keys, KV head, batch row), the
-//     first key blocks (which see the most q tiles) first. One thread loads
-//     K and V of the block once by TMA and the first stages of a ring; the
-//     block sweeps the (query head of the group, 64-row q tile) pairs that
-//     see its keys, Q, dO and the tile's lse2 and D streaming through the
-//     ring (full / empty mbarriers; warpgroup 1's first thread refills a
-//     stage once both warpgroups are done with it, so no producer warp
-//     takes registers). Each consumer warpgroup owns 64 keys: S^T = K Q^T
-//     and dP^T = V dO^T as SS wgmma m64n64k16 (both operands K-major, as
+//   dkv: one block per key block, KV head and batch row, the first key
+//     blocks (which see the most q tiles) first, with NWG consumer
+//     warpgroups (3 at D 64, where one's dK, dV, S^T and dP^T fit the 168
+//     registers a thread has at 384 threads; 2 at D 128) and no producer
+//     warp: one thread loads the block's K and V once by TMA and the first
+//     stages of a ring; the block sweeps the (query head of the group,
+//     64-row q tile) pairs that see its keys, Q, dO and the tile's lse2 and
+//     D streaming through the ring (full / empty mbarriers; a consumer
+//     thread refills a stage once its users are done). Two block shapes:
+//     64 NWG keys, warpgroup wg on keys 64 wg .. 64 wg + 63, all on every
+//     step (each Q/dO tile loaded once for 64 NWG keys); or, where those
+//     blocks would not fill the card twice over (few batch rows and KV
+//     heads: the heaviest first blocks would set the time), 64 keys, every
+//     warpgroup on all of them, taking the steps in turn, which divides the
+//     heaviest block's time by NWG; the warpgroups' f32 dK and dV are then
+//     added at the end in a fixed order. Per step and warpgroup: S^T = K
+//     Q^T and dP^T = V dO^T as SS wgmma m64n64k16 (both operands K-major, as
 //     TMA writes them); P^T and dS^T in their registers, the statistics of
 //     a lane's 16 query columns read from the stage (the reads broadcast);
 //     dV += bf16(P^T) dO and dK += bf16(dS^T) Q as RS wgmma (the
 //     accumulators pack into A's fragments, dO and Q read MN-major through
-//     the transpose bit). Nothing round-trips through shared memory. dK and
-//     dV sum over the GQA group in one f32 accumulator inside the block.
-//   dq: the forward's skeleton (flash_fwd.cu): one block of 288 threads per
-//     (128 query rows, head, batch row), heaviest q tiles first; warp 8, one
-//     thread, loads Q and dO once and streams 64-key K/V tiles through a TMA
-//     ring (3-D maps over [B][T][heads * D], boxes {64 columns, 64 rows, 1},
-//     128-byte swizzle; rows past T read zeros within their batch row); two
-//     consumer warpgroups of 64 rows run S = Q K^T and dP = dO V^T as SS
-//     wgmma m64n64k16, form dS in S's registers, and dQ += bf16(dS) K as RS
-//     wgmma (dS packs into A's fragment, K read MN-major through the
-//     transpose bit). Each issues S and dP of tile j with dQ of tile j - 1
-//     behind them, and the two take turns to issue (named barriers), so one
+//     the transpose bit). Nothing round-trips through shared memory; dK and
+//     dV sum over the GQA group inside the block, deterministically. (Issuing
+//     a step's dV, dK with the next step's S^T, dP^T, and turns between the
+//     warpgroups, both measured slower: tools/flash_bwd_variants.)
+//   dq: the forward's skeleton (flash_fwd.cu): one block per (128 query
+//     rows, head, batch row), heaviest q tiles first; one thread loads Q and
+//     dO once and streams 64-key K/V tiles through a TMA ring (3-D maps over
+//     [B][T][heads * D], boxes {64 columns, 64 rows, 1}, 128-byte swizzle;
+//     rows past T read zeros within their batch row): a producer warp at D
+//     64 (288 threads), a consumer thread at D 128 (256 threads, so that dQ,
+//     S, dP and dS fit in 255 registers without spilling). Two consumer
+//     warpgroups of 64 rows run S = Q K^T and dP = dO V^T as SS wgmma
+//     m64n64k16, form dS in S's registers, and dQ += bf16(dS) K as RS wgmma
+//     (dS packs into A's fragment, K read MN-major through the transpose
+//     bit). Each issues S and dP of tile j with dQ of tile j - 1 behind
+//     them, and the two take turns to issue (named barriers), so one
 //     warpgroup's exponentials run under the other's products. The rows'
 //     lse2 and D stay in registers.
 // Layouts are the model's: q, o, do, dq [B, Tq, NH, D], k, v, dk, dv [B,
@@ -119,6 +132,9 @@ constexpr int CONSUMERS = 256;
 constexpr int SCHED = 1;  // named barriers SCHED + wg: warpgroup wg's turn to issue
 constexpr int PANEL64 = 64 * 128;  // 64 rows of one 64-column panel, bytes
 
+// The dQ pass's two consumer warpgroups take turns to issue their products,
+// so one's element-wise work runs under the other's wgmma: wait for this
+// warpgroup's turn, and pass the turn to the other one.
 __device__ __forceinline__ void sched_wait(int wg) { named_bar_sync(SCHED + wg, CONSUMERS); }
 __device__ __forceinline__ void sched_pass(int wg) { named_bar_arrive(SCHED + 1 - wg, CONSUMERS); }
 
@@ -166,17 +182,27 @@ __device__ __forceinline__ void pack_a(uint32_t (*a)[4], const float* d) {
 
 // ---- dkv (wgmma) ---------------------------------------------------------------
 
-constexpr int KV_BK = 128;  // keys per block: 64 per consumer warpgroup
-constexpr int KV_BQ = 64;   // queries per tile of the sweep
-constexpr int KV_THREADS = 256;
+constexpr int KV_BQ = 64;  // queries per tile of the sweep
+constexpr int RED = SCHED + 2;  // named barrier of the end-of-block sum
 
-template <int D>
+// NWG consumer warpgroups (3 at D 64, where a warpgroup's dK, dV, S^T and
+// dP^T fit in the 168 registers a thread has at 384 threads; 2 at D 128).
+// SPLIT: a block of 64 keys, every warpgroup on all of them, taking the
+// sweep's steps in turn; else a block of 64 NWG keys, warpgroup wg on keys
+// 64 wg .. 64 wg + 63, all on every step (each Q/dO tile loaded once for
+// NWG times the keys).
+template <int D, bool SPLIT>
 struct KvCfg {
+  static constexpr int NWG = D == 64 ? 3 : 2;
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int BK = SPLIT ? 64 : 64 * NWG;  // keys per block
   static constexpr int PANELS = D / 64;
-  static constexpr int K_PANEL = KV_BK * 128, Q_PANEL = PANEL64;
+  static constexpr int K_PANEL = BK * 128, Q_PANEL = PANEL64;
   static constexpr int K_TILE = PANELS * K_PANEL, Q_TILE = PANELS * Q_PANEL;
   static constexpr int ST = 2 * KV_BQ * 4;  // a tile's lse2 and D, bytes
-  static constexpr int NT = 4;              // stages of the Q/dO ring
+  static constexpr int NT = D == 64 ? 9 : 4;  // stages of the Q/dO ring (SPLIT: NT / NWG each)
+  static constexpr int STEP = SPLIT ? NWG : 1;  // sweep steps between a warpgroup's steps
+  static_assert(!SPLIT || NT % NWG == 0, "a warpgroup's steps keep to its own stages");
   static constexpr int SMEM = 2 * K_TILE + NT * (2 * Q_TILE + ST) + (2 * NT + 1) * 8 + 1024;
 };
 
@@ -205,20 +231,20 @@ __device__ __forceinline__ void dst_cols(float* sc, float* dp, int q0, int wkey,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(KV_THREADS, 1)
+template <int D, bool SPLIT>
+__global__ void __launch_bounds__(KvCfg<D, SPLIT>::THREADS, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
                      const __grid_constant__ CUtensorMap tmv, const __grid_constant__ CUtensorMap tmo,
                      const float* __restrict__ lse2_in, const float* __restrict__ delta_in,
                      __nv_bfloat16* __restrict__ dk_out, __nv_bfloat16* __restrict__ dv_out, int Tq,
                      int Tq64, int Tkv, int NH, int NKV, float sm_scale, int kv_offset,
                      int causal) {
-  using C = KvCfg<D>;
-  constexpr int NT = C::NT, Q_TILE = C::Q_TILE;
+  using C = KvCfg<D, SPLIT>;
+  constexpr int NT = C::NT, Q_TILE = C::Q_TILE, STEP = C::STEP, NWG = C::NWG;
   constexpr int NO = D / 2, NS = KV_BQ / 2;  // dK's (and dV's) and S^T's f32 registers
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (sm90_smem(smem_raw) & 1023)) & 1023);
-  unsigned char* ks = smem;            // [PANELS][128][64] bf16, swizzled
+  unsigned char* ks = smem;            // [PANELS][BK][64] bf16, swizzled
   unsigned char* vs = ks + C::K_TILE;  // the same
   unsigned char* qs = vs + C::K_TILE;  // [NT][PANELS][64][64]
   unsigned char* os = qs + NT * Q_TILE;
@@ -229,11 +255,11 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_const
 
   const int tid = threadIdx.x;
   const int hk = blockIdx.x, b = blockIdx.y;
-  const int k0 = blockIdx.z * KV_BK;  // the first key blocks see the most q tiles: they go first
+  const int k0 = blockIdx.z * C::BK;  // the first key blocks see the most q tiles: they go first
   const int G = NH / NKV;
-  // The q tiles that see key k0 or later: from the tile holding query
-  // k0 - kv_offset on (the TPU kernel's skip rule, per 64-row tile), for
-  // every query head of the group.
+  // The sweep: the q tiles that see key k0 or later, from the tile holding
+  // query k0 - kv_offset on (the TPU kernel's skip rule, per 64-row tile),
+  // for every query head of the group.
   const int nq = (Tq + KV_BQ - 1) / KV_BQ;
   const int i0 = causal && k0 > kv_offset ? (k0 - kv_offset) / KV_BQ : 0;
   const int per_head = nq > i0 ? nq - i0 : 0;
@@ -256,71 +282,104 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_const
   if (tid == 0) {
     for (int s = 0; s < NT; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], KV_THREADS);
+      mbar_init(&empty[s], SPLIT ? 128 : C::THREADS);
     }
     mbar_init(kv_full, 1);
     mbar_fence_init();
   }
   __syncthreads();
   if (tid == 0) {
-    // K and V of the block in two boxes of 64 keys per panel; a box that
-    // starts past Tkv is not loaded (its warpgroup's keys are never stored).
-    const int halves = k0 + 64 < Tkv ? 2 : 1;
-    mbar_expect_tx(kv_full, 2 * halves * C::PANELS * PANEL64);
+    // K and V in boxes of 64 keys per panel; a box that starts past Tkv (in
+    // the last block when Tkv is not a multiple of BK) is not loaded: its
+    // keys are never stored.
+    const int boxes = min(C::BK, Tkv - k0) / 64;
+    mbar_expect_tx(kv_full, 2 * boxes * C::PANELS * PANEL64);
 #pragma unroll
     for (int p = 0; p < C::PANELS; ++p)
-      for (int hf = 0; hf < halves; ++hf) {
-        const int off = p * C::K_PANEL + hf * PANEL64;
-        tma_load_3d(ks + off, &tmk, kv_full, hk * D + 64 * p, k0 + 64 * hf, b);
-        tma_load_3d(vs + off, &tmv, kv_full, hk * D + 64 * p, k0 + 64 * hf, b);
+      for (int x = 0; x < boxes; ++x) {
+        const int off = p * C::K_PANEL + x * PANEL64;
+        tma_load_3d(ks + off, &tmk, kv_full, hk * D + 64 * p, k0 + 64 * x, b);
+        tma_load_3d(vs + off, &tmv, kv_full, hk * D + 64 * p, k0 + 64 * x, b);
       }
     for (int it = 0; it < min(NT, n_it); ++it) load_stage(it);
   }
 
-  // ---- consumer warpgroups: keys [k0 + 64 wg, k0 + 64 wg + 64) ----
+  // ---- consumer warpgroups ----
   const int wg = tid >> 7, lane = tid & 31, w = (tid >> 5) & 3;
   const int g = lane >> 2, t = lane & 3;
-  const int wkey = k0 + 64 * wg + 16 * w;  // the warp's first key
-  const int r0 = wkey + g;                 // this thread's keys r0 and r0 + 8
+  const int kw = SPLIT ? 0 : 64 * wg;  // the warpgroup's first key in the block
+  const int wkey = k0 + kw + 16 * w;   // the warp's first key
+  const int r0 = wkey + g;             // this thread's keys r0 and r0 + 8
   const float c = sm_scale * LOG2E;
-  const unsigned char* kw = ks + wg * PANEL64;  // the warpgroup's 64 keys of each panel
-  const unsigned char* vw = vs + wg * PANEL64;
+  const unsigned char* kt = ks + kw * 128;
+  const unsigned char* vt = vs + kw * 128;
 
   float dk[NO], dv[NO];
 #pragma unroll
   for (int i = 0; i < NO; ++i) dk[i] = dv[i] = 0.f;
   mbar_wait(kv_full, 0);
-  for (int it = 0; it < n_it; ++it) {
-    const int s = it % NT, q0 = (i0 + it % per_head) * KV_BQ;
-    const unsigned char* qt = qs + s * Q_TILE;
-    const unsigned char* ot = os + s * Q_TILE;
+  // Each step in turn, without overlap between steps or turns between the
+  // warpgroups: both measured slower here (tools/flash_bwd_variants).
+  const int first = SPLIT ? wg : 0;
+  for (int it = first; it < n_it; it += STEP) {
+    const int s = it % NT;
     float sc[NS], dp[NS];
-    uint32_t pa[4][4], da[4][4];
+    uint32_t pa[4][4], da[4][4];  // bf16(P^T), bf16(dS^T): the A fragments of dV and dK
     mbar_wait(&full[s], (it / NT) & 1);
     wgmma_fence();
-    issue_abt<D>(sc, kw, C::K_PANEL, qt, PANEL64);  // S^T = K Q^T
-    issue_abt<D>(dp, vw, C::K_PANEL, ot, PANEL64);  // dP^T = V dO^T
+    issue_abt<D>(sc, kt, C::K_PANEL, qs + s * Q_TILE, PANEL64);  // S^T = K Q^T
+    issue_abt<D>(dp, vt, C::K_PANEL, os + s * Q_TILE, PANEL64);  // dP^T = V dO^T
     wgmma_wait<0>();
     wgmma_fence_operand<NS>(sc);
     wgmma_fence_operand<NS>(dp);
-    dst_cols(sc, dp, q0, wkey, r0, t, kv_offset, causal, c, st + s * 2 * KV_BQ, sm_scale);
+    dst_cols(sc, dp, (i0 + it % per_head) * KV_BQ, wkey, r0, t, kv_offset, causal, c,
+             st + s * 2 * KV_BQ, sm_scale);
     pack_a(pa, sc);
     pack_a(da, dp);
     wgmma_fence_operand<NO>(dv);
     wgmma_fence_operand<NO>(dk);
     wgmma_fence();
-    issue_ab<D>(dv, pa, ot, PANEL64);  // dV += P^T dO
-    issue_ab<D>(dk, da, qt, PANEL64);  // dK += dS^T Q
+    issue_ab<D>(dv, pa, os + s * Q_TILE, PANEL64);  // dV += P^T dO
+    issue_ab<D>(dk, da, qs + s * Q_TILE, PANEL64);  // dK += dS^T Q
     wgmma_wait<0>();
     wgmma_fence_operand<NO>(dv);
     wgmma_fence_operand<NO>(dk);
+    // The stage is done with: refill it once all its users are (SPLIT: the
+    // warpgroup's own first thread; else the last warpgroup's).
     mbar_arrive(&empty[s]);
-    if (tid == 128 && it + NT < n_it) {  // refill the stage once both warpgroups are done with it
+    if ((SPLIT ? (tid & 127) == 0 : tid == 128 * (NWG - 1)) && it + NT < n_it) {
       mbar_wait(&empty[s], (it / NT) & 1);
       load_stage(it + NT);
     }
   }
 
+  if constexpr (SPLIT) {
+    // dK and dV of the block: warpgroup 0's sums plus those of warpgroups
+    // 1 .. NWG - 1, in that order, through the ring's shared memory (Q's
+    // and dO's stages) once all are done with it.
+    static_assert((NWG - 1) * D * 128 * 4 <= 2 * NT * Q_TILE, "the sums fit the ring");
+    float* red = reinterpret_cast<float*>(qs);  // [NWG - 1][2 NO][128]
+    const int ltid = tid & 127;
+    named_bar_sync(RED, C::THREADS);
+    if (wg > 0) {
+      float* mine = red + (wg - 1) * 2 * NO * 128;
+#pragma unroll
+      for (int i = 0; i < NO; ++i) {
+        mine[i * 128 + ltid] = dk[i];
+        mine[(NO + i) * 128 + ltid] = dv[i];
+      }
+    }
+    named_bar_sync(RED, C::THREADS);
+    if (wg > 0) return;
+    for (int x = 0; x < NWG - 1; ++x) {
+      const float* theirs = red + x * 2 * NO * 128;
+#pragma unroll
+      for (int i = 0; i < NO; ++i) {
+        dk[i] += theirs[i * 128 + ltid];
+        dv[i] += theirs[(NO + i) * 128 + ltid];
+      }
+    }
+  }
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int key = r0 + 8 * hr;
@@ -339,10 +398,13 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_const
 // ---- dq (wgmma) ----------------------------------------------------------------
 
 constexpr int DQ_BQ = 128, DQ_BKV = 64;
-constexpr int DQ_THREADS = 288;  // warpgroups 0-1 consume, warp 8 loads
 
 template <int D>
 struct DqCfg {
+  // WARP: warpgroups 0-1 consume, warp 8 loads (288 threads); else one of
+  // the consumers' threads loads (256 threads, so up to 255 registers each).
+  static constexpr bool WARP = D == 64;
+  static constexpr int THREADS = WARP ? CONSUMERS + 32 : CONSUMERS;
   static constexpr int PANELS = D / 64;
   static constexpr int Q_PANEL = DQ_BQ * 128, KV_PANEL = PANEL64;
   static constexpr int Q_TILE = PANELS * Q_PANEL, KV_TILE = PANELS * KV_PANEL;
@@ -370,7 +432,7 @@ __device__ __forceinline__ void ds_rows(const float* sc, float* dp, int k0, int 
 }
 
 template <int D>
-__global__ void __launch_bounds__(DQ_THREADS, 1)
+__global__ void __launch_bounds__(DqCfg<D>::THREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
                     const __grid_constant__ CUtensorMap tmv, const __grid_constant__ CUtensorMap tmo,
                     const float* __restrict__ lse2_in, const float* __restrict__ delta_in,
@@ -409,33 +471,34 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_consta
   }
   __syncthreads();
 
-  if (tid >= CONSUMERS) {  // warp 8, one thread: the TMA ring
-    if (tid == CONSUMERS) {
-      // Q and dO in two boxes of 64 rows per panel; a box that starts past
-      // Tq is not loaded (its warpgroup's rows are never stored).
-      const int halves = q0 + 64 < Tq ? 2 : 1;
-      mbar_expect_tx(q_full, 2 * halves * C::PANELS * PANEL64);
+  auto load_kv = [&](int j) {  // one thread: K/V tile j into stage j % NT
+    const int s = j % NT;
+    mbar_expect_tx(&full[s], 2 * KV_TILE);
 #pragma unroll
-      for (int p = 0; p < C::PANELS; ++p)
-        for (int hf = 0; hf < halves; ++hf) {
-          const int off = p * C::Q_PANEL + hf * PANEL64;
-          tma_load_3d(qs + off, &tmq, q_full, h * D + 64 * p, q0 + 64 * hf, b);
-          tma_load_3d(os + off, &tmo, q_full, h * D + 64 * p, q0 + 64 * hf, b);
-        }
-      for (int j = 0; j < n_kv; ++j) {
-        const int s = j % NT;
-        if (j >= NT) mbar_wait(&empty[s], (j / NT - 1) & 1);
-        mbar_expect_tx(&full[s], 2 * KV_TILE);
-#pragma unroll
-        for (int p = 0; p < C::PANELS; ++p) {
-          const int col = hk * D + 64 * p;
-          tma_load_3d(ks + s * KV_TILE + p * PANEL64, &tmk, &full[s], col, j * DQ_BKV, b);
-          tma_load_3d(vs + s * KV_TILE + p * PANEL64, &tmv, &full[s], col, j * DQ_BKV, b);
-        }
-      }
+    for (int p = 0; p < C::PANELS; ++p) {
+      const int col = hk * D + 64 * p;
+      tma_load_3d(ks + s * KV_TILE + p * PANEL64, &tmk, &full[s], col, j * DQ_BKV, b);
+      tma_load_3d(vs + s * KV_TILE + p * PANEL64, &tmv, &full[s], col, j * DQ_BKV, b);
     }
-    return;
+  };
+  if (tid == (C::WARP ? CONSUMERS : 0)) {
+    // Q and dO in two boxes of 64 rows per panel; a box that starts past
+    // Tq is not loaded (its warpgroup's rows are never stored).
+    const int halves = q0 + 64 < Tq ? 2 : 1;
+    mbar_expect_tx(q_full, 2 * halves * C::PANELS * PANEL64);
+#pragma unroll
+    for (int p = 0; p < C::PANELS; ++p)
+      for (int hf = 0; hf < halves; ++hf) {
+        const int off = p * C::Q_PANEL + hf * PANEL64;
+        tma_load_3d(qs + off, &tmq, q_full, h * D + 64 * p, q0 + 64 * hf, b);
+        tma_load_3d(os + off, &tmo, q_full, h * D + 64 * p, q0 + 64 * hf, b);
+      }
+    for (int j = 0; j < (C::WARP ? n_kv : min(NT, n_kv)); ++j) {
+      if (j >= NT) mbar_wait(&empty[j % NT], (j / NT - 1) & 1);
+      load_kv(j);
+    }
   }
+  if (tid >= CONSUMERS) return;  // the producer warp (WARP)
 
   // ---- consumer warpgroups: query rows [q0 + 64 wg, q0 + 64 wg + 64) ----
   const int wg = tid >> 7, lane = tid & 31, w = (tid >> 5) & 3;
@@ -495,6 +558,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_consta
       wgmma_wait<0>();
       wgmma_fence_operand<NO>(dq);
       mbar_arrive(&empty[sp]);
+      if (!C::WARP && tid == 128 && j - 1 + NT < n_kv) {  // warpgroup 1 issues second:
+        mbar_wait(&empty[sp], ((j - 1) / NT) & 1);       // both are done with sp
+        load_kv(j - 1 + NT);
+      }
       pack_a(da, dp);
     }
     const int sp = (n_kv - 1) % NT;
@@ -532,6 +599,22 @@ cudaError_t size_smem(K kern, int bytes, bool* sized) {
   return e;
 }
 
+template <int D, bool SPLIT>
+cudaError_t launch_dkv(const CUtensorMap& tmq, const CUtensorMap& tmk, const CUtensorMap& tmv,
+                       const CUtensorMap& tmo, const float* lse2, const float* delta, void* dk,
+                       void* dv, int B, int Tq, int Tq64, int Tkv, int NH, int NKV,
+                       float sm_scale, int kv_offset, int causal, cudaStream_t stream) {
+  using KC = KvCfg<D, SPLIT>;
+  static bool sized[64] = {};
+  auto kern = flash_bwd_dkv_kernel<D, SPLIT>;
+  const cudaError_t e = size_smem(kern, KC::SMEM, sized);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3(NKV, B, (Tkv + KC::BK - 1) / KC::BK), KC::THREADS, KC::SMEM, stream>>>(
+      tmq, tmk, tmv, tmo, lse2, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), Tq, Tq64, Tkv, NH, NKV, sm_scale, kv_offset, causal);
+  return cudaGetLastError();
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
            const float* l, const float* m, float* lse2, float* delta, void* dq, void* dk,
@@ -559,15 +642,26 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
       !encode_3d(&tmv, bt, 2, v, B, Tkv, (uint64_t)NKV * D, 64, 64, sw))
     return static_cast<int>(cudaErrorInvalidValue);
   {
-    using KC = KvCfg<D>;
-    static bool sized[64] = {};
-    auto kern = flash_bwd_dkv_kernel<D>;
-    cudaError_t e = size_smem(kern, KC::SMEM, sized);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kern<<<dim3(NKV, B, (Tkv + KV_BK - 1) / KV_BK), KV_THREADS, KC::SMEM, stream>>>(
-        tmq, tmk, tmv, tmo, lse2, delta, static_cast<__nv_bfloat16*>(dk),
-        static_cast<__nv_bfloat16*>(dv), Tq, Tq64, Tkv, NH, NKV, sm_scale, kv_offset, causal);
-    e = cudaGetLastError();
+    // Blocks of 64 NWG keys load each Q/dO tile once for all warpgroups;
+    // where they would not fill the card twice over (few batch rows and KV
+    // heads: the first, heaviest blocks would set the time), 64-key blocks
+    // divide the heaviest block's work by NWG instead.
+    static int sms[64] = {};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    int n_sm = dev < 64 ? sms[dev] : 0;
+    if (n_sm == 0) {
+      cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+      if (dev < 64) sms[dev] = n_sm;
+    }
+    constexpr int BK = KvCfg<D, false>::BK;
+    const bool split = (long long)B * NKV * ((Tkv + BK - 1) / BK) < 2LL * n_sm;
+    cudaError_t e = split ? launch_dkv<D, true>(tmq, tmk, tmv, tmo, lse2, delta, dk, dv, B, Tq,
+                                                Tq64, Tkv, NH, NKV, sm_scale, kv_offset, causal,
+                                                stream)
+                          : launch_dkv<D, false>(tmq, tmk, tmv, tmo, lse2, delta, dk, dv, B, Tq,
+                                                 Tq64, Tkv, NH, NKV, sm_scale, kv_offset, causal,
+                                                 stream);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   static bool sized_dq[64] = {};
@@ -575,7 +669,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   cudaError_t e = size_smem(kern, C::SMEM, sized_dq);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(NH, B, (Tq + DQ_BQ - 1) / DQ_BQ);
-  kern<<<grid, DQ_THREADS, C::SMEM, stream>>>(tmq, tmk, tmv, tmo, lse2, delta,
+  kern<<<grid, C::THREADS, C::SMEM, stream>>>(tmq, tmk, tmv, tmo, lse2, delta,
                                                static_cast<__nv_bfloat16*>(dq), Tq, Tq64, Tkv, NH,
                                                NKV, sm_scale, kv_offset, causal);
   return static_cast<int>(cudaGetLastError());

@@ -40,8 +40,9 @@ from mila_tpu_torch.kernels import flash_attention as fa
 from mila_tpu_torch.kernels import flash_attention_bwd as fb
 
 SRC = "flash_bwd.cu"
-DKV_LAUNCH = "    kern<<<dim3(NKV, B, (Tkv + KV_BK - 1) / KV_BK)"
-DQ_LAUNCH = "  kern<<<grid, DQ_THREADS"
+DKV_LAUNCH = "  kern<<<dim3(NKV, B, (Tkv + KC::BK - 1) / KC::BK)"
+DQ_LAUNCH = "  kern<<<grid, C::THREADS"
+SPLIT_RULE = "const bool split = (long long)B * NKV * ((Tkv + BK - 1) / BK) < 2LL * n_sm;"
 # (file, old, new) edits that drop one part (wrong results: only their
 # times mean anything)
 NO_EX2 = [(SRC, "float p = ex2(fmaf(sc[e], c, -((i & 1) ? ls.y : ls.x)));",
@@ -56,12 +57,15 @@ NO_ELEMENTWISE = [(SRC, "const float* st,\n                                     
                   (SRC, "const float* dl, float scale) {\n",
                    "const float* dl, float scale) {\n  return;\n"),
                   (SRC, "const float* d) {\n", "const float* d) {\n  return;\n")]
+DQ_WARP = "static constexpr bool WARP = D == 64;"
+SPLIT_TRUE = [(SRC, SPLIT_RULE, "const bool split = true;")]
+SPLIT_FALSE = [(SRC, SPLIT_RULE, "const bool split = false;")]
 VARIANTS = {  # name -> [(file, old text, new text)]
     "committed": [],
     # one pass at a time (the statistics launch always runs)
     "stats_only": [(SRC, DQ_LAUNCH, "  if (0)" + DQ_LAUNCH[1:]),
-                   (SRC, DKV_LAUNCH, "    if (0)" + DKV_LAUNCH[3:])],
-    "no_dkv": [(SRC, DKV_LAUNCH, "    if (0)" + DKV_LAUNCH[3:])],
+                   (SRC, DKV_LAUNCH, "  if (0)" + DKV_LAUNCH[1:])],
+    "no_dkv": [(SRC, DKV_LAUNCH, "  if (0)" + DKV_LAUNCH[1:])],
     "no_dq": [(SRC, DQ_LAUNCH, "  if (0)" + DQ_LAUNCH[1:])],
     # what each part costs: no exponentials (the FFMA stays), no products,
     # no element-wise work (p, ds and their packing), neither (the rings)
@@ -69,9 +73,21 @@ VARIANTS = {  # name -> [(file, old text, new text)]
     "no_mma": NO_MMA,
     "no_elementwise": NO_ELEMENTWISE,
     "loads_only": NO_MMA + NO_ELEMENTWISE,
-    # the dQ pass's warpgroups issue whenever they are ready, without turns
-    "no_pingpong": [(SRC, "{ named_bar_sync(SCHED + wg, CONSUMERS); }", "{}"),
+    # the dK/dV pass's block shape forced: 64 keys, the warpgroups taking
+    # the sweep's steps in turn, or 64 keys per warpgroup
+    "dkv_split": SPLIT_TRUE,
+    "dkv_shared": SPLIT_FALSE,
+    # the dQ pass: no turns; a producer warp (288 threads) at both head
+    # sizes; none (256 threads) at both
+    "dq_no_turns": [(SRC, "{ named_bar_sync(SCHED + wg, CONSUMERS); }", "{}"),
                     (SRC, "{ named_bar_arrive(SCHED + 1 - wg, CONSUMERS); }", "{}")],
+    "dq_warp": [(SRC, DQ_WARP, "static constexpr bool WARP = true;")],
+    "dq_no_warp": [(SRC, DQ_WARP, "static constexpr bool WARP = false;")],
+    # the dK/dV pass at D 64: two consumer warpgroups (as at D 128); a
+    # ring of 6 stages (2 per warpgroup)
+    "dkv_2wg": [(SRC, "NWG = D == 64 ? 3 : 2;", "NWG = 2;"),
+                (SRC, "NT = D == 64 ? 9 : 4;", "NT = D == 64 ? 8 : 4;")],
+    "dkv_nt6": [(SRC, "NT = D == 64 ? 9 : 4;", "NT = D == 64 ? 6 : 4;")],
 }
 # (B, T, NH, NKV, D): chip_smoke's three flash backward rows, all causal.
 SHAPES = {
@@ -83,13 +99,16 @@ NEW_ABI = "void* lse2"  # the entry takes the statistics scratch, not D
 
 
 def ptxas_report(log: str) -> dict:
-    """{"<kernel> D<d>": "<registers> registers, <spills>"} from nvcc's
-    -Xptxas -v output (kernels named flash_bwd_<kernel>_kernel<D>)."""
+    """{"<kernel> D<d>[ split|shared]": "<registers> registers; <spills>"}
+    from nvcc's -Xptxas -v output (kernels named flash_bwd_<kernel>_kernel<D[,
+    SPLIT]>)."""
     out, entry = {}, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?\dflash_bwd_(\w+?)_kernelILi(\d+)E", ln)
+        m = re.search(r"Compiling entry function '.*?\dflash_bwd_(\w+?)_kernelILi(\d+)E(Lb(\d))?",
+                      ln)
         if m:
-            entry = f"{m.group(1)} D{m.group(2)}"
+            entry = f"{m.group(1)} D{m.group(2)}" + ("" if m.group(3) is None else
+                                                     " split" if m.group(4) == "1" else " shared")
         elif entry and "spill" in ln:
             out[entry] = ln.strip()
         elif entry and "registers" in ln:

@@ -745,10 +745,12 @@ def _row_err(got, want, floor=1e-3):
     (1, 128, 512, 8, 2, 64, 384, True),  # kv_offset window
     (2, 80, 256, 4, 1, 64, 176, True),  # a ragged last q tile
     (1, 192, 256, 4, 2, 64, 0, False),  # not causal
-    (2, 320, 320, 8, 2, 64, 0, True),  # the last 128-key block half full
+    (2, 320, 320, 8, 2, 64, 0, True),  # Tkv not a multiple of the forward's 128
     (1, 1024, 1024, 32, 8, 64, 0, True),  # Llama-3.2-1B's GQA heads
     (1, 256, 768, 24, 8, 128, 512, True),  # D 128 GQA, a kv_offset window
-    (2, 192, 320, 4, 2, 128, 128, True),  # a q tile of 64 rows, half a key block
+    (2, 192, 320, 4, 2, 128, 128, True),  # a dQ tile half past Tq, Tkv 320
+    (4, 1088, 1088, 12, 12, 64, 0, True),  # 192-key dK/dV blocks, the last one 2/3 full
+    (2, 448, 1088, 16, 16, 128, 640, True),  # 128-key blocks at D 128, a kv_offset window
 ])
 def test_flash_bwd_kernel(cuda, B, Tq, Tkv, NH, NKV, D, off, causal):
     # The statistics launch against the plain forward, then the backward
