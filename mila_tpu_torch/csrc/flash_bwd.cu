@@ -138,34 +138,30 @@ constexpr int PANEL64 = 64 * 128;  // 64 rows of one 64-column panel, bytes
 __device__ __forceinline__ void sched_wait(int wg) { named_bar_sync(SCHED + wg, CONSUMERS); }
 __device__ __forceinline__ void sched_pass(int wg) { named_bar_arrive(SCHED + 1 - wg, CONSUMERS); }
 
-// acc = A B^T for a warpgroup's 64 rows of A (a, K-major) against N = 64 or
-// 128 rows of B (b, K-major): D / 16 k-slices, 32 bytes apart in a panel's
-// 128-byte rows; a_panel and b_panel the bytes between their 64-column
-// panels. Issued and committed as one group.
-template <int D, int N = 64>
+// acc = A B^T for a warpgroup's 64 rows of A (a, K-major) against 64 rows of
+// B (b, K-major): D / 16 k-slices, 32 bytes apart in a panel's 128-byte
+// rows; a_panel and b_panel the bytes between their 64-column panels.
+// Issued and committed as one group.
+template <int D>
 __device__ __forceinline__ void issue_abt(float* acc, const unsigned char* a, int a_panel,
                                           const unsigned char* b, int b_panel) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int p = kk / 4, off = 32 * (kk % 4);
-    const uint64_t ad = wgmma_desc(a + p * a_panel + off, 16, 1024);
-    const uint64_t bd = wgmma_desc(b + p * b_panel + off, 16, 1024);
-    if constexpr (N == 64)
-      wgmma_m64n64k16_bf16<0>(acc, ad, bd, kk > 0);
-    else
-      wgmma_m64n128k16_bf16<0>(acc, ad, bd, kk > 0);
+    wgmma_m64n64k16_bf16<0>(acc, wgmma_desc(a + p * a_panel + off, 16, 1024),
+                            wgmma_desc(b + p * b_panel + off, 16, 1024), kk > 0);
   }
   wgmma_commit();
 }
 
-// acc += bf16(A) B for A's 64 rows x K in registers (K / 16 k-slices of 16)
-// and B a K-row tile read MN-major (the k-th slice 2048 k bytes in, LBO the
+// acc += bf16(A) B for A's 64 rows x 64 in registers (4 k-slices of 16) and
+// B a 64-row tile read MN-major (the k-th slice 2048 k bytes in, LBO the
 // bytes between its 64-column panels). Issued and committed as one group.
-template <int D, int K = 64>
+template <int D>
 __device__ __forceinline__ void issue_ab(float* acc, const uint32_t (*a)[4],
                                          const unsigned char* b, int b_panel) {
 #pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
+  for (int kk = 0; kk < 4; ++kk) {
     const uint64_t bd = wgmma_desc(b + 2048 * kk, b_panel, 1024);
     if constexpr (D == 64)
       wgmma_m64n64k16_bf16_rs<1>(acc, a[kk], bd, 1);
@@ -175,12 +171,11 @@ __device__ __forceinline__ void issue_ab(float* acc, const uint32_t (*a)[4],
   wgmma_commit();
 }
 
-// An accumulator of 64 x K packs into the A fragments of the next product
+// An accumulator of 64 x 64 packs into the A fragments of the next product
 // (d[8 kk .. 8 kk + 7] are the four bf16 pairs of k-slice kk).
-template <int K = 64>
 __device__ __forceinline__ void pack_a(uint32_t (*a)[4], const float* d) {
 #pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk)
+  for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[kk][r] = pack2(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
 }
@@ -402,43 +397,44 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_const
 
 // ---- dq (wgmma) ----------------------------------------------------------------
 
-constexpr int DQ_BQ = 128;  // query rows per block, 64 per consumer warpgroup
+constexpr int DQ_BKV = 64;  // keys per K/V tile
 
 template <int D>
 struct DqCfg {
-  static constexpr int BKV = 64;  // keys per K/V tile
   // WARP: warpgroups 0-1 consume, warp 8 loads (288 threads, 168 registers
   // a thread); else one of the consumers' threads loads (256 threads, up
-  // to 255 registers: dQ, S, dP and dS at D 128 or with 128-key tiles).
-  static constexpr bool WARP = D == 64 && BKV == 64;
+  // to 255 registers: dQ, S, dP and dS at D 128).
+  static constexpr bool WARP = D == 64;
   static constexpr int THREADS = WARP ? CONSUMERS + 32 : CONSUMERS;
   static constexpr int PANELS = D / 64;
-  static constexpr int Q_PANEL = DQ_BQ * 128, KV_PANEL = BKV * 128;
-  static constexpr int Q_TILE = PANELS * Q_PANEL, KV_TILE = PANELS * KV_PANEL;
+  static constexpr int HALF = PANELS * PANEL64;  // a warpgroup's 64 rows of Q (or dO)
+  static constexpr int KV_TILE = PANELS * PANEL64;
   static constexpr int NT = 4;  // stages of the K/V ring
-  static constexpr int SMEM = 2 * Q_TILE + NT * 2 * KV_TILE + (2 * NT + 1) * 8 + 1024;
+  static constexpr int SMEM = 4 * HALF + NT * 2 * KV_TILE + (2 * NT + 1) * 8 + 1024;
 };
 
 // dS of one S tile in place of dP: sc[4 jj + i] is row r0 + 8 (i / 2), key
-// k0 + 8 jj + 2 t + i % 2. p = 2^(s c - lse2), ds = p (dp - D) scale; p is 0
-// where masked (the compares only on tiles that reach past the warp's first
-// row, wrow, or past Tkv).
-template <int BKV>
+// k0 + 8 jj + 2 t + i % 2. p = 2^(s c - lse2) (0 where masked; the compare
+// only on tiles that reach past the warp's first row, wrow), ds = p (dp -
+// D) scale.
 __device__ __forceinline__ void ds_rows(const float* sc, float* dp, int k0, int wrow, int r0,
-                                        int t, int Tkv, int kv_offset, int causal, float c,
+                                        int t, int kv_offset, int causal, float c,
                                         const float* lse2, const float* dl, float scale) {
-  const bool diag = causal && k0 + BKV - 1 > wrow + kv_offset, tail = k0 + BKV > Tkv;
+  const bool diag = causal && k0 + DQ_BKV - 1 > wrow + kv_offset;
 #pragma unroll
-  for (int jj = 0; jj < BKV / 8; ++jj)
+  for (int jj = 0; jj < DQ_BKV / 8; ++jj)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int e = 4 * jj + i, hr = i >> 1, key = k0 + 8 * jj + 2 * t + (i & 1);
+      const int e = 4 * jj + i, hr = i >> 1;
       float p = ex2(fmaf(sc[e], c, -lse2[hr]));
-      if ((diag && key > r0 + 8 * hr + kv_offset) || (tail && key >= Tkv)) p = 0.f;
+      if (diag && k0 + 8 * jj + 2 * t + (i & 1) > r0 + 8 * hr + kv_offset) p = 0.f;
       dp[e] = (p * (dp[e] - dl[hr])) * scale;
     }
 }
 
+// The block's two warpgroups share every K/V tile: with an even group size
+// (PAIR) they take two query heads of one KV head over the same 64 rows,
+// so a K/V tile serves twice the rows; else one head's 128 rows.
 template <int D>
 __global__ void __launch_bounds__(DqCfg<D>::THREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
@@ -447,27 +443,32 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_consta
                     __nv_bfloat16* __restrict__ dq_out, int Tq, int Tq64, int Tkv, int NH, int NKV,
                     float sm_scale, int kv_offset, int causal) {
   using C = DqCfg<D>;
-  constexpr int NT = C::NT, KV_TILE = C::KV_TILE, BKV = C::BKV;
-  constexpr int NO = D / 2, NS = BKV / 2;  // dQ's and S's f32 registers
+  constexpr int NT = C::NT, KV_TILE = C::KV_TILE;
+  constexpr int NO = D / 2, NS = DQ_BKV / 2;  // dQ's and S's f32 registers
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (sm90_smem(smem_raw) & 1023)) & 1023);
-  unsigned char* qs = smem;            // [PANELS][128][64] bf16, swizzled
-  unsigned char* os = qs + C::Q_TILE;  // dO, the same
-  unsigned char* ks = os + C::Q_TILE;  // [NT][PANELS][BKV][64]
+  unsigned char* qs = smem;             // [2][PANELS][64][64] bf16, swizzled
+  unsigned char* os = qs + 2 * C::HALF;  // dO, the same
+  unsigned char* ks = os + 2 * C::HALF;  // [NT][PANELS][64][64]
   unsigned char* vs = ks + NT * KV_TILE;
   uint64_t* full = reinterpret_cast<uint64_t*>(vs + NT * KV_TILE);
   uint64_t* empty = full + NT;
   uint64_t* q_full = empty + NT;
 
   const int tid = threadIdx.x;
+  const int G = NH / NKV;
+  const bool pair = G % 2 == 0;
+  const int rows = pair ? 64 : 128;           // query rows per block
   const int qt = gridDim.z - 1 - blockIdx.z;  // heaviest q tiles first
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int hk = h / (NH / NKV);
-  const int q0 = qt * DQ_BQ;
-  int n_kv = (Tkv + BKV - 1) / BKV;
+  const int b = blockIdx.y, h0 = pair ? 2 * blockIdx.x : blockIdx.x;
+  const int hk = h0 / G;
+  const int q0 = qt * rows;
+  auto head_of = [&](int x) { return pair ? h0 + x : h0; };  // warpgroup x's head
+  auto row_of = [&](int x) { return pair ? q0 : q0 + 64 * x; };  // and first row
+  int n_kv = Tkv / DQ_BKV;
   if (causal) {
-    const int last = q0 + DQ_BQ - 1 + kv_offset;  // the TPU kernel's tile-skip rule
-    n_kv = last < 0 ? 0 : min(n_kv, last / BKV + 1);
+    const int last = q0 + rows - 1 + kv_offset;  // the TPU kernel's tile-skip rule
+    n_kv = last < 0 ? 0 : min(n_kv, last / DQ_BKV + 1);
   }
   if (tid == 0) {
     for (int s = 0; s < NT; ++s) {
@@ -479,31 +480,27 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_consta
   }
   __syncthreads();
 
-  // One thread: K/V tile j into stage j % NT, in boxes of 64 keys (a box
-  // past Tkv reads zeros, which the tail mask then drops).
-  auto load_kv = [&](int j) {
+  auto load_kv = [&](int j) {  // one thread: K/V tile j into stage j % NT
     const int s = j % NT;
     mbar_expect_tx(&full[s], 2 * KV_TILE);
 #pragma unroll
-    for (int p = 0; p < C::PANELS; ++p)
-#pragma unroll
-      for (int x = 0; x < BKV / 64; ++x) {
-        const int col = hk * D + 64 * p, off = s * KV_TILE + p * C::KV_PANEL + x * PANEL64;
-        tma_load_3d(ks + off, &tmk, &full[s], col, j * BKV + 64 * x, b);
-        tma_load_3d(vs + off, &tmv, &full[s], col, j * BKV + 64 * x, b);
-      }
+    for (int p = 0; p < C::PANELS; ++p) {
+      const int col = hk * D + 64 * p;
+      tma_load_3d(ks + s * KV_TILE + p * PANEL64, &tmk, &full[s], col, j * DQ_BKV, b);
+      tma_load_3d(vs + s * KV_TILE + p * PANEL64, &tmv, &full[s], col, j * DQ_BKV, b);
+    }
   };
   if (tid == (C::WARP ? CONSUMERS : 0)) {
-    // Q and dO in two boxes of 64 rows per panel; a box that starts past
-    // Tq is not loaded (its warpgroup's rows are never stored).
-    const int halves = q0 + 64 < Tq ? 2 : 1;
-    mbar_expect_tx(q_full, 2 * halves * C::PANELS * PANEL64);
+    // Q and dO of each warpgroup's 64 rows; rows that start past Tq are not
+    // loaded (that warpgroup's rows are never stored).
+    const int halves = row_of(1) < Tq ? 2 : 1;
+    mbar_expect_tx(q_full, 2 * halves * C::HALF);
+    for (int x = 0; x < halves; ++x)
 #pragma unroll
-    for (int p = 0; p < C::PANELS; ++p)
-      for (int hf = 0; hf < halves; ++hf) {
-        const int off = p * C::Q_PANEL + hf * PANEL64;
-        tma_load_3d(qs + off, &tmq, q_full, h * D + 64 * p, q0 + 64 * hf, b);
-        tma_load_3d(os + off, &tmo, q_full, h * D + 64 * p, q0 + 64 * hf, b);
+      for (int p = 0; p < C::PANELS; ++p) {
+        const int off = x * C::HALF + p * PANEL64, col = head_of(x) * D + 64 * p;
+        tma_load_3d(qs + off, &tmq, q_full, col, row_of(x), b);
+        tma_load_3d(os + off, &tmo, q_full, col, row_of(x), b);
       }
     for (int j = 0; j < (C::WARP ? n_kv : min(NT, n_kv)); ++j) {
       if (j >= NT) mbar_wait(&empty[j % NT], (j / NT - 1) & 1);
@@ -512,14 +509,15 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_consta
   }
   if (tid >= CONSUMERS) return;  // the producer warp (WARP)
 
-  // ---- consumer warpgroups: query rows [q0 + 64 wg, q0 + 64 wg + 64) ----
+  // ---- consumer warpgroups: 64 query rows of one head each ----
   const int wg = tid >> 7, lane = tid & 31, w = (tid >> 5) & 3;
   const int g = lane >> 2, t = lane & 3;
-  const int wrow = q0 + 64 * wg + 16 * w;  // the warp's first query row
-  const int r0 = wrow + g;                 // this thread's rows r0 and r0 + 8
+  const int h = head_of(wg);
+  const int wrow = row_of(wg) + 16 * w;  // the warp's first query row
+  const int r0 = wrow + g;               // this thread's rows r0 and r0 + 8
   const float c = sm_scale * LOG2E;
-  const unsigned char* qw = qs + wg * PANEL64;  // the warpgroup's 64 rows of each panel
-  const unsigned char* ow = os + wg * PANEL64;
+  const unsigned char* qw = qs + wg * C::HALF;
+  const unsigned char* ow = os + wg * C::HALF;
   float lse2[2], dl[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -532,7 +530,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_consta
   float dq[NO];
 #pragma unroll
   for (int i = 0; i < NO; ++i) dq[i] = 0.f;
-  uint32_t da[BKV / 16][4];  // bf16(dS) of the last tile, the A fragments of dQ += dS K
+  uint32_t da[4][4];  // bf16(dS) of the last tile, the A fragments of dQ += dS K
   mbar_wait(q_full, 0);
   if (n_kv > 0) {
     // Each turn issues S and dP of tile j and dQ of tile j - 1; then tile
@@ -543,14 +541,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_consta
       mbar_wait(&full[0], 0);
       sched_wait(wg);
       wgmma_fence();
-      issue_abt<D, BKV>(sc, qw, C::Q_PANEL, ks, C::KV_PANEL);
-      issue_abt<D, BKV>(dp, ow, C::Q_PANEL, vs, C::KV_PANEL);
+      issue_abt<D>(sc, qw, PANEL64, ks, PANEL64);
+      issue_abt<D>(dp, ow, PANEL64, vs, PANEL64);
       sched_pass(wg);
       wgmma_wait<0>();
       wgmma_fence_operand<NS>(sc);
       wgmma_fence_operand<NS>(dp);
-      ds_rows<BKV>(sc, dp, 0, wrow, r0, t, Tkv, kv_offset, causal, c, lse2, dl, sm_scale);
-      pack_a<BKV>(da, dp);
+      ds_rows(sc, dp, 0, wrow, r0, t, kv_offset, causal, c, lse2, dl, sm_scale);
+      pack_a(da, dp);
     }
     for (int j = 1; j < n_kv; ++j) {
       float sc[NS], dp[NS];
@@ -558,15 +556,15 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_consta
       mbar_wait(&full[s], (j / NT) & 1);
       sched_wait(wg);
       wgmma_fence();
-      issue_abt<D, BKV>(sc, qw, C::Q_PANEL, ks + s * KV_TILE, C::KV_PANEL);
-      issue_abt<D, BKV>(dp, ow, C::Q_PANEL, vs + s * KV_TILE, C::KV_PANEL);
+      issue_abt<D>(sc, qw, PANEL64, ks + s * KV_TILE, PANEL64);
+      issue_abt<D>(dp, ow, PANEL64, vs + s * KV_TILE, PANEL64);
       wgmma_fence_operand<NO>(dq);
-      issue_ab<D, BKV>(dq, da, ks + sp * KV_TILE, C::KV_PANEL);
+      issue_ab<D>(dq, da, ks + sp * KV_TILE, PANEL64);
       sched_pass(wg);
       wgmma_wait<1>();
       wgmma_fence_operand<NS>(sc);
       wgmma_fence_operand<NS>(dp);
-      ds_rows<BKV>(sc, dp, j * BKV, wrow, r0, t, Tkv, kv_offset, causal, c, lse2, dl, sm_scale);
+      ds_rows(sc, dp, j * DQ_BKV, wrow, r0, t, kv_offset, causal, c, lse2, dl, sm_scale);
       wgmma_wait<0>();
       wgmma_fence_operand<NO>(dq);
       mbar_arrive(&empty[sp]);
@@ -574,13 +572,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_consta
         mbar_wait(&empty[sp], ((j - 1) / NT) & 1);       // both are done with sp
         load_kv(j - 1 + NT);
       }
-      pack_a<BKV>(da, dp);
+      pack_a(da, dp);
     }
     const int sp = (n_kv - 1) % NT;
     sched_wait(wg);
     wgmma_fence_operand<NO>(dq);
     wgmma_fence();
-    issue_ab<D, BKV>(dq, da, ks + sp * KV_TILE, C::KV_PANEL);
+    issue_ab<D>(dq, da, ks + sp * KV_TILE, PANEL64);
     if (wg == 0) sched_pass(wg);  // warpgroup 1's last turn follows; nothing follows it
     wgmma_wait<0>();
     wgmma_fence_operand<NO>(dq);
@@ -680,7 +678,8 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   auto kern = flash_bwd_dq_kernel<D>;
   cudaError_t e = size_smem(kern, C::SMEM, sized_dq);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(NH, B, (Tq + DQ_BQ - 1) / DQ_BQ);
+  const bool pair = (NH / NKV) % 2 == 0;  // as in the kernel
+  dim3 grid(pair ? NH / 2 : NH, B, pair ? (Tq + 63) / 64 : (Tq + 127) / 128);
   kern<<<grid, C::THREADS, C::SMEM, stream>>>(tmq, tmk, tmv, tmo, lse2, delta,
                                                static_cast<__nv_bfloat16*>(dq), Tq, Tq64, Tkv, NH,
                                                NKV, sm_scale, kv_offset, causal);
