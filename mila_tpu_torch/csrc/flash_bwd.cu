@@ -397,20 +397,19 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_const
 
 // ---- dq (wgmma) ----------------------------------------------------------------
 
-constexpr int DQ_BKV = 64;  // keys per K/V tile
+constexpr int DQ_BQ = 128, DQ_BKV = 64;
 
 template <int D>
 struct DqCfg {
-  // WARP: warpgroups 0-1 consume, warp 8 loads (288 threads, 168 registers
-  // a thread); else one of the consumers' threads loads (256 threads, up
-  // to 255 registers: dQ, S, dP and dS at D 128).
+  // WARP: warpgroups 0-1 consume, warp 8 loads (288 threads); else one of
+  // the consumers' threads loads (256 threads, so up to 255 registers each).
   static constexpr bool WARP = D == 64;
   static constexpr int THREADS = WARP ? CONSUMERS + 32 : CONSUMERS;
   static constexpr int PANELS = D / 64;
-  static constexpr int HALF = PANELS * PANEL64;  // a warpgroup's 64 rows of Q (or dO)
-  static constexpr int KV_TILE = PANELS * PANEL64;
+  static constexpr int Q_PANEL = DQ_BQ * 128, KV_PANEL = PANEL64;
+  static constexpr int Q_TILE = PANELS * Q_PANEL, KV_TILE = PANELS * KV_PANEL;
   static constexpr int NT = 4;  // stages of the K/V ring
-  static constexpr int SMEM = 4 * HALF + NT * 2 * KV_TILE + (2 * NT + 1) * 8 + 1024;
+  static constexpr int SMEM = 2 * Q_TILE + NT * 2 * KV_TILE + (2 * NT + 1) * 8 + 1024;
 };
 
 // dS of one S tile in place of dP: sc[4 jj + i] is row r0 + 8 (i / 2), key
@@ -432,9 +431,6 @@ __device__ __forceinline__ void ds_rows(const float* sc, float* dp, int k0, int 
     }
 }
 
-// The block's two warpgroups share every K/V tile: with an even group size
-// (PAIR) they take two query heads of one KV head over the same 64 rows,
-// so a K/V tile serves twice the rows; else one head's 128 rows.
 template <int D>
 __global__ void __launch_bounds__(DqCfg<D>::THREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
@@ -447,27 +443,22 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_consta
   constexpr int NO = D / 2, NS = DQ_BKV / 2;  // dQ's and S's f32 registers
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (sm90_smem(smem_raw) & 1023)) & 1023);
-  unsigned char* qs = smem;             // [2][PANELS][64][64] bf16, swizzled
-  unsigned char* os = qs + 2 * C::HALF;  // dO, the same
-  unsigned char* ks = os + 2 * C::HALF;  // [NT][PANELS][64][64]
+  unsigned char* qs = smem;            // [PANELS][128][64] bf16, swizzled
+  unsigned char* os = qs + C::Q_TILE;  // dO, the same
+  unsigned char* ks = os + C::Q_TILE;  // [NT][PANELS][64][64]
   unsigned char* vs = ks + NT * KV_TILE;
   uint64_t* full = reinterpret_cast<uint64_t*>(vs + NT * KV_TILE);
   uint64_t* empty = full + NT;
   uint64_t* q_full = empty + NT;
 
   const int tid = threadIdx.x;
-  const int G = NH / NKV;
-  const bool pair = G % 2 == 0;
-  const int rows = pair ? 64 : 128;           // query rows per block
   const int qt = gridDim.z - 1 - blockIdx.z;  // heaviest q tiles first
-  const int b = blockIdx.y, h0 = pair ? 2 * blockIdx.x : blockIdx.x;
-  const int hk = h0 / G;
-  const int q0 = qt * rows;
-  auto head_of = [&](int x) { return pair ? h0 + x : h0; };  // warpgroup x's head
-  auto row_of = [&](int x) { return pair ? q0 : q0 + 64 * x; };  // and first row
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int hk = h / (NH / NKV);
+  const int q0 = qt * DQ_BQ;
   int n_kv = Tkv / DQ_BKV;
   if (causal) {
-    const int last = q0 + rows - 1 + kv_offset;  // the TPU kernel's tile-skip rule
+    const int last = q0 + DQ_BQ - 1 + kv_offset;  // the TPU kernel's tile-skip rule
     n_kv = last < 0 ? 0 : min(n_kv, last / DQ_BKV + 1);
   }
   if (tid == 0) {
@@ -491,16 +482,16 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_consta
     }
   };
   if (tid == (C::WARP ? CONSUMERS : 0)) {
-    // Q and dO of each warpgroup's 64 rows; rows that start past Tq are not
-    // loaded (that warpgroup's rows are never stored).
-    const int halves = row_of(1) < Tq ? 2 : 1;
-    mbar_expect_tx(q_full, 2 * halves * C::HALF);
-    for (int x = 0; x < halves; ++x)
+    // Q and dO in two boxes of 64 rows per panel; a box that starts past
+    // Tq is not loaded (its warpgroup's rows are never stored).
+    const int halves = q0 + 64 < Tq ? 2 : 1;
+    mbar_expect_tx(q_full, 2 * halves * C::PANELS * PANEL64);
 #pragma unroll
-      for (int p = 0; p < C::PANELS; ++p) {
-        const int off = x * C::HALF + p * PANEL64, col = head_of(x) * D + 64 * p;
-        tma_load_3d(qs + off, &tmq, q_full, col, row_of(x), b);
-        tma_load_3d(os + off, &tmo, q_full, col, row_of(x), b);
+    for (int p = 0; p < C::PANELS; ++p)
+      for (int hf = 0; hf < halves; ++hf) {
+        const int off = p * C::Q_PANEL + hf * PANEL64;
+        tma_load_3d(qs + off, &tmq, q_full, h * D + 64 * p, q0 + 64 * hf, b);
+        tma_load_3d(os + off, &tmo, q_full, h * D + 64 * p, q0 + 64 * hf, b);
       }
     for (int j = 0; j < (C::WARP ? n_kv : min(NT, n_kv)); ++j) {
       if (j >= NT) mbar_wait(&empty[j % NT], (j / NT - 1) & 1);
@@ -509,15 +500,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_consta
   }
   if (tid >= CONSUMERS) return;  // the producer warp (WARP)
 
-  // ---- consumer warpgroups: 64 query rows of one head each ----
+  // ---- consumer warpgroups: query rows [q0 + 64 wg, q0 + 64 wg + 64) ----
   const int wg = tid >> 7, lane = tid & 31, w = (tid >> 5) & 3;
   const int g = lane >> 2, t = lane & 3;
-  const int h = head_of(wg);
-  const int wrow = row_of(wg) + 16 * w;  // the warp's first query row
-  const int r0 = wrow + g;               // this thread's rows r0 and r0 + 8
+  const int wrow = q0 + 64 * wg + 16 * w;  // the warp's first query row
+  const int r0 = wrow + g;                 // this thread's rows r0 and r0 + 8
   const float c = sm_scale * LOG2E;
-  const unsigned char* qw = qs + wg * C::HALF;
-  const unsigned char* ow = os + wg * C::HALF;
+  const unsigned char* qw = qs + wg * PANEL64;  // the warpgroup's 64 rows of each panel
+  const unsigned char* ow = os + wg * PANEL64;
   float lse2[2], dl[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -541,8 +531,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_consta
       mbar_wait(&full[0], 0);
       sched_wait(wg);
       wgmma_fence();
-      issue_abt<D>(sc, qw, PANEL64, ks, PANEL64);
-      issue_abt<D>(dp, ow, PANEL64, vs, PANEL64);
+      issue_abt<D>(sc, qw, C::Q_PANEL, ks, PANEL64);
+      issue_abt<D>(dp, ow, C::Q_PANEL, vs, PANEL64);
       sched_pass(wg);
       wgmma_wait<0>();
       wgmma_fence_operand<NS>(sc);
@@ -556,8 +546,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_consta
       mbar_wait(&full[s], (j / NT) & 1);
       sched_wait(wg);
       wgmma_fence();
-      issue_abt<D>(sc, qw, PANEL64, ks + s * KV_TILE, PANEL64);
-      issue_abt<D>(dp, ow, PANEL64, vs + s * KV_TILE, PANEL64);
+      issue_abt<D>(sc, qw, C::Q_PANEL, ks + s * KV_TILE, PANEL64);
+      issue_abt<D>(dp, ow, C::Q_PANEL, vs + s * KV_TILE, PANEL64);
       wgmma_fence_operand<NO>(dq);
       issue_ab<D>(dq, da, ks + sp * KV_TILE, PANEL64);
       sched_pass(wg);
@@ -678,8 +668,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   auto kern = flash_bwd_dq_kernel<D>;
   cudaError_t e = size_smem(kern, C::SMEM, sized_dq);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const bool pair = (NH / NKV) % 2 == 0;  // as in the kernel
-  dim3 grid(pair ? NH / 2 : NH, B, pair ? (Tq + 63) / 64 : (Tq + 127) / 128);
+  dim3 grid(NH, B, (Tq + DQ_BQ - 1) / DQ_BQ);
   kern<<<grid, C::THREADS, C::SMEM, stream>>>(tmq, tmk, tmv, tmo, lse2, delta,
                                                static_cast<__nv_bfloat16*>(dq), Tq, Tq64, Tkv, NH,
                                                NKV, sm_scale, kv_offset, causal);

@@ -49,7 +49,7 @@ NO_EX2 = [(SRC, "float p = ex2(fmaf(sc[e], c, -((i & 1) ? ls.y : ls.x)));",
            "float p = fmaf(sc[e], c, -((i & 1) ? ls.y : ls.x));"),
           (SRC, "float p = ex2(fmaf(sc[e], c, -lse2[hr]));", "float p = fmaf(sc[e], c, -lse2[hr]);")]
 NO_MMA = [(SRC, "for (int kk = 0; kk < D / 16; ++kk) {", "for (int kk = 0; kk < 0; ++kk) {"),
-          (SRC, "for (int kk = 0; kk < K / 16; ++kk) {\n    const uint64_t bd",
+          (SRC, "for (int kk = 0; kk < 4; ++kk) {\n    const uint64_t bd",
            "for (int kk = 0; kk < 0; ++kk) {\n    const uint64_t bd")]
 NO_ELEMENTWISE = [(SRC, "const float* st,\n                                         float scale) {\n",
                    "const float* st,\n                                         float scale) {\n"
@@ -57,7 +57,7 @@ NO_ELEMENTWISE = [(SRC, "const float* st,\n                                     
                   (SRC, "const float* dl, float scale) {\n",
                    "const float* dl, float scale) {\n  return;\n"),
                   (SRC, "const float* d) {\n", "const float* d) {\n  return;\n")]
-DQ_WARP = "static constexpr bool WARP = D == 64 && BKV == 64;"
+DQ_WARP = "static constexpr bool WARP = D == 64;"
 SPLIT_TRUE = [(SRC, SPLIT_RULE, "const bool split = true;")]
 SPLIT_FALSE = [(SRC, SPLIT_RULE, "const bool split = false;")]
 VARIANTS = {  # name -> [(file, old text, new text)]
@@ -88,9 +88,6 @@ VARIANTS = {  # name -> [(file, old text, new text)]
     "dkv_2wg": [(SRC, "NWG = D == 64 ? 3 : 2;", "NWG = 2;"),
                 (SRC, "NT = D == 64 ? 6 : 4;", "NT = D == 64 ? 8 : 4;")],
     "dkv_nt9": [(SRC, "NT = D == 64 ? 6 : 4;", "NT = D == 64 ? 9 : 4;")],
-    # the dQ pass at D 64 on 128-key tiles (then without a producer warp)
-    "dq_bkv128": [(SRC, "static constexpr int BKV = 64;  // keys per K/V tile",
-                   "static constexpr int BKV = D == 64 ? 128 : 64;  // keys per K/V tile")],
 }
 # (B, T, NH, NKV, D): chip_smoke's three flash backward rows, all causal.
 SHAPES = {
