@@ -318,8 +318,6 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_const
 #pragma unroll
   for (int i = 0; i < NO; ++i) dk[i] = dv[i] = 0.f;
   mbar_wait(kv_full, 0);
-  // Each step in turn, without overlap between steps or turns between the
-  // warpgroups: both measured slower here (tools/flash_bwd_variants).
   const int first = SPLIT ? wg : 0;
   for (int it = first; it < n_it; it += STEP) {
     const int s = it % NT;

@@ -835,6 +835,28 @@ def test_flash_bwd_kernel_graph_replay_and_determinism(cuda):
         assert _row_err(b.transpose(1, 2), c.transpose(1, 2)) <= 2e-2
 
 
+def test_flash_bwd_kernel_copies_an_unaligned_view(cuda):
+    # do as a view whose base sits 2 bytes past a 16-byte boundary: TMA
+    # cannot read it, so the wrapper copies it and computes.
+    from mila_tpu_torch.kernels import flash_attention as fa
+    from mila_tpu_torch.kernels import flash_attention_bwd as fb
+
+    B, T, NH, NKV, D = 1, 256, 4, 2, 64
+    q, k, v = _rand((B, T, NH, D), 121), _rand((B, T, NKV, D), 122), _rand((B, T, NKV, D), 123)
+    flat = _rand((B * T * NH * D + 1,), 124)
+    do = flat[1:].view(B, T, NH, D)
+    assert do.is_contiguous() and do.data_ptr() % 16 != 0
+    o, l, m = fa.flash_attention_forward(q, k, v, causal=True, sm_scale=D ** -0.5)
+    hm = [t.transpose(1, 2) for t in (q, k, v, o, do)]
+    before = fb.flash_attention_bwd.launches
+    got = fb.flash_attention_bwd(*hm[:4], l, m, hm[4], causal=True, sm_scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert fb.flash_attention_bwd.launches == before + 1
+    want = fb.flash_attention_bwd_plain(*hm[:4], l, m, hm[4], causal=True, sm_scale=D ** -0.5)
+    for a, b in zip(got, want):
+        assert _row_err(a.transpose(1, 2), b.transpose(1, 2)) <= 2e-2
+
+
 def test_flash_autograd_matches_plain_autograd(cuda):
     # torch.autograd.grad through the kernels against autograd through the
     # plain forward (PyTorch differentiating its einsums), GPT-2's head size.
