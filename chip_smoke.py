@@ -183,6 +183,21 @@ def time_back_to_back(fn, calls: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, calls: int = 20) -> float:
+    """ms of device work per call of ``fn``: the kernels' own times summed
+    by the profiler over ``calls`` calls, so a closure whose host work
+    cannot keep ahead of the card (autograd) is timed by the card alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / calls
+
+
 def max_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     """(max |got - want|, max |want|)."""
     got, want = got.float(), want.float()
@@ -1449,14 +1464,20 @@ def phase_train_kernels(bw, peak_ops, rng):
 
         # SDPA's backward alone, the yardstick of the same function as
         # flash_attention_bwd (one saved forward, its graph kept between
-        # calls), and ours timed the same way: CUDA events around 20
-        # back-to-back calls, the median of 5 (ours also as a graph replay).
+        # calls), and ours timed the same ways: CUDA events around 20
+        # back-to-back calls, the median of 5, and the profiler's kernel
+        # times (autograd's host work does not always keep ahead of the
+        # card); ours also as a graph replay.
         def ours_bwd():
             return fb.flash_attention_bwd(*hm[:4], l, m, hm[4], causal=True, sm_scale=sm)
 
         s_out = sdpa(*s_leaves, is_causal=True, enable_gqa=gqa)
-        library_bwd_ms = time_back_to_back(
-            lambda: torch.autograd.grad(s_out, s_leaves, dos, retain_graph=True))
+
+        def library_bwd():
+            return torch.autograd.grad(s_out, s_leaves, dos, retain_graph=True)
+
+        library_bwd_ms = time_back_to_back(library_bwd)
+        library_bwd_device_ms = device_ms(library_bwd)
         del s_out
         record("flash_attention_bwd", shape, max(e for e, _ in abs_errs),
                max(r for _, r in abs_errs), [ours_bwd],
@@ -1469,8 +1490,9 @@ def phase_train_kernels(bw, peak_ops, rng):
                library_what="SDPA is_causal backward alone (autograd.grad on one saved "
                             "forward), 20 back-to-back calls between CUDA events",
                row_rel_errs=errs, library_bwd_ms=library_bwd_ms,
-               bwd_back_to_back_ms=time_back_to_back(ours_bwd), fwd_bwd_ms=time_eager(ours),
-               library_fwd_bwd_ms=time_eager(library))
+               bwd_back_to_back_ms=time_back_to_back(ours_bwd),
+               library_bwd_device_ms=library_bwd_device_ms, bwd_device_ms=device_ms(ours_bwd),
+               fwd_bwd_ms=time_eager(ours), library_fwd_bwd_ms=time_eager(library))
         rows[-1]["tflops"] = 10 * D * pairs / rows[-1]["ms"] / 1e9
         del q, k, v, do, o, l, m, hm, qs, ks, vs, dos, leaves, s_leaves
 

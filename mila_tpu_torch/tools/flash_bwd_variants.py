@@ -6,8 +6,10 @@ variants of it, on the GPU, at the shapes ``chip_smoke.py`` gives its
         [--source NAME=PATH ...] [--shapes ...]
 
 Each variant is a copy of the source (and its headers) with edits,
-compiled with the package's nvcc flags into ``csrc/build/``; ``--source``
-adds a whole other source as a variant (an earlier stage of the kernel,
+compiled with the package's nvcc flags into ``csrc/build/``; ``onepass``
+is ``flash_bwd_onepass.cu`` beside this tool (dQ from the dK/dV pass
+through f32 atomics); ``--source`` adds a whole other source as a variant
+(an earlier stage of the kernel,
 e.g. ``git show <commit>:mila_tpu_torch/csrc/flash_bwd.cu > stage.cu``, in
 a directory ``.gitignore`` lists). A source whose ``flash_bwd`` takes the
 precomputed D (the design before the statistics launch) is timed with D
@@ -19,7 +21,9 @@ value, floored at 1e-3 of the tensor's), its median ms per call (CUDA
 events around 20 back-to-back calls, 5 repeats) and causal TFLOP/s (10 D
 operations per visible pair and head), beside SDPA's backward alone timed
 the same way (``autograd.grad`` with ``retain_graph`` on one saved
-forward). Needs a CUDA device and nvcc.
+forward); and, for SDPA's backward and the committed kernel, the device's
+own time per call from the profiler's kernel times (``autograd.grad`` can
+leave the card waiting on the host). Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -89,6 +93,8 @@ VARIANTS = {  # name -> [(file, old text, new text)]
                 (SRC, "NT = D == 64 ? 6 : 4;", "NT = D == 64 ? 8 : 4;")],
     "dkv_nt9": [(SRC, "NT = D == 64 ? 6 : 4;", "NT = D == 64 ? 9 : 4;")],
 }
+# Whole other sources kept beside this tool, timed like --source ones.
+SOURCE_VARIANTS = {"onepass": Path(__file__).with_name("flash_bwd_onepass.cu")}
 # (B, T, NH, NKV, D): chip_smoke's three flash backward rows, all causal.
 SHAPES = {
     "B8_T1024": (8, 1024, 12, 12, 64),
@@ -173,6 +179,23 @@ def time_ms(fn, calls: int = 20, repeats: int = 5) -> float:
     return statistics.median(out)
 
 
+def device_ms(fn, calls: int = 20) -> dict:
+    """ms of device work per call of ``fn``, from the profiler's kernel
+    times over ``calls`` calls (the host's pace left out): {"total": ...,
+    "<kernel name>": ...}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per = {e.key[:60]: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
+           if e.self_device_time_total > 0}
+    return {"total": sum(per.values()), **per}
+
+
 def row_err(got, want, floor: float = 1e-3) -> float:
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
@@ -184,13 +207,15 @@ def row_err(got, want, floor: float = 1e-3) -> float:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--variants", nargs="+", default=list(VARIANTS), choices=list(VARIANTS))
+    ap.add_argument("--variants", nargs="+", default=list(VARIANTS),
+                    choices=[*VARIANTS, *SOURCE_VARIANTS])
     ap.add_argument("--source", nargs="*", default=[], metavar="NAME=PATH",
                     help="a whole other flash_bwd.cu, timed as a variant named NAME")
     ap.add_argument("--shapes", nargs="+", default=list(SHAPES), choices=list(SHAPES))
     args = ap.parse_args()
     sources = dict(s.split("=", 1) for s in args.source)
-    libs = build(args.variants, sources)
+    sources.update({n: SOURCE_VARIANTS[n] for n in args.variants if n in SOURCE_VARIANTS})
+    libs = build([n for n in args.variants if n in VARIANTS], sources)
     rng = np.random.default_rng(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for name in args.shapes:
@@ -209,6 +234,7 @@ def main() -> None:
         stream = _build.stream_of(q)
         pairs = B * NH * T * (T + 1) // 2
         row = {"shape": name, "card": torch.cuda.get_device_name(0)}
+        call_of = {}
         for vname, (lib, new_abi) in libs.items():
             def call(lib=lib, new_abi=new_abi, vname=vname):
                 if new_abi:
@@ -220,6 +246,7 @@ def main() -> None:
                                    stream)
                 if rc:
                     raise RuntimeError(f"{vname}: CUDA error {rc}")
+            call_of[vname] = call
             for t in (dq, dk, dv):  # nothing left over from the variant before
                 t.fill_(float("nan"))
             call()
@@ -232,8 +259,14 @@ def main() -> None:
         leaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
         s_out = sdpa(*leaves, is_causal=True, enable_gqa=NH != NKV)
         dos = do.transpose(1, 2).contiguous()
-        row["sdpa_bwd_ms"] = time_ms(
-            lambda: torch.autograd.grad(s_out, leaves, dos, retain_graph=True))
+
+        def sdpa_bwd():
+            return torch.autograd.grad(s_out, leaves, dos, retain_graph=True)
+
+        row["sdpa_bwd_ms"] = time_ms(sdpa_bwd)
+        row["sdpa_bwd_device_ms"] = device_ms(sdpa_bwd)
+        if "committed" in call_of:
+            row["committed"]["device_ms"] = device_ms(call_of["committed"])
         print(json.dumps(row), flush=True)
         del q, k, v, do, o, l, m, hm, want, dq, dk, dv, leaves, s_out, dos
 
