@@ -284,6 +284,11 @@ def recorder(rows: list, bw: float, peak_ops: float):
     return record
 
 
+def with_rate(row: dict, nbytes: float) -> None:
+    """Add the K/V bytes a row's kernel read per call, over its time, in GB/s."""
+    row["gb_s"] = nbytes / row["ms"] / 1e6
+
+
 def build_params(cfg, seed: int, device, dtype: str = "int8"):
     from mila_tpu_torch.inference.quantize import quantize_model_params
     from mila_tpu_torch.models.llama import (add_quantized_lm_head, fuse_llama_projections,
@@ -485,7 +490,9 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
            [lambda k=k, v=v: da.dense_decode_attention(q, k, v, lens) for k, v in caches],
            lambda: da.dense_decode_attention_plain(q, k0, v0, lens),
            [lambda k=k, v=v: sdpa(qs, k, v, attn_mask=mask, enable_gqa=True) for k, v in kvt],
-           live * KD * 2 * 2 + 2 * B * NQ * 2 + B * 4, 4 * live * NH * HD)
+           live * KD * 2 * 2 + 2 * B * NQ * 2 + B * 4, 4 * live * NH * HD,
+           splits=da.plan_splits(B, NKV, T, _sm_count()))
+    with_rate(rows[-1], live * KD * 2 * 2)
     del kvt
 
     # Fused attention: RoPE from the raw qkv row, old rows = lens - 1, the
@@ -512,8 +519,34 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
            live_old * KD * 2 * 2 + B * (NQ + 2 * KD) * 2 + 2 * B * KD * 4 + B * NQ * 2
            + B * KD * 2 + 2 * B * KD * 2, 4 * live * NH * HD,
            errors={"att": errs[0][0], "k_new": errs[1][0], "k_cache": errs[2][0],
-                   "v_cache": errs[3][0]})
+                   "v_cache": errs[3][0]}, splits=da.plan_splits(B, NKV, T, _sm_count()))
+    with_rate(rows[-1], live_old * KD * 2 * 2)
     del caches, kg, vg, kp, vp
+
+    # One long request in the contiguous cache: B 1, 4096 live rows of a
+    # 4096-row cache, cycling over distinct caches (the paged B 1 row's
+    # request, without the page table).
+    T1 = 4096
+    tgen = torch.Generator(device=dev).manual_seed(10)
+    caches = [(torch.randn(1, T1, NKV, HD, device=dev, generator=tgen).to(bf16),
+               torch.randn(1, T1, NKV, HD, device=dev, generator=tgen).to(bf16))
+              for _ in range(copies(T1 * KD * 2 * 2))]
+    lens1 = torch.full((1,), T1, dtype=torch.int32, device=dev)
+    q1 = rand(1, 1, NH, HD, gen=np.random.default_rng(10))
+    k0, v0 = caches[0]
+    kvt = [(k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()) for k, v in caches]
+    mask = (torch.arange(T1, device=dev)[None, :] < lens1[:, None])[:, None, None, :]
+    qs = q1.transpose(1, 2)
+    record("dense_decode_attention", f"B=1 len={T1} T={T1}",
+           *max_err(da.dense_decode_attention(q1, k0, v0, lens1),
+                    da.dense_decode_attention_plain(q1, k0, v0, lens1)),
+           [lambda k=k, v=v: da.dense_decode_attention(q1, k, v, lens1) for k, v in caches],
+           lambda: da.dense_decode_attention_plain(q1, k0, v0, lens1),
+           [lambda k=k, v=v: sdpa(qs, k, v, attn_mask=mask, enable_gqa=True) for k, v in kvt],
+           T1 * KD * 2 * 2 + 2 * NQ * 2 + 4, 4 * T1 * NH * HD,
+           splits=da.plan_splits(1, NKV, T1, _sm_count()))
+    with_rate(rows[-1], T1 * KD * 2 * 2)
+    del caches, kvt
 
     # The layer tail over the packed stream: a middle layer (cycling over
     # layers 0..L-2 for the timing) and the last layer; mlp_qkv_fused over

@@ -14,12 +14,20 @@ Replaces two TPU kernels of ``mila_tpu/kernels/dense_attention.py``:
 
 What bounds both on the H100: the K/V bytes of the live rows (one query
 per row does 2 operations per byte read). The CUDA kernels
-(``csrc/dense_decode_attn.cu``) run one block per (row, KV head): the
-G = NH / NKV query heads of that KV head share the block, so each K/V
-element is read once, and only rows below the row's length are read (the
-TPU kernel skips blocks past ``max(lens)``; a block here stops at its own
-row's length). A token's row of one KV head is HD contiguous values, read
-as 16-byte words by HD*size/16 neighbouring threads.
+(``csrc/dense_decode_attn.cu``) split each row along the sequence
+(flash-decoding): the grid is (B * NKV, S), where :func:`plan_splits`
+chooses S on the host from B, NKV, T and the SM count (never from the
+lengths, a device tensor: reading them would stall the stream and break
+CUDA-graph capture). Each block reads its row's length on the device and
+takes the token range :func:`split_tokens` gives, so the splits share the
+row's own length, not the cache's, and each holds at least
+``SPLIT_MIN_TOKENS`` tokens unless the row is shorter. The G = NH / NKV
+query heads of a KV head share its block, so each K/V element is read once,
+and a split's K and V rows are requested through ``cp.async`` before any
+math. With more than one split in a row, the splits write f32 partials
+(o, m, l) into scratch this wrapper allocates, and the last split of a (row,
+KV head) to finish merges them with the log-sum-exp rescale, in split order,
+inside the same launch (arrival counters from ``_build.counters``).
 
 The TPU kernel contracts lane-packed queries (``pack_queries``) against
 whole ``[T, NKV*HD]`` slabs to keep the MXU busy; the CUDA kernels index
@@ -43,7 +51,31 @@ from typing import Optional
 import torch
 
 from mila_tpu_torch.kernels import _build
+from mila_tpu_torch.kernels.quant_matmul import _sm_count
 from mila_tpu_torch.ops.attention import decode_attention
+
+SPLIT_MIN_TOKENS = 32  # a split holds at least this many tokens of a row (fewer only if shorter)
+SPLIT_BLOCKS_PER_SM = 2  # splits until the grid has this many blocks per SM
+SPLIT_MAX = 64  # the merge's staging holds at most this many splits' maxima and sums
+
+
+def plan_splits(B: int, NKV: int, T: int, sms: int) -> int:
+    """The number S of sequence splits per (row, KV head) for a cache of T
+    rows: enough for B * NKV * S to reach ``SPLIT_BLOCKS_PER_SM`` blocks per
+    SM, at most T // ``SPLIT_MIN_TOKENS`` and ``SPLIT_MAX``; S >= 1.
+    Independent of the rows' lengths."""
+    most = max(1, min(SPLIT_MAX, T // SPLIT_MIN_TOKENS))
+    want = -(-SPLIT_BLOCKS_PER_SM * sms // max(1, B * NKV))
+    return max(1, min(most, want))
+
+
+def split_tokens(length: int, S: int) -> list[tuple[int, int]]:
+    """The token ranges of a row of ``length`` tokens under S splits, as the
+    kernel computes them on the device: n = min(S, max(1, length //
+    SPLIT_MIN_TOKENS)) ranges [s length / n, (s + 1) length / n), covering
+    [0, length) once with sizes within one; splits n .. S - 1 take none."""
+    n = min(S, max(1, length // SPLIT_MIN_TOKENS))
+    return [(s * length // n, (s + 1) * length // n) for s in range(n)]
 
 
 def pack_queries(q: torch.Tensor, nkv: int) -> torch.Tensor:
@@ -116,10 +148,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("dense_decode_attn")
     if not getattr(lib, "_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.dense_decode_attn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, ci, vp]
+        lib.dense_decode_attn.argtypes = [vp] * 9 + [ci] * 6 + [cf, ci, vp]
         lib.dense_decode_attn.restype = ci
-        lib.fused_decode_attn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                          cf, ci, vp]
+        lib.fused_decode_attn.argtypes = [vp] * 12 + [ci] * 6 + [cf, ci, vp]
         lib.fused_decode_attn.restype = ci
         lib._typed = True
     return lib
@@ -143,6 +174,22 @@ def _check_cache(k_cache, v_cache, dtype) -> None:
         raise ValueError("dense_decode_attn: caches must be 16-byte aligned (16-byte loads)")
 
 
+def _scratch(B: int, NH: int, NKV: int, HD: int, T: int, device):
+    """(S, the kernels' scratch): f32 partials o [B, NH, S, HD], m and l
+    [B, NH, S] each, and the arrival counters, or Nones when S == 1."""
+    S = plan_splits(B, NKV, T, _sm_count(device.index or 0))
+    if S == 1:
+        return S, [None] * 4
+    o_part = torch.empty((B, NH, S, HD), dtype=torch.float32, device=device)
+    ml_part = torch.empty((2, B, NH, S), dtype=torch.float32, device=device)
+    return S, [o_part, ml_part[0], ml_part[1], _build.counters("dense_decode_attn", device,
+                                                               B * NKV)]
+
+
+def _ptrs(tensors) -> list:
+    return [None if t is None else _build.ptr(t) for t in tensors]
+
+
 def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                            lens: torch.Tensor, *, scale: Optional[float] = None) -> torch.Tensor:
     """Decode attention over the dense cache. q [B, 1, NH, HD] or [B, NH, HD];
@@ -163,11 +210,12 @@ def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
     ln = lens.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(qc)
     sm_scale = 1.0 / math.sqrt(HD) if scale is None else scale
+    S, scratch = _scratch(B, NH, NKV, HD, T, q.device)
     lib = _lib()
     rc = lib.dense_decode_attn(
         _build.ptr(qc), _build.ptr(k_cache), _build.ptr(v_cache), _build.ptr(ln),
-        _build.ptr(out), B, T, NH, NKV, HD, sm_scale, int(q.dtype == torch.float32),
-        _build.stream_of(q))
+        _build.ptr(out), *_ptrs(scratch), B, T, NH, NKV, HD, S, sm_scale,
+        int(q.dtype == torch.float32), _build.stream_of(q))
     _build.check(lib, rc, "dense_decode_attn")
     dense_decode_attention.launches += 1
     return out
@@ -211,11 +259,13 @@ def fused_decode_attention(qkv: torch.Tensor, q_pk: Optional[torch.Tensor],
     ln = old_lens.to(device=qkv.device, dtype=torch.int32).contiguous()
     att = torch.empty((B, NH, HD), dtype=qkv.dtype, device=qkv.device)
     k_new = torch.empty((B, KD), dtype=qkv.dtype, device=qkv.device)
+    S, scratch = _scratch(B, NH, NKV, HD, T, qkv.device)
     lib = _lib()
     rc = lib.fused_decode_attn(
         _build.ptr(qc), _build.ptr(c32), _build.ptr(s32), _build.ptr(k_cache),
-        _build.ptr(v_cache), _build.ptr(ln), _build.ptr(att), _build.ptr(k_new),
-        B, T, NH, NKV, HD, sm_scale, int(qkv.dtype == torch.float32), _build.stream_of(qkv))
+        _build.ptr(v_cache), _build.ptr(ln), _build.ptr(att), _build.ptr(k_new), *_ptrs(scratch),
+        B, T, NH, NKV, HD, S, sm_scale, int(qkv.dtype == torch.float32),
+        _build.stream_of(qkv))
     _build.check(lib, rc, "fused_decode_attn")
     fused_decode_attention.launches += 1
     return att, k_new, k_cache, v_cache

@@ -240,6 +240,9 @@ def test_argmax_head_kernel(cuda, M, K, N, vocab, bs, dtype):
     (3, 8, 2, 32, 64, torch.float32),
     (2, 16, 2, 128, 40, torch.bfloat16),
     (5, 3, 1, 16, 24, torch.float32),
+    (1, 32, 8, 64, 4096, torch.bfloat16),   # one long request: S 33
+    (64, 32, 8, 64, 512, torch.bfloat16),   # enough rows to fill the card: S 1
+    (2, 16, 2, 128, 1024, torch.float32),   # f32 at HD 128, 3-stage rings
 ])
 def test_dense_attention_kernel(cuda, B, NH, NKV, HD, T, dtype):
     rng = np.random.default_rng(16)
@@ -258,6 +261,8 @@ def test_dense_attention_kernel(cuda, B, NH, NKV, HD, T, dtype):
 @pytest.mark.parametrize("B,NH,NKV,HD,T,dtype", [
     (8, 32, 8, 64, 512, torch.bfloat16),
     (3, 8, 2, 32, 64, torch.float32),
+    (1, 32, 8, 64, 4096, torch.bfloat16),   # S 33
+    (64, 32, 8, 64, 512, torch.bfloat16),   # S 1
 ])
 def test_fused_attention_kernel(cuda, B, NH, NKV, HD, T, dtype):
     rng = np.random.default_rng(20)
@@ -285,6 +290,100 @@ def test_fused_attention_kernel(cuda, B, NH, NKV, HD, T, dtype):
     assert torch.equal(v, vp)  # raw v rows are copied, not computed
     rows = torch.arange(B, device="cuda")
     _close(k[rows, ln.long()].reshape(B, KD), k_new)
+
+
+def _split_edges(T, S):
+    """Lengths 1, T and every split edge +- 1 of a full row under S splits."""
+    ends = [hi for _, hi in da.split_tokens(T, S)]
+    return sorted({x for x in [1, 2, da.SPLIT_MIN_TOKENS - 1, da.SPLIT_MIN_TOKENS,
+                               da.SPLIT_MIN_TOKENS + 1, T - 1, T]
+                   + [e + d for e in ends for d in (-1, 0, 1)] if 1 <= x <= T})
+
+
+def _fused_case(B, NH, NKV, HD, T, dtype, seed):
+    rng = np.random.default_rng(seed)
+    KD, NQ = NKV * HD, NH * HD
+    qkv = _rand((B, NQ + 2 * KD), seed, dtype=dtype)
+    ang = torch.from_numpy(rng.uniform(0, 6.3, (B, HD // 2)).astype(np.float32)).cuda()
+    c2, s2 = torch.cos(ang), torch.sin(ang)
+    cos_t = torch.cat([c2, c2], -1).repeat(1, NKV)
+    sin_t = torch.cat([-s2, s2], -1).repeat(1, NKV)
+    return (qkv, cos_t, sin_t, _rand((B, T, NKV, HD), seed + 1, dtype=dtype),
+            _rand((B, T, NKV, HD), seed + 2, dtype=dtype))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_dense_attention_at_every_split_edge(cuda, fused):
+    # One row of a 4096-row cache (S 33) at lengths 0, 1, T and every split
+    # edge +- 1; the fused call at the same numbers of old rows (at T no row
+    # is written).
+    B, NH, NKV, HD, T = 1, 32, 8, 64, 4096
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    S = da.plan_splits(B, NKV, T, sms)
+    assert S > 1
+    q = _rand((B, 1, NH, HD), 24)
+    qkv, cos_t, sin_t, k, v = _fused_case(B, NH, NKV, HD, T, torch.bfloat16, 25)
+    for n in _split_edges(T, S) + [0]:
+        ln = torch.tensor([n], dtype=torch.int32, device="cuda")
+        if not fused:
+            got = da.dense_decode_attention(q, k, v, ln)
+            want = (torch.zeros_like(q) if n == 0
+                    else da.dense_decode_attention_plain(q, k, v, ln))
+            torch.cuda.synchronize()
+            _close(got, want)
+            continue
+        kg, vg, kp, vp = k.clone(), v.clone(), k.clone(), v.clone()
+        att, k_new, _, _ = da.fused_decode_attention(qkv, None, cos_t, sin_t, kg, vg, ln,
+                                                     num_heads=NH)
+        if n == T:  # a full cache: nothing written (the current token still attended, C.2)
+            torch.cuda.synchronize()
+            assert torch.isfinite(att.float()).all()
+            assert torch.equal(kg, k) and torch.equal(vg, v)
+            continue
+        watt, wk_new, _, _ = da.fused_decode_attention_plain(qkv, cos_t, sin_t, kp, vp, ln,
+                                                             num_heads=NH)
+        torch.cuda.synchronize()
+        _close(att, watt)
+        _close(k_new, wk_new)
+        _close(kg, kp)
+        assert torch.equal(vg, vp)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("B,T", [(1, 4096), (8, 512)])
+def test_dense_attention_graph_reads_lengths_on_the_card(cuda, fused, B, T):
+    # Two calls are bit-equal (the splits merge in a fixed order); one call
+    # captured in a CUDA graph, replayed after the lengths are rewritten in
+    # place, equals an eager call at the new lengths (the split plan depends
+    # on shapes only; the merge leaves its counters at 0 for the replay).
+    NH, NKV, HD = 32, 8, 64
+    rng = np.random.default_rng(26)
+    q = _rand((B, 1, NH, HD), 27)
+    qkv, cos_t, sin_t, k, v = _fused_case(B, NH, NKV, HD, T, torch.bfloat16, 28)
+    ln = torch.from_numpy(rng.integers(1, 65, B).astype(np.int32)).cuda()
+
+    def call():
+        if fused:
+            return da.fused_decode_attention(qkv, None, cos_t, sin_t, k, v, ln, num_heads=NH)[0]
+        return da.dense_decode_attention(q, k, v, ln)
+
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = call()
+    new = rng.integers(T // 2, T, B).astype(np.int32)
+    new[0] = T - 1
+    ln.copy_(torch.from_numpy(new))
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        want = call()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    if not fused:
+        _close(out, da.dense_decode_attention_plain(q, k, v, ln))
 
 
 def _tail_case(H, I, NQ, bn, layers, seed):
