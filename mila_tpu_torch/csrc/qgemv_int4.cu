@@ -1,210 +1,357 @@
-// qgemv_int4: decode-shape (M <= 32 rows) matmul against packed int4 weights.
+// qgemv_int4: decode-shape (M <= 32 rows) matmul against packed int4
+// weights, on the tensor cores.
 //
 // Replaces the TPU kernel mila_tpu/kernels/quant_matmul.py:_qmm4_kernel
 // (entry quant_linear -> _quant_linear_int4 -> _quant_matmul4_2d): y =
 // x @ dequant(Wp), Wp [K/2, N] int8 with two signed nibbles per byte in the
 // split-halves layout (byte row r holds value row r in its low nibble and
 // row r + K/2 in its high nibble), scales [K / block_size, N] f32, output
-// in x's dtype.
+// in x's dtype. As the TPU kernel: x rounded to bf16 times the signed
+// nibbles, summed in f32 over windows of `win` packed rows (the JAX gate's
+// block_kp, inside one scale block for both halves), each window's low- and
+// high-half sums scaled by their own scale rows.
 //
-// Bound on the H100: the K/2 x N weight bytes (4 * M operations per byte, M
-// <= 32). Design: K2's (csrc/qgemv_int8.cu) without its prologues. A block
-// of 8 warps owns COLS output columns (each lane CPL adjacent columns, one
-// coalesced CPL-byte weight word per packed row: CPL = 4 for M <= 8, 2 for
-// M <= 32 to keep the accumulators in registers) and a slice of kc packed
-// rows; the first weight words are requested before x is staged, and each
-// batch of words one batch ahead. Both halves of x's slice are staged in
-// shared memory as bf16-rounded f32 rows. Each thread decodes a word's
-// nibbles by sign-extending shifts (the TPU kernel's (b << 28) >> 28 and
-// (b << 24) >> 28) and keeps separate low- and high-half f32 sums: the
-// halves read different scale rows (k0 / bs and (K/2 + k0) / bs) where the
-// scales are blocked. Warps add their sums in shared memory in turns; each
-// half's sum is multiplied by its scale row, as the TPU kernel scales each
-// tile's partial products. With one slice the block stores the output;
-// otherwise it writes f32 partials that qgemv4_finish sums in slice order.
+// Bound on the H100: the K/2 x N weight bytes (4 * M operations per byte).
+// A CUDA-core inner loop (two sign-extending decodes and 2 M FMAs a byte)
+// is bound by instruction issue long before the bytes, so the products run
+// on mma.sync m16n8k16, with the weight as the 16-row operand (16 output
+// columns) and x as the 8-wide one (8 rows of x; M <= 32 takes up to four
+// n-tiles): y^T = W^T x^T. The mma's 16 k values are 8 packed rows, each
+// byte giving the pair (low nibble: row r, high nibble: row r + K/2), and x
+// is staged as the matching bf16 pairs (x[m][r], x[m][K/2 + r]). Where the
+// two halves read different scale rows (blocked scales), each half gets its
+// own accumulators: the pair's other element of x is masked to 0.
+// A byte becomes its bf16 pair in three instructions: prmt moves its low
+// nibble to bits 0-3 and its high nibble (from the word shifted by 4) to
+// bits 16-19; lop3 flips the nibbles' sign bits and ORs in bf16 128
+// (0x4300): 128 + (u ^ 8) in each half; one bf16x2 FMA subtracts 136. The
+// values -8..7 are bf16 integers, so the conversion is exact.
+// A block of 4 warps owns 128 output columns (a warp 32: two 16-column
+// n-tiles, a lane's 4 columns one 32-bit word of a packed row) and a slice
+// of kc packed rows. The slice streams through a ring of NST stages of 32
+// rows x 128 bytes by 16-byte cp.async, NST - 1 stages (28 KB) in flight;
+// the slice of x is staged meanwhile. Each stage is one step of four mma
+// k-steps per n-tile. With ksplit > 1 slices (at most 8), the slices of a
+// column tile run as one thread-block cluster: each block leaves its scaled
+// f32 partial in its shared memory, and after a cluster barrier each block
+// adds one share of the tile's outputs over the slices, in slice order,
+// reading the other blocks' shared memory (no float atomics, so two calls
+// are bit-equal; no partials through device memory): one launch in all. A
+// reduction through device memory (partials to scratch, an arrival counter,
+// the last block adding) measured 1.4-2 us slower at the small projections
+// (PERF.md §6).
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int THREADS = 256, WARPS = THREADS / 32, UNROLL = 4;
+constexpr int THREADS = 128, WARPS = THREADS / 32;
+constexpr int BN = 32 * WARPS;  // output columns per block
+constexpr int SR = 32;          // packed rows per stage
+constexpr int NST = 8;          // ring stages
+constexpr int MAX_SLICES = 8;   // INT4_MAX_SLICES of kernels/quant_matmul.py: one portable cluster
+constexpr int PITCH = BN + 32;  // bytes per staged row: the 4 rows a k-step's lanes read
+                                // start 8 banks apart (160 / 4 = 40 = 8 mod 32)
 
-template <int CPL>
-__device__ __forceinline__ uint32_t load_word(const int8_t* p) {
-  if (CPL == 4) return __ldg(reinterpret_cast<const unsigned int*>(p));
-  return __ldg(reinterpret_cast<const unsigned short*>(p));
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
 }
 
-// Sign-extended low and high nibble of byte j of w, as f32.
-__device__ __forceinline__ float nib_lo(uint32_t w, int j) {
-  return static_cast<float>(static_cast<int>(w << (28 - 8 * j)) >> 28);
-}
-__device__ __forceinline__ float nib_hi(uint32_t w, int j) {
-  return static_cast<float>(static_cast<int>(w << (24 - 8 * j)) >> 28);
+// Byte j of w as the bf16 pair (low nibble, high nibble), signed; w4 = w >> 4.
+__device__ __forceinline__ uint32_t nibble_pair(uint32_t w, uint32_t w4, int j) {
+  const uint32_t p = prmt(w, w4, 0x4400u + 0x1111u * j);
+  uint32_t b;  // mask ? (p ^ c) : c, c = 0x43084308: bf16 128 + (u ^ 8) in each half
+  asm("lop3.b32 %0, %1, %2, %3, 0x6A;" : "=r"(b) : "r"(p), "r"(0x000F000Fu), "r"(0x43084308u));
+  uint32_t v;  // b * 1 - 136
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(v) : "r"(b), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return v;
 }
 
-template <int CPL>
-__device__ __forceinline__ void load_batch(const int8_t* p, int N, uint32_t (&w)[UNROLL]) {
+__device__ __forceinline__ uint32_t comp(const uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The float4 at p in the shared memory of the cluster's block `rank`.
+__device__ __forceinline__ float4 ld_cluster(const float* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(a) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 load_scale(const float* scale, int row, int N, int c) {
+  return __ldg(reinterpret_cast<const float4*>(scale + (size_t)row * N + c));
+}
+
+// Eight consecutive values of x (16- or 32-byte aligned) as f32.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
+  const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-  for (int u = 0; u < UNROLL; ++u) w[u] = load_word<CPL>(p + (size_t)u * WARPS * N);
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-template <int MT, int CPL, typename T>
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack2(v.x, v.y), pack2(v.z, v.w));
+}
+
+// MT: n-tiles of 8 rows of x (M <= 8 MT); SPLIT: the halves' scale rows differ.
+template <int MT, bool SPLIT, typename T>
 __global__ void __launch_bounds__(THREADS)
 qgemv4_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
-              const float* __restrict__ scale, T* __restrict__ out, float* __restrict__ ws, int M,
-              int N, int K, int bs, int kc) {
-  constexpr int COLS = 32 * CPL;
-  extern __shared__ __align__(16) float smem[];
-  float* xlo = smem;                  // [kc][MT] x columns k0 .. k0 + kc
-  float* xhi = xlo + (size_t)kc * MT; // [kc][MT] x columns K/2 + k0 ..
-  float* red = xhi + (size_t)kc * MT; // [2][MT][COLS] low- and high-half sums
+              const float* __restrict__ scale, T* __restrict__ out, int M, int N, int K, int bs,
+              int kc, int win) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;                                             // [NST][SR][PITCH]
+  uint32_t* xs = reinterpret_cast<uint32_t*>(smem + NST * SR * PITCH);    // [8 MT][kc + 4]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int Kp = K / 2, n0 = blockIdx.x * BN, ks = blockIdx.y, nks = gridDim.y, k0 = ks * kc;
+  const int nsteps = kc / SR, XP = kc + 4;
+  const int8_t* qb = q + (size_t)k0 * N + n0;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tile = blockIdx.x, ks = blockIdx.y, nks = gridDim.y;
-  const int half = K / 2, k0 = ks * kc;
-  const int c = tile * COLS + lane * CPL;
-  const bool live = c < N;
-  const int8_t* qp = q + (size_t)k0 * N + c;
-  uint32_t w[UNROLL];
-  if (live) load_batch<CPL>(qp + (size_t)warp * N, N, w);
-
-  for (int i = tid; i < kc * MT; i += THREADS) {
-    const int m = i / kc, kk = i % kc;
-    float lo = 0.f, hi = 0.f;
-    if (m < M) {
-      lo = round_bf16(to_f(x[(size_t)m * K + k0 + kk]));
-      hi = round_bf16(to_f(x[(size_t)m * K + half + k0 + kk]));
+  auto issue = [&](int step) {
+    unsigned char* dst = ring + (step % NST) * SR * PITCH;
+    const int8_t* src = qb + (size_t)step * SR * N;
+#pragma unroll
+    for (int i = tid; i < SR * BN / 16; i += THREADS) {
+      const int r = i / (BN / 16), c = i % (BN / 16);
+      cp_async16(dst + r * PITCH + 16 * c, src + (size_t)r * N + 16 * c);
     }
-    xlo[kk * MT + m] = lo;
-    xhi[kk * MT + m] = hi;
+  };
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    if (s < nsteps) issue(s);
+    cp_async_commit();
   }
-  for (int i = tid; i < 2 * MT * COLS; i += THREADS) red[i] = 0.f;
-  __syncthreads();
 
-  float al[MT][CPL], ah[MT][CPL];
+  // The first window's scale rows, in flight with the ring.
+  const int col = 32 * warp + 4 * g;  // the lane's 4 columns in the block's 128
+  float4 sl = load_scale(scale, k0 / bs, N, n0 + col), sh = sl;
+  if (SPLIT) sh = load_scale(scale, (Kp + k0) / bs, N, n0 + col);
+
+  // x's slice as bf16 pairs (x[m][k0 + r], x[m][K/2 + k0 + r]), rows of x
+  // past M zero, 8 rows r a step from 16-byte loads (all of a thread's in
+  // flight at once). Row r of a stage's k-step j (r = 8 j + kk) sits at
+  // slot 8 (kk % 4) + 4 (kk / 4) + j of the stage's 32: lane t's pairs for
+  // the stage's four k-steps are two runs of 4 (rows 8 j + t and 8 j + 4 + t).
+#pragma unroll 4
+  for (int i = tid; i < MT * kc; i += THREADS) {  // 8 MT rows of x, kc / 8 steps each
+    const int m = i / (kc / 8), r = 8 * (i % (kc / 8));
+    float lo[8], hi[8];
+    if (m < M) {
+      load8(x + (size_t)m * K + k0 + r, lo);
+      load8(x + (size_t)m * K + Kp + k0 + r, hi);
+    } else {
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+      for (int e = 0; e < 8; ++e) lo[e] = hi[e] = 0.f;
+    }
+    uint32_t* xr = xs + m * XP + (r & ~31) + ((r & 31) >> 3);
 #pragma unroll
-    for (int j = 0; j < CPL; ++j) al[m][j] = ah[m][j] = 0.f;
-  if (live) {
-    for (int kk = warp; kk < kc; kk += WARPS * UNROLL) {
-      uint32_t cw[UNROLL];
+    for (int kk = 0; kk < 8; ++kk) xr[8 * (kk & 3) + 4 * (kk >> 2)] = pack2(lo[kk], hi[kk]);
+  }
+
+  float acc[2][MT][4], acc_hi[2][MT][4], tot[2][MT][4];
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) cw[u] = w[u];
-      if (kk + WARPS * UNROLL < kc) load_batch<CPL>(qp + (size_t)(kk + WARPS * UNROLL) * N, N, w);
+  for (int a = 0; a < 2; ++a)
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int row = kk + u * WARPS;
-        float wl[CPL], wh[CPL];
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int j = 0; j < CPL; ++j) {
-          wl[j] = nib_lo(cw[u], j);
-          wh[j] = nib_hi(cw[u], j);
-        }
-        const float* xl = xlo + row * MT;
-        const float* xh = xhi + row * MT;
+      for (int c = 0; c < 4; ++c) acc[a][mt][c] = acc_hi[a][mt][c] = tot[a][mt][c] = 0.f;
+
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<NST - 2>();
+    __syncthreads();  // stage s landed for every thread; stage s - 1 fully read
+    if (s + NST - 1 < nsteps) issue(s + NST - 1);
+    cp_async_commit();
+
+    const unsigned char* st = ring + (s % NST) * SR * PITCH + col;
+    uint4 bx0[MT], bx1[MT];
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const float a = xl[m], bh = xh[m];
+    for (int mt = 0; mt < MT; ++mt) {
+      const uint32_t* xr = xs + (8 * mt + g) * XP + s * SR + 8 * t;
+      bx0[mt] = *reinterpret_cast<const uint4*>(xr);
+      bx1[mt] = *reinterpret_cast<const uint4*>(xr + 4);
+    }
 #pragma unroll
-          for (int j = 0; j < CPL; ++j) {
-            al[m][j] = fmaf(a, wl[j], al[m][j]);
-            ah[m][j] = fmaf(bh, wh[j], ah[m][j]);
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(st + (8 * j + t) * PITCH);
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(st + (8 * j + 4 + t) * PITCH);
+      const uint32_t s0 = w0 >> 4, s1 = w1 >> 4;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        // A rows g and g + 8 of n-tile nt: columns 2 nt and 2 nt + 1 of the lane's 4.
+        const uint32_t a[4] = {nibble_pair(w0, s0, 2 * nt), nibble_pair(w0, s0, 2 * nt + 1),
+                               nibble_pair(w1, s1, 2 * nt), nibble_pair(w1, s1, 2 * nt + 1)};
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint32_t b[2] = {comp(bx0[mt], j), comp(bx1[mt], j)};
+          if (SPLIT) {
+            const uint32_t blo[2] = {b[0] & 0xFFFFu, b[1] & 0xFFFFu};
+            const uint32_t bhi[2] = {b[0] & 0xFFFF0000u, b[1] & 0xFFFF0000u};
+            mma_bf16(acc[nt][mt], a, blo);
+            mma_bf16(acc_hi[nt][mt], a, bhi);
+          } else {
+            mma_bf16(acc[nt][mt], a, b);
           }
         }
       }
     }
-  }
-  for (int turn = 0; turn < WARPS; ++turn) {
-    if (warp == turn && live) {
+
+    // A window ends (or the slice): scale its sums by the window's rows.
+    const int row = k0 + s * SR;
+    if ((row + SR) % win == 0 || s == nsteps - 1) {
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m >= M) break;
+      for (int nt = 0; nt < 2; ++nt) {
+        // c0, c1: column 2 nt (rows m, m + 1); c2, c3: column 2 nt + 1.
+        const float lo0 = nt ? sl.z : sl.x, lo1 = nt ? sl.w : sl.y;
+        const float hi0 = nt ? sh.z : sh.x, hi1 = nt ? sh.w : sh.y;
 #pragma unroll
-        for (int j = 0; j < CPL; ++j) {
-          red[m * COLS + lane * CPL + j] += al[m][j];
-          red[(MT + m) * COLS + lane * CPL + j] += ah[m][j];
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float slo = c < 2 ? lo0 : lo1, shi = c < 2 ? hi0 : hi1;
+            tot[nt][mt][c] += SPLIT ? acc[nt][mt][c] * slo + acc_hi[nt][mt][c] * shi
+                                    : acc[nt][mt][c] * slo;
+            acc[nt][mt][c] = acc_hi[nt][mt][c] = 0.f;
+          }
         }
       }
+      if (s + 1 < nsteps) {  // the next window's scale rows
+        sl = load_scale(scale, (row + SR) / bs, N, n0 + col);
+        if (SPLIT) sh = load_scale(scale, (Kp + row + SR) / bs, N, n0 + col);
+      }
     }
-    __syncthreads();
   }
 
-  const float* slo = scale + (size_t)(k0 / bs) * N;
-  const float* shi = scale + (size_t)((half + k0) / bs) * N;
-  for (int i = tid; i < M * COLS; i += THREADS) {
-    const int m = i / COLS, n = tile * COLS + i % COLS;
-    if (n >= N) continue;
-    const float v = red[m * COLS + i % COLS] * slo[n] + red[(MT + m) * COLS + i % COLS] * shi[n];
-    if (nks == 1)
-      out[(size_t)m * N + n] = from_f<T>(v);
-    else
-      ws[((size_t)ks * M + m) * N + n] = v;
+  // The lane's outputs: rows m = 8 mt + 2 t + e, its 4 columns.
+  const size_t nc = (size_t)n0 + col;
+  if (nks == 1) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = 8 * mt + 2 * t + e;
+        if (m < M)
+          store4(out + (size_t)m * N + nc, make_float4(tot[0][mt][e], tot[0][mt][2 + e],
+                                                       tot[1][mt][e], tot[1][mt][2 + e]));
+      }
+    return;
   }
+  // K slices: the blocks of a column tile form one cluster. Each block puts
+  // its partial [8 MT][BN] in its own shared memory (the ring, drained);
+  // after a cluster barrier, block r adds the slices' partials of its share
+  // of the tile's outputs in slice order, read from every block's shared
+  // memory, and stores them; a second barrier keeps each block's shared
+  // memory alive until the others have read it.
+  cp_async_wait<0>();
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      *reinterpret_cast<float4*>(part + (8 * mt + 2 * t + e) * BN + col) =
+          make_float4(tot[0][mt][e], tot[0][mt][2 + e], tot[1][mt][e], tot[1][mt][2 + e]);
+  cluster_sync();
+  constexpr int GROUPS = 8 * MT * BN / 4;  // float4 outputs of the tile
+  for (int i = ks * THREADS + tid; i < GROUPS; i += nks * THREADS) {
+    const int m = 4 * i / BN, c = 4 * i % BN;
+    if (m >= M) continue;
+    float4 p[MAX_SLICES];  // every slice's partial in flight at once, then added in order
+#pragma unroll
+    for (int r = 0; r < MAX_SLICES; ++r)
+      if (r < nks) p[r] = ld_cluster(part + m * BN + c, r);
+    float4 v = p[0];
+#pragma unroll
+    for (int r = 1; r < MAX_SLICES; ++r) {
+      if (r < nks) {
+        v.x += p[r].x;
+        v.y += p[r].y;
+        v.z += p[r].z;
+        v.w += p[r].w;
+      }
+    }
+    store4(out + (size_t)m * N + n0 + c, v);
+  }
+  cluster_sync();
 }
 
-template <typename T>
-__global__ void qgemv4_finish(const float* __restrict__ ws, T* __restrict__ out, int M, int N,
-                              int nks) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= M * N) return;
-  float v = 0.f;
-  for (int s = 0; s < nks; ++s) v += ws[(size_t)s * M * N + i];
-  out[i] = from_f<T>(v);
-}
-
-template <int MT, int CPL, typename T>
-void launch(const void* x, const void* q, const void* scale, void* out, void* ws, int M, int N,
-            int K, int bs, int ksplit, cudaStream_t stream) {
-  constexpr int COLS = 32 * CPL;
+template <int MT, bool SPLIT, typename T>
+int launch(const void* x, const void* q, const void* scale, void* out, int M, int N, int K,
+           int bs, int ksplit, int win, cudaStream_t stream) {
   const int kc = K / 2 / ksplit;
-  const size_t smem = sizeof(float) * (2 * (size_t)kc * MT + 2 * (size_t)MT * COLS);
-  auto kern = qgemv4_kernel<MT, CPL, T>;
-  // Above 48 KB of dynamic shared memory needs the opt-in; raise this
-  // instantiation's limit on each device to the largest size given.
-  static size_t allowed[64] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 64 || smem > allowed[dev]) {
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (dev < 64) allowed[dev] = smem;
+  const int smem = NST * SR * PITCH + 8 * MT * (kc + 4) * 4;
+  auto kern = qgemv4_kernel<MT, SPLIT, T>;
+  static int allowed = 48 * 1024;
+  if (smem > allowed) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    allowed = smem;
   }
-  dim3 grid((N + COLS - 1) / COLS, ksplit);
-  kern<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(x), static_cast<const int8_t*>(q),
-                                        static_cast<const float*>(scale), static_cast<T*>(out),
-                                        static_cast<float*>(ws), M, N, K, bs, kc);
-  if (ksplit > 1) {
-    const int total = M * N;
-    qgemv4_finish<T><<<(total + 255) / 256, 256, 0, stream>>>(
-        static_cast<const float*>(ws), static_cast<T*>(out), M, N, ksplit);
-  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(N / BN, ksplit);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = ksplit;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(x),
+                                             static_cast<const int8_t*>(q),
+                                             static_cast<const float*>(scale),
+                                             static_cast<T*>(out), M, N, K, bs, kc, win));
 }
 
 template <typename T>
-void dispatch(int m_tile, const void* x, const void* q, const void* scale, void* out, void* ws,
-              int M, int N, int K, int bs, int ksplit, cudaStream_t s) {
-  if (m_tile == 8)
-    launch<8, 4, T>(x, q, scale, out, ws, M, N, K, bs, ksplit, s);
-  else
-    launch<32, 2, T>(x, q, scale, out, ws, M, N, K, bs, ksplit, s);
+int dispatch(const void* x, const void* q, const void* scale, void* out, int M, int N, int K,
+             int bs, int ksplit, int win, cudaStream_t st) {
+#define INT4_LAUNCH(MT)                                                                     \
+  return bs < K ? launch<MT, true, T>(x, q, scale, out, M, N, K, bs, ksplit, win, st)       \
+                : launch<MT, false, T>(x, q, scale, out, M, N, K, bs, ksplit, win, st)
+  if (M <= 8) INT4_LAUNCH(1);
+  if (M <= 16) INT4_LAUNCH(2);
+  INT4_LAUNCH(4);
+#undef INT4_LAUNCH
 }
 
 }  // namespace
 
 // x [M, K]; q [K / 2, N] int8 (packed int4, split halves); scale
-// [K / block_size, N] f32; out [M, N]; ws [ksplit, M, N] f32 or null when
-// ksplit == 1. m_tile 8 (M <= 8, 4 columns per lane, N % 4 == 0) or 32 (M
-// <= 32, 2 columns per lane, N % 2 == 0). Each slice of kc = K / 2 / ksplit
-// packed rows must lie inside one scale block for both halves (kc divides
-// K / 2 and block_size) and kc % 32 == 0; x and out are f32 when is_f32,
-// else bf16 (checked by the Python wrapper).
-extern "C" int qgemv_int4(const void* x, const void* q, const void* scale, void* out, void* ws,
-                          int M, int N, int K, int block_size, int ksplit, int m_tile, int is_f32,
+// [K / block_size, N] f32; out [M, N]. ksplit (1, 2, 4 or 8: one cluster)
+// slices of kc = K / 2 / ksplit packed rows (kc % 32 == 0). win: packed
+// rows per scale window (win % 32 == 0, win divides K / 2 and, where
+// block_size < K, block_size). Needs 1 <= M <= 32, N % 128 == 0, 16-byte
+// aligned x, q and scale, and x's slice of 8 ceil(M / 8) (kc + 4) 4-byte
+// pairs in shared memory beside the 40 KB ring; x and out are f32 when
+// is_f32, else bf16 (checked by the Python wrapper).
+extern "C" int qgemv_int4(const void* x, const void* q, const void* scale, void* out, int M,
+                          int N, int K, int block_size, int ksplit, int win, int is_f32,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_f32)
-    dispatch<float>(m_tile, x, q, scale, out, ws, M, N, K, block_size, ksplit, s);
-  else
-    dispatch<__nv_bfloat16>(m_tile, x, q, scale, out, ws, M, N, K, block_size, ksplit, s);
-  return static_cast<int>(cudaGetLastError());
+  if (is_f32) return dispatch<float>(x, q, scale, out, M, N, K, block_size, ksplit, win, s);
+  return dispatch<__nv_bfloat16>(x, q, scale, out, M, N, K, block_size, ksplit, win, s);
 }

@@ -254,7 +254,13 @@ def _launch(x2: torch.Tensor, qt: QTensor, bias: Optional[torch.Tensor],
     return out
 
 
-_INT4_X_BYTES = 64 * 1024  # staged activations per block (both halves)
+INT4_COLS = 128  # output columns per block of qgemv_int4
+INT4_STAGE_ROWS = 32  # packed rows per stage (and per slice's multiple)
+INT4_RING_BYTES = 8 * INT4_STAGE_ROWS * (INT4_COLS + 32)  # the kernel's ring of 8 stages
+INT4_X_BYTES = 72 * 1024  # staged x pairs per block
+INT4_BLOCKS_PER_SM = 1  # K slices until the grid has this many blocks per SM
+INT4_MIN_ROWS = 64  # packed rows a slice keeps at least (unless x's stage forces fewer)
+INT4_MAX_SLICES = 8  # the slices of a column tile form one cluster: 8 blocks at most
 
 
 @functools.lru_cache(maxsize=None)
@@ -262,31 +268,42 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _int4_x_bytes(M: int, kc: int) -> int:
+    """Shared memory of x's staged bf16 pairs for kc packed rows: 8 rows of
+    x per n-tile of the mma (M <= 8, 16 or 32 take 1, 2 or 4)."""
+    return 8 * (1 if M <= 8 else 2 if M <= 16 else 4) * (kc + 4) * 4
+
+
 def _plan_int4(M: int, K: int, N: int, block_size: int, sms: int) -> tuple[int, int]:
-    """(m_tile, ksplit) for ``qgemv_int4``: slices of packed rows, each inside
-    one scale block for both halves, until the launch has about two blocks
-    per SM (slices of at least 128 packed rows) and the staged x fits."""
+    """(ksplit, win) for ``qgemv_int4``: ksplit slices of kc = K/2 / ksplit
+    packed rows (one cluster of at most ``INT4_MAX_SLICES`` blocks per
+    column tile), doubled until the grid of N / 128 column tiles x ksplit
+    reaches ``INT4_BLOCKS_PER_SM`` blocks per SM (while a slice keeps
+    ``INT4_MIN_ROWS`` rows) and x's staged slice fits ``INT4_X_BYTES``;
+    win is the JAX gate's window of packed rows (inside one scale block
+    for both halves), over which the kernel sums before it scales."""
     Kp = K // 2
-    mt, cpl = (8, 4) if M <= 8 else (32, 2)
-    tiles = -(-N // (32 * cpl))
+    ok, win = _int4_blocks(M, K, N, block_size)
+    tiles = N // INT4_COLS
     ks = 1
-    while Kp % (2 * ks) == 0 and (
-        (Kp // ks) * mt * 8 > _INT4_X_BYTES
-        or block_size % (Kp // ks)
-        or (tiles * ks < 2 * sms and Kp // (2 * ks) >= 128)
-    ):
+    while (ks < INT4_MAX_SLICES and Kp % (2 * ks) == 0
+           and (Kp // (2 * ks)) % INT4_STAGE_ROWS == 0 and (
+               _int4_x_bytes(M, Kp // ks) > INT4_X_BYTES
+               or (tiles * ks < INT4_BLOCKS_PER_SM * sms and Kp // (2 * ks) >= INT4_MIN_ROWS))):
         ks *= 2
     kc = Kp // ks
-    if Kp % ks or kc % 32 or block_size % kc or kc * mt * 8 > _INT4_X_BYTES or N % cpl:
-        raise ValueError(f"qgemv_int4 cannot slice K={K}, N={N} (block_size={block_size})")
-    return mt, ks
+    if (not ok or not 1 <= M <= 32 or N % INT4_COLS or kc % INT4_STAGE_ROWS
+            or win % INT4_STAGE_ROWS or _int4_x_bytes(M, kc) > INT4_X_BYTES):
+        raise ValueError(f"qgemv_int4 cannot tile M={M}, K={K}, N={N} "
+                         f"(block_size={block_size})")
+    return ks, win
 
 
 def _int4_lib() -> ctypes.CDLL:
     lib = _build.library("qgemv_int4")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.qgemv_int4.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
+        lib.qgemv_int4.argtypes = [vp] * 4 + [ci] * 7 + [vp]
         lib.qgemv_int4.restype = ci
         lib._typed = True
     return lib
@@ -314,15 +331,18 @@ def quant_linear_int4(x2: torch.Tensor, qt: QTensor) -> torch.Tensor:
     for t in (qt.q, qt.scale):
         if not (t.is_cuda and t.is_contiguous() and t.device == x2.device):
             raise ValueError("qgemv_int4: weights must be contiguous on x's device")
-    mt, ks = _plan_int4(M, K, N, qt.block_size, _sm_count(x2.device.index or 0))
+    if qt.q.data_ptr() % 16 or qt.scale.data_ptr() % 16:
+        raise ValueError("qgemv_int4: weights and scales must be 16-byte aligned "
+                         "(16-byte copies and loads)")
+    ks, win = _plan_int4(M, K, N, qt.block_size, _sm_count(x2.device.index or 0))
     xc = x2.contiguous()
+    if xc.data_ptr() % 16:  # the kernel stages x by 16-byte loads
+        xc = xc.clone()
     out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
-    ws = torch.empty((ks, M, N), dtype=torch.float32, device=x2.device) if ks > 1 else None
     lib = _int4_lib()
     rc = lib.qgemv_int4(
-        _build.ptr(xc), _build.ptr(qt.q), _build.ptr(qt.scale), _build.ptr(out),
-        None if ws is None else _build.ptr(ws), M, N, K, qt.block_size, ks, mt,
-        int(x2.dtype == torch.float32), _build.stream_of(x2))
+        _build.ptr(xc), _build.ptr(qt.q), _build.ptr(qt.scale), _build.ptr(out), M, N, K,
+        qt.block_size, ks, win, int(x2.dtype == torch.float32), _build.stream_of(x2))
     _build.check(lib, rc, "qgemv_int4")
     quant_linear_int4.launches += 1
     return out

@@ -1,22 +1,33 @@
-"""Time variants of the contiguous-cache decode attention
-(``csrc/dense_decode_attn.cu``) on the GPU, at the smoke shapes of
-Llama-3.2-1B's heads (NH 32, NKV 8, HD 64, bf16): B 8 at lengths 129-192 of
-a 512-row cache (the bench's decode shape) and B 1 at 4096 rows of a 4096-row
-cache.
+"""Time variants of two decode kernels on the GPU at the smoke shapes.
 
-    python -m mila_tpu_torch.tools.decode_variants [--variants committed min64]
+    python -m mila_tpu_torch.tools.decode_variants dense [--variants committed min64]
         [--shapes B8 B1] [--splits 1 3 9]
+    python -m mila_tpu_torch.tools.decode_variants int4 [--shapes wqkv wgu head]
+        [--m 8] [--ksplits 1 2 4]
 
-Each variant is a copy of the source (and its headers) with edits, compiled
-with the package's nvcc flags into ``csrc/build/``: ``committed`` (none),
-``min64`` / ``min128`` (at least 64 / 128 tokens a split instead of 32);
-``no_scores``, ``no_values``, ``no_math`` (a chunk's q.k products, its P.V
-products, or both, dropped: wrong by design, timed only). ``--splits``:
-numbers of splits to try besides the planner's. Per shape, variant and split
-count it prints one JSON line with the ms of a dense and of a fused call (a
-CUDA graph of one call per distinct cache, cycling over 16 caches, replayed
-7 times between CUDA events, median) and the largest difference from the
-committed library at the planner's splits. Needs a CUDA device and nvcc.
+``dense``: the contiguous-cache decode attention (``csrc/dense_decode_attn.cu``)
+at Llama-3.2-1B's heads (NH 32, NKV 8, HD 64, bf16): B 8 at lengths 129-192
+of a 512-row cache (the bench's decode shape) and B 1 at 4096 rows of a
+4096-row cache. Each variant is a copy of the source (and its headers) with
+edits, compiled with the package's nvcc flags into ``csrc/build/``:
+``committed`` (none), ``min64`` / ``min128`` (at least 64 / 128 tokens a
+split instead of 32); ``no_scores``,
+``no_values``, ``no_math`` (a chunk's q.k products, its P.V products, or
+both, dropped: wrong by design, timed only). ``--splits``: numbers of
+splits to try besides the planner's. One JSON line per shape, variant and
+split count: the ms of a dense and of a fused call and the largest
+difference from the committed library at the planner's splits.
+
+``int4``: the int4 GEMV (``csrc/qgemv_int4.cu``, the committed source) at
+Llama-3.2-1B's int4 projections and head (random packed weights,
+per-channel scales, M rows of bf16 x): per shape one JSON line with the ms
+at the planner's K-split and at each of ``--ksplits`` that the kernel can
+take, each one's largest difference from the planner's output, and
+``torch.matmul`` on a bf16 weight of the same shape.
+
+Times: a CUDA graph of one call per distinct copy of the inputs (caches or
+weights, cycling past the 50 MB L2), replayed 7 times between CUDA events,
+median. Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ import torch
 
 from mila_tpu_torch.kernels import _build
 from mila_tpu_torch.kernels import dense_attention as da
+from mila_tpu_torch.kernels import quant_matmul as qm
 
 SRC = "dense_decode_attn.cu"
 VARIANTS = {  # name -> [(file, old text, new text)]
@@ -44,11 +56,13 @@ VARIANTS = {  # name -> [(file, old text, new text)]
 VARIANTS["no_math"] = VARIANTS["no_scores"] + VARIANTS["no_values"]
 SHAPES = {"B8": (8, 512, (129, 193)), "B1": (1, 4096, (4096, 4097))}  # B, T, lengths [lo, hi)
 NH, NKV, HD, COPIES = 32, 8, 64, 16
+INT4_SHAPES = {"wqkv": (2048, 3072), "wo": (2048, 2048), "wgu": (2048, 16384),
+               "down": (8192, 2048), "head": (2048, 128256)}
 
 
 def build(names) -> dict:
-    """Compile a copy of the source per variant with its edits applied (the
-    headers copied beside it), one nvcc each, all at once."""
+    """Compile a copy of the dense source per variant with its edits applied
+    (the headers copied beside it), one nvcc each, all at once."""
     procs = {}
     for name in names:
         vdir = _build.BUILD_DIR / f"dense_variant_{name}"
@@ -101,12 +115,12 @@ def graph_ms(calls, reps: int = 7) -> float:
     return statistics.median(out)
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--variants", nargs="+", default=list(VARIANTS), choices=list(VARIANTS))
-    ap.add_argument("--shapes", nargs="+", default=list(SHAPES), choices=list(SHAPES))
-    ap.add_argument("--splits", nargs="+", type=int, default=[])
-    args = ap.parse_args()
+def check(rc: int, what: str) -> None:
+    if rc:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def dense(args) -> None:
     libs = build(sorted(set(args.variants) | {"committed"}))  # the reference for max_diff
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -128,7 +142,7 @@ def main() -> None:
         out = torch.empty(B, NH, HD, device=dev, dtype=bf16)
         k_new = torch.empty(B, KD, device=dev, dtype=bf16)
         plan = da.plan_splits(B, NKV, T, sms)
-        ref = {}
+        ref = None
         for S in [plan] + sorted({s for s in args.splits if s and s != plan}):
             o_part = torch.empty(B, NH, S, HD, device=dev)
             ml = torch.empty(2, B, NH, S, device=dev)
@@ -137,39 +151,96 @@ def main() -> None:
             for v in ["committed"] + [x for x in args.variants if x != "committed"]:
                 lib = libs[v]
 
-                def dense(k, vv, lib=lib, scratch=scratch, S=S):
-                    rc = lib.dense_decode_attn(_build.ptr(q), _build.ptr(k), _build.ptr(vv),
-                                               _build.ptr(lens), _build.ptr(out), *scratch, B, T,
-                                               NH, NKV, HD, S, scale, 0, _build.stream_of(q))
-                    if rc:
-                        raise RuntimeError(f"{v}: CUDA error {rc}")
+                def dense_call(k, vv, lib=lib, scratch=scratch, S=S, v=v):
+                    check(lib.dense_decode_attn(
+                        _build.ptr(q), _build.ptr(k), _build.ptr(vv), _build.ptr(lens),
+                        _build.ptr(out), *scratch, B, T, NH, NKV, HD, S, scale, 0,
+                        _build.stream_of(q)), v)
 
-                def fused(k, vv, lib=lib, scratch=scratch, S=S):
-                    rc = lib.fused_decode_attn(
+                def fused_call(k, vv, lib=lib, scratch=scratch, S=S, v=v):
+                    check(lib.fused_decode_attn(
                         _build.ptr(qkv), _build.ptr(cos_t), _build.ptr(sin_t), _build.ptr(k),
                         _build.ptr(vv), _build.ptr(old), _build.ptr(out), _build.ptr(k_new),
-                        *scratch, B, T, NH, NKV, HD, S, scale, 0, _build.stream_of(q))
-                    if rc:
-                        raise RuntimeError(f"{v}: CUDA error {rc}")
+                        *scratch, B, T, NH, NKV, HD, S, scale, 0, _build.stream_of(q)), v)
 
-                if not ref:  # the fused call's row write, once, before any dense call
+                if ref is None:  # the fused call's row write, once, before any dense call
                     for k, vv in caches:
-                        fused(k, vv)
-                dense(*caches[0])
+                        fused_call(k, vv)
+                dense_call(*caches[0])
                 got = [out.clone()]
-                fused(*caches[0])
+                fused_call(*caches[0])
                 got.append(out.clone())
                 torch.cuda.synchronize()
-                if v == "committed" and S == plan:
-                    ref[shape] = got
-                base = ref.get(shape, got)
+                ref = ref or got
                 row = {"shape": f"{shape} B={B} T={T} lens {lo}-{hi - 1}", "variant": v,
                        "splits": S, "card": torch.cuda.get_device_name(0),
-                       "dense_ms": graph_ms([lambda k=k, vv=vv: dense(k, vv) for k, vv in caches]),
-                       "fused_ms": graph_ms([lambda k=k, vv=vv: fused(k, vv) for k, vv in caches]),
+                       "dense_ms": graph_ms([lambda k=k, vv=vv: dense_call(k, vv)
+                                             for k, vv in caches]),
+                       "fused_ms": graph_ms([lambda k=k, vv=vv: fused_call(k, vv)
+                                             for k, vv in caches]),
                        "max_diff": max((a.float() - b.float()).abs().max().item()
-                                       for a, b in zip(got, base))}
+                                       for a, b in zip(got, ref))}
                 print(json.dumps(row), flush=True)
+
+
+def int4(args) -> None:
+    lib = qm._int4_lib()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dev, M = torch.device("cuda"), args.m
+    for shape in args.shapes:
+        K, N = INT4_SHAPES[shape]
+        Kp = K // 2
+        ws = [torch.randint(-128, 128, (Kp, N), device=dev, dtype=torch.int8, generator=gen)
+              for _ in range(min(16, max(2, int(2e8 // (Kp * N)) + 1)))]
+        scale = torch.rand(1, N, device=dev, generator=gen) * 0.01 + 0.001
+        x = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+        out = torch.empty(M, N, device=dev, dtype=torch.bfloat16)
+        plan, win = qm._plan_int4(M, K, N, K, sms)
+        row = {"shape": f"{shape} M={M} K={K} N={N}", "card": torch.cuda.get_device_name(0),
+               "plan_ksplit": plan}
+        ref = None
+        for ks in [plan] + sorted({k for k in args.ksplits if k != plan}):
+            kc = Kp // ks
+            if (Kp % ks or ks > qm.INT4_MAX_SLICES or kc % qm.INT4_STAGE_ROWS
+                    or qm._int4_x_bytes(M, kc) > qm.INT4_X_BYTES):
+                continue
+
+            def call(w, ks=ks):
+                check(lib.qgemv_int4(_build.ptr(x), _build.ptr(w), _build.ptr(scale),
+                                     _build.ptr(out), M, N, K, K, ks, win, 0,
+                                     _build.stream_of(x)), f"ksplit {ks}")
+
+            call(ws[0])
+            got = out.clone()
+            torch.cuda.synchronize()
+            ref = got if ref is None else ref
+            row[f"ms_ks{ks}"] = graph_ms([lambda w=w: call(w) for w in ws])
+            row[f"max_diff_ks{ks}"] = (got.float() - ref.float()).abs().max().item()
+        wb = [torch.randn(K, N, device=dev, generator=gen).to(torch.bfloat16)
+              for _ in range(min(16, max(2, int(2e8 // (2 * K * N)) + 1)))]
+        row["matmul_bf16_ms"] = graph_ms([lambda w=w: torch.matmul(x, w) for w in wb])
+        row["bound_ms"] = (Kp * N + 4 * N + 2 * M * K + 2 * M * N) / 3.35e12 * 1e3
+        print(json.dumps(row), flush=True)
+        del ws, wb
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    sub = ap.add_subparsers(dest="kernel", required=True)
+    d = sub.add_parser("dense")
+    d.add_argument("--variants", nargs="+", default=list(VARIANTS), choices=list(VARIANTS))
+    d.add_argument("--shapes", nargs="+", default=list(SHAPES), choices=list(SHAPES))
+    d.add_argument("--splits", nargs="+", type=int, default=[])
+    i = sub.add_parser("int4")
+    i.add_argument("--shapes", nargs="+", default=list(INT4_SHAPES), choices=list(INT4_SHAPES))
+    i.add_argument("--m", type=int, default=8)
+    i.add_argument("--ksplits", nargs="+", type=int, default=[])
+    args = ap.parse_args()
+    if args.kernel == "dense":
+        dense(args)
+    else:
+        int4(args)
 
 
 if __name__ == "__main__":

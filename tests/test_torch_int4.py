@@ -208,3 +208,50 @@ def test_int4_paged_prefill_and_decode_match_jax(int4_models, cache):
         np.testing.assert_allclose(tlog.numpy(), want, atol=_tol(want), rtol=0,
                                    err_msg=f"decode step {step}")
         pos = pos + 1
+
+
+# The int4 kernel's plan (``_plan_int4``) at serve long's shapes (Llama-3.2-1B:
+# wqkv, wo, wgu, down and the unpadded vocab head), M 1, 8 and 32, per-channel
+# and 128-row scale blocks, on the H100 SXM's 132 SMs.
+_SERVE_LONG_INT4 = {"wqkv": (2048, 3072), "wo": (2048, 2048), "wgu": (2048, 16384),
+                    "down": (8192, 2048), "head": (2048, 128256)}
+
+
+@pytest.mark.parametrize("bs", [0, 128])
+@pytest.mark.parametrize("M", [1, 8, 32])
+@pytest.mark.parametrize("name", list(_SERVE_LONG_INT4))
+def test_plan_int4_contract(name, M, bs):
+    import inspect
+
+    K, N = _SERVE_LONG_INT4[name]
+    sms = 132
+    block = bs or K
+    assert tqm._int4_blocks(M, K, N, block)[0]  # the gate sends these shapes to the kernel
+    assert list(inspect.signature(tqm._plan_int4).parameters) == ["M", "K", "N", "block_size",
+                                                                  "sms"]
+    ks, win = tqm._plan_int4(M, K, N, block, sms)
+    Kp, tiles = K // 2, N // tqm.INT4_COLS
+    kc = Kp // ks
+    # Slices of whole stages cover the packed rows once; the scale windows are
+    # the JAX gate's, inside one scale block for both halves.
+    assert 1 <= ks <= tqm.INT4_MAX_SLICES and Kp % ks == 0 and kc % tqm.INT4_STAGE_ROWS == 0
+    assert win == tqm._int4_blocks(M, K, N, block)[1]
+    assert win % tqm.INT4_STAGE_ROWS == 0 and Kp % win == 0 and block % win == 0
+    assert N % tqm.INT4_COLS == 0
+    # x's staged slice fits beside the ring.
+    assert tqm._int4_x_bytes(M, kc) <= tqm.INT4_X_BYTES
+    assert tqm.INT4_RING_BYTES + tqm.INT4_X_BYTES <= 227 * 1024
+    # Enough blocks to fill the card, or slices at their floor; and no more
+    # slices than that asks (halving ks again would not be needed).
+    assert (tiles * ks >= tqm.INT4_BLOCKS_PER_SM * sms or kc < 2 * tqm.INT4_MIN_ROWS
+            or ks == tqm.INT4_MAX_SLICES)
+    if ks > 1:
+        assert (tiles * ks // 2 < tqm.INT4_BLOCKS_PER_SM * sms
+                or tqm._int4_x_bytes(M, 2 * kc) > tqm.INT4_X_BYTES)
+
+
+def test_plan_int4_refuses_what_the_kernel_cannot_tile():
+    with pytest.raises(ValueError):
+        tqm._plan_int4(8, 2048, 3000, 2048, 132)  # N not a multiple of 128 columns
+    with pytest.raises(ValueError):
+        tqm._plan_int4(64, 2048, 3072, 2048, 132)  # M past the decode kernel

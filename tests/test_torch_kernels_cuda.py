@@ -617,6 +617,7 @@ def test_giga_and_mega_refuse_other_streams(cuda):
     (32, 2048, 3072, 0, torch.bfloat16),
     (8, 8192, 2048, 0, torch.bfloat16),
     (8, 2048, 128256, 0, torch.bfloat16),  # the unpadded vocab: N divides by 256 only
+    (32, 2048, 128256, 0, torch.bfloat16),  # M 32 on the vocab head: four n-tiles, K slices
     (1, 2048, 2048, 128, torch.bfloat16),  # blocked: the halves read different scale rows
     (8, 2048, 2048, 128, torch.bfloat16),
     (32, 2048, 2048, 128, torch.bfloat16),
@@ -634,6 +635,34 @@ def test_int4_kernel(cuda, M, K, N, bs, dtype):
     torch.cuda.synchronize()
     assert qm.quant_linear_int4.launches == before + 1
     _close(got, qm.quant_linear_int4_plain(x, qt))
+
+
+@pytest.mark.parametrize("M,K,N,bs", [
+    (8, 2048, 3072, 0),      # K slices merged by the last block of a column tile
+    (8, 2048, 128256, 0),    # one slice
+    (32, 2048, 2048, 128),   # blocked scales, four n-tiles
+])
+def test_int4_kernel_graph_replay_and_determinism(cuda, M, K, N, bs):
+    # Two calls are bit-equal (the K slices add in a fixed order); one call
+    # captured in a CUDA graph, replayed after x is rewritten in place,
+    # equals an eager call on the new x (the arrival counters are back at 0
+    # after every launch).
+    x = _rand((M, K), 48)
+    qt = quantize(_rand((K, N), 49, 0.05, torch.float32), "int4", bs)
+    first, second = qm.quant_linear_int4(x, qt), qm.quant_linear_int4(x, qt)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = qm.quant_linear_int4(x, qt)
+    for seed in (50, 51):
+        x.copy_(_rand((M, K), seed))
+        g.replay()
+        torch.cuda.synchronize()
+        want = qm.quant_linear_int4(x, qt)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    _close(out, qm.quant_linear_int4_plain(x, qt))
 
 
 def test_int4_prefill_unpacks_to_the_int8_kernel(cuda):
