@@ -256,7 +256,7 @@ def _launch(x2: torch.Tensor, qt: QTensor, bias: Optional[torch.Tensor],
 
 INT4_COLS = 128  # output columns per block of qgemv_int4
 INT4_STAGE_ROWS = 32  # packed rows per stage (and per slice's multiple)
-INT4_RING_BYTES = 8 * INT4_STAGE_ROWS * (INT4_COLS + 32)  # the kernel's ring of 8 stages
+INT4_RING_BYTES = 12 * INT4_STAGE_ROWS * (INT4_COLS + 32)  # the kernel's ring of 12 stages
 INT4_X_BYTES = 72 * 1024  # staged x pairs per block
 INT4_BLOCKS_PER_SM = 1  # K slices until the grid has this many blocks per SM
 INT4_MIN_ROWS = 64  # packed rows a slice keeps at least (unless x's stage forces fewer)

@@ -3,7 +3,7 @@
     python -m mila_tpu_torch.tools.decode_variants dense [--variants committed min64]
         [--shapes B8 B1] [--splits 1 3 9]
     python -m mila_tpu_torch.tools.decode_variants int4 [--shapes wqkv wgu head]
-        [--m 8] [--ksplits 1 2 4]
+        [--m 8] [--ksplits 1 2 4] [--source before=path/to/qgemv_int4.cu]
 
 ``dense``: the contiguous-cache decode attention (``csrc/dense_decode_attn.cu``)
 at Llama-3.2-1B's heads (NH 32, NKV 8, HD 64, bf16): B 8 at lengths 129-192
@@ -22,7 +22,9 @@ difference from the committed library at the planner's splits.
 Llama-3.2-1B's int4 projections and head (random packed weights,
 per-channel scales, M rows of bf16 x): per shape one JSON line with the ms
 at the planner's K-split and at each of ``--ksplits`` that the kernel can
-take, each one's largest difference from the planner's output, and
+take, each one's largest difference from the planner's output, the same at
+the planner's split for each ``--source`` (another qgemv_int4.cu with the
+same C interface, e.g. an earlier commit's from ``git show``), and
 ``torch.matmul`` on a bf16 weight of the same shape.
 
 Times: a CUDA graph of one call per distinct copy of the inputs (caches or
@@ -183,8 +185,35 @@ def dense(args) -> None:
                 print(json.dumps(row), flush=True)
 
 
+def build_int4(sources: dict) -> dict:
+    """The committed int4 library and, per ``name=path`` of ``--source``, a
+    library built from that source (with the package's headers beside it,
+    the same C interface), all nvcc at once."""
+    procs = {}
+    for name, path in sources.items():
+        vdir = _build.BUILD_DIR / f"int4_source_{name}"
+        vdir.mkdir(parents=True, exist_ok=True)
+        for f in _build.CSRC.glob("*.cuh"):
+            (vdir / f.name).write_text(f.read_text())
+        (vdir / "qgemv_int4.cu").write_text(open(path).read())
+        procs[name] = subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(vdir / "libint4.so"),
+             str(vdir / "qgemv_int4.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    libs = {"committed": qm._int4_lib()}
+    for name, proc in procs.items():
+        log = proc.communicate()[0].decode()
+        if proc.returncode:
+            raise RuntimeError(f"source {name}: nvcc failed\n{log[-3000:]}")
+        lib = ctypes.CDLL(str(_build.BUILD_DIR / f"int4_source_{name}" / "libint4.so"))
+        lib.qgemv_int4.argtypes = qm._int4_lib().qgemv_int4.argtypes
+        lib.qgemv_int4.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
 def int4(args) -> None:
-    lib = qm._int4_lib()
+    libs = build_int4(dict(s.split("=", 1) for s in args.source))
+    lib = libs["committed"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     dev, M = torch.device("cuda"), args.m
@@ -217,6 +246,19 @@ def int4(args) -> None:
             ref = got if ref is None else ref
             row[f"ms_ks{ks}"] = graph_ms([lambda w=w: call(w) for w in ws])
             row[f"max_diff_ks{ks}"] = (got.float() - ref.float()).abs().max().item()
+        for name, other in libs.items():  # other sources at the planner's split
+            if name == "committed":
+                continue
+
+            def call_other(w, other=other, name=name):
+                check(other.qgemv_int4(_build.ptr(x), _build.ptr(w), _build.ptr(scale),
+                                       _build.ptr(out), M, N, K, K, plan, win, 0,
+                                       _build.stream_of(x)), name)
+
+            call_other(ws[0])
+            torch.cuda.synchronize()
+            row[f"max_diff_{name}"] = (out.float() - ref.float()).abs().max().item()
+            row[f"ms_{name}"] = graph_ms([lambda w=w: call_other(w) for w in ws])
         wb = [torch.randn(K, N, device=dev, generator=gen).to(torch.bfloat16)
               for _ in range(min(16, max(2, int(2e8 // (2 * K * N)) + 1)))]
         row["matmul_bf16_ms"] = graph_ms([lambda w=w: torch.matmul(x, w) for w in wb])
@@ -236,6 +278,7 @@ def main() -> None:
     i.add_argument("--shapes", nargs="+", default=list(INT4_SHAPES), choices=list(INT4_SHAPES))
     i.add_argument("--m", type=int, default=8)
     i.add_argument("--ksplits", nargs="+", type=int, default=[])
+    i.add_argument("--source", nargs="+", default=[], metavar="NAME=PATH")
     args = ap.parse_args()
     if args.kernel == "dense":
         dense(args)
