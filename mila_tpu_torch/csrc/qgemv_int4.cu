@@ -26,20 +26,20 @@
 // bits 16-19; lop3 flips the nibbles' sign bits and ORs in bf16 128
 // (0x4300): 128 + (u ^ 8) in each half; one bf16x2 FMA subtracts 136. The
 // values -8..7 are bf16 integers, so the conversion is exact.
-// A block of 8 warps owns 128 output columns (a column warp 32: two
-// 16-column n-tiles, a lane's 4 columns one 32-bit word of a packed row)
-// and a slice of kc packed rows. The slice streams through a ring of NST
-// stages of 32 rows x 128 bytes by 16-byte cp.async, NST - 1 stages (44 KB)
-// in flight; the slice of x is staged meanwhile. A stage is four mma k-steps
-// per n-tile, two for each of the two warps that share its columns (their
-// sums meet in shared memory at the end): at one block per SM, 4 warps
-// left the stages' dependent chains exposed. With ksplit > 1 slices (at
-// most 8), the slices of a
-// column tile run as one thread-block cluster: each block leaves its scaled
-// f32 partial in its shared memory, and after a cluster barrier each block
-// adds one share of the tile's outputs over the slices, in slice order,
-// reading the other blocks' shared memory (no float atomics, so two calls
-// are bit-equal; no partials through device memory): one launch in all. A
+// A block of 8 warps owns 256 output columns (a warp 32: two 16-column
+// n-tiles, a lane's 4 columns one 32-bit word of a packed row) and a slice
+// of kc packed rows. The slice streams through a ring of NST stages of 32
+// rows x 256 bytes by 16-byte cp.async, NST - 1 stages (56 KB) in flight;
+// the slice of x is staged meanwhile. Each stage is one step of four mma
+// k-steps per n-tile. Bound by the stream itself (without the conversions
+// and products, 82-94 % of the time remains): 256-byte runs of a packed
+// row measured 10 % faster than 128-byte ones at the vocab head. With
+// ksplit > 1 slices (at most 8), the slices of a column tile run as one
+// thread-block cluster: each block stores its scaled f32 partial of each
+// share of the tile's outputs into the shared memory of the block that
+// owns the share, and after one cluster barrier each owner adds its share
+// over the slices, in slice order (no float atomics, so two calls are
+// bit-equal; no partials through device memory): one launch in all. A
 // reduction through device memory (partials to scratch, an arrival counter,
 // the last block adding) measured 1.4-2 us slower at the small projections
 // (PERF.md §6).
@@ -48,11 +48,10 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int BN = 128;         // output columns per block: 4 column warps of 32
-constexpr int CW = BN / 32;     // warps w and w + CW share columns, each half a stage's k-steps
+constexpr int THREADS = 256, WARPS = THREADS / 32;
+constexpr int BN = 32 * WARPS;  // output columns per block
 constexpr int SR = 32;          // packed rows per stage
-constexpr int NST = 12;         // ring stages
+constexpr int NST = 8;          // ring stages
 constexpr int MAX_SLICES = 8;   // INT4_MAX_SLICES of kernels/quant_matmul.py: one portable cluster
 constexpr int PITCH = BN + 32;  // bytes per staged row: the 4 rows a k-step's lanes read
                                 // start 8 banks apart (160 / 4 = 40 = 8 mod 32)
@@ -73,19 +72,31 @@ __device__ __forceinline__ uint32_t nibble_pair(uint32_t w, uint32_t w4, int j) 
   return v;
 }
 
+__device__ __forceinline__ uint32_t comp(const uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// The cluster's blocks arrive once at the start (barrier phase 1) and wait
+// for each other before the first store into another block's shared
+// memory: every block of the cluster has started by then.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n"
                "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// The float4 at p in the shared memory of the cluster's block `rank`.
-__device__ __forceinline__ float4 ld_cluster(const float* p, int rank) {
+// v to the float4 at p in the shared memory of the cluster's block `rank`.
+__device__ __forceinline__ void st_cluster(float4* p, int rank, float4 v) {
   uint32_t a;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(a) : "memory");
-  return v;
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};"
+               :: "r"(a), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w) : "memory");
 }
 
 __device__ __forceinline__ float4 load_scale(const float* scale, int row, int N, int c) {
@@ -124,11 +135,12 @@ qgemv4_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;                                             // [NST][SR][PITCH]
   uint32_t* xs = reinterpret_cast<uint32_t*>(smem + NST * SR * PITCH);    // [8 MT][kc + 4]
+  float4* recv = reinterpret_cast<float4*>(xs + 8 * MT * (kc + 4));       // [ksplit][GROUPS / ksplit]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-  const int kh = warp / CW;  // the half of each stage's four k-steps this warp takes
   const int Kp = K / 2, n0 = blockIdx.x * BN, ks = blockIdx.y, nks = gridDim.y, k0 = ks * kc;
   const int nsteps = kc / SR, XP = kc + 4;
   const int8_t* qb = q + (size_t)k0 * N + n0;
+  if (nks > 1) cluster_arrive_relaxed();
 
   auto issue = [&](int step) {
     unsigned char* dst = ring + (step % NST) * SR * PITCH;
@@ -146,7 +158,7 @@ qgemv4_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
   }
 
   // The first window's scale rows, in flight with the ring.
-  const int col = 32 * (warp % CW) + 4 * g;  // the lane's 4 columns in the block's 128
+  const int col = 32 * warp + 4 * g;  // the lane's 4 columns in the block's 128
   float4 sl = load_scale(scale, k0 / bs, N, n0 + col), sh = sl;
   if (SPLIT) sh = load_scale(scale, (Kp + k0) / bs, N, n0 + col);
 
@@ -186,16 +198,15 @@ qgemv4_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
     cp_async_commit();
 
     const unsigned char* st = ring + (s % NST) * SR * PITCH + col;
-    uint2 bx0[MT], bx1[MT];
+    uint4 bx0[MT], bx1[MT];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      const uint32_t* xr = xs + (8 * mt + g) * XP + s * SR + 8 * t + 2 * kh;
-      bx0[mt] = *reinterpret_cast<const uint2*>(xr);
-      bx1[mt] = *reinterpret_cast<const uint2*>(xr + 4);
+      const uint32_t* xr = xs + (8 * mt + g) * XP + s * SR + 8 * t;
+      bx0[mt] = *reinterpret_cast<const uint4*>(xr);
+      bx1[mt] = *reinterpret_cast<const uint4*>(xr + 4);
     }
 #pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int j = 2 * kh + jj;
+    for (int j = 0; j < 4; ++j) {
       const uint32_t w0 = *reinterpret_cast<const uint32_t*>(st + (8 * j + t) * PITCH);
       const uint32_t w1 = *reinterpret_cast<const uint32_t*>(st + (8 * j + 4 + t) * PITCH);
       const uint32_t s0 = w0 >> 4, s1 = w1 >> 4;
@@ -206,7 +217,7 @@ qgemv4_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
                                nibble_pair(w1, s1, 2 * nt), nibble_pair(w1, s1, 2 * nt + 1)};
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          const uint32_t b[2] = {jj ? bx0[mt].y : bx0[mt].x, jj ? bx1[mt].y : bx1[mt].x};
+          const uint32_t b[2] = {comp(bx0[mt], j), comp(bx1[mt], j)};
           if (SPLIT) {
             const uint32_t blo[2] = {b[0] & 0xFFFFu, b[1] & 0xFFFFu};
             const uint32_t bhi[2] = {b[0] & 0xFFFF0000u, b[1] & 0xFFFF0000u};
@@ -245,77 +256,62 @@ qgemv4_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
     }
   }
 
-  // The two k-halves of each column warp add up in shared memory (the
-  // ring, drained), the first half's sums first: part [8 MT][BN] holds the
-  // block's scaled sums.
-  cp_async_wait<0>();
-  __syncthreads();
-  float* part = reinterpret_cast<float*>(ring);
-  float4* mine[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      mine[mt][e] = reinterpret_cast<float4*>(part + (8 * mt + 2 * t + e) * BN + col);
-  if (kh == 1) {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        *mine[mt][e] = make_float4(tot[0][mt][e], tot[0][mt][2 + e], tot[1][mt][e],
-                                   tot[1][mt][2 + e]);
-  }
-  __syncthreads();
-  if (kh == 0) {
+  // The lane's outputs: rows m = 8 mt + 2 t + e, its 4 columns.
+  const size_t nc = (size_t)n0 + col;
+  if (nks == 1) {
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float4 o = *mine[mt][e];
-        const float4 v = make_float4(tot[0][mt][e] + o.x, tot[0][mt][2 + e] + o.y,
-                                     tot[1][mt][e] + o.z, tot[1][mt][2 + e] + o.w);
         const int m = 8 * mt + 2 * t + e;
-        if (nks > 1)
-          *mine[mt][e] = v;
-        else if (m < M)
-          store4(out + (size_t)m * N + n0 + col, v);
+        if (m < M)
+          store4(out + (size_t)m * N + nc, make_float4(tot[0][mt][e], tot[0][mt][2 + e],
+                                                       tot[1][mt][e], tot[1][mt][2 + e]));
       }
+    return;
   }
-  if (nks == 1) return;
-  // K slices: the blocks of a column tile form one cluster. After a cluster
-  // barrier, block r adds the slices' sums of its share of the tile's
-  // outputs in slice order, read from every block's shared memory, and
-  // stores them; a second barrier keeps each block's shared memory alive
-  // until the others have read it.
-  cluster_sync();
+  // K slices: the blocks of a column tile form one cluster, and block r
+  // owns the r-th share of the tile's outputs (float4 groups). Each block
+  // stores its partial of every group into the owner's receive buffer, at
+  // its own slice's row; after one cluster barrier each owner adds its
+  // groups over the slices, in slice order, from its own shared memory.
   constexpr int GROUPS = 8 * MT * BN / 4;  // float4 outputs of the tile
-  for (int i = ks * THREADS + tid; i < GROUPS; i += nks * THREADS) {
-    const int m = 4 * i / BN, c = 4 * i % BN;
-    if (m >= M) continue;
-    float4 p[MAX_SLICES];  // every slice's partial in flight at once, then added in order
+  const int per = GROUPS / nks;
+  cluster_wait();
 #pragma unroll
-    for (int r = 0; r < MAX_SLICES; ++r)
-      if (r < nks) p[r] = ld_cluster(part + m * BN + c, r);
-    float4 v = p[0];
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = 8 * mt + 2 * t + e, i = (m * BN + col) / 4;
+      if (m < M)
+        st_cluster(recv + ks * per + i % per, i / per,
+                   make_float4(tot[0][mt][e], tot[0][mt][2 + e], tot[1][mt][e],
+                               tot[1][mt][2 + e]));
+    }
+  cluster_sync();
+  for (int j = tid; j < per; j += THREADS) {
+    const int i = ks * per + j, m = 4 * i / BN, c = 4 * i % BN;
+    if (m >= M) continue;
+    float4 v = recv[j];
 #pragma unroll
     for (int r = 1; r < MAX_SLICES; ++r) {
       if (r < nks) {
-        v.x += p[r].x;
-        v.y += p[r].y;
-        v.z += p[r].z;
-        v.w += p[r].w;
+        const float4 p = recv[r * per + j];
+        v.x += p.x;
+        v.y += p.y;
+        v.z += p.z;
+        v.w += p.w;
       }
     }
     store4(out + (size_t)m * N + n0 + c, v);
   }
-  cluster_sync();
 }
 
 template <int MT, bool SPLIT, typename T>
 int launch(const void* x, const void* q, const void* scale, void* out, int M, int N, int K,
            int bs, int ksplit, int win, cudaStream_t stream) {
   const int kc = K / 2 / ksplit;
-  const int smem = NST * SR * PITCH + 8 * MT * (kc + 4) * 4;
+  const int smem = NST * SR * PITCH + 8 * MT * (kc + 4) * 4 + (ksplit > 1 ? 8 * MT * BN * 4 : 0);
   auto kern = qgemv4_kernel<MT, SPLIT, T>;
   static int allowed = 48 * 1024;
   if (smem > allowed) {
@@ -361,7 +357,8 @@ int dispatch(const void* x, const void* q, const void* scale, void* out, int M, 
 // rows per scale window (win % 32 == 0, win divides K / 2 and, where
 // block_size < K, block_size). Needs 1 <= M <= 32, N % 128 == 0, 16-byte
 // aligned x, q and scale, and x's slice of 8 ceil(M / 8) (kc + 4) 4-byte
-// pairs in shared memory beside the 60 KB ring; x and out are f32 when
+// pairs (and, with K slices, a receive buffer of 32 ceil(M / 8) KB) in
+// shared memory beside the 72 KB ring; x and out are f32 when
 // is_f32, else bf16 (checked by the Python wrapper).
 extern "C" int qgemv_int4(const void* x, const void* q, const void* scale, void* out, int M,
                           int N, int K, int block_size, int ksplit, int win, int is_f32,

@@ -114,25 +114,6 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
-_counters: dict = {}
-
-
-def counters(name: str, device, n: int):
-    """A zeroed int32 tensor of at least ``n`` arrival counters on ``device``
-    for the kernel ``name``, kept across calls: a kernel that counts its
-    blocks in it leaves every counter at 0 when it ends, so the tensor is
-    zeroed once (and again only when it grows), never per call, and a CUDA
-    graph that captured a launch replays against the same counters."""
-    import torch
-
-    key = (name, str(device))
-    t = _counters.get(key)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _counters[key] = t
-    return t
-
-
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

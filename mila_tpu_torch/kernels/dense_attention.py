@@ -26,8 +26,8 @@ query heads of a KV head share its block, so each K/V element is read once,
 and a split's K and V rows are requested through ``cp.async`` before any
 math. With more than one split in a row, the splits write f32 partials
 (o, m, l) into scratch this wrapper allocates, and the last split of a (row,
-KV head) to finish merges them with the log-sum-exp rescale, in split order,
-inside the same launch (arrival counters from ``_build.counters``).
+KV head) to finish merges them with the log-sum-exp rescale, in a fixed order,
+inside the same launch (arrival counters kept by ``_counters``).
 
 The TPU kernel contracts lane-packed queries (``pack_queries``) against
 whole ``[T, NKV*HD]`` slabs to keep the MXU busy; the CUDA kernels index
@@ -174,6 +174,21 @@ def _check_cache(k_cache, v_cache, dtype) -> None:
         raise ValueError("dense_decode_attn: caches must be 16-byte aligned (16-byte loads)")
 
 
+_COUNTERS: dict = {}
+
+
+def _counters(device, n: int) -> torch.Tensor:
+    """A zeroed int32 tensor of at least ``n`` arrival counters on ``device``,
+    kept across calls: the kernel leaves every counter at 0 when it ends, so
+    the tensor is zeroed once (and again only when it grows), never per
+    call, and a captured CUDA graph replays against the same counters."""
+    t = _COUNTERS.get(str(device))
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[str(device)] = t
+    return t
+
+
 def _scratch(B: int, NH: int, NKV: int, HD: int, T: int, device):
     """(S, the kernels' scratch): f32 partials o [B, NH, S, HD], m and l
     [B, NH, S] each, and the arrival counters, or Nones when S == 1."""
@@ -182,8 +197,7 @@ def _scratch(B: int, NH: int, NKV: int, HD: int, T: int, device):
         return S, [None] * 4
     o_part = torch.empty((B, NH, S, HD), dtype=torch.float32, device=device)
     ml_part = torch.empty((2, B, NH, S), dtype=torch.float32, device=device)
-    return S, [o_part, ml_part[0], ml_part[1], _build.counters("dense_decode_attn", device,
-                                                               B * NKV)]
+    return S, [o_part, ml_part[0], ml_part[1], _counters(device, B * NKV)]
 
 
 def _ptrs(tensors) -> list:

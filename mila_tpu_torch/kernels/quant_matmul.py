@@ -254,11 +254,11 @@ def _launch(x2: torch.Tensor, qt: QTensor, bias: Optional[torch.Tensor],
     return out
 
 
-INT4_COLS = 128  # output columns per block of qgemv_int4
+INT4_COLS = 256  # output columns per block of qgemv_int4
 INT4_STAGE_ROWS = 32  # packed rows per stage (and per slice's multiple)
-INT4_RING_BYTES = 12 * INT4_STAGE_ROWS * (INT4_COLS + 32)  # the kernel's ring of 12 stages
+INT4_RING_BYTES = 8 * INT4_STAGE_ROWS * (INT4_COLS + 32)  # the kernel's ring of 8 stages
+INT4_RECV_BYTES = 8 * 4 * INT4_COLS * 4  # the K slices' receive buffer at M 32
 INT4_X_BYTES = 72 * 1024  # staged x pairs per block
-INT4_BLOCKS_PER_SM = 1  # K slices until the grid has this many blocks per SM
 INT4_MIN_ROWS = 64  # packed rows a slice keeps at least (unless x's stage forces fewer)
 INT4_MAX_SLICES = 8  # the slices of a column tile form one cluster: 8 blocks at most
 
@@ -277,11 +277,13 @@ def _int4_x_bytes(M: int, kc: int) -> int:
 def _plan_int4(M: int, K: int, N: int, block_size: int, sms: int) -> tuple[int, int]:
     """(ksplit, win) for ``qgemv_int4``: ksplit slices of kc = K/2 / ksplit
     packed rows (one cluster of at most ``INT4_MAX_SLICES`` blocks per
-    column tile), doubled until the grid of N / 128 column tiles x ksplit
-    reaches ``INT4_BLOCKS_PER_SM`` blocks per SM (while a slice keeps
-    ``INT4_MIN_ROWS`` rows) and x's staged slice fits ``INT4_X_BYTES``;
-    win is the JAX gate's window of packed rows (inside one scale block
-    for both halves), over which the kernel sums before it scales."""
+    column tile), doubled while the grid of N / 256 column tiles x ksplit
+    stays within one block per SM (a slice keeping ``INT4_MIN_ROWS`` rows),
+    and until x's staged slice fits ``INT4_X_BYTES``. (Clusters past one
+    block per SM measured slower: wgu at M 8 took 19.6 us at ksplit 4
+    against 14.1 at 2.) win is the JAX gate's window of packed rows (inside
+    one scale block for both halves), over which the kernel sums before it
+    scales."""
     Kp = K // 2
     ok, win = _int4_blocks(M, K, N, block_size)
     tiles = N // INT4_COLS
@@ -289,7 +291,7 @@ def _plan_int4(M: int, K: int, N: int, block_size: int, sms: int) -> tuple[int, 
     while (ks < INT4_MAX_SLICES and Kp % (2 * ks) == 0
            and (Kp // (2 * ks)) % INT4_STAGE_ROWS == 0 and (
                _int4_x_bytes(M, Kp // ks) > INT4_X_BYTES
-               or (tiles * ks < INT4_BLOCKS_PER_SM * sms and Kp // (2 * ks) >= INT4_MIN_ROWS))):
+               or (tiles * 2 * ks <= sms and Kp // (2 * ks) >= INT4_MIN_ROWS))):
         ks *= 2
     kc = Kp // ks
     if (not ok or not 1 <= M <= 32 or N % INT4_COLS or kc % INT4_STAGE_ROWS

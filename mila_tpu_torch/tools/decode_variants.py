@@ -3,7 +3,8 @@
     python -m mila_tpu_torch.tools.decode_variants dense [--variants committed min64]
         [--shapes B8 B1] [--splits 1 3 9]
     python -m mila_tpu_torch.tools.decode_variants int4 [--shapes wqkv wgu head]
-        [--m 8] [--ksplits 1 2 4] [--source before=path/to/qgemv_int4.cu]
+        [--m 8] [--ksplits 1 2 4] [--variants no_convert no_mma loads_only]
+        [--source before=path/to/qgemv_int4.cu]
 
 ``dense``: the contiguous-cache decode attention (``csrc/dense_decode_attn.cu``)
 at Llama-3.2-1B's heads (NH 32, NKV 8, HD 64, bf16): B 8 at lengths 129-192
@@ -23,8 +24,11 @@ Llama-3.2-1B's int4 projections and head (random packed weights,
 per-channel scales, M rows of bf16 x): per shape one JSON line with the ms
 at the planner's K-split and at each of ``--ksplits`` that the kernel can
 take, each one's largest difference from the planner's output, the same at
-the planner's split for each ``--source`` (another qgemv_int4.cu with the
-same C interface, e.g. an earlier commit's from ``git show``), and
+the planner's split for each variant (``no_convert``: the nibbles go to the
+mma unconverted; ``no_mma``: the products dropped; ``loads_only``: both;
+wrong by design, timed only; ``bn128``: 4 warps and 128 columns a block;
+``nst12``: a 12-stage ring) and each ``--source`` (another qgemv_int4.cu
+with the same C interface, e.g. an earlier commit's from ``git show``), and
 ``torch.matmul`` on a bf16 weight of the same shape.
 
 Times: a CUDA graph of one call per distinct copy of the inputs (caches or
@@ -185,25 +189,38 @@ def dense(args) -> None:
                 print(json.dumps(row), flush=True)
 
 
-def build_int4(sources: dict) -> dict:
-    """The committed int4 library and, per ``name=path`` of ``--source``, a
-    library built from that source (with the package's headers beside it,
-    the same C interface), all nvcc at once."""
+INT4_SRC = "qgemv_int4.cu"
+INT4_VARIANTS = {  # name -> [(old text, new text)] in the committed source
+    "no_convert": [("const uint32_t a[4] = {nibble_pair(w0, s0, 2 * nt), nibble_pair(w0, s0, 2 * nt + 1),\n"
+                    "                               nibble_pair(w1, s1, 2 * nt), nibble_pair(w1, s1, 2 * nt + 1)};",
+                    "const uint32_t a[4] = {w0, s0 + nt, w1, s1 + nt};")],
+    "no_mma": [("            mma_bf16(acc[nt][mt], a, b);",
+                "            acc[nt][mt][0] += __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3] ^ b[0] ^ b[1]);")],
+}
+INT4_VARIANTS["loads_only"] = INT4_VARIANTS["no_convert"] + INT4_VARIANTS["no_mma"]
+INT4_VARIANTS["bn128"] = [("constexpr int THREADS = 256, WARPS", "constexpr int THREADS = 128, WARPS")]
+INT4_VARIANTS["nst12"] = [("constexpr int NST = 8;", "constexpr int NST = 12;")]
+
+
+def build_int4(texts: dict) -> dict:
+    """The committed int4 library and one built from each named source text
+    (with the package's headers beside it, the same C interface), all nvcc
+    at once."""
     procs = {}
-    for name, path in sources.items():
+    for name, text in texts.items():
         vdir = _build.BUILD_DIR / f"int4_source_{name}"
         vdir.mkdir(parents=True, exist_ok=True)
         for f in _build.CSRC.glob("*.cuh"):
             (vdir / f.name).write_text(f.read_text())
-        (vdir / "qgemv_int4.cu").write_text(open(path).read())
+        (vdir / INT4_SRC).write_text(text)
         procs[name] = subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(vdir / "libint4.so"),
-             str(vdir / "qgemv_int4.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             str(vdir / INT4_SRC)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     libs = {"committed": qm._int4_lib()}
     for name, proc in procs.items():
         log = proc.communicate()[0].decode()
         if proc.returncode:
-            raise RuntimeError(f"source {name}: nvcc failed\n{log[-3000:]}")
+            raise RuntimeError(f"{name}: nvcc failed\n{log[-3000:]}")
         lib = ctypes.CDLL(str(_build.BUILD_DIR / f"int4_source_{name}" / "libint4.so"))
         lib.qgemv_int4.argtypes = qm._int4_lib().qgemv_int4.argtypes
         lib.qgemv_int4.restype = ctypes.c_int
@@ -212,7 +229,18 @@ def build_int4(sources: dict) -> dict:
 
 
 def int4(args) -> None:
-    libs = build_int4(dict(s.split("=", 1) for s in args.source))
+    committed = (_build.CSRC / INT4_SRC).read_text()
+    texts = {}
+    for v in args.variants:
+        texts[v] = committed
+        for old, new in INT4_VARIANTS[v]:
+            if old not in texts[v]:
+                raise RuntimeError(f"variant {v}: {INT4_SRC} no longer has {old!r}")
+            texts[v] = texts[v].replace(old, new)
+    for spec in args.source:
+        name, path = spec.split("=", 1)
+        texts[name] = open(path).read()
+    libs = build_int4(texts)
     lib = libs["committed"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -246,7 +274,7 @@ def int4(args) -> None:
             ref = got if ref is None else ref
             row[f"ms_ks{ks}"] = graph_ms([lambda w=w: call(w) for w in ws])
             row[f"max_diff_ks{ks}"] = (got.float() - ref.float()).abs().max().item()
-        for name, other in libs.items():  # other sources at the planner's split
+        for name, other in libs.items():  # variants and other sources at the planner's split
             if name == "committed":
                 continue
 
@@ -278,6 +306,7 @@ def main() -> None:
     i.add_argument("--shapes", nargs="+", default=list(INT4_SHAPES), choices=list(INT4_SHAPES))
     i.add_argument("--m", type=int, default=8)
     i.add_argument("--ksplits", nargs="+", type=int, default=[])
+    i.add_argument("--variants", nargs="+", default=[], choices=list(INT4_VARIANTS))
     i.add_argument("--source", nargs="+", default=[], metavar="NAME=PATH")
     args = ap.parse_args()
     if args.kernel == "dense":

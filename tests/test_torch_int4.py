@@ -240,14 +240,16 @@ def test_plan_int4_contract(name, M, bs):
     assert N % tqm.INT4_COLS == 0
     # x's staged slice fits beside the ring.
     assert tqm._int4_x_bytes(M, kc) <= tqm.INT4_X_BYTES
-    assert tqm.INT4_RING_BYTES + tqm.INT4_X_BYTES <= 227 * 1024
-    # Enough blocks to fill the card, or slices at their floor; and no more
-    # slices than that asks (halving ks again would not be needed).
-    assert (tiles * ks >= tqm.INT4_BLOCKS_PER_SM * sms or kc < 2 * tqm.INT4_MIN_ROWS
-            or ks == tqm.INT4_MAX_SLICES)
-    if ks > 1:
-        assert (tiles * ks // 2 < tqm.INT4_BLOCKS_PER_SM * sms
-                or tqm._int4_x_bytes(M, 2 * kc) > tqm.INT4_X_BYTES)
+    assert tqm.INT4_RING_BYTES + tqm.INT4_X_BYTES + tqm.INT4_RECV_BYTES <= 227 * 1024
+    # The grid stays within one block per SM unless x's stage forces more
+    # slices; and it takes every slice that keeps it there (halving again
+    # would not be needed, doubling would overfill the card or the cluster).
+    fits = tqm._int4_x_bytes(M, 2 * kc) <= tqm.INT4_X_BYTES
+    assert tiles * ks <= sms or ks == 1 or not fits
+    assert (tiles * 2 * ks > sms or ks == tqm.INT4_MAX_SLICES or kc // 2 < tqm.INT4_MIN_ROWS
+            or (kc // 2) % tqm.INT4_STAGE_ROWS)
+    if name == "wgu" and M == 8:
+        assert ks == 2  # 64 tiles: 128 blocks on 132 SMs
 
 
 def test_plan_int4_refuses_what_the_kernel_cannot_tile():
