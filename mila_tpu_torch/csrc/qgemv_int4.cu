@@ -135,7 +135,7 @@ qgemv4_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;                                             // [NST][SR][PITCH]
   uint32_t* xs = reinterpret_cast<uint32_t*>(smem + NST * SR * PITCH);    // [8 MT][kc + 4]
-  float4* recv = reinterpret_cast<float4*>(xs + 8 * MT * (kc + 4));       // [ksplit][GROUPS / ksplit]
+  float4* recv = reinterpret_cast<float4*>(xs + 8 * MT * (kc + 4));       // K slices' partials
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const int Kp = K / 2, n0 = blockIdx.x * BN, ks = blockIdx.y, nks = gridDim.y, k0 = ks * kc;
   const int nsteps = kc / SR, XP = kc + 4;
@@ -158,7 +158,7 @@ qgemv4_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
   }
 
   // The first window's scale rows, in flight with the ring.
-  const int col = 32 * warp + 4 * g;  // the lane's 4 columns in the block's 128
+  const int col = 32 * warp + 4 * g;  // the lane's 4 columns in the block's 256
   float4 sl = load_scale(scale, k0 / bs, N, n0 + col), sh = sl;
   if (SPLIT) sh = load_scale(scale, (Kp + k0) / bs, N, n0 + col);
 

@@ -56,8 +56,10 @@ VARIANTS = {  # name -> [(file, old text, new text)]
     "committed": [],
     "min64": [(SRC, "constexpr int MIN_TOKENS = 32;", "constexpr int MIN_TOKENS = 64;")],
     "min128": [(SRC, "constexpr int MIN_TOKENS = 32;", "constexpr int MIN_TOKENS = 128;")],
-    "no_scores": [(SRC, "    if (valid) {\n      float kv[DH];", "    if (false) {\n      float kv[DH];")],
-    "no_values": [(SRC, "for (int jj = 0; jj < SPAN; jj += 4) {", "for (int jj = 0; jj < 0; jj += 4) {")],
+    "no_scores": [(SRC, "    if (valid) {\n      float kv[DH];",
+                   "    if (false) {\n      float kv[DH];")],
+    "no_values": [(SRC, "for (int jj = 0; jj < SPAN; jj += 4) {",
+                   "for (int jj = 0; jj < 0; jj += 4) {")],
 }
 VARIANTS["no_math"] = VARIANTS["no_scores"] + VARIANTS["no_values"]
 SHAPES = {"B8": (8, 512, (129, 193)), "B1": (1, 4096, (4096, 4097))}  # B, T, lengths [lo, hi)
@@ -191,14 +193,17 @@ def dense(args) -> None:
 
 INT4_SRC = "qgemv_int4.cu"
 INT4_VARIANTS = {  # name -> [(old text, new text)] in the committed source
-    "no_convert": [("const uint32_t a[4] = {nibble_pair(w0, s0, 2 * nt), nibble_pair(w0, s0, 2 * nt + 1),\n"
-                    "                               nibble_pair(w1, s1, 2 * nt), nibble_pair(w1, s1, 2 * nt + 1)};",
+    "no_convert": [("const uint32_t a[4] = {nibble_pair(w0, s0, 2 * nt), "
+                    "nibble_pair(w0, s0, 2 * nt + 1),\n                               "
+                    "nibble_pair(w1, s1, 2 * nt), nibble_pair(w1, s1, 2 * nt + 1)};",
                     "const uint32_t a[4] = {w0, s0 + nt, w1, s1 + nt};")],
     "no_mma": [("            mma_bf16(acc[nt][mt], a, b);",
-                "            acc[nt][mt][0] += __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3] ^ b[0] ^ b[1]);")],
+                "            acc[nt][mt][0] += "
+                "__uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3] ^ b[0] ^ b[1]);")],
 }
 INT4_VARIANTS["loads_only"] = INT4_VARIANTS["no_convert"] + INT4_VARIANTS["no_mma"]
-INT4_VARIANTS["bn128"] = [("constexpr int THREADS = 256, WARPS", "constexpr int THREADS = 128, WARPS")]
+INT4_VARIANTS["bn128"] = [("constexpr int THREADS = 256, WARPS",
+                           "constexpr int THREADS = 128, WARPS")]
 INT4_VARIANTS["nst12"] = [("constexpr int NST = 8;", "constexpr int NST = 12;")]
 
 
