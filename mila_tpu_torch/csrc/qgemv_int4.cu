@@ -34,7 +34,7 @@
 // k-steps per n-tile. Bound by the stream itself (without the conversions
 // and products, 82-94 % of the time remains): 256-byte runs of a packed
 // row measured 10 % faster than 128-byte ones at the vocab head. With
-// ksplit > 1 slices (at most 16), the slices of a column tile run as one
+// ksplit > 1 slices (at most 8), the slices of a column tile run as one
 // thread-block cluster: each block stores its scaled f32 partial of each
 // share of the tile's outputs into the shared memory of the block that
 // owns the share, and after one cluster barrier each owner adds its share
@@ -52,7 +52,7 @@ constexpr int THREADS = 256, WARPS = THREADS / 32;
 constexpr int BN = 32 * WARPS;  // output columns per block
 constexpr int SR = 32;          // packed rows per stage
 constexpr int NST = 8;          // ring stages
-constexpr int MAX_SLICES = 16;  // INT4_MAX_SLICES of kernels/quant_matmul.py: one cluster
+constexpr int MAX_SLICES = 8;   // INT4_MAX_SLICES of kernels/quant_matmul.py: one portable cluster
 constexpr int PITCH = BN + 32;  // bytes per staged row: the 4 rows a k-step's lanes read
                                 // start 8 banks apart (160 / 4 = 40 = 8 mod 32)
 
@@ -319,12 +319,6 @@ int launch(const void* x, const void* q, const void* scale, void* out, int M, in
     if (e != cudaSuccess) return static_cast<int>(e);
     allowed = smem;
   }
-  static bool wide = false;  // clusters of more than 8 blocks need the opt-in
-  if (ksplit > 8 && !wide) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    wide = true;
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(N / BN, ksplit);
   cfg.blockDim = dim3(THREADS);
@@ -358,7 +352,7 @@ int dispatch(const void* x, const void* q, const void* scale, void* out, int M, 
 }  // namespace
 
 // x [M, K]; q [K / 2, N] int8 (packed int4, split halves); scale
-// [K / block_size, N] f32; out [M, N]. ksplit (1, 2, 4, 8 or 16: one cluster)
+// [K / block_size, N] f32; out [M, N]. ksplit (1, 2, 4 or 8: one cluster)
 // slices of kc = K / 2 / ksplit packed rows (kc % 32 == 0). win: packed
 // rows per scale window (win % 32 == 0, win divides K / 2 and, where
 // block_size < K, block_size). Needs 1 <= M <= 32, N % 128 == 0, 16-byte

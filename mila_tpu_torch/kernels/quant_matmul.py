@@ -260,7 +260,7 @@ INT4_RING_BYTES = 8 * INT4_STAGE_ROWS * (INT4_COLS + 32)  # the kernel's ring of
 INT4_RECV_BYTES = 8 * 4 * INT4_COLS * 4  # the K slices' receive buffer at M 32
 INT4_X_BYTES = 72 * 1024  # staged x pairs per block
 INT4_MIN_ROWS = 64  # packed rows a slice keeps at least (unless x's stage forces fewer)
-INT4_MAX_SLICES = 16  # the slices of a column tile form one cluster: 16 blocks at most
+INT4_MAX_SLICES = 8  # the slices of a column tile form one cluster: 8 blocks at most
 
 
 @functools.lru_cache(maxsize=None)
