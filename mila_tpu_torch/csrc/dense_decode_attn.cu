@@ -43,7 +43,7 @@
 // a captured graph). The merge in the last split was kept over a second
 // merge launch (K3's design): on the card it was as fast for the dense
 // entry and 1.4 us faster for the fused one at B 8 (which re-ropes q in a
-// merge launch), 0.8 us faster at B 1 (PERF.md §6). The current token
+// merge launch), 0.4-0.8 us faster at B 1 (PERF.md §6). The current token
 // of a fused call enters the softmax once, in that final step, after the
 // splits' partials. A dense row of length 0 gives zeros (as the TPU kernel;
 // the plain reference gives the mean of V there).

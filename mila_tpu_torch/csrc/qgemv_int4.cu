@@ -41,8 +41,8 @@
 // over the slices, in slice order (no float atomics, so two calls are
 // bit-equal; no partials through device memory): one launch in all. A
 // reduction through device memory (partials to scratch, an arrival counter,
-// the last block adding) measured 1.4-2 us slower at the small projections
-// (PERF.md §6).
+// the last block adding) measured 0.9-2.0 us slower at the small
+// projections at the same split (PERF.md §6).
 #include "common.cuh"
 #include "mma.cuh"
 
