@@ -416,8 +416,25 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
         nbytes = (K * ldq + ws[0].scale.numel() * 4 + M * K * 2 + M * n_out * 2
                   + (K * 4 if mode != "residual" else M * n_out * 2))
         record(entry, f"{name} M={M}", *max_err(fn(*args), plain(*args)), calls,
-               lambda: plain(*args), library, nbytes, 2 * M * K * ldq)
+               lambda: plain(*args), library, nbytes, 2 * M * K * ldq,
+               **df.launch_plan(M, K, ldq, ws[0].block_size, mode, _sm_count()))
         del w_bf
+
+    # wqkv at M 32 (m_tile 32: four row tiles of x), from its own stream.
+    wide = np.random.default_rng(11)
+    ws = [blk["wqkv"]["weight"] for blk in layers]
+    K, N = ws[0].q.shape
+    x32 = rand(32, K, gen=wide)
+    w_bf = [dequantize(w, bf16) for w in ws[:copies(K * N * 2)]]
+    record("rms_quant_linear", "wqkv M=32",
+           *max_err(df.rms_quant_linear(x32, gam[0], ws[0]),
+                    df.rms_quant_linear_plain(x32, gam[0], ws[0])),
+           [lambda w=w, gi=gi: df.rms_quant_linear(x32, gi, w) for w, gi in zip(ws, gam)],
+           lambda: df.rms_quant_linear_plain(x32, gam[0], ws[0]),
+           [lambda w=w: torch.matmul(x32, w) for w in w_bf],
+           K * N + ws[0].scale.numel() * 4 + 32 * K * 2 + 32 * N * 2 + K * 4, 2 * 32 * K * N,
+           **df.launch_plan(32, K, N, ws[0].block_size, "store", _sm_count()))
+    del w_bf, x32
 
     # The greedy head: norm_f -> lm_head -> argmax at M = 8. The check: the
     # kernel's token carries a plain logit within tolerance of the row's
@@ -433,7 +450,8 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
            [lambda: df.rms_quant_linear_argmax(x, gam[0], head, vocab_size=V)],
            lambda: df.rms_quant_linear_argmax_plain(x, gam[0], head, vocab_size=V), None,
            K * N + N * 4 + M * K * 2 + K * 4 + M * 4, 2 * M * K * N,
-           token_agreement=float((tok == want_tok).float().mean()))
+           token_agreement=float((tok == want_tok).float().mean()),
+           **df.launch_plan(M, K, N, head.block_size, "argmax", _sm_count()))
     del logits
 
     # paged decode attention: B = 8 rows, ragged lengths up to 384 tokens.
@@ -1609,13 +1627,32 @@ def phase_train_kernels(bw, peak_ops, rng):
     def library():
         return torch.autograd.grad(F.cross_entropy(xr, t, reduction="none"), xr, gl)
 
+    # The library's backward alone, as row 16's: autograd.grad on one saved
+    # F.cross_entropy forward, by the card's own time (the profiler's kernel
+    # times) and as 20 back-to-back calls between CUDA events; ours the same
+    # ways beside its graph replay (ms).
+    s_loss = F.cross_entropy(xr, t, reduction="none")
+
+    def library_bwd():
+        return torch.autograd.grad(s_loss, xr, gl, retain_graph=True)
+
+    def ours_bwd():
+        return ce.fused_softmax_cross_entropy_bwd(x, t32, gl)
+
+    library_bwd_device_ms = device_ms(library_bwd)
+    library_bwd_ms = time_back_to_back(library_bwd)
+    del s_loss
     record("fused_softmax_cross_entropy_bwd", f"M={M} V={V} bf16", *max_err(d, want),
-           [lambda: ce.fused_softmax_cross_entropy_bwd(x, t32, gl)],
-           lambda: ce.fused_softmax_cross_entropy_bwd_plain(x, t32, gl), None,
+           [ours_bwd], lambda: ce.fused_softmax_cross_entropy_bwd_plain(x, t32, gl), None,
            4 * M * V + 8 * M, 6 * M * V,
-           gate="each dlogit within 2^-7 of |ref| + 1e-8 max |ref|", library_eager=library,
-           library_what="F.cross_entropy forward + backward", peak=F32_OPS,
-           max_elem_rel_err=d_rel)
+           gate="each dlogit within 2^-7 of |ref| + 1e-8 max |ref|",
+           library_timed=library_bwd_device_ms,
+           library_what="F.cross_entropy backward alone (autograd.grad on one saved "
+                        "forward), device time from the profiler", peak=F32_OPS,
+           max_elem_rel_err=d_rel, library_bwd_device_ms=library_bwd_device_ms,
+           library_bwd_ms=library_bwd_ms, bwd_device_ms=device_ms(ours_bwd),
+           bwd_back_to_back_ms=time_back_to_back(ours_bwd),
+           library_fwd_bwd_ms=time_eager(library))
     del x, d, want, xr
     torch.cuda.synchronize()
     torch.cuda.empty_cache()

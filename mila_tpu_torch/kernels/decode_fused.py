@@ -168,6 +168,14 @@ def _plan_ksplit(M: int, K: int, n_cols: int, block_size: int,
     return mt, ks
 
 
+def launch_plan(M: int, K: int, ldq: int, block_size: int, mode: str, sms: int) -> dict:
+    """The launch ``qgemv_int8`` takes for these shapes: its K slices, the
+    m tile and the output columns a block owns (reported beside timings)."""
+    n_out = ldq // 2 if mode == "swiglu" else ldq
+    mt, ks = _plan_ksplit(M, K, n_out, block_size, sms)
+    return {"ksplit": ks, "m_tile": mt, "cols_per_block": _COLS}
+
+
 def _qgemv_lib() -> ctypes.CDLL:
     lib = _build.library("qgemv_int8")
     if not getattr(lib, "_typed", False):
