@@ -516,11 +516,24 @@ int run(const void* src, const void* cos_t, const void* sin_t, void* k, void* v,
 
 }  // namespace
 
+// The id of the CUDA-graph capture under way on `stream`, or 0 when the
+// stream is not capturing: the wrapper keeps one set of arrival counters
+// per (capture, stream), zeroed inside that capture.
+extern "C" unsigned long long dense_capture_id(void* stream) {
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  unsigned long long id = 0;
+  if (cudaStreamGetCaptureInfo(static_cast<cudaStream_t>(stream), &status, &id) != cudaSuccess ||
+      status != cudaStreamCaptureStatusActive)
+    return 0;
+  return id;
+}
+
 // q [B, NH, HD]; k, v [B, T, NKV, HD]; lens [B] int32; out [B, NH, HD].
 // All of q's dtype: f32 when is_f32, else bf16. S splits per row; with
 // S > 1, o_part [B, NH, S, HD], m_part and l_part [B, NH, S] f32 scratch
 // and counters [B * NKV] int32, zero before the launch and left zero after
-// it (unused when S == 1). Needs NH / NKV <= 8, HD in {8, 16, 32, 64, 128}
+// it (unused when S == 1), which no launch that may run at the same time
+// shares. Needs NH / NKV <= 8, HD in {8, 16, 32, 64, 128}
 // (f32: HD >= 8), 16-byte aligned caches and 1 <= S <= MAX_SPLITS (checked
 // by the Python wrapper).
 extern "C" int dense_decode_attn(const void* q, const void* k, const void* v, const void* lens,

@@ -27,7 +27,9 @@ and a split's K and V rows are requested through ``cp.async`` before any
 math. With more than one split in a row, the splits write f32 partials
 (o, m, l) into scratch this wrapper allocates, and the last split of a (row,
 KV head) to finish merges them with the log-sum-exp rescale, in a fixed order,
-inside the same launch (arrival counters kept by ``_counters``).
+inside the same launch. It counts arrivals in counters that the wrapper
+keeps (``_counters``): no two launches that may run at the same time share
+one, and no tensor a captured graph uses is handed to anything else.
 
 The TPU kernel contracts lane-packed queries (``pack_queries``) against
 whole ``[T, NKV*HD]`` slabs to keep the MXU busy; the CUDA kernels index
@@ -152,6 +154,8 @@ def _lib() -> ctypes.CDLL:
         lib.dense_decode_attn.restype = ci
         lib.fused_decode_attn.argtypes = [vp] * 12 + [ci] * 6 + [cf, ci, vp]
         lib.fused_decode_attn.restype = ci
+        lib.dense_capture_id.argtypes = [vp]
+        lib.dense_capture_id.restype = ctypes.c_ulonglong
         lib._typed = True
     return lib
 
@@ -174,18 +178,42 @@ def _check_cache(k_cache, v_cache, dtype) -> None:
         raise ValueError("dense_decode_attn: caches must be 16-byte aligned (16-byte loads)")
 
 
-_COUNTERS: dict = {}
+# Arrival counters, zero between launches (the merging split resets its
+# own). Eager launches on one stream run in order, so they share one tensor
+# per (device, stream); one outgrown is kept (``_RETIRED``), never freed, as
+# a launch queued before may still count in it. A launch captured into a
+# CUDA graph takes counters allocated during that capture, one tensor per
+# (capture, stream), zeroed by a fill captured with them: the graph's own
+# memory pool holds them, every replay zeroes them before its first launch,
+# and no eager launch or other graph counts in them.
+_EAGER_COUNTERS: dict = {}
+_CAPTURE_COUNTERS: dict = {}
+_RETIRED: list = []
 
 
 def _counters(device, n: int) -> torch.Tensor:
-    """A zeroed int32 tensor of at least ``n`` arrival counters on ``device``,
-    kept across calls: the kernel leaves every counter at 0 when it ends, so
-    the tensor is zeroed once (and again only when it grows), never per
-    call, and a captured CUDA graph replays against the same counters."""
-    t = _COUNTERS.get(str(device))
+    """An int32 tensor of at least ``n`` arrival counters, zero when the
+    launch that takes it starts, for the current stream of ``device``."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    capture = 0
+    if torch.cuda.is_current_stream_capturing():
+        capture = _lib().dense_capture_id(ctypes.c_void_p(stream))
+    # A stream captures one graph at a time: its entries of ended captures go.
+    for key in [k for k in _CAPTURE_COUNTERS if k[1] == stream and k[0] != capture]:
+        del _CAPTURE_COUNTERS[key]
+    if capture:
+        t = _CAPTURE_COUNTERS.get((capture, stream))
+        if t is None or t.numel() < n:
+            t = torch.zeros(n, dtype=torch.int32, device=device)
+            _CAPTURE_COUNTERS[(capture, stream)] = t
+        return t
+    key = (device.index, stream)
+    t = _EAGER_COUNTERS.get(key)
     if t is None or t.numel() < n:
+        if t is not None:
+            _RETIRED.append(t)
         t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _COUNTERS[str(device)] = t
+        _EAGER_COUNTERS[key] = t
     return t
 
 

@@ -386,6 +386,83 @@ def test_dense_attention_graph_reads_lengths_on_the_card(cuda, fused, B, T):
         _close(out, da.dense_decode_attention_plain(q, k, v, ln))
 
 
+def _two_stream_case(fused, seed):
+    # B 2 at T 4096 (S 17: the merging splits count arrivals), own inputs.
+    B, NH, NKV, HD, T = 2, 32, 8, 64, 4096
+    rng = np.random.default_rng(seed)
+    q = _rand((B, 1, NH, HD), seed)
+    qkv, cos_t, sin_t, k, v = _fused_case(B, NH, NKV, HD, T, torch.bfloat16, seed + 1)
+    ln = torch.from_numpy(rng.integers(T // 2, T, B).astype(np.int32)).cuda()
+    if not fused:
+        return (lambda: da.dense_decode_attention(q, k, v, ln),
+                da.dense_decode_attention_plain(q, k, v, ln))
+    # The plain call writes row ln[b] as every kernel call does again.
+    want = da.fused_decode_attention_plain(qkv, cos_t, sin_t, k, v, ln, num_heads=NH)[0]
+    return (lambda: da.fused_decode_attention(qkv, None, cos_t, sin_t, k, v, ln,
+                                              num_heads=NH)[0], want)
+
+
+def test_dense_attention_counters_across_streams_and_graphs(cuda):
+    # Dense and fused calls on two streams at once, eagerly and as two
+    # graphs replayed at once, each on its own inputs: every result equals
+    # its own plain one (no two launches that may overlap share a counter).
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert da.plan_splits(2, 8, 4096, sms) > 1
+    cases = [_two_stream_case(False, 90), _two_stream_case(True, 93)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i, (call, _) in enumerate(cases):
+            with torch.cuda.stream(streams[i]):
+                outs[i].append(call())
+    torch.cuda.synchronize()
+    for (_, want), got in zip(cases, outs):
+        for o in got:
+            _close(o, want)
+    graphs, gouts = [], []
+    for call, _ in cases:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            gouts.append([call() for _ in range(4)])
+        graphs.append(g)
+    torch.cuda.synchronize()
+    for _ in range(10):
+        for g, st in zip(graphs, streams):
+            with torch.cuda.stream(st):
+                g.replay()
+        torch.cuda.synchronize()
+        for (_, want), got in zip(cases, gouts):
+            for o in got:
+                _close(o, want)
+
+
+def test_dense_attention_graph_outlives_counter_growth(cuda):
+    # A graph captured first still replays correctly after an eager call
+    # with B * NKV > 4096 and after the eager counters grow.
+    B, NH, NKV, HD, T = 8, 32, 8, 64, 512
+    rng = np.random.default_rng(96)
+    q = _rand((B, 1, NH, HD), 97)
+    k, v = _rand((B, T, NKV, HD), 98), _rand((B, T, NKV, HD), 99)
+    ln = torch.from_numpy(rng.integers(T // 2, T, B).astype(np.int32)).cuda()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = da.dense_decode_attention(q, k, v, ln)
+    big_b, big_t = 520, 64  # 4160 (row, KV head) pairs
+    qb = _rand((big_b, 1, NH, HD), 100)
+    kb, vb = _rand((big_b, big_t, NKV, HD), 101), _rand((big_b, big_t, NKV, HD), 102)
+    lb = torch.full((big_b,), big_t, dtype=torch.int32, device="cuda")
+    _close(da.dense_decode_attention(qb, kb, vb, lb),
+           da.dense_decode_attention_plain(qb, kb, vb, lb))
+    assert da._counters(q.device, 8192).numel() >= 8192
+    want = da.dense_decode_attention_plain(q, k, v, ln)
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        _close(out, want)
+        assert torch.equal(out, da.dense_decode_attention(q, k, v, ln))
+
+
 def _tail_case(H, I, NQ, bn, layers, seed):
     rng = np.random.default_rng(seed)
 
@@ -1089,3 +1166,4 @@ def test_softmax_ce_kernel(cuda, M, V, dtype):
     want = ce.fused_softmax_cross_entropy_bwd_plain(x, t32, g).float()
     err = (dx.float() - want).abs()
     assert (err <= 2 ** -7 * want.abs() + 1e-8 * want.abs().max()).all(), err.max()
+
