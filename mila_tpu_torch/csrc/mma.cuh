@@ -1,8 +1,8 @@
 // Warp-level tensor-core and async-copy helpers shared by the flash kernels
 // (flash_fwd.cu, flash_bwd.cu), the paged and contiguous-cache decode
-// attention (paged_decode_attn.cu, dense_decode_attn.cu) and the int4 GEMV
-// (qgemv_int4.cu): bf16 mma.sync m16n8k16 with f32 accumulators,
-// cp.async copies into shared memory and ldmatrix.trans.
+// attention (paged_decode_attn.cu, dense_decode_attn.cu) and the int4 and
+// int8 GEMVs (qgemv_int4.cu, qgemv_int8.cu): bf16 mma.sync m16n8k16 with
+// f32 accumulators, cp.async copies into shared memory and ldmatrix.trans.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4): A (16 x 16,
 // row-major) a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3

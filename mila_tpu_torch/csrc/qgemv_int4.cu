@@ -44,7 +44,7 @@
 // the last block adding) measured 0.9-2.0 us slower at the small
 // projections at the same split (PERF.md §6).
 #include "common.cuh"
-#include "mma.cuh"
+#include "gemv.cuh"
 
 namespace {
 
@@ -56,12 +56,6 @@ constexpr int MAX_SLICES = 8;   // INT4_MAX_SLICES of kernels/quant_matmul.py: o
 constexpr int PITCH = BN + 32;  // bytes per staged row: the 4 rows a k-step's lanes read
                                 // start 8 banks apart (160 / 4 = 40 = 8 mod 32)
 
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
-  uint32_t d;
-  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
-  return d;
-}
-
 // Byte j of w as the bf16 pair (low nibble, high nibble), signed; w4 = w >> 4.
 __device__ __forceinline__ uint32_t nibble_pair(uint32_t w, uint32_t w4, int j) {
   const uint32_t p = prmt(w, w4, 0x4400u + 0x1111u * j);
@@ -72,58 +66,8 @@ __device__ __forceinline__ uint32_t nibble_pair(uint32_t w, uint32_t w4, int j) 
   return v;
 }
 
-__device__ __forceinline__ uint32_t comp(const uint4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
-// The cluster's blocks arrive once at the start (barrier phase 1) and wait
-// for each other before the first store into another block's shared
-// memory: every block of the cluster has started by then.
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// v to the float4 at p in the shared memory of the cluster's block `rank`.
-__device__ __forceinline__ void st_cluster(float4* p, int rank, float4 v) {
-  uint32_t a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
-  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};"
-               :: "r"(a), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w) : "memory");
-}
-
 __device__ __forceinline__ float4 load_scale(const float* scale, int row, int N, int c) {
   return __ldg(reinterpret_cast<const float4*>(scale + (size_t)row * N + c));
-}
-
-// Eight consecutive values of x (16- or 32-byte aligned) as f32.
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
-  const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(pack2(v.x, v.y), pack2(v.z, v.w));
 }
 
 // MT: n-tiles of 8 rows of x (M <= 8 MT); SPLIT: the halves' scale rows differ.

@@ -17,12 +17,20 @@ Replaces four TPU kernels of ``mila_tpu/kernels/decode_fused.py``:
 
 What bounds it on the H100: the int8 weight stream (K*N bytes against
 2*M*K*N operations, M <= 32: far below the card's operations-per-byte
-balance). One CUDA kernel family (``csrc/qgemv_int8.cu``) serves all four:
-a block owns 128 output columns and a slice of K, each thread streams
-4-byte coalesced weight words, activations are staged per K slice in shared
-memory (the whole [M, K] x of the TPU kernel does not fit: 32x8192 bf16 is
-512 KB), and the K slices are summed by a second small pass when the
-column tiles alone are too few to fill the card's 132 SMs.
+balance). One CUDA kernel family (``csrc/qgemv_int8.cu``) serves all four
+in one launch a call: the products run on tensor cores (``mma.sync``, the
+weight as the 16-row operand, exact int8 -> bf16 by a byte permute and one
+f32 subtraction), a block owns 256 weight columns (SwiGLU: 128 gate and
+their 128 up columns) and a slice of K streamed through a 16-byte
+``cp.async`` ring, x's slice is staged in shared memory after the RMSNorm
+pass (the whole [M, K] x of the TPU kernel does not fit: 32x8192 bf16 is
+512 KB), and where the column tiles alone are too few to fill the card's
+132 SMs, up to 8 K slices of a tile run as one thread-block cluster and
+are summed in slice order through shared memory (no workspace, no second
+launch, two calls bit-equal). :func:`plan_qgemv` chooses the slices. The
+launch is a programmatic dependent one: the weight loads start under the
+tail of the kernel before it on the stream, and the kernel waits for that
+one only before it reads x and the residual.
 
 Arithmetic (the Pallas kernels'): rstd = rsqrt(mean(x^2) + eps) in f32 over
 the whole row, xs = bf16(x * rstd * gamma), partial sums (xs @ bf16(q))_f32
@@ -145,46 +153,64 @@ for _f in (rms_quant_linear_plain, quant_linear_residual_plain,
 # CUDA launch
 # ---------------------------------------------------------------------------
 
-_COLS = 128  # output columns per block (csrc/qgemv_int8.cu)
-_X_SMEM_BYTES = 64 * 1024  # staged activations per block
+INT8_COLS = 256  # weight columns per block of qgemv_int8 (SwiGLU: 128 gate + 128 up)
+INT8_STAGE_ROWS = 64  # weight rows per stage (and per slice's multiple)
+INT8_MIN_ROWS = 128  # K rows a slice keeps at least (unless x's stage forces fewer)
+INT8_MAX_SLICES = 8  # the slices of a column tile form one cluster: 8 blocks at most
+INT8_X_BYTES = 72 * 1024  # staged x pairs per block
 
 
-def _plan_ksplit(M: int, K: int, n_cols: int, block_size: int,
-                 sms: int) -> tuple[int, int]:
-    """(m_tile, ksplit): K slices per column tile so that the launch has
-    about two blocks per SM, each slice inside one scale block."""
-    mt = 8 if M <= 8 else 32
-    tiles = -(-n_cols // _COLS)
+def _int8_x_bytes(M: int, kc: int) -> int:
+    """Shared memory of x's staged bf16 pairs for a slice of kc rows: 8 rows
+    of x per n-tile of the mma (M <= 8, 16 or 32 take 1, 2 or 4), kc / 2
+    words a row and a pad of at most 16."""
+    words = kc // 2 + 16
+    return 8 * (1 if M <= 8 else 2 if M <= 16 else 4) * words * 4
+
+
+def plan_qgemv(M: int, K: int, n_out: int, block_size: int, sms: int,
+               swiglu: bool = False) -> tuple[int, int]:
+    """(m_tile, ksplit) for ``qgemv_int8``: ksplit slices of kc = K / ksplit
+    rows (one cluster of at most ``INT8_MAX_SLICES`` blocks per column tile),
+    doubled while the grid of column tiles x ksplit stays within one block
+    per SM (a slice keeping ``INT8_MIN_ROWS`` rows), and until x's staged
+    slice fits ``INT8_X_BYTES``. A slice may span several scale blocks: the
+    kernel scales each block's sums on its own, so block_size must be a
+    multiple of the stage's 64 rows (or K). A column tile is 256 output
+    columns, 128 for SwiGLU (whose block also streams the up columns)."""
+    mt = 8 if M <= 8 else 16 if M <= 16 else 32
+    tiles = -(-n_out // (INT8_COLS // 2 if swiglu else INT8_COLS))
     ks = 1
-    while K % (2 * ks) == 0 and (
-        (K // ks) * mt * 4 > _X_SMEM_BYTES
-        or block_size % (K // ks)
-        or (tiles * ks < 2 * sms and K // (2 * ks) >= 128)
-    ):
+    while (ks < INT8_MAX_SLICES and K % (2 * ks) == 0
+           and (K // (2 * ks)) % INT8_STAGE_ROWS == 0 and (
+               _int8_x_bytes(M, K // ks) > INT8_X_BYTES
+               or (tiles * 2 * ks <= sms and K // (2 * ks) >= INT8_MIN_ROWS))):
         ks *= 2
     kc = K // ks
-    if K % ks or kc % 32 or block_size % kc or kc * mt * 4 > _X_SMEM_BYTES:
-        raise ValueError(f"qgemv_int8 cannot slice K={K} (block_size={block_size})")
+    if (not 1 <= M <= 32 or K % ks or kc % INT8_STAGE_ROWS or K % block_size
+            or (block_size < K and block_size % INT8_STAGE_ROWS)
+            or _int8_x_bytes(M, kc) > INT8_X_BYTES):
+        raise ValueError(f"qgemv_int8 cannot tile M={M}, K={K}, N={n_out} "
+                         f"(block_size={block_size})")
     return mt, ks
 
 
 def launch_plan(M: int, K: int, ldq: int, block_size: int, mode: str, sms: int) -> dict:
     """The launch ``qgemv_int8`` takes for these shapes: its K slices, the
-    m tile and the output columns a block owns (reported beside timings)."""
-    n_out = ldq // 2 if mode == "swiglu" else ldq
-    mt, ks = _plan_ksplit(M, K, n_out, block_size, sms)
-    return {"ksplit": ks, "m_tile": mt, "cols_per_block": _COLS}
+    m tile and the weight columns a block owns (reported beside timings)."""
+    swiglu = mode == "swiglu"
+    mt, ks = plan_qgemv(M, K, ldq // 2 if swiglu else ldq, block_size, sms, swiglu)
+    return {"ksplit": ks, "m_tile": mt, "cols_per_block": INT8_COLS}
 
 
 def _qgemv_lib() -> ctypes.CDLL:
     lib = _build.library("qgemv_int8")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.qgemv_int8.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                   ci, ci, ci, ctypes.c_float, ci, ci, ci, vp]
+        lib.qgemv_int8.argtypes = [vp] * 6 + [ci] * 7 + [ctypes.c_float] + [ci] * 3 + [vp]
         lib.qgemv_int8.restype = ci
-        lib.qgemv_int8_argmax.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                          ctypes.c_float, ci, ci, ci, vp]
+        lib.qgemv_int8_argmax.argtypes = ([vp] * 6 + [ci] * 5 + [ctypes.c_float]
+                                          + [ci] * 3 + [vp])
         lib.qgemv_int8_argmax.restype = ci
         lib._typed = True
     return lib
@@ -213,34 +239,34 @@ def _launch(x, qt: QTensor, *, mode: str, gamma=None, res=None, eps: float = 0.0
     for t in (qt.q, qt.scale):
         if not (t.is_cuda and t.is_contiguous() and t.device == x2.device):
             raise ValueError("qgemv_int8: weights must be contiguous on x's device")
-    x2 = x2.contiguous()
-    if x2.data_ptr() % 16:  # the RMSNorm pass reads x in 16-byte words
-        x2 = x2.clone()
+    if qt.scale.data_ptr() % 16:
+        raise ValueError("qgemv_int8: scales must be 16-byte aligned (16-byte loads)")
+    mt, ks = plan_qgemv(M, K, n_out, qt.block_size, _sm_count(x2.device.index or 0),
+                        mode == "swiglu")
+
+    def aligned(t):  # the kernel reads and writes by 16-byte words
+        t = t.contiguous()
+        return t if t.data_ptr() % 16 == 0 else t.clone()
+
+    x2 = aligned(x2)
     g32 = None
     if gamma is not None:
-        g32 = gamma.to(device=x2.device, dtype=torch.float32).contiguous()
+        g32 = aligned(gamma.to(device=x2.device, dtype=torch.float32))
     r2 = None
     if res is not None:
         r2 = res.reshape(-1, n_out)
         if r2.dtype != x2.dtype or r2.shape[0] != M:
             raise TypeError("qgemv_int8: residual must match x's dtype and rows")
-        r2 = r2.contiguous()
-    mt, ks = _plan_ksplit(M, K, n_out, qt.block_size,
-                           _sm_count(x2.device.index or 0))
-    ws = None
-    if ks > 1:
-        ws = torch.empty((ks, M, ldq), dtype=torch.float32, device=x2.device)
+        r2 = aligned(r2)
     lib = _qgemv_lib()
+    is_f32 = int(x2.dtype == torch.float32)
     if mode == "argmax":
-        if ldq % 128:
-            raise ValueError(f"qgemv_int8 argmax needs N % 128 == 0 (N={ldq})")
         keys = torch.empty((M,), dtype=torch.int64, device=x2.device)  # reset in the call
         tok = torch.empty((M,), dtype=torch.int32, device=x2.device)
         rc = lib.qgemv_int8_argmax(
             _build.ptr(x2), _build.ptr(g32), _build.ptr(qt.q), _build.ptr(qt.scale),
-            _build.ptr(keys), _build.ptr(tok), None if ws is None else _build.ptr(ws),
-            M, ldq, K, qt.block_size, vocab, eps, ks, mt, int(x2.dtype == torch.float32),
-            _build.stream_of(x2))
+            _build.ptr(keys), _build.ptr(tok), M, ldq, K, qt.block_size, vocab, eps, ks, mt,
+            is_f32, _build.stream_of(x2))
         _build.check(lib, rc, "qgemv_int8_argmax")
         return tok
     out = torch.empty((M, n_out), dtype=x2.dtype, device=x2.device)
@@ -248,9 +274,8 @@ def _launch(x, qt: QTensor, *, mode: str, gamma=None, res=None, eps: float = 0.0
         _build.ptr(x2), None if g32 is None else _build.ptr(g32),
         _build.ptr(qt.q), _build.ptr(qt.scale),
         None if r2 is None else _build.ptr(r2), _build.ptr(out),
-        None if ws is None else _build.ptr(ws),
         M, n_out, K, ldq, qt.block_size, _MODE[mode], int(gamma is not None),
-        eps, ks, mt, int(x2.dtype == torch.float32), _build.stream_of(x2))
+        eps, ks, mt, is_f32, _build.stream_of(x2))
     _build.check(lib, rc, "qgemv_int8")
     return out
 

@@ -48,6 +48,7 @@ import subprocess
 import torch
 
 from mila_tpu_torch.kernels import _build
+from mila_tpu_torch.kernels import decode_fused as df
 from mila_tpu_torch.kernels import dense_attention as da
 from mila_tpu_torch.kernels import quant_matmul as qm
 
@@ -207,45 +208,56 @@ INT4_VARIANTS["bn128"] = [("constexpr int THREADS = 256, WARPS",
 INT4_VARIANTS["nst12"] = [("constexpr int NST = 8;", "constexpr int NST = 12;")]
 
 
-def build_int4(texts: dict) -> dict:
-    """The committed int4 library and one built from each named source text
-    (with the package's headers beside it, the same C interface), all nvcc
-    at once."""
+def build_sources(src: str, tag: str, texts: dict, committed, typed) -> dict:
+    """The committed library of ``src`` and one built from each named source
+    text (with the package's headers beside it, the same C interface), all
+    nvcc at once."""
     procs = {}
     for name, text in texts.items():
-        vdir = _build.BUILD_DIR / f"int4_source_{name}"
+        vdir = _build.BUILD_DIR / f"{tag}_source_{name}"
         vdir.mkdir(parents=True, exist_ok=True)
         for f in _build.CSRC.glob("*.cuh"):
             (vdir / f.name).write_text(f.read_text())
-        (vdir / INT4_SRC).write_text(text)
+        (vdir / src).write_text(text)
         procs[name] = subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(vdir / "libint4.so"),
-             str(vdir / INT4_SRC)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    libs = {"committed": qm._int4_lib()}
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(vdir / f"lib{tag}.so"),
+             str(vdir / src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    libs = {"committed": committed}
     for name, proc in procs.items():
         log = proc.communicate()[0].decode()
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log[-3000:]}")
-        lib = ctypes.CDLL(str(_build.BUILD_DIR / f"int4_source_{name}" / "libint4.so"))
-        lib.qgemv_int4.argtypes = qm._int4_lib().qgemv_int4.argtypes
-        lib.qgemv_int4.restype = ctypes.c_int
-        libs[name] = lib
+        libs[name] = typed(ctypes.CDLL(str(_build.BUILD_DIR / f"{tag}_source_{name}"
+                                           / f"lib{tag}.so")))
     return libs
 
 
-def int4(args) -> None:
-    committed = (_build.CSRC / INT4_SRC).read_text()
+def variant_texts(src: str, table: dict, args) -> dict:
+    """name -> source text: the committed source with each variant's edits,
+    and each ``--source NAME=PATH`` as it is."""
+    committed = (_build.CSRC / src).read_text()
     texts = {}
     for v in args.variants:
         texts[v] = committed
-        for old, new in INT4_VARIANTS[v]:
+        for old, new in table[v]:
             if old not in texts[v]:
-                raise RuntimeError(f"variant {v}: {INT4_SRC} no longer has {old!r}")
+                raise RuntimeError(f"variant {v}: {src} no longer has {old!r}")
             texts[v] = texts[v].replace(old, new)
     for spec in args.source:
         name, path = spec.split("=", 1)
         texts[name] = open(path).read()
-    libs = build_int4(texts)
+    return texts
+
+
+def _typed_int4(lib):
+    lib.qgemv_int4.argtypes = qm._int4_lib().qgemv_int4.argtypes
+    lib.qgemv_int4.restype = ctypes.c_int
+    return lib
+
+
+def int4(args) -> None:
+    libs = build_sources(INT4_SRC, "int4", variant_texts(INT4_SRC, INT4_VARIANTS, args),
+                         qm._int4_lib(), _typed_int4)
     lib = libs["committed"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -300,6 +312,115 @@ def int4(args) -> None:
         del ws, wb
 
 
+INT8_SRC = "qgemv_int8.cu"
+INT8_VARIANTS = {  # name -> [(old text, new text)] in the committed source
+    "no_convert": [("const uint32_t af[4] = {s8_pair(w0, w1, 2 * n), s8_pair(w0, w1, 2 * n + 1),"
+                    "\n                                s8_pair(w2, w3, 2 * n), "
+                    "s8_pair(w2, w3, 2 * n + 1)};",
+                    "const uint32_t af[4] = {w0, w1 + n, w2, w3 + n};")],
+    "no_mma": [("          mma_bf16(acc[n][mt], af, b);",
+                "          acc[n][mt][0] += "
+                "__uint_as_float(af[0] ^ af[1] ^ af[2] ^ af[3] ^ b[0] ^ b[1]);")],
+}
+INT8_VARIANTS["loads_only"] = INT8_VARIANTS["no_convert"] + INT8_VARIANTS["no_mma"]
+INT8_VARIANTS["no_stream"] = [  # the weight ring never filled: launch, prologue, epilogue
+    ("    if (!copies) return;", "    return;")]
+INT8_VARIANTS["no_loop"] = [("for (int s = 0; s < nsteps; ++s) {", "for (int s = 0; s < 0; ++s) {")]
+INT8_VARIANTS["no_xstage"] = [("for (int i = tid; i < 8 * MT * (a.kc / 8); i += THREADS) {",
+                               "for (int i = tid; i < 0; i += THREADS) {")]
+INT8_VARIANTS["no_prologue"] = INT8_VARIANTS["no_xstage"] + [
+    ("if (a.rms) {  // one warp per row", "if (false) {  // one warp per row")]
+INT8_VARIANTS["bn128"] = [("#define QGEMV8_CW 8", "#define QGEMV8_CW 4")]
+INT8_VARIANTS["kw2"] = [("#define QGEMV8_KW 1", "#define QGEMV8_KW 2")]
+INT8_VARIANTS["nst4"] = [("constexpr int NST = 6;", "constexpr int NST = 4;")]
+INT8_VARIANTS["nst8"] = [("constexpr int NST = 6;", "constexpr int NST = 8;")]
+INT8_VARIANTS["sr32"] = [("constexpr int SR = 64;", "constexpr int SR = 32;"),
+                         ("constexpr int NST = 6;", "constexpr int NST = 12;")]
+INT8_VARIANTS["no_pdl"] = [("programmaticStreamSerializationAllowed = 1",
+                            "programmaticStreamSerializationAllowed = 0")]
+# name -> (K, weight columns, mode): Llama-3.2-1B's int8 decode projections.
+INT8_SHAPES = {"wqkv": (2048, 3072, "store"), "wo": (2048, 2048, "residual"),
+               "wgu": (2048, 16384, "swiglu"), "down": (8192, 2048, "residual"),
+               "head": (2048, 129024, "store"), "head_argmax": (2048, 129024, "argmax")}
+
+
+def _typed_int8(lib):
+    ref = df._qgemv_lib()
+    for fn in ("qgemv_int8", "qgemv_int8_argmax"):
+        getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def int8(args) -> None:
+    libs = build_sources(INT8_SRC, "int8", variant_texts(INT8_SRC, INT8_VARIANTS, args),
+                         df._qgemv_lib(), _typed_int8)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dev, M, bf16 = torch.device("cuda"), args.m, torch.bfloat16
+    for shape in args.shapes:
+        K, ldq, mode = INT8_SHAPES[shape]
+        n_out = ldq // 2 if mode == "swiglu" else ldq
+        ws = [torch.randint(-128, 128, (K, ldq), device=dev, dtype=torch.int8, generator=gen)
+              for _ in range(min(16, max(2, int(2e8 // (K * ldq)) + 1)))]
+        scale = torch.rand(1, ldq, device=dev, generator=gen) * 0.01 + 0.001
+        x = torch.randn(M, K, device=dev, generator=gen).to(bf16)
+        gamma = 1.0 + 0.1 * torch.randn(K, device=dev, generator=gen)
+        res = torch.randn(M, n_out, device=dev, generator=gen).to(bf16)
+        out = torch.empty(M, n_out, device=dev, dtype=bf16)
+        keys = torch.empty(M, device=dev, dtype=torch.int64)
+        tok = torch.empty(M, device=dev, dtype=torch.int32)
+        mt, plan = df.plan_qgemv(M, K, n_out, K, sms, mode == "swiglu")
+        row = {"shape": f"{shape} M={M} K={K} N={ldq} ({mode})",
+               "card": torch.cuda.get_device_name(0), "plan_ksplit": plan}
+
+        def call(w, lib, ks, what):
+            if mode == "argmax":
+                rc = lib.qgemv_int8_argmax(
+                    _build.ptr(x), _build.ptr(gamma), _build.ptr(w), _build.ptr(scale),
+                    _build.ptr(keys), _build.ptr(tok), M, ldq, K, K, ldq - 1000, 1e-5, ks, mt,
+                    0, _build.stream_of(x))
+            else:
+                rc = lib.qgemv_int8(
+                    _build.ptr(x), None if mode == "residual" else _build.ptr(gamma),
+                    _build.ptr(w), _build.ptr(scale),
+                    _build.ptr(res) if mode == "residual" else None, _build.ptr(out), M, n_out,
+                    K, ldq, K, df._MODE[mode], int(mode != "residual"), 1e-5, ks, mt, 0,
+                    _build.stream_of(x))
+            check(rc, what)
+            return tok if mode == "argmax" else out
+
+        def diff(a, b):
+            return (a.float() - b.float()).abs().max().item()
+
+        ref = None
+        for ks in [plan] + sorted({k for k in args.ksplits if k != plan}):
+            kc = K // ks
+            if (K % ks or ks > df.INT8_MAX_SLICES or kc % df.INT8_STAGE_ROWS
+                    or df._int8_x_bytes(M, kc) > df.INT8_X_BYTES):
+                continue
+            got = call(ws[0], libs["committed"], ks, f"ksplit {ks}").clone()
+            torch.cuda.synchronize()
+            ref = got if ref is None else ref
+            row[f"ms_ks{ks}"] = graph_ms([lambda w=w, ks=ks: call(w, libs["committed"], ks, "")
+                                          for w in ws])
+            row[f"max_diff_ks{ks}"] = diff(got, ref)
+        for name, lib in libs.items():  # variants and other sources at the planner's split
+            if name == "committed":
+                continue
+            got = call(ws[0], lib, plan, name).clone()
+            torch.cuda.synchronize()
+            row[f"max_diff_{name}"] = diff(got, ref)
+            row[f"ms_{name}"] = graph_ms([lambda w=w, lib=lib: call(w, lib, plan, name)
+                                          for w in ws])
+        wb = [torch.randn(K, ldq, device=dev, generator=gen).to(bf16)
+              for _ in range(min(16, max(2, int(2e8 // (2 * K * ldq)) + 1)))]
+        row["matmul_bf16_ms"] = graph_ms([lambda w=w: torch.matmul(x, w) for w in wb])
+        row["bound_ms"] = (K * ldq + 4 * ldq + 2 * M * K + 2 * M * n_out) / 3.35e12 * 1e3
+        print(json.dumps(row), flush=True)
+        del ws, wb
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="kernel", required=True)
@@ -313,11 +434,14 @@ def main() -> None:
     i.add_argument("--ksplits", nargs="+", type=int, default=[])
     i.add_argument("--variants", nargs="+", default=[], choices=list(INT4_VARIANTS))
     i.add_argument("--source", nargs="+", default=[], metavar="NAME=PATH")
+    e = sub.add_parser("int8")
+    e.add_argument("--shapes", nargs="+", default=list(INT8_SHAPES), choices=list(INT8_SHAPES))
+    e.add_argument("--m", type=int, default=8)
+    e.add_argument("--ksplits", nargs="+", type=int, default=[])
+    e.add_argument("--variants", nargs="+", default=[], choices=list(INT8_VARIANTS))
+    e.add_argument("--source", nargs="+", default=[], metavar="NAME=PATH")
     args = ap.parse_args()
-    if args.kernel == "dense":
-        dense(args)
-    else:
-        int4(args)
+    {"dense": dense, "int4": int4, "int8": int8}[args.kernel](args)
 
 
 if __name__ == "__main__":

@@ -88,15 +88,35 @@ def test_plain_versions_count_and_cpu_never_launches():
     assert tdf.rms_quant_linear_plain.calls == before[1] + 1
 
 
+# Llama-3.2-1B's decode projections: (K, output columns, SwiGLU).
+_SERVED = {"wqkv": (2048, 3072, False), "wo": (2048, 2048, False), "wgu": (2048, 8192, True),
+           "down": (8192, 2048, False), "head": (2048, 129024, False)}
+
+
 def test_ksplit_plan_covers_the_served_shapes():
-    """The decode launch plan (pure host arithmetic) for Llama-3.2-1B's
-    shapes: every slice inside one scale block, staged x within 64 KB."""
-    for K, n_cols in ((2048, 3072), (2048, 2048), (2048, 8192), (8192, 2048), (2048, 129024)):
+    """qgemv_int8's launch plan (pure host arithmetic) at Llama-3.2-1B's
+    five shapes, M 1/8/32, per-channel and 128-row scale blocks: at most 8
+    K slices (one portable cluster) covering K once in multiples of the
+    32-row stage, x's staged slice within its budget, more than one slice
+    only while the grid stays within one block per SM (or x forces it); a
+    slice may span several scale blocks."""
+    for K, n_out, swiglu in _SERVED.values():
+        tiles = -(-n_out // (tdf.INT8_COLS // 2 if swiglu else tdf.INT8_COLS))
         for M in (1, 8, 32):
-            mt, ks = tdf._plan_ksplit(M, K, n_cols, K, 132)
-            kc = K // ks
-            assert K % ks == 0 and kc % 32 == 0 and kc * mt * 4 <= 64 * 1024
-    assert tdf._plan_ksplit(8, 2048, 3072, 2048, 132) == (8, 16)
-    assert tdf._plan_ksplit(8, 2048, 129024, 2048, 132) == (8, 1)
+            for bs in (K, 128):
+                mt, ks = tdf.plan_qgemv(M, K, n_out, bs, 132, swiglu)
+                kc = K // ks
+                assert M <= mt <= 32 and ks in (1, 2, 4, 8) and ks * kc == K
+                assert kc % tdf.INT8_STAGE_ROWS == 0
+                assert tdf._int8_x_bytes(M, kc) <= tdf.INT8_X_BYTES
+                assert (ks == 1 or tiles * ks <= 132
+                        or tdf._int8_x_bytes(M, 2 * kc) > tdf.INT8_X_BYTES)
+    assert tdf.plan_qgemv(8, 2048, 3072, 2048, 132) == (8, 8)
+    assert tdf.plan_qgemv(8, 2048, 2048, 2048, 132) == (8, 8)
+    assert tdf.plan_qgemv(8, 2048, 8192, 2048, 132, swiglu=True) == (8, 2)
+    assert tdf.plan_qgemv(8, 8192, 2048, 8192, 132) == (8, 8)
+    assert tdf.plan_qgemv(8, 2048, 129024, 2048, 132) == (8, 1)
+    assert tdf.plan_qgemv(32, 2048, 129024, 2048, 132) == (32, 2)  # x's slice forces 2
+    assert tdf.plan_qgemv(8, 2048, 3072, 128, 132) == (8, 8)  # 256-row slices, 2 scale blocks
     with pytest.raises(ValueError):
-        tdf._plan_ksplit(8, 2048, 3072, 16, 132)  # slices of 16 rows are too thin
+        tdf.plan_qgemv(8, 2048, 3072, 16, 132)  # scale blocks thinner than a stage

@@ -463,6 +463,101 @@ def test_dense_attention_graph_outlives_counter_growth(cuda):
         assert torch.equal(out, da.dense_decode_attention(q, k, v, ln))
 
 
+def _decode_case(M, K, N, bs, dtype, seed):
+    x = _rand((M, K), seed, dtype=dtype)
+    gamma = 1.0 + _rand((K,), seed + 1, 0.1, torch.float32)
+    qt = quantize(_rand((K, N), seed + 2, 0.05, torch.float32), "int8", bs)
+    res = _rand((M, N), seed + 3, dtype=dtype)
+    return x, gamma, qt, res
+
+
+def _argmax_gap(tok, x, gamma, qt, vocab):
+    logits = qm.scaled_partials(df._rms_scaled(x, gamma, 1e-5), qt)[:, :vocab]
+    t = tok[:, 0].long()
+    assert int(t.max()) < vocab and int(t.min()) >= 0
+    gap = (logits.max(dim=-1).values - logits.gather(1, t[:, None])[:, 0]).abs().max().item()
+    assert gap <= 1e-3 * logits.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bs", [0, 128])
+@pytest.mark.parametrize("M", [1, 8, 9, 32])
+def test_qgemv_int8_kernel(cuda, M, bs, dtype):
+    # wqkv's shape (K slices of 256 rows in clusters of 8 at M 8: two
+    # 128-row scale blocks a slice when blocked), every epilogue.
+    K, N = 2048, 3072
+    x, gamma, qt, res = _decode_case(M, K, N, bs, dtype, 110)
+    entries = (df.rms_quant_linear, df.quant_linear_residual, df.rms_quant_linear_swiglu,
+               df.rms_quant_linear_argmax)
+    before = [f.launches for f in entries]
+    _close(df.rms_quant_linear(x, gamma, qt), df.rms_quant_linear_plain(x, gamma, qt))
+    _close(df.quant_linear_residual(x, qt, res), df.quant_linear_residual_plain(x, qt, res))
+    _close(df.rms_quant_linear_swiglu(x, gamma, qt),
+           df.rms_quant_linear_swiglu_plain(x, gamma, qt))
+    vocab = N - 100
+    _argmax_gap(df.rms_quant_linear_argmax(x, gamma, qt, vocab_size=vocab), x, gamma, qt, vocab)
+    torch.cuda.synchronize()
+    assert [f.launches for f in entries] == [b + 1 for b in before]
+
+
+@pytest.mark.parametrize("mode", ["store", "residual", "swiglu", "argmax"])
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 3072), (8, 8192, 2048), (32, 2048, 4096)])
+def test_qgemv_int8_graph_replay_and_determinism(cuda, mode, M, K, N):
+    # Two calls are bit-equal (the K slices add in slice order in one
+    # cluster); a captured call replayed after x is rewritten in place
+    # equals an eager call on the new x.
+    x, gamma, qt, res = _decode_case(M, K, N, 0, torch.bfloat16, 120)
+
+    def call():
+        if mode == "store":
+            return df.rms_quant_linear(x, gamma, qt)
+        if mode == "residual":
+            return df.quant_linear_residual(x, qt, res)
+        if mode == "swiglu":
+            return df.rms_quant_linear_swiglu(x, gamma, qt)
+        return df.rms_quant_linear_argmax(x, gamma, qt, vocab_size=N - 7)
+
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = call()
+    for seed in (121, 122):
+        x.copy_(_rand((M, K), seed))
+        g.replay()
+        torch.cuda.synchronize()
+        want = call()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+def test_qgemv_int8_one_launch_a_call(cuda):
+    # One kernel a call (no finishing pass, no workspace): the profiler sees
+    # the GEMV kernel once per call and, for the argmax, only the key reset
+    # and the index pass beside it.
+    from torch.profiler import ProfilerActivity, profile
+
+    x, gamma, qt, res = _decode_case(8, 8192, 2048, 0, torch.bfloat16, 130)
+    xh, gh, qh, _ = _decode_case(8, 2048, 4096, 0, torch.bfloat16, 131)
+    calls = (lambda: df.quant_linear_residual(x, qt, res),
+             lambda: df.rms_quant_linear_swiglu(xh, gh, qh),
+             lambda: df.rms_quant_linear_argmax(xh, gh, qh, vocab_size=4000))
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("qgemv8_kernel" in n for n in names) == 3, names
+    assert not any("finish" in n for n in names), names
+    others = [n for n in names if "qgemv8_kernel" not in n]
+    assert sum("argmax_index" in n for n in others) == 1, names
+    assert all("argmax_index" in n or "emset" in n for n in others), names
+
+
 def _tail_case(H, I, NQ, bn, layers, seed):
     rng = np.random.default_rng(seed)
 
