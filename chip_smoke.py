@@ -1649,7 +1649,8 @@ def phase_train_kernels(bw, peak_ops, rng):
            library_timed=library_bwd_device_ms,
            library_what="F.cross_entropy backward alone (autograd.grad on one saved "
                         "forward), device time from the profiler", peak=F32_OPS,
-           max_elem_rel_err=d_rel, library_bwd_device_ms=library_bwd_device_ms,
+           max_elem_rel_err=d_rel, variant=ce.ce_bwd_variant(V, x.element_size()),
+           library_bwd_device_ms=library_bwd_device_ms,
            library_bwd_ms=library_bwd_ms, bwd_device_ms=device_ms(ours_bwd),
            bwd_back_to_back_ms=time_back_to_back(ours_bwd),
            library_fwd_bwd_ms=time_eager(library))

@@ -10,15 +10,35 @@
 //
 // Bound on the H100: bytes (the forward reads each logit once, the
 // backward reads it and writes its gradient; a handful of operations per
-// element). Design: one block of 256 threads per row. Each thread keeps an
-// online (max, sum of exp) pair over its strided share of the row, 16-byte
-// loads where the row allows them; the pairs combine across the warp by
-// shuffles and across warps in shared memory. The backward rereads the row
-// (from L2 at GPT-2's 100 KB rows) to write p - onehot. The TPU wrapper's
-// tiling gate (M % 8, V % 128) is not needed here: any M and V run.
+// element). The TPU wrapper's tiling gate (M % 8, V % 128) is not needed
+// here: any M and V run.
+// Forward: one block of 256 threads per row. Each thread keeps an online
+// (max, sum of exp) pair over its strided share of the row, 16-byte loads
+// where the row allows them; the pairs combine across the warp by shuffles
+// and across warps in shared memory.
+// Backward: one block of 512 threads per row, in one of three variants of
+// one kernel that kernels/softmax_ce.py:ce_bwd_variant chooses from V, the
+// dtype and the shared-memory budget:
+//   resident: the row (V * 2 bytes of bf16, 100.6 KB at GPT-2's vocab; two
+//     blocks fit an SM) is read from device memory once, into shared
+//     memory, by 16-byte cp.async. Each thread copies its own 16-byte
+//     chunks (c = tid + k * 512) in four commit groups and reads back only
+//     those, so its statistics pass runs on each group as it lands, with no
+//     barrier. Before, the row was read twice and the second read came from
+//     device memory again: 8 blocks of 100 KB rows on each of 132 SMs
+//     overflow the 50 MB L2;
+//   streamed: a row too large for the budget (f32 at large V), read from
+//     device memory for the statistics and again for the gradient;
+//   scalar: a row of V * size % 16 != 0 bytes, streamed one element at a time.
+// Statistics without a per-element branch: per chunk (8 bf16 or 4 f32
+// values) its max, then the chunk's exponentials against the new running
+// max and one rescale of the running sum; exponentials by ex2 with log2(e)
+// folded in. One reciprocal of the sum a row; the gradient chunk is
+// (p - onehot) * g in f32, stored by one 16-byte store.
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -116,36 +136,170 @@ ce_fwd_kernel(const T* __restrict__ logits, const int* __restrict__ targets,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+constexpr int BWD_THREADS = 512;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int RESIDENT = 0, STREAMED = 1, SCALAR = 2;  // kernels/softmax_ce.py:_BWD_VARIANTS
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Adds n values (f32) to the running (max, sum of 2^((x - max) log2 e)).
+template <int N>
+__device__ __forceinline__ void chunk_add(float& m, float& s, const float* v) {
+  float cm = v[0];
+#pragma unroll
+  for (int e = 1; e < N; ++e) cm = fmaxf(cm, v[e]);
+  const float mn = fmaxf(m, cm);
+  if (mn == -INFINITY) return;
+  float add = 0.f;
+#pragma unroll
+  for (int e = 0; e < N; ++e) add += ex2((v[e] - mn) * LOG2E);
+  s = s * ex2((m - mn) * LOG2E) + add;
+  m = mn;
+}
+
+__device__ __forceinline__ void combine2(float& m, float& s, float m2, float s2) {
+  const float mx = fmaxf(m, m2);
+  if (mx == -INFINITY) return;
+  s = s * ex2((m - mx) * LOG2E) + s2 * ex2((m2 - mx) * LOG2E);
+  m = mx;
+}
+
+// N values of a chunk as f32 (N = 1: one element), and back.
+template <typename T, int N>
+__device__ __forceinline__ void load_chunk(const T* p, float* v) {
+  if constexpr (N == 1)
+    v[0] = to_f(*p);
+  else
+    Vec<T>::load(p, v);
+}
+template <int N>
+__device__ __forceinline__ void store_chunk(float* p, const float* v) {
+  if constexpr (N == 1)
+    *p = v[0];
+  else
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+template <int N>
+__device__ __forceinline__ void store_chunk(__nv_bfloat16* p, const float* v) {
+  if constexpr (N == 1) {
+    *p = __float2bfloat16_rn(v[0]);
+  } else {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]), pack2(v[6], v[7]));
+  }
+}
+
+__device__ __forceinline__ void wait_groups_after(int q) {  // groups 0..q of 4 have landed
+  if (q == 0) cp_async_wait<3>();
+  else if (q == 1) cp_async_wait<2>();
+  else if (q == 2) cp_async_wait<1>();
+  else cp_async_wait<0>();
+}
+
+template <typename T, int VAR>
+__global__ void __launch_bounds__(BWD_THREADS, 2)
 ce_bwd_kernel(const T* __restrict__ logits, const int* __restrict__ targets,
-              const float* __restrict__ g, T* __restrict__ dlogits, int V, int ignore_index,
-              bool vec) {
-  const int r = blockIdx.x;
+              const float* __restrict__ g, T* __restrict__ dlogits, int V, int ignore_index) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red_m[BWD_THREADS / 32], red_s[BWD_THREADS / 32];
+  constexpr int N = VAR == SCALAR ? 1 : Vec<T>::N;
+  const int r = blockIdx.x, tid = threadIdx.x;
   const T* row = logits + (size_t)r * V;
   T* out = dlogits + (size_t)r * V;
-  const int t = targets[r];
-  float m, s;
-  row_stats(row, V, vec, m, s);
-  const float gl = t == ignore_index ? 0.f : g[r];
-  constexpr int N = Vec<T>::N;
-  if (vec) {
-    for (int j = threadIdx.x * N; j < V; j += THREADS * N) {
-      float x[N];
-      Vec<T>::load(row + j, x);
+  const int chunks = V / N;  // V % N == 0 unless SCALAR (N = 1)
+  const int kmax = (chunks + BWD_THREADS - 1) / BWD_THREADS, kg = (kmax + 3) / 4;
+
+  float m = -INFINITY, s = 0.f;
+  const T* src = row;
+  if constexpr (VAR == RESIDENT) {
+    T* buf = reinterpret_cast<T*>(smem);
 #pragma unroll
-      for (int e = 0; e < N; ++e)
-        out[j + e] = from_f<T>((expf(x[e] - m) / s - (j + e == t ? 1.f : 0.f)) * gl);
+    for (int q = 0; q < 4; ++q) {
+      for (int k = q * kg; k < (q + 1) * kg; ++k) {
+        const int c = tid + k * BWD_THREADS;
+        if (c < chunks) cp_async16(buf + (size_t)c * N, row + (size_t)c * N);
+      }
+      cp_async_commit();
     }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      wait_groups_after(q);  // this thread's own chunks of group q, visible to it
+      for (int k = q * kg; k < (q + 1) * kg; ++k) {
+        const int c = tid + k * BWD_THREADS;
+        if (c < chunks) {
+          float v[N];
+          load_chunk<T, N>(buf + (size_t)c * N, v);
+          chunk_add<N>(m, s, v);
+        }
+      }
+    }
+    src = buf;
   } else {
-    for (int j = threadIdx.x; j < V; j += THREADS)
-      out[j] = from_f<T>((expf(to_f(row[j]) - m) / s - (j == t ? 1.f : 0.f)) * gl);
+    for (int c = tid; c < chunks; c += BWD_THREADS) {
+      float v[N];
+      load_chunk<T, N>(row + (size_t)c * N, v);
+      chunk_add<N>(m, s, v);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    combine2(m, s, __shfl_xor_sync(0xffffffffu, m, o), __shfl_xor_sync(0xffffffffu, s, o));
+  if ((tid & 31) == 0) {
+    red_m[tid >> 5] = m;
+    red_s[tid >> 5] = s;
+  }
+  __syncthreads();
+  m = red_m[0];
+  s = red_s[0];
+#pragma unroll
+  for (int w = 1; w < BWD_THREADS / 32; ++w) combine2(m, s, red_m[w], red_s[w]);
+
+  const int t = targets[r];
+  const float gl = t == ignore_index ? 0.f : g[r];
+  const float inv = 1.f / s;
+  for (int c = tid; c < chunks; c += BWD_THREADS) {
+    float v[N];
+    load_chunk<T, N>(src + (size_t)c * N, v);
+#pragma unroll
+    for (int e = 0; e < N; ++e)
+      v[e] = fmaf(ex2((v[e] - m) * LOG2E), inv, c * N + e == t ? -1.f : 0.f) * gl;
+    store_chunk<N>(out + (size_t)c * N, v);
   }
 }
 
 template <typename T>
 bool vec_ok(const void* p, int V) {
   return V % Vec<T>::N == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <typename T, int VAR>
+int launch_bwd(const void* logits, const int* t, const float* g, void* dlogits, int M, int V,
+               int ignore_index, cudaStream_t s) {
+  const int smem = VAR == RESIDENT ? V * (int)sizeof(T) : 0;
+  auto kern = ce_bwd_kernel<T, VAR>;
+  static int allowed = 48 * 1024;
+  if (smem > allowed) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    allowed = smem;
+  }
+  kern<<<M, BWD_THREADS, smem, s>>>(static_cast<const T*>(logits), t, g,
+                                    static_cast<T*>(dlogits), V, ignore_index);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int bwd(int variant, const void* logits, const int* t, const float* g, void* dlogits, int M,
+        int V, int ignore_index, cudaStream_t s) {
+  if (variant == RESIDENT)
+    return launch_bwd<T, RESIDENT>(logits, t, g, dlogits, M, V, ignore_index, s);
+  if (variant == STREAMED)
+    return launch_bwd<T, STREAMED>(logits, t, g, dlogits, M, V, ignore_index, s);
+  return launch_bwd<T, SCALAR>(logits, t, g, dlogits, M, V, ignore_index, s);
 }
 
 }  // namespace
@@ -170,23 +324,16 @@ extern "C" int softmax_ce_fwd(const void* logits, const void* targets, void* los
 }
 
 // g f32 [M] (the loss rows' cotangent); dlogits [M, V] in the logits' dtype.
+// variant 0 resident, 1 streamed, 2 scalar (kernels/softmax_ce.py's
+// ce_bwd_variant): 0 and 1 need V * size % 16 == 0 and 16-byte aligned
+// logits and dlogits; 0 needs V * size bytes of shared memory a block.
 extern "C" int softmax_ce_bwd(const void* logits, const void* targets, const void* g,
                               void* dlogits, int M, int V, int ignore_index, int is_bf16,
-                              void* stream) {
+                              int variant, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M > 0) {
-    const int* t = static_cast<const int*>(targets);
-    const float* gg = static_cast<const float*>(g);
-    if (is_bf16)
-      ce_bwd_kernel<__nv_bfloat16><<<M, THREADS, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(logits), t, gg,
-          static_cast<__nv_bfloat16*>(dlogits), V, ignore_index,
-          vec_ok<__nv_bfloat16>(logits, V) && vec_ok<__nv_bfloat16>(dlogits, V));
-    else
-      ce_bwd_kernel<float><<<M, THREADS, 0, s>>>(static_cast<const float*>(logits), t, gg,
-                                                 static_cast<float*>(dlogits), V, ignore_index,
-                                                 vec_ok<float>(logits, V) &&
-                                                     vec_ok<float>(dlogits, V));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (M <= 0) return static_cast<int>(cudaGetLastError());
+  const int* t = static_cast<const int*>(targets);
+  const float* gg = static_cast<const float*>(g);
+  if (is_bf16) return bwd<__nv_bfloat16>(variant, logits, t, gg, dlogits, M, V, ignore_index, s);
+  return bwd<float>(variant, logits, t, gg, dlogits, M, V, ignore_index, s);
 }

@@ -12,7 +12,11 @@ tensors take the plain versions below.
 What bounds it on the H100: bytes. The forward reads each logit once (824
 MB of bf16 at GPT-2's [8192, 50304]); the backward reads it and writes its
 gradient, recomputing the softmax from the logits as the TPU kernel does
-rather than storing probabilities. One block per row; see the source.
+rather than storing probabilities. One block per row. The backward holds
+its row in shared memory, so the row is read from device memory once, where
+the row fits the budget (``CE_RESIDENT_BYTES``: two blocks an SM) and its
+bytes are a multiple of 16; else it streams the row twice
+(:func:`ce_bwd_variant`); see the source.
 
 The entry keeps JAX's signature: ``block_rows`` and ``interpret`` are the
 TPU's tiling and interpreter and are not read, and JAX's gate (M % 8, V %
@@ -64,13 +68,29 @@ def fused_softmax_cross_entropy_bwd_plain(logits2: torch.Tensor, targets: torch.
 fused_softmax_cross_entropy_bwd_plain.calls = 0
 
 
+CE_RESIDENT_BYTES = 112 * 1024  # a row held in shared memory: two 512-thread blocks an SM
+_BWD_VARIANTS = {"resident": 0, "streamed": 1, "scalar": 2}  # csrc/softmax_ce.cu
+
+
+def ce_bwd_variant(V: int, itemsize: int, smem: int = CE_RESIDENT_BYTES) -> str:
+    """The backward kernel's variant for rows of V elements of ``itemsize``
+    bytes: "resident" (the row read once into shared memory) where the row
+    is a whole number of 16-byte chunks within ``smem`` bytes, "streamed"
+    (read twice, 16-byte loads) where it is larger, "scalar" (read twice,
+    one element at a time) where its bytes are not a multiple of 16."""
+    row = V * itemsize
+    if row % 16:
+        return "scalar"
+    return "resident" if row <= smem else "streamed"
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.library("softmax_ce")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.softmax_ce_fwd.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
         lib.softmax_ce_fwd.restype = ci
-        lib.softmax_ce_bwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.softmax_ce_bwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.softmax_ce_bwd.restype = ci
         lib._typed = True
     return lib
@@ -110,11 +130,14 @@ def fused_softmax_cross_entropy_bwd(logits2: torch.Tensor, targets: torch.Tensor
         return fused_softmax_cross_entropy_bwd_plain(logits2, t32, g32, ignore_index)
     _check(logits2, t32)
     M, V = logits2.shape
+    variant = ce_bwd_variant(V, logits2.element_size())
+    if variant != "scalar" and logits2.data_ptr() % 16:  # 16-byte copies and loads
+        logits2 = logits2.clone()
     d = torch.empty_like(logits2)
     lib = _lib()
     rc = lib.softmax_ce_bwd(_build.ptr(logits2), _build.ptr(t32), _build.ptr(g32), _build.ptr(d),
                             M, V, ignore_index, int(logits2.dtype == torch.bfloat16),
-                            _build.stream_of(logits2))
+                            _BWD_VARIANTS[variant], _build.stream_of(logits2))
     _build.check(lib, rc, "softmax_ce_bwd")
     fused_softmax_cross_entropy_bwd.launches += 1
     return d

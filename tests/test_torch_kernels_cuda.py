@@ -1262,3 +1262,39 @@ def test_softmax_ce_kernel(cuda, M, V, dtype):
     err = (dx.float() - want).abs()
     assert (err <= 2 ** -7 * want.abs() + 1e-8 * want.abs().max()).all(), err.max()
 
+
+@pytest.mark.parametrize("M,V,dtype,variant", [
+    (32, 50304, torch.bfloat16, "resident"),  # GPT-2's rows held in shared memory
+    (8, 50304, torch.float32, "streamed"),    # 201 KB rows: past the budget
+    (6, 57352, torch.bfloat16, "streamed"),   # one chunk past it
+    (16, 1001, torch.bfloat16, "scalar"),     # 2002-byte rows: not whole 16-byte chunks
+    (9, 1027, torch.float32, "scalar"),
+])
+def test_softmax_ce_bwd_variants(cuda, M, V, dtype, variant):
+    # Each backward variant against the plain version (each dlogit within
+    # one bf16 step of its own size), ignored rows all zero, two calls
+    # bit-equal, and a graph replay after the logits change in place.
+    from mila_tpu_torch.kernels import softmax_ce as ce
+
+    assert ce.ce_bwd_variant(V, torch.tensor([], dtype=dtype).element_size()) == variant
+    x = _rand((M, V), 83, scale=3.0, dtype=dtype)
+    t = torch.from_numpy(np.random.default_rng(84).integers(0, V, M).astype(np.int32)).cuda()
+    t[::4] = -100
+    g = _rand((M,), 85, dtype=torch.float32)
+    before = ce.fused_softmax_cross_entropy_bwd.launches
+    first = ce.fused_softmax_cross_entropy_bwd(x, t, g)
+    second = ce.fused_softmax_cross_entropy_bwd(x, t, g)
+    torch.cuda.synchronize()
+    assert ce.fused_softmax_cross_entropy_bwd.launches == before + 2
+    assert torch.equal(first, second)
+    assert (first[::4] == 0).all()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ce.fused_softmax_cross_entropy_bwd(x, t, g)
+    x.copy_(_rand((M, V), 86, scale=3.0, dtype=dtype))
+    graph.replay()
+    torch.cuda.synchronize()
+    for got in (out, ce.fused_softmax_cross_entropy_bwd(x, t, g)):
+        want = ce.fused_softmax_cross_entropy_bwd_plain(x, t, g).float()
+        err = (got.float() - want).abs()
+        assert (err <= 2 ** -7 * want.abs() + 1e-8 * want.abs().max()).all(), err.max()

@@ -85,3 +85,22 @@ def test_int64_targets_and_other_ignore_index():
                                          ignore_index=3)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=2e-5, atol=2e-5)
     assert (tl[torch.from_numpy(t) == 3] == 0).all()
+
+
+@pytest.mark.parametrize("V,itemsize,variant", [
+    (50304, 2, "resident"),   # GPT-2's vocab in bf16: 100.6 KB, two rows an SM
+    (50304, 4, "streamed"),   # f32: 201 KB, past the budget
+    (57344, 2, "resident"),   # exactly the budget
+    (57352, 2, "streamed"),   # one chunk past it
+    (1000, 2, "resident"),
+    (1001, 2, "scalar"),      # 2002 bytes: not whole 16-byte chunks
+    (1027, 4, "scalar"),
+    (4096, 4, "resident"),
+])
+def test_ce_bwd_variant_chooser(V, itemsize, variant):
+    """The backward kernel's variant is a pure function of V, the element
+    size and the shared-memory budget: rows of whole 16-byte chunks within
+    the budget stay resident, larger ones stream, the others go one element
+    at a time."""
+    assert tce.ce_bwd_variant(V, itemsize) == variant
+    assert tce.ce_bwd_variant(V, itemsize, smem=V * itemsize - 16) in ("streamed", "scalar")
