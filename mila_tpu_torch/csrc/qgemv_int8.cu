@@ -66,21 +66,16 @@
 
 namespace {
 
-#ifndef QGEMV8_CW
-#define QGEMV8_CW 8
-#endif
-#ifndef QGEMV8_KW
-#define QGEMV8_KW 1
-#endif
-constexpr int CW = QGEMV8_CW;   // warps across a block's columns, 32 columns each
-constexpr int KW = QGEMV8_KW;   // warps along each stage's k-steps
-constexpr int WARPS = CW * KW, THREADS = 32 * WARPS;
-constexpr int BN = 32 * CW;     // weight columns per block (INT8_COLS of kernels/decode_fused.py)
+constexpr int BN = 256;         // weight columns per block (INT8_COLS of kernels/decode_fused.py)
+constexpr int CPL = 2;          // adjacent weight columns per lane: 2 or 4
+constexpr int WARPS = BN / (8 * CPL), THREADS = 32 * WARPS;
+constexpr int NT = CPL / 2;     // a warp's 16-column n-tiles
 constexpr int SR = 64;          // weight rows per stage (INT8_STAGE_ROWS)
 constexpr int NST = 6;          // ring stages
 constexpr int KS = SR / 16;     // mma k-steps per stage
 constexpr int XPAD = KS == 2 ? 16 : 4;  // x's row pitch pad: conflict-free 16-byte fragment loads
 constexpr int MAX_SLICES = 8;   // INT8_MAX_SLICES: one portable cluster
+constexpr int IMAX = 4;         // x's 8-value chunks a thread holds in the fused RMSNorm
 constexpr int PITCH = BN + 16;  // bytes per staged row: rows 2t of a k-step start 8 banks apart
 constexpr int MODE_STORE = 0, MODE_RESIDUAL = 1, MODE_SWIGLU = 2, MODE_ARGMAX = 3;
 
@@ -111,8 +106,10 @@ __device__ __forceinline__ uint32_t s8_pair(uint32_t wa, uint32_t wb, int j) {
   return v;
 }
 
-__device__ __forceinline__ uint32_t ld_word(const unsigned char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// The lane's CPL bytes of one staged row, in the low bytes of a word.
+__device__ __forceinline__ uint32_t ld_cols(const unsigned char* p) {
+  if constexpr (CPL == 4) return *reinterpret_cast<const uint32_t*>(p);
+  return *reinterpret_cast<const uint16_t*>(p);
 }
 
 // Sum of squares of the 16 bytes at p (8 bf16 or 4 f32 values).
@@ -140,6 +137,22 @@ __device__ __forceinline__ unsigned long long argmax_key(float v, int n) {
 
 __device__ __forceinline__ float silu_mul(float g, float u) { return g / (1.f + expf(-g)) * u; }
 
+// The lane's CPL sums to p in this block's shared memory (rank < 0) or in
+// that of the cluster's block `rank`.
+template <int N>
+__device__ __forceinline__ void st_tile(float* p, int rank, const float* v) {
+  if (rank < 0) {
+    if constexpr (N == 4)
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    else
+      *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else if constexpr (N == 4) {
+    st_cluster(reinterpret_cast<float4*>(p), rank, make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+    st_cluster(reinterpret_cast<float2*>(p), rank, make_float2(v[0], v[1]));
+  }
+}
+
 // MT: n-tiles of 8 rows of x (M <= 8 MT); VEC: bytes per weight copy (16,
 // or 4 where the rows are not 16-byte aligned).
 template <int MT, typename T, int VEC>
@@ -155,7 +168,6 @@ __global__ void __launch_bounds__(THREADS) qgemv8_kernel(const Args<T> a) {
   __shared__ float rstd[8 * MT];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-  const int cw = warp % CW, kw = warp / CW;  // the warp's 32 columns; its share of the k-steps
   const bool swiglu = a.mode == MODE_SWIGLU;
   const int tw = swiglu ? BN / 2 : BN;  // output columns per block
   const int n0 = blockIdx.x * tw, ks = blockIdx.y, nks = gridDim.y;
@@ -196,18 +208,19 @@ __global__ void __launch_bounds__(THREADS) qgemv8_kernel(const Args<T> a) {
     cp_async_commit();
   }
 
-  // The lane's 4 columns and the first window's scale row, in flight with
+  // The lane's CPL columns and the first window's scale row, in flight with
   // the ring. A window ends at the next multiple of bs (or the slice's end).
-  const int sc = 32 * cw + 4 * g;
+  const int sc = 8 * CPL * warp + CPL * g;
   int oc;
   const int col = wcol(sc, &oc);
   const bool live = oc < a.N;
+  float sl[CPL];
   auto load_scale = [&](int row) {
-    return live ? __ldg(reinterpret_cast<const float4*>(a.scale + (size_t)(row / a.bs) * a.ldq +
-                                                       col))
-                : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* p = a.scale + (size_t)(row / a.bs) * a.ldq + col;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) sl[c] = live ? __ldg(p + c) : 0.f;
   };
-  float4 s4 = load_scale(k0);
+  load_scale(k0);
   int wend = min(k0 + a.kc, (k0 / a.bs + 1) * a.bs);
 
   // Only weights so far: x and the residual come from the kernel before.
@@ -220,58 +233,122 @@ __global__ void __launch_bounds__(THREADS) qgemv8_kernel(const Args<T> a) {
     }
   }
 
-  if (a.rms) {  // one warp per row of x, 16-byte loads, all of a lane's in flight
-    cp_async_wait<NST - 1>();  // gamma's group (visible to all after the barrier below)
-    constexpr int V8 = 16 / sizeof(T);
-    for (int m = warp; m < a.M; m += WARPS) {
-      const T* row = a.x + (size_t)m * a.K;
-      float ss = 0.f;
-#pragma unroll 8
-      for (int k = lane * V8; k < a.K; k += 32 * V8) ss += sumsq16(row + k);
-      ss = warp_sum(ss);
-      if (lane == 0) rstd[m] = rsqrtf(ss / a.K + a.eps);
-    }
-    __syncthreads();
-  }
   // x's slice as bf16 pairs (x[m][k], x[m][k + 1]), rows of x past M zero.
-  // Word w of a stage (k = 2 w: k-step j = w / 8) sits at slot 2 KS (w % 4)
-  // + 2 P(j) + (w / 4) % 2, P(j) = (j % KW) (KS / KW) + j / KW, so lane t's
-  // B fragments for the k-steps of its warp's share (j = kw, kw + KW, ...)
-  // are 2 KS / KW consecutive words.
-  for (int i = tid; i < 8 * MT * (a.kc / 8); i += THREADS) {
-    const int m = i / (a.kc / 8), r = 8 * (i % (a.kc / 8));
-    float v[8];
-    if (m < a.M) {
-      load8(a.x + (size_t)m * a.K + k0 + r, v);
-      if (a.rms) {
-        const float4 g0 = *reinterpret_cast<const float4*>(gbuf + r);
-        const float4 g1 = *reinterpret_cast<const float4*>(gbuf + r + 4);
-        const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+  // Word w of a stage (k = 2 w) sits at slot 2 KS (w % 4) + 2 (w / 8) +
+  // (w / 4) % 2, so lane t's B fragments for the stage's KS k-steps are
+  // 2 KS consecutive words.
+  auto slot = [&](int m, int r) { return xs + m * XP + (r / SR) * (SR / 2) + (r % SR) / 8; };
+  // With RMSNorm, where the slice is a whole number of warps' 8-value
+  // chunks a row and at most IMAX a thread, each thread loads its chunks
+  // once: the sums of squares of the cluster's slices, exchanged through
+  // distributed shared memory and added in slice order, give every block
+  // the same rstd of the whole row, and the chunks are then scaled from
+  // registers. Otherwise one warp a row sums the whole row first and the
+  // slice is loaded after.
+  const int per_row = a.kc / 8;
+  const bool fused = a.rms && per_row % 32 == 0 && a.M * per_row <= IMAX * THREADS;
+  bool waited = false;  // the cluster's first barrier phase (all blocks started)
+  if (fused) {
+    __shared__ float wpart[IMAX * WARPS], xpart[MAX_SLICES * 32];
+    float v[IMAX][8];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = v[e] * rstd[m] * gm[e];
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = 0.f;
+    for (int u = 0; u < IMAX; ++u) {
+      const int i = tid + u * THREADS;
+      if (i < a.M * per_row)
+        load8(a.x + (size_t)(i / per_row) * a.K + k0 + 8 * (i % per_row), v[u]);
     }
-    const int j = (r % SR) / 16;
-    uint32_t* xr = xs + m * XP + (r / SR) * (SR / 2) + 2 * ((j % KW) * (KS / KW) + j / KW) +
-                   (r / 8) % 2;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) xr[2 * KS * e] = pack2(v[2 * e], v[2 * e + 1]);
+    for (int u = 0; u < IMAX; ++u) {  // a warp's chunks of one u lie in one row
+      if (tid - lane + u * THREADS < a.M * per_row) {
+        float ss = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) ss = fmaf(v[u][e], v[u][e], ss);
+        ss = warp_sum(ss);
+        if (lane == 0) wpart[u * WARPS + warp] = ss;
+      }
+    }
+    cp_async_wait<NST - 1>();  // gamma's group
+    __syncthreads();           // gamma's slice and the warps' sums visible to all
+    float p = 0.f;             // thread m < M: the block's sum of squares of row m
+    if (tid < a.M)
+      for (int c = tid * per_row; c < (tid + 1) * per_row; c += 32)
+        p += wpart[(c / THREADS) * WARPS + (c % THREADS) / 32];
+    if (nks > 1) {
+      cluster_wait();
+      waited = true;
+      if (tid < a.M)
+        for (int b = 0; b < nks; ++b) st_cluster(xpart + ks * 32 + tid, b, p);
+      cluster_sync();
+      if (tid < a.M) {
+        p = 0.f;
+        for (int b = 0; b < nks; ++b) p += xpart[b * 32 + tid];
+      }
+    }
+    if (tid < a.M) rstd[tid] = rsqrtf(p / a.K + a.eps);
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < IMAX; ++u) {
+      const int i = tid + u * THREADS;
+      if (i < a.M * per_row) {
+        const int m = i / per_row, r = 8 * (i % per_row);
+        uint32_t* xr = slot(m, r);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          xr[2 * KS * e] = pack2(v[u][2 * e] * rstd[m] * gbuf[r + 2 * e],
+                                 v[u][2 * e + 1] * rstd[m] * gbuf[r + 2 * e + 1]);
+      }
+    }
+    for (int i = tid; i < (8 * MT - a.M) * per_row; i += THREADS) {  // rows of x past M
+      uint32_t* xr = slot(a.M + i / per_row, 8 * (i % per_row));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xr[2 * KS * e] = 0u;
+    }
+  } else {
+    if (a.rms) {  // one warp per row of x, 16-byte loads, all of a lane's in flight
+      cp_async_wait<NST - 1>();  // gamma's group (visible to all after the barrier below)
+      constexpr int V8 = 16 / sizeof(T);
+      for (int m = warp; m < a.M; m += WARPS) {
+        const T* row = a.x + (size_t)m * a.K;
+        float ss = 0.f;
+#pragma unroll 8
+        for (int k = lane * V8; k < a.K; k += 32 * V8) ss += sumsq16(row + k);
+        ss = warp_sum(ss);
+        if (lane == 0) rstd[m] = rsqrtf(ss / a.K + a.eps);
+      }
+      __syncthreads();
+    }
+    for (int i = tid; i < 8 * MT * (a.kc / 8); i += THREADS) {
+      const int m = i / (a.kc / 8), r = 8 * (i % (a.kc / 8));
+      float v[8];
+      if (m < a.M) {
+        load8(a.x + (size_t)m * a.K + k0 + r, v);
+        if (a.rms) {
+          const float4 g0 = *reinterpret_cast<const float4*>(gbuf + r);
+          const float4 g1 = *reinterpret_cast<const float4*>(gbuf + r + 4);
+          const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = v[e] * rstd[m] * gm[e];
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = 0.f;
+      }
+      uint32_t* xr = slot(m, r);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xr[2 * KS * e] = pack2(v[2 * e], v[2 * e + 1]);
+    }
   }
 
-  float acc[2][MT][4], tot[2][MT][4];
+  float acc[NT][MT][4], tot[NT][MT][4];
 #pragma unroll
-  for (int n = 0; n < 2; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[n][mt][c] = tot[n][mt][c] = 0.f;
 
-  constexpr int KSW = KS / KW;  // k-steps a warp takes in each stage
   const unsigned char* wl = ring + sc;
-  const uint32_t* xl = xs + g * XP + 2 * KS * t + 2 * KSW * kw;
+  const uint32_t* xl = xs + g * XP + 2 * KS * t;
   for (int s = 0; s < nsteps; ++s) {
     cp_async_wait<NST - 2>();
     __syncthreads();  // stage s landed for every thread; stage s - 1 fully read
@@ -279,26 +356,25 @@ __global__ void __launch_bounds__(THREADS) qgemv8_kernel(const Args<T> a) {
     cp_async_commit();
 
     const unsigned char* st = wl + (s % NST) * (SR * PITCH);
-    uint4 bx[MT][KSW / 2];
+    uint4 bx[MT][KS / 2];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int h = 0; h < KSW / 2; ++h)
+      for (int h = 0; h < KS / 2; ++h)
         bx[mt][h] = *reinterpret_cast<const uint4*>(xl + 8 * mt * XP + s * (SR / 2) + 4 * h);
 #pragma unroll
-    for (int jj = 0; jj < KSW; ++jj) {
-      const int j = kw + KW * jj;
+    for (int j = 0; j < KS; ++j) {
       const unsigned char* r = st + (16 * j + 2 * t) * PITCH;
-      const uint32_t w0 = ld_word(r), w1 = ld_word(r + PITCH);
-      const uint32_t w2 = ld_word(r + 8 * PITCH), w3 = ld_word(r + 9 * PITCH);
+      const uint32_t w0 = ld_cols(r), w1 = ld_cols(r + PITCH);
+      const uint32_t w2 = ld_cols(r + 8 * PITCH), w3 = ld_cols(r + 9 * PITCH);
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
+      for (int n = 0; n < NT; ++n) {
         const uint32_t af[4] = {s8_pair(w0, w1, 2 * n), s8_pair(w0, w1, 2 * n + 1),
                                 s8_pair(w2, w3, 2 * n), s8_pair(w2, w3, 2 * n + 1)};
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          const uint32_t b[2] = {comp(bx[mt][jj / 2], 2 * (jj % 2)),
-                                 comp(bx[mt][jj / 2], 2 * (jj % 2) + 1)};
+          const uint32_t b[2] = {comp(bx[mt][j / 2], 2 * (j % 2)),
+                                 comp(bx[mt][j / 2], 2 * (j % 2) + 1)};
           mma_bf16(acc[n][mt], af, b);
         }
       }
@@ -307,9 +383,9 @@ __global__ void __launch_bounds__(THREADS) qgemv8_kernel(const Args<T> a) {
     // A window ends: scale its sums by the window's row.
     if (k0 + (s + 1) * SR == wend) {
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        // c0, c1: column 4g + 2n (rows m, m + 1); c2, c3: column 4g + 2n + 1.
-        const float lo = n ? s4.z : s4.x, hi = n ? s4.w : s4.y;
+      for (int n = 0; n < NT; ++n) {
+        // c0, c1: the lane's column 2n (rows m, m + 1); c2, c3: its column 2n + 1.
+        const float lo = sl[2 * n], hi = sl[2 * n + 1];
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -318,53 +394,33 @@ __global__ void __launch_bounds__(THREADS) qgemv8_kernel(const Args<T> a) {
             acc[n][mt][c] = 0.f;
           }
       }
-      if (s + 1 < nsteps) s4 = load_scale(wend);
+      if (s + 1 < nsteps) load_scale(wend);
       wend = min(k0 + a.kc, wend + a.bs);
     }
   }
   cp_async_wait<0>();  // this thread's residual groups
 
-  // The warps of one column group add their k-step shares in the ring, now
-  // free, in a fixed order: kw = 1 .. KW - 1 store, kw = 0 adds.
-  float4* part = reinterpret_cast<float4*>(ring);  // [KW - 1][8 MT][ROW]
-  if (KW > 1) {
-    __syncthreads();  // every warp is done with the ring
-    if (kw > 0) {
+  // The lane's sums, rows m = 8 mt + 2 t + e of x, into the tile: its own
+  // with one slice; else into the shared memory of the block that owns the
+  // row (row m of the tile belongs to block m / rows_per of the cluster),
+  // at this slice's place.
+  if (nks > 1 && !waited) cluster_wait();
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          part[((kw - 1) * 8 * MT + 8 * mt + 2 * t + e) * ROW + sc / 4] =
-              make_float4(tot[0][mt][e], tot[0][mt][2 + e], tot[1][mt][e], tot[1][mt][2 + e]);
-    }
-    __syncthreads();
-  }
-  // The column group's sums, rows m = 8 mt + 2 t + e of x, into the tile:
-  // its own with one slice; else into the shared memory of the block that
-  // owns the row (row m of the tile belongs to block m / rows_per of the
-  // cluster), at this slice's place.
-  if (nks > 1) cluster_wait();
-  if (kw == 0) {
+    for (int e = 0; e < 2; ++e) {
+      const int m = 8 * mt + 2 * t + e;
+      if (m >= a.M) continue;
+      float v[CPL];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int m = 8 * mt + 2 * t + e;
-        if (m >= a.M) continue;
-        float4 v = make_float4(tot[0][mt][e], tot[0][mt][2 + e], tot[1][mt][e],
-                               tot[1][mt][2 + e]);
-        const int i = m * ROW + sc / 4;
-#pragma unroll
-        for (int w = 1; w < KW; ++w) {
-          const float4 p = part[((w - 1) * 8 * MT + m) * ROW + sc / 4];
-          v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
-        }
-        if (nks == 1)
-          tile[i] = v;
-        else
-          st_cluster(tile + ks * per + i % per, i / per, v);
+      for (int n = 0; n < NT; ++n) {
+        v[2 * n] = tot[n][mt][e];
+        v[2 * n + 1] = tot[n][mt][2 + e];
       }
-  }
+      const int i = m * ROW + sc / 4;  // the float4 group of the lane's columns
+      float* dst = reinterpret_cast<float*>(tile + (nks == 1 ? i : ks * per + i % per)) + sc % 4;
+      st_tile<CPL>(dst, nks == 1 ? -1 : i / per, v);
+    }
   if (nks > 1)
     cluster_sync();
   else
@@ -483,12 +539,13 @@ int run(const void* x, const void* gamma, const void* q, const void* scale, cons
 // output width: ldq for store/residual, ldq / 2 for SwiGLU (gate columns
 // [0, N), up columns [N, 2N)). mode: 0 store, 1 +residual, 2 SwiGLU.
 // ksplit (1, 2, 4 or 8: one cluster) slices of kc = K / ksplit rows (kc %
-// 32 == 0); block_size % 32 == 0 or block_size == K. m_tile 8, 16 or 32 (M
-// <= m_tile). Needs N % 4 == 0, K % 8 == 0, 16-byte aligned x, gamma, res,
-// out and scale, and x's staged slice of 8 ceil(M / 8) (kc / 2 + 16) 4-byte
-// pairs in shared memory beside the 68 KB ring and the 8-32 KB tile. x,
-// res and out are f32 when is_f32, else bf16 (checked by the Python
-// wrapper). Returns the launch's cudaError_t.
+// 64 == 0); block_size % 64 == 0 or block_size == K. m_tile 8, 16 or 32 (M
+// <= m_tile). Needs N % 4 == 0, 16-byte aligned x, gamma, res, out and
+// scale, and x's staged slice of 8 ceil(M / 8) (kc / 2 + 4) 4-byte pairs
+// in shared memory beside the 102 KB ring, the 8-32 KB tile and gamma's
+// slice or the residual (kernels/decode_fused.py:plan_qgemv). x, res and
+// out are f32 when is_f32, else bf16 (checked by the Python wrapper).
+// Returns the launch's cudaError_t.
 extern "C" int qgemv_int8(const void* x, const void* gamma, const void* q, const void* scale,
                           const void* res, void* out, int M, int N, int K, int ldq,
                           int block_size, int mode, int rms, float eps, int ksplit, int m_tile,

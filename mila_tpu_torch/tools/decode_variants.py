@@ -1,10 +1,13 @@
-"""Time variants of two decode kernels on the GPU at the smoke shapes.
+"""Time variants of three decode kernels on the GPU at the smoke shapes.
 
     python -m mila_tpu_torch.tools.decode_variants dense [--variants committed min64]
         [--shapes B8 B1] [--splits 1 3 9]
     python -m mila_tpu_torch.tools.decode_variants int4 [--shapes wqkv wgu head]
         [--m 8] [--ksplits 1 2 4] [--variants no_convert no_mma loads_only]
         [--source before=path/to/qgemv_int4.cu]
+    python -m mila_tpu_torch.tools.decode_variants int8 [--shapes wqkv wo head_argmax]
+        [--m 8] [--ksplits 1 2 4] [--variants no_loop no_stream no_pdl]
+        [--source before=path/to/qgemv_int8.cu]
 
 ``dense``: the contiguous-cache decode attention (``csrc/dense_decode_attn.cu``)
 at Llama-3.2-1B's heads (NH 32, NKV 8, HD 64, bf16): B 8 at lengths 129-192
@@ -30,6 +33,17 @@ wrong by design, timed only; ``bn128``: 4 warps and 128 columns a block;
 ``nst12``: a 12-stage ring) and each ``--source`` (another qgemv_int4.cu
 with the same C interface, e.g. an earlier commit's from ``git show``), and
 ``torch.matmul`` on a bf16 weight of the same shape.
+
+``int8``: the int8 GEMV (``csrc/qgemv_int8.cu``) at Llama-3.2-1B's int8
+decode shapes, each in its own mode (wqkv and the head: RMSNorm + store; wo
+and down: + residual; wgu: SwiGLU; head_argmax: the argmax head), random
+weights, per-channel scales, M rows of bf16 x: the same row per shape as
+``int4``, with the variants ``no_convert``, ``no_mma``, ``loads_only`` (as
+``int4``), ``no_stream`` (no weight copies), ``no_loop`` (the main loop
+dropped: launch, prologue and epilogue), ``no_xstage`` and ``no_prologue``
+(x not staged; nor the RMSNorm pass), ``no_pdl`` (a plain launch),
+``nst4`` / ``nst8`` (ring stages), ``sr32`` (32-row stages) and ``bn128``
+(4 warps, 128 columns a block).
 
 Times: a CUDA graph of one call per distinct copy of the inputs (caches or
 weights, cycling past the 50 MB L2), replayed 7 times between CUDA events,
@@ -328,14 +342,23 @@ INT8_VARIANTS["no_stream"] = [  # the weight ring never filled: launch, prologue
 INT8_VARIANTS["no_loop"] = [("for (int s = 0; s < nsteps; ++s) {", "for (int s = 0; s < 0; ++s) {")]
 INT8_VARIANTS["no_xstage"] = [("for (int i = tid; i < 8 * MT * (a.kc / 8); i += THREADS) {",
                                "for (int i = tid; i < 0; i += THREADS) {")]
+INT8_VARIANTS["no_rms"] = [
+    ("if (a.rms) {  // one warp per row", "if (false) {  // one warp per row")]
 INT8_VARIANTS["no_prologue"] = INT8_VARIANTS["no_xstage"] + [
     ("if (a.rms) {  // one warp per row", "if (false) {  // one warp per row")]
-INT8_VARIANTS["bn128"] = [("#define QGEMV8_CW 8", "#define QGEMV8_CW 4")]
-INT8_VARIANTS["kw2"] = [("#define QGEMV8_KW 1", "#define QGEMV8_KW 2")]
+INT8_VARIANTS["no_loop_prologue"] = INT8_VARIANTS["no_loop"] + INT8_VARIANTS["no_prologue"]
+INT8_VARIANTS["bn128"] = [("constexpr int BN = 256;", "constexpr int BN = 128;")]
+INT8_VARIANTS["cpl4"] = [("constexpr int CPL = 2;", "constexpr int CPL = 4;")]
 INT8_VARIANTS["nst4"] = [("constexpr int NST = 6;", "constexpr int NST = 4;")]
+INT8_VARIANTS["nst5"] = [("constexpr int NST = 6;", "constexpr int NST = 5;")]
 INT8_VARIANTS["nst8"] = [("constexpr int NST = 6;", "constexpr int NST = 8;")]
 INT8_VARIANTS["sr32"] = [("constexpr int SR = 64;", "constexpr int SR = 32;"),
                          ("constexpr int NST = 6;", "constexpr int NST = 12;")]
+INT8_VARIANTS["sr128"] = [("constexpr int SR = 64;", "constexpr int SR = 128;"),
+                          ("constexpr int NST = 6;", "constexpr int NST = 3;")]
+INT8_VARIANTS["no_barrier"] = [  # the loop's barrier dropped: wrong by design, timed only
+    ("    __syncthreads();  // stage s landed for every thread; stage s - 1 fully read",
+     "")]
 INT8_VARIANTS["no_pdl"] = [("programmaticStreamSerializationAllowed = 1",
                             "programmaticStreamSerializationAllowed = 0")]
 # name -> (K, weight columns, mode): Llama-3.2-1B's int8 decode projections.
