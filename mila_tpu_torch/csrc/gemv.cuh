@@ -52,23 +52,12 @@ __device__ __forceinline__ void cluster_sync() {
                "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// v to the float4 (float, float2) at p in the shared memory of the cluster's block `rank`.
+// v to the float4 at p in the shared memory of the cluster's block `rank`.
 __device__ __forceinline__ void st_cluster(float4* p, int rank, float4 v) {
   uint32_t a;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
   asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};"
                :: "r"(a), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w) : "memory");
-}
-__device__ __forceinline__ void st_cluster(float* p, int rank, float v) {
-  uint32_t a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
-  asm volatile("st.shared::cluster.f32 [%0], %1;" :: "r"(a), "f"(v) : "memory");
-}
-__device__ __forceinline__ void st_cluster(float2* p, int rank, float2 v) {
-  uint32_t a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
-  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};"
-               :: "r"(a), "f"(v.x), "f"(v.y) : "memory");
 }
 
 // Eight consecutive values (16- or 32-byte aligned) as f32.

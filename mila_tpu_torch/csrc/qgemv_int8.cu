@@ -43,9 +43,11 @@
 // kernel waits for it only before it reads x and the residual. Then the
 // RMSNorm pass, the staging of x's slice (bf16 pairs in the fragment's
 // order), and the residual's copies, which land under the stream.
-// Measured on the card (PERF.md §6): the loop's instructions, not the
-// bytes, set the time at the small projections; 16 warps splitting each
-// stage's k-steps, 32-row stages and 128-column blocks were slower.
+// Measured on the card (PERF.md §6): launch, prologue and epilogue set most
+// of the time at the small projections, the loop's instructions the rest;
+// 16 warps (splitting each stage's k-steps, or of 2 columns a lane), the
+// RMSNorm sums exchanged across the cluster's slices (x read once),
+// 32-row stages and 128-column blocks were no faster.
 // Each scale window (a scale block, or the whole slice with per-channel
 // scales) is summed on its own and scaled at its end. The block's sums go
 // to a [rows of x][256] f32 tile in shared memory; with ksplit > 1 slices
@@ -66,16 +68,13 @@
 
 namespace {
 
-constexpr int BN = 256;         // weight columns per block (INT8_COLS of kernels/decode_fused.py)
-constexpr int CPL = 2;          // adjacent weight columns per lane: 2 or 4
-constexpr int WARPS = BN / (8 * CPL), THREADS = 32 * WARPS;
-constexpr int NT = CPL / 2;     // a warp's 16-column n-tiles
+constexpr int WARPS = 8, THREADS = 32 * WARPS;
+constexpr int BN = 32 * WARPS;  // weight columns per block (INT8_COLS of kernels/decode_fused.py)
 constexpr int SR = 64;          // weight rows per stage (INT8_STAGE_ROWS)
 constexpr int NST = 6;          // ring stages
 constexpr int KS = SR / 16;     // mma k-steps per stage
 constexpr int XPAD = KS == 2 ? 16 : 4;  // x's row pitch pad: conflict-free 16-byte fragment loads
 constexpr int MAX_SLICES = 8;   // INT8_MAX_SLICES: one portable cluster
-constexpr int IMAX = 4;         // x's 8-value chunks a thread holds in the fused RMSNorm
 constexpr int PITCH = BN + 16;  // bytes per staged row: rows 2t of a k-step start 8 banks apart
 constexpr int MODE_STORE = 0, MODE_RESIDUAL = 1, MODE_SWIGLU = 2, MODE_ARGMAX = 3;
 
@@ -106,10 +105,8 @@ __device__ __forceinline__ uint32_t s8_pair(uint32_t wa, uint32_t wb, int j) {
   return v;
 }
 
-// The lane's CPL bytes of one staged row, in the low bytes of a word.
-__device__ __forceinline__ uint32_t ld_cols(const unsigned char* p) {
-  if constexpr (CPL == 4) return *reinterpret_cast<const uint32_t*>(p);
-  return *reinterpret_cast<const uint16_t*>(p);
+__device__ __forceinline__ uint32_t ld_word(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // Sum of squares of the 16 bytes at p (8 bf16 or 4 f32 values).
@@ -136,22 +133,6 @@ __device__ __forceinline__ unsigned long long argmax_key(float v, int n) {
 }
 
 __device__ __forceinline__ float silu_mul(float g, float u) { return g / (1.f + expf(-g)) * u; }
-
-// The lane's CPL sums to p in this block's shared memory (rank < 0) or in
-// that of the cluster's block `rank`.
-template <int N>
-__device__ __forceinline__ void st_tile(float* p, int rank, const float* v) {
-  if (rank < 0) {
-    if constexpr (N == 4)
-      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-    else
-      *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  } else if constexpr (N == 4) {
-    st_cluster(reinterpret_cast<float4*>(p), rank, make_float4(v[0], v[1], v[2], v[3]));
-  } else {
-    st_cluster(reinterpret_cast<float2*>(p), rank, make_float2(v[0], v[1]));
-  }
-}
 
 // MT: n-tiles of 8 rows of x (M <= 8 MT); VEC: bytes per weight copy (16,
 // or 4 where the rows are not 16-byte aligned).
@@ -208,19 +189,18 @@ __global__ void __launch_bounds__(THREADS) qgemv8_kernel(const Args<T> a) {
     cp_async_commit();
   }
 
-  // The lane's CPL columns and the first window's scale row, in flight with
+  // The lane's 4 columns and the first window's scale row, in flight with
   // the ring. A window ends at the next multiple of bs (or the slice's end).
-  const int sc = 8 * CPL * warp + CPL * g;
+  const int sc = 32 * warp + 4 * g;
   int oc;
   const int col = wcol(sc, &oc);
   const bool live = oc < a.N;
-  float sl[CPL];
   auto load_scale = [&](int row) {
-    const float* p = a.scale + (size_t)(row / a.bs) * a.ldq + col;
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) sl[c] = live ? __ldg(p + c) : 0.f;
+    return live ? __ldg(reinterpret_cast<const float4*>(a.scale + (size_t)(row / a.bs) * a.ldq +
+                                                       col))
+                : make_float4(0.f, 0.f, 0.f, 0.f);
   };
-  load_scale(k0);
+  float4 s4 = load_scale(k0);
   int wend = min(k0 + a.kc, (k0 / a.bs + 1) * a.bs);
 
   // Only weights so far: x and the residual come from the kernel before.
@@ -233,115 +213,47 @@ __global__ void __launch_bounds__(THREADS) qgemv8_kernel(const Args<T> a) {
     }
   }
 
+  if (a.rms) {  // one warp per row of x, 16-byte loads, all of a lane's in flight
+    cp_async_wait<NST - 1>();  // gamma's group (visible to all after the barrier below)
+    constexpr int V8 = 16 / sizeof(T);
+    for (int m = warp; m < a.M; m += WARPS) {
+      const T* row = a.x + (size_t)m * a.K;
+      float ss = 0.f;
+#pragma unroll 8
+      for (int k = lane * V8; k < a.K; k += 32 * V8) ss += sumsq16(row + k);
+      ss = warp_sum(ss);
+      if (lane == 0) rstd[m] = rsqrtf(ss / a.K + a.eps);
+    }
+    __syncthreads();
+  }
   // x's slice as bf16 pairs (x[m][k], x[m][k + 1]), rows of x past M zero.
   // Word w of a stage (k = 2 w) sits at slot 2 KS (w % 4) + 2 (w / 8) +
   // (w / 4) % 2, so lane t's B fragments for the stage's KS k-steps are
   // 2 KS consecutive words.
-  auto slot = [&](int m, int r) { return xs + m * XP + (r / SR) * (SR / 2) + (r % SR) / 8; };
-  // With RMSNorm, where the slice is a whole number of warps' 8-value
-  // chunks a row and at most IMAX a thread, each thread loads its chunks
-  // once: the sums of squares of the cluster's slices, exchanged through
-  // distributed shared memory and added in slice order, give every block
-  // the same rstd of the whole row, and the chunks are then scaled from
-  // registers. Otherwise one warp a row sums the whole row first and the
-  // slice is loaded after.
-  const int per_row = a.kc / 8;
-  const bool fused = a.rms && per_row % 32 == 0 && a.M * per_row <= IMAX * THREADS;
-  bool waited = false;  // the cluster's first barrier phase (all blocks started)
-  if (fused) {
-    __shared__ float wpart[IMAX * WARPS], xpart[MAX_SLICES * 32];
-    float v[IMAX][8];
+  for (int i = tid; i < 8 * MT * (a.kc / 8); i += THREADS) {
+    const int m = i / (a.kc / 8), r = 8 * (i % (a.kc / 8));
+    float v[8];
+    if (m < a.M) {
+      load8(a.x + (size_t)m * a.K + k0 + r, v);
+      if (a.rms) {
+        const float4 g0 = *reinterpret_cast<const float4*>(gbuf + r);
+        const float4 g1 = *reinterpret_cast<const float4*>(gbuf + r + 4);
+        const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
 #pragma unroll
-    for (int u = 0; u < IMAX; ++u) {
-      const int i = tid + u * THREADS;
-      if (i < a.M * per_row)
-        load8(a.x + (size_t)(i / per_row) * a.K + k0 + 8 * (i % per_row), v[u]);
-    }
-#pragma unroll
-    for (int u = 0; u < IMAX; ++u) {  // a warp's chunks of one u lie in one row
-      if (tid - lane + u * THREADS < a.M * per_row) {
-        float ss = 0.f;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) ss = fmaf(v[u][e], v[u][e], ss);
-        ss = warp_sum(ss);
-        if (lane == 0) wpart[u * WARPS + warp] = ss;
+        for (int e = 0; e < 8; ++e) v[e] = v[e] * rstd[m] * gm[e];
       }
-    }
-    cp_async_wait<NST - 1>();  // gamma's group
-    __syncthreads();           // gamma's slice and the warps' sums visible to all
-    float p = 0.f;             // thread m < M: the block's sum of squares of row m
-    if (tid < a.M)
-      for (int c = tid * per_row; c < (tid + 1) * per_row; c += 32)
-        p += wpart[(c / THREADS) * WARPS + (c % THREADS) / 32];
-    if (nks > 1) {
-      cluster_wait();
-      waited = true;
-      if (tid < a.M)
-        for (int b = 0; b < nks; ++b) st_cluster(xpart + ks * 32 + tid, b, p);
-      cluster_sync();
-      if (tid < a.M) {
-        p = 0.f;
-        for (int b = 0; b < nks; ++b) p += xpart[b * 32 + tid];
-      }
-    }
-    if (tid < a.M) rstd[tid] = rsqrtf(p / a.K + a.eps);
-    __syncthreads();
+    } else {
 #pragma unroll
-    for (int u = 0; u < IMAX; ++u) {
-      const int i = tid + u * THREADS;
-      if (i < a.M * per_row) {
-        const int m = i / per_row, r = 8 * (i % per_row);
-        uint32_t* xr = slot(m, r);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          xr[2 * KS * e] = pack2(v[u][2 * e] * rstd[m] * gbuf[r + 2 * e],
-                                 v[u][2 * e + 1] * rstd[m] * gbuf[r + 2 * e + 1]);
-      }
+      for (int e = 0; e < 8; ++e) v[e] = 0.f;
     }
-    for (int i = tid; i < (8 * MT - a.M) * per_row; i += THREADS) {  // rows of x past M
-      uint32_t* xr = slot(a.M + i / per_row, 8 * (i % per_row));
+    uint32_t* xr = xs + m * XP + (r / SR) * (SR / 2) + (r % SR) / 8;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) xr[2 * KS * e] = 0u;
-    }
-  } else {
-    if (a.rms) {  // one warp per row of x, 16-byte loads, all of a lane's in flight
-      cp_async_wait<NST - 1>();  // gamma's group (visible to all after the barrier below)
-      constexpr int V8 = 16 / sizeof(T);
-      for (int m = warp; m < a.M; m += WARPS) {
-        const T* row = a.x + (size_t)m * a.K;
-        float ss = 0.f;
-#pragma unroll 8
-        for (int k = lane * V8; k < a.K; k += 32 * V8) ss += sumsq16(row + k);
-        ss = warp_sum(ss);
-        if (lane == 0) rstd[m] = rsqrtf(ss / a.K + a.eps);
-      }
-      __syncthreads();
-    }
-    for (int i = tid; i < 8 * MT * (a.kc / 8); i += THREADS) {
-      const int m = i / (a.kc / 8), r = 8 * (i % (a.kc / 8));
-      float v[8];
-      if (m < a.M) {
-        load8(a.x + (size_t)m * a.K + k0 + r, v);
-        if (a.rms) {
-          const float4 g0 = *reinterpret_cast<const float4*>(gbuf + r);
-          const float4 g1 = *reinterpret_cast<const float4*>(gbuf + r + 4);
-          const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = v[e] * rstd[m] * gm[e];
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = 0.f;
-      }
-      uint32_t* xr = slot(m, r);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) xr[2 * KS * e] = pack2(v[2 * e], v[2 * e + 1]);
-    }
+    for (int e = 0; e < 4; ++e) xr[2 * KS * e] = pack2(v[2 * e], v[2 * e + 1]);
   }
 
-  float acc[NT][MT][4], tot[NT][MT][4];
+  float acc[2][MT][4], tot[2][MT][4];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+  for (int n = 0; n < 2; ++n)
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -365,10 +277,10 @@ __global__ void __launch_bounds__(THREADS) qgemv8_kernel(const Args<T> a) {
 #pragma unroll
     for (int j = 0; j < KS; ++j) {
       const unsigned char* r = st + (16 * j + 2 * t) * PITCH;
-      const uint32_t w0 = ld_cols(r), w1 = ld_cols(r + PITCH);
-      const uint32_t w2 = ld_cols(r + 8 * PITCH), w3 = ld_cols(r + 9 * PITCH);
+      const uint32_t w0 = ld_word(r), w1 = ld_word(r + PITCH);
+      const uint32_t w2 = ld_word(r + 8 * PITCH), w3 = ld_word(r + 9 * PITCH);
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
+      for (int n = 0; n < 2; ++n) {
         const uint32_t af[4] = {s8_pair(w0, w1, 2 * n), s8_pair(w0, w1, 2 * n + 1),
                                 s8_pair(w2, w3, 2 * n), s8_pair(w2, w3, 2 * n + 1)};
 #pragma unroll
@@ -383,9 +295,9 @@ __global__ void __launch_bounds__(THREADS) qgemv8_kernel(const Args<T> a) {
     // A window ends: scale its sums by the window's row.
     if (k0 + (s + 1) * SR == wend) {
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        // c0, c1: the lane's column 2n (rows m, m + 1); c2, c3: its column 2n + 1.
-        const float lo = sl[2 * n], hi = sl[2 * n + 1];
+      for (int n = 0; n < 2; ++n) {
+        // c0, c1: column 4g + 2n (rows m, m + 1); c2, c3: column 4g + 2n + 1.
+        const float lo = n ? s4.z : s4.x, hi = n ? s4.w : s4.y;
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -394,7 +306,7 @@ __global__ void __launch_bounds__(THREADS) qgemv8_kernel(const Args<T> a) {
             acc[n][mt][c] = 0.f;
           }
       }
-      if (s + 1 < nsteps) load_scale(wend);
+      if (s + 1 < nsteps) s4 = load_scale(wend);
       wend = min(k0 + a.kc, wend + a.bs);
     }
   }
@@ -404,22 +316,20 @@ __global__ void __launch_bounds__(THREADS) qgemv8_kernel(const Args<T> a) {
   // with one slice; else into the shared memory of the block that owns the
   // row (row m of the tile belongs to block m / rows_per of the cluster),
   // at this slice's place.
-  if (nks > 1 && !waited) cluster_wait();
+  if (nks > 1) cluster_wait();
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int m = 8 * mt + 2 * t + e;
       if (m >= a.M) continue;
-      float v[CPL];
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        v[2 * n] = tot[n][mt][e];
-        v[2 * n + 1] = tot[n][mt][2 + e];
-      }
-      const int i = m * ROW + sc / 4;  // the float4 group of the lane's columns
-      float* dst = reinterpret_cast<float*>(tile + (nks == 1 ? i : ks * per + i % per)) + sc % 4;
-      st_tile<CPL>(dst, nks == 1 ? -1 : i / per, v);
+      const float4 v = make_float4(tot[0][mt][e], tot[0][mt][2 + e], tot[1][mt][e],
+                                   tot[1][mt][2 + e]);
+      const int i = m * ROW + sc / 4;
+      if (nks == 1)
+        tile[i] = v;
+      else
+        st_cluster(tile + ks * per + i % per, i / per, v);
     }
   if (nks > 1)
     cluster_sync();

@@ -19,8 +19,8 @@ What bounds it on the H100: the int8 weight stream (K*N bytes against
 2*M*K*N operations, M <= 32: far below the card's operations-per-byte
 balance). One CUDA kernel family (``csrc/qgemv_int8.cu``) serves all four
 in one launch a call: the products run on tensor cores (``mma.sync``, the
-weight as the 16-row operand, exact int8 -> bf16 by a byte permute and one
-f32 subtraction), a block owns 256 weight columns (SwiGLU: 128 gate and
+weight as the 16-row operand, exact int8 -> bf16 by a byte permute, two
+``lop3`` and one bf16x2 FMA a pair), a block owns 256 weight columns (SwiGLU: 128 gate and
 their 128 up columns) and a slice of K streamed through a 16-byte
 ``cp.async`` ring, x's slice is staged in shared memory after the RMSNorm
 pass (the whole [M, K] x of the TPU kernel does not fit: 32x8192 bf16 is

@@ -347,8 +347,7 @@ INT8_VARIANTS["no_rms"] = [
 INT8_VARIANTS["no_prologue"] = INT8_VARIANTS["no_xstage"] + [
     ("if (a.rms) {  // one warp per row", "if (false) {  // one warp per row")]
 INT8_VARIANTS["no_loop_prologue"] = INT8_VARIANTS["no_loop"] + INT8_VARIANTS["no_prologue"]
-INT8_VARIANTS["bn128"] = [("constexpr int BN = 256;", "constexpr int BN = 128;")]
-INT8_VARIANTS["cpl4"] = [("constexpr int CPL = 2;", "constexpr int CPL = 4;")]
+INT8_VARIANTS["bn128"] = [("constexpr int WARPS = 8,", "constexpr int WARPS = 4,")]
 INT8_VARIANTS["nst4"] = [("constexpr int NST = 6;", "constexpr int NST = 4;")]
 INT8_VARIANTS["nst5"] = [("constexpr int NST = 6;", "constexpr int NST = 5;")]
 INT8_VARIANTS["nst8"] = [("constexpr int NST = 6;", "constexpr int NST = 8;")]
