@@ -74,7 +74,7 @@ constexpr int SR = 64;          // weight rows per stage (INT8_STAGE_ROWS)
 constexpr int NST = 6;          // ring stages
 constexpr int KS = SR / 16;     // mma k-steps per stage
 constexpr int XPAD = KS == 2 ? 16 : 4;  // x's row pitch pad: conflict-free 16-byte fragment loads
-constexpr int MAX_SLICES = 16;  // INT8_MAX_SLICES: one cluster (above 8 a non-portable one)
+constexpr int MAX_SLICES = 8;   // INT8_MAX_SLICES: one portable cluster
 constexpr int PITCH = BN + 16;  // bytes per staged row: rows 2t of a k-step start 8 banks apart
 constexpr int MODE_STORE = 0, MODE_RESIDUAL = 1, MODE_SWIGLU = 2, MODE_ARGMAX = 3;
 
@@ -153,7 +153,7 @@ __global__ void __launch_bounds__(THREADS) qgemv8_kernel(const Args<T> a) {
   const int tw = swiglu ? BN / 2 : BN;  // output columns per block
   const int n0 = blockIdx.x * tw, ks = blockIdx.y, nks = gridDim.y;
   const int k0 = ks * a.kc, nsteps = a.kc / SR;
-  const int per = 8 * MT * ROW / nks;  // the tile's float4 groups this block owns
+  const int rows_per = 8 * MT / nks, per = rows_per * ROW;  // the tile rows this block owns
   if (nks > 1) cluster_arrive_relaxed();
   pdl_launch_dependents();
 
@@ -314,9 +314,8 @@ __global__ void __launch_bounds__(THREADS) qgemv8_kernel(const Args<T> a) {
 
   // The lane's sums, rows m = 8 mt + 2 t + e of x, into the tile: its own
   // with one slice; else into the shared memory of the block that owns the
-  // group (group i of the tile belongs to block i / per of the cluster: a
-  // whole number of warps' 32 groups, whole rows at up to 8 MT slices), at
-  // this slice's place.
+  // row (row m of the tile belongs to block m / rows_per of the cluster),
+  // at this slice's place.
   if (nks > 1) cluster_wait();
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -337,10 +336,9 @@ __global__ void __launch_bounds__(THREADS) qgemv8_kernel(const Args<T> a) {
   else
     __syncthreads();
 
-  // The owner's groups: the slices added in slice order, then the
-  // epilogue. A warp's 32 groups lie in one row (ROW % 32 == 0), so the row
-  // checks and the argmax's shuffles take whole warps. (SwiGLU pairs gate
-  // group j with up group j + BN / 8: whole rows, at most 8 MT slices.)
+  // The owner's rows: the slices added in slice order, then the epilogue.
+  // A warp's 32 groups lie in one row (ROW % 32 == 0), so the row checks
+  // and the argmax's shuffles take whole warps.
   for (int j = tid; j < per; j += THREADS) {
     const int i = ks * per + j, m = i / ROW, c = 4 * (i % ROW);
     if (m >= a.M) continue;
@@ -396,22 +394,16 @@ __global__ void argmax_index(const unsigned long long* __restrict__ keys, int* _
 
 template <int MT, typename T, int VEC>
 int launch(const Args<T>& a, int ksplit, cudaStream_t stream) {
-  const int per = 8 * MT * BN / 4 / ksplit;  // float4 groups a block owns
+  const int rows_per = 8 * MT / ksplit;
   const int smem = NST * SR * PITCH + 8 * MT * (a.kc / 2 + XPAD) * 4 + 8 * MT * BN * 4 +
-                   (a.mode == MODE_RESIDUAL ? per * 4 * (int)sizeof(T) : 0) +
+                   (a.mode == MODE_RESIDUAL ? rows_per * BN * (int)sizeof(T) : 0) +
                    (a.rms ? a.kc * 4 : 0);
   auto kern = qgemv8_kernel<MT, T, VEC>;
   static int allowed = 48 * 1024;
-  static bool wide = false;  // clusters above 8 blocks allowed
   if (smem > allowed) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     allowed = smem;
-  }
-  if (ksplit > 8 && !wide) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    wide = true;
   }
   const int tw = a.mode == MODE_SWIGLU ? BN / 2 : BN;
   cudaLaunchConfig_t cfg = {};

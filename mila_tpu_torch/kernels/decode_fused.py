@@ -156,7 +156,7 @@ for _f in (rms_quant_linear_plain, quant_linear_residual_plain,
 INT8_COLS = 256  # weight columns per block of qgemv_int8 (SwiGLU: 128 gate + 128 up)
 INT8_STAGE_ROWS = 64  # weight rows per stage (and per slice's multiple)
 INT8_MIN_ROWS = 128  # K rows a slice keeps at least (unless x's stage forces fewer)
-INT8_MAX_SLICES = 16  # the slices of a column tile form one cluster (SwiGLU: 8 at most)
+INT8_MAX_SLICES = 8  # the slices of a column tile form one cluster: 8 blocks at most
 INT8_X_BYTES = 72 * 1024  # staged x pairs per block
 
 
@@ -180,9 +180,8 @@ def plan_qgemv(M: int, K: int, n_out: int, block_size: int, sms: int,
     columns, 128 for SwiGLU (whose block also streams the up columns)."""
     mt = 8 if M <= 8 else 16 if M <= 16 else 32
     tiles = -(-n_out // (INT8_COLS // 2 if swiglu else INT8_COLS))
-    most = mt if swiglu else INT8_MAX_SLICES  # SwiGLU's owners take whole rows of x
     ks = 1
-    while (ks < most and K % (2 * ks) == 0
+    while (ks < INT8_MAX_SLICES and K % (2 * ks) == 0
            and (K // (2 * ks)) % INT8_STAGE_ROWS == 0 and (
                _int8_x_bytes(M, K // ks) > INT8_X_BYTES
                or (tiles * 2 * ks <= sms and K // (2 * ks) >= INT8_MIN_ROWS))):
