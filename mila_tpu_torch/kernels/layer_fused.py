@@ -195,17 +195,22 @@ _MIN_KC = 64
 _BLOCKS_PER_SM = 2  # co-resident blocks per SM at most: fewer meet faster at a barrier
 
 
+def type_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of ``csrc/layer_tail_int8.cu`` on ``lib``
+    (also a variant build of it, ``tools/tail_phases.py``)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.layer_tail_int8.argtypes = ([vp] * 17 + [ci] * 10
+                                    + [ctypes.c_float, ci, ci, ci, vp])
+    lib.layer_tail_int8.restype = ci
+    lib.layer_tail_int8_blocks_per_sm.argtypes = [ci, ci, ctypes.POINTER(ci)]
+    lib.layer_tail_int8_blocks_per_sm.restype = ci
+    lib._typed = True
+    return lib
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.library("layer_tail_int8")
-    if not getattr(lib, "_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.layer_tail_int8.argtypes = ([vp] * 17 + [ci] * 10
-                                        + [ctypes.c_float, ci, ci, ci, vp])
-        lib.layer_tail_int8.restype = ci
-        lib.layer_tail_int8_blocks_per_sm.argtypes = [ci, ci, ctypes.POINTER(ci)]
-        lib.layer_tail_int8_blocks_per_sm.restype = ci
-        lib._typed = True
-    return lib
+    return lib if getattr(lib, "_typed", False) else type_lib(lib)
 
 
 @functools.lru_cache(maxsize=None)

@@ -167,16 +167,21 @@ _INTS = ("giga", "tokens_mode", "x_is_f32", "M", "H", "I", "bn", "NH", "NKV", "H
 _HDS = (8, 16, 32, 64, 128)
 
 
+def type_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of ``csrc/decode_step_int8.cu`` on ``lib``
+    (also a variant build of it, ``tools/tail_phases.py``)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.decode_step_int8.argtypes = [vp, ci, vp, ci, vp, ci, ci, ci, ci, vp]
+    lib.decode_step_int8.restype = ci
+    lib.decode_step_int8_blocks_per_sm.argtypes = [ci, ci, ctypes.POINTER(ci)]
+    lib.decode_step_int8_blocks_per_sm.restype = ci
+    lib._typed = True
+    return lib
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.library("decode_step_int8")
-    if not getattr(lib, "_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.decode_step_int8.argtypes = [vp, ci, vp, ci, vp, ci, ci, ci, ci, vp]
-        lib.decode_step_int8.restype = ci
-        lib.decode_step_int8_blocks_per_sm.argtypes = [ci, ci, ctypes.POINTER(ci)]
-        lib.decode_step_int8_blocks_per_sm.restype = ci
-        lib._typed = True
-    return lib
+    return lib if getattr(lib, "_typed", False) else type_lib(lib)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,19 +1,42 @@
-"""Time each phase of the layer-tail kernel (``csrc/layer_tail_int8.cu`` with
-``csrc/tail_phases.cuh``) on
-the GPU, at Llama-3.2-1B's tail (H 2048, I 8192, wqkv 3072 columns, bn 512,
-M 8, random int8 weights).
+"""Time each phase of the layer-tail kernel (K7, ``csrc/layer_tail_int8.cu``)
+and of the whole-step decode kernel (K8, ``csrc/decode_step_int8.cu``), both
+built on ``csrc/tail_phases.cuh``, on the GPU at Llama-3.2-1B's shapes
+(H 2048, I 8192, wqkv 3072 columns, bn 512, random int8 weights).
 
-    python -m mila_tpu_torch.tools.tail_phases [--min-blocks 2 3] [--plan one-round fill]
+    python -m mila_tpu_torch.tools.tail_phases [--kernels tail mlp giga]
+        [--variants committed nst3 sr128 no_prefetch ...] [--plans committed c128 ...]
 
-It compiles a copy of the kernel in which block 0 stamps ``%globaltimer``
-after every grid barrier (into ``csrc/build/``), runs the tail 12 times per
-variant and prints, per variant, one JSON line with the median µs of each
-phase (wo, fin1, gu, fin_h, down, fin2, qkv, fin3) and in all, then the time
-of a launch of grid barriers alone (1 and 8 of them). Variants: the
-registers bounded for ``--min-blocks`` resident blocks per SM, and the K
-slice plan: ``one-round`` (the committed ``plan_tail``: at most one unit per
-block) or ``fill`` (the fewest slices that give every block a unit).
-Needs a CUDA device and nvcc.
+It compiles copies of the two sources in which block 0 stamps
+``%globaltimer`` when the kernel starts, after every grid barrier and when
+it ends (into ``csrc/build/``, one nvcc per source and variant, all at
+once), runs each kernel 12 times per variant and plan, and prints one JSON
+line per kernel, variant and plan with the median µs of each phase:
+
+- ``tail``: the layer tail of a middle layer (M 8, alternating between two
+  layers of a 3-layer stream) and of the last one: wo, fin1, gu, fin_h,
+  down, fin2, qkv, fin3;
+- ``mlp``: the MLP block (bn 2048, no next wqkv, M 8): wo .. fin2;
+- ``giga``: the whole decode step (L 16, B 8, cached lengths 128-191 of a
+  T 512 cache, tokens mode), each phase kind summed over the layers:
+  prologue (embedding rows, RoPE tables, row sums of squares), attention,
+  wo, fin1, gu, fin_h, down, fin2, qkv (the prologue's wqkv_0 and the 15
+  next-layer products), fin3, head (norm_f and the head GEMV) and argmax
+  (logits, each block's best column, the merge).
+
+An interval runs from one barrier's exit to the next one's in block 0: the
+slowest block's work plus the barrier. Last, the time of a launch of grid
+barriers alone (1 and 8 of them).
+
+Variants are compile-time (``-D`` macros of ``tail_phases.cuh``):
+``committed``; ``nst3`` / ``nst5`` (ring stages; ``nst5`` with a 17 KB
+staged slice, so two blocks still fit an SM); ``sr128`` (128-row stages);
+``no_prefetch`` (no request of the next phase's first stages before a
+barrier); ``mb1`` / ``mb3`` (registers bounded for 1 or 3 resident blocks
+per SM, and that many blocks an SM). Plans are the launch plan
+(``kernels/layer_fused.py:plan_tail``): ``committed``; ``c128`` / ``c256``
+(128 or 256 weight columns a unit in every phase that takes them);
+``half`` (one K-slice doubling fewer in every phase). Needs a CUDA device
+and nvcc.
 """
 
 from __future__ import annotations
@@ -30,143 +53,275 @@ import torch
 
 from mila_tpu_torch.inference.quantize import quantize
 from mila_tpu_torch.kernels import _build
+from mila_tpu_torch.kernels import decode_giga as dg
+from mila_tpu_torch.kernels import decode_mlp as dm
 from mila_tpu_torch.kernels import layer_fused as lf
+from mila_tpu_torch.kernels import layer_mega as lm
 from mila_tpu_torch.kernels import layer_stream as ls
 
-PHASES = ("wo", "fin1", "gu", "fin_h", "down", "fin2", "qkv", "fin3")
-_STAMP = ('__device__ unsigned long long g_trace[32];\n'
-          '__device__ __forceinline__ void stamp(int i) {\n'
-          '  if (blockIdx.x == 0 && threadIdx.x == 0) {\n'
-          '    unsigned long long t;\n'
-          '    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));\n'
-          '    g_trace[i] = t;\n  }\n}\n')
-_EXTRA = '''
-__global__ void barriers_only(int n) {
+H, I, NQ, BN, M = 2048, 8192, 3072, 512, 8
+NH, NKV, HD, L, T, VOCAB = 32, 8, 64, 16, 512, 128256
+MAX_STAMPS = 1024
+TAIL = ("wo", "fin1", "gu", "fin_h", "down", "fin2")
+
+# name -> (nvcc defines, overrides of kernels/layer_fused.py's mirrors of them)
+VARIANTS = {
+    "committed": ([], {}),
+    "nst3": (["-DTAIL_NST=3"], {}),
+    "nst5": (["-DTAIL_NST=5", "-DTAIL_XS_KB=17"], {"_XS_BYTES": 17 * 1024}),
+    "sr128": (["-DTAIL_SR=128"], {"_STAGE_ROWS": 128}),
+    "no_prefetch": (["-DTAIL_PREFETCH=0"], {}),
+    "mb1": (["-DTAIL_MIN_BLOCKS=1"], {"_BLOCKS_PER_SM": 1}),
+    "mb3": (["-DTAIL_MIN_BLOCKS=3"], {"_BLOCKS_PER_SM": 3}),
+}
+
+_STAMP = f'''
+__device__ unsigned long long g_trace[{MAX_STAMPS}];
+__device__ int g_n;
+__device__ __forceinline__ void stamp() {{
+  if (blockIdx.x == 0 && threadIdx.x == 0) {{
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    if (g_n < {MAX_STAMPS}) g_trace[g_n++] = t;
+  }}
+}}
+'''
+_EXTRA = f'''
+__global__ void barriers_only(int n) {{
   cg::grid_group g = cg::this_grid();
   for (int i = 0; i < n; ++i) g.sync();
-}
-extern "C" int run_barriers(int grid, int n, void* stream) {
-  void* args[] = {&n};
+}}
+extern "C" int run_barriers(int grid, int n, void* stream) {{
+  void* args[] = {{&n}};
   return (int)cudaLaunchCooperativeKernel((const void*)barriers_only, dim3(grid), dim3(256),
                                           args, 0, (cudaStream_t)stream);
-}
-extern "C" void get_trace(unsigned long long* out) {
-  cudaMemcpyFromSymbol(out, g_trace, sizeof(unsigned long long) * 32);
-}
+}}
+extern "C" void reset_trace() {{
+  int z = 0;
+  cudaMemcpyToSymbol(g_n, &z, sizeof(int));
+}}
+extern "C" int get_trace(unsigned long long* out) {{
+  int n = 0;
+  cudaMemcpyFromSymbol(&n, g_n, sizeof(int));
+  cudaMemcpyFromSymbol(out, g_trace, sizeof(unsigned long long) * {MAX_STAMPS});
+  return n;
+}}
 '''
 
 
-def stamped_source() -> str:
-    """layer_tail_int8.cu with tail_phases.cuh inlined and a stamp after
-    every barrier, numbered in the order a layer meets them (qkv_phases,
-    defined first, holds the seventh)."""
+def _instrument_kernel(src: str, name: str) -> str:
+    """Stamp at the start and at every exit of the __global__ function
+    ``name`` (found by matching its braces)."""
+    m = re.search(r"\b" + name + r"\([^)]*\)\s*\{", src)
+    if m is None:
+        raise RuntimeError(f"no kernel {name} in the source")
+    depth, i = 1, m.end()
+    while depth:
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        i += 1
+    body = src[m.end():i - 1].replace("return;", "{ stamp(); return; }")
+    return src[:m.end()] + " stamp();" + body + "stamp();\n}" + src[i:]
+
+
+def stamped_sources() -> dict:
+    """The two sources with the phase clock: tail_phases.cuh inlined, a
+    stamp after every grid barrier, at each kernel's start and exits."""
     head = (_build.CSRC / "tail_phases.cuh").read_text()
-    head = head.replace('#include "common.cuh"',
-                        f'#include "{_build.CSRC / "common.cuh"}"\n{_STAMP}')
-    split = head.index("__device__ void tail_phases")
-    first, rest = head[:split], head[split:]
-    first = first.replace("grid.sync();", "grid.sync(); stamp(7);")
-    count = iter(range(1, 7))
-    rest = re.sub(r"grid\.sync\(\);", lambda _: f"grid.sync(); stamp({next(count)});", rest)
-    head = first + rest
-    head = head.replace("  // 1 wo.", "  stamp(0);\n  // 1 wo.")
-    head = head.replace("  if (p.n_qkv == 0) return;",
-                        "  if (p.n_qkv == 0) { stamp(20); return; }")
-    head = head.replace("    qkv[i] = from_f<T>(v);\n  }\n}",
-                        "    qkv[i] = from_f<T>(v);\n  }\n  stamp(20);\n}")
-    if head.count("stamp(") < 10:
-        raise RuntimeError("the kernel source no longer has the expected phase markers")
-    src = (_build.CSRC / "layer_tail_int8.cu").read_text()
-    return src.replace('#include "tail_phases.cuh"', head) + _EXTRA
+    if head.count("grid.sync();") < 4:
+        raise RuntimeError("tail_phases.cuh no longer has the expected barriers")
+    head = head.replace("#pragma once", "#pragma once\n" + _STAMP, 1)
+    out = {}
+    for name, kernel in (("layer_tail_int8", "tail_kernel"), ("decode_step_int8", "step_kernel")):
+        src = (_build.CSRC / f"{name}.cu").read_text().replace('#include "tail_phases.cuh"', head)
+        src = _instrument_kernel(src, kernel).replace("grid.sync();", "grid.sync(); stamp();")
+        out[name] = src + _EXTRA
+    return out
 
 
-def build(min_blocks) -> dict:
+def build(variants) -> dict:
+    """{variant: (K7 library, K8 library)}, compiled all at once."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = _build.BUILD_DIR / "tail_phases.cu"
-    cu.write_text(stamped_source())
     procs = {}
-    for mb in min_blocks:
-        out = _build.BUILD_DIR / f"libtail_phases_{mb}.so"
-        procs[mb] = (out, subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, f"-DTAIL_MIN_BLOCKS={mb}", "-o", str(out),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for mb, (out, proc) in procs.items():
+    for src_name, text in stamped_sources().items():
+        cu = _build.BUILD_DIR / f"phases_{src_name}.cu"
+        cu.write_text(text)
+        for v in variants:
+            out = _build.BUILD_DIR / f"libphases_{src_name}_{v}.so"
+            procs[(v, src_name)] = (out, subprocess.Popen(
+                [_build.nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", *VARIANTS[v][0],
+                 "-o", str(out), str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    libs: dict = {v: {} for v in variants}
+    for (v, src_name), (out, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed:\n{log[-3000:]}")
+            raise RuntimeError(f"nvcc failed for {src_name} ({v}):\n{log[-3000:]}")
+        regs = sorted(set(re.findall(r"Used (\d+) registers", log)))
+        spills = sorted(set(re.findall(r"(\d+) bytes spill stores", log)))
+        print(json.dumps({"variant": v, "source": src_name, "registers": regs,
+                          "spill_store_bytes": spills}), flush=True)
         lib = ctypes.CDLL(str(out))
-        lib.layer_tail_int8.argtypes = lf._lib().layer_tail_int8.argtypes
-        lib.layer_tail_int8.restype = ctypes.c_int
-        lib.layer_tail_int8_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int,
-                                                      ctypes.POINTER(ctypes.c_int)]
-        lib.layer_tail_int8_blocks_per_sm.restype = ctypes.c_int
+        (lf if src_name == "layer_tail_int8" else lm).type_lib(lib)
+        lib.reset_trace.argtypes = []
         lib.get_trace.argtypes = [ctypes.c_void_p]
+        lib.get_trace.restype = ctypes.c_int
         lib.run_barriers.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib._typed = True
-        libs[mb] = lib
+        libs[v][src_name] = lib
     return libs
 
 
-def fill_plan(M, H, bn, tiles, grid):
-    """The fewest power-of-two K slices that give every block a unit."""
-    mt = 8 if M <= 8 else 32
-    ks = {}
-    for name, n in tiles.items():
-        k = 1
-        while H % (2 * k) == 0 and H // (2 * k) >= 64 and (
-                (H // k) * mt * 4 > 32 * 1024 or n * (bn // 128) * k < grid):
-            k *= 2
-        ks[name] = k
-    return mt, ks
+# ---------------------------------------------------------------------------
+# Launch plans (runtime variants of kernels/layer_fused.py:plan_tail)
+# ---------------------------------------------------------------------------
+
+_PLAN = lf.plan_tail  # the committed planner (the runs below patch the module's name)
+
+
+def _plan_with(**kw):
+    return lambda *a: _PLAN(*a, **kw)
+
+
+PLANS = {"committed": _PLAN, "c128": _plan_with(cols=128), "c256": _plan_with(cols=256),
+         "half": _plan_with(fewer_slices=1)}
+
+
+# ---------------------------------------------------------------------------
+# Cases
+# ---------------------------------------------------------------------------
+
+def _weights(gen):
+    def w(*shape):
+        return quantize(torch.randn(*shape, device="cuda", generator=gen) * 0.05, "int8")
+    return w
+
+
+def tail_case(gen):
+    w = _weights(gen)
+    ws = [(w(H, H), w(H, 2 * I), w(I, H), w(H, NQ)) for _ in range(3)]
+    packs = [lf.pack_layer(*ws[i][:3], ws[i + 1][3] if i < 2 else None, bn=BN)
+             for i in range(3)]
+    stream = ls.pack_layer_stream(packs)
+    att = torch.randn(M, 1, H, device="cuda", generator=gen).bfloat16()
+    x = torch.randn(M, 1, H, device="cuda", generator=gen).bfloat16()
+    g = torch.ones(H, device="cuda")
+    return {"middle": (lambda rep: ls.layer_tail_stream(att, x, g, stream, rep % 2, g),
+                       TAIL + ("qkv", "fin3")),
+            "last": (lambda rep: ls.layer_tail_stream(att, x, g, stream, 2, None), TAIL)}
+
+
+def mlp_case(gen):
+    w = _weights(gen)
+    packs = [dm.pack_mlp(w(H, H), w(H, 2 * I), w(I, H), bn=2048) for _ in range(2)]
+    att = torch.randn(M, 1, H, device="cuda", generator=gen).bfloat16()
+    x = torch.randn(M, 1, H, device="cuda", generator=gen).bfloat16()
+    g = torch.ones(H, device="cuda")
+    return {"bn2048": (lambda rep: dm.mlp_block_fused(att, x, g, packs[rep % 2]), TAIL)}
+
+
+def giga_sequence(layers: int) -> list:
+    """The phase kind of each interval between the stamps of one giga step."""
+    seq = ["prologue", "qkv"]
+    for layer in range(layers):
+        seq += ["fin3", "attention", *TAIL[:5], "fin2"]
+        if layer + 1 < layers:
+            seq.append("qkv")
+    return seq + ["head", "argmax", "argmax"]
+
+
+def giga_case(gen):
+    w = _weights(gen)
+    KD = NKV * HD
+    layers = [(w(NH * HD, H), w(H, 2 * I), w(I, H), w(H, NH * HD + 2 * KD)) for _ in range(L)]
+    vp = -(-VOCAB // BN) * BN
+    ones = torch.ones(L, H, device="cuda")
+    inv = (1.0 / 500000.0 ** (np.arange(0, HD, 2) / HD)).astype(np.float32)
+    pack = dg.pack_giga(layers, w(H, vp), ones, ones, ones[0], nh=NH, nkv=NKV, hd=HD,
+                        vocab=VOCAB, bn=BN, rope_inv_freq=inv)
+    del layers
+    B = M
+    lens = torch.randint(128, 192, (B,), device="cuda", generator=gen, dtype=torch.int32)
+    kpool = torch.randn(L, B, T, KD, device="cuda", generator=gen).bfloat16()
+    vpool = torch.randn(L, B, T, KD, device="cuda", generator=gen).bfloat16()
+    wte = torch.randn(VOCAB, H, device="cuda", generator=gen).bfloat16()
+    tokens = torch.randint(0, VOCAB, (B,), device="cuda", generator=gen, dtype=torch.int32)
+    return {"L16_tokens": (lambda rep: dg.giga_decode_step(wte, None, None, lens, pack, kpool,
+                                                           vpool, tokens=tokens),
+                           giga_sequence(L))}
+
+
+CASES = {"tail": ("layer_tail_int8", tail_case), "mlp": ("layer_tail_int8", mlp_case),
+         "giga": ("decode_step_int8", giga_case)}
+
+
+def run_case(lib, call, seq, reps: int) -> dict:
+    """Median µs of each phase kind (summed over its intervals) and in all."""
+    rows = []
+    for rep in range(reps):
+        lib.reset_trace()
+        call(rep)
+        torch.cuda.synchronize()
+        tr = (ctypes.c_ulonglong * MAX_STAMPS)()
+        n = lib.get_trace(tr)
+        if n != len(seq) + 1:
+            raise RuntimeError(f"{n} stamps, {len(seq) + 1} expected")
+        row = dict.fromkeys(dict.fromkeys(seq), 0.0)
+        for i, kind in enumerate(seq):
+            row[kind] += (tr[i + 1] - tr[i]) / 1e3
+        row["total_us"] = (tr[n - 1] - tr[0]) / 1e3
+        rows.append(row)
+    keep = rows[2:]
+    return {k: statistics.median(r[k] for r in keep) for k in rows[0]}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--min-blocks", type=int, nargs="+", default=[2])
-    ap.add_argument("--plan", nargs="+", default=["one-round"], choices=["one-round", "fill"])
+    ap.add_argument("--kernels", nargs="+", default=list(CASES), choices=list(CASES))
+    ap.add_argument("--variants", nargs="+", default=["committed"], choices=list(VARIANTS))
+    ap.add_argument("--plans", nargs="+", default=["committed"], choices=list(PLANS))
+    ap.add_argument("--reps", type=int, default=12)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tail_phases needs a CUDA device")
-    libs = build(args.min_blocks)
-    rng = np.random.default_rng(0)
-
-    def w(*shape):
-        return quantize(torch.from_numpy((rng.standard_normal(shape) * 0.05).astype(
-            np.float32)).cuda(), "int8")
-
-    H, I, NQ, bn, M = 2048, 8192, 3072, 512, 8
-    ws = [(w(H, H), w(H, 2 * I), w(I, H), w(H, NQ)) for _ in range(3)]
-    packs = [lf.pack_layer(*ws[i][:3], ws[i + 1][3] if i < 2 else None, bn=bn)
-             for i in range(3)]
-    stream = ls.pack_layer_stream(packs)
-    att = torch.randn(M, 1, H, device="cuda").bfloat16()
-    x = torch.randn(M, 1, H, device="cuda").bfloat16()
-    g = torch.ones(H, device="cuda")
-    plans = {"one-round": lf.plan_tail, "fill": fill_plan}
+    libs = build(args.variants)
     card = torch.cuda.get_device_name(0)
-    committed = (lf._lib, lf.plan_tail, lf._BLOCKS_PER_SM)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    saved = {m: (m._lib, m.plan_tail, m._BLOCKS_PER_SM) for m in (lf, lm)}
+    saved_consts = {k: getattr(lf, k) for k in ("_XS_BYTES", "_STAGE_ROWS")
+                    if hasattr(lf, k)}
     try:
-        for mb, lib in libs.items():
-            for name in args.plan:
-                lf._lib, lf.plan_tail, lf._BLOCKS_PER_SM = (lambda lib=lib: lib), plans[name], mb
-                lf._grid.cache_clear()
-                rows = []
-                for rep in range(12):
-                    ls.layer_tail_stream(att, x, g, stream, rep % 2, g)
-                    torch.cuda.synchronize()
-                    tr = (ctypes.c_ulonglong * 32)()
-                    lib.get_trace(tr)
-                    t = [tr[i] for i in range(8)] + [tr[20]]
-                    rows.append([(t[i + 1] - t[i]) / 1e3 for i in range(8)] + [(t[8] - t[0]) / 1e3])
-                med = np.median(np.array(rows[2:]), axis=0)
-                print(json.dumps({"card": card, "min_blocks": mb, "plan": name,
-                                  "grid": lf._grid(0, 8, 0), "total_us": med[-1],
-                                  **{p: v for p, v in zip(PHASES, med[:-1])}}), flush=True)
+        for kernel in args.kernels:
+            src_name, make = CASES[kernel]
+            cases = make(gen)
+            for v in args.variants:
+                lib = libs[v][src_name]
+                for plan in args.plans:
+                    overrides = dict(VARIANTS[v][1])
+                    bps = overrides.pop("_BLOCKS_PER_SM", saved[lf][2])
+                    for mod in (lf, lm):
+                        mod._lib = lambda lib=lib: lib
+                        mod.plan_tail = PLANS[plan]
+                        mod._BLOCKS_PER_SM = bps
+                        mod._grid.cache_clear()
+                    for k, val in overrides.items():
+                        setattr(lf, k, val)
+                    for case, (call, seq) in cases.items():
+                        res = run_case(lib, call, seq, args.reps)
+                        grid = (lm._grid(0, 8, 1) if kernel == "giga" else lf._grid(0, 8, 0))
+                        print(json.dumps({"card": card, "kernel": kernel, "case": case,
+                                          "variant": v, "plan": plan, "grid": grid, **res}),
+                              flush=True)
+                    for k, val in saved_consts.items():
+                        setattr(lf, k, val)
+            del cases
+            torch.cuda.empty_cache()
     finally:
-        lf._lib, lf.plan_tail, lf._BLOCKS_PER_SM = committed
-        lf._grid.cache_clear()
-    lib = next(iter(libs.values()))
+        for mod, (lib_fn, plan_fn, bps) in saved.items():
+            mod._lib, mod.plan_tail, mod._BLOCKS_PER_SM = lib_fn, plan_fn, bps
+            mod._grid.cache_clear()
+        for k, val in saved_consts.items():
+            setattr(lf, k, val)
+    lib = libs[args.variants[0]]["layer_tail_int8"]
     stream_ptr = torch.cuda.current_stream().cuda_stream
     grid = lf._grid(0, 8, 0)
     for n in (1, 8):
