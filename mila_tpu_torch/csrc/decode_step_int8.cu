@@ -49,7 +49,11 @@
 //                    merges the blocks in order (larger value, then lower
 //                    index) into the token.
 // Attention units number B * NKV (64 at the served shape); the other blocks
-// wait at the barrier.
+// wait at the barrier, while the first stages of each block's wo unit,
+// requested before it, land in its ring. Every GEMV (the first wqkv, each
+// layer's four, the head) is tail_phases.cuh's gemv_phase on the tensor
+// cores; each phase requests the next one's first stages before its
+// barrier, the last layer's down phase the head's.
 #include <climits>
 
 #include "tail_phases.cuh"
@@ -83,10 +87,10 @@ struct StepParams {
   float *p_wo, *x1, *ssq1, *p_gu, *hbuf, *p_down, *xo, *ssq2, *p_q, *p_head, *best_v;
   int* best_i;            // [grid, M]
   int giga, tokens_mode, x_is_f32, M, H, I, bn, NH, NKV, HD, Tlen, L, n_qkv, n_head, vocab;
-  int ks_wo, ks_gu, ks_down, ks_q, ks_head;
+  int ks_wo, ks_gu, ks_down, ks_q, ks_head, cols_wo, cols_gu, cols_down, cols_q, cols_head;
   float eps, scale;
 };
-constexpr int N_PTRS = 32, N_INTS = 20, N_FLOATS = 2;
+constexpr int N_PTRS = 32, N_INTS = 25, N_FLOATS = 2;
 
 __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
   const uint2 r = *reinterpret_cast<const uint2*>(p);
@@ -285,8 +289,8 @@ __device__ __forceinline__ void warp_best(float& v, int& i) {
 template <int MT, typename T>
 __global__ void __launch_bounds__(THREADS, MT == 8 ? TAIL_MIN_BLOCKS : 1)
 step_kernel(StepParams p) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float rstd_s[32], sq_s[32], bv_s[WARPS];
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float rstd_s[32], sq_w[WARPS][32], bv_s[WARPS];
   __shared__ int bi_s[WARPS];
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -296,14 +300,22 @@ step_kernel(StepParams p) {
   const int stride = gridDim.x * THREADS;
   const float* cosp = p.giga && p.tokens_mode ? p.cos_t : p.cos_in;
   const float* sinp = p.giga && p.tokens_mode ? p.sin_t : p.sin_in;
+  const int head_base = p.n_qkv + p.L * tpl - p.n_qkv;
+  const Phase qkv0{0, p.n_qkv, p.ks_q, p.cols_q}, head{head_base, p.n_head, p.ks_head, p.cols_head},
+      none{0, 0, 1, 256};
+  auto wo_of = [&](int l) {
+    return Phase{p.giga ? p.n_qkv + l * tpl : 0, H / bn, p.ks_wo, p.cols_wo};
+  };
+  // The first GEMV phase's first stages, in flight under the prologue (giga)
+  // or the attention phase (mega).
+  prefetch(p.w, H, bn, p.giga ? qkv0 : wo_of(0), smem_addr(smem));
 
   if (p.giga) {
     // Prologue: residual rows, RoPE tables, row sums of squares; RMSNorm + wqkv_0.
     float* xres = static_cast<float*>(p.x_out);
     const float* xf = static_cast<const float*>(p.x_in);
     const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(p.x_in);
-    if (tid < 32) sq_s[tid] = 0.f;
-    __syncthreads();
+    clear_sq(sq_w);
     for (int i = blockIdx.x * THREADS + tid; i < M * H; i += stride) {  // whole warps: H % 32 == 0
       const int m = i / H;
       const size_t src = p.tokens_mode ? (size_t)p.tok_in[m] * H + i % H : (size_t)i;
@@ -311,7 +323,7 @@ step_kernel(StepParams p) {
       if (p.tokens_mode) v = round_bf16(v);
       xres[i] = v;
       const float sq = warp_sum(v * v);
-      if (lane == 0) atomicAdd(&sq_s[m], sq);
+      if (lane == 0) sq_w[warp][m] += sq;
     }
     if (p.tokens_mode) {
       for (int i = blockIdx.x * THREADS + tid; i < M * KD; i += stride) {
@@ -322,9 +334,9 @@ step_kernel(StepParams p) {
         p.sin_t[i] = p.sin_in[k] * sn;
       }
     }
-    store_ssq(sq_s, p.ssq2, M);
+    store_ssq(sq_w, p.ssq2, M);
     grid.sync();
-    qkv_phases<MT, float>(p.w, p.s, xres, p.ssq2, p.ga, M, H, bn, 0, p.n_qkv, p.ks_q, p.eps,
+    qkv_phases<MT, float>(p.w, p.s, xres, p.ssq2, p.ga, M, H, bn, qkv0, true, wo_of(0), p.eps,
                           p.p_q, static_cast<float*>(p.qkv_out), smem, rstd_s, grid);
   }
 
@@ -338,7 +350,8 @@ step_kernel(StepParams p) {
       const size_t rows = pool + (size_t)b * p.Tlen * KD;
       attention_unit<T>(qkv_src + (size_t)b * (NQ + 2 * KD), cosp + (size_t)b * KD,
                         sinp + (size_t)b * KD, p.kp + rows, p.vp + rows, p.lens[b], p.Tlen,
-                        p.NH, p.NKV, p.HD, j, p.scale, p.att + (size_t)b * NQ, smem);
+                        p.NH, p.NKV, p.HD, j, p.scale, p.att + (size_t)b * NQ,
+                        reinterpret_cast<float*>(smem + RING_BYTES));
     }
     grid.sync();
     const bool last = l + 1 == layers;
@@ -351,20 +364,22 @@ step_kernel(StepParams p) {
               M, H, I, bn,
               p.giga ? p.n_qkv + l * tpl : 0,
               p.giga && last ? 0 : p.n_qkv,
-              p.ks_wo, p.ks_gu, p.ks_down, p.ks_q, p.eps};
+              p.ks_wo, p.ks_gu, p.ks_down, p.ks_q,
+              p.cols_wo, p.cols_gu, p.cols_down, p.cols_q, p.eps,
+              last ? (p.giga ? head : none) : wo_of(l + 1), true};
     tail_phases<MT, T>(tp, smem, grid);
   }
   if (!p.giga) return;
 
   // Head: norm_f, the head GEMV, logits, the argmax.
   grid.sync();  // x_out of the last layer and its row sums of squares
-  const int Nh = p.n_head * bn, head_base = p.n_qkv + p.L * tpl - p.n_qkv;
+  const int Nh = p.n_head * bn;
   row_rstd(p.ssq2, M, H, p.eps, rstd_s);
   __syncthreads();
   gemv_phase<MT>(
-      p.w, p.s, H, bn, M, head_base, p.n_head, p.ks_head, smem,
-      [&](int, int m, int k) {
-        return round_bf16(__ldcg(p.xo + (size_t)m * H + k) * rstd_s[m] * p.gf[k]);
+      p.w, p.s, H, bn, M, head, true, none, smem, NoOffset{},
+      [&](int m, int k, float(&v)[8]) {
+        norm8(p.xo + (size_t)m * H + k, rstd_s[m], p.gf + k, v);
       },
       [&](int t, int sl, int m, int c) {
         return p.p_head + ((size_t)sl * M + m) * Nh + t * bn + c;
@@ -411,7 +426,7 @@ step_kernel(StepParams p) {
 template <int MT, typename T>
 const void* kernel_ptr() {
   static bool done[64] = {};
-  return opted(reinterpret_cast<const void*>(step_kernel<MT, T>), MT, done);
+  return opted(reinterpret_cast<const void*>(step_kernel<MT, T>), done);
 }
 
 const void* pick(int m_tile, int is_f32) {
@@ -424,11 +439,11 @@ const void* pick(int m_tile, int is_f32) {
 // Co-resident blocks per SM of the instantiation (m_tile 8 or 32; is_f32:
 // the tail's activations are f32, as in every giga launch).
 extern "C" int decode_step_int8_blocks_per_sm(int m_tile, int is_f32, int* out) {
-  return tail::blocks_per_sm(pick(m_tile, is_f32), m_tile, out);
+  return tail::blocks_per_sm(pick(m_tile, is_f32), out);
 }
 
 // ptrs, ints and floats in StepParams' order (32 pointers: lens .. best_i;
-// 20 ints: giga .. ks_head; 2 floats: eps, scale). The Python wrapper
+// 25 ints: giga .. cols_head; 2 floats: eps, scale). The Python wrapper
 // (kernels/layer_mega.py:launch_step) checks shapes, dtypes and the plan.
 extern "C" int decode_step_int8(void* const* ptrs, int n_ptrs, const int* ints, int n_ints,
                                 const float* floats, int n_floats, int grid, int m_tile,
@@ -463,13 +478,14 @@ extern "C" int decode_step_int8(void* const* ptrs, int n_ptrs, const int* ints, 
   p.best_i = static_cast<int*>(*q++);
   int* iv[] = {&p.giga, &p.tokens_mode, &p.x_is_f32, &p.M, &p.H, &p.I, &p.bn,
                &p.NH,   &p.NKV,         &p.HD,       &p.Tlen, &p.L, &p.n_qkv, &p.n_head,
-               &p.vocab, &p.ks_wo,      &p.ks_gu,    &p.ks_down, &p.ks_q, &p.ks_head};
+               &p.vocab, &p.ks_wo,      &p.ks_gu,    &p.ks_down, &p.ks_q, &p.ks_head,
+               &p.cols_wo, &p.cols_gu,  &p.cols_down, &p.cols_q, &p.cols_head};
   for (int i = 0; i < N_INTS; ++i) *iv[i] = ints[i];
   p.eps = floats[0];
   p.scale = floats[1];
   void* args[] = {&p};
   const cudaError_t e = cudaLaunchCooperativeKernel(pick(m_tile, is_f32), dim3(grid),
-                                                    dim3(tail::THREADS), args, tail::smem_bytes(m_tile),
+                                                    dim3(tail::THREADS), args, tail::SMEM_BYTES,
                                                     static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(e != cudaSuccess ? e : last);

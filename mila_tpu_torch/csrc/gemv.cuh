@@ -1,7 +1,8 @@
 // Helpers shared by the decode GEMVs on tensor cores (qgemv_int4.cu,
-// qgemv_int8.cu): byte permutes, the thread-block-cluster barrier and
-// stores into another block's shared memory, and 16-byte loads and stores
-// of x and the outputs in bf16 or f32.
+// qgemv_int8.cu and the layer-tail phases of tail_phases.cuh): byte
+// permutes, the exact int8 -> bf16 pair conversion, the thread-block-cluster
+// barrier and stores into another block's shared memory, and 16-byte loads
+// and stores of x and the outputs in bf16 or f32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -13,6 +14,24 @@ __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
   uint32_t d;
   asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
   return d;
+}
+
+// Byte j of wa and of wb (int8 s) as the bf16 pair (wa's s, wb's s), exact:
+// prmt puts the two bytes in the low bytes of the halves; in each half, one
+// lop3 makes bf16 128 + (s & 127) (the byte's low 7 bits as the mantissa of
+// 128) and one makes -128, or -256 where the sign bit is set; one bf16x2
+// FMA adds them: s, an integer that bf16 holds.
+__device__ __forceinline__ uint32_t s8_pair(uint32_t wa, uint32_t wb, int j) {
+  const uint32_t p = prmt(wa, wb, 0x4400u + 0x1111u * j);
+  uint32_t m, c, v;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(m) : "r"(p), "r"(0x007F007Fu), "r"(0x43004300u));
+  asm("lop3.b32 %0, %1, %2, %3, 0x6A;" : "=r"(c) : "r"(p), "r"(0x00800080u), "r"(0xC300C300u));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(v) : "r"(m), "r"(0x3F803F80u), "r"(c));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t ld_word(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ uint32_t comp(const uint4& v, int j) {

@@ -91,24 +91,6 @@ struct Args {
   float eps;
 };
 
-// Byte j of wa and of wb (int8 s) as the bf16 pair (wa's s, wb's s), exact:
-// prmt puts the two bytes in the low bytes of the halves; in each half, one
-// lop3 makes bf16 128 + (s & 127) (the byte's low 7 bits as the mantissa of
-// 128) and one makes -128, or -256 where the sign bit is set; one bf16x2
-// FMA adds them: s, an integer that bf16 holds.
-__device__ __forceinline__ uint32_t s8_pair(uint32_t wa, uint32_t wb, int j) {
-  const uint32_t p = prmt(wa, wb, 0x4400u + 0x1111u * j);
-  uint32_t m, c, v;
-  asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(m) : "r"(p), "r"(0x007F007Fu), "r"(0x43004300u));
-  asm("lop3.b32 %0, %1, %2, %3, 0x6A;" : "=r"(c) : "r"(p), "r"(0x00800080u), "r"(0xC300C300u));
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(v) : "r"(m), "r"(0x3F803F80u), "r"(c));
-  return v;
-}
-
-__device__ __forceinline__ uint32_t ld_word(const unsigned char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // Sum of squares of the 16 bytes at p (8 bf16 or 4 f32 values).
 __device__ __forceinline__ float sumsq16(const __nv_bfloat16* p) {
   const uint4 r = *reinterpret_cast<const uint4*>(p);

@@ -8,7 +8,8 @@
 //
 // This is the arithmetic of the TPU kernels mila_tpu/kernels/layer_stream.py:
 // _stream_kernel and layer_fused.py:_tail_kernel: x1 and x_out stay f32 into
-// the next RMSNorm, h and the normalised inputs are rounded to bf16.
+// the next RMSNorm, h and the normalised inputs are rounded to bf16, and each
+// tile's per-column scale row is applied to its f32 sum.
 //
 // The weights are pack_layer's stream: [T, H, bn] int8 tiles in the order
 // [wo | g0 u0 g1 u1 ... | down k-major | wqkv_next] with one f32 scale row
@@ -27,47 +28,118 @@
 //   6 fin2   x_out = x1 + sum; out; row sums of squares
 //   7 qkv    GEMV units with xq staged -> p_q[slice][M][Nq]   (not last layer)
 //   8 fin3   qkv = sum of slices                               (not last layer)
-// A GEMV unit is (tile, 128-column group, K slice of kc rows): the block
-// stages its slice of the input as f32 [kc][MT] in shared memory, each lane
-// streams 4 adjacent int8 columns as one 32-bit word per row (8 words per
-// lane per batch, the next batch requested while the current one is
-// summed, the first one before the input is staged), the 8 warps interleave
-// over the rows and add their partials in shared memory in turns, and the
-// sum times the tile's scale row is stored as that slice's partial.
-// Partials are reduced in fixed order by the next phase: no atomics,
-// deterministic sums. Data written inside the launch is read back with
-// __ldcg (L2), never through the non-coherent or L1 paths. A thread stages
-// its input values into registers first and stores them after, so their
-// loads are in flight together (one L2 round trip, not one per value); the
-// finish passes unroll their partial sums for the same reason. A phase
-// gives each block at most one unit (plan_tail in kernels/layer_fused.py): a
-// second round repeats a unit's latency chain. What bounds the phases at
-// M <= 8 is instruction issue (8 f32 FMAs per weight byte), hence registers
-// bounded for 2 resident blocks per SM.
+// A GEMV unit is (tile, group of 128 or 256 weight columns, K slice of kc
+// rows); the plan (kernels/layer_fused.py:plan_tail) picks both per phase
+// and gives each block at most one unit a phase where the tiles allow. The
+// products run on the tensor cores as in K2 (qgemv_int8.cu): mma.sync
+// m16n8k16 with the weight as the 16-row operand (y^T = W^T x^T, M <= 8
+// one n-tile of x, M <= 32 four), lane (g, t) reading the word of columns
+// 4g..4g+3 from rows 2t, 2t+1, 2t+8 and 2t+9 of a k-step and converting it
+// exactly to bf16 pairs (s8_pair, gemv.cuh), and the unit's slice of x
+// staged once as bf16 pairs in the fragments' order. Every GEMV input here
+// is exact in bf16 (att, the normalised inputs, h) and so is every int8
+// weight: the products are the TPU kernel's, only the f32 sums run in
+// another order. A 256-column unit gives each of the 8 warps 32 columns and
+// every k-step; a 128-column one gives 4 warps its columns and splits each
+// stage's k-steps between two warp sets, whose sums then add in shared
+// memory in a fixed order.
+// The weights stream through a ring of NST stages of SR rows by 16-byte
+// cp.async (cached in L2 only); a block's units in a phase form one stream
+// of stages, so a unit's first stages are in flight while the one before it
+// ends. Weights never depend on what the launch computes, so before each
+// grid barrier a block also requests the first NST - 1 stages of its unit
+// in the next GEMV phase: they land during the barrier and the finish pass
+// (in K8 during the attention phase too, where most blocks wait).
+// Partials (a slice's sum times the tile's scale row) go to global memory as
+// f32 and the next phase adds them in slice order: no atomics, two calls
+// are bit-equal. Data written inside the launch is read back with __ldcg
+// (L2), never through the non-coherent or L1 paths.
 #pragma once
 
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "gemv.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace tail {
 
-constexpr int COLS = 128, THREADS = 256, WARPS = THREADS / 32, UNROLL = 8;
-constexpr int XS_BYTES = 32 * 1024;  // staged input slice: kc * MT * 4 bytes at most
-constexpr int SPT = 16;  // staged values a thread loads before it stores them
 #ifndef TAIL_MIN_BLOCKS
 #define TAIL_MIN_BLOCKS 2  // resident blocks per SM the M <= 8 variants are built for
 #endif
+#ifndef TAIL_NST
+#define TAIL_NST 3  // ring stages
+#endif
+#ifndef TAIL_SR
+#define TAIL_SR 64  // weight rows a stage: 64 or 128
+#endif
+#ifndef TAIL_XS_KB
+#define TAIL_XS_KB 33  // x's staged slice, KB
+#endif
+#ifndef TAIL_STAGE_FIRST
+#define TAIL_STAGE_FIRST 0  // stage a phase's first slice of x before its first weight requests
+#endif
+#ifndef TAIL_PREFETCH
+#define TAIL_PREFETCH 0  // stages of the next GEMV phase requested before a barrier
+#endif
 
-constexpr int smem_bytes(int mt) { return XS_BYTES + mt * COLS * 4; }
+constexpr int THREADS = 256, WARPS = THREADS / 32;
+constexpr int SR = TAIL_SR, NST = TAIL_NST, KS = SR / 16;  // KS: mma k-steps a stage
+constexpr int PITCH = 256 + 16;  // bytes a staged weight row: rows 2t of a k-step 8 banks apart
+constexpr int XPAD = 4;          // words a staged row of x is padded by: conflict-free loads
+constexpr int RING_BYTES = NST * SR * PITCH;
+constexpr int XS_BYTES = TAIL_XS_KB * 1024;
+// Dynamic shared memory of a block: the ring, then x's staged slice (which
+// the 128-column units' k-half sums and K8's attention arrays reuse).
+constexpr int SMEM_BYTES = RING_BYTES + XS_BYTES;
+constexpr int PREFETCH = TAIL_PREFETCH;
+constexpr bool STAGE_FIRST = TAIL_STAGE_FIRST;
+constexpr int RSTD_LOADS = 16;  // row_rstd's loads a lane: grids of up to 512 blocks
+static_assert(SR == 64 || SR == 128, "a warp of a 128-column unit takes whole fragment pairs");
+static_assert(PREFETCH >= 0 && PREFETCH < NST, "the prefetch fits the ring");
 
 // A value written earlier in the same launch, read through L2.
 __device__ __forceinline__ float ldcg_f(const float* p) { return __ldcg(p); }
 __device__ __forceinline__ float ldcg_f(const __nv_bfloat16* p) {
   return __bfloat162float(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
 }
+
+// Eight consecutive values (16-byte aligned) written earlier in the launch.
+__device__ __forceinline__ void ldcg8(const float* p, float (&v)[8]) {
+  const float4 a = __ldcg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldcg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void ldcg8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 r = __ldcg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// v = x[0 .. 7] * rstd * gamma[0 .. 7]: x written in the launch, gamma a
+// weight (rounded to bf16 when staged).
+__device__ __forceinline__ void norm8(const float* x, float rstd, const float* gamma,
+                                      float (&v)[8]) {
+  ldcg8(x, v);
+  const float4 g0 = __ldg(reinterpret_cast<const float4*>(gamma));
+  const float4 g1 = __ldg(reinterpret_cast<const float4*>(gamma) + 1);
+  const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = v[e] * rstd * gm[e];
+}
+
+// A GEMV phase: tiles [t0, t0 + n) of the stream, in units of `cols` weight
+// columns of one tile and one of ks K slices (n == 0: no phase).
+struct Phase {
+  int t0, n, ks, cols;
+};
 
 struct Params {
   const __nv_bfloat16* att;  // [M, H]
@@ -79,157 +151,309 @@ struct Params {
   void* out;                 // [M, H] T
   void* qkv;                 // [M, Nq] T
   float *p_wo, *x1, *ssq1, *p_gu, *hbuf, *p_down, *xo, *ssq2, *p_q;
-  int M, H, I, bn, base, n_qkv, ks_wo, ks_gu, ks_down, ks_q;
+  int M, H, I, bn, base, n_qkv, ks_wo, ks_gu, ks_down, ks_q, cols_wo, cols_gu, cols_down, cols_q;
   float eps;
+  Phase after;     // the GEMV phase that follows this layer's last one in the launch
+  bool wo_fetched; // wo's first stages were requested earlier in the launch
 };
 
-template <int MT>
-__device__ __forceinline__ void zero_red(float* red) {
-  for (int i = threadIdx.x; i < MT * COLS; i += THREADS) red[i] = 0.f;
-}
+// A block's stream of weight stages in a phase. Its i-th unit, u =
+// blockIdx.x + i * gridDim.x, is (tile u / (ks * groups), column group (u /
+// ks) % groups, slice u % ks), nsteps stages of SR rows. Each thread copies
+// the same 16 bytes of every row it takes (rows r, r + rstep, ...);
+// request() walks the stages in order, into ring slots 0, 1, .., NST - 1, 0,
+// .., and divides only when it moves to the next unit.
+struct Stream {
+  const int8_t* w;
+  int H, bn, t0, ks, cols, kc, groups, nsteps, mine;
+  int r, cb, rstep;          // this thread's row and byte in a stage; rows between its copies
+  const int8_t* src;         // this thread's first byte of the next stage to request
+  int unit_i, stage_s, slot; // the next stage to request: unit, stage in it, ring slot
 
-// One batch of weight words: rows r0 + u * WARPS (u < UNROLL) of the
-// lane's 4 columns at qp (row stride ldw); rows >= kc read as 0.
-__device__ __forceinline__ void load_batch(const int8_t* __restrict__ qp, int ldw, int r0, int kc,
-                                           uint32_t (&wv)[UNROLL]) {
-#pragma unroll
-  for (int u = 0; u < UNROLL; ++u) {
-    const int r = r0 + u * WARPS;
-    wv[u] = r < kc ? __ldg(reinterpret_cast<const unsigned int*>(qp + (size_t)r * ldw)) : 0u;
+  __device__ Stream(const int8_t* w_, int H_, int bn_, const Phase& ph)
+      : w(w_), H(H_), bn(bn_), t0(ph.t0), ks(ph.ks), cols(ph.cols), kc(H_ / ph.ks),
+        groups(bn_ / ph.cols), nsteps(H_ / ph.ks / SR), unit_i(0), stage_s(0), slot(0) {
+    const int units = ph.n * groups * ks, b = blockIdx.x, cpr = cols / 16;
+    mine = units > b ? (units - 1 - b) / (int)gridDim.x + 1 : 0;
+    r = threadIdx.x / cpr;
+    cb = 16 * (threadIdx.x % cpr);
+    rstep = THREADS / cpr;
+    src = mine ? unit_src(0) : nullptr;
   }
+
+  __device__ void unit(int i, int& t, int& grp, int& sl) const {
+    const int u = blockIdx.x + i * gridDim.x;
+    sl = u % ks;
+    grp = (u / ks) % groups;
+    t = u / (ks * groups);
+  }
+
+  __device__ const int8_t* unit_src(int i) const {
+    int t, grp, sl;
+    unit(i, t, grp, sl);
+    return w + ((size_t)(t0 + t) * H + sl * kc + r) * bn + grp * cols + cb;
+  }
+
+  // Move past the next stage; copy it into its ring slot first when `copy`.
+  __device__ void step(uint32_t ring, bool copy) {
+    if (unit_i >= mine) return;
+    if (copy) {
+      const uint32_t dst = ring + slot * (SR * PITCH) + r * PITCH + cb;
+#pragma unroll
+      for (int c = 0; c < SR / 16; ++c)
+        if (c * rstep < SR) cp_async_to<16>(dst + c * rstep * PITCH, src + (size_t)c * rstep * bn);
+    }
+    src += (size_t)SR * bn;
+    if (++stage_s == nsteps) {
+      stage_s = 0;
+      if (++unit_i < mine) src = unit_src(unit_i);
+    }
+    slot = slot + 1 == NST ? 0 : slot + 1;
+  }
+
+  // Request the next stage (none past the stream's end) as one commit group.
+  __device__ void request(uint32_t ring) {
+    step(ring, true);
+    cp_async_commit();
+  }
+};
+
+// Request the first PREFETCH stages of phase ph (the next GEMV phase) into
+// the ring: their commit groups are the first of that phase's.
+__device__ __forceinline__ void prefetch(const int8_t* w, int H, int bn, const Phase& ph,
+                                         uint32_t ring) {
+  Stream st(w, H, bn, ph);
+  for (int s = 0; s < PREFETCH; ++s) st.request(ring);
 }
 
-// red[m][c] = sum over kc rows r of xs[r][m] * w[r][c] for the lane's 4
-// columns at qp; wv holds the warp's first batch already. xs must be
-// staged and red zeroed before the barrier preceding this call; ends after
-// a barrier.
-template <int MT>
-__device__ __forceinline__ void gemv_unit(const int8_t* __restrict__ qp, int ldw, int kc,
-                                          uint32_t (&wv)[UNROLL], const float* xs, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float acc[MT][4];
+// x's slice (rows m < MT, input columns k0 .. k0 + kc) into xs as bf16 pairs
+// (x[m][k], x[m][k + 1]), rows past M zero. Word w of a stage (k = 2 w) sits
+// at slot 2 KS (w % 4) + 2 (w / 8) + (w / 4) % 2, so lane t's B fragments
+// for the stage's KS k-steps are 2 KS consecutive words. A thread loads XB
+// chunks of 8 values before it stores them (their L2 round trips overlap).
+template <int MT, typename Stage>
+__device__ __forceinline__ void stage_x(Stage stage, int M, int k0, int kc, uint32_t* xs,
+                                        int XP) {
+  constexpr int XB = 4;
+  const int cpr = kc / 8, n = MT * cpr;
+  for (int c0 = 0; c0 < n; c0 += XB * THREADS) {
+    float v[XB][8];
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+    for (int b = 0; b < XB; ++b) {
+      const int i = c0 + threadIdx.x + b * THREADS, m = i / cpr;
+      if (i < n && m < M) {
+        stage(m, k0 + 8 * (i - m * cpr), v[b]);
+      } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
-  for (int r0 = warp; r0 < kc; r0 += WARPS * UNROLL) {
-    uint32_t cur[UNROLL];
+        for (int e = 0; e < 8; ++e) v[b][e] = 0.f;
+      }
+    }
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) cur[u] = wv[u];
-    if (r0 + WARPS * UNROLL < kc) load_batch(qp, ldw, r0 + WARPS * UNROLL, kc, wv);
+    for (int b = 0; b < XB; ++b) {
+      const int i = c0 + threadIdx.x + b * THREADS, m = i / cpr, r = 8 * (i - m * cpr);
+      if (i < n) {
+        uint32_t* xr = xs + m * XP + (r / SR) * (SR / 2) + (r % SR) / 8;
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int r = r0 + u * WARPS;
-      if (r >= kc) break;
-      const float* xr = xs + r * MT;
-      float wf[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wf[j] = s8_to_f(cur[u], j);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const float xv = xr[m];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(xv, wf[j], acc[m][j]);
+        for (int e = 0; e < 4; ++e) xr[2 * KS * e] = pack2(v[b][2 * e], v[b][2 * e + 1]);
       }
     }
   }
-  for (int turn = 0; turn < WARPS; ++turn) {
-    if (warp == turn) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) red[m * COLS + lane * 4 + j] += acc[m][j];
+}
+
+// One GEMV phase: this block's units of ph, whose first PREFETCH stages
+// were requested earlier when `fetched`. xoff(t) is the input column at which
+// tile t's rows start (down: its K chunk); stage(m, k, v) loads input values
+// (m, k .. k + 7) as f32, exact in bf16; dst(t, sl, m, c) is the address of
+// slice sl's partial for output column c of tile t (16-byte aligned for c %
+// 4 == 0). Before it returns it requests the first PREFETCH stages of
+// `next` (when next.n > 0). Ends without a barrier.
+template <int MT, typename XOff, typename Stage, typename Dst>
+__device__ void gemv_phase(const int8_t* w, const float* s, int H, int bn, int M, const Phase& ph,
+                           bool fetched, const Phase& next, unsigned char* smem, XOff xoff,
+                           Stage stage, Dst dst) {
+  constexpr int MTN = MT / 8;  // n-tiles of 8 rows of x
+  Stream g(w, H, bn, ph);
+  const uint32_t ring = smem_addr(smem);
+  uint32_t* xs = reinterpret_cast<uint32_t*>(smem + RING_BYTES);
+  float4* half = reinterpret_cast<float4*>(xs);  // a 128-column unit's second k-half sums
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, gq = lane >> 2, tq = lane & 3;
+  const int cwn = g.cols / 32, cw = warp % cwn, kw = warp / cwn;  // column warp, k-half
+  const int ksw = KS * cwn / WARPS, j0 = kw * ksw;  // the warp's k-steps of each stage
+  const int XP = g.kc / 2 + XPAD;
+  int staged = -1;  // input column of the slice in xs
+  if (STAGE_FIRST && g.mine > 0) {  // x before the first weight requests
+    int t, grp, sl;
+    g.unit(0, t, grp, sl);
+    staged = xoff(t) + sl * g.kc;
+    stage_x<MT>(stage, M, staged, g.kc, xs, XP);
+  }
+  for (int f = 0; f < NST - 1; ++f) {  // the first stages (some requested earlier)
+    if (fetched && f < PREFETCH)
+      g.step(ring, false);
+    else
+      g.request(ring);
+  }
+  int slot = 0;  // ring slot of the stage consumed next
+  for (int i = 0; i < g.mine; ++i) {
+    int t, grp, sl;
+    g.unit(i, t, grp, sl);
+    const int k0 = xoff(t) + sl * g.kc, col = grp * g.cols + 32 * cw + 4 * gq;
+    const float4 sc = __ldg(reinterpret_cast<const float4*>(s + (size_t)(g.t0 + t) * bn + col));
+    if (k0 != staged) {
+      __syncthreads();  // the unit before is done with xs
+      stage_x<MT>(stage, M, k0, g.kc, xs, XP);
+      staged = k0;
     }
-    __syncthreads();
+
+    float acc[2][MTN][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int mt = 0; mt < MTN; ++mt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[n][mt][c] = 0.f;
+    const unsigned char* wl = smem + 32 * cw + 4 * gq;
+    const uint32_t* xl = xs + gq * XP + 2 * KS * tq + 2 * j0;
+    for (int st = 0; st < g.nsteps; ++st) {
+      cp_async_wait<NST - 2>();
+      __syncthreads();  // this stage landed for every thread; the one before fully read
+      g.request(ring);
+      const unsigned char* sp = wl + slot * (SR * PITCH);
+      slot = slot + 1 == NST ? 0 : slot + 1;
+      uint4 bx[MTN][KS / 2];
+#pragma unroll
+      for (int mt = 0; mt < MTN; ++mt)
+#pragma unroll
+        for (int h = 0; h < KS / 2; ++h)
+          if (2 * h < ksw)
+            bx[mt][h] = *reinterpret_cast<const uint4*>(xl + 8 * mt * XP + st * (SR / 2) + 4 * h);
+#pragma unroll
+      for (int jj = 0; jj < KS; ++jj) {
+        if (jj >= ksw) break;
+        const unsigned char* r = sp + (16 * (j0 + jj) + 2 * tq) * PITCH;
+        const uint32_t w0 = ld_word(r), w1 = ld_word(r + PITCH);
+        const uint32_t w2 = ld_word(r + 8 * PITCH), w3 = ld_word(r + 9 * PITCH);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const uint32_t af[4] = {s8_pair(w0, w1, 2 * n), s8_pair(w0, w1, 2 * n + 1),
+                                  s8_pair(w2, w3, 2 * n), s8_pair(w2, w3, 2 * n + 1)};
+#pragma unroll
+          for (int mt = 0; mt < MTN; ++mt) {
+            const uint32_t b[2] = {comp(bx[mt][jj / 2], 2 * (jj % 2)),
+                                   comp(bx[mt][jj / 2], 2 * (jj % 2) + 1)};
+            mma_bf16(acc[n][mt], af, b);
+          }
+        }
+      }
+    }
+
+    // The lane's sums: rows m = 8 mt + 2 tq + e of x, columns col .. col + 3
+    // (c0, c1 of n-tile n: column col + 2n; c2, c3: column col + 2n + 1).
+    if (cwn < WARPS) {  // 128 columns: the second k-half hands its sums over
+      __syncthreads();  // every warp is done with xs, which `half` reuses
+      if (kw == 1) {
+#pragma unroll
+        for (int mt = 0; mt < MTN; ++mt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            half[(8 * mt + 2 * tq + e) * 32 + 8 * cw + gq] =
+                make_float4(acc[0][mt][e], acc[0][mt][2 + e], acc[1][mt][e], acc[1][mt][2 + e]);
+      }
+      __syncthreads();
+      staged = -1;
+    }
+    if (kw == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MTN; ++mt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = 8 * mt + 2 * tq + e;
+          if (m >= M) continue;
+          float4 v = make_float4(acc[0][mt][e], acc[0][mt][2 + e], acc[1][mt][e],
+                                 acc[1][mt][2 + e]);
+          if (cwn < WARPS) {
+            const float4 o = half[m * 32 + 8 * cw + gq];
+            v = make_float4(v.x + o.x, v.y + o.y, v.z + o.z, v.w + o.w);
+          }
+          *reinterpret_cast<float4*>(dst(t, sl, m, col)) =
+              make_float4(v.x * sc.x, v.y * sc.y, v.z * sc.z, v.w * sc.w);
+        }
+    }
+  }
+  if (PREFETCH > 0 && next.n > 0) {
+    __syncthreads();  // every warp is done with the ring
+    prefetch(w, H, bn, next, ring);
   }
 }
 
-// One GEMV phase over tiles [t0, t0 + n_tiles) of w: units (tile, group,
-// K slice); stage(t, m, k) gives input value (m, k) of tile t, dst(t, sl, m,
-// c) the address of that slice's partial for output column c of the tile.
-template <int MT, typename Stage, typename Dst>
-__device__ __forceinline__ void gemv_phase(const int8_t* w, const float* s, int H, int bn, int M,
-                                           int t0, int n_tiles, int ks, float* smem, Stage stage,
-                                           Dst dst) {
-  float* xs = smem;                  // [kc][MT]
-  float* red = smem + XS_BYTES / 4;  // [MT][COLS]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int groups = bn / COLS;
-  const size_t tile_elems = (size_t)H * bn;
-  const int kc = H / ks, units = n_tiles * groups * ks, n_st = kc * MT;
-  for (int u = blockIdx.x; u < units; u += gridDim.x) {
-    const int sl = u % ks, grp = (u / ks) % groups, t = u / (ks * groups);
-    const int k0 = sl * kc;
-    const size_t tg = (size_t)(t0 + t);
-    const int8_t* qp = w + tg * tile_elems + (size_t)k0 * bn + grp * COLS + lane * 4;
-    uint32_t wv[UNROLL];
-    load_batch(qp, bn, warp, kc, wv);  // in flight while the input is staged
-    for (int c0 = 0; c0 < n_st; c0 += SPT * THREADS) {
-      float sv[SPT];
-#pragma unroll
-      for (int j = 0; j < SPT; ++j) {
-        const int i = c0 + tid + j * THREADS, m = i % MT;
-        sv[j] = (i < n_st && m < M) ? stage(t, m, k0 + i / MT) : 0.f;
-      }
-      if (c0 == 0) __syncthreads();  // the previous unit is done with xs and red
-#pragma unroll
-      for (int j = 0; j < SPT; ++j) {
-        const int i = c0 + tid + j * THREADS;
-        if (i < n_st) xs[i] = sv[j];
-      }
-    }
-    zero_red<MT>(red);
-    __syncthreads();
-    gemv_unit<MT>(qp, bn, kc, wv, xs, red);
-    const float* srow = s + tg * bn + grp * COLS;
-    for (int i = tid; i < M * COLS; i += THREADS) {
-      const int m = i / COLS, c = i % COLS;
-      *dst(t, sl, m, grp * COLS + c) = red[m * COLS + c] * srow[c];
-    }
-  }
-}
-
-// rstd[m] from the per-block row sums of squares of the previous phase.
+// rstd[m] from the per-block row sums of squares of the previous phase, a
+// warp a row, a lane's loads all in flight at once.
 __device__ __forceinline__ void row_rstd(const float* ssq, int M, int H, float eps,
                                          float* rstd) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int m = warp; m < M; m += WARPS) {
+    float part[RSTD_LOADS];
+#pragma unroll
+    for (int j = 0; j < RSTD_LOADS; ++j) {
+      const int blk = lane + 32 * j;
+      part[j] = blk < (int)gridDim.x ? __ldcg(ssq + (size_t)m * gridDim.x + blk) : 0.f;
+    }
     float v = 0.f;
-    for (int blk = lane; blk < (int)gridDim.x; blk += 32) v += __ldcg(ssq + (size_t)blk * M + m);
+#pragma unroll
+    for (int j = 0; j < RSTD_LOADS; ++j) v += part[j];
     v = warp_sum(v);
     if (lane == 0) rstd[m] = rsqrtf(v / H + eps);
   }
 }
 
-// Store the block's per-row sums of squares (accumulated in sq[]).
-__device__ __forceinline__ void store_ssq(const float* sq, float* ssq, int M) {
+// Per-row sums of squares of a block's elements in a fixed order (no float
+// atomics, so two calls are bit-equal): lane 0 of each warp adds its warp's
+// sum into the warp's own row sq[warp][m] in loop order, and store_ssq adds
+// the warps in order.
+__device__ __forceinline__ void clear_sq(float (*sq)[32]) {
+  for (int i = threadIdx.x; i < WARPS * 32; i += THREADS) sq[i / 32][i % 32] = 0.f;
   __syncthreads();
-  for (int m = threadIdx.x; m < M; m += THREADS) ssq[(size_t)blockIdx.x * M + m] = sq[m];
 }
 
-// Phases 7-8: qkv = (bf16(src * rstd * gamma) @ tiles [t0, t0 + n_qkv)) * s,
-// rstd from the row sums of squares ssq (stored before the last barrier).
-// src [M, H] f32 was written in this launch. Ends without a barrier.
+// Store the block's per-row sums of squares, row-major [M][grid] (row_rstd
+// then reads each row's sums with whole-warp loads).
+__device__ __forceinline__ void store_ssq(const float (*sq)[32], float* ssq, int M) {
+  __syncthreads();
+  for (int m = threadIdx.x; m < M; m += THREADS) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) v += sq[w][m];
+    ssq[(size_t)m * gridDim.x + blockIdx.x] = v;
+  }
+}
+
+// Tiles whose rows start at input column 0 (every phase but down).
+struct NoOffset {
+  __device__ int operator()(int) const { return 0; }
+};
+
+// Phases 7-8: qkv = (bf16(src * rstd * gamma) @ the tiles of ph) * s, rstd
+// from the row sums of squares ssq (stored before the last barrier). src
+// [M, H] f32 was written in this launch. Requests next's first stages before
+// its barrier; ends without a barrier.
 template <int MT, typename T>
 __device__ void qkv_phases(const int8_t* w, const float* s, const float* src, const float* ssq,
-                           const float* gamma, int M, int H, int bn, int t0, int n_qkv, int ks,
-                           float eps, float* p_q, T* qkv, float* smem, float* rstd_s,
-                           cg::grid_group& grid) {
-  const int Nq = n_qkv * bn;
+                           const float* gamma, int M, int H, int bn, const Phase& ph,
+                           bool fetched, const Phase& next, float eps, float* p_q, T* qkv,
+                           unsigned char* smem, float* rstd_s, cg::grid_group& grid) {
+  const int Nq = ph.n * bn;
   row_rstd(ssq, M, H, eps, rstd_s);
   __syncthreads();
   gemv_phase<MT>(
-      w, s, H, bn, M, t0, n_qkv, ks, smem,
-      [&](int, int m, int k) {
-        return round_bf16(__ldcg(src + (size_t)m * H + k) * rstd_s[m] * gamma[k]);
-      },
+      w, s, H, bn, M, ph, fetched, next, smem, NoOffset{},
+      [&](int m, int k, float(&v)[8]) { norm8(src + (size_t)m * H + k, rstd_s[m], gamma + k, v); },
       [&](int t, int sl, int m, int c) { return p_q + ((size_t)sl * M + m) * Nq + t * bn + c; });
   grid.sync();
   const int stride = gridDim.x * THREADS;
   for (int i = blockIdx.x * THREADS + threadIdx.x; i < M * Nq; i += stride) {
     float v = 0.f;
-#pragma unroll 8
-    for (int sl = 0; sl < ks; ++sl) v += __ldcg(p_q + (size_t)sl * M * Nq + i);
+#pragma unroll 16
+    for (int sl = 0; sl < ph.ks; ++sl) v += __ldcg(p_q + (size_t)sl * M * Nq + i);
     qkv[i] = from_f<T>(v);
   }
 }
@@ -239,45 +463,46 @@ __device__ void qkv_phases(const int8_t* w, const float* s, const float* src, co
 // x_out itself in xo either way). att and x may have been written earlier
 // in the same launch.
 template <int MT, typename T>
-__device__ void tail_phases(const Params& p, float* smem, cg::grid_group& grid) {
-  __shared__ float rstd_s[32], sq_s[32];
-  const int tid = threadIdx.x, lane = tid & 31;
+__device__ void tail_phases(const Params& p, unsigned char* smem, cg::grid_group& grid) {
+  __shared__ float rstd_s[32], sq_w[WARPS][32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int M = p.M, H = p.H, I = p.I, bn = p.bn;
   const int n_cols = H / bn, n_wo = n_cols, n_gu = 2 * I / bn, n_down = (I / H) * n_cols;
   const int t_wo = p.base, t_gu = t_wo + n_wo, t_down = t_gu + n_gu, t_q = t_down + n_down;
+  const Phase wo{t_wo, n_wo, p.ks_wo, p.cols_wo}, gu{t_gu, n_gu, p.ks_gu, p.cols_gu},
+      down{t_down, n_down, p.ks_down, p.cols_down}, qkv{t_q, p.n_qkv, p.ks_q, p.cols_q};
   const T* x = static_cast<const T*>(p.x);
   const int stride = gridDim.x * THREADS;
 
   // 1 wo.
   gemv_phase<MT>(
-      p.w, p.s, H, bn, M, t_wo, n_wo, p.ks_wo, smem,
-      [&](int, int m, int k) { return ldcg_f(p.att + (size_t)m * H + k); },
+      p.w, p.s, H, bn, M, wo, p.wo_fetched, gu, smem, NoOffset{},
+      [&](int m, int k, float(&v)[8]) { ldcg8(p.att + (size_t)m * H + k, v); },
       [&](int t, int sl, int m, int c) {
         return p.p_wo + ((size_t)sl * M + m) * H + t * bn + c;
       });
   grid.sync();
 
   // 2 fin1: x1 = x + sum of the wo slices; row sums of squares.
-  if (tid < 32) sq_s[tid] = 0.f;
-  __syncthreads();
+  clear_sq(sq_w);
   for (int i = blockIdx.x * THREADS + tid; i < M * H; i += stride) {  // whole warps: H % 32 == 0
     float v = ldcg_f(x + i);
-#pragma unroll 8
+#pragma unroll 16
     for (int sl = 0; sl < p.ks_wo; ++sl) v += __ldcg(p.p_wo + (size_t)sl * M * H + i);
     p.x1[i] = v;
     const float sq = warp_sum(v * v);
-    if (lane == 0) atomicAdd(&sq_s[i / H], sq);
+    if (lane == 0) sq_w[warp][i / H] += sq;
   }
-  store_ssq(sq_s, p.ssq1, M);
+  store_ssq(sq_w, p.ssq1, M);
   grid.sync();
 
   // 3 gate | up, input bf16(x1 * rstd * gamma_mlp).
   row_rstd(p.ssq1, M, H, p.eps, rstd_s);
   __syncthreads();
   gemv_phase<MT>(
-      p.w, p.s, H, bn, M, t_gu, n_gu, p.ks_gu, smem,
-      [&](int, int m, int k) {
-        return round_bf16(__ldcg(p.x1 + (size_t)m * H + k) * rstd_s[m] * p.g_mlp[k]);
+      p.w, p.s, H, bn, M, gu, true, down, smem, NoOffset{},
+      [&](int m, int k, float(&v)[8]) {
+        norm8(p.x1 + (size_t)m * H + k, rstd_s[m], p.g_mlp + k, v);
       },
       [&](int t, int sl, int m, int c) {
         return p.p_gu + ((size_t)sl * M + m) * 2 * I + (t & 1) * I + (t >> 1) * bn + c;
@@ -300,10 +525,9 @@ __device__ void tail_phases(const Params& p, float* smem, cg::grid_group& grid) 
 
   // 5 down: tile d covers rows [kchunk * H, +H) of down, columns nc * bn.
   gemv_phase<MT>(
-      p.w, p.s, H, bn, M, t_down, n_down, p.ks_down, smem,
-      [&](int t, int m, int k) {
-        return __ldcg(p.hbuf + (size_t)m * I + (t / n_cols) * H + k);
-      },
+      p.w, p.s, H, bn, M, down, true, p.n_qkv ? qkv : p.after, smem,
+      [&](int t) { return (t / n_cols) * H; },
+      [&](int m, int k, float(&v)[8]) { ldcg8(p.hbuf + (size_t)m * I + k, v); },
       [&](int t, int sl, int m, int c) {
         return p.p_down + (((size_t)(t / n_cols) * p.ks_down + sl) * M + m) * H +
                (t % n_cols) * bn + c;
@@ -311,44 +535,41 @@ __device__ void tail_phases(const Params& p, float* smem, cg::grid_group& grid) 
   grid.sync();
 
   // 6 fin2: x_out = x1 + sum of the down partials.
-  if (tid < 32) sq_s[tid] = 0.f;
-  __syncthreads();
+  clear_sq(sq_w);
   const int n_dp = (I / H) * p.ks_down;
   T* out = static_cast<T*>(p.out);
   for (int i = blockIdx.x * THREADS + tid; i < M * H; i += stride) {
     float v = __ldcg(p.x1 + i);
-#pragma unroll 8
+#pragma unroll 16
     for (int sl = 0; sl < n_dp; ++sl) v += __ldcg(p.p_down + (size_t)sl * M * H + i);
     out[i] = from_f<T>(v);
     p.xo[i] = v;
     const float sq = warp_sum(v * v);
-    if (lane == 0) atomicAdd(&sq_s[i / H], sq);
+    if (lane == 0) sq_w[warp][i / H] += sq;
   }
-  store_ssq(sq_s, p.ssq2, M);
+  store_ssq(sq_w, p.ssq2, M);
   if (p.n_qkv == 0) return;  // the last layer has no next wqkv
   grid.sync();
 
   // 7-8 the next layer's wqkv, input bf16(x_out * rstd * gamma_next).
-  qkv_phases<MT, T>(p.w, p.s, p.xo, p.ssq2, p.g_next, M, H, bn, t_q, p.n_qkv, p.ks_q, p.eps,
+  qkv_phases<MT, T>(p.w, p.s, p.xo, p.ssq2, p.g_next, M, H, bn, qkv, true, p.after, p.eps,
                     p.p_q, static_cast<T*>(p.qkv), smem, rstd_s, grid);
 }
 
-// Cooperative launch of kernel k (grid blocks of THREADS), opting the
-// kernel into smem_bytes(m_tile) of dynamic shared memory on first use.
-inline const void* opted(const void* k, int m_tile, bool* done) {
+// Kernel k opted into SMEM_BYTES of dynamic shared memory on first use.
+inline const void* opted(const void* k, bool* done) {
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= 64 || !done[dev]) {
-    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(m_tile));
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (dev < 64) done[dev] = true;
   }
   return k;
 }
 
-inline int blocks_per_sm(const void* k, int m_tile, int* out) {
+inline int blocks_per_sm(const void* k, int* out) {
   *out = 0;
-  const cudaError_t e =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k, THREADS, smem_bytes(m_tile));
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k, THREADS, SMEM_BYTES);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(e != cudaSuccess ? e : last);
 }

@@ -17,10 +17,10 @@ needs all of x1, down all of h, the next RMSNorm all of x_out), which the
 TPU kernel gets by running its tiles in order on one core. The CUDA kernel
 (``csrc/layer_tail_int8.cu``) is one persistent cooperative launch whose
 blocks all stay resident and meet at grid-wide barriers between the
-phases; inside a phase the blocks stride over (tile, 128-column group,
-K slice) units, stream 4-byte weight words as the decode GEMV does, and
-write f32 partial sums that the next phase reduces. No atomics: the sums
-are deterministic.
+phases; inside a phase the blocks stride over (tile, 128- or 256-column
+group, K slice) units (``plan_tail``), run the products on the tensor cores
+as the decode GEMV does (``csrc/qgemv_int8.cu``), and write f32 partial
+sums that the next phase reduces. No atomics: the sums are deterministic.
 
 Arithmetic. The kernel follows the TPU kernel (``_stream_kernel``): x1 =
 (att @ wo) * s + x in f32, xn = bf16(x1 * rstd * gamma), g and u in f32,
@@ -189,17 +189,19 @@ def tail_plain(a2, x2, gamma_mlp, pack: LayerPack, gamma_next, *, eps: float):
 # CUDA launch (shared with kernels/layer_stream.py)
 # ---------------------------------------------------------------------------
 
-_COLS = 128  # output columns per work unit (csrc/layer_tail_int8.cu)
-_XS_BYTES = 32 * 1024  # staged activations per block
-_MIN_KC = 64
+# Mirrors of csrc/tail_phases.cuh's constants.
+_STAGE_ROWS = 64  # weight rows a ring stage (TAIL_SR): a K slice is a multiple of it
+_XS_BYTES = 33 * 1024  # x's staged slice per block (TAIL_XS_KB)
+_XPAD = 4  # words a staged row of x is padded by (XPAD)
 _BLOCKS_PER_SM = 2  # co-resident blocks per SM at most: fewer meet faster at a barrier
+_MAX_GRID = 512  # blocks whose row sums row_rstd reads in one round (32 x RSTD_LOADS)
 
 
 def type_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of ``csrc/layer_tail_int8.cu`` on ``lib``
     (also a variant build of it, ``tools/tail_phases.py``)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.layer_tail_int8.argtypes = ([vp] * 17 + [ci] * 10
+    lib.layer_tail_int8.argtypes = ([vp] * 17 + [ci] * 14
                                     + [ctypes.c_float, ci, ci, ci, vp])
     lib.layer_tail_int8.restype = ci
     lib.layer_tail_int8_blocks_per_sm.argtypes = [ci, ci, ctypes.POINTER(ci)]
@@ -223,28 +225,57 @@ def _grid(index: int, m_tile: int, is_f32: int) -> int:
     if nb.value < 1:
         raise RuntimeError("layer_tail_int8: no block fits on an SM")
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return min(nb.value, _BLOCKS_PER_SM) * sms
+    return min(min(nb.value, _BLOCKS_PER_SM) * sms, _MAX_GRID)
 
 
-def plan_tail(M: int, H: int, bn: int, tiles: dict, grid: int) -> Tuple[int, dict]:
-    """(m_tile, {phase: K slices}): each phase's K (= H rows of a tile) is
-    cut into the most power-of-two slices that still leave at most one unit
-    per block (a second round of units costs a unit's whole latency chain
-    again), and at least as many as the staged slice needs to fit
-    ``_XS_BYTES``."""
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data is not 16-byte aligned (the kernels
+    load eight values at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def scratch(sizes, device) -> list:
+    """f32 buffers of the given sizes cut from one allocation, each starting
+    on a 16-byte boundary."""
+    padded = [-(-n // 4) * 4 for n in sizes]
+    ws = torch.empty(sum(padded), dtype=torch.float32, device=device)
+    return [b[:n] for b, n in zip(torch.split(ws, padded), sizes)]
+
+
+def _xs_bytes(kc: int, mt: int) -> int:
+    """Shared memory of a staged K slice of kc rows: bf16 pairs, mt rows of x."""
+    return mt * (kc // 2 + _XPAD) * 4
+
+
+def plan_tail(M: int, H: int, bn: int, tiles: dict, grid: int, *, cols: Optional[int] = None,
+              fewer_slices: int = 0) -> Tuple[int, dict]:
+    """(m_tile, {phase: (columns a unit, K slices)}) for ``tiles`` ({phase:
+    tile count}). A unit takes 256 weight columns of a tile where bn allows
+    (else 128; ``cols`` forces one where it divides bn). Each phase's K (= H
+    rows of a tile) is cut into the most power-of-two slices that still
+    leave at most one unit per block (a second round of units costs a unit's
+    whole latency chain again) and are whole ring stages, and at least as
+    many as the staged slice needs to fit ``_XS_BYTES``. ``fewer_slices``
+    halves the count that many times where the staged slice still fits (a
+    measured variant, ``tools/tail_phases.py``)."""
     mt = 8 if M <= 8 else 32
-    groups = bn // _COLS
-    ks = {}
+    if H % _STAGE_ROWS:
+        raise ValueError(f"layer_tail_int8 needs H % {_STAGE_ROWS} == 0 (H={H})")
+    plan = {}
     for name, n in tiles.items():
+        c = cols if cols and bn % cols == 0 else (256 if bn % 256 == 0 else 128)
+        units = n * (bn // c)
         k = 1
-        while (H % (2 * k) == 0 and H // (2 * k) >= _MIN_KC
-               and ((H // k) * mt * 4 > _XS_BYTES or n * groups * 2 * k <= grid)):
+        while (H % (2 * k * _STAGE_ROWS) == 0
+               and (_xs_bytes(H // k, mt) > _XS_BYTES or units * 2 * k <= grid)):
             k *= 2
-        kc = H // k
-        if H % k or kc % 8 or kc * mt * 4 > _XS_BYTES:
+        for _ in range(fewer_slices):
+            if k > 1 and _xs_bytes(2 * H // k, mt) <= _XS_BYTES:
+                k //= 2
+        if _xs_bytes(H // k, mt) > _XS_BYTES:
             raise ValueError(f"layer_tail_int8 cannot slice H={H} for M={M}")
-        ks[name] = k
-    return mt, ks
+        plan[name] = (c, k)
+    return mt, plan
 
 
 def launch_tail(att: torch.Tensor, x: torch.Tensor, gamma_mlp: torch.Tensor,
@@ -263,7 +294,7 @@ def launch_tail(att: torch.Tensor, x: torch.Tensor, gamma_mlp: torch.Tensor,
         raise TypeError(f"layer_tail_int8 takes bf16/f32 activations, got {x.dtype}")
     if not 0 < M <= 32:
         raise ValueError(f"layer_tail_int8 is a decode kernel: 1 <= M <= 32, got M={M}")
-    if bn % _COLS or H % bn or I % H or w.shape[1:] != (H, bn) or s.shape[1:] != (1, bn):
+    if bn % 128 or H % bn or I % H or w.shape[1:] != (H, bn) or s.shape[1:] != (1, bn):
         raise ValueError(f"layer_tail_int8: bad pack (H={H}, I={I}, bn={bn}, "
                          f"w {tuple(w.shape)}, s {tuple(s.shape)})")
     if base < 0 or base + n_tiles > w.shape[0] or s.shape[0] != w.shape[0]:
@@ -276,21 +307,24 @@ def launch_tail(att: torch.Tensor, x: torch.Tensor, gamma_mlp: torch.Tensor,
         raise TypeError("layer_tail_int8: scales must be f32")
     dev = x.device
     is_f32 = int(x.dtype == torch.float32)
-    a2 = att.to(torch.bfloat16).contiguous()
+    a2 = aligned(att.to(torch.bfloat16).contiguous())
     x2 = x.contiguous()
-    g1 = gamma_mlp.to(device=dev, dtype=torch.float32).contiguous()
-    g2 = (gamma_next.to(device=dev, dtype=torch.float32).contiguous()
+    g1 = aligned(gamma_mlp.to(device=dev, dtype=torch.float32).contiguous())
+    g2 = (aligned(gamma_next.to(device=dev, dtype=torch.float32).contiguous())
           if gamma_next is not None else torch.ones(H, dtype=torch.float32, device=dev))
+    if w.data_ptr() % 16 or s.data_ptr() % 16:
+        raise ValueError("layer_tail_int8: the pack must be 16-byte aligned")
     mt0 = 8 if M <= 8 else 32
     grid = _grid(dev.index or 0, mt0, is_f32)
-    mt, ks = plan_tail(M, H, bn, {"wo": n_wo, "gu": n_gu, "down": n_down,
-                                  "qkv": max(n_qkv, 1)}, grid)
+    mt, plan = plan_tail(M, H, bn, {"wo": n_wo, "gu": n_gu, "down": n_down,
+                                    "qkv": max(n_qkv, 1)}, grid)
+    names = ("wo", "gu", "down", "qkv")
+    ks = {name: plan[name][1] for name in names}
     Nq = n_qkv * bn
     # p_wo, x1, ssq1, p_gu, hbuf, p_down, xo, ssq2, p_q (csrc/layer_tail_int8.cu)
-    sizes = [ks["wo"] * M * H, M * H, grid * M, ks["gu"] * M * 2 * I, M * I,
-             (I // H) * ks["down"] * M * H, M * H, grid * M, ks["qkv"] * M * max(Nq, 1)]
-    ws = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    bufs = list(torch.split(ws, sizes))
+    bufs = scratch([ks["wo"] * M * H, M * H, grid * M, ks["gu"] * M * 2 * I, M * I,
+                    (I // H) * ks["down"] * M * H, M * H, grid * M, ks["qkv"] * M * max(Nq, 1)],
+                   dev)
     out = torch.empty((M, H), dtype=x.dtype, device=dev)
     qkv = torch.empty((M, Nq), dtype=x.dtype, device=dev) if n_qkv else None
     lib = _lib()
@@ -298,7 +332,7 @@ def launch_tail(att: torch.Tensor, x: torch.Tensor, gamma_mlp: torch.Tensor,
         _build.ptr(a2), _build.ptr(x2), _build.ptr(g1), _build.ptr(g2), _build.ptr(w),
         _build.ptr(s), _build.ptr(out), None if qkv is None else _build.ptr(qkv),
         *[_build.ptr(b) for b in bufs],
-        M, H, I, bn, base, n_qkv, ks["wo"], ks["gu"], ks["down"], ks["qkv"],
+        M, H, I, bn, base, n_qkv, *(ks[n] for n in names), *(plan[n][0] for n in names),
         eps, grid, mt, is_f32, _build.stream_of(x2))
     _build.check(lib, rc, "layer_tail_int8")
     return out, qkv

@@ -44,11 +44,14 @@ from mila_tpu_torch.kernels import _build
 from mila_tpu_torch.kernels.dense_attention import _rope_flat
 from mila_tpu_torch.kernels.layer_fused import (
     _BLOCKS_PER_SM,
+    _MAX_GRID,
     LayerPack,
+    aligned,
     layer_tail_plain,
     pack_layer,
     plan_tail,
     qkv_tail_plain,
+    scratch,
 )
 from mila_tpu_torch.ops.attention import decode_attention
 
@@ -163,7 +166,9 @@ _PTRS = ("lens", "tok_in", "x_in", "cos_in", "sin_in", "qkv_in", "ga", "gm", "gf
          "x1", "ssq1", "p_gu", "hbuf", "p_down", "xo", "ssq2", "p_q", "p_head", "best_v",
          "best_i")
 _INTS = ("giga", "tokens_mode", "x_is_f32", "M", "H", "I", "bn", "NH", "NKV", "HD", "Tlen", "L",
-         "n_qkv", "n_head", "vocab", "ks_wo", "ks_gu", "ks_down", "ks_q", "ks_head")
+         "n_qkv", "n_head", "vocab", "ks_wo", "ks_gu", "ks_down", "ks_q", "ks_head", "cols_wo",
+         "cols_gu", "cols_down", "cols_q", "cols_head")
+_PHASES = {"wo": "wo", "gu": "gu", "down": "down", "qkv": "q", "head": "head"}
 _HDS = (8, 16, 32, 64, 128)
 
 
@@ -194,7 +199,7 @@ def _grid(index: int, m_tile: int, is_f32: int) -> int:
     if nb.value < 1:
         raise RuntimeError("decode_step_int8: no block fits on an SM")
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return min(nb.value, _BLOCKS_PER_SM) * sms
+    return min(min(nb.value, _BLOCKS_PER_SM) * sms, _MAX_GRID)
 
 
 def check_step(*, w, s, k_pool, v_pool, M, H, I, bn, NH, NKV, HD, T) -> None:
@@ -221,8 +226,10 @@ def check_step(*, w, s, k_pool, v_pool, M, H, I, bn, NH, NKV, HD, T) -> None:
     for t in (w, s, k_pool, v_pool):
         if not t.is_cuda or t.device != w.device:
             raise ValueError("decode_step_int8: every operand must be on one CUDA device")
-    if s.dtype != torch.float32 or not (w.is_contiguous() and s.is_contiguous()):
-        raise TypeError("decode_step_int8: the pack must be contiguous with f32 scales")
+    if s.dtype != torch.float32 or not (w.is_contiguous() and s.is_contiguous()) \
+            or w.data_ptr() % 16 or s.data_ptr() % 16:
+        raise TypeError("decode_step_int8: the pack must be contiguous, 16-byte aligned, "
+                        "with f32 scales")
 
 
 def launch_step(ptrs: dict, ints: dict, *, eps: float, scale: float, is_f32: int,
@@ -236,19 +243,21 @@ def launch_step(ptrs: dict, ints: dict, *, eps: float, scale: float, is_f32: int
     n_qkv, n_head = ints["n_qkv"], ints["n_head"]
     mt0 = 8 if M <= 8 else 32
     grid = _grid(device.index or 0, mt0, is_f32)
-    mt, ks = plan_tail(M, H, bn, {"wo": H // bn, "gu": 2 * I // bn, "down": (I // H) * (H // bn),
-                                  "qkv": max(n_qkv, 1), "head": max(n_head, 1)}, grid)
-    ints.update(ks_wo=ks["wo"], ks_gu=ks["gu"], ks_down=ks["down"], ks_q=ks["qkv"],
-                ks_head=ks["head"])
+    mt, plan = plan_tail(M, H, bn, {"wo": H // bn, "gu": 2 * I // bn,
+                                    "down": (I // H) * (H // bn), "qkv": max(n_qkv, 1),
+                                    "head": max(n_head, 1)}, grid)
+    for name, suffix in _PHASES.items():
+        ints["cols_" + suffix], ints["ks_" + suffix] = plan[name]
+    ks = {name: k for name, (_, k) in plan.items()}
     Nq, Nh = max(n_qkv * bn, 1), max(n_head * bn, 1)
     sizes = {"att": (M * NQ + 1) // 2, "p_wo": ks["wo"] * M * H, "x1": M * H, "ssq1": grid * M,
              "p_gu": ks["gu"] * M * 2 * I, "hbuf": M * I,
              "p_down": (I // H) * ks["down"] * M * H, "xo": M * H, "ssq2": grid * M,
              "p_q": ks["qkv"] * M * Nq, "p_head": ks["head"] * M * Nh if ints["giga"] else 1,
              "best_v": grid * M, "best_i": grid * M}
-    ws = torch.empty(sum(sizes.values()), dtype=torch.float32, device=device)
-    scratch = dict(zip(sizes, torch.split(ws, list(sizes.values()))))
-    allp = {**scratch, **ptrs}
+    allp = {**dict(zip(sizes, scratch(list(sizes.values()), device))),
+            **{k: aligned(v) if k in ("ga", "gm", "gf") and v is not None else v
+               for k, v in ptrs.items()}}
     arr_p = (ctypes.c_void_p * len(_PTRS))(
         *[allp[n].data_ptr() if allp.get(n) is not None else None for n in _PTRS])
     arr_i = (ctypes.c_int * len(_INTS))(*[int(ints[n]) for n in _INTS])

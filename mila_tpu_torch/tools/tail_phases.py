@@ -4,7 +4,8 @@ built on ``csrc/tail_phases.cuh``, on the GPU at Llama-3.2-1B's shapes
 (H 2048, I 8192, wqkv 3072 columns, bn 512, random int8 weights).
 
     python -m mila_tpu_torch.tools.tail_phases [--kernels tail mlp giga]
-        [--variants committed nst3 sr128 no_prefetch ...] [--plans committed c128 ...]
+        [--variants committed nst2 no_stream ...] [--plans committed c128 ...]
+        [--tree NAME=DIR ...]
 
 It compiles copies of the two sources in which block 0 stamps
 ``%globaltimer`` when the kernel starts, after every grid barrier and when
@@ -28,10 +29,14 @@ slowest block's work plus the barrier. Last, the time of a launch of grid
 barriers alone (1 and 8 of them).
 
 Variants are compile-time (``-D`` macros of ``tail_phases.cuh``):
-``committed``; ``nst3`` / ``nst5`` (ring stages; ``nst5`` with a 17 KB
-staged slice, so two blocks still fit an SM); ``sr128`` (128-row stages);
+``committed``; ``nst2`` / ``nst4`` / ``nst5`` (ring stages; ``nst5`` with
+a 17 KB staged slice, so two blocks still fit an SM); ``sr128`` (128-row stages);
 ``no_prefetch`` (no request of the next phase's first stages before a
-barrier); ``mb1`` / ``mb3`` (registers bounded for 1 or 3 resident blocks
+barrier) and ``pf1`` / ``pf2`` (one or two of them); ``stage_first``
+(a phase's first slice of x staged before its first weight requests);
+``no_mma``, ``no_stream``, ``no_stage`` (the products, the weight copies or
+the staging of x dropped; wrong by design, timed only) and ``loads_only``
+(no products, no staging); ``mb1`` / ``mb3`` (registers bounded for 1 or 3 resident blocks
 per SM, and that many blocks an SM). Plans are the launch plan
 (``kernels/layer_fused.py:plan_tail``): ``committed``; ``c128`` / ``c256``
 (128 or 256 weight columns a unit in every phase that takes them);
@@ -47,6 +52,7 @@ import json
 import re
 import statistics
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -64,15 +70,27 @@ NH, NKV, HD, L, T, VOCAB = 32, 8, 64, 16, 512, 128256
 MAX_STAMPS = 1024
 TAIL = ("wo", "fin1", "gu", "fin_h", "down", "fin2")
 
-# name -> (nvcc defines, overrides of kernels/layer_fused.py's mirrors of them)
+# name -> (nvcc defines, overrides of kernels/layer_fused.py's mirrors of them,
+# edits of tail_phases.cuh: [(old text, new text)])
+_NO_MMA = [("        if (jj >= ksw) break;", "        if (true) break;")]
+_NO_STREAM = [("        if (c * rstep < SR) cp_async_to<16>", "        if (false) cp_async_to<16>")]
+_NO_STAGE = [("  constexpr int XB = 4;\n", "  constexpr int XB = 4;\n  if (true) return;\n")]
 VARIANTS = {
-    "committed": ([], {}),
-    "nst3": (["-DTAIL_NST=3"], {}),
-    "nst5": (["-DTAIL_NST=5", "-DTAIL_XS_KB=17"], {"_XS_BYTES": 17 * 1024}),
-    "sr128": (["-DTAIL_SR=128"], {"_STAGE_ROWS": 128}),
-    "no_prefetch": (["-DTAIL_PREFETCH=0"], {}),
-    "mb1": (["-DTAIL_MIN_BLOCKS=1"], {"_BLOCKS_PER_SM": 1}),
-    "mb3": (["-DTAIL_MIN_BLOCKS=3"], {"_BLOCKS_PER_SM": 3}),
+    "committed": ([], {}, []),
+    "nst2": (["-DTAIL_NST=2"], {}, []),
+    "nst4": (["-DTAIL_NST=4"], {}, []),
+    "nst5": (["-DTAIL_NST=5", "-DTAIL_XS_KB=17"], {"_XS_BYTES": 17 * 1024}, []),
+    "sr128": (["-DTAIL_SR=128"], {"_STAGE_ROWS": 128}, []),
+    "no_prefetch": (["-DTAIL_PREFETCH=0"], {}, []),
+    "pf1": (["-DTAIL_PREFETCH=1"], {}, []),
+    "pf2": (["-DTAIL_PREFETCH=2"], {}, []),
+    "stage_first": (["-DTAIL_STAGE_FIRST=1"], {}, []),
+    "mb1": (["-DTAIL_MIN_BLOCKS=1"], {"_BLOCKS_PER_SM": 1}, []),
+    "mb3": (["-DTAIL_MIN_BLOCKS=3"], {"_BLOCKS_PER_SM": 3}, []),
+    "no_mma": ([], {}, _NO_MMA),
+    "no_stream": ([], {}, _NO_STREAM),
+    "no_stage": ([], {}, _NO_STAGE),
+    "loads_only": ([], {}, _NO_MMA + _NO_STAGE),
 }
 
 _STAMP = f'''
@@ -123,35 +141,45 @@ def _instrument_kernel(src: str, name: str) -> str:
     return src[:m.end()] + " stamp();" + body + "stamp();\n}" + src[i:]
 
 
-def stamped_sources() -> dict:
-    """The two sources with the phase clock: tail_phases.cuh inlined, a
-    stamp after every grid barrier, at each kernel's start and exits."""
-    head = (_build.CSRC / "tail_phases.cuh").read_text()
+def stamped_sources(edits=(), root=_build.CSRC) -> dict:
+    """The two sources under `root` with the phase clock: tail_phases.cuh
+    (with `edits`) inlined, a stamp after every grid barrier, at each
+    kernel's start and exits."""
+    head = (root / "tail_phases.cuh").read_text()
     if head.count("grid.sync();") < 4:
         raise RuntimeError("tail_phases.cuh no longer has the expected barriers")
+    for old, new in edits:
+        if old not in head:
+            raise RuntimeError(f"tail_phases.cuh no longer holds {old!r}")
+        head = head.replace(old, new)
     head = head.replace("#pragma once", "#pragma once\n" + _STAMP, 1)
     out = {}
     for name, kernel in (("layer_tail_int8", "tail_kernel"), ("decode_step_int8", "step_kernel")):
-        src = (_build.CSRC / f"{name}.cu").read_text().replace('#include "tail_phases.cuh"', head)
+        src = (root / f"{name}.cu").read_text().replace('#include "tail_phases.cuh"', head)
         src = _instrument_kernel(src, kernel).replace("grid.sync();", "grid.sync(); stamp();")
         out[name] = src + _EXTRA
     return out
 
 
-def build(variants) -> dict:
-    """{variant: (K7 library, K8 library)}, compiled all at once."""
+def build(variants, trees=None) -> dict:
+    """{variant: {source: library}}, compiled all at once; ``trees`` maps
+    more variant names to directories holding another tail_phases.cuh,
+    layer_tail_int8.cu and decode_step_int8.cu with the same C interface
+    (headers missing there come from csrc/)."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for src_name, text in stamped_sources().items():
-        cu = _build.BUILD_DIR / f"phases_{src_name}.cu"
-        cu.write_text(text)
-        for v in variants:
+    jobs = [(v, VARIANTS[v][2], _build.CSRC, VARIANTS[v][0]) for v in variants]
+    jobs += [(v, (), Path(d).resolve(), []) for v, d in (trees or {}).items()]
+    for v, edits, root, defines in jobs:
+        for src_name, text in stamped_sources(edits, root).items():
+            cu = _build.BUILD_DIR / f"phases_{src_name}_{v}.cu"
+            cu.write_text(text)
             out = _build.BUILD_DIR / f"libphases_{src_name}_{v}.so"
             procs[(v, src_name)] = (out, subprocess.Popen(
-                [_build.nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", *VARIANTS[v][0],
+                [_build.nvcc(), *_build.NVCC_FLAGS, f"-I{root}", f"-I{_build.CSRC}", *defines,
                  "-o", str(out), str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
-    libs: dict = {v: {} for v in variants}
+    libs: dict = {v: {} for v, *_ in jobs}
     for (v, src_name), (out, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
@@ -278,11 +306,16 @@ def main() -> None:
     ap.add_argument("--kernels", nargs="+", default=list(CASES), choices=list(CASES))
     ap.add_argument("--variants", nargs="+", default=["committed"], choices=list(VARIANTS))
     ap.add_argument("--plans", nargs="+", default=["committed"], choices=list(PLANS))
+    ap.add_argument("--tree", nargs="*", default=[], metavar="NAME=DIR",
+                    help="also build the sources in DIR (e.g. an earlier commit's, from "
+                         "git show) as variant NAME")
     ap.add_argument("--reps", type=int, default=12)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tail_phases needs a CUDA device")
-    libs = build(args.variants)
+    trees = dict(t.split("=", 1) for t in args.tree)
+    libs = build(args.variants, trees)
+    variants = list(args.variants) + list(trees)
     card = torch.cuda.get_device_name(0)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -293,10 +326,10 @@ def main() -> None:
         for kernel in args.kernels:
             src_name, make = CASES[kernel]
             cases = make(gen)
-            for v in args.variants:
+            for v in variants:
                 lib = libs[v][src_name]
                 for plan in args.plans:
-                    overrides = dict(VARIANTS[v][1])
+                    overrides = dict(VARIANTS[v][1] if v in VARIANTS else {})
                     bps = overrides.pop("_BLOCKS_PER_SM", saved[lf][2])
                     for mod in (lf, lm):
                         mod._lib = lambda lib=lib: lib
@@ -321,7 +354,7 @@ def main() -> None:
             mod._grid.cache_clear()
         for k, val in saved_consts.items():
             setattr(lf, k, val)
-    lib = libs[args.variants[0]]["layer_tail_int8"]
+    lib = libs[variants[0]]["layer_tail_int8"]
     stream_ptr = torch.cuda.current_stream().cuda_stream
     grid = lf._grid(0, 8, 0)
     for n in (1, 8):

@@ -575,6 +575,8 @@ def _tail_case(H, I, NQ, bn, layers, seed):
     (256, 512, 384, 128, 4, torch.bfloat16),
     (256, 512, 384, 128, 20, torch.float32),
     (2048, 8192, 3072, 512, 8, torch.bfloat16),  # Llama-3.2-1B's layer tail
+    (2048, 8192, 3072, 512, 1, torch.bfloat16),
+    (2048, 8192, 3072, 512, 32, torch.float32),  # m_tile 32: four n-tiles of x
 ])
 def test_layer_tail_kernel(cuda, H, I, NQ, bn, M, dtype):
     packs, stream = _tail_case(H, I, NQ, bn, 3, seed=24)
@@ -596,6 +598,53 @@ def test_layer_tail_kernel(cuda, H, I, NQ, bn, M, dtype):
     out, qkv = lf.mlp_qkv_fused(att, x, g1, packs[0], g2)
     wout, wqkv = lf.tail_plain(att, x, g1, packs[0], g2, eps=1e-5)
     torch.cuda.synchronize()
+    _close(out, wout)
+    _close(qkv, wqkv)
+
+
+@pytest.mark.parametrize("M", [1, 8, 32])
+def test_layer_tail_graph_replay_and_determinism(cuda, M):
+    # Two calls are bit-equal (partials added in slice order, no atomics);
+    # a captured call replayed after att and x are rewritten in place equals
+    # an eager call on the new inputs.
+    H, I, NQ, bn = 2048, 8192, 3072, 512
+    _, stream = _tail_case(H, I, NQ, bn, 2, seed=140)
+    att, x = _rand((M, H), 141), _rand((M, H), 142)
+    g1, g2 = 1.0 + _rand((H,), 143, 0.1, torch.float32), 1.0 + _rand((H,), 144, 0.1, torch.float32)
+
+    def call():
+        return ls.layer_tail_stream(att, x, g1, stream, 0, g2)
+
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = call()
+    for seed in (145, 146):
+        att.copy_(_rand((M, H), seed))
+        x.copy_(_rand((M, H), seed + 10))
+        g.replay()
+        torch.cuda.synchronize()
+        want = call()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+
+
+def test_layer_tail_smallest_slice(cuda):
+    # H 512: the plan cuts wo, gate|up and down into one-stage slices (the
+    # smallest K slice), two 256-column units a tile.
+    H, I, NQ, bn, M = 512, 2048, 1024, 512, 8
+    packs, stream = _tail_case(H, I, NQ, bn, 2, seed=150)
+    grid = lf._grid(0, 8, 0)
+    _, plan = lf.plan_tail(M, H, bn, {"wo": 1, "gu": 2 * I // bn, "down": I // bn, "qkv": 2},
+                           grid)
+    assert H // plan["wo"][1] == lf._STAGE_ROWS
+    att, x = _rand((M, H), 151), _rand((M, H), 152)
+    g1, g2 = 1.0 + _rand((H,), 153, 0.1, torch.float32), 1.0 + _rand((H,), 154, 0.1, torch.float32)
+    out, qkv = ls.layer_tail_stream(att, x, g1, stream, 0, g2)
+    torch.cuda.synchronize()
+    wout, wqkv = lf.tail_plain(att, x, g1, packs[0], g2, eps=1e-5)
     _close(out, wout)
     _close(qkv, wqkv)
 
@@ -749,6 +798,41 @@ def test_giga_kernel(cuda, mode, L, H, I, NH, NKV, HD, bn, VP, vocab, B, T):
             _close(pool[l][rows, ln.long()], ref[l][rows, ln.long()])
         pool[:, rows, ln.long()] = orig[:, rows, ln.long()]
         assert torch.equal(pool, orig)  # no other row was touched
+
+
+@pytest.mark.parametrize("L,H,I,NH,NKV,HD,bn,VP,vocab,B,T", [
+    (2, 512, 1024, 8, 2, 64, 128, 1024, 1000, 5, 64),  # 128-column units
+    (2, 512, 1024, 8, 8, 64, 512, 1024, 1000, 3, 32),  # 256-column units
+])
+def test_giga_kernel_graph_replay_and_determinism(cuda, L, H, I, NH, NKV, HD, bn, VP, vocab, B,
+                                                  T):
+    # Two steps on the same inputs are bit-equal (the rows they write are
+    # not among the rows they read); a captured step replayed after the
+    # tokens are rewritten in place equals an eager step on the new tokens.
+    pack = _giga_case(L, H, I, NH, NKV, HD, bn, VP, vocab, 160)
+    rng = np.random.default_rng(161)
+    lens = torch.from_numpy(rng.integers(1, T - 1, B).astype(np.int32)).cuda()
+    kpool, vpool = _rand((L, B, T, NKV * HD), 162), _rand((L, B, T, NKV * HD), 163)
+    wte = _rand((1000, H), 164)
+    tokens = torch.from_numpy(rng.integers(0, 1000, B).astype(np.int32)).cuda()
+
+    def call():
+        return dg.giga_decode_step(wte, None, None, lens, pack, kpool, vpool, tokens=tokens)
+
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = call()
+    for seed in (165, 166):
+        tokens.copy_(torch.from_numpy(
+            np.random.default_rng(seed).integers(0, 1000, B).astype(np.int32)))
+        g.replay()
+        torch.cuda.synchronize()
+        want = call()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
 
 
 def test_giga_kernel_leaves_a_full_cache_alone(cuda):

@@ -150,17 +150,49 @@ def test_layer_id_must_be_an_int(layers):
 
 
 def test_tail_plan_covers_the_served_shapes():
-    """The cooperative launch plan (host arithmetic) at Llama-3.2-1B's tail:
-    every phase's staged K slice fits the block's shared memory, and a
-    phase has at most one unit per block unless the slice size forces more."""
-    tiles = {"wo": 4, "gu": 32, "down": 16, "qkv": 6}
-    for M in (1, 8, 32):
-        for grid in (132, 264):
-            mt, ks = tlf.plan_tail(M, 2048, 512, tiles, grid)
-            for name, n in tiles.items():
-                kc = 2048 // ks[name]
-                assert kc * mt * 4 <= 32 * 1024 and kc % 8 == 0
-                assert n * 4 * ks[name] <= grid or kc * mt * 4 > 16 * 1024
-                assert n * 4 * ks[name] * 2 > grid or kc == 64
-    assert tlf.plan_tail(8, 2048, 512, tiles, 264)[1] == {"wo": 16, "gu": 2, "down": 4,
-                                                          "qkv": 8}
+    """The cooperative launch plan (host arithmetic) at Llama-3.2-1B's layer
+    tail, its MLP block (bn 2048) and the giga head (251 vocab tiles and the
+    5 zero tiles that pad the stream): units of 256 weight columns, every
+    phase's K slice whole ring stages whose staged bf16 slice fits the
+    block's shared memory, at most one unit per block unless the slice size
+    or the tile count forces more, and no slice doubling left that would
+    still keep to one unit per block."""
+    sr = tlf._STAGE_ROWS
+    shapes = ((512, {"wo": 4, "gu": 32, "down": 16, "qkv": 6}),
+              (2048, {"wo": 1, "gu": 8, "down": 4}),
+              (512, {"head": 256}))
+    for bn, tiles in shapes:
+        for M in (1, 8, 32):
+            for grid in (132, 264):
+                mt, plan = tlf.plan_tail(M, 2048, bn, tiles, grid)
+                assert mt == (8 if M <= 8 else 32)
+                for name, n in tiles.items():
+                    cols, ks = plan[name]
+                    kc, units = 2048 // ks, n * (bn // cols) * ks
+                    assert cols == 256 and 2048 % ks == 0 and kc % sr == 0
+                    assert tlf._xs_bytes(kc, mt) <= tlf._XS_BYTES
+                    assert (units <= grid or ks == 1
+                            or tlf._xs_bytes(2 * kc, mt) > tlf._XS_BYTES)
+                    assert units * 2 > grid or kc == sr
+    assert tlf.plan_tail(8, 2048, 512, shapes[0][1], 264)[1] == {
+        "wo": (256, 32), "gu": (256, 4), "down": (256, 8), "qkv": (256, 16)}
+
+
+@pytest.mark.parametrize("H,bn,M,smallest", [(256, 128, 4, 64), (512, 512, 1, 64),
+                                             (3072, 512, 32, 192)])
+def test_tail_plan_small_and_odd_shapes(H, bn, M, smallest):
+    """128-column units where bn is not a multiple of 256; an H whose plan
+    reaches the smallest slice (one ring stage); an H that is not a power of
+    two, cut only into whole stages (3072 = 16 x 192). A forced column count is kept where it
+    divides bn."""
+    sr = tlf._STAGE_ROWS
+    tiles = {"wo": H // bn, "gu": 4, "down": 2 * H // bn}
+    mt, plan = tlf.plan_tail(M, H, bn, tiles, 264)
+    for name, (cols, ks) in plan.items():
+        assert cols == (256 if bn % 256 == 0 else 128)
+        assert H % ks == 0 and (H // ks) % sr == 0
+        assert tlf._xs_bytes(H // ks, mt) <= tlf._XS_BYTES
+    assert min(H // ks for _, ks in plan.values()) == smallest
+    assert all(c == 128 for c, _ in tlf.plan_tail(M, H, bn, tiles, 264, cols=128)[1].values())
+    with pytest.raises(ValueError):
+        tlf.plan_tail(M, H + sr // 2, bn, tiles, 264)
