@@ -585,10 +585,10 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
         errs = [max_err(g, w) for g, w in zip(got, want) if g is not None]
         return max(errs, key=lambda e: e[0] / e[1])
 
-    def tail_plan(bn, grid, n_qkv=1, n_head=0):
+    def tail_plan(bn, grid, n_qkv, n_head=0):
         """The launch plan: {phase: [weight columns a unit, K slices]}."""
         tiles = {"wo": H // bn, "gu": 2 * I // bn, "down": (I // H) * (H // bn),
-                 "qkv": max(n_qkv, 1), **({"head": n_head} if n_head else {})}
+                 **({"qkv": n_qkv} if n_qkv else {}), **({"head": n_head} if n_head else {})}
         return lf.plan_tail(M, H, bn, tiles, grid)[1]
 
     mid = L // 2 - 1
@@ -600,7 +600,7 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
            [lambda i=i: ls.layer_tail_stream(att, x, g1, stream, i, g2) for i in range(L - 1)],
            lambda: lf.tail_plain(att[:, 0], x[:, 0], g1, views[mid], g2, eps=cfg.rms_eps),
            None, tail_bytes(n_full, Nq), ops_tail + 2 * M * H * Nq,
-           plan=tail_plan(bn, lf._grid(dev.index or 0, 8, 0)))
+           plan=tail_plan(bn, lf._grid(dev.index or 0, 8, 0), stream.n_qkv))
     last = ls._pack_view(stream, L - 1, True)
     got = ls.layer_tail_stream(att, x, g1, stream, L - 1, None)
     want = lf.tail_plain(att[:, 0], x[:, 0], g1, last, g2, eps=cfg.rms_eps)
@@ -626,7 +626,7 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
            [lambda p=p: dm.mlp_block_fused(att, x, g1, p) for p in mps],
            lambda: dm.mlp_block_plain(att[:, 0], x[:, 0], g1, mps[0], eps=cfg.rms_eps), None,
            n_mlp * (H * mps[0].bn + mps[0].bn * 4) + 3 * M * H * 2 + H * 4, ops_tail,
-           plan=tail_plan(mps[0].bn, lf._grid(dev.index or 0, 8, 0)))
+           plan=tail_plan(mps[0].bn, lf._grid(dev.index or 0, 8, 0), 0))
 
     # The per-layer megakernel at layer 7 (B 8, old rows 128-191 in a T 512
     # cache, q in slot order), cycling over layers 0..14 and their caches.
@@ -661,7 +661,7 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
            + 2 * B * KD * 2 + 2 * B * KD * 4,
            ops_tail + 2 * M * H * Nq + 4 * (live_old + B) * NH * HD,
            grid=lm._grid(dev.index or 0, 8, 0),
-           plan=tail_plan(bn, lm._grid(dev.index or 0, 8, 0)),
+           plan=tail_plan(bn, lm._grid(dev.index or 0, 8, 0), megas[mid].n_qkv),
            errors={"x_out": errs[0][0], "qkv_next": errs[1][0], "k_row": errs[2][0],
                    "v_row": errs[3][0]})
     del caches, kg, vg, kp, vp
@@ -708,7 +708,7 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
            gate=f"tokens >= 7/8; logits, K/V rows atol {atol} rtol 5e-2; layer-0 rows "
                 f"{ERR_TOL} x max|ref|",
            token_agreement=agree / B, grid=lm._grid(dev.index or 0, 8, 1),
-           plan=tail_plan(gp.bn, lm._grid(dev.index or 0, 8, 1), n_head=gp.n_head),
+           plan=tail_plan(gp.bn, lm._grid(dev.index or 0, 8, 1), gp.n_qkv, gp.n_head),
            errors={"logits": l_err, "k_rows": row_errs[0][0], "v_rows": row_errs[1][0],
                    "kv_rows_by_layer": by_layer})
     del kpool, vpool, kw, vw
