@@ -49,11 +49,8 @@
 //                    merges the blocks in order (larger value, then lower
 //                    index) into the token.
 // Attention units number B * NKV (64 at the served shape); the other blocks
-// wait at the barrier, while the first stages of each block's wo unit,
-// requested before it, land in its ring. Every GEMV (the first wqkv, each
-// layer's four, the head) is tail_phases.cuh's gemv_phase on the tensor
-// cores; each phase requests the next one's first stages before its
-// barrier, the last layer's down phase the head's.
+// wait at the barrier. Every GEMV (the first wqkv, each layer's four, the
+// head) is tail_phases.cuh's gemv_phase on the tensor cores.
 #include <climits>
 
 #include "tail_phases.cuh"
@@ -301,14 +298,7 @@ step_kernel(StepParams p) {
   const float* cosp = p.giga && p.tokens_mode ? p.cos_t : p.cos_in;
   const float* sinp = p.giga && p.tokens_mode ? p.sin_t : p.sin_in;
   const int head_base = p.n_qkv + p.L * tpl - p.n_qkv;
-  const Phase qkv0{0, p.n_qkv, p.ks_q, p.cols_q}, head{head_base, p.n_head, p.ks_head, p.cols_head},
-      none{0, 0, 1, 256};
-  auto wo_of = [&](int l) {
-    return Phase{p.giga ? p.n_qkv + l * tpl : 0, H / bn, p.ks_wo, p.cols_wo};
-  };
-  // The first GEMV phase's first stages, in flight under the prologue (giga)
-  // or the attention phase (mega).
-  prefetch(p.w, H, bn, p.giga ? qkv0 : wo_of(0), smem_addr(smem));
+  const Phase qkv0{0, p.n_qkv, p.ks_q, p.cols_q}, head{head_base, p.n_head, p.ks_head, p.cols_head};
 
   if (p.giga) {
     // Prologue: residual rows, RoPE tables, row sums of squares; RMSNorm + wqkv_0.
@@ -336,8 +326,8 @@ step_kernel(StepParams p) {
     }
     store_ssq(sq_w, p.ssq2, M);
     grid.sync();
-    qkv_phases<MT, float>(p.w, p.s, xres, p.ssq2, p.ga, M, H, bn, qkv0, true, wo_of(0), p.eps,
-                          p.p_q, static_cast<float*>(p.qkv_out), smem, rstd_s, grid);
+    qkv_phases<MT, float>(p.w, p.s, xres, p.ssq2, p.ga, M, H, bn, qkv0, p.eps, p.p_q,
+                          static_cast<float*>(p.qkv_out), smem, rstd_s, grid);
   }
 
   const T* qkv_src = static_cast<const T*>(p.giga ? p.qkv_out : p.qkv_in);
@@ -365,8 +355,7 @@ step_kernel(StepParams p) {
               p.giga ? p.n_qkv + l * tpl : 0,
               p.giga && last ? 0 : p.n_qkv,
               p.ks_wo, p.ks_gu, p.ks_down, p.ks_q,
-              p.cols_wo, p.cols_gu, p.cols_down, p.cols_q, p.eps,
-              last ? (p.giga ? head : none) : wo_of(l + 1), true};
+              p.cols_wo, p.cols_gu, p.cols_down, p.cols_q, p.eps};
     tail_phases<MT, T>(tp, smem, grid);
   }
   if (!p.giga) return;
@@ -374,9 +363,10 @@ step_kernel(StepParams p) {
   // Head: norm_f, the head GEMV, logits, the argmax.
   grid.sync();  // x_out of the last layer and its row sums of squares
   const int Nh = p.n_head * bn;
+  row_rstd(p.ssq2, M, H, p.eps, rstd_s);
+  __syncthreads();
   gemv_phase<MT>(
-      p.w, p.s, H, bn, M, head, true, smem, [&] { row_rstd(p.ssq2, M, H, p.eps, rstd_s); },
-      NoOffset{},
+      p.w, p.s, H, bn, M, head, smem, NoOffset{},
       [&](int m, int k, float(&v)[8]) {
         norm8(p.xo + (size_t)m * H + k, rstd_s[m], p.gf + k, v);
       },

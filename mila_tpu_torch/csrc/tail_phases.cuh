@@ -46,10 +46,12 @@
 // The weights stream through a ring of NST stages of SR rows by 16-byte
 // cp.async (cached in L2 only); a block's units in a phase form one stream
 // of stages, so a unit's first stages are in flight while the one before it
-// ends. Weights never depend on what the launch computes, so before each
-// grid barrier a block also requests the first NST - 1 stages of its unit
-// in the next GEMV phase: they land during the barrier and the finish pass
-// (in K8 during the attention phase too, where most blocks wait).
+// ends. A phase requests its first stages before it stages x. On the card
+// the L2 loads a block issues behind its own weight requests wait for them:
+// requesting the next phase's stages before (or right after) a barrier
+// delayed the barrier and the finish pass by more than it saved, and so did
+// the rstd pass issued behind the first requests (tools/tail_phases.py,
+// PERF.md); a 3-stage ring beat 2, 4 and 5.
 // Partials (a slice's sum times the tile's scale row) go to global memory as
 // f32 and the next phase adds them in slice order: no atomics, two calls
 // are bit-equal. Data written inside the launch is read back with __ldcg
@@ -77,12 +79,6 @@ namespace tail {
 #ifndef TAIL_XS_KB
 #define TAIL_XS_KB 33  // x's staged slice, KB
 #endif
-#ifndef TAIL_PREFETCH
-#define TAIL_PREFETCH 0  // stages of the next GEMV phase requested before a barrier
-#endif
-#ifndef TAIL_PREFETCH_AFTER
-#define TAIL_PREFETCH_AFTER 0  // request them right after that barrier instead
-#endif
 
 constexpr int THREADS = 256, WARPS = THREADS / 32;
 constexpr int SR = TAIL_SR, NST = TAIL_NST, KS = SR / 16;  // KS: mma k-steps a stage
@@ -93,11 +89,8 @@ constexpr int XS_BYTES = TAIL_XS_KB * 1024;
 // Dynamic shared memory of a block: the ring, then x's staged slice (which
 // the 128-column units' k-half sums and K8's attention arrays reuse).
 constexpr int SMEM_BYTES = RING_BYTES + XS_BYTES;
-constexpr int PREFETCH = TAIL_PREFETCH;
-constexpr bool PREFETCH_AFTER = TAIL_PREFETCH_AFTER;
 constexpr int RSTD_LOADS = 16;  // row_rstd's loads a lane: grids of up to 512 blocks
 static_assert(SR == 64 || SR == 128, "a warp of a 128-column unit takes whole fragment pairs");
-static_assert(PREFETCH >= 0 && PREFETCH < NST, "the prefetch fits the ring");
 
 // A value written earlier in the same launch, read through L2.
 __device__ __forceinline__ float ldcg_f(const float* p) { return __ldcg(p); }
@@ -153,8 +146,6 @@ struct Params {
   float *p_wo, *x1, *ssq1, *p_gu, *hbuf, *p_down, *xo, *ssq2, *p_q;
   int M, H, I, bn, base, n_qkv, ks_wo, ks_gu, ks_down, ks_q, cols_wo, cols_gu, cols_down, cols_q;
   float eps;
-  Phase after;     // the GEMV phase that follows this layer's last one in the launch
-  bool wo_fetched; // wo's first stages were requested earlier in the launch
 };
 
 // A block's stream of weight stages in a phase. Its i-th unit, u =
@@ -194,37 +185,24 @@ struct Stream {
     return w + ((size_t)(t0 + t) * H + sl * kc + r) * bn + grp * cols + cb;
   }
 
-  // Move past the next stage; copy it into its ring slot first when `copy`.
-  __device__ void step(uint32_t ring, bool copy) {
-    if (unit_i >= mine) return;
-    if (copy) {
+  // Request the next stage into its ring slot as one commit group (an
+  // empty one past the stream's end).
+  __device__ void request(uint32_t ring) {
+    if (unit_i < mine) {
       const uint32_t dst = ring + slot * (SR * PITCH) + r * PITCH + cb;
 #pragma unroll
       for (int c = 0; c < SR / 16; ++c)
         if (c * rstep < SR) cp_async_to<16>(dst + c * rstep * PITCH, src + (size_t)c * rstep * bn);
+      src += (size_t)SR * bn;
+      if (++stage_s == nsteps) {
+        stage_s = 0;
+        if (++unit_i < mine) src = unit_src(unit_i);
+      }
+      slot = slot + 1 == NST ? 0 : slot + 1;
     }
-    src += (size_t)SR * bn;
-    if (++stage_s == nsteps) {
-      stage_s = 0;
-      if (++unit_i < mine) src = unit_src(unit_i);
-    }
-    slot = slot + 1 == NST ? 0 : slot + 1;
-  }
-
-  // Request the next stage (none past the stream's end) as one commit group.
-  __device__ void request(uint32_t ring) {
-    step(ring, true);
     cp_async_commit();
   }
 };
-
-// Request the first PREFETCH stages of phase ph (the next GEMV phase) into
-// the ring: their commit groups are the first of that phase's.
-__device__ __forceinline__ void prefetch(const int8_t* w, int H, int bn, const Phase& ph,
-                                         uint32_t ring) {
-  Stream st(w, H, bn, ph);
-  for (int s = 0; s < PREFETCH; ++s) st.request(ring);
-}
 
 // x's slice (rows m < MT, input columns k0 .. k0 + kc) into xs as bf16 pairs
 // (x[m][k], x[m][k + 1]), rows past M zero. Word w of a stage (k = 2 w) sits
@@ -260,18 +238,15 @@ __device__ __forceinline__ void stage_x(Stage stage, int M, int k0, int kc, uint
   }
 }
 
-// One GEMV phase: this block's units of ph, whose first PREFETCH stages
-// were requested earlier when `fetched`. prep() runs once the first stages
-// are requested, before x is staged (its shared results visible to stage);
-// xoff(t) is the input column at which tile t's rows start (down: its K
-// chunk); stage(m, k, v) loads input values (m, k .. k + 7) as f32, exact in
-// bf16; dst(t, sl, m, c) is the address of slice sl's partial for output
-// column c of tile t (16-byte aligned for c % 4 == 0). Ends without a
-// barrier.
-template <int MT, typename Prep, typename XOff, typename Stage, typename Dst>
+// One GEMV phase: this block's units of ph. xoff(t) is the input column at which
+// tile t's rows start (down: its K chunk); stage(m, k, v) loads input values
+// (m, k .. k + 7) as f32, exact in bf16; dst(t, sl, m, c) is the address of
+// slice sl's partial for output column c of tile t (16-byte aligned for c %
+// 4 == 0). The first weight stages are requested before x is staged (whose
+// L2 loads then overlap them). Ends without a barrier.
+template <int MT, typename XOff, typename Stage, typename Dst>
 __device__ void gemv_phase(const int8_t* w, const float* s, int H, int bn, int M, const Phase& ph,
-                           bool fetched, unsigned char* smem, Prep prep, XOff xoff, Stage stage,
-                           Dst dst) {
+                           unsigned char* smem, XOff xoff, Stage stage, Dst dst) {
   constexpr int MTN = MT / 8;  // n-tiles of 8 rows of x
   Stream g(w, H, bn, ph);
   const uint32_t ring = smem_addr(smem);
@@ -281,13 +256,7 @@ __device__ void gemv_phase(const int8_t* w, const float* s, int H, int bn, int M
   const int cwn = g.cols / 32, cw = warp % cwn, kw = warp / cwn;  // column warp, k-half
   const int ksw = KS * cwn / WARPS, j0 = kw * ksw;  // the warp's k-steps of each stage
   const int XP = g.kc / 2 + XPAD;
-  for (int f = 0; f < NST - 1; ++f) {  // the first stages (some requested earlier)
-    if (fetched && f < PREFETCH)
-      g.step(ring, false);
-    else
-      g.request(ring);
-  }
-  prep();
+  for (int f = 0; f < NST - 1; ++f) g.request(ring);
   int staged = -1;  // input column of the slice in xs
   int slot = 0;     // ring slot of the stage consumed next
   for (int i = 0; i < g.mine; ++i) {
@@ -296,7 +265,7 @@ __device__ void gemv_phase(const int8_t* w, const float* s, int H, int bn, int M
     const int k0 = xoff(t) + sl * g.kc, col = grp * g.cols + 32 * cw + 4 * gq;
     const float4 sc = __ldg(reinterpret_cast<const float4*>(s + (size_t)(g.t0 + t) * bn + col));
     if (k0 != staged) {
-      __syncthreads();  // the unit before is done with xs; prep's results are visible
+      __syncthreads();  // the unit before is done with xs
       stage_x<MT>(stage, M, k0, g.kc, xs, XP);
       staged = k0;
     }
@@ -378,20 +347,6 @@ __device__ void gemv_phase(const int8_t* w, const float* s, int H, int bn, int M
   }
 }
 
-// The grid barrier that ends a GEMV phase, with the first PREFETCH stages of
-// the next GEMV phase (when next.n > 0) requested before it, or right after
-// it with PREFETCH_AFTER.
-__device__ __forceinline__ void phase_end(cg::grid_group& grid, const int8_t* w, int H, int bn,
-                                          const Phase& next, unsigned char* smem) {
-  const bool pre = PREFETCH > 0 && next.n > 0;
-  if (pre && !PREFETCH_AFTER) {
-    __syncthreads();  // every warp is done with the ring
-    prefetch(w, H, bn, next, smem_addr(smem));
-  }
-  grid.sync();
-  if (pre && PREFETCH_AFTER) prefetch(w, H, bn, next, smem_addr(smem));
-}
-
 // rstd[m] from the per-block row sums of squares of the previous phase, a
 // warp a row, a lane's loads all in flight at once.
 __device__ __forceinline__ void row_rstd(const float* ssq, int M, int H, float eps,
@@ -433,30 +388,27 @@ __device__ __forceinline__ void store_ssq(const float (*sq)[32], float* ssq, int
   }
 }
 
-// Tiles whose rows start at input column 0 (every phase but down), and a
-// phase with nothing to prepare.
+// Tiles whose rows start at input column 0 (every phase but down).
 struct NoOffset {
   __device__ int operator()(int) const { return 0; }
-};
-struct NoPrep {
-  __device__ void operator()() const {}
 };
 
 // Phases 7-8: qkv = (bf16(src * rstd * gamma) @ the tiles of ph) * s, rstd
 // from the row sums of squares ssq (stored before the last barrier). src
-// [M, H] f32 was written in this launch. Its barrier requests next's first
-// stages; ends without a barrier.
+// [M, H] f32 was written in this launch. Ends without a barrier.
 template <int MT, typename T>
 __device__ void qkv_phases(const int8_t* w, const float* s, const float* src, const float* ssq,
                            const float* gamma, int M, int H, int bn, const Phase& ph,
-                           bool fetched, const Phase& next, float eps, float* p_q, T* qkv,
+                           float eps, float* p_q, T* qkv,
                            unsigned char* smem, float* rstd_s, cg::grid_group& grid) {
   const int Nq = ph.n * bn;
+  row_rstd(ssq, M, H, eps, rstd_s);
+  __syncthreads();
   gemv_phase<MT>(
-      w, s, H, bn, M, ph, fetched, smem, [&] { row_rstd(ssq, M, H, eps, rstd_s); }, NoOffset{},
+      w, s, H, bn, M, ph, smem, NoOffset{},
       [&](int m, int k, float(&v)[8]) { norm8(src + (size_t)m * H + k, rstd_s[m], gamma + k, v); },
       [&](int t, int sl, int m, int c) { return p_q + ((size_t)sl * M + m) * Nq + t * bn + c; });
-  phase_end(grid, w, H, bn, next, smem);
+  grid.sync();
   const int stride = gridDim.x * THREADS;
   for (int i = blockIdx.x * THREADS + threadIdx.x; i < M * Nq; i += stride) {
     float v = 0.f;
@@ -484,12 +436,12 @@ __device__ void tail_phases(const Params& p, unsigned char* smem, cg::grid_group
 
   // 1 wo.
   gemv_phase<MT>(
-      p.w, p.s, H, bn, M, wo, p.wo_fetched, smem, NoPrep{}, NoOffset{},
+      p.w, p.s, H, bn, M, wo, smem, NoOffset{},
       [&](int m, int k, float(&v)[8]) { ldcg8(p.att + (size_t)m * H + k, v); },
       [&](int t, int sl, int m, int c) {
         return p.p_wo + ((size_t)sl * M + m) * H + t * bn + c;
       });
-  phase_end(grid, p.w, H, bn, gu, smem);
+  grid.sync();
 
   // 2 fin1: x1 = x + sum of the wo slices; row sums of squares.
   clear_sq(sq_w);
@@ -505,16 +457,17 @@ __device__ void tail_phases(const Params& p, unsigned char* smem, cg::grid_group
   grid.sync();
 
   // 3 gate | up, input bf16(x1 * rstd * gamma_mlp).
+  row_rstd(p.ssq1, M, H, p.eps, rstd_s);
+  __syncthreads();
   gemv_phase<MT>(
-      p.w, p.s, H, bn, M, gu, true, smem, [&] { row_rstd(p.ssq1, M, H, p.eps, rstd_s); },
-      NoOffset{},
+      p.w, p.s, H, bn, M, gu, smem, NoOffset{},
       [&](int m, int k, float(&v)[8]) {
         norm8(p.x1 + (size_t)m * H + k, rstd_s[m], p.g_mlp + k, v);
       },
       [&](int t, int sl, int m, int c) {
         return p.p_gu + ((size_t)sl * M + m) * 2 * I + (t & 1) * I + (t >> 1) * bn + c;
       });
-  phase_end(grid, p.w, H, bn, down, smem);
+  grid.sync();
 
   // 4 fin_h: h = bf16(silu(g) * u).
   for (int i = blockIdx.x * THREADS + tid; i < M * I; i += stride) {
@@ -532,13 +485,13 @@ __device__ void tail_phases(const Params& p, unsigned char* smem, cg::grid_group
 
   // 5 down: tile d covers rows [kchunk * H, +H) of down, columns nc * bn.
   gemv_phase<MT>(
-      p.w, p.s, H, bn, M, down, true, smem, NoPrep{}, [&](int t) { return (t / n_cols) * H; },
+      p.w, p.s, H, bn, M, down, smem, [&](int t) { return (t / n_cols) * H; },
       [&](int m, int k, float(&v)[8]) { ldcg8(p.hbuf + (size_t)m * I + k, v); },
       [&](int t, int sl, int m, int c) {
         return p.p_down + (((size_t)(t / n_cols) * p.ks_down + sl) * M + m) * H +
                (t % n_cols) * bn + c;
       });
-  phase_end(grid, p.w, H, bn, p.n_qkv ? qkv : p.after, smem);
+  grid.sync();
 
   // 6 fin2: x_out = x1 + sum of the down partials.
   clear_sq(sq_w);
@@ -558,8 +511,8 @@ __device__ void tail_phases(const Params& p, unsigned char* smem, cg::grid_group
   grid.sync();
 
   // 7-8 the next layer's wqkv, input bf16(x_out * rstd * gamma_next).
-  qkv_phases<MT, T>(p.w, p.s, p.xo, p.ssq2, p.g_next, M, H, bn, qkv, true, p.after, p.eps,
-                    p.p_q, static_cast<T*>(p.qkv), smem, rstd_s, grid);
+  qkv_phases<MT, T>(p.w, p.s, p.xo, p.ssq2, p.g_next, M, H, bn, qkv, p.eps, p.p_q,
+                    static_cast<T*>(p.qkv), smem, rstd_s, grid);
 }
 
 // Kernel k opted into SMEM_BYTES of dynamic shared memory on first use.

@@ -3,7 +3,7 @@ and of the whole-step decode kernel (K8, ``csrc/decode_step_int8.cu``), both
 built on ``csrc/tail_phases.cuh``, on the GPU at Llama-3.2-1B's shapes
 (H 2048, I 8192, wqkv 3072 columns, bn 512, random int8 weights).
 
-    python -m mila_tpu_torch.tools.tail_phases [--kernels tail mlp giga]
+    python -m mila_tpu_torch.tools.tail_phases [--kernels tail mlp mega giga]
         [--variants committed nst2 no_stream ...] [--plans committed c128 ...]
         [--tree NAME=DIR ...]
 
@@ -17,6 +17,8 @@ line per kernel, variant and plan with the median µs of each phase:
   layers of a 3-layer stream) and of the last one: wo, fin1, gu, fin_h,
   down, fin2, qkv, fin3;
 - ``mlp``: the MLP block (bn 2048, no next wqkv, M 8): wo .. fin2;
+- ``mega``: one decode layer of K8 (attention, then the tail with the next
+  wqkv; M 8, lengths 128-191, T 512);
 - ``giga``: the whole decode step (L 16, B 8, cached lengths 128-191 of a
   T 512 cache, tokens mode), each phase kind summed over the layers:
   prologue (embedding rows, RoPE tables, row sums of squares), attention,
@@ -28,21 +30,25 @@ An interval runs from one barrier's exit to the next one's in block 0: the
 slowest block's work plus the barrier. Last, the time of a launch of grid
 barriers alone (1 and 8 of them).
 
-Variants are compile-time (``-D`` macros of ``tail_phases.cuh``):
-``committed``; ``nst2`` / ``nst4`` / ``nst5`` (ring stages; ``nst5`` with
-a 17 KB staged slice, so two blocks still fit an SM); ``sr128`` (128-row stages);
-``no_prefetch`` (no request of the next phase's first stages before a
-barrier) and ``pf1`` / ``pf2`` (one or two of them; ``pf1a`` / ``pf2a``:
-requested right after the barrier);
-``no_mma``, ``no_stream``, ``no_stage`` (the products, the weight copies or
-the staging of x dropped; wrong by design, timed only) and ``loads_only``
-(no products, no staging); ``mb1`` / ``mb3`` (registers bounded for 1 or 3 resident blocks
-per SM, and that many blocks an SM). Plans are the launch plan
-(``kernels/layer_fused.py:plan_tail``): ``committed``; ``c128`` / ``c256``
-(128 or 256 weight columns a unit in every phase that takes them);
-``half`` (one K-slice doubling fewer in every phase; ``half_wo``,
-``half_down``, ``half_wo_down``: in those phases only). Needs a CUDA device
-and nvcc.
+Variants are builds of the committed sources with a ``-D`` macro of
+``tail_phases.cuh`` or an edit: ``committed``; ``nst2`` / ``nst4`` /
+``nst5`` (ring stages; ``nst5`` with a 17 KB staged slice, so two blocks
+still fit an SM); ``sr128`` (128-row stages); ``mb1`` / ``mb3`` (registers
+bounded for 1 or 3 resident blocks per SM, and that many blocks an SM);
+``no_mma``, ``no_stream``, ``no_stage`` (the products, the weight copies
+or the staging of x dropped; wrong by design, timed only) and
+``loads_only`` (no products, no staging); ``inline`` (the phase functions
+forced inline into the kernels); ``no_attn`` (K8 without its attention
+units: wrong by design) and ``maxg4`` (K8's query slots a KV head capped
+at 4, Llama's G, not 8). ``--tree NAME=DIR`` adds the
+sources in DIR (another tail_phases.cuh, layer_tail_int8.cu and
+decode_step_int8.cu with the same C interface, e.g. an earlier commit's
+from ``git show`` into the git-ignored ``scratch_chip/``). Plans are the
+launch plan (``kernels/layer_fused.py:plan_tail``): ``committed``;
+``c128`` / ``c256`` (128 or 256 weight columns a unit in every phase that
+takes them); ``half`` (one K-slice doubling fewer in every phase;
+``half_wo``, ``half_down``, ``half_wo_down``: in those phases only).
+Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -75,6 +81,9 @@ TAIL = ("wo", "fin1", "gu", "fin_h", "down", "fin2")
 # edits of tail_phases.cuh: [(old text, new text)])
 _NO_MMA = [("        if (jj >= ksw) break;", "        if (true) break;")]
 _NO_STREAM = [("        if (c * rstep < SR) cp_async_to<16>", "        if (false) cp_async_to<16>")]
+_INLINE = [("__device__ void gemv_phase(", "__device__ __forceinline__ void gemv_phase("),
+           ("__device__ void qkv_phases(", "__device__ __forceinline__ void qkv_phases("),
+           ("__device__ void tail_phases(", "__device__ __forceinline__ void tail_phases(")]
 _NO_STAGE = [("  constexpr int XB = 4;\n", "  constexpr int XB = 4;\n  if (true) return;\n")]
 VARIANTS = {
     "committed": ([], {}, []),
@@ -82,17 +91,15 @@ VARIANTS = {
     "nst4": (["-DTAIL_NST=4"], {}, []),
     "nst5": (["-DTAIL_NST=5", "-DTAIL_XS_KB=17"], {"_XS_BYTES": 17 * 1024}, []),
     "sr128": (["-DTAIL_SR=128"], {"_STAGE_ROWS": 128}, []),
-    "no_prefetch": (["-DTAIL_PREFETCH=0"], {}, []),
-    "pf1": (["-DTAIL_PREFETCH=1"], {}, []),
-    "pf2": (["-DTAIL_PREFETCH=2"], {}, []),
-    "pf1a": (["-DTAIL_PREFETCH=1", "-DTAIL_PREFETCH_AFTER=1"], {}, []),
-    "pf2a": (["-DTAIL_PREFETCH=2", "-DTAIL_PREFETCH_AFTER=1"], {}, []),
     "mb1": (["-DTAIL_MIN_BLOCKS=1"], {"_BLOCKS_PER_SM": 1}, []),
     "mb3": (["-DTAIL_MIN_BLOCKS=3"], {"_BLOCKS_PER_SM": 3}, []),
     "no_mma": ([], {}, _NO_MMA),
     "no_stream": ([], {}, _NO_STREAM),
     "no_stage": ([], {}, _NO_STAGE),
     "loads_only": ([], {}, _NO_MMA + _NO_STAGE),
+    "inline": ([], {}, _INLINE),
+    "no_attn": ([], {}, [("decode_step_int8.cu", "u < M * p.NKV; u += gridDim.x", "u < 0; u += 1")]),
+    "maxg4": ([], {}, [("decode_step_int8.cu", "constexpr int MAXG = 8,", "constexpr int MAXG = 4,")]),
 }
 
 _STAMP = f'''
@@ -143,22 +150,33 @@ def _instrument_kernel(src: str, name: str) -> str:
     return src[:m.end()] + " stamp();" + body + "stamp();\n}" + src[i:]
 
 
+def _edited(text: str, name: str, edits) -> str:
+    """text (file `name`) with the edits [(old, new)] of tail_phases.cuh, or
+    [(file, old, new)] of any file."""
+    for e in edits:
+        file, old, new = e if len(e) == 3 else ("tail_phases.cuh", *e)
+        if file != name:
+            continue
+        if old not in text:
+            raise RuntimeError(f"{name} no longer holds {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
 def stamped_sources(edits=(), root=_build.CSRC) -> dict:
     """The two sources under `root` with the phase clock: tail_phases.cuh
-    (with `edits`) inlined, a stamp after every grid barrier, at each
+    inlined, `edits` applied, a stamp after every grid barrier, at each
     kernel's start and exits."""
-    head = (root / "tail_phases.cuh").read_text()
+    head = _edited((root / "tail_phases.cuh").read_text(), "tail_phases.cuh", edits)
     if head.count("grid.sync();") < 4:
         raise RuntimeError("tail_phases.cuh no longer has the expected barriers")
-    for old, new in edits:
-        if old not in head:
-            raise RuntimeError(f"tail_phases.cuh no longer holds {old!r}")
-        head = head.replace(old, new)
     head = head.replace("#pragma once", "#pragma once\n" + _STAMP, 1)
     out = {}
     for name, kernel in (("layer_tail_int8", "tail_kernel"), ("decode_step_int8", "step_kernel")):
-        src = (root / f"{name}.cu").read_text().replace('#include "tail_phases.cuh"', head)
-        src = _instrument_kernel(src, kernel).replace("grid.sync();", "grid.sync(); stamp();")
+        src = _edited((root / f"{name}.cu").read_text(), f"{name}.cu", edits)
+        src = src.replace('#include "tail_phases.cuh"', head)
+        src = _instrument_kernel(src, kernel).replace("grid.sync();",
+                                                      "{ grid.sync(); stamp(); }")
         out[name] = src + _EXTRA
     return out
 
@@ -188,8 +206,11 @@ def build(variants, trees=None) -> dict:
             raise RuntimeError(f"nvcc failed for {src_name} ({v}):\n{log[-3000:]}")
         regs = sorted(set(re.findall(r"Used (\d+) registers", log)))
         spills = sorted(set(re.findall(r"(\d+) bytes spill stores", log)))
+        stack = sorted(set(re.findall(r"(\d+) bytes stack frame", log)))
+        funcs = sorted(set(re.findall(r"Function properties for (\S+)", log)))
         print(json.dumps({"variant": v, "source": src_name, "registers": regs,
-                          "spill_store_bytes": spills}), flush=True)
+                          "spill_store_bytes": spills, "stack_frame_bytes": stack,
+                          "functions": funcs}), flush=True)
         lib = ctypes.CDLL(str(out))
         (lf if src_name == "layer_tail_int8" else lm).type_lib(lib)
         lib.reset_trace.argtypes = []
@@ -233,21 +254,25 @@ def _weights(gen):
     return w
 
 
-def tail_case(gen):
+def tail_case(gen, bn=BN):
     w = _weights(gen)
     ws = [(w(H, H), w(H, 2 * I), w(I, H), w(H, NQ)) for _ in range(3)]
-    packs = [lf.pack_layer(*ws[i][:3], ws[i + 1][3] if i < 2 else None, bn=BN)
+    packs = [lf.pack_layer(*ws[i][:3], ws[i + 1][3] if i < 2 else None, bn=bn)
              for i in range(3)]
     stream = ls.pack_layer_stream(packs)
     att = torch.randn(M, 1, H, device="cuda", generator=gen).bfloat16()
     x = torch.randn(M, 1, H, device="cuda", generator=gen).bfloat16()
+    x32 = x.float()
     g = torch.ones(H, device="cuda")
-    return {"middle": (lambda rep: ls.layer_tail_stream(att, x, g, stream, rep % 2, g),
-                       TAIL + ("qkv", "fin3")),
-            "last": (lambda rep: ls.layer_tail_stream(att, x, g, stream, 2, None), TAIL)}
+    tag = "" if bn == BN else f"_bn{bn}"
+    return {"middle" + tag: (lambda rep: ls.layer_tail_stream(att, x, g, stream, rep % 2, g),
+                             TAIL + ("qkv", "fin3")),
+            "last" + tag: (lambda rep: ls.layer_tail_stream(att, x, g, stream, 2, None), TAIL),
+            "middle_f32" + tag: (lambda rep: ls.layer_tail_stream(att, x32, g, stream, rep % 2, g),
+                                 TAIL + ("qkv", "fin3"))}
 
 
-def mlp_case(gen):
+def mlp_case(gen, bn=BN):
     w = _weights(gen)
     packs = [dm.pack_mlp(w(H, H), w(H, 2 * I), w(I, H), bn=2048) for _ in range(2)]
     att = torch.randn(M, 1, H, device="cuda", generator=gen).bfloat16()
@@ -266,7 +291,7 @@ def giga_sequence(layers: int) -> list:
     return seq + ["head", "argmax", "argmax"]
 
 
-def giga_case(gen):
+def giga_case(gen, bn=BN):
     w = _weights(gen)
     KD = NKV * HD
     layers = [(w(NH * HD, H), w(H, 2 * I), w(I, H), w(H, NH * HD + 2 * KD)) for _ in range(L)]
@@ -287,8 +312,31 @@ def giga_case(gen):
                            giga_sequence(L))}
 
 
+def mega_case(gen, bn=BN):
+    """One decode layer of K8 (layer_megakernel) at the giga step's shapes,
+    alternating between two layers' packs and caches."""
+    w = _weights(gen)
+    KD, NQ1 = NKV * HD, NH * HD
+    packs = [lm.pack_mega_layer(w(NQ1, H), w(H, 2 * I), w(I, H), w(H, NQ1 + 2 * KD), nh=NH,
+                                nkv=NKV, hd=HD, bn=bn) for _ in range(2)]
+    B = M
+    lens = torch.randint(128, 192, (B,), device="cuda", generator=gen, dtype=torch.int32)
+    caches = [(torch.randn(B, T, NKV, HD, device="cuda", generator=gen).bfloat16(),
+               torch.randn(B, T, NKV, HD, device="cuda", generator=gen).bfloat16())
+              for _ in range(2)]
+    qkv = torch.randn(B, NQ1 + 2 * KD, device="cuda", generator=gen).bfloat16()
+    x = torch.randn(B, H, device="cuda", generator=gen).bfloat16()
+    ang = lens[:, None].float() * torch.rand(1, KD, device="cuda", generator=gen)
+    cos_t, sin_t = torch.cos(ang), torch.sin(ang)
+    g = torch.ones(H, device="cuda")
+    return {"layer": (lambda rep: lm.layer_megakernel(qkv, x, g, packs[rep % 2],
+                                                      *caches[rep % 2], lens, cos_t, sin_t, g,
+                                                      num_heads=NH),
+                      ["attention", *TAIL, "qkv", "fin3"])}
+
+
 CASES = {"tail": ("layer_tail_int8", tail_case), "mlp": ("layer_tail_int8", mlp_case),
-         "giga": ("decode_step_int8", giga_case)}
+         "mega": ("decode_step_int8", mega_case), "giga": ("decode_step_int8", giga_case)}
 
 
 def run_case(lib, call, seq, reps: int) -> dict:
@@ -319,6 +367,8 @@ def main() -> None:
     ap.add_argument("--tree", nargs="*", default=[], metavar="NAME=DIR",
                     help="also build the sources in DIR (e.g. an earlier commit's, from "
                          "git show) as variant NAME")
+    ap.add_argument("--bn", type=int, default=BN,
+                    help="tile width of the tail's pack (the served one is 512; giga keeps 512)")
     ap.add_argument("--reps", type=int, default=12)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -335,7 +385,7 @@ def main() -> None:
     try:
         for kernel in args.kernels:
             src_name, make = CASES[kernel]
-            cases = make(gen)
+            cases = make(gen, args.bn) if kernel == "tail" else make(gen)
             for v in variants:
                 lib = libs[v][src_name]
                 for plan in args.plans:
@@ -350,7 +400,8 @@ def main() -> None:
                         setattr(lf, k, val)
                     for case, (call, seq) in cases.items():
                         res = run_case(lib, call, seq, args.reps)
-                        grid = (lm._grid(0, 8, 1) if kernel == "giga" else lf._grid(0, 8, 0))
+                        grid = (lm._grid(0, 8, 1) if kernel in ("giga", "mega")
+                                else lf._grid(0, 8, 0))
                         print(json.dumps({"card": card, "kernel": kernel, "case": case,
                                           "variant": v, "plan": plan, "grid": grid, **res}),
                               flush=True)
