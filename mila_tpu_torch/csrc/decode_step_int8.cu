@@ -288,7 +288,6 @@ __global__ void __launch_bounds__(THREADS, MT == 8 ? TAIL_MIN_BLOCKS : 1)
 step_kernel(StepParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float rstd_s[32], sq_w[WARPS][32], bv_s[WARPS];
-  __shared__ Params tp;  // this layer's tail, read from shared memory (not held in registers)
   __shared__ int bi_s[WARPS];
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -335,19 +334,6 @@ step_kernel(StepParams p) {
   const int layers = p.giga ? p.L : 1;
   for (int l = 0; l < layers; ++l) {
     if (p.giga) grid.sync();  // this layer's qkv row (the prologue's or the previous fin3)
-    const bool last = l + 1 == layers;
-    if (tid == 0)  // read after the attention phase's barrier
-      tp = Params{p.att,
-                  p.giga ? p.x_out : p.x_in,
-                  p.giga ? p.gm + (size_t)l * H : p.gm,
-                  p.giga ? (last ? p.ga : p.ga + (size_t)(l + 1) * H) : p.ga,
-                  p.w, p.s, p.x_out, p.qkv_out,
-                  p.p_wo, p.x1, p.ssq1, p.p_gu, p.hbuf, p.p_down, p.xo, p.ssq2, p.p_q,
-                  M, H, I, bn,
-                  p.giga ? p.n_qkv + l * tpl : 0,
-                  p.giga && last ? 0 : p.n_qkv,
-                  p.ks_wo, p.ks_gu, p.ks_down, p.ks_q,
-                  p.cols_wo, p.cols_gu, p.cols_down, p.cols_q, p.eps};
     const size_t pool = (size_t)l * M * p.Tlen * KD;
     for (int u = blockIdx.x; u < M * p.NKV; u += gridDim.x) {
       const int b = u / p.NKV, j = u % p.NKV;
@@ -358,6 +344,18 @@ step_kernel(StepParams p) {
                         reinterpret_cast<float*>(smem + RING_BYTES));
     }
     grid.sync();
+    const bool last = l + 1 == layers;
+    Params tp{p.att,
+              p.giga ? p.x_out : p.x_in,
+              p.giga ? p.gm + (size_t)l * H : p.gm,
+              p.giga ? (last ? p.ga : p.ga + (size_t)(l + 1) * H) : p.ga,
+              p.w, p.s, p.x_out, p.qkv_out,
+              p.p_wo, p.x1, p.ssq1, p.p_gu, p.hbuf, p.p_down, p.xo, p.ssq2, p.p_q,
+              M, H, I, bn,
+              p.giga ? p.n_qkv + l * tpl : 0,
+              p.giga && last ? 0 : p.n_qkv,
+              p.ks_wo, p.ks_gu, p.ks_down, p.ks_q,
+              p.cols_wo, p.cols_gu, p.cols_down, p.cols_q, p.eps};
     tail_phases<MT, T>(tp, smem, grid);
   }
   if (!p.giga) return;
