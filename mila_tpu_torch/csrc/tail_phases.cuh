@@ -23,9 +23,8 @@
 //   1 wo     GEMV units -> f32 partials p_wo[slice][M][H]
 //   2 fin1   x1 = x + sum of slices; per-block row sums of squares
 //   3 gu     GEMV units with xn staged -> p_gu[slice][M][2I] (gate | up)
-//   4-5 down GEMV units with h = bf16(silu(g) * u) staged, each unit forming
-//            its slice of h from the gate|up slice sums
-//            -> p_down[kchunk*slices + slice][M][H]
+//   4 fin_h  h = bf16(silu(g) * u) from the slice sums -> hbuf [M][I]
+//   5 down   GEMV units with h staged -> p_down[kchunk*slices + slice][M][H]
 //   6 fin2   x_out = x1 + sum; out; row sums of squares
 //   7 qkv    GEMV units with xq staged -> p_q[slice][M][Nq]   (not last layer)
 //   8 fin3   qkv = sum of slices                               (not last layer)
@@ -127,26 +126,6 @@ __device__ __forceinline__ void norm8(const float* x, float rstd, const float* g
   const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
 #pragma unroll
   for (int e = 0; e < 8; ++e) v[e] = v[e] * rstd * gm[e];
-}
-
-// v = silu(g) * u for 8 columns, g and u the sums of ks slices (slice sl of
-// g at gp + sl * stride, of u I further), added in slice order.
-__device__ __forceinline__ void silu8(const float* gp, size_t stride, int I, int ks,
-                                      float (&v)[8]) {
-  float g[8] = {}, u[8] = {};
-#pragma unroll 4
-  for (int sl = 0; sl < ks; ++sl) {
-    float a[8], b[8];
-    ldcg8(gp + sl * stride, a);
-    ldcg8(gp + sl * stride + I, b);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      g[e] += a[e];
-      u[e] += b[e];
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = g[e] / (1.f + expf(-g[e])) * u[e];
 }
 
 // A GEMV phase: tiles [t0, t0 + n) of the stream, in units of `cols` weight
@@ -490,14 +469,24 @@ __device__ void tail_phases(const Params& p, unsigned char* smem, cg::grid_group
       });
   grid.sync();
 
-  // 4-5 down, its input h = bf16(silu(g) * u) formed from the gate|up
-  // slices as each unit stages its slice (no pass of its own): tile d covers
-  // rows [kchunk * H, +H) of down, columns nc * bn.
+  // 4 fin_h: h = bf16(silu(g) * u).
+  for (int i = blockIdx.x * THREADS + tid; i < M * I; i += stride) {
+    const int m = i / I, n = i % I;
+    float g = 0.f, u = 0.f;
+#pragma unroll 4
+    for (int sl = 0; sl < p.ks_gu; ++sl) {
+      const float* row = p.p_gu + ((size_t)sl * M + m) * 2 * I;
+      g += __ldcg(row + n);
+      u += __ldcg(row + I + n);
+    }
+    p.hbuf[i] = round_bf16(g / (1.f + expf(-g)) * u);
+  }
+  grid.sync();
+
+  // 5 down: tile d covers rows [kchunk * H, +H) of down, columns nc * bn.
   gemv_phase<MT>(
       p.w, p.s, H, bn, M, down, smem, [&](int t) { return (t / n_cols) * H; },
-      [&](int m, int k, float(&v)[8]) {
-        silu8(p.p_gu + (size_t)m * 2 * I + k, (size_t)M * 2 * I, I, p.ks_gu, v);
-      },
+      [&](int m, int k, float(&v)[8]) { ldcg8(p.hbuf + (size_t)m * I + k, v); },
       [&](int t, int sl, int m, int c) {
         return p.p_down + (((size_t)(t / n_cols) * p.ks_down + sl) * M + m) * H +
                (t % n_cols) * bn + c;

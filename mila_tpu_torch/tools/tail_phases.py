@@ -76,7 +76,6 @@ H, I, NQ, BN, M = 2048, 8192, 3072, 512, 8
 NH, NKV, HD, L, T, VOCAB = 32, 8, 64, 16, 512, 128256
 MAX_STAMPS = 1024
 TAIL = ("wo", "fin1", "gu", "fin_h", "down", "fin2")
-NO_FIN_H = ("wo", "fin1", "gu", "down", "fin2")  # sources that form h in the down phase
 
 # name -> (nvcc defines, overrides of kernels/layer_fused.py's mirrors of them,
 # edits of tail_phases.cuh: [(old text, new text)])
@@ -267,11 +266,10 @@ def tail_case(gen, bn=BN):
     g = torch.ones(H, device="cuda")
     tag = "" if bn == BN else f"_bn{bn}"
     return {"middle" + tag: (lambda rep: ls.layer_tail_stream(att, x, g, stream, rep % 2, g),
-                             [t + ("qkv", "fin3") for t in (TAIL, NO_FIN_H)]),
-            "last" + tag: (lambda rep: ls.layer_tail_stream(att, x, g, stream, 2, None),
-                           [TAIL, NO_FIN_H]),
+                             TAIL + ("qkv", "fin3")),
+            "last" + tag: (lambda rep: ls.layer_tail_stream(att, x, g, stream, 2, None), TAIL),
             "middle_f32" + tag: (lambda rep: ls.layer_tail_stream(att, x32, g, stream, rep % 2, g),
-                                 [t + ("qkv", "fin3") for t in (TAIL, NO_FIN_H)])}
+                                 TAIL + ("qkv", "fin3"))}
 
 
 def mlp_case(gen, bn=BN):
@@ -280,15 +278,14 @@ def mlp_case(gen, bn=BN):
     att = torch.randn(M, 1, H, device="cuda", generator=gen).bfloat16()
     x = torch.randn(M, 1, H, device="cuda", generator=gen).bfloat16()
     g = torch.ones(H, device="cuda")
-    return {"bn2048": (lambda rep: dm.mlp_block_fused(att, x, g, packs[rep % 2]),
-                       [TAIL, NO_FIN_H])}
+    return {"bn2048": (lambda rep: dm.mlp_block_fused(att, x, g, packs[rep % 2]), TAIL)}
 
 
-def giga_sequence(layers: int, tail=TAIL) -> list:
+def giga_sequence(layers: int) -> list:
     """The phase kind of each interval between the stamps of one giga step."""
     seq = ["prologue", "qkv"]
     for layer in range(layers):
-        seq += ["fin3", "attention", *tail]
+        seq += ["fin3", "attention", *TAIL[:5], "fin2"]
         if layer + 1 < layers:
             seq.append("qkv")
     return seq + ["head", "argmax", "argmax"]
@@ -312,7 +309,7 @@ def giga_case(gen, bn=BN):
     tokens = torch.randint(0, VOCAB, (B,), device="cuda", generator=gen, dtype=torch.int32)
     return {"L16_tokens": (lambda rep: dg.giga_decode_step(wte, None, None, lens, pack, kpool,
                                                            vpool, tokens=tokens),
-                           [giga_sequence(L, t) for t in (TAIL, NO_FIN_H)])}
+                           giga_sequence(L))}
 
 
 def mega_case(gen, bn=BN):
@@ -335,17 +332,15 @@ def mega_case(gen, bn=BN):
     return {"layer": (lambda rep: lm.layer_megakernel(qkv, x, g, packs[rep % 2],
                                                       *caches[rep % 2], lens, cos_t, sin_t, g,
                                                       num_heads=NH),
-                      [("attention", *t, "qkv", "fin3") for t in (TAIL, NO_FIN_H)])}
+                      ["attention", *TAIL, "qkv", "fin3"])}
 
 
 CASES = {"tail": ("layer_tail_int8", tail_case), "mlp": ("layer_tail_int8", mlp_case),
          "mega": ("decode_step_int8", mega_case), "giga": ("decode_step_int8", giga_case)}
 
 
-def run_case(lib, call, seqs, reps: int) -> dict:
-    """Median µs of each phase kind (summed over its intervals) and in all;
-    seqs: the phase sequences the sources may have (told apart by their
-    stamp counts)."""
+def run_case(lib, call, seq, reps: int) -> dict:
+    """Median µs of each phase kind (summed over its intervals) and in all."""
     rows = []
     for rep in range(reps):
         lib.reset_trace()
@@ -353,9 +348,8 @@ def run_case(lib, call, seqs, reps: int) -> dict:
         torch.cuda.synchronize()
         tr = (ctypes.c_ulonglong * MAX_STAMPS)()
         n = lib.get_trace(tr)
-        seq = next((q for q in seqs if len(q) + 1 == n), None)
-        if seq is None:
-            raise RuntimeError(f"{n} stamps, {[len(q) + 1 for q in seqs]} expected")
+        if n != len(seq) + 1:
+            raise RuntimeError(f"{n} stamps, {len(seq) + 1} expected")
         row = dict.fromkeys(dict.fromkeys(seq), 0.0)
         for i, kind in enumerate(seq):
             row[kind] += (tr[i + 1] - tr[i]) / 1e3
