@@ -247,17 +247,17 @@ def _xs_bytes(kc: int, mt: int) -> int:
     return mt * (kc // 2 + _XPAD) * 4
 
 
-def plan_tail(M: int, H: int, bn: int, tiles: dict, grid: int, *, cols: Optional[int] = None,
-              fewer_slices: int = 0) -> Tuple[int, dict]:
+def plan_tail(M: int, H: int, bn: int, tiles: dict, grid: int, *,
+              cols: Optional[int] = None) -> Tuple[int, dict]:
     """(m_tile, {phase: (columns a unit, K slices)}) for ``tiles`` ({phase:
     tile count}). A unit takes 256 weight columns of a tile where bn allows
     (else 128; ``cols`` forces one where it divides bn). Each phase's K (= H
     rows of a tile) is cut into the most power-of-two slices that still
     leave at most one unit per block (a second round of units costs a unit's
     whole latency chain again) and are whole ring stages, and at least as
-    many as the staged slice needs to fit ``_XS_BYTES``. ``fewer_slices``
-    halves the count that many times where the staged slice still fits (a
-    measured variant, ``tools/tail_phases.py``)."""
+    many as the staged slice needs to fit ``_XS_BYTES``. 256-column units
+    beat 128-column ones at Llama-3.2-1B's shapes (``tools/tail_phases.py``,
+    ``PERF.md``)."""
     mt = 8 if M <= 8 else 32
     if H % _STAGE_ROWS:
         raise ValueError(f"layer_tail_int8 needs H % {_STAGE_ROWS} == 0 (H={H})")
@@ -269,9 +269,6 @@ def plan_tail(M: int, H: int, bn: int, tiles: dict, grid: int, *, cols: Optional
         while (H % (2 * k * _STAGE_ROWS) == 0
                and (_xs_bytes(H // k, mt) > _XS_BYTES or units * 2 * k <= grid)):
             k *= 2
-        for _ in range(fewer_slices):
-            if k > 1 and _xs_bytes(2 * H // k, mt) <= _XS_BYTES:
-                k //= 2
         if _xs_bytes(H // k, mt) > _XS_BYTES:
             raise ValueError(f"layer_tail_int8 cannot slice H={H} for M={M}")
         plan[name] = (c, k)

@@ -33,20 +33,20 @@ barriers alone (1 and 8 of them).
 Variants are builds of the committed sources with a ``-D`` macro of
 ``tail_phases.cuh`` or an edit: ``committed``; ``nst2`` / ``nst4`` /
 ``nst5`` (ring stages; ``nst5`` with a 17 KB staged slice, so two blocks
-still fit an SM); ``sr128`` (128-row stages); ``mb1`` / ``mb3`` (registers
-bounded for 1 or 3 resident blocks per SM, and that many blocks an SM);
-``no_mma``, ``no_stream``, ``no_stage`` (the products, the weight copies
-or the staging of x dropped; wrong by design, timed only) and
-``loads_only`` (no products, no staging); ``inline`` (the phase functions
-forced inline into the kernels); ``no_attn`` (K8 without its attention
-units: wrong by design) and ``maxg4`` (K8's query slots a KV head capped
-at 4, Llama's G, not 8). ``--tree NAME=DIR`` adds the
-sources in DIR (another tail_phases.cuh, layer_tail_int8.cu and
+still fit an SM); ``mb1`` (registers bounded for one resident block per SM,
+and one block an SM); ``no_mma``, ``no_stream``, ``no_stage`` (the
+products, the weight copies or the staging of x dropped; wrong by design,
+timed only) and ``loads_only`` (no products, no staging); ``inline`` (the
+phase functions forced inline into the kernels); ``no_attn`` (K8 without
+its attention units: wrong by design) and ``maxg4`` (K8's query slots a KV
+head capped at 4, Llama's G, not 8). ``--tree NAME=DIR`` adds the sources
+in DIR (another tail_phases.cuh, layer_tail_int8.cu and
 decode_step_int8.cu with the same C interface, e.g. an earlier commit's
-from ``git show`` into the git-ignored ``scratch_chip/``). Plans are the
-launch plan (``kernels/layer_fused.py:plan_tail``): ``committed``;
-``c128`` / ``c256`` (128 or 256 weight columns a unit in every phase that
-takes them); ``half`` (one K-slice doubling fewer in every phase;
+from ``git show`` into the git-ignored ``scratch_chip/``). ``--bn`` sets the
+tail case's tile width. Plans are the launch plan
+(``kernels/layer_fused.py:plan_tail``): ``committed``; ``c128`` / ``c256``
+(128 or 256 weight columns a unit in every phase that takes them);
+``half`` (one K-slice doubling fewer in every phase that has more than one;
 ``half_wo``, ``half_down``, ``half_wo_down``: in those phases only).
 Needs a CUDA device and nvcc.
 """
@@ -90,9 +90,7 @@ VARIANTS = {
     "nst2": (["-DTAIL_NST=2"], {}, []),
     "nst4": (["-DTAIL_NST=4"], {}, []),
     "nst5": (["-DTAIL_NST=5", "-DTAIL_XS_KB=17"], {"_XS_BYTES": 17 * 1024}, []),
-    "sr128": (["-DTAIL_SR=128"], {"_STAGE_ROWS": 128}, []),
     "mb1": (["-DTAIL_MIN_BLOCKS=1"], {"_BLOCKS_PER_SM": 1}, []),
-    "mb3": (["-DTAIL_MIN_BLOCKS=3"], {"_BLOCKS_PER_SM": 3}, []),
     "no_mma": ([], {}, _NO_MMA),
     "no_stream": ([], {}, _NO_STREAM),
     "no_stage": ([], {}, _NO_STAGE),
@@ -240,7 +238,7 @@ def _halved(*names):
 
 
 PLANS = {"committed": _PLAN, "c128": _plan_with(cols=128), "c256": _plan_with(cols=256),
-         "half": _plan_with(fewer_slices=1), "half_wo": _halved("wo"),
+         "half": _halved("wo", "gu", "down", "qkv", "head"), "half_wo": _halved("wo"),
          "half_down": _halved("down"), "half_wo_down": _halved("wo", "down")}
 
 
