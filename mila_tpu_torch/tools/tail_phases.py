@@ -38,8 +38,11 @@ and one block an SM); ``no_mma``, ``no_stream``, ``no_stage`` (the
 products, the weight copies or the staging of x dropped; wrong by design,
 timed only) and ``loads_only`` (no products, no staging); ``inline`` (the
 phase functions forced inline into the kernels); ``no_attn`` (K8 without
-its attention units: wrong by design) and ``maxg4`` (K8's query slots a KV
-head capped at 4, Llama's G, not 8). ``--tree NAME=DIR`` adds the sources
+its attention units: wrong by design), ``maxg4`` (K8's query slots a KV
+head capped at 4, Llama's G, not 8) and ``mega_only`` (K8 without its giga
+prologue and head: the one-layer launch alone); ``k7_local`` (K7 given a
+local copy of its parameters, as K8 builds one a layer) and ``k7_static``
+(K7 with K8's static shared memory). ``--tree NAME=DIR`` adds the sources
 in DIR (another tail_phases.cuh, layer_tail_int8.cu and
 decode_step_int8.cu with the same C interface, e.g. an earlier commit's
 from ``git show`` into the git-ignored ``scratch_chip/``). ``--bn`` sets the
@@ -98,6 +101,15 @@ VARIANTS = {
     "inline": ([], {}, _INLINE),
     "no_attn": ([], {}, [("decode_step_int8.cu", "u < M * p.NKV; u += gridDim.x", "u < 0; u += 1")]),
     "maxg4": ([], {}, [("decode_step_int8.cu", "constexpr int MAXG = 8,", "constexpr int MAXG = 4,")]),
+    "mega_only": ([], {}, [("decode_step_int8.cu", "  if (p.giga) {\n", "  if (false) {\n"),
+                            ("decode_step_int8.cu", "  if (!p.giga) return;", "  return;")]),
+    "k7_local": ([], {}, [("layer_tail_int8.cu", "  tail_phases<MT, T>(p, smem, grid);",
+                           "  Params q = p;\n  q.eps = p.eps + 0.f * threadIdx.x;\n"
+                           "  tail_phases<MT, T>(q, smem, grid);")]),
+    "k7_static": ([], {}, [("layer_tail_int8.cu", "  tail_phases<MT, T>(p, smem, grid);",
+                            "  __shared__ float pad_s[32 + WARPS * 33 + 2 * WARPS];\n"
+                            "  if (threadIdx.x > 4096) pad_s[threadIdx.x % 300] = 1.f;\n"
+                            "  tail_phases<MT, T>(p, smem, grid);")]),
 }
 
 _STAMP = f'''
