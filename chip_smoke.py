@@ -585,11 +585,7 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
         errs = [max_err(g, w) for g, w in zip(got, want) if g is not None]
         return max(errs, key=lambda e: e[0] / e[1])
 
-    def tail_plan(bn, grid, n_qkv, n_head=0):
-        """The launch plan: {phase: [weight columns a unit, K slices]}."""
-        tiles = {"wo": H // bn, "gu": 2 * I // bn, "down": (I // H) * (H // bn),
-                 **({"qkv": n_qkv} if n_qkv else {}), **({"head": n_head} if n_head else {})}
-        return lf.plan_tail(M, H, bn, tiles, grid)[1]
+    idx = dev.index or 0  # the launch plans below: {phase: [weight columns a unit, K slices]}
 
     mid = L // 2 - 1
     views = [ls._pack_view(stream, i, False) for i in range(L - 1)]
@@ -600,7 +596,7 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
            [lambda i=i: ls.layer_tail_stream(att, x, g1, stream, i, g2) for i in range(L - 1)],
            lambda: lf.tail_plain(att[:, 0], x[:, 0], g1, views[mid], g2, eps=cfg.rms_eps),
            None, tail_bytes(n_full, Nq), ops_tail + 2 * M * H * Nq,
-           plan=tail_plan(bn, lf._grid(dev.index or 0, 8, 0), stream.n_qkv))
+           plan=lf.tail_launch_plan(M, H, I, bn, stream.n_qkv, idx, 0)[2])
     last = ls._pack_view(stream, L - 1, True)
     got = ls.layer_tail_stream(att, x, g1, stream, L - 1, None)
     want = lf.tail_plain(att[:, 0], x[:, 0], g1, last, g2, eps=cfg.rms_eps)
@@ -626,7 +622,7 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
            [lambda p=p: dm.mlp_block_fused(att, x, g1, p) for p in mps],
            lambda: dm.mlp_block_plain(att[:, 0], x[:, 0], g1, mps[0], eps=cfg.rms_eps), None,
            n_mlp * (H * mps[0].bn + mps[0].bn * 4) + 3 * M * H * 2 + H * 4, ops_tail,
-           plan=tail_plan(mps[0].bn, lf._grid(dev.index or 0, 8, 0), 0))
+           plan=lf.tail_launch_plan(M, H, I, mps[0].bn, 0, idx, 0)[2])
 
     # The per-layer megakernel at layer 7 (B 8, old rows 128-191 in a T 512
     # cache, q in slot order), cycling over layers 0..14 and their caches.
@@ -650,6 +646,7 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
             max_err(kg[rows_b, old.long()], kp[rows_b, old.long()]),
             max_err(vg[rows_b, old.long()], vp[rows_b, old.long()])]
     worst = max(errs, key=lambda e: e[0] / e[1])
+    grid_m, _, plan_m = lm.step_launch_plan(B, H, I, bn, megas[mid].n_qkv, 0, idx, 0)
     record("layer_megakernel", f"layer {mid} B={B} old 128-191 T={T}", *worst,
            [lambda i=i: lm.layer_megakernel(qkv, xm, g1, megas[i], caches[i][0], caches[i][1],
                                             old, cos_t, sin_t, g2, num_heads=NH)
@@ -660,8 +657,7 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
            tail_bytes(n_full, Nq) + live_old * KD * 2 * 2 + B * (NQ + 2 * KD) * 2
            + 2 * B * KD * 2 + 2 * B * KD * 4,
            ops_tail + 2 * M * H * Nq + 4 * (live_old + B) * NH * HD,
-           grid=lm._grid(dev.index or 0, 8, 0),
-           plan=tail_plan(bn, lm._grid(dev.index or 0, 8, 0), megas[mid].n_qkv),
+           grid=grid_m, plan=plan_m,
            errors={"x_out": errs[0][0], "qkv_next": errs[1][0], "k_row": errs[2][0],
                    "v_row": errs[3][0]})
     del caches, kg, vg, kp, vp
@@ -698,6 +694,7 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
             or any(e > ERR_TOL * r for e, r in first):
         raise AssertionError(f"giga_decode_step: tokens {agree}/{B}, logits max err {l_err} "
                              f"(atol {atol}), K/V rows {row_errs}, layer 0 {first}")
+    grid_g, _, plan_g = lm.step_launch_plan(B, H, I, gp.bn, gp.n_qkv, gp.n_head, idx, 1)
     ops_giga = 2 * B * gp.w.numel() + 4 * (live_old + B) * NH * HD * L
     record("giga_decode_step", f"L={L} B={B} old 128-191 T={T} tokens", l_err,
            lw.abs().max().item(),
@@ -707,8 +704,7 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
            + 2 * L * B * KD * 2 + B * gp.n_head * gp.bn * 2 + B * 4, ops_giga,
            gate=f"tokens >= 7/8; logits, K/V rows atol {atol} rtol 5e-2; layer-0 rows "
                 f"{ERR_TOL} x max|ref|",
-           token_agreement=agree / B, grid=lm._grid(dev.index or 0, 8, 1),
-           plan=tail_plan(gp.bn, lm._grid(dev.index or 0, 8, 1), gp.n_qkv, gp.n_head),
+           token_agreement=agree / B, grid=grid_g, plan=plan_g,
            errors={"logits": l_err, "k_rows": row_errs[0][0], "v_rows": row_errs[1][0],
                    "kv_rows_by_layer": by_layer})
     del kpool, vpool, kw, vw

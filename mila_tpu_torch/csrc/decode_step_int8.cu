@@ -434,10 +434,13 @@ extern "C" int decode_step_int8_blocks_per_sm(int m_tile, int is_f32, int* out) 
 // ptrs, ints and floats in StepParams' order (32 pointers: lens .. best_i;
 // 25 ints: giga .. cols_head; 2 floats: eps, scale). The Python wrapper
 // (kernels/layer_mega.py:launch_step) checks shapes, dtypes and the plan.
+// grid must not exceed tail::blocks_per_sm * SMs, nor tail::MAX_GRID (512:
+// the row sums row_rstd reads; a larger grid returns cudaErrorInvalidValue).
 extern "C" int decode_step_int8(void* const* ptrs, int n_ptrs, const int* ints, int n_ints,
                                 const float* floats, int n_floats, int grid, int m_tile,
                                 int is_f32, void* stream) {
-  if (n_ptrs != N_PTRS || n_ints != N_INTS || n_floats != N_FLOATS)
+  if (n_ptrs != N_PTRS || n_ints != N_INTS || n_floats != N_FLOATS || grid < 1 ||
+      grid > tail::MAX_GRID)
     return static_cast<int>(cudaErrorInvalidValue);
   StepParams p;
   void* const* q = ptrs;

@@ -73,15 +73,12 @@ namespace tail {
 #ifndef TAIL_NST
 #define TAIL_NST 3  // ring stages
 #endif
-#ifndef TAIL_SR
-#define TAIL_SR 64  // weight rows a stage: 64 or 128
-#endif
 #ifndef TAIL_XS_KB
 #define TAIL_XS_KB 33  // x's staged slice, KB
 #endif
 
 constexpr int THREADS = 256, WARPS = THREADS / 32;
-constexpr int SR = TAIL_SR, NST = TAIL_NST, KS = SR / 16;  // KS: mma k-steps a stage
+constexpr int SR = 64, NST = TAIL_NST, KS = SR / 16;  // SR: weight rows a stage; KS: its k-steps
 constexpr int PITCH = 256 + 16;  // bytes a staged weight row: rows 2t of a k-step 8 banks apart
 constexpr int XPAD = 4;          // words a staged row of x is padded by: conflict-free loads
 constexpr int RING_BYTES = NST * SR * PITCH;
@@ -89,8 +86,8 @@ constexpr int XS_BYTES = TAIL_XS_KB * 1024;
 // Dynamic shared memory of a block: the ring, then x's staged slice (which
 // the 128-column units' k-half sums and K8's attention arrays reuse).
 constexpr int SMEM_BYTES = RING_BYTES + XS_BYTES;
-constexpr int RSTD_LOADS = 16;  // row_rstd's loads a lane: grids of up to 512 blocks
-static_assert(SR == 64 || SR == 128, "a warp of a 128-column unit takes whole fragment pairs");
+constexpr int RSTD_LOADS = 16;              // row_rstd's loads a lane
+constexpr int MAX_GRID = 32 * RSTD_LOADS;  // blocks whose row sums row_rstd reads: 512
 
 // A value written earlier in the same launch, read through L2.
 __device__ __forceinline__ float ldcg_f(const float* p) { return __ldcg(p); }

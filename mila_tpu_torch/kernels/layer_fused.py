@@ -190,11 +190,11 @@ def tail_plain(a2, x2, gamma_mlp, pack: LayerPack, gamma_next, *, eps: float):
 # ---------------------------------------------------------------------------
 
 # Mirrors of csrc/tail_phases.cuh's constants.
-_STAGE_ROWS = 64  # weight rows a ring stage (TAIL_SR): a K slice is a multiple of it
+_STAGE_ROWS = 64  # weight rows a ring stage (SR): a K slice is a multiple of it
 _XS_BYTES = 33 * 1024  # x's staged slice per block (TAIL_XS_KB)
 _XPAD = 4  # words a staged row of x is padded by (XPAD)
 _BLOCKS_PER_SM = 2  # co-resident blocks per SM at most: fewer meet faster at a barrier
-_MAX_GRID = 512  # blocks whose row sums row_rstd reads in one round (32 x RSTD_LOADS)
+_MAX_GRID = 512  # blocks whose row sums row_rstd reads in one round (MAX_GRID)
 
 
 def type_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -247,32 +247,48 @@ def _xs_bytes(kc: int, mt: int) -> int:
     return mt * (kc // 2 + _XPAD) * 4
 
 
-def plan_tail(M: int, H: int, bn: int, tiles: dict, grid: int, *,
-              cols: Optional[int] = None) -> Tuple[int, dict]:
+def plan_tail(M: int, H: int, bn: int, tiles: dict, grid: int) -> Tuple[int, dict]:
     """(m_tile, {phase: (columns a unit, K slices)}) for ``tiles`` ({phase:
-    tile count}). A unit takes 256 weight columns of a tile where bn allows
-    (else 128; ``cols`` forces one where it divides bn). Each phase's K (= H
-    rows of a tile) is cut into the most power-of-two slices that still
-    leave at most one unit per block (a second round of units costs a unit's
-    whole latency chain again) and are whole ring stages, and at least as
-    many as the staged slice needs to fit ``_XS_BYTES``. 256-column units
-    beat 128-column ones at Llama-3.2-1B's shapes (``tools/tail_phases.py``,
-    ``PERF.md``)."""
+    tile count}). A unit takes 256 weight columns of a tile where bn allows,
+    else 128: 256-column units beat 128-column ones at Llama-3.2-1B's shapes
+    (``tools/tail_phases.py``, ``PERF.md``). The K slices are
+    :func:`_slice_plan`'s."""
+    return _slice_plan(M, H, bn, tiles, grid, 256 if bn % 256 == 0 else 128)
+
+
+def _slice_plan(M: int, H: int, bn: int, tiles: dict, grid: int,
+                cols: int) -> Tuple[int, dict]:
+    """plan_tail's plan for units of ``cols`` (128 or 256, dividing bn)
+    weight columns. Each phase's K (= H rows of a tile) is cut into the most
+    power-of-two slices that still leave at most one unit per block (a
+    second round of units costs a unit's whole latency chain again) and are
+    whole ring stages, and at least as many as the staged slice needs to fit
+    ``_XS_BYTES``."""
     mt = 8 if M <= 8 else 32
     if H % _STAGE_ROWS:
         raise ValueError(f"layer_tail_int8 needs H % {_STAGE_ROWS} == 0 (H={H})")
     plan = {}
     for name, n in tiles.items():
-        c = cols if cols and bn % cols == 0 else (256 if bn % 256 == 0 else 128)
-        units = n * (bn // c)
+        units = n * (bn // cols)
         k = 1
         while (H % (2 * k * _STAGE_ROWS) == 0
                and (_xs_bytes(H // k, mt) > _XS_BYTES or units * 2 * k <= grid)):
             k *= 2
         if _xs_bytes(H // k, mt) > _XS_BYTES:
             raise ValueError(f"layer_tail_int8 cannot slice H={H} for M={M}")
-        plan[name] = (c, k)
+        plan[name] = (cols, k)
     return mt, plan
+
+
+def tail_launch_plan(M: int, H: int, I: int, bn: int, n_qkv: int, index: int,
+                     is_f32: int) -> Tuple[int, int, dict]:
+    """(grid, m_tile, plan) of a :func:`launch_tail` call on device
+    ``index``: its tiles a phase (a qkv phase of one tile when ``n_qkv`` is
+    0, planned and not run) and its grid."""
+    grid = _grid(index, 8 if M <= 8 else 32, is_f32)
+    mt, plan = plan_tail(M, H, bn, {"wo": H // bn, "gu": 2 * I // bn,
+                                    "down": (I // H) * (H // bn), "qkv": max(n_qkv, 1)}, grid)
+    return grid, mt, plan
 
 
 def launch_tail(att: torch.Tensor, x: torch.Tensor, gamma_mlp: torch.Tensor,
@@ -311,10 +327,7 @@ def launch_tail(att: torch.Tensor, x: torch.Tensor, gamma_mlp: torch.Tensor,
           if gamma_next is not None else torch.ones(H, dtype=torch.float32, device=dev))
     if w.data_ptr() % 16 or s.data_ptr() % 16:
         raise ValueError("layer_tail_int8: the pack must be 16-byte aligned")
-    mt0 = 8 if M <= 8 else 32
-    grid = _grid(dev.index or 0, mt0, is_f32)
-    mt, plan = plan_tail(M, H, bn, {"wo": n_wo, "gu": n_gu, "down": n_down,
-                                    "qkv": max(n_qkv, 1)}, grid)
+    grid, mt, plan = tail_launch_plan(M, H, I, bn, n_qkv, dev.index or 0, is_f32)
     names = ("wo", "gu", "down", "qkv")
     ks = {name: plan[name][1] for name in names}
     Nq = n_qkv * bn

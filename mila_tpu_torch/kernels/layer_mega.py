@@ -34,7 +34,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -232,6 +232,18 @@ def check_step(*, w, s, k_pool, v_pool, M, H, I, bn, NH, NKV, HD, T) -> None:
                         "with f32 scales")
 
 
+def step_launch_plan(M: int, H: int, I: int, bn: int, n_qkv: int, n_head: int, index: int,
+                     is_f32: int) -> Tuple[int, int, dict]:
+    """(grid, m_tile, plan) of a :func:`launch_step` call on device
+    ``index``: its tiles a phase (a qkv or head phase of one tile where the
+    launch has none, planned and not run) and its grid."""
+    grid = _grid(index, 8 if M <= 8 else 32, is_f32)
+    mt, plan = plan_tail(M, H, bn, {"wo": H // bn, "gu": 2 * I // bn,
+                                    "down": (I // H) * (H // bn), "qkv": max(n_qkv, 1),
+                                    "head": max(n_head, 1)}, grid)
+    return grid, mt, plan
+
+
 def launch_step(ptrs: dict, ints: dict, *, eps: float, scale: float, is_f32: int,
                 device: torch.device) -> None:
     """One cooperative ``decode_step_int8`` launch. ``ptrs`` names the
@@ -241,11 +253,7 @@ def launch_step(ptrs: dict, ints: dict, *, eps: float, scale: float, is_f32: int
     M, H, I, bn = ints["M"], ints["H"], ints["I"], ints["bn"]
     NQ, KD = ints["NH"] * ints["HD"], ints["NKV"] * ints["HD"]
     n_qkv, n_head = ints["n_qkv"], ints["n_head"]
-    mt0 = 8 if M <= 8 else 32
-    grid = _grid(device.index or 0, mt0, is_f32)
-    mt, plan = plan_tail(M, H, bn, {"wo": H // bn, "gu": 2 * I // bn,
-                                    "down": (I // H) * (H // bn), "qkv": max(n_qkv, 1),
-                                    "head": max(n_head, 1)}, grid)
+    grid, mt, plan = step_launch_plan(M, H, I, bn, n_qkv, n_head, device.index or 0, is_f32)
     for name, suffix in _PHASES.items():
         ints["cols_" + suffix], ints["ks_" + suffix] = plan[name]
     ks = {name: k for name, (_, k) in plan.items()}

@@ -238,8 +238,14 @@ def build(variants, trees=None) -> dict:
 _PLAN = lf.plan_tail  # the committed planner (the runs below patch the module's name)
 
 
-def _plan_with(**kw):
-    return lambda *a: _PLAN(*a, **kw)
+def _cols(cols):
+    """The committed K slices for units of ``cols`` weight columns where
+    they divide bn (else the committed columns)."""
+    def plan(M, H, bn, tiles, grid):
+        if bn % cols:
+            return _PLAN(M, H, bn, tiles, grid)
+        return lf._slice_plan(M, H, bn, tiles, grid, cols)
+    return plan
 
 
 def _halved(*names):
@@ -249,7 +255,7 @@ def _halved(*names):
     return plan
 
 
-PLANS = {"committed": _PLAN, "c128": _plan_with(cols=128), "c256": _plan_with(cols=256),
+PLANS = {"committed": _PLAN, "c128": _cols(128), "c256": _cols(256),
          "half": _halved("wo", "gu", "down", "qkv", "head"), "half_wo": _halved("wo"),
          "half_down": _halved("down"), "half_wo_down": _halved("wo", "down")}
 
@@ -390,8 +396,7 @@ def main() -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     saved = {m: (m._lib, m.plan_tail, m._BLOCKS_PER_SM) for m in (lf, lm)}
-    saved_consts = {k: getattr(lf, k) for k in ("_XS_BYTES", "_STAGE_ROWS")
-                    if hasattr(lf, k)}
+    saved_consts = {"_XS_BYTES": lf._XS_BYTES}
     try:
         for kernel in args.kernels:
             src_name, make = CASES[kernel]

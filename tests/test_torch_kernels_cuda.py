@@ -21,6 +21,8 @@ tokens agree on at least 7/8 of the rows, logits within 5e-2 * max(1, L/4)
 + 5e-2 relative, the written K/V rows within 2e-2 of their largest value.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -636,9 +638,7 @@ def test_layer_tail_smallest_slice(cuda):
     # smallest K slice), two 256-column units a tile.
     H, I, NQ, bn, M = 512, 2048, 1024, 512, 8
     packs, stream = _tail_case(H, I, NQ, bn, 2, seed=150)
-    grid = lf._grid(0, 8, 0)
-    _, plan = lf.plan_tail(M, H, bn, {"wo": 1, "gu": 2 * I // bn, "down": I // bn, "qkv": 2},
-                           grid)
+    _, _, plan = lf.tail_launch_plan(M, H, I, bn, 2, 0, 0)
     assert H // plan["wo"][1] == lf._STAGE_ROWS
     att, x = _rand((M, H), 151), _rand((M, H), 152)
     g1, g2 = 1.0 + _rand((H,), 153, 0.1, torch.float32), 1.0 + _rand((H,), 154, 0.1, torch.float32)
@@ -647,6 +647,21 @@ def test_layer_tail_smallest_slice(cuda):
     wout, wqkv = lf.tail_plain(att, x, g1, packs[0], g2, eps=1e-5)
     _close(out, wout)
     _close(qkv, wqkv)
+
+
+def test_tail_entries_refuse_a_grid_over_the_row_sum_limit(cuda):
+    # The rstd pass reads the row sums of at most _MAX_GRID blocks: both C
+    # entry points return cudaErrorInvalidValue (1) for a larger grid, before
+    # they read an argument or launch.
+    grid = lf._MAX_GRID + 1
+    lib = lf._lib()
+    assert lib.layer_tail_int8(*[None] * 17, *[0] * 14, 1e-5, grid, 8, 0, None) == 1
+    mlib = lm._lib()
+    ptrs = (ctypes.c_void_p * len(lm._PTRS))()
+    ints = (ctypes.c_int * len(lm._INTS))()
+    floats = (ctypes.c_float * 2)()
+    assert mlib.decode_step_int8(ptrs, len(lm._PTRS), ints, len(lm._INTS), floats, 2, grid, 8,
+                                 1, None) == 1
 
 
 @pytest.mark.parametrize("H,I,bn,M,dtype", [

@@ -183,8 +183,8 @@ def test_tail_plan_covers_the_served_shapes():
 def test_tail_plan_small_and_odd_shapes(H, bn, M, smallest):
     """128-column units where bn is not a multiple of 256; an H whose plan
     reaches the smallest slice (one ring stage); an H that is not a power of
-    two, cut only into whole stages (3072 = 16 x 192). A forced column count is kept where it
-    divides bn."""
+    two, cut only into whole stages (3072 = 16 x 192). The slicing takes 128-column units
+    where bn would take 256 too (the phase tool's ``c128`` plan)."""
     sr = tlf._STAGE_ROWS
     tiles = {"wo": H // bn, "gu": 4, "down": 2 * H // bn}
     mt, plan = tlf.plan_tail(M, H, bn, tiles, 264)
@@ -193,6 +193,7 @@ def test_tail_plan_small_and_odd_shapes(H, bn, M, smallest):
         assert H % ks == 0 and (H // ks) % sr == 0
         assert tlf._xs_bytes(H // ks, mt) <= tlf._XS_BYTES
     assert min(H // ks for _, ks in plan.values()) == smallest
-    assert all(c == 128 for c, _ in tlf.plan_tail(M, H, bn, tiles, 264, cols=128)[1].values())
+    assert all(c == 128 and (H // ks) % sr == 0
+               for c, ks in tlf._slice_plan(M, H, bn, tiles, 264, 128)[1].values())
     with pytest.raises(ValueError):
         tlf.plan_tail(M, H + sr // 2, bn, tiles, 264)
