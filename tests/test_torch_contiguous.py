@@ -5,13 +5,15 @@ Variants: f32 params; int8 (fuse -> quantize -> quantized head), which
 runs the decode kernels' plain paths and JAX's Pallas kernels in interpret
 mode; int8 with ``pack_decode_layers(bn=128)``, whose decode steps take
 ``fused_decode_attention`` + ``layer_tail_stream`` (JAX: their CPU
-references) and whose greedy step takes ``rms_quant_linear_argmax``.
+references) and whose greedy step takes ``rms_quant_linear_argmax``; fp8
+e4m3 with an fp8 head, unpacked and packed, in ``forward_with_cache`` and
+``greedy_step_with_cache``.
 Both sides run ``forward_with_cache`` (a 5-token prefill and 3 decode
 steps), ``greedy_step_with_cache`` and ``forward_with_cache_ragged``; the
 caches are compared after the steps. ``Generator.generate`` is compared
 token for token (greedy, and greedy with an EOS token).
 
-Tolerances: f32 logits and caches 1e-4 (summation order only); int8 1e-2
+Tolerances: f32 logits and caches 1e-4 (summation order only); int8 and fp8 1e-2
 of the largest logit (both sides round activations to bf16 before every
 int8 product, and a last-ulp f32 difference can flip one such rounding).
 Greedy tokens are compared exactly: at these seeds no row's top-two logit
@@ -44,9 +46,14 @@ def models():
     qparams = jl.add_quantized_lm_head(j_qmp(jl.fuse_llama_projections(jparams), "int8"))
     packed = jl.pack_decode_layers(qparams, bn=128)
     assert "layer_stream" in packed
+    fparams = jl.add_quantized_lm_head(
+        j_qmp(jl.fuse_llama_projections(jparams), "fp8_e4m3"), "fp8_e4m3")
+    fpacked = jl.pack_decode_layers(fparams, bn=128)
+    assert "layer_stream" in fpacked
     tmodel = tl.Llama(tl.LlamaConfig.tiny(vocab_size=V), device="cpu")
     out = {}
-    for name, p in (("f32", jparams), ("int8", qparams), ("packed", packed)):
+    for name, p in (("f32", jparams), ("int8", qparams), ("packed", packed),
+                    ("fp8_e4m3", fparams), ("packed_fp8_e4m3", fpacked)):
         out[name] = (jmodel, p, tmodel, params_from_jax(jax.tree_util.tree_map(np.asarray, p),
                                                         "cpu"))
     return out
@@ -78,7 +85,8 @@ def test_init_kv_cache_rounds_to_8(models):
     assert len(cache) == 2 and cache["h1"]["v"].shape == (2, 16, 2, 32)
 
 
-@pytest.mark.parametrize("which", ["f32", "int8", "packed"])
+@pytest.mark.parametrize("which", ["f32", "int8", "packed", "fp8_e4m3",
+                                   "packed_fp8_e4m3"])
 def test_forward_with_cache_matches_jax(models, which):
     jmodel, jp, tmodel, tp = models[which]
     rng = np.random.default_rng(1)
@@ -109,7 +117,8 @@ def _prefilled(models, which, seed=2):
     return jcache, tcache
 
 
-@pytest.mark.parametrize("which", ["f32", "int8", "packed"])
+@pytest.mark.parametrize("which", ["f32", "int8", "packed", "fp8_e4m3",
+                                   "packed_fp8_e4m3"])
 def test_greedy_step_with_cache_matches_jax(models, which):
     jmodel, jp, tmodel, tp = models[which]
     jcache, tcache = _prefilled(models, which)

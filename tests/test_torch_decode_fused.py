@@ -71,6 +71,73 @@ def test_rms_quant_linear_swiglu(M, xdt):
     _check(got, want, xdt)
 
 
+# fp8 weights (JAX: its kernels' bit decode with the scale fixup; the port:
+# fp8 -> bf16 directly, both exact): the int8 cases' tolerances.
+_FP8 = ["fp8_e4m3", "fp8_e5m2"]
+
+
+@pytest.mark.parametrize("M", [1, 8, 40])
+@pytest.mark.parametrize("xdt", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("wdt", _FP8)
+def test_rms_quant_linear_fp8(M, xdt, wdt):
+    x, g, w, _ = _inputs(M, 256, 512)
+    want = jdf.rms_quant_linear(jnp.asarray(x, xdt), jnp.asarray(g),
+                                jq.quantize(jnp.asarray(w), wdt), eps=1e-5)
+    got = tdf.rms_quant_linear(torch.from_numpy(x).to(_TORCH[xdt]), torch.from_numpy(g),
+                               tq.quantize(torch.from_numpy(w), wdt), eps=1e-5)
+    _check(got, want, xdt)
+
+
+@pytest.mark.parametrize("M", [1, 8, 40])
+@pytest.mark.parametrize("xdt", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("wdt", _FP8)
+def test_quant_linear_residual_fp8(M, xdt, wdt):
+    x, _, w, r = _inputs(M, 256, 512, seed=1)
+    want = jdf.quant_linear_residual(jnp.asarray(x, xdt), jq.quantize(jnp.asarray(w), wdt),
+                                     jnp.asarray(r, xdt))
+    got = tdf.quant_linear_residual(torch.from_numpy(x).to(_TORCH[xdt]),
+                                    tq.quantize(torch.from_numpy(w), wdt),
+                                    torch.from_numpy(r).to(_TORCH[xdt]))
+    _check(got, want, xdt)
+
+
+@pytest.mark.parametrize("M", [1, 8, 40])
+@pytest.mark.parametrize("xdt", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("wdt", _FP8)
+def test_rms_quant_linear_swiglu_fp8(M, xdt, wdt):
+    x, g, w, _ = _inputs(M, 256, 2 * 512, seed=2)
+    want = jdf.rms_quant_linear_swiglu(jnp.asarray(x, xdt), jnp.asarray(g),
+                                       jq.quantize(jnp.asarray(w), wdt), eps=1e-5)
+    got = tdf.rms_quant_linear_swiglu(torch.from_numpy(x).to(_TORCH[xdt]),
+                                      torch.from_numpy(g), tq.quantize(torch.from_numpy(w), wdt),
+                                      eps=1e-5)
+    assert got.shape == (M, 512)
+    _check(got, want, xdt)
+
+
+@pytest.mark.parametrize("M", [1, 8, 32])
+@pytest.mark.parametrize("bs", [0, 128])
+@pytest.mark.parametrize("wdt", _FP8)
+def test_argmax_head_fp8(M, bs, wdt):
+    """The greedy head over fp8 weights: tokens equal JAX's wherever a row's
+    top two logits are further apart than 1e-4 of the largest."""
+    from mila_tpu_torch.kernels.quant_matmul import scaled_partials
+
+    K, N, vocab = 256, 1024, 900
+    x, g, w, _ = _inputs(M, K, N, seed=5 + M)
+    want = jdf.rms_quant_linear_argmax(jnp.asarray(x), jnp.asarray(g),
+                                       jq.quantize(jnp.asarray(w), wdt, bs), vocab_size=vocab)
+    tqt = tq.quantize(torch.from_numpy(w), wdt, bs)
+    xt, gt = torch.from_numpy(x), torch.from_numpy(g)
+    got = tdf.rms_quant_linear_argmax(xt, gt, tqt, vocab_size=vocab)
+    assert got.shape == (M, 1) and got.dtype == torch.int32 and int(got.max()) < vocab
+    logits = scaled_partials(tdf._rms_scaled(xt, gt, 1e-5), tqt)[:, :vocab]
+    top2 = torch.topk(logits, 2, dim=-1).values
+    clear = ((top2[:, 0] - top2[:, 1]) > 1e-4 * logits.abs().max()).numpy()
+    assert clear.mean() > 0.9
+    np.testing.assert_array_equal(got.numpy()[clear, 0], np.asarray(want)[clear, 0])
+
+
 def test_block_scales_match_jax():
     x, g, w, r = _inputs(8, 256, 512, seed=3)
     jqt, tqt = jq.quantize(jnp.asarray(w), "int8", 128), tq.quantize(torch.from_numpy(w), "int8", 128)

@@ -1,6 +1,7 @@
 """The port's paged engine against the JAX engine, and its scheduling.
 
-Tiny Llama int8 (f32 params, f32 pages, page_size 16, buckets (16, 32)),
+Tiny Llama int8, and fp8 e4m3 for the greedy tokens (f32 params, f32
+pages, page_size 16, buckets (16, 32)),
 identical bridged weights: six greedy requests with prompts of 3 to 25
 tokens on four slots cover both buckets, admission waves and page
 crossings. Greedy tokens must be equal. Only live rows are compared: the
@@ -26,15 +27,19 @@ PROMPT_LENS = (3, 25, 9, 17, 12, 5)
 NEW_TOKENS = (6, 10, 3, 12, 7, 9)
 
 
-@pytest.fixture(scope="module")
-def pair():
+def _pair(wdt):
     cfg = jl.LlamaConfig.tiny(vocab_size=V)
     jmodel = jl.Llama(cfg)
     jparams = jmodel.init(jax.random.key(3), (1, 16))
-    jparams = jl.add_quantized_lm_head(j_qmp(jl.fuse_llama_projections(jparams), "int8"))
+    jparams = jl.add_quantized_lm_head(j_qmp(jl.fuse_llama_projections(jparams), wdt), wdt)
     tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     tmodel = tl.Llama(tl.LlamaConfig.tiny(vocab_size=V), device="cpu")
     return jmodel, jparams, tmodel, tparams
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _pair("int8")
 
 
 def _config(cls, **kw):
@@ -50,7 +55,15 @@ def _prompts():
 
 
 def test_greedy_tokens_equal_jax_engine(pair):
-    jmodel, jparams, tmodel, tparams = pair
+    _check_greedy_tokens(*pair)
+
+
+def test_greedy_tokens_equal_jax_engine_fp8():
+    """The same requests over fp8 e4m3 weights and an fp8 head."""
+    _check_greedy_tokens(*_pair("fp8_e4m3"))
+
+
+def _check_greedy_tokens(jmodel, jparams, tmodel, tparams):
     jeng = JEngine(jmodel, jparams, _config(JEngineConfig, kv_layout="paged"))
     teng = InferenceEngine(tmodel, tparams, _config(EngineConfig), device="cpu")
     jreqs = [jeng.submit(p, max_new_tokens=n) for p, n in zip(_prompts(), NEW_TOKENS)]

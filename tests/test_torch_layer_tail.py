@@ -36,13 +36,12 @@ def _w(rng, *shape):
     return (rng.standard_normal(shape) * 0.05).astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def layers():
+def _build_layers(wdt):
     rng = np.random.default_rng(0)
     raw = [{"wo": _w(rng, H, H), "wgu": _w(rng, H, 2 * I), "down": _w(rng, I, H),
             "wqkv": _w(rng, H, NQ)} for _ in range(L)]
-    jw = [{k: jq.quantize(jnp.asarray(v), "int8") for k, v in r.items()} for r in raw]
-    tw = [{k: tq.quantize(torch.from_numpy(v), "int8") for k, v in r.items()} for r in raw]
+    jw = [{k: jq.quantize(jnp.asarray(v), wdt) for k, v in r.items()} for r in raw]
+    tw = [{k: tq.quantize(torch.from_numpy(v), wdt) for k, v in r.items()} for r in raw]
 
     def packs(mod, ws):
         return [mod.pack_layer(w["wo"], w["wgu"], w["down"],
@@ -51,6 +50,19 @@ def layers():
 
     jpacks, tpacks = packs(jlf, jw), packs(tlf, tw)
     return jpacks, tpacks, jls.pack_layer_stream(jpacks), tls.pack_layer_stream(tpacks)
+
+
+@pytest.fixture(scope="module")
+def layers():
+    return _build_layers("int8")
+
+
+# fp8 packs carry JAX's scale fixup (2^120 for e4m3, 2^112 for e5m2) in
+# their scale rows, byte for byte; the tails are held to the int8 cases'
+# tolerance.
+@pytest.fixture(scope="module", params=["fp8_e4m3", "fp8_e5m2"])
+def layers_fp8(request):
+    return _build_layers(request.param)
 
 
 def test_pack_layer_bytes_equal_jax(layers):
@@ -131,6 +143,46 @@ def test_layer_tail_stream_matches_jax(layers, layer, dt):
 @pytest.mark.parametrize("with_qkv", [True, False])
 def test_mlp_qkv_fused_matches_jax(layers, with_qkv):
     jpacks, tpacks, _, _ = layers
+    i = 0 if with_qkv else L - 1
+    (ja, jx, jg1, jg2), (ta, tx, tg1, tg2) = _acts("bf16", seed=20)
+    jout, jqkv = jlf.mlp_qkv_fused(ja[:, 0], jx[:, 0], jg1, jpacks[i], jg2 if with_qkv else None)
+    tout, tqkv = tlf.mlp_qkv_fused(ta[:, 0], tx[:, 0], tg1, tpacks[i], tg2 if with_qkv else None)
+    _close(tout, jout, 1e-2)
+    if with_qkv:
+        _close(tqkv, jqkv, 1e-2)
+    else:
+        assert jqkv is None and tqkv is None
+
+
+def test_pack_layer_fp8_bytes_equal_jax(layers_fp8):
+    jpacks, tpacks, js, ts = layers_fp8
+    for jp, tp in zip(jpacks, tpacks):
+        assert tp.w.dtype in (torch.float8_e4m3fn, torch.float8_e5m2)
+        np.testing.assert_array_equal(tp.w.view(torch.uint8).numpy(),
+                                      np.asarray(jp.w).view(np.uint8))
+        np.testing.assert_array_equal(tp.s.numpy(), np.asarray(jp.s))
+    np.testing.assert_array_equal(ts.s_last.numpy(), np.asarray(js.s_last))
+
+
+@pytest.mark.parametrize("layer", [0, 1, 2])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_layer_tail_stream_fp8_matches_jax(layers_fp8, layer, dt):
+    _, _, js, ts = layers_fp8
+    (ja, jx, jg1, jg2), (ta, tx, tg1, tg2) = _acts(dt, seed=10 + layer)
+    last = layer == L - 1
+    jout, jqkv = jls.layer_tail_stream(ja, jx, jg1, js, layer, None if last else jg2)
+    tout, tqkv = tls.layer_tail_stream(ta, tx, tg1, ts, layer, None if last else tg2)
+    assert tout.dtype == tx.dtype
+    _close(tout, jout, _DT[dt][2])
+    if last:
+        assert jqkv is None and tqkv is None
+    else:
+        _close(tqkv, jqkv, _DT[dt][2])
+
+
+@pytest.mark.parametrize("with_qkv", [True, False])
+def test_mlp_qkv_fused_fp8_matches_jax(layers_fp8, with_qkv):
+    jpacks, tpacks, _, _ = layers_fp8
     i = 0 if with_qkv else L - 1
     (ja, jx, jg1, jg2), (ta, tx, tg1, tg2) = _acts("bf16", seed=20)
     jout, jqkv = jlf.mlp_qkv_fused(ja[:, 0], jx[:, 0], jg1, jpacks[i], jg2 if with_qkv else None)

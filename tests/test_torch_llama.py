@@ -3,13 +3,13 @@
 The JAX tiny Llama (hidden 128, 2 layers, f32 params) is initialised by
 JAX, its params mapped to numpy and bridged into the port. Both sides then
 run ``apply``, ``forward_paged_prefill`` and 4 steps of
-``forward_paged_ragged`` on the same tokens and page tables, unquantized and
-int8 (fuse -> quantize -> quantized head), which routes the int8 model
-through all three kernel entry points' plain paths and JAX's Pallas kernels
-in interpret mode.
+``forward_paged_ragged`` on the same tokens and page tables, unquantized,
+int8 and fp8 e4m3 (fuse -> quantize -> quantized head, fp8 with an fp8
+head), which routes the quantized models through all three kernel entry
+points' plain paths and JAX's Pallas kernels in interpret mode.
 
 Tolerances: unquantized f32 differs by summation order only (atol 1e-4 on
-logits of magnitude ~1). With int8 weights both sides round activations to
+logits of magnitude ~1). With int8 or fp8 weights both sides round activations to
 bf16 before every product; a last-ulp f32 difference can flip one such
 rounding, so we allow 1e-2 of the largest logit.
 """
@@ -36,9 +36,11 @@ def models():
     jmodel = jl.Llama(cfg)
     jparams = jmodel.init(jax.random.key(0), (1, 16))
     qparams = jl.add_quantized_lm_head(j_qmp(jl.fuse_llama_projections(jparams), "int8"))
+    fparams = jl.add_quantized_lm_head(
+        j_qmp(jl.fuse_llama_projections(jparams), "fp8_e4m3"), "fp8_e4m3")
     tmodel = tl.Llama(tl.LlamaConfig.tiny(vocab_size=61), device="cpu")
     out = {}
-    for name, p in (("f32", jparams), ("int8", qparams)):
+    for name, p in (("f32", jparams), ("int8", qparams), ("fp8_e4m3", fparams)):
         npp = jax.tree_util.tree_map(np.asarray, p)
         out[name] = (jmodel, p, tmodel, params_from_jax(npp, "cpu"))
     return out
@@ -70,16 +72,16 @@ def test_fuse_and_quantize_in_the_port_match_jax(models):
         np.testing.assert_array_equal(t.scale.numpy(), np.asarray(j.scale))
 
 
-@pytest.mark.parametrize("which", ["f32", "int8"])
+@pytest.mark.parametrize("which", ["f32", "int8", "fp8_e4m3"])
 def test_apply_matches_jax(models, which):
     jmodel, jp, tmodel, tp = models[which]
     toks = np.random.default_rng(0).integers(0, 61, (2, 12)).astype(np.int32)
     want = np.asarray(jmodel.apply(jp, jnp.asarray(toks)))
     got = tmodel.apply(tp, torch.from_numpy(toks)).numpy()
-    np.testing.assert_allclose(got, want, atol=_tol(want, which == "int8"), rtol=0)
+    np.testing.assert_allclose(got, want, atol=_tol(want, which != "f32"), rtol=0)
 
 
-@pytest.mark.parametrize("which", ["f32", "int8"])
+@pytest.mark.parametrize("which", ["f32", "int8", "fp8_e4m3"])
 def test_paged_prefill_and_decode_match_jax(models, which):
     jmodel, jp, tmodel, tp = models[which]
     rng = np.random.default_rng(1)
@@ -94,10 +96,10 @@ def test_paged_prefill_and_decode_match_jax(models, which):
     tlog, tpools = tmodel.forward_paged_prefill(tp, torch.from_numpy(tokens), tpools,
                                                 torch.from_numpy(table), torch.from_numpy(LENS))
     want = np.asarray(jlog)
-    np.testing.assert_allclose(tlog.numpy(), want, atol=_tol(want, which == "int8"), rtol=0)
+    np.testing.assert_allclose(tlog.numpy(), want, atol=_tol(want, which != "f32"), rtol=0)
     for name in ("k", "v"):
         np.testing.assert_allclose(tpools[name].numpy(), np.asarray(jpools[name]),
-                                   atol=_tol(np.asarray(jpools[name]), which == "int8"), rtol=0)
+                                   atol=_tol(np.asarray(jpools[name]), which != "f32"), rtol=0)
     pos = LENS.copy()
     for step in range(STEPS):
         nxt = rng.integers(0, 61, (B, 1)).astype(np.int32)
@@ -107,7 +109,7 @@ def test_paged_prefill_and_decode_match_jax(models, which):
                                                    torch.from_numpy(table), torch.from_numpy(pos))
         want = np.asarray(jlog)
         assert tlog.shape == want.shape == (B, 1, 61)
-        np.testing.assert_allclose(tlog.numpy(), want, atol=_tol(want, which == "int8"),
+        np.testing.assert_allclose(tlog.numpy(), want, atol=_tol(want, which != "f32"),
                                    rtol=0, err_msg=f"decode step {step}")
         pos = pos + 1
 

@@ -55,29 +55,47 @@ def test_dequantize_matches_jax():
     np.testing.assert_array_equal(np.asarray(jq.dequantize(a)), tq.dequantize(b).numpy())
 
 
-@pytest.mark.parametrize("M,K,N,bs,act,bias", [
+_LINEAR_CASES = [
     (8, 256, 384, 0, None, False),     # tiles: the Pallas kernel's arithmetic
     (64, 256, 384, 128, "gelu", True),
     (64, 256, 384, 0, "silu", False),
     (3, 256, 384, 0, None, True),      # M = 3 does not tile: quant_linear_ref
     (8, 96, 200, 0, None, False),      # K, N do not tile either
-])
-@pytest.mark.parametrize("xdt", [jnp.float32, jnp.bfloat16])
-def test_quant_linear_matches_jax(M, K, N, bs, act, bias, xdt):
+]
+
+
+def _check_quant_linear(M, K, N, bs, act, bias, xdt, wdt):
     rng = np.random.default_rng(3)
     x = rng.standard_normal((M, K)).astype(np.float32)
     w = _w(4, K, N)
     b = (rng.standard_normal(N) * 0.1).astype(np.float32) if bias else None
     jx = jnp.asarray(x, xdt)
-    want = j_quant_linear(jx, jq.quantize(jnp.asarray(w), "int8", bs),
+    want = j_quant_linear(jx, jq.quantize(jnp.asarray(w), wdt, bs),
                           None if b is None else jnp.asarray(b), activation=act)
     want = np.asarray(jax.device_get(want.astype(jnp.float32)))
     tx = torch.from_numpy(x).to(_TORCH[xdt])
-    got = quant_linear(tx, tq.quantize(torch.from_numpy(w), "int8", bs),
+    got = quant_linear(tx, tq.quantize(torch.from_numpy(w), wdt, bs),
                        None if b is None else torch.from_numpy(b), activation=act)
     assert got.dtype == tx.dtype and got.shape == (M, N)
     tol = 1e-5 if xdt == jnp.float32 else 1e-2
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("M,K,N,bs,act,bias", _LINEAR_CASES)
+@pytest.mark.parametrize("xdt", [jnp.float32, jnp.bfloat16])
+def test_quant_linear_matches_jax(M, K, N, bs, act, bias, xdt):
+    _check_quant_linear(M, K, N, bs, act, bias, xdt, "int8")
+
+
+# fp8 weights: JAX's kernel bit-decodes each byte into the f32 exponent and
+# mantissa fields and folds 2^(127 - bias) into the scale row; the port
+# converts fp8 to bf16 directly. Both are exact (fp8 subnormals included on
+# the CPU), so the tolerances are the int8 cases'.
+@pytest.mark.parametrize("M,K,N,bs,act,bias", _LINEAR_CASES)
+@pytest.mark.parametrize("xdt", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("wdt", ["fp8_e4m3", "fp8_e5m2"])
+def test_quant_linear_fp8_matches_jax(M, K, N, bs, act, bias, xdt, wdt):
+    _check_quant_linear(M, K, N, bs, act, bias, xdt, wdt)
 
 
 def test_quantize_model_params_skips_like_jax():
