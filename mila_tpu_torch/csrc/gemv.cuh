@@ -1,8 +1,9 @@
 // Helpers shared by the decode GEMVs on tensor cores (qgemv_int4.cu,
 // qgemv_int8.cu and the layer-tail phases of tail_phases.cuh): byte
-// permutes, the exact int8 -> bf16 pair conversion, the thread-block-cluster
-// barrier and stores into another block's shared memory, and 16-byte loads
-// and stores of x and the outputs in bf16 or f32.
+// permutes, the exact int8 -> bf16 and fp8 -> bf16 pair conversions, the
+// products of one staged weight stage, the thread-block-cluster barrier and
+// stores into another block's shared memory, and 16-byte loads and stores
+// of x and the outputs in bf16 or f32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -30,12 +31,91 @@ __device__ __forceinline__ uint32_t s8_pair(uint32_t wa, uint32_t wb, int j) {
   return v;
 }
 
+// One-byte weight formats (the C entries' wfmt argument).
+constexpr int WFMT_INT8 = 0, WFMT_E4M3 = 1, WFMT_E5M2 = 2;
+
+// The fp8 -> bf16 conversion of a word p whose halves hold one fp8 byte
+// each in their high byte (the low bytes are ignored), exact, subnormals
+// included. The TPU kernels' decode (mila_tpu/kernels/quant_matmul.py:
+// _load_w) puts the 7-bit payload into the exponent and mantissa fields of
+// a bf16 (one shift and one mask here: e4m3 >> 4 into bits 4-10, e5m2 >> 3
+// into bits 5-11), which is the fp8 value times 2^-120 (e4m3) or 2^-112
+// (e5m2): a bf16 subnormal for the fp8 subnormal codes, and a product
+// under f32's normal range for small activations. So one bf16x2 FMA
+// multiplies it by +-2^120 or +-2^112 at once (the sign bit and the power
+// of two in one lop3; the FMA keeps subnormal inputs) and the operand is the
+// fp8 value itself, as in the K1 GEMM. No scale fixup is needed after it:
+// scales that carry one (the layer-tail packs) are divided by it.
+// Five instructions a pair: prmt (by the caller), shift, and, lop3, FMA.
+struct F8Pair {
+  uint32_t shift, mask, mult;
+  __device__ __forceinline__ explicit F8Pair(int fmt)
+      : shift(fmt == WFMT_E4M3 ? 4u : 3u),
+        mask(fmt == WFMT_E4M3 ? 0x07F007F0u : 0x0FE00FE0u),
+        mult(fmt == WFMT_E4M3 ? 0x7B807B80u : 0x77807780u) {}  // bf16 2^120, 2^112
+
+  __device__ __forceinline__ uint32_t bits(uint32_t p) const {
+    const uint32_t m = (p >> shift) & mask;
+    uint32_t k, v;
+    asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(k) : "r"(p), "r"(0x80008000u), "r"(mult));
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(v) : "r"(m), "r"(k), "r"(0x80008000u));
+    return v;
+  }
+  // Byte j of wa and of wb as the bf16 pair (wa's value, wb's value).
+  __device__ __forceinline__ uint32_t operator()(uint32_t wa, uint32_t wb, int j) const {
+    return bits(prmt(wa, wb, 0x4400u + 0x1111u * j));
+  }
+};
+
+struct S8Pair {
+  __device__ __forceinline__ uint32_t operator()(uint32_t wa, uint32_t wb, int j) const {
+    return s8_pair(wa, wb, j);
+  }
+};
+
+// The power of two that the layer-tail packs fold into an fp8 tile's scale
+// row (kernels/layer_fused.py:_FP8_SCALE_FIXUP), undone: F8Pair's operands
+// are the fp8 values themselves.
+__device__ __forceinline__ float pack_scale_unfix(int fmt) {
+  return fmt == WFMT_E4M3 ? 0x1p-120f : fmt == WFMT_E5M2 ? 0x1p-112f : 1.f;
+}
+
 __device__ __forceinline__ uint32_t ld_word(const unsigned char* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ uint32_t comp(const uint4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// The products of k-steps [j0, j0 + ksw) of one staged weight stage (rows
+// of PITCH bytes; sp at the lane's first column) on the tensor cores: lane
+// (g, t) reads the 32-bit words of its 4 columns from rows 2t, 2t + 1, 2t + 8
+// and 2t + 9 of each 16-row k-step, turns byte j of each pair of rows into
+// a bf16 pair with cvt (S8Pair or F8Pair), and multiplies them with x's B
+// fragments, bx[mt][jj / 2] (2 KS words of a stage, k-step jj of them).
+template <int PITCH, int KS, int MTN, typename Cvt>
+__device__ __forceinline__ void stage_products(float (&acc)[2][MTN][4], const unsigned char* sp,
+                                               const uint4 (&bx)[MTN][KS / 2], int t, int j0,
+                                               int ksw, const Cvt& cvt) {
+#pragma unroll
+  for (int jj = 0; jj < KS; ++jj) {
+    if (jj >= ksw) break;
+    const unsigned char* r = sp + (16 * (j0 + jj) + 2 * t) * PITCH;
+    const uint32_t w0 = ld_word(r), w1 = ld_word(r + PITCH);
+    const uint32_t w2 = ld_word(r + 8 * PITCH), w3 = ld_word(r + 9 * PITCH);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const uint32_t af[4] = {cvt(w0, w1, 2 * n), cvt(w0, w1, 2 * n + 1), cvt(w2, w3, 2 * n),
+                              cvt(w2, w3, 2 * n + 1)};
+#pragma unroll
+      for (int mt = 0; mt < MTN; ++mt) {
+        const uint32_t b[2] = {comp(bx[mt][jj / 2], 2 * (jj % 2)),
+                               comp(bx[mt][jj / 2], 2 * (jj % 2) + 1)};
+        mma_bf16(acc[n][mt], af, b);
+      }
+    }
+  }
 }
 
 // A cp.async of BYTES (16: cached in L2 only; 4 or 8: through L1) into the

@@ -1,6 +1,6 @@
-// qgemv_int8: decode-shape (M <= 32 rows) int8 weight stream with an
-// optional RMSNorm prologue and a store / +residual / SwiGLU / argmax
-// epilogue, on the tensor cores.
+// qgemv_int8: decode-shape (M <= 32 rows) one-byte weight stream (int8, or
+// fp8 e4m3fn / e5m2) with an optional RMSNorm prologue and a store /
+// +residual / SwiGLU / argmax epilogue, on the tensor cores.
 //
 // Replaces four TPU kernels of mila_tpu/kernels/decode_fused.py:
 //   _rms_qmm_kernel        (rms_quant_linear)         prologue rms, epilogue store
@@ -27,7 +27,11 @@
 // its own 4 adjacent columns.
 // int8 -> bf16 is exact (every int8 value is a bf16 integer), four
 // instructions a pair of bytes (s8_pair): prmt, two lop3 and one bf16x2
-// FMA. Per weight byte: 2 conversion instructions, 0.25 shared loads, and
+// FMA. fp8 -> bf16 is exact too, five a pair (F8Pair, gemv.cuh), and the
+// QTensor's scales apply as they are; the TPU kernels' bit decode needs
+// its 2^120 / 2^112 scale fixup, this one does not. The format is a launch
+// argument and picks the conversion once a stage (a uniform branch around
+// the stage's products), so fp8 adds no instantiation. Per weight byte: 2 conversion instructions, 0.25 shared loads, and
 // the mma and x's fragments about 0.2 more at M 8: about 2.5
 // lane-instructions a byte, against the issue budget of about 9. (A first
 // version through f32, 2^23 + s + 128 less 2^23 + 128, took 2.75 a byte.)
@@ -87,7 +91,7 @@ struct Args {
   const T* res;               // [M, N] (residual mode)
   T* out;                     // [M, N]
   unsigned long long* keys;   // [M] (argmax mode)
-  int M, N, K, ldq, bs, mode, rms, vocab, kc;
+  int M, N, K, ldq, bs, mode, rms, vocab, kc, wfmt;
   float eps;
 };
 
@@ -243,6 +247,7 @@ __global__ void __launch_bounds__(THREADS) qgemv8_kernel(const Args<T> a) {
 
   const unsigned char* wl = ring + sc;
   const uint32_t* xl = xs + g * XP + 2 * KS * t;
+  const F8Pair f8(a.wfmt);
   for (int s = 0; s < nsteps; ++s) {
     cp_async_wait<NST - 2>();
     __syncthreads();  // stage s landed for every thread; stage s - 1 fully read
@@ -256,23 +261,10 @@ __global__ void __launch_bounds__(THREADS) qgemv8_kernel(const Args<T> a) {
 #pragma unroll
       for (int h = 0; h < KS / 2; ++h)
         bx[mt][h] = *reinterpret_cast<const uint4*>(xl + 8 * mt * XP + s * (SR / 2) + 4 * h);
-#pragma unroll
-    for (int j = 0; j < KS; ++j) {
-      const unsigned char* r = st + (16 * j + 2 * t) * PITCH;
-      const uint32_t w0 = ld_word(r), w1 = ld_word(r + PITCH);
-      const uint32_t w2 = ld_word(r + 8 * PITCH), w3 = ld_word(r + 9 * PITCH);
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const uint32_t af[4] = {s8_pair(w0, w1, 2 * n), s8_pair(w0, w1, 2 * n + 1),
-                                s8_pair(w2, w3, 2 * n), s8_pair(w2, w3, 2 * n + 1)};
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const uint32_t b[2] = {comp(bx[mt][j / 2], 2 * (j % 2)),
-                                 comp(bx[mt][j / 2], 2 * (j % 2) + 1)};
-          mma_bf16(acc[n][mt], af, b);
-        }
-      }
-    }
+    if (a.wfmt != WFMT_INT8)
+      stage_products<PITCH, KS, MT>(acc, st, bx, t, 0, KS, f8);
+    else
+      stage_products<PITCH, KS, MT>(acc, st, bx, t, 0, KS, S8Pair{});
 
     // A window ends: scale its sums by the window's row.
     if (k0 + (s + 1) * SR == wend) {
@@ -410,12 +402,12 @@ int launch(const Args<T>& a, int ksplit, cudaStream_t stream) {
 template <typename T>
 int run(const void* x, const void* gamma, const void* q, const void* scale, const void* res,
         void* out, unsigned long long* keys, int vocab, int M, int N, int K, int ldq, int bs,
-        int mode, int rms, float eps, int ksplit, int m_tile, cudaStream_t st) {
+        int mode, int rms, float eps, int ksplit, int m_tile, int wfmt, cudaStream_t st) {
   const bool vec16 = reinterpret_cast<uintptr_t>(q) % 16 == 0 && ldq % 16 == 0 && N % 16 == 0;
   const Args<T> a{static_cast<const T*>(x), static_cast<const float*>(gamma),
                   static_cast<const int8_t*>(q), static_cast<const float*>(scale),
                   static_cast<const T*>(res), static_cast<T*>(out), keys, M, N, K, ldq, bs, mode,
-                  rms, vocab, K / ksplit, eps};
+                  rms, vocab, K / ksplit, wfmt, eps};
 #define QGEMV8_LAUNCH(MT) \
   return vec16 ? launch<MT, T, 16>(a, ksplit, st) : launch<MT, T, 4>(a, ksplit, st)
   if (m_tile <= 8) QGEMV8_LAUNCH(1);
@@ -426,8 +418,9 @@ int run(const void* x, const void* gamma, const void* q, const void* scale, cons
 
 }  // namespace
 
-// x [M, K]; gamma [K] f32 or null (rms = 0); q [K, ldq] int8; scale
-// [K / block_size, ldq] f32; res [M, N] or null; out [M, N]. N is the
+// x [M, K]; gamma [K] f32 or null (rms = 0); q [K, ldq] one-byte weights
+// in format wfmt (0 int8, 1 fp8 e4m3fn, 2 fp8 e5m2); scale [K / block_size,
+// ldq] f32, the QTensor's own (no fp8 fixup); res [M, N] or null; out [M, N]. N is the
 // output width: ldq for store/residual, ldq / 2 for SwiGLU (gate columns
 // [0, N), up columns [N, 2N)). mode: 0 store, 1 +residual, 2 SwiGLU.
 // ksplit (1, 2, 4 or 8: one cluster) slices of kc = K / ksplit rows (kc %
@@ -441,13 +434,13 @@ int run(const void* x, const void* gamma, const void* q, const void* scale, cons
 extern "C" int qgemv_int8(const void* x, const void* gamma, const void* q, const void* scale,
                           const void* res, void* out, int M, int N, int K, int ldq,
                           int block_size, int mode, int rms, float eps, int ksplit, int m_tile,
-                          int is_f32, void* stream) {
+                          int is_f32, int wfmt, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_f32)
     return run<float>(x, gamma, q, scale, res, out, nullptr, 0, M, N, K, ldq, block_size, mode,
-                      rms, eps, ksplit, m_tile, s);
+                      rms, eps, ksplit, m_tile, wfmt, s);
   return run<__nv_bfloat16>(x, gamma, q, scale, res, out, nullptr, 0, M, N, K, ldq, block_size,
-                            mode, rms, eps, ksplit, m_tile, s);
+                            mode, rms, eps, ksplit, m_tile, wfmt, s);
 }
 
 // Greedy head: out[m] = argmax over n < vocab of rmsnorm(x)[m] @ dequant(q)[:, n]
@@ -456,15 +449,15 @@ extern "C" int qgemv_int8(const void* x, const void* gamma, const void* q, const
 extern "C" int qgemv_int8_argmax(const void* x, const void* gamma, const void* q,
                                  const void* scale, void* keys, void* out, int M, int N, int K,
                                  int block_size, int vocab, float eps, int ksplit, int m_tile,
-                                 int is_f32, void* stream) {
+                                 int is_f32, int wfmt, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned long long* k = static_cast<unsigned long long*>(keys);
   cudaMemsetAsync(k, 0, sizeof(unsigned long long) * M, s);
   const int rc =
       is_f32 ? run<float>(x, gamma, q, scale, nullptr, nullptr, k, vocab, M, N, K, N, block_size,
-                          MODE_ARGMAX, 1, eps, ksplit, m_tile, s)
+                          MODE_ARGMAX, 1, eps, ksplit, m_tile, wfmt, s)
              : run<__nv_bfloat16>(x, gamma, q, scale, nullptr, nullptr, k, vocab, M, N, K, N,
-                                  block_size, MODE_ARGMAX, 1, eps, ksplit, m_tile, s);
+                                  block_size, MODE_ARGMAX, 1, eps, ksplit, m_tile, wfmt, s);
   if (rc) return rc;
   argmax_index<<<1, 32, 0, s>>>(k, static_cast<int*>(out), M);
   return static_cast<int>(cudaGetLastError());

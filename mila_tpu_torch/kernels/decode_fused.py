@@ -1,5 +1,5 @@
 """Decode-shape fused weight streams (M <= 32 rows): RMSNorm, residual add,
-SwiGLU and the greedy argmax folded into the int8 dequant matmul.
+SwiGLU and the greedy argmax folded into the int8 or fp8 dequant matmul.
 
 Replaces four TPU kernels of ``mila_tpu/kernels/decode_fused.py``:
 
@@ -15,12 +15,15 @@ Replaces four TPU kernels of ``mila_tpu/kernels/decode_fused.py``:
   index win) and merges it with one ``atomicMax`` per warp into a per-row
   key the call resets first; a last tiny pass turns keys into indices.
 
-What bounds it on the H100: the int8 weight stream (K*N bytes against
+What bounds it on the H100: the one-byte weight stream (K*N bytes against
 2*M*K*N operations, M <= 32: far below the card's operations-per-byte
 balance). One CUDA kernel family (``csrc/qgemv_int8.cu``) serves all four
-in one launch a call: the products run on tensor cores (``mma.sync``, the
-weight as the 16-row operand, exact int8 -> bf16 by a byte permute, two
-``lop3`` and one bf16x2 FMA a pair), a block owns 256 weight columns (SwiGLU: 128 gate and
+in one launch a call, for int8 and fp8 (e4m3fn, e5m2) weights alike: the
+products run on tensor cores (``mma.sync``, the weight as the 16-row
+operand, exact int8 -> bf16 by a byte permute, two ``lop3`` and one bf16x2
+FMA a pair; exact fp8 -> bf16 by a byte permute, a shift, a mask, one
+``lop3`` and one bf16x2 FMA, so the QTensor's scales apply unchanged), a
+block owns 256 weight columns (SwiGLU: 128 gate and
 their 128 up columns) and a slice of K streamed through a 16-byte
 ``cp.async`` ring, x's slice is staged in shared memory after the RMSNorm
 pass (the whole [M, K] x of the TPU kernel does not fit: 32x8192 bf16 is
@@ -43,7 +46,7 @@ Packed int4 weights have no fused kernel here, as in the JAX package: on
 the card the three streams take JAX's int4 routes (``rms_norm`` and
 ``quant_linear``, whose int4 kernel is ``csrc/qgemv_int4.cu``; the
 residual added, or ``swiglu`` applied, outside it) and the argmax head
-returns None. fp8 weights raise on the card (not ported yet).
+returns None.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from mila_tpu_torch.inference.quantize import QTensor
 from mila_tpu_torch.kernels import _build
 from mila_tpu_torch.kernels.quant_matmul import (
     _DECODE_TILE_BYTES,
+    WFMT,
     _pick_blocks,
     _sm_count,
     quant_linear,
@@ -207,10 +211,10 @@ def _qgemv_lib() -> ctypes.CDLL:
     lib = _build.library("qgemv_int8")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.qgemv_int8.argtypes = [vp] * 6 + [ci] * 7 + [ctypes.c_float] + [ci] * 3 + [vp]
+        lib.qgemv_int8.argtypes = [vp] * 6 + [ci] * 7 + [ctypes.c_float] + [ci] * 4 + [vp]
         lib.qgemv_int8.restype = ci
         lib.qgemv_int8_argmax.argtypes = ([vp] * 6 + [ci] * 5 + [ctypes.c_float]
-                                          + [ci] * 3 + [vp])
+                                          + [ci] * 4 + [vp])
         lib.qgemv_int8_argmax.restype = ci
         lib._typed = True
     return lib
@@ -226,8 +230,8 @@ def _launch(x, qt: QTensor, *, mode: str, gamma=None, res=None, eps: float = 0.0
     n_out = ldq // 2 if mode == "swiglu" else ldq
     x2 = x.reshape(-1, K)
     M = x2.shape[0]
-    if qt.packed_rows or qt.q.dtype != torch.int8:  # int4 routes before; fp8 is not ported
-        raise NotImplementedError(f"qgemv_int8 takes int8 weights; got {qt.q.dtype}")
+    if qt.packed_rows or qt.q.dtype not in WFMT:  # int4 routes before
+        raise NotImplementedError(f"qgemv_int8 takes int8 or fp8 weights; got {qt.q.dtype}")
     if x2.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"qgemv_int8 takes bf16/f32 activations, got {x2.dtype}")
     if not 0 < M <= 32:
@@ -260,13 +264,14 @@ def _launch(x, qt: QTensor, *, mode: str, gamma=None, res=None, eps: float = 0.0
         r2 = aligned(r2)
     lib = _qgemv_lib()
     is_f32 = int(x2.dtype == torch.float32)
+    wfmt = WFMT[qt.q.dtype]
     if mode == "argmax":
         keys = torch.empty((M,), dtype=torch.int64, device=x2.device)  # reset in the call
         tok = torch.empty((M,), dtype=torch.int32, device=x2.device)
         rc = lib.qgemv_int8_argmax(
             _build.ptr(x2), _build.ptr(g32), _build.ptr(qt.q), _build.ptr(qt.scale),
             _build.ptr(keys), _build.ptr(tok), M, ldq, K, qt.block_size, vocab, eps, ks, mt,
-            is_f32, _build.stream_of(x2))
+            is_f32, wfmt, _build.stream_of(x2))
         _build.check(lib, rc, "qgemv_int8_argmax")
         return tok
     out = torch.empty((M, n_out), dtype=x2.dtype, device=x2.device)
@@ -275,7 +280,7 @@ def _launch(x, qt: QTensor, *, mode: str, gamma=None, res=None, eps: float = 0.0
         _build.ptr(qt.q), _build.ptr(qt.scale),
         None if r2 is None else _build.ptr(r2), _build.ptr(out),
         M, n_out, K, ldq, qt.block_size, _MODE[mode], int(gamma is not None),
-        eps, ks, mt, is_f32, _build.stream_of(x2))
+        eps, ks, mt, is_f32, wfmt, _build.stream_of(x2))
     _build.check(lib, rc, "qgemv_int8")
     return out
 

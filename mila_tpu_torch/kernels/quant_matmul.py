@@ -205,6 +205,9 @@ def quant_linear_plain(x: torch.Tensor, qt: QTensor, bias: Optional[torch.Tensor
 quant_linear_plain.calls = 0
 
 _ACT_CODES = {None: 0, "gelu": 1, "silu": 2}
+# One-byte weight formats of the CUDA kernels (their wfmt argument, WFMT_* in
+# csrc/gemv.cuh): each converts its weights exactly to bf16 operands.
+WFMT = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 
 
 def _qmm_lib() -> ctypes.CDLL:

@@ -223,16 +223,17 @@ INT4_VARIANTS["nst12"] = [("constexpr int NST = 8;", "constexpr int NST = 12;")]
 
 
 def build_sources(src: str, tag: str, texts: dict, committed, typed) -> dict:
-    """The committed library of ``src`` and one built from each named source
-    text (with the package's headers beside it, the same C interface), all
-    nvcc at once."""
+    """The committed library of ``src`` and one built from each named set of
+    file texts ({file name: text}: the source, and any header that differs
+    from the package's; the same C interface), all nvcc at once."""
     procs = {}
-    for name, text in texts.items():
+    for name, files in texts.items():
         vdir = _build.BUILD_DIR / f"{tag}_source_{name}"
         vdir.mkdir(parents=True, exist_ok=True)
         for f in _build.CSRC.glob("*.cuh"):
             (vdir / f.name).write_text(f.read_text())
-        (vdir / src).write_text(text)
+        for fname, text in files.items():
+            (vdir / fname).write_text(text)
         procs[name] = subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(vdir / f"lib{tag}.so"),
              str(vdir / src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
@@ -247,19 +248,23 @@ def build_sources(src: str, tag: str, texts: dict, committed, typed) -> dict:
 
 
 def variant_texts(src: str, table: dict, args) -> dict:
-    """name -> source text: the committed source with each variant's edits,
-    and each ``--source NAME=PATH`` as it is."""
-    committed = (_build.CSRC / src).read_text()
+    """name -> {file name: text}: the committed source (and headers) with
+    each variant's edits, (old, new) in ``src`` or (file, old, new), and
+    each ``--source NAME=PATH`` as it is."""
     texts = {}
     for v in args.variants:
-        texts[v] = committed
-        for old, new in table[v]:
-            if old not in texts[v]:
-                raise RuntimeError(f"variant {v}: {src} no longer has {old!r}")
-            texts[v] = texts[v].replace(old, new)
+        files = {}
+        for edit in table[v]:
+            fname, old, new = edit if len(edit) == 3 else (src, *edit)
+            text = files.get(fname) or (_build.CSRC / fname).read_text()
+            if old not in text:
+                raise RuntimeError(f"variant {v}: {fname} no longer has {old!r}")
+            files[fname] = text.replace(old, new)
+        files.setdefault(src, (_build.CSRC / src).read_text())
+        texts[v] = files
     for spec in args.source:
         name, path = spec.split("=", 1)
-        texts[name] = open(path).read()
+        texts[name] = {src: open(path).read()}
     return texts
 
 
@@ -327,13 +332,14 @@ def int4(args) -> None:
 
 
 INT8_SRC = "qgemv_int8.cu"
-INT8_VARIANTS = {  # name -> [(old text, new text)] in the committed source
-    "no_convert": [("const uint32_t af[4] = {s8_pair(w0, w1, 2 * n), s8_pair(w0, w1, 2 * n + 1),"
-                    "\n                                s8_pair(w2, w3, 2 * n), "
-                    "s8_pair(w2, w3, 2 * n + 1)};",
+INT8_VARIANTS = {  # name -> [(old text, new text)] in the committed source, or
+    # [(header, old text, new text)]: the products of a stage are gemv.cuh's
+    "no_convert": [("gemv.cuh", "const uint32_t af[4] = {cvt(w0, w1, 2 * n), "
+                    "cvt(w0, w1, 2 * n + 1), cvt(w2, w3, 2 * n),\n"
+                    "                              cvt(w2, w3, 2 * n + 1)};",
                     "const uint32_t af[4] = {w0, w1 + n, w2, w3 + n};")],
-    "no_mma": [("          mma_bf16(acc[n][mt], af, b);",
-                "          acc[n][mt][0] += "
+    "no_mma": [("gemv.cuh", "        mma_bf16(acc[n][mt], af, b);",
+                "        acc[n][mt][0] += "
                 "__uint_as_float(af[0] ^ af[1] ^ af[2] ^ af[3] ^ b[0] ^ b[1]);")],
 }
 INT8_VARIANTS["loads_only"] = INT8_VARIANTS["no_convert"] + INT8_VARIANTS["no_mma"]
@@ -401,13 +407,13 @@ def int8(args) -> None:
                 rc = lib.qgemv_int8_argmax(
                     _build.ptr(x), _build.ptr(gamma), _build.ptr(w), _build.ptr(scale),
                     _build.ptr(keys), _build.ptr(tok), M, ldq, K, K, ldq - 1000, 1e-5, ks, mt,
-                    0, _build.stream_of(x))
+                    0, 0, _build.stream_of(x))
             else:
                 rc = lib.qgemv_int8(
                     _build.ptr(x), None if mode == "residual" else _build.ptr(gamma),
                     _build.ptr(w), _build.ptr(scale),
                     _build.ptr(res) if mode == "residual" else None, _build.ptr(out), M, n_out,
-                    K, ldq, K, df._MODE[mode], int(mode != "residual"), 1e-5, ks, mt, 0,
+                    K, ldq, K, df._MODE[mode], int(mode != "residual"), 1e-5, ks, mt, 0, 0,
                     _build.stream_of(x))
             check(rc, what)
             return tok if mode == "argmax" else out
