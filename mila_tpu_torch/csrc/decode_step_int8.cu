@@ -355,7 +355,7 @@ step_kernel(StepParams p) {
               p.giga ? p.n_qkv + l * tpl : 0,
               p.giga && last ? 0 : p.n_qkv,
               p.ks_wo, p.ks_gu, p.ks_down, p.ks_q,
-              p.cols_wo, p.cols_gu, p.cols_down, p.cols_q, p.eps};
+              p.cols_wo, p.cols_gu, p.cols_down, p.cols_q, p.eps, WFMT_INT8};
     tail_phases<MT, T>(tp, smem, grid);
   }
   if (!p.giga) return;

@@ -11,9 +11,16 @@
 // the next RMSNorm, h and the normalised inputs are rounded to bf16, and each
 // tile's per-column scale row is applied to its f32 sum.
 //
-// The weights are pack_layer's stream: [T, H, bn] int8 tiles in the order
-// [wo | g0 u0 g1 u1 ... | down k-major | wqkv_next] with one f32 scale row
-// [T, 1, bn] per tile; a tail reads tiles [base, base + n_tiles).
+// The weights are pack_layer's stream: [T, H, bn] one-byte tiles in the
+// order [wo | g0 u0 g1 u1 ... | down k-major | wqkv_next] with one f32
+// scale row [T, 1, bn] per tile; a tail reads tiles [base, base + n_tiles).
+// The tiles are int8 (FP8 = false) or fp8 (FP8 = true; e4m3fn or e5m2 by
+// Params::wfmt), one instantiation each: layer_tail_int8.cu builds both, K8
+// the int8 one alone. (One runtime branch a stage between the two
+// conversions cost the int8 tail 5-9 % on the card, PERF.md.) An fp8
+// pack's scale rows carry JAX's decode fixup (2^120 or 2^112); the phases
+// convert fp8 to its exact bf16 value (F8Pair, gemv.cuh) and divide the
+// fixup out of each scale row.
 //
 // Design. Every phase needs the whole output of the previous one (RMSNorm
 // needs all of x1, down all of h, the next RMSNorm all of x_out); the TPU
@@ -35,11 +42,11 @@
 // m16n8k16 with the weight as the 16-row operand (y^T = W^T x^T, M <= 8
 // one n-tile of x, M <= 32 four), lane (g, t) reading the word of columns
 // 4g..4g+3 from rows 2t, 2t+1, 2t+8 and 2t+9 of a k-step and converting it
-// exactly to bf16 pairs (s8_pair, gemv.cuh), and the unit's slice of x
-// staged once as bf16 pairs in the fragments' order. Every GEMV input here
-// is exact in bf16 (att, the normalised inputs, h) and so is every int8
-// weight: the products are the TPU kernel's, only the f32 sums run in
-// another order. A 256-column unit gives each of the 8 warps 32 columns and
+// exactly to bf16 pairs (s8_pair or F8Pair, gemv.cuh), and the unit's
+// slice of x staged once as bf16 pairs in the fragments' order. Every GEMV
+// input here is exact in bf16 (att, the normalised inputs, h) and so is
+// every int8 or fp8 weight: the products are the TPU kernel's, only the f32
+// sums run in another order. A 256-column unit gives each of the 8 warps 32 columns and
 // every k-step; a 128-column one gives 4 warps its columns and splits each
 // stage's k-steps between two warp sets, whose sums then add in shared
 // memory in a fixed order.
@@ -143,6 +150,7 @@ struct Params {
   float *p_wo, *x1, *ssq1, *p_gu, *hbuf, *p_down, *xo, *ssq2, *p_q;
   int M, H, I, bn, base, n_qkv, ks_wo, ks_gu, ks_down, ks_q, cols_wo, cols_gu, cols_down, cols_q;
   float eps;
+  int wfmt;  // WFMT_* of the tiles (gemv.cuh); left 0, int8, by K8
 };
 
 // A block's stream of weight stages in a phase. Its i-th unit, u =
@@ -240,10 +248,12 @@ __device__ __forceinline__ void stage_x(Stage stage, int M, int k0, int kc, uint
 // (m, k .. k + 7) as f32, exact in bf16; dst(t, sl, m, c) is the address of
 // slice sl's partial for output column c of tile t (16-byte aligned for c %
 // 4 == 0). The first weight stages are requested before x is staged (whose
-// L2 loads then overlap them). Ends without a barrier.
-template <int MT, typename XOff, typename Stage, typename Dst>
+// L2 loads then overlap them). FP8: fp8 tiles in format wfmt, else int8.
+// Ends without a barrier.
+template <int MT, bool FP8 = false, typename XOff, typename Stage, typename Dst>
 __device__ void gemv_phase(const int8_t* w, const float* s, int H, int bn, int M, const Phase& ph,
-                           unsigned char* smem, XOff xoff, Stage stage, Dst dst) {
+                           unsigned char* smem, XOff xoff, Stage stage, Dst dst,
+                           int wfmt = WFMT_INT8) {
   constexpr int MTN = MT / 8;  // n-tiles of 8 rows of x
   Stream g(w, H, bn, ph);
   const uint32_t ring = smem_addr(smem);
@@ -253,6 +263,8 @@ __device__ void gemv_phase(const int8_t* w, const float* s, int H, int bn, int M
   const int cwn = g.cols / 32, cw = warp % cwn, kw = warp / cwn;  // column warp, k-half
   const int ksw = KS * cwn / WARPS, j0 = kw * ksw;  // the warp's k-steps of each stage
   const int XP = g.kc / 2 + XPAD;
+  const F8Pair f8(wfmt);
+  const float unfix = FP8 ? pack_scale_unfix(wfmt) : 1.f;
   for (int f = 0; f < NST - 1; ++f) g.request(ring);
   int staged = -1;  // input column of the slice in xs
   int slot = 0;     // ring slot of the stage consumed next
@@ -260,7 +272,8 @@ __device__ void gemv_phase(const int8_t* w, const float* s, int H, int bn, int M
     int t, grp, sl;
     g.unit(i, t, grp, sl);
     const int k0 = xoff(t) + sl * g.kc, col = grp * g.cols + 32 * cw + 4 * gq;
-    const float4 sc = __ldg(reinterpret_cast<const float4*>(s + (size_t)(g.t0 + t) * bn + col));
+    float4 sc = __ldg(reinterpret_cast<const float4*>(s + (size_t)(g.t0 + t) * bn + col));
+    if constexpr (FP8) sc = make_float4(sc.x * unfix, sc.y * unfix, sc.z * unfix, sc.w * unfix);
     if (k0 != staged) {
       __syncthreads();  // the unit before is done with xs
       stage_x<MT>(stage, M, k0, g.kc, xs, XP);
@@ -289,24 +302,10 @@ __device__ void gemv_phase(const int8_t* w, const float* s, int H, int bn, int M
         for (int h = 0; h < KS / 2; ++h)
           if (2 * h < ksw)
             bx[mt][h] = *reinterpret_cast<const uint4*>(xl + 8 * mt * XP + st * (SR / 2) + 4 * h);
-#pragma unroll
-      for (int jj = 0; jj < KS; ++jj) {
-        if (jj >= ksw) break;
-        const unsigned char* r = sp + (16 * (j0 + jj) + 2 * tq) * PITCH;
-        const uint32_t w0 = ld_word(r), w1 = ld_word(r + PITCH);
-        const uint32_t w2 = ld_word(r + 8 * PITCH), w3 = ld_word(r + 9 * PITCH);
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          const uint32_t af[4] = {s8_pair(w0, w1, 2 * n), s8_pair(w0, w1, 2 * n + 1),
-                                  s8_pair(w2, w3, 2 * n), s8_pair(w2, w3, 2 * n + 1)};
-#pragma unroll
-          for (int mt = 0; mt < MTN; ++mt) {
-            const uint32_t b[2] = {comp(bx[mt][jj / 2], 2 * (jj % 2)),
-                                   comp(bx[mt][jj / 2], 2 * (jj % 2) + 1)};
-            mma_bf16(acc[n][mt], af, b);
-          }
-        }
-      }
+      if constexpr (FP8)
+        stage_products<PITCH, KS, MTN>(acc, sp, bx, tq, j0, ksw, f8);
+      else
+        stage_products<PITCH, KS, MTN>(acc, sp, bx, tq, j0, ksw, S8Pair{});
     }
 
     // The lane's sums: rows m = 8 mt + 2 tq + e of x, columns col .. col + 3
@@ -393,18 +392,20 @@ struct NoOffset {
 // Phases 7-8: qkv = (bf16(src * rstd * gamma) @ the tiles of ph) * s, rstd
 // from the row sums of squares ssq (stored before the last barrier). src
 // [M, H] f32 was written in this launch. Ends without a barrier.
-template <int MT, typename T>
+template <int MT, typename T, bool FP8 = false>
 __device__ void qkv_phases(const int8_t* w, const float* s, const float* src, const float* ssq,
                            const float* gamma, int M, int H, int bn, const Phase& ph,
                            float eps, float* p_q, T* qkv,
-                           unsigned char* smem, float* rstd_s, cg::grid_group& grid) {
+                           unsigned char* smem, float* rstd_s, cg::grid_group& grid,
+                           int wfmt = WFMT_INT8) {
   const int Nq = ph.n * bn;
   row_rstd(ssq, M, H, eps, rstd_s);
   __syncthreads();
-  gemv_phase<MT>(
+  gemv_phase<MT, FP8>(
       w, s, H, bn, M, ph, smem, NoOffset{},
       [&](int m, int k, float(&v)[8]) { norm8(src + (size_t)m * H + k, rstd_s[m], gamma + k, v); },
-      [&](int t, int sl, int m, int c) { return p_q + ((size_t)sl * M + m) * Nq + t * bn + c; });
+      [&](int t, int sl, int m, int c) { return p_q + ((size_t)sl * M + m) * Nq + t * bn + c; },
+      wfmt);
   grid.sync();
   const int stride = gridDim.x * THREADS;
   for (int i = blockIdx.x * THREADS + threadIdx.x; i < M * Nq; i += stride) {
@@ -419,7 +420,7 @@ __device__ void qkv_phases(const int8_t* w, const float* s, const float* src, co
 // fin2 when n_qkv == 0, with the row sums of squares of x_out in ssq2 and
 // x_out itself in xo either way). att and x may have been written earlier
 // in the same launch.
-template <int MT, typename T>
+template <int MT, typename T, bool FP8 = false>
 __device__ void tail_phases(const Params& p, unsigned char* smem, cg::grid_group& grid) {
   __shared__ float rstd_s[32], sq_w[WARPS][32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -432,12 +433,13 @@ __device__ void tail_phases(const Params& p, unsigned char* smem, cg::grid_group
   const int stride = gridDim.x * THREADS;
 
   // 1 wo.
-  gemv_phase<MT>(
+  gemv_phase<MT, FP8>(
       p.w, p.s, H, bn, M, wo, smem, NoOffset{},
       [&](int m, int k, float(&v)[8]) { ldcg8(p.att + (size_t)m * H + k, v); },
       [&](int t, int sl, int m, int c) {
         return p.p_wo + ((size_t)sl * M + m) * H + t * bn + c;
-      });
+      },
+      p.wfmt);
   grid.sync();
 
   // 2 fin1: x1 = x + sum of the wo slices; row sums of squares.
@@ -456,14 +458,15 @@ __device__ void tail_phases(const Params& p, unsigned char* smem, cg::grid_group
   // 3 gate | up, input bf16(x1 * rstd * gamma_mlp).
   row_rstd(p.ssq1, M, H, p.eps, rstd_s);
   __syncthreads();
-  gemv_phase<MT>(
+  gemv_phase<MT, FP8>(
       p.w, p.s, H, bn, M, gu, smem, NoOffset{},
       [&](int m, int k, float(&v)[8]) {
         norm8(p.x1 + (size_t)m * H + k, rstd_s[m], p.g_mlp + k, v);
       },
       [&](int t, int sl, int m, int c) {
         return p.p_gu + ((size_t)sl * M + m) * 2 * I + (t & 1) * I + (t >> 1) * bn + c;
-      });
+      },
+      p.wfmt);
   grid.sync();
 
   // 4 fin_h: h = bf16(silu(g) * u).
@@ -481,13 +484,14 @@ __device__ void tail_phases(const Params& p, unsigned char* smem, cg::grid_group
   grid.sync();
 
   // 5 down: tile d covers rows [kchunk * H, +H) of down, columns nc * bn.
-  gemv_phase<MT>(
+  gemv_phase<MT, FP8>(
       p.w, p.s, H, bn, M, down, smem, [&](int t) { return (t / n_cols) * H; },
       [&](int m, int k, float(&v)[8]) { ldcg8(p.hbuf + (size_t)m * I + k, v); },
       [&](int t, int sl, int m, int c) {
         return p.p_down + (((size_t)(t / n_cols) * p.ks_down + sl) * M + m) * H +
                (t % n_cols) * bn + c;
-      });
+      },
+      p.wfmt);
   grid.sync();
 
   // 6 fin2: x_out = x1 + sum of the down partials.
@@ -508,8 +512,8 @@ __device__ void tail_phases(const Params& p, unsigned char* smem, cg::grid_group
   grid.sync();
 
   // 7-8 the next layer's wqkv, input bf16(x_out * rstd * gamma_next).
-  qkv_phases<MT, T>(p.w, p.s, p.xo, p.ssq2, p.g_next, M, H, bn, qkv, p.eps, p.p_q,
-                    static_cast<T*>(p.qkv), smem, rstd_s, grid);
+  qkv_phases<MT, T, FP8>(p.w, p.s, p.xo, p.ssq2, p.g_next, M, H, bn, qkv, p.eps, p.p_q,
+                         static_cast<T*>(p.qkv), smem, rstd_s, grid, p.wfmt);
 }
 
 // Kernel k opted into SMEM_BYTES of dynamic shared memory on first use.

@@ -10,9 +10,9 @@ so a pack built by the JAX package and bridged, and one built here, are
 interchangeable. ``kernels/layer_stream.py`` stacks the packs of all layers
 and runs the same CUDA kernel.
 
-What bounds it on the H100: the int8 weight bytes of the layer tail (60.8
-MB for Llama-3.2-1B: wo, gate|up, down and the next wqkv; 2*M operations
-per byte at M <= 32). Each phase needs the whole previous vector (RMSNorm
+What bounds it on the H100: the one-byte (int8 or fp8) weight bytes of
+the layer tail (60.8 MB for Llama-3.2-1B: wo, gate|up, down and the next
+wqkv; 2*M operations per byte at M <= 32). Each phase needs the whole previous vector (RMSNorm
 needs all of x1, down all of h, the next RMSNorm all of x_out), which the
 TPU kernel gets by running its tiles in order on one core. The CUDA kernel
 (``csrc/layer_tail_int8.cu``) is one persistent cooperative launch whose
@@ -21,6 +21,9 @@ phases; inside a phase the blocks stride over (tile, 128- or 256-column
 group, K slice) units (``plan_tail``), run the products on the tensor cores
 as the decode GEMV does (``csrc/qgemv_int8.cu``), and write f32 partial
 sums that the next phase reduces. No atomics: the sums are deterministic.
+fp8 tiles are converted to their exact bf16 values, so the kernel divides
+the pack's fp8 fixup back out of each scale row (the TPU kernel's operand
+is the fp8 value times 2^-120 or 2^-112 instead; the products agree).
 
 Arithmetic. The kernel follows the TPU kernel (``_stream_kernel``): x1 =
 (att @ wo) * s + x in f32, xn = bf16(x1 * rstd * gamma), g and u in f32,
@@ -44,6 +47,7 @@ import torch
 
 from mila_tpu_torch.inference.quantize import QTensor, quant_linear_ref
 from mila_tpu_torch.kernels import _build
+from mila_tpu_torch.kernels.quant_matmul import WFMT
 from mila_tpu_torch.ops.rmsnorm import rms_norm
 from mila_tpu_torch.ops.swiglu import swiglu
 
@@ -202,9 +206,9 @@ def type_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
     (also a variant build of it, ``tools/tail_phases.py``)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.layer_tail_int8.argtypes = ([vp] * 17 + [ci] * 14
-                                    + [ctypes.c_float, ci, ci, ci, vp])
+                                    + [ctypes.c_float, ci, ci, ci, ci, vp])
     lib.layer_tail_int8.restype = ci
-    lib.layer_tail_int8_blocks_per_sm.argtypes = [ci, ci, ctypes.POINTER(ci)]
+    lib.layer_tail_int8_blocks_per_sm.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
     lib.layer_tail_int8_blocks_per_sm.restype = ci
     lib._typed = True
     return lib
@@ -216,11 +220,11 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _grid(index: int, m_tile: int, is_f32: int) -> int:
+def _grid(index: int, m_tile: int, is_f32: int, wfmt: int = 0) -> int:
     """Blocks of the cooperative launch: all must be resident at once."""
     lib = _lib()
     nb = ctypes.c_int(0)
-    _build.check(lib, lib.layer_tail_int8_blocks_per_sm(m_tile, is_f32, ctypes.byref(nb)),
+    _build.check(lib, lib.layer_tail_int8_blocks_per_sm(m_tile, is_f32, wfmt, ctypes.byref(nb)),
                  "layer_tail_int8 occupancy")
     if nb.value < 1:
         raise RuntimeError("layer_tail_int8: no block fits on an SM")
@@ -281,11 +285,12 @@ def _slice_plan(M: int, H: int, bn: int, tiles: dict, grid: int,
 
 
 def tail_launch_plan(M: int, H: int, I: int, bn: int, n_qkv: int, index: int,
-                     is_f32: int) -> Tuple[int, int, dict]:
+                     is_f32: int, wfmt: int = 0) -> Tuple[int, int, dict]:
     """(grid, m_tile, plan) of a :func:`launch_tail` call on device
-    ``index``: its tiles a phase (a qkv phase of one tile when ``n_qkv`` is
-    0, planned and not run) and its grid."""
-    grid = _grid(index, 8 if M <= 8 else 32, is_f32)
+    ``index`` over tiles in format ``wfmt`` (``WFMT``): its tiles a phase (a
+    qkv phase of one tile when ``n_qkv`` is 0, planned and not run) and its
+    grid."""
+    grid = _grid(index, 8 if M <= 8 else 32, is_f32, wfmt)
     mt, plan = plan_tail(M, H, bn, {"wo": H // bn, "gu": 2 * I // bn,
                                     "down": (I // H) * (H // bn), "qkv": max(n_qkv, 1)}, grid)
     return grid, mt, plan
@@ -301,8 +306,8 @@ def launch_tail(att: torch.Tensor, x: torch.Tensor, gamma_mlp: torch.Tensor,
     M = x.shape[0]
     n_wo, n_gu, n_down = H // bn, 2 * I // bn, (I // H) * (H // bn)
     n_tiles = n_wo + n_gu + n_down + n_qkv
-    if w.dtype != torch.int8:
-        raise NotImplementedError(f"layer_tail_int8 takes int8 packs; got {w.dtype}")
+    if w.dtype not in WFMT:
+        raise NotImplementedError(f"layer_tail_int8 takes int8 or fp8 packs; got {w.dtype}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"layer_tail_int8 takes bf16/f32 activations, got {x.dtype}")
     if not 0 < M <= 32:
@@ -327,7 +332,8 @@ def launch_tail(att: torch.Tensor, x: torch.Tensor, gamma_mlp: torch.Tensor,
           if gamma_next is not None else torch.ones(H, dtype=torch.float32, device=dev))
     if w.data_ptr() % 16 or s.data_ptr() % 16:
         raise ValueError("layer_tail_int8: the pack must be 16-byte aligned")
-    grid, mt, plan = tail_launch_plan(M, H, I, bn, n_qkv, dev.index or 0, is_f32)
+    wfmt = WFMT[w.dtype]
+    grid, mt, plan = tail_launch_plan(M, H, I, bn, n_qkv, dev.index or 0, is_f32, wfmt)
     names = ("wo", "gu", "down", "qkv")
     ks = {name: plan[name][1] for name in names}
     Nq = n_qkv * bn
@@ -343,7 +349,7 @@ def launch_tail(att: torch.Tensor, x: torch.Tensor, gamma_mlp: torch.Tensor,
         _build.ptr(s), _build.ptr(out), None if qkv is None else _build.ptr(qkv),
         *[_build.ptr(b) for b in bufs],
         M, H, I, bn, base, n_qkv, *(ks[n] for n in names), *(plan[n][0] for n in names),
-        eps, grid, mt, is_f32, _build.stream_of(x2))
+        eps, grid, mt, is_f32, wfmt, _build.stream_of(x2))
     _build.check(lib, rc, "layer_tail_int8")
     return out, qkv
 
