@@ -1,5 +1,5 @@
-// qmm_int8: weight-only int8 dequant GEMM with bias and GELU/SiLU epilogue,
-// on Hopper's TMA and warpgroup MMA.
+// qmm_int8: weight-only int8 or fp8 (e4m3fn, e5m2) dequant GEMM with bias
+// and GELU/SiLU epilogue, on Hopper's TMA and warpgroup MMA.
 //
 // Replaces the TPU kernel mila_tpu/kernels/quant_matmul.py:_qmm_kernel
 // (entry quant_linear -> _quant_matmul_2d): y = sum over K-blocks of
@@ -24,7 +24,9 @@
 //     stage ks (A = the x tile, B = its weight tile in bf16, both in shared
 //     memory, f32 accumulators in registers) and commit them; while they run,
 //     turn the int8 tile of stage ks + 1 into bf16 (exact; 2.5 instructions
-//     a value through the 2^23 float trick), laid out as wgmma's MN-major B
+//     a value through the 2^23 float trick; fp8 exact too, 2.5 a value by
+//     F8Pair of gemv.cuh, one uniform branch a stage on the launch's wfmt,
+//     and the QTensor's scales need no fixup), laid out as wgmma's MN-major B
 //     operand (sm90.cuh), into the other of two bf16 buffers; release stage
 //     ks - 1 once its products have retired. Two named barriers a step keep
 //     the bf16 buffers whole between the warpgroups.
@@ -38,6 +40,7 @@
 // N % 8 == 0 and block_size % 16 == 0 are checked by the Python wrapper.
 // The host encodes the two TMA descriptors per call.
 #include "common.cuh"
+#include "gemv.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -88,22 +91,46 @@ __device__ __forceinline__ uint2 s8x4_to_bf16x4(uint32_t w) {
                     __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632));
 }
 
-// Consumer c's share of the int8 tile [BK][BN] (rows of BN bytes) -> bf16 in
-// wgmma's MN-major layout (sm90.cuh): 16 bytes (16 n of one k row) in, two
-// 16-byte chunks of a 128-byte swizzled atom row out.
-template <int BN>
-__device__ __forceinline__ void convert_tile(const unsigned char* w8s, unsigned char* wbs, int c) {
+struct S8x4 {
+  __device__ __forceinline__ uint2 operator()(uint32_t w) const { return s8x4_to_bf16x4(w); }
+};
+
+// Four fp8 bytes -> four bf16 (two words, low bytes first), exactly: each
+// pair's bytes into the high bytes of its halves, then F8Pair (gemv.cuh).
+struct F8x4 {
+  F8Pair f;
+  __device__ __forceinline__ uint2 operator()(uint32_t w) const {
+    return make_uint2(f.bits(prmt(w, w, 0x1100u)), f.bits(prmt(w, w, 0x3322u)));
+  }
+};
+
+// Consumer c's share of the one-byte tile [BK][BN] (rows of BN bytes) ->
+// bf16 in wgmma's MN-major layout (sm90.cuh): 16 bytes (16 n of one k row)
+// in, two 16-byte chunks of a 128-byte swizzled atom row out.
+template <int BN, typename Cvt4>
+__device__ __forceinline__ void convert_tile(const unsigned char* w8s, unsigned char* wbs, int c,
+                                             const Cvt4& cvt) {
 #pragma unroll
   for (int it = 0; it < BK * BN / 16 / CONSUMERS; ++it) {
     const int i = c + it * CONSUMERS, k = i / (BN / 16), n0 = (i % (BN / 16)) * 16;
     const uint4 r = *reinterpret_cast<const uint4*>(w8s + k * BN + n0);
-    const uint2 a = s8x4_to_bf16x4(r.x), b = s8x4_to_bf16x4(r.y);
-    const uint2 e = s8x4_to_bf16x4(r.z), f = s8x4_to_bf16x4(r.w);
+    const uint2 a = cvt(r.x), b = cvt(r.y);
+    const uint2 e = cvt(r.z), f = cvt(r.w);
     const int chunk = (n0 % 64) / 8;  // 16-byte chunk of the 128-byte atom row
     unsigned char* row = wbs + (n0 / 64) * N_ATOM_BYTES + (k / 8) * 1024 + (k % 8) * 128;
     *reinterpret_cast<uint4*>(row + ((chunk ^ (k % 8)) * 16)) = make_uint4(a.x, a.y, b.x, b.y);
     *reinterpret_cast<uint4*>(row + (((chunk + 1) ^ (k % 8)) * 16)) = make_uint4(e.x, e.y, f.x, f.y);
   }
+}
+
+// The tile in the launch's weight format (WFMT_*, gemv.cuh).
+template <int BN>
+__device__ __forceinline__ void convert_stage(const unsigned char* w8s, unsigned char* wbs, int c,
+                                              int wfmt) {
+  if (wfmt != WFMT_INT8)
+    convert_tile<BN>(w8s, wbs, c, F8x4{F8Pair(wfmt)});
+  else
+    convert_tile<BN>(w8s, wbs, c, S8x4{});
 }
 
 template <int BN>
@@ -119,7 +146,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 qmm_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
            const int8_t* __restrict__ q, const float* __restrict__ scale,
            const float* __restrict__ bias, TO* __restrict__ out, int M, int N, int K, int bs,
-           int act, int w_tma) {
+           int act, int w_tma, int wfmt) {
   using TL = Tile<BN>;
   static_assert(!BLOCKWISE || BN == 128, "block scales keep a second register tile");
   constexpr int W8_BYTES = TL::W8_BYTES, WB_BYTES = TL::WB_BYTES, NACC = BN / 2;
@@ -182,7 +209,7 @@ qmm_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUte
 #pragma unroll
   for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
   mbar_wait(&tma_full[0], 0);
-  convert_tile<BN>(w8, wb, tid);
+  convert_stage<BN>(w8, wb, tid, wfmt);
   fence_proxy_async();
   named_bar_sync(1, CONSUMERS);  // stage 0's bf16 tile is whole
   for (int ks = 0; ks < nk; ++ks) {
@@ -228,7 +255,7 @@ qmm_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUte
       named_bar_sync(1, CONSUMERS);  // both warpgroups' step ks - 1 is done with its buffer
       const int s1 = (ks + 1) % NT;
       mbar_wait(&tma_full[s1], ((ks + 1) / NT) & 1);
-      convert_tile<BN>(w8 + s1 * W8_BYTES, wb + ((ks + 1) & 1) * WB_BYTES, tid);
+      convert_stage<BN>(w8 + s1 * W8_BYTES, wb + ((ks + 1) & 1) * WB_BYTES, tid, wfmt);
       fence_proxy_async();
       named_bar_sync(1, CONSUMERS);  // stage ks + 1's bf16 tile is whole
     }
@@ -254,7 +281,7 @@ qmm_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUte
 
 template <typename TO, bool BLOCKWISE, int BN>
 int launch(const void* x, const void* q, const void* scale, const void* bias, void* out, int M,
-           int N, int K, int bs, int act, cudaStream_t stream) {
+           int N, int K, int bs, int act, int wfmt, cudaStream_t stream) {
   using TL = Tile<BN>;
   CUtensorMap tmx, tmw;
   const int w_tma = N % 16 == 0;
@@ -279,19 +306,20 @@ int launch(const void* x, const void* q, const void* scale, const void* bias, vo
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);  // M tiles fastest: a
   kernel<<<grid, THREADS, TL::SMEM, stream>>>(  // weight tile is read by neighbouring blocks
       tmx, tmw, static_cast<const int8_t*>(q), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<TO*>(out), M, N, K, bs, act, w_tma);
+      static_cast<const float*>(bias), static_cast<TO*>(out), M, N, K, bs, act, w_tma, wfmt);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x [M, K] bf16 (16-byte-aligned base); q [K, N] int8; scale [K /
-// block_size, N] f32; bias [N] f32 or null; out [M, N] f32 when out_f32 else
+// x [M, K] bf16 (16-byte-aligned base); q [K, N] one-byte weights in format
+// wfmt (0 int8, 1 fp8 e4m3fn, 2 fp8 e5m2); scale [K / block_size, N] f32,
+// the QTensor's own (no fp8 fixup); bias [N] f32 or null; out [M, N] f32 when out_f32 else
 // bf16. act: 0 none, 1 GELU(tanh), 2 SiLU. Returns a cudaError_t (1,
 // cudaErrorInvalidValue, when a TMA descriptor cannot be encoded).
 extern "C" int qmm_int8(const void* x, const void* q, const void* scale, const void* bias,
                         void* out, int M, int N, int K, int block_size, int act, int out_f32,
-                        void* stream) {
+                        int wfmt, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // 256-wide tiles halve the x tile reads per weight column, but only pay
   // while their grid still covers most of the card (tools/qmm_variants at
@@ -301,7 +329,7 @@ extern "C" int qmm_int8(const void* x, const void* q, const void* scale, const v
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const bool wide = block_size == K && 10 * ((M + BM - 1) / BM) * ((N + 255) / 256) >= 7 * sms;
 #define QMM_LAUNCH(TO, BLOCKWISE, BN) \
-  return launch<TO, BLOCKWISE, BN>(x, q, scale, bias, out, M, N, K, block_size, act, s)
+  return launch<TO, BLOCKWISE, BN>(x, q, scale, bias, out, M, N, K, block_size, act, wfmt, s)
   if (out_f32) {
     if (block_size != K) QMM_LAUNCH(float, true, 128);
     if (wide) QMM_LAUNCH(float, false, 256);

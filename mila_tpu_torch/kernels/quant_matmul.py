@@ -15,13 +15,14 @@ What bounds it on the H100: at prefill shapes (M >= 256) the product is
 bound by tensor-core operations once each block's tiles are large enough
 that the L2-to-SM traffic keeps up. The CUDA kernel (``csrc/qmm_int8.cu``)
 tiles 128x256 outputs per block where that grid covers most of the card,
-else (and with block scales) 128x128: one thread
-keeps TMA loads of x and the int8 weight tile in flight through a ring of
-shared-memory stages, and two consumer warpgroups run bf16 ``wgmma`` with
-f32 accumulation while they convert the next weight tile to bf16 (int8 ->
-bf16 is exact), so the weight is read from device memory once per 128-row
-block of x. The wrapper needs x's bf16 copy and the weight on
-16-byte-aligned bases (TMA); it copies either one that is not.
+else (and with block scales) 128x128: one thread keeps TMA loads of x and
+the one-byte weight tile in flight through a ring of shared-memory stages,
+and two consumer warpgroups run bf16 ``wgmma`` with f32 accumulation while
+they convert the next weight tile to bf16 (int8 and fp8 -> bf16 are exact,
+so fp8 weights take the QTensor's scales as they are), so the weight is
+read from device memory once per 128-row block of x. The wrapper needs x's
+bf16 copy and the weight on 16-byte-aligned bases (TMA); it copies either
+one that is not.
 
 Arithmetic (the Pallas kernel's, not ``quant_linear_ref``'s): y =
 sum over K-blocks of (bf16(x) @ bf16(q))_f32 * scale_row, + bias, then
@@ -214,7 +215,7 @@ def _qmm_lib() -> ctypes.CDLL:
     lib = _build.library("qmm_int8")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.qmm_int8.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        lib.qmm_int8.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.qmm_int8.restype = ci
         lib._typed = True
     return lib
@@ -224,8 +225,8 @@ def _launch(x2: torch.Tensor, qt: QTensor, bias: Optional[torch.Tensor],
             activation: Optional[str]) -> torch.Tensor:
     K, N = qt.q.shape
     M = x2.shape[0]
-    if qt.packed_rows or qt.q.dtype != torch.int8:  # int4 is unpacked before; fp8 is not ported
-        raise NotImplementedError(f"qmm_int8 takes int8 weights; got {qt.q.dtype}")
+    if qt.packed_rows or qt.q.dtype not in WFMT:  # int4 is unpacked before
+        raise NotImplementedError(f"qmm_int8 takes int8 or fp8 weights; got {qt.q.dtype}")
     if x2.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"qmm_int8 takes bf16/f32 activations, got {x2.dtype}")
     if K % 32 or N % 8 or qt.block_size % 16:
@@ -251,7 +252,7 @@ def _launch(x2: torch.Tensor, qt: QTensor, bias: Optional[torch.Tensor],
         _build.ptr(xb), _build.ptr(wq), _build.ptr(qt.scale),
         None if b32 is None else _build.ptr(b32), _build.ptr(out),
         M, N, K, qt.block_size, _ACT_CODES[activation],
-        int(x2.dtype == torch.float32), _build.stream_of(x2))
+        int(x2.dtype == torch.float32), WFMT[qt.q.dtype], _build.stream_of(x2))
     _build.check(lib, rc, "qmm_int8")
     quant_linear.launches += 1
     return out
@@ -360,10 +361,10 @@ def quant_linear(x: torch.Tensor, qt: QTensor, bias: Optional[torch.Tensor] = No
                  activation: Optional[str] = None) -> torch.Tensor:
     """Weight-only quantized linear: x [..., K] @ dequant(qt) [K, N] (+bias).
 
-    CUDA tensors launch ``qmm_int8`` for int8 weights, and for packed int4
-    weights either ``qgemv_int4`` (shapes the int4 gate passes) or, after
-    ``unpack_int4``, ``qmm_int8``; other weight types raise. CPU tensors
-    take :func:`quant_linear_plain`.
+    CUDA tensors launch ``qmm_int8`` for int8 and fp8 (e4m3fn, e5m2)
+    weights, and for packed int4 weights either ``qgemv_int4`` (shapes the
+    int4 gate passes) or, after ``unpack_int4``, ``qmm_int8``; other weight
+    types raise. CPU tensors take :func:`quant_linear_plain`.
     """
     if activation not in _ACT_CODES:
         raise ValueError(f"unknown activation {activation!r}")

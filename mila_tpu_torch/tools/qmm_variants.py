@@ -67,7 +67,7 @@ def build(names) -> dict:
             raise RuntimeError(f"variant {name}: nvcc failed\n{log[-3000:]}")
         lib = ctypes.CDLL(str(_build.BUILD_DIR / f"qmm_variant_{name}" / "libqmm.so"))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.qmm_int8.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        lib.qmm_int8.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.qmm_int8.restype = ci
         libs[name] = lib
     return libs
@@ -109,7 +109,7 @@ def main() -> None:
         for v, lib in libs.items():
             def call(i=0, lib=lib):
                 rc = lib.qmm_int8(_build.ptr(x), _build.ptr(ws[i % 3]), _build.ptr(scale), None,
-                                  _build.ptr(out), M, N, K, K, 0, 0, stream)
+                                  _build.ptr(out), M, N, K, K, 0, 0, 0, stream)
                 if rc:
                     raise RuntimeError(f"{v}: CUDA error {rc}")
             row[v] = time_ms(call)
