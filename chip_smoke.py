@@ -16,6 +16,12 @@ exits non-zero without the final line):
            prefill GEMM at every projection for 1024 rows and wgu for 4096
            (with its host us per call), the paged attention over int8 pages
            at B 8 and B 1 and over bf16 pages at B 8, up to 4096 tokens;
+           every row carries its weight format (wdtype);
+  kernels fp8  the fp8 branches of the one-byte kernels (Llama-3.2-1B
+           FP8-E4M3, the prefill GEMM also on e5m2 weights): K1 wgu and
+           wqkv at M 1024, K2 wqkv, wo, down, wgu and the head at M 8, K4,
+           K7 at a middle and the last layer, the MLP block at layer 0, each
+           beside its plain version, bound and library call;
   crossover one layer's prefill attention at T 512-4096: the flash kernel
            against the plain product (FLASH_MIN_SEQ stays 2048);
   parity   Llama-3.2-1B widths at 2 layers (G = 4: the slot head order is
@@ -26,6 +32,8 @@ exits non-zero without the final line):
            pack_decode_megalayers params and neither; 8 giga_step steps on
            pack_decode_giga params; 4 forward_with_cache_ragged steps on
            pack_decode_mlp params;
+  parity fp8  the same at 2 layers in fp8 e4m3 with an fp8 head: the
+           paged protocol and the packed contiguous steps;
   parity long  the same widths at 2 layers with int4 weights and int8
            pages: a paged prefill in a 2048-token bucket (flash on the card,
            the plain product on the CPU) and 8 decode steps;
@@ -33,6 +41,8 @@ exits non-zero without the final line):
            JAX bench's decode shape (B 8, prompt 128, cache 512): prefill, 64
            greedy_step_with_cache steps (ms/step eager and as a CUDA-graph
            replay of one step, tok/s, the step's byte bound);
+  decode fp8  the same on the 16-layer model in fp8 e4m3 (fp8 head),
+           pack_decode_layers over its fp8 params;
   giga     the same shape on pack_decode_giga params: prefill, stack_kv_cache,
            64 giga_step steps (one kernel per step), the same numbers;
   mega     the same shape on pack_decode_megalayers params: prefill and 16
@@ -45,6 +55,10 @@ exits non-zero without the final line):
            paged runs (medians reported), one contiguous-layout run on the
            packed params and one on the giga params; one paged decode step
            timed eagerly and as a CUDA-graph replay;
+  serve fp8  the same 16 requests once on the paged engine over the
+           16-layer Llama-3.2-1B FP8-E4M3 with an fp8 head: tok/s, TTFT, one
+           decode step eager and as a graph; its launch counts must equal the
+           int8 paged run's;
   serve long  the 16-layer Llama-3.2-1B with int4 weights served over int8
            KV pages: 8 requests (4 prompts of 2048-4000 tokens, 4 of
            64-1000), 32 new tokens each, max_batch 8, max_len 4224, buckets
@@ -70,8 +84,9 @@ exits non-zero without the final line):
            peak (MFU), first and last loss, peak memory, one step split into
            forward, backward and AdamW.
 
-On every path (decode prefill, decode, giga prefill, giga, mega prefill,
-mega, generate, generate mlp, each serve run, serve long, train, evaluate)
+On every path (decode prefill, decode, decode fp8 prefill, decode fp8,
+giga prefill, giga, mega prefill, mega, generate, generate mlp, each serve
+run, serve fp8, serve long, train, evaluate)
 the launch counts are set to 0 just before it and must equal, just after
 it, the counts the path implies for all twenty entry points (0 for those
 it does not reach), and no plain version may run. Then the kernel summary line
@@ -263,9 +278,10 @@ def recorder(rows: list, bw: float, peak_ops: float):
     eagerly. ``peak``: the operations' rate where it is not the bf16
     tensor-core one. ``library_timed``: the library call's ms, timed by the
     caller. gate: the description of a gate the caller has checked already;
-    otherwise err must be within ERR_TOL x ref."""
+    otherwise err must be within ERR_TOL x ref. wdtype: the row's weight
+    format (default: the entry's, ENTRY_WDTYPE; None where it reads none)."""
     def record(entry, shape, err, ref, calls, plain, library, nbytes, nops, gate=None,
-               library_eager=None, peak=None, library_timed=None, **extra):
+               library_eager=None, peak=None, library_timed=None, wdtype=None, **extra):
         if gate is None and err > ERR_TOL * ref:
             raise AssertionError(f"{entry}[{shape}]: max abs err {err} > {ERR_TOL} x {ref}")
         if sum(x is not None for x in (library, library_eager, library_timed)) > 1:
@@ -276,12 +292,22 @@ def recorder(rows: list, bw: float, peak_ops: float):
             lib_ms = time_eager(library_eager)
         if library_timed is not None:
             lib_ms = library_timed
-        rows.append({"entry": entry, "shape": shape, "max_abs_err": err,
+        rows.append({"entry": entry, "shape": shape,
+                     "wdtype": wdtype or ENTRY_WDTYPE.get(entry), "max_abs_err": err,
                      "tolerance": gate or ERR_TOL * ref, "ms": time_graph(calls),
                      "plain_ms": time_eager(plain), "library_ms": lib_ms,
                      "bound_ms": b_ms, "bound_by": b_by, **extra})
 
     return record
+
+
+# The weight format each kernel entry's rows read unless a row says another
+# (the fp8 rows); entries that read no quantized weight are left out.
+ENTRY_WDTYPE = {e: "int8" for e in (
+    "quant_linear", "rms_quant_linear", "quant_linear_residual", "rms_quant_linear_swiglu",
+    "rms_quant_linear_argmax", "layer_tail_stream", "mlp_qkv_fused", "mlp_block_fused",
+    "layer_megakernel", "giga_decode_step")}
+ENTRY_WDTYPE["quant_linear_int4"] = "int4"
 
 
 def with_rate(row: dict, nbytes: float) -> None:
@@ -321,17 +347,168 @@ def _sm_count() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
+def weight_copies(ws, nbytes: int) -> list:
+    """The first of ``ws`` to cycle through, so that their copies exceed L2."""
+    return ws[:max(2, int(2e8 // nbytes) + 1)]
+
+
+def prefill_row(record, name, x, ws, wdtype=None) -> None:
+    """quant_linear (the prefill GEMM, K1) over x for projection ``name``,
+    cycling over the weights ``ws`` (one a layer); host_us_per_call: the
+    wrapper's host time per call (checks, two TMA descriptors, the launch),
+    enqueued back to back. Library: ``matmul`` on the bf16 weight."""
+    from mila_tpu_torch.inference.quantize import dequantize
+    from mila_tpu_torch.kernels import quant_matmul as qm
+
+    (M, K), N = x.shape, ws[0].q.shape[1]
+    w_bf = [dequantize(w, torch.bfloat16) for w in weight_copies(ws, K * N * 2)]
+    got = qm.quant_linear(x, ws[0])
+    want = qm.quant_linear_plain(x, ws[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for w in ws:
+        qm.quant_linear(x, w)
+    host_us = (time.perf_counter() - t0) / len(ws) * 1e6
+    torch.cuda.synchronize()
+    record("quant_linear", f"{name} M={M}", *max_err(got, want),
+           [lambda w=w: qm.quant_linear(x, w) for w in ws],
+           lambda: qm.quant_linear_plain(x, ws[0]),
+           [lambda w=w: torch.matmul(x, w) for w in w_bf],
+           M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * K * N, host_us_per_call=host_us,
+           wdtype=wdtype)
+
+
+# The decode GEMV rows (K2): (entry, projection, mode).
+DECODE_CASES = (
+    ("rms_quant_linear", "wqkv", "store"), ("rms_quant_linear", "lm_head", "store"),
+    ("quant_linear_residual", "wo", "residual"),
+    ("quant_linear_residual", "down", "residual"),
+    ("rms_quant_linear_swiglu", "wgu", "swiglu"),
+)
+
+
+def decode_row(record, entry, name, mode, ws, gam, x, res, wdtype=None) -> None:
+    """One decode entry point (K2) at x's rows, cycling over the weights
+    ``ws`` and gammas ``gam``; library: ``matmul`` on the bf16 weight."""
+    from mila_tpu_torch.inference.quantize import dequantize
+    from mila_tpu_torch.kernels import decode_fused as df
+
+    M, K = x.shape
+    ldq = ws[0].q.shape[1]
+    n_out = ldq // 2 if mode == "swiglu" else ldq
+    g = gam[0]
+    if mode == "store":
+        fn, plain = df.rms_quant_linear, df.rms_quant_linear_plain
+        calls = [lambda w=w, gi=gi: fn(x, gi, w) for w, gi in zip(ws, gam)]
+        args = (x, g, ws[0])
+    elif mode == "residual":
+        fn, plain = df.quant_linear_residual, df.quant_linear_residual_plain
+        calls = [lambda w=w: fn(x, w, res) for w in ws]
+        args = (x, ws[0], res)
+    else:
+        fn, plain = df.rms_quant_linear_swiglu, df.rms_quant_linear_swiglu_plain
+        calls = [lambda w=w, gi=gi: fn(x, gi, w) for w, gi in zip(ws, gam)]
+        args = (x, g, ws[0])
+    w_bf = [dequantize(w, torch.bfloat16) for w in weight_copies(ws, K * ldq * 2)]
+    library = [lambda w=w: torch.matmul(x, w) for w in w_bf]
+    nbytes = (K * ldq + ws[0].scale.numel() * 4 + M * K * 2 + M * n_out * 2
+              + (K * 4 if mode != "residual" else M * n_out * 2))
+    record(entry, f"{name} M={M}", *max_err(fn(*args), plain(*args)), calls,
+           lambda: plain(*args), library, nbytes, 2 * M * K * ldq, wdtype=wdtype,
+           **df.launch_plan(M, K, ldq, ws[0].block_size, mode, _sm_count()))
+
+
+def argmax_row(record, head, g, x, V, eps, wdtype=None) -> None:
+    """The greedy head (K4): norm_f -> lm_head -> argmax at x's rows. The
+    check: the kernel's token carries a plain logit within tolerance of the
+    row's largest (f32 sums in another order may swap near-ties)."""
+    from mila_tpu_torch.kernels import decode_fused as df
+    from mila_tpu_torch.kernels import quant_matmul as qm
+
+    (M, K), N = x.shape, head.q.shape[1]
+    tok = df.rms_quant_linear_argmax(x, g, head, vocab_size=V)
+    want_tok = df.rms_quant_linear_argmax_plain(x, g, head, vocab_size=V)
+    logits = qm.scaled_partials(df._rms_scaled(x, g, eps), head)[:, :V]
+    gap = (logits.max(dim=-1).values - logits.gather(1, tok.long())[:, 0]).abs().max().item()
+    record("rms_quant_linear_argmax", f"lm_head M={M}", gap, logits.abs().max().item(),
+           [lambda: df.rms_quant_linear_argmax(x, g, head, vocab_size=V)],
+           lambda: df.rms_quant_linear_argmax_plain(x, g, head, vocab_size=V), None,
+           K * N + N * 4 + M * K * 2 + K * 4 + M * 4, 2 * M * K * N, wdtype=wdtype,
+           token_agreement=float((tok == want_tok).float().mean()),
+           **df.launch_plan(M, K, N, head.block_size, "argmax", _sm_count()))
+
+
+def tail_err(got, want):
+    errs = [max_err(g, w) for g, w in zip(got, want) if g is not None]
+    return max(errs, key=lambda e: e[0] / e[1])
+
+
+def tail_rows(record, stream, att, x, g1, g2, cfg, wdtype=None) -> list:
+    """layer_tail_stream (K7) at a middle layer (cycling over layers 0..L-2
+    for the timing) and at the last layer; returns the per-layer pack views
+    of layers 0..L-2."""
+    from mila_tpu_torch.kernels import layer_fused as lf
+    from mila_tpu_torch.kernels import layer_stream as ls
+    from mila_tpu_torch.kernels.quant_matmul import WFMT
+
+    L, M = stream.n_layers, att.shape[0]
+    H, I, bn = stream.h_dim, stream.i_dim, stream.bn
+    Nq = stream.n_qkv * bn
+    n_full = stream.n_wo + stream.n_gu + stream.n_down + stream.n_qkv
+    ops_tail = 2 * M * (H * H + 3 * H * I)
+
+    def tail_bytes(n_tiles, nq):
+        return (n_tiles * (H * bn + bn * 4) + 2 * M * H * 2 + 2 * H * 4 + M * H * 2
+                + M * nq * 2)
+
+    mid = L // 2 - 1
+    views = [ls._pack_view(stream, i, False) for i in range(L - 1)]
+    got = ls.layer_tail_stream(att, x, g1, stream, mid, g2)
+    want = lf.tail_plain(att[:, 0], x[:, 0], g1, views[mid], g2, eps=cfg.rms_eps)
+    record("layer_tail_stream", f"layer {mid} M={M}",
+           *tail_err((got[0][:, 0], got[1][:, 0]), want),
+           [lambda i=i: ls.layer_tail_stream(att, x, g1, stream, i, g2) for i in range(L - 1)],
+           lambda: lf.tail_plain(att[:, 0], x[:, 0], g1, views[mid], g2, eps=cfg.rms_eps),
+           None, tail_bytes(n_full, Nq), ops_tail + 2 * M * H * Nq, wdtype=wdtype,
+           plan=lf.tail_launch_plan(M, H, I, bn, stream.n_qkv, 0, 0,
+                                    WFMT[stream.w.dtype])[2])
+    last = ls._pack_view(stream, L - 1, True)
+    got = ls.layer_tail_stream(att, x, g1, stream, L - 1, None)
+    want = lf.tail_plain(att[:, 0], x[:, 0], g1, last, g2, eps=cfg.rms_eps)
+    record("layer_tail_stream", f"layer {L - 1} (last) M={M}",
+           *tail_err((got[0][:, 0],), want[:1]),
+           [lambda: ls.layer_tail_stream(att, x, g1, stream, L - 1, None)],
+           lambda: lf.tail_plain(att[:, 0], x[:, 0], g1, last, g2, eps=cfg.rms_eps),
+           None, tail_bytes(n_full - stream.n_qkv, 0), ops_tail, wdtype=wdtype)
+    return views
+
+
+def mlp_row(record, mps, att, x, g1, cfg, wdtype=None) -> None:
+    """mlp_block_fused (K7's MLP entry) at layer 0, cycling over the packs
+    ``mps`` (one a layer) for the timing."""
+    from mila_tpu_torch.kernels import decode_mlp as dm
+    from mila_tpu_torch.kernels import layer_fused as lf
+    from mila_tpu_torch.kernels.quant_matmul import WFMT
+
+    M, H, I, bn = att.shape[0], mps[0].h_dim, mps[0].i_dim, mps[0].bn
+    n_mlp = mps[0].n_wo + mps[0].n_gu + mps[0].n_down
+    got = dm.mlp_block_fused(att, x, g1, mps[0])
+    want = dm.mlp_block_plain(att[:, 0], x[:, 0], g1, mps[0], eps=cfg.rms_eps)
+    record("mlp_block_fused", f"layer 0 M={M} bn={bn}", *max_err(got[:, 0], want),
+           [lambda p=p: dm.mlp_block_fused(att, x, g1, p) for p in mps],
+           lambda: dm.mlp_block_plain(att[:, 0], x[:, 0], g1, mps[0], eps=cfg.rms_eps), None,
+           n_mlp * (H * bn + bn * 4) + 3 * M * H * 2 + H * 4, 2 * M * (H * H + 3 * H * I),
+           wdtype=wdtype, plan=lf.tail_launch_plan(M, H, I, bn, 0, 0, 0, WFMT[mps[0].w.dtype])[2])
+
+
 def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
     from mila_tpu_torch.inference.kv_cache import make_paged_pools
     from mila_tpu_torch.inference.quantize import dequantize
-    from mila_tpu_torch.kernels import decode_fused as df
     from mila_tpu_torch.kernels import decode_giga as dg
-    from mila_tpu_torch.kernels import decode_mlp as dm
     from mila_tpu_torch.kernels import dense_attention as da
     from mila_tpu_torch.kernels import flash_attention as fa
     from mila_tpu_torch.kernels import layer_fused as lf
     from mila_tpu_torch.kernels import layer_mega as lm
-    from mila_tpu_torch.kernels import layer_stream as ls
     from mila_tpu_torch.kernels import paged_attention as pa
     from mila_tpu_torch.kernels import quant_matmul as qm
     from mila_tpu_torch.models.llama import Llama
@@ -365,94 +542,27 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
                     ("wgu", 4096)):
         K, N = LAYER_SHAPES[name]
         x = rand(M, K, gen=None if M == 1024 and name in ("wgu", "down") else extra)
-        ws = [blk[name]["weight"] for blk in layers]
-        w_bf = [dequantize(w, bf16) for w in ws[:copies(K * N * 2)]]
-        got = qm.quant_linear(x, ws[0])
-        want = qm.quant_linear_plain(x, ws[0])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for w in ws:
-            qm.quant_linear(x, w)
-        host_us = (time.perf_counter() - t0) / len(ws) * 1e6
-        torch.cuda.synchronize()
-        record("quant_linear", f"{name} M={M}", *max_err(got, want),
-               [lambda w=w: qm.quant_linear(x, w) for w in ws],
-               lambda: qm.quant_linear_plain(x, ws[0]),
-               [lambda w=w: torch.matmul(x, w) for w in w_bf],
-               M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * K * N, host_us_per_call=host_us)
-        del w_bf, got, want
+        prefill_row(record, name, x, [blk[name]["weight"] for blk in layers])
 
     # decode entry points at M = 8 rows (max_batch decode step).
     M = 8
     gam = [1.0 + 0.1 * rand(LAYER_SHAPES["wqkv"][0]).float() for _ in range(L)]
     head = params["lm_head_q"]
-    cases = [
-        ("rms_quant_linear", "wqkv", "store"), ("rms_quant_linear", "lm_head", "store"),
-        ("quant_linear_residual", "wo", "residual"),
-        ("quant_linear_residual", "down", "residual"),
-        ("rms_quant_linear_swiglu", "wgu", "swiglu"),
-    ]
-    for entry, name, mode in cases:
+    for entry, name, mode in DECODE_CASES:
         ws = [head] if name == "lm_head" else [blk[name]["weight"] for blk in layers]
         K, ldq = ws[0].q.shape
-        n_out = ldq // 2 if mode == "swiglu" else ldq
         x = rand(M, K)
-        res = rand(M, n_out)
-        g = gam[0]
-        if mode == "store":
-            fn, plain = df.rms_quant_linear, df.rms_quant_linear_plain
-            calls = [lambda w=w, gi=gi: fn(x, gi, w) for w, gi in zip(ws, gam)]
-            args = (x, g, ws[0])
-        elif mode == "residual":
-            fn, plain = df.quant_linear_residual, df.quant_linear_residual_plain
-            calls = [lambda w=w: fn(x, w, res) for w in ws]
-            args = (x, ws[0], res)
-        else:
-            fn, plain = df.rms_quant_linear_swiglu, df.rms_quant_linear_swiglu_plain
-            calls = [lambda w=w, gi=gi: fn(x, gi, w) for w, gi in zip(ws, gam)]
-            args = (x, g, ws[0])
-        w_bf = [dequantize(w, bf16) for w in ws[:copies(K * ldq * 2)]]
-        library = [lambda w=w: torch.matmul(x, w) for w in w_bf]
-        nbytes = (K * ldq + ws[0].scale.numel() * 4 + M * K * 2 + M * n_out * 2
-                  + (K * 4 if mode != "residual" else M * n_out * 2))
-        record(entry, f"{name} M={M}", *max_err(fn(*args), plain(*args)), calls,
-               lambda: plain(*args), library, nbytes, 2 * M * K * ldq,
-               **df.launch_plan(M, K, ldq, ws[0].block_size, mode, _sm_count()))
-        del w_bf
+        res = rand(M, ldq // 2 if mode == "swiglu" else ldq)
+        decode_row(record, entry, name, mode, ws, gam, x, res)
 
     # wqkv at M 32 (m_tile 32: four row tiles of x), from its own stream.
-    wide = np.random.default_rng(11)
     ws = [blk["wqkv"]["weight"] for blk in layers]
-    K, N = ws[0].q.shape
-    x32 = rand(32, K, gen=wide)
-    w_bf = [dequantize(w, bf16) for w in ws[:copies(K * N * 2)]]
-    record("rms_quant_linear", "wqkv M=32",
-           *max_err(df.rms_quant_linear(x32, gam[0], ws[0]),
-                    df.rms_quant_linear_plain(x32, gam[0], ws[0])),
-           [lambda w=w, gi=gi: df.rms_quant_linear(x32, gi, w) for w, gi in zip(ws, gam)],
-           lambda: df.rms_quant_linear_plain(x32, gam[0], ws[0]),
-           [lambda w=w: torch.matmul(x32, w) for w in w_bf],
-           K * N + ws[0].scale.numel() * 4 + 32 * K * 2 + 32 * N * 2 + K * 4, 2 * 32 * K * N,
-           **df.launch_plan(32, K, N, ws[0].block_size, "store", _sm_count()))
-    del w_bf, x32
+    decode_row(record, "rms_quant_linear", "wqkv", "store", ws, gam,
+               rand(32, ws[0].q.shape[0], gen=np.random.default_rng(11)), None)
 
-    # The greedy head: norm_f -> lm_head -> argmax at M = 8. The check: the
-    # kernel's token carries a plain logit within tolerance of the row's
-    # largest (f32 sums in another order may swap near-ties).
-    K, N = head.q.shape
+    # The greedy head: norm_f -> lm_head -> argmax at M = 8.
     V = cfg.vocab_size
-    x = rand(M, K)
-    tok = df.rms_quant_linear_argmax(x, gam[0], head, vocab_size=V)
-    want_tok = df.rms_quant_linear_argmax_plain(x, gam[0], head, vocab_size=V)
-    logits = qm.scaled_partials(df._rms_scaled(x, gam[0], cfg.rms_eps), head)[:, :V]
-    gap = (logits.max(dim=-1).values - logits.gather(1, tok.long())[:, 0]).abs().max().item()
-    record("rms_quant_linear_argmax", f"lm_head M={M}", gap, logits.abs().max().item(),
-           [lambda: df.rms_quant_linear_argmax(x, gam[0], head, vocab_size=V)],
-           lambda: df.rms_quant_linear_argmax_plain(x, gam[0], head, vocab_size=V), None,
-           K * N + N * 4 + M * K * 2 + K * 4 + M * 4, 2 * M * K * N,
-           token_agreement=float((tok == want_tok).float().mean()),
-           **df.launch_plan(M, K, N, head.block_size, "argmax", _sm_count()))
-    del logits
+    argmax_row(record, head, gam[0], rand(M, head.q.shape[0]), V, cfg.rms_eps)
 
     # paged decode attention: B = 8 rows, ragged lengths up to 384 tokens.
     B, NH, NKV, HD, ps, W = 8, cfg.num_heads, cfg.num_kv_heads, cfg.hd, 128, 4
@@ -581,30 +691,10 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
         return (n_tiles * (H * bn + bn * 4) + 2 * M * H * 2 + 2 * H * 4 + M * H * 2
                 + M * nq * 2)
 
-    def tail_err(got, want):
-        errs = [max_err(g, w) for g, w in zip(got, want) if g is not None]
-        return max(errs, key=lambda e: e[0] / e[1])
-
     idx = dev.index or 0  # the launch plans below: {phase: [weight columns a unit, K slices]}
 
     mid = L // 2 - 1
-    views = [ls._pack_view(stream, i, False) for i in range(L - 1)]
-    got = ls.layer_tail_stream(att, x, g1, stream, mid, g2)
-    want = lf.tail_plain(att[:, 0], x[:, 0], g1, views[mid], g2, eps=cfg.rms_eps)
-    record("layer_tail_stream", f"layer {mid} M={M}",
-           *tail_err((got[0][:, 0], got[1][:, 0]), want),
-           [lambda i=i: ls.layer_tail_stream(att, x, g1, stream, i, g2) for i in range(L - 1)],
-           lambda: lf.tail_plain(att[:, 0], x[:, 0], g1, views[mid], g2, eps=cfg.rms_eps),
-           None, tail_bytes(n_full, Nq), ops_tail + 2 * M * H * Nq,
-           plan=lf.tail_launch_plan(M, H, I, bn, stream.n_qkv, idx, 0)[2])
-    last = ls._pack_view(stream, L - 1, True)
-    got = ls.layer_tail_stream(att, x, g1, stream, L - 1, None)
-    want = lf.tail_plain(att[:, 0], x[:, 0], g1, last, g2, eps=cfg.rms_eps)
-    record("layer_tail_stream", f"layer {L - 1} (last) M={M}",
-           *tail_err((got[0][:, 0],), want[:1]),
-           [lambda: ls.layer_tail_stream(att, x, g1, stream, L - 1, None)],
-           lambda: lf.tail_plain(att[:, 0], x[:, 0], g1, last, g2, eps=cfg.rms_eps),
-           None, tail_bytes(n_full - stream.n_qkv, 0), ops_tail)
+    views = tail_rows(record, stream, att, x, g1, g2, cfg)
     got = lf.mlp_qkv_fused(att, x, g1, views[0], g2)
     want = lf.tail_plain(att[:, 0], x[:, 0], g1, views[0], g2, eps=cfg.rms_eps)
     record("mlp_qkv_fused", f"layer 0 M={M}", *tail_err((got[0][:, 0], got[1][:, 0]), want),
@@ -614,15 +704,7 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
 
     # The MLP-block stream (bn 2048, no next wqkv) at layer 0, M = 8,
     # cycling over the 16 layers' packs for the timing.
-    mps = [packs["mlp"][f"h{i}"]["mlp_pack"] for i in range(L)]
-    n_mlp = mps[0].n_wo + mps[0].n_gu + mps[0].n_down
-    got = dm.mlp_block_fused(att, x, g1, mps[0])
-    want = dm.mlp_block_plain(att[:, 0], x[:, 0], g1, mps[0], eps=cfg.rms_eps)
-    record("mlp_block_fused", f"layer 0 M={M} bn={mps[0].bn}", *max_err(got[:, 0], want),
-           [lambda p=p: dm.mlp_block_fused(att, x, g1, p) for p in mps],
-           lambda: dm.mlp_block_plain(att[:, 0], x[:, 0], g1, mps[0], eps=cfg.rms_eps), None,
-           n_mlp * (H * mps[0].bn + mps[0].bn * 4) + 3 * M * H * 2 + H * 4, ops_tail,
-           plan=lf.tail_launch_plan(M, H, I, mps[0].bn, 0, idx, 0)[2])
+    mlp_row(record, [packs["mlp"][f"h{i}"]["mlp_pack"] for i in range(L)], att, x, g1, cfg)
 
     # The per-layer megakernel at layer 7 (B 8, old rows 128-191 in a T 512
     # cache, q in slot order), cycling over layers 0..14 and their caches.
@@ -824,6 +906,52 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
     return rows
 
 
+def phase_kernels_fp8(params8, packed8, mlp8, cfg, bw, peak_ops):
+    """The fp8 branches of the one-byte kernels at the served shapes, each
+    beside its plain version, its bound (the int8 rows' formula: the weights
+    are one byte) and ``matmul`` on a bf16 weight where the int8 row has it:
+    K1 wgu at M 1024 in e4m3 and wqkv at M 1024 in e5m2; K2 wqkv, wo, down,
+    wgu and the head at M 8, and K4, in e4m3; K7 at a middle and the last
+    layer of the e4m3 stream; the MLP block at layer 0. Inputs from their
+    own random stream."""
+    from mila_tpu_torch.inference.quantize import quantize
+
+    gen = np.random.default_rng(13)
+    dev, bf16, L, M = torch.device("cuda"), torch.bfloat16, cfg.num_layers, 8
+    layers = [params8[f"h{i}"] for i in range(L)]
+
+    def rand(*shape):
+        return torch.from_numpy(gen.standard_normal(shape).astype(np.float32)).to(dev, bf16)
+
+    rows = []
+    record = recorder(rows, bw, peak_ops)
+    prefill_row(record, "wgu", rand(1024, LAYER_SHAPES["wgu"][0]),
+                [blk["wgu"]["weight"] for blk in layers], "fp8_e4m3")
+    K, N = LAYER_SHAPES["wqkv"]
+    tgen = torch.Generator(device=dev).manual_seed(13)
+    w5 = [quantize(torch.randn(K, N, device=dev, generator=tgen) * 0.02, "fp8_e5m2")
+          for _ in range(L)]
+    prefill_row(record, "wqkv", rand(1024, K), w5, "fp8_e5m2")
+    del w5
+    gam = [1.0 + 0.1 * rand(K).float() for _ in range(L)]
+    head = params8["lm_head_q"]
+    for entry, name, mode in DECODE_CASES:
+        ws = [head] if name == "lm_head" else [blk[name]["weight"] for blk in layers]
+        Kw, ldq = ws[0].q.shape
+        decode_row(record, entry, name, mode, ws, gam, rand(M, Kw),
+                   rand(M, ldq // 2 if mode == "swiglu" else ldq), "fp8_e4m3")
+    argmax_row(record, head, gam[0], rand(M, head.q.shape[0]), cfg.vocab_size, cfg.rms_eps,
+               "fp8_e4m3")
+    stream = packed8["layer_stream"]
+    H = stream.h_dim
+    att, x = rand(M, 1, H), rand(M, 1, H)
+    tail_rows(record, stream, att, x, gam[1], gam[2], cfg, "fp8_e4m3")
+    mlp_row(record, [mlp8[f"h{i}"]["mlp_pack"] for i in range(L)], att, x, gam[1], cfg,
+            "fp8_e4m3")
+    torch.cuda.synchronize()
+    return rows
+
+
 def phase_crossover(cfg, rng):
     """One layer's prefill attention (B 1, Llama-3.2-1B's heads, causal,
     bf16) at T 512-4096: the flash kernel against the plain product that
@@ -866,13 +994,17 @@ def parity_compare(steps: list, what: str, g: torch.Tensor, c: torch.Tensor, B: 
                              f"cosine {cos} < 0.999")
 
 
-def phase_parity(rng):
+def phase_parity(rng, dtype: str = "int8", seed: int = 1, full: bool = True):
+    """Card against CPU at 2 layers in weight format ``dtype``: the paged
+    protocol and the contiguous steps on pack_decode_layers params; with
+    ``full`` also pack_decode_megalayers params, the unpacked params, the
+    giga step and the MLP packs."""
     from mila_tpu_torch.models.llama import (Llama, LlamaConfig, pack_decode_giga,
                                              pack_decode_layers, pack_decode_megalayers,
                                              pack_decode_mlp)
 
     cfg = LlamaConfig.llama32_1b().replace(num_layers=2, max_seq_len=512)
-    params = build_params(cfg, seed=1, device="cuda")
+    params = build_params(cfg, seed=seed, device="cuda", dtype=dtype)
     cpu_params = to_cpu(params)
     gpu, cpu = Llama(cfg), Llama(cfg, device="cpu")
     B, bucket, ps = 8, 128, 128
@@ -911,14 +1043,16 @@ def phase_parity(rng):
     # depends on every layer before), and a last forward_with_cache step
     # compares logits. "mega": the per-layer megakernel path.
     packed = pack_decode_layers(params)
-    mega = pack_decode_megalayers(params, cfg)
-    if "layer_stream" not in packed or "mega_pack" not in mega["h0"]:
+    mega = pack_decode_megalayers(params, cfg) if full else None
+    if "layer_stream" not in packed or (full and "mega_pack" not in mega["h0"]):
         raise AssertionError("parity: the 2-layer model did not pack")
     T0, V = 16, cfg.vocab_size
     prompt = torch.from_numpy(rng.integers(0, V, (B, T0)).astype(np.int32))
     agree = {}
-    for variant, gp, cp in (("packed", packed, to_cpu(packed)), ("mega", mega, to_cpu(mega)),
-                            ("unpacked", params, cpu_params)):
+    variants = [("packed", packed, to_cpu(packed))]
+    if full:
+        variants += [("mega", mega, to_cpu(mega)), ("unpacked", params, cpu_params)]
+    for variant, gp, cp in variants:
         gc = gpu.init_kv_cache(B, 64, torch.bfloat16)
         cc = cpu.init_kv_cache(B, 64, torch.bfloat16)
         glog, gc = gpu.forward_with_cache(gp, prompt.cuda(), gc, 0)
@@ -939,6 +1073,8 @@ def phase_parity(rng):
         compare(f"contiguous {variant} logits after 8 steps", glog, clog)
         agree[variant] = float(np.mean(hits))
     del packed, mega
+    if not full:
+        return parity_summary(cfg, steps, agree)
 
     # Giga: the same prefill, stack_kv_cache, then 8 giga_step steps fed the
     # CPU's tokens (the kernel keeps the residual in f32 where the plain
@@ -984,6 +1120,10 @@ def phase_parity(rng):
         tok = compare(f"mlp ragged step {step}", glog, clog)[:, None]
         pos = pos + 1
     del params, cpu_params, mlp, cpu_mlp
+    return parity_summary(cfg, steps, agree)
+
+
+def parity_summary(cfg, steps: list, agree: dict) -> dict:
     return {"layers": cfg.num_layers, "tolerance": f"max|d| <= {ERR_TOL} x max|ref| "
             "or min cosine >= 0.999", "steps": steps,
             "greedy_agree_mean": float(np.mean([s["greedy_agree"] for s in steps
@@ -1050,9 +1190,9 @@ def phase_parity_long(rng):
 # decode and generate (the contiguous cache)
 # ---------------------------------------------------------------------------
 
-def phase_decode(model, packed, cfg, rng, bw):
+def phase_decode(model, packed, cfg, rng, bw, path: str = "decode"):
     """The JAX bench's decode shape on the packed params: prefill, then 64
-    greedy_step_with_cache steps; launch counts per path."""
+    greedy_step_with_cache steps; launch counts per path (named ``path``)."""
     from mila_tpu_torch.models.llama import decode_step_bytes
 
     B, P, C, STEPS, L = 8, 128, 512, 64, cfg.num_layers
@@ -1061,7 +1201,7 @@ def phase_decode(model, packed, cfg, rng, bw):
     cache = model.init_kv_cache(B, C, torch.bfloat16)
     t0 = time.monotonic()
     (logits, cache), pre_counts = run_counted(
-        "decode prefill", lambda: model.forward_with_cache(packed, prompt, cache, 0),
+        f"{path} prefill", lambda: model.forward_with_cache(packed, prompt, cache, 0),
         {"quant_linear": 4 * L + 1})
     prefill_s = time.monotonic() - t0
     tok = torch.argmax(logits[:, -1, :V].float(), dim=-1).to(torch.int32)[:, None]
@@ -1076,13 +1216,13 @@ def phase_decode(model, packed, cfg, rng, bw):
             out.append(state["tok"])
 
     t0 = time.monotonic()
-    _, counts = run_counted("decode", loop, {
+    _, counts = run_counted(path, loop, {
         "rms_quant_linear": STEPS, "fused_decode_attention": STEPS * L,
         "layer_tail_stream": STEPS * L, "rms_quant_linear_argmax": STEPS})
     wall = time.monotonic() - t0
     toks = torch.cat(out, dim=1)
     if toks.shape != (B, STEPS) or int(toks.min()) < 0 or int(toks.max()) >= V:
-        raise AssertionError("decode: tokens outside the vocabulary")
+        raise AssertionError(f"{path}: tokens outside the vocabulary")
 
     def step():
         return model.greedy_step_with_cache(packed, state["tok"], state["cache"], P + STEPS)
@@ -1217,8 +1357,9 @@ def phase_generate(model, params, cfg, rng, mlp: bool = False):
 # serve
 # ---------------------------------------------------------------------------
 
-def serve_once(model, params, cfg, prompts, layout: str):
-    """One serving run on a fresh engine; checks outputs and launch counts."""
+def serve_once(model, params, cfg, prompts, layout: str, path: str = ""):
+    """One serving run on a fresh engine; checks outputs and launch counts
+    (path: the run's name, by default from its layout)."""
     from mila_tpu_torch.inference.engine import EngineConfig, InferenceEngine
 
     engine = InferenceEngine(model, params, EngineConfig(
@@ -1257,7 +1398,7 @@ def serve_once(model, params, cfg, prompts, layout: str):
     if giga and not engine._use_giga_decode():
         raise AssertionError("serve giga: the engine did not select the giga decode")
     t0 = time.monotonic()
-    reqs, counts = run_counted(f"serve {'giga' if giga else layout}", run, expected)
+    reqs, counts = run_counted(path or f"serve {'giga' if giga else layout}", run, expected)
     wall = time.monotonic() - t0
     for r in reqs:
         if not (r.done and len(r.output) == 32 and all(0 <= t < cfg.vocab_size
@@ -1332,13 +1473,17 @@ def long_step_split(model, params, cfg, lengths):
             "paged_attention_share": attn / graph}
 
 
-def phase_serve(model, params, packed, giga, cfg, rng, repeats: int = 3):
+def serve_prompts(cfg, rng) -> list:
+    """serve's 16 requests: prompts of 8-100 tokens."""
+    return [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+            for n in rng.integers(8, 101, 16)]
+
+
+def phase_serve(model, params, packed, giga, cfg, rng, prompts, repeats: int = 3):
     """``repeats`` identical paged serving runs (the host clock varies
     between runs more than the device does; medians plus every run), then
     one contiguous-layout run of the same requests on the packed params and
     one on the giga params."""
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
-               for n in rng.integers(8, 101, 16)]
     runs = []
     for _ in range(repeats):
         counts, run = serve_once(model, params, cfg, prompts, "paged")
@@ -1354,6 +1499,19 @@ def phase_serve(model, params, packed, giga, cfg, rng, repeats: int = 3):
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "runs": runs,
         "contiguous": {**contiguous, "launches": c_counts},
         "giga": {**giga_run, "launches": g_counts}}
+
+
+def phase_serve_fp8(model, params8, cfg, prompts, int8_counts):
+    """One paged serving run of serve's requests on the fp8 model: its
+    launch counts must equal the int8 paged run's (the same entry points,
+    now through the fp8 branches), and the paged decode step eager and as a
+    graph (inputs from their own random stream)."""
+    counts, run = serve_once(model, params8, cfg, prompts, "paged", "serve fp8")
+    if counts != int8_counts:
+        raise AssertionError(f"serve fp8: launch counts {counts} != the int8 paged run's "
+                             f"{int8_counts}")
+    return counts, {"requests": len(prompts), **run, "launches": counts,
+                    **decode_step_times(model, params8, cfg, np.random.default_rng(15))}
 
 
 def phase_serve_long(model, params, cfg, rng):
@@ -1999,21 +2157,37 @@ def main() -> int:
         raise AssertionError("a decode pack did not pack Llama-3.2-1B")
     packed = packs["layer_stream"]
     params4 = build_params(cfg.replace(max_seq_len=4224), seed=2, device="cuda", dtype="int4")
+    # Llama-3.2-1B FP8-E4M3 with an fp8 head (benchmarks/engine_bench.py's
+    # --quantize fp8_e4m3), its packed stream and MLP packs.
+    params8 = build_params(cfg, seed=3, device="cuda", dtype="fp8_e4m3")
+    packed8, mlp8 = pack_decode_layers(params8), pack_decode_mlp(params8)
+    if "layer_stream" not in packed8 or "mlp_pack" not in mlp8["h0"]:
+        raise AssertionError("a decode pack did not pack Llama-3.2-1B in fp8")
     torch.cuda.synchronize()
     setup_s = time.monotonic() - t0
 
     rows = phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng)
     emit({"phase": "kernels", "card": card, "rows": rows})
+    rows8 = phase_kernels_fp8(params8, packed8, mlp8, cfg, bw, peak_ops)
+    emit({"phase": "kernels fp8", "card": card, "rows": rows8})
+    rows += rows8
+    del mlp8
     crossover = phase_crossover(cfg, rng)
     emit({"phase": "crossover", "card": card, **crossover})
     parity = phase_parity(rng)
     emit({"phase": "parity", "card": card, **parity})
+    parity8 = phase_parity(np.random.default_rng(14), "fp8_e4m3", seed=4, full=False)
+    emit({"phase": "parity fp8", "card": card, **parity8})
     parity_long = phase_parity_long(rng)
     emit({"phase": "parity long", "card": card, **parity_long})
     model = Llama(cfg)
     decode = phase_decode(model, packed, cfg, rng, bw)
     emit({"phase": "decode", "card": card, "model": "llama-3.2-1b int8 + layer_stream, "
           "random weights", **decode})
+    decode8 = phase_decode(model, packed8, cfg, np.random.default_rng(16), bw, "decode fp8")
+    emit({"phase": "decode fp8", "card": card, "model": "llama-3.2-1b fp8 e4m3 + "
+          "layer_stream, random weights", **decode8})
+    del packed8
     giga = phase_giga(model, packs["giga"], cfg, rng, bw)
     emit({"phase": "giga", "card": card, "model": "llama-3.2-1b int8 + giga_pack, "
           "random weights", **giga})
@@ -2026,11 +2200,15 @@ def main() -> int:
     emit({"phase": "generate mlp", "card": card, **generate_mlp})
     del packs["mega"], packs["mlp"]
     torch.cuda.reset_peak_memory_stats()
+    prompts = serve_prompts(cfg, rng)
     counts, c_counts, g_counts, serve = phase_serve(model, params, packed, packs["giga"], cfg,
-                                                    rng)
+                                                    rng, prompts)
     emit({"phase": "serve", "card": card, "model": "llama-3.2-1b int8, random weights",
           "setup_s": setup_s, **serve})
-    del packs, packed, params
+    f_counts, serve8 = phase_serve_fp8(model, params8, cfg, prompts, counts)
+    emit({"phase": "serve fp8", "card": card, "model": "llama-3.2-1b fp8 e4m3 with an fp8 "
+          "head, random weights", **serve8})
+    del packs, packed, params, params8
     cfg4 = cfg.replace(max_seq_len=4224)
     l_counts, serve_long = phase_serve_long(Llama(cfg4), params4, cfg4, rng)
     emit({"phase": "serve long", "card": card, "model": "llama-3.2-1b int4, int8 KV pages, "
@@ -2046,7 +2224,10 @@ def main() -> int:
     emit({"phase": "train", "card": card, **train})
 
     by_path = {"serve paged": counts, "serve contiguous": c_counts, "serve giga": g_counts,
+               "serve fp8": f_counts,
                "decode prefill": decode["launches_prefill"], "decode": decode["launches"],
+               "decode fp8 prefill": decode8["launches_prefill"],
+               "decode fp8": decode8["launches"],
                "giga prefill": giga["launches_prefill"], "giga": giga["launches"],
                "mega prefill": mega["launches_prefill"], "mega": mega["launches"],
                "generate": generate["launches"], "generate mlp": generate_mlp["launches"],
@@ -2054,7 +2235,8 @@ def main() -> int:
     summary = []
     for entry, (source, replaces) in SOURCES.items():
         mine = [r for r in rows if r["entry"] == entry]
-        top = next(r for r in mine if r["shape"].startswith(PRIMARY[entry]))
+        top = next(r for r in mine if r["shape"].startswith(PRIMARY[entry])
+                   and not str(r["wdtype"]).startswith("fp8"))
         launches = sum(c[entry] for c in by_path.values())
         summary.append({
             "name": entry, "route": "cuda", "source": source, "replaces": replaces,
@@ -2063,7 +2245,8 @@ def main() -> int:
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
             "library": NO_LIBRARY.get(entry, "timed" if top["library_ms"] is not None
                                       else "none: no one call computes it"),
-            "shape": top["shape"],
+            "shape": top["shape"], "wdtype": top["wdtype"],
+            "wdtypes": sorted({r["wdtype"] for r in mine if r["wdtype"]}),
             "launches_by_path": {p: c[entry] for p, c in by_path.items() if c[entry]},
             "shapes": mine})
         if entry == "mlp_qkv_fused":
@@ -2073,9 +2256,11 @@ def main() -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"header": header, "kernels": rows, "crossover": crossover,
-                       "parity": parity, "parity_long": parity_long, "decode": decode,
+                       "parity": parity, "parity_fp8": parity8, "parity_long": parity_long,
+                       "decode": decode, "decode_fp8": decode8,
                        "giga": giga, "mega": mega, "generate": generate,
-                       "generate_mlp": generate_mlp, "serve": serve, "serve_long": serve_long,
+                       "generate_mlp": generate_mlp, "serve": serve, "serve_fp8": serve8,
+                       "serve_long": serve_long,
                        "parity_train": parity_train, "train": train, "summary": summary,
                        "total_s": time.monotonic() - t_start}, f, indent=1)
     emit({"kernels": summary})

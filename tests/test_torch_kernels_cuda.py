@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from mila_tpu_torch.inference.quantize import quantize
+from mila_tpu_torch.inference.quantize import quantize, unit_qtensor
 from mila_tpu_torch.kernels import decode_fused as df
 from mila_tpu_torch.kernels import decode_giga as dg
 from mila_tpu_torch.kernels import decode_mlp as dm
@@ -115,12 +115,34 @@ def test_decode_kernels(cuda, M, K, N, bs, dtype):
 
 
 def test_kernels_refuse_other_weight_types(cuda):
+    # The one-byte kernels take int8 and fp8 (tested below): bf16 weights
+    # raise. The per-layer and whole-step megakernels (K8) are built for
+    # int8 tile streams alone: fp8 packs raise there.
     x = _rand((8, 256), 7)
-    qt = quantize(_rand((256, 256), 8, 0.05, torch.float32), "fp8_e4m3")
+    qt = unit_qtensor(_rand((256, 256), 8, 0.05))
     with pytest.raises(NotImplementedError):
         qm.quant_linear(x, qt)
     with pytest.raises(NotImplementedError):
         df.rms_quant_linear(x, torch.ones(256, device="cuda"), qt)
+    H, NH, NKV, HD, B, T = 512, 8, 2, 64, 2, 32
+    pack = _mega_case(H, 1024, NH, NKV, HD, 128, 40, wdt="fp8_e4m3")
+    assert pack.w.dtype == torch.float8_e4m3fn
+    rng = np.random.default_rng(41)
+    lens = np.array([5, 9], np.int32)
+    cos_t, sin_t = _tables(rng, lens, NKV, HD)
+    k, v = _rand((B, T, NKV, HD), 46), _rand((B, T, NKV, HD), 47)
+    g = 1.0 + _rand((H,), 44, 0.1, torch.float32)
+    with pytest.raises(NotImplementedError):
+        lm.layer_megakernel(_rand((B, NH * HD + 2 * NKV * HD), 42), _rand((B, H), 43), g, pack,
+                            k, v, torch.from_numpy(lens).cuda(), cos_t, sin_t, g,
+                            num_heads=NH)
+    gp = _giga_case(2, 512, 1024, 8, 2, 64, 128, 1024, 1000, 70)
+    f8 = gp._replace(w=gp.w.to(torch.float8_e4m3fn))
+    kpool = _rand((2, 2, 32, 128), 71)
+    with pytest.raises(NotImplementedError):
+        dg.giga_decode_step(_rand((1000, 512), 72), None, None,
+                            torch.tensor([1, 2], device="cuda"), f8, kpool, kpool.clone(),
+                            tokens=torch.tensor([1, 2], device="cuda"))
 
 
 def _paged_lens(rng, B, NKV, W, ps):
@@ -560,12 +582,12 @@ def test_qgemv_int8_one_launch_a_call(cuda):
     assert all("argmax_index" in n or "emset" in n for n in others), names
 
 
-def _tail_case(H, I, NQ, bn, layers, seed):
+def _tail_case(H, I, NQ, bn, layers, seed, wdt="int8"):
     rng = np.random.default_rng(seed)
 
     def w(*shape):
         return quantize(torch.from_numpy((rng.standard_normal(shape) * 0.05).astype(
-            np.float32)).cuda(), "int8")
+            np.float32)).cuda(), wdt)
 
     ws = [(w(H, H), w(H, 2 * I), w(I, H), w(H, NQ)) for _ in range(layers)]
     packs = [lf.pack_layer(wo, wgu, down, ws[i + 1][3] if i + 1 < layers else None, bn=bn)
@@ -655,7 +677,7 @@ def test_tail_entries_refuse_a_grid_over_the_row_sum_limit(cuda):
     # they read an argument or launch.
     grid = lf._MAX_GRID + 1
     lib = lf._lib()
-    assert lib.layer_tail_int8(*[None] * 17, *[0] * 14, 1e-5, grid, 8, 0, None) == 1
+    assert lib.layer_tail_int8(*[None] * 17, *[0] * 14, 1e-5, grid, 8, 0, 0, None) == 1
     mlib = lm._lib()
     ptrs = (ctypes.c_void_p * len(lm._PTRS))()
     ints = (ctypes.c_int * len(lm._INTS))()
@@ -689,6 +711,268 @@ def test_mlp_block_kernel(cuda, H, I, bn, M, dtype):
     assert dm.mlp_block_fused.launches == before + 1  # a CPU tensor takes the plain version
 
 
+# fp8 weights (e4m3fn, e5m2). Each kernel converts them exactly to bf16
+# operands (gemv.cuh: F8Pair), so they are held to the kernels' arithmetic as
+# the int8 cases are: scaled_partials (bf16 operands, f32 sums times the
+# scale rows) with each entry's prologue and epilogue, and for the tails and
+# the MLP block their plain versions. Scale blocks of 64 rows send JAX's
+# decode entries to their unfused route, so the decode references here are
+# the kernels' own arithmetic (the plain versions' kernel branch).
+_FP8 = ("fp8_e4m3", "fp8_e5m2")
+_SUBNORMAL_CODES = (1, 2, 3, 4, 5, 6, 7, 0x81, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87)
+
+
+def _fp8_qt(K, N, wdt, bs, seed):
+    return quantize(_rand((K, N), seed, 0.05, torch.float32), wdt, bs)
+
+
+def _plant_subnormals(q, cols):
+    """Every byte of q's first ``cols`` columns an fp8 subnormal code (for
+    e5m2 the codes past 0x03 / 0x83 are its smallest normals)."""
+    K = q.shape[0]
+    codes = torch.tensor(_SUBNORMAL_CODES, dtype=torch.uint8, device=q.device)
+    idx = (torch.arange(K, device=q.device)[:, None] + torch.arange(cols, device=q.device)) % 14
+    q.view(torch.uint8)[:, :cols] = codes[idx]
+
+
+def _decode_refs(x, gamma, qt, res):
+    """The decode entries' arithmetic: store, residual and SwiGLU outputs."""
+    xs = df._rms_scaled(x, gamma, 1e-5)
+    store = qm.scaled_partials(xs, qt).to(x.dtype)
+    resid = (qm.scaled_partials(x.to(torch.bfloat16), qt) + res.float()).to(x.dtype)
+    gu = qm.scaled_partials(xs, qt)
+    g, u = gu.chunk(2, dim=-1)
+    return store, resid, (g * torch.sigmoid(g) * u).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bs", [0, 64])
+@pytest.mark.parametrize("M", [1, 8, 32, 1000])
+@pytest.mark.parametrize("wdt", _FP8)
+def test_fp8_quant_linear_kernel(cuda, wdt, M, bs, dtype):
+    K, N = 1024, 3072
+    x = _rand((M, K), 200, dtype=dtype)
+    qt = _fp8_qt(K, N, wdt, bs, 201)
+    bias = _rand((N,), 202, 0.1, torch.float32) if bs else None
+    act = "gelu" if bs else None
+    before = qm.quant_linear.launches
+    got = qm.quant_linear(x, qt, bias, activation=act)
+    torch.cuda.synchronize()
+    assert qm.quant_linear.launches == before + 1
+    y = qm.scaled_partials(x.to(torch.bfloat16), qt)
+    if bias is not None:
+        y = y + bias
+    _close(got, qm.activate(y, act).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bs", [0, 64])
+@pytest.mark.parametrize("M", [1, 8, 32])
+@pytest.mark.parametrize("wdt", _FP8)
+def test_fp8_qgemv_kernel(cuda, wdt, M, bs, dtype):
+    # wqkv's shape, every epilogue (K2's three modes and K4's argmax).
+    K, N = 2048, 3072
+    x, gamma, _, res = _decode_case(M, K, N, bs, dtype, 210)
+    qt = _fp8_qt(K, N, wdt, bs, 214)
+    entries = (df.rms_quant_linear, df.quant_linear_residual, df.rms_quant_linear_swiglu,
+               df.rms_quant_linear_argmax)
+    before = [f.launches for f in entries]
+    store, resid, swig = _decode_refs(x, gamma, qt, res)
+    _close(df.rms_quant_linear(x, gamma, qt), store)
+    _close(df.quant_linear_residual(x, qt, res), resid)
+    _close(df.rms_quant_linear_swiglu(x, gamma, qt), swig)
+    vocab = N - 100
+    tok = df.rms_quant_linear_argmax(x, gamma, qt, vocab_size=vocab)
+    if bs:  # 64-row blocks: JAX's argmax entry refuses them and returns None; so does ours
+        assert tok is None
+    else:
+        _close(df.rms_quant_linear(x, gamma, qt), df.rms_quant_linear_plain(x, gamma, qt))
+        _argmax_gap(tok, x, gamma, qt, vocab)
+    torch.cuda.synchronize()
+    want = [b + 1 for b in before]
+    want[0] += bs == 0
+    want[3] -= bs != 0
+    assert [f.launches for f in entries] == want
+
+
+@pytest.mark.parametrize("wdt", _FP8)
+def test_fp8_argmax_head_kernel(cuda, wdt):
+    # Llama-3.2-1B's padded head in fp8 at M 8.
+    M, K, N, vocab = 8, 2048, 129024, 128256
+    x = _rand((M, K), 216)
+    gamma = 1.0 + _rand((K,), 217, 0.1, torch.float32)
+    qt = _fp8_qt(K, N, wdt, 0, 218)
+    before = df.rms_quant_linear_argmax.launches
+    tok = df.rms_quant_linear_argmax(x, gamma, qt, vocab_size=vocab)
+    torch.cuda.synchronize()
+    assert df.rms_quant_linear_argmax.launches == before + 1
+    _argmax_gap(tok, x, gamma, qt, vocab)
+
+
+@pytest.mark.parametrize("wdt", _FP8)
+def test_fp8_subnormal_codes(cuda, wdt):
+    # Columns whose every weight is an fp8 subnormal code: a conversion that
+    # flushed them (as bf16 subnormals, the TPU kernels' bit decode) would
+    # give zeros there. Those columns are held to their own largest output.
+    M, K, N, C = 8, 2048, 3072, 256
+    x, gamma, _, res = _decode_case(M, K, N, 0, torch.bfloat16, 220)
+    qt = _fp8_qt(K, N, wdt, 0, 224)
+    _plant_subnormals(qt.q, C)
+    store, resid, swig = _decode_refs(x, gamma, qt, torch.zeros_like(res))
+    assert store[:, :C].abs().max() > 0
+    _close(qm.quant_linear(x, qt)[:, :C],
+           qm.scaled_partials(x.to(torch.bfloat16), qt)[:, :C].to(x.dtype))
+    _close(df.rms_quant_linear(x, gamma, qt)[:, :C], store[:, :C])
+    _close(df.quant_linear_residual(x, qt, torch.zeros_like(res))[:, :C], resid[:, :C])
+    _close(df.rms_quant_linear_swiglu(x, gamma, qt)[:, :C], swig[:, :C])
+    # K7: the next layer's wqkv all subnormal codes in its first C columns.
+    H, I, NQ, bn = 2048, 8192, 3072, 512
+    _, stream = _tail_case(H, I, NQ, bn, 2, seed=225, wdt=wdt)
+    _plant_subnormals(stream.w[stream.n_wo + stream.n_gu + stream.n_down], C)
+    att, xa = _rand((M, H), 226), _rand((M, H), 227)
+    g1, g2 = 1.0 + _rand((H,), 228, 0.1, torch.float32), 1.0 + _rand((H,), 229, 0.1, torch.float32)
+    _, qkv = ls.layer_tail_stream(att, xa, g1, stream, 0, g2)
+    _, wqkv = lf.tail_plain(att, xa, g1, ls._pack_view(stream, 0, False), g2, eps=1e-5)
+    torch.cuda.synchronize()
+    _close(qkv[:, :C], wqkv[:, :C])
+
+
+@pytest.mark.parametrize("wdt", _FP8)
+def test_fp8_tiny_activations(cuda, wdt):
+    # Row 0 of x scaled by 2^-16: with the TPU kernels' decode (an operand
+    # of the fp8 value times 2^-120 or 2^-112) its products would fall under
+    # f32's smallest normal, 2^-126. Row 0 is held to its own largest value.
+    M, K, N = 8, 2048, 3072
+    x, _, _, res = _decode_case(M, K, N, 0, torch.bfloat16, 230)
+    x[0] *= 2.0 ** -16
+    res[0] = 0
+    qt = _fp8_qt(K, N, wdt, 0, 234)
+    y = qm.scaled_partials(x.to(torch.bfloat16), qt)
+    _close(qm.quant_linear(x, qt)[0], y[0].to(x.dtype))
+    _close(df.quant_linear_residual(x, qt, res)[0], (y + res.float())[0].to(x.dtype))
+    # K7: att's row 0 tiny and x's row 0 zero, so x1's row 0 is the tiny wo
+    # product alone; were it flushed, the whole row of the output would be 0.
+    H, I, NQ, bn = 2048, 8192, 3072, 512
+    packs, stream = _tail_case(H, I, NQ, bn, 2, seed=235, wdt=wdt)
+    att, xa = _rand((M, H), 236), _rand((M, H), 237)
+    att[0] *= 2.0 ** -16
+    xa[0] = 0
+    g1, g2 = 1.0 + _rand((H,), 238, 0.1, torch.float32), 1.0 + _rand((H,), 239, 0.1, torch.float32)
+    out, qkv = ls.layer_tail_stream(att, xa, g1, stream, 0, g2)
+    wout, wqkv = lf.tail_plain(att, xa, g1, packs[0], g2, eps=1e-5)
+    torch.cuda.synchronize()
+    assert wout[0].abs().max() > 0
+    _close(out[0], wout[0])
+    _close(qkv[0], wqkv[0])
+
+
+@pytest.mark.parametrize("mode", ["store", "residual", "swiglu", "argmax"])
+@pytest.mark.parametrize("wdt", _FP8)
+def test_fp8_qgemv_graph_replay_and_determinism(cuda, mode, wdt):
+    # As the int8 test: two calls bit-equal; a captured call replayed after
+    # x is rewritten in place equals an eager call on the new x.
+    M, K, N = 8, 2048, 4096
+    x, gamma, _, res = _decode_case(M, K, N, 0, torch.bfloat16, 240)
+    qt = _fp8_qt(K, N, wdt, 0, 244)
+
+    def call():
+        if mode == "store":
+            return df.rms_quant_linear(x, gamma, qt)
+        if mode == "residual":
+            return df.quant_linear_residual(x, qt, res)
+        if mode == "swiglu":
+            return df.rms_quant_linear_swiglu(x, gamma, qt)
+        return df.rms_quant_linear_argmax(x, gamma, qt, vocab_size=N - 7)
+
+    _replay_equals_eager(call, lambda seed: x.copy_(_rand((M, K), seed)))
+
+
+def _replay_equals_eager(call, refill):
+    """Two eager calls bit-equal; a CUDA graph of one call, replayed after
+    refill(seed) rewrites its inputs in place, equal to an eager call."""
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    flat = lambda o: o if isinstance(o, tuple) else (o,)  # noqa: E731
+    assert all(torch.equal(a, b) for a, b in zip(flat(first), flat(second)))
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = call()
+    for seed in (245, 246):
+        refill(seed)
+        g.replay()
+        torch.cuda.synchronize()
+        want = call()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(flat(out), flat(want)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [1, 8, 32])
+@pytest.mark.parametrize("wdt", _FP8)
+def test_fp8_layer_tail_kernel(cuda, wdt, M, dtype):
+    # Llama-3.2-1B's layer tail over fp8 packs (scale rows with JAX's fixup
+    # folded in): three layers of the stream and mlp_qkv_fused.
+    H, I, NQ, bn = 2048, 8192, 3072, 512
+    packs, stream = _tail_case(H, I, NQ, bn, 3, seed=250, wdt=wdt)
+    assert stream.w.dtype != torch.int8
+    att, x = _rand((M, H), 251, dtype=dtype), _rand((M, H), 252, dtype=dtype)
+    g1, g2 = 1.0 + _rand((H,), 253, 0.1, torch.float32), 1.0 + _rand((H,), 254, 0.1, torch.float32)
+    for layer in range(3):
+        last = layer == 2
+        before = ls.layer_tail_stream.launches
+        out, qkv = ls.layer_tail_stream(att, x, g1, stream, layer, None if last else g2)
+        torch.cuda.synchronize()
+        assert ls.layer_tail_stream.launches == before + 1
+        wout, wqkv = lf.tail_plain(att, x, g1, packs[layer], g2, eps=1e-5)
+        _close(out, wout)
+        if last:
+            assert qkv is None
+        else:
+            _close(qkv, wqkv)
+    before = lf.mlp_qkv_fused.launches
+    out, qkv = lf.mlp_qkv_fused(att, x, g1, packs[0], g2)
+    wout, wqkv = lf.tail_plain(att, x, g1, packs[0], g2, eps=1e-5)
+    torch.cuda.synchronize()
+    assert lf.mlp_qkv_fused.launches == before + 1
+    _close(out, wout)
+    _close(qkv, wqkv)
+
+
+@pytest.mark.parametrize("wdt", _FP8)
+def test_fp8_layer_tail_graph_replay_and_determinism(cuda, wdt):
+    M, H, I, NQ, bn = 8, 2048, 8192, 3072, 512
+    _, stream = _tail_case(H, I, NQ, bn, 2, seed=260, wdt=wdt)
+    att, x = _rand((M, H), 261), _rand((M, H), 262)
+    g1, g2 = 1.0 + _rand((H,), 263, 0.1, torch.float32), 1.0 + _rand((H,), 264, 0.1, torch.float32)
+
+    def refill(seed):
+        att.copy_(_rand((M, H), seed))
+        x.copy_(_rand((M, H), seed + 10))
+
+    _replay_equals_eager(lambda: ls.layer_tail_stream(att, x, g1, stream, 0, g2), refill)
+
+
+@pytest.mark.parametrize("M,dtype", [(1, torch.bfloat16), (8, torch.bfloat16),
+                                     (32, torch.float32)])
+@pytest.mark.parametrize("wdt", _FP8)
+def test_fp8_mlp_block_kernel(cuda, wdt, M, dtype):
+    H, I, bn = 2048, 8192, 2048  # Llama-3.2-1B's MLP block
+    rng = np.random.default_rng(270)
+
+    def w(*shape):
+        return quantize(torch.from_numpy((rng.standard_normal(shape) * 0.05).astype(
+            np.float32)).cuda(), wdt)
+
+    pack = dm.pack_mlp(w(H, H), w(H, 2 * I), w(I, H), bn=bn)
+    att, x = _rand((M, H), 271, dtype=dtype), _rand((M, H), 272, dtype=dtype)
+    g = 1.0 + _rand((H,), 273, 0.1, torch.float32)
+    before = dm.mlp_block_fused.launches
+    got = dm.mlp_block_fused(att, x, g, pack)
+    torch.cuda.synchronize()
+    assert dm.mlp_block_fused.launches == before + 1 and got.dtype == dtype
+    _close(got, dm.mlp_block_plain(att, x, g, pack, eps=1e-5))
+
+
 def _tables(rng, lens, NKV, HD):
     ang = torch.from_numpy(lens[:, None].astype(np.float32) * rng.uniform(
         0.001, 1.0, (1, HD // 2)).astype(np.float32)).cuda()
@@ -696,12 +980,12 @@ def _tables(rng, lens, NKV, HD):
     return torch.cat([c2, c2], -1).repeat(1, NKV), torch.cat([-s2, s2], -1).repeat(1, NKV)
 
 
-def _mega_case(H, I, NH, NKV, HD, bn, seed, with_qkv=True):
+def _mega_case(H, I, NH, NKV, HD, bn, seed, with_qkv=True, wdt="int8"):
     rng = np.random.default_rng(seed)
 
     def w(*shape):
         return quantize(torch.from_numpy((rng.standard_normal(shape) * 0.05).astype(
-            np.float32)).cuda(), "int8")
+            np.float32)).cuda(), wdt)
 
     KD = NKV * HD
     return lm.pack_mega_layer(w(NH * HD, H), w(H, 2 * I), w(I, H),
