@@ -347,9 +347,10 @@ def _sm_count() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
-def weight_copies(ws, nbytes: int) -> list:
-    """The first of ``ws`` to cycle through, so that their copies exceed L2."""
-    return ws[:max(2, int(2e8 // nbytes) + 1)]
+def copies(nbytes: int, most: int) -> int:
+    """Distinct copies of ``nbytes`` each to cycle through so that they
+    exceed L2 (at most ``most``)."""
+    return min(most, max(2, int(2e8 // nbytes) + 1))
 
 
 def prefill_row(record, name, x, ws, wdtype=None) -> None:
@@ -361,7 +362,7 @@ def prefill_row(record, name, x, ws, wdtype=None) -> None:
     from mila_tpu_torch.kernels import quant_matmul as qm
 
     (M, K), N = x.shape, ws[0].q.shape[1]
-    w_bf = [dequantize(w, torch.bfloat16) for w in weight_copies(ws, K * N * 2)]
+    w_bf = [dequantize(w, torch.bfloat16) for w in ws[:copies(K * N * 2, len(ws))]]
     got = qm.quant_linear(x, ws[0])
     want = qm.quant_linear_plain(x, ws[0])
     torch.cuda.synchronize()
@@ -409,7 +410,7 @@ def decode_row(record, entry, name, mode, ws, gam, x, res, wdtype=None) -> None:
         fn, plain = df.rms_quant_linear_swiglu, df.rms_quant_linear_swiglu_plain
         calls = [lambda w=w, gi=gi: fn(x, gi, w) for w, gi in zip(ws, gam)]
         args = (x, g, ws[0])
-    w_bf = [dequantize(w, torch.bfloat16) for w in weight_copies(ws, K * ldq * 2)]
+    w_bf = [dequantize(w, torch.bfloat16) for w in ws[:copies(K * ldq * 2, len(ws))]]
     library = [lambda w=w: torch.matmul(x, w) for w in w_bf]
     nbytes = (K * ldq + ws[0].scale.numel() * 4 + M * K * 2 + M * n_out * 2
               + (K * 4 if mode != "residual" else M * n_out * 2))
@@ -527,11 +528,6 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
             dev, bf16)
 
     rows = []
-
-    def copies(nbytes):
-        """Distinct weight copies to cycle through so that they exceed L2."""
-        return min(L, max(2, int(2e8 // nbytes) + 1))
-
     record = recorder(rows, bw, peak_ops)
 
     # quant_linear at prefill: M = max_batch * largest bucket = 1024 rows for
@@ -658,7 +654,7 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
     tgen = torch.Generator(device=dev).manual_seed(10)
     caches = [(torch.randn(1, T1, NKV, HD, device=dev, generator=tgen).to(bf16),
                torch.randn(1, T1, NKV, HD, device=dev, generator=tgen).to(bf16))
-              for _ in range(copies(T1 * KD * 2 * 2))]
+              for _ in range(copies(T1 * KD * 2 * 2, L))]
     lens1 = torch.full((1,), T1, dtype=torch.int32, device=dev)
     q1 = rand(1, 1, NH, HD, gen=np.random.default_rng(10))
     k0, v0 = caches[0]
@@ -800,7 +796,7 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
               else [blk[name]["weight"] for blk in layers4])
         K, N = ws[0].packed_rows, ws[0].q.shape[1]
         x = rand(M4, K)
-        w_bf = [dequantize(w, bf16) for w in ws[:copies(K * N * 2)]]
+        w_bf = [dequantize(w, bf16) for w in ws[:copies(K * N * 2, L)]]
         record("quant_linear_int4", f"{name} M={M4}",
                *max_err(qm.quant_linear_int4(x, ws[0]), qm.quant_linear_int4_plain(x, ws[0])),
                [lambda w=w: qm.quant_linear_int4(x, w) for w in ws],
@@ -853,7 +849,7 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
         gen = rng if (B, dtype) == (8, torch.int8) else extra
         P = B * W + 1
         quant = dtype == torch.int8
-        n_pools = copies(2 * P * NKV * HD * ps * (1 if quant else 2))
+        n_pools = copies(2 * P * NKV * HD * ps * (1 if quant else 2), L)
         pools = make_paged_pools(n_pools, NKV, HD, P, ps, dtype, dev)
         tgen = None if gen is rng else torch.Generator(device=dev).manual_seed(B)
         for name in ("k", "v"):

@@ -45,7 +45,8 @@ constexpr int WFMT_INT8 = 0, WFMT_E4M3 = 1, WFMT_E5M2 = 2;
 // multiplies it by +-2^120 or +-2^112 at once (the sign bit and the power
 // of two in one lop3; the FMA keeps subnormal inputs) and the operand is the
 // fp8 value itself, as in the K1 GEMM. No scale fixup is needed after it:
-// scales that carry one (the layer-tail packs) are divided by it.
+// scales that carry one (the layer-tail packs) are divided by it
+// (tail_phases.cuh: pack_scale_unfix).
 // Five instructions a pair: prmt (by the caller), shift, and, lop3, FMA.
 struct F8Pair {
   uint32_t shift, mask, mult;
@@ -72,13 +73,6 @@ struct S8Pair {
     return s8_pair(wa, wb, j);
   }
 };
-
-// The power of two that the layer-tail packs fold into an fp8 tile's scale
-// row (kernels/layer_fused.py:_FP8_SCALE_FIXUP), undone: F8Pair's operands
-// are the fp8 values themselves.
-__device__ __forceinline__ float pack_scale_unfix(int fmt) {
-  return fmt == WFMT_E4M3 ? 0x1p-120f : fmt == WFMT_E5M2 ? 0x1p-112f : 1.f;
-}
 
 __device__ __forceinline__ uint32_t ld_word(const unsigned char* p) {
   return *reinterpret_cast<const uint32_t*>(p);

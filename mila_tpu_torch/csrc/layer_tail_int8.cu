@@ -10,9 +10,9 @@
 // (mlp_block_fused), whose arithmetic are the first six phases.
 //
 // Bound on the H100: the one-byte tiles of the layer (60.8 MB at
-// Llama-3.2-1B, 2 * M operations per byte). The products run on mma.sync, so the phases
-// are not held by instruction issue (a conversion and M FMAs a byte on the
-// CUDA cores were, PERF.md).
+// Llama-3.2-1B, 2 * M operations per byte). The products run on mma.sync,
+// so the phases are not held by instruction issue (a conversion and M FMAs
+// a byte on the CUDA cores were, PERF.md).
 #include "tail_phases.cuh"
 
 namespace {
@@ -54,7 +54,8 @@ extern "C" int layer_tail_int8_blocks_per_sm(int m_tile, int is_f32, int wfmt, i
 // att [M, H] bf16; x, out [M, H] (f32 when is_f32, else bf16); gammas [H]
 // f32; w [Ttot, H, bn] one-byte tiles in format wfmt (0 int8, 1 fp8 e4m3fn,
 // 2 fp8 e5m2), s [Ttot, 1, bn] f32 (an fp8 pack's with JAX's fixup folded
-// in), tiles [base, base + n_tiles) used; qkv [M, n_qkv * bn] or null when n_qkv == 0. Scratch (f32):
+// in), tiles [base, base + n_tiles) used; qkv [M, n_qkv * bn] or null when
+// n_qkv == 0. Scratch (f32):
 // p_wo [ks_wo, M, H], x1 [M, H], ssq1 [M, grid], p_gu [ks_gu, M, 2I],
 // hbuf [M, I], p_down [(I / H) * ks_down, M, H], xo [M, H], ssq2 [M, grid],
 // p_q [ks_q, M, n_qkv * bn], each 16-byte aligned. Units of cols_* (128 or

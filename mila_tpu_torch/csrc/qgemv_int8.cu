@@ -31,7 +31,8 @@
 // QTensor's scales apply as they are; the TPU kernels' bit decode needs
 // its 2^120 / 2^112 scale fixup, this one does not. The format is a launch
 // argument and picks the conversion once a stage (a uniform branch around
-// the stage's products), so fp8 adds no instantiation. Per weight byte: 2 conversion instructions, 0.25 shared loads, and
+// the stage's products), so fp8 adds no instantiation. Per int8 weight
+// byte: 2 conversion instructions, 0.25 shared loads, and
 // the mma and x's fragments about 0.2 more at M 8: about 2.5
 // lane-instructions a byte, against the issue budget of about 9. (A first
 // version through f32, 2^23 + s + 128 less 2^23 + 128, took 2.75 a byte.)
@@ -420,8 +421,8 @@ int run(const void* x, const void* gamma, const void* q, const void* scale, cons
 
 // x [M, K]; gamma [K] f32 or null (rms = 0); q [K, ldq] one-byte weights
 // in format wfmt (0 int8, 1 fp8 e4m3fn, 2 fp8 e5m2); scale [K / block_size,
-// ldq] f32, the QTensor's own (no fp8 fixup); res [M, N] or null; out [M, N]. N is the
-// output width: ldq for store/residual, ldq / 2 for SwiGLU (gate columns
+// ldq] f32, the QTensor's own (no fp8 fixup); res [M, N] or null; out
+// [M, N]. N is the output width: ldq for store/residual, ldq / 2 for SwiGLU (gate columns
 // [0, N), up columns [N, 2N)). mode: 0 store, 1 +residual, 2 SwiGLU.
 // ksplit (1, 2, 4 or 8: one cluster) slices of kc = K / ksplit rows (kc %
 // 64 == 0); block_size % 64 == 0 or block_size == K. m_tile 8, 16 or 32 (M

@@ -16,8 +16,8 @@
 // scale row [T, 1, bn] per tile; a tail reads tiles [base, base + n_tiles).
 // The tiles are int8 (FP8 = false) or fp8 (FP8 = true; e4m3fn or e5m2 by
 // Params::wfmt), one instantiation each: layer_tail_int8.cu builds both, K8
-// the int8 one alone. (One runtime branch a stage between the two
-// conversions cost the int8 tail 5-9 % on the card, PERF.md.) An fp8
+// the int8 one alone. (With one runtime branch a stage between the two
+// conversions instead, the int8 tail read 5-9 % slower, PERF.md.) An fp8
 // pack's scale rows carry JAX's decode fixup (2^120 or 2^112); the phases
 // convert fp8 to its exact bf16 value (F8Pair, gemv.cuh) and divide the
 // fixup out of each scale row.
@@ -150,8 +150,15 @@ struct Params {
   float *p_wo, *x1, *ssq1, *p_gu, *hbuf, *p_down, *xo, *ssq2, *p_q;
   int M, H, I, bn, base, n_qkv, ks_wo, ks_gu, ks_down, ks_q, cols_wo, cols_gu, cols_down, cols_q;
   float eps;
-  int wfmt;  // WFMT_* of the tiles (gemv.cuh); left 0, int8, by K8
+  int wfmt;  // WFMT_* of the tiles (gemv.cuh)
 };
+
+// The power of two that the layer-tail packs fold into an fp8 tile's scale
+// row (kernels/layer_fused.py:_FP8_SCALE_FIXUP), undone: F8Pair's operands
+// are the fp8 values themselves.
+__device__ __forceinline__ float pack_scale_unfix(int fmt) {
+  return fmt == WFMT_E4M3 ? 0x1p-120f : 0x1p-112f;
+}
 
 // A block's stream of weight stages in a phase. Its i-th unit, u =
 // blockIdx.x + i * gridDim.x, is (tile u / (ks * groups), column group (u /

@@ -8,11 +8,11 @@ JAX package runs on the CPU in interpret mode) and ``_mlp_manual_kernel``
 (``models/llama.py:pack_decode_mlp``).
 
 The pack (``pack_mlp``) is ``pack_layer``'s stream without a next wqkv, at
-bn = 2048 by default: uniform [bk = H, bn] int8 tiles in the order
+bn = 2048 by default: uniform [bk = H, bn] int8 or fp8 tiles in the order
 ``[wo | g0 u0 g1 u1 ... | down k-major]`` with one f32 scale row per tile
 (the fp8 fixup folded in), byte for byte the JAX pack.
 
-What bounds it on the H100: the int8 weight bytes (54.5 MB at Llama-3.2-1B;
+What bounds it on the H100: the one-byte weights (54.5 MB at Llama-3.2-1B;
 2 * M operations per byte at M <= 32). Its arithmetic and tile order are
 the first six phases of the layer-tail kernel (x1 = (att @ wo) * s + x in
 f32, xn = bf16(x1 * rstd * gamma), h = bf16(silu(g) * u), out = (h @ down)

@@ -531,29 +531,38 @@ def test_qgemv_int8_graph_replay_and_determinism(cuda, mode, M, K, N):
     # cluster); a captured call replayed after x is rewritten in place
     # equals an eager call on the new x.
     x, gamma, qt, res = _decode_case(M, K, N, 0, torch.bfloat16, 120)
+    _replay_equals_eager(_decode_call(mode, x, gamma, qt, res, N - 7),
+                         lambda seed: x.copy_(_rand((M, K), seed)), (121, 122))
 
-    def call():
-        if mode == "store":
-            return df.rms_quant_linear(x, gamma, qt)
-        if mode == "residual":
-            return df.quant_linear_residual(x, qt, res)
-        if mode == "swiglu":
-            return df.rms_quant_linear_swiglu(x, gamma, qt)
-        return df.rms_quant_linear_argmax(x, gamma, qt, vocab_size=N - 7)
 
+def _decode_call(mode, x, gamma, qt, res, vocab):
+    """A closure calling the decode entry of ``mode`` on these inputs."""
+    if mode == "store":
+        return lambda: df.rms_quant_linear(x, gamma, qt)
+    if mode == "residual":
+        return lambda: df.quant_linear_residual(x, qt, res)
+    if mode == "swiglu":
+        return lambda: df.rms_quant_linear_swiglu(x, gamma, qt)
+    return lambda: df.rms_quant_linear_argmax(x, gamma, qt, vocab_size=vocab)
+
+
+def _replay_equals_eager(call, refill, seeds):
+    """Two eager calls bit-equal; a CUDA graph of one call, replayed after
+    refill(seed) rewrites its inputs in place, equal to an eager call."""
+    flat = lambda o: o if isinstance(o, tuple) else (o,)  # noqa: E731
     first, second = call(), call()
     torch.cuda.synchronize()
-    assert torch.equal(first, second)
+    assert all(torch.equal(a, b) for a, b in zip(flat(first), flat(second)))
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
         out = call()
-    for seed in (121, 122):
-        x.copy_(_rand((M, K), seed))
+    for seed in seeds:
+        refill(seed)
         g.replay()
         torch.cuda.synchronize()
         want = call()
         torch.cuda.synchronize()
-        assert torch.equal(out, want)
+        assert all(torch.equal(a, b) for a, b in zip(flat(out), flat(want)))
 
 
 def test_qgemv_int8_one_launch_a_call(cuda):
@@ -635,24 +644,15 @@ def test_layer_tail_graph_replay_and_determinism(cuda, M):
     _, stream = _tail_case(H, I, NQ, bn, 2, seed=140)
     att, x = _rand((M, H), 141), _rand((M, H), 142)
     g1, g2 = 1.0 + _rand((H,), 143, 0.1, torch.float32), 1.0 + _rand((H,), 144, 0.1, torch.float32)
+    _replay_equals_eager(lambda: ls.layer_tail_stream(att, x, g1, stream, 0, g2),
+                         _tail_refill(att, x), (145, 146))
 
-    def call():
-        return ls.layer_tail_stream(att, x, g1, stream, 0, g2)
 
-    first, second = call(), call()
-    torch.cuda.synchronize()
-    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        out = call()
-    for seed in (145, 146):
-        att.copy_(_rand((M, H), seed))
-        x.copy_(_rand((M, H), seed + 10))
-        g.replay()
-        torch.cuda.synchronize()
-        want = call()
-        torch.cuda.synchronize()
-        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+def _tail_refill(att, x):
+    def refill(seed):
+        att.copy_(_rand(tuple(att.shape), seed))
+        x.copy_(_rand(tuple(x.shape), seed + 10))
+    return refill
 
 
 def test_layer_tail_smallest_slice(cuda):
@@ -874,36 +874,8 @@ def test_fp8_qgemv_graph_replay_and_determinism(cuda, mode, wdt):
     M, K, N = 8, 2048, 4096
     x, gamma, _, res = _decode_case(M, K, N, 0, torch.bfloat16, 240)
     qt = _fp8_qt(K, N, wdt, 0, 244)
-
-    def call():
-        if mode == "store":
-            return df.rms_quant_linear(x, gamma, qt)
-        if mode == "residual":
-            return df.quant_linear_residual(x, qt, res)
-        if mode == "swiglu":
-            return df.rms_quant_linear_swiglu(x, gamma, qt)
-        return df.rms_quant_linear_argmax(x, gamma, qt, vocab_size=N - 7)
-
-    _replay_equals_eager(call, lambda seed: x.copy_(_rand((M, K), seed)))
-
-
-def _replay_equals_eager(call, refill):
-    """Two eager calls bit-equal; a CUDA graph of one call, replayed after
-    refill(seed) rewrites its inputs in place, equal to an eager call."""
-    first, second = call(), call()
-    torch.cuda.synchronize()
-    flat = lambda o: o if isinstance(o, tuple) else (o,)  # noqa: E731
-    assert all(torch.equal(a, b) for a, b in zip(flat(first), flat(second)))
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        out = call()
-    for seed in (245, 246):
-        refill(seed)
-        g.replay()
-        torch.cuda.synchronize()
-        want = call()
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(flat(out), flat(want)))
+    _replay_equals_eager(_decode_call(mode, x, gamma, qt, res, N - 7),
+                         lambda seed: x.copy_(_rand((M, K), seed)), (245, 246))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -944,12 +916,8 @@ def test_fp8_layer_tail_graph_replay_and_determinism(cuda, wdt):
     _, stream = _tail_case(H, I, NQ, bn, 2, seed=260, wdt=wdt)
     att, x = _rand((M, H), 261), _rand((M, H), 262)
     g1, g2 = 1.0 + _rand((H,), 263, 0.1, torch.float32), 1.0 + _rand((H,), 264, 0.1, torch.float32)
-
-    def refill(seed):
-        att.copy_(_rand((M, H), seed))
-        x.copy_(_rand((M, H), seed + 10))
-
-    _replay_equals_eager(lambda: ls.layer_tail_stream(att, x, g1, stream, 0, g2), refill)
+    _replay_equals_eager(lambda: ls.layer_tail_stream(att, x, g1, stream, 0, g2),
+                         _tail_refill(att, x), (265, 266))
 
 
 @pytest.mark.parametrize("M,dtype", [(1, torch.bfloat16), (8, torch.bfloat16),
