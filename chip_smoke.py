@@ -236,13 +236,15 @@ def max_row_err(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> fl
     return (d / scale).max().item()
 
 
-def max_elem_rel_err(got: torch.Tensor, want: torch.Tensor, floor: float) -> float:
-    """max over elements of |got - want| / (|want| + floor x max |want|): each
-    element held to its own size, so a small wrong value fails too."""
+def max_elem_rel_err(got: torch.Tensor, want: torch.Tensor, floor: float,
+                     extra: float = 0.0) -> float:
+    """max over elements of |got - want| / (|want| + floor x max |want| +
+    extra): each element held to its own size, so a small wrong value fails
+    too."""
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError("kernel output is not finite")
-    scale = want.abs() + (floor * want.abs().max().item() + 1e-30)
+    scale = want.abs() + (floor * want.abs().max().item() + extra + 1e-30)
     return ((got - want).abs() / scale).max().item()
 
 
@@ -1584,14 +1586,16 @@ def phase_serve_long(model, params, cfg, rng):
 # ---------------------------------------------------------------------------
 
 F32_OPS = 67e12  # H100 SXM f32 outside the tensor cores (NVIDIA data sheet)
+FP16_ATTENTION = "xla"  # GPT-2 in fp16 attends by the plain product
 
 
-def gpt2_config(layers=None):
+def gpt2_config(layers=None, dtype: str = "bfloat16", attention: str = "flash"):
     """GPT-2 124M at full width (L 12, C 768, NH 12, vocab 50257 -> 50304,
-    T 1024, tied), bf16 params, the flash kernels; ``layers`` cuts depth."""
+    T 1024, tied), ``dtype`` params (bf16 unless named), the flash kernels;
+    ``layers`` cuts depth."""
     from mila_tpu_torch.models.gpt2 import GPT2Config
 
-    cfg = GPT2Config.gpt2_124m().replace(param_dtype="bfloat16", attention_impl="flash")
+    cfg = GPT2Config.gpt2_124m().replace(param_dtype=dtype, attention_impl=attention)
     return cfg if layers is None else cfg.replace(num_layers=layers)
 
 
@@ -1727,14 +1731,21 @@ def phase_train_kernels(bw, peak_ops, rng):
 
     def lib_step(leaf, grad):
         lib_p = torch.nn.Parameter(leaf.clone())
-        lib_p.grad = grad.float()
+        lib_p.grad = grad.to(leaf.dtype)
         return torch.optim.AdamW([lib_p], lr=1e-3, weight_decay=0.1, fused=True).step
 
-    # (label, p, g, m, v, master, noise, bytes per element read and written once)
-    cases = ((f"wte SR n={n}", p, g, mom, vel, w, noise, 34),
-             (f"wte nearest, no master n={n}", p, g, mom, vel, None, None, 22),
-             (f"LayerNorm f32 + master n={c}", ln, ln_g, ln_m, ln_v, ln, None, 36))
-    for label, p_, g_, m_, v_, w_, nz, per in cases:
+    # wte in fp16 with its f32 master (GPT-2 in fp16 with SR masters): the
+    # param rounded to nearest, as JAX's kernel and AdamW give it.
+    p16, g16 = w.half(), g.half()
+    # (label, p, g, m, v, master, noise, bytes per element read and written
+    # once, the library's leaf and what it is)
+    f32_lib = "torch.optim.AdamW(fused=True), f32, no SR"
+    cases = ((f"wte SR n={n}", p, g, mom, vel, w, noise, 34, w, f32_lib),
+             (f"wte nearest, no master n={n}", p, g, mom, vel, None, None, 22, w, f32_lib),
+             (f"LayerNorm f32 + master n={c}", ln, ln_g, ln_m, ln_v, ln, None, 36, ln, f32_lib),
+             (f"wte fp16 + master n={n}", p16, g16, mom, vel, w, None, 30, p16,
+              "torch.optim.AdamW(fused=True), fp16 param, no master"))
+    for label, p_, g_, m_, v_, w_, nz, per, lib_leaf, lib_what in cases:
         kw = dict(step=10, lr=1e-3, weight_decay=0.1, noise=nz, grad_scale=0.5)
         args = (p_, g_, m_, v_, w_)
         got = fw.fused_adamw_update(*args, **kw)
@@ -1747,11 +1758,10 @@ def phase_train_kernels(bw, peak_ops, rng):
                [lambda a_=args, kw_=kw: fw.fused_adamw_update(*a_, **kw_)],
                lambda a_=args, kw_=kw: fw.fused_adamw_update_plain(*a_, **kw_),
                None, per * p_.numel(), 14 * p_.numel(), gate="bit-equal to the plain version",
-               library_eager=lib_step(w if p_ is p else ln, g_),
-               library_what="torch.optim.AdamW(fused=True), f32, no SR",
-               peak=F32_OPS)
+               library_eager=lib_step(lib_leaf, g_), library_what=lib_what, peak=F32_OPS,
+               dtype=str(p_.dtype).replace("torch.", ""))
         del got, want
-    del w, p, g, mom, vel, noise, cases, args
+    del w, p, g, mom, vel, noise, cases, args, p16, g16
 
     # K13 at GPT-2's logits, [8192, 50304] bf16, every 7th row ignored.
     # Gates: each loss within 1e-4 + 1e-5 |ref| of the plain version's (a
@@ -1764,57 +1774,65 @@ def phase_train_kernels(bw, peak_ops, rng):
     t[::7] = -100
     t32 = t.to(torch.int32)
     gl = torch.full((M,), 1.0 / M, device=dev)
-    loss = ce.fused_softmax_cross_entropy(x, t)
-    want = ce.fused_softmax_cross_entropy_plain(x, t32)
-    excess = ((loss - want).abs() - 1e-5 * want.abs()).max().item()
-    if not torch.isfinite(loss).all() or excess > 1e-4:
-        raise AssertionError(f"fused_softmax_cross_entropy: a loss is {excess} beyond "
-                             "1e-5 |ref| + 1e-4 from the plain version's")
-    record("fused_softmax_cross_entropy", f"M={M} V={V} bf16", *max_err(loss, want),
-           [lambda: ce.fused_softmax_cross_entropy(x, t)],
-           lambda: ce.fused_softmax_cross_entropy_plain(x, t32),
-           [lambda: F.cross_entropy(x, t, reduction="none")], 2 * M * V + 8 * M,
-           4 * M * V, gate="each loss within 1e-4 + 1e-5 |ref|",
-           library_what="F.cross_entropy forward", peak=F32_OPS, excess_over_rtol=excess)
-    d = ce.fused_softmax_cross_entropy_bwd(x, t32, gl)
-    want = ce.fused_softmax_cross_entropy_bwd_plain(x, t32, gl)
-    d_rel = max_elem_rel_err(d, want, floor=1e-8)
-    if d_rel > 2 ** -7:
-        raise AssertionError(f"fused_softmax_cross_entropy_bwd: a dlogit is {d_rel} of its "
-                             "own size from the plain version's (gate 2^-7)")
-    xr = x.detach().requires_grad_()
+    # The same rows on the logits in fp16 (GPT-2 trained in fp16): the
+    # same gates, but a dlogit may also be one step of fp16's subnormal
+    # range (2^-24) away, where both sides round f32 values a few ulps
+    # apart (extra: 2^-24 / 2^-7 added to each element's scale).
+    for x, tag, sub in ((x, "bf16", 0.0), (x.half(), "fp16", 2.0 ** -17)):
+        loss = ce.fused_softmax_cross_entropy(x, t)
+        want = ce.fused_softmax_cross_entropy_plain(x, t32)
+        excess = ((loss - want).abs() - 1e-5 * want.abs()).max().item()
+        if not torch.isfinite(loss).all() or excess > 1e-4:
+            raise AssertionError(f"fused_softmax_cross_entropy[{tag}]: a loss is {excess} beyond "
+                                 "1e-5 |ref| + 1e-4 from the plain version's")
+        record("fused_softmax_cross_entropy", f"M={M} V={V} {tag}", *max_err(loss, want),
+               [lambda: ce.fused_softmax_cross_entropy(x, t)],
+               lambda: ce.fused_softmax_cross_entropy_plain(x, t32),
+               [lambda: F.cross_entropy(x, t, reduction="none")], 2 * M * V + 8 * M,
+               4 * M * V, gate="each loss within 1e-4 + 1e-5 |ref|",
+               library_what="F.cross_entropy forward", peak=F32_OPS, excess_over_rtol=excess,
+               dtype=tag)
+        d = ce.fused_softmax_cross_entropy_bwd(x, t32, gl)
+        want = ce.fused_softmax_cross_entropy_bwd_plain(x, t32, gl)
+        d_rel = max_elem_rel_err(d, want, floor=1e-8, extra=sub)
+        if d_rel > 2 ** -7:
+            raise AssertionError(f"fused_softmax_cross_entropy_bwd[{tag}]: a dlogit is {d_rel} "
+                                 "of its own size from the plain version's (gate 2^-7)")
+        xr = x.detach().requires_grad_()
 
-    def library():
-        return torch.autograd.grad(F.cross_entropy(xr, t, reduction="none"), xr, gl)
+        def library():
+            return torch.autograd.grad(F.cross_entropy(xr, t, reduction="none"), xr, gl)
 
-    # The library's backward alone, as row 16's: autograd.grad on one saved
-    # F.cross_entropy forward, by the card's own time (the profiler's kernel
-    # times) and as 20 back-to-back calls between CUDA events; ours the same
-    # ways beside its graph replay (ms).
-    s_loss = F.cross_entropy(xr, t, reduction="none")
+        # The library's backward alone, as row 16's: autograd.grad on one saved
+        # F.cross_entropy forward, by the card's own time (the profiler's kernel
+        # times) and as 20 back-to-back calls between CUDA events; ours the same
+        # ways beside its graph replay (ms).
+        s_loss = F.cross_entropy(xr, t, reduction="none")
 
-    def library_bwd():
-        return torch.autograd.grad(s_loss, xr, gl, retain_graph=True)
+        def library_bwd():
+            return torch.autograd.grad(s_loss, xr, gl, retain_graph=True)
 
-    def ours_bwd():
-        return ce.fused_softmax_cross_entropy_bwd(x, t32, gl)
+        def ours_bwd():
+            return ce.fused_softmax_cross_entropy_bwd(x, t32, gl)
 
-    library_bwd_device_ms = device_ms(library_bwd)
-    library_bwd_ms = time_back_to_back(library_bwd)
-    del s_loss
-    record("fused_softmax_cross_entropy_bwd", f"M={M} V={V} bf16", *max_err(d, want),
-           [ours_bwd], lambda: ce.fused_softmax_cross_entropy_bwd_plain(x, t32, gl), None,
-           4 * M * V + 8 * M, 6 * M * V,
-           gate="each dlogit within 2^-7 of |ref| + 1e-8 max |ref|",
-           library_timed=library_bwd_device_ms,
-           library_what="F.cross_entropy backward alone (autograd.grad on one saved "
-                        "forward), device time from the profiler", peak=F32_OPS,
-           max_elem_rel_err=d_rel, variant=ce.ce_bwd_variant(V, x.element_size()),
-           library_bwd_device_ms=library_bwd_device_ms,
-           library_bwd_ms=library_bwd_ms, bwd_device_ms=device_ms(ours_bwd),
-           bwd_back_to_back_ms=time_back_to_back(ours_bwd),
-           library_fwd_bwd_ms=time_eager(library))
-    del x, d, want, xr
+        library_bwd_device_ms = device_ms(library_bwd)
+        library_bwd_ms = time_back_to_back(library_bwd)
+        del s_loss
+        record("fused_softmax_cross_entropy_bwd", f"M={M} V={V} {tag}", *max_err(d, want),
+               [ours_bwd], lambda: ce.fused_softmax_cross_entropy_bwd_plain(x, t32, gl), None,
+               4 * M * V + 8 * M, 6 * M * V,
+               gate="each dlogit within 2^-7 of |ref| + 1e-8 max |ref|"
+                    + (" + 2^-24 (one fp16 subnormal step)" if sub else ""),
+               library_timed=library_bwd_device_ms,
+               library_what="F.cross_entropy backward alone (autograd.grad on one saved "
+                            "forward), device time from the profiler", peak=F32_OPS,
+               max_elem_rel_err=d_rel, variant=ce.ce_bwd_variant(V, x.element_size()),
+               library_bwd_device_ms=library_bwd_device_ms,
+               library_bwd_ms=library_bwd_ms, bwd_device_ms=device_ms(ours_bwd),
+               bwd_back_to_back_ms=time_back_to_back(ours_bwd),
+               library_fwd_bwd_ms=time_eager(library), dtype=tag)
+        del d, want, xr
+    del x
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return rows
@@ -1864,17 +1882,17 @@ def tree_cosines(ref, got) -> tuple[float, float]:
     return cos_min, rel_max
 
 
-def phase_parity_train(rng):
+def phase_parity_train(rng, dtype: str = "bfloat16", attention: str = "flash"):
     """A 2-layer GPT-2 at full width (C 768, NH 12, T 1024, vocab 50304), B
-    2, bf16 with SR masters, flash: the loss and every gradient leaf, then
-    one Model train step (clip, AdamW), on the card and on the port's CPU
-    path from the same params, batch and noise (one CPU generator's
-    draws)."""
+    2, ``dtype`` params (bf16 unless named) with SR masters, flash: the loss
+    and every gradient leaf, then one Model train step (clip, AdamW), on the
+    card and on the port's CPU path from the same params, batch and noise
+    (one CPU generator's draws)."""
     from mila_tpu_torch.models.gpt2 import GPT2
     from mila_tpu_torch.models.model import Model, ModelConfig
     from mila_tpu_torch.utils.tree import tree_leaves, tree_map
 
-    cfg = gpt2_config(layers=2)
+    cfg = gpt2_config(layers=2, dtype=dtype, attention=attention)
     B, T, lr = 2, 1024, 1e-3
     toks = rng.integers(0, cfg.vocab_size, (B, T + 1))
     out = {}
@@ -1902,7 +1920,8 @@ def phase_parity_train(rng):
     m_cos, m_rel = tree_cosines(s_c.m, s_g.m)
     v_cos, v_rel = tree_cosines(s_c.v, s_g.v)
     worst = masters_agree(s_c.master, s_g.master, s_c.m, lr)
-    return {"model": "gpt2-124m widths, 2 layers, bf16 + SR masters, flash, random weights",
+    return {"model": f"gpt2-124m widths, 2 layers, {dtype} + SR masters, {attention} attention, "
+                     "random weights",
             "shape": f"B={B} T={T}", "loss_card": l_g, "loss_cpu": l_c,
             "grads": {"min_cosine": g_cos, "max_rel_err": g_rel, "leaves": len(tree_leaves(g_g))},
             "m": {"min_cosine": m_cos, "max_rel_err": m_rel},
@@ -1941,21 +1960,25 @@ def adamw_device_ms(model, grads) -> float:
     return time_graph([update], reps=5)
 
 
-def phase_train(peak_ops, rng, steps: int = 12):
-    """GPT-2 124M at full size (bf16 params, f32 SR masters, clip 1.0, flash),
-    B 8, T 1024: Model.train over ``steps`` batches of synthetic windows with
-    structure (each one of 4 fixed random sequences, so the loss must fall),
-    then Model.evaluate on one batch. Launch counts per train step:
-    flash_attention_forward L, flash_attention_bwd L, the CE forward and
-    backward once each, fused_adamw_update once per parameter leaf (148);
-    per eval step flash_attention L and the CE forward once; no plain
-    version anywhere."""
+def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16",
+                attention: str = "flash", full: bool = True):
+    """GPT-2 124M at full size (``dtype`` params, bf16 unless named; f32 SR
+    masters, clip 1.0, flash), B 8, T 1024: Model.train over ``steps``
+    batches of synthetic windows with structure (each one of 4 fixed random
+    sequences, so the loss must fall), then Model.evaluate on one batch.
+    Launch counts per train step: flash_attention_forward L,
+    flash_attention_bwd L, the CE forward and backward once each,
+    fused_adamw_update once per parameter leaf (148); per eval step
+    flash_attention L and the CE forward once; no plain version anywhere.
+    ``full``: hold the loss to the fall gate and split three more steps into
+    their segments (the bf16 run); otherwise report the losses and whether
+    they fall."""
     from mila_tpu_torch.data.loader import ArrayReader
     from mila_tpu_torch.models.gpt2 import GPT2
     from mila_tpu_torch.models.model import Model, ModelConfig
     from mila_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
-    cfg = gpt2_config()
+    cfg = gpt2_config(dtype=dtype, attention=attention)
     B, T, L = 8, 1024, cfg.num_layers
     t0 = time.monotonic()
     model = Model(GPT2(cfg), train_optimizer(), ModelConfig(epochs=1, verbose=False))
@@ -1981,24 +2004,43 @@ def phase_train(peak_ops, rng, steps: int = 12):
         return res
 
     model._train_step = timed
-    per_step = {"flash_attention_forward": L, "flash_attention_bwd": L,
+    flash = attention == "flash"
+    per_step = {"flash_attention_forward": L * flash, "flash_attention_bwd": L * flash,
                 "fused_softmax_cross_entropy": 1, "fused_softmax_cross_entropy_bwd": 1,
                 "fused_adamw_update": n_leaves}
     torch.cuda.reset_peak_memory_stats()
-    _, t_counts = run_counted("train", lambda: model.train(reader),
+    tag = "" if dtype == "bfloat16" else f" {dtype}"
+    _, t_counts = run_counted("train" + tag, lambda: model.train(reader),
                               {k: v * steps for k, v in per_step.items()})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     model._train_step = inner
     ev = ArrayReader(data[:B, :-1], data[:B, 1:], B, shuffle=False)
-    val, e_counts = run_counted("evaluate", lambda: model.evaluate(ev),
-                                {"flash_attention": L, "fused_softmax_cross_entropy": 1})
+    val, e_counts = run_counted("evaluate" + tag, lambda: model.evaluate(ev),
+                                {"flash_attention": L * flash, "fused_softmax_cross_entropy": 1})
     # Falling: the median of the last 4 steps' losses (lr 1e-3 with no warm-up
     # spikes a step now and then) and the eval loss at least 1 nat under the
     # first step's.
     tail = statistics.median(losses[-4:])
-    if (not all(np.isfinite(losses)) or not np.isfinite(val) or not tail < losses[0] - 1.0
-            or not val < losses[0] - 1.0):
-        raise AssertionError(f"train: losses {losses}, eval {val}: not finite and falling")
+    falls = bool(tail < losses[0] - 1.0 and val < losses[0] - 1.0)
+    if not all(np.isfinite(losses)) or not np.isfinite(val):
+        raise AssertionError(f"train{tag}: losses {losses}, eval {val}: not finite")
+    step_s = statistics.median(times[2:])
+    D, NH = cfg.embedding_dim // cfg.num_heads, cfg.num_heads
+    flops = 6 * n_params * B * T + 7 * T * T * D * B * NH * L
+    out = {"model": f"gpt2-124m, {dtype} params + f32 SR masters, {attention} attention, "
+                    "random weights",
+           "shape": f"B={B} T={T}", "steps": steps, "params": n_params, "leaves": n_leaves,
+           "build_s": build_s, "ms_per_step": step_s * 1e3,
+           "step_ms_all": [t * 1e3 for t in times], "tokens_per_s": B * T / step_s,
+           "model_tflop_per_step": flops / 1e12, "mfu": flops / step_s / peak_ops,
+           "mfu_note": "model FLOPs utilisation against the published bf16 peak",
+           "loss_first": losses[0], "loss_last": losses[-1], "loss_median_last4": tail,
+           "losses": losses, "eval_loss": val, "falls_1_nat": falls, "peak_mem_gb": peak_gb,
+           "launches_per_step": per_step, "launches": t_counts, "launches_eval": e_counts}
+    if not full:
+        return t_counts, e_counts, out
+    if not falls:
+        raise AssertionError(f"train: losses {losses}, eval {val}: not falling by 1 nat")
 
     # Three more steps, each split into forward + loss, backward and AdamW:
     # the device's time between CUDA events and the host's clock between
@@ -2034,22 +2076,10 @@ def phase_train(peak_ops, rng, steps: int = 12):
     adamw_graph_ms = adamw_device_ms(model, tree_unflatten(model.params, list(grads)))
     del grads, leaves, loss
 
-    step_s = statistics.median(times[2:])
-    D, NH = cfg.embedding_dim // cfg.num_heads, cfg.num_heads
-    flops = 6 * n_params * B * T + 7 * T * T * D * B * NH * L
     return t_counts, e_counts, {
-        "model": "gpt2-124m, bf16 params + f32 SR masters, flash, random weights",
-        "shape": f"B={B} T={T}", "steps": steps, "params": n_params, "leaves": n_leaves,
-        "build_s": build_s, "ms_per_step": step_s * 1e3, "step_ms_all": [t * 1e3 for t in times],
-        "tokens_per_s": B * T / step_s, "model_tflop_per_step": flops / 1e12,
-        "mfu": flops / step_s / peak_ops, "mfu_note": "model FLOPs utilisation against the "
-        "published bf16 peak", "loss_first": losses[0], "loss_last": losses[-1],
-        "loss_median_last4": tail,
-        "losses": losses, "eval_loss": val, "peak_mem_gb": peak_gb,
-        "step_split_ms": {k: statistics.median(v) for k, v in split.items()},
+        **out, "step_split_ms": {k: statistics.median(v) for k, v in split.items()},
         "step_split_ms_all": split, "step_split_host_ms_all": host,
-        "adamw_graph_ms": adamw_graph_ms, "adamw_bound_ms": 34 * n_params / 3.35e12 * 1e3,
-        "launches_per_step": per_step, "launches": t_counts, "launches_eval": e_counts}
+        "adamw_graph_ms": adamw_graph_ms, "adamw_bound_ms": 34 * n_params / 3.35e12 * 1e3}
 
 
 SOURCES = {
@@ -2218,6 +2248,14 @@ def main() -> int:
     emit({"phase": "parity train", "card": card, **parity_train})
     t_counts, e_counts, train = phase_train(peak_ops, rng)
     emit({"phase": "train", "card": card, **train})
+    # GPT-2 in fp16 (SR masters as in train): the card against the CPU path
+    # at 2 layers, then 124M for 2 warm-up and 4 timed steps.
+    parity_train16 = phase_parity_train(np.random.default_rng(20), "float16", FP16_ATTENTION)
+    emit({"phase": "parity train fp16", "card": card, **parity_train16})
+    t16_counts, e16_counts, train16 = phase_train(peak_ops, np.random.default_rng(21), steps=6,
+                                                  dtype="float16", attention=FP16_ATTENTION,
+                                                  full=False)
+    emit({"phase": "train fp16", "card": card, **train16})
 
     by_path = {"serve paged": counts, "serve contiguous": c_counts, "serve giga": g_counts,
                "serve fp8": f_counts,
@@ -2227,7 +2265,8 @@ def main() -> int:
                "giga prefill": giga["launches_prefill"], "giga": giga["launches"],
                "mega prefill": mega["launches_prefill"], "mega": mega["launches"],
                "generate": generate["launches"], "generate mlp": generate_mlp["launches"],
-               "serve long": l_counts, "train": t_counts, "evaluate": e_counts}
+               "serve long": l_counts, "train": t_counts, "evaluate": e_counts,
+               "train fp16": t16_counts, "evaluate fp16": e16_counts}
     summary = []
     for entry, (source, replaces) in SOURCES.items():
         mine = [r for r in rows if r["entry"] == entry]
@@ -2243,6 +2282,7 @@ def main() -> int:
                                       else "none: no one call computes it"),
             "shape": top["shape"], "wdtype": top["wdtype"],
             "wdtypes": sorted({r["wdtype"] for r in mine if r["wdtype"]}),
+            "dtypes": sorted({r["dtype"] for r in mine if r.get("dtype")}),
             "launches_by_path": {p: c[entry] for p, c in by_path.items() if c[entry]},
             "shapes": mine})
         if entry == "mlp_qkv_fused":
@@ -2257,7 +2297,9 @@ def main() -> int:
                        "giga": giga, "mega": mega, "generate": generate,
                        "generate_mlp": generate_mlp, "serve": serve, "serve_fp8": serve8,
                        "serve_long": serve_long,
-                       "parity_train": parity_train, "train": train, "summary": summary,
+                       "parity_train": parity_train, "train": train,
+                       "parity_train_fp16": parity_train16, "train_fp16": train16,
+                       "summary": summary,
                        "total_s": time.monotonic() - t_start}, f, indent=1)
     emit({"kernels": summary})
     print(card, flush=True)

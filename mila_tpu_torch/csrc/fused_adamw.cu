@@ -7,11 +7,14 @@
 //   v' = b2 * v + (1 - b2) * g * g
 //   w' = w - lr * ((m' / bc1) / (sqrt(v' / bc2) + eps) + wd * w)
 // with w the f32 master where there is one, else the parameter itself; the
-// parameter is written back as w' rounded to its dtype, or, for a bf16
-// parameter with a master, stochastically: (bits(w') + (noise & 0xffff)) &
+// parameter is written back as w' rounded to its dtype (nearest even), or,
+// for a bf16 parameter with a master, stochastically: (bits(w') + (noise & 0xffff)) &
 // 0xffff0000, the TPU kernel's construction, from caller-supplied uint32
 // noise (the TPU kernel draws it with jax.random.bits; the caller here draws
-// it from a torch.Generator, so a test can feed JAX's bits).
+// it from a torch.Generator, so a test can feed JAX's bits). An fp16
+// parameter is rounded to nearest, master or not: JAX's kernel does so, and
+// JAX's AdamW, whose fp16 "stochastic" rounding steps to the neighbouring
+// f32 value and casts back, gives the nearest fp16 value too.
 //
 // Bound on the H100: bytes (about 30 bytes per element read or written
 // against ~12 operations): one pass, each thread 4 consecutive elements
@@ -33,6 +36,7 @@ __device__ __forceinline__ float load_f(const float* p, size_t i) { return p[i];
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(p[i]);
 }
+__device__ __forceinline__ float load_f(const __half* p, size_t i) { return __half2float(p[i]); }
 
 template <typename P>
 __device__ __forceinline__ void store_p(P* p, size_t i, float w, uint32_t noise, bool sr);
@@ -49,6 +53,10 @@ __device__ __forceinline__ void store_p<__nv_bfloat16>(__nv_bfloat16* p, size_t 
   } else {
     p[i] = __float2bfloat16_rn(w);
   }
+}
+template <>
+__device__ __forceinline__ void store_p<__half>(__half* p, size_t i, float w, uint32_t, bool) {
+  p[i] = __float2half_rn(w);
 }
 
 // One element of the update; returns the new f32 parameter.
@@ -125,29 +133,35 @@ int launch(const void* p, const void* g, const void* m, const void* v, const voi
 
 }  // namespace
 
-// p, p_out: n elements of the parameter's dtype (bf16: is_bf16 != 0, else
-// f32); g bf16 (g_bf16 != 0, only with a bf16 parameter) or f32, scaled by
-// grad_scale in f32 first (the global-norm clip); m, v, m_out, v_out f32;
-// master and master_out f32 or both null; noise uint32 or null (null: round
-// to nearest). Every pointer 16-byte
-// aligned and contiguous. The outputs may alias their inputs (each element
-// is read before it is written, by the same thread).
+// p, p_out: n elements of the parameter's dtype (p_dtype: 0 f32, 1 bf16, 2
+// fp16); g of p's dtype (g_half != 0, only with a bf16 or fp16 parameter)
+// or f32, scaled by grad_scale in f32 first (the global-norm clip); m, v,
+// m_out, v_out f32; master and master_out f32 or both null; noise uint32
+// or null (null: round to nearest; only a bf16 parameter reads it). Every
+// pointer 16-byte aligned and contiguous. The outputs may alias their
+// inputs (each element is read before it is written, by the same thread).
 extern "C" int fused_adamw(const void* p, const void* g, const void* m, const void* v,
                            const void* master, const void* noise, void* p_out, void* m_out,
-                           void* v_out, void* master_out, long long n, int is_bf16, int g_bf16,
+                           void* v_out, void* master_out, long long n, int p_dtype, int g_half,
                            float lr, float b1, float omb1, float b2, float omb2, float eps,
                            float wd, float bc1, float bc2, float grad_scale, void* stream) {
   const Hyper h{lr, b1, omb1, b2, omb2, eps, wd, bc1, bc2, grad_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t N = static_cast<size_t>(n);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  if (is_bf16 && g_bf16)
+  if (p_dtype == 1 && g_half)
     return launch<__nv_bfloat16, __nv_bfloat16>(p, g, m, v, master, noise, p_out, m_out, v_out,
                                                 master_out, N, h, s);
-  if (is_bf16)
+  if (p_dtype == 1)
     return launch<__nv_bfloat16, float>(p, g, m, v, master, noise, p_out, m_out, v_out,
                                         master_out, N, h, s);
-  if (g_bf16) return static_cast<int>(cudaErrorInvalidValue);
+  if (p_dtype == 2 && g_half)
+    return launch<__half, __half>(p, g, m, v, master, nullptr, p_out, m_out, v_out, master_out,
+                                  N, h, s);
+  if (p_dtype == 2)
+    return launch<__half, float>(p, g, m, v, master, nullptr, p_out, m_out, v_out, master_out,
+                                 N, h, s);
+  if (p_dtype != 0 || g_half) return static_cast<int>(cudaErrorInvalidValue);
   return launch<float, float>(p, g, m, v, master, noise, p_out, m_out, v_out, master_out, N, h,
                               s);
 }

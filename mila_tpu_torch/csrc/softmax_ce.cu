@@ -77,6 +77,20 @@ struct Vec<__nv_bfloat16> {
   }
 };
 template <>
+struct Vec<__half> {
+  static constexpr int N = 8;
+  __device__ static void load(const __half* p, float* out) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+};
+template <>
 struct Vec<float> {
   static constexpr int N = 4;
   __device__ static void load(const float* p, float* out) {
@@ -193,6 +207,21 @@ __device__ __forceinline__ void store_chunk(__nv_bfloat16* p, const float* v) {
   }
 }
 
+__device__ __forceinline__ uint32_t pack2_half(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <int N>
+__device__ __forceinline__ void store_chunk(__half* p, const float* v) {
+  if constexpr (N == 1) {
+    *p = __float2half_rn(v[0]);
+  } else {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack2_half(v[0], v[1]), pack2_half(v[2], v[3]), pack2_half(v[4], v[5]),
+                   pack2_half(v[6], v[7]));
+  }
+}
+
 __device__ __forceinline__ void wait_groups_after(int q) {  // groups 0..q of 4 have landed
   if (q == 0) cp_async_wait<3>();
   else if (q == 1) cp_async_wait<2>();
@@ -302,23 +331,30 @@ int bwd(int variant, const void* logits, const int* t, const float* g, void* dlo
   return launch_bwd<T, SCALAR>(logits, t, g, dlogits, M, V, ignore_index, s);
 }
 
+template <typename T>
+void launch_fwd(const void* logits, const int* t, float* l, int M, int V, int ignore_index,
+                cudaStream_t s) {
+  ce_fwd_kernel<T><<<M, THREADS, 0, s>>>(static_cast<const T*>(logits), t, l, V, ignore_index,
+                                         vec_ok<T>(logits, V));
+}
+
 }  // namespace
 
-// logits [M, V] (bf16: is_bf16 != 0, else f32), contiguous; targets int32 [M];
-// loss f32 [M].
+// logits [M, V] (dtype: 0 f32, 1 bf16, 2 fp16), contiguous; targets int32
+// [M]; loss f32 [M].
 extern "C" int softmax_ce_fwd(const void* logits, const void* targets, void* loss, int M, int V,
-                              int ignore_index, int is_bf16, void* stream) {
+                              int ignore_index, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype < 0 || dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
   if (M > 0) {
     const int* t = static_cast<const int*>(targets);
     float* l = static_cast<float*>(loss);
-    if (is_bf16)
-      ce_fwd_kernel<__nv_bfloat16><<<M, THREADS, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(logits), t, l, V, ignore_index,
-          vec_ok<__nv_bfloat16>(logits, V));
+    if (dtype == 1)
+      launch_fwd<__nv_bfloat16>(logits, t, l, M, V, ignore_index, s);
+    else if (dtype == 2)
+      launch_fwd<__half>(logits, t, l, M, V, ignore_index, s);
     else
-      ce_fwd_kernel<float><<<M, THREADS, 0, s>>>(static_cast<const float*>(logits), t, l, V,
-                                                 ignore_index, vec_ok<float>(logits, V));
+      launch_fwd<float>(logits, t, l, M, V, ignore_index, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -328,12 +364,14 @@ extern "C" int softmax_ce_fwd(const void* logits, const void* targets, void* los
 // ce_bwd_variant): 0 and 1 need V * size % 16 == 0 and 16-byte aligned
 // logits and dlogits; 0 needs V * size bytes of shared memory a block.
 extern "C" int softmax_ce_bwd(const void* logits, const void* targets, const void* g,
-                              void* dlogits, int M, int V, int ignore_index, int is_bf16,
+                              void* dlogits, int M, int V, int ignore_index, int dtype,
                               int variant, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype < 0 || dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0) return static_cast<int>(cudaGetLastError());
   const int* t = static_cast<const int*>(targets);
   const float* gg = static_cast<const float*>(g);
-  if (is_bf16) return bwd<__nv_bfloat16>(variant, logits, t, gg, dlogits, M, V, ignore_index, s);
+  if (dtype == 1) return bwd<__nv_bfloat16>(variant, logits, t, gg, dlogits, M, V, ignore_index, s);
+  if (dtype == 2) return bwd<__half>(variant, logits, t, gg, dlogits, M, V, ignore_index, s);
   return bwd<float>(variant, logits, t, gg, dlogits, M, V, ignore_index, s);
 }

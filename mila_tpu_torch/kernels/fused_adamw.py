@@ -24,10 +24,13 @@ Differences from the JAX entry, none of which changes a result:
 - ``block`` and ``interpret`` (the TPU's tiling and interpreter) are gone.
 
 Stochastic rounding applies, as in JAX's kernel, to a bf16 param with a
-master; an f32 param with a master gets p' = master'. An fp16 param raises
-on the card: the kernel has no fp16 path, and JAX's kernel would round it
-to nearest while ``AdamW`` rounds fp16 stochastically (kernel table row 17's
-remaining gap).
+master; an f32 param with a master gets p' = master'. An fp16 param is
+rounded to nearest, with or without a master, as JAX's kernel rounds it.
+JAX's ``AdamW`` gives the same fp16 values: its fp16 "stochastic" branch
+steps to the neighbouring f32 value (``nextafter`` in f32) and casts that
+back to fp16, which lands on the nearest fp16 value again (a defect of the
+reference, ROADMAP §C.3); so on fp16 the kernel and both JAX routes agree
+bit for bit.
 """
 
 from __future__ import annotations
@@ -107,12 +110,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+# The kernel's parameter types (csrc/fused_adamw.cu: p_dtype).
+_P_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
 def _launch(p, g, m, v, master, *, step, lr, beta1, beta2, eps, weight_decay, noise,
             grad_scale):
-    if p.dtype not in (torch.bfloat16, torch.float32):
-        raise NotImplementedError(
-            f"fused_adamw takes bf16 or f32 params, got {p.dtype}: fp16 (rounded stochastically "
-            "by AdamW, to nearest by JAX's kernel) is not ported to the card")
+    if p.dtype not in _P_DTYPES:
+        raise NotImplementedError(f"fused_adamw takes f32, bf16 or fp16 params, got {p.dtype}")
     if (g.dtype not in (p.dtype, torch.float32) or m.dtype != torch.float32
             or v.dtype != torch.float32):
         raise ValueError(f"fused_adamw: g must be p's dtype or f32 and m, v f32 (p {p.dtype}, "
@@ -139,8 +144,8 @@ def _launch(p, g, m, v, master, *, step, lr, beta1, beta2, eps, weight_decay, no
 
     lib = _lib()
     rc = lib.fused_adamw(ptr(pc), ptr(gc), ptr(mc), ptr(vc), ptr(wc), ptr(nz), ptr(p_out),
-                         ptr(m_out), ptr(v_out), ptr(w_out), p.numel(),
-                         int(p.dtype == torch.bfloat16), int(g.dtype == torch.bfloat16),
+                         ptr(m_out), ptr(v_out), ptr(w_out), p.numel(), _P_DTYPES[p.dtype],
+                         int(g.dtype != torch.float32),
                          _f32(lr), _f32(beta1), _f32(1.0 - beta1), _f32(beta2),
                          _f32(1.0 - beta2), _f32(eps), _f32(weight_decay), bc1, bc2,
                          _f32(grad_scale), _build.stream_of(p))

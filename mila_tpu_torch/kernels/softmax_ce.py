@@ -96,9 +96,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+# The kernels' logits types (csrc/softmax_ce.cu: dtype).
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
 def _check(logits2: torch.Tensor, targets: torch.Tensor) -> None:
-    if logits2.dtype not in (torch.bfloat16, torch.float32):
-        raise NotImplementedError(f"softmax_ce takes bf16 or f32 logits, got {logits2.dtype}")
+    if logits2.dtype not in _DTYPES:
+        raise NotImplementedError(f"softmax_ce takes f32, bf16 or fp16 logits, got "
+                                  f"{logits2.dtype}")
     if targets.device != logits2.device:
         raise ValueError("softmax_ce: logits and targets must be on one device")
 
@@ -111,8 +116,7 @@ def _fwd(logits2, t32, ignore_index):
     loss = torch.empty(M, device=logits2.device, dtype=torch.float32)
     lib = _lib()
     rc = lib.softmax_ce_fwd(_build.ptr(logits2), _build.ptr(t32), _build.ptr(loss), M, V,
-                            ignore_index, int(logits2.dtype == torch.bfloat16),
-                            _build.stream_of(logits2))
+                            ignore_index, _DTYPES[logits2.dtype], _build.stream_of(logits2))
     _build.check(lib, rc, "softmax_ce_fwd")
     fused_softmax_cross_entropy.launches += 1
     return loss
@@ -136,8 +140,8 @@ def fused_softmax_cross_entropy_bwd(logits2: torch.Tensor, targets: torch.Tensor
     d = torch.empty_like(logits2)
     lib = _lib()
     rc = lib.softmax_ce_bwd(_build.ptr(logits2), _build.ptr(t32), _build.ptr(g32), _build.ptr(d),
-                            M, V, ignore_index, int(logits2.dtype == torch.bfloat16),
-                            _BWD_VARIANTS[variant], _build.stream_of(logits2))
+                            M, V, ignore_index, _DTYPES[logits2.dtype], _BWD_VARIANTS[variant],
+                            _build.stream_of(logits2))
     _build.check(lib, rc, "softmax_ce_bwd")
     fused_softmax_cross_entropy_bwd.launches += 1
     return d
@@ -170,7 +174,7 @@ class _CEFn(torch.autograd.Function):
 def fused_softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                                 ignore_index: int = -100, block_rows: int = 8,
                                 interpret: Optional[bool] = None) -> torch.Tensor:
-    """Per-example CE over the last axis: logits [..., V] (bf16 or f32),
+    """Per-example CE over the last axis: logits [..., V] (bf16, fp16 or f32),
     targets [...] int -> loss f32 [...], differentiable in the logits."""
     return _CEFn.apply(logits, targets, ignore_index)
 

@@ -16,9 +16,11 @@ Stochastic-rounding noise: JAX draws ``jax.random.bits`` per leaf from
 ``torch.Generator`` and the noise for each bf16 leaf is drawn on its device
 (uint16 values in int32); without one, a generator seeded 0 on the
 parameters' device is made for the step, as JAX falls back to ``key(0)``.
-fp16 parameters are rounded stochastically on the CPU as JAX's
-``_stochastic_round`` does; on the card they raise (the kernel has no fp16
-path).
+fp16 parameters with stochastic rounding: on the CPU the port runs JAX's
+``_stochastic_round`` construction (``_stochastic_round_fp16``, one draw a
+leaf); on the card the kernel rounds the f32 master to nearest. The two
+give the same values: JAX's fp16 branch steps to the neighbouring *f32*
+value and casts back, which is the nearest fp16 value (ROADMAP §C.3).
 """
 
 from __future__ import annotations
@@ -67,8 +69,9 @@ class AdamWState(NamedTuple):
 
 
 def _stochastic_round_fp16(x32: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
-    """JAX's fp16 rounding: to the upper or lower neighbour with probability
-    given by the distance (CPU only)."""
+    """JAX's fp16 rounding (CPU only): to lo = fp16(x) or to its
+    neighbouring f32 value, with probability given by the distance in f32
+    ulps; both cast back to lo, the nearest fp16 value, as JAX's do."""
     lo32 = x32.to(torch.float16).float()
     inf = torch.full_like(lo32, float("inf"))
     hi = torch.where(x32 > lo32, torch.nextafter(lo32, inf), torch.nextafter(lo32, -inf))
@@ -126,11 +129,7 @@ class AdamW:
                                  tree_leaves(grads)):
             kw = dict(step=t, lr=lr, beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps,
                       weight_decay=cfg.weight_decay, grad_scale=grad_scale)
-            if cfg.stochastic_rounding and p.dtype == torch.float16:
-                if p.is_cuda:
-                    raise NotImplementedError(
-                        "stochastic rounding of fp16 params is not ported to the card "
-                        "(fused_adamw has no fp16 path)")
+            if cfg.stochastic_rounding and p.dtype == torch.float16 and not p.is_cuda:
                 _, m2, v2, w2 = fused_adamw_update(p.float(), g, m, v, w, noise=None, **kw)
                 out.append((_stochastic_round_fp16(w2, rng), m2, v2, w2))
                 continue

@@ -215,6 +215,101 @@ def test_adamw_fp16_stochastic_rounding_on_the_cpu():
     assert (np.abs(tp2["w"].float().numpy() - ts2.master["w"].numpy()) <= 2 * gap + 1e-3).all()
 
 
+def test_jax_fp16_stochastic_round_is_nearest():
+    # JAX's fp16 branch of _stochastic_round steps from lo = fp16(x) to the
+    # neighbouring f32 value, not fp16 value, and casts back: every value
+    # lands on the nearest fp16 value, which the card's kernel gives
+    # (ROADMAP §C.3; the reference is not fixed).
+    from mila_tpu.optim.adamw import _stochastic_round
+
+    x = jnp.asarray(_np(70, 200_000) * np.float32(3.0))
+    x = jnp.concatenate([x, jnp.asarray([65504.0, 70000.0, -1e-7, 2 ** -24 * 1.5, 0.0],
+                                        jnp.float32)])
+    got = np.asarray(_stochastic_round(x, jax.random.key(3), jnp.float16))
+    np.testing.assert_array_equal(got.view(np.uint16),
+                                  np.asarray(x.astype(jnp.float16)).view(np.uint16))
+    tp = torch.from_numpy(np.array(x))
+    from mila_tpu_torch.optim.adamw import _stochastic_round_fp16
+
+    port = _stochastic_round_fp16(tp, torch.Generator().manual_seed(3))
+    assert torch.equal(port.view(torch.int16), tp.to(torch.float16).view(torch.int16))
+
+
+@pytest.mark.parametrize("master", [True, False])
+def test_plain_matches_jax_kernel_fp16(master):
+    # JAX's kernel rounds an fp16 param to nearest, master or not (no noise
+    # is read): the port's plain version bit-equal in the param, m, v and
+    # the master to the usual f32 tolerance.
+    n = 5000
+    w, g = _np(80, n), _np(81, n, scale=0.1)
+    m, v = _np(82, n, scale=0.01), np.abs(_np(83, n, scale=0.01))
+    p, gh = jnp.asarray(w).astype(jnp.float16), jnp.asarray(g).astype(jnp.float16)
+    want = j_fused(p, gh, jnp.asarray(m), jnp.asarray(v), jnp.asarray(w) if master else None,
+                   step=jnp.int32(4), lr=1e-3, weight_decay=0.1, seed=2, interpret=True)
+    got = tfw.fused_adamw_update(
+        torch.from_numpy(np.array(p)), torch.from_numpy(np.array(gh)), torch.from_numpy(m),
+        torch.from_numpy(v), torch.from_numpy(w) if master else None, step=4, lr=1e-3,
+        weight_decay=0.1)
+    assert got[0].dtype == torch.float16
+    for a, b in zip(got[1:], want[1:]):
+        if b is None:
+            assert a is None
+        else:
+            _allclose(a.numpy(), _f(b))
+    if master:
+        # The param is fp16(master'): compare through the masters (an f32
+        # ulp apart at most), bit-equal where the masters are.
+        same = got[3].numpy() == _f(want[3])
+        assert same.mean() > 0.99
+        np.testing.assert_array_equal(got[0].numpy()[same], np.asarray(want[0])[same])
+    else:
+        np.testing.assert_array_equal(got[0].float().numpy(), _f(want[0]))
+
+
+@pytest.mark.parametrize("sr", [True, False])
+def test_adamw_step_over_a_mixed_fp16_tree_matches_jax(sr):
+    # fp16 weights, a bf16 bias and f32 LayerNorm params in one tree, two
+    # steps with a clip: the fp16 params bit-equal to JAX's wherever the
+    # masters (or, without SR, the f32 updates) are, m, v and the masters to
+    # the f32 tolerance; the bf16 leaf (whose noise each side draws itself)
+    # within one bf16 step of its master.
+    cfg = dict(learning_rate=1e-3, weight_decay=0.1, grad_clip_norm=1.0, stochastic_rounding=sr)
+    jopt, topt = JAdamW(JConfig(**cfg)), AdamW(AdamWConfig(**cfg))
+    jp = {"w": jnp.asarray(_np(90, 64, 32, scale=0.2)).astype(jnp.float16),
+          "b": jnp.asarray(_np(91, 32)).astype(jnp.bfloat16),
+          "ln": {"gamma": jnp.asarray(1 + _np(92, 32, scale=0.1)),
+                 "beta": jnp.asarray(_np(93, 32))}}
+    jstate = jopt.init(jp)
+    to_t = lambda a: torch.from_numpy(np.array(a.astype(jnp.float32))).to(  # noqa: E731
+        {jnp.float16: torch.float16, jnp.bfloat16: torch.bfloat16}.get(a.dtype.type,
+                                                                       torch.float32))
+    tp = jax.tree_util.tree_map(to_t, jp)
+    tstate = topt.init(tp)
+    gen = torch.Generator().manual_seed(0)
+    for step in range(2):
+        jg = jax.tree_util.tree_map(
+            lambda a, s=step: (jnp.asarray(_np(95 + s, *a.shape)) * 3.0).astype(a.dtype), jp)
+        jp, jstate = jopt.step(jstate, jp, jg)
+        tp, tstate = topt.step(tstate, tp, jax.tree_util.tree_map(to_t, jg), rng=gen)
+    assert tp["w"].dtype == torch.float16 and tp["b"].dtype == torch.bfloat16
+    for tree_t, tree_j in ((tstate.m, jstate.m), (tstate.v, jstate.v)) + (
+            ((tstate.master, jstate.master),) if sr else ()):
+        for key in ("w", "b"):
+            _allclose(tree_t[key].float().numpy(), _f(tree_j[key]), ulps=8)
+    w_j, w_t = np.asarray(jp["w"]), tp["w"].numpy()
+    src_t = tstate.master["w"].numpy() if sr else w_t.astype(np.float32)
+    src_j = _f(jstate.master["w"]) if sr else w_j.astype(np.float32)
+    same = src_t == src_j
+    assert same.mean() > 0.95
+    np.testing.assert_array_equal(w_t[same], w_j[same])
+    if sr:
+        lo = tstate.master["b"].bfloat16().float()
+        assert ((tp["b"].float() - tstate.master["b"]).abs()
+                <= (lo.abs() * 2 ** -7).clamp_min(1e-38)).all()
+    for key in ("gamma", "beta"):
+        _allclose(tp["ln"][key].numpy(), _f(jp["ln"][key]), ulps=8)
+
+
 def test_zero_grads_and_leaf_order():
     from mila_tpu_torch.optim import zero_grads
 

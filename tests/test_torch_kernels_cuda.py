@@ -1528,6 +1528,8 @@ def test_flash_autograd_matches_plain_autograd(cuda):
     (4099, torch.float32, True, 1.0),  # an f32 leaf with a master: p' = master'
     (65537, torch.float32, False, 1.0),
     (65536, torch.bfloat16, False, 1.0),  # round to nearest without a master
+    (1000003, torch.float16, True, 0.37),  # fp16 from its master, to nearest
+    (65536, torch.float16, False, 1.0),
 ])
 def test_fused_adamw_kernel(cuda, n, dtype, master, scale):
     # Same operations in the same order, no FMA contraction: every output
@@ -1575,12 +1577,31 @@ def test_linear_weight_grad_sums_in_f32(cuda):
 
 
 def test_fused_adamw_refuses_fp16(cuda):
+    # fp16 params run on the card (test_fused_adamw_kernel); what the
+    # kernel still refuses: f64 params, and a 16-bit gradient of another
+    # type than the param's.
     from mila_tpu_torch.kernels import fused_adamw as fw
 
-    p = torch.zeros(64, device="cuda", dtype=torch.float16)
     z = torch.zeros(64, device="cuda")
+    p64 = torch.zeros(64, device="cuda", dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="fp16"):
-        fw.fused_adamw_update(p, p, z, z, z, step=1, lr=1e-3)
+        fw.fused_adamw_update(p64, p64, z, z, z, step=1, lr=1e-3)
+    p16 = torch.zeros(64, device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError):
+        fw.fused_adamw_update(p16, p16.bfloat16(), z, z, z, step=1, lr=1e-3)
+    p2, *_ = fw.fused_adamw_update(p16, p16, z, z, z, step=1, lr=1e-3)
+    assert p2.dtype == torch.float16
+
+
+def _dlogits_gate(got, want):
+    # Each dlogit within one bf16 step (2^-7) of its own size, floored at
+    # 1e-8 of the largest, so a wrong small probability fails as a wrong
+    # large one; fp16 dlogits also get one step of fp16's subnormal range
+    # (2^-24), where two f32 values a few ulps apart round a step apart.
+    got, want = got.float(), want.float()
+    floor = 1e-8 * want.abs().max() + (2 ** -24 if got.dtype == torch.float16 else 0.0)
+    err = (got - want).abs()
+    assert (err <= 2 ** -7 * want.abs() + floor).all(), err.max()
 
 
 @pytest.mark.parametrize("M,V,dtype", [
@@ -1588,6 +1609,8 @@ def test_fused_adamw_refuses_fp16(cuda):
     (37, 1000, torch.bfloat16),  # V % 8 != 0: the scalar path
     (16, 4096, torch.float32),
     (8, 1027, torch.float32),
+    (64, 50304, torch.float16),
+    (37, 1000, torch.float16),
 ])
 def test_softmax_ce_kernel(cuda, M, V, dtype):
     from mila_tpu_torch.kernels import softmax_ce as ce
@@ -1607,11 +1630,8 @@ def test_softmax_ce_kernel(cuda, M, V, dtype):
     torch.testing.assert_close(loss, ce.fused_softmax_cross_entropy_plain(x, t32),
                                rtol=1e-5, atol=1e-4)
     assert (loss[::5] == 0).all() and (dx[::5] == 0).all()
-    # Each dlogit within one bf16 step of its own size (floored at 1e-8 of
-    # the largest), so a wrong small probability fails too.
-    want = ce.fused_softmax_cross_entropy_bwd_plain(x, t32, g).float()
-    err = (dx.float() - want).abs()
-    assert (err <= 2 ** -7 * want.abs() + 1e-8 * want.abs().max()).all(), err.max()
+    assert dx.dtype == dtype
+    _dlogits_gate(dx, ce.fused_softmax_cross_entropy_bwd_plain(x, t32, g))
 
 
 @pytest.mark.parametrize("M,V,dtype,variant", [
@@ -1620,6 +1640,8 @@ def test_softmax_ce_kernel(cuda, M, V, dtype):
     (6, 57352, torch.bfloat16, "streamed"),   # one chunk past it
     (16, 1001, torch.bfloat16, "scalar"),     # 2002-byte rows: not whole 16-byte chunks
     (9, 1027, torch.float32, "scalar"),
+    (32, 50304, torch.float16, "resident"),
+    (16, 1001, torch.float16, "scalar"),
 ])
 def test_softmax_ce_bwd_variants(cuda, M, V, dtype, variant):
     # Each backward variant against the plain version (each dlogit within
@@ -1646,6 +1668,4 @@ def test_softmax_ce_bwd_variants(cuda, M, V, dtype, variant):
     graph.replay()
     torch.cuda.synchronize()
     for got in (out, ce.fused_softmax_cross_entropy_bwd(x, t, g)):
-        want = ce.fused_softmax_cross_entropy_bwd_plain(x, t, g).float()
-        err = (got.float() - want).abs()
-        assert (err <= 2 ** -7 * want.abs() + 1e-8 * want.abs().max()).all(), err.max()
+        _dlogits_gate(got, ce.fused_softmax_cross_entropy_bwd_plain(x, t, g))

@@ -10,7 +10,7 @@ Tolerances: the loss is logsumexp minus the picked logit in f32 on both
 sides, sums in other orders over up to 1000 classes: rtol/atol 2e-5. The
 f32 gradient (p - onehot) * g likewise (atol 1e-6 on values below 1). bf16
 gradients are one rounding of those f32 values: one bf16 step, 1e-2 of the
-largest value.
+largest value; fp16 gradients one fp16 step, 1e-3 of the largest value.
 """
 
 import jax
@@ -24,7 +24,8 @@ from mila_tpu.kernels.softmax_ce import fused_softmax_cross_entropy as j_fused
 from mila_tpu_torch import ops as tops
 from mila_tpu_torch.kernels import softmax_ce as tce
 
-_TORCH = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
+_TORCH = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32,
+          jnp.float16: torch.float16}
 
 
 def _case(lead, V, seed):
@@ -44,11 +45,12 @@ def _check(tl, td, jl, jd, dt):
     if dt == jnp.float32:
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
     else:
-        np.testing.assert_allclose(got, want, rtol=0, atol=1e-2 * np.abs(want).max())
+        step = 1e-2 if dt == jnp.bfloat16 else 1e-3
+        np.testing.assert_allclose(got, want, rtol=0, atol=step * np.abs(want).max())
 
 
 @pytest.mark.parametrize("lead,V", [((16,), 256), ((2, 8), 384), ((3, 5), 1000), ((7,), 50)])
-@pytest.mark.parametrize("dt", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("dt", [jnp.float32, jnp.bfloat16, jnp.float16])
 @pytest.mark.parametrize("entry", ["fused", "ops"])
 def test_loss_and_dlogits_match_jax(lead, V, dt, entry):
     # (16, 256) and (2, 8, 384) pass JAX's gate (its kernels run); (3, 5,
