@@ -1,5 +1,8 @@
 // decode_step_int8: a whole decode step (giga) or one decoder layer (mega)
-// as ONE persistent cooperative launch over the int8 tile stream.
+// as ONE persistent cooperative launch over a one-byte tile stream: int8,
+// or fp8 (e4m3fn, e5m2) in the mega launch over pack_decode_megalayers of
+// fp8 params (the giga pack requantizes fp8 to int8, as the JAX package
+// does).
 //
 // Replaces two TPU kernels:
 //   mila_tpu/kernels/decode_giga.py:_giga_kernel (giga_decode_step): the
@@ -22,6 +25,12 @@
 // (layer_mega.slot_order): query slot n holds head (n % NKV) * G + n / NKV
 // and attends KV head n % NKV, so KV head j serves slots j, j + NKV, ...
 // (not heads j * G .. j * G + G - 1 as in dense_decode_attn.cu).
+//
+// fp8 tiles take tail_phases.cuh's fp8 branch (F8Pair's exact decode, the
+// pack's fixup divided out of each scale row), one instantiation per weight
+// kind. The kinds' instantiations need their own registers, hence their
+// own resident blocks: the occupancy query and the Python wrapper's grid
+// cache take the format.
 //
 // Bound on the H100: the bytes of the stream (1.24 GB of int8 tiles and
 // scale rows at Llama-3.2-1B: every layer's wo, gate|up, down and next wqkv,
@@ -85,9 +94,10 @@ struct StepParams {
   int* best_i;            // [grid, M]
   int giga, tokens_mode, x_is_f32, M, H, I, bn, NH, NKV, HD, Tlen, L, n_qkv, n_head, vocab;
   int ks_wo, ks_gu, ks_down, ks_q, ks_head, cols_wo, cols_gu, cols_down, cols_q, cols_head;
+  int wfmt;  // WFMT_* of the tiles (gemv.cuh)
   float eps, scale;
 };
-constexpr int N_PTRS = 32, N_INTS = 25, N_FLOATS = 2;
+constexpr int N_PTRS = 32, N_INTS = 26, N_FLOATS = 2;
 
 __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
   const uint2 r = *reinterpret_cast<const uint2*>(p);
@@ -283,7 +293,7 @@ __device__ __forceinline__ void warp_best(float& v, int& i) {
   }
 }
 
-template <int MT, typename T>
+template <int MT, typename T, int WK>
 __global__ void __launch_bounds__(THREADS, MT == 8 ? TAIL_MIN_BLOCKS : 1)
 step_kernel(StepParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -326,8 +336,8 @@ step_kernel(StepParams p) {
     }
     store_ssq(sq_w, p.ssq2, M);
     grid.sync();
-    qkv_phases<MT, float>(p.w, p.s, xres, p.ssq2, p.ga, M, H, bn, qkv0, p.eps, p.p_q,
-                          static_cast<float*>(p.qkv_out), smem, rstd_s, grid);
+    qkv_phases<MT, float, WK>(p.w, p.s, xres, p.ssq2, p.ga, M, H, bn, qkv0, p.eps, p.p_q,
+                              static_cast<float*>(p.qkv_out), smem, rstd_s, grid, p.wfmt);
   }
 
   const T* qkv_src = static_cast<const T*>(p.giga ? p.qkv_out : p.qkv_in);
@@ -355,8 +365,8 @@ step_kernel(StepParams p) {
               p.giga ? p.n_qkv + l * tpl : 0,
               p.giga && last ? 0 : p.n_qkv,
               p.ks_wo, p.ks_gu, p.ks_down, p.ks_q,
-              p.cols_wo, p.cols_gu, p.cols_down, p.cols_q, p.eps, WFMT_INT8};
-    tail_phases<MT, T>(tp, smem, grid);
+              p.cols_wo, p.cols_gu, p.cols_down, p.cols_q, p.eps, p.wfmt};
+    tail_phases<MT, T, WK>(tp, smem, grid);
   }
   if (!p.giga) return;
 
@@ -365,14 +375,15 @@ step_kernel(StepParams p) {
   const int Nh = p.n_head * bn;
   row_rstd(p.ssq2, M, H, p.eps, rstd_s);
   __syncthreads();
-  gemv_phase<MT>(
+  gemv_phase<MT, WK>(
       p.w, p.s, H, bn, M, head, smem, NoOffset{},
       [&](int m, int k, float(&v)[8]) {
         norm8(p.xo + (size_t)m * H + k, rstd_s[m], p.gf + k, v);
       },
       [&](int t, int sl, int m, int c) {
         return p.p_head + ((size_t)sl * M + m) * Nh + t * bn + c;
-      });
+      },
+      p.wfmt);
   grid.sync();
   for (int m = 0; m < M; ++m) {
     float bv = -INFINITY;
@@ -412,27 +423,36 @@ step_kernel(StepParams p) {
   }
 }
 
-template <int MT, typename T>
+template <int MT, typename T, int WK>
 const void* kernel_ptr() {
   static bool done[64] = {};
-  return opted(reinterpret_cast<const void*>(step_kernel<MT, T>), done);
+  return opted(reinterpret_cast<const void*>(step_kernel<MT, T, WK>), done);
 }
 
-const void* pick(int m_tile, int is_f32) {
-  if (m_tile == 8) return is_f32 ? kernel_ptr<8, float>() : kernel_ptr<8, __nv_bfloat16>();
-  return is_f32 ? kernel_ptr<32, float>() : kernel_ptr<32, __nv_bfloat16>();
+template <int WK>
+const void* pick_kind(int m_tile, int is_f32) {
+  if (m_tile == 8)
+    return is_f32 ? kernel_ptr<8, float, WK>() : kernel_ptr<8, __nv_bfloat16, WK>();
+  return is_f32 ? kernel_ptr<32, float, WK>() : kernel_ptr<32, __nv_bfloat16, WK>();
+}
+
+const void* pick(int m_tile, int is_f32, int wfmt) {
+  return wfmt == WFMT_INT8 ? pick_kind<WK_INT8>(m_tile, is_f32)
+                           : pick_kind<WK_FP8>(m_tile, is_f32);
 }
 
 }  // namespace
 
 // Co-resident blocks per SM of the instantiation (m_tile 8 or 32; is_f32:
-// the tail's activations are f32, as in every giga launch).
-extern "C" int decode_step_int8_blocks_per_sm(int m_tile, int is_f32, int* out) {
-  return tail::blocks_per_sm(pick(m_tile, is_f32), out);
+// the tail's activations are f32, as in every giga launch; wfmt the tiles'
+// format, WFMT_* of gemv.cuh).
+extern "C" int decode_step_int8_blocks_per_sm(int m_tile, int is_f32, int wfmt, int* out) {
+  if (wfmt < WFMT_INT8 || wfmt > WFMT_E5M2) return static_cast<int>(cudaErrorInvalidValue);
+  return tail::blocks_per_sm(pick(m_tile, is_f32, wfmt), out);
 }
 
 // ptrs, ints and floats in StepParams' order (32 pointers: lens .. best_i;
-// 25 ints: giga .. cols_head; 2 floats: eps, scale). The Python wrapper
+// 26 ints: giga .. cols_head, wfmt; 2 floats: eps, scale). The Python wrapper
 // (kernels/layer_mega.py:launch_step) checks shapes, dtypes and the plan.
 // grid must not exceed tail::blocks_per_sm * SMs, nor tail::MAX_GRID (512:
 // the row sums row_rstd reads; a larger grid returns cudaErrorInvalidValue).
@@ -440,7 +460,7 @@ extern "C" int decode_step_int8(void* const* ptrs, int n_ptrs, const int* ints, 
                                 const float* floats, int n_floats, int grid, int m_tile,
                                 int is_f32, void* stream) {
   if (n_ptrs != N_PTRS || n_ints != N_INTS || n_floats != N_FLOATS || grid < 1 ||
-      grid > tail::MAX_GRID)
+      grid > tail::MAX_GRID || ints[N_INTS - 1] < WFMT_INT8 || ints[N_INTS - 1] > WFMT_E5M2)
     return static_cast<int>(cudaErrorInvalidValue);
   StepParams p;
   void* const* q = ptrs;
@@ -471,12 +491,12 @@ extern "C" int decode_step_int8(void* const* ptrs, int n_ptrs, const int* ints, 
   int* iv[] = {&p.giga, &p.tokens_mode, &p.x_is_f32, &p.M, &p.H, &p.I, &p.bn,
                &p.NH,   &p.NKV,         &p.HD,       &p.Tlen, &p.L, &p.n_qkv, &p.n_head,
                &p.vocab, &p.ks_wo,      &p.ks_gu,    &p.ks_down, &p.ks_q, &p.ks_head,
-               &p.cols_wo, &p.cols_gu,  &p.cols_down, &p.cols_q, &p.cols_head};
+               &p.cols_wo, &p.cols_gu,  &p.cols_down, &p.cols_q, &p.cols_head, &p.wfmt};
   for (int i = 0; i < N_INTS; ++i) *iv[i] = ints[i];
   p.eps = floats[0];
   p.scale = floats[1];
   void* args[] = {&p};
-  const cudaError_t e = cudaLaunchCooperativeKernel(pick(m_tile, is_f32), dim3(grid),
+  const cudaError_t e = cudaLaunchCooperativeKernel(pick(m_tile, is_f32, p.wfmt), dim3(grid),
                                                     dim3(tail::THREADS), args, tail::SMEM_BYTES,
                                                     static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();

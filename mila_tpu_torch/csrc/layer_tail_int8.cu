@@ -23,7 +23,7 @@ template <int MT, typename T, bool FP8>
 __global__ void __launch_bounds__(THREADS, MT == 8 ? TAIL_MIN_BLOCKS : 1) tail_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
-  tail_phases<MT, T, FP8>(p, smem, grid);
+  tail_phases<MT, T, FP8 ? WK_FP8 : WK_INT8>(p, smem, grid);
 }
 
 template <int MT, typename T, bool FP8>

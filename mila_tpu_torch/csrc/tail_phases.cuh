@@ -14,10 +14,10 @@
 // The weights are pack_layer's stream: [T, H, bn] one-byte tiles in the
 // order [wo | g0 u0 g1 u1 ... | down k-major | wqkv_next] with one f32
 // scale row [T, 1, bn] per tile; a tail reads tiles [base, base + n_tiles).
-// The tiles are int8 (FP8 = false) or fp8 (FP8 = true; e4m3fn or e5m2 by
-// Params::wfmt), one instantiation each: layer_tail_int8.cu builds both, K8
-// the int8 one alone. (With one runtime branch a stage between the two
-// conversions instead, the int8 tail read 5-9 % slower, PERF.md.) An fp8
+// The tiles are int8 (WK = WK_INT8) or fp8 (WK = WK_FP8; e4m3fn or e5m2 by
+// Params::wfmt), one instantiation each, which layer_tail_int8.cu and
+// decode_step_int8.cu both build. (With one runtime branch a stage between
+// the two conversions instead, the int8 tail read 5-9 % slower, PERF.md.) An fp8
 // pack's scale rows carry JAX's decode fixup (2^120 or 2^112); the phases
 // convert fp8 to its exact bf16 value (F8Pair, gemv.cuh) and divide the
 // fixup out of each scale row.
@@ -73,6 +73,10 @@
 namespace cg = cooperative_groups;
 
 namespace tail {
+
+// The tile stream's element kind, a template argument of the phases: one-
+// byte int8 or fp8 tiles (the fp8 format is Params::wfmt).
+constexpr int WK_INT8 = 0, WK_FP8 = 1;
 
 #ifndef TAIL_MIN_BLOCKS
 #define TAIL_MIN_BLOCKS 2  // resident blocks per SM the M <= 8 variants are built for
@@ -255,9 +259,9 @@ __device__ __forceinline__ void stage_x(Stage stage, int M, int k0, int kc, uint
 // (m, k .. k + 7) as f32, exact in bf16; dst(t, sl, m, c) is the address of
 // slice sl's partial for output column c of tile t (16-byte aligned for c %
 // 4 == 0). The first weight stages are requested before x is staged (whose
-// L2 loads then overlap them). FP8: fp8 tiles in format wfmt, else int8.
-// Ends without a barrier.
-template <int MT, bool FP8 = false, typename XOff, typename Stage, typename Dst>
+// L2 loads then overlap them). WK: the tiles' kind (WK_FP8: fp8 in format
+// wfmt). Ends without a barrier.
+template <int MT, int WK = WK_INT8, typename XOff, typename Stage, typename Dst>
 __device__ void gemv_phase(const int8_t* w, const float* s, int H, int bn, int M, const Phase& ph,
                            unsigned char* smem, XOff xoff, Stage stage, Dst dst,
                            int wfmt = WFMT_INT8) {
@@ -271,7 +275,7 @@ __device__ void gemv_phase(const int8_t* w, const float* s, int H, int bn, int M
   const int ksw = KS * cwn / WARPS, j0 = kw * ksw;  // the warp's k-steps of each stage
   const int XP = g.kc / 2 + XPAD;
   const F8Pair f8(wfmt);
-  const float unfix = FP8 ? pack_scale_unfix(wfmt) : 1.f;
+  const float unfix = WK == WK_FP8 ? pack_scale_unfix(wfmt) : 1.f;
   for (int f = 0; f < NST - 1; ++f) g.request(ring);
   int staged = -1;  // input column of the slice in xs
   int slot = 0;     // ring slot of the stage consumed next
@@ -280,7 +284,8 @@ __device__ void gemv_phase(const int8_t* w, const float* s, int H, int bn, int M
     g.unit(i, t, grp, sl);
     const int k0 = xoff(t) + sl * g.kc, col = grp * g.cols + 32 * cw + 4 * gq;
     float4 sc = __ldg(reinterpret_cast<const float4*>(s + (size_t)(g.t0 + t) * bn + col));
-    if constexpr (FP8) sc = make_float4(sc.x * unfix, sc.y * unfix, sc.z * unfix, sc.w * unfix);
+    if constexpr (WK == WK_FP8)
+      sc = make_float4(sc.x * unfix, sc.y * unfix, sc.z * unfix, sc.w * unfix);
     if (k0 != staged) {
       __syncthreads();  // the unit before is done with xs
       stage_x<MT>(stage, M, k0, g.kc, xs, XP);
@@ -309,7 +314,7 @@ __device__ void gemv_phase(const int8_t* w, const float* s, int H, int bn, int M
         for (int h = 0; h < KS / 2; ++h)
           if (2 * h < ksw)
             bx[mt][h] = *reinterpret_cast<const uint4*>(xl + 8 * mt * XP + st * (SR / 2) + 4 * h);
-      if constexpr (FP8)
+      if constexpr (WK == WK_FP8)
         stage_products<PITCH, KS, MTN>(acc, sp, bx, tq, j0, ksw, f8);
       else
         stage_products<PITCH, KS, MTN>(acc, sp, bx, tq, j0, ksw, S8Pair{});
@@ -399,7 +404,7 @@ struct NoOffset {
 // Phases 7-8: qkv = (bf16(src * rstd * gamma) @ the tiles of ph) * s, rstd
 // from the row sums of squares ssq (stored before the last barrier). src
 // [M, H] f32 was written in this launch. Ends without a barrier.
-template <int MT, typename T, bool FP8 = false>
+template <int MT, typename T, int WK = WK_INT8>
 __device__ void qkv_phases(const int8_t* w, const float* s, const float* src, const float* ssq,
                            const float* gamma, int M, int H, int bn, const Phase& ph,
                            float eps, float* p_q, T* qkv,
@@ -408,7 +413,7 @@ __device__ void qkv_phases(const int8_t* w, const float* s, const float* src, co
   const int Nq = ph.n * bn;
   row_rstd(ssq, M, H, eps, rstd_s);
   __syncthreads();
-  gemv_phase<MT, FP8>(
+  gemv_phase<MT, WK>(
       w, s, H, bn, M, ph, smem, NoOffset{},
       [&](int m, int k, float(&v)[8]) { norm8(src + (size_t)m * H + k, rstd_s[m], gamma + k, v); },
       [&](int t, int sl, int m, int c) { return p_q + ((size_t)sl * M + m) * Nq + t * bn + c; },
@@ -427,7 +432,7 @@ __device__ void qkv_phases(const int8_t* w, const float* s, const float* src, co
 // fin2 when n_qkv == 0, with the row sums of squares of x_out in ssq2 and
 // x_out itself in xo either way). att and x may have been written earlier
 // in the same launch.
-template <int MT, typename T, bool FP8 = false>
+template <int MT, typename T, int WK = WK_INT8>
 __device__ void tail_phases(const Params& p, unsigned char* smem, cg::grid_group& grid) {
   __shared__ float rstd_s[32], sq_w[WARPS][32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -440,7 +445,7 @@ __device__ void tail_phases(const Params& p, unsigned char* smem, cg::grid_group
   const int stride = gridDim.x * THREADS;
 
   // 1 wo.
-  gemv_phase<MT, FP8>(
+  gemv_phase<MT, WK>(
       p.w, p.s, H, bn, M, wo, smem, NoOffset{},
       [&](int m, int k, float(&v)[8]) { ldcg8(p.att + (size_t)m * H + k, v); },
       [&](int t, int sl, int m, int c) {
@@ -465,7 +470,7 @@ __device__ void tail_phases(const Params& p, unsigned char* smem, cg::grid_group
   // 3 gate | up, input bf16(x1 * rstd * gamma_mlp).
   row_rstd(p.ssq1, M, H, p.eps, rstd_s);
   __syncthreads();
-  gemv_phase<MT, FP8>(
+  gemv_phase<MT, WK>(
       p.w, p.s, H, bn, M, gu, smem, NoOffset{},
       [&](int m, int k, float(&v)[8]) {
         norm8(p.x1 + (size_t)m * H + k, rstd_s[m], p.g_mlp + k, v);
@@ -491,7 +496,7 @@ __device__ void tail_phases(const Params& p, unsigned char* smem, cg::grid_group
   grid.sync();
 
   // 5 down: tile d covers rows [kchunk * H, +H) of down, columns nc * bn.
-  gemv_phase<MT, FP8>(
+  gemv_phase<MT, WK>(
       p.w, p.s, H, bn, M, down, smem, [&](int t) { return (t / n_cols) * H; },
       [&](int m, int k, float(&v)[8]) { ldcg8(p.hbuf + (size_t)m * I + k, v); },
       [&](int t, int sl, int m, int c) {
@@ -519,7 +524,7 @@ __device__ void tail_phases(const Params& p, unsigned char* smem, cg::grid_group
   grid.sync();
 
   // 7-8 the next layer's wqkv, input bf16(x_out * rstd * gamma_next).
-  qkv_phases<MT, T, FP8>(p.w, p.s, p.xo, p.ssq2, p.g_next, M, H, bn, qkv, p.eps, p.p_q,
+  qkv_phases<MT, T, WK>(p.w, p.s, p.xo, p.ssq2, p.g_next, M, H, bn, qkv, p.eps, p.p_q,
                          static_cast<T*>(p.qkv), smem, rstd_s, grid, p.wfmt);
 }
 

@@ -272,6 +272,9 @@ def giga_decode_step(x: torch.Tensor, cos_t: Optional[torch.Tensor],
             x, cos_t, sin_t = _embed_rope(x, tokens, old_lens, pack)
         return giga_decode_plain(x, cos_t, sin_t, old_lens, pack, k_pool, v_pool,
                                  sm_scale=sm_scale)
+    if pack.w.dtype != torch.int8:
+        raise NotImplementedError(f"giga_decode_step takes int8 tile streams (pack_decode_giga "
+                                  f"requantizes fp8 and int4 to int8); got {pack.w.dtype}")
     check_step(w=pack.w, s=pack.s, k_pool=k_pool, v_pool=v_pool, M=B, H=H, I=pack.i_dim,
                bn=bn, NH=NH, NKV=NKV, HD=HD, T=T)
     NTOT = _head_base(pack) + pack.n_head

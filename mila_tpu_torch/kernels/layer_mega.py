@@ -13,7 +13,8 @@ columns and wo's rows are permuted into slot order at pack time
 caches keep their order). The giga pack (``kernels/decode_giga.py``) is
 built in the same order.
 
-What bounds it on the H100: the int8 tiles of the layer (60.8 MB at
+What bounds it on the H100: the one-byte tiles of the layer (int8, or fp8
+e4m3fn / e5m2 from ``pack_decode_megalayers`` over fp8 params; 60.8 MB at
 Llama-3.2-1B) plus the K/V rows read. The CUDA kernel
 (``csrc/decode_step_int8.cu``, one-layer launch) is the whole-step kernel
 of the giga decode with one layer: an attention phase of (row, KV head)
@@ -53,6 +54,7 @@ from mila_tpu_torch.kernels.layer_fused import (
     qkv_tail_plain,
     scratch,
 )
+from mila_tpu_torch.kernels.quant_matmul import WFMT
 from mila_tpu_torch.ops.attention import decode_attention
 
 
@@ -167,7 +169,7 @@ _PTRS = ("lens", "tok_in", "x_in", "cos_in", "sin_in", "qkv_in", "ga", "gm", "gf
          "best_i")
 _INTS = ("giga", "tokens_mode", "x_is_f32", "M", "H", "I", "bn", "NH", "NKV", "HD", "Tlen", "L",
          "n_qkv", "n_head", "vocab", "ks_wo", "ks_gu", "ks_down", "ks_q", "ks_head", "cols_wo",
-         "cols_gu", "cols_down", "cols_q", "cols_head")
+         "cols_gu", "cols_down", "cols_q", "cols_head", "wfmt")
 _PHASES = {"wo": "wo", "gu": "gu", "down": "down", "qkv": "q", "head": "head"}
 _HDS = (8, 16, 32, 64, 128)
 
@@ -178,7 +180,7 @@ def type_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.decode_step_int8.argtypes = [vp, ci, vp, ci, vp, ci, ci, ci, ci, vp]
     lib.decode_step_int8.restype = ci
-    lib.decode_step_int8_blocks_per_sm.argtypes = [ci, ci, ctypes.POINTER(ci)]
+    lib.decode_step_int8_blocks_per_sm.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
     lib.decode_step_int8_blocks_per_sm.restype = ci
     lib._typed = True
     return lib
@@ -190,11 +192,13 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _grid(index: int, m_tile: int, is_f32: int) -> int:
-    """Blocks of the cooperative launch: all must be resident at once."""
+def _grid(index: int, m_tile: int, is_f32: int, wfmt: int = 0) -> int:
+    """Blocks of the cooperative launch: all must be resident at once. Each
+    tile format is its own instantiation, with its own registers, so the
+    format is part of the occupancy query and of the cache key."""
     lib = _lib()
     nb = ctypes.c_int(0)
-    _build.check(lib, lib.decode_step_int8_blocks_per_sm(m_tile, is_f32, ctypes.byref(nb)),
+    _build.check(lib, lib.decode_step_int8_blocks_per_sm(m_tile, is_f32, wfmt, ctypes.byref(nb)),
                  "decode_step_int8 occupancy")
     if nb.value < 1:
         raise RuntimeError("decode_step_int8: no block fits on an SM")
@@ -204,8 +208,9 @@ def _grid(index: int, m_tile: int, is_f32: int) -> int:
 
 def check_step(*, w, s, k_pool, v_pool, M, H, I, bn, NH, NKV, HD, T) -> None:
     """What the decode_step_int8 kernel takes; raises on anything else."""
-    if w.dtype != torch.int8:
-        raise NotImplementedError(f"decode_step_int8 takes int8 tile streams; got {w.dtype}")
+    if w.dtype not in WFMT:
+        raise NotImplementedError(f"decode_step_int8 takes int8 or fp8 tile streams; got "
+                                  f"{w.dtype}")
     if not 0 < M <= 32:
         raise ValueError(f"decode_step_int8 is a decode kernel: 1 <= B <= 32, got {M}")
     if bn % 128 or H % bn or I % H or w.shape[1:] != (H, bn) or s.shape[1:] != (1, bn):
@@ -233,11 +238,12 @@ def check_step(*, w, s, k_pool, v_pool, M, H, I, bn, NH, NKV, HD, T) -> None:
 
 
 def step_launch_plan(M: int, H: int, I: int, bn: int, n_qkv: int, n_head: int, index: int,
-                     is_f32: int) -> Tuple[int, int, dict]:
+                     is_f32: int, wfmt: int = 0) -> Tuple[int, int, dict]:
     """(grid, m_tile, plan) of a :func:`launch_step` call on device
-    ``index``: its tiles a phase (a qkv or head phase of one tile where the
-    launch has none, planned and not run) and its grid."""
-    grid = _grid(index, 8 if M <= 8 else 32, is_f32)
+    ``index`` over tiles in format ``wfmt`` (``WFMT``): its tiles a phase (a
+    qkv or head phase of one tile where the launch has none, planned and
+    not run) and its grid."""
+    grid = _grid(index, 8 if M <= 8 else 32, is_f32, wfmt)
     mt, plan = plan_tail(M, H, bn, {"wo": H // bn, "gu": 2 * I // bn,
                                     "down": (I // H) * (H // bn), "qkv": max(n_qkv, 1),
                                     "head": max(n_head, 1)}, grid)
@@ -248,12 +254,14 @@ def launch_step(ptrs: dict, ints: dict, *, eps: float, scale: float, is_f32: int
                 device: torch.device) -> None:
     """One cooperative ``decode_step_int8`` launch. ``ptrs`` names the
     tensors of StepParams (missing: null), ``ints`` its ints (missing: 0);
-    the K slices and the scratch are planned here."""
-    ints = {k: 0 for k in _INTS} | ints
+    the K slices and the scratch are planned here, and the tiles' format
+    is read from ``ptrs["w"]``."""
+    ints = {k: 0 for k in _INTS} | ints | {"wfmt": WFMT[ptrs["w"].dtype]}
     M, H, I, bn = ints["M"], ints["H"], ints["I"], ints["bn"]
     NQ, KD = ints["NH"] * ints["HD"], ints["NKV"] * ints["HD"]
     n_qkv, n_head = ints["n_qkv"], ints["n_head"]
-    grid, mt, plan = step_launch_plan(M, H, I, bn, n_qkv, n_head, device.index or 0, is_f32)
+    grid, mt, plan = step_launch_plan(M, H, I, bn, n_qkv, n_head, device.index or 0, is_f32,
+                                      ints["wfmt"])
     for name, suffix in _PHASES.items():
         ints["cols_" + suffix], ints["ks_" + suffix] = plan[name]
     ks = {name: k for name, (_, k) in plan.items()}

@@ -116,26 +116,15 @@ def test_decode_kernels(cuda, M, K, N, bs, dtype):
 
 def test_kernels_refuse_other_weight_types(cuda):
     # The one-byte kernels take int8 and fp8 (tested below): bf16 weights
-    # raise. The per-layer and whole-step megakernels (K8) are built for
-    # int8 tile streams alone: fp8 packs raise there.
+    # raise. The per-layer megakernel takes fp8 packs too (tested below);
+    # the whole-step kernel takes no fp8 stream (the giga pack requantizes
+    # fp8 to int8, as the JAX package does): an fp8 giga stream raises.
     x = _rand((8, 256), 7)
     qt = unit_qtensor(_rand((256, 256), 8, 0.05))
     with pytest.raises(NotImplementedError):
         qm.quant_linear(x, qt)
     with pytest.raises(NotImplementedError):
         df.rms_quant_linear(x, torch.ones(256, device="cuda"), qt)
-    H, NH, NKV, HD, B, T = 512, 8, 2, 64, 2, 32
-    pack = _mega_case(H, 1024, NH, NKV, HD, 128, 40, wdt="fp8_e4m3")
-    assert pack.w.dtype == torch.float8_e4m3fn
-    rng = np.random.default_rng(41)
-    lens = np.array([5, 9], np.int32)
-    cos_t, sin_t = _tables(rng, lens, NKV, HD)
-    k, v = _rand((B, T, NKV, HD), 46), _rand((B, T, NKV, HD), 47)
-    g = 1.0 + _rand((H,), 44, 0.1, torch.float32)
-    with pytest.raises(NotImplementedError):
-        lm.layer_megakernel(_rand((B, NH * HD + 2 * NKV * HD), 42), _rand((B, H), 43), g, pack,
-                            k, v, torch.from_numpy(lens).cuda(), cos_t, sin_t, g,
-                            num_heads=NH)
     gp = _giga_case(2, 512, 1024, 8, 2, 64, 128, 1024, 1000, 70)
     f8 = gp._replace(w=gp.w.to(torch.float8_e4m3fn))
     kpool = _rand((2, 2, 32, 128), 71)
@@ -967,7 +956,10 @@ def _mega_case(H, I, NH, NKV, HD, bn, seed, with_qkv=True, wdt="int8"):
     (2048, 8192, 32, 8, 64, 512, 8, 512, torch.bfloat16, True),  # Llama-3.2-1B
 ])
 def test_layer_megakernel_kernel(cuda, H, I, NH, NKV, HD, bn, B, T, dtype, with_qkv):
-    pack = _mega_case(H, I, NH, NKV, HD, bn, 40, with_qkv)
+    _mega_check(H, I, NH, NKV, HD, bn, B, T, dtype, with_qkv)
+
+
+def _mega_inputs(H, NH, NKV, HD, B, T, dtype):
     rng = np.random.default_rng(41)
     KD = NKV * HD
     lens = rng.integers(1, T, B).astype(np.int32)
@@ -977,8 +969,13 @@ def test_layer_megakernel_kernel(cuda, H, I, NH, NKV, HD, bn, B, T, dtype, with_
     x = _rand((B, H), 43, dtype=dtype)
     g1, g2 = 1.0 + _rand((H,), 44, 0.1, torch.float32), 1.0 + _rand((H,), 45, 0.1, torch.float32)
     k, v = _rand((B, T, NKV, HD), 46), _rand((B, T, NKV, HD), 47)
+    return qkv, x, g1, g2, k, v, torch.from_numpy(lens).cuda(), cos_t, sin_t
+
+
+def _mega_check(H, I, NH, NKV, HD, bn, B, T, dtype, with_qkv, wdt="int8"):
+    pack = _mega_case(H, I, NH, NKV, HD, bn, 40, with_qkv, wdt)
+    qkv, x, g1, g2, k, v, ln, cos_t, sin_t = _mega_inputs(H, NH, NKV, HD, B, T, dtype)
     kp, vp = k.clone(), v.clone()
-    ln = torch.from_numpy(lens).cuda()
     gn = g2 if with_qkv else None
     before = lm.layer_megakernel.launches
     out, qkv_n, k2, v2 = lm.layer_megakernel(qkv, x, g1, pack, k, v, ln, cos_t, sin_t, gn,
@@ -999,6 +996,48 @@ def test_layer_megakernel_kernel(cuda, H, I, NH, NKV, HD, bn, B, T, dtype, with_
     keep = torch.ones(B, T, dtype=torch.bool, device="cuda")
     keep[rows, ln.long()] = False
     assert torch.equal(k[keep], kp[keep]) and torch.equal(v[keep], vp[keep])
+
+
+@pytest.mark.parametrize("B,shape,dtype", [
+    (1, (512, 1024, 8, 2, 64, 128, 64), torch.bfloat16),
+    (8, (2048, 8192, 32, 8, 64, 512, 512), torch.bfloat16),  # Llama-3.2-1B
+    (32, (512, 1024, 8, 2, 64, 128, 64), torch.float32),
+])
+@pytest.mark.parametrize("wdt", _FP8)
+def test_layer_megakernel_fp8_kernel(cuda, wdt, B, shape, dtype):
+    # fp8 tile streams (pack_decode_megalayers over fp8 params) at M 1, 8
+    # and 32, against the plain version on the same pack; held as int8.
+    H, I, NH, NKV, HD, bn, T = shape
+    _mega_check(H, I, NH, NKV, HD, bn, B, T, dtype, True, wdt)
+
+
+@pytest.mark.parametrize("wdt", ["int8", *_FP8])
+def test_layer_megakernel_graph_replay_and_determinism(cuda, wdt):
+    # Two calls on the same inputs write the same row and give the same
+    # bits; a captured call replayed after x and qkv change in place equals
+    # an eager call on them.
+    H, I, NH, NKV, HD, bn, B, T = 512, 1024, 8, 2, 64, 128, 5, 64
+    pack = _mega_case(H, I, NH, NKV, HD, bn, 48, True, wdt)
+    qkv, x, g1, g2, k, v, ln, cos_t, sin_t = _mega_inputs(H, NH, NKV, HD, B, T, torch.bfloat16)
+
+    def call():
+        return lm.layer_megakernel(qkv, x, g1, pack, k, v, ln, cos_t, sin_t, g2, num_heads=NH)
+
+    first = [t.clone() for t in call()[:2]]
+    second = call()
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = call()
+    for seed in (49, 50):
+        x.copy_(_rand((B, H), seed))
+        qkv.copy_(_rand(tuple(qkv.shape), seed + 10))
+        g.replay()
+        torch.cuda.synchronize()
+        want = call()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
 
 
 def _giga_case(L, H, I, NH, NKV, HD, bn, VP, vocab, seed):

@@ -18,6 +18,8 @@ so outputs are held to 1e-2 of their largest value, as the int8 model
 tests are. The written cache rows are held to the same; every other row
 must be untouched. Greedy tokens of the model path are compared exactly:
 at these seeds no row's top-two logit margin comes near the tolerance.
+fp8 packs (e4m3fn, e5m2) carry JAX's scale fixup in their scale rows, byte
+for byte; their layers are held to the int8 cases' tolerance.
 """
 
 import jax
@@ -52,16 +54,25 @@ def test_slot_order_equals_jax(nh, nkv):
     assert sorted(got) == list(range(nh))
 
 
-@pytest.fixture(scope="module", params=list(SHAPES))
-def layer(request):
-    H, I, NH, NKV, HD, bn = SHAPES[request.param]
+def _layer(name, wdt):
+    H, I, NH, NKV, HD, bn = SHAPES[name]
     NQ, KD = NH * HD, NKV * HD
     rng = np.random.default_rng(H + NKV)
     raw = {"wo": _w(rng, NQ, H), "wgu": _w(rng, H, 2 * I), "down": _w(rng, I, H),
            "wqkv": _w(rng, H, NQ + 2 * KD)}
-    jw = {k: jq.quantize(jnp.asarray(v), "int8") for k, v in raw.items()}
-    tw = {k: tq.quantize(torch.from_numpy(v), "int8") for k, v in raw.items()}
-    return request.param, jw, tw
+    jw = {k: jq.quantize(jnp.asarray(v), wdt) for k, v in raw.items()}
+    tw = {k: tq.quantize(torch.from_numpy(v), wdt) for k, v in raw.items()}
+    return name, jw, tw
+
+
+@pytest.fixture(scope="module", params=list(SHAPES))
+def layer(request):
+    return _layer(request.param, "int8")
+
+
+@pytest.fixture(scope="module", params=["fp8_e4m3", "fp8_e5m2"])
+def layer_fp8(request):
+    return _layer("g4", request.param)
 
 
 def test_permutations_equal_jax(layer):
@@ -93,6 +104,21 @@ def test_pack_mega_layer_bytes_equal_jax(layer, with_qkv):
     assert isinstance(bridged, tmg.MegaPack) and torch.equal(bridged.w, tp.w)
 
 
+@pytest.mark.parametrize("with_qkv", [True, False])
+def test_pack_mega_layer_fp8_bytes_equal_jax(layer_fp8, with_qkv):
+    name, jw, tw = layer_fp8
+    H, I, NH, NKV, HD, bn = SHAPES[name]
+    kw = dict(nh=NH, nkv=NKV, hd=HD, bn=bn)
+    nxt = (lambda w: w["wqkv"]) if with_qkv else (lambda w: None)
+    jp = jmg.pack_mega_layer(jw["wo"], jw["wgu"], jw["down"], nxt(jw), **kw)
+    tp = tmg.pack_mega_layer(tw["wo"], tw["wgu"], tw["down"], nxt(tw), **kw)
+    assert tuple(tp[2:]) == tuple(jp[2:])
+    assert tp.w.dtype == tw["wo"].q.dtype and tp.w.dtype in (torch.float8_e4m3fn,
+                                                              torch.float8_e5m2)
+    np.testing.assert_array_equal(tp.w.view(torch.uint8).numpy(), np.asarray(jp.w).view(np.uint8))
+    np.testing.assert_array_equal(tp.s.numpy(), np.asarray(jp.s))
+
+
 def _close(got, want, tol=1e-2):
     want = np.asarray(jnp.asarray(want, jnp.float32))
     assert tuple(got.shape) == want.shape
@@ -102,7 +128,15 @@ def _close(got, want, tol=1e-2):
 
 @pytest.mark.parametrize("with_qkv", [True, False])
 def test_layer_megakernel_matches_jax(layer, with_qkv):
-    name, jw, tw = layer
+    _megakernel_case(*layer, with_qkv)
+
+
+@pytest.mark.parametrize("with_qkv", [True, False])
+def test_layer_megakernel_fp8_matches_jax(layer_fp8, with_qkv):
+    _megakernel_case(*layer_fp8, with_qkv)
+
+
+def _megakernel_case(name, jw, tw, with_qkv):
     H, I, NH, NKV, HD, bn = SHAPES[name]
     NQ, KD = NH * HD, NKV * HD
     kw = dict(nh=NH, nkv=NKV, hd=HD, bn=bn)
@@ -180,6 +214,24 @@ def test_pack_decode_megalayers_bytes_equal_jax(mega_models):
         assert torch.equal(mine.w, theirs.w) and torch.equal(mine.s, theirs.s)
     assert torch.equal(tp["h0"]["wqkv_slot"].q, bridged["h0"]["wqkv_slot"].q)
     assert tp[f"h{tcfg.num_layers - 1}"]["mega_pack"].n_qkv == 0
+
+
+def test_pack_decode_megalayers_fp8_bytes_equal_jax():
+    # pack_decode_megalayers over fp8 e4m3 params packs fp8 tiles (the giga
+    # pack requantizes them to int8 instead): byte for byte JAX's.
+    cfg = jl.LlamaConfig.tiny(vocab_size=V)
+    raw = jl.Llama(cfg).init(jax.random.key(8), (1, 16))
+    jq_ = jl.add_quantized_lm_head(j_qmp(jl.fuse_llama_projections(raw), "fp8_e4m3"))
+    jp = jl.pack_decode_megalayers(jq_, cfg, bn=128)
+    tcfg = tl.LlamaConfig.tiny(vocab_size=V)
+    tp = tl.pack_decode_megalayers(params_from_jax(jax.tree_util.tree_map(np.asarray, jq_),
+                                                   "cpu"), tcfg, bn=128)
+    for i in range(tcfg.num_layers):
+        mine, theirs = tp[f"h{i}"]["mega_pack"], jp[f"h{i}"]["mega_pack"]
+        assert mine.w.dtype == torch.float8_e4m3fn and tuple(mine[2:]) == tuple(theirs[2:])
+        np.testing.assert_array_equal(mine.w.view(torch.uint8).numpy(),
+                                      np.asarray(theirs.w).view(np.uint8))
+        np.testing.assert_array_equal(mine.s.numpy(), np.asarray(theirs.s))
 
 
 def test_model_mega_path_matches_jax(mega_models):
