@@ -1646,16 +1646,16 @@ def phase_serve_long(model, params, cfg, rng):
 # ---------------------------------------------------------------------------
 
 F32_OPS = 67e12  # H100 SXM f32 outside the tensor cores (NVIDIA data sheet)
-FP16_ATTENTION = "xla"  # GPT-2 in fp16 attends by the plain product
+TF32_OPS = 495e12  # H100 SXM TF32 tensor-core operations (NVIDIA data sheet)
 
 
-def gpt2_config(layers=None, dtype: str = "bfloat16", attention: str = "flash"):
+def gpt2_config(layers=None, dtype: str = "bfloat16"):
     """GPT-2 124M at full width (L 12, C 768, NH 12, vocab 50257 -> 50304,
     T 1024, tied), ``dtype`` params (bf16 unless named), the flash kernels;
     ``layers`` cuts depth."""
     from mila_tpu_torch.models.gpt2 import GPT2Config
 
-    cfg = GPT2Config.gpt2_124m().replace(param_dtype=dtype, attention_impl=attention)
+    cfg = GPT2Config.gpt2_124m().replace(param_dtype=dtype, attention_impl="flash")
     return cfg if layers is None else cfg.replace(num_layers=layers)
 
 
@@ -1692,16 +1692,23 @@ def phase_train_kernels(bw, peak_ops, rng):
     # m within 1e-4 / 1e-3 of the plain version's. Library: SDPA forward;
     # SDPA's backward alone; SDPA forward + backward through autograd beside
     # ours (fwd_bwd_ms).
-    for B, T, NH, NKV, D in ((8, 1024, 12, 12, 64), (2, 2048, 32, 8, 64), (1, 2048, 24, 8, 128)):
+    def flash_rows(B, T, NH, NKV, D, draw, dtype=bf16):
         sm = D ** -0.5
-        shape = f"B={B} T={T} NH={NH} NKV={NKV} D={D}"
-        q, k, v, do = rand(B, T, NH, D), rand(B, T, NKV, D), rand(B, T, NKV, D), rand(B, T, NH, D)
+        tag = {bf16: "bf16", torch.float32: "f32", torch.float16: "fp16"}[dtype]
+        shape = f"B={B} T={T} NH={NH} NKV={NKV} D={D}" + ("" if dtype == bf16 else f" {tag}")
+        q, k, v, do = (draw(*sh, dtype=dtype) for sh in ((B, T, NH, D), (B, T, NKV, D),
+                                                         (B, T, NKV, D), (B, T, NH, D)))
+        es = q.element_size()
+        # f32 runs on tf32 tensor-core operands: its rate is TF32's.
+        peak = {torch.float32: TF32_OPS}.get(dtype)
+        tl = {"tol": ERR_TOL, "l": 1e-4, "m": 1e-3} if dtype != torch.float32 else {
+            "tol": ERR_TOL, "l": 1e-2, "m": 1e-2}
         o, l, m = fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm)
         o_ref, l_ref, m_ref = fa.flash_attention_plain(q, k, v, scale=sm, save_stats=True)
         o_err = max_row_err(o, o_ref)
         l_err = ((l - l_ref).abs() / l_ref).max().item()
         m_err = (m - m_ref).abs().max().item()
-        if o_err > ERR_TOL or l_err > 1e-4 or m_err > 1e-3:
+        if o_err > tl["tol"] or l_err > tl["l"] or m_err > tl["m"]:
             raise AssertionError(f"flash_attention_forward[{shape}]: row err {o_err}, l rel "
                                  f"{l_err}, m abs {m_err}")
         pairs = B * NH * T * (T + 1) // 2
@@ -1711,10 +1718,11 @@ def phase_train_kernels(bw, peak_ops, rng):
                [lambda: fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm)],
                lambda: fa.flash_attention_plain(q, k, v, scale=sm, save_stats=True),
                [lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=gqa)],
-               2 * (2 * q.numel() + 2 * k.numel()) + 2 * 4 * B * NH * T, 4 * D * pairs,
-               gate=f"each (b, t, head) row of o within {ERR_TOL} of its max |ref|; l rel 1e-4, "
-                    "m abs 1e-3",
-               max_row_rel_err=o_err, l_rel_err=l_err, m_abs_err=m_err)
+               es * (2 * q.numel() + 2 * k.numel()) + 2 * 4 * B * NH * T, 4 * D * pairs,
+               gate=f"each (b, t, head) row of o within {ERR_TOL} of its max |ref|; l rel "
+                    f"{tl['l']}, m abs {tl['m']}",
+               max_row_rel_err=o_err, l_rel_err=l_err, m_abs_err=m_err, dtype=tag,
+               family=fa.family(dtype, D), peak=peak)
         rows[-1]["tflops"] = 4 * D * pairs / rows[-1]["ms"] / 1e9
         del o_ref, l_ref, m_ref
         hm = [t.transpose(1, 2) for t in (q, k, v, o, do)]
@@ -1758,7 +1766,7 @@ def phase_train_kernels(bw, peak_ops, rng):
                max(r for _, r in abs_errs), [ours_bwd],
                lambda: fb.flash_attention_bwd_plain(*hm[:4], l, m, hm[4], causal=True,
                                                     sm_scale=sm),
-               None, 2 * (4 * q.numel() + 4 * k.numel()) + 2 * 4 * B * NH * T, 10 * D * pairs,
+               None, es * (4 * q.numel() + 4 * k.numel()) + 2 * 4 * B * NH * T, 10 * D * pairs,
                gate=f"each (b, t, head) row of dq, dk, dv within {ERR_TOL} of its max |ref| "
                     "(floored at 1e-3 of the tensor's)",
                library_timed=library_bwd_ms,
@@ -1767,9 +1775,23 @@ def phase_train_kernels(bw, peak_ops, rng):
                row_rel_errs=errs, library_bwd_ms=library_bwd_ms,
                bwd_back_to_back_ms=time_back_to_back(ours_bwd),
                library_bwd_device_ms=library_bwd_device_ms, bwd_device_ms=device_ms(ours_bwd),
-               fwd_bwd_ms=time_eager(ours), library_fwd_bwd_ms=time_eager(library))
+               fwd_bwd_ms=time_eager(ours), library_fwd_bwd_ms=time_eager(library), dtype=tag,
+               family=fa.family(dtype, D), peak=peak)
         rows[-1]["tflops"] = 10 * D * pairs / rows[-1]["ms"] / 1e9
-        del q, k, v, do, o, l, m, hm, qs, ks, vs, dos, leaves, s_leaves
+
+    for B, T, NH, NKV, D in ((8, 1024, 12, 12, 64), (2, 2048, 32, 8, 64), (1, 2048, 24, 8, 128)):
+        flash_rows(B, T, NH, NKV, D, rand)
+    # The mma.sync family (PR 14), its inputs from their own random stream:
+    # GPT-2's shape in f32, and Llama-3.2-1B's GQA heads at T 2048 with head
+    # sizes 192 and 256 in bf16.
+    own = np.random.default_rng(23)
+
+    def draw(*shape, dtype):
+        return torch.from_numpy(own.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+    flash_rows(8, 1024, 12, 12, 64, draw, torch.float32)
+    for D in (192, 256):
+        flash_rows(1, 2048, 16, 8, D, draw)
 
     # K12 on wte (50304 x 768 = 38.6M elements): bf16 param and grad, f32
     # moments and master, uint16 noise in int32, with stochastic rounding;
@@ -1942,7 +1964,7 @@ def tree_cosines(ref, got) -> tuple[float, float]:
     return cos_min, rel_max
 
 
-def phase_parity_train(rng, dtype: str = "bfloat16", attention: str = "flash"):
+def phase_parity_train(rng, dtype: str = "bfloat16"):
     """A 2-layer GPT-2 at full width (C 768, NH 12, T 1024, vocab 50304), B
     2, ``dtype`` params (bf16 unless named) with SR masters, flash: the loss
     and every gradient leaf, then one Model train step (clip, AdamW), on the
@@ -1952,7 +1974,7 @@ def phase_parity_train(rng, dtype: str = "bfloat16", attention: str = "flash"):
     from mila_tpu_torch.models.model import Model, ModelConfig
     from mila_tpu_torch.utils.tree import tree_leaves, tree_map
 
-    cfg = gpt2_config(layers=2, dtype=dtype, attention=attention)
+    cfg = gpt2_config(layers=2, dtype=dtype)
     B, T, lr = 2, 1024, 1e-3
     toks = rng.integers(0, cfg.vocab_size, (B, T + 1))
     out = {}
@@ -1980,8 +2002,7 @@ def phase_parity_train(rng, dtype: str = "bfloat16", attention: str = "flash"):
     m_cos, m_rel = tree_cosines(s_c.m, s_g.m)
     v_cos, v_rel = tree_cosines(s_c.v, s_g.v)
     worst = masters_agree(s_c.master, s_g.master, s_c.m, lr)
-    return {"model": f"gpt2-124m widths, 2 layers, {dtype} + SR masters, {attention} attention, "
-                     "random weights",
+    return {"model": f"gpt2-124m widths, 2 layers, {dtype} + SR masters, flash, random weights",
             "shape": f"B={B} T={T}", "loss_card": l_g, "loss_cpu": l_c,
             "grads": {"min_cosine": g_cos, "max_rel_err": g_rel, "leaves": len(tree_leaves(g_g))},
             "m": {"min_cosine": m_cos, "max_rel_err": m_rel},
@@ -2020,8 +2041,8 @@ def adamw_device_ms(model, grads) -> float:
     return time_graph([update], reps=5)
 
 
-def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16",
-                attention: str = "flash", full: bool = True, fall_gate: bool = True):
+def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16", full: bool = True,
+                fall_gate: bool = True):
     """GPT-2 124M at full size (``dtype`` params, bf16 unless named; f32 SR
     masters, clip 1.0, flash), B 8, T 1024: Model.train over ``steps``
     batches of synthetic windows with structure (each one of 4 fixed random
@@ -2038,7 +2059,7 @@ def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16",
     from mila_tpu_torch.models.model import Model, ModelConfig
     from mila_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
-    cfg = gpt2_config(dtype=dtype, attention=attention)
+    cfg = gpt2_config(dtype=dtype)
     B, T, L = 8, 1024, cfg.num_layers
     t0 = time.monotonic()
     model = Model(GPT2(cfg), train_optimizer(), ModelConfig(epochs=1, verbose=False))
@@ -2064,8 +2085,7 @@ def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16",
         return res
 
     model._train_step = timed
-    flash = attention == "flash"
-    per_step = {"flash_attention_forward": L * flash, "flash_attention_bwd": L * flash,
+    per_step = {"flash_attention_forward": L, "flash_attention_bwd": L,
                 "fused_softmax_cross_entropy": 1, "fused_softmax_cross_entropy_bwd": 1,
                 "fused_adamw_update": n_leaves}
     torch.cuda.reset_peak_memory_stats()
@@ -2076,7 +2096,7 @@ def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16",
     model._train_step = inner
     ev = ArrayReader(data[:B, :-1], data[:B, 1:], B, shuffle=False)
     val, e_counts = run_counted("evaluate" + tag, lambda: model.evaluate(ev),
-                                {"flash_attention": L * flash, "fused_softmax_cross_entropy": 1})
+                                {"flash_attention": L, "fused_softmax_cross_entropy": 1})
     # Falling: the median of the last 4 steps' losses (lr 1e-3 with no warm-up
     # spikes a step now and then) and the eval loss at least 1 nat under the
     # first step's.
@@ -2089,8 +2109,7 @@ def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16",
     flops = 6 * n_params * B * T + 7 * T * T * D * B * NH * L
     if fall_gate and not falls:
         raise AssertionError(f"train{tag}: losses {losses}, eval {val}: not falling by 1 nat")
-    out = {"model": f"gpt2-124m, {dtype} params + f32 SR masters, {attention} attention, "
-                    "random weights",
+    out = {"model": f"gpt2-124m, {dtype} params + f32 SR masters, flash, random weights",
            "shape": f"B={B} T={T}", "steps": steps, "params": n_params, "leaves": n_leaves,
            "build_s": build_s, "ms_per_step": step_s * 1e3,
            "step_ms_all": [t * 1e3 for t in times], "tokens_per_s": B * T / step_s,
@@ -2317,12 +2336,19 @@ def main() -> int:
     # GPT-2 in fp16 (SR masters as in train): the card against the CPU path
     # at 2 layers, then 124M for 2 warm-up and 4 timed steps; its loss falls
     # as bf16's does (PERF.md, PR 14), so it is held to the same gate.
-    parity_train16 = phase_parity_train(np.random.default_rng(20), "float16", FP16_ATTENTION)
+    parity_train16 = phase_parity_train(np.random.default_rng(20), "float16")
     emit({"phase": "parity train fp16", "card": card, **parity_train16})
     t16_counts, e16_counts, train16 = phase_train(peak_ops, np.random.default_rng(21), steps=6,
-                                                  dtype="float16", attention=FP16_ATTENTION,
-                                                  full=False)
+                                                  dtype="float16", full=False)
     emit({"phase": "train fp16", "card": card, **train16})
+    # GPT-2 124M as shipped (f32 params) with flash attention: the mma.sync
+    # family on tf32 products, card against CPU at 2 layers, then 2 warm-up
+    # and 4 timed steps.
+    parity_train32 = phase_parity_train(np.random.default_rng(24), "float32")
+    emit({"phase": "parity train f32", "card": card, **parity_train32})
+    t32_counts, e32_counts, train32 = phase_train(peak_ops, np.random.default_rng(25), steps=6,
+                                                  dtype="float32", full=False, fall_gate=False)
+    emit({"phase": "train f32", "card": card, **train32})
 
     by_path = {"serve paged": counts, "serve contiguous": c_counts, "serve giga": g_counts,
                "serve fp8": f_counts,
@@ -2335,7 +2361,8 @@ def main() -> int:
                "mega fp8": mega8_run["launches"],
                "generate": generate["launches"], "generate mlp": generate_mlp["launches"],
                "serve long": l_counts, "train": t_counts, "evaluate": e_counts,
-               "train fp16": t16_counts, "evaluate fp16": e16_counts}
+               "train fp16": t16_counts, "evaluate fp16": e16_counts,
+               "train f32": t32_counts, "evaluate f32": e32_counts}
     summary = []
     for entry, (source, replaces) in SOURCES.items():
         mine = [r for r in rows if r["entry"] == entry]
@@ -2369,6 +2396,7 @@ def main() -> int:
                        "serve_long": serve_long,
                        "parity_train": parity_train, "train": train,
                        "parity_train_fp16": parity_train16, "train_fp16": train16,
+                       "parity_train_f32": parity_train32, "train_f32": train32,
                        "summary": summary,
                        "total_s": time.monotonic() - t_start}, f, indent=1)
     emit({"kernels": summary})

@@ -28,6 +28,14 @@ under the other's products. The wrapper encodes the three TMA
 descriptors per call, so a CUDA graph replays valid ones; a base that is
 not 16-byte aligned is copied first.
 
+The other types and head sizes that the gate admits (bf16 at D 192 and
+256, fp16 and f32 at D 64-256) launch the simple ``mma.sync`` family
+(``csrc/flash_sync_fwd.cu``, 4 warps of 16 query rows, K/V tiles through
+``cp.async``; f32 on tf32 products with f32 sums, ROADMAP §C.2); its
+backward is ``csrc/flash_sync_bwd.cu`` on its own statistics. D over 256
+raises on the card: a 64-row tile of f32 rows would not fit the dQ
+kernel's shared memory, and no configuration of either package uses it.
+
 Semantics kept from the TPU kernel: the causal tile skip with
 ``kv_offset``, masked scores at -0.7 * f32max, p rounded to V's dtype
 before P @ V while the row sum l adds the f32 p, l == 0 guarded at the
@@ -35,8 +43,7 @@ store, and query head h reading KV head h // G. Its tiling gate stays too
 (``ops.flash_tiles_ok``): ``ops.attention`` sends Tq % 16, Tkv % 128 or D %
 64 not 0 to the plain product (``ops.dot_product_attention``), as JAX's
 wrapper sends them to its jnp reference; on the card this wrapper raises
-for them. The kernel takes D 64 and 128 and bf16 inputs; f32 inputs and
-other head sizes raise on the card. GPT-2's ``Attention`` reaches it
+for them. GPT-2's ``Attention`` reaches it
 through ``nn.layers.Attention`` with ``impl="flash"``, under grad in
 training.
 
@@ -58,6 +65,23 @@ from mila_tpu_torch.ops.attention import causal_mask, dot_product_attention, fla
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _KV_TILE = 128  # Tkv's multiple: csrc/flash_fwd.cu's key tiles are 128 or 64 keys
+# The mma.sync family's input types (csrc/flash_sync_fwd.cu: dtype) and head sizes.
+SYNC_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+SYNC_HEAD_DIMS = (64, 128, 192, 256)
+
+
+def family(dtype: torch.dtype, D: int) -> str:
+    """The kernel family of a call: "wgmma" (csrc/flash_fwd.cu and
+    flash_bwd.cu, bf16 at D 64 and 128) or "sync" (csrc/flash_sync_fwd.cu
+    and flash_sync_bwd.cu, the rest up to D 256). Raises for what neither
+    takes."""
+    if dtype == torch.bfloat16 and D in (64, 128):
+        return "wgmma"
+    if dtype in SYNC_DTYPES and D in SYNC_HEAD_DIMS:
+        return "sync"
+    raise NotImplementedError(f"flash attention on the card takes bf16, fp16 or f32 with D in "
+                              f"{SYNC_HEAD_DIMS}; got {dtype}, D {D} (D over 256 does not fit "
+                              "the kernels' shared memory)")
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
@@ -103,16 +127,28 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _sync_lib() -> ctypes.CDLL:
+    lib = _build.library("flash_sync_fwd")
+    if not getattr(lib, "_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.flash_sync_fwd.argtypes = [vp] * 6 + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
+        lib.flash_sync_fwd.restype = ci
+        lib._typed = True
+    return lib
+
+
 def _launch(q, k, v, causal: bool, sm_scale: float, kv_offset: int, stats: bool = False):
-    """One flash_fwd launch; (out, l, m) with ``stats``, else out."""
+    """One flash_fwd or flash_sync_fwd launch; (out, l, m) with ``stats``,
+    else out."""
     B, Tq, NH, D = q.shape
     _, Tkv, NKV, _ = k.shape
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise NotImplementedError(f"flash_fwd takes bf16 q/k/v; got {q.dtype}, {k.dtype}, "
-                                  f"{v.dtype} (f32 inputs are not ported yet)")
-    if D not in (64, 128) or Tkv % _KV_TILE or v.shape != k.shape or k.shape[0] != B:
-        raise ValueError(f"flash_fwd needs D in (64, 128) and Tkv % {_KV_TILE} == 0 "
-                         f"(q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)})")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise NotImplementedError(f"flash attention takes q, k, v of one type; got {q.dtype}, "
+                                  f"{k.dtype}, {v.dtype}")
+    fam = family(q.dtype, D)
+    if Tkv % _KV_TILE or v.shape != k.shape or k.shape[0] != B:
+        raise ValueError(f"flash attention needs Tkv % {_KV_TILE} == 0 (q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)})")
     if causal and kv_offset < 0:
         raise ValueError("flash_fwd: a negative kv_offset leaves rows with no key")
     # TMA reads from 16-byte-aligned bases only: an offset view is copied.
@@ -125,12 +161,18 @@ def _launch(q, k, v, causal: bool, sm_scale: float, kv_offset: int, stats: bool 
     if stats:
         l = torch.empty(B, NH, Tq, device=q.device, dtype=torch.float32)
         m = torch.empty_like(l)
-    lib = _lib()
-    rc = lib.flash_fwd(_build.ptr(qc), _build.ptr(kc), _build.ptr(vc), _build.ptr(out),
-                       None if l is None else _build.ptr(l), None if m is None else _build.ptr(m),
-                       B, Tq, Tkv, NH, NKV, D, sm_scale, kv_offset, int(causal),
-                       _build.stream_of(q))
-    _build.check(lib, rc, "flash_fwd")
+    lm = (None if l is None else _build.ptr(l), None if m is None else _build.ptr(m))
+    if fam == "wgmma":
+        lib = _lib()
+        rc = lib.flash_fwd(_build.ptr(qc), _build.ptr(kc), _build.ptr(vc), _build.ptr(out), *lm,
+                           B, Tq, Tkv, NH, NKV, D, sm_scale, kv_offset, int(causal),
+                           _build.stream_of(q))
+    else:
+        lib = _sync_lib()
+        rc = lib.flash_sync_fwd(_build.ptr(qc), _build.ptr(kc), _build.ptr(vc), _build.ptr(out),
+                                *lm, B, Tq, Tkv, NH, NKV, D, SYNC_DTYPES[q.dtype], sm_scale,
+                                kv_offset, int(causal), _build.stream_of(q))
+    _build.check(lib, rc, f"flash_{'' if fam == 'wgmma' else 'sync_'}fwd")
     if stats:
         flash_attention_forward.launches += 1
         return out, l, m

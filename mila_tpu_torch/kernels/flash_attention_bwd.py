@@ -28,10 +28,13 @@ The entry keeps the JAX entry's head-major layout (q, o, do [B, NH, Tq,
 D], k, v [B, NKV, Tkv, D]), here as any views: the autograd Function passes
 transposed views of the model-layout tensors, which the launch reads
 without a copy. l and m are f32 [B, NH, Tq] (JAX's carry 128 padded lanes;
-the tests compare its column 0). The kernel takes bf16 and D 64 or 128; f32
-inputs and other head sizes raise on the card, and so does a causal call
-with a negative ``kv_offset`` (rows with no visible key), as the forward
-does.
+the tests compare its column 0). That launch takes bf16 at D 64 and 128;
+the other types and head sizes of the forward's families (bf16 at D 192
+and 256, fp16 and f32 at D 64-256) launch ``csrc/flash_sync_bwd.cu``, the
+simple ``mma.sync`` family (a dQ kernel that also forms D, then a dK/dV
+kernel; one call, one count), which reads the statistics of that family's
+forward. A causal call with a negative ``kv_offset`` (rows with no visible
+key) raises on the card, as the forward does.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import ctypes
 import torch
 
 from mila_tpu_torch.kernels import _build
+from mila_tpu_torch.kernels.flash_attention import SYNC_DTYPES, family
 from mila_tpu_torch.ops.attention import causal_mask
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -88,17 +92,27 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _sync_lib() -> ctypes.CDLL:
+    lib = _build.library("flash_sync_bwd")
+    if not getattr(lib, "_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.flash_sync_bwd.argtypes = [vp] + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
+        lib.flash_sync_bwd.restype = ci
+        lib._typed = True
+    return lib
+
+
 def _launch(q, k, v, o, l, m, do, causal: bool, sm_scale: float, kv_offset: int):
     B, NH, Tq, D = q.shape
     NKV, Tkv = k.shape[1], k.shape[2]
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v, o, do)):
-        raise NotImplementedError(f"flash_bwd takes bf16 q/k/v/o/do; got {q.dtype}, {k.dtype}, "
-                                  f"{v.dtype}, {o.dtype}, {do.dtype} (f32 inputs are not ported "
-                                  "yet)")
-    if (D not in (64, 128) or Tkv % _TILE or v.shape != k.shape or k.shape[0] != B
-            or o.shape != q.shape or do.shape != q.shape):
-        raise ValueError(f"flash_bwd needs D in (64, 128) and Tkv % {_TILE} == 0 "
-                         f"(q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)})")
+    if any(t.dtype != q.dtype for t in (k, v, o, do)):
+        raise NotImplementedError(f"flash_bwd takes q/k/v/o/do of one type; got {q.dtype}, "
+                                  f"{k.dtype}, {v.dtype}, {o.dtype}, {do.dtype}")
+    fam = family(q.dtype, D)
+    if (Tkv % _TILE or v.shape != k.shape or k.shape[0] != B or o.shape != q.shape
+            or do.shape != q.shape):
+        raise ValueError(f"flash_bwd needs Tkv % {_TILE} == 0 (q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)})")
     if causal and kv_offset < 0:
         raise ValueError("flash_bwd: a negative kv_offset leaves rows with no key")
 
@@ -108,6 +122,17 @@ def _launch(q, k, v, o, l, m, do, causal: bool, sm_scale: float, kv_offset: int)
 
     qm, km, vm, om, dom = (model_layout(t) for t in (q, k, v, o, do))
     lc, mc = l.float().contiguous(), m.float().contiguous()
+    if fam == "sync":
+        delta = torch.empty(B, NH, Tq, device=q.device, dtype=torch.float32)  # scratch
+        dq, dk, dv = torch.empty_like(qm), torch.empty_like(km), torch.empty_like(vm)
+        ptrs = (ctypes.c_void_p * 11)(*(t.data_ptr() for t in (qm, km, vm, om, dom, lc, mc, delta,
+                                                                dq, dk, dv)))
+        lib = _sync_lib()
+        rc = lib.flash_sync_bwd(ptrs, B, Tq, Tkv, NH, NKV, D, SYNC_DTYPES[q.dtype], sm_scale,
+                                kv_offset, int(causal), _build.stream_of(q))
+        _build.check(lib, rc, "flash_sync_bwd")
+        flash_attention_bwd.launches += 1
+        return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
     tq64 = -(-Tq // _TQ_ALIGN) * _TQ_ALIGN
     lse2 = torch.empty(B, NH, tq64, device=q.device, dtype=torch.float32)  # scratch
     delta = torch.empty_like(lse2)

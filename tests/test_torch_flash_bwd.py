@@ -7,15 +7,15 @@ statistics (lanes-padded; we compare column 0), ``flash_attention_bwd`` for
 dq, dk, dv, and ``jax.grad`` through ``flash_attention``. The port's side
 runs its plain versions on CPU tensors (``flash_attention_plain`` with
 ``save_stats``, ``flash_attention_bwd_plain``), all keys in one pass.
-Causal and not, GQA (G 1, 2, 4), D 64 and 128, a ``kv_offset`` window and
-several KV tiles of 128 keys on JAX's side.
+Causal and not, GQA (G 1, 2, 4), D 64, 128, 192 and 256, a ``kv_offset``
+window and several KV tiles of 128 keys on JAX's side; f32, bf16 and fp16.
 
 Tolerances: the same seeded inputs on both sides; f32 results differ by
 summation order (tiles vs one pass, per-head dk/dv summed after the fact vs
 inside one einsum): 2e-5 of the largest value of each output (1e-5
 relative for l and m). In bf16 both sides round p and ds to bf16 before
 their products, from maxima taken in another order, and round the outputs:
-2e-2 of the largest value.
+2e-2 of the largest value; in fp16 (8 times finer steps) 5e-3.
 """
 
 import jax
@@ -30,8 +30,9 @@ from mila_tpu.kernels.flash_attention_bwd import flash_attention_bwd as j_bwd
 from mila_tpu_torch.kernels import flash_attention as tfa
 from mila_tpu_torch.kernels import flash_attention_bwd as tfb
 
-_TORCH = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
-_TOL = {jnp.float32: 2e-5, jnp.bfloat16: 2e-2}
+_TORCH = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32,
+          jnp.float16: torch.float16}
+_TOL = {jnp.float32: 2e-5, jnp.bfloat16: 2e-2, jnp.float16: 5e-3}
 
 
 def _arrays(seed, *shapes):
@@ -53,11 +54,13 @@ CASES = [  # B, Tq, Tkv, NH, NKV, D, kv_offset, causal
     (1, 256, 256, 4, 2, 128, 0, True),  # D 128, G 2
     (1, 128, 512, 4, 2, 64, 384, True),  # kv_offset window over 4 KV tiles
     (2, 128, 256, 2, 1, 64, 0, False),  # not causal, Tq < Tkv
+    (1, 256, 256, 4, 2, 192, 0, True),  # D 192 and 256: the card's mma.sync family
+    (1, 128, 256, 2, 1, 256, 128, True),
 ]
 
 
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("dt", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("dt", [jnp.float32, jnp.bfloat16, jnp.float16])
 def test_stats_and_backward_match_jax(case, dt):
     B, Tq, Tkv, NH, NKV, D, off, causal = case
     sm = D ** -0.5
@@ -78,6 +81,7 @@ def test_stats_and_backward_match_jax(case, dt):
     np.testing.assert_allclose(tm.numpy(), np.asarray(jm[..., 0]), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl[..., 0]), rtol=1e-5 if dt ==
                                jnp.float32 else 1e-4, atol=1e-5)
+    assert to.dtype == _TORCH[dt]
 
     # The backward on JAX's own (q, k, v, o, l, m, do).
     jdq, jdk, jdv = j_bwd(jq, jk, jv, jo, jl, jm, jdo, causal=causal, sm_scale=sm,
@@ -94,7 +98,7 @@ def test_stats_and_backward_match_jax(case, dt):
         _close(a, b, dt)
 
 
-@pytest.mark.parametrize("dt", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("dt", [jnp.float32, jnp.bfloat16, jnp.float16])
 @pytest.mark.parametrize("nkv,off", [(2, 0), (1, 128)])
 def test_autograd_through_flash_matches_jax_grad(dt, nkv, off):
     # torch.autograd.grad through the port's flash_attention (its Function:

@@ -242,8 +242,19 @@ def test_pack_decode_giga_needs_a_quantized_head(model_g4):
 def test_giga_step_matches_jax(model_g4):
     """Prefill with forward_with_cache on each side, stack the cache, then
     three giga steps fed the JAX tokens."""
+    _giga_steps(model_g4, "int8")
+
+
+def test_giga_step_bf16_stream_matches_jax(model_g4):
+    """The same on pack_decode_giga(bf16_stream=True): unit-scale bf16
+    tiles with the padded tied wte^T as the head."""
+    _giga_steps(model_g4, "bf16_stream")
+
+
+def _giga_steps(model_g4, dt):
     name, bn, cfg, jmodel, _, _ = model_g4
-    jp, tp = _both_giga(model_g4, "int8")
+    jp, tp = _both_giga(model_g4, dt, bf16_stream=dt == "bf16_stream")
+    assert "giga_pack" in tp
     tmodel = tl.Llama(_cfg(tl, name), device="cpu")
     rng = np.random.default_rng(11)
     Bm, P, C = 2, 6, 24

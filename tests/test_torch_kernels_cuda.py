@@ -1361,7 +1361,9 @@ def test_flash_kernel_copies_an_unaligned_view(cuda):
 
 def test_flash_kernel_refuses_grad_and_f32(cuda):
     # A call under grad no longer raises: it takes the launch with
-    # statistics and the backward kernel (row 16). f32 inputs still raise.
+    # statistics and the backward kernel (row 16). f32 inputs run too (the
+    # mma.sync family, tested below); what still raises: f64 inputs and
+    # head sizes over 256, which the tiling gate admits and no kernel takes.
     from mila_tpu_torch.kernels import flash_attention as fa
     from mila_tpu_torch.kernels import flash_attention_bwd as fb
 
@@ -1373,8 +1375,14 @@ def test_flash_kernel_refuses_grad_and_f32(cuda):
     assert (fa.flash_attention_forward.launches, fb.flash_attention_bwd.launches) == (
         before[0] + 1, before[1] + 1)
     assert q.grad is not None and torch.isfinite(q.grad.float()).all()
+    f32 = fa.flash_attention(q.detach().float(), k.float(), v.float())
+    assert f32.dtype == torch.float32 and _row_err(f32, fa.flash_attention_plain(
+        q.detach().float(), k.float(), v.float())) <= 2e-2
     with pytest.raises(NotImplementedError):
-        fa.flash_attention(q.detach().float(), k.float(), v.float())
+        fa.flash_attention(q.detach().double(), k.double(), v.double())
+    q3, k3 = _rand((1, 128, 4, 320), 54), _rand((1, 128, 4, 320), 55)
+    with pytest.raises(NotImplementedError, match="256"):
+        fa.flash_attention(q3, k3, k3)
 
 
 def test_flash_gate_routes_before_the_kernel(cuda):
@@ -1478,6 +1486,93 @@ def test_flash_bwd_kernel(cuda, B, Tq, Tkv, NH, NKV, D, off, causal):
         assert a.shape == b.shape and a.dtype == b.dtype
         err = _row_err(a.transpose(1, 2), b.transpose(1, 2))
         assert err <= 2e-2, f"{name}: worst row's relative err {err}"
+
+
+_SYNC_CASES = [  # (dtype, D, B, Tq, Tkv, NH, NKV, kv_offset, causal)
+    (torch.float32, 64, 8, 1024, 1024, 12, 12, 0, True),  # GPT-2 in f32
+    (torch.float32, 128, 2, 256, 384, 8, 2, 128, True),
+    (torch.float32, 192, 1, 208, 256, 4, 2, 48, True),  # a ragged q tile
+    (torch.float32, 256, 2, 256, 256, 4, 1, 0, False),
+    (torch.bfloat16, 192, 1, 512, 512, 8, 2, 0, True),
+    (torch.bfloat16, 256, 2, 208, 384, 4, 2, 176, True),
+    (torch.bfloat16, 256, 1, 2048, 2048, 16, 8, 0, True),  # chip_smoke's D 256 row
+    (torch.float16, 64, 8, 1024, 1024, 12, 12, 0, True),  # GPT-2 in fp16
+    (torch.float16, 128, 2, 256, 256, 8, 2, 0, False),
+    (torch.float16, 192, 1, 128, 512, 4, 1, 384, True),
+]
+
+
+@pytest.mark.parametrize("dtype,D,B,Tq,Tkv,NH,NKV,off,causal", _SYNC_CASES)
+def test_flash_sync_kernels(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
+    # The mma.sync family (what the wgmma kernels do not take): the forward
+    # with its statistics against the plain version, then the backward on
+    # them against its plain version. Gate: each (b, t, head) row within
+    # 2e-2 of its own largest value (floored at 1e-3 of the tensor's for the
+    # gradients). l and m as test_flash_stats_kernel holds them (1e-4
+    # relative, 1e-3 absolute), but 1e-2 both for f32, whose products run
+    # on tf32 operands (10 mantissa bits: about 2^-11 of each product).
+    from mila_tpu_torch.kernels import flash_attention as fa
+    from mila_tpu_torch.kernels import flash_attention_bwd as fb
+
+    assert fa.family(dtype, D) == "sync"
+    q = _rand((B, Tq, NH, D), 170, dtype=dtype)
+    k, v = _rand((B, Tkv, NKV, D), 171, dtype=dtype), _rand((B, Tkv, NKV, D), 172, dtype=dtype)
+    do = _rand((B, Tq, NH, D), 173, dtype=dtype)
+    sm = D ** -0.5
+    before = (fa.flash_attention_forward.launches, fb.flash_attention_bwd.launches)
+    o, l, m = fa.flash_attention_forward(q, k, v, causal=causal, sm_scale=sm, kv_offset=off)
+    o_ref, l_ref, m_ref = fa.flash_attention_plain(q, k, v, causal=causal, scale=sm,
+                                                   kv_offset=off, save_stats=True)
+    assert o.dtype == dtype and _row_err(o, o_ref, floor=0.0) <= 2e-2
+    tol = 1e-2 if dtype == torch.float32 else None
+    assert ((l - l_ref).abs() / l_ref).max().item() <= (tol or 1e-4)
+    assert (m - m_ref).abs().max().item() <= (tol or 1e-3)
+    hm = [t.transpose(1, 2) for t in (q, k, v, o, do)]
+    got = fb.flash_attention_bwd(*hm[:4], l, m, hm[4], causal=causal, sm_scale=sm, kv_offset=off)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_forward.launches, fb.flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = fb.flash_attention_bwd_plain(*hm[:4], l, m, hm[4], causal=causal, sm_scale=sm,
+                                        kv_offset=off)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype == dtype
+        err = _row_err(a.transpose(1, 2), b.transpose(1, 2))
+        assert err <= 2e-2, f"{name}: worst row's relative err {err}"
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.bfloat16, 256),
+                                     (torch.float16, 128)])
+def test_flash_sync_graph_replay_and_determinism(cuda, dtype, D):
+    # The mma.sync family: two forward + backward calls on the same inputs
+    # are bit-equal (no atomics), and a captured forward + backward
+    # replayed after q, k, v and do change in place equals eager calls.
+    from mila_tpu_torch.kernels import flash_attention as fa
+    from mila_tpu_torch.kernels import flash_attention_bwd as fb
+
+    sq, skv = (2, 384, 8, D), (2, 512, 2, D)
+    q, k, v, do = (_rand(sh, s, dtype=dtype) for sh, s in ((sq, 180), (skv, 181), (skv, 182),
+                                                          (sq, 183)))
+    sm = D ** -0.5
+
+    def call():
+        o, l, m = fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm, kv_offset=128)
+        hm = [t.transpose(1, 2) for t in (q, k, v, o, do)]
+        return (o, l, m) + fb.flash_attention_bwd(*hm[:4], l, m, hm[4], causal=True,
+                                                  sm_scale=sm, kv_offset=128)
+
+    first, again = call(), call()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        graphed = call()
+    for t, seed in zip((q, k, v, do), (184, 185, 186, 187)):
+        t.copy_(_rand(tuple(t.shape), seed, dtype=dtype))
+    g.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(graphed, call()):
+        assert torch.equal(a, b)
 
 
 def test_flash_bwd_kernel_graph_replay_and_determinism(cuda):
