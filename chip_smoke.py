@@ -552,6 +552,58 @@ def mega_row(record, megas, caches, old, qkv, xm, g1, g2, cfg, mid, wdtype=None)
                    "v_row": errs[3][0]})
 
 
+def giga_row(record, gp, wte, tokens, old, kpool, vpool, cfg, wdtype=None) -> None:
+    """The whole step (giga_decode_step) at full depth, tokens mode, against
+    its plain version (_giga_ref) with the JAX package's gate for this kernel
+    (benchmarks/r5_giga.py): tokens agree on >= 7/8 of the rows, logits and
+    the written K/V rows within 5e-2 * max(1, L/4) + 5e-2 relative. The
+    kernel's f32 residual drifts from the plain version's bf16 one with
+    depth, so layer 0's rows (no drift yet: the write, RoPE and slot order)
+    must also be within ERR_TOL of their largest value."""
+    from mila_tpu_torch.kernels import decode_giga as dg
+    from mila_tpu_torch.kernels import layer_mega as lm
+
+    dev = old.device
+    L, B, T, KD = kpool.shape
+    H, I, HD, NH = gp.h_dim, gp.i_dim, gp.hd, gp.nh
+    live_old = int(old.sum())
+    rows_b = torch.arange(B, device=dev)
+    kw, vw = kpool.clone(), vpool.clone()
+    got = dg.giga_decode_step(wte, None, None, old, gp, kpool, vpool, tokens=tokens)
+    xe, cos_e, sin_e = dg._embed_rope(wte, tokens, old, gp)
+    want = dg.giga_decode_plain(xe, cos_e, sin_e, old, gp, kw, vw, sm_scale=HD ** -0.5)
+    agree = int((got[0] == want[0]).sum())
+    atol = 5e-2 * max(1.0, L / 4)
+    lg, lw = got[1].float(), want[1].float()
+    l_err = (lg - lw).abs().max().item()
+    written = [(p[:, rows_b, old.long()], r[:, rows_b, old.long()])
+               for p, r in ((kpool, kw), (vpool, vw))]  # [L, B, KD] each
+    row_errs = [max_err(g, w) for g, w in written]
+    first = [max_err(g[0], w[0]) for g, w in written]
+    by_layer = [max(max_err(g[i], w[i])[0] for g, w in written) for i in range(L)]
+    if agree < (B * 7) // 8 or not torch.isfinite(lg).all() \
+            or not torch.allclose(lg, lw, rtol=5e-2, atol=atol) \
+            or not all(torch.allclose(g.float(), w.float(), rtol=5e-2, atol=atol)
+                       for g, w in written) \
+            or any(e > ERR_TOL * r for e, r in first):
+        raise AssertionError(f"giga_decode_step[{gp.w.dtype}]: tokens {agree}/{B}, logits max "
+                             f"err {l_err} (atol {atol}), K/V rows {row_errs}, layer 0 {first}")
+    grid_g, _, plan_g = lm.step_launch_plan(B, H, I, gp.bn, gp.n_qkv, gp.n_head, dev.index or 0,
+                                            1, lm.STREAM_WFMT[gp.w.dtype])
+    ops_giga = 2 * B * gp.w.numel() + 4 * (live_old + B) * NH * HD * L
+    record("giga_decode_step", f"L={L} B={B} old 128-191 T={T} tokens", l_err,
+           lw.abs().max().item(),
+           [lambda: dg.giga_decode_step(wte, None, None, old, gp, kpool, vpool, tokens=tokens)],
+           lambda: dg.giga_decode_plain(xe, cos_e, sin_e, old, gp, kw, vw, sm_scale=HD ** -0.5),
+           None, gp.w.nbytes + gp.s.nbytes + live_old * KD * 2 * 2 * L + B * H * 2
+           + 2 * L * B * KD * 2 + B * gp.n_head * gp.bn * 2 + B * 4, ops_giga,
+           gate=f"tokens >= 7/8; logits, K/V rows atol {atol} rtol 5e-2; layer-0 rows "
+                f"{ERR_TOL} x max|ref|",
+           token_agreement=agree / B, grid=grid_g, plan=plan_g, wdtype=wdtype,
+           errors={"logits": l_err, "k_rows": row_errs[0][0], "v_rows": row_errs[1][0],
+                   "kv_rows_by_layer": by_layer})
+
+
 def wfmt_of(dtype) -> int:
     """The C entries' weight format code of a tile dtype."""
     from mila_tpu_torch.kernels.quant_matmul import WFMT
@@ -562,11 +614,9 @@ def wfmt_of(dtype) -> int:
 def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
     from mila_tpu_torch.inference.kv_cache import make_paged_pools
     from mila_tpu_torch.inference.quantize import dequantize
-    from mila_tpu_torch.kernels import decode_giga as dg
     from mila_tpu_torch.kernels import dense_attention as da
     from mila_tpu_torch.kernels import flash_attention as fa
     from mila_tpu_torch.kernels import layer_fused as lf
-    from mila_tpu_torch.kernels import layer_mega as lm
     from mila_tpu_torch.kernels import paged_attention as pa
     from mila_tpu_torch.kernels import quant_matmul as qm
     from mila_tpu_torch.models.llama import Llama
@@ -744,8 +794,6 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
         return (n_tiles * (H * bn + bn * 4) + 2 * M * H * 2 + 2 * H * 4 + M * H * 2
                 + M * nq * 2)
 
-    idx = dev.index or 0  # the launch plans below: {phase: [weight columns a unit, K slices]}
-
     mid = L // 2 - 1
     views = tail_rows(record, stream, att, x, g1, g2, cfg)
     got = lf.mlp_qkv_fused(att, x, g1, views[0], g2)
@@ -764,60 +812,17 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
     T = 512
     megas = [packs["mega"][f"h{i}"]["mega_pack"] for i in range(L)]
     caches = [(rand(B, T, NKV, HD), rand(B, T, NKV, HD)) for _ in range(L)]
-    old_np = rng.integers(128, 192, B).astype(np.int32)
-    old = torch.from_numpy(old_np).to(dev)
-    live_old = int(old_np.sum())
+    old = torch.from_numpy(rng.integers(128, 192, B).astype(np.int32)).to(dev)
     qkv, xm = rand(B, NQ + 2 * KD), rand(B, H)
     mega_row(record, megas, caches, old, qkv, xm, g1, g2, cfg, mid)
     del caches
-    rows_b = torch.arange(B, device=dev)
 
     # The whole step (giga) at full depth, tokens mode: B 8, old rows
-    # 128-191 in T 512 pools, against its plain version (_giga_ref) with the
-    # JAX package's gate for this kernel (benchmarks/r5_giga.py): tokens
-    # agree on >= 7/8 of the rows, logits and the written K/V rows within
-    # 5e-2 * max(1, L/4) + 5e-2 relative. The kernel's f32 residual drifts
-    # from the plain version's bf16 one with depth, so layer 0's rows (no
-    # drift yet: the write, RoPE and slot order) must also be within
-    # ERR_TOL of their largest value.
+    # 128-191 in T 512 pools, with the giga gate (giga_row).
     gp = packs["giga"]["giga_pack"]
-    wte = params["embed"]["wte"]
     tokens = torch.from_numpy(rng.integers(0, V, B).astype(np.int32)).to(dev)
-    kpool, vpool = rand(L, B, T, KD), rand(L, B, T, KD)
-    kw, vw = kpool.clone(), vpool.clone()
-    got = dg.giga_decode_step(wte, None, None, old, gp, kpool, vpool, tokens=tokens)
-    xe, cos_e, sin_e = dg._embed_rope(wte, tokens, old, gp)
-    want = dg.giga_decode_plain(xe, cos_e, sin_e, old, gp, kw, vw, sm_scale=HD ** -0.5)
-    agree = int((got[0] == want[0]).sum())
-    atol = 5e-2 * max(1.0, L / 4)
-    lg, lw = got[1].float(), want[1].float()
-    l_err = (lg - lw).abs().max().item()
-    written = [(p[:, rows_b, old.long()], r[:, rows_b, old.long()])
-               for p, r in ((kpool, kw), (vpool, vw))]  # [L, B, KD] each
-    row_errs = [max_err(g, w) for g, w in written]
-    first = [max_err(g[0], w[0]) for g, w in written]
-    by_layer = [max(max_err(g[i], w[i])[0] for g, w in written) for i in range(L)]
-    if agree < (B * 7) // 8 or not torch.isfinite(lg).all() \
-            or not torch.allclose(lg, lw, rtol=5e-2, atol=atol) \
-            or not all(torch.allclose(g.float(), w.float(), rtol=5e-2, atol=atol)
-                       for g, w in written) \
-            or any(e > ERR_TOL * r for e, r in first):
-        raise AssertionError(f"giga_decode_step: tokens {agree}/{B}, logits max err {l_err} "
-                             f"(atol {atol}), K/V rows {row_errs}, layer 0 {first}")
-    grid_g, _, plan_g = lm.step_launch_plan(B, H, I, gp.bn, gp.n_qkv, gp.n_head, idx, 1)
-    ops_giga = 2 * B * gp.w.numel() + 4 * (live_old + B) * NH * HD * L
-    record("giga_decode_step", f"L={L} B={B} old 128-191 T={T} tokens", l_err,
-           lw.abs().max().item(),
-           [lambda: dg.giga_decode_step(wte, None, None, old, gp, kpool, vpool, tokens=tokens)],
-           lambda: dg.giga_decode_plain(xe, cos_e, sin_e, old, gp, kw, vw, sm_scale=HD ** -0.5),
-           None, gp.w.nbytes + gp.s.nbytes + live_old * KD * 2 * 2 * L + B * H * 2
-           + 2 * L * B * KD * 2 + B * gp.n_head * gp.bn * 2 + B * 4, ops_giga,
-           gate=f"tokens >= 7/8; logits, K/V rows atol {atol} rtol 5e-2; layer-0 rows "
-                f"{ERR_TOL} x max|ref|",
-           token_agreement=agree / B, grid=grid_g, plan=plan_g,
-           errors={"logits": l_err, "k_rows": row_errs[0][0], "v_rows": row_errs[1][0],
-                   "kv_rows_by_layer": by_layer})
-    del kpool, vpool, kw, vw
+    giga_row(record, gp, params["embed"]["wte"], tokens, old, rand(L, B, T, KD),
+             rand(L, B, T, KD), cfg)
 
     # Packed int4 weights (the long path's decode projections and head) at
     # M 8, and wqkv at M 32, cycling over the 16 layers' weights.
@@ -1293,9 +1298,10 @@ def phase_decode(model, packed, cfg, rng, bw, path: str = "decode"):
             "launches_per_step": {k: v / STEPS for k, v in counts.items() if v}}
 
 
-def phase_giga(model, giga, cfg, rng, bw):
+def phase_giga(model, giga, cfg, rng, bw, path: str = "giga", prefill=None):
     """The JAX bench's decode shape on the giga params: prefill,
-    stack_kv_cache, then 64 giga_step steps, exactly one kernel launch each."""
+    stack_kv_cache, then 64 giga_step steps, exactly one kernel launch each.
+    ``prefill``: the prefill's launch counts (default: the int8 model's)."""
     from mila_tpu_torch.models.llama import decode_step_bytes
 
     B, P, C, STEPS, L = 8, 128, 512, 64, cfg.num_layers
@@ -1304,8 +1310,8 @@ def phase_giga(model, giga, cfg, rng, bw):
     cache = model.init_kv_cache(B, C, torch.bfloat16)
     t0 = time.monotonic()
     (logits, cache), pre_counts = run_counted(
-        "giga prefill", lambda: model.forward_with_cache(giga, prompt, cache, 0),
-        {"quant_linear": 4 * L + 1})
+        f"{path} prefill", lambda: model.forward_with_cache(giga, prompt, cache, 0),
+        {"quant_linear": 4 * L + 1} if prefill is None else prefill)
     prefill_s = time.monotonic() - t0
     tok = torch.argmax(logits[:, -1, :V].float(), dim=-1).to(torch.int32)[:, None]
     del logits
@@ -1322,11 +1328,11 @@ def phase_giga(model, giga, cfg, rng, bw):
             out.append(state["tok"])
 
     t0 = time.monotonic()
-    _, counts = run_counted("giga", loop, {"giga_decode_step": STEPS})
+    _, counts = run_counted(path, loop, {"giga_decode_step": STEPS})
     wall = time.monotonic() - t0
     toks = torch.cat(out, dim=1)
     if toks.shape != (B, STEPS) or int(toks.min()) < 0 or int(toks.max()) >= V:
-        raise AssertionError("giga: tokens outside the vocabulary")
+        raise AssertionError(f"{path}: tokens outside the vocabulary")
 
     def step():
         return model.giga_step(giga, state["tok"], state["kp"], state["vp"], lens[STEPS])
@@ -1341,6 +1347,37 @@ def phase_giga(model, giga, cfg, rng, bw):
             "tok_s_graph": B / graph_ms * 1e3, "bound_ms": bound_ms, **nbytes,
             "launches_prefill": pre_counts, "launches": counts,
             "launches_per_step": {k: v / STEPS for k, v in counts.items() if v}}
+
+
+def phase_giga_bf16(cfg, bw, peak_ops):
+    """Llama-3.2-1B unquantized (bf16, random weights from seed 5) through
+    pack_decode_giga(bf16_stream=True): unit-scale bf16 tiles, the padded
+    tied wte^T as the head. The kernel at L 16 against its plain version
+    with the giga gate (giga_row), then phase_giga's decode (its prefill
+    runs no kernel of the table: bf16 projections are plain matmuls)."""
+    from mila_tpu_torch.models.llama import (Llama, fuse_llama_projections, init_llama_params,
+                                             pack_decode_giga)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = fuse_llama_projections(init_llama_params(cfg, gen, device="cuda",
+                                                      dtype=torch.bfloat16))
+    giga = pack_decode_giga(params, cfg, bf16_stream=True)
+    if "giga_pack" not in giga or giga["giga_pack"].w.dtype != torch.bfloat16:
+        raise AssertionError("giga bf16: pack_decode_giga did not pack a bf16 stream")
+    own = np.random.default_rng(26)
+    gp, L, B, T, KD = giga["giga_pack"], cfg.num_layers, 8, 512, cfg.num_kv_heads * cfg.hd
+    rows = []
+
+    def draw(*shape):
+        return torch.from_numpy(own.standard_normal(shape).astype(np.float32)).to("cuda",
+                                                                                 torch.bfloat16)
+
+    old = torch.from_numpy(own.integers(128, 192, B).astype(np.int32)).cuda()
+    tokens = torch.from_numpy(own.integers(0, cfg.vocab_size, B).astype(np.int32)).cuda()
+    giga_row(recorder(rows, bw, peak_ops), gp, params["embed"]["wte"], tokens, old,
+             draw(L, B, T, KD), draw(L, B, T, KD), cfg, "bf16")
+    run = phase_giga(Llama(cfg), giga, cfg, own, bw, "giga bf16", prefill={})
+    return rows, run
 
 
 def phase_mega(model, mega, cfg, rng, bw, path: str = "mega"):
@@ -2302,6 +2339,10 @@ def main() -> int:
     giga = phase_giga(model, packs["giga"], cfg, rng, bw)
     emit({"phase": "giga", "card": card, "model": "llama-3.2-1b int8 + giga_pack, "
           "random weights", **giga})
+    rows16, giga16 = phase_giga_bf16(cfg, bw, peak_ops)
+    emit({"phase": "giga bf16", "card": card, "model": "llama-3.2-1b bf16 + giga_pack "
+          "(bf16_stream=True), random weights", "rows": rows16, **giga16})
+    rows += rows16
     mega = phase_mega(model, packs["mega"], cfg, rng, bw)
     emit({"phase": "mega", "card": card, "model": "llama-3.2-1b int8 + mega_pack, "
           "random weights", **mega})
@@ -2356,6 +2397,7 @@ def main() -> int:
                "decode fp8 prefill": decode8["launches_prefill"],
                "decode fp8": decode8["launches"],
                "giga prefill": giga["launches_prefill"], "giga": giga["launches"],
+               "giga bf16 prefill": giga16["launches_prefill"], "giga bf16": giga16["launches"],
                "mega prefill": mega["launches_prefill"], "mega": mega["launches"],
                "mega fp8 prefill": mega8_run["launches_prefill"],
                "mega fp8": mega8_run["launches"],
@@ -2390,7 +2432,7 @@ def main() -> int:
             json.dump({"header": header, "kernels": rows, "crossover": crossover,
                        "parity": parity, "parity_fp8": parity8, "parity_long": parity_long,
                        "decode": decode, "decode_fp8": decode8,
-                       "giga": giga, "mega": mega, "mega_fp8": mega8_run,
+                       "giga": giga, "giga_bf16": giga16, "mega": mega, "mega_fp8": mega8_run,
                        "generate": generate,
                        "generate_mlp": generate_mlp, "serve": serve, "serve_fp8": serve8,
                        "serve_long": serve_long,

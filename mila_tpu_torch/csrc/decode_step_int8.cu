@@ -1,8 +1,10 @@
 // decode_step_int8: a whole decode step (giga) or one decoder layer (mega)
-// as ONE persistent cooperative launch over a one-byte tile stream: int8,
-// or fp8 (e4m3fn, e5m2) in the mega launch over pack_decode_megalayers of
-// fp8 params (the giga pack requantizes fp8 to int8, as the JAX package
-// does).
+// as ONE persistent cooperative launch over a tile stream: int8; fp8
+// (e4m3fn, e5m2) in the mega launch over pack_decode_megalayers of fp8
+// params (the giga pack requantizes fp8 to int8, as the JAX package does);
+// bf16 with unit scales in the giga launch over pack_decode_giga(...,
+// bf16_stream=True) of an unquantized model, its head the padded tied
+// wte^T.
 //
 // Replaces two TPU kernels:
 //   mila_tpu/kernels/decode_giga.py:_giga_kernel (giga_decode_step): the
@@ -27,8 +29,10 @@
 // (not heads j * G .. j * G + G - 1 as in dense_decode_attn.cu).
 //
 // fp8 tiles take tail_phases.cuh's fp8 branch (F8Pair's exact decode, the
-// pack's fixup divided out of each scale row), one instantiation per weight
-// kind. The kinds' instantiations need their own registers, hence their
+// pack's fixup divided out of each scale row) and bf16 tiles its bf16 branch
+// (32-row ring stages of 2-byte rows, the pairs taken as they are), one
+// instantiation per weight kind (bf16: the giga launch's f32 activations
+// only). The kinds' instantiations need their own registers, hence their
 // own resident blocks: the occupancy query and the Python wrapper's grid
 // cache take the format.
 //
@@ -69,6 +73,7 @@ namespace {
 using namespace tail;
 
 constexpr int MAXG = 8, MAXHD = 128, CH = 128, VEC = 4;
+constexpr int WFMT_BF16 = 3;  // the wfmt of a bf16 stream (gemv.cuh's WFMT_* are one-byte)
 
 struct StepParams {
   const int* lens;        // [M] cached rows per sequence (the current token excluded)
@@ -94,7 +99,7 @@ struct StepParams {
   int* best_i;            // [grid, M]
   int giga, tokens_mode, x_is_f32, M, H, I, bn, NH, NKV, HD, Tlen, L, n_qkv, n_head, vocab;
   int ks_wo, ks_gu, ks_down, ks_q, ks_head, cols_wo, cols_gu, cols_down, cols_q, cols_head;
-  int wfmt;  // WFMT_* of the tiles (gemv.cuh)
+  int wfmt;  // WFMT_* of the tiles (gemv.cuh), or WFMT_BF16
   float eps, scale;
 };
 constexpr int N_PTRS = 32, N_INTS = 26, N_FLOATS = 2;
@@ -436,7 +441,13 @@ const void* pick_kind(int m_tile, int is_f32) {
   return is_f32 ? kernel_ptr<32, float, WK>() : kernel_ptr<32, __nv_bfloat16, WK>();
 }
 
+// The instantiation of (m_tile, is_f32, wfmt); null for a bf16 stream with
+// bf16 activations (no launch takes one).
 const void* pick(int m_tile, int is_f32, int wfmt) {
+  if (wfmt == WFMT_BF16) {
+    if (!is_f32) return nullptr;
+    return m_tile == 8 ? kernel_ptr<8, float, WK_BF16>() : kernel_ptr<32, float, WK_BF16>();
+  }
   return wfmt == WFMT_INT8 ? pick_kind<WK_INT8>(m_tile, is_f32)
                            : pick_kind<WK_FP8>(m_tile, is_f32);
 }
@@ -445,10 +456,11 @@ const void* pick(int m_tile, int is_f32, int wfmt) {
 
 // Co-resident blocks per SM of the instantiation (m_tile 8 or 32; is_f32:
 // the tail's activations are f32, as in every giga launch; wfmt the tiles'
-// format, WFMT_* of gemv.cuh).
+// format, WFMT_* of gemv.cuh or WFMT_BF16).
 extern "C" int decode_step_int8_blocks_per_sm(int m_tile, int is_f32, int wfmt, int* out) {
-  if (wfmt < WFMT_INT8 || wfmt > WFMT_E5M2) return static_cast<int>(cudaErrorInvalidValue);
-  return tail::blocks_per_sm(pick(m_tile, is_f32, wfmt), out);
+  const void* k = wfmt < WFMT_INT8 || wfmt > WFMT_BF16 ? nullptr : pick(m_tile, is_f32, wfmt);
+  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return tail::blocks_per_sm(k, out);
 }
 
 // ptrs, ints and floats in StepParams' order (32 pointers: lens .. best_i;
@@ -460,7 +472,7 @@ extern "C" int decode_step_int8(void* const* ptrs, int n_ptrs, const int* ints, 
                                 const float* floats, int n_floats, int grid, int m_tile,
                                 int is_f32, void* stream) {
   if (n_ptrs != N_PTRS || n_ints != N_INTS || n_floats != N_FLOATS || grid < 1 ||
-      grid > tail::MAX_GRID || ints[N_INTS - 1] < WFMT_INT8 || ints[N_INTS - 1] > WFMT_E5M2)
+      grid > tail::MAX_GRID || ints[N_INTS - 1] < WFMT_INT8 || ints[N_INTS - 1] > WFMT_BF16)
     return static_cast<int>(cudaErrorInvalidValue);
   StepParams p;
   void* const* q = ptrs;
@@ -495,10 +507,12 @@ extern "C" int decode_step_int8(void* const* ptrs, int n_ptrs, const int* ints, 
   for (int i = 0; i < N_INTS; ++i) *iv[i] = ints[i];
   p.eps = floats[0];
   p.scale = floats[1];
+  const void* kern = pick(m_tile, is_f32, p.wfmt);
+  if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&p};
-  const cudaError_t e = cudaLaunchCooperativeKernel(pick(m_tile, is_f32, p.wfmt), dim3(grid),
-                                                    dim3(tail::THREADS), args, tail::SMEM_BYTES,
-                                                    static_cast<cudaStream_t>(stream));
+  const cudaError_t e =
+      cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(tail::THREADS), args, tail::SMEM_BYTES,
+                                  static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(e != cudaSuccess ? e : last);
 }

@@ -16,8 +16,12 @@
 // scale row [T, 1, bn] per tile; a tail reads tiles [base, base + n_tiles).
 // The tiles are int8 (WK = WK_INT8) or fp8 (WK = WK_FP8; e4m3fn or e5m2 by
 // Params::wfmt), one instantiation each, which layer_tail_int8.cu and
-// decode_step_int8.cu both build. (With one runtime branch a stage between
-// the two conversions instead, the int8 tail read 5-9 % slower, PERF.md.) An fp8
+// decode_step_int8.cu both build, or bf16 (WK = WK_BF16, unit scales: the
+// giga pack of an unquantized model, decode_step_int8.cu only). (With one
+// runtime branch a stage between the two conversions instead, the int8 tail
+// read 5-9 % slower, PERF.md.) A bf16 row is twice the bytes, so its ring
+// stages hold half the rows (Kind), and its products take the weights'
+// bf16 pairs from shared memory as they are (bf16_stage_products). An fp8
 // pack's scale rows carry JAX's decode fixup (2^120 or 2^112); the phases
 // convert fp8 to its exact bf16 value (F8Pair, gemv.cuh) and divide the
 // fixup out of each scale row.
@@ -75,8 +79,8 @@ namespace cg = cooperative_groups;
 namespace tail {
 
 // The tile stream's element kind, a template argument of the phases: one-
-// byte int8 or fp8 tiles (the fp8 format is Params::wfmt).
-constexpr int WK_INT8 = 0, WK_FP8 = 1;
+// byte int8 or fp8 tiles (the fp8 format is Params::wfmt), or bf16 tiles.
+constexpr int WK_INT8 = 0, WK_FP8 = 1, WK_BF16 = 2;
 
 #ifndef TAIL_MIN_BLOCKS
 #define TAIL_MIN_BLOCKS 2  // resident blocks per SM the M <= 8 variants are built for
@@ -99,6 +103,18 @@ constexpr int XS_BYTES = TAIL_XS_KB * 1024;
 constexpr int SMEM_BYTES = RING_BYTES + XS_BYTES;
 constexpr int RSTD_LOADS = 16;              // row_rstd's loads a lane
 constexpr int MAX_GRID = 32 * RSTD_LOADS;  // blocks whose row sums row_rstd reads: 512
+
+// A weight kind's bytes an element (EB), rows a ring stage (SRS: the same
+// bytes a stage for every kind, so the ring fits RING_BYTES), bytes a
+// staged row (PITCH: rows 2t of a k-step 8 banks apart) and k-steps a stage.
+template <int WK>
+struct Kind {
+  static constexpr int EB = WK == WK_BF16 ? 2 : 1;
+  static constexpr int SRS = SR / EB;
+  static constexpr int PITCH = 256 * EB + 16;
+  static constexpr int KSS = SRS / 16;
+  static_assert(NST * SRS * PITCH <= RING_BYTES, "a kind's ring must fit the int8 ring");
+};
 
 // A value written earlier in the same launch, read through L2.
 __device__ __forceinline__ float ldcg_f(const float* p) { return __ldcg(p); }
@@ -166,11 +182,13 @@ __device__ __forceinline__ float pack_scale_unfix(int fmt) {
 
 // A block's stream of weight stages in a phase. Its i-th unit, u =
 // blockIdx.x + i * gridDim.x, is (tile u / (ks * groups), column group (u /
-// ks) % groups, slice u % ks), nsteps stages of SR rows. Each thread copies
-// the same 16 bytes of every row it takes (rows r, r + rstep, ...);
+// ks) % groups, slice u % ks), nsteps stages of K::SRS rows. Each thread
+// copies the same 16 bytes of every row it takes (rows r, r + rstep, ...);
 // request() walks the stages in order, into ring slots 0, 1, .., NST - 1, 0,
 // .., and divides only when it moves to the next unit.
+template <int WK>
 struct Stream {
+  using K = Kind<WK>;
   const int8_t* w;
   int H, bn, t0, ks, cols, kc, groups, nsteps, mine;
   int r, cb, rstep;          // this thread's row and byte in a stage; rows between its copies
@@ -179,8 +197,8 @@ struct Stream {
 
   __device__ Stream(const int8_t* w_, int H_, int bn_, const Phase& ph)
       : w(w_), H(H_), bn(bn_), t0(ph.t0), ks(ph.ks), cols(ph.cols), kc(H_ / ph.ks),
-        groups(bn_ / ph.cols), nsteps(H_ / ph.ks / SR), unit_i(0), stage_s(0), slot(0) {
-    const int units = ph.n * groups * ks, b = blockIdx.x, cpr = cols / 16;
+        groups(bn_ / ph.cols), nsteps(H_ / ph.ks / K::SRS), unit_i(0), stage_s(0), slot(0) {
+    const int units = ph.n * groups * ks, b = blockIdx.x, cpr = cols * K::EB / 16;
     mine = units > b ? (units - 1 - b) / (int)gridDim.x + 1 : 0;
     r = threadIdx.x / cpr;
     cb = 16 * (threadIdx.x % cpr);
@@ -198,18 +216,20 @@ struct Stream {
   __device__ const int8_t* unit_src(int i) const {
     int t, grp, sl;
     unit(i, t, grp, sl);
-    return w + ((size_t)(t0 + t) * H + sl * kc + r) * bn + grp * cols + cb;
+    return w + (((size_t)(t0 + t) * H + sl * kc + r) * bn + grp * cols) * K::EB + cb;
   }
 
   // Request the next stage into its ring slot as one commit group (an
   // empty one past the stream's end).
   __device__ void request(uint32_t ring) {
     if (unit_i < mine) {
-      const uint32_t dst = ring + slot * (SR * PITCH) + r * PITCH + cb;
+      const uint32_t dst = ring + slot * (K::SRS * K::PITCH) + r * K::PITCH + cb;
+      const size_t row = (size_t)bn * K::EB;  // bytes a tile row
 #pragma unroll
-      for (int c = 0; c < SR / 16; ++c)
-        if (c * rstep < SR) cp_async_to<16>(dst + c * rstep * PITCH, src + (size_t)c * rstep * bn);
-      src += (size_t)SR * bn;
+      for (int c = 0; c < K::SRS * K::EB / 16; ++c)
+        if (c * rstep < K::SRS)
+          cp_async_to<16>(dst + c * rstep * K::PITCH, src + c * rstep * row);
+      src += K::SRS * row;
       if (++stage_s == nsteps) {
         stage_s = 0;
         if (++unit_i < mine) src = unit_src(unit_i);
@@ -254,6 +274,45 @@ __device__ __forceinline__ void stage_x(Stage stage, int M, int k0, int kc, uint
   }
 }
 
+// The products of a bf16 stage's k-steps [j0, j0 + ksw) (of its KSS; rows
+// of PITCH bytes, sp at the lane's first column): lane (g, t) reads the 8
+// bytes of its 4 columns from rows 2t, 2t + 1, 2t + 8 and 2t + 9 of the
+// k-step and pairs the rows' halves by prmt into the A fragments, the
+// layout s8_pair makes from bytes (column 4g + 2n of n-tile n in A row g,
+// 4g + 2n + 1 in row g + 8); xw: the lane's x words of the stage (the B
+// fragments of k-step j at 2j, 2j + 1; n-tile mt 8 mt XP words on).
+template <int PITCH, int KSS, int MTN>
+__device__ __forceinline__ void bf16_stage_products(float (&acc)[2][MTN][4],
+                                                    const unsigned char* sp, const uint32_t* xw,
+                                                    int XP, int t, int j0, int ksw) {
+#pragma unroll
+  for (int jj = 0; jj < KSS; ++jj) {
+    if (jj >= ksw) break;
+    const int j = j0 + jj;
+    const unsigned char* r = sp + (16 * j + 2 * t) * PITCH;
+    const uint2 w0 = *reinterpret_cast<const uint2*>(r);
+    const uint2 w1 = *reinterpret_cast<const uint2*>(r + PITCH);
+    const uint2 w2 = *reinterpret_cast<const uint2*>(r + 8 * PITCH);
+    const uint2 w3 = *reinterpret_cast<const uint2*>(r + 9 * PITCH);
+    uint2 bx[MTN];
+#pragma unroll
+    for (int mt = 0; mt < MTN; ++mt)
+      bx[mt] = *reinterpret_cast<const uint2*>(xw + 8 * mt * XP + 2 * j);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const uint32_t a = n ? w0.y : w0.x, b = n ? w1.y : w1.x;
+      const uint32_t c = n ? w2.y : w2.x, d = n ? w3.y : w3.x;
+      const uint32_t af[4] = {prmt(a, b, 0x5410u), prmt(a, b, 0x7632u), prmt(c, d, 0x5410u),
+                              prmt(c, d, 0x7632u)};
+#pragma unroll
+      for (int mt = 0; mt < MTN; ++mt) {
+        const uint32_t bf[2] = {bx[mt].x, bx[mt].y};
+        mma_bf16(acc[n][mt], af, bf);
+      }
+    }
+  }
+}
+
 // One GEMV phase: this block's units of ph. xoff(t) is the input column at which
 // tile t's rows start (down: its K chunk); stage(m, k, v) loads input values
 // (m, k .. k + 7) as f32, exact in bf16; dst(t, sl, m, c) is the address of
@@ -266,13 +325,14 @@ __device__ void gemv_phase(const int8_t* w, const float* s, int H, int bn, int M
                            unsigned char* smem, XOff xoff, Stage stage, Dst dst,
                            int wfmt = WFMT_INT8) {
   constexpr int MTN = MT / 8;  // n-tiles of 8 rows of x
-  Stream g(w, H, bn, ph);
+  using K = Kind<WK>;
+  Stream<WK> g(w, H, bn, ph);
   const uint32_t ring = smem_addr(smem);
   uint32_t* xs = reinterpret_cast<uint32_t*>(smem + RING_BYTES);
   float4* half = reinterpret_cast<float4*>(xs);  // a 128-column unit's second k-half sums
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, gq = lane >> 2, tq = lane & 3;
   const int cwn = g.cols / 32, cw = warp % cwn, kw = warp / cwn;  // column warp, k-half
-  const int ksw = KS * cwn / WARPS, j0 = kw * ksw;  // the warp's k-steps of each stage
+  const int ksw = K::KSS * cwn / WARPS, j0 = kw * ksw;  // the warp's k-steps of each stage
   const int XP = g.kc / 2 + XPAD;
   const F8Pair f8(wfmt);
   const float unfix = WK == WK_FP8 ? pack_scale_unfix(wfmt) : 1.f;
@@ -299,25 +359,33 @@ __device__ void gemv_phase(const int8_t* w, const float* s, int H, int bn, int M
       for (int mt = 0; mt < MTN; ++mt)
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[n][mt][c] = 0.f;
-    const unsigned char* wl = smem + 32 * cw + 4 * gq;
+    const unsigned char* wl = smem + (32 * cw + 4 * gq) * K::EB;
     const uint32_t* xl = xs + gq * XP + 2 * KS * tq + 2 * j0;
     for (int st = 0; st < g.nsteps; ++st) {
       cp_async_wait<NST - 2>();
       __syncthreads();  // this stage landed for every thread; the one before fully read
       g.request(ring);
-      const unsigned char* sp = wl + slot * (SR * PITCH);
+      const unsigned char* sp = wl + slot * (K::SRS * K::PITCH);
       slot = slot + 1 == NST ? 0 : slot + 1;
-      uint4 bx[MTN][KS / 2];
+      if constexpr (WK == WK_BF16) {
+        // Two bf16 stages per staged 64-row stage of x: its k-steps 0-1, 2-3.
+        bf16_stage_products<K::PITCH, K::KSS, MTN>(
+            acc, sp, xs + gq * XP + 2 * KS * tq + (st >> 1) * (SR / 2) + 4 * (st & 1), XP, tq,
+            j0, ksw);
+      } else {
+        uint4 bx[MTN][KS / 2];
 #pragma unroll
-      for (int mt = 0; mt < MTN; ++mt)
+        for (int mt = 0; mt < MTN; ++mt)
 #pragma unroll
-        for (int h = 0; h < KS / 2; ++h)
-          if (2 * h < ksw)
-            bx[mt][h] = *reinterpret_cast<const uint4*>(xl + 8 * mt * XP + st * (SR / 2) + 4 * h);
-      if constexpr (WK == WK_FP8)
-        stage_products<PITCH, KS, MTN>(acc, sp, bx, tq, j0, ksw, f8);
-      else
-        stage_products<PITCH, KS, MTN>(acc, sp, bx, tq, j0, ksw, S8Pair{});
+          for (int h = 0; h < KS / 2; ++h)
+            if (2 * h < ksw)
+              bx[mt][h] =
+                  *reinterpret_cast<const uint4*>(xl + 8 * mt * XP + st * (SR / 2) + 4 * h);
+        if constexpr (WK == WK_FP8)
+          stage_products<PITCH, KS, MTN>(acc, sp, bx, tq, j0, ksw, f8);
+        else
+          stage_products<PITCH, KS, MTN>(acc, sp, bx, tq, j0, ksw, S8Pair{});
+      }
     }
 
     // The lane's sums: rows m = 8 mt + 2 tq + e of x, columns col .. col + 3

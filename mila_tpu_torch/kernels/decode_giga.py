@@ -35,8 +35,10 @@ depth; ``chip_smoke.py`` holds the kernel to the JAX package's own gate
 for this kernel (greedy tokens agree on at least 7/8 of the rows, logits
 within 5e-2 * max(1, L/4) + 5e-2 relative).
 
-bf16 streams (``pack_decode_giga(..., bf16_stream=True)``) run only on the
-CPU: the kernel takes int8 tiles and raises otherwise.
+bf16 streams (``pack_decode_giga(..., bf16_stream=True)``: unit scales,
+the padded tied wte^T as the head) run on the card too, through the
+kernel's bf16 instantiation (ring stages of 32 two-byte rows); fp8 and
+int4 never reach it (the pack requantizes them to int8, as JAX's does).
 """
 
 from __future__ import annotations
@@ -272,9 +274,10 @@ def giga_decode_step(x: torch.Tensor, cos_t: Optional[torch.Tensor],
             x, cos_t, sin_t = _embed_rope(x, tokens, old_lens, pack)
         return giga_decode_plain(x, cos_t, sin_t, old_lens, pack, k_pool, v_pool,
                                  sm_scale=sm_scale)
-    if pack.w.dtype != torch.int8:
-        raise NotImplementedError(f"giga_decode_step takes int8 tile streams (pack_decode_giga "
-                                  f"requantizes fp8 and int4 to int8); got {pack.w.dtype}")
+    if pack.w.dtype not in (torch.int8, torch.bfloat16):
+        raise NotImplementedError(f"giga_decode_step takes int8 or bf16 tile streams "
+                                  f"(pack_decode_giga requantizes fp8 and int4 to int8); got "
+                                  f"{pack.w.dtype}")
     check_step(w=pack.w, s=pack.s, k_pool=k_pool, v_pool=v_pool, M=B, H=H, I=pack.i_dim,
                bn=bn, NH=NH, NKV=NKV, HD=HD, T=T)
     NTOT = _head_base(pack) + pack.n_head

@@ -171,6 +171,9 @@ _INTS = ("giga", "tokens_mode", "x_is_f32", "M", "H", "I", "bn", "NH", "NKV", "H
          "n_qkv", "n_head", "vocab", "ks_wo", "ks_gu", "ks_down", "ks_q", "ks_head", "cols_wo",
          "cols_gu", "cols_down", "cols_q", "cols_head", "wfmt")
 _PHASES = {"wo": "wo", "gu": "gu", "down": "down", "qkv": "q", "head": "head"}
+# The tile formats of csrc/decode_step_int8.cu (its wfmt): the one-byte ones
+# of quant_matmul.WFMT and bf16 (the giga launch's unquantized stream).
+STREAM_WFMT = {**WFMT, torch.bfloat16: 3}
 _HDS = (8, 16, 32, 64, 128)
 
 
@@ -208,8 +211,8 @@ def _grid(index: int, m_tile: int, is_f32: int, wfmt: int = 0) -> int:
 
 def check_step(*, w, s, k_pool, v_pool, M, H, I, bn, NH, NKV, HD, T) -> None:
     """What the decode_step_int8 kernel takes; raises on anything else."""
-    if w.dtype not in WFMT:
-        raise NotImplementedError(f"decode_step_int8 takes int8 or fp8 tile streams; got "
+    if w.dtype not in STREAM_WFMT:
+        raise NotImplementedError(f"decode_step_int8 takes int8, fp8 or bf16 tile streams; got "
                                   f"{w.dtype}")
     if not 0 < M <= 32:
         raise ValueError(f"decode_step_int8 is a decode kernel: 1 <= B <= 32, got {M}")
@@ -256,7 +259,7 @@ def launch_step(ptrs: dict, ints: dict, *, eps: float, scale: float, is_f32: int
     tensors of StepParams (missing: null), ``ints`` its ints (missing: 0);
     the K slices and the scratch are planned here, and the tiles' format
     is read from ``ptrs["w"]``."""
-    ints = {k: 0 for k in _INTS} | ints | {"wfmt": WFMT[ptrs["w"].dtype]}
+    ints = {k: 0 for k in _INTS} | ints | {"wfmt": STREAM_WFMT[ptrs["w"].dtype]}
     M, H, I, bn = ints["M"], ints["H"], ints["I"], ints["bn"]
     NQ, KD = ints["NH"] * ints["HD"], ints["NKV"] * ints["HD"]
     n_qkv, n_head = ints["n_qkv"], ints["n_head"]
@@ -319,6 +322,9 @@ def layer_megakernel(qkv: torch.Tensor, x: torch.Tensor, gamma_mlp: torch.Tensor
             num_heads=NH, eps=eps, scale=sm_scale)
         return x_out.reshape(*lead, H), qkv_next, k_cache, v_cache
     KD = NKV * HD
+    if pack.w.dtype not in WFMT:
+        raise NotImplementedError(f"layer_megakernel takes int8 or fp8 packs (the JAX package "
+                                  f"packs quantized params only); got {pack.w.dtype}")
     check_step(w=pack.w, s=pack.s, k_pool=k_cache, v_pool=v_cache, M=B, H=H, I=pack.i_dim,
                bn=bn, NH=NH, NKV=NKV, HD=HD, T=T)
     if x.dtype not in (torch.bfloat16, torch.float32):

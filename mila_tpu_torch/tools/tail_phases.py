@@ -83,7 +83,7 @@ TAIL = ("wo", "fin1", "gu", "fin_h", "down", "fin2")
 # name -> (nvcc defines, overrides of kernels/layer_fused.py's mirrors of them,
 # edits of tail_phases.cuh: [(old text, new text)])
 _NO_MMA = [("bx, tq, j0, ksw, ", "bx, tq, j0, 0, ")]  # stage_products: no k-step
-_NO_STREAM = [("        if (c * rstep < SR) cp_async_to<16>", "        if (false) cp_async_to<16>")]
+_NO_STREAM = [("        if (c * rstep < K::SRS)\n", "        if (false)\n")]
 _INLINE = [("__device__ void gemv_phase(", "__device__ __forceinline__ void gemv_phase("),
            ("__device__ void qkv_phases(", "__device__ __forceinline__ void qkv_phases("),
            ("__device__ void tail_phases(", "__device__ __forceinline__ void tail_phases(")]
@@ -103,13 +103,13 @@ VARIANTS = {
     "maxg4": ([], {}, [("decode_step_int8.cu", "constexpr int MAXG = 8,", "constexpr int MAXG = 4,")]),
     "mega_only": ([], {}, [("decode_step_int8.cu", "  if (p.giga) {\n", "  if (false) {\n"),
                             ("decode_step_int8.cu", "  if (!p.giga) return;", "  return;")]),
-    "k7_local": ([], {}, [("layer_tail_int8.cu", "  tail_phases<MT, T, FP8>(p, smem, grid);",
+    "k7_local": ([], {}, [("layer_tail_int8.cu", "  tail_phases<MT, T, FP8 ? WK_FP8 : WK_INT8>(p, smem, grid);",
                            "  Params q = p;\n  q.eps = p.eps + 0.f * threadIdx.x;\n"
-                           "  tail_phases<MT, T, FP8>(q, smem, grid);")]),
-    "k7_static": ([], {}, [("layer_tail_int8.cu", "  tail_phases<MT, T, FP8>(p, smem, grid);",
+                           "  tail_phases<MT, T, FP8 ? WK_FP8 : WK_INT8>(q, smem, grid);")]),
+    "k7_static": ([], {}, [("layer_tail_int8.cu", "  tail_phases<MT, T, FP8 ? WK_FP8 : WK_INT8>(p, smem, grid);",
                             "  __shared__ float pad_s[32 + WARPS * 33 + 2 * WARPS];\n"
                             "  if (threadIdx.x > 4096) pad_s[threadIdx.x % 300] = 1.f;\n"
-                            "  tail_phases<MT, T, FP8>(p, smem, grid);")]),
+                            "  tail_phases<MT, T, FP8 ? WK_FP8 : WK_INT8>(p, smem, grid);")]),
 }
 
 _STAMP = f'''

@@ -1040,12 +1040,13 @@ def test_layer_megakernel_graph_replay_and_determinism(cuda, wdt):
         assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
 
 
-def _giga_case(L, H, I, NH, NKV, HD, bn, VP, vocab, seed):
+def _giga_case(L, H, I, NH, NKV, HD, bn, VP, vocab, seed, bf16=False):
+    # bf16: unit-scale bf16 tiles (pack_decode_giga(bf16_stream=True)'s).
     rng = np.random.default_rng(seed)
 
     def w(*shape):
-        return quantize(torch.from_numpy((rng.standard_normal(shape) * 0.05).astype(
-            np.float32)).cuda(), "int8")
+        raw = torch.from_numpy((rng.standard_normal(shape) * 0.05).astype(np.float32)).cuda()
+        return unit_qtensor(raw.to(torch.bfloat16)) if bf16 else quantize(raw, "int8")
 
     KD = NKV * HD
     layers = [(w(NH * HD, H), w(H, 2 * I), w(I, H), w(H, NH * HD + 2 * KD)) for _ in range(L)]
@@ -1069,7 +1070,23 @@ def _giga_gate(got, want, L, B):
     (2, 512, 1024, 8, 8, 64, 512, 1024, 1000, 3, 32),  # G = 1 (the JAX tests' shape)
 ])
 def test_giga_kernel(cuda, mode, L, H, I, NH, NKV, HD, bn, VP, vocab, B, T):
-    pack = _giga_case(L, H, I, NH, NKV, HD, bn, VP, vocab, 50)
+    _giga_check(mode, L, H, I, NH, NKV, HD, bn, VP, vocab, B, T)
+
+
+@pytest.mark.parametrize("B", [1, 8, 32])
+@pytest.mark.parametrize("L,H,I,NH,NKV,HD,bn,VP,vocab,T", [
+    (2, 512, 1024, 8, 2, 64, 128, 1024, 1000, 64),  # 128-column units, G = 4
+    (2, 2048, 8192, 32, 8, 64, 512, 2560, 2000, 64),  # Llama-3.2-1B's layer widths
+])
+def test_giga_bf16_stream_kernel(cuda, L, H, I, NH, NKV, HD, bn, VP, vocab, B, T):
+    # pack_decode_giga(bf16_stream=True)'s stream at M 1, 8 and 32 against
+    # the plain version, with the giga gate.
+    _giga_check("tokens", L, H, I, NH, NKV, HD, bn, VP, vocab, B, T, bf16=True)
+
+
+def _giga_check(mode, L, H, I, NH, NKV, HD, bn, VP, vocab, B, T, bf16=False):
+    pack = _giga_case(L, H, I, NH, NKV, HD, bn, VP, vocab, 50, bf16)
+    assert pack.w.dtype == (torch.bfloat16 if bf16 else torch.int8)
     rng = np.random.default_rng(51)
     KD = NKV * HD
     lens = rng.integers(1, T, B).astype(np.int32)
@@ -1112,10 +1129,23 @@ def test_giga_kernel(cuda, mode, L, H, I, NH, NKV, HD, bn, VP, vocab, B, T):
 ])
 def test_giga_kernel_graph_replay_and_determinism(cuda, L, H, I, NH, NKV, HD, bn, VP, vocab, B,
                                                   T):
+    _giga_replay(L, H, I, NH, NKV, HD, bn, VP, vocab, B, T)
+
+
+@pytest.mark.parametrize("L,H,I,NH,NKV,HD,bn,VP,vocab,B,T", [
+    (2, 512, 1024, 8, 2, 64, 128, 1024, 1000, 5, 64),  # 128-column units
+    (2, 512, 1024, 8, 8, 64, 512, 1024, 1000, 3, 32),  # 256-column units
+])
+def test_giga_bf16_stream_graph_replay_and_determinism(cuda, L, H, I, NH, NKV, HD, bn, VP,
+                                                       vocab, B, T):
+    _giga_replay(L, H, I, NH, NKV, HD, bn, VP, vocab, B, T, bf16=True)
+
+
+def _giga_replay(L, H, I, NH, NKV, HD, bn, VP, vocab, B, T, bf16=False):
     # Two steps on the same inputs are bit-equal (the rows they write are
     # not among the rows they read); a captured step replayed after the
     # tokens are rewritten in place equals an eager step on the new tokens.
-    pack = _giga_case(L, H, I, NH, NKV, HD, bn, VP, vocab, 160)
+    pack = _giga_case(L, H, I, NH, NKV, HD, bn, VP, vocab, 160, bf16)
     rng = np.random.default_rng(161)
     lens = torch.from_numpy(rng.integers(1, T - 1, B).astype(np.int32)).cuda()
     kpool, vpool = _rand((L, B, T, NKV * HD), 162), _rand((L, B, T, NKV * HD), 163)
@@ -1159,13 +1189,17 @@ def test_giga_kernel_leaves_a_full_cache_alone(cuda):
 
 
 def test_giga_and_mega_refuse_other_streams(cuda):
+    # The whole-step kernel takes int8 and bf16 streams (tested above); the
+    # per-layer one takes no bf16 pack (JAX's pack_decode_megalayers packs
+    # quantized params only) and raises on one.
     pack = _giga_case(2, 512, 1024, 8, 2, 64, 128, 1024, 1000, 70)
-    bf = pack._replace(w=pack.w.to(torch.bfloat16))
     kpool = _rand((2, 2, 32, 128), 71)
+    H, NH, NKV, HD, B, T = 512, 8, 2, 64, 2, 32
+    mega = _mega_case(H, 1024, NH, NKV, HD, 128, 40)
+    bf = mega._replace(w=mega.w.to(torch.bfloat16))
+    qkv, x, g1, g2, k, v, ln, cos_t, sin_t = _mega_inputs(H, NH, NKV, HD, B, T, torch.bfloat16)
     with pytest.raises(NotImplementedError):
-        dg.giga_decode_step(_rand((1000, 512), 72), None, None,
-                            torch.tensor([1, 2], device="cuda"), bf, kpool, kpool.clone(),
-                            tokens=torch.tensor([1, 2], device="cuda"))
+        lm.layer_megakernel(qkv, x, g1, bf, k, v, ln, cos_t, sin_t, g2, num_heads=NH)
     before = dg.giga_decode_step.launches
     cpu = dg.GigaPack(*(v.cpu() if isinstance(v, torch.Tensor) else v for v in pack))
     dg.giga_decode_step(_rand((1000, 512), 72).cpu(), None, None, torch.tensor([1, 2]), cpu,
