@@ -20,8 +20,9 @@ exits non-zero without the final line):
   kernels fp8  the fp8 branches of the one-byte kernels (Llama-3.2-1B
            FP8-E4M3, the prefill GEMM also on e5m2 weights): K1 wgu and
            wqkv at M 1024, K2 wqkv, wo, down, wgu and the head at M 8, K4,
-           K7 at a middle and the last layer, the MLP block at layer 0, each
-           beside its plain version, bound and library call;
+           K7 at a middle and the last layer, the MLP block at layer 0, K8's
+           one-layer launch (layer_megakernel) on e4m3 and e5m2 tile
+           streams, each beside its plain version, bound and library call;
   crossover one layer's prefill attention at T 512-4096: the flash kernel
            against the plain product (FLASH_MIN_SEQ stays 2048);
   parity   Llama-3.2-1B widths at 2 layers (G = 4: the slot head order is
@@ -33,7 +34,8 @@ exits non-zero without the final line):
            pack_decode_giga params; 4 forward_with_cache_ragged steps on
            pack_decode_mlp params;
   parity fp8  the same at 2 layers in fp8 e4m3 with an fp8 head: the
-           paged protocol and the packed contiguous steps;
+           paged protocol and the contiguous steps on pack_decode_layers and
+           pack_decode_megalayers params;
   parity long  the same widths at 2 layers with int4 weights and int8
            pages: a paged prefill in a 2048-token bucket (flash on the card,
            the plain product on the CPU) and 8 decode steps;
@@ -45,8 +47,14 @@ exits non-zero without the final line):
            pack_decode_layers over its fp8 params;
   giga     the same shape on pack_decode_giga params: prefill, stack_kv_cache,
            64 giga_step steps (one kernel per step), the same numbers;
+  giga bf16  Llama-3.2-1B unquantized (bf16) through
+           pack_decode_giga(bf16_stream=True): the whole-step kernel on the
+           bf16 stream against its plain version with the giga gate, then
+           the giga phase's decode on it;
   mega     the same shape on pack_decode_megalayers params: prefill and 16
-           greedy_step_with_cache steps (one kernel per layer);
+           greedy_step_with_cache steps (one kernel per layer), the graph
+           step beside its byte bound;
+  mega fp8  the same on Llama-3.2-1B FP8-E4M3 (fp8 tile streams);
   generate Generator.generate on the unpacked int8 params and on
            pack_decode_mlp params (B 8, 64-token prompts, 16 new tokens);
   serve    the full 16-layer Llama-3.2-1B int8 (random weights from a seed)
@@ -70,9 +78,12 @@ exits non-zero without the final line):
   kernels train  the training kernels against their plain versions at the
            training path's shapes: flash forward with statistics and flash
            backward (GPT-2 B 8 T 1024, Llama-3.2-1B's GQA heads at T 2048, D
-           128; beside SDPA's forward, its forward + backward and its
-           backward alone), fused AdamW on wte with and without stochastic rounding
-           (bit-equal), softmax-CE forward and backward at [8192, 50304];
+           128; the mma.sync family at GPT-2's shape in f32 and at T 2048,
+           NH 16/8, D 192 and 256 in bf16; beside SDPA's forward, its
+           forward + backward and its backward alone), fused AdamW on wte
+           with and without stochastic rounding and in fp16 (bit-equal),
+           softmax-CE forward and backward at [8192, 50304] in bf16 and
+           fp16; every row carries its dtype;
   parity train  a 2-layer GPT-2 at full width (B 2, T 1024, bf16 + SR
            masters, flash): loss, every gradient leaf and one Model train
            step's m, v and masters, on the card against the CPU path from the
@@ -82,11 +93,17 @@ exits non-zero without the final line):
            (4 fixed sequences, so the loss must fall), then Model.evaluate:
            ms/step, tokens/s, model TFLOP/step and its share of the bf16
            peak (MFU), first and last loss, peak memory, one step split into
-           forward, backward and AdamW.
+           forward, backward and AdamW;
+  parity train fp16, train fp16  the same in fp16 (SR masters): 2 layers
+           card against CPU, then 124M over 2 warm-up and 4 timed steps
+           (the launch counts of train, the loss falling by 1 nat);
+  parity train f32, train f32  the same for GPT-2 as shipped (f32 params,
+           flash on tf32 products; the loss reported, not gated).
 
 On every path (decode prefill, decode, decode fp8 prefill, decode fp8,
-giga prefill, giga, mega prefill, mega, generate, generate mlp, each serve
-run, serve fp8, serve long, train, evaluate)
+giga prefill, giga, giga bf16 prefill, giga bf16, mega prefill, mega, mega
+fp8 prefill, mega fp8, generate, generate mlp, each serve run, serve fp8,
+serve long, train, evaluate, and train and evaluate in fp16 and f32)
 the launch counts are set to 0 just before it and must equal, just after
 it, the counts the path implies for all twenty entry points (0 for those
 it does not reach), and no plain version may run. Then the kernel summary line
@@ -2423,6 +2440,10 @@ def main() -> int:
             "dtypes": sorted({r["dtype"] for r in mine if r.get("dtype")}),
             "launches_by_path": {p: c[entry] for p, c in by_path.items() if c[entry]},
             "shapes": mine})
+        if entry.startswith("flash_attention"):  # the mma.sync family's rows (PR 14)
+            summary[-1]["sources"] = sorted({SOURCES[entry][0]} | {
+                f"mila_tpu_torch/csrc/flash_sync_{'bwd' if entry.endswith('bwd') else 'fwd'}.cu"
+                for r in mine if r.get("family") == "sync"})
         if entry == "mlp_qkv_fused":
             summary[-1]["note"] = ("no model path calls this entry (the JAX package's only "
                                    "caller is bench.py's kernel check); its kernel runs on "

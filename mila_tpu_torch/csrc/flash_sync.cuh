@@ -6,7 +6,11 @@
 // One warp owns 16 rows of a tile and runs its products on mma.sync with
 // f32 accumulators: bf16 and fp16 on m16n8k16, f32 on m16n8k8 .tf32 (the
 // operands rounded to tf32 by cvt.rna: q, k, v, p, dO and dS keep 10
-// mantissa bits for the products, the sums stay f32; ROADMAP §C.2). Tiles
+// mantissa bits for the products, the sums stay f32; ROADMAP §C.2). The
+// backward's dP = dO V^T alone runs on split operands in f32 (x = hi + lo,
+// both tf32; hi hi + hi lo + lo hi, about f32's accuracy, Ops::SPLIT): dS =
+// P (dP - D) cancels to 0 where a query sees one key, and D is an f32 sum
+// of o do, so a tf32 dP would leave 2^-11 of |dO| |V| there. Tiles
 // sit in shared memory as row-major [row][column] arrays padded by PAD
 // elements a row; the fragments come from them by 32-bit loads (ld32,
 // 16-bit types), ldmatrix.trans (16-bit, B from a [k][n] tile) or scalar
@@ -69,6 +73,7 @@ template <typename T>
 struct Ops16 {
   static constexpr int KS = 16;  // k values a step
   static constexpr int PAD = 8;  // elements a shared row is padded by (16 bytes)
+  static constexpr bool SPLIT = false;  // 16-bit operands are exact: one product
   __device__ static void a_rows(uint32_t* a, const T* tile, int rs, int r0, int k0, int lane) {
     const int g = lane >> 2, t = lane & 3;
     const T* p = tile + (r0 + g) * rs + k0 + 2 * t;
@@ -124,15 +129,16 @@ template <>
 struct Ops<float> {
   static constexpr int KS = 8;
   static constexpr int PAD = 4;
+  static constexpr bool SPLIT = true;
   __device__ static void a_rows(uint32_t* a, const float* tile, int rs, int r0, int k0,
                                 int lane) {
     const int g = lane >> 2, t = lane & 3;
-    const float2 lo = *reinterpret_cast<const float2*>(tile + (r0 + g) * rs + k0 + 2 * t);
-    const float2 hi = *reinterpret_cast<const float2*>(tile + (r0 + g + 8) * rs + k0 + 2 * t);
-    a[0] = tf32(lo.x);
-    a[1] = tf32(hi.x);
-    a[2] = tf32(lo.y);
-    a[3] = tf32(hi.y);
+    const float2 u = *reinterpret_cast<const float2*>(tile + (r0 + g) * rs + k0 + 2 * t);
+    const float2 w = *reinterpret_cast<const float2*>(tile + (r0 + g + 8) * rs + k0 + 2 * t);
+    a[0] = tf32(u.x);
+    a[1] = tf32(w.x);
+    a[2] = tf32(u.y);
+    a[3] = tf32(w.y);
   }
   __device__ static void b_rows(uint32_t* b, const float* tile, int rs, int n0, int k0,
                                 int lane) {
@@ -140,6 +146,25 @@ struct Ops<float> {
     const float2 v = *reinterpret_cast<const float2*>(tile + (n0 + g) * rs + k0 + 2 * t);
     b[0] = tf32(v.x);
     b[1] = tf32(v.y);
+  }
+  // The low parts of a_rows' and b_rows' fragments: tf32(x - hi) for the hi
+  // they gave (split products, SPLIT).
+  __device__ static void a_rows_lo(uint32_t* lo, const uint32_t* hi, const float* tile, int rs,
+                                   int r0, int k0, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    const float2 u = *reinterpret_cast<const float2*>(tile + (r0 + g) * rs + k0 + 2 * t);
+    const float2 w = *reinterpret_cast<const float2*>(tile + (r0 + g + 8) * rs + k0 + 2 * t);
+    lo[0] = tf32(u.x - __uint_as_float(hi[0]));
+    lo[1] = tf32(w.x - __uint_as_float(hi[1]));
+    lo[2] = tf32(u.y - __uint_as_float(hi[2]));
+    lo[3] = tf32(w.y - __uint_as_float(hi[3]));
+  }
+  __device__ static void b_rows_lo(uint32_t* lo, const uint32_t* hi, const float* tile, int rs,
+                                   int n0, int k0, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    const float2 v = *reinterpret_cast<const float2*>(tile + (n0 + g) * rs + k0 + 2 * t);
+    lo[0] = tf32(v.x - __uint_as_float(hi[0]));
+    lo[1] = tf32(v.y - __uint_as_float(hi[1]));
   }
   __device__ static void b_trans(uint32_t* b, const float* tile, int rs, int k0, int n0,
                                  int lane) {
@@ -160,6 +185,23 @@ struct Ops<float> {
     *reinterpret_cast<float2*>(p) = make_float2(x, y);
   }
 };
+
+// d += A B^T for A rows r0.. of ta and B rows n0.. of tb (k from k0; the
+// backward's dP): one product, or on split operands where O::SPLIT.
+template <typename T>
+__device__ __forceinline__ void mma_rows(float* d, const uint32_t* a, const uint32_t* b,
+                                         const T* ta, const T* tb, int rs, int r0, int n0,
+                                         int k0, int lane) {
+  using O = Ops<T>;
+  O::mma(d, a, b);
+  if constexpr (O::SPLIT) {
+    uint32_t al[4], bl[2];
+    O::a_rows_lo(al, a, ta, rs, r0, k0, lane);
+    O::b_rows_lo(bl, b, tb, rs, n0, k0, lane);
+    O::mma(d, a, bl);
+    O::mma(d, al, b);
+  }
+}
 
 // Rows per K/V (forward, dQ) or Q/dO (dK/dV) tile: 64 where a row is at
 // most 256 bytes, 32 to 512 bytes, else 16, so that the tiles fit shared

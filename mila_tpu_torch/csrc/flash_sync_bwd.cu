@@ -17,10 +17,10 @@
 //
 // Bound on the H100: tensor-core operations (five products of 2 D
 // multiply-adds per visible (query, key) pair and head; the two kernels
-// here run seven, S and dP in each, and at D 192 and 256 the dK/dV blocks
-// twice more, below) against q, k, v, o, do, dq, dk, dv moved once. The
-// simple family: right first, its times in PERF.md. Two kernels, 4 warps of
-// 16 rows each:
+// here run seven, S and dP in each, at D 192 and 256 the dK/dV blocks two
+// more (below), and f32 runs dP three times, flash_sync.cuh) against q, k,
+// v, o, do, dq, dk, dv moved once. The simple family: right first, its
+// times in PERF.md. Two kernels, 4 warps of 16 rows each:
 //   dq (first): one block per (64 query rows, head, batch row), heaviest q
 //     tiles first. Q and dO tiles in shared memory; K/V tiles of N keys
 //     (Tile<T, D>) streamed by cp.async, double buffered. Before the loop the
@@ -164,7 +164,7 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Args<T> a) {
         O::b_rows(bk, kt, RS, ni * 8, kk * KS, lane);
         O::b_rows(bv, vt, RS, ni * 8, kk * KS, lane);
         O::mma(s[ni], qa, bk);
-        O::mma(dp[ni], oa, bv);
+        mma_rows<T>(dp[ni], oa, bv, Os, vt, RS, warp * 16, ni * 8, kk * KS, lane);
       }
     }
 #pragma unroll
@@ -301,7 +301,7 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Args<T> a) {
         O::b_rows(bq, qt, RS, ni * 8, kk * KS, lane);
         O::b_rows(bo, ot, RS, ni * 8, kk * KS, lane);
         O::mma(s[ni], ka, bq);
-        O::mma(dp[ni], va, bo);
+        mma_rows<T>(dp[ni], va, bo, Vs, ot, RS, warp * 16, ni * 8, kk * KS, lane);
       }
     }
 
