@@ -98,7 +98,7 @@ exits non-zero without the final line):
            card against CPU, then 124M over 2 warm-up and 4 timed steps
            (the launch counts of train, the loss falling by 1 nat);
   parity train f32, train f32  the same for GPT-2 as shipped (f32 params,
-           flash on tf32 products; the loss reported, not gated).
+           flash on tf32 products).
 
 On every path (decode prefill, decode, decode fp8 prefill, decode fp8,
 giga prefill, giga, giga bf16 prefill, giga bf16, mega prefill, mega, mega
@@ -552,7 +552,7 @@ def mega_row(record, megas, caches, old, qkv, xm, g1, g2, cfg, mid, wdtype=None)
             max_err(vg[rows_b, old.long()], vp[rows_b, old.long()])]
     worst = max(errs, key=lambda e: e[0] / e[1])
     grid_m, _, plan_m = lm.step_launch_plan(B, H, I, bn, pk.n_qkv, 0, dev.index or 0, 0,
-                                            wfmt_of(pk.w.dtype))
+                                            lm.STREAM_WFMT[pk.w.dtype])
     tail_bytes = n_full * (H * bn + bn * 4) + 2 * B * H * 2 + 2 * H * 4 + B * H * 2 + B * Nq * 2
     ops = 2 * B * (H * H + 3 * H * I) + 2 * B * H * Nq + 4 * (live_old + B) * NH * HD
     record("layer_megakernel", f"layer {mid} B={B} old 128-191 T={T}", *worst,
@@ -619,13 +619,6 @@ def giga_row(record, gp, wte, tokens, old, kpool, vpool, cfg, wdtype=None) -> No
            token_agreement=agree / B, grid=grid_g, plan=plan_g, wdtype=wdtype,
            errors={"logits": l_err, "k_rows": row_errs[0][0], "v_rows": row_errs[1][0],
                    "kv_rows_by_layer": by_layer})
-
-
-def wfmt_of(dtype) -> int:
-    """The C entries' weight format code of a tile dtype."""
-    from mila_tpu_torch.kernels.quant_matmul import WFMT
-
-    return WFMT[dtype]
 
 
 def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
@@ -1755,14 +1748,15 @@ def phase_train_kernels(bw, peak_ops, rng):
         es = q.element_size()
         # f32 runs on tf32 tensor-core operands: its rate is TF32's.
         peak = {torch.float32: TF32_OPS}.get(dtype)
-        tl = {"tol": ERR_TOL, "l": 1e-4, "m": 1e-3} if dtype != torch.float32 else {
-            "tol": ERR_TOL, "l": 1e-2, "m": 1e-2}
+        # l and m: f32 sums of exponentials in another order (1e-4 relative,
+        # 1e-3 absolute), 1e-2 both where the scores come from tf32 products.
+        lim = {"l": 1e-2, "m": 1e-2} if dtype == torch.float32 else {"l": 1e-4, "m": 1e-3}
         o, l, m = fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm)
         o_ref, l_ref, m_ref = fa.flash_attention_plain(q, k, v, scale=sm, save_stats=True)
         o_err = max_row_err(o, o_ref)
         l_err = ((l - l_ref).abs() / l_ref).max().item()
         m_err = (m - m_ref).abs().max().item()
-        if o_err > tl["tol"] or l_err > tl["l"] or m_err > tl["m"]:
+        if o_err > ERR_TOL or l_err > lim["l"] or m_err > lim["m"]:
             raise AssertionError(f"flash_attention_forward[{shape}]: row err {o_err}, l rel "
                                  f"{l_err}, m abs {m_err}")
         pairs = B * NH * T * (T + 1) // 2
@@ -1774,7 +1768,7 @@ def phase_train_kernels(bw, peak_ops, rng):
                [lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=gqa)],
                es * (2 * q.numel() + 2 * k.numel()) + 2 * 4 * B * NH * T, 4 * D * pairs,
                gate=f"each (b, t, head) row of o within {ERR_TOL} of its max |ref|; l rel "
-                    f"{tl['l']}, m abs {tl['m']}",
+                    f"{lim['l']}, m abs {lim['m']}",
                max_row_rel_err=o_err, l_rel_err=l_err, m_abs_err=m_err, dtype=tag,
                family=fa.family(dtype, D), peak=peak)
         rows[-1]["tflops"] = 4 * D * pairs / rows[-1]["ms"] / 1e9
@@ -1835,7 +1829,7 @@ def phase_train_kernels(bw, peak_ops, rng):
 
     for B, T, NH, NKV, D in ((8, 1024, 12, 12, 64), (2, 2048, 32, 8, 64), (1, 2048, 24, 8, 128)):
         flash_rows(B, T, NH, NKV, D, rand)
-    # The mma.sync family (PR 14), its inputs from their own random stream:
+    # The mma.sync family, its inputs from their own random stream:
     # GPT-2's shape in f32, and Llama-3.2-1B's GQA heads at T 2048 with head
     # sizes 192 and 256 in bf16.
     own = np.random.default_rng(23)
@@ -2095,8 +2089,7 @@ def adamw_device_ms(model, grads) -> float:
     return time_graph([update], reps=5)
 
 
-def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16", full: bool = True,
-                fall_gate: bool = True):
+def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16", full: bool = True):
     """GPT-2 124M at full size (``dtype`` params, bf16 unless named; f32 SR
     masters, clip 1.0, flash), B 8, T 1024: Model.train over ``steps``
     batches of synthetic windows with structure (each one of 4 fixed random
@@ -2105,9 +2098,8 @@ def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16", full: b
     flash_attention_bwd L, the CE forward and backward once each,
     fused_adamw_update once per parameter leaf (148); per eval step
     flash_attention L and the CE forward once; no plain version anywhere.
-    ``fall_gate``: the loss must fall by 1 nat (else only whether it falls
-    is reported); ``full``: split three more steps into their segments and
-    time AdamW alone (the bf16 run)."""
+    The loss must fall by 1 nat. ``full``: split three more steps into
+    their segments and time AdamW alone (the bf16 run)."""
     from mila_tpu_torch.data.loader import ArrayReader
     from mila_tpu_torch.models.gpt2 import GPT2
     from mila_tpu_torch.models.model import Model, ModelConfig
@@ -2155,14 +2147,12 @@ def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16", full: b
     # spikes a step now and then) and the eval loss at least 1 nat under the
     # first step's.
     tail = statistics.median(losses[-4:])
-    falls = bool(tail < losses[0] - 1.0 and val < losses[0] - 1.0)
-    if not all(np.isfinite(losses)) or not np.isfinite(val):
-        raise AssertionError(f"train{tag}: losses {losses}, eval {val}: not finite")
+    if (not all(np.isfinite(losses)) or not np.isfinite(val) or not tail < losses[0] - 1.0
+            or not val < losses[0] - 1.0):
+        raise AssertionError(f"train{tag}: losses {losses}, eval {val}: not finite and falling")
     step_s = statistics.median(times[2:])
     D, NH = cfg.embedding_dim // cfg.num_heads, cfg.num_heads
     flops = 6 * n_params * B * T + 7 * T * T * D * B * NH * L
-    if fall_gate and not falls:
-        raise AssertionError(f"train{tag}: losses {losses}, eval {val}: not falling by 1 nat")
     out = {"model": f"gpt2-124m, {dtype} params + f32 SR masters, flash, random weights",
            "shape": f"B={B} T={T}", "steps": steps, "params": n_params, "leaves": n_leaves,
            "build_s": build_s, "ms_per_step": step_s * 1e3,
@@ -2170,7 +2160,7 @@ def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16", full: b
            "model_tflop_per_step": flops / 1e12, "mfu": flops / step_s / peak_ops,
            "mfu_note": "model FLOPs utilisation against the published bf16 peak",
            "loss_first": losses[0], "loss_last": losses[-1], "loss_median_last4": tail,
-           "losses": losses, "eval_loss": val, "falls_1_nat": falls, "peak_mem_gb": peak_gb,
+           "losses": losses, "eval_loss": val, "peak_mem_gb": peak_gb,
            "launches_per_step": per_step, "launches": t_counts, "launches_eval": e_counts}
     if not full:
         return t_counts, e_counts, out
@@ -2393,7 +2383,7 @@ def main() -> int:
     emit({"phase": "train", "card": card, **train})
     # GPT-2 in fp16 (SR masters as in train): the card against the CPU path
     # at 2 layers, then 124M for 2 warm-up and 4 timed steps; its loss falls
-    # as bf16's does (PERF.md, PR 14), so it is held to the same gate.
+    # as bf16's does (PERF.md), so it is held to the same gate.
     parity_train16 = phase_parity_train(np.random.default_rng(20), "float16")
     emit({"phase": "parity train fp16", "card": card, **parity_train16})
     t16_counts, e16_counts, train16 = phase_train(peak_ops, np.random.default_rng(21), steps=6,
@@ -2401,11 +2391,11 @@ def main() -> int:
     emit({"phase": "train fp16", "card": card, **train16})
     # GPT-2 124M as shipped (f32 params) with flash attention: the mma.sync
     # family on tf32 products, card against CPU at 2 layers, then 2 warm-up
-    # and 4 timed steps.
+    # and 4 timed steps (its loss falls as bf16's does, PERF.md).
     parity_train32 = phase_parity_train(np.random.default_rng(24), "float32")
     emit({"phase": "parity train f32", "card": card, **parity_train32})
     t32_counts, e32_counts, train32 = phase_train(peak_ops, np.random.default_rng(25), steps=6,
-                                                  dtype="float32", full=False, fall_gate=False)
+                                                  dtype="float32", full=False)
     emit({"phase": "train f32", "card": card, **train32})
 
     by_path = {"serve paged": counts, "serve contiguous": c_counts, "serve giga": g_counts,
@@ -2440,7 +2430,7 @@ def main() -> int:
             "dtypes": sorted({r["dtype"] for r in mine if r.get("dtype")}),
             "launches_by_path": {p: c[entry] for p, c in by_path.items() if c[entry]},
             "shapes": mine})
-        if entry.startswith("flash_attention"):  # the mma.sync family's rows (PR 14)
+        if entry.startswith("flash_attention"):  # rows of the mma.sync family too
             summary[-1]["sources"] = sorted({SOURCES[entry][0]} | {
                 f"mila_tpu_torch/csrc/flash_sync_{'bwd' if entry.endswith('bwd') else 'fwd'}.cu"
                 for r in mine if r.get("family") == "sync"})

@@ -42,6 +42,8 @@
 // Layouts are the model's: q, o, do, dq [B, Tq, NH, D], k, v, dk, dv [B,
 // Tkv, NKV, D], contiguous, 16-byte-aligned bases; l, m, delta f32 [B, NH,
 // Tq].
+#include <type_traits>
+
 #include "flash_sync.cuh"
 
 namespace {
@@ -391,8 +393,10 @@ int by_d(int D, void* const* ptrs, int B, int Tq, int Tkv, int NH, int NKV, floa
   a.sm_scale = sm_scale;
   a.kv_offset = kv_offset;
   a.causal = causal;
-  if (D == 64) return launch<T, 64>(a, B, s);
-  if (D == 128) return launch<T, 128>(a, B, s);
+  if constexpr (!std::is_same<T, __nv_bfloat16>::value) {  // bf16: D 192 and 256 only
+    if (D == 64) return launch<T, 64>(a, B, s);
+    if (D == 128) return launch<T, 128>(a, B, s);
+  }
   if (D == 192) return launch<T, 192>(a, B, s);
   if (D == 256) return launch<T, 256>(a, B, s);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -403,8 +407,9 @@ int by_d(int D, void* const* ptrs, int B, int Tq, int Tkv, int NH, int NKV, floa
 // ptrs: q, k, v, o, do, l, m, delta, dq, dk, dv. q, o, do, dq [B, Tq, NH, D],
 // k, v, dk, dv [B, Tkv, NKV, D] of one type (dtype: 0 f32, 1 bf16, 2 fp16),
 // contiguous, 16-byte-aligned bases; l, m f32 [B, NH, Tq] from
-// flash_sync_fwd; delta f32 [B, NH, Tq] scratch. D in {64, 128, 192, 256},
-// Tkv % 64 == 0, NH % NKV == 0 and, when causal, kv_offset >= 0 (checked by
+// flash_sync_fwd; delta f32 [B, NH, Tq] scratch. D in {64, 128, 192, 256}
+// for fp16 and f32, {192, 256} for bf16 (else cudaErrorInvalidValue), Tkv %
+// 64 == 0, NH % NKV == 0 and, when causal, kv_offset >= 0 (checked by
 // the Python wrapper). Two launches (dQ with D, then dK/dV) on `stream`.
 extern "C" int flash_sync_bwd(void* const* ptrs, int B, int Tq, int Tkv, int NH, int NKV, int D,
                               int dtype, float sm_scale, int kv_offset, int causal,

@@ -29,6 +29,8 @@
 // the scaled scores) are written per row when asked for: the statistics
 // flash_sync_bwd.cu reads. Layouts are the model's: q and out [B, Tq, NH,
 // D], k and v [B, Tkv, NKV, D], contiguous, 16-byte-aligned bases.
+#include <type_traits>
+
 #include "flash_sync.cuh"
 
 namespace {
@@ -205,16 +207,20 @@ int launch(const void* q, const void* k, const void* v, void* out, float* l_out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 takes D 192 and 256 here (flash_fwd.cu serves 64 and 128); fp16 and
+// f32 take all four.
 template <typename T>
 int by_d(int D, const void* q, const void* k, const void* v, void* out, float* lo, float* mo,
          int B, int Tq, int Tkv, int NH, int NKV, float sm_scale, int kv_offset, int causal,
          cudaStream_t s) {
-  if (D == 64)
-    return launch<T, 64>(q, k, v, out, lo, mo, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset, causal,
-                         s);
-  if (D == 128)
-    return launch<T, 128>(q, k, v, out, lo, mo, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset,
-                          causal, s);
+  if constexpr (!std::is_same<T, __nv_bfloat16>::value) {
+    if (D == 64)
+      return launch<T, 64>(q, k, v, out, lo, mo, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset,
+                           causal, s);
+    if (D == 128)
+      return launch<T, 128>(q, k, v, out, lo, mo, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset,
+                            causal, s);
+  }
   if (D == 192)
     return launch<T, 192>(q, k, v, out, lo, mo, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset,
                           causal, s);
@@ -228,9 +234,9 @@ int by_d(int D, const void* q, const void* k, const void* v, void* out, float* l
 
 // q [B, Tq, NH, D], k and v [B, Tkv, NKV, D], out [B, Tq, NH, D], of one type
 // (dtype: 0 f32, 1 bf16, 2 fp16), contiguous, 16-byte-aligned bases. D in
-// {64, 128, 192, 256} (bf16 also takes 64 and 128 here, though flash_fwd.cu
-// serves them); Tkv % 64 == 0 and NH % NKV == 0 (checked by the Python
-// wrapper). causal != 0 masks key j for query i unless j <= i + kv_offset.
+// {64, 128, 192, 256} for fp16 and f32, {192, 256} for bf16 (else
+// cudaErrorInvalidValue); Tkv % 64 == 0 and NH % NKV == 0 (checked by the
+// Python wrapper). causal != 0 masks key j for query i unless j <= i + kv_offset.
 // l_out and m_out null, or f32 [B, NH, Tq]: each row's softmax sum l and max
 // m of the scaled scores. Returns a cudaError_t.
 extern "C" int flash_sync_fwd(const void* q, const void* k, const void* v, void* out,

@@ -32,7 +32,8 @@ The other types and head sizes that the gate admits (bf16 at D 192 and
 256, fp16 and f32 at D 64-256) launch the simple ``mma.sync`` family
 (``csrc/flash_sync_fwd.cu``, 4 warps of 16 query rows, K/V tiles through
 ``cp.async``; f32 on tf32 products with f32 sums, ROADMAP §C.2); its
-backward is ``csrc/flash_sync_bwd.cu`` on its own statistics. D over 256
+backward is ``csrc/flash_sync_bwd.cu`` on its own statistics, its dP on
+split tf32 operands in f32. D over 256
 raises on the card: a 64-row tile of f32 rows would not fit the dQ
 kernel's shared memory, and no configuration of either package uses it.
 
@@ -43,9 +44,8 @@ store, and query head h reading KV head h // G. Its tiling gate stays too
 (``ops.flash_tiles_ok``): ``ops.attention`` sends Tq % 16, Tkv % 128 or D %
 64 not 0 to the plain product (``ops.dot_product_attention``), as JAX's
 wrapper sends them to its jnp reference; on the card this wrapper raises
-for them. GPT-2's ``Attention`` reaches it
-through ``nn.layers.Attention`` with ``impl="flash"``, under grad in
-training.
+for them. GPT-2's ``Attention`` reaches it through ``nn.layers.Attention``
+with ``impl="flash"``, under grad in training.
 
 ``flash_attention_plain`` is the kernel's arithmetic in one pass over all
 keys (the running max of the tiles is the row max here; the results agree
@@ -172,7 +172,7 @@ def _launch(q, k, v, causal: bool, sm_scale: float, kv_offset: int, stats: bool 
         rc = lib.flash_sync_fwd(_build.ptr(qc), _build.ptr(kc), _build.ptr(vc), _build.ptr(out),
                                 *lm, B, Tq, Tkv, NH, NKV, D, SYNC_DTYPES[q.dtype], sm_scale,
                                 kv_offset, int(causal), _build.stream_of(q))
-    _build.check(lib, rc, f"flash_{'' if fam == 'wgmma' else 'sync_'}fwd")
+    _build.check(lib, rc, "flash_fwd" if fam == "wgmma" else "flash_sync_fwd")
     if stats:
         flash_attention_forward.launches += 1
         return out, l, m
