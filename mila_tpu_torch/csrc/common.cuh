@@ -8,9 +8,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// A source built in parts (kernels/_build.py: PARTS) is compiled once per
+// part with MILA_PART = 0, 1, ...; IN_PART(k) holds what part k compiles.
+// Part 0 holds the C entry points. Without MILA_PART every part is in.
+#ifdef MILA_PART
+#define IN_PART(k) (MILA_PART == (k))
+#else
+#define IN_PART(k) 1
+#endif
+
+#if IN_PART(0)
 extern "C" const char* mila_cuda_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
+#endif
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }

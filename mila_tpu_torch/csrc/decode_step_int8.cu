@@ -36,6 +36,10 @@
 // own resident blocks: the occupancy query and the Python wrapper's grid
 // cache take the format.
 //
+// Built in four parts (kernels/_build.py: PARTS), one nvcc each: parts 1, 2
+// and 3 instantiate the int8, fp8 and bf16 kinds, part 0 holds the C entry
+// points.
+//
 // Bound on the H100: the bytes of the stream (1.24 GB of int8 tiles and
 // scale rows at Llama-3.2-1B: every layer's wo, gate|up, down and next wqkv,
 // the first wqkv and the padded head) plus the K/V rows read.
@@ -441,15 +445,38 @@ const void* pick_kind(int m_tile, int is_f32) {
   return is_f32 ? kernel_ptr<32, float, WK>() : kernel_ptr<32, __nv_bfloat16, WK>();
 }
 
-// The instantiation of (m_tile, is_f32, wfmt); null for a bf16 stream with
-// bf16 activations (no launch takes one).
+}  // namespace
+
+namespace step_parts {  // each kind's instantiation of (m_tile, is_f32), in its own part
+
+const void* pick_int8(int m_tile, int is_f32);
+const void* pick_fp8(int m_tile, int is_f32);
+const void* pick_bf16(int m_tile, int is_f32);
+
+#if IN_PART(1)
+const void* pick_int8(int m_tile, int is_f32) { return pick_kind<WK_INT8>(m_tile, is_f32); }
+#endif
+#if IN_PART(2)
+const void* pick_fp8(int m_tile, int is_f32) { return pick_kind<WK_FP8>(m_tile, is_f32); }
+#endif
+#if IN_PART(3)
+// Null for bf16 activations (no launch takes one).
+const void* pick_bf16(int m_tile, int is_f32) {
+  if (!is_f32) return nullptr;
+  return m_tile == 8 ? kernel_ptr<8, float, WK_BF16>() : kernel_ptr<32, float, WK_BF16>();
+}
+#endif
+
+}  // namespace step_parts
+
+#if IN_PART(0)
+namespace {
+
+// The instantiation of (m_tile, is_f32, wfmt).
 const void* pick(int m_tile, int is_f32, int wfmt) {
-  if (wfmt == WFMT_BF16) {
-    if (!is_f32) return nullptr;
-    return m_tile == 8 ? kernel_ptr<8, float, WK_BF16>() : kernel_ptr<32, float, WK_BF16>();
-  }
-  return wfmt == WFMT_INT8 ? pick_kind<WK_INT8>(m_tile, is_f32)
-                           : pick_kind<WK_FP8>(m_tile, is_f32);
+  if (wfmt == WFMT_BF16) return step_parts::pick_bf16(m_tile, is_f32);
+  return wfmt == WFMT_INT8 ? step_parts::pick_int8(m_tile, is_f32)
+                           : step_parts::pick_fp8(m_tile, is_f32);
 }
 
 }  // namespace
@@ -516,3 +543,4 @@ extern "C" int decode_step_int8(void* const* ptrs, int n_ptrs, const int* ints, 
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(e != cudaSuccess ? e : last);
 }
+#endif  // IN_PART(0)

@@ -42,9 +42,29 @@
 // Layouts are the model's: q, o, do, dq [B, Tq, NH, D], k, v, dk, dv [B,
 // Tkv, NKV, D], contiguous, 16-byte-aligned bases; l, m, delta f32 [B, NH,
 // Tq].
+//
+// Built in four parts (kernels/_build.py: PARTS), one nvcc each: parts 1, 2
+// and 3 instantiate the f32, bf16 and fp16 kernels, part 0 holds the C entry
+// point.
 #include <type_traits>
 
 #include "flash_sync.cuh"
+
+namespace bwd_parts {  // one call's arguments, and each input type's launches
+
+struct Call {
+  void* const* ptrs;
+  int B, Tq, Tkv, NH, NKV, D;
+  float sm_scale;
+  int kv_offset, causal;
+  cudaStream_t stream;
+};
+
+int run_f32(const Call& c);
+int run_bf16(const Call& c);
+int run_f16(const Call& c);
+
+}  // namespace bwd_parts
 
 namespace {
 
@@ -372,37 +392,49 @@ int launch(const Args<T>& a, int B, cudaStream_t stream) {
 }
 
 template <typename T>
-int by_d(int D, void* const* ptrs, int B, int Tq, int Tkv, int NH, int NKV, float sm_scale,
-         int kv_offset, int causal, cudaStream_t s) {
+int by_d(const bwd_parts::Call& c) {
   Args<T> a;
-  a.q = static_cast<const T*>(ptrs[0]);
-  a.k = static_cast<const T*>(ptrs[1]);
-  a.v = static_cast<const T*>(ptrs[2]);
-  a.o = static_cast<const T*>(ptrs[3]);
-  a.dout = static_cast<const T*>(ptrs[4]);
-  a.l = static_cast<const float*>(ptrs[5]);
-  a.m = static_cast<const float*>(ptrs[6]);
-  a.delta = static_cast<float*>(ptrs[7]);
-  a.dq = static_cast<T*>(ptrs[8]);
-  a.dk = static_cast<T*>(ptrs[9]);
-  a.dv = static_cast<T*>(ptrs[10]);
-  a.Tq = Tq;
-  a.Tkv = Tkv;
-  a.NH = NH;
-  a.NKV = NKV;
-  a.sm_scale = sm_scale;
-  a.kv_offset = kv_offset;
-  a.causal = causal;
+  a.q = static_cast<const T*>(c.ptrs[0]);
+  a.k = static_cast<const T*>(c.ptrs[1]);
+  a.v = static_cast<const T*>(c.ptrs[2]);
+  a.o = static_cast<const T*>(c.ptrs[3]);
+  a.dout = static_cast<const T*>(c.ptrs[4]);
+  a.l = static_cast<const float*>(c.ptrs[5]);
+  a.m = static_cast<const float*>(c.ptrs[6]);
+  a.delta = static_cast<float*>(c.ptrs[7]);
+  a.dq = static_cast<T*>(c.ptrs[8]);
+  a.dk = static_cast<T*>(c.ptrs[9]);
+  a.dv = static_cast<T*>(c.ptrs[10]);
+  a.Tq = c.Tq;
+  a.Tkv = c.Tkv;
+  a.NH = c.NH;
+  a.NKV = c.NKV;
+  a.sm_scale = c.sm_scale;
+  a.kv_offset = c.kv_offset;
+  a.causal = c.causal;
+  const int D = c.D, B = c.B;
   if constexpr (!std::is_same<T, __nv_bfloat16>::value) {  // bf16: D 192 and 256 only
-    if (D == 64) return launch<T, 64>(a, B, s);
-    if (D == 128) return launch<T, 128>(a, B, s);
+    if (D == 64) return launch<T, 64>(a, B, c.stream);
+    if (D == 128) return launch<T, 128>(a, B, c.stream);
   }
-  if (D == 192) return launch<T, 192>(a, B, s);
-  if (D == 256) return launch<T, 256>(a, B, s);
+  if (D == 192) return launch<T, 192>(a, B, c.stream);
+  if (D == 256) return launch<T, 256>(a, B, c.stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
+
+#if IN_PART(1)
+int bwd_parts::run_f32(const Call& c) { return by_d<float>(c); }
+#endif
+#if IN_PART(2)
+int bwd_parts::run_bf16(const Call& c) { return by_d<__nv_bfloat16>(c); }
+#endif
+#if IN_PART(3)
+int bwd_parts::run_f16(const Call& c) { return by_d<__half>(c); }
+#endif
+
+#if IN_PART(0)
 
 // ptrs: q, k, v, o, do, l, m, delta, dq, dk, dv. q, o, do, dq [B, Tq, NH, D],
 // k, v, dk, dv [B, Tkv, NKV, D] of one type (dtype: 0 f32, 1 bf16, 2 fp16),
@@ -414,13 +446,12 @@ int by_d(int D, void* const* ptrs, int B, int Tq, int Tkv, int NH, int NKV, floa
 extern "C" int flash_sync_bwd(void* const* ptrs, int B, int Tq, int Tkv, int NH, int NKV, int D,
                               int dtype, float sm_scale, int kv_offset, int causal,
                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Tq <= 0 || Tkv <= 0) return static_cast<int>(cudaGetLastError());
-  if (dtype == 0)
-    return by_d<float>(D, ptrs, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset, causal, s);
-  if (dtype == 1)
-    return by_d<__nv_bfloat16>(D, ptrs, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset, causal, s);
-  if (dtype == 2)
-    return by_d<__half>(D, ptrs, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset, causal, s);
+  const bwd_parts::Call c{ptrs,     B,         Tq,     Tkv, NH, NKV, D,
+                          sm_scale, kv_offset, causal, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return bwd_parts::run_f32(c);
+  if (dtype == 1) return bwd_parts::run_bf16(c);
+  if (dtype == 2) return bwd_parts::run_f16(c);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+#endif  // IN_PART(0)

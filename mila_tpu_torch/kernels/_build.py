@@ -5,7 +5,9 @@ into ``csrc/build/lib<name>-<hash>.so``, a library with a plain C interface
 loaded through ``ctypes``. ``<hash>`` covers the source and the shared
 header, so an edited source rebuilds at its next use and an unchanged one
 loads from the build directory. ``build_all`` starts one ``nvcc`` per
-source at once and waits for all of them.
+source at once and waits for all of them. A source with many kernel
+instantiations builds as parts (``PARTS``): one ``nvcc -c -DMILA_PART=k``
+each, started with the rest, then linked into its library.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on machines without ``nvcc``.
@@ -21,13 +23,20 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNELS = ("qmm_int8", "qgemv_int8", "paged_decode_attn", "dense_decode_attn",
            "layer_tail_int8", "decode_step_int8", "qgemv_int4", "flash_fwd", "flash_bwd",
            "flash_sync_fwd", "flash_sync_bwd", "fused_adamw", "softmax_ce")
+# The float type codes of the C entry points that take f32, bf16 or fp16
+# (fused_adamw.cu, softmax_ce.cu, flash_sync_*.cu).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Sources built in parts, and how many (the source says what each holds).
+PARTS = {"decode_step_int8": 4, "flash_sync_bwd": 4}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -54,26 +63,48 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
 
 
+def _run(cmd: list, log_name: str):
+    log = open(BUILD_DIR / log_name, "w")
+    return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log_name, log
+
+
+def _wait(started) -> str:
+    """The empty string when the process succeeded, else its exit code and
+    the end of its log."""
+    proc, log_name, log = started
+    rc = proc.wait()
+    log.close()
+    return "" if rc == 0 else f"rc {rc}:\n{(BUILD_DIR / log_name).read_text()[-4000:]}"
+
+
 def _start(name: str):
-    """Start nvcc for one source; None when its library is already built."""
+    """Start nvcc for one source (each of its parts); None when its library
+    is already built."""
     out = lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    log = open(BUILD_DIR / f"{name}.log", "w")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
-    return proc, tmp, out, log
+    src = str(CSRC / f"{name}.cu")
+    if name not in PARTS:
+        return [_run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), src], f"{name}.log")], tmp, out, []
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [f"{tmp}.{k}.o" for k in range(PARTS[name])]
+    procs = [_run([nvcc(), *flags, f"-DMILA_PART={k}", "-c", "-o", obj, src], f"{name}.{k}.log")
+             for k, obj in enumerate(objs)]
+    return procs, tmp, out, objs
 
 
 def _finish(name: str, started) -> None:
-    proc, tmp, out, log = started
-    rc = proc.wait()
-    log.close()
-    text = (BUILD_DIR / f"{name}.log").read_text()
-    if rc != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu (rc {rc}):\n{text[-4000:]}")
+    procs, tmp, out, objs = started
+    err = next((e for e in [_wait(p) for p in procs] if e), "")  # waits for every part
+    if objs and not err:
+        err = _wait(_run([nvcc(), "-shared", "-o", str(tmp), *objs], f"{name}.link.log"))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if err:
+        raise RuntimeError(f"nvcc failed for {name}.cu ({err}")
     os.replace(tmp, out)
 
 
@@ -119,6 +150,4 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 def stream_of(t) -> ctypes.c_void_p:
-    import torch
-
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

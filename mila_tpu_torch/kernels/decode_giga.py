@@ -274,12 +274,10 @@ def giga_decode_step(x: torch.Tensor, cos_t: Optional[torch.Tensor],
             x, cos_t, sin_t = _embed_rope(x, tokens, old_lens, pack)
         return giga_decode_plain(x, cos_t, sin_t, old_lens, pack, k_pool, v_pool,
                                  sm_scale=sm_scale)
-    if pack.w.dtype not in (torch.int8, torch.bfloat16):
-        raise NotImplementedError(f"giga_decode_step takes int8 or bf16 tile streams "
-                                  f"(pack_decode_giga requantizes fp8 and int4 to int8); got "
-                                  f"{pack.w.dtype}")
     check_step(w=pack.w, s=pack.s, k_pool=k_pool, v_pool=v_pool, M=B, H=H, I=pack.i_dim,
-               bn=bn, NH=NH, NKV=NKV, HD=HD, T=T)
+               bn=bn, NH=NH, NKV=NKV, HD=HD, T=T, formats=(torch.int8, torch.bfloat16),
+               refusal="giga_decode_step takes int8 or bf16 tile streams (pack_decode_giga "
+                       "requantizes fp8 and int4 to int8)")
     NTOT = _head_base(pack) + pack.n_head
     if pack.w.shape[0] != NTOT or x.dtype not in (torch.bfloat16, torch.float32) \
             or x.shape[-1] != H or (not embed and x.shape[0] != B):

@@ -65,8 +65,7 @@ from mila_tpu_torch.ops.attention import causal_mask, dot_product_attention, fla
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _KV_TILE = 128  # Tkv's multiple: csrc/flash_fwd.cu's key tiles are 128 or 64 keys
-# The mma.sync family's input types (csrc/flash_sync_fwd.cu: dtype) and head sizes.
-SYNC_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# The mma.sync family's head sizes (its input types: _build.DTYPE_CODES).
 SYNC_HEAD_DIMS = (64, 128, 192, 256)
 
 
@@ -77,7 +76,7 @@ def family(dtype: torch.dtype, D: int) -> str:
     takes."""
     if dtype == torch.bfloat16 and D in (64, 128):
         return "wgmma"
-    if dtype in SYNC_DTYPES and D in SYNC_HEAD_DIMS:
+    if dtype in _build.DTYPE_CODES and D in SYNC_HEAD_DIMS:
         return "sync"
     raise NotImplementedError(f"flash attention on the card takes bf16, fp16 or f32 with D in "
                               f"{SYNC_HEAD_DIMS}; got {dtype}, D {D} (D over 256 does not fit "
@@ -170,8 +169,8 @@ def _launch(q, k, v, causal: bool, sm_scale: float, kv_offset: int, stats: bool 
     else:
         lib = _sync_lib()
         rc = lib.flash_sync_fwd(_build.ptr(qc), _build.ptr(kc), _build.ptr(vc), _build.ptr(out),
-                                *lm, B, Tq, Tkv, NH, NKV, D, SYNC_DTYPES[q.dtype], sm_scale,
-                                kv_offset, int(causal), _build.stream_of(q))
+                                *lm, B, Tq, Tkv, NH, NKV, D, _build.DTYPE_CODES[q.dtype],
+                                sm_scale, kv_offset, int(causal), _build.stream_of(q))
     _build.check(lib, rc, "flash_fwd" if fam == "wgmma" else "flash_sync_fwd")
     if stats:
         flash_attention_forward.launches += 1

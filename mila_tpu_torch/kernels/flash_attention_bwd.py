@@ -44,7 +44,7 @@ import ctypes
 import torch
 
 from mila_tpu_torch.kernels import _build
-from mila_tpu_torch.kernels.flash_attention import SYNC_DTYPES, family
+from mila_tpu_torch.kernels.flash_attention import family
 from mila_tpu_torch.ops.attention import causal_mask
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -128,8 +128,8 @@ def _launch(q, k, v, o, l, m, do, causal: bool, sm_scale: float, kv_offset: int)
         ptrs = (ctypes.c_void_p * 11)(*(t.data_ptr() for t in (qm, km, vm, om, dom, lc, mc, delta,
                                                                 dq, dk, dv)))
         lib = _sync_lib()
-        rc = lib.flash_sync_bwd(ptrs, B, Tq, Tkv, NH, NKV, D, SYNC_DTYPES[q.dtype], sm_scale,
-                                kv_offset, int(causal), _build.stream_of(q))
+        rc = lib.flash_sync_bwd(ptrs, B, Tq, Tkv, NH, NKV, D, _build.DTYPE_CODES[q.dtype],
+                                sm_scale, kv_offset, int(causal), _build.stream_of(q))
         _build.check(lib, rc, "flash_sync_bwd")
         flash_attention_bwd.launches += 1
         return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)

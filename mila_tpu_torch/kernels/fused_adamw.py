@@ -110,13 +110,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-# The kernel's parameter types (csrc/fused_adamw.cu: p_dtype).
-_P_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-
-
 def _launch(p, g, m, v, master, *, step, lr, beta1, beta2, eps, weight_decay, noise,
             grad_scale):
-    if p.dtype not in _P_DTYPES:
+    if p.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"fused_adamw takes f32, bf16 or fp16 params, got {p.dtype}")
     if (g.dtype not in (p.dtype, torch.float32) or m.dtype != torch.float32
             or v.dtype != torch.float32):
@@ -144,8 +140,8 @@ def _launch(p, g, m, v, master, *, step, lr, beta1, beta2, eps, weight_decay, no
 
     lib = _lib()
     rc = lib.fused_adamw(ptr(pc), ptr(gc), ptr(mc), ptr(vc), ptr(wc), ptr(nz), ptr(p_out),
-                         ptr(m_out), ptr(v_out), ptr(w_out), p.numel(), _P_DTYPES[p.dtype],
-                         int(g.dtype != torch.float32),
+                         ptr(m_out), ptr(v_out), ptr(w_out), p.numel(),
+                         _build.DTYPE_CODES[p.dtype], int(g.dtype != torch.float32),
                          _f32(lr), _f32(beta1), _f32(1.0 - beta1), _f32(beta2),
                          _f32(1.0 - beta2), _f32(eps), _f32(weight_decay), bc1, bc2,
                          _f32(grad_scale), _build.stream_of(p))

@@ -209,11 +209,11 @@ def _grid(index: int, m_tile: int, is_f32: int, wfmt: int = 0) -> int:
     return min(min(nb.value, _BLOCKS_PER_SM) * sms, _MAX_GRID)
 
 
-def check_step(*, w, s, k_pool, v_pool, M, H, I, bn, NH, NKV, HD, T) -> None:
-    """What the decode_step_int8 kernel takes; raises on anything else."""
-    if w.dtype not in STREAM_WFMT:
-        raise NotImplementedError(f"decode_step_int8 takes int8, fp8 or bf16 tile streams; got "
-                                  f"{w.dtype}")
+def check_step(*, w, s, k_pool, v_pool, M, H, I, bn, NH, NKV, HD, T, formats, refusal) -> None:
+    """What the decode_step_int8 kernel takes from one caller, whose tile
+    formats are ``formats`` (``refusal`` says so); raises on anything else."""
+    if w.dtype not in formats:
+        raise NotImplementedError(f"{refusal}; got {w.dtype}")
     if not 0 < M <= 32:
         raise ValueError(f"decode_step_int8 is a decode kernel: 1 <= B <= 32, got {M}")
     if bn % 128 or H % bn or I % H or w.shape[1:] != (H, bn) or s.shape[1:] != (1, bn):
@@ -322,11 +322,10 @@ def layer_megakernel(qkv: torch.Tensor, x: torch.Tensor, gamma_mlp: torch.Tensor
             num_heads=NH, eps=eps, scale=sm_scale)
         return x_out.reshape(*lead, H), qkv_next, k_cache, v_cache
     KD = NKV * HD
-    if pack.w.dtype not in WFMT:
-        raise NotImplementedError(f"layer_megakernel takes int8 or fp8 packs (the JAX package "
-                                  f"packs quantized params only); got {pack.w.dtype}")
     check_step(w=pack.w, s=pack.s, k_pool=k_cache, v_pool=v_cache, M=B, H=H, I=pack.i_dim,
-               bn=bn, NH=NH, NKV=NKV, HD=HD, T=T)
+               bn=bn, NH=NH, NKV=NKV, HD=HD, T=T, formats=WFMT,
+               refusal="layer_megakernel takes int8 or fp8 packs (the JAX package packs "
+                       "quantized params only)")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"layer_megakernel takes bf16/f32 activations, got {x.dtype}")
     if x2.shape[0] != B or qkv.shape != (B, NH * HD + 2 * KD) or cos_t.shape != (B, KD) \

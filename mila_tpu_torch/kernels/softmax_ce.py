@@ -96,12 +96,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-# The kernels' logits types (csrc/softmax_ce.cu: dtype).
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-
-
 def _check(logits2: torch.Tensor, targets: torch.Tensor) -> None:
-    if logits2.dtype not in _DTYPES:
+    if logits2.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"softmax_ce takes f32, bf16 or fp16 logits, got "
                                   f"{logits2.dtype}")
     if targets.device != logits2.device:
@@ -116,7 +112,8 @@ def _fwd(logits2, t32, ignore_index):
     loss = torch.empty(M, device=logits2.device, dtype=torch.float32)
     lib = _lib()
     rc = lib.softmax_ce_fwd(_build.ptr(logits2), _build.ptr(t32), _build.ptr(loss), M, V,
-                            ignore_index, _DTYPES[logits2.dtype], _build.stream_of(logits2))
+                            ignore_index, _build.DTYPE_CODES[logits2.dtype],
+                            _build.stream_of(logits2))
     _build.check(lib, rc, "softmax_ce_fwd")
     fused_softmax_cross_entropy.launches += 1
     return loss
@@ -140,8 +137,8 @@ def fused_softmax_cross_entropy_bwd(logits2: torch.Tensor, targets: torch.Tensor
     d = torch.empty_like(logits2)
     lib = _lib()
     rc = lib.softmax_ce_bwd(_build.ptr(logits2), _build.ptr(t32), _build.ptr(g32), _build.ptr(d),
-                            M, V, ignore_index, _DTYPES[logits2.dtype], _BWD_VARIANTS[variant],
-                            _build.stream_of(logits2))
+                            M, V, ignore_index, _build.DTYPE_CODES[logits2.dtype],
+                            _BWD_VARIANTS[variant], _build.stream_of(logits2))
     _build.check(lib, rc, "softmax_ce_bwd")
     fused_softmax_cross_entropy_bwd.launches += 1
     return d

@@ -16,11 +16,10 @@ Stochastic-rounding noise: JAX draws ``jax.random.bits`` per leaf from
 ``torch.Generator`` and the noise for each bf16 leaf is drawn on its device
 (uint16 values in int32); without one, a generator seeded 0 on the
 parameters' device is made for the step, as JAX falls back to ``key(0)``.
-fp16 parameters with stochastic rounding: on the CPU the port runs JAX's
-``_stochastic_round`` construction (``_stochastic_round_fp16``, one draw a
-leaf); on the card the kernel rounds the f32 master to nearest. The two
-give the same values: JAX's fp16 branch steps to the neighbouring *f32*
-value and casts back, which is the nearest fp16 value (ROADMAP §C.3).
+fp16 parameters draw no noise: the update rounds the f32 master to the
+nearest fp16 value, with or without stochastic rounding. That is what
+JAX's ``_stochastic_round`` gives on fp16: it steps to the neighbouring
+*f32* value and casts back, which is the nearest fp16 value (ROADMAP §C.3).
 """
 
 from __future__ import annotations
@@ -66,19 +65,6 @@ class AdamWState(NamedTuple):
     m: Params  # first moments (f32)
     v: Params  # second moments (f32)
     master: Optional[Params]  # f32 masters when stochastic rounding
-
-
-def _stochastic_round_fp16(x32: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
-    """JAX's fp16 rounding (CPU only): to lo = fp16(x) or to its
-    neighbouring f32 value, with probability given by the distance in f32
-    ulps; both cast back to lo, the nearest fp16 value, as JAX's do."""
-    lo32 = x32.to(torch.float16).float()
-    inf = torch.full_like(lo32, float("inf"))
-    hi = torch.where(x32 > lo32, torch.nextafter(lo32, inf), torch.nextafter(lo32, -inf))
-    gap = hi - lo32
-    frac = torch.where(gap != 0, (x32 - lo32) / torch.where(gap == 0, 1.0, gap), 0.0)
-    u = torch.rand(x32.shape, generator=gen, device=gen.device).to(x32.device)
-    return torch.where(u < frac.abs(), hi, lo32).to(torch.float16)
 
 
 def global_norm(grads: Grads) -> torch.Tensor:
@@ -129,10 +115,6 @@ class AdamW:
                                  tree_leaves(grads)):
             kw = dict(step=t, lr=lr, beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps,
                       weight_decay=cfg.weight_decay, grad_scale=grad_scale)
-            if cfg.stochastic_rounding and p.dtype == torch.float16 and not p.is_cuda:
-                _, m2, v2, w2 = fused_adamw_update(p.float(), g, m, v, w, noise=None, **kw)
-                out.append((_stochastic_round_fp16(w2, rng), m2, v2, w2))
-                continue
             noise = (_noise(rng, p) if cfg.stochastic_rounding and p.dtype == torch.bfloat16
                      else None)
             out.append(fused_adamw_update(p, g, m, v, w, noise=noise, **kw))

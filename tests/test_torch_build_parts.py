@@ -1,0 +1,83 @@
+"""The kernel build's parts (mila_tpu_torch/kernels/_build.py: PARTS), on the
+CPU: a fake nvcc records each command and writes its output file, so the
+commands, the link and the clean-up are checked without a CUDA toolkit."""
+
+import re
+import stat
+import sys
+
+import pytest
+
+from mila_tpu_torch.kernels import _build
+
+FAKE_NVCC = """#!{python}
+import json, os, sys
+args = sys.argv[1:]
+with open(os.environ["FAKE_NVCC_LOG"], "a") as f:
+    f.write(json.dumps(args) + "\\n")
+if os.environ.get("FAKE_NVCC_FAIL", "-") in args:
+    sys.exit(3)
+open(args[args.index("-o") + 1], "w").close()
+"""
+
+
+@pytest.fixture
+def fake_nvcc(tmp_path, monkeypatch):
+    exe = tmp_path / "nvcc"
+    exe.write_text(FAKE_NVCC.format(python=sys.executable))
+    exe.chmod(exe.stat().st_mode | stat.S_IEXEC)
+    log = tmp_path / "calls.jsonl"
+    monkeypatch.setenv("FAKE_NVCC_LOG", str(log))
+    monkeypatch.setattr(_build, "nvcc", lambda: str(exe))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+
+    def calls():
+        import json
+
+        return [json.loads(line) for line in log.read_text().splitlines()]
+
+    return calls
+
+
+@pytest.mark.parametrize("name", sorted(_build.PARTS))
+def test_parts_compile_apart_then_link(fake_nvcc, name):
+    _build.build_all((name,))
+    calls = fake_nvcc()
+    n = _build.PARTS[name]
+    compiles, link = calls[:n], calls[n]
+    assert len(calls) == n + 1
+    assert sorted(a for c in compiles for a in c if a.startswith("-DMILA_PART=")) == [
+        f"-DMILA_PART={k}" for k in range(n)]
+    for c in compiles:
+        assert "-c" in c and "-shared" not in c and c[-1].endswith(f"{name}.cu")
+    objs = sorted(c[c.index("-o") + 1] for c in compiles)  # the fake logs them as they run
+    assert link[:2] == ["-shared", "-o"] and sorted(link[3:]) == objs
+    lib = _build.lib_path(name)
+    assert lib.exists() and str(lib) != link[2]
+    assert not any(p.suffix == ".o" or p.suffix == ".tmp" for p in lib.parent.iterdir())
+    _build.build_all((name,))  # built: no nvcc again
+    assert len(fake_nvcc()) == n + 1
+
+
+def test_a_failed_part_fails_the_build(fake_nvcc, monkeypatch):
+    monkeypatch.setenv("FAKE_NVCC_FAIL", "-DMILA_PART=2")
+    with pytest.raises(RuntimeError, match=r"decode_step_int8\.cu \(rc 3"):
+        _build.build_all(("decode_step_int8",))
+    assert len(fake_nvcc()) == _build.PARTS["decode_step_int8"]  # every part ran; no link
+    assert not _build.lib_path("decode_step_int8").exists()
+    assert not any(p.suffix == ".o" for p in _build.BUILD_DIR.iterdir())
+
+
+def test_single_sources_build_whole(fake_nvcc):
+    _build.build_all(("fused_adamw",))
+    (call,) = fake_nvcc()
+    assert call[:len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS and "-c" not in call
+    assert not any(a.startswith("-DMILA_PART") for a in call)
+
+
+@pytest.mark.parametrize("name", sorted(_build.PARTS))
+def test_each_part_holds_code(name):
+    # Every part the build compiles is named in the source, and no other.
+    text = (_build.CSRC / f"{name}.cu").read_text() + (_build.CSRC / "common.cuh").read_text()
+    named = {int(k) for k in re.findall(r"IN_PART\((\d+)\)", text)}
+    assert named == set(range(_build.PARTS[name]))

@@ -195,8 +195,8 @@ def test_adamw_sr_params_are_a_bf16_neighbour_of_the_master():
 
 
 def test_adamw_fp16_stochastic_rounding_on_the_cpu():
-    # JAX's fp16 route (a lower or upper neighbour, by the distance): the
-    # masters, m and v equal JAX's; the params lie within one fp16 step.
+    # JAX's fp16 route rounds to nearest (below): the masters, m and v equal
+    # JAX's, and the params bit-equal to JAX's wherever the masters are.
     cfg = dict(stochastic_rounding=True, learning_rate=1e-2)
     w = _np(60, 512)
     jp = {"w": jnp.asarray(w).astype(jnp.float16)}
@@ -211,15 +211,16 @@ def test_adamw_fp16_stochastic_rounding_on_the_cpu():
     _allclose(ts2.master["w"].numpy(), js2.master["w"])
     _allclose(ts2.m["w"].numpy(), js2.m["w"])
     assert tp2["w"].dtype == torch.float16
-    gap = np.abs(np.asarray(jp2["w"], np.float32) - ts2.master["w"].numpy())
-    assert (np.abs(tp2["w"].float().numpy() - ts2.master["w"].numpy()) <= 2 * gap + 1e-3).all()
+    same = ts2.master["w"].numpy() == _f(js2.master["w"])
+    assert same.mean() > 0.95
+    np.testing.assert_array_equal(tp2["w"].numpy()[same], np.asarray(jp2["w"])[same])
 
 
 def test_jax_fp16_stochastic_round_is_nearest():
     # JAX's fp16 branch of _stochastic_round steps from lo = fp16(x) to the
     # neighbouring f32 value, not fp16 value, and casts back: every value
-    # lands on the nearest fp16 value, which the card's kernel gives
-    # (ROADMAP §C.3; the reference is not fixed).
+    # lands on the nearest fp16 value, which the port's update gives on
+    # both devices (ROADMAP §C.3; the reference is not fixed).
     from mila_tpu.optim.adamw import _stochastic_round
 
     x = jnp.asarray(_np(70, 200_000) * np.float32(3.0))
@@ -228,11 +229,6 @@ def test_jax_fp16_stochastic_round_is_nearest():
     got = np.asarray(_stochastic_round(x, jax.random.key(3), jnp.float16))
     np.testing.assert_array_equal(got.view(np.uint16),
                                   np.asarray(x.astype(jnp.float16)).view(np.uint16))
-    tp = torch.from_numpy(np.array(x))
-    from mila_tpu_torch.optim.adamw import _stochastic_round_fp16
-
-    port = _stochastic_round_fp16(tp, torch.Generator().manual_seed(3))
-    assert torch.equal(port.view(torch.int16), tp.to(torch.float16).view(torch.int16))
 
 
 @pytest.mark.parametrize("master", [True, False])

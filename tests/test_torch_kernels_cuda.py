@@ -1537,6 +1537,7 @@ _SYNC_CASES = [  # (dtype, D, B, Tq, Tkv, NH, NKV, kv_offset, causal)
     (torch.float16, 64, 8, 1024, 1024, 12, 12, 0, True),  # GPT-2 in fp16
     (torch.float16, 128, 2, 256, 256, 8, 2, 0, False),
     (torch.float16, 192, 1, 128, 512, 4, 1, 384, True),
+    (torch.float16, 256, 2, 256, 384, 4, 2, 128, True),
 ]
 
 
@@ -1545,10 +1546,10 @@ def test_flash_sync_kernels(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
     # The mma.sync family (what the wgmma kernels do not take): the forward
     # with its statistics against the plain version, then the backward on
     # them against its plain version. Gate: each (b, t, head) row within
-    # 2e-2 of its own largest value (floored at 1e-3 of the tensor's for the
-    # gradients). l and m as test_flash_stats_kernel holds them (1e-4
-    # relative, 1e-3 absolute), but 1e-2 both for f32, whose products run
-    # on tf32 operands (10 mantissa bits: about 2^-11 of each product).
+    # 2e-2 of its own largest value, 5e-3 for f32 (its products run on tf32
+    # operands, 10 mantissa bits, about 2^-11 of each product; bf16
+    # operands would miss it). l and m as test_flash_stats_kernel holds
+    # them (1e-4 relative, 1e-3 absolute), but 1e-2 both for f32.
     from mila_tpu_torch.kernels import flash_attention as fa
     from mila_tpu_torch.kernels import flash_attention_bwd as fb
 
@@ -1561,7 +1562,8 @@ def test_flash_sync_kernels(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
     o, l, m = fa.flash_attention_forward(q, k, v, causal=causal, sm_scale=sm, kv_offset=off)
     o_ref, l_ref, m_ref = fa.flash_attention_plain(q, k, v, causal=causal, scale=sm,
                                                    kv_offset=off, save_stats=True)
-    assert o.dtype == dtype and _row_err(o, o_ref, floor=0.0) <= 2e-2
+    row_tol = 5e-3 if dtype == torch.float32 else 2e-2
+    assert o.dtype == dtype and _row_err(o, o_ref, floor=0.0) <= row_tol
     tol = 1e-2 if dtype == torch.float32 else None
     assert ((l - l_ref).abs() / l_ref).max().item() <= (tol or 1e-4)
     assert (m - m_ref).abs().max().item() <= (tol or 1e-3)
@@ -1575,7 +1577,7 @@ def test_flash_sync_kernels(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.shape == b.shape and a.dtype == b.dtype == dtype
         err = _row_err(a.transpose(1, 2), b.transpose(1, 2))
-        assert err <= 2e-2, f"{name}: worst row's relative err {err}"
+        assert err <= row_tol, f"{name}: worst row's relative err {err}"
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.bfloat16, 256),
