@@ -78,11 +78,12 @@ exits non-zero without the final line):
   kernels train  the training kernels against their plain versions at the
            training path's shapes: flash forward with statistics and flash
            backward (GPT-2 B 8 T 1024, Llama-3.2-1B's GQA heads at T 2048, D
-           128; the mma.sync family at GPT-2's shape in f32 and at T 2048,
-           NH 16/8, D 192 and 256 in bf16, at GPT-2's shape in fp16, where
+           128; the mma.sync family at GPT-2's shape in f32 and fp16, where
            f32 and fp16 also hold the forward without statistics,
-           evaluate's; row errors within 5e-3 of the row's max in f32, 2e-2
-           otherwise;
+           evaluate's; at T 2048, NH 16/8, D 192 and 256 in bf16 and at D
+           320 in bf16 and f32 (its column parts); every row
+           names its family; row errors within 5e-3 of the row's max in f32,
+           2e-2 otherwise;
            beside SDPA's forward, its
            forward + backward and its backward alone), fused AdamW on wte
            with and without stochastic rounding and in fp16 (bit-equal),
@@ -1786,7 +1787,7 @@ def phase_train_kernels(bw, peak_ops, rng):
                gate=f"each (b, t, head) row of o within {tol} of its max |ref|; l rel "
                     f"{lim['l']}, m abs {lim['m']}",
                max_row_rel_err=o_err, l_rel_err=l_err, m_abs_err=m_err, dtype=tag,
-               family=fa.family(dtype, D), peak=peak)
+               family=fa.routes(dtype, D)[0], peak=peak)
         rows[-1]["tflops"] = 4 * D * pairs / rows[-1]["ms"] / 1e9
         if plain_entry:
             # flash_attention (no statistics: evaluate's forward), the same
@@ -1801,7 +1802,8 @@ def phase_train_kernels(bw, peak_ops, rng):
                    [lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=gqa)],
                    es * (2 * q.numel() + 2 * k.numel()), 4 * D * pairs,
                    gate=f"each (b, t, head) row within {tol} of its max |ref|",
-                   max_row_rel_err=o2_err, dtype=tag, family=fa.family(dtype, D), peak=peak)
+                   max_row_rel_err=o2_err, dtype=tag, family=fa.routes(dtype, D)[0],
+                   peak=peak)
             rows[-1]["tflops"] = 4 * D * pairs / rows[-1]["ms"] / 1e9
             del o2
         del o_ref, l_ref, m_ref
@@ -1856,7 +1858,7 @@ def phase_train_kernels(bw, peak_ops, rng):
                bwd_back_to_back_ms=time_back_to_back(ours_bwd),
                library_bwd_device_ms=library_bwd_device_ms, bwd_device_ms=device_ms(ours_bwd),
                fwd_bwd_ms=time_eager(ours), library_fwd_bwd_ms=time_eager(library), dtype=tag,
-               family=fa.family(dtype, D), peak=peak)
+               family=fa.routes(dtype, D)[1], peak=peak)
         rows[-1]["tflops"] = 10 * D * pairs / rows[-1]["ms"] / 1e9
 
     for B, T, NH, NKV, D in ((8, 1024, 12, 12, 64), (2, 2048, 32, 8, 64), (1, 2048, 24, 8, 128)):
@@ -1874,6 +1876,15 @@ def phase_train_kernels(bw, peak_ops, rng):
     for D in (192, 256):
         flash_rows(1, 2048, 16, 8, D, draw)
     flash_rows(8, 1024, 12, 12, 64, draw, torch.float16, plain_entry=True)
+    # Past D 256 (the mma.sync family's column parts both ways) at D 320 in
+    # bf16 and f32, from a stream of their own.
+    wide = np.random.default_rng(26)
+
+    def draw_wide(*shape, dtype):
+        return torch.from_numpy(wide.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+    for D, dtype in ((320, bf16), (320, torch.float32)):
+        flash_rows(1, 2048, 16, 8, D, draw_wide, dtype)
 
     # K12 on wte (50304 x 768 = 38.6M elements): bf16 param and grad, f32
     # moments and master, uint16 noise in int32, with stochastic rounding;

@@ -1,7 +1,8 @@
 // The mma.sync flash-attention family (flash_sync_fwd.cu, flash_sync_bwd.cu):
 // what the TMA + wgmma kernels (flash_fwd.cu, flash_bwd.cu, bf16 at D 64 and
 // 128) do not take and the TPU kernels' tiling gate admits: bf16 at D 192
-// and 256, fp16 and f32 at D 64, 128, 192 and 256.
+// and 256, fp16 and f32 at D 64, 128, 192 and 256, and every type past D
+// 256 (D % 64 == 0).
 //
 // One warp owns 16 rows of a tile and runs its products on mma.sync with
 // f32 accumulators: bf16 and fp16 on m16n8k16, f32 on m16n8k8 .tf32 (the
@@ -203,6 +204,27 @@ __device__ __forceinline__ void mma_rows(float* d, const uint32_t* a, const uint
   }
 }
 
+// mma_rows, its products summed into a zeroed tile and that added to d in
+// f32 (round to nearest): the tensor cores round their own sums toward 0,
+// and over D / 8 steps into a dP of size sqrt(D) that bias reaches the
+// cancellation dS = P (dP - D) works on (where a query sees one key, dP - D
+// is only the forward's rounding residue): at D 1024 the first query's dq
+// read 1.2e-2 of the gate's floor against 1e-3 for the plain f32 version
+// (my chip run). The f32 dP of the kernels past D 256.
+template <typename T>
+__device__ __forceinline__ void mma_rows_rn(float* d, const uint32_t* a, const uint32_t* b,
+                                            const T* ta, const T* tb, int rs, int r0, int n0,
+                                            int k0, int lane) {
+  if constexpr (Ops<T>::SPLIT) {
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_rows<T>(s, a, b, ta, tb, rs, r0, n0, k0, lane);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] += s[e];
+  } else {
+    mma_rows<T>(d, a, b, ta, tb, rs, r0, n0, k0, lane);
+  }
+}
+
 // Rows per K/V (forward, dQ) or Q/dO (dK/dV) tile: 64 where a row is at
 // most 256 bytes, 32 to 512 bytes, else 16, so that the tiles fit shared
 // memory and the S tile's registers stay few beside the D / 2 of the
@@ -224,6 +246,41 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, size_t stride, i
   constexpr int CPR = D / PER;              // chunks a row
   for (int i = tid; i < n * CPR; i += THREADS) {
     const int r = i / CPR, c = (i % CPR) * PER;
+    if (r0 + r < T_)
+      cp_async16(dst + r * RS + c, src + (size_t)(r0 + r) * stride + c);
+    else
+      *reinterpret_cast<uint4*>(dst + r * RS + c) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The kernels past D 256 (fwd_wide, dq_wide, dkv_wide): a block owns DC
+// columns of its output (O, dQ, or dK and dV; the last part of a row D -
+// c0 of them when D % DC != 0). S and dP sum over all of D, their operands
+// streamed through shared memory in 64-column panels, double buffered; the
+// block's own columns of V, K, or Q and dO come in as one tile a step. So
+// shared memory and registers do not grow with D, and any multiple of 64
+// runs, at the cost of S (and dP) formed once per column part.
+template <typename T>
+struct Wide {
+  static constexpr int DC = sizeof(T) == 4 ? 64 : 128;  // output columns a block
+  static constexpr int PW = 64;                         // columns a panel
+  static constexpr int RS = PW + Ops<T>::PAD;           // elements a panel row
+  static constexpr int CS = DC + Ops<T>::PAD;           // elements a column-part row
+  static constexpr int NK = 64;                         // keys a tile (forward, dQ)
+  static constexpr int NQ = 32;                         // query rows a tile (dK/dV)
+};
+
+// Rows [r0, r0 + n) and the first w columns (a multiple of 16 bytes) of a
+// [.., T, H, D] tensor seen from `src` (row stride `stride` elements) into a
+// shared tile of n rows x RS by 16-byte cp.async; rows at or past T are
+// zero-filled.
+template <typename T, int RS>
+__device__ __forceinline__ void load_block(T* dst, const T* src, size_t stride, int r0, int n,
+                                           int w, int T_, int tid) {
+  constexpr int PER = 16 / (int)sizeof(T);
+  const int cpr = w / PER;
+  for (int i = tid; i < n * cpr; i += THREADS) {
+    const int r = i / cpr, c = (i % cpr) * PER;
     if (r0 + r < T_)
       cp_async16(dst + r * RS + c, src + (size_t)(r0 + r) * stride + c);
     else

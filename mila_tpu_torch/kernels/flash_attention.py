@@ -17,25 +17,25 @@ layer at T 4096, 32 heads).
 
 What bounds it on the H100: tensor-core operations (4 * Tq * Tkv * D per
 head, about half of them skipped by the causal tiles) against Tq + 2 Tkv
-rows of D bf16 values, and at D 64 nearly as much the exponentials. The
-CUDA kernel (``csrc/flash_fwd.cu``) runs a block per (128 query rows, head,
-batch row): one thread streams the q tile and the K/V tiles (128 keys at D
-64, 64 at D 128) through shared memory with TMA (3-D maps, 128-byte
-swizzle, a ring of mbarriers), and two warpgroups of 64 query rows each run
-S = Q K^T and O += P V on ``wgmma`` (P from registers), taking turns so
-that one's online softmax in f32 (one FFMA and one ``ex2`` per score) runs
-under the other's products. The wrapper encodes the three TMA
-descriptors per call, so a CUDA graph replays valid ones; a base that is
-not 16-byte aligned is copied first.
+rows of D bf16 values, and at D 64 nearly as much the exponentials.
+The CUDA kernel (``csrc/flash_fwd.cu``, bf16 at D 64 and 128) runs
+a block per (128 query rows, head, batch row): one thread streams the q
+tile and the K/V tiles (128 keys at D 64, 64 at D 128) through shared
+memory with TMA (3-D maps, 128-byte swizzle, a ring of mbarriers), and two
+warpgroups of 64 query rows each run S = Q K^T and O += P V on ``wgmma``
+(P from registers), taking turns so that one's online softmax in f32 (one
+FFMA and one ``ex2`` per score) runs under the other's products. The
+wrapper encodes the three TMA descriptors per call, so a CUDA graph
+replays valid ones; a base that is not 16-byte aligned is copied first.
 
 The other types and head sizes that the gate admits (bf16 at D 192 and
-256, fp16 and f32 at D 64-256) launch the simple ``mma.sync`` family
-(``csrc/flash_sync_fwd.cu``, 4 warps of 16 query rows, K/V tiles through
-``cp.async``; f32 on tf32 products with f32 sums, ROADMAP §C.2); its
-backward is ``csrc/flash_sync_bwd.cu`` on its own statistics, its dP on
-split tf32 operands in f32. D over 256
-raises on the card: a 64-row tile of f32 rows would not fit the dQ
-kernel's shared memory, and no configuration of either package uses it.
+256, fp16 and f32 at D 64-256, every type past D 256) launch the simple
+``mma.sync`` family (``csrc/flash_sync_fwd.cu``, 4 warps of 16 query rows,
+K/V tiles through ``cp.async``; f32 on tf32 products with f32 sums,
+ROADMAP §C.2; past D 256 a block owns a column part of O and streams Q and
+K in 64-column panels); its backward is ``csrc/flash_sync_bwd.cu`` on its
+own statistics, its dP on split tf32 operands in f32. ``routes`` names the
+family of each pass.
 
 Semantics kept from the TPU kernel: the causal tile skip with
 ``kv_offset``, masked scores at -0.7 * f32max, p rounded to V's dtype
@@ -65,22 +65,26 @@ from mila_tpu_torch.ops.attention import causal_mask, dot_product_attention, fla
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _KV_TILE = 128  # Tkv's multiple: csrc/flash_fwd.cu's key tiles are 128 or 64 keys
-# The mma.sync family's head sizes (its input types: _build.DTYPE_CODES).
-SYNC_HEAD_DIMS = (64, 128, 192, 256)
+# What the wgmma + TMA kernels take (csrc/flash_fwd.cu, csrc/flash_bwd.cu);
+# the mma.sync family (csrc/flash_sync_*.cu) takes the rest of the types in
+# _build.DTYPE_CODES at every D % 64 == 0.
+WGMMA_TYPES = (torch.bfloat16,)
+WGMMA_FWD_DIMS = (64, 128)
+WGMMA_BWD_DIMS = (64, 128)
 
 
-def family(dtype: torch.dtype, D: int) -> str:
-    """The kernel family of a call: "wgmma" (csrc/flash_fwd.cu and
-    flash_bwd.cu, bf16 at D 64 and 128) or "sync" (csrc/flash_sync_fwd.cu
-    and flash_sync_bwd.cu, the rest up to D 256). Raises for what neither
-    takes."""
-    if dtype == torch.bfloat16 and D in (64, 128):
-        return "wgmma"
-    if dtype in _build.DTYPE_CODES and D in SYNC_HEAD_DIMS:
-        return "sync"
-    raise NotImplementedError(f"flash attention on the card takes bf16, fp16 or f32 with D in "
-                              f"{SYNC_HEAD_DIMS}; got {dtype}, D {D} (D over 256 does not fit "
-                              "the kernels' shared memory)")
+def routes(dtype: torch.dtype, D: int) -> tuple[str, str]:
+    """The kernel families of a call's forward and backward on the card:
+    "wgmma" (csrc/flash_fwd.cu, csrc/flash_bwd.cu) or "sync"
+    (csrc/flash_sync_fwd.cu, flash_sync_bwd.cu). The backward reads the
+    forward's l and m, whichever family wrote them. Raises for a type
+    neither takes or a D the tiling gate refuses."""
+    if dtype not in _build.DTYPE_CODES or D <= 0 or D % 64:
+        raise NotImplementedError(f"flash attention on the card takes bf16, fp16 or f32 with "
+                                  f"D % 64 == 0; got {dtype}, D {D}")
+    wg = dtype in WGMMA_TYPES
+    return ("wgmma" if wg and D in WGMMA_FWD_DIMS else "sync",
+            "wgmma" if wg and D in WGMMA_BWD_DIMS else "sync")
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
@@ -144,7 +148,7 @@ def _launch(q, k, v, causal: bool, sm_scale: float, kv_offset: int, stats: bool 
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise NotImplementedError(f"flash attention takes q, k, v of one type; got {q.dtype}, "
                                   f"{k.dtype}, {v.dtype}")
-    fam = family(q.dtype, D)
+    fam = routes(q.dtype, D)[0]
     if Tkv % _KV_TILE or v.shape != k.shape or k.shape[0] != B:
         raise ValueError(f"flash attention needs Tkv % {_KV_TILE} == 0 (q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)})")

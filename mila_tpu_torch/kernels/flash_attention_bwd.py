@@ -29,10 +29,12 @@ D], k, v [B, NKV, Tkv, D]), here as any views: the autograd Function passes
 transposed views of the model-layout tensors, which the launch reads
 without a copy. l and m are f32 [B, NH, Tq] (JAX's carry 128 padded lanes;
 the tests compare its column 0). That launch takes bf16 at D 64 and 128;
-the other types and head sizes of the forward's families (bf16 at D 192
-and 256, fp16 and f32 at D 64-256) launch ``csrc/flash_sync_bwd.cu``, the
+the other types and head sizes (``flash_attention.routes``: bf16 at D 192
+and 256, fp16 and f32 at D 64-256, every type past D 256) launch
+``csrc/flash_sync_bwd.cu``, the
 simple ``mma.sync`` family (a dQ kernel that also forms D, then a dK/dV
-kernel; one call, one count), which reads the statistics of that family's
+kernel; one call, one count; past D 256 a block owns a column part and
+streams 64-column panels), which reads the statistics of that family's
 forward. A causal call with a negative ``kv_offset`` (rows with no visible
 key) raises on the card, as the forward does.
 """
@@ -44,7 +46,7 @@ import ctypes
 import torch
 
 from mila_tpu_torch.kernels import _build
-from mila_tpu_torch.kernels.flash_attention import family
+from mila_tpu_torch.kernels.flash_attention import routes
 from mila_tpu_torch.ops.attention import causal_mask
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -108,7 +110,7 @@ def _launch(q, k, v, o, l, m, do, causal: bool, sm_scale: float, kv_offset: int)
     if any(t.dtype != q.dtype for t in (k, v, o, do)):
         raise NotImplementedError(f"flash_bwd takes q/k/v/o/do of one type; got {q.dtype}, "
                                   f"{k.dtype}, {v.dtype}, {o.dtype}, {do.dtype}")
-    fam = family(q.dtype, D)
+    fam = routes(q.dtype, D)[1]
     if (Tkv % _TILE or v.shape != k.shape or k.shape[0] != B or o.shape != q.shape
             or do.shape != q.shape):
         raise ValueError(f"flash_bwd needs Tkv % {_TILE} == 0 (q {tuple(q.shape)}, "

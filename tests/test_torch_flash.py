@@ -5,14 +5,16 @@ The port's ``flash_attention`` on CPU tensors runs its plain version (the
 kernel's arithmetic in one pass over the keys); JAX's ``flash_attention``
 runs its Pallas kernel in interpret mode, tile by tile with the online
 softmax. Same seeded numpy inputs on both sides, causal, GQA with NKV 4, 2
-and 1 under NH 4, D 64 and 128, a ``kv_offset`` window (Tq 128 over Tkv
-512), the gate's fallback shape, ``flash_mha_qkv``, and the routing of
+and 1 under NH 4, D 64 and 128 (and 192, 256 and 320 at one shape), f32,
+bf16 and fp16, a ``kv_offset`` window (Tq 128 over Tkv 512), the gate's
+fallback shape, ``flash_mha_qkv``, and the routing of
 ``resolve_attention_impl`` / ``attention``.
 
 Tolerances: f32 inputs differ by summation order and by the online
 rescaling only (1e-5 of the output's largest value); bf16 inputs also
 round p to bf16 against a running max on the JAX side and the final max on
-the port's, and the outputs to bf16 (2e-2 of the largest value).
+the port's, and the outputs to bf16 (2e-2 of the largest value); fp16 the
+same with 8 times finer steps (5e-3).
 """
 
 import jax.numpy as jnp
@@ -27,8 +29,9 @@ from mila_tpu_torch import ops
 from mila_tpu_torch.ops.attention import attention
 from mila_tpu_torch.kernels import flash_attention as tfa
 
-_TORCH = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
-_TOL = {jnp.float32: 1e-5, jnp.bfloat16: 2e-2}
+_TORCH = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32,
+          jnp.float16: torch.float16}
+_TOL = {jnp.float32: 1e-5, jnp.bfloat16: 2e-2, jnp.float16: 5e-3}
 
 
 def _qkv(B, Tq, Tkv, NH, NKV, D, seed=0):
@@ -53,13 +56,26 @@ def _close(got, want, dt):
 @pytest.mark.parametrize("T", [256, 512])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("nkv", [4, 2, 1])
-@pytest.mark.parametrize("dt", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("dt", [jnp.float32, jnp.bfloat16, jnp.float16])
 def test_flash_attention_matches_jax(T, D, nkv, dt):
     (jq, jk, jv), (q, k, v) = _both(_qkv(2, T, T, 4, nkv, D, seed=T + D + nkv), dt)
     want = j_flash(jq, jk, jv, causal=True, interpret=True)
     before = tfa.flash_attention_plain.calls
     got = tfa.flash_attention(q, k, v, causal=True)
     assert tfa.flash_attention_plain.calls == before + 1  # the kernel's plain version ran
+    _close(got, want, dt)
+
+
+@pytest.mark.parametrize("D", [192, 256, 320])
+@pytest.mark.parametrize("dt", [jnp.float32, jnp.bfloat16, jnp.float16])
+def test_flash_attention_wide_heads_match_jax(D, dt):
+    # The head sizes past 128 that JAX's gate admits: on the card D 192
+    # and 256 take the mma.sync forward, D 320 its column-part kernels.
+    (jq, jk, jv), (q, k, v) = _both(_qkv(1, 256, 256, 4, 2, D, seed=D), dt)
+    want = j_flash(jq, jk, jv, causal=True, interpret=True)
+    before = tfa.flash_attention_plain.calls
+    got = tfa.flash_attention(q, k, v, causal=True)
+    assert tfa.flash_attention_plain.calls == before + 1
     _close(got, want, dt)
 
 

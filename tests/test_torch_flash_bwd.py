@@ -7,7 +7,7 @@ statistics (lanes-padded; we compare column 0), ``flash_attention_bwd`` for
 dq, dk, dv, and ``jax.grad`` through ``flash_attention``. The port's side
 runs its plain versions on CPU tensors (``flash_attention_plain`` with
 ``save_stats``, ``flash_attention_bwd_plain``), all keys in one pass.
-Causal and not, GQA (G 1, 2, 4), D 64, 128, 192 and 256, a ``kv_offset``
+Causal and not, GQA (G 1, 2, 4), D 64, 128, 192, 256 and 320, a ``kv_offset``
 window and several KV tiles of 128 keys on JAX's side; f32, bf16 and fp16.
 
 Tolerances: the same seeded inputs on both sides; f32 results differ by
@@ -56,6 +56,7 @@ CASES = [  # B, Tq, Tkv, NH, NKV, D, kv_offset, causal
     (2, 128, 256, 2, 1, 64, 0, False),  # not causal, Tq < Tkv
     (1, 256, 256, 4, 2, 192, 0, True),  # D 192 and 256: the card's mma.sync family
     (1, 128, 256, 2, 1, 256, 128, True),
+    (1, 128, 256, 4, 2, 320, 128, True),  # past D 256: the card's column-part kernels
 ]
 
 
@@ -99,12 +100,12 @@ def test_stats_and_backward_match_jax(case, dt):
 
 
 @pytest.mark.parametrize("dt", [jnp.float32, jnp.bfloat16, jnp.float16])
-@pytest.mark.parametrize("nkv,off", [(2, 0), (1, 128)])
-def test_autograd_through_flash_matches_jax_grad(dt, nkv, off):
+@pytest.mark.parametrize("nkv,off,D", [(2, 0, 64), (1, 128, 64), (2, 0, 320)])
+def test_autograd_through_flash_matches_jax_grad(dt, nkv, off, D):
     # torch.autograd.grad through the port's flash_attention (its Function:
     # the forward with statistics, then flash_attention_bwd) against
     # jax.grad of JAX's flash_attention (its custom VJP, interpret mode).
-    B, Tq, NH, D = 2, 128, 4, 64
+    B, Tq, NH = 2, 128, 4
     Tkv = Tq + off
     q, k, v, w = _arrays(7 + off, (B, Tq, NH, D), (B, Tkv, nkv, D), (B, Tkv, nkv, D),
                          (B, Tq, NH, D))

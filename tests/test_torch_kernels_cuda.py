@@ -1400,8 +1400,9 @@ def test_flash_kernel_copies_an_unaligned_view(cuda):
 def test_flash_kernel_refuses_grad_and_f32(cuda):
     # A call under grad no longer raises: it takes the launch with
     # statistics and the backward kernel (row 16). f32 inputs run too (the
-    # mma.sync family, tested below); what still raises: f64 inputs and
-    # head sizes over 256, which the tiling gate admits and no kernel takes.
+    # mma.sync family, tested below), and head sizes past 256; what still
+    # raises: f64 inputs, and a head size the tiling gate refuses when the
+    # launch is reached past the gate.
     from mila_tpu_torch.kernels import flash_attention as fa
     from mila_tpu_torch.kernels import flash_attention_bwd as fb
 
@@ -1419,8 +1420,10 @@ def test_flash_kernel_refuses_grad_and_f32(cuda):
     with pytest.raises(NotImplementedError):
         fa.flash_attention(q.detach().double(), k.double(), v.double())
     q3, k3 = _rand((1, 128, 4, 320), 54), _rand((1, 128, 4, 320), 55)
-    with pytest.raises(NotImplementedError, match="256"):
-        fa.flash_attention(q3, k3, k3)
+    assert _row_err(fa.flash_attention(q3, k3, k3), fa.flash_attention_plain(q3, k3, k3)) <= 2e-2
+    q4, k4 = _rand((1, 128, 4, 96), 56), _rand((1, 128, 4, 96), 57)
+    with pytest.raises(NotImplementedError, match="D % 64"):
+        fa.flash_attention_forward(q4, k4, k4, sm_scale=96 ** -0.5)
 
 
 def test_flash_gate_routes_before_the_kernel(cuda):
@@ -1538,6 +1541,16 @@ _SYNC_CASES = [  # (dtype, D, B, Tq, Tkv, NH, NKV, kv_offset, causal)
     (torch.float16, 128, 2, 256, 256, 8, 2, 0, False),
     (torch.float16, 192, 1, 128, 512, 4, 1, 384, True),
     (torch.float16, 256, 2, 256, 384, 4, 2, 128, True),
+    # Past D 256 (column parts, 64-column panels): a partial last part of
+    # O and dQ at D 320 in 16-bit (128 + 128 + 64 columns), ragged q tiles,
+    # kv_offset windows, not causal, and f32 at D 1024 on a small T.
+    (torch.float32, 320, 1, 256, 256, 4, 2, 0, True),
+    (torch.bfloat16, 320, 2, 208, 384, 4, 2, 176, True),
+    (torch.float16, 320, 1, 128, 512, 4, 1, 384, True),
+    (torch.bfloat16, 512, 1, 512, 512, 8, 2, 0, True),
+    (torch.float16, 512, 2, 256, 256, 4, 2, 0, False),
+    (torch.float32, 512, 1, 208, 384, 4, 2, 176, True),
+    (torch.float32, 1024, 1, 128, 128, 2, 1, 0, True),
 ]
 
 
@@ -1553,7 +1566,7 @@ def test_flash_sync_kernels(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
     from mila_tpu_torch.kernels import flash_attention as fa
     from mila_tpu_torch.kernels import flash_attention_bwd as fb
 
-    assert fa.family(dtype, D) == "sync"
+    assert fa.routes(dtype, D) == ("sync", "sync")
     q = _rand((B, Tq, NH, D), 170, dtype=dtype)
     k, v = _rand((B, Tkv, NKV, D), 171, dtype=dtype), _rand((B, Tkv, NKV, D), 172, dtype=dtype)
     do = _rand((B, Tq, NH, D), 173, dtype=dtype)
