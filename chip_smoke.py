@@ -78,10 +78,12 @@ exits non-zero without the final line):
   kernels train  the training kernels against their plain versions at the
            training path's shapes: flash forward with statistics and flash
            backward (GPT-2 B 8 T 1024, Llama-3.2-1B's GQA heads at T 2048, D
-           128; the mma.sync family at GPT-2's shape in f32 and fp16, where
-           f32 and fp16 also hold the forward without statistics,
-           evaluate's; at T 2048, NH 16/8, D 192 and 256 in bf16 and at D
-           320 in bf16 and f32 (its column parts); every row
+           128; GPT-2's shape in f32 (the mma.sync family) and fp16
+           (wgmma), where f32 and fp16 also hold the forward without
+           statistics, evaluate's; T 2048, NH 16/8 at D 192 and 256 in bf16
+           and fp16 (the mma.sync forward, the wgmma backward), at D 320 in
+           bf16 and f32 and at D 512 in bf16 (the mma.sync family's column
+           parts); every row
            names its family; row errors within 5e-3 of the row's max in f32,
            2e-2 otherwise;
            beside SDPA's forward, its
@@ -1863,10 +1865,12 @@ def phase_train_kernels(bw, peak_ops, rng):
 
     for B, T, NH, NKV, D in ((8, 1024, 12, 12, 64), (2, 2048, 32, 8, 64), (1, 2048, 24, 8, 128)):
         flash_rows(B, T, NH, NKV, D, rand)
-    # The mma.sync family, its inputs from their own random stream:
-    # GPT-2's shape in f32, Llama-3.2-1B's GQA heads at T 2048 with head
-    # sizes 192 and 256 in bf16, and GPT-2's shape in fp16 (train fp16's);
-    # the f32 and fp16 rows also hold evaluate's forward (flash_attention).
+    # The other routes (fa.routes), inputs from their own random stream:
+    # GPT-2's shape in f32 (the mma.sync family both ways), Llama-3.2-1B's
+    # GQA heads at T 2048 with head sizes 192 and 256 in bf16 (the mma.sync
+    # forward, the wgmma backward), and GPT-2's shape in fp16 (train fp16's,
+    # wgmma both ways); the f32 and fp16 rows also hold evaluate's forward
+    # (flash_attention).
     own = np.random.default_rng(23)
 
     def draw(*shape, dtype):
@@ -1876,14 +1880,17 @@ def phase_train_kernels(bw, peak_ops, rng):
     for D in (192, 256):
         flash_rows(1, 2048, 16, 8, D, draw)
     flash_rows(8, 1024, 12, 12, 64, draw, torch.float16, plain_entry=True)
-    # Past D 256 (the mma.sync family's column parts both ways) at D 320 in
-    # bf16 and f32, from a stream of their own.
+    # fp16 at D 192 and 256, and past D 256 (the mma.sync family's column
+    # parts both ways) at D 320 in bf16 and f32 and at D 512 in bf16, from
+    # a stream of their own.
     wide = np.random.default_rng(26)
 
     def draw_wide(*shape, dtype):
         return torch.from_numpy(wide.standard_normal(shape).astype(np.float32)).to(dev, dtype)
 
-    for D, dtype in ((320, bf16), (320, torch.float32)):
+    for D in (192, 256):
+        flash_rows(1, 2048, 16, 8, D, draw_wide, torch.float16)
+    for D, dtype in ((320, bf16), (320, torch.float32), (512, bf16)):
         flash_rows(1, 2048, 16, 8, D, draw_wide, dtype)
 
     # K12 on wte (50304 x 768 = 38.6M elements): bf16 param and grad, f32

@@ -1,13 +1,16 @@
-// flash_bwd: the causal grouped-query flash-attention backward, bf16 in and
-// out, from the forward's row statistics, on Hopper's TMA and warpgroup MMA.
+// flash_bwd: the causal grouped-query flash-attention backward, bf16 or fp16
+// in and out (the element type T of every template here; fp16 reads the
+// same fragments and descriptors through wgmma's .f16 form and TMA's
+// FLOAT16 maps), from the forward's row statistics, on Hopper's TMA and
+// warpgroup MMA, at D 64, 128, 192 and 256.
 //
 // Replaces the TPU kernels mila_tpu/kernels/flash_attention_bwd.py:
 // _dkv_kernel (dK, dV) and _dq_kernel (dQ), entry flash_attention_bwd,
 // reached from _fa_bwd (flash_attention.py). Per tile, as there:
 //   p  = exp(s * scale - m) / l        (l == 0 taken as 1; masked p = 0)
-//   dv += bf16(p)^T do
+//   dv += T(p)^T do
 //   ds = p * (do v^T - D) * scale,     D = rowsum(o * do) in f32
-//   dk += bf16(ds)^T q,  dq += bf16(ds) k
+//   dk += T(ds)^T q,  dq += T(ds) k
 // with the causal tile skip under kv_offset >= 0. dq is rounded to q's
 // dtype, dk and dv to k's.
 //
@@ -16,15 +19,16 @@
 // run seven, S and dP in each) against q, k, v, o, do, dq, dk, dv read or
 // written once. Three launches:
 //   stats: per (batch, head, query row) D = sum_d o do in f32 and lse2 =
-//     (m + ln l) log2(e) (l == 0 taken as 1), one warp per 4 (D 64) or 2
-//     (D 128) rows with 16-byte loads of o and do in the model layout, into
+//     (m + ln l) log2(e) (l == 0 taken as 1), 8 lanes a row at D 64 and 192
+//     (one and three 16-byte loads of o and do each), 16 at D 128, 32 at D
+//     256, in the model layout, into
 //     f32 [B, NH, Tq64] (Tq rounded up to 64; rows past Tq get lse2 = +inf
 //     and D = 0, so their p is 0). Both passes then form p = 2^(s c - lse2)
 //     with c = scale log2(e): one FFMA and one ex2 a score, no divide.
 //   dkv: one block per key block, KV head and batch row, the first key
 //     blocks (which see the most q tiles) first, with NWG consumer
 //     warpgroups (3 at D 64, where one's dK, dV, S^T and dP^T fit the 168
-//     registers a thread has at 384 threads; 2 at D 128) and no producer
+//     registers a thread has at 384 threads; 2 from D 128) and no producer
 //     warp: one thread loads the block's K and V once by TMA and the first
 //     stages of a ring; the block sweeps the (query head of the group,
 //     64-row q tile) pairs that see its keys, Q, dO and the tile's lse2 and
@@ -46,25 +50,71 @@
 //     dV sum over the GQA group inside the block, deterministically. (Issuing
 //     a step's dV, dK with the next step's S^T, dP^T, and turns between the
 //     warpgroups, both measured slower: tools/flash_bwd_variants.)
-//   dq: the forward's skeleton (flash_fwd.cu): one block per (128 query
+//     At D 192 and 256 the dK and dV of 64 keys take D registers a thread
+//     in one warpgroup (dK and dV, f32): too many beside S^T, dP^T and
+//     their A fragments. So a third block shape: 64 keys, both warpgroups
+//     on all of them and on every step, warpgroup 0 owning dK's and dV's
+//     first 128 columns and warpgroup 1 the rest (128 at D 256, 64 at D
+//     192): per thread 64 + 64 registers of dK and dV, 32 + 32 of S^T and
+//     dP^T and 32 of fragments, as at D 128. S^T and dP^T are formed once:
+//     warpgroup 0 forms S^T and P^T, warpgroup 1 dP^T and dS^T, and they
+//     hand P^T (f32) and T(dS^T) to each other through shared memory, two
+//     named barriers a step; warpgroup 0 issues dV while dS^T is formed.
+//     Against both warpgroups forming both (two of the pass's four products
+//     run twice), 12 % faster at D 192 and 4 % at D 256, bit-equal
+//     (tools/flash_bwd_variants: dkv_both_st). Shared memory: K and V (64 D
+//     2 bytes each), a ring of Q/dO stages (64 D 2 bytes each; 3 at D 192,
+//     2 at D 256) and the 24 KB handed over: 218 KB.
+//   dq: the forward's skeleton (flash_fwd.cu): one block per (64 NWG query
 //     rows, head, batch row), heaviest q tiles first; one thread loads Q and
 //     dO once and streams 64-key K/V tiles through a TMA ring (3-D maps over
 //     [B][T][heads * D], boxes {64 columns, 64 rows, 1}, 128-byte swizzle;
 //     rows past T read zeros within their batch row): a producer warp at D
 //     64 (288 threads), a consumer thread at D 128 (256 threads, so that dQ,
-//     S, dP and dS fit in 255 registers without spilling). Two consumer
+//     S, dP and dS fit in 255 registers without spilling). NWG consumer
 //     warpgroups of 64 rows run S = Q K^T and dP = dO V^T as SS wgmma
-//     m64n64k16, form dS in S's registers, and dQ += bf16(dS) K as RS wgmma
+//     m64n64k16, form dS in S's registers, and dQ += T(dS) K as RS wgmma
 //     (dS packs into A's fragment, K read MN-major through the transpose
-//     bit). Each issues S and dP of tile j with dQ of tile j - 1 behind
-//     them, and the two take turns to issue (named barriers), so one
-//     warpgroup's exponentials run under the other's products. The rows'
-//     lse2 and D stay in registers.
+//     bit; past 128 columns a second product on K's panels from column
+//     128). Each issues S and dP of tile j with dQ of tile j - 1 behind
+//     them; at D 64 and 128 two warpgroups take turns to issue (named
+//     barriers), so one warpgroup's exponentials run under the other's
+//     products. At D 192 and 256 one warpgroup of 64 rows and a producer
+//     warp (160 threads): its dQ takes D / 2 registers, S and dP 64, their
+//     fragments 16, within the 255 a thread gets; 64 Q and 64 dO rows leave
+//     room for 3 (D 192) or 2 (D 256) K/V stages (193 KB). The rows' lse2
+//     and D stay in registers.
 // Layouts are the model's: q, o, do, dq [B, Tq, NH, D], k, v, dk, dv [B,
-// Tkv, NKV, D], contiguous, 16-byte-aligned bases; l, m f32 [B, NH, Tq].
+// Tkv, NKV, D], contiguous, 16-byte-aligned bases; l, m f32 [B, NH, Tq],
+// from either forward (flash_fwd.cu or flash_sync_fwd.cu: m of the scaled
+// scores, l the f32 sum against the running max).
+//
+// Built in five parts (kernels/_build.py: PARTS), one nvcc each: parts 1
+// and 2 instantiate bf16 and fp16 at D 64 and 128, parts 3 and 4 bf16 and
+// fp16 at D 192 and 256; part 0 holds the C entry point.
 #include "common.cuh"
 #include "mma.cuh"
 #include "sm90.cuh"
+
+namespace fbwd_parts {  // one call's arguments, and each part's launches
+
+struct Call {
+  const void *q, *k, *v, *o, *dout;
+  const float *l, *m;
+  float *lse2, *delta;
+  void *dq, *dk, *dv;
+  int B, Tq, Tkv, NH, NKV, D;
+  float sm_scale;
+  int kv_offset, causal;
+  cudaStream_t stream;
+};
+
+int run_bf16(const Call& c);       // D 64, 128
+int run_f16(const Call& c);
+int run_bf16_wide(const Call& c);  // D 192, 256
+int run_f16_wide(const Call& c);
+
+}  // namespace fbwd_parts
 
 namespace {
 
@@ -80,15 +130,26 @@ __device__ __forceinline__ float ex2(float x) {
 
 // ---- stats -------------------------------------------------------------------
 
-// Rows in the model's order (b, t, h), D / 8 lanes a row, each lane 8 of
-// its values (16 bytes); the sum over the row's lanes by shuffles.
-template <int D>
+// A pair of T as two f32.
+__device__ __forceinline__ float2 pair_f2(__nv_bfloat162 v) { return __bfloat1622float2(v); }
+__device__ __forceinline__ float2 pair_f2(__half2 v) { return __half22float2(v); }
+
+template <typename T>
+using Pair = typename std::conditional<std::is_same<T, __half>::value, __half2,
+                                       __nv_bfloat162>::type;
+
+// Rows in the model's order (b, t, h), LPR lanes a row (the largest power of
+// two up to 32 that divides D / 8), each lane CH chunks of 8 values (16
+// bytes) LPR chunks apart; the sum over the row's lanes by shuffles.
+template <typename T, int D>
 __global__ void __launch_bounds__(STATS_THREADS)
-flash_bwd_stats_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+flash_bwd_stats_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                        const float* __restrict__ l, const float* __restrict__ m,
                        float* __restrict__ lse2, float* __restrict__ delta, int B, int Tq,
                        int Tq64, int NH) {
-  constexpr int LPR = D / 8;
+  constexpr int P2 = (D / 8) & -(D / 8);
+  constexpr int LPR = P2 > 32 ? 32 : P2;
+  constexpr int CH = D / 8 / LPR;
   const int part = threadIdx.x % LPR;
   const long long r = (long long)blockIdx.x * (STATS_THREADS / LPR) + threadIdx.x / LPR;
   const long long rows = (long long)B * Tq64 * NH;
@@ -99,15 +160,18 @@ flash_bwd_stats_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16*
   float acc = 0.f;
   if (live) {
     const size_t off = (((size_t)b * Tq + t) * NH + h) * D + 8 * part;
-    const uint4 ov = *reinterpret_cast<const uint4*>(o + off);
-    const uint4 dv = *reinterpret_cast<const uint4*>(dout + off);
-    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 a = __bfloat1622float2(o2[i]), c = __bfloat1622float2(d2[i]);
-      acc = fmaf(a.x, c.x, acc);
-      acc = fmaf(a.y, c.y, acc);
+    for (int ch = 0; ch < CH; ++ch) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(o + off + 8 * LPR * ch);
+      const uint4 dv = *reinterpret_cast<const uint4*>(dout + off + 8 * LPR * ch);
+      const Pair<T>* o2 = reinterpret_cast<const Pair<T>*>(&ov);
+      const Pair<T>* d2 = reinterpret_cast<const Pair<T>*>(&dv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 a = pair_f2(o2[i]), c = pair_f2(d2[i]);
+        acc = fmaf(a.x, c.x, acc);
+        acc = fmaf(a.y, c.y, acc);
+      }
     }
   }
 #pragma unroll
@@ -128,56 +192,65 @@ flash_bwd_stats_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16*
 
 // ---- wgmma helpers (both passes) ---------------------------------------------
 
-constexpr int CONSUMERS = 256;
 constexpr int SCHED = 1;  // named barriers SCHED + wg: warpgroup wg's turn to issue
 constexpr int PANEL64 = 64 * 128;  // 64 rows of one 64-column panel, bytes
 
-// The dQ pass's two consumer warpgroups take turns to issue their products,
-// so one's element-wise work runs under the other's wgmma: wait for this
-// warpgroup's turn, and pass the turn to the other one.
-__device__ __forceinline__ void sched_wait(int wg) { named_bar_sync(SCHED + wg, CONSUMERS); }
-__device__ __forceinline__ void sched_pass(int wg) { named_bar_arrive(SCHED + 1 - wg, CONSUMERS); }
+// The dQ pass's two consumer warpgroups (at D 64 and 128) take turns to
+// issue their products, so one's element-wise work runs under the other's
+// wgmma: wait for this warpgroup's turn, and pass the turn to the other one.
+__device__ __forceinline__ void sched_wait(int wg) { named_bar_sync(SCHED + wg, 256); }
+__device__ __forceinline__ void sched_pass(int wg) { named_bar_arrive(SCHED + 1 - wg, 256); }
 
 // acc = A B^T for a warpgroup's 64 rows of A (a, K-major) against 64 rows of
 // B (b, K-major): D / 16 k-slices, 32 bytes apart in a panel's 128-byte
 // rows; a_panel and b_panel the bytes between their 64-column panels.
 // Issued and committed as one group.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_abt(float* acc, const unsigned char* a, int a_panel,
                                           const unsigned char* b, int b_panel) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int p = kk / 4, off = 32 * (kk % 4);
-    wgmma_m64n64k16_bf16<0>(acc, wgmma_desc(a + p * a_panel + off, 16, 1024),
-                            wgmma_desc(b + p * b_panel + off, 16, 1024), kk > 0);
+    wgmma_m64n64k16<T, 0>(acc, wgmma_desc(a + p * a_panel + off, 16, 1024),
+                          wgmma_desc(b + p * b_panel + off, 16, 1024), kk > 0);
   }
   wgmma_commit();
 }
 
-// acc += bf16(A) B for A's 64 rows x 64 in registers (4 k-slices of 16) and
-// B a 64-row tile read MN-major (the k-th slice 2048 k bytes in, LBO the
-// bytes between its 64-column panels). Issued and committed as one group.
-template <int D>
+// acc += T(A) B for A's 64 rows x 64 in registers (4 k-slices of 16) and
+// the first NC columns of B, a 64-row tile read MN-major (the k-th slice
+// 2048 k bytes in, LBO the bytes between its 64-column panels): one product
+// of NC (64 or 128) columns, or past 128 a second one on the panels from
+// column 128 into acc + 64. Issued and committed as one group.
+template <typename T, int NC>
 __device__ __forceinline__ void issue_ab(float* acc, const uint32_t (*a)[4],
                                          const unsigned char* b, int b_panel) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t bd = wgmma_desc(b + 2048 * kk, b_panel, 1024);
-    if constexpr (D == 64)
-      wgmma_m64n64k16_bf16_rs<1>(acc, a[kk], bd, 1);
+    if constexpr (NC == 64)
+      wgmma_m64n64k16_rs<T, 1>(acc, a[kk], bd, 1);
     else
-      wgmma_m64n128k16_bf16_rs<1>(acc, a[kk], bd, 1);
+      wgmma_m64n128k16_rs<T, 1>(acc, a[kk], bd, 1);
+    if constexpr (NC > 128) {
+      const uint64_t bd2 = wgmma_desc(b + 2 * b_panel + 2048 * kk, b_panel, 1024);
+      if constexpr (NC == 192)
+        wgmma_m64n64k16_rs<T, 1>(acc + 64, a[kk], bd2, 1);
+      else
+        wgmma_m64n128k16_rs<T, 1>(acc + 64, a[kk], bd2, 1);
+    }
   }
   wgmma_commit();
 }
 
 // An accumulator of 64 x 64 packs into the A fragments of the next product
-// (d[8 kk .. 8 kk + 7] are the four bf16 pairs of k-slice kk).
+// (d[8 kk .. 8 kk + 7] are the four pairs of T of k-slice kk).
+template <typename T>
 __device__ __forceinline__ void pack_a(uint32_t (*a)[4], const float* d) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) a[kk][r] = pack2(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack2_as<T>(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
 }
 
 // ---- dkv (wgmma) ---------------------------------------------------------------
@@ -186,24 +259,35 @@ constexpr int KV_BQ = 64;  // queries per tile of the sweep
 constexpr int RED = SCHED + 2;  // named barrier of the end-of-block sum
 
 // NWG consumer warpgroups (3 at D 64, where a warpgroup's dK, dV, S^T and
-// dP^T fit in the 168 registers a thread has at 384 threads; 2 at D 128).
-// SPLIT: a block of 64 keys, every warpgroup on all of them, taking the
-// sweep's steps in turn; else a block of 64 NWG keys, warpgroup wg on keys
-// 64 wg .. 64 wg + 63, all on every step (each Q/dO tile loaded once for
-// NWG times the keys).
+// dP^T fit in the 168 registers a thread has at 384 threads; 2 from D 128).
+// Three block shapes (the top): SPLIT, a block of 64 keys, every warpgroup
+// on all of them and all columns, taking the sweep's steps in turn; COLS (D
+// 192 and 256), a block of 64 keys, both warpgroups on every step,
+// warpgroup 0 on columns 0-127 of dK and dV and warpgroup 1 on the rest,
+// S^T and dP^T formed once between them; else a block of 64 NWG keys,
+// warpgroup wg on keys 64 wg .. 64 wg + 63, all on every step (each Q/dO
+// tile loaded once for NWG times the keys).
 template <int D, bool SPLIT>
 struct KvCfg {
+  static constexpr bool COLS = D > 128;
+  static_assert(!(SPLIT && COLS), "past D 128 the warpgroups split the columns, not the steps");
   static constexpr int NWG = D == 64 ? 3 : 2;
   static constexpr int THREADS = 128 * NWG;
-  static constexpr int BK = SPLIT ? 64 : 64 * NWG;  // keys per block
+  static constexpr int BK = SPLIT || COLS ? 64 : 64 * NWG;  // keys per block
+  static constexpr int NC0 = COLS ? 128 : D;                // warpgroup 0's columns
+  static constexpr int NC1 = COLS ? D - 128 : D;            // the others'
   static constexpr int PANELS = D / 64;
   static constexpr int K_PANEL = BK * 128, Q_PANEL = PANEL64;
   static constexpr int K_TILE = PANELS * K_PANEL, Q_TILE = PANELS * Q_PANEL;
   static constexpr int ST = 2 * KV_BQ * 4;  // a tile's lse2 and D, bytes
-  static constexpr int NT = D == 64 ? 6 : 4;  // stages of the Q/dO ring (SPLIT: NT / NWG each)
+  // Stages of the Q/dO ring (SPLIT: NT / NWG each).
+  static constexpr int NT = D == 64 ? 6 : D == 128 ? 4 : D == 192 ? 3 : 2;
   static constexpr int STEP = SPLIT ? NWG : 1;  // sweep steps between a warpgroup's steps
   static_assert(!SPLIT || NT % NWG == 0, "a warpgroup's steps keep to its own stages");
-  static constexpr int SMEM = 2 * K_TILE + NT * (2 * Q_TILE + ST) + (2 * NT + 1) * 8 + 1024;
+  // COLS: P^T (f32) and T(dS^T) handed between the warpgroups, 24 KB.
+  static constexpr int SHARE = COLS ? 3 * PANEL64 : 0;
+  static constexpr int SMEM =
+      2 * K_TILE + NT * (2 * Q_TILE + ST) + (2 * NT + 1) * 8 + SHARE + 1024;
 };
 
 // P^T and dS^T of one tile in place of S^T and dP^T: sc[4 jj + i] is key
@@ -231,20 +315,20 @@ __device__ __forceinline__ void dst_cols(float* sc, float* dp, int q0, int wkey,
   }
 }
 
-template <int D, bool SPLIT>
+template <typename T, int D, bool SPLIT>
 __global__ void __launch_bounds__(KvCfg<D, SPLIT>::THREADS, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
                      const __grid_constant__ CUtensorMap tmv, const __grid_constant__ CUtensorMap tmo,
                      const float* __restrict__ lse2_in, const float* __restrict__ delta_in,
-                     __nv_bfloat16* __restrict__ dk_out, __nv_bfloat16* __restrict__ dv_out, int Tq,
-                     int Tq64, int Tkv, int NH, int NKV, float sm_scale, int kv_offset,
-                     int causal) {
+                     T* __restrict__ dk_out, T* __restrict__ dv_out, int Tq, int Tq64, int Tkv,
+                     int NH, int NKV, float sm_scale, int kv_offset, int causal) {
   using C = KvCfg<D, SPLIT>;
   constexpr int NT = C::NT, Q_TILE = C::Q_TILE, STEP = C::STEP, NWG = C::NWG;
-  constexpr int NO = D / 2, NS = KV_BQ / 2;  // dK's (and dV's) and S^T's f32 registers
+  // dK's (and dV's) f32 registers (warpgroup 0's columns, the most), S^T's.
+  constexpr int NO = C::NC0 / 2, NS = KV_BQ / 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (sm90_smem(smem_raw) & 1023)) & 1023);
-  unsigned char* ks = smem;            // [PANELS][BK][64] bf16, swizzled
+  unsigned char* ks = smem;            // [PANELS][BK][64] of T, swizzled
   unsigned char* vs = ks + C::K_TILE;  // the same
   unsigned char* qs = vs + C::K_TILE;  // [NT][PANELS][64][64]
   unsigned char* os = qs + NT * Q_TILE;
@@ -307,9 +391,10 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_const
   // ---- consumer warpgroups ----
   const int wg = tid >> 7, lane = tid & 31, w = (tid >> 5) & 3;
   const int g = lane >> 2, t = lane & 3;
-  const int kw = SPLIT ? 0 : 64 * wg;  // the warpgroup's first key in the block
-  const int wkey = k0 + kw + 16 * w;   // the warp's first key
-  const int r0 = wkey + g;             // this thread's keys r0 and r0 + 8
+  const int kw = SPLIT || C::COLS ? 0 : 64 * wg;  // the warpgroup's first key in the block
+  const int wkey = k0 + kw + 16 * w;              // the warp's first key
+  const int r0 = wkey + g;                        // this thread's keys r0 and r0 + 8
+  const int cw = C::COLS && wg ? 128 : 0;         // the warpgroup's first column of dK, dV
   const float c = sm_scale * LOG2E;
   const unsigned char* kt = ks + kw * 128;
   const unsigned char* vt = vs + kw * 128;
@@ -319,35 +404,132 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_const
   for (int i = 0; i < NO; ++i) dk[i] = dv[i] = 0.f;
   mbar_wait(kv_full, 0);
   const int first = SPLIT ? wg : 0;
-  for (int it = first; it < n_it; it += STEP) {
-    const int s = it % NT;
-    float sc[NS], dp[NS];
-    uint32_t pa[4][4], da[4][4];  // bf16(P^T), bf16(dS^T): the A fragments of dV and dK
-    mbar_wait(&full[s], (it / NT) & 1);
-    wgmma_fence();
-    issue_abt<D>(sc, kt, C::K_PANEL, qs + s * Q_TILE, PANEL64);  // S^T = K Q^T
-    issue_abt<D>(dp, vt, C::K_PANEL, os + s * Q_TILE, PANEL64);  // dP^T = V dO^T
-    wgmma_wait<0>();
-    wgmma_fence_operand<NS>(sc);
-    wgmma_fence_operand<NS>(dp);
-    dst_cols(sc, dp, (i0 + it % per_head) * KV_BQ, wkey, r0, t, kv_offset, causal, c,
-             st + s * 2 * KV_BQ, sm_scale);
-    pack_a(pa, sc);
-    pack_a(da, dp);
-    wgmma_fence_operand<NO>(dv);
-    wgmma_fence_operand<NO>(dk);
-    wgmma_fence();
-    issue_ab<D>(dv, pa, os + s * Q_TILE, PANEL64);  // dV += P^T dO
-    issue_ab<D>(dk, da, qs + s * Q_TILE, PANEL64);  // dK += dS^T Q
-    wgmma_wait<0>();
-    wgmma_fence_operand<NO>(dv);
-    wgmma_fence_operand<NO>(dk);
-    // The stage is done with: refill it once all its users are (SPLIT: the
-    // warpgroup's own first thread; else the last warpgroup's).
-    mbar_arrive(&empty[s]);
-    if ((SPLIT ? (tid & 127) == 0 : tid == 128 * (NWG - 1)) && it + NT < n_it) {
-      mbar_wait(&empty[s], (it / NT) & 1);
-      load_stage(it + NT);
+  if constexpr (C::COLS) {
+    // S^T and dP^T formed once: warpgroup 0 forms S^T and P^T and hands P^T
+    // over in f32; warpgroup 1 forms dP^T and dS^T and hands T(dS^T) back
+    // (two named barriers a step); each runs dV and dK on its own columns.
+    float* pbuf = reinterpret_cast<float*>(kv_full + 1);           // [NS][128] f32 P^T
+    uint32_t* dbuf = reinterpret_cast<uint32_t*>(pbuf + NS * 128);  // [16][128] T(dS^T)
+    const int ltid = tid & 127;
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % NT;
+      const int q0 = (i0 + it % per_head) * KV_BQ;
+      const float* stp = st + s * 2 * KV_BQ;
+      const unsigned char* ot = os + s * Q_TILE + (cw / 64) * PANEL64;
+      const unsigned char* qt = qs + s * Q_TILE + (cw / 64) * PANEL64;
+      const bool diag = causal && wkey + 15 > q0 + kv_offset;
+      float sc[NS];
+      uint32_t pa[4][4], da[4][4];
+      mbar_wait(&full[s], (it / NT) & 1);
+      wgmma_fence();
+      if (wg == 0) {
+        issue_abt<T, D>(sc, kt, C::K_PANEL, qs + s * Q_TILE, PANEL64);
+        wgmma_wait<0>();
+        wgmma_fence_operand<NS>(sc);
+#pragma unroll
+        for (int jj = 0; jj < KV_BQ / 8; ++jj) {
+          const float2 ls = *reinterpret_cast<const float2*>(stp + 8 * jj + 2 * t);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int e = 4 * jj + i;
+            float p = ex2(fmaf(sc[e], c, -((i & 1) ? ls.y : ls.x)));
+            if (diag && r0 + 8 * (i >> 1) > q0 + 8 * jj + 2 * t + (i & 1) + kv_offset) p = 0.f;
+            sc[e] = p;
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < NS; ++e) pbuf[e * 128 + ltid] = sc[e];
+        named_bar_arrive(RED + 1, C::THREADS);
+        pack_a<T>(pa, sc);
+        wgmma_fence_operand<NO>(dv);
+        wgmma_fence();
+        issue_ab<T, C::NC0>(dv, pa, ot, PANEL64);
+        named_bar_sync(RED + 2, C::THREADS);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) da[kk][r] = dbuf[(4 * kk + r) * 128 + ltid];
+        wgmma_fence_operand<NO>(dk);
+        wgmma_fence();
+        issue_ab<T, C::NC0>(dk, da, qt, PANEL64);
+      } else {
+        float dp[NS];
+        issue_abt<T, D>(dp, vt, C::K_PANEL, os + s * Q_TILE, PANEL64);
+        wgmma_wait<0>();
+        wgmma_fence_operand<NS>(dp);
+        named_bar_sync(RED + 1, C::THREADS);
+#pragma unroll
+        for (int e = 0; e < NS; ++e) sc[e] = pbuf[e * 128 + ltid];
+#pragma unroll
+        for (int jj = 0; jj < KV_BQ / 8; ++jj) {
+          const float2 dl = *reinterpret_cast<const float2*>(stp + KV_BQ + 8 * jj + 2 * t);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int e = 4 * jj + i;
+            dp[e] = (sc[e] * (dp[e] - ((i & 1) ? dl.y : dl.x))) * sm_scale;
+          }
+        }
+        pack_a<T>(da, dp);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) dbuf[(4 * kk + r) * 128 + ltid] = da[kk][r];
+        named_bar_arrive(RED + 2, C::THREADS);
+        pack_a<T>(pa, sc);
+        wgmma_fence_operand<NO>(dv);
+        wgmma_fence_operand<NO>(dk);
+        wgmma_fence();
+        issue_ab<T, C::NC1>(dv, pa, ot, PANEL64);
+        issue_ab<T, C::NC1>(dk, da, qt, PANEL64);
+      }
+      wgmma_wait<0>();
+      wgmma_fence_operand<NO>(dv);
+      wgmma_fence_operand<NO>(dk);
+      mbar_arrive(&empty[s]);
+      if (tid == 128 && it + NT < n_it) {
+        mbar_wait(&empty[s], (it / NT) & 1);
+        load_stage(it + NT);
+      }
+    }
+  } else {
+    for (int it = first; it < n_it; it += STEP) {
+      const int s = it % NT;
+      float sc[NS], dp[NS];
+      uint32_t pa[4][4], da[4][4];  // T(P^T), T(dS^T): the A fragments of dV and dK
+      mbar_wait(&full[s], (it / NT) & 1);
+      wgmma_fence();
+      issue_abt<T, D>(sc, kt, C::K_PANEL, qs + s * Q_TILE, PANEL64);  // S^T = K Q^T
+      issue_abt<T, D>(dp, vt, C::K_PANEL, os + s * Q_TILE, PANEL64);  // dP^T = V dO^T
+      wgmma_wait<0>();
+      wgmma_fence_operand<NS>(sc);
+      wgmma_fence_operand<NS>(dp);
+      dst_cols(sc, dp, (i0 + it % per_head) * KV_BQ, wkey, r0, t, kv_offset, causal, c,
+               st + s * 2 * KV_BQ, sm_scale);
+      pack_a<T>(pa, sc);
+      pack_a<T>(da, dp);
+      wgmma_fence_operand<NO>(dv);
+      wgmma_fence_operand<NO>(dk);
+      wgmma_fence();
+      // dV += P^T dO, dK += dS^T Q on the warpgroup's columns (panels from cw).
+      const unsigned char* ot = os + s * Q_TILE + (cw / 64) * PANEL64;
+      const unsigned char* qt = qs + s * Q_TILE + (cw / 64) * PANEL64;
+      if (C::NC1 != C::NC0 && wg) {
+        issue_ab<T, C::NC1>(dv, pa, ot, PANEL64);
+        issue_ab<T, C::NC1>(dk, da, qt, PANEL64);
+      } else {
+        issue_ab<T, C::NC0>(dv, pa, ot, PANEL64);
+        issue_ab<T, C::NC0>(dk, da, qt, PANEL64);
+      }
+      wgmma_wait<0>();
+      wgmma_fence_operand<NO>(dv);
+      wgmma_fence_operand<NO>(dk);
+      // The stage is done with: refill it once all its users are (SPLIT: the
+      // warpgroup's own first thread; else the last warpgroup's).
+      mbar_arrive(&empty[s]);
+      if ((SPLIT ? (tid & 127) == 0 : tid == 128 * (NWG - 1)) && it + NT < n_it) {
+        mbar_wait(&empty[s], (it / NT) & 1);
+        load_stage(it + NT);
+      }
     }
   }
 
@@ -378,35 +560,42 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_const
       }
     }
   }
+  const int nc = wg ? C::NC1 : C::NC0;  // this warpgroup's columns
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int key = r0 + 8 * hr;
     if (key >= Tkv) continue;
-    const size_t row = (((size_t)b * Tkv + key) * NKV + hk) * D;
+    const size_t row = (((size_t)b * Tkv + key) * NKV + hk) * D + cw;
 #pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj) {
-      *reinterpret_cast<__nv_bfloat162*>(dk_out + row + 8 * jj + 2 * t) =
-          __floats2bfloat162_rn(dk[4 * jj + 2 * hr], dk[4 * jj + 2 * hr + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv_out + row + 8 * jj + 2 * t) =
-          __floats2bfloat162_rn(dv[4 * jj + 2 * hr], dv[4 * jj + 2 * hr + 1]);
+    for (int jj = 0; jj < C::NC0 / 8; ++jj) {
+      if (8 * jj >= nc) break;
+      *reinterpret_cast<uint32_t*>(dk_out + row + 8 * jj + 2 * t) =
+          pack2_as<T>(dk[4 * jj + 2 * hr], dk[4 * jj + 2 * hr + 1]);
+      *reinterpret_cast<uint32_t*>(dv_out + row + 8 * jj + 2 * t) =
+          pack2_as<T>(dv[4 * jj + 2 * hr], dv[4 * jj + 2 * hr + 1]);
     }
   }
 }
 
 // ---- dq (wgmma) ----------------------------------------------------------------
 
-constexpr int DQ_BQ = 128, DQ_BKV = 64;
+constexpr int DQ_BKV = 64;
 
 template <int D>
 struct DqCfg {
-  // WARP: warpgroups 0-1 consume, warp 8 loads (288 threads); else one of
-  // the consumers' threads loads (256 threads, so up to 255 registers each).
-  static constexpr bool WARP = D == 64;
+  // NWG consumer warpgroups of 64 rows (2 at D 64 and 128, taking turns to
+  // issue; 1 at D 192 and 256, the top). WARP: a producer warp loads (D 64,
+  // 192, 256); else one of the consumers' threads (D 128: 256 threads, so
+  // up to 255 registers each).
+  static constexpr int NWG = D <= 128 ? 2 : 1;
+  static constexpr int CONSUMERS = 128 * NWG;
+  static constexpr int BQ = 64 * NWG;
+  static constexpr bool WARP = D != 128;
   static constexpr int THREADS = WARP ? CONSUMERS + 32 : CONSUMERS;
   static constexpr int PANELS = D / 64;
-  static constexpr int Q_PANEL = DQ_BQ * 128, KV_PANEL = PANEL64;
+  static constexpr int Q_PANEL = BQ * 128, KV_PANEL = PANEL64;
   static constexpr int Q_TILE = PANELS * Q_PANEL, KV_TILE = PANELS * KV_PANEL;
-  static constexpr int NT = 4;  // stages of the K/V ring
+  static constexpr int NT = D <= 128 ? 4 : D == 192 ? 3 : 2;  // stages of the K/V ring
   static constexpr int SMEM = 2 * Q_TILE + NT * 2 * KV_TILE + (2 * NT + 1) * 8 + 1024;
 };
 
@@ -429,19 +618,20 @@ __device__ __forceinline__ void ds_rows(const float* sc, float* dp, int k0, int 
     }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(DqCfg<D>::THREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
                     const __grid_constant__ CUtensorMap tmv, const __grid_constant__ CUtensorMap tmo,
                     const float* __restrict__ lse2_in, const float* __restrict__ delta_in,
-                    __nv_bfloat16* __restrict__ dq_out, int Tq, int Tq64, int Tkv, int NH, int NKV,
+                    T* __restrict__ dq_out, int Tq, int Tq64, int Tkv, int NH, int NKV,
                     float sm_scale, int kv_offset, int causal) {
   using C = DqCfg<D>;
-  constexpr int NT = C::NT, KV_TILE = C::KV_TILE;
+  constexpr int NT = C::NT, KV_TILE = C::KV_TILE, CONSUMERS = C::CONSUMERS;
+  constexpr bool TURNS = C::NWG == 2;  // the two warpgroups take turns to issue
   constexpr int NO = D / 2, NS = DQ_BKV / 2;  // dQ's and S's f32 registers
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (sm90_smem(smem_raw) & 1023)) & 1023);
-  unsigned char* qs = smem;            // [PANELS][128][64] bf16, swizzled
+  unsigned char* qs = smem;            // [PANELS][BQ][64] of T, swizzled
   unsigned char* os = qs + C::Q_TILE;  // dO, the same
   unsigned char* ks = os + C::Q_TILE;  // [NT][PANELS][64][64]
   unsigned char* vs = ks + NT * KV_TILE;
@@ -453,10 +643,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_consta
   const int qt = gridDim.z - 1 - blockIdx.z;  // heaviest q tiles first
   const int h = blockIdx.x, b = blockIdx.y;
   const int hk = h / (NH / NKV);
-  const int q0 = qt * DQ_BQ;
+  const int q0 = qt * C::BQ;
   int n_kv = Tkv / DQ_BKV;
   if (causal) {
-    const int last = q0 + DQ_BQ - 1 + kv_offset;  // the TPU kernel's tile-skip rule
+    const int last = q0 + C::BQ - 1 + kv_offset;  // the TPU kernel's tile-skip rule
     n_kv = last < 0 ? 0 : min(n_kv, last / DQ_BKV + 1);
   }
   if (tid == 0) {
@@ -480,9 +670,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_consta
     }
   };
   if (tid == (C::WARP ? CONSUMERS : 0)) {
-    // Q and dO in two boxes of 64 rows per panel; a box that starts past
-    // Tq is not loaded (its warpgroup's rows are never stored).
-    const int halves = q0 + 64 < Tq ? 2 : 1;
+    // Q and dO in boxes of 64 rows per panel; a box that starts past Tq is
+    // not loaded (its warpgroup's rows are never stored).
+    const int halves = min(C::NWG, (Tq - q0 + 63) / 64);
     mbar_expect_tx(q_full, 2 * halves * C::PANELS * PANEL64);
 #pragma unroll
     for (int p = 0; p < C::PANELS; ++p)
@@ -518,37 +708,37 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_consta
   float dq[NO];
 #pragma unroll
   for (int i = 0; i < NO; ++i) dq[i] = 0.f;
-  uint32_t da[4][4];  // bf16(dS) of the last tile, the A fragments of dQ += dS K
+  uint32_t da[4][4];  // T(dS) of the last tile, the A fragments of dQ += dS K
   mbar_wait(q_full, 0);
   if (n_kv > 0) {
     // Each turn issues S and dP of tile j and dQ of tile j - 1; then tile
     // j's dS. Warpgroup 0 takes the first turn; each takes n_kv + 1 turns.
-    if (wg == 1) sched_pass(wg);
+    if (TURNS && wg == 1) sched_pass(wg);
     {
       float sc[NS], dp[NS];
       mbar_wait(&full[0], 0);
-      sched_wait(wg);
+      if (TURNS) sched_wait(wg);
       wgmma_fence();
-      issue_abt<D>(sc, qw, C::Q_PANEL, ks, PANEL64);
-      issue_abt<D>(dp, ow, C::Q_PANEL, vs, PANEL64);
-      sched_pass(wg);
+      issue_abt<T, D>(sc, qw, C::Q_PANEL, ks, PANEL64);
+      issue_abt<T, D>(dp, ow, C::Q_PANEL, vs, PANEL64);
+      if (TURNS) sched_pass(wg);
       wgmma_wait<0>();
       wgmma_fence_operand<NS>(sc);
       wgmma_fence_operand<NS>(dp);
       ds_rows(sc, dp, 0, wrow, r0, t, kv_offset, causal, c, lse2, dl, sm_scale);
-      pack_a(da, dp);
+      pack_a<T>(da, dp);
     }
     for (int j = 1; j < n_kv; ++j) {
       float sc[NS], dp[NS];
       const int s = j % NT, sp = (j - 1) % NT;
       mbar_wait(&full[s], (j / NT) & 1);
-      sched_wait(wg);
+      if (TURNS) sched_wait(wg);
       wgmma_fence();
-      issue_abt<D>(sc, qw, C::Q_PANEL, ks + s * KV_TILE, PANEL64);
-      issue_abt<D>(dp, ow, C::Q_PANEL, vs + s * KV_TILE, PANEL64);
+      issue_abt<T, D>(sc, qw, C::Q_PANEL, ks + s * KV_TILE, PANEL64);
+      issue_abt<T, D>(dp, ow, C::Q_PANEL, vs + s * KV_TILE, PANEL64);
       wgmma_fence_operand<NO>(dq);
-      issue_ab<D>(dq, da, ks + sp * KV_TILE, PANEL64);
-      sched_pass(wg);
+      issue_ab<T, D>(dq, da, ks + sp * KV_TILE, PANEL64);
+      if (TURNS) sched_pass(wg);
       wgmma_wait<1>();
       wgmma_fence_operand<NS>(sc);
       wgmma_fence_operand<NS>(dp);
@@ -560,14 +750,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_consta
         mbar_wait(&empty[sp], ((j - 1) / NT) & 1);       // both are done with sp
         load_kv(j - 1 + NT);
       }
-      pack_a(da, dp);
+      pack_a<T>(da, dp);
     }
     const int sp = (n_kv - 1) % NT;
-    sched_wait(wg);
+    if (TURNS) sched_wait(wg);
     wgmma_fence_operand<NO>(dq);
     wgmma_fence();
-    issue_ab<D>(dq, da, ks + sp * KV_TILE, PANEL64);
-    if (wg == 0) sched_pass(wg);  // warpgroup 1's last turn follows; nothing follows it
+    issue_ab<T, D>(dq, da, ks + sp * KV_TILE, PANEL64);
+    if (TURNS && wg == 0) sched_pass(wg);  // warpgroup 1's last turn follows; nothing follows it
     wgmma_wait<0>();
     wgmma_fence_operand<NO>(dq);
     mbar_arrive(&empty[sp]);
@@ -577,11 +767,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_consta
   for (int hr = 0; hr < 2; ++hr) {
     const int row = r0 + 8 * hr;
     if (row >= Tq) continue;
-    __nv_bfloat16* drow = dq_out + ((size_t)b * Tq + row) * NH * D + (size_t)h * D;
+    T* drow = dq_out + ((size_t)b * Tq + row) * NH * D + (size_t)h * D;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj)
-      *reinterpret_cast<__nv_bfloat162*>(drow + 8 * jj + 2 * t) =
-          __floats2bfloat162_rn(dq[4 * jj + 2 * hr], dq[4 * jj + 2 * hr + 1]);
+      *reinterpret_cast<uint32_t*>(drow + 8 * jj + 2 * t) =
+          pack2_as<T>(dq[4 * jj + 2 * hr], dq[4 * jj + 2 * hr + 1]);
   }
 }
 
@@ -597,107 +787,149 @@ cudaError_t size_smem(K kern, int bytes, bool* sized) {
   return e;
 }
 
-template <int D, bool SPLIT>
+template <typename T, int D, bool SPLIT>
 cudaError_t launch_dkv(const CUtensorMap& tmq, const CUtensorMap& tmk, const CUtensorMap& tmv,
-                       const CUtensorMap& tmo, const float* lse2, const float* delta, void* dk,
-                       void* dv, int B, int Tq, int Tq64, int Tkv, int NH, int NKV,
-                       float sm_scale, int kv_offset, int causal, cudaStream_t stream) {
+                       const CUtensorMap& tmo, const fbwd_parts::Call& c, int Tq64) {
   using KC = KvCfg<D, SPLIT>;
   static bool sized[64] = {};
-  auto kern = flash_bwd_dkv_kernel<D, SPLIT>;
+  auto kern = flash_bwd_dkv_kernel<T, D, SPLIT>;
   const cudaError_t e = size_smem(kern, KC::SMEM, sized);
   if (e != cudaSuccess) return e;
-  kern<<<dim3(NKV, B, (Tkv + KC::BK - 1) / KC::BK), KC::THREADS, KC::SMEM, stream>>>(
-      tmq, tmk, tmv, tmo, lse2, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), Tq, Tq64, Tkv, NH, NKV, sm_scale, kv_offset, causal);
+  kern<<<dim3(c.NKV, c.B, (c.Tkv + KC::BK - 1) / KC::BK), KC::THREADS, KC::SMEM, c.stream>>>(
+      tmq, tmk, tmv, tmo, c.lse2, c.delta, static_cast<T*>(c.dk), static_cast<T*>(c.dv), c.Tq,
+      Tq64, c.Tkv, c.NH, c.NKV, c.sm_scale, c.kv_offset, c.causal);
   return cudaGetLastError();
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-           const float* l, const float* m, float* lse2, float* delta, void* dq, void* dk,
-           void* dv, int B, int Tq, int Tkv, int NH, int NKV, float sm_scale, int kv_offset,
-           int causal, cudaStream_t stream) {
-  const int Tq64 = (Tq + TQ_ALIGN - 1) / TQ_ALIGN * TQ_ALIGN;
-  const auto bf = static_cast<const __nv_bfloat16*>(dout);
+template <typename T, int D>
+int launch(const fbwd_parts::Call& c) {
+  const int Tq64 = (c.Tq + TQ_ALIGN - 1) / TQ_ALIGN * TQ_ALIGN;
   {
-    const long long rows = (long long)B * Tq64 * NH;
-    const int per_block = STATS_THREADS / (D / 8);
+    constexpr int P2 = (D / 8) & -(D / 8);
+    constexpr int per_block = STATS_THREADS / (P2 > 32 ? 32 : P2);
+    const long long rows = (long long)c.B * Tq64 * c.NH;
     const unsigned blocks = static_cast<unsigned>((rows + per_block - 1) / per_block);
-    flash_bwd_stats_kernel<D><<<blocks, STATS_THREADS, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(o), bf, l, m, lse2, delta, B, Tq, Tq64, NH);
+    flash_bwd_stats_kernel<T, D><<<blocks, STATS_THREADS, 0, c.stream>>>(
+        static_cast<const T*>(c.o), static_cast<const T*>(c.dout), c.l, c.m, c.lse2, c.delta,
+        c.B, c.Tq, Tq64, c.NH);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
 
   using C = DqCfg<D>;
   CUtensorMap tmq, tmk, tmv, tmo;
-  const auto bt = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto ty = tma_type<T>();
   const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  if (!encode_3d(&tmq, bt, 2, q, B, Tq, (uint64_t)NH * D, 64, 64, sw) ||
-      !encode_3d(&tmo, bt, 2, dout, B, Tq, (uint64_t)NH * D, 64, 64, sw) ||
-      !encode_3d(&tmk, bt, 2, k, B, Tkv, (uint64_t)NKV * D, 64, 64, sw) ||
-      !encode_3d(&tmv, bt, 2, v, B, Tkv, (uint64_t)NKV * D, 64, 64, sw))
+  if (!encode_3d(&tmq, ty, 2, c.q, c.B, c.Tq, (uint64_t)c.NH * D, 64, 64, sw) ||
+      !encode_3d(&tmo, ty, 2, c.dout, c.B, c.Tq, (uint64_t)c.NH * D, 64, 64, sw) ||
+      !encode_3d(&tmk, ty, 2, c.k, c.B, c.Tkv, (uint64_t)c.NKV * D, 64, 64, sw) ||
+      !encode_3d(&tmv, ty, 2, c.v, c.B, c.Tkv, (uint64_t)c.NKV * D, 64, 64, sw))
     return static_cast<int>(cudaErrorInvalidValue);
   {
-    // Blocks of 64 NWG keys load each Q/dO tile once for all warpgroups;
-    // where they would not fill the card twice over (few batch rows and KV
-    // heads: the first, heaviest blocks would set the time), 64-key blocks
-    // divide the heaviest block's work by NWG instead.
-    static int sms[64] = {};
-    int dev = 0;
-    cudaGetDevice(&dev);
-    int n_sm = dev < 64 ? sms[dev] : 0;
-    if (n_sm == 0) {
-      cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-      if (dev < 64) sms[dev] = n_sm;
+    cudaError_t e;
+    if constexpr (D <= 128) {
+      // Blocks of 64 NWG keys load each Q/dO tile once for all warpgroups;
+      // where they would not fill the card twice over (few batch rows and
+      // KV heads: the first, heaviest blocks would set the time), 64-key
+      // blocks divide the heaviest block's work by NWG instead.
+      static int sms[64] = {};
+      int dev = 0;
+      cudaGetDevice(&dev);
+      int n_sm = dev < 64 ? sms[dev] : 0;
+      if (n_sm == 0) {
+        cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+        if (dev < 64) sms[dev] = n_sm;
+      }
+      constexpr int BK = KvCfg<D, false>::BK;
+      const bool split = (long long)c.B * c.NKV * ((c.Tkv + BK - 1) / BK) < 2LL * n_sm;
+      e = split ? launch_dkv<T, D, true>(tmq, tmk, tmv, tmo, c, Tq64)
+                : launch_dkv<T, D, false>(tmq, tmk, tmv, tmo, c, Tq64);
+    } else {
+      e = launch_dkv<T, D, false>(tmq, tmk, tmv, tmo, c, Tq64);  // the COLS shape
     }
-    constexpr int BK = KvCfg<D, false>::BK;
-    const bool split = (long long)B * NKV * ((Tkv + BK - 1) / BK) < 2LL * n_sm;
-    cudaError_t e = split ? launch_dkv<D, true>(tmq, tmk, tmv, tmo, lse2, delta, dk, dv, B, Tq,
-                                                Tq64, Tkv, NH, NKV, sm_scale, kv_offset, causal,
-                                                stream)
-                          : launch_dkv<D, false>(tmq, tmk, tmv, tmo, lse2, delta, dk, dv, B, Tq,
-                                                 Tq64, Tkv, NH, NKV, sm_scale, kv_offset, causal,
-                                                 stream);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   static bool sized_dq[64] = {};
-  auto kern = flash_bwd_dq_kernel<D>;
+  auto kern = flash_bwd_dq_kernel<T, D>;
   cudaError_t e = size_smem(kern, C::SMEM, sized_dq);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(NH, B, (Tq + DQ_BQ - 1) / DQ_BQ);
-  kern<<<grid, C::THREADS, C::SMEM, stream>>>(tmq, tmk, tmv, tmo, lse2, delta,
-                                               static_cast<__nv_bfloat16*>(dq), Tq, Tq64, Tkv, NH,
-                                               NKV, sm_scale, kv_offset, causal);
+  dim3 grid(c.NH, c.B, (c.Tq + C::BQ - 1) / C::BQ);
+  kern<<<grid, C::THREADS, C::SMEM, c.stream>>>(tmq, tmk, tmv, tmo, c.lse2, c.delta,
+                                                 static_cast<T*>(c.dq), c.Tq, Tq64, c.Tkv, c.NH,
+                                                 c.NKV, c.sm_scale, c.kv_offset, c.causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int narrow(const fbwd_parts::Call& c) {
+  if (c.D == 64) return launch<T, 64>(c);
+  if (c.D == 128) return launch<T, 128>(c);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int wide(const fbwd_parts::Call& c) {
+  if (c.D == 192) return launch<T, 192>(c);
+  if (c.D == 256) return launch<T, 256>(c);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q, o, dout, dq [B, Tq, NH, D]; k, v, dk, dv [B, Tkv, NKV, D], bf16,
-// contiguous, with 16-byte-aligned bases (TMA); l, m f32 [B, NH, Tq] (the
-// forward's row sum and max); lse2, delta f32 scratch [B, NH, Tq64], Tq64 =
-// Tq rounded up to 64. Needs D in {64, 128}, Tkv % 64 == 0, NH % NKV == 0
-// and, when causal, kv_offset >= 0 (checked by the Python wrapper). Three
-// launches on `stream`: the statistics, dK/dV, dQ. Returns a cudaError_t
-// (cudaErrorInvalidValue when a TMA descriptor cannot be encoded or D is not
-// 64 or 128).
+#if IN_PART(1)
+int fbwd_parts::run_bf16(const Call& c) { return narrow<__nv_bfloat16>(c); }
+#endif
+#if IN_PART(2)
+int fbwd_parts::run_f16(const Call& c) { return narrow<__half>(c); }
+#endif
+#if IN_PART(3)
+int fbwd_parts::run_bf16_wide(const Call& c) { return wide<__nv_bfloat16>(c); }
+#endif
+#if IN_PART(4)
+int fbwd_parts::run_f16_wide(const Call& c) { return wide<__half>(c); }
+#endif
+
+#if IN_PART(0)
+
+// q, o, dout, dq [B, Tq, NH, D]; k, v, dk, dv [B, Tkv, NKV, D], of one type
+// (dtype: 1 bf16, 2 fp16), contiguous, with 16-byte-aligned bases (TMA); l,
+// m f32 [B, NH, Tq] (the forward's row sum and max); lse2, delta f32
+// scratch [B, NH, Tq64], Tq64 = Tq rounded up to 64. Needs D in {64, 128,
+// 192, 256}, Tkv % 64 == 0, NH % NKV == 0 and, when causal, kv_offset >= 0
+// (checked by the Python wrapper). Three launches on `stream`: the
+// statistics, dK/dV, dQ. Returns a cudaError_t (cudaErrorInvalidValue when
+// a TMA descriptor cannot be encoded, or D or dtype is not one of those).
 extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* o,
                          const void* dout, const void* l, const void* m, void* lse2, void* delta,
                          void* dq, void* dk, void* dv, int B, int Tq, int Tkv, int NH, int NKV,
-                         int D, float sm_scale, int kv_offset, int causal, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* lf = static_cast<const float*>(l);
-  const float* mf = static_cast<const float*>(m);
-  float* ls = static_cast<float*>(lse2);
-  float* ds = static_cast<float*>(delta);
+                         int D, int dtype, float sm_scale, int kv_offset, int causal,
+                         void* stream) {
   if (B <= 0 || Tq <= 0 || Tkv <= 0) return static_cast<int>(cudaGetLastError());
-  if (D == 64)
-    return launch<64>(q, k, v, o, dout, lf, mf, ls, ds, dq, dk, dv, B, Tq, Tkv, NH, NKV, sm_scale,
-                      kv_offset, causal, s);
-  if (D == 128)
-    return launch<128>(q, k, v, o, dout, lf, mf, ls, ds, dq, dk, dv, B, Tq, Tkv, NH, NKV,
-                       sm_scale, kv_offset, causal, s);
+  const fbwd_parts::Call c{q,
+                           k,
+                           v,
+                           o,
+                           dout,
+                           static_cast<const float*>(l),
+                           static_cast<const float*>(m),
+                           static_cast<float*>(lse2),
+                           static_cast<float*>(delta),
+                           dq,
+                           dk,
+                           dv,
+                           B,
+                           Tq,
+                           Tkv,
+                           NH,
+                           NKV,
+                           D,
+                           sm_scale,
+                           kv_offset,
+                           causal,
+                           static_cast<cudaStream_t>(stream)};
+  const bool wide_d = D == 192 || D == 256;
+  if (dtype == 1) return wide_d ? fbwd_parts::run_bf16_wide(c) : fbwd_parts::run_bf16(c);
+  if (dtype == 2) return wide_d ? fbwd_parts::run_f16_wide(c) : fbwd_parts::run_f16(c);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+#endif  // IN_PART(0)

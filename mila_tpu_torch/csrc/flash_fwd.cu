@@ -1,5 +1,6 @@
-// flash_fwd: causal grouped-query flash-attention forward, bf16 in and out,
-// on Hopper's TMA and warpgroup MMA.
+// flash_fwd: causal grouped-query flash-attention forward, bf16 or fp16 in
+// and out (the element type T of every template here), on Hopper's TMA and
+// warpgroup MMA.
 //
 // Replaces the TPU kernels mila_tpu/kernels/flash_attention.py:_fa_kernel
 // (D >= 128) and _fa_kernel_t (D < 128), entry flash_attention ->
@@ -50,15 +51,38 @@
 // tile runs when its first key <= the q tile's last row + kv_offset);
 // masked scores take the finite -0.7 * f32max (as raw scores, before the
 // scaling, so that s c cannot overflow to -inf for sm_scale < 1); p is
-// rounded to V's dtype (bf16) before P V while l sums the f32 p, both
+// rounded to V's dtype (T) before P V while l sums the f32 p, both
 // against the running max of the key tiles; 1 / l with l == 0 guarded
 // at the store; query head h reads KV head h / G (G = NH / NKV, natural
 // order). Layouts are the model's: q and out [B, Tq, NH, D], k and v [B,
 // Tkv, NKV, D], contiguous, 16-byte-aligned bases. Rows past Tq in the last
-// q tile are computed on zeros and never stored.
+// q tile are computed on zeros and never stored. fp16 takes the bf16 path
+// as it stands: wgmma's .f16 form reads the same fragments, descriptors and
+// transpose bits, TMA's FLOAT16 maps the same boxes.
+//
+// Built in three parts (kernels/_build.py: PARTS), one nvcc each: parts 1
+// and 2 instantiate the bf16 and fp16 kernels, part 0 holds the C entry
+// point.
 #include "common.cuh"
 #include "mma.cuh"
 #include "sm90.cuh"
+
+namespace fwd_parts {  // one call's arguments, and each input type's launches
+
+struct Call {
+  const void *q, *k, *v;
+  void* out;
+  float *l_out, *m_out;
+  int B, Tq, Tkv, NH, NKV, D;
+  float sm_scale;
+  int kv_offset, causal;
+  cudaStream_t stream;
+};
+
+int run_bf16(const Call& c);
+int run_f16(const Call& c);
+
+}  // namespace fwd_parts
 
 namespace {
 
@@ -95,7 +119,7 @@ __device__ __forceinline__ void sched_pass(int wg) { named_bar_arrive(SCHED + 1 
 // S = Q K^T for the warpgroup's 64 rows (qw) against one K tile (kt): D /
 // 16 k-slices, 32 bytes apart in a panel's 128-byte rows. Issued and
 // committed as one group.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_s(float* sc, const unsigned char* qw,
                                         const unsigned char* kt) {
   using C = Cfg<D>;
@@ -105,16 +129,16 @@ __device__ __forceinline__ void issue_s(float* sc, const unsigned char* qw,
     const uint64_t a = wgmma_desc(qw + p * C::Q_PANEL + off, 16, 1024);
     const uint64_t b = wgmma_desc(kt + p * C::KV_PANEL + off, 16, 1024);
     if constexpr (C::BKV == 128)
-      wgmma_m64n128k16_bf16<0>(sc, a, b, kk > 0);
+      wgmma_m64n128k16<T, 0>(sc, a, b, kk > 0);
     else
-      wgmma_m64n64k16_bf16<0>(sc, a, b, kk > 0);
+      wgmma_m64n64k16<T, 0>(sc, a, b, kk > 0);
   }
   wgmma_commit();
 }
 
-// O += bf16(P) V for one V tile (vt): BKV / 16 k-slices of 16 keys, 2048
+// O += T(P) V for one V tile (vt): BKV / 16 k-slices of 16 keys, 2048
 // bytes apart in V's panels; LBO the bytes between V's 64-column panels.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_pv(float* o, const uint32_t (*pa)[4],
                                          const unsigned char* vt) {
   using C = Cfg<D>;
@@ -122,9 +146,9 @@ __device__ __forceinline__ void issue_pv(float* o, const uint32_t (*pa)[4],
   for (int kk = 0; kk < C::BKV / 16; ++kk) {
     const uint64_t b = wgmma_desc(vt + 2048 * kk, C::KV_PANEL, 1024);
     if constexpr (D == 64)
-      wgmma_m64n64k16_bf16_rs<1>(o, pa[kk], b, 1);
+      wgmma_m64n64k16_rs<T, 1>(o, pa[kk], b, 1);
     else
-      wgmma_m64n128k16_bf16_rs<1>(o, pa[kk], b, 1);
+      wgmma_m64n128k16_rs<T, 1>(o, pa[kk], b, 1);
   }
   wgmma_commit();
 }
@@ -182,19 +206,20 @@ __device__ __forceinline__ void rescale_o(float* o, const float* alpha) {
 }
 
 // p packs into P V's A fragments: d[8 kk .. 8 kk + 7] of S are the four
-// bf16 pairs of k-slice kk.
-template <int BKV>
+// pairs of T of k-slice kk.
+template <typename T, int BKV>
 __device__ __forceinline__ void pack_p(uint32_t (*pa)[4], const float* sc) {
 #pragma unroll
   for (int kk = 0; kk < BKV / 16; ++kk)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) pa[kk][r] = pack2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = pack2_as<T>(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
-                 const __grid_constant__ CUtensorMap tmv, __nv_bfloat16* __restrict__ out,
+                 const __grid_constant__ CUtensorMap tmv, T* __restrict__ out,
                  float* __restrict__ l_out, float* __restrict__ m_out, int Tq, int Tkv, int NH,
                  int NKV, float sm_scale, int kv_offset, int causal) {
   using C = Cfg<D>;
@@ -202,7 +227,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant_
   constexpr int NO = D / 2, NS = BKV / 2;  // O's and S's f32 registers
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (sm90_smem(smem_raw) & 1023)) & 1023);
-  unsigned char* qs = smem;            // [PANELS][BQ][64] bf16, swizzled
+  unsigned char* qs = smem;            // [PANELS][BQ][64] of T, swizzled
   unsigned char* ks = qs + C::Q_TILE;  // [NT][PANELS][BKV][64]
   unsigned char* vs = ks + NT * KV_TILE;
   uint64_t* full = reinterpret_cast<uint64_t*>(vs + NT * KV_TILE);
@@ -263,7 +288,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant_
   for (int i = 0; i < NO; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this thread's columns
   float alpha[2];
-  uint32_t pa[BKV / 16][4];  // bf16(p) of the last tile, the A fragments of P V
+  uint32_t pa[BKV / 16][4];  // T(p) of the last tile, the A fragments of P V
   mbar_wait(q_full, 0);
   if (n_kv > 0) {
     // Each turn issues S of tile j, rescales O while it runs and issues P V
@@ -275,12 +300,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant_
       mbar_wait(&full[0], 0);
       sched_wait(wg);
       wgmma_fence();
-      issue_s<D>(sc, qw, ks);
+      issue_s<T, D>(sc, qw, ks);
       sched_pass(wg);
       wgmma_wait<0>();
       wgmma_fence_operand<NS>(sc);
       softmax_tile<BKV>(sc, m, l, alpha, 0, wrow, r0, t, kv_offset, causal, c);
-      pack_p<BKV>(pa, sc);
+      pack_p<T, BKV>(pa, sc);
     }
     for (int j = 1; j < n_kv; ++j) {
       float sc[NS];
@@ -288,11 +313,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant_
       mbar_wait(&full[s], (j / NT) & 1);
       sched_wait(wg);
       wgmma_fence();
-      issue_s<D>(sc, qw, ks + s * KV_TILE);
+      issue_s<T, D>(sc, qw, ks + s * KV_TILE);
       rescale_o<NO>(o, alpha);
       wgmma_fence_operand<NO>(o);
       wgmma_fence();
-      issue_pv<D>(o, pa, vs + sp * KV_TILE);
+      issue_pv<T, D>(o, pa, vs + sp * KV_TILE);
       sched_pass(wg);
       wgmma_wait<1>();
       wgmma_fence_operand<NS>(sc);
@@ -300,14 +325,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant_
       wgmma_wait<0>();
       wgmma_fence_operand<NO>(o);
       mbar_arrive(&empty[sp]);
-      pack_p<BKV>(pa, sc);
+      pack_p<T, BKV>(pa, sc);
     }
     const int sp = (n_kv - 1) % NT;
     sched_wait(wg);
     rescale_o<NO>(o, alpha);
     wgmma_fence_operand<NO>(o);
     wgmma_fence();
-    issue_pv<D>(o, pa, vs + sp * KV_TILE);
+    issue_pv<T, D>(o, pa, vs + sp * KV_TILE);
     if (wg == 0) sched_pass(wg);  // warpgroup 1's last turn follows; nothing follows it
     wgmma_wait<0>();
     wgmma_fence_operand<NO>(o);
@@ -326,27 +351,25 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant_
       l_out[srow] = l[hr];
       m_out[srow] = m[hr] * sm_scale;
     }
-    __nv_bfloat16* orow = out + ((size_t)b * Tq + row) * NH * D + (size_t)h * D;
+    T* orow = out + ((size_t)b * Tq + row) * NH * D + (size_t)h * D;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj + 2 * t) =
-          __floats2bfloat162_rn(o[4 * jj + 2 * hr] * inv, o[4 * jj + 2 * hr + 1] * inv);
+      *reinterpret_cast<uint32_t*>(orow + 8 * jj + 2 * t) =
+          pack2_as<T>(o[4 * jj + 2 * hr] * inv, o[4 * jj + 2 * hr + 1] * inv);
   }
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, float* l_out, float* m_out,
-           int B, int Tq, int Tkv, int NH, int NKV, float sm_scale, int kv_offset, int causal,
-           cudaStream_t stream) {
+template <typename T, int D>
+int launch(const fwd_parts::Call& c) {
   using C = Cfg<D>;
   CUtensorMap tmq, tmk, tmv;
-  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto ty = tma_type<T>();
   const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  if (!encode_3d(&tmq, bf, 2, q, B, Tq, (uint64_t)NH * D, BQ, 64, sw) ||
-      !encode_3d(&tmk, bf, 2, k, B, Tkv, (uint64_t)NKV * D, C::BKV, 64, sw) ||
-      !encode_3d(&tmv, bf, 2, v, B, Tkv, (uint64_t)NKV * D, C::BKV, 64, sw))
+  if (!encode_3d(&tmq, ty, 2, c.q, c.B, c.Tq, (uint64_t)c.NH * D, BQ, 64, sw) ||
+      !encode_3d(&tmk, ty, 2, c.k, c.B, c.Tkv, (uint64_t)c.NKV * D, C::BKV, 64, sw) ||
+      !encode_3d(&tmv, ty, 2, c.v, c.B, c.Tkv, (uint64_t)c.NKV * D, C::BKV, 64, sw))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = flash_fwd_kernel<D>;
+  auto kern = flash_fwd_kernel<T, D>;
   static bool sized[64] = {};
   int dev = 0;
   cudaGetDevice(&dev);
@@ -355,32 +378,49 @@ int launch(const void* q, const void* k, const void* v, void* out, float* l_out,
     if (e != cudaSuccess) return static_cast<int>(e);
     if (dev < 64) sized[dev] = true;
   }
-  dim3 grid((Tq + BQ - 1) / BQ, NH, B);
-  kern<<<grid, THREADS, C::SMEM, stream>>>(tmq, tmk, tmv, static_cast<__nv_bfloat16*>(out), l_out,
-                                           m_out, Tq, Tkv, NH, NKV, sm_scale, kv_offset, causal);
+  dim3 grid((c.Tq + BQ - 1) / BQ, c.NH, c.B);
+  kern<<<grid, THREADS, C::SMEM, c.stream>>>(tmq, tmk, tmv, static_cast<T*>(c.out), c.l_out,
+                                             c.m_out, c.Tq, c.Tkv, c.NH, c.NKV, c.sm_scale,
+                                             c.kv_offset, c.causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int by_d(const fwd_parts::Call& c) {
+  if (c.D == 64) return launch<T, 64>(c);
+  if (c.D == 128) return launch<T, 128>(c);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q [B, Tq, NH, D], k and v [B, Tkv, NKV, D], out [B, Tq, NH, D], all bf16,
-// contiguous, with 16-byte-aligned bases (TMA). Needs D in {64, 128}, Tkv %
-// 128 == 0 and NH % NKV == 0 (checked by the Python wrapper). causal != 0
-// masks key j for query i unless j <= i + kv_offset. l_out and m_out are
-// null (the primal launch) or f32 [B, NH, Tq]: each row's softmax sum l and
-// max m (of the scaled scores), the statistics flash_bwd recomputes p from.
-// Returns a cudaError_t (cudaErrorInvalidValue when a TMA descriptor cannot
-// be encoded or D is not 64 or 128).
+#if IN_PART(1)
+int fwd_parts::run_bf16(const Call& c) { return by_d<__nv_bfloat16>(c); }
+#endif
+#if IN_PART(2)
+int fwd_parts::run_f16(const Call& c) { return by_d<__half>(c); }
+#endif
+
+#if IN_PART(0)
+
+// q [B, Tq, NH, D], k and v [B, Tkv, NKV, D], out [B, Tq, NH, D], of one type
+// (dtype: 1 bf16, 2 fp16), contiguous, with 16-byte-aligned bases (TMA).
+// Needs D in {64, 128}, Tkv % 128 == 0 and NH % NKV == 0 (checked by the
+// Python wrapper). causal != 0 masks key j for query i unless j <= i +
+// kv_offset. l_out and m_out are null (the primal launch) or f32 [B, NH,
+// Tq]: each row's softmax sum l and max m (of the scaled scores), the
+// statistics flash_bwd recomputes p from. Returns a cudaError_t
+// (cudaErrorInvalidValue when a TMA descriptor cannot be encoded, D is not
+// 64 or 128 or dtype is neither).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out, void* l_out,
-                         void* m_out, int B, int Tq, int Tkv, int NH, int NKV, int D,
+                         void* m_out, int B, int Tq, int Tkv, int NH, int NKV, int D, int dtype,
                          float sm_scale, int kv_offset, int causal, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* lo = static_cast<float*>(l_out);
-  float* mo = static_cast<float*>(m_out);
   if (B <= 0 || Tq <= 0) return static_cast<int>(cudaGetLastError());
-  if (D == 64) return launch<64>(q, k, v, out, lo, mo, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset,
-                                 causal, s);
-  if (D == 128) return launch<128>(q, k, v, out, lo, mo, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset,
-                                   causal, s);
+  const fwd_parts::Call c{q,  k,   v, out, static_cast<float*>(l_out), static_cast<float*>(m_out),
+                          B,  Tq,  Tkv, NH, NKV, D, sm_scale, kv_offset, causal,
+                          static_cast<cudaStream_t>(stream)};
+  if (dtype == 1) return fwd_parts::run_bf16(c);
+  if (dtype == 2) return fwd_parts::run_f16(c);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+#endif  // IN_PART(0)

@@ -1,8 +1,8 @@
 // The mma.sync flash-attention family (flash_sync_fwd.cu, flash_sync_bwd.cu):
-// what the TMA + wgmma kernels (flash_fwd.cu, flash_bwd.cu, bf16 at D 64 and
-// 128) do not take and the TPU kernels' tiling gate admits: bf16 at D 192
-// and 256, fp16 and f32 at D 64, 128, 192 and 256, and every type past D
-// 256 (D % 64 == 0).
+// what the TMA + wgmma kernels (flash_fwd.cu: bf16 and fp16 at D 64 and 128;
+// flash_bwd.cu: bf16 and fp16 at D 64-256) do not take and the TPU kernels'
+// tiling gate admits: f32 at every D % 64 == 0, bf16 and fp16 past D 256,
+// and the 16-bit forward at D 192 and 256.
 //
 // One warp owns 16 rows of a tile and runs its products on mma.sync with
 // f32 accumulators: bf16 and fp16 on m16n8k16, f32 on m16n8k8 .tf32 (the
@@ -58,11 +58,6 @@ __device__ __forceinline__ uint32_t tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
-}
-
-__device__ __forceinline__ uint32_t pack2_f16(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // The fragment loads, the one mma and the stores of one input type.

@@ -1,10 +1,9 @@
 // flash_sync_bwd: the causal grouped-query flash-attention backward from the
 // forward's row statistics, on mma.sync, for what the TMA + wgmma backward
-// (flash_bwd.cu, bf16 at D 64 and 128) does not take: bf16 at D 192 and
-// 256, fp16 and f32 at D 64, 128, 192 and 256, and every type past D 256
-// (D % 64 == 0; the fragments and the tf32 rounding of f32 are in
-// flash_sync.cuh). Its statistics come from the same family's forward
-// (flash_sync_fwd.cu).
+// (flash_bwd.cu, bf16 and fp16 at D 64-256) does not take: f32 at every D
+// % 64 == 0, bf16 and fp16 past D 256 (the fragments and the tf32 rounding
+// of f32 are in flash_sync.cuh). Its statistics come from the same
+// family's forward (flash_sync_fwd.cu).
 //
 // Replaces the TPU kernels mila_tpu/kernels/flash_attention_bwd.py:
 // _dkv_kernel (dK, dV) and _dq_kernel (dQ), entry flash_attention_bwd, at
@@ -37,9 +36,9 @@
 //     in place, and dV += T(P^T) dO, dK += T(dS^T) Q. dK and dV sum over the
 //     group in one f32 accumulator inside the block (the TPU kernel writes
 //     f32 per query head and sums afterwards: f32 order only). At D 192 and
-//     256 a block keeps half the columns of dK and dV (the D / 2 registers
-//     of both would not fit beside S^T and dP^T): two blocks per key block,
-//     each running S^T and dP^T in full.
+//     256 (f32) a block keeps half the columns of dK and dV (the D / 2
+//     registers of both would not fit beside S^T and dP^T): two blocks per
+//     key block, each running S^T and dP^T in full.
 //   past D 256 (dq_wide, dkv_wide): as dq and dkv, but a block owns a
 //     column part of dQ (or of dK and dV) and streams the operands of S and
 //     dP in 64-column panels (flash_sync.cuh: Wide); D is formed from o and
@@ -49,8 +48,8 @@
 // Tq].
 //
 // Built in four parts (kernels/_build.py: PARTS), one nvcc each: parts 1, 2
-// and 3 instantiate the f32, bf16 and fp16 kernels, part 0 holds the C entry
-// point. The kernels past D 256 are in the parts of their types.
+// and 3 instantiate the f32 (D 64-256 and past 256), bf16 and fp16 (past
+// D 256) kernels, part 0 holds the C entry point.
 #include <type_traits>
 
 #include "flash_sync.cuh"
@@ -737,12 +736,12 @@ int by_d(const bwd_parts::Call& c) {
   a.kv_offset = c.kv_offset;
   a.causal = c.causal;
   const int D = c.D, B = c.B;
-  if constexpr (!std::is_same<T, __nv_bfloat16>::value) {  // bf16: D 192 and 256 only
+  if constexpr (std::is_same<T, float>::value) {  // bf16 and fp16: past D 256 only
     if (D == 64) return launch<T, 64>(a, B, c.stream);
     if (D == 128) return launch<T, 128>(a, B, c.stream);
+    if (D == 192) return launch<T, 192>(a, B, c.stream);
+    if (D == 256) return launch<T, 256>(a, B, c.stream);
   }
-  if (D == 192) return launch<T, 192>(a, B, c.stream);
-  if (D == 256) return launch<T, 256>(a, B, c.stream);
   if (D > 256 && D % 64 == 0) return launch_wide<T>(a, B, D, c.stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -765,8 +764,8 @@ int bwd_parts::run_f16(const Call& c) { return by_d<__half>(c); }
 // k, v, dk, dv [B, Tkv, NKV, D] of one type (dtype: 0 f32, 1 bf16, 2 fp16),
 // contiguous, 16-byte-aligned bases; l, m f32 [B, NH, Tq] from
 // flash_sync_fwd; delta f32 [B, NH, Tq] scratch. D in {64, 128, 192, 256}
-// for fp16 and f32, {192, 256} for bf16, or any multiple of 64 past 256
-// (else cudaErrorInvalidValue), Tkv %
+// for f32, or any multiple of 64 past 256 for every type (else
+// cudaErrorInvalidValue), Tkv %
 // 64 == 0, NH % NKV == 0 and, when causal, kv_offset >= 0 (checked by
 // the Python wrapper). Two launches (dQ with D, then dK/dV) on `stream`.
 extern "C" int flash_sync_bwd(void* const* ptrs, int B, int Tq, int Tkv, int NH, int NKV, int D,

@@ -1,8 +1,8 @@
 // flash_sync_fwd: the causal grouped-query flash-attention forward with its
 // row statistics, on mma.sync, for what the TMA + wgmma forward (flash_fwd.cu,
-// bf16 at D 64 and 128) does not take: bf16 at D 192 and 256, fp16 and f32
-// at D 64, 128, 192 and 256, and every type past D 256 (D % 64 == 0; the
-// fragments and the tf32 rounding of f32 are in flash_sync.cuh).
+// bf16 and fp16 at D 64 and 128) does not take: f32 at every D % 64 == 0,
+// bf16 and fp16 at D 192, 256 and past 256 (the fragments and the tf32
+// rounding of f32 are in flash_sync.cuh).
 //
 // Replaces the TPU kernels mila_tpu/kernels/flash_attention.py:_fa_kernel
 // and _fa_kernel_t (entry flash_attention -> _flash_attention_forward, with
@@ -354,13 +354,13 @@ int launch_wide(const void* q, const void* k, const void* v, void* out, float* l
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 takes D 192 and 256 here (flash_fwd.cu serves 64 and 128); fp16 and
-// f32 take all four; every type takes D % 64 == 0 past 256 (launch_wide).
+// bf16 and fp16 take D 192 and 256 here (flash_fwd.cu serves 64 and 128);
+// f32 takes all four; every type takes D % 64 == 0 past 256 (launch_wide).
 template <typename T>
 int by_d(int D, const void* q, const void* k, const void* v, void* out, float* lo, float* mo,
          int B, int Tq, int Tkv, int NH, int NKV, float sm_scale, int kv_offset, int causal,
          cudaStream_t s) {
-  if constexpr (!std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (std::is_same<T, float>::value) {
     if (D == 64)
       return launch<T, 64>(q, k, v, out, lo, mo, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset,
                            causal, s);
@@ -384,7 +384,7 @@ int by_d(int D, const void* q, const void* k, const void* v, void* out, float* l
 
 // q [B, Tq, NH, D], k and v [B, Tkv, NKV, D], out [B, Tq, NH, D], of one type
 // (dtype: 0 f32, 1 bf16, 2 fp16), contiguous, 16-byte-aligned bases. D in
-// {64, 128, 192, 256} for fp16 and f32, {192, 256} for bf16, or any
+// {64, 128, 192, 256} for f32, {192, 256} for bf16 and fp16, or any
 // multiple of 64 past 256 (else cudaErrorInvalidValue); Tkv % 64 == 0 and
 // NH % NKV == 0 (checked by the Python wrapper). causal != 0 masks key j
 // for query i unless j <= i + kv_offset.

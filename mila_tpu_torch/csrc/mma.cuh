@@ -2,7 +2,8 @@
 // (flash_fwd.cu, flash_bwd.cu), the paged and contiguous-cache decode
 // attention (paged_decode_attn.cu, dense_decode_attn.cu) and the int4 and
 // int8 GEMVs (qgemv_int4.cu, qgemv_int8.cu): bf16 mma.sync m16n8k16 with
-// f32 accumulators, cp.async copies into shared memory and ldmatrix.trans.
+// f32 accumulators, bf16 and fp16 pairs packed from f32, cp.async copies
+// into shared memory and ldmatrix.trans.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4): A (16 x 16,
 // row-major) a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3
@@ -13,7 +14,10 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
   asm volatile(
@@ -27,6 +31,21 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two f32 values rounded to fp16 (nearest even) in one 32-bit register.
+__device__ __forceinline__ uint32_t pack2_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// pack2 of the element type T (__nv_bfloat16 or __half).
+template <typename T>
+__device__ __forceinline__ uint32_t pack2_as(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value)
+    return pack2_f16(lo, hi);
+  else
+    return pack2(lo, hi);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) helpers for kernels that stage tiles through the Tensor
 // Memory Accelerator and multiply them with warpgroup MMAs: mbarriers, 2-D
 // and 3-D TMA loads, 1-D bulk copies, the proxy fence, wgmma shared-memory
-// descriptors, the bf16 wgmma with f32 accumulators (m64n64k16, m64n128k16
-// and m64n256k16 with both operands in shared memory; m64n64k16 and
-// m64n128k16 with A in registers), named barriers, and the host-side
+// descriptors, the bf16 and fp16 wgmma with f32 accumulators (m64n64k16,
+// m64n128k16 and m64n256k16 with both operands in shared memory; m64n64k16
+// and m64n128k16 with A in registers), named barriers, and the host-side
 // encoders of TMA descriptors (reached through the runtime's entry-point
 // lookup, so a library needs no -lcuda).
 // Used by qmm_int8.cu, flash_fwd.cu and flash_bwd.cu.
@@ -21,8 +21,12 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 __device__ __forceinline__ uint32_t sm90_smem(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -154,143 +158,213 @@ __device__ __forceinline__ void named_bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
+// The wgmma shapes below each come in bf16 and fp16 (the element type T of
+// the templates: __nv_bfloat16 or __half). Both read the same fragments,
+// descriptors and transpose bits; only the operand type named in the
+// instruction differs. The *_bf16 names are the bf16 forms.
+
+#define SM90_D32 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+  "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+#define SM90_D64 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+  "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+  "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+  "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), \
+  "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), \
+  "+f"(d[63])
+
+#define SM90_D128 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+  "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+  "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+  "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), \
+  "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), \
+  "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), \
+  "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), \
+  "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
+  "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), \
+  "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), \
+  "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+  "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), \
+  "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), \
+  "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), \
+  "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+
+#define SM90_SS_N64(TY) \
+  asm volatile( \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n" \
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+      "%30, %31" \
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n" \
+      : SM90_D32 \
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B))
+
+#define SM90_SS_N128(TY) \
+  asm volatile( \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n" \
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+      "%58, %59, %60, %61, %62, %63" \
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n" \
+      : SM90_D64 \
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B))
+
+#define SM90_SS_N256(TY) \
+  asm volatile( \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n" \
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, " \
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, " \
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, " \
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, " \
+      "%122, %123, %124, %125, %126, %127" \
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n" \
+      : SM90_D128 \
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B))
+
+#define SM90_RS_N64(TY) \
+  asm volatile( \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n" \
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+      "%30, %31" \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n" \
+      : SM90_D32 \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B))
+
+#define SM90_RS_N128(TY) \
+  asm volatile( \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n" \
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+      "%58, %59, %60, %61, %62, %63" \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n" \
+      : SM90_D64 \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B))
+
+template <typename T>
+__host__ __device__ constexpr bool sm90_is_f16() {
+  return std::is_same<T, __half>::value;
+}
+
 // d[64] (+)= A (64 x 16, K-major, desc a) x B (16 x 128, desc b; MN-major when
 // TRANS_B) in f32; accumulate = 0 overwrites d. Fragment of d: warp w of the
 // warpgroup, lane l: d[4 j + i] is row 16 w + l / 4 + 8 (i / 2), column
 // 8 j + 2 (l % 4) + i % 2.
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n128k16_bf16(float* d, uint64_t a, uint64_t b,
-                                                      int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+template <typename T, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t a, uint64_t b,
+                                                 int accumulate) {
+  if constexpr (sm90_is_f16<T>())
+    SM90_SS_N128("f16");
+  else
+    SM90_SS_N128("bf16");
 }
 
 // d[32] (+)= A (64 x 16) x B (16 x 64): as m64n128k16, half as wide.
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n64k16_bf16(float* d, uint64_t a, uint64_t b,
-                                                     int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+template <typename T, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t a, uint64_t b,
+                                                int accumulate) {
+  if constexpr (sm90_is_f16<T>())
+    SM90_SS_N64("f16");
+  else
+    SM90_SS_N64("bf16");
 }
 
 // d[128] (+)= A (64 x 16) x B (16 x 256): as above, twice as wide; d[4 j + i]
 // is column 8 j + 2 (l % 4) + i % 2 for j < 32.
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n256k16_bf16(float* d, uint64_t a, uint64_t b,
-                                                      int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, %131;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+template <typename T, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t a, uint64_t b,
+                                                 int accumulate) {
+  if constexpr (sm90_is_f16<T>())
+    SM90_SS_N256("f16");
+  else
+    SM90_SS_N256("bf16");
 }
 
 // d (+)= A (64 x 16, in registers) x B (16 x N, desc b; MN-major when
 // TRANS_B) in f32, N = 64 or 128. A's fragment is mma.sync m16n8k16's for
 // each warp's 16 rows: warp w, lane l, g = l / 4, t = l % 4: a[0] = A[16 w +
 // g][2 t .. 2 t + 1], a[1] = A[16 w + g + 8][2 t ..], a[2] = A[16 w + g][2 t +
-// 8 ..], a[3] = A[16 w + g + 8][2 t + 8 ..] (bf16 pairs, low half first). d
+// 8 ..], a[3] = A[16 w + g + 8][2 t + 8 ..] (pairs of T, low half first). d
 // has the SS form's fragment, so d[8 kk .. 8 kk + 7] of one product packs in
 // pairs into a[0..3] of k-slice kk of the next. a must hold until the wgmma
 // retires.
+template <typename T, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a, uint64_t b,
+                                                   int accumulate) {
+  if constexpr (sm90_is_f16<T>())
+    SM90_RS_N64("f16");
+  else
+    SM90_RS_N64("bf16");
+}
+
+template <typename T, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float* d, const uint32_t* a, uint64_t b,
+                                                    int accumulate) {
+  if constexpr (sm90_is_f16<T>())
+    SM90_RS_N128("f16");
+  else
+    SM90_RS_N128("bf16");
+}
+
+// The bf16 forms under their own names.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float* d, uint64_t a, uint64_t b,
+                                                      int accumulate) {
+  wgmma_m64n128k16<__nv_bfloat16, TRANS_B>(d, a, b, accumulate);
+}
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_bf16(float* d, uint64_t a, uint64_t b,
+                                                     int accumulate) {
+  wgmma_m64n64k16<__nv_bfloat16, TRANS_B>(d, a, b, accumulate);
+}
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n256k16_bf16(float* d, uint64_t a, uint64_t b,
+                                                      int accumulate) {
+  wgmma_m64n256k16<__nv_bfloat16, TRANS_B>(d, a, b, accumulate);
+}
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n64k16_bf16_rs(float* d, const uint32_t* a, uint64_t b,
                                                         int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
+  wgmma_m64n64k16_rs<__nv_bfloat16, TRANS_B>(d, a, b, accumulate);
 }
-
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n128k16_bf16_rs(float* d, const uint32_t* a, uint64_t b,
-                                                        int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
+                                                         int accumulate) {
+  wgmma_m64n128k16_rs<__nv_bfloat16, TRANS_B>(d, a, b, accumulate);
+}
+
+// The TMA element type of T.
+template <typename T>
+constexpr CUtensorMapDataType tma_type() {
+  return sm90_is_f16<T>() ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
 // ---- host: TMA descriptors ---------------------------------------------------

@@ -19,19 +19,21 @@ differ in f32 order only.
 
 What bounds it on the H100: tensor-core operations (about 10 * D per
 visible pair and head) against q, k, v, o, do, dq, dk, dv moved once. The
-CUDA launch (``csrc/flash_bwd.cu``) is three kernels: the row statistics (D
-and lse = m + ln l, per row, in the kernel's own launch), a dK/dV pass per
-key block and KV head and a dQ pass per q tile and head, on TMA-fed
-``wgmma``. One call counts as one launch.
+CUDA launch (``csrc/flash_bwd.cu``, bf16 and fp16 at D 64-256) is three
+kernels: the row statistics (D and lse = m + ln l, per row, in the kernel's
+own launch), a dK/dV pass per key block and KV head (at D 192 and 256 two
+warpgroups on the same keys, each on half of dK's and dV's columns) and a
+dQ pass per q tile and head, on TMA-fed ``wgmma``. One call counts as one
+launch.
 
 The entry keeps the JAX entry's head-major layout (q, o, do [B, NH, Tq,
 D], k, v [B, NKV, Tkv, D]), here as any views: the autograd Function passes
 transposed views of the model-layout tensors, which the launch reads
 without a copy. l and m are f32 [B, NH, Tq] (JAX's carry 128 padded lanes;
-the tests compare its column 0). That launch takes bf16 at D 64 and 128;
-the other types and head sizes (``flash_attention.routes``: bf16 at D 192
-and 256, fp16 and f32 at D 64-256, every type past D 256) launch
-``csrc/flash_sync_bwd.cu``, the
+the tests compare its column 0). That launch reads either forward's
+statistics (m of the scaled scores, l the f32 sum against the running
+max); the other types and head sizes (``flash_attention.routes``: f32 at
+every D, bf16 and fp16 past D 256) launch ``csrc/flash_sync_bwd.cu``, the
 simple ``mma.sync`` family (a dQ kernel that also forms D, then a dK/dV
 kernel; one call, one count; past D 256 a block owns a column part and
 streams 64-column panels), which reads the statistics of that family's
@@ -88,7 +90,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("flash_bwd")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.flash_bwd.argtypes = [vp] * 12 + [ci] * 6 + [ctypes.c_float, ci, ci, vp]
+        lib.flash_bwd.argtypes = [vp] * 12 + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
         lib.flash_bwd.restype = ci
         lib._typed = True
     return lib
@@ -142,8 +144,8 @@ def _launch(q, k, v, o, l, m, do, causal: bool, sm_scale: float, kv_offset: int)
     lib = _lib()
     rc = lib.flash_bwd(*(_build.ptr(t) for t in (qm, km, vm, om, dom, lc, mc, lse2, delta, dq, dk,
                                                  dv)),
-                       B, Tq, Tkv, NH, NKV, D, sm_scale, kv_offset, int(causal),
-                       _build.stream_of(q))
+                       B, Tq, Tkv, NH, NKV, D, _build.DTYPE_CODES[q.dtype], sm_scale, kv_offset,
+                       int(causal), _build.stream_of(q))
     _build.check(lib, rc, "flash_bwd")
     flash_attention_bwd.launches += 1
     return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)

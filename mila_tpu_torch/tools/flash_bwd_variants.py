@@ -44,9 +44,9 @@ from mila_tpu_torch.kernels import flash_attention as fa
 from mila_tpu_torch.kernels import flash_attention_bwd as fb
 
 SRC = "flash_bwd.cu"
-DKV_LAUNCH = "  kern<<<dim3(NKV, B, (Tkv + KC::BK - 1) / KC::BK)"
+DKV_LAUNCH = "  kern<<<dim3(c.NKV, c.B, (c.Tkv + KC::BK - 1) / KC::BK)"
 DQ_LAUNCH = "  kern<<<grid, C::THREADS"
-SPLIT_RULE = "const bool split = (long long)B * NKV * ((Tkv + BK - 1) / BK) < 2LL * n_sm;"
+SPLIT_RULE = "const bool split = (long long)c.B * c.NKV * ((c.Tkv + BK - 1) / BK) < 2LL * n_sm;"
 # (file, old, new) edits that drop one part (wrong results: only their
 # times mean anything)
 NO_EX2 = [(SRC, "float p = ex2(fmaf(sc[e], c, -((i & 1) ? ls.y : ls.x)));",
@@ -61,9 +61,14 @@ NO_ELEMENTWISE = [(SRC, "const float* st,\n                                     
                   (SRC, "const float* dl, float scale) {\n",
                    "const float* dl, float scale) {\n  return;\n"),
                   (SRC, "const float* d) {\n", "const float* d) {\n  return;\n")]
-DQ_WARP = "static constexpr bool WARP = D == 64;"
+DQ_WARP = "static constexpr bool WARP = D != 128;"
 SPLIT_TRUE = [(SRC, SPLIT_RULE, "const bool split = true;")]
 SPLIT_FALSE = [(SRC, SPLIT_RULE, "const bool split = false;")]
+# At D 192 and 256 (the COLS block shape): both warpgroups form S^T and dP^T
+# in full (the generic sweep) instead of forming them once and sharing them
+# through shared memory (the committed loop).
+BOTH_ST = [(SRC, "  if constexpr (C::COLS) {\n    // S^T and dP^T formed once",
+            "  if constexpr (false) {\n    // S^T and dP^T formed once")]
 VARIANTS = {  # name -> [(file, old text, new text)]
     "committed": [],
     # one pass at a time (the statistics launch always runs)
@@ -83,15 +88,17 @@ VARIANTS = {  # name -> [(file, old text, new text)]
     "dkv_shared": SPLIT_FALSE,
     # the dQ pass: no turns; a producer warp (288 threads) at both head
     # sizes; none (256 threads) at both
-    "dq_no_turns": [(SRC, "{ named_bar_sync(SCHED + wg, CONSUMERS); }", "{}"),
-                    (SRC, "{ named_bar_arrive(SCHED + 1 - wg, CONSUMERS); }", "{}")],
+    "dq_no_turns": [(SRC, "{ named_bar_sync(SCHED + wg, 256); }", "{}"),
+                    (SRC, "{ named_bar_arrive(SCHED + 1 - wg, 256); }", "{}")],
     "dq_warp": [(SRC, DQ_WARP, "static constexpr bool WARP = true;")],
     "dq_no_warp": [(SRC, DQ_WARP, "static constexpr bool WARP = false;")],
     # the dK/dV pass at D 64: two consumer warpgroups (as at D 128); a
     # ring of 9 stages (3 per warpgroup)
     "dkv_2wg": [(SRC, "NWG = D == 64 ? 3 : 2;", "NWG = 2;"),
-                (SRC, "NT = D == 64 ? 6 : 4;", "NT = D == 64 ? 8 : 4;")],
-    "dkv_nt9": [(SRC, "NT = D == 64 ? 6 : 4;", "NT = D == 64 ? 9 : 4;")],
+                (SRC, "NT = D == 64 ? 6 :", "NT = D == 64 ? 8 :")],
+    "dkv_nt9": [(SRC, "NT = D == 64 ? 6 :", "NT = D == 64 ? 9 :")],
+    # D 192 and 256: S^T and dP^T formed by both warpgroups (BOTH_ST above)
+    "dkv_both_st": BOTH_ST,
 }
 # Whole other sources kept beside this tool, timed like --source ones.
 SOURCE_VARIANTS = {"onepass": Path(__file__).with_name("flash_bwd_onepass.cu")}
@@ -100,8 +107,11 @@ SHAPES = {
     "B8_T1024": (8, 1024, 12, 12, 64),
     "gqa_B2_T2048": (2, 2048, 32, 8, 64),
     "D128_T2048": (1, 2048, 24, 8, 128),
+    "D192_T2048": (1, 2048, 16, 8, 192),
+    "D256_T2048": (1, 2048, 16, 8, 256),
 }
 NEW_ABI = "void* lse2"  # the entry takes the statistics scratch, not D
+DTYPE_ABI = "int D, int dtype"  # the entry takes a type code after D
 
 
 def ptxas_report(log: str) -> dict:
@@ -110,11 +120,12 @@ def ptxas_report(log: str) -> dict:
     SPLIT]>)."""
     out, entry = {}, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?\dflash_bwd_(\w+?)_kernelILi(\d+)E(Lb(\d))?",
-                      ln)
+        m = re.search(r"Compiling entry function '.*?\dflash_bwd_(\w+?)_kernelI"
+                      r"(13__nv_bfloat16|6__half)?Li(\d+)E(Lb(\d))?", ln)
         if m:
-            entry = f"{m.group(1)} D{m.group(2)}" + ("" if m.group(3) is None else
-                                                     " split" if m.group(4) == "1" else " shared")
+            ty = {"6__half": " fp16", None: ""}.get(m.group(2), " bf16")
+            entry = f"{m.group(1)}{ty} D{m.group(3)}" + (
+                "" if m.group(4) is None else " split" if m.group(5) == "1" else " shared")
         elif entry and "spill" in ln:
             out[entry] = ln.strip()
         elif entry and "registers" in ln:
@@ -127,7 +138,8 @@ def ptxas_report(log: str) -> dict:
 def build(names, sources) -> dict:
     """Compile a copy of flash_bwd.cu per variant with its edits applied (or
     the given source), the headers copied beside it, one nvcc each, all at
-    once. Returns name -> (library, takes the statistics scratch)."""
+    once. Returns name -> (library, takes the statistics scratch, takes a
+    type code)."""
     procs = {}
     heads = {f.name: f.read_text() for f in _build.CSRC.glob("*.cuh")}
     for name in [*names, *sources]:
@@ -146,19 +158,19 @@ def build(names, sources) -> dict:
         procs[name] = (subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(vdir / "libflash_bwd.so"),
              str(vdir / SRC)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
-            NEW_ABI in texts[SRC])
+            (NEW_ABI in texts[SRC], DTYPE_ABI in texts[SRC]))
     libs = {}
-    for name, (proc, new_abi) in procs.items():
+    for name, (proc, (new_abi, typed)) in procs.items():
         log = proc.communicate()[0].decode()
         if proc.returncode:
             raise RuntimeError(f"variant {name}: nvcc failed\n{log[-3000:]}")
         print(json.dumps({"variant": name, "ptxas": ptxas_report(log)}), flush=True)
         lib = ctypes.CDLL(str(_build.BUILD_DIR / f"flash_bwd_variant_{name}" / "libflash_bwd.so"))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.flash_bwd.argtypes = [vp] * (12 if new_abi else 10) + [ci] * 6 + [ctypes.c_float, ci,
-                                                                             ci, vp]
+        lib.flash_bwd.argtypes = ([vp] * (12 if new_abi else 10) + [ci] * (7 if typed else 6)
+                                  + [ctypes.c_float, ci, ci, vp])
         lib.flash_bwd.restype = ci
-        libs[name] = (lib, new_abi)
+        libs[name] = (lib, new_abi, typed)
     return libs
 
 
@@ -235,15 +247,16 @@ def main() -> None:
         pairs = B * NH * T * (T + 1) // 2
         row = {"shape": name, "card": torch.cuda.get_device_name(0)}
         call_of = {}
-        for vname, (lib, new_abi) in libs.items():
-            def call(lib=lib, new_abi=new_abi, vname=vname):
+        for vname, (lib, new_abi, typed) in libs.items():
+            def call(lib=lib, new_abi=new_abi, typed=typed, vname=vname):
                 if new_abi:
                     ptrs = (q, k, v, o, do, l, m, lse2, delta, dq, dk, dv)
                 else:  # D by PyTorch, as the wrapper of that design did
                     dl = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
                     ptrs = (q, k, v, do, m, l, dl, dq, dk, dv)
-                rc = lib.flash_bwd(*(_build.ptr(t) for t in ptrs), B, T, T, NH, NKV, D, sm, 0, 1,
-                                   stream)
+                code = (_build.DTYPE_CODES[torch.bfloat16],) if typed else ()
+                rc = lib.flash_bwd(*(_build.ptr(t) for t in ptrs), B, T, T, NH, NKV, D, *code, sm,
+                                   0, 1, stream)
                 if rc:
                     raise RuntimeError(f"{vname}: CUDA error {rc}")
             call_of[vname] = call

@@ -66,7 +66,7 @@ VARIANTS = {  # name -> [(file, old text, new text)]
                            "\"wgmma.wait_group.sync.aligned 0; // nan\\n\" ::: \"memory\"); }\n"
                            "      wgmma_fence_operand<NO>(o);\n      mbar_arrive(&empty[sp]);")],
     # p truncated to bf16 by a byte permute instead of cvt.rn (wrong rounding)
-    "no_cvt": [(SRC, "pa[kk][r] = pack2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);",
+    "no_cvt": [(SRC, "pa[kk][r] = pack2_as<T>(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);",
                 "pa[kk][r] = __byte_perm(__float_as_uint(sc[8 * kk + 2 * r]), "
                 "__float_as_uint(sc[8 * kk + 2 * r + 1]), 0x7632);")],
     # O never rescaled (wrong results)
@@ -117,8 +117,7 @@ def build(names) -> dict:
         print(json.dumps({"variant": name, "ptxas": ptxas}), flush=True)
         lib = ctypes.CDLL(str(_build.BUILD_DIR / f"flash_variant_{name}" / "libflash.so"))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.flash_fwd.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                                  ctypes.c_float, ci, ci, vp]
+        lib.flash_fwd.argtypes = [vp] * 6 + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
         lib.flash_fwd.restype = ci
         libs[name] = lib
     return libs
@@ -173,7 +172,7 @@ def main() -> None:
                 rc = lib.flash_fwd(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
                                    None if l is None else _build.ptr(l),
                                    None if m is None else _build.ptr(m), B, Tq, Tkv, NH, NKV, D,
-                                   sm, off, 1, stream)
+                                   _build.DTYPE_CODES[torch.bfloat16], sm, off, 1, stream)
                 if rc:
                     raise RuntimeError(f"{vname}: CUDA error {rc}")
             for t in (out, l, m):  # nothing left over from the variant before

@@ -7,8 +7,9 @@ runs its Pallas kernel in interpret mode, tile by tile with the online
 softmax. Same seeded numpy inputs on both sides, causal, GQA with NKV 4, 2
 and 1 under NH 4, D 64 and 128 (and 192, 256 and 320 at one shape), f32,
 bf16 and fp16, a ``kv_offset`` window (Tq 128 over Tkv 512), the gate's
-fallback shape, ``flash_mha_qkv``, and the routing of
-``resolve_attention_impl`` / ``attention``.
+fallback shape, ``flash_mha_qkv``, the routing of
+``resolve_attention_impl`` / ``attention``, and the kernel family each
+type and head size takes on the card (``routes``).
 
 Tolerances: f32 inputs differ by summation order and by the online
 rescaling only (1e-5 of the output's largest value); bf16 inputs also
@@ -77,6 +78,31 @@ def test_flash_attention_wide_heads_match_jax(D, dt):
     got = tfa.flash_attention(q, k, v, causal=True)
     assert tfa.flash_attention_plain.calls == before + 1
     _close(got, want, dt)
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.float16, 64, ("wgmma", "wgmma")),
+    (torch.float16, 128, ("wgmma", "wgmma")),
+    (torch.bfloat16, 64, ("wgmma", "wgmma")),
+    (torch.bfloat16, 256, ("sync", "wgmma")),
+    (torch.float16, 192, ("sync", "wgmma")),
+    (torch.float32, 64, ("sync", "sync")),
+    (torch.float32, 256, ("sync", "sync")),
+    (torch.bfloat16, 320, ("sync", "sync")),
+    (torch.float32, 1024, ("sync", "sync")),
+])
+def test_routes_by_type_and_head_size(dtype, D, want):
+    # The card's kernel family of the forward and of the backward: the
+    # wgmma kernels take bf16 and fp16, the forward at D 64 and 128, the
+    # backward up to 256; the mma.sync family the rest of the gate.
+    assert tfa.routes(dtype, D) == want
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float64, 64), (torch.bfloat16, 96),
+                                     (torch.float32, 0)])
+def test_routes_refuse_what_no_kernel_takes(dtype, D):
+    with pytest.raises(NotImplementedError):
+        tfa.routes(dtype, D)
 
 
 @pytest.mark.parametrize("dt", [jnp.float32, jnp.bfloat16])

@@ -1307,12 +1307,14 @@ def test_int4_decode_entries_route_to_the_int4_kernel(cuda):
     (3, 208, 384, 4, 2, 128, 176, True),
     (8, 1024, 1024, 12, 12, 64, 0, True),  # GPT-2's training shape
 ])
-def test_flash_kernel(cuda, B, Tq, Tkv, NH, NKV, D, off, causal):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_kernel(cuda, B, Tq, Tkv, NH, NKV, D, off, causal, dtype):
     from mila_tpu_torch.kernels import flash_attention as fa
 
-    q = _rand((B, Tq, NH, D), 48)
-    k = _rand((B, Tkv, NKV, D), 49)
-    v = _rand((B, Tkv, NKV, D), 50)
+    assert fa.routes(dtype, D)[0] == "wgmma"
+    q = _rand((B, Tq, NH, D), 48, dtype=dtype)
+    k = _rand((B, Tkv, NKV, D), 49, dtype=dtype)
+    v = _rand((B, Tkv, NKV, D), 50, dtype=dtype)
     before = fa.flash_attention.launches
     got = fa.flash_attention(q, k, v, causal=causal, kv_offset=off)
     torch.cuda.synchronize()
@@ -1333,15 +1335,17 @@ def test_flash_kernel(cuda, B, Tq, Tkv, NH, NKV, D, off, causal):
     (3, 208, 4, 2, 64, 176, True),  # ragged q tiles, kv_offset (Tkv 384)
     (2, 256, 8, 2, 128, 0, False),
 ])
-def test_flash_stats_kernel(cuda, B, T, NH, NKV, D, off, causal):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_stats_kernel(cuda, B, T, NH, NKV, D, off, causal, dtype):
     # The statistics launch's l and m against the plain version's at
     # chip_smoke's limits: l within 1e-4 relative (f32 sums in another
     # order), m within 1e-3 absolute (the max of the scaled scores, m in
     # natural units though the kernel works in base 2).
     from mila_tpu_torch.kernels import flash_attention as fa
 
-    q = _rand((B, T, NH, D), 100)
-    k, v = _rand((B, T + off, NKV, D), 101), _rand((B, T + off, NKV, D), 102)
+    q = _rand((B, T, NH, D), 100, dtype=dtype)
+    k = _rand((B, T + off, NKV, D), 101, dtype=dtype)
+    v = _rand((B, T + off, NKV, D), 102, dtype=dtype)
     sm = D ** -0.5
     o, l, m = fa.flash_attention_forward(q, k, v, causal=causal, sm_scale=sm, kv_offset=off)
     o_ref, l_ref, m_ref = fa.flash_attention_plain(q, k, v, causal=causal, scale=sm,
@@ -1352,16 +1356,19 @@ def test_flash_stats_kernel(cuda, B, T, NH, NKV, D, off, causal):
     assert (m - m_ref).abs().max().item() <= 1e-3
 
 
-def test_flash_kernel_graph_replay_and_determinism(cuda):
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128), (torch.float16, 64),
+                                     (torch.float16, 128)])
+def test_flash_kernel_graph_replay_and_determinism(cuda, dtype, D):
     # One call captured in a CUDA graph (the TMA descriptors are kernel
     # parameters, encoded at capture); q, k, v rewritten in place, then the
     # replay equals an eager call on the new values bit for bit. Two eager
     # launches on the same inputs are bit-equal (no atomics, a fixed order).
     from mila_tpu_torch.kernels import flash_attention as fa
 
-    shape_q, shape_kv = (2, 384, 8, 128), (2, 512, 2, 128)
-    q, k, v = _rand(shape_q, 103), _rand(shape_kv, 104), _rand(shape_kv, 105)
-    sm = 128 ** -0.5
+    shape_q, shape_kv = (2, 384, 8, D), (2, 512, 2, D)
+    q, k, v = (_rand(sh, s, dtype=dtype) for sh, s in ((shape_q, 103), (shape_kv, 104),
+                                                      (shape_kv, 105)))
+    sm = D ** -0.5
     first = fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm, kv_offset=128)
     again = fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm, kv_offset=128)
     for a, b in zip(first, again):
@@ -1370,9 +1377,9 @@ def test_flash_kernel_graph_replay_and_determinism(cuda):
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
         graphed = fa.flash_attention(q, k, v, kv_offset=128)
-    q.copy_(_rand(shape_q, 106))
-    k.copy_(_rand(shape_kv, 107))
-    v.copy_(_rand(shape_kv, 108))
+    q.copy_(_rand(shape_q, 106, dtype=dtype))
+    k.copy_(_rand(shape_kv, 107, dtype=dtype))
+    v.copy_(_rand(shape_kv, 108, dtype=dtype))
     g.replay()
     torch.cuda.synchronize()
     eager = fa.flash_attention(q, k, v, kv_offset=128)
@@ -1491,7 +1498,8 @@ def _row_err(got, want, floor=1e-3):
     (4, 1088, 1088, 12, 12, 64, 0, True),  # 192-key dK/dV blocks, the last one 2/3 full
     (2, 448, 1088, 16, 16, 128, 640, True),  # 128-key blocks at D 128, a kv_offset window
 ])
-def test_flash_bwd_kernel(cuda, B, Tq, Tkv, NH, NKV, D, off, causal):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_bwd_kernel(cuda, B, Tq, Tkv, NH, NKV, D, off, causal, dtype):
     # The statistics launch against the plain forward, then the backward
     # kernel against its plain version on the same (q, k, v, o, l, m, do).
     # Gate: each (b, t, head) row within 2e-2 of its own largest value (a
@@ -1501,8 +1509,11 @@ def test_flash_bwd_kernel(cuda, B, Tq, Tkv, NH, NKV, D, off, causal):
     from mila_tpu_torch.kernels import flash_attention as fa
     from mila_tpu_torch.kernels import flash_attention_bwd as fb
 
-    q, k, v = _rand((B, Tq, NH, D), 60), _rand((B, Tkv, NKV, D), 61), _rand((B, Tkv, NKV, D), 62)
-    do = _rand((B, Tq, NH, D), 63)
+    assert fa.routes(dtype, D) == ("wgmma", "wgmma")
+    q, k, v = (_rand(sh, s, dtype=dtype) for sh, s in (((B, Tq, NH, D), 60),
+                                                      ((B, Tkv, NKV, D), 61),
+                                                      ((B, Tkv, NKV, D), 62)))
+    do = _rand((B, Tq, NH, D), 63, dtype=dtype)
     sm = D ** -0.5
     o_ref, l_ref, m_ref = fa.flash_attention_plain(q, k, v, causal=causal, scale=sm,
                                                    kv_offset=off, save_stats=True)
@@ -1534,13 +1545,6 @@ _SYNC_CASES = [  # (dtype, D, B, Tq, Tkv, NH, NKV, kv_offset, causal)
     (torch.float32, 128, 2, 256, 384, 8, 2, 128, True),
     (torch.float32, 192, 1, 208, 256, 4, 2, 48, True),  # a ragged q tile
     (torch.float32, 256, 2, 256, 256, 4, 1, 0, False),
-    (torch.bfloat16, 192, 1, 512, 512, 8, 2, 0, True),
-    (torch.bfloat16, 256, 2, 208, 384, 4, 2, 176, True),
-    (torch.bfloat16, 256, 1, 2048, 2048, 16, 8, 0, True),  # chip_smoke's D 256 row
-    (torch.float16, 64, 8, 1024, 1024, 12, 12, 0, True),  # GPT-2 in fp16
-    (torch.float16, 128, 2, 256, 256, 8, 2, 0, False),
-    (torch.float16, 192, 1, 128, 512, 4, 1, 384, True),
-    (torch.float16, 256, 2, 256, 384, 4, 2, 128, True),
     # Past D 256 (column parts, 64-column panels): a partial last part of
     # O and dQ at D 320 in 16-bit (128 + 128 + 64 columns), ragged q tiles,
     # kv_offset windows, not causal, and f32 at D 1024 on a small T.
@@ -1552,21 +1556,28 @@ _SYNC_CASES = [  # (dtype, D, B, Tq, Tkv, NH, NKV, kv_offset, causal)
     (torch.float32, 512, 1, 208, 384, 4, 2, 176, True),
     (torch.float32, 1024, 1, 128, 128, 2, 1, 0, True),
 ]
+# bf16 and fp16 at D 192 and 256: the mma.sync forward, the wgmma backward
+# on its statistics.
+_SYNC_FWD_CASES = [
+    (torch.bfloat16, 192, 1, 512, 512, 8, 2, 0, True),
+    (torch.bfloat16, 256, 2, 208, 384, 4, 2, 176, True),
+    (torch.bfloat16, 256, 1, 2048, 2048, 16, 8, 0, True),  # chip_smoke's D 256 row
+    (torch.float16, 192, 1, 128, 512, 4, 1, 384, True),
+    (torch.float16, 256, 2, 256, 384, 4, 2, 128, True),
+    (torch.float16, 256, 2, 256, 256, 8, 2, 0, False),
+]
 
 
-@pytest.mark.parametrize("dtype,D,B,Tq,Tkv,NH,NKV,off,causal", _SYNC_CASES)
-def test_flash_sync_kernels(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
-    # The mma.sync family (what the wgmma kernels do not take): the forward
-    # with its statistics against the plain version, then the backward on
-    # them against its plain version. Gate: each (b, t, head) row within
-    # 2e-2 of its own largest value, 5e-3 for f32 (its products run on tf32
-    # operands, 10 mantissa bits, about 2^-11 of each product; bf16
-    # operands would miss it). l and m as test_flash_stats_kernel holds
-    # them (1e-4 relative, 1e-3 absolute), but 1e-2 both for f32.
+def _sync_forward_then_backward(dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
+    # The mma.sync forward with its statistics against the plain version,
+    # then the backward on them against its plain version. Gate: each (b,
+    # t, head) row within 2e-2 of its own largest value, 5e-3 for f32 (its
+    # products run on tf32 operands, 10 mantissa bits, about 2^-11 of each
+    # product; bf16 operands would miss it). l and m as test_flash_stats_kernel
+    # holds them (1e-4 relative, 1e-3 absolute), but 1e-2 both for f32.
     from mila_tpu_torch.kernels import flash_attention as fa
     from mila_tpu_torch.kernels import flash_attention_bwd as fb
 
-    assert fa.routes(dtype, D) == ("sync", "sync")
     q = _rand((B, Tq, NH, D), 170, dtype=dtype)
     k, v = _rand((B, Tkv, NKV, D), 171, dtype=dtype), _rand((B, Tkv, NKV, D), 172, dtype=dtype)
     do = _rand((B, Tq, NH, D), 173, dtype=dtype)
@@ -1593,8 +1604,28 @@ def test_flash_sync_kernels(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
         assert err <= row_tol, f"{name}: worst row's relative err {err}"
 
 
-@pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.bfloat16, 256),
-                                     (torch.float16, 128)])
+@pytest.mark.parametrize("dtype,D,B,Tq,Tkv,NH,NKV,off,causal", _SYNC_CASES)
+def test_flash_sync_kernels(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
+    # The mma.sync family both ways (what the wgmma kernels do not take).
+    from mila_tpu_torch.kernels import flash_attention as fa
+
+    assert fa.routes(dtype, D) == ("sync", "sync")
+    _sync_forward_then_backward(dtype, D, B, Tq, Tkv, NH, NKV, off, causal)
+
+
+@pytest.mark.parametrize("dtype,D,B,Tq,Tkv,NH,NKV,off,causal", _SYNC_FWD_CASES)
+def test_flash_wgmma_bwd_on_sync_stats(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
+    # The wgmma backward at D 192 and 256 reads the mma.sync forward's l
+    # and m: the two families define them alike (m of the scaled scores, l
+    # the f32 sum against the running max).
+    from mila_tpu_torch.kernels import flash_attention as fa
+
+    assert fa.routes(dtype, D) == ("sync", "wgmma")
+    _sync_forward_then_backward(dtype, D, B, Tq, Tkv, NH, NKV, off, causal)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.float32, 320),
+                                     (torch.bfloat16, 320), (torch.float16, 512)])
 def test_flash_sync_graph_replay_and_determinism(cuda, dtype, D):
     # The mma.sync family: two forward + backward calls on the same inputs
     # are bit-equal (no atomics), and a captured forward + backward
@@ -1602,6 +1633,7 @@ def test_flash_sync_graph_replay_and_determinism(cuda, dtype, D):
     from mila_tpu_torch.kernels import flash_attention as fa
     from mila_tpu_torch.kernels import flash_attention_bwd as fb
 
+    assert fa.routes(dtype, D) == ("sync", "sync")
     sq, skv = (2, 384, 8, D), (2, 512, 2, D)
     q, k, v, do = (_rand(sh, s, dtype=dtype) for sh, s in ((sq, 180), (skv, 181), (skv, 182),
                                                           (sq, 183)))
@@ -1628,22 +1660,28 @@ def test_flash_sync_graph_replay_and_determinism(cuda, dtype, D):
         assert torch.equal(a, b)
 
 
-def test_flash_bwd_kernel_graph_replay_and_determinism(cuda):
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128), (torch.float16, 64),
+                                     (torch.float16, 128), (torch.bfloat16, 192),
+                                     (torch.bfloat16, 256), (torch.float16, 192),
+                                     (torch.float16, 256)])
+def test_flash_bwd_kernel_graph_replay_and_determinism(cuda, dtype, D):
     # Two calls on the same inputs are bit-equal (no atomics: every sum is
     # taken in a fixed order inside one block). One call captured in a CUDA
     # graph (the TMA descriptors are kernel parameters, the statistics
     # scratch comes from the graph's pool); q, k, v, o, do, l, m rewritten
     # in place, then the replay equals an eager call on the new values bit
-    # for bit.
+    # for bit. Every wgmma instantiation: bf16 and fp16 at D 64-256.
     from mila_tpu_torch.kernels import flash_attention as fa
     from mila_tpu_torch.kernels import flash_attention_bwd as fb
 
-    B, T, Tkv, NH, NKV, D, off = 2, 192, 320, 8, 2, 128, 128
+    B, T, Tkv, NH, NKV, off = 2, 192, 320, 8, 2, 128
     sm = D ** -0.5
+    assert fa.routes(dtype, D)[1] == "wgmma"
 
     def inputs(seed):  # o, l, m from the plain forward: the kernel's takes Tkv % 128 only
-        q, do = _rand((B, T, NH, D), seed), _rand((B, T, NH, D), seed + 1)
-        k, v = _rand((B, Tkv, NKV, D), seed + 2), _rand((B, Tkv, NKV, D), seed + 3)
+        q, do = _rand((B, T, NH, D), seed, dtype=dtype), _rand((B, T, NH, D), seed + 1, dtype=dtype)
+        k = _rand((B, Tkv, NKV, D), seed + 2, dtype=dtype)
+        v = _rand((B, Tkv, NKV, D), seed + 3, dtype=dtype)
         o, l, m = fa.flash_attention_plain(q, k, v, causal=True, scale=sm, kv_offset=off,
                                            save_stats=True)
         return q, k, v, o, l, m, do
@@ -1695,13 +1733,14 @@ def test_flash_bwd_kernel_copies_an_unaligned_view(cuda):
         assert _row_err(a.transpose(1, 2), b.transpose(1, 2)) <= 2e-2
 
 
-def test_flash_autograd_matches_plain_autograd(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_autograd_matches_plain_autograd(cuda, dtype):
     # torch.autograd.grad through the kernels against autograd through the
     # plain forward (PyTorch differentiating its einsums), GPT-2's head size.
     from mila_tpu_torch.kernels import flash_attention as fa
 
-    q, k, v = (_rand((2, 256, 4, 64), s).requires_grad_() for s in (64, 65, 66))
-    w = _rand((2, 256, 4, 64), 67)
+    q, k, v = (_rand((2, 256, 4, 64), s, dtype=dtype).requires_grad_() for s in (64, 65, 66))
+    w = _rand((2, 256, 4, 64), 67, dtype=dtype)
     got = torch.autograd.grad((fa.flash_attention(q, k, v).float() * w.float()).sum(), (q, k, v))
     want = torch.autograd.grad(
         (fa.flash_attention_plain(q, k, v).float() * w.float()).sum(), (q, k, v))
