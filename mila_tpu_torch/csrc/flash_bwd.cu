@@ -510,16 +510,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_const
       wgmma_fence_operand<NO>(dv);
       wgmma_fence_operand<NO>(dk);
       wgmma_fence();
-      // dV += P^T dO, dK += dS^T Q on the warpgroup's columns (panels from cw).
-      const unsigned char* ot = os + s * Q_TILE + (cw / 64) * PANEL64;
-      const unsigned char* qt = qs + s * Q_TILE + (cw / 64) * PANEL64;
-      if (C::NC1 != C::NC0 && wg) {
-        issue_ab<T, C::NC1>(dv, pa, ot, PANEL64);
-        issue_ab<T, C::NC1>(dk, da, qt, PANEL64);
-      } else {
-        issue_ab<T, C::NC0>(dv, pa, ot, PANEL64);
-        issue_ab<T, C::NC0>(dk, da, qt, PANEL64);
-      }
+      issue_ab<T, D>(dv, pa, os + s * Q_TILE, PANEL64);  // dV += P^T dO
+      issue_ab<T, D>(dk, da, qs + s * Q_TILE, PANEL64);  // dK += dS^T Q
       wgmma_wait<0>();
       wgmma_fence_operand<NO>(dv);
       wgmma_fence_operand<NO>(dk);

@@ -231,23 +231,6 @@ struct Tile {
   static constexpr int RS = D + Ops<T>::PAD;  // elements a shared row
 };
 
-// Rows [r0, r0 + n) of one head of a [.., T, H, D] tensor (row stride
-// `stride` elements) into a shared tile of n rows x RS by 16-byte cp.async;
-// rows at or past T are zero-filled.
-template <typename T, int D, int RS>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, size_t stride, int r0, int n,
-                                          int T_, int tid) {
-  constexpr int PER = 16 / (int)sizeof(T);  // elements a 16-byte chunk
-  constexpr int CPR = D / PER;              // chunks a row
-  for (int i = tid; i < n * CPR; i += THREADS) {
-    const int r = i / CPR, c = (i % CPR) * PER;
-    if (r0 + r < T_)
-      cp_async16(dst + r * RS + c, src + (size_t)(r0 + r) * stride + c);
-    else
-      *reinterpret_cast<uint4*>(dst + r * RS + c) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
 // The kernels past D 256 (fwd_wide, dq_wide, dkv_wide): a block owns DC
 // columns of its output (O, dQ, or dK and dV; the last part of a row D -
 // c0 of them when D % DC != 0). S and dP sum over all of D, their operands
@@ -266,9 +249,9 @@ struct Wide {
 };
 
 // Rows [r0, r0 + n) and the first w columns (a multiple of 16 bytes) of a
-// [.., T, H, D] tensor seen from `src` (row stride `stride` elements) into a
-// shared tile of n rows x RS by 16-byte cp.async; rows at or past T are
-// zero-filled.
+// [.., T, H, D] tensor seen from `src` (row stride `stride` elements; w = D
+// for a whole head) into a shared tile of n rows x RS by 16-byte cp.async;
+// rows at or past T are zero-filled.
 template <typename T, int RS>
 __device__ __forceinline__ void load_block(T* dst, const T* src, size_t stride, int r0, int n,
                                            int w, int T_, int tid) {

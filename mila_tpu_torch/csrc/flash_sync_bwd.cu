@@ -160,12 +160,12 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Args<T> a) {
     n_kv = last < 0 ? 0 : min(n_kv, last / BKV + 1);
   }
   auto load_kv = [&](int buf, int j) {
-    load_rows<T, D, RS>(Ks + buf * BKV * RS, a.k + koff, kstride, j * BKV, BKV, a.Tkv, tid);
-    load_rows<T, D, RS>(Vs + buf * BKV * RS, a.v + koff, kstride, j * BKV, BKV, a.Tkv, tid);
+    load_block<T, RS>(Ks + buf * BKV * RS, a.k + koff, kstride, j * BKV, BKV, D, a.Tkv, tid);
+    load_block<T, RS>(Vs + buf * BKV * RS, a.v + koff, kstride, j * BKV, BKV, D, a.Tkv, tid);
     cp_async_commit();
   };
-  load_rows<T, D, RS>(Qs, a.q + qoff, qstride, q0, BQ, a.Tq, tid);
-  load_rows<T, D, RS>(Os, a.dout + qoff, qstride, q0, BQ, a.Tq, tid);
+  load_block<T, RS>(Qs, a.q + qoff, qstride, q0, BQ, D, a.Tq, tid);
+  load_block<T, RS>(Os, a.dout + qoff, qstride, q0, BQ, D, a.Tq, tid);
   cp_async_commit();
   if (n_kv > 0) load_kv(0, 0);
   if (n_kv > 0)
@@ -285,8 +285,8 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Args<T> a) {
   const size_t qstride = (size_t)a.NH * D, kstride = (size_t)a.NKV * D;
   const size_t koff = (size_t)b * a.Tkv * kstride + (size_t)hk * D;
 
-  load_rows<T, D, RS>(Ks, a.k + koff, kstride, k0, KB, a.Tkv, tid);
-  load_rows<T, D, RS>(Vs, a.v + koff, kstride, k0, KB, a.Tkv, tid);
+  load_block<T, RS>(Ks, a.k + koff, kstride, k0, KB, D, a.Tkv, tid);
+  load_block<T, RS>(Vs, a.v + koff, kstride, k0, KB, D, a.Tkv, tid);
   cp_async_commit();
 
   // The q tiles that see key k0 or later: from the tile holding query
@@ -301,8 +301,8 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Args<T> a) {
     const int h = hk * G + it / per_head;
     const int q0 = (i0 + it % per_head) * BQD;
     const size_t qoff = (size_t)b * a.Tq * qstride + (size_t)h * D;
-    load_rows<T, D, RS>(Qs + buf * BQD * RS, a.q + qoff, qstride, q0, BQD, a.Tq, tid);
-    load_rows<T, D, RS>(Os + buf * BQD * RS, a.dout + qoff, qstride, q0, BQD, a.Tq, tid);
+    load_block<T, RS>(Qs + buf * BQD * RS, a.q + qoff, qstride, q0, BQD, D, a.Tq, tid);
+    load_block<T, RS>(Os + buf * BQD * RS, a.dout + qoff, qstride, q0, BQD, D, a.Tq, tid);
     if (tid < BQD) {
       float* st = St + buf * 3 * BQD;
       const int row = q0 + tid;

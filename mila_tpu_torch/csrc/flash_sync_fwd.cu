@@ -121,11 +121,11 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     n_kv = last < 0 ? 0 : min(n_kv, last / BKV + 1);
   }
   auto load_kv = [&](int buf, int j) {
-    load_rows<T, D, RS>(Ks + buf * BKV * RS, kb, kstride, j * BKV, BKV, Tkv, tid);
-    load_rows<T, D, RS>(Vs + buf * BKV * RS, vb, kstride, j * BKV, BKV, Tkv, tid);
+    load_block<T, RS>(Ks + buf * BKV * RS, kb, kstride, j * BKV, BKV, D, Tkv, tid);
+    load_block<T, RS>(Vs + buf * BKV * RS, vb, kstride, j * BKV, BKV, D, Tkv, tid);
     cp_async_commit();
   };
-  load_rows<T, D, RS>(Qs, qb, qstride, q0, BQ, Tq, tid);
+  load_block<T, RS>(Qs, qb, qstride, q0, BQ, D, Tq, tid);
   if (n_kv > 0)
     load_kv(0, 0);  // one group with Q
   else

@@ -136,9 +136,9 @@ __device__ __forceinline__ void convert_stage(const unsigned char* w8s, unsigned
 template <int BN>
 __device__ __forceinline__ void wgmma_bf16(float* d, uint64_t a, uint64_t b, int accumulate) {
   if constexpr (BN == 256)
-    wgmma_m64n256k16_bf16<1>(d, a, b, accumulate);
+    wgmma_m64n256k16<__nv_bfloat16, 1>(d, a, b, accumulate);
   else
-    wgmma_m64n128k16_bf16<1>(d, a, b, accumulate);
+    wgmma_m64n128k16<__nv_bfloat16, 1>(d, a, b, accumulate);
 }
 
 template <typename TO, bool BLOCKWISE, int BN>

@@ -161,7 +161,7 @@ __device__ __forceinline__ void named_bar_arrive(int id, int n) {
 // The wgmma shapes below each come in bf16 and fp16 (the element type T of
 // the templates: __nv_bfloat16 or __half). Both read the same fragments,
 // descriptors and transpose bits; only the operand type named in the
-// instruction differs. The *_bf16 names are the bf16 forms.
+// instruction differs.
 
 #define SM90_D32 \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
@@ -332,33 +332,6 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float* d, const uint32_t* a,
     SM90_RS_N128("f16");
   else
     SM90_RS_N128("bf16");
-}
-
-// The bf16 forms under their own names.
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n128k16_bf16(float* d, uint64_t a, uint64_t b,
-                                                      int accumulate) {
-  wgmma_m64n128k16<__nv_bfloat16, TRANS_B>(d, a, b, accumulate);
-}
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n64k16_bf16(float* d, uint64_t a, uint64_t b,
-                                                     int accumulate) {
-  wgmma_m64n64k16<__nv_bfloat16, TRANS_B>(d, a, b, accumulate);
-}
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n256k16_bf16(float* d, uint64_t a, uint64_t b,
-                                                      int accumulate) {
-  wgmma_m64n256k16<__nv_bfloat16, TRANS_B>(d, a, b, accumulate);
-}
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n64k16_bf16_rs(float* d, const uint32_t* a, uint64_t b,
-                                                        int accumulate) {
-  wgmma_m64n64k16_rs<__nv_bfloat16, TRANS_B>(d, a, b, accumulate);
-}
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n128k16_bf16_rs(float* d, const uint32_t* a, uint64_t b,
-                                                         int accumulate) {
-  wgmma_m64n128k16_rs<__nv_bfloat16, TRANS_B>(d, a, b, accumulate);
 }
 
 // The TMA element type of T.

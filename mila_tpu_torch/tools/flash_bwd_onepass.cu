@@ -89,8 +89,8 @@ __device__ __forceinline__ void issue_abt(float* acc, const unsigned char* a, in
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int p = kk / 4, off = 32 * (kk % 4);
-    wgmma_m64n64k16_bf16<0>(acc, wgmma_desc(a + p * a_panel + off, 16, 1024),
-                            wgmma_desc(b + p * b_panel + off, 16, 1024), kk > 0);
+    wgmma_m64n64k16<__nv_bfloat16, 0>(acc, wgmma_desc(a + p * a_panel + off, 16, 1024),
+                                      wgmma_desc(b + p * b_panel + off, 16, 1024), kk > 0);
   }
   wgmma_commit();
 }
@@ -105,9 +105,9 @@ __device__ __forceinline__ void issue_ab(float* acc, const uint32_t (*a)[4],
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t bd = wgmma_desc(b + 2048 * kk, b_panel, 1024);
     if constexpr (D == 64)
-      wgmma_m64n64k16_bf16_rs<1>(acc, a[kk], bd, 1);
+      wgmma_m64n64k16_rs<__nv_bfloat16, 1>(acc, a[kk], bd, 1);
     else
-      wgmma_m64n128k16_bf16_rs<1>(acc, a[kk], bd, 1);
+      wgmma_m64n128k16_rs<__nv_bfloat16, 1>(acc, a[kk], bd, 1);
   }
   wgmma_commit();
 }

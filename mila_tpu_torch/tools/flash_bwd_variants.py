@@ -65,10 +65,22 @@ DQ_WARP = "static constexpr bool WARP = D != 128;"
 SPLIT_TRUE = [(SRC, SPLIT_RULE, "const bool split = true;")]
 SPLIT_FALSE = [(SRC, SPLIT_RULE, "const bool split = false;")]
 # At D 192 and 256 (the COLS block shape): both warpgroups form S^T and dP^T
-# in full (the generic sweep) instead of forming them once and sharing them
-# through shared memory (the committed loop).
+# in full (the generic sweep, each warpgroup's dV and dK on its own columns)
+# instead of forming them once and sharing them through shared memory (the
+# committed loop).
 BOTH_ST = [(SRC, "  if constexpr (C::COLS) {\n    // S^T and dP^T formed once",
-            "  if constexpr (false) {\n    // S^T and dP^T formed once")]
+            "  if constexpr (false) {\n    // S^T and dP^T formed once"),
+           (SRC, "      issue_ab<T, D>(dv, pa, os + s * Q_TILE, PANEL64);  // dV += P^T dO\n"
+                 "      issue_ab<T, D>(dk, da, qs + s * Q_TILE, PANEL64);  // dK += dS^T Q",
+            "      const unsigned char* ot = os + s * Q_TILE + (cw / 64) * PANEL64;\n"
+            "      const unsigned char* qt = qs + s * Q_TILE + (cw / 64) * PANEL64;\n"
+            "      if (C::NC1 != C::NC0 && wg) {\n"
+            "        issue_ab<T, C::NC1>(dv, pa, ot, PANEL64);\n"
+            "        issue_ab<T, C::NC1>(dk, da, qt, PANEL64);\n"
+            "      } else {\n"
+            "        issue_ab<T, C::NC0>(dv, pa, ot, PANEL64);\n"
+            "        issue_ab<T, C::NC0>(dk, da, qt, PANEL64);\n"
+            "      }")]
 VARIANTS = {  # name -> [(file, old text, new text)]
     "committed": [],
     # one pass at a time (the statistics launch always runs)
