@@ -81,9 +81,9 @@ exits non-zero without the final line):
            128; GPT-2's shape in f32 (the mma.sync family) and fp16
            (wgmma), where f32 and fp16 also hold the forward without
            statistics, evaluate's; T 2048, NH 16/8 at D 192 and 256 in bf16
-           and fp16 (the mma.sync forward, the wgmma backward), at D 320 in
-           bf16 and f32 and at D 512 in bf16 (the mma.sync family's column
-           parts); every row
+           (the mma.sync forward, the wgmma backward), at D 320 in bf16 and
+           f32 and at D 512 in bf16 (the mma.sync family's column parts),
+           these off the model paths timed on the device alone; every row
            names its family; row errors within 5e-3 of the row's max in f32,
            2e-2 otherwise;
            beside SDPA's forward, its
@@ -1757,7 +1757,7 @@ def phase_train_kernels(bw, peak_ops, rng):
     # m within 1e-4 / 1e-3 of the plain version's. Library: SDPA forward;
     # SDPA's backward alone; SDPA forward + backward through autograd beside
     # ours (fwd_bwd_ms).
-    def flash_rows(B, T, NH, NKV, D, draw, dtype=bf16, plain_entry=False):
+    def flash_rows(B, T, NH, NKV, D, draw, dtype=bf16, plain_entry=False, device_only=False):
         sm = D ** -0.5
         tag = {bf16: "bf16", torch.float32: "f32", torch.float16: "fp16"}[dtype]
         shape = f"B={B} T={T} NH={NH} NKV={NKV} D={D}" + ("" if dtype == bf16 else f" {tag}")
@@ -1843,8 +1843,13 @@ def phase_train_kernels(bw, peak_ops, rng):
         def library_bwd():
             return torch.autograd.grad(s_out, s_leaves, dos, retain_graph=True)
 
-        library_bwd_ms = time_back_to_back(library_bwd)
         library_bwd_device_ms = device_ms(library_bwd)
+        # device_only (rows no model path launches): the profiler's device
+        # times and the graph replay alone, SDPA's device time as the library's.
+        timed = {} if device_only else {
+            "library_bwd_ms": time_back_to_back(library_bwd),
+            "bwd_back_to_back_ms": time_back_to_back(ours_bwd),
+            "fwd_bwd_ms": time_eager(ours), "library_fwd_bwd_ms": time_eager(library)}
         del s_out
         record("flash_attention_bwd", shape, max(e for e, _ in abs_errs),
                max(r for _, r in abs_errs), [ours_bwd],
@@ -1853,14 +1858,13 @@ def phase_train_kernels(bw, peak_ops, rng):
                None, es * (4 * q.numel() + 4 * k.numel()) + 2 * 4 * B * NH * T, 10 * D * pairs,
                gate=f"each (b, t, head) row of dq, dk, dv within {tol} of its max |ref| "
                     "(floored at 1e-3 of the tensor's)",
-               library_timed=library_bwd_ms,
+               library_timed=library_bwd_device_ms if device_only else timed["library_bwd_ms"],
                library_what="SDPA is_causal backward alone (autograd.grad on one saved "
-                            "forward), 20 back-to-back calls between CUDA events",
-               row_rel_errs=errs, library_bwd_ms=library_bwd_ms,
-               bwd_back_to_back_ms=time_back_to_back(ours_bwd),
-               library_bwd_device_ms=library_bwd_device_ms, bwd_device_ms=device_ms(ours_bwd),
-               fwd_bwd_ms=time_eager(ours), library_fwd_bwd_ms=time_eager(library), dtype=tag,
-               family=fa.routes(dtype, D)[1], peak=peak)
+                            "forward), " + ("device time from the profiler" if device_only else
+                                            "20 back-to-back calls between CUDA events"),
+               row_rel_errs=errs, library_bwd_device_ms=library_bwd_device_ms,
+               bwd_device_ms=device_ms(ours_bwd), dtype=tag, family=fa.routes(dtype, D)[1],
+               peak=peak, **timed)
         rows[-1]["tflops"] = 10 * D * pairs / rows[-1]["ms"] / 1e9
 
     for B, T, NH, NKV, D in ((8, 1024, 12, 12, 64), (2, 2048, 32, 8, 64), (1, 2048, 24, 8, 128)):
@@ -1878,20 +1882,17 @@ def phase_train_kernels(bw, peak_ops, rng):
 
     flash_rows(8, 1024, 12, 12, 64, draw, torch.float32, plain_entry=True)
     for D in (192, 256):
-        flash_rows(1, 2048, 16, 8, D, draw)
+        flash_rows(1, 2048, 16, 8, D, draw, device_only=True)
     flash_rows(8, 1024, 12, 12, 64, draw, torch.float16, plain_entry=True)
-    # fp16 at D 192 and 256, and past D 256 (the mma.sync family's column
-    # parts both ways) at D 320 in bf16 and f32 and at D 512 in bf16, from
-    # a stream of their own.
+    # Past D 256 (the mma.sync family's column parts both ways) at D 320 in
+    # bf16 and f32 and at D 512 in bf16, from a stream of their own.
     wide = np.random.default_rng(26)
 
     def draw_wide(*shape, dtype):
         return torch.from_numpy(wide.standard_normal(shape).astype(np.float32)).to(dev, dtype)
 
-    for D in (192, 256):
-        flash_rows(1, 2048, 16, 8, D, draw_wide, torch.float16)
     for D, dtype in ((320, bf16), (320, torch.float32), (512, bf16)):
-        flash_rows(1, 2048, 16, 8, D, draw_wide, dtype)
+        flash_rows(1, 2048, 16, 8, D, draw_wide, dtype, device_only=True)
 
     # K12 on wte (50304 x 768 = 38.6M elements): bf16 param and grad, f32
     # moments and master, uint16 noise in int32, with stochastic rounding;

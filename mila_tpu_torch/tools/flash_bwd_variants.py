@@ -3,7 +3,7 @@ variants of it, on the GPU, at the shapes ``chip_smoke.py`` gives its
 ``kernels train`` rows.
 
     python -m mila_tpu_torch.tools.flash_bwd_variants [--variants committed ...]
-        [--source NAME=PATH ...] [--shapes ...]
+        [--source NAME=PATH ...] [--shapes ...] [--dtype bf16|fp16]
 
 Each variant is a copy of the source (and its headers) with edits,
 compiled with the package's nvcc flags into ``csrc/build/``; ``onepass``
@@ -236,7 +236,10 @@ def main() -> None:
     ap.add_argument("--source", nargs="*", default=[], metavar="NAME=PATH",
                     help="a whole other flash_bwd.cu, timed as a variant named NAME")
     ap.add_argument("--shapes", nargs="+", default=list(SHAPES), choices=list(SHAPES))
+    ap.add_argument("--dtype", default="bf16", choices=["bf16", "fp16"],
+                    help="the inputs' type (a source that takes no type code runs bf16 only)")
     args = ap.parse_args()
+    dtype = {"bf16": torch.bfloat16, "fp16": torch.float16}[args.dtype]
     sources = dict(s.split("=", 1) for s in args.source)
     sources.update({n: SOURCE_VARIANTS[n] for n in args.variants if n in SOURCE_VARIANTS})
     libs = build([n for n in args.variants if n in VARIANTS], sources)
@@ -245,7 +248,7 @@ def main() -> None:
     for name in args.shapes:
         B, T, NH, NKV, D = SHAPES[name]
         q, k, v, do = (torch.from_numpy(rng.standard_normal((B, T, n, D)).astype(np.float32))
-                       .to("cuda", torch.bfloat16) for n in (NH, NKV, NKV, NH))
+                       .to("cuda", dtype) for n in (NH, NKV, NKV, NH))
         sm = D ** -0.5
         o, l, m = fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm)
         hm = [t.transpose(1, 2) for t in (q, k, v, o, do)]
@@ -257,7 +260,7 @@ def main() -> None:
         delta = torch.empty_like(lse2)
         stream = _build.stream_of(q)
         pairs = B * NH * T * (T + 1) // 2
-        row = {"shape": name, "card": torch.cuda.get_device_name(0)}
+        row = {"shape": name, "dtype": args.dtype, "card": torch.cuda.get_device_name(0)}
         call_of = {}
         for vname, (lib, new_abi, typed) in libs.items():
             def call(lib=lib, new_abi=new_abi, typed=typed, vname=vname):
@@ -266,7 +269,7 @@ def main() -> None:
                 else:  # D by PyTorch, as the wrapper of that design did
                     dl = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
                     ptrs = (q, k, v, do, m, l, dl, dq, dk, dv)
-                code = (_build.DTYPE_CODES[torch.bfloat16],) if typed else ()
+                code = (_build.DTYPE_CODES[dtype],) if typed else ()
                 rc = lib.flash_bwd(*(_build.ptr(t) for t in ptrs), B, T, T, NH, NKV, D, *code, sm,
                                    0, 1, stream)
                 if rc:
