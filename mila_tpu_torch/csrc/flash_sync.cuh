@@ -203,9 +203,9 @@ __device__ __forceinline__ void mma_rows(float* d, const uint32_t* a, const uint
 // f32 (round to nearest): the tensor cores round their own sums toward 0,
 // and over D / 8 steps into a dP of size sqrt(D) that bias reaches the
 // cancellation dS = P (dP - D) works on (where a query sees one key, dP - D
-// is only the forward's rounding residue): at D 1024 the first query's dq
-// read 1.2e-2 of the gate's floor against 1e-3 for the plain f32 version
-// (my chip run). The f32 dP of the kernels past D 256.
+// is only the forward's rounding residue); tools/flash_f32_rows.py times
+// both against a float64 reference (--truncating). The f32 dP of the
+// kernels past D 256.
 template <typename T>
 __device__ __forceinline__ void mma_rows_rn(float* d, const uint32_t* a, const uint32_t* b,
                                             const T* ta, const T* tb, int rs, int r0, int n0,

@@ -1,0 +1,124 @@
+"""The f32 flash backward's worst (b, t, head) rows of dq, dk and dv against a
+float64 reference, beside the plain f32 version's, per head size, on the GPU.
+
+    python -m mila_tpu_torch.tools.flash_f32_rows [--dims 64 256 320 512 1024]
+        [--truncating]
+
+The f32 branch (``csrc/flash_sync_*.cu``) multiplies on tf32 operands
+(ROADMAP §C.2). The reference takes the same q, k, v, the kernel
+forward's o, l, m and the same do, and computes in float64. A row's error
+is its max |got - ref| over its max |ref|, floored at 1e-3 of the tensor's
+max (as the card tests take it); the first query's row is printed apart,
+since there dS = P (dP - D) is only the forward's rounding residue.
+``--truncating`` also times a copy of ``csrc/flash_sync_bwd.cu`` built with
+``mma_rows`` in place of ``mma_rows_rn`` (past D 256 the tensor cores'
+own sums of dP, rounded toward 0). One JSON line per head size; about a
+minute with the builds.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+
+import torch
+
+from mila_tpu_torch.kernels import _build
+from mila_tpu_torch.kernels import flash_attention as fa
+from mila_tpu_torch.kernels import flash_attention_bwd as fb
+
+SRC = "flash_sync_bwd.cu"
+
+
+def row_errs(got, want, floor: float = 1e-3) -> torch.Tensor:
+    """Per (b, t, head) row of [B, T, H, D] tensors."""
+    got, want = got.double(), want.double()
+    d = (got - want).abs().amax(-1)
+    return d / want.abs().amax(-1).clamp_min(floor * want.abs().max().item() + 1e-30)
+
+
+def reference(q, k, v, o, l, m, do, sm: float):
+    """dq, dk, dv in float64 from model-layout [B, T, H, D] tensors, causal."""
+    G = q.shape[2] // k.shape[2]
+    qh, oh, doh = (t.double().transpose(1, 2) for t in (q, o, do))
+    kh, vh = (t.double().transpose(1, 2).repeat_interleave(G, 1) for t in (k, v))
+    T = q.shape[1]
+    s = (qh @ kh.transpose(-1, -2)) * sm
+    s = s.masked_fill(~torch.ones(T, T, dtype=torch.bool, device=q.device).tril(), float("-inf"))
+    p = torch.exp(s - m.double()[..., None]) / l.double()[..., None]
+    ds = p * (doh @ vh.transpose(-1, -2) - (oh * doh).sum(-1, keepdim=True)) * sm
+    B, NKV = k.shape[0], k.shape[2]
+    dk = (ds.transpose(-1, -2) @ qh).reshape(B, NKV, G, T, -1).sum(2)
+    dv = (p.transpose(-1, -2) @ doh).reshape(B, NKV, G, T, -1).sum(2)
+    return (ds @ kh).transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+def truncating_lib() -> ctypes.CDLL:
+    """A copy of flash_sync_bwd.cu with dP summed on the tensor cores alone."""
+    vdir = _build.BUILD_DIR / "flash_sync_bwd_truncating"
+    vdir.mkdir(parents=True, exist_ok=True)
+    for f in _build.CSRC.glob("*.cuh"):
+        (vdir / f.name).write_text(f.read_text())
+    text = (_build.CSRC / SRC).read_text()
+    if "mma_rows_rn<T>(" not in text:
+        raise RuntimeError(f"{SRC} no longer calls mma_rows_rn")
+    (vdir / SRC).write_text(text.replace("mma_rows_rn<T>(", "mma_rows<T>("))
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(vdir / "lib.so"),
+                    str(vdir / SRC)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(vdir / "lib.so"))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.flash_sync_bwd.argtypes = [vp] + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
+    lib.flash_sync_bwd.restype = ci
+    return lib
+
+
+def call_lib(lib, q, k, v, o, l, m, do, sm: float):
+    """The wrapper's launch of flash_sync_bwd (model layout, f32), on lib."""
+    B, T, NH, D = q.shape
+    NKV = k.shape[2]
+    delta = torch.empty(B, NH, T, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ptrs = (ctypes.c_void_p * 11)(*(t.data_ptr() for t in (q, k, v, o, do, l, m, delta, dq, dk,
+                                                            dv)))
+    rc = lib.flash_sync_bwd(ptrs, B, T, T, NH, NKV, D, _build.DTYPE_CODES[torch.float32], sm, 0,
+                            1, _build.stream_of(q))
+    if rc:
+        raise RuntimeError(f"flash_sync_bwd (truncating): CUDA error {rc}")
+    return dq, dk, dv
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dims", nargs="+", type=int, default=[64, 256, 320, 512, 1024])
+    ap.add_argument("--truncating", action="store_true")
+    args = ap.parse_args()
+    lib = truncating_lib() if args.truncating else None
+    card = torch.cuda.get_device_name(0)
+    for D in args.dims:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        B, T, NH, NKV = 1, 256 if D < 1024 else 128, 4, 2
+        q, k, v, do = (torch.randn(B, T, n, D, device="cuda", generator=g)
+                       for n in (NH, NKV, NKV, NH))
+        sm = D ** -0.5
+        o, l, m = fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm)
+        ref = reference(q, k, v, o, l, m, do, sm)
+        hm = [t.transpose(1, 2) for t in (q, k, v, o, do)]
+        outs = {"kernel": [t.transpose(1, 2) for t in fb.flash_attention_bwd(
+                    *hm[:4], l, m, hm[4], causal=True, sm_scale=sm)],
+                "plain": [t.transpose(1, 2) for t in fb.flash_attention_bwd_plain(
+                    *hm[:4], l, m, hm[4], causal=True, sm_scale=sm)]}
+        if lib is not None and D > 256:
+            outs["truncating"] = call_lib(lib, q, k, v, o, l, m, do, sm)
+        row = {"D": D, "T": T, "card": card}
+        for name, got in outs.items():
+            errs = [row_errs(a, b) for a, b in zip(got, ref)]
+            row[name] = {n: e.max().item() for n, e in zip(("dq", "dk", "dv"), errs)}
+            row[name]["dq_first_query"] = errs[0][:, 0].max().item()
+            row[name]["dq_later_queries"] = errs[0][:, 1:].max().item()
+        print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()
