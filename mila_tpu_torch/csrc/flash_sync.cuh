@@ -205,7 +205,7 @@ __device__ __forceinline__ void mma_rows(float* d, const uint32_t* a, const uint
 // cancellation dS = P (dP - D) works on (where a query sees one key, dP - D
 // is only the forward's rounding residue); tools/flash_f32_rows.py times
 // both against a float64 reference (--truncating). The f32 dP of the
-// kernels past D 256.
+// column-part kernels past D 256, per k-step.
 template <typename T>
 __device__ __forceinline__ void mma_rows_rn(float* d, const uint32_t* a, const uint32_t* b,
                                             const T* ta, const T* tb, int rs, int r0, int n0,
@@ -218,6 +218,35 @@ __device__ __forceinline__ void mma_rows_rn(float* d, const uint32_t* a, const u
   } else {
     mma_rows<T>(d, a, b, ta, tb, rs, r0, n0, k0, lane);
   }
+}
+
+// RN_STEPS k-steps of dP's split products (mma_split: hi hi + hi lo + lo
+// hi) sum on the tensor cores into a zeroed tile, which mma_rows_rn adds to
+// dP in f32 (round to nearest). The tensor cores round their own sums
+// toward 0: summed over all D / 8 steps into a dP of size sqrt(D), that
+// bias reached the cancellation dS = P (dP - D) works on where a query sees
+// one key (there only the forward's rounding residue);
+// tools/flash_f32_rows.py checks both against a float64 reference
+// (--truncating). The f32 dP at every head size.
+constexpr int RN_STEPS = 2;
+
+// acc += A B^T on split operands for A rows of a_rows' fragment `a` (`al`
+// its low part, a_rows_lo) and B rows n0.. of tb, k from k0.
+__device__ __forceinline__ void mma_split(float* acc, const uint32_t* a, const uint32_t* al,
+                                          const uint32_t* b, const float* tb, int rs, int n0,
+                                          int k0, int lane) {
+  using O = Ops<float>;
+  uint32_t bl[2];
+  O::b_rows_lo(bl, b, tb, rs, n0, k0, lane);
+  O::mma(acc, a, b);
+  O::mma(acc, a, bl);
+  O::mma(acc, al, b);
+}
+
+// d += acc in f32 (mma_split's tensor-core sums of RN_STEPS k-steps).
+__device__ __forceinline__ void mma_rows_rn(float* d, const float* acc) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += acc[e];
 }
 
 // Rows per K/V (forward, dQ) or Q/dO (dK/dV) tile: 64 where a row is at

@@ -18,7 +18,8 @@
 // Bound on the H100: tensor-core operations (five products of 2 D
 // multiply-adds per visible (query, key) pair and head; the two kernels
 // here run seven, S and dP in each, at D 192 and 256 the dK/dV blocks two
-// more (below), and f32 runs dP three times, flash_sync.cuh) against q, k,
+// more (below), and f32 runs dP three times, on split operands summed in
+// f32, flash_sync.cuh) against q, k,
 // v, o, do, dq, dk, dv moved once. The simple family: right first, its
 // times in PERF.md. Two kernels, 4 warps of 16 rows each:
 //   dq (first): one block per (64 query rows, head, batch row), heaviest q
@@ -135,6 +136,7 @@ __device__ __forceinline__ void ds_cols(float (*s)[4], float (*dp)[4], const Arg
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) dq_kernel(Args<T> a) {
+  static_assert(std::is_same<T, float>::value, "bf16 and fp16 up to D 256: flash_bwd.cu");
   using O = Ops<T>;
   constexpr int BKV = Tile<T, D>::N, RS = Tile<T, D>::RS, KS = O::KS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -215,25 +217,37 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Args<T> a) {
     const T* kt = Ks + buf * BKV * RS;
     const T* vt = Vs + buf * BKV * RS;
 
-    // S = Q K^T and dP = dO V^T for the warp's 16 rows x BKV keys.
+    // S = Q K^T and dP = dO V^T for the warp's 16 rows x BKV keys, dP on
+    // split operands, RN_STEPS k-steps at a time summed in f32.
     float s[BKV / 8][4], dp[BKV / 8][4];
 #pragma unroll
     for (int ni = 0; ni < BKV / 8; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[ni][e] = dp[ni][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / KS; ++kk) {
-      uint32_t qa[4], oa[4];
-      O::a_rows(qa, Qs, RS, warp * 16, kk * KS, lane);
-      O::a_rows(oa, Os, RS, warp * 16, kk * KS, lane);
+    for (int k0 = 0; k0 < D / KS; k0 += RN_STEPS) {
+      float acc[BKV / 8][4];
 #pragma unroll
-      for (int ni = 0; ni < BKV / 8; ++ni) {
-        uint32_t bk[2], bv[2];
-        O::b_rows(bk, kt, RS, ni * 8, kk * KS, lane);
-        O::b_rows(bv, vt, RS, ni * 8, kk * KS, lane);
-        O::mma(s[ni], qa, bk);
-        mma_rows<T>(dp[ni], oa, bv, Os, vt, RS, warp * 16, ni * 8, kk * KS, lane);
+      for (int ni = 0; ni < BKV / 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
+#pragma unroll
+      for (int kk = k0; kk < k0 + RN_STEPS; ++kk) {
+        uint32_t qa[4], oa[4], ol[4];
+        O::a_rows(qa, Qs, RS, warp * 16, kk * KS, lane);
+        O::a_rows(oa, Os, RS, warp * 16, kk * KS, lane);
+        O::a_rows_lo(ol, oa, Os, RS, warp * 16, kk * KS, lane);
+#pragma unroll
+        for (int ni = 0; ni < BKV / 8; ++ni) {
+          uint32_t bk[2], bv[2];
+          O::b_rows(bk, kt, RS, ni * 8, kk * KS, lane);
+          O::b_rows(bv, vt, RS, ni * 8, kk * KS, lane);
+          O::mma(s[ni], qa, bk);
+          mma_split(acc[ni], oa, ol, bv, vt, RS, ni * 8, kk * KS, lane);
+        }
       }
+#pragma unroll
+      for (int ni = 0; ni < BKV / 8; ++ni) mma_rows_rn(dp[ni], acc[ni]);
     }
     ds_rows<T, BKV>(s, dp, a, r0, k0, t, mr, lr, dr);
 
@@ -265,6 +279,7 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Args<T> a) {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) dkv_kernel(Args<T> a) {
+  static_assert(std::is_same<T, float>::value, "bf16 and fp16 up to D 256: flash_bwd.cu");
   using O = Ops<T>;
   constexpr int BQD = Tile<T, D>::N, RS = Tile<T, D>::RS, KS = O::KS;
   constexpr int KB = 16 * WARPS;         // keys a block
@@ -342,25 +357,37 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Args<T> a) {
     const T* ot = Os + buf * BQD * RS;
     const float* st = St + buf * 3 * BQD;
 
-    // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys x BQD queries.
+    // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys x BQD queries,
+    // dP^T on split operands, RN_STEPS k-steps at a time summed in f32.
     float s[BQD / 8][4], dp[BQD / 8][4];
 #pragma unroll
     for (int ni = 0; ni < BQD / 8; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[ni][e] = dp[ni][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / KS; ++kk) {
-      uint32_t ka[4], va[4];
-      O::a_rows(ka, Ks, RS, warp * 16, kk * KS, lane);
-      O::a_rows(va, Vs, RS, warp * 16, kk * KS, lane);
+    for (int k0 = 0; k0 < D / KS; k0 += RN_STEPS) {
+      float acc[BQD / 8][4];
 #pragma unroll
-      for (int ni = 0; ni < BQD / 8; ++ni) {
-        uint32_t bq[2], bo[2];
-        O::b_rows(bq, qt, RS, ni * 8, kk * KS, lane);
-        O::b_rows(bo, ot, RS, ni * 8, kk * KS, lane);
-        O::mma(s[ni], ka, bq);
-        mma_rows<T>(dp[ni], va, bo, Vs, ot, RS, warp * 16, ni * 8, kk * KS, lane);
+      for (int ni = 0; ni < BQD / 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
+#pragma unroll
+      for (int kk = k0; kk < k0 + RN_STEPS; ++kk) {
+        uint32_t ka[4], va[4], vl[4];
+        O::a_rows(ka, Ks, RS, warp * 16, kk * KS, lane);
+        O::a_rows(va, Vs, RS, warp * 16, kk * KS, lane);
+        O::a_rows_lo(vl, va, Vs, RS, warp * 16, kk * KS, lane);
+#pragma unroll
+        for (int ni = 0; ni < BQD / 8; ++ni) {
+          uint32_t bq[2], bo[2];
+          O::b_rows(bq, qt, RS, ni * 8, kk * KS, lane);
+          O::b_rows(bo, ot, RS, ni * 8, kk * KS, lane);
+          O::mma(s[ni], ka, bq);
+          mma_split(acc[ni], va, vl, bo, ot, RS, ni * 8, kk * KS, lane);
+        }
       }
+#pragma unroll
+      for (int ni = 0; ni < BQD / 8; ++ni) mma_rows_rn(dp[ni], acc[ni]);
     }
 
     ds_cols<T, BQD>(s, dp, a, q0, key0, t, st);  // P^T and dS^T in place

@@ -3,9 +3,13 @@ variants of it, on the GPU, at the shapes ``chip_smoke.py`` gives its
 ``kernels train`` rows.
 
     python -m mila_tpu_torch.tools.flash_bwd_variants [--variants committed ...]
-        [--source NAME=PATH ...] [--shapes ...] [--dtype bf16|fp16]
+        [--source NAME=PATH ...] [--shapes ...] [--dtype bf16|fp16|f32]
 
-Each variant is a copy of the source (and its headers) with edits,
+``--dtype f32`` times ``csrc/flash_sync_bwd.cu`` (entry ``flash_sync_bwd``;
+its variants are ``F32_VARIANTS``) in place of ``csrc/flash_bwd.cu``, and
+``--source`` then names whole other ``flash_sync_bwd.cu`` files (with the ``*.cuh`` files beside them, where
+there are any, in place of the package's). Each variant is a copy of the
+source (and its headers) with edits,
 compiled with the package's nvcc flags into ``csrc/build/``; ``onepass``
 is ``flash_bwd_onepass.cu`` beside this tool (dQ from the dK/dV pass
 through f32 atomics); ``--source`` adds a whole other source as a variant
@@ -21,8 +25,8 @@ value, floored at 1e-3 of the tensor's), its median ms per call (CUDA
 events around 20 back-to-back calls, 5 repeats) and causal TFLOP/s (10 D
 operations per visible pair and head), beside SDPA's backward alone timed
 the same way (``autograd.grad`` with ``retain_graph`` on one saved
-forward); and, for SDPA's backward and the committed kernel, the device's
-own time per call from the profiler's kernel times (``autograd.grad`` can
+forward); and, for SDPA's backward and every variant, the device's own
+time per call from the profiler's kernel times (``autograd.grad`` can
 leave the card waiting on the host). Needs a CUDA device and nvcc.
 """
 
@@ -44,6 +48,7 @@ from mila_tpu_torch.kernels import flash_attention as fa
 from mila_tpu_torch.kernels import flash_attention_bwd as fb
 
 SRC = "flash_bwd.cu"
+SYNC_SRC = "flash_sync_bwd.cu"  # the f32 backward (--dtype f32)
 DKV_LAUNCH = "  kern<<<dim3(c.NKV, c.B, (c.Tkv + KC::BK - 1) / KC::BK)"
 DQ_LAUNCH = "  kern<<<grid, C::THREADS"
 SPLIT_RULE = "const bool split = (long long)c.B * c.NKV * ((c.Tkv + BK - 1) / BK) < 2LL * n_sm;"
@@ -112,6 +117,8 @@ VARIANTS = {  # name -> [(file, old text, new text)]
     # D 192 and 256: S^T and dP^T formed by both warpgroups (BOTH_ST above)
     "dkv_both_st": BOTH_ST,
 }
+# --dtype f32: edits of flash_sync_bwd.cu (same form).
+F32_VARIANTS = {"committed": []}
 # Whole other sources kept beside this tool, timed like --source ones.
 SOURCE_VARIANTS = {"onepass": Path(__file__).with_name("flash_bwd_onepass.cu")}
 # (B, T, NH, NKV, D): chip_smoke's three flash backward rows, all causal.
@@ -121,6 +128,8 @@ SHAPES = {
     "D128_T2048": (1, 2048, 24, 8, 128),
     "D192_T2048": (1, 2048, 16, 8, 192),
     "D256_T2048": (1, 2048, 16, 8, 256),
+    "D320_T2048": (1, 2048, 16, 8, 320),
+    "D512_T2048": (1, 2048, 16, 8, 512),
 }
 NEW_ABI = "void* lse2"  # the entry takes the statistics scratch, not D
 DTYPE_ABI = "int D, int dtype"  # the entry takes a type code after D
@@ -129,15 +138,24 @@ DTYPE_ABI = "int D, int dtype"  # the entry takes a type code after D
 def ptxas_report(log: str) -> dict:
     """{"<kernel> D<d>[ split|shared]": "<registers> registers; <spills>"}
     from nvcc's -Xptxas -v output (kernels named flash_bwd_<kernel>_kernel<D[,
-    SPLIT]>)."""
+    SPLIT]>; flash_sync_bwd.cu's <kernel>_kernel<type[, D]> as "<kernel>
+    <type>[ D<d>]")."""
     out, entry = {}, None
+    types = {"6__half": " fp16", "f": " f32", None: ""}
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '.*?\dflash_bwd_(\w+?)_kernelI"
                       r"(13__nv_bfloat16|6__half)?Li(\d+)E(Lb(\d))?", ln)
+        ms = re.search(r"Compiling entry function '.*?\d(\w+?)_kernelI"
+                       r"(f|13__nv_bfloat16|6__half|Li(\d+)E)(Li(\d+)E)?", ln)
         if m:
-            ty = {"6__half": " fp16", None: ""}.get(m.group(2), " bf16")
+            ty = types.get(m.group(2), " bf16")
             entry = f"{m.group(1)}{ty} D{m.group(3)}" + (
                 "" if m.group(4) is None else " split" if m.group(5) == "1" else " shared")
+        elif ms and ms.group(3) is not None:  # split kernels: <columns a block>
+            entry = f"{re.sub(r'.*[0-9]', '', ms.group(1))} f32 DC{ms.group(3)}"
+        elif ms:
+            entry = f"{re.sub(r'.*[0-9]', '', ms.group(1))}{types.get(ms.group(2), ' bf16')}" + (
+                "" if ms.group(5) is None else f" D{ms.group(5)}")
         elif entry and "spill" in ln:
             out[entry] = ln.strip()
         elif entry and "registers" in ln:
@@ -147,21 +165,26 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-def build(names, sources) -> dict:
-    """Compile a copy of flash_bwd.cu per variant with its edits applied (or
-    the given source), the headers copied beside it, one nvcc each, all at
-    once. Returns name -> (library, takes the statistics scratch, takes a
-    type code)."""
+def build(names, sources, sync: bool = False) -> dict:
+    """Compile a copy of flash_bwd.cu (flash_sync_bwd.cu with ``sync``) per
+    variant with its edits applied (or the given source), the headers copied
+    beside it, one nvcc each, all at once. Returns name -> (library, takes
+    the statistics scratch, takes a type code); sync libraries export
+    flash_sync_bwd."""
     procs = {}
+    src, edits = (SYNC_SRC, F32_VARIANTS) if sync else (SRC, VARIANTS)
     heads = {f.name: f.read_text() for f in _build.CSRC.glob("*.cuh")}
     for name in [*names, *sources]:
         vdir = _build.BUILD_DIR / f"flash_bwd_variant_{name}"
         vdir.mkdir(parents=True, exist_ok=True)
-        if name in sources:
-            texts = {**heads, SRC: Path(sources[name]).read_text()}
+        if name in sources:  # its own headers where they sit beside it
+            path = Path(sources[name])
+            texts = {**heads, **{f.name: f.read_text() for f in path.parent.glob("*.cuh")},
+                     src: path.read_text()}
         else:
-            texts = {**heads, SRC: (_build.CSRC / SRC).read_text()}
-            for fname, old, new in VARIANTS[name]:
+            texts = {**heads, src: (_build.CSRC / src).read_text()}
+            for fname, old, new in edits[name]:
+                fname = src if fname == SRC else fname
                 if old not in texts[fname]:
                     raise RuntimeError(f"variant {name}: {fname} no longer has {old!r}")
                 texts[fname] = texts[fname].replace(old, new)
@@ -169,8 +192,8 @@ def build(names, sources) -> dict:
             (vdir / fname).write_text(text)
         procs[name] = (subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(vdir / "libflash_bwd.so"),
-             str(vdir / SRC)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
-            (NEW_ABI in texts[SRC], DTYPE_ABI in texts[SRC]))
+             str(vdir / src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
+            (NEW_ABI in texts[src], DTYPE_ABI in texts[src]))
     libs = {}
     for name, (proc, (new_abi, typed)) in procs.items():
         log = proc.communicate()[0].decode()
@@ -179,9 +202,13 @@ def build(names, sources) -> dict:
         print(json.dumps({"variant": name, "ptxas": ptxas_report(log)}), flush=True)
         lib = ctypes.CDLL(str(_build.BUILD_DIR / f"flash_bwd_variant_{name}" / "libflash_bwd.so"))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.flash_bwd.argtypes = ([vp] * (12 if new_abi else 10) + [ci] * (7 if typed else 6)
-                                  + [ctypes.c_float, ci, ci, vp])
-        lib.flash_bwd.restype = ci
+        if sync:
+            lib.flash_sync_bwd.argtypes = [vp] + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
+            lib.flash_sync_bwd.restype = ci
+        else:
+            lib.flash_bwd.argtypes = ([vp] * (12 if new_abi else 10) + [ci] * (7 if typed else 6)
+                                      + [ctypes.c_float, ci, ci, vp])
+            lib.flash_bwd.restype = ci
         libs[name] = (lib, new_abi, typed)
     return libs
 
@@ -231,18 +258,23 @@ def row_err(got, want, floor: float = 1e-3) -> float:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--variants", nargs="+", default=list(VARIANTS),
-                    choices=[*VARIANTS, *SOURCE_VARIANTS])
+    ap.add_argument("--variants", nargs="+", default=None,
+                    choices=[*VARIANTS, *F32_VARIANTS, *SOURCE_VARIANTS],
+                    help="default: every variant of the type's source")
     ap.add_argument("--source", nargs="*", default=[], metavar="NAME=PATH",
-                    help="a whole other flash_bwd.cu, timed as a variant named NAME")
+                    help="a whole other flash_bwd.cu (flash_sync_bwd.cu with --dtype f32), "
+                         "timed as a variant named NAME")
     ap.add_argument("--shapes", nargs="+", default=list(SHAPES), choices=list(SHAPES))
-    ap.add_argument("--dtype", default="bf16", choices=["bf16", "fp16"],
+    ap.add_argument("--dtype", default="bf16", choices=["bf16", "fp16", "f32"],
                     help="the inputs' type (a source that takes no type code runs bf16 only)")
     args = ap.parse_args()
-    dtype = {"bf16": torch.bfloat16, "fp16": torch.float16}[args.dtype]
+    dtype = {"bf16": torch.bfloat16, "fp16": torch.float16, "f32": torch.float32}[args.dtype]
+    sync = dtype == torch.float32  # flash_sync_bwd.cu
+    edits = F32_VARIANTS if sync else VARIANTS
+    variants = list(edits) if args.variants is None else args.variants
     sources = dict(s.split("=", 1) for s in args.source)
-    sources.update({n: SOURCE_VARIANTS[n] for n in args.variants if n in SOURCE_VARIANTS})
-    libs = build([n for n in args.variants if n in VARIANTS], sources)
+    sources.update({n: SOURCE_VARIANTS[n] for n in variants if n in SOURCE_VARIANTS and not sync})
+    libs = build([n for n in variants if n in edits], sources, sync)
     rng = np.random.default_rng(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for name in args.shapes:
@@ -261,9 +293,16 @@ def main() -> None:
         stream = _build.stream_of(q)
         pairs = B * NH * T * (T + 1) // 2
         row = {"shape": name, "dtype": args.dtype, "card": torch.cuda.get_device_name(0)}
-        call_of = {}
         for vname, (lib, new_abi, typed) in libs.items():
             def call(lib=lib, new_abi=new_abi, typed=typed, vname=vname):
+                if sync:  # flash_sync_bwd: one pointer array, D scratch [B, NH, T]
+                    ptrs = (ctypes.c_void_p * 11)(*(t.data_ptr() for t in (
+                        q, k, v, o, do, l, m, delta, dq, dk, dv)))
+                    rc = lib.flash_sync_bwd(ptrs, B, T, T, NH, NKV, D, _build.DTYPE_CODES[dtype],
+                                            sm, 0, 1, stream)
+                    if rc:
+                        raise RuntimeError(f"{vname}: CUDA error {rc}")
+                    return
                 if new_abi:
                     ptrs = (q, k, v, o, do, l, m, lse2, delta, dq, dk, dv)
                 else:  # D by PyTorch, as the wrapper of that design did
@@ -274,7 +313,6 @@ def main() -> None:
                                    0, 1, stream)
                 if rc:
                     raise RuntimeError(f"{vname}: CUDA error {rc}")
-            call_of[vname] = call
             for t in (dq, dk, dv):  # nothing left over from the variant before
                 t.fill_(float("nan"))
             call()
@@ -283,6 +321,7 @@ def main() -> None:
                                                                    (dq, dk, dv), want)}
             res["ms"] = time_ms(call)
             res["tflops"] = 10 * D * pairs / (res["ms"] * 1e-3) / 1e12
+            res["device_ms"] = device_ms(call)
             row[vname] = res
         leaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
         s_out = sdpa(*leaves, is_causal=True, enable_gqa=NH != NKV)
@@ -293,8 +332,6 @@ def main() -> None:
 
         row["sdpa_bwd_ms"] = time_ms(sdpa_bwd)
         row["sdpa_bwd_device_ms"] = device_ms(sdpa_bwd)
-        if "committed" in call_of:
-            row["committed"]["device_ms"] = device_ms(call_of["committed"])
         print(json.dumps(row), flush=True)
         del q, k, v, do, o, l, m, hm, want, dq, dk, dv, leaves, s_out, dos
 

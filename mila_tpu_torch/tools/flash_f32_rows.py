@@ -1,7 +1,7 @@
 """The f32 flash backward's worst (b, t, head) rows of dq, dk and dv against a
 float64 reference, beside the plain f32 version's, per head size, on the GPU.
 
-    python -m mila_tpu_torch.tools.flash_f32_rows [--dims 64 256 320 512 1024]
+    python -m mila_tpu_torch.tools.flash_f32_rows [--dims 64 128 192 256 320]
         [--truncating]
 
 The f32 branch (``csrc/flash_sync_*.cu``) multiplies on tf32 operands
@@ -10,10 +10,11 @@ forward's o, l, m and the same do, and computes in float64. A row's error
 is its max |got - ref| over its max |ref|, floored at 1e-3 of the tensor's
 max (as the card tests take it); the first query's row is printed apart,
 since there dS = P (dP - D) is only the forward's rounding residue.
-``--truncating`` also times a copy of ``csrc/flash_sync_bwd.cu`` built with
-``mma_rows`` in place of ``mma_rows_rn`` (past D 256 the tensor cores'
-own sums of dP, rounded toward 0). One JSON line per head size; about a
-minute with the builds.
+``--truncating`` also checks a copy of ``csrc/flash_sync_bwd.cu`` whose dP
+sums its split products on the tensor cores alone (without ``mma_rows_rn``'s
+f32 adds: at every head size the tensor cores' own sums, rounded toward
+0). One JSON line per head size;
+about a minute with the builds.
 """
 
 from __future__ import annotations
@@ -55,16 +56,29 @@ def reference(q, k, v, o, l, m, do, sm: float):
     return (ds @ kh).transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
 
 
+# dP's f32 adds (flash_sync.cuh: mma_rows_rn, called by the kernels up to D
+# 256 every RN_STEPS k-steps, and its per-step form past it), and the same
+# products summed into dP on the tensor cores alone: (file, rn text,
+# truncating).
+TRUNCATING = [
+    (SRC, "          mma_split(acc[ni], ", "          mma_split(dp[ni], "),
+    (SRC, "      for (int ni = 0; ni < BKV / 8; ++ni) mma_rows_rn(dp[ni], acc[ni]);", ""),
+    (SRC, "      for (int ni = 0; ni < BQD / 8; ++ni) mma_rows_rn(dp[ni], acc[ni]);", ""),
+    (SRC, "mma_rows_rn<T>(", "mma_rows<T>("),
+]
+
+
 def truncating_lib() -> ctypes.CDLL:
     """A copy of flash_sync_bwd.cu with dP summed on the tensor cores alone."""
     vdir = _build.BUILD_DIR / "flash_sync_bwd_truncating"
     vdir.mkdir(parents=True, exist_ok=True)
-    for f in _build.CSRC.glob("*.cuh"):
-        (vdir / f.name).write_text(f.read_text())
-    text = (_build.CSRC / SRC).read_text()
-    if "mma_rows_rn<T>(" not in text:
-        raise RuntimeError(f"{SRC} no longer calls mma_rows_rn")
-    (vdir / SRC).write_text(text.replace("mma_rows_rn<T>(", "mma_rows<T>("))
+    texts = {f.name: f.read_text() for f in [*_build.CSRC.glob("*.cuh"), _build.CSRC / SRC]}
+    for fname, rn, tc in TRUNCATING:
+        if rn not in texts[fname]:
+            raise RuntimeError(f"{fname} no longer has dP's f32 step as this tool knows it")
+        texts[fname] = texts[fname].replace(rn, tc)
+    for fname, text in texts.items():
+        (vdir / fname).write_text(text)
     subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(vdir / "lib.so"),
                     str(vdir / SRC)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(vdir / "lib.so"))
@@ -91,7 +105,7 @@ def call_lib(lib, q, k, v, o, l, m, do, sm: float):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--dims", nargs="+", type=int, default=[64, 256, 320, 512, 1024])
+    ap.add_argument("--dims", nargs="+", type=int, default=[64, 128, 192, 256, 320])
     ap.add_argument("--truncating", action="store_true")
     args = ap.parse_args()
     lib = truncating_lib() if args.truncating else None
@@ -109,7 +123,7 @@ def main() -> None:
                     *hm[:4], l, m, hm[4], causal=True, sm_scale=sm)],
                 "plain": [t.transpose(1, 2) for t in fb.flash_attention_bwd_plain(
                     *hm[:4], l, m, hm[4], causal=True, sm_scale=sm)]}
-        if lib is not None and D > 256:
+        if lib is not None:
             outs["truncating"] = call_lib(lib, q, k, v, o, l, m, do, sm)
         row = {"D": D, "T": T, "card": card}
         for name, got in outs.items():
