@@ -1,8 +1,7 @@
 // The mma.sync flash-attention family (flash_sync_fwd.cu, flash_sync_bwd.cu):
-// what the TMA + wgmma kernels (flash_fwd.cu: bf16 and fp16 at D 64 and 128;
-// flash_bwd.cu: bf16 and fp16 at D 64-256) do not take and the TPU kernels'
-// tiling gate admits: f32 at every D % 64 == 0, bf16 and fp16 past D 256,
-// and the 16-bit forward at D 192 and 256.
+// what the TMA + wgmma kernels (flash_fwd.cu and flash_bwd.cu: bf16 and fp16
+// at D 64-256) do not take and the TPU kernels' tiling gate admits: f32 at
+// every D % 64 == 0, bf16 and fp16 past D 256.
 //
 // One warp owns 16 rows of a tile and runs its products on mma.sync with
 // f32 accumulators: bf16 and fp16 on m16n8k16, f32 on m16n8k8 .tf32 (the
@@ -181,44 +180,6 @@ struct Ops<float> {
     *reinterpret_cast<float2*>(p) = make_float2(x, y);
   }
 };
-
-// d += A B^T for A rows r0.. of ta and B rows n0.. of tb (k from k0; the
-// backward's dP): one product, or on split operands where O::SPLIT.
-template <typename T>
-__device__ __forceinline__ void mma_rows(float* d, const uint32_t* a, const uint32_t* b,
-                                         const T* ta, const T* tb, int rs, int r0, int n0,
-                                         int k0, int lane) {
-  using O = Ops<T>;
-  O::mma(d, a, b);
-  if constexpr (O::SPLIT) {
-    uint32_t al[4], bl[2];
-    O::a_rows_lo(al, a, ta, rs, r0, k0, lane);
-    O::b_rows_lo(bl, b, tb, rs, n0, k0, lane);
-    O::mma(d, a, bl);
-    O::mma(d, al, b);
-  }
-}
-
-// mma_rows, its products summed into a zeroed tile and that added to d in
-// f32 (round to nearest): the tensor cores round their own sums toward 0,
-// and over D / 8 steps into a dP of size sqrt(D) that bias reaches the
-// cancellation dS = P (dP - D) works on (where a query sees one key, dP - D
-// is only the forward's rounding residue); tools/flash_f32_rows.py times
-// both against a float64 reference (--truncating). The f32 dP of the
-// column-part kernels past D 256, per k-step.
-template <typename T>
-__device__ __forceinline__ void mma_rows_rn(float* d, const uint32_t* a, const uint32_t* b,
-                                            const T* ta, const T* tb, int rs, int r0, int n0,
-                                            int k0, int lane) {
-  if constexpr (Ops<T>::SPLIT) {
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-    mma_rows<T>(s, a, b, ta, tb, rs, r0, n0, k0, lane);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) d[e] += s[e];
-  } else {
-    mma_rows<T>(d, a, b, ta, tb, rs, r0, n0, k0, lane);
-  }
-}
 
 // RN_STEPS k-steps of dP's split products (mma_split: hi hi + hi lo + lo
 // hi) sum on the tensor cores into a zeroed tile, which mma_rows_rn adds to

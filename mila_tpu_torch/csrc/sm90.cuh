@@ -3,10 +3,10 @@
 // and 3-D TMA loads, 1-D bulk copies, the proxy fence, wgmma shared-memory
 // descriptors, the bf16 and fp16 wgmma with f32 accumulators (m64n64k16,
 // m64n128k16 and m64n256k16 with both operands in shared memory; m64n64k16
-// and m64n128k16 with A in registers), named barriers, and the host-side
-// encoders of TMA descriptors (reached through the runtime's entry-point
-// lookup, so a library needs no -lcuda).
-// Used by qmm_int8.cu, flash_fwd.cu and flash_bwd.cu.
+// and m64n128k16 with A in registers; tf32 m64n32k8), named barriers, and
+// the host-side encoders of TMA descriptors (reached through the runtime's
+// entry-point lookup, so a library needs no -lcuda).
+// Used by qmm_int8.cu, flash_fwd.cu, flash_bwd.cu and flash_sync_bwd.cu.
 //
 // Layouts the descriptors describe (128-byte swizzle: inside each
 // 1024-byte atom of 8 rows of 128 bytes, the 16-byte chunk c of row r sits
@@ -332,6 +332,23 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float* d, const uint32_t* a,
     SM90_RS_N128("f16");
   else
     SM90_RS_N128("bf16");
+}
+
+// d[16] (+)= A (64 x 8 tf32, K-major, desc a) x B (8 x 32 tf32, K-major: 32
+// rows of 8 k values, desc b) in f32; accumulate = 0 overwrites d. tf32
+// takes no transpose bit: both operands K-major, a k-slice of 8 values 32
+// bytes into a 128-byte-swizzled row. d's fragment as wgmma_m64n128k16's.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32(float* d, uint64_t a, uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // The TMA element type of T.

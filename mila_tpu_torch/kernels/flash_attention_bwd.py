@@ -34,10 +34,12 @@ the tests compare its column 0). That launch reads either forward's
 statistics (m of the scaled scores, l the f32 sum against the running
 max); the other types and head sizes (``flash_attention.routes``: f32 at
 every D, bf16 and fp16 past D 256) launch ``csrc/flash_sync_bwd.cu``, the
-simple ``mma.sync`` family (a dQ kernel that also forms D, then a dK/dV
-kernel; one call, one count; past D 256 a block owns a column part and
-streams 64-column panels), which reads the statistics of that family's
-forward. A causal call with a negative ``kv_offset`` (rows with no visible
+``mma.sync`` family (a dQ kernel that also forms D, then a dK/dV kernel;
+one call, one count; f32's dP on split tf32 operands, summed in f32), which
+reads the statistics of that family's forward. Past D 256 bf16 and fp16
+blocks own 128-column parts and stream 64-column panels; f32 blocks of 8
+warps own up to 512 columns (two parts at D 1024), form S and dP once a
+tile on ``wgmma``'s tf32 form and stage each operand once. A causal call with a negative ``kv_offset`` (rows with no visible
 key) raises on the card, as the forward does.
 """
 

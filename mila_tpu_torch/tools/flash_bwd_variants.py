@@ -5,9 +5,10 @@ variants of it, on the GPU, at the shapes ``chip_smoke.py`` gives its
     python -m mila_tpu_torch.tools.flash_bwd_variants [--variants committed ...]
         [--source NAME=PATH ...] [--shapes ...] [--dtype bf16|fp16|f32]
 
-``--dtype f32`` times ``csrc/flash_sync_bwd.cu`` (entry ``flash_sync_bwd``;
-its variants are ``F32_VARIANTS``) in place of ``csrc/flash_bwd.cu``, and
-``--source`` then names whole other ``flash_sync_bwd.cu`` files (with the ``*.cuh`` files beside them, where
+``--dtype f32`` (or ``--family sync``, with bf16 or fp16 past D 256) times
+``csrc/flash_sync_bwd.cu`` (entry ``flash_sync_bwd``; its variants are
+``F32_VARIANTS``) in place of ``csrc/flash_bwd.cu``, and ``--source`` then
+names whole other ``flash_sync_bwd.cu`` files (with the ``*.cuh`` files beside them, where
 there are any, in place of the package's). Each variant is a copy of the
 source (and its headers) with edits,
 compiled with the package's nvcc flags into ``csrc/build/``; ``onepass``
@@ -117,8 +118,33 @@ VARIANTS = {  # name -> [(file, old text, new text)]
     # D 192 and 256: S^T and dP^T formed by both warpgroups (BOTH_ST above)
     "dkv_both_st": BOTH_ST,
 }
-# --dtype f32: edits of flash_sync_bwd.cu (same form).
-F32_VARIANTS = {"committed": []}
+# --dtype f32: edits of flash_sync_bwd.cu (same form). Past D 256 (the split
+# kernels): no S / dP products, no dQ (dK, dV) products, no copies from
+# device memory (the ring's slots filled by stores, the staging stays);
+# wrong results, only their times mean anything.
+SYNC = "flash_sync_bwd.cu"
+F32_VARIANTS = {
+    "committed": [],
+    "no_s_mma": [(SYNC, "    wgmma_m64n32k8_tf32(s, slice(q, kk), slice(k, kk), 1);\n"
+                        "    wgmma_m64n32k8_tf32(acc, slice(oh, kk), slice(vh, kk), 1);\n"
+                        "    wgmma_m64n32k8_tf32(acc, slice(oh, kk), slice(vl, kk), 1);\n"
+                        "    wgmma_m64n32k8_tf32(acc, slice(ol, kk), slice(vh, kk), 1);\n", "")],
+    "no_chunk_mma": [(SYNC, "          for (int rb = 0; rb < 2; ++rb) mma_tf32(dq[rb][ni], da[rb], bk);",
+                      "          for (int rb = 0; rb < 0; ++rb) mma_tf32(dq[rb][ni], da[rb], bk);"),
+                     (SYNC, "          mma_tf32(dv[ni], pa, bo);\n          mma_tf32(dk[ni], da, bq);\n",
+                      "")],
+    "no_loads": [(SYNC, "        cp_async16(d, from + (size_t)(r0 + r) * stride + c);",
+                  "        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, (float)r);")],
+    # no staging of the panels (wgmma reads the staging tiles as they are)
+    "no_stage": [(SYNC, "    static_assert(W == 32, \"swizzled rows are 128 bytes\");\n",
+                  "    static_assert(W == 32, \"swizzled rows are 128 bytes\");\n    return;\n")],
+    # dS (P^T, dS^T) without its exponential and division; none at all
+    "cheap_ds": [(SYNC, "p = expf(s[e] * a.sm_scale - mr[hr]) * il[hr];",
+                  "p = s[e] * a.sm_scale - mr[hr];")],
+    "no_ds": [(SYNC, "    for (int jj = 0; jj < 4; ++jj)\n#pragma unroll\n      for (int hr = 0; hr < 2; ++hr) {",
+               "    for (int jj = 0; jj < 0; ++jj)\n#pragma unroll\n      for (int hr = 0; hr < 2; ++hr) {")],
+}
+F32_VARIANTS["no_math"] = F32_VARIANTS["no_s_mma"] + F32_VARIANTS["no_chunk_mma"]
 # Whole other sources kept beside this tool, timed like --source ones.
 SOURCE_VARIANTS = {"onepass": Path(__file__).with_name("flash_bwd_onepass.cu")}
 # (B, T, NH, NKV, D): chip_smoke's three flash backward rows, all causal.
@@ -130,6 +156,7 @@ SHAPES = {
     "D256_T2048": (1, 2048, 16, 8, 256),
     "D320_T2048": (1, 2048, 16, 8, 320),
     "D512_T2048": (1, 2048, 16, 8, 512),
+    "D1024_T2048": (1, 2048, 16, 8, 1024),
 }
 NEW_ABI = "void* lse2"  # the entry takes the statistics scratch, not D
 DTYPE_ABI = "int D, int dtype"  # the entry takes a type code after D
@@ -267,9 +294,12 @@ def main() -> None:
     ap.add_argument("--shapes", nargs="+", default=list(SHAPES), choices=list(SHAPES))
     ap.add_argument("--dtype", default="bf16", choices=["bf16", "fp16", "f32"],
                     help="the inputs' type (a source that takes no type code runs bf16 only)")
+    ap.add_argument("--family", default=None, choices=["wgmma", "sync"],
+                    help="flash_bwd.cu (wgmma, bf16 and fp16 up to D 256) or flash_sync_bwd.cu "
+                         "(sync; f32's only one)")
     args = ap.parse_args()
     dtype = {"bf16": torch.bfloat16, "fp16": torch.float16, "f32": torch.float32}[args.dtype]
-    sync = dtype == torch.float32  # flash_sync_bwd.cu
+    sync = dtype == torch.float32 or args.family == "sync"  # flash_sync_bwd.cu
     edits = F32_VARIANTS if sync else VARIANTS
     variants = list(edits) if args.variants is None else args.variants
     sources = dict(s.split("=", 1) for s in args.source)

@@ -12,8 +12,8 @@ max (as the card tests take it); the first query's row is printed apart,
 since there dS = P (dP - D) is only the forward's rounding residue.
 ``--truncating`` also checks a copy of ``csrc/flash_sync_bwd.cu`` whose dP
 sums its split products on the tensor cores alone (without ``mma_rows_rn``'s
-f32 adds: at every head size the tensor cores' own sums, rounded toward
-0). One JSON line per head size;
+f32 adds, and without ``split::s_dp_panel``'s past D 256: at every head size
+the tensor cores' own sums, rounded toward 0). One JSON line per head size;
 about a minute with the builds.
 """
 
@@ -57,14 +57,15 @@ def reference(q, k, v, o, l, m, do, sm: float):
 
 
 # dP's f32 adds (flash_sync.cuh: mma_rows_rn, called by the kernels up to D
-# 256 every RN_STEPS k-steps, and its per-step form past it), and the same
-# products summed into dP on the tensor cores alone: (file, rn text,
-# truncating).
+# 256; flash_sync_bwd.cu: split::s_dp_panel past it), and the same products
+# summed into dP on the tensor cores alone: (file, rn text, truncating).
 TRUNCATING = [
     (SRC, "          mma_split(acc[ni], ", "          mma_split(dp[ni], "),
     (SRC, "      for (int ni = 0; ni < BKV / 8; ++ni) mma_rows_rn(dp[ni], acc[ni]);", ""),
     (SRC, "      for (int ni = 0; ni < BQD / 8; ++ni) mma_rows_rn(dp[ni], acc[ni]);", ""),
-    (SRC, "mma_rows_rn<T>(", "mma_rows<T>("),
+    (SRC, "    wgmma_m64n32k8_tf32(acc, ", "    wgmma_m64n32k8_tf32(dp, "),
+    (SRC, "    wgmma_fence_operand<16>(acc);", "    wgmma_fence_operand<16>(dp);"),
+    (SRC, "    for (int e = 0; e < 16; ++e) dp[e] += acc[e];", ""),
 ]
 
 

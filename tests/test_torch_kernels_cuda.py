@@ -1560,6 +1560,13 @@ _SYNC_CASES = [  # (dtype, D, B, Tq, Tkv, NH, NKV, kv_offset, causal)
     (torch.float16, 512, 2, 256, 256, 4, 2, 0, False),
     (torch.float32, 512, 1, 208, 384, 4, 2, 176, True),
     (torch.float32, 1024, 1, 128, 128, 2, 1, 0, True),
+    # f32 backward past D 256 (flash_sync_bwd.cu: split): ragged q tiles
+    # under a kv_offset window, a 512-column part with 384 columns, two
+    # parts (320 + 256 columns), and chip_smoke's D 320 row.
+    (torch.float32, 320, 2, 208, 384, 4, 2, 176, True),
+    (torch.float32, 384, 1, 256, 256, 4, 2, 0, False),
+    (torch.float32, 576, 1, 128, 256, 4, 1, 128, True),
+    (torch.float32, 320, 1, 2048, 2048, 16, 8, 0, True),
 ]
 # bf16 and fp16 at D 192 and 256: the mma.sync forward, the wgmma backward
 # on its statistics.
@@ -1630,7 +1637,8 @@ def test_flash_wgmma_bwd_on_sync_stats(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off,
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.float32, 320),
-                                     (torch.bfloat16, 320), (torch.float16, 512)])
+                                     (torch.bfloat16, 320), (torch.float16, 512),
+                                     (torch.float32, 512), (torch.float32, 1024)])
 def test_flash_sync_graph_replay_and_determinism(cuda, dtype, D):
     # The mma.sync family: two forward + backward calls on the same inputs
     # are bit-equal (no atomics), and a captured forward + backward
