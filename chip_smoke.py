@@ -81,9 +81,9 @@ exits non-zero without the final line):
            128; GPT-2's shape in f32 (the mma.sync family) and fp16
            (wgmma), where f32 and fp16 also hold the forward without
            statistics, evaluate's; T 2048, NH 16/8 at D 192 and 256 in bf16
-           (the mma.sync forward, the wgmma backward), at D 320 in bf16 and
-           f32 and at D 512 in bf16 (the mma.sync family's column parts),
-           these off the model paths timed on the device alone; every row
+           (wgmma both ways), at D 320 and 512 in bf16 and f32 (the mma.sync
+           family: bf16's column parts, f32's backward on its split
+           kernels), these off the model paths timed on the device alone; every row
            names its family; row errors within 5e-3 of the row's max in f32,
            2e-2 otherwise;
            beside SDPA's forward, its
@@ -1871,8 +1871,8 @@ def phase_train_kernels(bw, peak_ops, rng):
         flash_rows(B, T, NH, NKV, D, rand)
     # The other routes (fa.routes), inputs from their own random stream:
     # GPT-2's shape in f32 (the mma.sync family both ways), Llama-3.2-1B's
-    # GQA heads at T 2048 with head sizes 192 and 256 in bf16 (the mma.sync
-    # forward, the wgmma backward), and GPT-2's shape in fp16 (train fp16's,
+    # GQA heads at T 2048 with head sizes 192 and 256 in bf16 (wgmma both
+    # ways), and GPT-2's shape in fp16 (train fp16's,
     # wgmma both ways); the f32 and fp16 rows also hold evaluate's forward
     # (flash_attention).
     own = np.random.default_rng(23)
@@ -1884,14 +1884,16 @@ def phase_train_kernels(bw, peak_ops, rng):
     for D in (192, 256):
         flash_rows(1, 2048, 16, 8, D, draw, device_only=True)
     flash_rows(8, 1024, 12, 12, 64, draw, torch.float16, plain_entry=True)
-    # Past D 256 (the mma.sync family's column parts both ways) at D 320 in
-    # bf16 and f32 and at D 512 in bf16, from a stream of their own.
+    # Past D 256 (the mma.sync family: bf16 on its column parts both ways,
+    # f32's forward on them and its backward on the 8-warp split kernels)
+    # at D 320 in bf16 and f32 and at D 512 in bf16 and f32, from a stream of
+    # their own.
     wide = np.random.default_rng(26)
 
     def draw_wide(*shape, dtype):
         return torch.from_numpy(wide.standard_normal(shape).astype(np.float32)).to(dev, dtype)
 
-    for D, dtype in ((320, bf16), (320, torch.float32), (512, bf16)):
+    for D, dtype in ((320, bf16), (320, torch.float32), (512, bf16), (512, torch.float32)):
         flash_rows(1, 2048, 16, 8, D, draw_wide, dtype, device_only=True)
 
     # K12 on wte (50304 x 768 = 38.6M elements): bf16 param and grad, f32

@@ -6,7 +6,7 @@
 // (D >= 128) and _fa_kernel_t (D < 128), entry flash_attention ->
 // _flash_attention_forward, with and without save_stats (below). The
 // TPU's transposed layout for D < 128 exists for its 128-lane matrix unit
-// only; here one kernel serves D 64 and 128.
+// only; here one kernel serves D 64, 128, 192 and 256.
 //
 // Bound on the H100: tensor-core operations at prefill lengths (4 Tq Tkv D
 // per head, about half skipped by the causal tiles, against Tq + 2 Tkv rows
@@ -28,16 +28,26 @@
 //     registers (row max and sum over the 4 lanes of a row); O += P V as
 //     wgmma with P in registers (S's accumulator packs into P's A fragment
 //     without a shuffle) and V read MN-major (the transpose bit): m64n64k16
-//     at D 64, m64n128k16 at D 128.
+//     at D 64, m64n128k16 at D 128, two or three products past it.
 //   Each consumer issues S of tile j, rescales O while it runs, issues P V
 //     of tile j - 1 behind it, and runs tile j's softmax once S is in. The
 //     two warpgroups take turns to issue (two named barriers), so one's
 //     softmax runs under the other's products. (ptxas issues the wait for
 //     P V before the softmax, not after it: forcing it after, behind a
 //     branch, measured slower; tools/flash_variants.)
-// BKV is 128 at D 64 and 64 at D 128: S, O and the last tile's P live at
+// BKV is 128 at D 64 and 64 from D 128: S, O and the last tile's P live at
 // once, and at D 128 with 128-key tiles they would need more than the 168
 // registers a thread has under one 288-thread block per SM (ptxas spills).
+// At D 192 and 256 (flash_fwd_wide_kernel), O alone takes 96 and 128 of
+// them: the block runs the two consumer warpgroups alone (256 threads, 255
+// registers a thread) and one consumer thread issues the loads; the ring
+// keeps 3 and 2 stages beside the 48 and 64 KB q tile, and at D 256 P V of
+// a tile goes right after its softmax, freeing its stage a turn earlier.
+// (Measured on the card, tools/flash_variants, bf16 at T 2048: a producer
+// warpgroup handing its registers to the consumers with setmaxnreg left
+// ptxas at 168 registers a thread, spilling, 0.26 ms at D 256; a producer
+// warp, 0.37; this, 0.13. K and V in rings of their own ran 14-42 %
+// slower; 32-key tiles at D 256, 20 %.)
 // The softmax keeps the row max m of the raw scores q.k and folds sm_scale *
 // log2(e) into one FFMA per score: p = 2^(s c - m c) with c = sm_scale *
 // log2(e), which is exp(s sm_scale - m sm_scale).
@@ -60,9 +70,9 @@
 // as it stands: wgmma's .f16 form reads the same fragments, descriptors and
 // transpose bits, TMA's FLOAT16 maps the same boxes.
 //
-// Built in three parts (kernels/_build.py: PARTS), one nvcc each: parts 1
-// and 2 instantiate the bf16 and fp16 kernels, part 0 holds the C entry
-// point.
+// Built in five parts (kernels/_build.py: PARTS), one nvcc each: parts 1
+// and 2 instantiate the bf16 and fp16 kernels at D 64 and 128, parts 3 and 4
+// at D 192 and 256, part 0 holds the C entry point.
 #include "common.cuh"
 #include "mma.cuh"
 #include "sm90.cuh"
@@ -79,28 +89,36 @@ struct Call {
   cudaStream_t stream;
 };
 
-int run_bf16(const Call& c);
+int run_bf16(const Call& c);       // D 64, 128
 int run_f16(const Call& c);
+int run_bf16_wide(const Call& c);  // D 192, 256
+int run_f16_wide(const Call& c);
 
 }  // namespace fwd_parts
 
 namespace {
 
 constexpr int BQ = 128;
-constexpr int THREADS = 288;  // warpgroups 0-1 consume, warp 8 loads
+constexpr int THREADS = 288;  // warpgroups 0-1 consume, warp 8 loads (D 64, 128)
 constexpr int CONSUMERS = 256;
+constexpr int ISSUER = 128;   // past D 128: no producer warp, this consumer thread loads
 constexpr int SCHED = 1;  // named barriers SCHED + wg: warpgroup wg's turn to issue
 constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
 
 // BKV keys per K/V tile (see above). A panel is 64 columns (128 bytes) of a
-// tile's rows.
+// tile's rows. NT stages of the K/V ring: past D 128, what fits beside the
+// 48 or 64 KB q tile in 227 KB.
 template <int D>
 struct Cfg {
   static constexpr int BKV = D == 64 ? 128 : 64;
   static constexpr int PANELS = D / 64;
   static constexpr int Q_PANEL = BQ * 128, KV_PANEL = BKV * 128;
   static constexpr int Q_TILE = PANELS * Q_PANEL, KV_TILE = PANELS * KV_PANEL;
-  static constexpr int NT = D == 64 ? 3 : 4;  // stages of the K/V ring
+  static constexpr int NT = D == 64 ? 3 : D == 128 ? 4 : D == 192 ? 3 : 2;
+  // Past D 128: P V of tile j - 1 issued beside S of tile j (D 192), or P V
+  // of tile j right after its softmax, in a turn of its own, which frees the
+  // tile's stage a turn earlier (D 256, where the ring holds 2 stages).
+  static constexpr bool PV_BEHIND = D != 256;
   static constexpr int SMEM = Q_TILE + NT * 2 * KV_TILE + (2 * NT + 1) * 8 + 1024;
 };
 
@@ -137,18 +155,28 @@ __device__ __forceinline__ void issue_s(float* sc, const unsigned char* qw,
 }
 
 // O += T(P) V for one V tile (vt): BKV / 16 k-slices of 16 keys, 2048
-// bytes apart in V's panels; LBO the bytes between V's 64-column panels.
+// bytes apart in V's panels; LBO the bytes between V's 64-column panels. Past
+// D 128, O's columns in products of 128 (two panels) and, at D 192, one of
+// 64: o[64 n ..] holds columns 128 n.. as one product's fragment would.
 template <typename T, int D>
 __device__ __forceinline__ void issue_pv(float* o, const uint32_t (*pa)[4],
                                          const unsigned char* vt) {
   using C = Cfg<D>;
 #pragma unroll
   for (int kk = 0; kk < C::BKV / 16; ++kk) {
-    const uint64_t b = wgmma_desc(vt + 2048 * kk, C::KV_PANEL, 1024);
-    if constexpr (D == 64)
-      wgmma_m64n64k16_rs<T, 1>(o, pa[kk], b, 1);
-    else
-      wgmma_m64n128k16_rs<T, 1>(o, pa[kk], b, 1);
+    const unsigned char* vk = vt + 2048 * kk;
+    if constexpr (D == 64) {
+      wgmma_m64n64k16_rs<T, 1>(o, pa[kk], wgmma_desc(vk, C::KV_PANEL, 1024), 1);
+    } else {
+#pragma unroll
+      for (int n = 0; n < D / 128; ++n)
+        wgmma_m64n128k16_rs<T, 1>(o + 64 * n, pa[kk],
+                                  wgmma_desc(vk + 2 * n * C::KV_PANEL, C::KV_PANEL, 1024), 1);
+      if constexpr (D % 128)
+        wgmma_m64n64k16_rs<T, 1>(o + 64 * (D / 128), pa[kk],
+                                 wgmma_desc(vk + 2 * (D / 128) * C::KV_PANEL, C::KV_PANEL, 1024),
+                                 1);
+    }
   }
   wgmma_commit();
 }
@@ -214,6 +242,33 @@ __device__ __forceinline__ void pack_p(uint32_t (*pa)[4], const float* sc) {
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       pa[kk][r] = pack2_as<T>(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+}
+
+// The rows' output O / l (l == 0 taken as 1) and, with l_out, l and m (of
+// the scaled scores): this thread's rows r0 and r0 + 8, l summed over the 4
+// lanes of a row first.
+template <typename T, int D>
+__device__ __forceinline__ void store_out(const float* o, const float* m, float* l, T* out,
+                                          float* l_out, float* m_out, int r0, int t, int b, int h,
+                                          int Tq, int NH, float sm_scale) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+    const int row = r0 + 8 * hr;
+    if (row >= Tq) continue;
+    const float inv = l[hr] == 0.f ? 1.f : 1.f / l[hr];
+    if (l_out != nullptr && t == 0) {  // the backward's row statistics
+      const size_t srow = ((size_t)b * NH + h) * Tq + row;
+      l_out[srow] = l[hr];
+      m_out[srow] = m[hr] * sm_scale;
+    }
+    T* orow = out + ((size_t)b * Tq + row) * NH * D + (size_t)h * D;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+      *reinterpret_cast<uint32_t*>(orow + 8 * jj + 2 * t) =
+          pack2_as<T>(o[4 * jj + 2 * hr] * inv, o[4 * jj + 2 * hr + 1] * inv);
+  }
 }
 
 template <typename T, int D>
@@ -339,24 +394,160 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant_
     mbar_arrive(&empty[sp]);
   }
 
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
-    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
-    const int row = r0 + 8 * hr;
-    if (row >= Tq) continue;
-    const float inv = l[hr] == 0.f ? 1.f : 1.f / l[hr];
-    if (l_out != nullptr && t == 0) {  // the backward's row statistics
-      const size_t srow = ((size_t)b * NH + h) * Tq + row;
-      l_out[srow] = l[hr];
-      m_out[srow] = m[hr] * sm_scale;
-    }
-    T* orow = out + ((size_t)b * Tq + row) * NH * D + (size_t)h * D;
-#pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj)
-      *reinterpret_cast<uint32_t*>(orow + 8 * jj + 2 * t) =
-          pack2_as<T>(o[4 * jj + 2 * hr] * inv, o[4 * jj + 2 * hr + 1] * inv);
+  store_out<T, D>(o, m, l, out, l_out, m_out, r0, t, b, h, Tq, NH, sm_scale);
+}
+
+// Past D 128 (D 192 and 256): the same two consumer warpgroups taking the
+// same turns, but no producer warp: 256 threads may hold 255 registers
+// each (O alone takes D / 2). Thread ISSUER (in warpgroup 1, which issues
+// second in each turn) loads the q tile and the first NT K/V tiles, then at
+// the end of each turn the tile whose stage both warpgroups' P V has just
+// freed.
+template <typename T, int D>
+__global__ void __launch_bounds__(CONSUMERS, 1)
+flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tmq,
+                      const __grid_constant__ CUtensorMap tmk,
+                      const __grid_constant__ CUtensorMap tmv, T* __restrict__ out,
+                      float* __restrict__ l_out, float* __restrict__ m_out, int Tq, int Tkv,
+                      int NH, int NKV, float sm_scale, int kv_offset, int causal) {
+  using C = Cfg<D>;
+  constexpr int NT = C::NT, BKV = C::BKV, KV_TILE = C::KV_TILE;
+  constexpr int NO = D / 2, NS = BKV / 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (sm90_smem(smem_raw) & 1023)) & 1023);
+  unsigned char* qs = smem;
+  unsigned char* ks = qs + C::Q_TILE;
+  unsigned char* vs = ks + NT * KV_TILE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + NT * KV_TILE);
+  uint64_t* empty = full + NT;
+  uint64_t* q_full = empty + NT;
+
+  const int tid = threadIdx.x;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (NH / NKV);
+  const int q0 = qt * BQ;
+  int n_kv = Tkv / BKV;
+  if (causal) {
+    const int last = q0 + BQ - 1 + kv_offset;
+    n_kv = last < 0 ? 0 : min(n_kv, last / BKV + 1);
   }
+  if (tid == 0) {
+    for (int s = 0; s < NT; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_init(q_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  auto load_kv = [&](int j) {  // K/V tile j into stage j % NT, once it is free
+    const int s = j % NT;
+    if (j >= NT) mbar_wait(&empty[s], (j / NT - 1) & 1);
+    mbar_expect_tx(&full[s], 2 * KV_TILE);
+#pragma unroll
+    for (int p = 0; p < C::PANELS; ++p) {
+      const int col = hk * D + 64 * p;
+      tma_load_3d(ks + s * KV_TILE + p * C::KV_PANEL, &tmk, &full[s], col, j * BKV, b);
+      tma_load_3d(vs + s * KV_TILE + p * C::KV_PANEL, &tmv, &full[s], col, j * BKV, b);
+    }
+  };
+  if (tid == ISSUER) {
+    mbar_expect_tx(q_full, C::Q_TILE);
+#pragma unroll
+    for (int p = 0; p < C::PANELS; ++p)
+      tma_load_3d(qs + p * C::Q_PANEL, &tmq, q_full, h * D + 64 * p, q0, b);
+    for (int j = 0; j < min(NT, n_kv); ++j) load_kv(j);
+  }
+
+  const int wg = tid >> 7, lane = tid & 31, w = (tid >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = q0 + 64 * wg + 16 * w;
+  const int r0 = wrow + g;
+  const float c = sm_scale * 1.4426950408889634f;
+  const unsigned char* qw = qs + wg * 64 * 128;
+
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float alpha[2];
+  uint32_t pa[BKV / 16][4];
+  mbar_wait(q_full, 0);
+  if (n_kv > 0 && !C::PV_BEHIND) {
+    // P V of tile j right after its softmax, each product in a turn of its
+    // own, so tile j's stage comes free a turn earlier.
+    if (wg == 1) sched_pass(wg);
+    for (int j = 0; j < n_kv; ++j) {
+      float sc[NS];
+      const int s = j % NT;
+      mbar_wait(&full[s], (j / NT) & 1);
+      sched_wait(wg);
+      wgmma_fence();
+      issue_s<T, D>(sc, qw, ks + s * KV_TILE);
+      sched_pass(wg);
+      wgmma_wait<0>();
+      wgmma_fence_operand<NS>(sc);
+      softmax_tile<BKV>(sc, m, l, alpha, j * BKV, wrow, r0, t, kv_offset, causal, c);
+      pack_p<T, BKV>(pa, sc);
+      rescale_o<NO>(o, alpha);
+      sched_wait(wg);
+      wgmma_fence_operand<NO>(o);
+      wgmma_fence();
+      issue_pv<T, D>(o, pa, vs + s * KV_TILE);
+      if (wg == 0 || j + 1 < n_kv) sched_pass(wg);  // warpgroup 1 passed first
+      wgmma_wait<0>();
+      wgmma_fence_operand<NO>(o);
+      mbar_arrive(&empty[s]);
+      if (tid == ISSUER && j + NT < n_kv) load_kv(j + NT);
+    }
+  } else if (n_kv > 0) {
+    if (wg == 1) sched_pass(wg);
+    {
+      float sc[NS];
+      mbar_wait(&full[0], 0);
+      sched_wait(wg);
+      wgmma_fence();
+      issue_s<T, D>(sc, qw, ks);
+      sched_pass(wg);
+      wgmma_wait<0>();
+      wgmma_fence_operand<NS>(sc);
+      softmax_tile<BKV>(sc, m, l, alpha, 0, wrow, r0, t, kv_offset, causal, c);
+      pack_p<T, BKV>(pa, sc);
+    }
+    for (int j = 1; j < n_kv; ++j) {
+      float sc[NS];
+      const int s = j % NT, sp = (j - 1) % NT;
+      mbar_wait(&full[s], (j / NT) & 1);
+      sched_wait(wg);
+      wgmma_fence();
+      issue_s<T, D>(sc, qw, ks + s * KV_TILE);
+      rescale_o<NO>(o, alpha);
+      wgmma_fence_operand<NO>(o);
+      wgmma_fence();
+      issue_pv<T, D>(o, pa, vs + sp * KV_TILE);
+      sched_pass(wg);
+      wgmma_wait<1>();
+      wgmma_fence_operand<NS>(sc);
+      softmax_tile<BKV>(sc, m, l, alpha, j * BKV, wrow, r0, t, kv_offset, causal, c);
+      wgmma_wait<0>();
+      wgmma_fence_operand<NO>(o);
+      mbar_arrive(&empty[sp]);
+      if (tid == ISSUER && j - 1 + NT < n_kv) load_kv(j - 1 + NT);
+      pack_p<T, BKV>(pa, sc);
+    }
+    const int sp = (n_kv - 1) % NT;
+    sched_wait(wg);
+    rescale_o<NO>(o, alpha);
+    wgmma_fence_operand<NO>(o);
+    wgmma_fence();
+    issue_pv<T, D>(o, pa, vs + sp * KV_TILE);
+    if (wg == 0) sched_pass(wg);
+    wgmma_wait<0>();
+    wgmma_fence_operand<NO>(o);
+  }
+  store_out<T, D>(o, m, l, out, l_out, m_out, r0, t, b, h, Tq, NH, sm_scale);
 }
 
 template <typename T, int D>
@@ -369,7 +560,13 @@ int launch(const fwd_parts::Call& c) {
       !encode_3d(&tmk, ty, 2, c.k, c.B, c.Tkv, (uint64_t)c.NKV * D, C::BKV, 64, sw) ||
       !encode_3d(&tmv, ty, 2, c.v, c.B, c.Tkv, (uint64_t)c.NKV * D, C::BKV, 64, sw))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = flash_fwd_kernel<T, D>;
+  const auto kern = [] {
+    if constexpr (D <= 128)
+      return flash_fwd_kernel<T, D>;
+    else
+      return flash_fwd_wide_kernel<T, D>;
+  }();
+  constexpr int threads = D <= 128 ? THREADS : CONSUMERS;
   static bool sized[64] = {};
   int dev = 0;
   cudaGetDevice(&dev);
@@ -379,7 +576,7 @@ int launch(const fwd_parts::Call& c) {
     if (dev < 64) sized[dev] = true;
   }
   dim3 grid((c.Tq + BQ - 1) / BQ, c.NH, c.B);
-  kern<<<grid, THREADS, C::SMEM, c.stream>>>(tmq, tmk, tmv, static_cast<T*>(c.out), c.l_out,
+  kern<<<grid, threads, C::SMEM, c.stream>>>(tmq, tmk, tmv, static_cast<T*>(c.out), c.l_out,
                                              c.m_out, c.Tq, c.Tkv, c.NH, c.NKV, c.sm_scale,
                                              c.kv_offset, c.causal);
   return static_cast<int>(cudaGetLastError());
@@ -392,6 +589,13 @@ int by_d(const fwd_parts::Call& c) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename T>
+int by_d_wide(const fwd_parts::Call& c) {
+  if (c.D == 192) return launch<T, 192>(c);
+  if (c.D == 256) return launch<T, 256>(c);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 #if IN_PART(1)
@@ -400,18 +604,24 @@ int fwd_parts::run_bf16(const Call& c) { return by_d<__nv_bfloat16>(c); }
 #if IN_PART(2)
 int fwd_parts::run_f16(const Call& c) { return by_d<__half>(c); }
 #endif
+#if IN_PART(3)
+int fwd_parts::run_bf16_wide(const Call& c) { return by_d_wide<__nv_bfloat16>(c); }
+#endif
+#if IN_PART(4)
+int fwd_parts::run_f16_wide(const Call& c) { return by_d_wide<__half>(c); }
+#endif
 
 #if IN_PART(0)
 
 // q [B, Tq, NH, D], k and v [B, Tkv, NKV, D], out [B, Tq, NH, D], of one type
 // (dtype: 1 bf16, 2 fp16), contiguous, with 16-byte-aligned bases (TMA).
-// Needs D in {64, 128}, Tkv % 128 == 0 and NH % NKV == 0 (checked by the
-// Python wrapper). causal != 0 masks key j for query i unless j <= i +
+// Needs D in {64, 128, 192, 256}, Tkv % 128 == 0 and NH % NKV == 0 (checked
+// by the Python wrapper). causal != 0 masks key j for query i unless j <= i +
 // kv_offset. l_out and m_out are null (the primal launch) or f32 [B, NH,
 // Tq]: each row's softmax sum l and max m (of the scaled scores), the
 // statistics flash_bwd recomputes p from. Returns a cudaError_t
-// (cudaErrorInvalidValue when a TMA descriptor cannot be encoded, D is not
-// 64 or 128 or dtype is neither).
+// (cudaErrorInvalidValue when a TMA descriptor cannot be encoded, D is none
+// of those or dtype is neither).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out, void* l_out,
                          void* m_out, int B, int Tq, int Tkv, int NH, int NKV, int D, int dtype,
                          float sm_scale, int kv_offset, int causal, void* stream) {
@@ -419,8 +629,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
   const fwd_parts::Call c{q,  k,   v, out, static_cast<float*>(l_out), static_cast<float*>(m_out),
                           B,  Tq,  Tkv, NH, NKV, D, sm_scale, kv_offset, causal,
                           static_cast<cudaStream_t>(stream)};
-  if (dtype == 1) return fwd_parts::run_bf16(c);
-  if (dtype == 2) return fwd_parts::run_f16(c);
+  const bool wide = D > 128;
+  if (dtype == 1) return wide ? fwd_parts::run_bf16_wide(c) : fwd_parts::run_bf16(c);
+  if (dtype == 2) return wide ? fwd_parts::run_f16_wide(c) : fwd_parts::run_f16(c);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 #endif  // IN_PART(0)

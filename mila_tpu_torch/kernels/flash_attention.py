@@ -18,25 +18,26 @@ layer at T 4096, 32 heads).
 What bounds it on the H100: tensor-core operations (4 * Tq * Tkv * D per
 head, about half of them skipped by the causal tiles) against Tq + 2 Tkv
 rows of D bf16 or fp16 values, and at D 64 nearly as much the exponentials.
-The CUDA kernel (``csrc/flash_fwd.cu``, bf16 and fp16 at D 64 and 128) runs
+The CUDA kernel (``csrc/flash_fwd.cu``, bf16 and fp16 at D 64-256) runs
 a block per (128 query rows, head, batch row): one thread streams the q
-tile and the K/V tiles (128 keys at D 64, 64 at D 128) through shared
+tile and the K/V tiles (128 keys at D 64, else 64) through shared
 memory with TMA (3-D maps, 128-byte swizzle, a ring of mbarriers), and two
 warpgroups of 64 query rows each run S = Q K^T and O += P V on ``wgmma``
 (P from registers), taking turns so that one's online softmax in f32 (one
-FFMA and one ``ex2`` per score) runs under the other's products. The
-wrapper encodes the three TMA descriptors per call, so a CUDA graph
+FFMA and one ``ex2`` per score) runs under the other's products; at D 192
+and 256 a producer warpgroup hands its registers to them (``setmaxnreg``).
+The wrapper encodes the three TMA descriptors per call, so a CUDA graph
 replays valid ones; a base that is not 16-byte aligned is copied first.
 
-The other types and head sizes that the gate admits (bf16 and fp16 at D 192
-and 256, f32 at every D, bf16 and fp16 past D 256) launch the simple
-``mma.sync`` family (``csrc/flash_sync_fwd.cu``, 4 warps of 16 query rows,
-K/V tiles through ``cp.async``; f32 on tf32 products with f32 sums,
-ROADMAP §C.2; past D 256 a block owns a column part of O and streams Q and
-K in 64-column panels). The backward takes the ``wgmma`` kernels for bf16
-and fp16 up to D 256 (on either forward's statistics) and
-``csrc/flash_sync_bwd.cu`` for the rest, its dP on split tf32 operands in
-f32. ``routes`` names the family of each pass.
+The other types and head sizes that the gate admits (f32 at every D, bf16
+and fp16 past D 256) launch the simple ``mma.sync`` family
+(``csrc/flash_sync_fwd.cu``, 4 warps of 16 query rows, K/V tiles through
+``cp.async``; f32 on tf32 products with f32 sums, ROADMAP §C.2; past D 256
+a block owns a column part of O and streams Q and K in 64-column panels).
+The backward takes the ``wgmma`` kernels for bf16 and fp16 up to D 256
+and ``csrc/flash_sync_bwd.cu`` for the rest, its dP on split tf32 operands
+in f32 (f32 past D 256 on 8-warp blocks that form S and dP once a tile).
+``routes`` names the family of each pass.
 
 Semantics kept from the TPU kernel: the causal tile skip with
 ``kv_offset``, masked scores at -0.7 * f32max, p rounded to V's dtype
@@ -70,7 +71,7 @@ _KV_TILE = 128  # Tkv's multiple: csrc/flash_fwd.cu's key tiles are 128 or 64 ke
 # the mma.sync family (csrc/flash_sync_*.cu) takes the rest of the types in
 # _build.DTYPE_CODES at every D % 64 == 0.
 WGMMA_TYPES = (torch.bfloat16, torch.float16)
-WGMMA_FWD_DIMS = (64, 128)
+WGMMA_FWD_DIMS = (64, 128, 192, 256)
 WGMMA_BWD_DIMS = (64, 128, 192, 256)
 
 

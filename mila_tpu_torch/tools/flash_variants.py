@@ -2,6 +2,7 @@
 variants of it, on the GPU, at the shapes ``chip_smoke.py`` gives its rows.
 
     python -m mila_tpu_torch.tools.flash_variants [--variants committed ...]
+        [--source NAME=PATH ...] [--shapes ...] [--dtype bf16|fp16]
 
 Each variant is a copy of the source (and its headers) with edits,
 compiled with the package's nvcc flags into ``csrc/build/``; its ptxas
@@ -10,8 +11,13 @@ line: each variant's worst row error against the plain version (each (b,
 t, head) row of the output against its own largest value; with
 statistics, l's relative and m's absolute error too), its median ms per
 launch (CUDA events around 10 launches, 5 repeats) and causal TFLOP/s, beside
-``scaled_dot_product_attention`` on the same inputs. Needs a CUDA device
-and nvcc.
+``scaled_dot_product_attention`` on the same inputs. ``--source`` adds a
+whole other ``flash_fwd.cu`` or ``flash_sync_fwd.cu`` (the entry it
+exports decides how it is called; the ``*.cuh`` files beside it, where
+there are any, replace the package's) as a variant named NAME: an earlier
+commit's source (``git show <commit>:mila_tpu_torch/csrc/flash_sync_fwd.cu``
+into a directory ``.gitignore`` lists) times the route it took there.
+Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import json
 import re
 import statistics
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -73,6 +80,12 @@ VARIANTS = {  # name -> [(file, old text, new text)]
     "no_rescale": [(SRC, "(float* o, const float* alpha) {\n", "(float* o, const float* alpha) {\n  return;\n")],
     # a deeper K/V ring
     "more_stages": [(SRC, "NT = D == 64 ? 3 : 4;", "NT = D == 64 ? 5 : 6;")],
+    # D 192 and 256: P V of a tile beside S of the next (at both), or right
+    # after its own softmax (at both)
+    "pv_behind": [(SRC, "static constexpr bool PV_BEHIND = D != 256;",
+                   "static constexpr bool PV_BEHIND = true;")],
+    "pv_after": [(SRC, "static constexpr bool PV_BEHIND = D != 256;",
+                  "static constexpr bool PV_BEHIND = false;")],
     # 128-key tiles at D 128 too (S, O and P then exceed the registers)
     "bkv128": [(SRC, "BKV = D == 64 ? 128 : 64;", "BKV = 128;"),
                (SRC, "NT = D == 64 ? 3 : 4;", "NT = D == 64 ? 3 : 2;")],
@@ -87,28 +100,43 @@ SHAPES = {
     "stats_B8_T1024": (8, 1024, 1024, 12, 12, 64, True),
     "stats_gqa_B2_T2048": (2, 2048, 2048, 32, 8, 64, True),
     "stats_D128_T2048": (1, 2048, 2048, 24, 8, 128, True),
+    # chip_smoke's D 192 and 256 rows (Llama-3.2-1B's GQA heads at T 2048)
+    "D192_T2048": (1, 2048, 2048, 16, 8, 192, False),
+    "D256_T2048": (1, 2048, 2048, 16, 8, 256, False),
+    "stats_D192_T2048": (1, 2048, 2048, 16, 8, 192, True),
+    "stats_D256_T2048": (1, 2048, 2048, 16, 8, 256, True),
 }
+SYNC_ENTRY = "flash_sync_fwd"  # a --source exporting it is called as that entry
 
 
-def build(names) -> dict:
-    """Compile a copy of flash_fwd.cu per variant with its edits applied
-    (the headers copied beside it), one nvcc each, all at once."""
+def build(names, sources=None) -> dict:
+    """Compile a copy of flash_fwd.cu per variant with its edits applied, or
+    the given source (name -> path), the headers copied beside it, one nvcc
+    each, all at once. Returns name -> (library, its entry function)."""
     procs = {}
-    for name in names:
+    sources = sources or {}
+    heads = {f.name: f.read_text() for f in _build.CSRC.glob("*.cuh")}
+    for name in [*names, *sources]:
         vdir = _build.BUILD_DIR / f"flash_variant_{name}"
         vdir.mkdir(parents=True, exist_ok=True)
-        texts = {f.name: f.read_text() for f in [_build.CSRC / SRC, *_build.CSRC.glob("*.cuh")]}
-        for fname, old, new in VARIANTS[name]:
-            if old not in texts[fname]:
-                raise RuntimeError(f"variant {name}: {fname} no longer has {old!r}")
-            texts[fname] = texts[fname].replace(old, new)
+        if name in sources:  # its own headers where they sit beside it
+            path = Path(sources[name])
+            texts = {**heads, **{f.name: f.read_text() for f in path.parent.glob("*.cuh")},
+                     SRC: path.read_text()}
+        else:
+            texts = {**heads, SRC: (_build.CSRC / SRC).read_text()}
+            for fname, old, new in VARIANTS[name]:
+                if old not in texts[fname]:
+                    raise RuntimeError(f"variant {name}: {fname} no longer has {old!r}")
+                texts[fname] = texts[fname].replace(old, new)
         for fname, text in texts.items():
             (vdir / fname).write_text(text)
-        procs[name] = subprocess.Popen(
+        entry = SYNC_ENTRY if f'extern "C" int {SYNC_ENTRY}(' in texts[SRC] else "flash_fwd"
+        procs[name] = (subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(vdir / "libflash.so"), str(vdir / SRC)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT), entry)
     libs = {}
-    for name, proc in procs.items():
+    for name, (proc, entry) in procs.items():
         log = proc.communicate()[0].decode()
         if proc.returncode:
             raise RuntimeError(f"variant {name}: nvcc failed\n{log[-3000:]}")
@@ -117,9 +145,10 @@ def build(names) -> dict:
         print(json.dumps({"variant": name, "ptxas": ptxas}), flush=True)
         lib = ctypes.CDLL(str(_build.BUILD_DIR / f"flash_variant_{name}" / "libflash.so"))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.flash_fwd.argtypes = [vp] * 6 + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
-        lib.flash_fwd.restype = ci
-        libs[name] = lib
+        fn = getattr(lib, entry)
+        fn.argtypes = [vp] * 6 + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
+        fn.restype = ci
+        libs[name] = (fn, entry)
     return libs
 
 
@@ -149,15 +178,19 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", nargs="+", default=list(VARIANTS), choices=list(VARIANTS))
     ap.add_argument("--shapes", nargs="+", default=list(SHAPES), choices=list(SHAPES))
+    ap.add_argument("--source", nargs="*", default=[], metavar="NAME=PATH",
+                    help="a whole other flash_fwd.cu or flash_sync_fwd.cu, timed as NAME")
+    ap.add_argument("--dtype", default="bf16", choices=["bf16", "fp16"])
     args = ap.parse_args()
-    libs = build(args.variants)
+    dtype = {"bf16": torch.bfloat16, "fp16": torch.float16}[args.dtype]
+    libs = build(args.variants, dict(s.split("=", 1) for s in args.source))
     rng = np.random.default_rng(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for name in args.shapes:
         B, Tq, Tkv, NH, NKV, D, stats = SHAPES[name]
         off = Tkv - Tq
         q, k, v = (torch.from_numpy(rng.standard_normal((B, T, n, D)).astype(np.float32))
-                   .to("cuda", torch.bfloat16) for T, n in ((Tq, NH), (Tkv, NKV), (Tkv, NKV)))
+                   .to("cuda", dtype) for T, n in ((Tq, NH), (Tkv, NKV), (Tkv, NKV)))
         sm = D ** -0.5
         o_ref, l_ref, m_ref = fa.flash_attention_plain(q, k, v, scale=sm, kv_offset=off,
                                                        save_stats=True)
@@ -166,13 +199,12 @@ def main() -> None:
         m = torch.empty_like(l) if stats else None
         stream = _build.stream_of(q)
         pairs = B * NH * sum(min(Tkv, i + off + 1) for i in range(Tq))
-        row = {"shape": name, "card": torch.cuda.get_device_name(0)}
-        for vname, lib in libs.items():
-            def call(lib=lib, vname=vname):
-                rc = lib.flash_fwd(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-                                   None if l is None else _build.ptr(l),
-                                   None if m is None else _build.ptr(m), B, Tq, Tkv, NH, NKV, D,
-                                   _build.DTYPE_CODES[torch.bfloat16], sm, off, 1, stream)
+        row = {"shape": name, "dtype": args.dtype, "card": torch.cuda.get_device_name(0)}
+        for vname, (fn, entry) in libs.items():
+            def call(fn=fn, vname=vname):
+                rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+                        None if l is None else _build.ptr(l), None if m is None else _build.ptr(m),
+                        B, Tq, Tkv, NH, NKV, D, _build.DTYPE_CODES[dtype], sm, off, 1, stream)
                 if rc:
                     raise RuntimeError(f"{vname}: CUDA error {rc}")
             for t in (out, l, m):  # nothing left over from the variant before
@@ -180,7 +212,7 @@ def main() -> None:
                     t.fill_(float("nan"))
             call()
             torch.cuda.synchronize()
-            res = {"row_err": row_err(out, o_ref)}  # inf where the output is not finite
+            res = {"entry": entry, "row_err": row_err(out, o_ref)}  # inf if not finite
             if stats:
                 res["l_rel_err"] = ((l - l_ref).abs() / l_ref).max().item()
                 res["m_abs_err"] = (m - m_ref).abs().max().item()

@@ -81,3 +81,18 @@ def test_each_part_holds_code(name):
     text = (_build.CSRC / f"{name}.cu").read_text() + (_build.CSRC / "common.cuh").read_text()
     named = {int(k) for k in re.findall(r"IN_PART\((\d+)\)", text)}
     assert named == set(range(_build.PARTS[name]))
+
+
+@pytest.mark.parametrize("name,part,entry", [
+    ("flash_fwd", 1, "run_bf16"), ("flash_fwd", 2, "run_f16"),
+    ("flash_fwd", 3, "run_bf16_wide"), ("flash_fwd", 4, "run_f16_wide"),
+    ("flash_sync_bwd", 1, "run_f32"), ("flash_sync_bwd", 4, "run_f32_split"),
+])
+def test_flash_parts_split_the_instantiations(name, part, entry):
+    # The flash sources' heavy instantiations compile in parts of their own:
+    # the wgmma forward's D 192/256 kernels apart from D 64/128 per type, the
+    # f32 backward past D 256 apart from D 64-256. Each entry is defined in
+    # the #if block of its part.
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    block = re.search(rf"#if IN_PART\({part}\)\n(.*?)#endif", text, re.S)
+    assert block is not None and f"::{entry}(const Call& c)" in block.group(1)

@@ -84,17 +84,21 @@ def test_flash_attention_wide_heads_match_jax(D, dt):
     (torch.float16, 64, ("wgmma", "wgmma")),
     (torch.float16, 128, ("wgmma", "wgmma")),
     (torch.bfloat16, 64, ("wgmma", "wgmma")),
-    (torch.bfloat16, 256, ("sync", "wgmma")),
-    (torch.float16, 192, ("sync", "wgmma")),
+    (torch.bfloat16, 192, ("wgmma", "wgmma")),
+    (torch.bfloat16, 256, ("wgmma", "wgmma")),
+    (torch.float16, 192, ("wgmma", "wgmma")),
+    (torch.float16, 256, ("wgmma", "wgmma")),
     (torch.float32, 64, ("sync", "sync")),
     (torch.float32, 256, ("sync", "sync")),
+    (torch.float32, 320, ("sync", "sync")),
+    (torch.float32, 512, ("sync", "sync")),
     (torch.bfloat16, 320, ("sync", "sync")),
     (torch.float32, 1024, ("sync", "sync")),
 ])
 def test_routes_by_type_and_head_size(dtype, D, want):
     # The card's kernel family of the forward and of the backward: the
-    # wgmma kernels take bf16 and fp16, the forward at D 64 and 128, the
-    # backward up to 256; the mma.sync family the rest of the gate.
+    # wgmma kernels take bf16 and fp16 both ways up to D 256; the mma.sync
+    # family the rest of the gate (f32 past D 256 on its 8-warp kernels).
     assert tfa.routes(dtype, D) == want
 
 

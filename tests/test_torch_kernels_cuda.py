@@ -1311,6 +1311,10 @@ def test_int4_decode_entries_route_to_the_int4_kernel(cuda):
     (3, 208, 384, 4, 2, 64, 176, True),  # a ragged q tile in a middle batch row
     (3, 208, 384, 4, 2, 128, 176, True),
     (8, 1024, 1024, 12, 12, 64, 0, True),  # GPT-2's training shape
+    (1, 512, 512, 4, 2, 192, 0, True),  # D 192 and 256: 384 threads, setmaxnreg
+    (2, 208, 384, 8, 2, 256, 176, True),  # ragged q tiles, kv_offset
+    (2, 256, 384, 8, 2, 192, 0, False),
+    (1, 1024, 1024, 16, 8, 256, 0, True),  # 2 ring stages over 16 key tiles
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_flash_kernel(cuda, B, Tq, Tkv, NH, NKV, D, off, causal, dtype):
@@ -1339,6 +1343,9 @@ def test_flash_kernel(cuda, B, Tq, Tkv, NH, NKV, D, off, causal, dtype):
     (1, 1024, 24, 8, 128, 0, True),  # D 128
     (3, 208, 4, 2, 64, 176, True),  # ragged q tiles, kv_offset (Tkv 384)
     (2, 256, 8, 2, 128, 0, False),
+    (1, 1024, 16, 8, 192, 0, True),  # D 192 and 256 (chip_smoke's heads)
+    (3, 208, 4, 2, 256, 176, True),
+    (2, 256, 8, 2, 256, 0, False),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_flash_stats_kernel(cuda, B, T, NH, NKV, D, off, causal, dtype):
@@ -1362,7 +1369,9 @@ def test_flash_stats_kernel(cuda, B, T, NH, NKV, D, off, causal, dtype):
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128), (torch.float16, 64),
-                                     (torch.float16, 128)])
+                                     (torch.float16, 128), (torch.bfloat16, 192),
+                                     (torch.bfloat16, 256), (torch.float16, 192),
+                                     (torch.float16, 256)])
 def test_flash_kernel_graph_replay_and_determinism(cuda, dtype, D):
     # One call captured in a CUDA graph (the TMA descriptors are kernel
     # parameters, encoded at capture); q, k, v rewritten in place, then the
@@ -1568,8 +1577,8 @@ _SYNC_CASES = [  # (dtype, D, B, Tq, Tkv, NH, NKV, kv_offset, causal)
     (torch.float32, 576, 1, 128, 256, 4, 1, 128, True),
     (torch.float32, 320, 1, 2048, 2048, 16, 8, 0, True),
 ]
-# bf16 and fp16 at D 192 and 256: the mma.sync forward, the wgmma backward
-# on its statistics.
+# bf16 and fp16 at D 192 and 256: the wgmma forward (384 threads,
+# setmaxnreg) with its statistics, the wgmma backward on them.
 _SYNC_FWD_CASES = [
     (torch.bfloat16, 192, 1, 512, 512, 8, 2, 0, True),
     (torch.bfloat16, 256, 2, 208, 384, 4, 2, 176, True),
@@ -1627,12 +1636,13 @@ def test_flash_sync_kernels(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
 
 @pytest.mark.parametrize("dtype,D,B,Tq,Tkv,NH,NKV,off,causal", _SYNC_FWD_CASES)
 def test_flash_wgmma_bwd_on_sync_stats(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
-    # The wgmma backward at D 192 and 256 reads the mma.sync forward's l
-    # and m: the two families define them alike (m of the scaled scores, l
-    # the f32 sum against the running max).
+    # The wgmma backward at D 192 and 256 reads the forward's l and m, which
+    # K10 (flash_fwd.cu) now writes at those head sizes as the mma.sync
+    # family did (m of the scaled scores, l the f32 sum against the running
+    # max): forward and backward each against their plain versions.
     from mila_tpu_torch.kernels import flash_attention as fa
 
-    assert fa.routes(dtype, D) == ("sync", "wgmma")
+    assert fa.routes(dtype, D) == ("wgmma", "wgmma")
     _sync_forward_then_backward(dtype, D, B, Tq, Tkv, NH, NKV, off, causal)
 
 
