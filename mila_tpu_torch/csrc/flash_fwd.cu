@@ -402,7 +402,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant_
 // each (O alone takes D / 2). Thread ISSUER (in warpgroup 1, which issues
 // second in each turn) loads the q tile and the first NT K/V tiles, then at
 // the end of each turn the tile whose stage both warpgroups' P V has just
-// freed.
+// freed. One block an SM: the grid runs the heaviest q tiles of every head
+// first, so the last blocks to start are the shortest.
 template <typename T, int D>
 __global__ void __launch_bounds__(CONSUMERS, 1)
 flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tmq,
@@ -423,8 +424,8 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tmq,
   uint64_t* q_full = empty + NT;
 
   const int tid = threadIdx.x;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // the heaviest q tiles of every head first
+  const int h = blockIdx.x, b = blockIdx.z;
   const int hk = h / (NH / NKV);
   const int q0 = qt * BQ;
   int n_kv = Tkv / BKV;
@@ -575,7 +576,8 @@ int launch(const fwd_parts::Call& c) {
     if (e != cudaSuccess) return static_cast<int>(e);
     if (dev < 64) sized[dev] = true;
   }
-  dim3 grid((c.Tq + BQ - 1) / BQ, c.NH, c.B);
+  const int q_tiles = (c.Tq + BQ - 1) / BQ;  // past D 128 the grid's x runs over heads
+  const dim3 grid = D <= 128 ? dim3(q_tiles, c.NH, c.B) : dim3(c.NH, q_tiles, c.B);
   kern<<<grid, threads, C::SMEM, c.stream>>>(tmq, tmk, tmv, static_cast<T*>(c.out), c.l_out,
                                              c.m_out, c.Tq, c.Tkv, c.NH, c.NKV, c.sm_scale,
                                              c.kv_offset, c.causal);

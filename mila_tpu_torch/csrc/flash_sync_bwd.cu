@@ -893,11 +893,12 @@ __device__ __forceinline__ uint32_t* aligned_smem(unsigned char* raw) {
 }
 
 // dQ: one block per (64 query rows, head and column part, batch row), the
-// heaviest q tiles first. Per key tile of 64: D / 32 panels of Q, dO, K and
-// V (warpgroup w: S and dP of all 64 rows against keys 32 w..), T(dS) into
-// shared memory, then chunks of KC keys x DC columns of K (warp w: rows 32
-// (w % 2).., columns DC / 4 (w / 2)..: dQ += T(dS) K). The rows' D = sum o
-// do from device memory (part 0 stores it for the dK/dV kernel).
+// heaviest q tiles of every head first (the grid's x runs over heads). Per
+// key tile of 64: D / 32 panels of Q, dO, K and V (warpgroup w: S and dP of
+// all 64 rows against keys 32 w..), T(dS) into shared memory, then chunks
+// of KC keys x DC columns of K (warp w: rows 32 (w % 2).., columns DC / 4
+// (w / 2)..: dQ += T(dS) K). The rows' D = sum o do from device memory
+// (part 0 stores it for the dK/dV kernel).
 namespace q {
 constexpr int BQ = 64, BKV = 64;  // rows, keys a tile
 constexpr int TS = BQ * PW;       // words a [64][32] tile
@@ -928,9 +929,9 @@ __global__ void __launch_bounds__(THREADS, 1) dq_split_kernel(Args<float> a, int
   const int g = lane >> 2, t = lane & 3;
   const int wg = warp >> 2, wi = warp & 3;  // S phase: warpgroup wg, its warp wi
   const int rh = warp & 1, cq = warp >> 1;  // dQ phase: rows 32 rh.., columns cq DC / 4..
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int parts = gridDim.y / a.NH;
-  const int h = blockIdx.y / parts, c0 = (blockIdx.y % parts) * DC, nc = min(DC, D - c0);
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest q tiles first, every head's
+  const int parts = gridDim.x / a.NH;
+  const int h = blockIdx.x / parts, c0 = (blockIdx.x % parts) * DC, nc = min(DC, D - c0);
   const int b = blockIdx.z;
   const int hk = h / (a.NH / a.NKV);
   const int q0 = qt * BQ;
@@ -1101,9 +1102,9 @@ __global__ void __launch_bounds__(THREADS, 1) dq_split_kernel(Args<float> a, int
     }
 }
 
-// dK/dV: one block per (32 keys, KV head and column part, batch row),
-// sweeping the q tiles of 128 rows that see its keys for every query head
-// of the group. Per step: D / 32 panels of K, V, Q and dO (warpgroup w: S
+// dK/dV: one block per (32 keys, KV head and column part, batch row), the
+// first key blocks (the heaviest) of every head first, sweeping the q tiles
+// of 128 rows that see its keys for every query head of the group. Per step: D / 32 panels of K, V, Q and dO (warpgroup w: S
 // and dP of queries 64 w.. against the 32 keys), T(P^T) and T(dS^T) into
 // shared memory, then chunks of QC queries x DC columns of Q and of dO
 // (warp w: keys 16 (w % 2).., columns DC / 4 (w / 2)..: dV += T(P^T) dO, dK
@@ -1139,10 +1140,10 @@ __global__ void __launch_bounds__(THREADS, 1) dkv_split_kernel(Args<float> a, in
   const int g = lane >> 2, t = lane & 3;
   const int wg = warp >> 2, wi = warp & 3;  // S phase: queries 64 wg + 16 wi..
   const int kb = warp & 1, cq = warp >> 1;  // dK/dV phase: keys 16 kb.., columns cq DC / 4..
-  const int parts = gridDim.y / a.NKV;
-  const int hk = blockIdx.y / parts, c0 = (blockIdx.y % parts) * DC, nc = min(DC, D - c0);
+  const int parts = gridDim.x / a.NKV;
+  const int hk = blockIdx.x / parts, c0 = (blockIdx.x % parts) * DC, nc = min(DC, D - c0);
   const int b = blockIdx.z;
-  const int k0 = blockIdx.x * KB;
+  const int k0 = blockIdx.y * KB;  // the first key blocks, the heaviest, first for every head
   const int G = a.NH / a.NKV;
   const size_t qstride = (size_t)a.NH * D, kstride = (size_t)a.NKV * D;
   const size_t koff = (size_t)b * a.Tkv * kstride + (size_t)hk * D;
@@ -1304,10 +1305,10 @@ int launch_dc(const Args<float>& a, int B, int D, cudaStream_t stream) {
   if (const int e = opt_in(dq, smem_dq, done_dq)) return e;
   if (const int e = opt_in(dkv, smem_dkv, done_dkv)) return e;
   const int parts = (D + DC - 1) / DC;
-  dq<<<dim3((a.Tq + q::BQ - 1) / q::BQ, a.NH * parts, B), THREADS, smem_dq, stream>>>(a, D);
+  dq<<<dim3(a.NH * parts, (a.Tq + q::BQ - 1) / q::BQ, B), THREADS, smem_dq, stream>>>(a, D);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  dkv<<<dim3(a.Tkv / kv::KB, a.NKV * parts, B), THREADS, smem_dkv, stream>>>(a, D);
+  dkv<<<dim3(a.NKV * parts, a.Tkv / kv::KB, B), THREADS, smem_dkv, stream>>>(a, D);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -187,7 +187,7 @@ def ptxas_report(log: str) -> dict:
             out[entry] = ln.strip()
         elif entry and "registers" in ln:
             out[entry] = re.search(r"Used \d+ registers", ln).group(0) + "; " + out.get(entry, "")
-        elif "warning" in ln:
+        elif "warning" in ln or "Performance Loss" in ln:  # e.g. wgmma serialized
             out.setdefault("warnings", []).append(ln.strip())
     return out
 

@@ -141,7 +141,7 @@ def build(names, sources=None) -> dict:
         if proc.returncode:
             raise RuntimeError(f"variant {name}: nvcc failed\n{log[-3000:]}")
         ptxas = [ln.strip() for ln in log.splitlines()
-                 if re.search(r"registers|spill|Compiling entry|warning", ln)]
+                 if re.search(r"registers|spill|Compiling entry|warning|Performance Loss", ln)]
         print(json.dumps({"variant": name, "ptxas": ptxas}), flush=True)
         lib = ctypes.CDLL(str(_build.BUILD_DIR / f"flash_variant_{name}" / "libflash.so"))
         vp, ci = ctypes.c_void_p, ctypes.c_int
