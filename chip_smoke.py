@@ -23,6 +23,14 @@ exits non-zero without the final line):
            K7 at a middle and the last layer, the MLP block at layer 0, K8's
            one-layer launch (layer_megakernel) on e4m3 and e5m2 tile
            streams, each beside its plain version, bound and library call;
+  kernels pairs  K3 and K5 at the mixed (q, cache) dtype pairs of the GPT-2
+           and speculative serving paths:
+           an f32 q over bf16 pages at GPT-2 124M's decode, a bf16 q over f32
+           pages, the dense entry in both mixed pairs at Llama-3.2-1B's decode
+           shape and in bf16 at the speculative tiny draft's heads (HD 32, G
+           2), the fused entry with an f32 qkv over bf16 caches; each row
+           beside its plain version, bound and SDPA (K/V cast to q's dtype
+           beforehand), with its dtype pair;
   crossover one layer's prefill attention at T 512-4096: the flash kernel
            against the plain product (FLASH_MIN_SEQ stays 2048);
   parity   Llama-3.2-1B widths at 2 layers (G = 4: the slot head order is
@@ -67,6 +75,15 @@ exits non-zero without the final line):
            16-layer Llama-3.2-1B FP8-E4M3 with an fp8 head: tok/s, TTFT, one
            decode step eager and as a graph; its launch counts must equal the
            int8 paged run's;
+  serve spec  the same model on the paged engine with speculative_k 4 and a
+           random bf16 tiny draft (the JAX bench's): 12 of serve's requests,
+           64 new tokens; tok/s, acceptance, rounds, t_decode_s; its greedy
+           streams against a plain paged run's (equal but for near-ties,
+           each printed);
+  parity spec  2 layers at Llama-3.2-1B's widths, INT8, draft == target,
+           k 3 (a 32-row verify on K2's fused entries) and k 4 (40 rows, K1):
+           acceptance >= 0.9, streams equal to the CPU port's but for
+           near-ties;
   serve long  the 16-layer Llama-3.2-1B with int4 weights served over int8
            KV pages: 8 requests (4 prompts of 2048-4000 tokens, 4 of
            64-1000), 32 new tokens each, max_batch 8, max_len 4224, buckets
@@ -75,6 +92,15 @@ exits non-zero without the final line):
            step timed eagerly and as a CUDA-graph replay at short context,
            and one at the run's own lengths split on CUDA events into the
            16 paged attention calls and the rest;
+  serve gpt2  GPT-2 124M (f32 params, bf16 pages, random weights) written as
+           an llm.c checkpoint and read back equal, then serve's 16 requests
+           (32 new tokens): tok/s, TTFT p50/p95, decode ms/step, 12
+           paged_decode_attention calls a decode iteration;
+  parity gpt2  the same engine at 2 layers, card against the CPU port: the
+           first logits within 2e-2 x max |ref|, greedy streams equal but
+           for near-ties;
+  generate gpt2  Generator on GPT-2 124M in bf16 at the JAX bench's gpt2
+           row (B 8, prompt 128): decode tok/s; no kernel runs there;
   kernels train  the training kernels against their plain versions at the
            training path's shapes: flash forward with statistics and flash
            backward (GPT-2 B 8 T 1024, Llama-3.2-1B's GQA heads at T 2048, D
@@ -108,12 +134,15 @@ exits non-zero without the final line):
   parity train f32, train f32  the same for GPT-2 as shipped (f32 params,
            flash on tf32 products).
 Every phase's line carries at_s, the script's seconds so far (every
-kernel row too).
+kernel row too); kernels pairs and the GPT-2 and speculative phases also
+their own seconds (phase_s).
 
 On every path (decode prefill, decode, decode fp8 prefill, decode fp8,
 giga prefill, giga, giga bf16 prefill, giga bf16, mega prefill, mega, mega
 fp8 prefill, mega fp8, generate, generate mlp, each serve run, serve fp8,
-serve long, train, evaluate, and train and evaluate in fp16 and f32)
+serve spec and its plain run, parity spec at k 3 and 4, serve long, serve
+gpt2, parity gpt2, generate gpt2, train, evaluate, and train and evaluate
+in fp16 and f32)
 the launch counts are set to 0 just before it and must equal, just after
 it, the counts the path implies for all twenty entry points (0 for those
 it does not reach), and no plain version may run. Then the kernel summary line
@@ -1038,6 +1067,140 @@ def phase_kernels_fp8(params8, packed8, mlp8, mega8, cfg, bw, peak_ops):
     return rows
 
 
+def phase_kernels_pairs(cfg, bw, peak_ops):
+    """K3 and K5 at the mixed (q, cache) dtype pairs of the GPT-2 and
+    speculative serving paths, each beside its plain version, its bound and
+    SDPA: K3 with an f32
+    q over bf16 pages at GPT-2 124M's decode (B 8, NH 12 = NKV, lens <= 384)
+    and a bf16 q over f32 pages at Llama-3.2-1B's heads; K5 (dense) with an
+    f32 q over a bf16 cache and the reverse at Llama-3.2-1B's decode shape
+    (B 8, lens 129-192, T 512) and bf16 at the speculative tiny draft's
+    heads (NH 4, NKV 2, HD 32: JAX sends that shape to XLA); the fused entry
+    with an f32 qkv over a bf16 cache. SDPA takes one dtype: it reads K/V
+    cast to q's dtype (and gathered, for pages) beforehand, not timed.
+    Inputs from their own random stream; every row carries its dtype pair."""
+    from mila_tpu_torch.inference.kv_cache import make_paged_pools
+    from mila_tpu_torch.kernels import dense_attention as da
+    from mila_tpu_torch.kernels import paged_attention as pa
+    from mila_tpu_torch.models.llama import Llama
+
+    dev, f32, bf16 = torch.device("cuda"), torch.float32, torch.bfloat16
+    gen = np.random.default_rng(30)
+    tgen = torch.Generator(device=dev).manual_seed(30)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    record = recorder(rows, bw, peak_ops)
+
+    def rand(*shape, dtype=bf16):
+        return torch.randn(*shape, device=dev, generator=tgen).to(dtype)
+
+    def name(qd, kd):
+        return f"q {str(qd)[6:]} / kv {str(kd)[6:]}"
+
+    # Paged: L layers of pools, cycled for the timing.
+    for qd, kd, NH, NKV, L in ((f32, bf16, 12, 12, 12), (bf16, f32, 32, 8, 16)):
+        B, HD, ps, W = 8, 64, 128, 4
+        P, T = B * W + 1, W * ps
+        pools = make_paged_pools(L, NKV, HD, P, ps, kd, dev)
+        for t in pools.values():
+            t.copy_(rand(*t.shape, dtype=kd))
+        lens_np = gen.integers(1, T - 127, B).astype(np.int32)
+        lens_np[0] = T - 128
+        table_np = (1 + gen.permutation(P - 1)[: B * W]).reshape(B, W).astype(np.int32)
+        lens, table = torch.from_numpy(lens_np).to(dev), torch.from_numpy(table_np).to(dev)
+        q = rand(B, 1, NH, HD, dtype=qd)
+        got = pa.paged_decode_attention(q, pools["k"][0], pools["v"][0], table, lens)
+        want = pa.paged_decode_attention_plain(q, pools["k"][0], pools["v"][0], table, lens)
+        if got.dtype != qd:
+            raise AssertionError(f"paged {name(qd, kd)}: output in {got.dtype}")
+
+        def gathered(pool):
+            return (pool[table.long()].permute(0, 2, 1, 4, 3).reshape(B, NKV, T, HD)
+                    .to(qd).contiguous())
+
+        kv = [(gathered(pools["k"][i]), gathered(pools["v"][i])) for i in range(L)]
+        mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        qs = q.transpose(1, 2)
+        live, qb, kb = int(lens_np.sum()), q.element_size(), pools["k"].element_size()
+        record("paged_decode_attention", f"B={B} lens<={T - 128} NH={NH} NKV={NKV} "
+               f"{name(qd, kd)}", *max_err(got, want),
+               [lambda i=i: pa.paged_decode_attention(q, pools["k"][i], pools["v"][i], table,
+                                                      lens) for i in range(L)],
+               lambda: pa.paged_decode_attention_plain(q, pools["k"][0], pools["v"][0], table,
+                                                       lens),
+               [lambda k=k, v=v: sdpa(qs, k, v, attn_mask=mask, enable_gqa=True)
+                for k, v in kv],
+               live * NKV * HD * kb * 2 + 2 * B * NH * HD * qb + B * W * 4 + B * 4,
+               4 * live * NH * HD, dtype=name(qd, kd),
+               splits=pa.plan_splits(B, NKV, W, ps, _sm_count()))
+        with_rate(rows[-1], live * NKV * HD * kb * 2)
+        del pools, kv
+
+    # Dense: Llama-3.2-1B's decode shape in both mixed pairs, the tiny
+    # draft's heads in bf16.
+    B, T = 8, 512
+    for qd, kd, NH, NKV, HD, L in ((f32, bf16, 32, 8, 64, 16), (bf16, f32, 32, 8, 64, 16),
+                                   (bf16, bf16, 4, 2, 32, 2)):
+        KD = NKV * HD
+        caches = [(rand(B, T, NKV, HD, dtype=kd), rand(B, T, NKV, HD, dtype=kd))
+                  for _ in range(copies(B * T * KD * 2 * 4, L))]
+        lens_np = gen.integers(129, 193, B).astype(np.int32)
+        lens = torch.from_numpy(lens_np).to(dev)
+        live, q = int(lens_np.sum()), rand(B, 1, NH, HD, dtype=qd)
+        k0, v0 = caches[0]
+        got = da.dense_decode_attention(q, k0, v0, lens)
+        if got.dtype != qd:
+            raise AssertionError(f"dense {name(qd, kd)}: output in {got.dtype}")
+        kvt = [(k.transpose(1, 2).to(qd).contiguous(), v.transpose(1, 2).to(qd).contiguous())
+               for k, v in caches]
+        mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        qs, kb = q.transpose(1, 2), k0.element_size()
+        draft = " tiny draft" if NH == 4 else ""
+        record("dense_decode_attention", f"B={B} lens 129-192 T={T} NH={NH} HD={HD} "
+               f"{name(qd, kd)}{draft}", *max_err(got, da.dense_decode_attention_plain(
+                   q, k0, v0, lens)),
+               [lambda k=k, v=v: da.dense_decode_attention(q, k, v, lens) for k, v in caches],
+               lambda: da.dense_decode_attention_plain(q, k0, v0, lens),
+               [lambda k=k, v=v: sdpa(qs, k, v, attn_mask=mask, enable_gqa=True)
+                for k, v in kvt],
+               live * KD * kb * 2 + 2 * B * NH * HD * q.element_size() + B * 4,
+               4 * live * NH * HD, dtype=name(qd, kd),
+               splits=da.plan_splits(B, NKV, T, _sm_count()))
+        with_rate(rows[-1], live * KD * kb * 2)
+        if NH != 32 or qd != f32:
+            del caches, kvt
+            continue
+        # The fused entry on the same caches: an f32 qkv row over bf16 caches.
+        NQ = NH * HD
+        old = lens - 1
+        cos, sin = Llama(cfg)._rope(old[:, None].long())
+        c2, s2 = cos.reshape(B, HD // 2), sin.reshape(B, HD // 2)
+        cos_t = torch.cat([c2, c2], -1).repeat(1, NKV)
+        sin_t = torch.cat([-s2, s2], -1).repeat(1, NKV)
+        qkv = rand(B, NQ + 2 * KD, dtype=f32)
+        kg, vg, kp, vp = k0.clone(), v0.clone(), k0.clone(), v0.clone()
+        att, k_new, _, _ = da.fused_decode_attention(qkv, None, cos_t, sin_t, kg, vg, old,
+                                                     num_heads=NH)
+        watt, wk_new, _, _ = da.fused_decode_attention_plain(qkv, cos_t, sin_t, kp, vp, old,
+                                                             num_heads=NH)
+        errs = [max_err(att, watt), max_err(k_new, wk_new), max_err(kg, kp), max_err(vg, vp)]
+        worst = max(errs, key=lambda e: e[0] / e[1])
+        live_old = live - B
+        record("fused_decode_attention", f"B={B} old 128-191 T={T} {name(f32, bf16)}", *worst,
+               [lambda k=k, v=v: da.fused_decode_attention(qkv, None, cos_t, sin_t, k, v, old,
+                                                           num_heads=NH) for k, v in caches],
+               lambda: da.fused_decode_attention_plain(qkv, cos_t, sin_t, kp, vp, old,
+                                                       num_heads=NH), None,
+               live_old * KD * 2 * 2 + B * (NQ + 2 * KD) * 4 + 2 * B * KD * 4 + B * NQ * 4
+               + B * KD * 4 + 2 * B * KD * 2, 4 * live * NH * HD, dtype=name(f32, bf16),
+               errors={"att": errs[0][0], "k_new": errs[1][0], "k_cache": errs[2][0],
+                       "v_cache": errs[3][0]}, splits=da.plan_splits(B, NKV, T, _sm_count()))
+        with_rate(rows[-1], live_old * KD * 2 * 2)
+        del caches, kvt, kg, vg, kp, vp
+    torch.cuda.synchronize()
+    return rows
+
+
 def phase_crossover(cfg, rng):
     """One layer's prefill attention (B 1, Llama-3.2-1B's heads, causal,
     bf16) at T 512-4096: the flash kernel against the plain product that
@@ -1480,14 +1643,67 @@ def phase_generate(model, params, cfg, rng, mlp: bool = False):
 # serve
 # ---------------------------------------------------------------------------
 
+def serve_streams(engine, prompts, new_tokens: int, path: str, expected):
+    """Serve ``prompts`` greedily under run_counted; returns (requests,
+    counts, seconds)."""
+    def run():
+        reqs = [engine.submit(p, max_new_tokens=new_tokens) for p in prompts]
+        engine.run()
+        return reqs
+
+    t0 = time.monotonic()
+    reqs, counts = run_counted(path, run, expected)
+    wall = time.monotonic() - t0
+    V = engine.model.config.vocab_size
+    for r in reqs:
+        if not (r.done and len(r.output) == new_tokens and all(0 <= t < V for t in r.output)):
+            raise AssertionError(f"{path}: request {r.id} did not finish with {new_tokens} "
+                                 "valid tokens")
+    return reqs, counts, wall
+
+
+def serve_numbers(engine, reqs, wall: float) -> dict:
+    st = engine.stats
+    ttft = sorted(r.ttft_s for r in reqs)
+    tokens = sum(len(r.output) for r in reqs)
+    out = {"requests": len(reqs), "new_tokens": tokens, "wall_s": wall, "tok_s": tokens / wall,
+           "ttft_p50_ms": 1e3 * float(np.percentile(ttft, 50)),
+           "ttft_p95_ms": 1e3 * float(np.percentile(ttft, 95)), "t_decode_s": st["t_decode_s"],
+           "prefill_s": st["t_prefill_s"], "prefill_groups": st["prefill_groups"]}
+    if st["decode_iters"]:
+        out.update(decode_steps=st["decode_iters"],
+                   decode_ms_per_step=1e3 * st["t_decode_s"] / st["decode_iters"])
+    return out
+
+
+def serve_engine(model, params, layout: str = "auto", k: int = 0, draft=None, dparams=None,
+                 device=None):
+    """serve's engine config (``benchmarks/engine_bench.py``'s: max_batch 8,
+    max_len 512, buckets (32, 64, 128), bf16 KV), in ``layout``, with
+    ``speculative_k`` k and its draft (0: off), on ``device`` (the GPU)."""
+    from mila_tpu_torch.inference.engine import EngineConfig, InferenceEngine
+
+    return InferenceEngine(model, params, EngineConfig(
+        max_batch=8, max_len=512, prefill_buckets=(32, 64, 128), cache_dtype="bfloat16",
+        page_size=128, kv_layout=layout, speculative_k=k, draft_model=draft,
+        draft_params=dparams), device=device)
+
+
+def paged_expected(engine, L: int) -> dict:
+    """Launch counts of a paged int8 serving run, from its stats: each
+    prefill group 4L quant_linear and the head's rms_quant_linear; each
+    decode iteration the fused decode streams and L paged attention calls."""
+    st = engine.stats
+    it, groups = st["decode_iters"], st["prefill_groups"]
+    return {"quant_linear": 4 * L * groups, "rms_quant_linear": (L + 1) * it + groups,
+            "quant_linear_residual": 2 * L * it, "rms_quant_linear_swiglu": L * it,
+            "paged_decode_attention": L * it}
+
+
 def serve_once(model, params, cfg, prompts, layout: str, path: str = ""):
     """One serving run on a fresh engine; checks outputs and launch counts
     (path: the run's name, by default from its layout)."""
-    from mila_tpu_torch.inference.engine import EngineConfig, InferenceEngine
-
-    engine = InferenceEngine(model, params, EngineConfig(
-        max_batch=8, max_len=512, prefill_buckets=(32, 64, 128), cache_dtype="bfloat16",
-        page_size=128, kv_layout=layout))
+    engine = serve_engine(model, params, layout)
     L = cfg.num_layers
 
     giga = "giga_pack" in params
@@ -1501,9 +1717,7 @@ def serve_once(model, params, cfg, prompts, layout: str, path: str = ""):
                     "rms_quant_linear": (L + 1) * small, "quant_linear_residual": 2 * L * small,
                     "rms_quant_linear_swiglu": L * small, "giga_decode_step": it}
         if layout == "paged":
-            return {"quant_linear": 4 * L * groups, "rms_quant_linear": (L + 1) * it + groups,
-                    "quant_linear_residual": 2 * L * it, "rms_quant_linear_swiglu": L * it,
-                    "paged_decode_attention": L * it}
+            return paged_expected(engine, L)
         # One prefill per request at its bucket: <= 32 rows take the decode
         # streams (head included), more rows quant_linear over every row.
         small = sum(len(p) <= 32 for p in prompts)
@@ -1513,30 +1727,13 @@ def serve_once(model, params, cfg, prompts, layout: str, path: str = ""):
                 "quant_linear_residual": 2 * L * small, "rms_quant_linear_swiglu": L * small,
                 "fused_decode_attention": L * it, "layer_tail_stream": L * it}
 
-    def run():
-        reqs = [engine.submit(p, max_new_tokens=32) for p in prompts]
-        engine.run()
-        return reqs
-
     if giga and not engine._use_giga_decode():
         raise AssertionError("serve giga: the engine did not select the giga decode")
-    t0 = time.monotonic()
-    reqs, counts = run_counted(path or f"serve {'giga' if giga else layout}", run, expected)
-    wall = time.monotonic() - t0
-    for r in reqs:
-        if not (r.done and len(r.output) == 32 and all(0 <= t < cfg.vocab_size
-                                                       for t in r.output)):
-            raise AssertionError(f"request {r.id} did not finish with 32 valid tokens")
-    st = engine.stats
-    it, groups = st["decode_iters"], st["prefill_groups"]
-    ttft = sorted(r.ttft_s for r in reqs)
-    tokens = sum(len(r.output) for r in reqs)
+    reqs, counts, wall = serve_streams(engine, prompts, 32,
+                                       path or f"serve {'giga' if giga else layout}", expected)
+    it = engine.stats["decode_iters"]
     return counts, {
-        "layout": "contiguous giga" if giga else layout, "new_tokens": tokens, "wall_s": wall, "tok_s": tokens / wall,
-        "ttft_p50_ms": 1e3 * float(np.percentile(ttft, 50)),
-        "ttft_p95_ms": 1e3 * float(np.percentile(ttft, 95)),
-        "decode_ms_per_step": 1e3 * st["t_decode_s"] / it, "decode_steps": it,
-        "prefill_groups": groups, "prefill_s": st["t_prefill_s"],
+        "layout": "contiguous giga" if giga else layout, **serve_numbers(engine, reqs, wall),
         "launches_per_decode_step": {k: v / it for k, v in counts.items()
                                      if v and k != "quant_linear"},
     }
@@ -1712,6 +1909,328 @@ def phase_serve_long(model, params, cfg, rng):
 
 F32_OPS = 67e12  # H100 SXM f32 outside the tensor cores (NVIDIA data sheet)
 TF32_OPS = 495e12  # H100 SXM TF32 tensor-core operations (NVIDIA data sheet)
+
+
+# ---------------------------------------------------------------------------
+# GPT-2 serving and speculative decoding
+# ---------------------------------------------------------------------------
+
+def llama_logits_f32(params, cfg, seq: np.ndarray) -> torch.Tensor:
+    """The Llama target's logits [V] after token sequence ``seq`` in f32
+    arithmetic: the quantized weights dequantized to f32, every product and
+    the attention in f32 (tf32 off). The greedy streams' near-ties are
+    measured on these, which no serving path computes (each rounds to bf16
+    in its own order)."""
+    from mila_tpu_torch import ops
+    from mila_tpu_torch.inference.quantize import QTensor, dequantize
+
+    def w(t):
+        return dequantize(t, torch.float32) if isinstance(t, QTensor) else t.float()
+
+    NH, NKV, HD = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    tokens = torch.from_numpy(np.asarray(seq, np.int64))[None].cuda()
+    T = tokens.shape[1]
+    x = params["embed"]["wte"][tokens].float()
+    cos, sin = ops.rope_cos_sin(torch.arange(T, device="cuda")[None], HD, cfg.rope_theta,
+                                cfg.rope_scaling)
+    for i in range(cfg.num_layers):
+        bp = params[f"h{i}"]
+        h = ops.rms_norm(x, bp["ln_attn"]["gamma"], cfg.rms_eps)
+        q, k, v = (h @ w(bp["wqkv"]["weight"])).split([NH * HD, NKV * HD, NKV * HD], dim=-1)
+        q = ops.apply_rope(q.reshape(1, T, NH, HD), cos, sin)
+        k = ops.apply_rope(k.reshape(1, T, NKV, HD), cos, sin)
+        att = ops.dot_product_attention(q, k, v.reshape(1, T, NKV, HD), causal=True)
+        x = x + att.reshape(1, T, NH * HD) @ w(bp["wo"]["weight"])
+        g, u = (ops.rms_norm(x, bp["ln_mlp"]["gamma"], cfg.rms_eps)
+                @ w(bp["wgu"]["weight"])).chunk(2, dim=-1)
+        x = x + ops.swiglu(g, u) @ w(bp["down"]["weight"])
+    h = ops.rms_norm(x[0, -1], params["norm_f"]["gamma"], cfg.rms_eps)
+    return (h @ w(params["lm_head_q"]))[:cfg.vocab_size]
+
+
+def near_ties(path: str, got: list, want: list, logits_at, tol: float = ERR_TOL) -> list:
+    """Greedy streams ``got`` must equal ``want`` (lists of token lists), or
+    first differ where the two largest of the reference logits at that
+    position lie within ``tol`` x max |logit|: both streams' tokens there
+    must have logits within that of the largest (``logits_at(i, j)``: row
+    i's logits [V] before its token j, in f32 arithmetic on the card). Any
+    other difference raises. Returns the near-tie cases (each printed in the
+    phase line)."""
+    cases = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        if len(g) != len(w):
+            raise AssertionError(f"{path}: request {i} emitted {len(g)} tokens, want {len(w)}")
+        j = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
+        lg = logits_at(i, j).float()
+        top, scale = lg.max().item(), lg.abs().max().item()
+        gaps = (top - lg[g[j]].item(), top - lg[w[j]].item())
+        case = {"request": i, "position": j, "tokens": [g[j], w[j]], "gaps": gaps,
+                "tolerance": tol * scale}
+        if max(gaps) > tol * scale:
+            raise AssertionError(f"{path}: streams differ beyond a near-tie: {case}")
+        cases.append(case)
+    return cases
+
+
+def phase_serve_gpt2(rng):
+    """GPT-2 124M as the JAX engine bench builds it (f32 params, bf16 pages,
+    max_seq_len 512), random weights from a seed, written as an llm.c
+    checkpoint and read back (the tree must come back equal), then serve's
+    16 requests (8-100 prompt tokens, 32 new) on the paged engine: one
+    paged_decode_attention per layer per decode iteration, an f32 q over
+    bf16 pages, and nothing else."""
+    import os
+    import tempfile
+
+    from mila_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from mila_tpu_torch.serialization import read_gpt2_checkpoint, write_gpt2_checkpoint
+
+    cfg = GPT2Config.gpt2_124m().replace(max_seq_len=512)
+    params = GPT2(cfg).init(torch.Generator(device="cuda").manual_seed(40), (1, 32))
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "gpt2_124M.bin")
+        write_gpt2_checkpoint(path, cfg, params)
+        size = os.path.getsize(path)
+        cfg2, params2 = read_gpt2_checkpoint(path)
+    io_s = time.monotonic() - t0
+    fields = ("vocab_size", "vp", "num_layers", "num_heads", "embedding_dim", "max_seq_len")
+    if any(getattr(cfg2, f) != getattr(cfg, f) for f in fields):
+        raise AssertionError(f"serve gpt2: the checkpoint's config {cfg2} != {cfg}")
+
+    def same(a, b, where=""):
+        if isinstance(a, dict):
+            if set(a) != set(b):
+                raise AssertionError(f"serve gpt2: keys differ at {where}")
+            for k in a:
+                same(a[k], b[k], f"{where}/{k}")
+        elif not (b.is_cuda and b.dtype == torch.float32 and torch.equal(a, b)):
+            raise AssertionError(f"serve gpt2: leaf {where} came back different")
+
+    same(params, params2)
+    del params
+    model, L = GPT2(cfg2), cfg2.num_layers
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(8, 101, 16)]
+    engine = serve_engine(model, params2)
+    reqs, counts, wall = serve_streams(
+        engine, prompts, 32, "serve gpt2",
+        lambda _: {"paged_decode_attention": L * engine.stats["decode_iters"]})
+    return counts, {"checkpoint_bytes": size, "checkpoint_io_s": io_s, "tree_equal": True,
+                    **serve_numbers(engine, reqs, wall), "launches": counts,
+                    "launches_per_decode_step": {"paged_decode_attention": L}}
+
+
+def phase_parity_gpt2(rng):
+    """The serve gpt2 engine at 2 layers (full width, f32 params, bf16
+    pages) on the card and through the CPU port: the first logits of a
+    prefill batch within ERR_TOL x max |ref|, and 8 requests' greedy
+    streams (24 new tokens) equal, but for near-ties (``near_ties``: the
+    kernel keeps the probabilities in f32 where the plain version rounds
+    them to the pages' bf16)."""
+    from mila_tpu_torch.models.gpt2 import GPT2, GPT2Config
+
+    cfg = GPT2Config.gpt2_124m().replace(max_seq_len=512, num_layers=2)
+    gpu, cpu = GPT2(cfg), GPT2(cfg, device="cpu")
+    gp = gpu.init(torch.Generator(device="cuda").manual_seed(41), (1, 32))
+    cp = to_cpu(gp)
+    V = cfg.vocab_size
+    prompts = [rng.integers(0, V, int(n)).astype(np.int32) for n in rng.integers(8, 101, 8)]
+    # First logits: one prefill of the 8 prompts in a 128 bucket.
+    tokens = np.zeros((8, 128), np.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = p
+    lens = np.array([len(p) for p in prompts], np.int32)
+    table = (1 + np.arange(32)).reshape(8, 4).astype(np.int32)
+    glog, _ = gpu.forward_paged_prefill(gp, torch.from_numpy(tokens).cuda(),
+                                        gpu.init_paged_cache(33, 128), torch.from_numpy(table)
+                                        .cuda(), torch.from_numpy(lens).cuda())
+    clog, _ = cpu.forward_paged_prefill(cp, torch.from_numpy(tokens), cpu.init_paged_cache(33, 128),
+                                        torch.from_numpy(table), torch.from_numpy(lens))
+    err, ref = max_err(glog[:, :V].cpu(), clog[:, :V])
+    if err > ERR_TOL * ref:
+        raise AssertionError(f"parity gpt2: first logits max |d| {err} > {ERR_TOL} x {ref}")
+    L = cfg.num_layers
+    geng = serve_engine(gpu, gp)
+    greqs, counts, _ = serve_streams(
+        geng, prompts, 24, "parity gpt2",
+        lambda _: {"paged_decode_attention": L * geng.stats["decode_iters"]})
+    ceng = serve_engine(cpu, cp, device="cpu")
+    creqs = [ceng.submit(p, max_new_tokens=24) for p in prompts]
+    ceng.run()
+    got, want = [r.output for r in greqs], [r.output for r in creqs]
+
+    def logits_at(i, j):  # f32 params: the plain forward is f32 arithmetic
+        seq = np.concatenate([prompts[i], np.asarray(want[i][:j], np.int32)])
+        return gpu.apply(gp, torch.from_numpy(seq)[None].cuda())[0, -1, :V]
+
+    ties = near_ties("parity gpt2", got, want, logits_at)
+    return counts, {"layers": L, "first_logits_max_abs_err": err, "first_logits_max_ref": ref,
+                    "requests": len(prompts), "new_tokens": 24,
+                    "streams_equal": sum(g == w for g, w in zip(got, want)),
+                    "near_ties": ties, "launches": counts}
+
+
+def phase_generate_gpt2(rng):
+    """Generator on GPT-2 124M in bf16 at the JAX bench's gpt2 row (B 8,
+    prompt 128, cache 512; ``bench.py:161-175``): decode tok/s from the
+    time of 65 tokens less that of 1 (the prefill). The contiguous GPT-2
+    protocol attends through the plain ops, as JAX's does: no kernel runs
+    (every launch count 0)."""
+    from mila_tpu_torch.inference.generator import Generator
+    from mila_tpu_torch.models.gpt2 import GPT2
+
+    cfg = gpt2_config(dtype="bfloat16").replace(max_seq_len=512, attention_impl="auto")
+    model = GPT2(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(42), (1, 32))
+    B, T0, NEW = 8, 128, 64
+    prompt = rng.integers(0, cfg.vocab_size, (B, T0)).astype(np.int32)
+    gen = Generator(model, params, max_len=512)
+    gen.generate(prompt, 2)  # warm
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    gen.generate(prompt, 1)
+    torch.cuda.synchronize()
+    t_prefill = time.monotonic() - t0
+    t0 = time.monotonic()
+    out, counts = run_counted("generate gpt2", lambda: gen.generate(prompt, NEW + 1), {})
+    wall = time.monotonic() - t0
+    out = out.cpu().numpy()
+    if out.shape != (B, T0 + NEW + 1) or not (out[:, :T0] == prompt).all() \
+            or out.min() < 0 or out.max() >= cfg.vocab_size:
+        raise AssertionError("generate gpt2: bad output shape or tokens")
+    decode = wall - t_prefill
+    return counts, {"batch": B, "prompt": T0, "new_tokens": NEW, "prefill_s": t_prefill,
+                    "decode_s": decode, "decode_tok_s": B * NEW / decode,
+                    "decode_ms_per_step": 1e3 * decode / NEW, "launches": counts,
+                    "note": "no kernel runs on this path (JAX's GPT-2 decode is plain too)"}
+
+
+def spec_expected(engine, L: int, draft_layers: int, k: int, fused_verify: bool,
+                  draft_quantized: bool):
+    """Launch counts of a speculative serving run, from its stats: each
+    prefill group 4L quant_linear and the head's rms_quant_linear (B rows),
+    the draft's prefill over every slot (quantized: 4 quant_linear a layer
+    and the head's over B x bucket rows); each round k + 1 draft decode
+    steps (the dense attention a layer; quantized: the fused decode
+    streams) and one verify over B (k + 1) rows (the fused streams at <= 32
+    rows, else quant_linear) with a paged attention call a layer."""
+    def expected(_):
+        st = engine.stats
+        groups, rounds, steps = st["prefill_groups"], st["spec_rounds"], (k + 1) * st["spec_rounds"]
+        want = {"quant_linear": 4 * L * groups, "rms_quant_linear": groups,
+                "paged_decode_attention": L * rounds,
+                "dense_decode_attention": draft_layers * steps}
+        if fused_verify:
+            want["rms_quant_linear"] += (L + 1) * rounds
+            want["quant_linear_residual"] = 2 * L * rounds
+            want["rms_quant_linear_swiglu"] = L * rounds
+        else:
+            want["quant_linear"] += (4 * L + 1) * rounds
+        if draft_quantized:
+            want["quant_linear"] += (4 * draft_layers + 1) * groups
+            want["rms_quant_linear"] += (draft_layers + 1) * steps
+            want["quant_linear_residual"] = (want.get("quant_linear_residual", 0)
+                                             + 2 * draft_layers * steps)
+            want["rms_quant_linear_swiglu"] = (want.get("rms_quant_linear_swiglu", 0)
+                                               + draft_layers * steps)
+        return want
+
+    return expected
+
+
+def phase_serve_spec(model, params, cfg, prompts):
+    """Llama-3.2-1B INT8 on the paged engine with speculative_k 4 and the
+    JAX bench's draft (LlamaConfig.tiny at the target's vocabulary, bf16,
+    random weights from a seed; ``benchmarks/engine_bench.py:88-92``): 12
+    requests, 64 new tokens, max_batch 8, max_len 512 (``bench.py:779-782``).
+    A random draft accepts almost nothing: the worst case. The greedy
+    streams must equal the plain paged engine's on the same prompts but for
+    near-ties (K1's and K2's summation orders differ from K2's and K1's at
+    other row counts)."""
+    from mila_tpu_torch.models.llama import Llama, LlamaConfig, init_llama_params
+
+    dcfg = LlamaConfig.tiny(vocab_size=cfg.vocab_size).replace(max_seq_len=512,
+                                                               param_dtype="bfloat16")
+    draft = Llama(dcfg)
+    dparams = init_llama_params(dcfg, torch.Generator(device="cuda").manual_seed(7))
+    k, L, reqs12 = 4, cfg.num_layers, prompts[:12]
+    plain = serve_engine(model, params)
+    p_reqs, p_counts, p_wall = serve_streams(plain, reqs12, 64, "serve spec plain",
+                                             lambda _: paged_expected(plain, L))
+    engine = serve_engine(model, params, k=k, draft=draft, dparams=dparams)
+    reqs, counts, wall = serve_streams(engine, reqs12, 64, "serve spec",
+                                       spec_expected(engine, L, dcfg.num_layers, k, False,
+                                                     False))
+    got, want = [r.output for r in reqs], [r.output for r in p_reqs]
+
+    def logits_at(i, j):
+        return llama_logits_f32(params, cfg, np.concatenate([reqs12[i], want[i][:j]]))
+
+    ties = near_ties("serve spec", got, want, logits_at)
+    st = engine.stats
+    return counts, {"k": k, "draft": "llama-tiny bf16 (random)", **serve_numbers(engine, reqs,
+                                                                                  wall),
+                    "acceptance_rate": st["spec_accepted"] / max(st["spec_proposed"], 1),
+                    "rounds": st["spec_rounds"], "plain_tok_s": 12 * 64 / p_wall,
+                    "plain_launches": p_counts,
+                    "streams_equal": sum(g == w for g, w in zip(got, want)),
+                    "near_ties": ties, "launches": counts}
+
+
+def phase_parity_spec(rng):
+    """Llama-3.2-1B widths at 2 layers, INT8 weights over f32 activations
+    (``param_dtype`` f32, as ``LlamaConfig.tiny`` and the JAX package's
+    speculative-engine tests have it), the draft equal to the target, on the
+    card and through the CPU port: at k 3 the verify is 8 x 4 = 32 rows
+    (K2's fused entries), at k 4 it is 40 (K1); the draft's K5 and the
+    verify's K3 read bf16 caches under an f32 q. 4 requests, 8 new tokens
+    each: the greedy acceptance rate at least 0.9 on the card at each k, and
+    the card's streams at both k equal the CPU port's at k 3 but for
+    near-ties (a greedy stream does not depend on k; the CPU's plain
+    quantized products dequantize the whole weight a call, so it runs once).
+    (With bf16 activations the draft's and the verify's roundings split
+    this random model's flat logits often: acceptance 0.85 at k 4 on an
+    H100.)"""
+    from mila_tpu_torch.models.llama import Llama, LlamaConfig
+
+    cfg = LlamaConfig.llama32_1b().replace(num_layers=2, max_seq_len=512,
+                                           param_dtype="float32")
+    params = build_params(cfg, seed=8, device="cuda")
+    cpu_params = to_cpu(params)
+    gpu, cpu = Llama(cfg), Llama(cfg, device="cpu")
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(8, 33, 4)]
+    NEW = 8
+    ceng = serve_engine(cpu, cpu_params, k=3, draft=cpu, dparams=cpu_params, device="cpu")
+    creqs = [ceng.submit(p, max_new_tokens=NEW) for p in prompts]
+    ceng.run()
+    want = [r.output for r in creqs]
+
+    def logits_at(i, j):
+        return llama_logits_f32(params, cfg, np.concatenate([prompts[i], want[i][:j]]))
+
+    out, all_counts = {}, {}
+    for k in (3, 4):
+        geng = serve_engine(gpu, params, k=k, draft=gpu, dparams=params)
+        greqs, counts, _ = serve_streams(geng, prompts, NEW, f"parity spec k{k}",
+                                         spec_expected(geng, 2, 2, k, k == 3, True))
+        got = [r.output for r in greqs]
+        st = geng.stats
+        out[f"k{k}"] = {"verify_rows": 8 * (k + 1),
+                        "acceptance_rate": st["spec_accepted"] / max(st["spec_proposed"], 1),
+                        "rounds": st["spec_rounds"],
+                        "streams_equal": sum(g == w for g, w in zip(got, want)),
+                        "near_ties": near_ties(f"parity spec k{k}", got, want, logits_at),
+                        "launches": counts}
+        all_counts[f"parity spec k{k}"] = counts
+    low = {k: r["acceptance_rate"] for k, r in out.items() if r["acceptance_rate"] < 0.9}
+    if low:
+        raise AssertionError(f"parity spec: greedy acceptance under 0.9: {low} ({out})")
+    return all_counts, {"layers": cfg.num_layers, "activations": "float32",
+                        "requests": len(prompts), "new_tokens": NEW, **out}
 
 
 def gpt2_config(layers=None, dtype: str = "bfloat16"):
@@ -2377,6 +2896,11 @@ def main() -> int:
     rows8 = phase_kernels_fp8(params8, packed8, mlp8, mega8, cfg, bw, peak_ops)
     emit({"phase": "kernels fp8", "card": card, "rows": rows8})
     rows += rows8
+    t_ph = time.monotonic()
+    rows_pairs = phase_kernels_pairs(cfg, bw, peak_ops)
+    emit({"phase": "kernels pairs", "card": card, "rows": rows_pairs,
+          "phase_s": time.monotonic() - t_ph})
+    rows += rows_pairs
     del mlp8
     crossover = phase_crossover(cfg, rng)
     emit({"phase": "crossover", "card": card, **crossover})
@@ -2422,12 +2946,35 @@ def main() -> int:
     f_counts, serve8 = phase_serve_fp8(model, params8, cfg, prompts, counts)
     emit({"phase": "serve fp8", "card": card, "model": "llama-3.2-1b fp8 e4m3 with an fp8 "
           "head, random weights", **serve8})
+    t_ph = time.monotonic()
+    sp_counts, serve_spec = phase_serve_spec(model, params, cfg, prompts)
+    spp_counts = serve_spec.pop("plain_launches", None)
+    emit({"phase": "serve spec", "card": card, "model": "llama-3.2-1b int8, draft llama-tiny "
+          "bf16, random weights", **serve_spec, "phase_s": time.monotonic() - t_ph})
+    t_ph = time.monotonic()
+    ps_counts, parity_spec = phase_parity_spec(np.random.default_rng(31))
+    emit({"phase": "parity spec", "card": card, **parity_spec,
+          "phase_s": time.monotonic() - t_ph})
     del packs, packed, params, params8
     cfg4 = cfg.replace(max_seq_len=4224)
     l_counts, serve_long = phase_serve_long(Llama(cfg4), params4, cfg4, rng)
     emit({"phase": "serve long", "card": card, "model": "llama-3.2-1b int4, int8 KV pages, "
           "random weights", **serve_long})
     del params4, model
+    torch.cuda.empty_cache()
+    t_ph = time.monotonic()
+    sg_counts, serve_gpt2 = phase_serve_gpt2(np.random.default_rng(32))
+    emit({"phase": "serve gpt2", "card": card, "model": "gpt2-124m f32, bf16 pages, random "
+          "weights through an llm.c checkpoint", **serve_gpt2,
+          "phase_s": time.monotonic() - t_ph})
+    t_ph = time.monotonic()
+    pg_counts, parity_gpt2 = phase_parity_gpt2(np.random.default_rng(33))
+    emit({"phase": "parity gpt2", "card": card, **parity_gpt2,
+          "phase_s": time.monotonic() - t_ph})
+    t_ph = time.monotonic()
+    gg_counts, generate_gpt2 = phase_generate_gpt2(np.random.default_rng(34))
+    emit({"phase": "generate gpt2", "card": card, "model": "gpt2-124m bf16, random weights",
+          **generate_gpt2, "phase_s": time.monotonic() - t_ph})
     torch.cuda.empty_cache()
     train_rows = phase_train_kernels(bw, peak_ops, rng)
     emit({"phase": "kernels train", "card": card, "rows": train_rows})
@@ -2467,7 +3014,10 @@ def main() -> int:
                "generate": generate["launches"], "generate mlp": generate_mlp["launches"],
                "serve long": l_counts, "train": t_counts, "evaluate": e_counts,
                "train fp16": t16_counts, "evaluate fp16": e16_counts,
-               "train f32": t32_counts, "evaluate f32": e32_counts}
+               "train f32": t32_counts, "evaluate f32": e32_counts,
+               "serve spec plain": spp_counts, "serve spec": sp_counts,
+               **ps_counts, "serve gpt2": sg_counts, "parity gpt2": pg_counts,
+               "generate gpt2": gg_counts}
     summary = []
     for entry, (source, replaces) in SOURCES.items():
         mine = [r for r in rows if r["entry"] == entry]
@@ -2506,6 +3056,9 @@ def main() -> int:
                        "parity_train": parity_train, "train": train,
                        "parity_train_fp16": parity_train16, "train_fp16": train16,
                        "parity_train_f32": parity_train32, "train_f32": train32,
+                       "serve_spec": serve_spec, "parity_spec": parity_spec,
+                       "serve_gpt2": serve_gpt2, "parity_gpt2": parity_gpt2,
+                       "generate_gpt2": generate_gpt2,
                        "summary": summary,
                        "total_s": time.monotonic() - T_START}, f, indent=1)
     emit({"kernels": summary})

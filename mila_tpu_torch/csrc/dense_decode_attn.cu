@@ -1,7 +1,10 @@
 // dense_decode_attn: one-query GQA decode attention over the contiguous,
 // token-major KV cache [B, T, NKV, HD], split along each row's own length.
 //
-// Replaces two TPU kernels of mila_tpu/kernels/dense_attention.py:
+// Replaces two TPU kernels of mila_tpu/kernels/dense_attention.py, each
+// over bf16 or f32 caches under a bf16 or f32 query (the TPU kernels stage
+// the caches in their own type and write out in q's: the speculative
+// engine's f32 draft decodes over a bf16 cache):
 //   _dense_kernel (dense_decode_attention): lens[b] valid rows (the current
 //       token included, already in the cache);
 //   _fused_kernel (fused_decode_attention): RoPE of q and of the new k from
@@ -47,11 +50,35 @@
 // of a fused call enters the softmax once, in that final step, after the
 // splits' partials. A dense row of length 0 gives zeros (as the TPU kernel;
 // the plain reference gives the mean of V there).
+// Built in four parts (kernels/_build.py: PARTS), one per (q, cache) type
+// pair, each with the dense and the fused kernels at every head size; part
+// 0 (bf16 over bf16) also holds the C entry points.
 // The head size is a template parameter, so every per-chunk loop unrolls:
 // with a runtime head size the chunk's loops ran as dependent shared-memory
 // round trips (4.5 us a 64-token chunk on the card; 2.8 us unrolled).
 #include "common.cuh"
 #include "mma.cuh"
+
+namespace dense_parts {  // one call's arguments, and each type pair's launches
+
+struct Call {
+  const void* src;  // q, or the fused qkv rows
+  const void *cos_t, *sin_t;
+  void *k, *v;
+  const void* lens;
+  void *out, *k_new, *o_part, *m_part, *l_part, *counters;
+  int B, T_len, NH, NKV, HD, S;
+  float scale;
+  bool fused;
+  cudaStream_t stream;
+};
+
+int run_bf16_bf16(const Call& c);
+int run_f32_f32(const Call& c);
+int run_f32_bf16(const Call& c);
+int run_bf16_f32(const Call& c);
+
+}  // namespace dense_parts
 
 namespace {
 
@@ -62,13 +89,14 @@ constexpr int MAXG = 8;
 constexpr int MIN_TOKENS = 32;   // SPLIT_MIN_TOKENS of kernels/dense_attention.py
 constexpr int MAX_SPLITS = 64;   // SPLIT_MAX of kernels/dense_attention.py
 
-template <typename T>
+// T: q (or the fused qkv rows), out and k_new; TC: the caches.
+template <typename T, typename TC>
 struct Params {
   const T* src;          // q [B, NH, HD], or the fused qkv rows [B, NH*HD + 2*KD]
   const float* cos_t;    // [B, KD] (fused)
   const float* sin_t;
-  T* kc;                 // [B, T, NKV, HD]
-  T* vc;
+  TC* kc;                // [B, T, NKV, HD]
+  TC* vc;
   const int* lens;       // rows incl. the current token; fused: old rows
   T* out;                // [B, NH, HD]
   T* k_new;              // [B, KD] (fused)
@@ -80,7 +108,8 @@ struct Params {
   float scale;
 };
 
-// Shared memory of a block (bytes), laid out as the kernels read it.
+// Shared memory of a block (bytes), laid out as the kernels read it; T is
+// the caches' type.
 template <typename T, int HD>
 struct Smem {
   static constexpr int ROW = HD * (int)sizeof(T) + 16;  // a padded K or V row
@@ -128,17 +157,18 @@ __device__ __forceinline__ void load_chunk(unsigned char* base, const T* kb, con
 // q of (b, KV head h) and, fused, the new row of head h: load() issues the
 // global loads into registers (before the row's length is known, so both
 // are in flight at once); store() writes q (fused: roped, rounded to T as
-// the reference rounds it) to q_s [G][HD] as f32, the roped k and raw v to
-// kn_s and vn_s, and, where `write` (split 0), k_new and cache row
-// old_lens[b] (when it lies in the cache), which no split reads.
-template <typename T, bool FUSED, int HD>
+// the reference rounds it) to q_s [G][HD] as f32, the roped k and raw v as
+// the cache holds them (rounded to TC) to kn_s and vn_s, and, where `write`
+// (split 0), k_new (in T) and cache row old_lens[b] (when it lies in the
+// cache), which no split reads.
+template <typename T, typename TC, bool FUSED, int HD>
 struct Queries {
   static constexpr int QE = (MAXG * HD + THREADS - 1) / THREADS;  // q elements a thread at most
   float qa[QE], qb[QE], ca[QE], sa[QE];
   float kx = 0.f, ky = 0.f, kcos = 0.f, ksin = 0.f;
   T vraw;
 
-  __device__ __forceinline__ void load(const Params<T>& a, int b, int h) {
+  __device__ __forceinline__ void load(const Params<T, TC>& a, int b, int h) {
     const int tid = threadIdx.x, G = a.NH / a.NKV, KD = a.NKV * HD;
     const T* row = a.src + (size_t)b * (FUSED ? a.NH * HD + 2 * KD : a.NH * HD);
 #pragma unroll
@@ -166,8 +196,8 @@ struct Queries {
     }
   }
 
-  __device__ __forceinline__ void store(const Params<T>& a, int b, int h, bool write, int old,
-                                        float* q_s, float* kn_s, float* vn_s) const {
+  __device__ __forceinline__ void store(const Params<T, TC>& a, int b, int h, bool write,
+                                        int old, float* q_s, float* kn_s, float* vn_s) const {
     const int tid = threadIdx.x, G = a.NH / a.NKV, KD = a.NKV * HD;
 #pragma unroll
     for (int k = 0; k < QE; ++k) {
@@ -176,15 +206,16 @@ struct Queries {
     }
     if (FUSED && tid < HD) {
       const T kn = from_f<T>(kx * kcos + ky * ksin);
-      kn_s[tid] = to_f(kn);
-      vn_s[tid] = to_f(vraw);
+      const TC kc = from_f<TC>(to_f(kn)), vc = from_f<TC>(to_f(vraw));
+      kn_s[tid] = to_f(kc);
+      vn_s[tid] = to_f(vc);
       if (write) {
         const int c = h * HD + tid;
         a.k_new[(size_t)b * KD + c] = kn;
         if (old >= 0 && old < a.T_len) {
           const size_t r = ((size_t)b * a.T_len + old) * KD + c;
-          a.kc[r] = kn;
-          a.vc[r] = vraw;
+          a.kc[r] = kc;
+          a.vc[r] = vc;
         }
       }
     }
@@ -206,9 +237,9 @@ __device__ void current_scores(const float* q_s, const float* kn_s, int G, float
 }
 
 // out = O / L after the current token (fused) joins (M, L, O) last.
-template <typename T, bool FUSED, int HD>
-__device__ __forceinline__ void store_out(const Params<T>& a, size_t r, int d, float M, float L,
-                                          float O, float cur, const float* vn_s) {
+template <typename T, typename TC, bool FUSED, int HD>
+__device__ __forceinline__ void store_out(const Params<T, TC>& a, size_t r, int d, float M,
+                                          float L, float O, float cur, const float* vn_s) {
   if (FUSED) {
     const float Mf = fmaxf(M, cur), al = expf(M - Mf), pc = expf(cur - Mf);
     L = L * al + pc;
@@ -224,8 +255,8 @@ __device__ __forceinline__ void store_out(const Params<T>& a, size_t r, int d, f
 // the o partials meanwhile by cp.async in runs of splits, each thread
 // adding its outputs over a run in split order. Every load of a run is in
 // flight at once.
-template <typename T, bool FUSED, int HD>
-__device__ void merge_store(const Params<T>& a, int b, int h, int n, unsigned char* buf,
+template <typename T, typename TC, bool FUSED, int HD>
+__device__ void merge_store(const Params<T, TC>& a, int b, int h, int n, unsigned char* buf,
                             const float* cur_s, const float* vn_s) {
   constexpr int OUTS = (MAXG * HD + THREADS - 1) / THREADS;  // outputs a thread owns at most
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -235,7 +266,7 @@ __device__ void merge_store(const Params<T>& a, int b, int h, int n, unsigned ch
   float* l_s = w_s + MAXG * MAX_SPLITS;        // [MAXG][MAX_SPLITS]
   float* ML_s = l_s + MAXG * MAX_SPLITS;       // [2][MAXG]: M, L
   float* o_s = ML_s + 2 * MAXG;                // runs of [per][G][HD]
-  const int per = (Smem<T, HD>::RING - 4 * (2 * MAXG * MAX_SPLITS + 2 * MAXG)) / (GH * 4);
+  const int per = (Smem<TC, HD>::RING - 4 * (2 * MAXG * MAX_SPLITS + 2 * MAXG)) / (GH * 4);
   auto issue = [&](int s0) {
     constexpr int Q4 = HD / 4;
     const int cnt = min(per, n - s0);
@@ -292,18 +323,18 @@ __device__ void merge_store(const Params<T>& a, int b, int h, int n, unsigned ch
     const int i = tid + k * THREADS;
     if (i < GH) {
       const int g = i / HD;
-      store_out<T, FUSED, HD>(a, row0 + g, i % HD, ML_s[g], ML_s[MAXG + g], O[k],
-                              FUSED ? cur_s[g] : 0.f, vn_s);
+      store_out<T, TC, FUSED, HD>(a, row0 + g, i % HD, ML_s[g], ML_s[MAXG + g], O[k],
+                                  FUSED ? cur_s[g] : 0.f, vn_s);
     }
   }
 }
 
-template <typename T, bool FUSED, int HD>
-__global__ void __launch_bounds__(THREADS) split_kernel(const Params<T> a) {
-  using SM = Smem<T, HD>;
+template <typename T, typename TC, bool FUSED, int HD>
+__global__ void __launch_bounds__(THREADS) split_kernel(const Params<T, TC> a) {
+  using SM = Smem<TC, HD>;
   constexpr int DH = HD / 2;                // head dims a thread dots in the scores
   constexpr int R = THREADS / HD, SPAN = CH / R;  // values: R parts of SPAN tokens
-  constexpr int RS = SM::ROW / (int)sizeof(T);
+  constexpr int RS = SM::ROW / (int)sizeof(TC);
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last_s;
   float* f = reinterpret_cast<float*>(smem + SM::RING);
@@ -314,22 +345,22 @@ __global__ void __launch_bounds__(THREADS) split_kernel(const Params<T> a) {
   const int b = blockIdx.x / NKV, h = blockIdx.x % NKV, s = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int lraw = a.lens[b];
-  Queries<T, FUSED, HD> qv;
+  Queries<T, TC, FUSED, HD> qv;
   qv.load(a, b, h);
   const int len = min(max(lraw, 0), a.T_len);
   const int n = split_count(len, a.S);
   if (s >= n) return;
   const int lo = (int)((long long)s * len / n), hi = (int)((long long)(s + 1) * len / n);
   const int ntok = hi - lo, nch = (ntok + CH - 1) / CH;
-  const T* kb = a.kc + (size_t)b * a.T_len * KD + h * HD;
-  const T* vb = a.vc + (size_t)b * a.T_len * KD + h * HD;
+  const TC* kb = a.kc + (size_t)b * a.T_len * KD + h * HD;
+  const TC* vb = a.vc + (size_t)b * a.T_len * KD + h * HD;
 
   // The split's first NST chunks are in flight before any math: one commit
   // group per chunk (empty past the end).
 #pragma unroll
   for (int c = 0; c < NST; ++c) {
-    if (c < nch) load_chunk<T, HD>(smem + c * SM::STAGE, kb, vb, lo + c * CH,
-                                   min(CH, ntok - c * CH), KD);
+    if (c < nch) load_chunk<TC, HD>(smem + c * SM::STAGE, kb, vb, lo + c * CH,
+                                    min(CH, ntok - c * CH), KD);
     cp_async_commit();
   }
   qv.store(a, b, h, s == 0, lraw, q_s, kn_s, vn_s);
@@ -350,8 +381,8 @@ __global__ void __launch_bounds__(THREADS) split_kernel(const Params<T> a) {
     cp_async_wait<NST - 1>();  // NST + c groups committed: chunk c has landed
     __syncthreads();           // ... for every thread (and q_s is written)
     const unsigned char* base = smem + (c % NST) * SM::STAGE;
-    const T* Ks = reinterpret_cast<const T*>(base);
-    const T* Vs = reinterpret_cast<const T*>(base + CH * SM::ROW);
+    const TC* Ks = reinterpret_cast<const TC*>(base);
+    const TC* Vs = reinterpret_cast<const TC*>(base + CH * SM::ROW);
     const int nc = min(CH, ntok - c * CH);
     const bool valid = t < nc;
 
@@ -422,8 +453,8 @@ __global__ void __launch_bounds__(THREADS) split_kernel(const Params<T> a) {
     }
     __syncthreads();  // stage c and p_s fully read
     if (c + NST < nch)
-      load_chunk<T, HD>(smem + (c % NST) * SM::STAGE, kb, vb, lo + (c + NST) * CH,
-                        min(CH, ntok - (c + NST) * CH), KD);
+      load_chunk<TC, HD>(smem + (c % NST) * SM::STAGE, kb, vb, lo + (c + NST) * CH,
+                         min(CH, ntok - (c + NST) * CH), KD);
     cp_async_commit();
   }
   cp_async_wait<0>();
@@ -455,7 +486,8 @@ __global__ void __launch_bounds__(THREADS) split_kernel(const Params<T> a) {
 #pragma unroll
     for (int r = 0; r < R; ++r) o += o_s[(r * MAXG + g) * HD + d];
     if (n == 1)
-      store_out<T, FUSED, HD>(a, row0 + g, d, m_s[g], l_s[g], o, FUSED ? cur_s[g] : 0.f, vn_s);
+      store_out<T, TC, FUSED, HD>(a, row0 + g, d, m_s[g], l_s[g], o, FUSED ? cur_s[g] : 0.f,
+                                  vn_s);
     else
       a.o_part[((row0 + g) * a.S + s) * HD + d] = o;
   }
@@ -470,48 +502,76 @@ __global__ void __launch_bounds__(THREADS) split_kernel(const Params<T> a) {
   __syncthreads();
   if (!last_s) return;
   __threadfence();
-  merge_store<T, FUSED, HD>(a, b, h, n, smem, cur_s, vn_s);
+  merge_store<T, TC, FUSED, HD>(a, b, h, n, smem, cur_s, vn_s);
   if (tid == 0) a.counters[blockIdx.x] = 0;
 }
 
-template <typename T, bool FUSED, int HD>
-int launch(const Params<T>& a, int B, cudaStream_t stream) {
-  constexpr int bytes = Smem<T, HD>::BYTES;
+template <typename T, typename TC, bool FUSED, int HD>
+int launch(const Params<T, TC>& a, int B, cudaStream_t stream) {
+  constexpr int bytes = Smem<TC, HD>::BYTES;
   static int allowed = 48 * 1024;
   if (bytes > allowed) {
-    cudaError_t e = cudaFuncSetAttribute(split_kernel<T, FUSED, HD>,
+    cudaError_t e = cudaFuncSetAttribute(split_kernel<T, TC, FUSED, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     allowed = bytes;
   }
-  split_kernel<T, FUSED, HD><<<dim3(B * a.NKV, a.S), THREADS, bytes, stream>>>(a);
+  split_kernel<T, TC, FUSED, HD><<<dim3(B * a.NKV, a.S), THREADS, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool FUSED>
-int by_head_dim(const Params<T>& a, int B, int HD, cudaStream_t st) {
+template <typename T, typename TC, bool FUSED>
+int by_head_dim(const Params<T, TC>& a, int B, int HD, cudaStream_t st) {
   switch (HD) {
-    case 8: return launch<T, FUSED, 8>(a, B, st);
-    case 16: return launch<T, FUSED, 16>(a, B, st);
-    case 32: return launch<T, FUSED, 32>(a, B, st);
-    case 64: return launch<T, FUSED, 64>(a, B, st);
-    case 128: return launch<T, FUSED, 128>(a, B, st);
+    case 8: return launch<T, TC, FUSED, 8>(a, B, st);
+    case 16: return launch<T, TC, FUSED, 16>(a, B, st);
+    case 32: return launch<T, TC, FUSED, 32>(a, B, st);
+    case 64: return launch<T, TC, FUSED, 64>(a, B, st);
+    case 128: return launch<T, TC, FUSED, 128>(a, B, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename T, bool FUSED>
-int run(const void* src, const void* cos_t, const void* sin_t, void* k, void* v, const void* lens,
-        void* out, void* k_new, void* o_part, void* m_part, void* l_part, void* counters, int B,
-        int T_len, int NH, int NKV, int HD, int S, float scale, cudaStream_t st) {
-  if (B <= 0) return static_cast<int>(cudaGetLastError());
-  const Params<T> a{static_cast<const T*>(src), static_cast<const float*>(cos_t),
-                    static_cast<const float*>(sin_t), static_cast<T*>(k), static_cast<T*>(v),
-                    static_cast<const int*>(lens), static_cast<T*>(out), static_cast<T*>(k_new),
-                    static_cast<float*>(o_part), static_cast<float*>(m_part),
-                    static_cast<float*>(l_part), static_cast<int*>(counters), T_len, NH, NKV, S,
-                    scale};
-  return by_head_dim<T, FUSED>(a, B, HD, st);
+template <typename T, typename TC>
+int run(const dense_parts::Call& c) {
+  if (c.B <= 0) return static_cast<int>(cudaGetLastError());
+  const Params<T, TC> a{static_cast<const T*>(c.src), static_cast<const float*>(c.cos_t),
+                        static_cast<const float*>(c.sin_t), static_cast<TC*>(c.k),
+                        static_cast<TC*>(c.v), static_cast<const int*>(c.lens),
+                        static_cast<T*>(c.out), static_cast<T*>(c.k_new),
+                        static_cast<float*>(c.o_part), static_cast<float*>(c.m_part),
+                        static_cast<float*>(c.l_part), static_cast<int*>(c.counters), c.T_len,
+                        c.NH, c.NKV, c.S, c.scale};
+  return c.fused ? by_head_dim<T, TC, true>(a, c.B, c.HD, c.stream)
+                 : by_head_dim<T, TC, false>(a, c.B, c.HD, c.stream);
+}
+
+}  // namespace
+
+namespace dense_parts {  // each (q, cache) type pair's instantiations, in a part of its own
+
+#if IN_PART(0)
+int run_bf16_bf16(const Call& c) { return run<__nv_bfloat16, __nv_bfloat16>(c); }
+#endif
+#if IN_PART(1)
+int run_f32_f32(const Call& c) { return run<float, float>(c); }
+#endif
+#if IN_PART(2)
+int run_f32_bf16(const Call& c) { return run<float, __nv_bfloat16>(c); }
+#endif
+#if IN_PART(3)
+int run_bf16_f32(const Call& c) { return run<__nv_bfloat16, float>(c); }
+#endif
+
+}  // namespace dense_parts
+
+#if IN_PART(0)
+namespace {
+
+// The four (q, cache) type pairs: f32 when q_f32 / cache_f32, else bf16.
+int by_types(const dense_parts::Call& c, int q_f32, int cache_f32) {
+  if (q_f32) return cache_f32 ? dense_parts::run_f32_f32(c) : dense_parts::run_f32_bf16(c);
+  return cache_f32 ? dense_parts::run_bf16_f32(c) : dense_parts::run_bf16_bf16(c);
 }
 
 }  // namespace
@@ -529,40 +589,36 @@ extern "C" unsigned long long dense_capture_id(void* stream) {
 }
 
 // q [B, NH, HD]; k, v [B, T, NKV, HD]; lens [B] int32; out [B, NH, HD].
-// All of q's dtype: f32 when is_f32, else bf16. S splits per row; with
-// S > 1, o_part [B, NH, S, HD], m_part and l_part [B, NH, S] f32 scratch
-// and counters [B * NKV] int32, zero before the launch and left zero after
-// it (unused when S == 1), which no launch that may run at the same time
-// shares. Needs NH / NKV <= 8, HD in {8, 16, 32, 64, 128}
-// (f32: HD >= 8), 16-byte aligned caches and 1 <= S <= MAX_SPLITS (checked
-// by the Python wrapper).
+// q and out are f32 when q_f32, else bf16; the caches f32 when cache_f32,
+// else bf16, in any pairing with q's type (each read in its own type). S
+// splits per row; with S > 1, o_part [B, NH, S, HD], m_part and l_part
+// [B, NH, S] f32 scratch and counters [B * NKV] int32, zero before the
+// launch and left zero after it (unused when S == 1), which no launch that
+// may run at the same time shares. Needs NH / NKV <= 8, HD in {8, 16, 32,
+// 64, 128} (f32: HD >= 8), 16-byte aligned caches and 1 <= S <= MAX_SPLITS
+// (checked by the Python wrapper).
 extern "C" int dense_decode_attn(const void* q, const void* k, const void* v, const void* lens,
                                  void* out, void* o_part, void* m_part, void* l_part,
                                  void* counters, int B, int T, int NH, int NKV, int HD, int S,
-                                 float scale, int is_f32, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  void* kk = const_cast<void*>(k);
-  void* vv = const_cast<void*>(v);
-  if (is_f32)
-    return run<float, false>(q, nullptr, nullptr, kk, vv, lens, out, nullptr, o_part, m_part,
-                             l_part, counters, B, T, NH, NKV, HD, S, scale, st);
-  return run<__nv_bfloat16, false>(q, nullptr, nullptr, kk, vv, lens, out, nullptr, o_part,
-                                   m_part, l_part, counters, B, T, NH, NKV, HD, S, scale, st);
+                                 float scale, int q_f32, int cache_f32, void* stream) {
+  const dense_parts::Call c{q, nullptr, nullptr, const_cast<void*>(k), const_cast<void*>(v),
+                            lens, out, nullptr, o_part, m_part, l_part, counters, B, T, NH, NKV,
+                            HD, S, scale, false, static_cast<cudaStream_t>(stream)};
+  return by_types(c, q_f32, cache_f32);
 }
 
 // qkv [B, NH*HD + 2*NKV*HD] (before RoPE); cos_t, sin_t [B, NKV*HD] f32;
-// k, v [B, T, NKV, HD] (row old_lens[b] written); old_lens [B] int32;
-// out [B, NH, HD]; k_new [B, NKV*HD]. Scratch, splits and dtype rules as
-// dense_decode_attn.
+// k, v [B, T, NKV, HD] (row old_lens[b] written, rounded to the caches'
+// type); old_lens [B] int32; out [B, NH, HD] and k_new [B, NKV*HD] in
+// qkv's type. Scratch, splits and type rules as dense_decode_attn.
 extern "C" int fused_decode_attn(const void* qkv, const void* cos_t, const void* sin_t, void* k,
                                  void* v, const void* old_lens, void* out, void* k_new,
                                  void* o_part, void* m_part, void* l_part, void* counters, int B,
-                                 int T, int NH, int NKV, int HD, int S, float scale, int is_f32,
-                                 void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_f32)
-    return run<float, true>(qkv, cos_t, sin_t, k, v, old_lens, out, k_new, o_part, m_part, l_part,
-                            counters, B, T, NH, NKV, HD, S, scale, st);
-  return run<__nv_bfloat16, true>(qkv, cos_t, sin_t, k, v, old_lens, out, k_new, o_part, m_part,
-                                  l_part, counters, B, T, NH, NKV, HD, S, scale, st);
+                                 int T, int NH, int NKV, int HD, int S, float scale, int q_f32,
+                                 int cache_f32, void* stream) {
+  const dense_parts::Call c{qkv, cos_t, sin_t, k, v, old_lens, out, k_new, o_part, m_part,
+                            l_part, counters, B, T, NH, NKV, HD, S, scale, true,
+                            static_cast<cudaStream_t>(stream)};
+  return by_types(c, q_f32, cache_f32);
 }
+#endif  // IN_PART(0)

@@ -2,8 +2,10 @@
 // split along the sequence (flash-decoding).
 //
 // Replaces the TPU kernel mila_tpu/kernels/paged_attention.py:_paged_kernel
-// (entry paged_decode_attention), bf16/f32 pages and int8 pages with f32
-// scales [P, NKV, ps], one per (page, head, token). Pages are
+// (entry paged_decode_attention), bf16/f32 pages under a bf16 or f32 query
+// (the TPU kernel takes q in any type and the pages in theirs: an f32 query
+// over bf16 pages is GPT-2's serving pair) and int8 pages with f32 scales
+// [P, NKV, ps], one per (page, head, token). Pages are
 // [P, NKV, HD, ps] (token-minor), so the tile of KV head h in page p is a
 // contiguous [HD, ps] slab.
 //
@@ -40,8 +42,26 @@
 // tiles: k_scale[token] multiplies the token's scaled score after the q.k
 // dot, v_scale[token] its probability before P.V (the row sum l adds the
 // unscaled probabilities), both in f32.
+// Built in two parts (kernels/_build.py: PARTS), one per query type; part 0
+// (bf16 q) also holds the C entry point.
 #include "common.cuh"
 #include "mma.cuh"
+
+namespace paged_parts {  // one call's arguments, and each query type's launches
+
+struct Call {
+  const void *q, *kp, *vp, *ks, *vs, *table, *lens;
+  void *out, *o_part, *m_part, *l_part;
+  int B, NH, NKV, HD, ps, W, S;
+  float scale;
+  int pages_f32;
+  cudaStream_t stream;
+};
+
+int run_bf16(const Call& c);
+int run_f32(const Call& c);
+
+}  // namespace paged_parts
 
 namespace {
 
@@ -443,42 +463,53 @@ int by_group(int G, const void* q, const void* kp, const void* vp, const void* k
 }
 
 template <typename T>
-int dispatch(const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
-             const void* table, const void* lens, void* out, void* o_part, void* m_part,
-             void* l_part, int B, int NH, int NKV, int HD, int ps, int W, int S, float scale,
-             cudaStream_t st) {
-  const int G = NH / NKV;
-  if (ks)
-    return by_group<T, int8_t, 1>(G, q, kp, vp, ks, vs, table, lens, out, o_part, m_part, l_part,
-                                  B, NH, NKV, HD, ps, W, S, scale, st);
-  if constexpr (sizeof(T) == 4) {  // f32 pages: 64-token chunks keep two stages in shared memory
-    if (HD >= 64)
-      return by_group<T, T, 2>(G, q, kp, vp, ks, vs, table, lens, out, o_part, m_part, l_part, B,
-                               NH, NKV, HD, ps, W, S, scale, st);
+int dispatch(const paged_parts::Call& c) {
+  const int G = c.NH / c.NKV;
+#define PAGED_BY_GROUP(TP, TPT)                                                               \
+  return by_group<T, TP, TPT>(G, c.q, c.kp, c.vp, c.ks, c.vs, c.table, c.lens, c.out, c.o_part, \
+                              c.m_part, c.l_part, c.B, c.NH, c.NKV, c.HD, c.ps, c.W, c.S,       \
+                              c.scale, c.stream)
+  if (c.ks) PAGED_BY_GROUP(int8_t, 1);
+  if (c.pages_f32) {  // f32 pages: 64-token chunks keep two stages in shared memory
+    if (c.HD >= 64) PAGED_BY_GROUP(float, 2);
+    PAGED_BY_GROUP(float, 1);
   }
-  return by_group<T, T, 1>(G, q, kp, vp, ks, vs, table, lens, out, o_part, m_part, l_part, B, NH,
-                           NKV, HD, ps, W, S, scale, st);
+  PAGED_BY_GROUP(__nv_bfloat16, 1);
+#undef PAGED_BY_GROUP
 }
 
 }  // namespace
 
+namespace paged_parts {  // each query type's instantiations, in a part of its own
+
+#if IN_PART(0)
+int run_bf16(const Call& c) { return dispatch<__nv_bfloat16>(c); }
+#endif
+#if IN_PART(1)
+int run_f32(const Call& c) { return dispatch<float>(c); }
+#endif
+
+}  // namespace paged_parts
+
+#if IN_PART(0)
 // q [B, NH, HD]; k_pages, v_pages [P, NKV, HD, ps]; k_scale, v_scale
 // [P, NKV, ps] f32 for int8 pages, else null; table [B, W] int32; lens [B]
-// int32; out [B, NH, HD]. q and out are f32 when is_f32, else bf16; pages
-// are int8 with scales, else q's type. S splits per row; with S > 1,
-// o_part [B, NH, S, HD], m_part and l_part [B, NH, S] f32 scratch (unused
-// when S == 1). Needs NH / NKV <= 8, HD in {8, 16, 32, 64, 128}, ps % 8 == 0
-// and 1 <= S <= W (checked by the Python wrapper).
+// int32; out [B, NH, HD]. q and out are f32 when q_f32, else bf16; pages
+// are int8 with scales, else f32 when pages_f32 and bf16 otherwise, in any
+// pairing with q's type (q is read in its type and the pages in theirs,
+// both widened to f32; out is written in q's type). S splits per row; with
+// S > 1, o_part [B, NH, S, HD], m_part and l_part [B, NH, S] f32 scratch
+// (unused when S == 1). Needs NH / NKV <= 8, HD in {8, 16, 32, 64, 128},
+// ps % 8 == 0 and 1 <= S <= W (checked by the Python wrapper).
 extern "C" int paged_decode_attn(const void* q, const void* k_pages, const void* v_pages,
                                  const void* k_scale, const void* v_scale, const void* table,
                                  const void* lens, void* out, void* o_part, void* m_part,
                                  void* l_part, int B, int NH, int NKV, int HD, int ps, int W, int S,
-                                 float scale, int is_f32, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                                 float scale, int q_f32, int pages_f32, void* stream) {
   if (B <= 0) return static_cast<int>(cudaGetLastError());
-  if (is_f32)
-    return dispatch<float>(q, k_pages, v_pages, k_scale, v_scale, table, lens, out, o_part, m_part,
-                           l_part, B, NH, NKV, HD, ps, W, S, scale, st);
-  return dispatch<__nv_bfloat16>(q, k_pages, v_pages, k_scale, v_scale, table, lens, out, o_part,
-                                 m_part, l_part, B, NH, NKV, HD, ps, W, S, scale, st);
+  const paged_parts::Call c{q, k_pages, v_pages, k_scale, v_scale, table, lens, out, o_part,
+                            m_part, l_part, B, NH, NKV, HD, ps, W, S, scale, pages_f32,
+                            static_cast<cudaStream_t>(stream)};
+  return q_f32 ? paged_parts::run_f32(c) : paged_parts::run_bf16(c);
 }
+#endif  // IN_PART(0)

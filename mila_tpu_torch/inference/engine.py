@@ -30,8 +30,22 @@ Differences from the JAX engine: PyTorch runs eagerly, so the chunk is a
 Python loop of forward calls where JAX traced a ``lax.scan``; rows without
 a request keep their position frozen at 0 instead of advancing (their
 writes go to the reserved page 0, or to row 0 of their own slot, and are
-never read); random draws come from a ``torch.Generator``. Speculative
-decoding is not ported yet and raises.
+never read); random draws come from a ``torch.Generator``.
+
+Speculative decoding (``speculative_k`` > 0, the paged layout): a draft
+model with the contiguous protocol mirrors every prompt in its own bf16
+cache (one draft forward per prefill bucket group), and each engine step is
+one round for all active slots: the draft proposes k tokens per row
+through ``forward_with_cache_ragged``, the target verifies all of them in
+one ``forward_paged_chunk`` call, and each row emits its accepted prefix
+and then the replacement or bonus token. Greedy rows accept while the
+target's argmax agrees (their stream equals the target-only stream);
+sampled rows run the rejection scheme of speculative sampling (accept with
+min(1, p/q), replace the first rejection by a draw from norm(relu(p - q)),
+a bonus draw when all k are accepted). Unlike the JAX engine, the draft
+takes one more step per round to write d_k's K/V (JAX's draft never writes
+that row when all k drafts are accepted, so its next proposals read a
+stale row), and the rounds' time counts in ``t_decode_s``.
 """
 
 from __future__ import annotations
@@ -39,14 +53,19 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from mila_tpu_torch.device import DeviceLike, resolve_device
 from mila_tpu_torch.inference.kv_cache import PageAllocator
-from mila_tpu_torch.inference.sampling import SamplingConfig, sample_categorical, sample_logits
+from mila_tpu_torch.inference.sampling import (
+    SamplingConfig,
+    categorical,
+    sample_categorical,
+    sample_logits,
+)
 
 CACHE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.int8}
 
@@ -87,7 +106,11 @@ class EngineConfig:
     kv_layout: str = "auto"  # auto | paged | contiguous
     page_size: int = 128
     num_pages: int = 0  # 0 -> max_batch * ceil(max_len / page_size) + 1
-    speculative_k: int = 0  # not ported yet; must stay 0
+    # Speculative decoding (paged layout): draft_model proposes speculative_k
+    # tokens a round, the target verifies them in one forward_paged_chunk.
+    speculative_k: int = 0  # 0 = off
+    draft_model: Any = None
+    draft_params: Any = None
 
 
 class InferenceEngine:
@@ -119,8 +142,6 @@ class InferenceEngine:
         dt = CACHE_DTYPES[c.cache_dtype]
         if dt == torch.int8 and self.kv_layout != "paged":
             raise ValueError("int8 KV cache requires the paged layout")
-        if c.speculative_k:
-            raise NotImplementedError("speculative decoding is not ported yet")
         if self.kv_layout == "paged":
             ps = c.page_size
             num_pages = c.num_pages or (c.max_batch * -(-c.max_len // ps) + 1)
@@ -131,6 +152,18 @@ class InferenceEngine:
         else:
             self.cache = model.init_kv_cache(c.max_batch, c.max_len, dt)
             self.pools = self.alloc = None
+        self.spec_k = int(c.speculative_k or 0)
+        if self.spec_k:
+            if self.kv_layout != "paged":
+                raise ValueError("speculative decoding requires the paged layout")
+            if not hasattr(model, "forward_paged_chunk"):
+                raise ValueError("model has no forward_paged_chunk (speculative verify)")
+            if c.draft_model is None or c.draft_params is None:
+                raise ValueError("speculative_k needs draft_model + draft_params")
+            if c.draft_model.config.vocab_size != model.config.vocab_size:
+                raise ValueError("draft/target vocab mismatch")
+            self.draft_cache = c.draft_model.init_kv_cache(c.max_batch, c.max_len,
+                                                           torch.bfloat16)
         self.giga_pools = None
         if self._use_giga_decode():
             # One stacked allocation; the dict cache becomes views of it.
@@ -147,7 +180,8 @@ class InferenceEngine:
         self._dev_dirty = True
         self.stats = {"steps": 0, "decode_iters": 0, "prefills": 0, "tokens_out": 0,
                       "cancelled": 0, "prefill_groups": 0, "t_prefill_s": 0.0,
-                      "t_decode_s": 0.0, "prefill_by_bucket": {}}
+                      "t_decode_s": 0.0, "prefill_by_bucket": {}, "spec_rounds": 0,
+                      "spec_accepted": 0, "spec_proposed": 0}
 
     # ------------- public API -------------
 
@@ -189,6 +223,9 @@ class InferenceEngine:
         active = [i for i, s in enumerate(self._slots) if s is not None]
         if not active:
             return finished
+        if self.spec_k:
+            self._spec_round(active, finished)
+            return finished
         # Variable chunk: when every active slot is within `bound` tokens of
         # its cap, shrink the chunk to the next power of two >= bound.
         chunk = max(self.config.decode_chunk, 1)
@@ -227,8 +264,9 @@ class InferenceEngine:
         raise ValueError(f"prompt length {n} exceeds buckets")
 
     def _overshoot_margin(self) -> int:
-        """Cache positions can overshoot the last emitted token by a chunk."""
-        return max(self.config.decode_chunk, 1)
+        """Cache positions can overshoot the last emitted token by a chunk,
+        or by a speculative round's k drafts and its bonus token."""
+        return max(self.config.decode_chunk, self.spec_k + 1, 1)
 
     def _worst_len(self, req: Request) -> int:
         """Most tokens a request can occupy: its prefill bucket, or its final
@@ -323,6 +361,104 @@ class InferenceEngine:
         dev["tok"], dev["pos"] = toks, pos
         return out
 
+    # ---- speculative decoding (paged target, contiguous draft) ----
+
+    def _draft_prefill(self, tokens: torch.Tensor, reqs: list) -> None:
+        """The draft mirrors a bucket group's prompts in its cache: one draft
+        forward over every slot (tokens [max_batch, bucket], zeros outside
+        the group) on a copy of the cache, whose rows of the group's slots
+        then replace the cache's (JAX keeps the other rows with a masked
+        ``where``)."""
+        c = self.config
+        copy = {n: {"k": lc["k"].clone(), "v": lc["v"].clone()}
+                for n, lc in self.draft_cache.items()}
+        _, copy = c.draft_model.forward_with_cache(c.draft_params, tokens, copy, 0)
+        idx = torch.tensor([r.slot for r in reqs], device=self.device)
+        for n, lc in self.draft_cache.items():
+            lc["k"][idx] = copy[n]["k"][idx]
+            lc["v"][idx] = copy[n]["v"][idx]
+
+    def _spec_verify(self, table, last, positions, greedy, temps, all_greedy: bool):
+        """One batched round on the device: (n accepted [B], drafts [B, k],
+        replacement or bonus token [B])."""
+        c, k = self.config, self.spec_k
+        V = self.model.config.vocab_size
+        t1 = temps.clamp_min(1e-6)[:, None]
+        toks, pos = last[:, None], positions
+        d_toks, q_of_d, qs = [], [], []
+        # 1. k proposals per row, and one more step that writes d_k's K/V.
+        for i in range(k + 1):
+            logits, self.draft_cache = c.draft_model.forward_with_cache_ragged(
+                c.draft_params, toks, self.draft_cache, pos)
+            if i == k:
+                break
+            logits = logits[:, -1, :V].float() / t1
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            if not all_greedy:
+                q = torch.softmax(logits, dim=-1)
+                nxt = torch.where(greedy, nxt, categorical(logits, self._gen))
+                qs.append(q)
+                q_of_d.append(q.gather(1, nxt[:, None].long())[:, 0])
+            d_toks.append(nxt)
+            toks, pos = nxt[:, None], pos + 1
+        d = torch.stack(d_toks, dim=1)  # [B, k]
+        # 2. one target verify over [last, d_1 .. d_k].
+        t_logits, self.pools = self.model.forward_paged_chunk(
+            self.params, torch.cat([last[:, None], d], dim=1), self.pools, table, positions)
+        t_logits = t_logits[..., :V].float() / t1[..., None]
+        t_arg = torch.argmax(t_logits, dim=-1).to(torch.int32)  # [B, k + 1]
+        rows = torch.arange(d.shape[0], device=d.device)
+        # 3. the accepted prefix per row; 4. the replacement or bonus token.
+        acc = d == t_arg[:, :k]
+        if all_greedy:
+            n = torch.cumprod(acc.to(torch.int32), dim=1).sum(dim=1)
+            return n, d, t_arg[rows, n]
+        p = torch.softmax(t_logits, dim=-1)  # [B, k + 1, V]
+        p_of_d = p[:, :k].gather(2, d[..., None].long())[..., 0]
+        u = torch.rand((d.shape[0], k), generator=self._gen, device=d.device)
+        acc_samp = u < p_of_d / torch.stack(q_of_d, dim=1).clamp_min(1e-20)
+        n = torch.cumprod(torch.where(greedy[:, None], acc, acc_samp).to(torch.int32),
+                          dim=1).sum(dim=1)
+        p_n = p[rows, n]
+        q_n = torch.stack(qs, dim=1)[rows, n.clamp_max(k - 1)]
+        resid = (p_n - q_n).clamp_min(0.0)
+        resid_ok = resid.sum(-1, keepdim=True) > 1e-12
+        dist = torch.where((n == k)[:, None], p_n, torch.where(resid_ok, resid, p_n))
+        t_samp = categorical(torch.log(dist.clamp_min(1e-30)), self._gen)
+        return n, d, torch.where(greedy, t_arg[rows, n], t_samp)
+
+    def _spec_round(self, active: list, finished: list) -> None:
+        """One speculative round for the active slots: draft, verify, emit
+        each row's accepted prefix and its replacement or bonus token."""
+        k = self.spec_k
+        t0 = time.monotonic()
+        for i in active:
+            self.alloc.ensure(i, int(self._positions[i]) + k + 1)
+        greedy, temps = self._sampling_rows([self._slots[i] for i in active])
+        to_dev = lambda a: torch.from_numpy(a.copy()).to(self.device)  # noqa: E731
+        n, d, t_new = self._spec_verify(to_dev(self.alloc.table), to_dev(self._last_token),
+                                        to_dev(self._positions), to_dev(greedy),
+                                        to_dev(temps), bool(greedy.all()))
+        out = torch.cat([n.to(torch.int32)[:, None], d, t_new[:, None].to(torch.int32)],
+                        dim=1).cpu().numpy()  # the one fetch per round
+        self.stats["t_decode_s"] += time.monotonic() - t0
+        for i in active:
+            req = self._slots[i]
+            a = int(out[i, 0])
+            emit = [int(x) for x in out[i, 1:1 + a]] + [int(out[i, 1 + k])]
+            self.stats["spec_proposed"] += k
+            self.stats["spec_accepted"] += a
+            for t in emit:
+                if req.done:
+                    break
+                self._emit(req, t)
+                self._maybe_finish(req, finished)
+            if self._slots[i] is not None:
+                self._positions[i] = int(self._positions[i]) + a + 1
+                self._last_token[i] = emit[-1]
+        self.stats["spec_rounds"] += 1
+        self.stats["steps"] += 1
+
     def _drop_cancelled(self, finished: list) -> None:
         still = []
         for r in self._queue:
@@ -385,6 +521,8 @@ class InferenceEngine:
         V = self.model.config.vocab_size
         toks_dev = self._sample(logits[:, :V], to_dev(greedy), to_dev(temps),
                                 bool(greedy.all()))
+        if self.spec_k:
+            self._draft_prefill(to_dev(tokens), reqs)
         toks = toks_dev.cpu().numpy()  # the one small fetch per group
         self._count_prefill(bucket, time.monotonic() - t0)
         for req in reqs:

@@ -1,21 +1,51 @@
 """Paged KV cache: page pools, page-table writes and reads, host allocator
-(port of the paged part of ``mila_tpu/inference/kv_cache.py``).
+(port of ``mila_tpu/inference/kv_cache.py``).
 
 Pools are [L, P, NKV, HD, ps]: page-major with token-minor pages, so one
 page of one KV head is a contiguous [HD, ps] slab for the decode kernel.
 Unlike the JAX package, whose arrays are immutable, writes here update the
 pools in place (the engine owns them; this saves a pool copy per step).
+
+``PagedCacheConfig`` and ``PagedKVCache`` are the standalone page pool with
+its own host allocator (token-major pages [L, P, ps, NKV, HD], per-page
+writes, a gather read for oracles), kept as the JAX package keeps them
+beside the engine's layout.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from mila_tpu_torch.device import DeviceLike, resolve_device
 
 from mila_tpu_torch.kernels.paged_attention import (  # noqa: F401 (re-export)
     paged_decode_attention,
     paged_decode_attention_ref,
 )
+
+
+@dataclasses.dataclass
+class PagedCacheConfig:
+    num_layers: int
+    num_kv_heads: int
+    head_dim: int
+    page_size: int = 128
+    num_pages: int = 512
+    max_seqs: int = 8
+    dtype: str = "bfloat16"
+
+    @property
+    def pages_per_seq(self) -> int:
+        return self.num_pages  # upper bound; table rows are this wide
+
+    def hbm_bytes(self) -> int:
+        """Bytes of the K and V pools together."""
+        per = (self.num_layers * self.num_pages * self.page_size * self.num_kv_heads
+               * self.head_dim * getattr(torch, self.dtype).itemsize)
+        return 2 * per
 
 
 def kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -145,3 +175,84 @@ class PageAllocator:
     def release(self, slot: int) -> None:
         self.trim(slot, 0)
         self._reserved[slot] = 0
+
+
+class PagedKVCache:
+    """A device page pool with its host allocator state: pages [L, P, ps,
+    NKV, HD] on ``device`` (the GPU unless the caller passes ``"cpu"``),
+    written in place; the page table, lengths and free list are numpy."""
+
+    def __init__(self, config: PagedCacheConfig, max_len: int = 0,
+                 device: DeviceLike = None):
+        c = config
+        self.config = c
+        self.device = resolve_device(device)
+        self.max_len = max_len or (c.num_pages // c.max_seqs) * c.page_size
+        self.table_width = -(-self.max_len // c.page_size)
+        shape = (c.num_layers, c.num_pages, c.page_size, c.num_kv_heads, c.head_dim)
+        self.k_pages = torch.zeros(shape, dtype=getattr(torch, c.dtype), device=self.device)
+        self.v_pages = torch.zeros(shape, dtype=getattr(torch, c.dtype), device=self.device)
+        self._free = list(range(c.num_pages - 1, -1, -1))
+        self.page_table = np.zeros((c.max_seqs, self.table_width), np.int32)
+        self.seq_lens = np.zeros((c.max_seqs,), np.int32)
+        self._active = np.zeros((c.max_seqs,), bool)
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    def allocate_slot(self, length_hint: int = 0) -> int:
+        """Claim a sequence slot."""
+        for s in range(self.config.max_seqs):
+            if not self._active[s]:
+                self._active[s] = True
+                self.seq_lens[s] = 0
+                return s
+        raise RuntimeError("no free sequence slots")
+
+    def free_slot(self, slot: int) -> None:
+        used = -(-int(self.seq_lens[slot]) // self.config.page_size)
+        for i in range(used):
+            self._free.append(int(self.page_table[slot, i]))
+        self.page_table[slot, :] = 0
+        self.seq_lens[slot] = 0
+        self._active[slot] = False
+
+    def ensure_capacity(self, slot: int, new_len: int) -> None:
+        """Grow the slot's page list to cover ``new_len`` tokens."""
+        ps = self.config.page_size
+        have = -(-int(self.seq_lens[slot]) // ps)
+        need = -(-new_len // ps)
+        if new_len > self.max_len:
+            raise RuntimeError(f"sequence length {new_len} exceeds max {self.max_len}")
+        for i in range(have, need):
+            if not self._free:
+                raise RuntimeError("KV page pool exhausted")
+            self.page_table[slot, i] = self._free.pop()
+
+    def write_tokens(self, slot: int, layer_kv: list, start_pos: int) -> None:
+        """Write new K/V of one slot from ``start_pos``: layer_kv[l] = (k, v),
+        each [T, NKV, HD], page by page (the pages need not be adjacent)."""
+        ps = self.config.page_size
+        T = layer_kv[0][0].shape[0]
+        self.ensure_capacity(slot, start_pos + T)
+        off = 0
+        while off < T:
+            pos = start_pos + off
+            page = int(self.page_table[slot, pos // ps])
+            at = pos % ps
+            n = min(ps - at, T - off)
+            for layer, (k, v) in enumerate(layer_kv):
+                self.k_pages[layer, page, at:at + n] = k[off:off + n].to(self.k_pages.dtype)
+                self.v_pages[layer, page, at:at + n] = v[off:off + n].to(self.v_pages.dtype)
+            off += n
+        self.seq_lens[slot] = max(int(self.seq_lens[slot]), start_pos + T)
+
+    def gather_kv(self, layer: int, slots) -> tuple[torch.Tensor, torch.Tensor]:
+        """Contiguous [B, W * ps, NKV, HD] K and V of the given slots (the
+        oracle's read path)."""
+        table = torch.from_numpy(self.page_table[np.asarray(slots)]).long().to(self.device)
+        k = self.k_pages[layer][table]  # [B, W, ps, NKV, HD]
+        v = self.v_pages[layer][table]
+        B, W, ps, NKV, HD = k.shape
+        return k.reshape(B, W * ps, NKV, HD), v.reshape(B, W * ps, NKV, HD)

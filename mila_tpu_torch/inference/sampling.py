@@ -49,12 +49,16 @@ def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator] = N
     return sample_mult(torch.softmax(x, dim=-1), generator)
 
 
+def categorical(logits: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One draw per row from softmax(logits) by the Gumbel-max trick:
+    logits [..., V] -> [...] int32."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0)))
+    return torch.argmax(logits.float() + gumbel, dim=-1).to(torch.int32)
+
+
 def sample_categorical(logits: torch.Tensor, temps: torch.Tensor,
                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """One draw per row from softmax(logits / temp) by the Gumbel-max trick
-    (the engine's on-device temperature sampling). logits [B, V] f32,
-    temps [B] -> [B] int32."""
-    scaled = logits / torch.clamp_min(temps[:, None], 1e-6)
-    u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
-    gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0)))
-    return torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
+    """One draw per row from softmax(logits / temp) (the engine's on-device
+    temperature sampling). logits [B, V] f32, temps [B] -> [B] int32."""
+    return categorical(logits / torch.clamp_min(temps[:, None], 1e-6), generator)

@@ -12,6 +12,12 @@ Replaces two TPU kernels of ``mila_tpu/kernels/dense_attention.py``:
   cached rows plus the current token, and writes the roped k and the raw v
   into row ``old_lens[b]`` of the caches it is given.
 
+As in the TPU kernels, q (or qkv) and the caches need not share a dtype: a
+bf16 or f32 q over bf16 or f32 caches (``PAIRS``) is read each in its own
+dtype, the output (and ``k_new``) takes q's, and the fused entry rounds the
+row it writes to the caches' dtype. The speculative engine's draft, whose
+cache is always bf16, reaches this pair with f32 params.
+
 What bounds both on the H100: the K/V bytes of the live rows (one query
 per row does 2 operations per byte read). The CUDA kernels
 (``csrc/dense_decode_attn.cu``) split each row along the sequence
@@ -150,9 +156,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("dense_decode_attn")
     if not getattr(lib, "_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.dense_decode_attn.argtypes = [vp] * 9 + [ci] * 6 + [cf, ci, vp]
+        lib.dense_decode_attn.argtypes = [vp] * 9 + [ci] * 6 + [cf, ci, ci, vp]
         lib.dense_decode_attn.restype = ci
-        lib.fused_decode_attn.argtypes = [vp] * 12 + [ci] * 6 + [cf, ci, vp]
+        lib.fused_decode_attn.argtypes = [vp] * 12 + [ci] * 6 + [cf, ci, ci, vp]
         lib.fused_decode_attn.restype = ci
         lib.dense_capture_id.argtypes = [vp]
         lib.dense_capture_id.restype = ctypes.c_ulonglong
@@ -160,18 +166,24 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_heads(NH: int, NKV: int, HD: int, dtype) -> None:
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"dense_decode_attn takes bf16/f32 tensors, got {dtype}")
-    if NH % NKV or NH // NKV > 8 or HD not in _HDS or (dtype == torch.float32 and HD < 8):
+# (q dtype, cache dtype) pairs the kernels instantiate: the TPU kernels take q
+# in any dtype and stage the caches in theirs.
+PAIRS = {(qd, cd) for qd in (torch.bfloat16, torch.float32)
+         for cd in (torch.bfloat16, torch.float32)}
+
+
+def _check_heads(NH: int, NKV: int, HD: int) -> None:
+    if NH % NKV or NH // NKV > 8 or HD not in _HDS:
         raise ValueError(f"dense_decode_attn needs NH/NKV <= 8 and HD in {_HDS} "
                          f"(NH={NH}, NKV={NKV}, HD={HD})")
 
 
 def _check_cache(k_cache, v_cache, dtype) -> None:
-    if v_cache.shape != k_cache.shape or k_cache.dtype != dtype or v_cache.dtype != dtype:
-        raise TypeError("dense_decode_attn: k/v caches must share q's dtype and shape "
-                        f"(q {dtype}, caches {k_cache.dtype}/{v_cache.dtype})")
+    if (v_cache.shape != k_cache.shape or v_cache.dtype != k_cache.dtype
+            or (dtype, k_cache.dtype) not in PAIRS):
+        raise TypeError("dense_decode_attn takes a bf16 or f32 q over bf16 or f32 k/v caches "
+                        f"of one dtype and shape (q {dtype}, caches {k_cache.dtype}/"
+                        f"{v_cache.dtype})")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("dense_decode_attn: caches must be contiguous")
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
@@ -238,7 +250,8 @@ def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
     caches [B, T, NKV, HD]; lens [B] int32 = valid rows including the current
     token. Returns q's shape.
 
-    CUDA tensors launch ``dense_decode_attn``; CPU tensors take
+    CUDA tensors launch ``dense_decode_attn`` (a bf16 or f32 q over bf16 or
+    f32 caches in any pairing, ``PAIRS``); CPU tensors take
     :func:`dense_decode_attention_plain`."""
     if not q.is_cuda:
         return dense_decode_attention_plain(q, k_cache, v_cache, lens, scale=scale)
@@ -246,7 +259,7 @@ def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
     NH = q.shape[-2]
     if q.shape[-1] != HD or q.numel() != B * NH * HD:
         raise ValueError(f"bad shapes q {tuple(q.shape)} cache {tuple(k_cache.shape)}")
-    _check_heads(NH, NKV, HD, q.dtype)
+    _check_heads(NH, NKV, HD)
     _check_cache(k_cache, v_cache, q.dtype)
     qc = q.contiguous()
     ln = lens.to(device=q.device, dtype=torch.int32).contiguous()
@@ -257,7 +270,7 @@ def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
     rc = lib.dense_decode_attn(
         _build.ptr(qc), _build.ptr(k_cache), _build.ptr(v_cache), _build.ptr(ln),
         _build.ptr(out), *_ptrs(scratch), B, T, NH, NKV, HD, S, sm_scale,
-        int(q.dtype == torch.float32), _build.stream_of(q))
+        int(q.dtype == torch.float32), int(k_cache.dtype == torch.float32), _build.stream_of(q))
     _build.check(lib, rc, "dense_decode_attn")
     dense_decode_attention.launches += 1
     return out
@@ -293,7 +306,7 @@ def fused_decode_attention(qkv: torch.Tensor, q_pk: Optional[torch.Tensor],
     if qkv.shape != (B, NQ + 2 * KD) or cos_t.shape != (B, KD) or sin_t.shape != (B, KD):
         raise ValueError(f"bad shapes qkv {tuple(qkv.shape)} cos {tuple(cos_t.shape)} "
                          f"cache {tuple(k_cache.shape)}")
-    _check_heads(NH, NKV, HD, qkv.dtype)
+    _check_heads(NH, NKV, HD)
     _check_cache(k_cache, v_cache, qkv.dtype)
     qc = qkv.contiguous()
     c32 = cos_t.to(torch.float32).contiguous()
@@ -307,7 +320,7 @@ def fused_decode_attention(qkv: torch.Tensor, q_pk: Optional[torch.Tensor],
         _build.ptr(qc), _build.ptr(c32), _build.ptr(s32), _build.ptr(k_cache),
         _build.ptr(v_cache), _build.ptr(ln), _build.ptr(att), _build.ptr(k_new), *_ptrs(scratch),
         B, T, NH, NKV, HD, S, sm_scale, int(qkv.dtype == torch.float32),
-        _build.stream_of(qkv))
+        int(k_cache.dtype == torch.float32), _build.stream_of(qkv))
     _build.check(lib, rc, "fused_decode_attn")
     fused_decode_attention.launches += 1
     return att, k_new, k_cache, v_cache

@@ -5,7 +5,11 @@ Replaces the TPU kernel ``mila_tpu/kernels/paged_attention.py:_paged_kernel``
 through ``inference/kv_cache.paged_attention_read``.
 
 Pages keep the JAX layout [P, NKV, HD, ps] (page-major, token-minor), so a
-page's tile for one KV head is a contiguous [HD, ps] slab.
+page's tile for one KV head is a contiguous [HD, ps] slab. As in the TPU
+kernel, q and the pages need not share a dtype: a bf16 or f32 q over bf16
+or f32 pages (``PAIRS``; GPT-2's f32 params serve over bf16 pages) is read
+each in its own dtype, with no rounding of q to the pages' dtype, and the
+output takes q's.
 
 What bounds it on the H100: the K/V bytes of the live tokens (one query per
 row does 2 operations per byte read). The CUDA kernel
@@ -49,6 +53,10 @@ from mila_tpu_torch.ops.attention import NEG_INF
 
 SPLIT_MIN_TOKENS = 128  # a split holds at least one of the kernel's 128-token chunks
 SPLIT_BLOCKS_PER_SM = 4  # splits until the grid has this many blocks per SM
+# (q dtype, page dtype) pairs the kernel instantiates: the TPU kernel takes q
+# in any dtype and stages the pages in theirs; int8 means pages with scales.
+PAIRS = {(qd, pd) for qd in (torch.bfloat16, torch.float32)
+         for pd in (torch.bfloat16, torch.float32, torch.int8)}
 
 
 def plan_splits(B: int, NKV: int, W: int, ps: int, sms: int) -> int:
@@ -117,7 +125,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("paged_decode_attn")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.paged_decode_attn.argtypes = [vp] * 11 + [ci] * 7 + [ctypes.c_float, ci, vp]
+        lib.paged_decode_attn.argtypes = [vp] * 11 + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
         lib.paged_decode_attn.restype = ci
         lib._typed = True
     return lib
@@ -131,9 +139,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     """Paged KV decode attention. q [B, 1, NH, HD]; pages [P, NKV, HD, ps];
     page_table [B, W] int32; seq_lens [B] int32. Returns [B, 1, NH, HD].
 
-    CUDA tensors launch ``paged_decode_attn`` (pages of q's dtype, or int8
-    pages with their f32 scales); CPU tensors take
-    :func:`paged_decode_attention_plain`."""
+    CUDA tensors launch ``paged_decode_attn`` (a bf16 or f32 q over bf16
+    or f32 pages in any pairing, each read in its own dtype, or over int8
+    pages with their f32 scales; the output takes q's dtype); CPU tensors
+    take :func:`paged_decode_attention_plain`."""
     if not q.is_cuda:
         return paged_decode_attention_plain(q, k_pages, v_pages, page_table, seq_lens,
                                             k_scale=k_scale, v_scale=v_scale, scale=scale)
@@ -143,11 +152,11 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     if one != 1 or HD2 != HD or v_pages.shape != k_pages.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)} pages {tuple(k_pages.shape)}")
     quant = k_scale is not None or v_scale is not None
-    page_dtype = torch.int8 if quant else q.dtype
-    if q.dtype not in (torch.bfloat16, torch.float32) or k_pages.dtype != page_dtype \
-            or v_pages.dtype != page_dtype:
-        raise TypeError(f"paged_decode_attn takes bf16/f32 q with pages of q's dtype, or "
-                        f"int8 pages with scales (q {q.dtype}, pages {k_pages.dtype})")
+    pair = (q.dtype, torch.int8 if quant else k_pages.dtype)
+    if pair not in PAIRS or k_pages.dtype != v_pages.dtype:
+        raise TypeError(f"paged_decode_attn takes a bf16 or f32 q over bf16 or f32 pages, or "
+                        f"int8 pages with scales (q {q.dtype}, pages {k_pages.dtype}/"
+                        f"{v_pages.dtype})")
     if quant:
         for t in (k_scale, v_scale):
             if t is None or t.shape != (P, NKV, ps) or t.dtype != torch.float32 \
@@ -177,7 +186,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
         None if o_part is None else _build.ptr(o_part),
         None if ml_part is None else _build.ptr(ml_part[0]),
         None if ml_part is None else _build.ptr(ml_part[1]),
-        B, NH, NKV, HD, ps, W, S, sm_scale, int(q.dtype == torch.float32), _build.stream_of(q))
+        B, NH, NKV, HD, ps, W, S, sm_scale, int(q.dtype == torch.float32),
+        int(k_pages.dtype == torch.float32), _build.stream_of(q))
     _build.check(lib, rc, "paged_decode_attn")
     paged_decode_attention.launches += 1
     return out

@@ -335,6 +335,39 @@ class Llama:
             x = blk._finish_attn(bp, x, att)
         return self._norm_logits(params, x), pools
 
+    def forward_paged_chunk(self, params: dict, tokens: torch.Tensor, pools: dict,
+                            page_table: torch.Tensor, positions: torch.Tensor):
+        """Multi-token paged forward with per-row start positions (the
+        speculative verify): tokens [B, t], positions [B] = tokens already
+        stored per row; token j of row b sits at positions[b] + j. K/V are
+        written through the page table; the [B, t] queries are flattened to
+        B*t rows of the paged attention kernel, each row's table repeated t
+        times and its length its own causal prefix. The projections and the
+        head take the fused decode kernels at B*t <= 32 rows and
+        ``quant_linear`` beyond, as every other forward does. Returns
+        (logits [B, t, V], pools)."""
+        cfg = self.config
+        B, t = tokens.shape
+        ps = pools["k"].shape[4]
+        W = page_table.shape[1]
+        x = params["embed"]["wte"][tokens.long()]
+        pos_bt = positions.long()[:, None] + torch.arange(t, device=tokens.device)[None]
+        cos, sin = self._rope(pos_bt)
+        page_ids = torch.gather(page_table.long(), 1, (pos_bt // ps).clamp_max(W - 1))
+        offs = pos_bt % ps
+        flat_table = page_table.repeat_interleave(t, dim=0)
+        flat_lens = (pos_bt + 1).to(torch.int32).reshape(-1)
+        for i, blk in enumerate(self.blocks):
+            bp = params[f"h{i}"]
+            q, k, v = blk._qkv(bp, x)
+            q = ops.apply_rope(q, cos, sin)
+            k = ops.apply_rope(k, cos, sin)
+            pools = paged_scatter(pools, i, page_ids, offs, k, v)
+            qf = q.reshape(B * t, 1, cfg.num_heads, cfg.hd)
+            att = paged_attention_read(pools, i, qf, flat_table, flat_lens)
+            x = blk._finish_attn(bp, x, att.reshape(B, t, cfg.num_heads, cfg.hd))
+        return self._norm_logits(params, x), pools
+
     # --- contiguous KV-cache protocol (Generator, bench decode, engine) ---
 
     def init_kv_cache(self, batch_size: int, max_len: int = 0, dtype=torch.bfloat16) -> dict:

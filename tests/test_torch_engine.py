@@ -154,7 +154,8 @@ def test_unported_layouts_raise(pair):
     eng = InferenceEngine(tmodel, {**tparams, "giga_pack": None},
                           EngineConfig(kv_layout="contiguous", max_len=64), device="cpu")
     assert eng._use_giga_decode() and eng.giga_pools is not None
-    with pytest.raises(NotImplementedError):  # speculative decoding is not
+    # Speculative decoding is ported: without a draft model it is refused.
+    with pytest.raises(ValueError, match="draft"):
         InferenceEngine(tmodel, tparams, EngineConfig(speculative_k=2), device="cpu")
 
 

@@ -305,6 +305,161 @@ def test_fused_attention_kernel(cuda, B, NH, NKV, HD, T, dtype):
     _close(k[rows, ln.long()].reshape(B, KD), k_new)
 
 
+# The mixed (q, cache) pairs the JAX kernels take and the card kernels
+# instantiate: an f32 q over bf16 pages or caches (GPT-2 served with f32
+# params over bf16 pages; an f32 draft over its bf16 cache) and a bf16 q over
+# f32 ones. Each side is read in its own dtype: the plain version widens both
+# to f32, as the kernel does, and rounds nothing of q.
+_MIXED = [(torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("qd,pd", _MIXED)
+@pytest.mark.parametrize("B,NH,NKV,HD,ps,W", [
+    (8, 12, 12, 64, 128, 4),    # GPT-2 124M at G 1, bf16 pages of 128 tokens
+    (3, 8, 2, 32, 16, 4),
+    (4, 32, 8, 128, 16, 40),    # G 4, HD 128, split rows
+    (1, 32, 8, 64, 128, 32),    # one row of 4096 tokens
+])
+def test_paged_attention_mixed_dtypes(cuda, qd, pd, B, NH, NKV, HD, ps, W):
+    rng = np.random.default_rng(110)
+    q, kp, vp, _, t = _paged_inputs(rng, B, NH, NKV, HD, ps, W, pd, False, 111)
+    q = _rand(tuple(q.shape), 112, dtype=qd)
+    for ln in _paged_lens(rng, B, NKV, W, ps):
+        got = pa.paged_decode_attention(q, kp, vp, t, ln)
+        want = pa.paged_decode_attention_plain(q, kp, vp, t, ln)
+        torch.cuda.synchronize()
+        assert got.dtype == qd
+        _close(got, want)
+
+
+@pytest.mark.parametrize("qd,pd", _MIXED)
+def test_paged_attention_mixed_dtypes_graph_replay(cuda, qd, pd):
+    # A mixed-pair call captured in a graph, replayed after seq_lens changes,
+    # equals an eager call at the new lengths.
+    rng = np.random.default_rng(113)
+    B, W, ps = 8, 8, 128
+    q, kp, vp, _, t = _paged_inputs(rng, B, 12, 12, 64, ps, W, pd, False, 114)
+    q = q.to(qd)
+    ln = torch.from_numpy(rng.integers(1, 129, B).astype(np.int32)).cuda()
+    pa.paged_decode_attention(q, kp, vp, t, ln)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = pa.paged_decode_attention(q, kp, vp, t, ln)
+    ln.copy_(torch.from_numpy(rng.integers(1, W * ps + 1, B).astype(np.int32)))
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, pa.paged_decode_attention(q, kp, vp, t, ln))
+    _close(out, pa.paged_decode_attention_plain(q, kp, vp, t, ln))
+
+
+@pytest.mark.parametrize("B,t,dtype", [(8, 5, torch.bfloat16), (8, 4, torch.bfloat16),
+                                       (3, 5, torch.float32)])
+def test_paged_attention_flattened_verify_rows(cuda, B, t, dtype):
+    # The speculative verify (Llama.forward_paged_chunk): B*t query rows, each
+    # row's table repeated t times, lengths pos + 1 .. pos + t, at Llama-3.2-1B's
+    # heads (the split planner sees B*t rows over one table width).
+    NH, NKV, HD, ps, W = 32, 8, 64, 128, 4
+    rng = np.random.default_rng(115)
+    P = B * W + 1
+    table = torch.from_numpy((1 + rng.permutation(P - 1)[: B * W].reshape(B, W))
+                             .astype(np.int32)).cuda()
+    kp = _rand((P, NKV, HD, ps), 116, dtype=dtype)
+    vp = _rand((P, NKV, HD, ps), 117, dtype=dtype)
+    q = _rand((B * t, 1, NH, HD), 118, dtype=dtype)
+    pos = rng.integers(0, W * ps - t + 1, B)
+    pos[0] = W * ps - t
+    lens = torch.from_numpy((pos[:, None] + 1 + np.arange(t)[None]).reshape(-1)
+                            .astype(np.int32)).cuda()
+    flat = table.repeat_interleave(t, dim=0)
+    got = pa.paged_decode_attention(q, kp, vp, flat, lens)
+    want = pa.paged_decode_attention_plain(q, kp, vp, flat, lens)
+    torch.cuda.synchronize()
+    _close(got, want)
+
+
+@pytest.mark.parametrize("qd,cd", _MIXED)
+@pytest.mark.parametrize("B,NH,NKV,HD,T", [
+    (8, 4, 2, 32, 512),     # the tiny draft (LlamaConfig.tiny) at the engine's cache
+    (8, 32, 8, 64, 512),
+    (1, 32, 8, 64, 4096),   # S 33
+    (2, 16, 2, 128, 1024),
+])
+def test_dense_attention_mixed_dtypes(cuda, qd, cd, B, NH, NKV, HD, T):
+    rng = np.random.default_rng(120)
+    lens = rng.integers(1, T + 1, B).astype(np.int32)
+    lens[0], lens[-1] = T, 1
+    q = _rand((B, 1, NH, HD), 121, dtype=qd)
+    k = _rand((B, T, NKV, HD), 122, dtype=cd)
+    v = _rand((B, T, NKV, HD), 123, dtype=cd)
+    ln = torch.from_numpy(lens).cuda()
+    got = da.dense_decode_attention(q, k, v, ln)
+    want = da.dense_decode_attention_plain(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert got.dtype == qd
+    _close(got, want)
+
+
+@pytest.mark.parametrize("qd,cd", _MIXED)
+@pytest.mark.parametrize("B,NH,NKV,HD,T", [(8, 4, 2, 32, 512), (1, 32, 8, 64, 4096)])
+def test_fused_attention_mixed_dtypes(cuda, qd, cd, B, NH, NKV, HD, T):
+    # The fused entry takes the same pairs: the row it writes is rounded to
+    # the caches' dtype, k_new and the output keep qkv's.
+    qkv, cos_t, sin_t, k, v = _fused_case(B, NH, NKV, HD, T, qd, 124)
+    k, v = k.to(cd), v.to(cd)
+    kp, vp = k.clone(), v.clone()
+    rng = np.random.default_rng(125)
+    old = rng.integers(0, T, B).astype(np.int32)
+    old[0] = T - 1
+    ln = torch.from_numpy(old).cuda()
+    att, k_new, _, _ = da.fused_decode_attention(qkv, None, cos_t, sin_t, k, v, ln,
+                                                 num_heads=NH)
+    watt, wk_new, _, _ = da.fused_decode_attention_plain(qkv, cos_t, sin_t, kp, vp, ln,
+                                                         num_heads=NH)
+    torch.cuda.synchronize()
+    assert att.dtype == qd and k_new.dtype == qd and k.dtype == cd
+    _close(att, watt)
+    _close(k_new, wk_new)
+    _close(k, kp)
+    assert torch.equal(v, vp)
+
+
+@pytest.mark.parametrize("qd,cd", _MIXED)
+def test_dense_attention_mixed_dtypes_graph_replay(cuda, qd, cd):
+    # Two calls bit-equal; a graph replayed after the lengths change equals an
+    # eager call (B 1 over 4096 rows: the merging split counts arrivals).
+    B, NH, NKV, HD, T = 1, 32, 8, 64, 4096
+    rng = np.random.default_rng(126)
+    q = _rand((B, 1, NH, HD), 127, dtype=qd)
+    k, v = _rand((B, T, NKV, HD), 128, dtype=cd), _rand((B, T, NKV, HD), 129, dtype=cd)
+    ln = torch.from_numpy(rng.integers(1, 65, B).astype(np.int32)).cuda()
+    first, second = (da.dense_decode_attention(q, k, v, ln) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = da.dense_decode_attention(q, k, v, ln)
+    ln.fill_(T - 3)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, da.dense_decode_attention(q, k, v, ln))
+    _close(out, da.dense_decode_attention_plain(q, k, v, ln))
+
+
+@pytest.mark.parametrize("K,N", [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048)])
+def test_quant_linear_at_verify_rows(cuda, K, N):
+    # K1 at M 40: the speculative engine's verify at B 8, k 4 (B * (k + 1)
+    # rows past the fused decode entries' 32) at Llama-3.2-1B's projections.
+    M = 40
+    x = _rand((M, K), 130)
+    qt = quantize(_rand((K, N), 131, 0.05, torch.float32), "int8", 0)
+    before = qm.quant_linear.launches
+    got = qm.quant_linear(x, qt)
+    torch.cuda.synchronize()
+    assert qm.quant_linear.launches == before + 1
+    _close(got, qm.quant_linear_plain(x, qt))
+
+
 def _split_edges(T, S):
     """Lengths 1, T and every split edge +- 1 of a full row under S splits."""
     ends = [hi for _, hi in da.split_tokens(T, S)]
