@@ -34,18 +34,19 @@ never read); random draws come from a ``torch.Generator``.
 
 Speculative decoding (``speculative_k`` > 0, the paged layout): a draft
 model with the contiguous protocol mirrors every prompt in its own bf16
-cache (one draft forward per prefill bucket group), and each engine step is
-one round for all active slots: the draft proposes k tokens per row
-through ``forward_with_cache_ragged``, the target verifies all of them in
-one ``forward_paged_chunk`` call, and each row emits its accepted prefix
-and then the replacement or bonus token. Greedy rows accept while the
-target's argmax agrees (their stream equals the target-only stream);
-sampled rows run the rejection scheme of speculative sampling (accept with
-min(1, p/q), replace the first rejection by a draw from norm(relu(p - q)),
-a bonus draw when all k are accepted). Unlike the JAX engine, the draft
-takes one more step per round to write d_k's K/V (JAX's draft never writes
-that row when all k drafts are accepted, so its next proposals read a
-stale row), and the rounds' time counts in ``t_decode_s``.
+cache (one draft forward over each prefill bucket group's rows), and each
+engine step is one round for all active slots: the draft proposes k
+tokens per row through ``forward_with_cache_ragged``, the target verifies
+all of them in one ``forward_paged_chunk`` call, and each row emits its
+accepted prefix and then the replacement or bonus token. Greedy rows
+accept while the target's argmax agrees (their stream equals the
+target-only stream); sampled rows run the rejection scheme of
+speculative sampling (accept with min(1, p/q), replace the first
+rejection by a draw from norm(relu(p - q)), a bonus draw when all k are
+accepted). Unlike the JAX engine, the draft takes one more step per round
+to write d_k's K/V (JAX's draft never writes that row when all k drafts
+are accepted, so its next proposals read a stale row), and the rounds'
+time counts in ``t_decode_s``.
 """
 
 from __future__ import annotations
@@ -365,18 +366,17 @@ class InferenceEngine:
 
     def _draft_prefill(self, tokens: torch.Tensor, reqs: list) -> None:
         """The draft mirrors a bucket group's prompts in its cache: one draft
-        forward over every slot (tokens [max_batch, bucket], zeros outside
-        the group) on a copy of the cache, whose rows of the group's slots
-        then replace the cache's (JAX keeps the other rows with a masked
+        forward over the group's rows of ``tokens`` [max_batch, bucket] and
+        of the cache, whose results are written back to those rows (JAX runs
+        the draft over every slot and keeps the other rows with a masked
         ``where``)."""
         c = self.config
-        copy = {n: {"k": lc["k"].clone(), "v": lc["v"].clone()}
-                for n, lc in self.draft_cache.items()}
-        _, copy = c.draft_model.forward_with_cache(c.draft_params, tokens, copy, 0)
         idx = torch.tensor([r.slot for r in reqs], device=self.device)
+        rows = {n: {"k": lc["k"][idx], "v": lc["v"][idx]} for n, lc in self.draft_cache.items()}
+        _, rows = c.draft_model.forward_with_cache(c.draft_params, tokens[idx], rows, 0)
         for n, lc in self.draft_cache.items():
-            lc["k"][idx] = copy[n]["k"][idx]
-            lc["v"][idx] = copy[n]["v"][idx]
+            lc["k"][idx] = rows[n]["k"]
+            lc["v"][idx] = rows[n]["v"]
 
     def _spec_verify(self, table, last, positions, greedy, temps, all_greedy: bool):
         """One batched round on the device: (n accepted [B], drafts [B, k],

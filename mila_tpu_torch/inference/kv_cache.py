@@ -6,10 +6,10 @@ page of one KV head is a contiguous [HD, ps] slab for the decode kernel.
 Unlike the JAX package, whose arrays are immutable, writes here update the
 pools in place (the engine owns them; this saves a pool copy per step).
 
-``PagedCacheConfig`` and ``PagedKVCache`` are the standalone page pool with
-its own host allocator (token-major pages [L, P, ps, NKV, HD], per-page
-writes, a gather read for oracles), kept as the JAX package keeps them
-beside the engine's layout.
+``PagedCacheConfig`` and ``PagedKVCache`` are the JAX package's standalone
+page pool (slots, page growth, writes, a gather read for oracles), here a
+thin view over the engine's pools and ``PageAllocator``: JAX keeps a second,
+token-major page layout [L, P, ps, NKV, HD] for it, the port does not.
 """
 
 from __future__ import annotations
@@ -113,16 +113,18 @@ class PageAllocator:
 
     Page 0 is reserved as a garbage page: table rows of inactive slots point
     at it, so the lock-step decode's K/V writes from finished or empty rows
-    land somewhere harmless and are never read.
+    land somewhere harmless and are never read. ``first_page`` 0 hands out
+    every page (``PagedKVCache``, which has no lock-step writes).
     """
 
-    def __init__(self, num_pages: int, page_size: int, max_slots: int, max_len: int):
-        if num_pages < 2:
-            raise ValueError("need at least 2 pages (page 0 is reserved)")
+    def __init__(self, num_pages: int, page_size: int, max_slots: int, max_len: int,
+                 first_page: int = 1):
+        if num_pages < first_page + 1:
+            raise ValueError(f"need at least {first_page + 1} pages ({first_page} reserved)")
         self.page_size = page_size
         self.num_pages = num_pages
         self.table_width = -(-max_len // page_size)
-        self._free = list(range(num_pages - 1, 0, -1))
+        self._free = list(range(num_pages - 1, first_page - 1, -1))
         self.table = np.zeros((max_slots, self.table_width), np.int32)
         self._used = np.zeros((max_slots,), np.int32)
         # Worst-case page promises per slot (admission gating).
@@ -178,9 +180,11 @@ class PageAllocator:
 
 
 class PagedKVCache:
-    """A device page pool with its host allocator state: pages [L, P, ps,
-    NKV, HD] on ``device`` (the GPU unless the caller passes ``"cpu"``),
-    written in place; the page table, lengths and free list are numpy."""
+    """A page pool with its host allocator state: the engine's pools
+    (``make_paged_pools``, on ``device``: the GPU unless the caller passes
+    ``"cpu"``) written in place through ``paged_scatter``, and a
+    ``PageAllocator`` that hands out every page; the page table, lengths
+    and free list are numpy."""
 
     def __init__(self, config: PagedCacheConfig, max_len: int = 0,
                  device: DeviceLike = None):
@@ -188,18 +192,21 @@ class PagedKVCache:
         self.config = c
         self.device = resolve_device(device)
         self.max_len = max_len or (c.num_pages // c.max_seqs) * c.page_size
-        self.table_width = -(-self.max_len // c.page_size)
-        shape = (c.num_layers, c.num_pages, c.page_size, c.num_kv_heads, c.head_dim)
-        self.k_pages = torch.zeros(shape, dtype=getattr(torch, c.dtype), device=self.device)
-        self.v_pages = torch.zeros(shape, dtype=getattr(torch, c.dtype), device=self.device)
-        self._free = list(range(c.num_pages - 1, -1, -1))
-        self.page_table = np.zeros((c.max_seqs, self.table_width), np.int32)
+        self.alloc = PageAllocator(c.num_pages, c.page_size, c.max_seqs, self.max_len,
+                                   first_page=0)
+        self.table_width = self.alloc.table_width
+        self.pools = make_paged_pools(c.num_layers, c.num_kv_heads, c.head_dim, c.num_pages,
+                                      c.page_size, getattr(torch, c.dtype), self.device)
         self.seq_lens = np.zeros((c.max_seqs,), np.int32)
         self._active = np.zeros((c.max_seqs,), bool)
 
     @property
+    def page_table(self) -> np.ndarray:
+        return self.alloc.table
+
+    @property
     def free_pages(self) -> int:
-        return len(self._free)
+        return self.alloc.free_pages
 
     def allocate_slot(self, length_hint: int = 0) -> int:
         """Claim a sequence slot."""
@@ -211,48 +218,37 @@ class PagedKVCache:
         raise RuntimeError("no free sequence slots")
 
     def free_slot(self, slot: int) -> None:
-        used = -(-int(self.seq_lens[slot]) // self.config.page_size)
-        for i in range(used):
-            self._free.append(int(self.page_table[slot, i]))
-        self.page_table[slot, :] = 0
+        self.alloc.release(slot)
         self.seq_lens[slot] = 0
         self._active[slot] = False
 
     def ensure_capacity(self, slot: int, new_len: int) -> None:
         """Grow the slot's page list to cover ``new_len`` tokens."""
-        ps = self.config.page_size
-        have = -(-int(self.seq_lens[slot]) // ps)
-        need = -(-new_len // ps)
         if new_len > self.max_len:
             raise RuntimeError(f"sequence length {new_len} exceeds max {self.max_len}")
-        for i in range(have, need):
-            if not self._free:
-                raise RuntimeError("KV page pool exhausted")
-            self.page_table[slot, i] = self._free.pop()
+        self.alloc.ensure(slot, new_len)
 
     def write_tokens(self, slot: int, layer_kv: list, start_pos: int) -> None:
         """Write new K/V of one slot from ``start_pos``: layer_kv[l] = (k, v),
-        each [T, NKV, HD], page by page (the pages need not be adjacent)."""
-        ps = self.config.page_size
+        each [T, NKV, HD] (the pages need not be adjacent)."""
         T = layer_kv[0][0].shape[0]
         self.ensure_capacity(slot, start_pos + T)
-        off = 0
-        while off < T:
-            pos = start_pos + off
-            page = int(self.page_table[slot, pos // ps])
-            at = pos % ps
-            n = min(ps - at, T - off)
-            for layer, (k, v) in enumerate(layer_kv):
-                self.k_pages[layer, page, at:at + n] = k[off:off + n].to(self.k_pages.dtype)
-                self.v_pages[layer, page, at:at + n] = v[off:off + n].to(self.v_pages.dtype)
-            off += n
+        pos = torch.arange(start_pos, start_pos + T)
+        ps = self.config.page_size
+        ids = torch.from_numpy(self.page_table[slot])[pos // ps].to(self.device)
+        offs = (pos % ps).to(self.device)
+        for layer, (k, v) in enumerate(layer_kv):
+            paged_scatter(self.pools, layer, ids, offs, k.to(self.device), v.to(self.device))
         self.seq_lens[slot] = max(int(self.seq_lens[slot]), start_pos + T)
 
     def gather_kv(self, layer: int, slots) -> tuple[torch.Tensor, torch.Tensor]:
         """Contiguous [B, W * ps, NKV, HD] K and V of the given slots (the
         oracle's read path)."""
         table = torch.from_numpy(self.page_table[np.asarray(slots)]).long().to(self.device)
-        k = self.k_pages[layer][table]  # [B, W, ps, NKV, HD]
-        v = self.v_pages[layer][table]
-        B, W, ps, NKV, HD = k.shape
-        return k.reshape(B, W * ps, NKV, HD), v.reshape(B, W * ps, NKV, HD)
+
+        def read(pool):
+            x = pool[layer][table]  # [B, W, NKV, HD, ps]
+            B, W, NKV, HD, ps = x.shape
+            return x.permute(0, 1, 4, 2, 3).reshape(B, W * ps, NKV, HD)
+
+        return read(self.pools["k"]), read(self.pools["v"])

@@ -4,9 +4,12 @@
 against the JAX package's.
 
 Greedy speculative streams must equal the port's target-only streams token
-for token, across acceptance rates, batching, EOS and page pressure.
-Sampled rows are checked for validity and token counts (the port's random
-draws differ from ``jax.random``'s). Tiny Llama (vocab 61) with f32 params
+for token, across acceptance rates, batching, EOS and page pressure, and
+the JAX engine's speculative streams on the same weights and prompts.
+Sampled rows are checked for validity and token counts, and one round at a
+fixed prefix, drawn many times, for its distribution: the emitted tokens'
+counts against the JAX target's softmax (the port's random draws differ
+from ``jax.random``'s). Tiny Llama (vocab 61) with f32 params
 from ``jax.random.key(0)`` bridged to the port, draft caches bf16 as the
 engine makes them. ``forward_paged_chunk`` logits and pools are held to JAX
 in bf16 (2e-2 of the logits' max) and int8 weights (the same), f32 (1e-5).
@@ -19,6 +22,8 @@ import pytest
 import torch
 
 from mila_tpu.inference import kv_cache as jkv
+from mila_tpu.inference.engine import EngineConfig as JEngineConfig
+from mila_tpu.inference.engine import InferenceEngine as JInferenceEngine
 from mila_tpu.inference.quantize import quantize_model_params as j_qmp
 from mila_tpu.models import llama as jl
 from mila_tpu_torch.bridge import params_from_jax
@@ -38,9 +43,14 @@ def _port_model():
 
 
 @pytest.fixture(scope="module")
-def target():
-    jparams = jl.Llama(jl.LlamaConfig.tiny(vocab_size=V)).init(jax.random.key(0), (1, 16))
-    return _port_model(), _bridge(jparams)
+def jax_target():
+    jmodel = jl.Llama(jl.LlamaConfig.tiny(vocab_size=V))
+    return jmodel, jmodel.init(jax.random.key(0), (1, 16))
+
+
+@pytest.fixture(scope="module")
+def target(jax_target):
+    return _port_model(), _bridge(jax_target[1])
 
 
 @pytest.fixture(scope="module")
@@ -50,10 +60,15 @@ def draft_same(target):
 
 
 @pytest.fixture(scope="module")
-def draft_other():
+def jax_draft_other():
+    jmodel = jl.Llama(jl.LlamaConfig.tiny(vocab_size=V))
+    return jmodel, jmodel.init(jax.random.key(99), (1, 16))
+
+
+@pytest.fixture(scope="module")
+def draft_other(jax_draft_other):
     """A differently initialised draft: frequent rejections."""
-    jparams = jl.Llama(jl.LlamaConfig.tiny(vocab_size=V)).init(jax.random.key(99), (1, 16))
-    return _port_model(), _bridge(jparams)
+    return _port_model(), _bridge(jax_draft_other[1])
 
 
 def _prompt(seed, n):
@@ -74,6 +89,32 @@ def _run(model, params, prompts, max_new, draft=None, k=0, **ekw):
     reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
     eng.run()
     return [r.output for r in reqs], eng
+
+
+def bigram_params(jparams, gain: float) -> dict:
+    """The tiny Llama's JAX params made a bigram table: attention and MLP
+    outputs zeroed (each position's residual is its token's embedding) and
+    an untied head whose column j is the embedding of token j - 1 times
+    ``gain``, so the next token's logits peak at the current token + 1."""
+    p = {key: (dict(val) if isinstance(val, dict) else val) for key, val in jparams.items()}
+    for block in (key for key in p if key.startswith("h")):
+        for w in ("wo", "down"):
+            p[block][w] = {"weight": jnp.zeros_like(jparams[block][w]["weight"])}
+    p["lm_head"] = {"weight": gain * jnp.roll(jparams["embed"]["wte"], 1, axis=0).T}
+    return p
+
+
+CHI2_2DOF = 18.42  # P(chi-square with 2 degrees of freedom > 18.42) = 1e-4
+
+
+def chi2_stat(samples: np.ndarray, p: np.ndarray, a: int, b: int) -> float:
+    """Pearson's chi-square of the samples' counts against ``p`` over three
+    bins: token a, token b and every other token."""
+    n = len(samples)
+    obs = np.array([(samples == a).sum(), (samples == b).sum(), 0.0])
+    exp = n * np.array([p[a], p[b], 0.0])
+    obs[2], exp[2] = n - obs[:2].sum(), n - exp[:2].sum()
+    return float(((obs - exp) ** 2 / exp).sum())
 
 
 class TestSpecEngine:
@@ -162,6 +203,76 @@ class TestSpecEngine:
                        max_batch=1)
         assert spec[0] == plain[0]
         assert spec[2] == plain[0]
+
+    def test_greedy_streams_match_jax_engine(self, jax_target, jax_draft_other, target,
+                                             draft_other):
+        """The JAX engine's speculative path on the same weights and prompts:
+        the greedy streams equal the port's token for token (acceptance
+        counts may differ: the port's draft also writes d_k's K/V)."""
+        k = 3
+        prompts = [_prompt(70 + i, 4 + 3 * i) for i in range(3)]
+        cfg = dict(max_batch=4, max_len=64, prefill_buckets=(8, 16, 32), decode_chunk=4,
+                   page_size=8, speculative_k=k)
+        jeng = JInferenceEngine(*jax_target, JEngineConfig(
+            **cfg, draft_model=jax_draft_other[0], draft_params=jax_draft_other[1]))
+        jreqs = [jeng.submit(p, max_new_tokens=12) for p in prompts]
+        jeng.run()
+        got, eng = _run(*target, prompts, 12, draft=draft_other, k=k)
+        assert jeng.stats["spec_rounds"] > 0 and eng.stats["spec_rounds"] > 0
+        assert got == [r.output for r in jreqs]
+
+    def test_sampled_round_distribution(self, jax_target):
+        """One round (k 2) at a fixed prefix, drawn 1280 times over 32 rows:
+        the first emitted token's counts against the JAX target's softmax at
+        the prefix, and the second's, where the first was a and its draft
+        was accepted, against the softmax after a (``chi2_stat``). Target
+        and draft are bigram tables (``bigram_params``): the target's peak
+        after the prefix is a, after a it is b, each with about half its
+        mass; the draft's are at the same tokens, sharper, so that many
+        drafts are rejected and the replacement draw from norm(relu(p - q))
+        makes much of the emitted mass. A q for p swap, a residual without
+        q, or the wrong row of q (q after a at the first position, q before
+        a at the second) each fail it."""
+        jcfg = jl.LlamaConfig.tiny(vocab_size=V).replace(tie_embeddings=False)
+        jm = jl.Llama(jcfg)
+        jp = bigram_params(jax_target[1], 0.45)
+        tcfg = tl.LlamaConfig.tiny(vocab_size=V).replace(tie_embeddings=False)
+        model = tl.Llama(tcfg, device="cpu")
+        params, dparams = _bridge(jp), _bridge(bigram_params(jax_target[1], 0.7))
+        temp, k, B, rounds = 0.3, 2, 32, 40
+        prompt, last = _prompt(80, 6), 5
+        a, b = last + 1, last + 2
+
+        def softmax_at(seq):
+            lg = np.asarray(jm.apply(jp, jnp.asarray(np.asarray(seq, np.int32)[None])))
+            lg = lg[0, -1, :V] / temp
+            e = np.exp(lg - lg.max())
+            return e / e.sum()
+
+        p0, p1 = softmax_at(np.append(prompt, last)), softmax_at(np.append(prompt, [last, a]))
+        assert p0.argmax() == a and p1.argmax() == b
+        eng = _engine(model, params, (model, dparams), k, max_batch=B, prefill_buckets=(8,))
+        for _ in range(B):
+            eng.submit(prompt, max_new_tokens=16,
+                       sampling=SamplingConfig(greedy=False, temperature=temp))
+        eng._admit([])  # the prefill: every row at the same prefix
+        T0 = len(prompt)
+        for i in range(B):
+            eng.alloc.ensure(i, T0 + k + 1)
+        eng._last_token[:] = last  # the round verifies `last` at T0: the prefix is fixed
+        ops = [torch.from_numpy(x.copy()) for x in (
+            eng.alloc.table, eng._last_token, eng._positions, np.zeros(B, bool),
+            np.full(B, temp, np.float32))]
+        firsts, seconds = [], []
+        for _ in range(rounds):
+            n, d, t_new = eng._spec_verify(*ops, False)
+            firsts.append(torch.where(n >= 1, d[:, 0], t_new))
+            seconds.append(torch.where(n >= 2, d[:, 1], t_new).masked_fill(n < 1, -1))
+        firsts, seconds = torch.cat(firsts).numpy(), torch.cat(seconds).numpy()
+        assert chi2_stat(firsts, p0, a, b) <= CHI2_2DOF
+        given = seconds[(firsts == a) & (seconds >= 0)]
+        assert len(given) >= 400
+        assert chi2_stat(given, p1, a, b) <= CHI2_2DOF
 
     def test_config_validation(self, target):
         model, params = target

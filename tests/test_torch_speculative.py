@@ -6,7 +6,9 @@ validity, the cache rewind across rejections, EOS and the argument checks.
 Target and draft are GPT-2s initialised by the JAX package and bridged to
 the port (f32 caches); greedy streams are also held to the JAX package's
 ``SpeculativeGenerator`` on the same weights. Sampled tokens are checked for
-validity (the port's random draws differ from ``jax.random``'s).
+validity, and one round at a fixed prefix, drawn many times, for its
+distribution against the JAX target's softmax (the port's random draws
+differ from ``jax.random``'s).
 """
 
 import jax
@@ -17,9 +19,12 @@ import torch
 
 from mila_tpu.inference import SpeculativeGenerator as JSpec
 from mila_tpu.models import gpt2 as jg
+from mila_tpu.models import llama as jl
 from mila_tpu_torch.bridge import params_from_jax
 from mila_tpu_torch.inference import Generator, SamplingConfig, SpeculativeGenerator
 from mila_tpu_torch.models import gpt2 as tg
+from mila_tpu_torch.models import llama as tl
+from tests.test_torch_spec_engine import CHI2_2DOF, bigram_params, chi2_stat
 
 V = 61
 
@@ -117,6 +122,54 @@ class TestSpeculativeSampling:
                             sampling=SamplingConfig(greedy=False, temperature=0.8))
         toks = out[0].numpy()
         assert ((0 <= toks) & (toks < V)).all()
+
+
+    def test_round_distribution(self):
+        """One round (k 2) at a fixed prefix, drawn 600 times: the first
+        emitted token's counts against the JAX target's softmax at the
+        prefix, and the second's, where the first was a and its draft was
+        accepted, against the softmax after a (``chi2_stat``). Target and
+        draft are the tiny Llama made bigram tables (``bigram_params``),
+        the target's peak after the prefix at a and after a at b, the
+        draft's at the same tokens and sharper: many drafts are rejected.
+        A q for p swap, a residual without q or with the wrong row of q,
+        or q without the temperature each fail it."""
+        j0 = jl.Llama(jl.LlamaConfig.tiny(vocab_size=V)).init(jax.random.key(0), (1, 16))
+        jm = jl.Llama(jl.LlamaConfig.tiny(vocab_size=V).replace(tie_embeddings=False))
+        jp = bigram_params(j0, 0.45)
+        model = tl.Llama(tl.LlamaConfig.tiny(vocab_size=V).replace(tie_embeddings=False),
+                         device="cpu")
+        tp, dp = (params_from_jax(jax.tree_util.tree_map(np.asarray, p), "cpu")
+                  for p in (jp, bigram_params(j0, 0.7)))
+        temp, k = 0.3, 2
+        prompt, last = np.array([3, 17, 40, 8, 22, 9], np.int32), 5
+        a, b = last + 1, last + 2
+
+        def softmax_at(seq):
+            lg = np.asarray(jm.apply(jp, jnp.asarray(np.asarray(seq, np.int32)[None])))
+            lg = lg[0, -1, :V] / temp
+            e = np.exp(lg - lg.max())
+            return e / e.sum()
+
+        p0, p1 = softmax_at(np.append(prompt, last)), softmax_at(np.append(prompt, [last, a]))
+        assert p0.argmax() == a and p1.argmax() == b
+        spec = SpeculativeGenerator(model, tp, model, dp, k=k, max_len=32,
+                                    cache_dtype=torch.float32)
+        tcache = model.init_kv_cache(1, 32, torch.float32)
+        dcache = model.init_kv_cache(1, 32, torch.float32)
+        _, tcache = model.forward_with_cache(tp, torch.from_numpy(prompt)[None], tcache, 0)
+        _, dcache = model.forward_with_cache(dp, torch.from_numpy(prompt)[None], dcache, 0)
+        gen, last_t = _gen(11), torch.tensor([[last]], dtype=torch.int32)
+        firsts, seconds = [], []
+        for _ in range(600):  # each round rewrites the same cache rows
+            n, out = spec._round(last_t, tcache, dcache, len(prompt), False, temp, gen)
+            firsts.append(out[0] if n >= 1 else out[k])
+            seconds.append(out[1] if n >= 2 else out[k] if n == 1 else -1)
+        firsts, seconds = np.array(firsts), np.array(seconds)
+        assert chi2_stat(firsts, p0, a, b) <= CHI2_2DOF
+        given = seconds[(firsts == a) & (seconds >= 0)]
+        assert len(given) >= 150
+        assert chi2_stat(given, p1, a, b) <= CHI2_2DOF
 
 
 class TestSpeculativeEdges:
