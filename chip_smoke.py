@@ -134,18 +134,38 @@ exits non-zero without the final line):
            card against CPU at T 512, then 124M over 2 warm-up and 4 timed
            steps (the launch counts of train, the loss falling by 1 nat);
   parity train f32, train f32  the same for GPT-2 as shipped (f32 params,
-           flash on tf32 products).
+           flash on tf32 products). Every train phase feeds Model through
+           the batch prefetcher at its default depth 2;
+  train mnist  the reference's MNIST classifier (784-128-64-10 GELU, f32,
+           AdamW lr 1e-3) through Model, prefetch depth 2, on the synthetic
+           surrogate: K13 (V 10, the scalar branches) and K12 (the MLP's
+           f32 leaves, no masters) at the step's shapes against their plain
+           versions, beside F.cross_entropy and torch.optim.AdamW(fused=True);
+           the JAX e2e test's run (B 128, 4096 samples, 4 epochs: the loss
+           halves, >= 0.975 on the 204-sample test split) and bench.py's
+           shape (B 2048, 65536 samples, 4 epochs: samples/s, ms/step);
+  resume mnist  2 epochs, a checkpoint, a fresh Model and resume_training for
+           2 more, bit-equal to 4 straight (params, moments, predictions);
+           prefetch depth 0 against 2 (losses bit-equal); Model.export, and
+           export_model + Predictor.from_archive predicting the model's bits;
+  resume gpt2  GPT-2 at 2 layers (bf16 + f32 SR masters), B 8, T 1024: 4
+           steps straight against 2, save_checkpoint, a fresh Model,
+           load_checkpoint and 2 more (params, masters, moments
+           bit-equal); the archive's bytes, save and load seconds;
+  data     host work: the native IO library loaded (built with g++ beside
+           the kernels), native BPE == Python BPE, TokenReader over an
+           llm.c shard == numpy windows, an IDX round trip, CharReader.
 Every phase's line carries at_s, the script's seconds so far (every
-kernel row too); kernels pairs and the GPT-2 and speculative phases also
-their own seconds (phase_s).
+kernel row too); kernels pairs, the GPT-2, speculative, MNIST, resume and
+data phases also their own seconds (phase_s).
 
 On every path (decode prefill, decode, decode fp8 prefill, decode fp8,
 giga prefill, giga, giga bf16 prefill, giga bf16, mega prefill, mega, mega
 fp8 prefill, mega fp8, generate, generate mlp, each serve run, serve fp8,
 serve spec and its plain run, parity spec at k 3 and 4 and its bf16 k 4
 and plain runs, serve long, serve
-gpt2, parity gpt2, generate gpt2, train, evaluate, and train and evaluate
-in fp16 and f32)
+gpt2, parity gpt2, generate gpt2, train, evaluate, train and evaluate
+in fp16 and f32, train mnist, train mnist rate, resume mnist, resume gpt2)
 the launch counts are set to 0 just before it and must equal, just after
 it, the counts the path implies for all twenty entry points (0 for those
 it does not reach), and no plain version may run. Then the kernel summary line
@@ -161,6 +181,8 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -267,16 +289,23 @@ def time_back_to_back(fn, calls: int = 20, reps: int = 5) -> float:
 def device_ms(fn, calls: int = 20) -> float:
     """ms of device work per call of ``fn``: the kernels' own times summed
     by the profiler over ``calls`` calls, so a closure whose host work
-    cannot keep ahead of the card (autograd) is timed by the card alone."""
+    cannot keep ahead of the card (autograd) is timed by the card alone.
+    The profiler now and then drops a window's records (a row has read
+    0.0): such a window is profiled again, three times at most, and the run
+    fails if none records device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / calls
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages())
+        if total > 0:
+            return total / 1e3 / calls
+    raise AssertionError("the profiler recorded no device time in three windows")
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -2844,6 +2873,364 @@ def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16", full: b
         "adamw_graph_ms": adamw_graph_ms, "adamw_bound_ms": 34 * n_params / 3.35e12 * 1e3}
 
 
+# ---------------------------------------------------------------------------
+# MNIST MLP: train, resume, export; GPT-2 resume; the data layer
+# ---------------------------------------------------------------------------
+
+# Launches per MNIST train step: the CE forward and backward once each,
+# AdamW once per leaf (three Linear layers: weight and bias each).
+MNIST_STEP = {"fused_softmax_cross_entropy": 1, "fused_softmax_cross_entropy_bwd": 1,
+              "fused_adamw_update": 6}
+
+
+def mnist_model(epochs: int, **cfg):
+    """The reference's MNIST classifier (784-128-64-10, tanh GELU, f32)
+    under Model on the card, AdamW lr 1e-3; prefetch depth 2 unless
+    ``cfg`` names another."""
+    from mila_tpu_torch.models import MLPClassifier, MLPClassifierConfig, Model, ModelConfig
+    from mila_tpu_torch.optim import AdamW, AdamWConfig
+
+    return Model(MLPClassifier(MLPClassifierConfig(name="mnist")),
+                 AdamW(AdamWConfig(learning_rate=1e-3)),
+                 ModelConfig(name="mnist", epochs=epochs, verbose=False, **cfg))
+
+
+def mnist_reader():
+    """The JAX e2e test's training set: the synthetic surrogate, 4096
+    samples, batch 128."""
+    from mila_tpu_torch.data import MnistReader
+
+    return MnistReader(batch_size=128, split="train", synthetic_n=4096, seed=0)
+
+
+def mnist_kernel_rows(bw, peak_ops, rng) -> list:
+    """Rows 17 and 18 at the MNIST train step's shapes, each against its
+    plain version on the card: K13 forward and backward on f32 logits
+    [2048, 10] (bench.py's batch) and [128, 10] (the e2e test's), 40-byte
+    rows that take the scalar branches; K12 on the MLP's f32 leaves without
+    masters (10, 64, 640 and 100352 elements; 10 ends in the scalar tail).
+    Gates as in kernels train (CE: loss within 1e-4 + 1e-5 |ref|, each
+    dlogit within 2^-7 of its own size; AdamW bit-equal). ms: 50 launches
+    in one graph replay, per launch; device_ms: the profiler's kernel time
+    a call. Library: the profiler's device time of F.cross_entropy's
+    backward and of torch.optim.AdamW(fused=True)'s step; F.cross_entropy's
+    forward as 50 in a graph replay, and by the profiler."""
+    import torch.nn.functional as F
+
+    from mila_tpu_torch.kernels import fused_adamw as fw
+    from mila_tpu_torch.kernels import softmax_ce as ce
+
+    dev = torch.device("cuda")
+    rows = []
+    record = recorder(rows, bw, peak_ops)
+    graph_calls = 50  # launches a graph replay: a replay costs several of these kernels
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to(dev)
+
+    V = 10
+    for M in (2048, 128):
+        x = rand(M, V, scale=3.0)
+        t = torch.from_numpy(rng.integers(0, V, M)).to(dev)
+        t32 = t.to(torch.int32)
+        gl = torch.full((M,), 1.0 / M, device=dev)
+        loss = ce.fused_softmax_cross_entropy(x, t)
+        want = ce.fused_softmax_cross_entropy_plain(x, t32)
+        excess = ((loss - want).abs() - 1e-5 * want.abs()).max().item()
+        if not torch.isfinite(loss).all() or excess > 1e-4:
+            raise AssertionError(f"fused_softmax_cross_entropy[M={M} V={V}]: a loss is {excess} "
+                                 "beyond 1e-5 |ref| + 1e-4 from the plain version's")
+        record("fused_softmax_cross_entropy", f"M={M} V={V} f32", *max_err(loss, want),
+               [lambda: ce.fused_softmax_cross_entropy(x, t)] * graph_calls,
+               lambda: ce.fused_softmax_cross_entropy_plain(x, t32),
+               [lambda: F.cross_entropy(x, t, reduction="none")] * graph_calls,
+               4 * M * V + 8 * M, 4 * M * V, gate="each loss within 1e-4 + 1e-5 |ref|",
+               library_what="F.cross_entropy forward", peak=F32_OPS, excess_over_rtol=excess,
+               device_ms=device_ms(lambda: ce.fused_softmax_cross_entropy(x, t)),
+               library_device_ms=device_ms(lambda: F.cross_entropy(x, t, reduction="none")),
+               dtype="float32")
+        d = ce.fused_softmax_cross_entropy_bwd(x, t32, gl)
+        want = ce.fused_softmax_cross_entropy_bwd_plain(x, t32, gl)
+        d_rel = max_elem_rel_err(d, want, floor=1e-8)
+        if d_rel > 2 ** -7:
+            raise AssertionError(f"fused_softmax_cross_entropy_bwd[M={M} V={V}]: a dlogit is "
+                                 f"{d_rel} of its own size from the plain version's")
+        xr = x.detach().requires_grad_()
+        s_loss = F.cross_entropy(xr, t, reduction="none")
+        lib_bwd = device_ms(lambda: torch.autograd.grad(s_loss, xr, gl, retain_graph=True))
+        del s_loss
+        record("fused_softmax_cross_entropy_bwd", f"M={M} V={V} f32", *max_err(d, want),
+               [lambda: ce.fused_softmax_cross_entropy_bwd(x, t32, gl)] * graph_calls,
+               lambda: ce.fused_softmax_cross_entropy_bwd_plain(x, t32, gl), None,
+               8 * M * V + 8 * M, 6 * M * V,
+               gate="each dlogit within 2^-7 of |ref| + 1e-8 max |ref|",
+               library_timed=lib_bwd, library_what="F.cross_entropy backward alone "
+               "(autograd.grad on one saved forward), device time from the profiler",
+               peak=F32_OPS, max_elem_rel_err=d_rel, variant=ce.ce_bwd_variant(V, 4),
+               device_ms=device_ms(lambda: ce.fused_softmax_cross_entropy_bwd(x, t32, gl)),
+               dtype="float32")
+
+    for n in (10, 64, 640, 784 * 128):
+        p, g = rand(n, scale=0.05), rand(n, scale=0.1)
+        m, v = rand(n, scale=0.01), rand(n, scale=0.01).square()
+        kw = dict(step=10, lr=1e-3, weight_decay=0.01)
+        got = fw.fused_adamw_update(p, g, m, v, None, **kw)
+        want = fw.fused_adamw_update_plain(p, g, m, v, None, **kw)
+        for name, a, b in zip(("p", "m", "v"), got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"fused_adamw_update[f32 n={n}]: {name} differs from the "
+                                     f"plain version (max {max_err(a, b)[0]})")
+        lib_p = torch.nn.Parameter(p.clone())
+        lib_p.grad = g.clone()
+        lib = torch.optim.AdamW([lib_p], lr=1e-3, weight_decay=0.01, fused=True)
+        record("fused_adamw_update", f"f32 no master n={n}", 0.0, 1.0,
+               [lambda: fw.fused_adamw_update(p, g, m, v, None, **kw)] * graph_calls,
+               lambda: fw.fused_adamw_update_plain(p, g, m, v, None, **kw), None, 28 * n,
+               14 * n, gate="bit-equal to the plain version", library_timed=device_ms(lib.step),
+               library_what="torch.optim.AdamW(fused=True), f32, device time from the profiler",
+               peak=F32_OPS, device_ms=device_ms(lambda: fw.fused_adamw_update(
+                   p, g, m, v, None, **kw)), dtype="float32")
+    return rows
+
+
+def phase_train_mnist(bw, peak_ops, rng):
+    """The reference's validated workload through Model on the card, batches
+    through the prefetcher at depth 2. Gate run (tests/models/
+    test_mnist_e2e.py's shape): 4 epochs over 4096 synthetic samples at
+    batch 128; the loss must halve and the test split (204 samples) reach
+    0.975 accuracy. Rate run (bench.py's shape): synthetic_mnist(65536,
+    seed 0) at batch 2048, 4 epochs; the loss must fall; samples/s is the
+    median epoch after the first. Launches per step: MNIST_STEP."""
+    from mila_tpu_torch.data import ArrayReader, MnistReader, synthetic_mnist
+    from mila_tpu_torch.models import accuracy
+
+    rows = mnist_kernel_rows(bw, peak_ops, rng)
+    train, model = mnist_reader(), mnist_model(4)
+    model.build(0, (128, 784))
+    steps = 4 * train.num_batches
+    t0 = time.monotonic()
+    _, counts = run_counted("train mnist", lambda: model.train(train),
+                            {k: v * steps for k, v in MNIST_STEP.items()})
+    gate_s = time.monotonic() - t0
+    losses = model.history.train_losses
+    test = MnistReader(batch_size=128, split="test", synthetic_n=1024, shuffle=False,
+                       drop_last=False)
+    logits = torch.cat([model.predict(x) for x, _ in test])
+    acc = accuracy(logits, np.concatenate([y for _, y in test]))
+    if not (all(np.isfinite(losses)) and losses[-1] < 0.5 * losses[0] and acc >= 0.975
+            and logits.shape == (204, 10)):
+        raise AssertionError(f"train mnist: losses {losses}, accuracy {acc} on "
+                             f"{tuple(logits.shape)} logits")
+
+    x, y = synthetic_mnist(n=65536, seed=0)
+    reader, rate = ArrayReader(x, y, 2048, seed=0), mnist_model(4)
+    rate.build(0, (2048, 784))
+    r_steps = 4 * reader.num_batches
+    _, r_counts = run_counted("train mnist rate", lambda: rate.train(reader),
+                              {k: v * r_steps for k, v in MNIST_STEP.items()})
+    r_losses, sps = rate.history.train_losses, rate.history.samples_per_sec
+    if not (all(np.isfinite(r_losses)) and r_losses[-1] < r_losses[0]):
+        raise AssertionError(f"train mnist rate: losses {r_losses} do not fall")
+    med = statistics.median(sps[1:])
+    return counts, r_counts, model, rows, {
+        "model": "MLPClassifier 784-128-64-10 f32, AdamW lr 1e-3, prefetch_depth 2, "
+                 "synthetic MNIST",
+        "gate": {"shape": "B=128, 4096 samples, 4 epochs", "losses": losses, "accuracy": acc,
+                 "test_samples": int(logits.shape[0]), "seconds": gate_s,
+                 "gate": "loss halves; accuracy >= 0.975"},
+        "rate": {"shape": "B=2048, synthetic_mnist(65536, seed 0), 4 epochs", "losses": r_losses,
+                 "samples_per_s_all": sps, "samples_per_s": med, "ms_per_step": 2048 / med * 1e3,
+                 "steps_per_epoch": reader.num_batches},
+        "launches_per_step": MNIST_STEP, "launches": counts, "launches_rate": r_counts}
+
+
+def phase_resume_mnist(straight, tmp: str):
+    """At the gate run's shape: 2 epochs, a checkpoint (checkpoint_frequency
+    2), a fresh Model, resume_training for 2 more; params, moments and
+    predictions bit-equal to ``straight`` (the train mnist gate run, 4
+    epochs through). The same 4 epochs at prefetch depth 0: losses
+    bit-equal to the depth-2 run's. Then Model.export (params, no
+    optimizer) and export_model + Predictor.from_archive: predictions
+    bit-equal to the model's."""
+    from pathlib import Path
+
+    from mila_tpu_torch.models.export import Predictor, export_model
+    from mila_tpu_torch.serialization import load_checkpoint
+    from mila_tpu_torch.utils.tree import tree_leaves
+
+    def body():
+        first = mnist_model(2, checkpoint_dir=tmp, checkpoint_frequency=2)
+        first.build(0, (128, 784))
+        first.train(mnist_reader())
+        resumed = mnist_model(2, checkpoint_dir=tmp)
+        resumed.build(0, (128, 784))
+        resumed.resume_training(mnist_reader())
+        sync = mnist_model(4, prefetch_depth=0)
+        sync.build(0, (128, 784))
+        sync.train(mnist_reader())
+        return resumed, sync
+
+    steps = (2 + 2 + 4) * mnist_reader().num_batches
+    (resumed, sync), counts = run_counted("resume mnist", body,
+                                          {k: v * steps for k, v in MNIST_STEP.items()})
+    pairs = [(straight.params, resumed.params), (straight.opt_state.m, resumed.opt_state.m),
+             (straight.opt_state.v, resumed.opt_state.v)]
+    if not all(torch.equal(a, b) for x, y in pairs for a, b in zip(tree_leaves(x),
+                                                                  tree_leaves(y))):
+        raise AssertionError("resume mnist: the resumed run is not bit-equal to the straight one")
+    xb, _ = mnist_reader().next_batch(0)
+    want = straight.predict(xb)
+    if not torch.equal(resumed.predict(xb), want):
+        raise AssertionError("resume mnist: the resumed model predicts otherwise")
+    if sync.history.train_losses != straight.history.train_losses:
+        raise AssertionError(f"resume mnist: depth 0 losses {sync.history.train_losses} != "
+                             f"depth 2 {straight.history.train_losses}")
+    straight.export(Path(tmp) / "export.mila")
+    exported = load_checkpoint(Path(tmp) / "export.mila")
+    if exported["optimizer"] is not None or not torch.equal(
+            exported["params"]["head"]["weight"], straight.params["head"]["weight"].cpu()):
+        raise AssertionError("resume mnist: Model.export wrote other params or an optimizer")
+    export_model(Path(tmp) / "mlp.mila", straight.module, straight.params)
+    predictor = Predictor.from_archive(Path(tmp) / "mlp.mila")
+    if not torch.equal(predictor.predict_batch(xb), want):
+        raise AssertionError("resume mnist: Predictor.from_archive predicts otherwise")
+    return counts, {"shape": "B=128, 4096 samples: 4 epochs straight; 2 + checkpoint + fresh "
+                             "Model + resume_training 2; 4 at prefetch_depth 0",
+                    "checkpoint_bytes": (Path(tmp) / "mnist_epoch0001.mila").stat().st_size,
+                    "gate": "params, m, v and predictions bit-equal; depth 0 losses == depth 2; "
+                            "exported predictions bit-equal", "launches": counts}
+
+
+def phase_resume_gpt2(rng, tmp: str):
+    """GPT-2 at full width and 2 layers (bf16 params, f32 SR masters, clip
+    1.0, flash), B 8, T 1024, one batch an epoch: 4 steps straight through
+    against 2 steps, save_checkpoint, a fresh Model, load_checkpoint and 2
+    more; params, masters and moments bit-equal. The archive's size and
+    its save and load seconds."""
+    from mila_tpu_torch.data.loader import ArrayReader
+    from mila_tpu_torch.models.gpt2 import GPT2
+    from mila_tpu_torch.models.model import Model, ModelConfig
+    from mila_tpu_torch.utils.tree import tree_leaves
+
+    cfg = gpt2_config(layers=2)
+    B, T, L = 8, 1024, cfg.num_layers
+    base = rng.integers(0, cfg.vocab_size, (4, T + 1)).astype(np.int32)
+    data = base[rng.integers(0, 4, B)]
+
+    def reader():
+        return ArrayReader(data[:, :-1], data[:, 1:], B, seed=0)
+
+    def model(epochs, **kw):
+        m = Model(GPT2(cfg), train_optimizer(), ModelConfig(name="gpt2", epochs=epochs,
+                                                            verbose=False, **kw))
+        m.build(0, (B, T))
+        return m
+
+    times = {}
+
+    def body():
+        straight = model(4)
+        straight.train(reader())
+        first = model(2)
+        first.train(reader())
+        t0 = time.monotonic()
+        path = first.save_checkpoint(f"{tmp}/gpt2_epoch0001.mila", epoch=1)
+        times["save_s"] = time.monotonic() - t0
+        fresh = model(2)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        meta = fresh.load_checkpoint(path)
+        torch.cuda.synchronize()
+        times["load_s"] = time.monotonic() - t0
+        fresh.train(reader(), start_epoch=int(meta["epoch"]) + 1)
+        return straight, fresh, path
+
+    n_leaves = 2 + 12 * L + 2
+    per_step = {"flash_attention_forward": L, "flash_attention_bwd": L,
+                "fused_softmax_cross_entropy": 1, "fused_softmax_cross_entropy_bwd": 1,
+                "fused_adamw_update": n_leaves}
+    (straight, fresh, path), counts = run_counted("resume gpt2", body,
+                                                  {k: v * 8 for k, v in per_step.items()})
+    a, b = straight.opt_state, fresh.opt_state
+    for name, x, y in (("params", straight.params, fresh.params), ("master", a.master, b.master),
+                       ("m", a.m, b.m), ("v", a.v, b.v)):
+        if not all(torch.equal(p, q) for p, q in zip(tree_leaves(x), tree_leaves(y))):
+            raise AssertionError(f"resume gpt2: {name} after the resume is not bit-equal")
+    if not (b.step == a.step == 4 and len(straight.history.train_losses) == 4):
+        raise AssertionError("resume gpt2: not 4 steps on each side")
+    return counts, {"model": "gpt2-124m widths, 2 layers, bf16 params + f32 SR masters, flash, "
+                             "random weights", "shape": f"B={B} T={T}",
+                    "archive_bytes": path.stat().st_size, **times,
+                    "losses": straight.history.train_losses,
+                    "gate": "params, masters, m and v bit-equal after 4 steps", "launches": counts}
+
+
+def phase_data(rng, tmp: str):
+    """The data layer on the card's machine, host work only: the native
+    library loaded (built from native/ at first use); the BPE encoder's
+    native ids equal to its Python ones on a seeded synthetic text; a
+    TokenReader over an llm.c shard written here giving the windows that
+    read_token_file and numpy give; an IDX round trip; CharReader batches
+    on a written corpus."""
+    import struct
+    from pathlib import Path
+
+    from mila_tpu_torch import native
+    from mila_tpu_torch.data import BPETokenizer, CharReader, TokenReader, read_token_file
+    from mila_tpu_torch.data.mnist import read_idx_images, read_idx_labels
+
+    if not native.available():
+        raise AssertionError(f"data: the native library did not load: {native.load_error()}")
+    pieces = ["the", " the", "and", " and", "ing", "er", "12", " ", "a", "b", "'s", "\n", "é",
+              "th", "in", " a", ", ", "!"]
+    text = "".join(pieces[i] for i in rng.integers(0, len(pieces), 4000))
+    tok = BPETokenizer.byte_fallback([b"th", b"he", b"the", b" the", b"an", b"and", b" and",
+                                      b"in", b"ing", b"er", b" a", b"12"])
+    ids = tok.encode(text)
+    if not (tok._native_handle is not None and np.array_equal(ids, tok.encode(text,
+                                                                          use_native=False))
+            and tok.decode(ids) == text):
+        raise AssertionError("data: native BPE ids differ from the Python encoder's")
+
+    toks = rng.integers(0, 50257, 100_000).astype(np.uint16)
+    header = np.zeros(256, np.int32)
+    header[:3] = (20240520, 1, len(toks))
+    shard = Path(tmp) / "shard.bin"
+    shard.write_bytes(header.tobytes() + toks.tobytes())
+    flat = read_token_file(shard)
+    reader = TokenReader([shard], batch_size=8, seq_len=64, shuffle=True, seed=3)
+    if not np.array_equal(flat, toks.astype(np.int32)):
+        raise AssertionError("data: read_token_file differs from the shard's tokens")
+    for i in range(5):
+        x, y = reader.next_batch(i)
+        starts = reader._starts[reader._perm[i * 8:(i + 1) * 8]]
+        win = flat[starts[:, None] + np.arange(65)[None, :]]
+        if not (np.array_equal(x, win[:, :-1]) and np.array_equal(y, win[:, 1:])):
+            raise AssertionError("data: TokenReader's windows differ from numpy's")
+
+    imgs = rng.integers(0, 256, (16, 28, 28)).astype(np.uint8)
+    labels = rng.integers(0, 10, 16).astype(np.uint8)
+    (Path(tmp) / "i.idx").write_bytes(struct.pack(">IIII", 2051, 16, 28, 28) + imgs.tobytes())
+    (Path(tmp) / "l.idx").write_bytes(struct.pack(">II", 2049, 16) + labels.tobytes())
+    if not (np.array_equal(read_idx_images(Path(tmp) / "i.idx"),
+                           # the native reader's scaling: times float(1 / 255)
+                           imgs.reshape(16, 784).astype(np.float32) * np.float32(1.0 / 255.0))
+            and np.array_equal(read_idx_labels(Path(tmp) / "l.idx"), labels.astype(np.int32))):
+        raise AssertionError("data: the IDX round trip differs")
+
+    corpus = Path(tmp) / "input.txt"
+    corpus.write_text(text)
+    chars = CharReader(corpus, batch_size=4, seq_len=32, seed=1)
+    x, y = chars.next_batch(0)
+    if not (x.shape == (4, 32) and np.array_equal(x[:, 1:], y[:, :-1])
+            and chars.vocab.decode(x[0]) in text):
+        raise AssertionError("data: CharReader's batch is not a shifted window of the corpus")
+    return {"native": True, "bpe_tokens": int(len(ids)), "bpe_bytes": len(text.encode()),
+            "token_windows_checked": 40, "idx_images": 16, "char_vocab": chars.vocab.size,
+            "gate": "native loaded; native BPE == Python; TokenReader == numpy windows; "
+                    "IDX round trip; CharReader windows shifted by one"}
+
+
 SOURCES = {
     "quant_linear": ("mila_tpu_torch/csrc/qmm_int8.cu",
                      "mila_tpu/kernels/quant_matmul.py:74 (_qmm_kernel)"),
@@ -2914,6 +3301,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
+    from mila_tpu_torch import native
     from mila_tpu_torch.kernels import _build
     from mila_tpu_torch.models.llama import (Llama, LlamaConfig, pack_decode_giga,
                                              pack_decode_layers, pack_decode_megalayers,
@@ -2923,9 +3311,14 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     bw, peak_ops, peak_key = peaks(name)
     t0 = time.monotonic()
+    # The native IO library (g++) builds beside the kernels (nvcc).
+    native_build = threading.Thread(target=native.get_lib)
+    native_build.start()
     _build.build_all()
+    native_build.join()
     header = {"phase": "header", "card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": time.monotonic() - t0,
+              "native_io": native.available(),
               "peaks": {"bytes_per_s": bw, "bf16_ops_per_s": peak_ops, "part": peak_key}}
     emit(header)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3064,6 +3457,26 @@ def main() -> int:
     t32_counts, e32_counts, train32 = phase_train(peak_ops, np.random.default_rng(25), steps=6,
                                                   dtype="float32", full=False)
     emit({"phase": "train f32", "card": card, **train32})
+    torch.cuda.empty_cache()
+    t_ph = time.monotonic()
+    tm_counts, tmr_counts, mnist, mnist_rows, train_mnist = phase_train_mnist(
+        bw, peak_ops, np.random.default_rng(40))
+    emit({"phase": "train mnist", "card": card, "rows": mnist_rows, **train_mnist,
+          "phase_s": time.monotonic() - t_ph})
+    rows += mnist_rows
+    with tempfile.TemporaryDirectory() as tmp:
+        t_ph = time.monotonic()
+        rm_counts, resume_mnist = phase_resume_mnist(mnist, tmp)
+        emit({"phase": "resume mnist", "card": card, **resume_mnist,
+              "phase_s": time.monotonic() - t_ph})
+        t_ph = time.monotonic()
+        rg_counts, resume_gpt2 = phase_resume_gpt2(np.random.default_rng(41), tmp)
+        emit({"phase": "resume gpt2", "card": card, **resume_gpt2,
+              "phase_s": time.monotonic() - t_ph})
+        t_ph = time.monotonic()
+        data = phase_data(np.random.default_rng(42), tmp)
+        emit({"phase": "data", "card": card, **data, "phase_s": time.monotonic() - t_ph})
+    del mnist
 
     by_path = {"serve paged": counts, "serve contiguous": c_counts, "serve giga": g_counts,
                "serve fp8": f_counts,
@@ -3081,7 +3494,9 @@ def main() -> int:
                "train f32": t32_counts, "evaluate f32": e32_counts,
                "serve spec plain": spp_counts, "serve spec": sp_counts,
                **ps_counts, "serve gpt2": sg_counts, "parity gpt2": pg_counts,
-               "generate gpt2": gg_counts}
+               "generate gpt2": gg_counts, "train mnist": tm_counts,
+               "train mnist rate": tmr_counts, "resume mnist": rm_counts,
+               "resume gpt2": rg_counts}
     summary = []
     for entry, (source, replaces) in SOURCES.items():
         mine = [r for r in rows if r["entry"] == entry]
@@ -3122,7 +3537,8 @@ def main() -> int:
                        "parity_train_f32": parity_train32, "train_f32": train32,
                        "serve_spec": serve_spec, "parity_spec": parity_spec,
                        "serve_gpt2": serve_gpt2, "parity_gpt2": parity_gpt2,
-                       "generate_gpt2": generate_gpt2,
+                       "generate_gpt2": generate_gpt2, "train_mnist": train_mnist,
+                       "resume_mnist": resume_mnist, "resume_gpt2": resume_gpt2, "data": data,
                        "summary": summary,
                        "total_s": time.monotonic() - T_START}, f, indent=1)
     emit({"kernels": summary})

@@ -12,7 +12,8 @@ the same name and fields: arrays converted, ints kept ints, floats kept
 floats (``GigaPack.eps``) and ``None`` kept ``None`` (a ``GigaPack``
 without RoPE rows), so a JAX-packed tree runs the port's kernels on the
 same bytes. ``adamw_state_from_jax`` carries an ``AdamWState`` (step, m,
-v and master trees, numpy-leaved) over to the port's, so that both
+v and master trees, numpy-leaved) over to the port's, and
+``sgd_state_from_jax`` an ``SGDState`` (step, velocity), so that both
 optimizers can start from one state.
 """
 
@@ -93,3 +94,12 @@ def adamw_state_from_jax(state: Any, device: DeviceLike = None):
     master = None if state.master is None else params_from_jax(state.master, device)
     return AdamWState(step=int(np.asarray(state.step)), m=params_from_jax(state.m, device),
                       v=params_from_jax(state.v, device), master=master)
+
+
+def sgd_state_from_jax(state: Any, device: DeviceLike = None):
+    """The port's ``SGDState`` from a JAX one whose velocity tree holds
+    numpy arrays."""
+    from mila_tpu_torch.optim.sgd import SGDState
+
+    return SGDState(step=int(np.asarray(state.step)),
+                    velocity=params_from_jax(state.velocity, device))

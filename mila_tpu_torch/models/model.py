@@ -5,16 +5,23 @@ JAX compiles one XLA program per step (value_and_grad of the loss, then
 ``opt.step``). Here the step is eager: the parameter leaves are detached
 copies that require grad, the loss's ``torch.autograd.grad`` runs the ops'
 ``torch.autograd.Function`` backwards (the flash, softmax-CE kernels on the
-card), and ``AdamW.step`` updates every leaf through the fused kernel.
-With ``grad_accum_steps`` > 1 the batch splits into microbatches whose f32
-gradients are summed and averaged before the one update, as JAX's scan
-does.
+card), and the optimizer's step updates every leaf (AdamW through the
+fused kernel). With ``grad_accum_steps`` > 1 the batch splits into
+microbatches whose f32 gradients are summed and averaged before the one
+update, as JAX's scan does. With ``prefetch_depth`` > 0 (JAX's default 2)
+the batches come through ``data.prefetch.PrefetchLoader``, staged on the
+device ahead of the step; they are the same batches as at depth 0.
 
-Not ported yet (ROADMAP item A.11, ``data/prefetch.py`` and
-``serialization/``): ``prefetch_depth`` > 0 and the checkpoint methods
-raise ``NotImplementedError``. The port's ``ModelConfig`` therefore
-defaults ``prefetch_depth`` to 0 where JAX's defaults it to 2 (a
-synchronous loop; the batches are the same).
+Checkpoints are JAX's archive (``serialization/checkpoint.py``): the
+params, the optimizer state as its dict (AdamW: step, m, v, master), the
+training config and history. ``load_checkpoint`` puts every leaf on the
+model's device in the structure of the built tree (the file's own order
+of sorted keys where the model was not built), so the leaf order, and with
+it the order in which AdamW draws its stochastic-rounding noise, is that
+of an uninterrupted run. ``resume_training`` continues the epoch count
+after the checkpoint's epoch (the readers' shuffles of the epochs that
+follow), where JAX's restarts it at 0; a resumed run is bit-equal to one
+trained straight through.
 """
 
 from __future__ import annotations
@@ -22,23 +29,31 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+from pathlib import Path
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from mila_tpu_torch.data.loader import ArrayReader, DatasetReader
+from mila_tpu_torch.data.prefetch import PrefetchLoader
 from mila_tpu_torch.device import DeviceLike, resolve_device
 from mila_tpu_torch.nn.module import Module
 from mila_tpu_torch.optim.adamw import AdamW
+from mila_tpu_torch.serialization.archive import SerializationMode, restore_tree
+from mila_tpu_torch.serialization.checkpoint import (
+    CheckpointMetadata,
+    find_latest_checkpoint,
+    generate_checkpoint_filename,
+    load_checkpoint,
+    save_checkpoint,
+    to_device_tree,
+)
 from mila_tpu_torch.utils.config import BaseConfig, ConfigError
 from mila_tpu_torch.utils.rng import GeneratorLike, generator
 from mila_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 log = logging.getLogger("mila_tpu_torch")
-
-_CHECKPOINT_GAP = ("checkpoints are not ported yet (ROADMAP item A.11: serialization/ and "
-                   "data/prefetch.py)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +67,7 @@ class ModelConfig(BaseConfig):
     validation_split: float = 0.0
     verbose: bool = True
     grad_accum_steps: int = 1
-    prefetch_depth: int = 0  # > 0 is not ported (ROADMAP A.11)
+    prefetch_depth: int = 2  # batches staged on the device ahead (0 = synchronous)
 
     def validate(self):
         if self.epochs <= 0:
@@ -198,30 +213,35 @@ class Model:
         return self.module.parameter_count(self.params)
 
     def _to_device(self, a) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device)
         return torch.as_tensor(np.asarray(a)).to(self.device)
 
     # --- training ---
 
     def train(self, reader: DatasetReader, val_reader: Optional[DatasetReader] = None,
-              step_logger=None, callbacks: Optional[list] = None) -> TrainingHistory:
+              step_logger=None, callbacks: Optional[list] = None,
+              start_epoch: int = 0) -> TrainingHistory:
+        """``config.epochs`` epochs, numbered from ``start_epoch`` (each
+        resets the reader to its number, so its shuffle)."""
         if self.params is None:
             raise RuntimeError("call build() before train()")
         cfg = self.config
-        if cfg.prefetch_depth > 0:
-            raise NotImplementedError("prefetch_depth > 0: the batch prefetcher is not ported "
-                                      "yet (ROADMAP item A.11, data/prefetch.py)")
         callbacks = callbacks or []
         if val_reader is None and cfg.validation_split > 0:
             reader, val_reader = split_validation(reader, cfg.validation_split)
         for cb in callbacks:
             cb.on_train_begin(self)
-        for epoch in range(cfg.epochs):
+        for epoch in range(start_epoch, start_epoch + cfg.epochs):
             for cb in callbacks:
                 cb.on_epoch_begin(self, epoch)
             t0 = time.monotonic()
             reader.reset(epoch)
             losses, n_seen = [], 0
-            for inputs, targets in reader:
+            batches = reader
+            if cfg.prefetch_depth > 0:
+                batches = PrefetchLoader(reader, depth=cfg.prefetch_depth, device=self.device)
+            for inputs, targets in batches:
                 self.params, self.opt_state, loss = self._train_step(
                     self.params, self.opt_state, self._to_device(inputs),
                     self._to_device(targets))
@@ -237,8 +257,9 @@ class Model:
                 step_logger.log_step(epoch, loss=train_loss,
                                      val_loss=val_loss if val_loss is not None else "")
             if cfg.verbose:
-                log.info("epoch %d/%d: train_loss=%.4f%s (%.0f samples/s)", epoch + 1, cfg.epochs,
-                         train_loss, f" val_loss={val_loss:.4f}" if val_loss is not None else "",
+                log.info("epoch %d/%d: train_loss=%.4f%s (%.0f samples/s)", epoch + 1,
+                         start_epoch + cfg.epochs, train_loss,
+                         f" val_loss={val_loss:.4f}" if val_loss is not None else "",
                          n_seen / max(dt, 1e-9))
             if (cfg.checkpoint_frequency > 0 and cfg.checkpoint_dir
                     and (epoch + 1) % cfg.checkpoint_frequency == 0):
@@ -260,17 +281,64 @@ class Model:
     def predict(self, inputs) -> torch.Tensor:
         return self.module.apply(self.params, self._to_device(inputs), training=False)
 
-    # --- checkpointing (not ported yet) ---
+    # --- checkpointing ---
 
-    def save_checkpoint(self, path=None, epoch: int = 0):
-        raise NotImplementedError(_CHECKPOINT_GAP)
+    def save_checkpoint(self, path: Optional[str | Path] = None, epoch: int = 0) -> Path:
+        """Write params, optimizer state, config and history; ``path``
+        defaults to ``<checkpoint_dir>/<name>_epochNNNN.mila``."""
+        if path is None:
+            d = Path(self.config.checkpoint_dir or ".")
+            d.mkdir(parents=True, exist_ok=True)
+            path = d / generate_checkpoint_filename(self.config.name or "model", epoch)
+        meta = CheckpointMetadata(
+            epoch=epoch,
+            step=int(self.opt_state.step) if hasattr(self.opt_state, "step") else 0,
+            train_loss=self.history.train_losses[-1] if self.history.train_losses else 0.0,
+            val_loss=self.history.val_losses[-1] if self.history.val_losses else 0.0,
+            filepath=str(path))
+        save_checkpoint(path, self.params, opt_state=self.opt_state, model_config=self.config,
+                        metadata=meta, history=self.history)
+        return Path(path)
 
-    def load_checkpoint(self, path) -> None:
-        raise NotImplementedError(_CHECKPOINT_GAP)
+    def load_checkpoint(self, path: str | Path) -> dict:
+        """Load params, optimizer state and history onto the model's device;
+        returns the checkpoint's metadata. A built model keeps its tree's
+        structure and dtypes (a leaf the file lacks or shapes differently
+        raises); an unbuilt one takes the file's tree."""
+        data = load_checkpoint(path)
+        like = self.params if self.params is not None else data["params"]
+        params = restore_tree(data["params"], like)
+        self.params = tree_map(lambda p, q: p.to(self.device, q.dtype), params, like)
+        od = data["optimizer"]
+        if od is not None:
+            def tree(name):  # a state tree shaped as the params (None if absent)
+                if name not in od:
+                    return None
+                return to_device_tree(restore_tree(od[name], self.params), device=self.device)
+
+            state_cls = type(self.optimizer.init({}))  # AdamWState or SGDState
+            self.opt_state = state_cls(**{f: int(od[f]) if f == "step" else tree(f)
+                                          for f in state_cls._fields})
+        else:
+            self.opt_state = self.optimizer.init(self.params)
+        if data["history"]:
+            self.history = TrainingHistory(**data["history"])
+        self._compile()
+        return data["meta"]
 
     def resume_training(self, reader: DatasetReader,
                         val_reader: Optional[DatasetReader] = None) -> TrainingHistory:
-        raise NotImplementedError(_CHECKPOINT_GAP)
+        """Load the latest checkpoint of ``checkpoint_dir`` (if any) and
+        train ``config.epochs`` more epochs, numbered on from the
+        checkpoint's."""
+        latest = find_latest_checkpoint(self.config.checkpoint_dir, self.config.name or "model")
+        start = 0
+        if latest is not None:
+            log.info("resuming from %s", latest)
+            start = int(self.load_checkpoint(latest)["epoch"]) + 1
+        return self.train(reader, val_reader, start_epoch=start)
 
-    def export(self, path) -> None:
-        raise NotImplementedError(_CHECKPOINT_GAP)
+    def export(self, path: str | Path) -> None:
+        """Inference-only archive: params and config, no optimizer state."""
+        save_checkpoint(path, self.params, model_config=self.config,
+                        mode=SerializationMode.EXPORT)

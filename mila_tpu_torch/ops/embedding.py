@@ -1,8 +1,15 @@
 """Token + positional embedding (port of ``mila_tpu/ops/embedding.py``) with
 JAX's manual VJP: no gradient for the integer tokens; dwte is the
-segment sum of the f32 cotangent rows by token (``index_add_``), dwpe the
-sum over the batch of the first T rows, both cast to the cotangent's
-dtype."""
+segment sum of the f32 cotangent rows by token, dwpe the sum over the
+batch of the first T rows, both cast to the cotangent's dtype.
+
+The segment sum must add a token's rows in a fixed order, or two backward
+passes over one batch could differ in the last bit and a resumed run
+would not be bit-equal to one trained straight through. On the card it is
+``index_put_(accumulate=True)``, which sorts the indices first
+(``index_add_`` adds repeated tokens there with atomics in a varying
+order); on the CPU ``index_add_``, which adds them serially (``index_put_``
+adds them from parallel threads there)."""
 
 from __future__ import annotations
 
@@ -27,7 +34,11 @@ class _EncoderFn(torch.autograd.Function):
         (V, C), wpe_shape = ctx.shapes
         g32 = g.float().reshape(-1, C)
         dwte = torch.zeros(V, C, device=g.device, dtype=torch.float32)
-        dwte = dwte.index_add_(0, tokens.reshape(-1).long(), g32).to(g.dtype)
+        idx = tokens.reshape(-1).long()
+        if g.is_cuda:
+            dwte = dwte.index_put_((idx,), g32, accumulate=True).to(g.dtype)
+        else:
+            dwte = dwte.index_add_(0, idx, g32).to(g.dtype)
         if wpe_shape is None:
             return None, dwte, None
         T = tokens.shape[-1]

@@ -1,4 +1,4 @@
-"""Optimizers (port of ``mila_tpu/optim``; SGD is not ported yet)."""
+"""Optimizers (port of ``mila_tpu/optim``)."""
 
 from mila_tpu_torch.optim.adamw import AdamW, AdamWConfig, AdamWState, global_norm, zero_grads
 from mila_tpu_torch.optim.schedules import (
@@ -8,6 +8,8 @@ from mila_tpu_torch.optim.schedules import (
     warmup_cosine,
     warmup_linear,
 )
+from mila_tpu_torch.optim.sgd import SGD, SGDConfig, SGDState
 
 __all__ = ["AdamW", "AdamWConfig", "AdamWState", "global_norm", "zero_grads", "Schedule",
-           "constant", "step_decay", "warmup_cosine", "warmup_linear"]
+           "constant", "step_decay", "warmup_cosine", "warmup_linear", "SGD", "SGDConfig",
+           "SGDState"]

@@ -2074,3 +2074,164 @@ def test_softmax_ce_bwd_variants(cuda, M, V, dtype, variant):
     torch.cuda.synchronize()
     for got in (out, ce.fused_softmax_cross_entropy_bwd(x, t, g)):
         _dlogits_gate(got, ce.fused_softmax_cross_entropy_bwd_plain(x, t, g))
+
+
+# --------------------------------------------------------------------------
+# The MNIST MLP's path: K13 at V 10, K12 on its f32 leaves, Model on the
+# card against the CPU port, a checkpoint resume, the prefetcher.
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M", [2048, 128])
+def test_softmax_ce_mnist_rows(cuda, M):
+    # V 10 in f32: 40-byte rows, no whole 16-byte chunks, so the forward's
+    # and the backward's scalar branches; the same gates as the other rows.
+    from mila_tpu_torch.kernels import softmax_ce as ce
+
+    V = 10
+    assert ce.ce_bwd_variant(V, 4) == "scalar"
+    x = _rand((M, V), 87, scale=3.0, dtype=torch.float32)
+    t = torch.from_numpy(np.random.default_rng(88).integers(0, V, M)).cuda()
+    g = torch.full((M,), 1.0 / M, device="cuda")
+    before = (ce.fused_softmax_cross_entropy.launches, ce.fused_softmax_cross_entropy_bwd.launches)
+    xr = x.clone().requires_grad_()
+    loss = ce.fused_softmax_cross_entropy(xr, t)
+    (dx,) = torch.autograd.grad(loss, xr, g)
+    torch.cuda.synchronize()
+    assert (ce.fused_softmax_cross_entropy.launches,
+            ce.fused_softmax_cross_entropy_bwd.launches) == (before[0] + 1, before[1] + 1)
+    t32 = t.to(torch.int32)
+    torch.testing.assert_close(loss, ce.fused_softmax_cross_entropy_plain(x, t32), rtol=1e-5,
+                               atol=1e-4)
+    _dlogits_gate(dx, ce.fused_softmax_cross_entropy_bwd_plain(x, t32, g))
+
+
+@pytest.mark.parametrize("n", [10, 64, 128, 640, 8192, 100352])
+def test_fused_adamw_mnist_leaves(cuda, n):
+    # The MLP's f32 leaves without masters (biases of 10 and 64 end in the
+    # scalar tail): every output bit-equal to the plain version.
+    from mila_tpu_torch.kernels import fused_adamw as fw
+
+    p = _rand((n,), 74, scale=0.05, dtype=torch.float32)
+    g = _rand((n,), 75, scale=0.1, dtype=torch.float32)
+    m = _rand((n,), 76, scale=0.01, dtype=torch.float32)
+    v = _rand((n,), 77, scale=0.01, dtype=torch.float32).square()
+    kw = dict(step=3, lr=1e-3, weight_decay=0.01)
+    before = fw.fused_adamw_update.launches
+    got = fw.fused_adamw_update(p, g, m, v, None, **kw)
+    torch.cuda.synchronize()
+    assert fw.fused_adamw_update.launches == before + 1
+    want = fw.fused_adamw_update_plain(p, g, m, v, None, **kw)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b), (a - b).abs().max()
+
+
+def _mnist_model(device, epochs, **cfg):
+    from mila_tpu_torch.models import MLPClassifier, MLPClassifierConfig, Model, ModelConfig
+    from mila_tpu_torch.optim import AdamW, AdamWConfig
+
+    return Model(MLPClassifier(MLPClassifierConfig(name="mnist")),
+                 AdamW(AdamWConfig(learning_rate=1e-3)),
+                 ModelConfig(name="mnist", epochs=epochs, verbose=False, **cfg), device=device)
+
+
+def test_mlp_epoch_on_the_card_matches_the_cpu(cuda):
+    # One Model epoch (8 steps, prefetch depth 2) from the same params:
+    # the per-epoch loss within 1e-4 relative of the CPU port's (f32 on
+    # both, cuBLAS without TF32 against the CPU's GEMMs, K13 and K12 against
+    # their plain versions), and the card's launches those of its path.
+    from mila_tpu_torch import kernels
+    from mila_tpu_torch.data import MnistReader
+    from mila_tpu_torch.utils.tree import tree_map
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cpu, card = _mnist_model("cpu", 1), _mnist_model("cuda", 1)
+    cpu.build(0, (128, 784))
+    card.params = tree_map(lambda p: p.cuda(), cpu.params)
+    card.opt_state = card.optimizer.init(card.params)
+    card._compile()
+    cpu.train(MnistReader(batch_size=128, synthetic_n=1024, seed=0))
+    kernels.reset_launches()
+    plain = kernels.plain_calls()
+    card.train(MnistReader(batch_size=128, synthetic_n=1024, seed=0))
+    torch.cuda.synchronize()
+    assert kernels.plain_calls() == plain
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert counts == {"fused_softmax_cross_entropy": 8, "fused_softmax_cross_entropy_bwd": 8,
+                      "fused_adamw_update": 48}
+    np.testing.assert_allclose(card.history.train_losses, cpu.history.train_losses, rtol=1e-4)
+
+
+def test_mlp_resume_on_the_card_is_bit_equal(cuda, tmp_path):
+    from mila_tpu_torch.data import MnistReader
+    from mila_tpu_torch.utils.tree import tree_leaves
+
+    def reader():
+        return MnistReader(batch_size=128, synthetic_n=1024, seed=0)
+
+    straight = _mnist_model("cuda", 4)
+    straight.build(0, (128, 784))
+    straight.train(reader())
+    first = _mnist_model("cuda", 2, checkpoint_dir=str(tmp_path), checkpoint_frequency=2)
+    first.build(0, (128, 784))
+    first.train(reader())
+    resumed = _mnist_model("cuda", 2, checkpoint_dir=str(tmp_path))
+    resumed.build(0, (128, 784))
+    resumed.resume_training(reader())
+    assert resumed.history.train_losses == straight.history.train_losses
+    for part in ("m", "v"):
+        for a, b in zip(tree_leaves(getattr(straight.opt_state, part)),
+                        tree_leaves(getattr(resumed.opt_state, part))):
+            assert torch.equal(a, b)
+    for a, b in zip(tree_leaves(straight.params), tree_leaves(resumed.params)):
+        assert a.is_cuda and torch.equal(a, b)
+
+
+def test_prefetch_loader_on_the_card(cuda, monkeypatch):
+    # Batches land on the card equal to the reader's, through pinned memory
+    # on the worker's stream; each tensor is recorded on the consumer's
+    # stream. The step that reads a batch runs after a 20 ms sleep queued
+    # on the consumer's stream, and the batch is dropped before the sleep
+    # ends: without record_stream the worker's next copies would reuse its
+    # memory and the sums would read other batches.
+    from mila_tpu_torch.data import ArrayReader, PrefetchLoader
+
+    recorded = []
+    real = torch.Tensor.record_stream
+    monkeypatch.setattr(torch.Tensor, "record_stream",
+                        lambda self, s: (recorded.append(s), real(self, s))[1])
+    x = np.random.default_rng(0).standard_normal((64 * 256, 256)).astype(np.float32)
+    y = np.arange(64 * 256, dtype=np.int32)
+    reader = ArrayReader(x, y, batch_size=256, shuffle=True, seed=1)
+    want = [(bx.astype(np.float64).sum(), by.sum()) for bx, by in reader]
+    sums = []
+    for bx, by in PrefetchLoader(reader, depth=2, device="cuda"):
+        assert bx.is_cuda and by.is_cuda
+        torch.cuda._sleep(20_000_000)
+        sums.append((bx.double().sum(), by.long().sum()))
+        del bx, by
+    torch.cuda.synchronize()
+    assert len(sums) == len(want) == 64
+    for (gx, gy), (wx, wy) in zip(sums, want):
+        assert abs(gx.item() - wx) <= 1e-6 * abs(wx) + 1e-3 and gy.item() == wy
+    consumer = torch.cuda.current_stream()
+    assert len(recorded) == 2 * 64 and all(s == consumer for s in recorded)
+
+
+def test_encoder_backward_is_bit_reproducible(cuda):
+    # dwte sums the rows of repeated tokens in a fixed order (sorted
+    # indices), so two backward passes over one batch are bit-equal; each
+    # bf16 sum within 1e-2 of the largest of a float64 sum (one rounding).
+    from mila_tpu_torch.ops.embedding import encoder
+
+    tokens = torch.from_numpy(np.random.default_rng(95).integers(0, 16, (8, 1024))).cuda()
+    wte = _rand((50304, 768), 96, scale=0.02).requires_grad_()
+    wpe = _rand((1024, 768), 97, scale=0.02).requires_grad_()
+    g = _rand((8, 1024, 768), 98, scale=1e-3)
+    first, second = (torch.autograd.grad(encoder(tokens, wte, wpe), (wte, wpe), g)
+                     for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    want = torch.zeros(50304, 768, dtype=torch.float64, device="cuda").index_add_(
+        0, tokens.reshape(-1), g.double().reshape(-1, 768))
+    err = (first[0].double() - want).abs().max().item()
+    assert err <= 1e-2 * want.abs().max().item()
