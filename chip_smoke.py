@@ -136,6 +136,19 @@ exits non-zero without the final line):
   parity train f32, train f32  the same for GPT-2 as shipped (f32 params,
            flash on tf32 products). Every train phase feeds Model through
            the batch prefetcher at its default depth 2;
+  kernels train llama  rows 15-18 at Llama-3.2-1B's training shapes: the
+           flash statistics launch and backward at B 2, T 2048, NH 32 / NKV
+           8, D 64; AdamW on the tied wte (262.7M elements, SR); the CE at
+           [4096, 128256] bf16 (the streamed backward); each beside its
+           plain version, bound and library call;
+  parity train llama  one layer at Llama-3.2-1B's widths (vocab 128256),
+           bf16 + SR masters, flash forced, B 1, T 512, card against CPU
+           with parity train's gates;
+  train llama  Llama-3.2-1B at full width and depth through Model (bf16
+           params, f32 SR masters, clip 1.0, flash), B 2, T 2048, 12 steps
+           over 4 fixed sequences, then evaluate: the loss falls by 1 nat;
+           ms/step, tokens/s, MFU, peak memory, three steps split as
+           train's;
   train mnist  the reference's MNIST classifier (784-128-64-10 GELU, f32,
            AdamW lr 1e-3) through Model, prefetch depth 2, on the synthetic
            surrogate: K13 (V 10, the scalar branches) and K12 (the MLP's
@@ -144,6 +157,10 @@ exits non-zero without the final line):
            the JAX e2e test's run (B 128, 4096 samples, 4 epochs: the loss
            halves, >= 0.975 on the 204-sample test split) and bench.py's
            shape (B 2048, 65536 samples, 4 epochs: samples/s, ms/step);
+  train cnn  the CNN classifier (conv 32, 64, hidden 128, f32) through
+           Model on the surrogate: K12 at its leaf sizes against its plain
+           version; train mnist's gate run (the loss halves; test accuracy
+           printed) and rate run (samples/s, ms/step);
   resume mnist  2 epochs, a checkpoint, a fresh Model and resume_training for
            2 more, bit-equal to 4 straight (params, moments, predictions);
            prefetch depth 0 against 2 (losses bit-equal); Model.export, and
@@ -156,8 +173,8 @@ exits non-zero without the final line):
            the kernels), native BPE == Python BPE, TokenReader over an
            llm.c shard == numpy windows, an IDX round trip, CharReader.
 Every phase's line carries at_s, the script's seconds so far (every
-kernel row too); kernels pairs, the GPT-2, speculative, MNIST, resume and
-data phases also their own seconds (phase_s).
+kernel row too); kernels pairs, the GPT-2, speculative, MNIST, Llama
+training, CNN, resume and data phases also their own seconds (phase_s).
 
 On every path (decode prefill, decode, decode fp8 prefill, decode fp8,
 giga prefill, giga, giga bf16 prefill, giga bf16, mega prefill, mega, mega
@@ -165,7 +182,8 @@ fp8 prefill, mega fp8, generate, generate mlp, each serve run, serve fp8,
 serve spec and its plain run, parity spec at k 3 and 4 and its bf16 k 4
 and plain runs, serve long, serve
 gpt2, parity gpt2, generate gpt2, train, evaluate, train and evaluate
-in fp16 and f32, train mnist, train mnist rate, resume mnist, resume gpt2)
+in fp16 and f32, train and evaluate llama, train mnist, train mnist rate,
+train cnn, train cnn rate, resume mnist, resume gpt2)
 the launch counts are set to 0 just before it and must equal, just after
 it, the counts the path implies for all twenty entry points (0 for those
 it does not reach), and no plain version may run. Then the kernel summary line
@@ -2343,18 +2361,237 @@ def train_optimizer():
                              grad_clip_norm=1.0))
 
 
-def phase_train_kernels(bw, peak_ops, rng):
-    """Rows 15 (the statistics launch), 16, 17 and 18 at the training
-    path's shapes, each against its plain version on the card."""
+# K10' (flash_fwd with l, m) and K11 (flash_bwd): GPT-2's training shape,
+# Llama-3.2-1B's GQA heads at T 2048, and D 128 (24 heads over 8), all
+# causal. Gate: each (b, t, head) row of o, dq, dk, dv within ERR_TOL of
+# its own largest value (max_row_err; floored for the gradients); l and
+# m within 1e-4 / 1e-3 of the plain version's. Library: SDPA forward;
+# SDPA's backward alone; SDPA forward + backward through autograd beside
+# ours (fwd_bwd_ms).
+def flash_rows(record, rows, B, T, NH, NKV, D, draw, dtype=torch.bfloat16, plain_entry=False,
+               device_only=False):
+    """K10's statistics launch and K11 at one causal shape, inputs from
+    ``draw``, each against its plain version (``record`` appends to
+    ``rows``)."""
     import torch.nn.functional as F
 
     from mila_tpu_torch.kernels import flash_attention as fa
     from mila_tpu_torch.kernels import flash_attention_bwd as fb
+
+    bf16, sdpa = torch.bfloat16, F.scaled_dot_product_attention
+    sm = D ** -0.5
+    tag = {bf16: "bf16", torch.float32: "f32", torch.float16: "fp16"}[dtype]
+    shape = f"B={B} T={T} NH={NH} NKV={NKV} D={D}" + ("" if dtype == bf16 else f" {tag}")
+    q, k, v, do = (draw(*sh, dtype=dtype) for sh in ((B, T, NH, D), (B, T, NKV, D),
+                                                     (B, T, NKV, D), (B, T, NH, D)))
+    es = q.element_size()
+    # f32 runs on tf32 tensor-core operands: its rate is TF32's.
+    peak = {torch.float32: TF32_OPS}.get(dtype)
+    # l and m: f32 sums of exponentials in another order (1e-4 relative,
+    # 1e-3 absolute), 1e-2 both where the scores come from tf32 products.
+    lim = {"l": 1e-2, "m": 1e-2} if dtype == torch.float32 else {"l": 1e-4, "m": 1e-3}
+    tol = ERR_TOL_F32 if dtype == torch.float32 else ERR_TOL
+    o, l, m = fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm)
+    o_ref, l_ref, m_ref = fa.flash_attention_plain(q, k, v, scale=sm, save_stats=True)
+    o_err = max_row_err(o, o_ref)
+    l_err = ((l - l_ref).abs() / l_ref).max().item()
+    m_err = (m - m_ref).abs().max().item()
+    if o_err > tol or l_err > lim["l"] or m_err > lim["m"]:
+        raise AssertionError(f"flash_attention_forward[{shape}]: row err {o_err}, l rel "
+                             f"{l_err}, m abs {m_err}")
+    pairs = B * NH * T * (T + 1) // 2
+    gqa = NKV != NH
+    qs, ks, vs, dos = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    record("flash_attention_forward", shape, *max_err(o, o_ref),
+           [lambda: fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm)],
+           lambda: fa.flash_attention_plain(q, k, v, scale=sm, save_stats=True),
+           [lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=gqa)],
+           es * (2 * q.numel() + 2 * k.numel()) + 2 * 4 * B * NH * T, 4 * D * pairs,
+           gate=f"each (b, t, head) row of o within {tol} of its max |ref|; l rel "
+                f"{lim['l']}, m abs {lim['m']}",
+           max_row_rel_err=o_err, l_rel_err=l_err, m_abs_err=m_err, dtype=tag,
+           family=fa.routes(dtype, D)[0], peak=peak)
+    rows[-1]["tflops"] = 4 * D * pairs / rows[-1]["ms"] / 1e9
+    if plain_entry:
+        # flash_attention (no statistics: evaluate's forward), the same
+        # kernel without the l and m stores, held to the same gate.
+        o2 = fa.flash_attention(q, k, v, causal=True)
+        o2_err = max_row_err(o2, o_ref)
+        if o2_err > tol:
+            raise AssertionError(f"flash_attention[{shape}]: row err {o2_err}")
+        record("flash_attention", shape, *max_err(o2, o_ref),
+               [lambda: fa.flash_attention(q, k, v, causal=True)],
+               lambda: fa.flash_attention_plain(q, k, v, scale=sm),
+               [lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=gqa)],
+               es * (2 * q.numel() + 2 * k.numel()), 4 * D * pairs,
+               gate=f"each (b, t, head) row within {tol} of its max |ref|",
+               max_row_rel_err=o2_err, dtype=tag, family=fa.routes(dtype, D)[0],
+               peak=peak)
+        rows[-1]["tflops"] = 4 * D * pairs / rows[-1]["ms"] / 1e9
+        del o2
+    del o_ref, l_ref, m_ref
+    hm = [t.transpose(1, 2) for t in (q, k, v, o, do)]
+    got = fb.flash_attention_bwd(*hm[:4], l, m, hm[4], causal=True, sm_scale=sm)
+    want = fb.flash_attention_bwd_plain(*hm[:4], l, m, hm[4], causal=True, sm_scale=sm)
+    errs = {name: max_row_err(a.transpose(1, 2), b.transpose(1, 2), floor=1e-3)
+            for name, a, b in zip(("dq", "dk", "dv"), got, want)}
+    if max(errs.values()) > tol:
+        raise AssertionError(f"flash_attention_bwd[{shape}]: row errors {errs}")
+    abs_errs = [max_err(a, b) for a, b in zip(got, want)]
+    del got, want
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    s_leaves = [t.detach().requires_grad_() for t in (qs, ks, vs)]
+
+    def ours():
+        out = fa.flash_attention(*leaves, causal=True)
+        return torch.autograd.grad(out, leaves, do)
+
+    def library():
+        out = sdpa(*s_leaves, is_causal=True, enable_gqa=gqa)
+        return torch.autograd.grad(out, s_leaves, dos)
+
+    # SDPA's backward alone, the yardstick of the same function as
+    # flash_attention_bwd (one saved forward, its graph kept between
+    # calls), and ours timed the same ways: CUDA events around 20
+    # back-to-back calls, the median of 5, and the profiler's kernel
+    # times (autograd's host work does not always keep ahead of the
+    # card); ours also as a graph replay.
+    def ours_bwd():
+        return fb.flash_attention_bwd(*hm[:4], l, m, hm[4], causal=True, sm_scale=sm)
+
+    s_out = sdpa(*s_leaves, is_causal=True, enable_gqa=gqa)
+
+    def library_bwd():
+        return torch.autograd.grad(s_out, s_leaves, dos, retain_graph=True)
+
+    library_bwd_device_ms = device_ms(library_bwd)
+    # device_only (rows no model path launches): the profiler's device
+    # times and the graph replay alone, SDPA's device time as the library's.
+    timed = {} if device_only else {
+        "library_bwd_ms": time_back_to_back(library_bwd),
+        "bwd_back_to_back_ms": time_back_to_back(ours_bwd),
+        "fwd_bwd_ms": time_eager(ours), "library_fwd_bwd_ms": time_eager(library)}
+    del s_out
+    record("flash_attention_bwd", shape, max(e for e, _ in abs_errs),
+           max(r for _, r in abs_errs), [ours_bwd],
+           lambda: fb.flash_attention_bwd_plain(*hm[:4], l, m, hm[4], causal=True,
+                                                sm_scale=sm),
+           None, es * (4 * q.numel() + 4 * k.numel()) + 2 * 4 * B * NH * T, 10 * D * pairs,
+           gate=f"each (b, t, head) row of dq, dk, dv within {tol} of its max |ref| "
+                "(floored at 1e-3 of the tensor's)",
+           library_timed=library_bwd_device_ms if device_only else timed["library_bwd_ms"],
+           library_what="SDPA is_causal backward alone (autograd.grad on one saved "
+                        "forward), " + ("device time from the profiler" if device_only else
+                                        "20 back-to-back calls between CUDA events"),
+           row_rel_errs=errs, library_bwd_device_ms=library_bwd_device_ms,
+           bwd_device_ms=device_ms(ours_bwd), dtype=tag, family=fa.routes(dtype, D)[1],
+           peak=peak, **timed)
+    rows[-1]["tflops"] = 10 * D * pairs / rows[-1]["ms"] / 1e9
+
+
+def lib_step(leaf, grad):
+    lib_p = torch.nn.Parameter(leaf.clone())
+    lib_p.grad = grad.to(leaf.dtype)
+    return torch.optim.AdamW([lib_p], lr=1e-3, weight_decay=0.1, fused=True).step
+
+
+def adamw_rows(record, cases) -> None:
+    """K12 on each case (label, p, g, m, v, master, noise, bytes per element
+    read and written once, the library's leaf and what it is): every output
+    bit-equal to the plain version (the same f32 operations, no FMA
+    contraction); library: ``torch.optim.AdamW(fused=True)`` on the leaf."""
     from mila_tpu_torch.kernels import fused_adamw as fw
+
+    for label, p_, g_, m_, v_, w_, nz, per, lib_leaf, lib_what in cases:
+        kw = dict(step=10, lr=1e-3, weight_decay=0.1, noise=nz, grad_scale=0.5)
+        args = (p_, g_, m_, v_, w_)
+        got = fw.fused_adamw_update(*args, **kw)
+        want = fw.fused_adamw_update_plain(*args, **kw)
+        for name, a, b in zip(("p", "m", "v", "master"), got, want):
+            if b is not None and not torch.equal(a, b):
+                raise AssertionError(f"fused_adamw_update[{label}]: {name} differs from the "
+                                     f"plain version (max {max_err(a, b)[0]})")
+        record("fused_adamw_update", label, 0.0, 1.0,
+               [lambda a_=args, kw_=kw: fw.fused_adamw_update(*a_, **kw_)],
+               lambda a_=args, kw_=kw: fw.fused_adamw_update_plain(*a_, **kw_),
+               None, per * p_.numel(), 14 * p_.numel(), gate="bit-equal to the plain version",
+               library_eager=lib_step(lib_leaf, g_), library_what=lib_what, peak=F32_OPS,
+               dtype=str(p_.dtype).replace("torch.", ""))
+        del got, want
+
+
+def ce_rows(record, x, t, gl, tag: str, sub: float) -> None:
+    """K13 forward and backward on logits x [M, V], targets t (int64, -100
+    ignored) and the loss cotangent gl [M], each against its plain version:
+    each loss within 1e-4 + 1e-5 |ref|, each dlogit within one bf16 step
+    (2^-7) of its own size floored at 1e-8 of the largest, plus ``sub`` (one
+    fp16 subnormal step over 2^-7, in fp16). Library ``F.cross_entropy``:
+    its forward as a graph replay, its backward alone by device time."""
+    import torch.nn.functional as F
+
     from mila_tpu_torch.kernels import softmax_ce as ce
 
+    M, V = x.shape
+    t32 = t.to(torch.int32)
+    loss = ce.fused_softmax_cross_entropy(x, t)
+    want = ce.fused_softmax_cross_entropy_plain(x, t32)
+    excess = ((loss - want).abs() - 1e-5 * want.abs()).max().item()
+    if not torch.isfinite(loss).all() or excess > 1e-4:
+        raise AssertionError(f"fused_softmax_cross_entropy[{tag}]: a loss is {excess} beyond "
+                             "1e-5 |ref| + 1e-4 from the plain version's")
+    record("fused_softmax_cross_entropy", f"M={M} V={V} {tag}", *max_err(loss, want),
+           [lambda: ce.fused_softmax_cross_entropy(x, t)],
+           lambda: ce.fused_softmax_cross_entropy_plain(x, t32),
+           [lambda: F.cross_entropy(x, t, reduction="none")], 2 * M * V + 8 * M,
+           4 * M * V, gate="each loss within 1e-4 + 1e-5 |ref|",
+           library_what="F.cross_entropy forward", peak=F32_OPS, excess_over_rtol=excess,
+           dtype=tag)
+    d = ce.fused_softmax_cross_entropy_bwd(x, t32, gl)
+    want = ce.fused_softmax_cross_entropy_bwd_plain(x, t32, gl)
+    d_rel = max_elem_rel_err(d, want, floor=1e-8, extra=sub)
+    if d_rel > 2 ** -7:
+        raise AssertionError(f"fused_softmax_cross_entropy_bwd[{tag}]: a dlogit is {d_rel} "
+                             "of its own size from the plain version's (gate 2^-7)")
+    xr = x.detach().requires_grad_()
+
+    def library():
+        return torch.autograd.grad(F.cross_entropy(xr, t, reduction="none"), xr, gl)
+
+    # The library's backward alone, as row 16's: autograd.grad on one saved
+    # F.cross_entropy forward, by the card's own time (the profiler's kernel
+    # times) and as 20 back-to-back calls between CUDA events; ours the same
+    # ways beside its graph replay (ms).
+    s_loss = F.cross_entropy(xr, t, reduction="none")
+
+    def library_bwd():
+        return torch.autograd.grad(s_loss, xr, gl, retain_graph=True)
+
+    def ours_bwd():
+        return ce.fused_softmax_cross_entropy_bwd(x, t32, gl)
+
+    library_bwd_device_ms = device_ms(library_bwd)
+    library_bwd_ms = time_back_to_back(library_bwd)
+    del s_loss
+    record("fused_softmax_cross_entropy_bwd", f"M={M} V={V} {tag}", *max_err(d, want),
+           [ours_bwd], lambda: ce.fused_softmax_cross_entropy_bwd_plain(x, t32, gl), None,
+           4 * M * V + 8 * M, 6 * M * V,
+           gate="each dlogit within 2^-7 of |ref| + 1e-8 max |ref|"
+                + (" + 2^-24 (one fp16 subnormal step)" if sub else ""),
+           library_timed=library_bwd_device_ms,
+           library_what="F.cross_entropy backward alone (autograd.grad on one saved "
+                        "forward), device time from the profiler", peak=F32_OPS,
+           max_elem_rel_err=d_rel, variant=ce.ce_bwd_variant(V, x.element_size()),
+           library_bwd_device_ms=library_bwd_device_ms,
+           library_bwd_ms=library_bwd_ms, bwd_device_ms=device_ms(ours_bwd),
+           bwd_back_to_back_ms=time_back_to_back(ours_bwd),
+           library_fwd_bwd_ms=time_eager(library), dtype=tag)
+    del d, want, xr
+
+
+def phase_train_kernels(bw, peak_ops, rng):
+    """Rows 15 (the statistics launch), 16, 17 and 18 at the training
+    path's shapes, each against its plain version on the card."""
     dev, bf16 = torch.device("cuda"), torch.bfloat16
-    sdpa = F.scaled_dot_product_attention
     rows = []
     record = recorder(rows, bw, peak_ops)
 
@@ -2362,125 +2599,8 @@ def phase_train_kernels(bw, peak_ops, rng):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to(dev,
                                                                                          dtype)
 
-    # K10' (flash_fwd with l, m) and K11 (flash_bwd): GPT-2's training shape,
-    # Llama-3.2-1B's GQA heads at T 2048, and D 128 (24 heads over 8), all
-    # causal. Gate: each (b, t, head) row of o, dq, dk, dv within ERR_TOL of
-    # its own largest value (max_row_err; floored for the gradients); l and
-    # m within 1e-4 / 1e-3 of the plain version's. Library: SDPA forward;
-    # SDPA's backward alone; SDPA forward + backward through autograd beside
-    # ours (fwd_bwd_ms).
-    def flash_rows(B, T, NH, NKV, D, draw, dtype=bf16, plain_entry=False, device_only=False):
-        sm = D ** -0.5
-        tag = {bf16: "bf16", torch.float32: "f32", torch.float16: "fp16"}[dtype]
-        shape = f"B={B} T={T} NH={NH} NKV={NKV} D={D}" + ("" if dtype == bf16 else f" {tag}")
-        q, k, v, do = (draw(*sh, dtype=dtype) for sh in ((B, T, NH, D), (B, T, NKV, D),
-                                                         (B, T, NKV, D), (B, T, NH, D)))
-        es = q.element_size()
-        # f32 runs on tf32 tensor-core operands: its rate is TF32's.
-        peak = {torch.float32: TF32_OPS}.get(dtype)
-        # l and m: f32 sums of exponentials in another order (1e-4 relative,
-        # 1e-3 absolute), 1e-2 both where the scores come from tf32 products.
-        lim = {"l": 1e-2, "m": 1e-2} if dtype == torch.float32 else {"l": 1e-4, "m": 1e-3}
-        tol = ERR_TOL_F32 if dtype == torch.float32 else ERR_TOL
-        o, l, m = fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm)
-        o_ref, l_ref, m_ref = fa.flash_attention_plain(q, k, v, scale=sm, save_stats=True)
-        o_err = max_row_err(o, o_ref)
-        l_err = ((l - l_ref).abs() / l_ref).max().item()
-        m_err = (m - m_ref).abs().max().item()
-        if o_err > tol or l_err > lim["l"] or m_err > lim["m"]:
-            raise AssertionError(f"flash_attention_forward[{shape}]: row err {o_err}, l rel "
-                                 f"{l_err}, m abs {m_err}")
-        pairs = B * NH * T * (T + 1) // 2
-        gqa = NKV != NH
-        qs, ks, vs, dos = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
-        record("flash_attention_forward", shape, *max_err(o, o_ref),
-               [lambda: fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm)],
-               lambda: fa.flash_attention_plain(q, k, v, scale=sm, save_stats=True),
-               [lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=gqa)],
-               es * (2 * q.numel() + 2 * k.numel()) + 2 * 4 * B * NH * T, 4 * D * pairs,
-               gate=f"each (b, t, head) row of o within {tol} of its max |ref|; l rel "
-                    f"{lim['l']}, m abs {lim['m']}",
-               max_row_rel_err=o_err, l_rel_err=l_err, m_abs_err=m_err, dtype=tag,
-               family=fa.routes(dtype, D)[0], peak=peak)
-        rows[-1]["tflops"] = 4 * D * pairs / rows[-1]["ms"] / 1e9
-        if plain_entry:
-            # flash_attention (no statistics: evaluate's forward), the same
-            # kernel without the l and m stores, held to the same gate.
-            o2 = fa.flash_attention(q, k, v, causal=True)
-            o2_err = max_row_err(o2, o_ref)
-            if o2_err > tol:
-                raise AssertionError(f"flash_attention[{shape}]: row err {o2_err}")
-            record("flash_attention", shape, *max_err(o2, o_ref),
-                   [lambda: fa.flash_attention(q, k, v, causal=True)],
-                   lambda: fa.flash_attention_plain(q, k, v, scale=sm),
-                   [lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=gqa)],
-                   es * (2 * q.numel() + 2 * k.numel()), 4 * D * pairs,
-                   gate=f"each (b, t, head) row within {tol} of its max |ref|",
-                   max_row_rel_err=o2_err, dtype=tag, family=fa.routes(dtype, D)[0],
-                   peak=peak)
-            rows[-1]["tflops"] = 4 * D * pairs / rows[-1]["ms"] / 1e9
-            del o2
-        del o_ref, l_ref, m_ref
-        hm = [t.transpose(1, 2) for t in (q, k, v, o, do)]
-        got = fb.flash_attention_bwd(*hm[:4], l, m, hm[4], causal=True, sm_scale=sm)
-        want = fb.flash_attention_bwd_plain(*hm[:4], l, m, hm[4], causal=True, sm_scale=sm)
-        errs = {name: max_row_err(a.transpose(1, 2), b.transpose(1, 2), floor=1e-3)
-                for name, a, b in zip(("dq", "dk", "dv"), got, want)}
-        if max(errs.values()) > tol:
-            raise AssertionError(f"flash_attention_bwd[{shape}]: row errors {errs}")
-        abs_errs = [max_err(a, b) for a, b in zip(got, want)]
-        del got, want
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        s_leaves = [t.detach().requires_grad_() for t in (qs, ks, vs)]
-
-        def ours():
-            out = fa.flash_attention(*leaves, causal=True)
-            return torch.autograd.grad(out, leaves, do)
-
-        def library():
-            out = sdpa(*s_leaves, is_causal=True, enable_gqa=gqa)
-            return torch.autograd.grad(out, s_leaves, dos)
-
-        # SDPA's backward alone, the yardstick of the same function as
-        # flash_attention_bwd (one saved forward, its graph kept between
-        # calls), and ours timed the same ways: CUDA events around 20
-        # back-to-back calls, the median of 5, and the profiler's kernel
-        # times (autograd's host work does not always keep ahead of the
-        # card); ours also as a graph replay.
-        def ours_bwd():
-            return fb.flash_attention_bwd(*hm[:4], l, m, hm[4], causal=True, sm_scale=sm)
-
-        s_out = sdpa(*s_leaves, is_causal=True, enable_gqa=gqa)
-
-        def library_bwd():
-            return torch.autograd.grad(s_out, s_leaves, dos, retain_graph=True)
-
-        library_bwd_device_ms = device_ms(library_bwd)
-        # device_only (rows no model path launches): the profiler's device
-        # times and the graph replay alone, SDPA's device time as the library's.
-        timed = {} if device_only else {
-            "library_bwd_ms": time_back_to_back(library_bwd),
-            "bwd_back_to_back_ms": time_back_to_back(ours_bwd),
-            "fwd_bwd_ms": time_eager(ours), "library_fwd_bwd_ms": time_eager(library)}
-        del s_out
-        record("flash_attention_bwd", shape, max(e for e, _ in abs_errs),
-               max(r for _, r in abs_errs), [ours_bwd],
-               lambda: fb.flash_attention_bwd_plain(*hm[:4], l, m, hm[4], causal=True,
-                                                    sm_scale=sm),
-               None, es * (4 * q.numel() + 4 * k.numel()) + 2 * 4 * B * NH * T, 10 * D * pairs,
-               gate=f"each (b, t, head) row of dq, dk, dv within {tol} of its max |ref| "
-                    "(floored at 1e-3 of the tensor's)",
-               library_timed=library_bwd_device_ms if device_only else timed["library_bwd_ms"],
-               library_what="SDPA is_causal backward alone (autograd.grad on one saved "
-                            "forward), " + ("device time from the profiler" if device_only else
-                                            "20 back-to-back calls between CUDA events"),
-               row_rel_errs=errs, library_bwd_device_ms=library_bwd_device_ms,
-               bwd_device_ms=device_ms(ours_bwd), dtype=tag, family=fa.routes(dtype, D)[1],
-               peak=peak, **timed)
-        rows[-1]["tflops"] = 10 * D * pairs / rows[-1]["ms"] / 1e9
-
     for B, T, NH, NKV, D in ((8, 1024, 12, 12, 64), (2, 2048, 32, 8, 64), (1, 2048, 24, 8, 128)):
-        flash_rows(B, T, NH, NKV, D, rand)
+        flash_rows(record, rows, B, T, NH, NKV, D, rand)
     # The other routes (fa.routes), inputs from their own random stream:
     # GPT-2's shape in f32 (the mma.sync family both ways), Llama-3.2-1B's
     # GQA heads at T 2048 with head sizes 192 and 256 in bf16 (wgmma both
@@ -2492,10 +2612,10 @@ def phase_train_kernels(bw, peak_ops, rng):
     def draw(*shape, dtype):
         return torch.from_numpy(own.standard_normal(shape).astype(np.float32)).to(dev, dtype)
 
-    flash_rows(8, 1024, 12, 12, 64, draw, torch.float32, plain_entry=True)
+    flash_rows(record, rows, 8, 1024, 12, 12, 64, draw, torch.float32, plain_entry=True)
     for D in (192, 256):
-        flash_rows(1, 2048, 16, 8, D, draw, device_only=True)
-    flash_rows(8, 1024, 12, 12, 64, draw, torch.float16, plain_entry=True)
+        flash_rows(record, rows, 1, 2048, 16, 8, D, draw, device_only=True)
+    flash_rows(record, rows, 8, 1024, 12, 12, 64, draw, torch.float16, plain_entry=True)
     # Past D 256 (the mma.sync family: bf16 on its column parts both ways,
     # f32's forward on them and its backward on the 8-warp split kernels)
     # at D 320 in bf16 and f32 and at D 512 in bf16 and f32, from a stream of
@@ -2506,7 +2626,7 @@ def phase_train_kernels(bw, peak_ops, rng):
         return torch.from_numpy(wide.standard_normal(shape).astype(np.float32)).to(dev, dtype)
 
     for D, dtype in ((320, bf16), (320, torch.float32), (512, bf16), (512, torch.float32)):
-        flash_rows(1, 2048, 16, 8, D, draw_wide, dtype, device_only=True)
+        flash_rows(record, rows, 1, 2048, 16, 8, D, draw_wide, dtype, device_only=True)
 
     # K12 on wte (50304 x 768 = 38.6M elements): bf16 param and grad, f32
     # moments and master, uint16 noise in int32, with stochastic rounding;
@@ -2526,11 +2646,6 @@ def phase_train_kernels(bw, peak_ops, rng):
     ln_m, ln_v = rand(c, scale=1e-4, dtype=torch.float32), rand(c, scale=1e-4,
                                                                 dtype=torch.float32).square()
 
-    def lib_step(leaf, grad):
-        lib_p = torch.nn.Parameter(leaf.clone())
-        lib_p.grad = grad.to(leaf.dtype)
-        return torch.optim.AdamW([lib_p], lr=1e-3, weight_decay=0.1, fused=True).step
-
     # wte in fp16 with its f32 master (GPT-2 in fp16 with SR masters): the
     # param rounded to nearest, as JAX's kernel and AdamW give it.
     p16, g16 = w.half(), g.half()
@@ -2542,23 +2657,8 @@ def phase_train_kernels(bw, peak_ops, rng):
              (f"LayerNorm f32 + master n={c}", ln, ln_g, ln_m, ln_v, ln, None, 36, ln, f32_lib),
              (f"wte fp16 + master n={n}", p16, g16, mom, vel, w, None, 30, p16,
               "torch.optim.AdamW(fused=True), fp16 param, no master"))
-    for label, p_, g_, m_, v_, w_, nz, per, lib_leaf, lib_what in cases:
-        kw = dict(step=10, lr=1e-3, weight_decay=0.1, noise=nz, grad_scale=0.5)
-        args = (p_, g_, m_, v_, w_)
-        got = fw.fused_adamw_update(*args, **kw)
-        want = fw.fused_adamw_update_plain(*args, **kw)
-        for name, a, b in zip(("p", "m", "v", "master"), got, want):
-            if b is not None and not torch.equal(a, b):
-                raise AssertionError(f"fused_adamw_update[{label}]: {name} differs from the "
-                                     f"plain version (max {max_err(a, b)[0]})")
-        record("fused_adamw_update", label, 0.0, 1.0,
-               [lambda a_=args, kw_=kw: fw.fused_adamw_update(*a_, **kw_)],
-               lambda a_=args, kw_=kw: fw.fused_adamw_update_plain(*a_, **kw_),
-               None, per * p_.numel(), 14 * p_.numel(), gate="bit-equal to the plain version",
-               library_eager=lib_step(lib_leaf, g_), library_what=lib_what, peak=F32_OPS,
-               dtype=str(p_.dtype).replace("torch.", ""))
-        del got, want
-    del w, p, g, mom, vel, noise, cases, args, p16, g16
+    adamw_rows(record, cases)
+    del w, p, g, mom, vel, noise, cases, p16, g16
 
     # K13 at GPT-2's logits, [8192, 50304] bf16, every 7th row ignored.
     # Gates: each loss within 1e-4 + 1e-5 |ref| of the plain version's (a
@@ -2569,66 +2669,13 @@ def phase_train_kernels(bw, peak_ops, rng):
     x = rand(M, V, scale=2.0)
     t = torch.from_numpy(rng.integers(0, 50257, M)).to(dev)
     t[::7] = -100
-    t32 = t.to(torch.int32)
     gl = torch.full((M,), 1.0 / M, device=dev)
     # The same rows on the logits in fp16 (GPT-2 trained in fp16): the
     # same gates, but a dlogit may also be one step of fp16's subnormal
     # range (2^-24) away, where both sides round f32 values a few ulps
     # apart (extra: 2^-24 / 2^-7 added to each element's scale).
     for x, tag, sub in ((x, "bf16", 0.0), (x.half(), "fp16", 2.0 ** -17)):
-        loss = ce.fused_softmax_cross_entropy(x, t)
-        want = ce.fused_softmax_cross_entropy_plain(x, t32)
-        excess = ((loss - want).abs() - 1e-5 * want.abs()).max().item()
-        if not torch.isfinite(loss).all() or excess > 1e-4:
-            raise AssertionError(f"fused_softmax_cross_entropy[{tag}]: a loss is {excess} beyond "
-                                 "1e-5 |ref| + 1e-4 from the plain version's")
-        record("fused_softmax_cross_entropy", f"M={M} V={V} {tag}", *max_err(loss, want),
-               [lambda: ce.fused_softmax_cross_entropy(x, t)],
-               lambda: ce.fused_softmax_cross_entropy_plain(x, t32),
-               [lambda: F.cross_entropy(x, t, reduction="none")], 2 * M * V + 8 * M,
-               4 * M * V, gate="each loss within 1e-4 + 1e-5 |ref|",
-               library_what="F.cross_entropy forward", peak=F32_OPS, excess_over_rtol=excess,
-               dtype=tag)
-        d = ce.fused_softmax_cross_entropy_bwd(x, t32, gl)
-        want = ce.fused_softmax_cross_entropy_bwd_plain(x, t32, gl)
-        d_rel = max_elem_rel_err(d, want, floor=1e-8, extra=sub)
-        if d_rel > 2 ** -7:
-            raise AssertionError(f"fused_softmax_cross_entropy_bwd[{tag}]: a dlogit is {d_rel} "
-                                 "of its own size from the plain version's (gate 2^-7)")
-        xr = x.detach().requires_grad_()
-
-        def library():
-            return torch.autograd.grad(F.cross_entropy(xr, t, reduction="none"), xr, gl)
-
-        # The library's backward alone, as row 16's: autograd.grad on one saved
-        # F.cross_entropy forward, by the card's own time (the profiler's kernel
-        # times) and as 20 back-to-back calls between CUDA events; ours the same
-        # ways beside its graph replay (ms).
-        s_loss = F.cross_entropy(xr, t, reduction="none")
-
-        def library_bwd():
-            return torch.autograd.grad(s_loss, xr, gl, retain_graph=True)
-
-        def ours_bwd():
-            return ce.fused_softmax_cross_entropy_bwd(x, t32, gl)
-
-        library_bwd_device_ms = device_ms(library_bwd)
-        library_bwd_ms = time_back_to_back(library_bwd)
-        del s_loss
-        record("fused_softmax_cross_entropy_bwd", f"M={M} V={V} {tag}", *max_err(d, want),
-               [ours_bwd], lambda: ce.fused_softmax_cross_entropy_bwd_plain(x, t32, gl), None,
-               4 * M * V + 8 * M, 6 * M * V,
-               gate="each dlogit within 2^-7 of |ref| + 1e-8 max |ref|"
-                    + (" + 2^-24 (one fp16 subnormal step)" if sub else ""),
-               library_timed=library_bwd_device_ms,
-               library_what="F.cross_entropy backward alone (autograd.grad on one saved "
-                            "forward), device time from the profiler", peak=F32_OPS,
-               max_elem_rel_err=d_rel, variant=ce.ce_bwd_variant(V, x.element_size()),
-               library_bwd_device_ms=library_bwd_device_ms,
-               library_bwd_ms=library_bwd_ms, bwd_device_ms=device_ms(ours_bwd),
-               bwd_back_to_back_ms=time_back_to_back(ours_bwd),
-               library_fwd_bwd_ms=time_eager(library), dtype=tag)
-        del d, want, xr
+        ce_rows(record, x, t, gl, tag, sub)
     del x
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2641,13 +2688,15 @@ def masters_agree(ref, got, m_ref, lr: float) -> float:
     gradient's sign differs, which happens where the gradient is rounding
     noise (|m| under 3e-2 of its leaf's max: the K third of the qkv bias has
     an exact gradient of 0). Elsewhere at most 2 % of a leaf may differ by
-    more than 1e-3 lr. Returns the worst such fraction."""
+    more than 1e-3 lr. Returns the worst such fraction. Compared on the
+    card (``got``'s device): the CPU's f32 passes over a 262.7M-element
+    leaf take seconds."""
     from mila_tpu_torch.utils.tree import tree_leaves
 
     worst = 0.0
     for a, b, mm in zip(tree_leaves(got), tree_leaves(ref), tree_leaves(m_ref)):
-        d = (a.float().cpu() - b.float()).abs()
-        mm = mm.abs()
+        d = (a.float() - b.to(a.device).float()).abs()
+        mm = mm.to(a.device).abs()
         if d.max().item() > 2 * lr * 1.01:
             raise AssertionError(f"parity train: a master moved {d.max().item()} > 2 lr apart")
         signal = mm > 3e-2 * mm.max()
@@ -2660,15 +2709,17 @@ def masters_agree(ref, got, m_ref, lr: float) -> float:
 
 def tree_cosines(ref, got) -> tuple[float, float]:
     """(min cosine, max of max|d| / max|ref|) over the leaves of two trees;
-    a leaf passes with cosine >= 0.999 or max|d| <= ERR_TOL x max|ref|."""
+    a leaf passes with cosine >= 0.999 or max|d| <= ERR_TOL x max|ref|.
+    Computed on ``got``'s device (the card), in f64."""
     from mila_tpu_torch.utils.tree import tree_leaves
 
     cos_min, rel_max = 1.0, 0.0
     for a, b in zip(tree_leaves(got), tree_leaves(ref)):
         # In f64 and scaled to max |ref| = 1: v (0.001 g^2) reaches 1e-13,
         # under cosine_similarity's eps on the product of the norms.
+        b = b.to(a.device)
         top = b.abs().max().double().clamp_min(1e-300)
-        a, b = a.double().cpu().reshape(-1) / top, b.double().reshape(-1) / top
+        a, b = a.double().reshape(-1) / top, b.double().reshape(-1) / top
         if not torch.isfinite(a).all():
             raise AssertionError("parity train: a tensor is not finite")
         cos = (a @ b / (a.norm() * b.norm()).clamp_min(1e-300)).item()
@@ -2679,24 +2730,22 @@ def tree_cosines(ref, got) -> tuple[float, float]:
     return cos_min, rel_max
 
 
-def phase_parity_train(rng, dtype: str = "bfloat16", T: int = 1024):
-    """A 1-layer GPT-2 at full width (C 768, NH 12, vocab 50304), B 2, T
-    1024 unless named, ``dtype`` params (bf16 unless named) with SR
-    masters, flash: the loss
-    and every gradient leaf, then one Model train step (clip, AdamW), on the
-    card and on the port's CPU path from the same params, batch and noise
-    (one CPU generator's draws)."""
-    from mila_tpu_torch.models.gpt2 import GPT2
+def parity_train_step(module_for, vocab: int, B: int, T: int, rng, lr: float = 1e-3) -> dict:
+    """The loss and every gradient leaf, then the Model's AdamW step on them
+    (clip, SR masters: what its train step does with those gradients), on
+    the card and on the port's CPU path from the same params (built on the
+    CPU), batch and noise (one CPU generator's draws). ``module_for(device)``
+    builds the module. Gates: the loss within
+    1e-2; each gradient, m and v leaf with cosine >= 0.999 or within
+    ERR_TOL of its max; the masters within 2 lr (``masters_agree``)."""
     from mila_tpu_torch.models.model import Model, ModelConfig
     from mila_tpu_torch.utils.tree import tree_leaves, tree_map
 
-    cfg = gpt2_config(layers=1, dtype=dtype)
-    B, lr = 2, 1e-3
-    toks = rng.integers(0, cfg.vocab_size, (B, T + 1))
+    toks = rng.integers(0, vocab, (B, T + 1))
     out = {}
     params = None
     for dev in ("cpu", "cuda"):
-        model = Model(GPT2(cfg), train_optimizer(), ModelConfig(epochs=1, verbose=False),
+        model = Model(module_for(dev), train_optimizer(), ModelConfig(epochs=1, verbose=False),
                       device=dev)
         if params is None:
             model.build(0, (B, T))
@@ -2708,18 +2757,17 @@ def phase_parity_train(rng, dtype: str = "bfloat16", T: int = 1024):
         x, y = (torch.from_numpy(a).to(dev) for a in (toks[:, :-1], toks[:, 1:]))
         t0 = time.monotonic()
         loss, grads = model._value_and_grad(model.params, x, y)
-        model.sr_rng = torch.Generator().manual_seed(5)
-        p2, state, loss2 = model._train_step(model.params, model.opt_state, x, y)
-        out[dev] = (float(loss), grads, state, p2, time.monotonic() - t0)
-    (l_c, g_c, s_c, p_c, t_c), (l_g, g_g, s_g, p_g, t_g) = out["cpu"], out["cuda"]
+        _, state = model.optimizer.step(model.opt_state, model.params, grads,
+                                        rng=torch.Generator().manual_seed(5))
+        out[dev] = (float(loss), grads, state, time.monotonic() - t0)
+    (l_c, g_c, s_c, t_c), (l_g, g_g, s_g, t_g) = out["cpu"], out["cuda"]
     if not abs(l_g - l_c) <= 1e-2 * abs(l_c):
         raise AssertionError(f"parity train: loss {l_g} on the card vs {l_c} on the CPU")
     g_cos, g_rel = tree_cosines(g_c, g_g)
     m_cos, m_rel = tree_cosines(s_c.m, s_g.m)
     v_cos, v_rel = tree_cosines(s_c.v, s_g.v)
     worst = masters_agree(s_c.master, s_g.master, s_c.m, lr)
-    return {"model": f"gpt2-124m widths, 1 layer, {dtype} + SR masters, flash, random weights",
-            "shape": f"B={B} T={T}", "loss_card": l_g, "loss_cpu": l_c,
+    return {"shape": f"B={B} T={T}", "loss_card": l_g, "loss_cpu": l_c,
             "grads": {"min_cosine": g_cos, "max_rel_err": g_rel, "leaves": len(tree_leaves(g_g))},
             "m": {"min_cosine": m_cos, "max_rel_err": m_rel},
             "v": {"min_cosine": v_cos, "max_rel_err": v_rel},
@@ -2727,6 +2775,17 @@ def phase_parity_train(rng, dtype: str = "bfloat16", T: int = 1024):
             "gate": "loss within 1e-2; each leaf cosine >= 0.999 or max|d| <= 2e-2 max|ref|; "
                     "masters within 2 lr, <= 2 % of a leaf's signal elements > 1e-3 lr apart",
             "seconds": {"cpu": t_c, "card": t_g}}
+
+
+def phase_parity_train(rng, dtype: str = "bfloat16", T: int = 1024):
+    """A 1-layer GPT-2 at full width (C 768, NH 12, vocab 50304), B 2, T
+    1024 unless named, ``dtype`` params (bf16 unless named) with SR
+    masters, flash: ``parity_train_step``."""
+    from mila_tpu_torch.models.gpt2 import GPT2
+
+    cfg = gpt2_config(layers=1, dtype=dtype)
+    return {"model": f"gpt2-124m widths, 1 layer, {dtype} + SR masters, flash, random weights",
+            **parity_train_step(lambda dev: GPT2(cfg), cfg.vocab_size, 2, T, rng)}
 
 
 def adamw_device_ms(model, grads) -> float:
@@ -2759,31 +2818,46 @@ def adamw_device_ms(model, grads) -> float:
 
 def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16", full: bool = True):
     """GPT-2 124M at full size (``dtype`` params, bf16 unless named; f32 SR
-    masters, clip 1.0, flash), B 8, T 1024: Model.train over ``steps``
-    batches of synthetic windows with structure (each one of 4 fixed random
-    sequences, so the loss must fall), then Model.evaluate on one batch.
-    Launch counts per train step: flash_attention_forward L,
-    flash_attention_bwd L, the CE forward and backward once each,
-    fused_adamw_update once per parameter leaf (148); per eval step
-    flash_attention L and the CE forward once; no plain version anywhere.
-    The loss must fall by 1 nat. ``full``: split three more steps into
-    their segments and time AdamW alone (the bf16 run)."""
-    from mila_tpu_torch.data.loader import ArrayReader
+    masters, clip 1.0, flash), B 8, T 1024, through ``train_run``: 148
+    parameter leaves. ``full``: split three more steps into their segments
+    and time AdamW alone (the bf16 run)."""
     from mila_tpu_torch.models.gpt2 import GPT2
     from mila_tpu_torch.models.model import Model, ModelConfig
-    from mila_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
     cfg = gpt2_config(dtype=dtype)
     B, T, L = 8, 1024, cfg.num_layers
     t0 = time.monotonic()
     model = Model(GPT2(cfg), train_optimizer(), ModelConfig(epochs=1, verbose=False))
     model.build(0, (B, T))
+    tag = "" if dtype == "bfloat16" else f" {dtype}"
+    return train_run(model, tag, t0, (B, T), (L, cfg.num_heads,
+                                               cfg.embedding_dim // cfg.num_heads),
+                     cfg.vocab_size, 2 + 12 * L + 2, rng, peak_ops, steps, full,
+                     f"gpt2-124m, {dtype} params + f32 SR masters, flash, random weights")
+
+
+def train_run(model, tag: str, t0: float, shape, heads, vocab: int, n_expected: int, rng,
+              peak_ops, steps: int, full: bool, what: str):
+    """Model.train of a built causal LM (built since ``t0``) over ``steps``
+    batches of synthetic windows with structure (each one of 4 fixed random
+    sequences, so the loss must fall), then Model.evaluate on one batch;
+    ``shape`` (B, T), ``heads`` (L, NH, D), ``n_expected`` the parameter
+    leaf count it must have. Paths "train" + tag and "evaluate" + tag: launch
+    counts per train step flash_attention_forward L, flash_attention_bwd L,
+    the CE forward and backward once each, fused_adamw_update once per leaf;
+    per eval step flash_attention L and the CE forward once; no plain
+    version anywhere. The loss must fall by 1 nat. ``full``: split three
+    more steps into their segments and time AdamW alone."""
+    from mila_tpu_torch.data.loader import ArrayReader
+    from mila_tpu_torch.utils.tree import tree_leaves, tree_unflatten
+
+    (B, T), (L, NH, D) = shape, heads
     torch.cuda.synchronize()
     build_s = time.monotonic() - t0
     n_leaves, n_params = len(tree_leaves(model.params)), model.parameter_count()
-    if n_leaves != 2 + 12 * L + 2:
-        raise AssertionError(f"GPT-2 has {n_leaves} parameter leaves")
-    base = rng.integers(0, cfg.vocab_size, (4, T + 1)).astype(np.int32)
+    if n_leaves != n_expected:
+        raise AssertionError(f"train{tag}: {n_leaves} parameter leaves, not {n_expected}")
+    base = rng.integers(0, vocab, (4, T + 1)).astype(np.int32)
     data = base[rng.integers(0, 4, B * steps)]
     reader = ArrayReader(data[:, :-1], data[:, 1:], B, seed=0)
 
@@ -2803,7 +2877,6 @@ def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16", full: b
                 "fused_softmax_cross_entropy": 1, "fused_softmax_cross_entropy_bwd": 1,
                 "fused_adamw_update": n_leaves}
     torch.cuda.reset_peak_memory_stats()
-    tag = "" if dtype == "bfloat16" else f" {dtype}"
     _, t_counts = run_counted("train" + tag, lambda: model.train(reader),
                               {k: v * steps for k, v in per_step.items()})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2819,9 +2892,8 @@ def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16", full: b
             or not val < losses[0] - 1.0):
         raise AssertionError(f"train{tag}: losses {losses}, eval {val}: not finite and falling")
     step_s = statistics.median(times[2:])
-    D, NH = cfg.embedding_dim // cfg.num_heads, cfg.num_heads
     flops = 6 * n_params * B * T + 7 * T * T * D * B * NH * L
-    out = {"model": f"gpt2-124m, {dtype} params + f32 SR masters, flash, random weights",
+    out = {"model": what,
            "shape": f"B={B} T={T}", "steps": steps, "params": n_params, "leaves": n_leaves,
            "build_s": build_s, "ms_per_step": step_s * 1e3,
            "step_ms_all": [t * 1e3 for t in times], "tokens_per_s": B * T / step_s,
@@ -2838,7 +2910,8 @@ def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16", full: b
     # the same marks (no sync but AdamW's own, the clip's factor). Where a
     # segment's device time is about its host time, the device waited on
     # the host's launches. Then AdamW's device work alone: the clip's norm
-    # and the 148 kernel updates (noise drawn beforehand) as a graph replay.
+    # and one kernel update per leaf (noise drawn beforehand) as a graph
+    # replay.
     x, y = (torch.from_numpy(a).cuda() for a in (data[:B, :-1], data[:B, 1:]))
     names = ("forward_loss", "backward", "adamw")
     split, host = {k: [] for k in names}, {k: [] for k in names}
@@ -2874,6 +2947,168 @@ def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16", full: b
 
 
 # ---------------------------------------------------------------------------
+# Llama-3.2-1B trained through Model
+# ---------------------------------------------------------------------------
+
+def llama_train_config(layers=None):
+    """Llama-3.2-1B at full width (H 2048, FFN 8192, NH 32 / NKV 8, D 64,
+    vocab 128256, tied, llama3 RoPE scaling), bf16 params; ``layers`` cuts
+    depth. Attention resolves as configured ("auto": flash on the card
+    from FLASH_MIN_SEQ keys)."""
+    from mila_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.llama32_1b()
+    return cfg if layers is None else cfg.replace(num_layers=layers)
+
+
+def phase_train_llama_kernels(bw, peak_ops):
+    """Rows 15-18 at Llama-3.2-1B's training shapes, each against its plain
+    version on the card, inputs drawn on the card from a generator of their
+    own (a 525M-element logits tensor is slow to draw on the host): K10's
+    statistics launch and K11 at B 2, T 2048, NH 32 / NKV 8, D 64 (the
+    flash gates of kernels train); K12 on the tied wte (128256 x 2048 =
+    262.7M elements, bf16 with its f32 master and SR noise; bit-equal);
+    K13 at the step's logits [4096, 128256] in bf16, every 7th row ignored
+    (256 KB rows: the streamed backward), with kernels train's gates."""
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    rows = []
+    record = recorder(rows, bw, peak_ops)
+    gen = torch.Generator(device=dev).manual_seed(19)
+
+    def draw(*shape, dtype=bf16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    flash_rows(record, rows, 2, 2048, 32, 8, 64, draw)
+    n = 128256 * 2048
+    w = draw(n, dtype=torch.float32, scale=0.02)
+    p, g = w.to(bf16), draw(n, scale=1e-3)
+    mom, vel = draw(n, dtype=torch.float32, scale=1e-4), draw(n, dtype=torch.float32,
+                                                              scale=1e-4).square()
+    noise = torch.randint(0, 1 << 16, (n,), generator=gen, device=dev, dtype=torch.int32)
+    adamw_rows(record, ((f"llama wte SR n={n}", p, g, mom, vel, w, noise, 34, w,
+                         "torch.optim.AdamW(fused=True), f32, no SR"),))
+    del w, p, g, mom, vel, noise
+    torch.cuda.empty_cache()
+    M, V = 2 * 2048, 128256
+    x = draw(M, V, scale=2.0)
+    t = torch.randint(0, V, (M,), generator=gen, device=dev)
+    t[::7] = -100
+    ce_rows(record, x, t, torch.full((M,), 1.0 / M, device=dev), "bf16", 0.0)
+    del x
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_parity_train_llama(rng):
+    """One layer at Llama-3.2-1B's widths (vocab 128256, tied), bf16 + SR
+    masters, flash forced, B 1, T 512: ``parity_train_step``."""
+    from mila_tpu_torch.models.llama import Llama
+
+    cfg = llama_train_config(layers=1).replace(attention_impl="flash")
+    return {"model": "llama-3.2-1b widths, 1 layer, bfloat16 + SR masters, flash, random "
+                     "weights", **parity_train_step(lambda dev: Llama(cfg, device=dev),
+                                                    cfg.vocab_size, 1, 512, rng)}
+
+
+def phase_train_llama(peak_ops, rng, steps: int = 12):
+    """Llama-3.2-1B at full width and depth, nothing cut (bf16 params, f32
+    SR masters, AdamW with clip 1.0; flash from T 2048), B 2, T 2048,
+    through ``train_run``: 146 parameter leaves (the tied wte, 9 a layer,
+    norm_f), so per step flash_attention_forward 16, flash_attention_bwd
+    16, the CE forward and backward once each, fused_adamw_update 146. Its
+    random weights are drawn on the card (a generator there)."""
+    from mila_tpu_torch.models.llama import Llama
+    from mila_tpu_torch.models.model import Model, ModelConfig
+
+    cfg = llama_train_config()
+    t0 = time.monotonic()
+    model = Model(Llama(cfg), train_optimizer(), ModelConfig(epochs=1, verbose=False))
+    model.build(torch.Generator(device="cuda").manual_seed(0), (2, 2048))
+    return train_run(model, " llama", t0, (2, 2048), (cfg.num_layers, cfg.num_heads, cfg.hd),
+                     cfg.vocab_size, 2 + 9 * cfg.num_layers, rng, peak_ops, steps, True,
+                     "llama-3.2-1b, bfloat16 params + f32 SR masters, flash, random weights")
+
+
+# ---------------------------------------------------------------------------
+# The CNN classifier trained through Model
+# ---------------------------------------------------------------------------
+
+# Launches per CNN train step: the CE forward and backward once each, AdamW
+# once per leaf (two Conv2D and two Linear layers: weight and bias each).
+CNN_STEP = {"fused_softmax_cross_entropy": 1, "fused_softmax_cross_entropy_bwd": 1,
+            "fused_adamw_update": 8}
+
+
+def cnn_model(epochs: int):
+    """The default CNNClassifier (conv 32, 64; hidden 128; f32) under Model
+    on the card, AdamW lr 1e-3, prefetch depth 2."""
+    from mila_tpu_torch.models import CNNClassifier, CNNClassifierConfig, Model, ModelConfig
+    from mila_tpu_torch.optim import AdamW, AdamWConfig
+
+    return Model(CNNClassifier(CNNClassifierConfig(name="cnn")),
+                 AdamW(AdamWConfig(learning_rate=1e-3)),
+                 ModelConfig(name="cnn", epochs=epochs, verbose=False))
+
+
+def phase_train_cnn(bw, peak_ops, rng):
+    """The CNN through Model on the synthetic surrogate (its convolutions
+    and pools on cuDNN and PyTorch's own, in true f32): K12 at the CNN's
+    distinct leaf sizes (288, 18432 and 401408 elements; its CE rows are
+    train mnist's shapes) against its plain version; the gate run at train
+    mnist's shape (B 128, 4096 samples, 4 epochs: the loss halves, the JAX
+    CNN test's gate; the test split's accuracy printed) and the rate run
+    at its rate run's (B 2048, synthetic_mnist(65536, seed 0), 4 epochs:
+    the loss falls; samples/s the median epoch after the first). Launches
+    per step: CNN_STEP."""
+    from mila_tpu_torch.data import ArrayReader, MnistReader, synthetic_mnist
+    from mila_tpu_torch.models import accuracy
+    from mila_tpu_torch.utils.tree import tree_leaves
+
+    rows = mnist_kernel_rows(bw, peak_ops, rng, batches=(), leaf_sizes=(288, 18432, 401408))
+    train, model = mnist_reader(), cnn_model(4)
+    model.build(0, (128, 784))
+    n_leaves = len(tree_leaves(model.params))
+    if n_leaves != CNN_STEP["fused_adamw_update"]:
+        raise AssertionError(f"train cnn: {n_leaves} parameter leaves")
+    steps = 4 * train.num_batches
+    t0 = time.monotonic()
+    _, counts = run_counted("train cnn", lambda: model.train(train),
+                            {k: v * steps for k, v in CNN_STEP.items()})
+    gate_s = time.monotonic() - t0
+    losses = model.history.train_losses
+    test = MnistReader(batch_size=128, split="test", synthetic_n=1024, shuffle=False,
+                       drop_last=False)
+    logits = torch.cat([model.predict(x) for x, _ in test])
+    acc = accuracy(logits, np.concatenate([y for _, y in test]))
+    if not (all(np.isfinite(losses)) and losses[-1] < 0.5 * losses[0]
+            and logits.shape == (204, 10) and torch.isfinite(logits).all()):
+        raise AssertionError(f"train cnn: losses {losses} on {tuple(logits.shape)} logits")
+
+    x, y = synthetic_mnist(n=65536, seed=0)
+    reader, rate = ArrayReader(x, y, 2048, seed=0), cnn_model(4)
+    rate.build(0, (2048, 784))
+    r_steps = 4 * reader.num_batches
+    _, r_counts = run_counted("train cnn rate", lambda: rate.train(reader),
+                              {k: v * r_steps for k, v in CNN_STEP.items()})
+    r_losses, sps = rate.history.train_losses, rate.history.samples_per_sec
+    if not (all(np.isfinite(r_losses)) and r_losses[-1] < r_losses[0]):
+        raise AssertionError(f"train cnn rate: losses {r_losses} do not fall")
+    med = statistics.median(sps[1:])
+    return counts, r_counts, rows, {
+        "model": "CNNClassifier conv 32, 64, hidden 128, f32, AdamW lr 1e-3, prefetch_depth 2, "
+                 "synthetic MNIST",
+        "params": model.parameter_count(), "leaves": n_leaves,
+        "gate": {"shape": "B=128, 4096 samples, 4 epochs", "losses": losses, "accuracy": acc,
+                 "test_samples": int(logits.shape[0]), "seconds": gate_s,
+                 "gate": "loss halves"},
+        "rate": {"shape": "B=2048, synthetic_mnist(65536, seed 0), 4 epochs", "losses": r_losses,
+                 "samples_per_s_all": sps, "samples_per_s": med, "ms_per_step": 2048 / med * 1e3,
+                 "steps_per_epoch": reader.num_batches},
+        "launches_per_step": CNN_STEP, "launches": counts, "launches_rate": r_counts}
+
+
+# ---------------------------------------------------------------------------
 # MNIST MLP: train, resume, export; GPT-2 resume; the data layer
 # ---------------------------------------------------------------------------
 
@@ -2903,7 +3138,8 @@ def mnist_reader():
     return MnistReader(batch_size=128, split="train", synthetic_n=4096, seed=0)
 
 
-def mnist_kernel_rows(bw, peak_ops, rng) -> list:
+def mnist_kernel_rows(bw, peak_ops, rng, batches=(2048, 128),
+                      leaf_sizes=(10, 64, 640, 784 * 128)) -> list:
     """Rows 17 and 18 at the MNIST train step's shapes, each against its
     plain version on the card: K13 forward and backward on f32 logits
     [2048, 10] (bench.py's batch) and [128, 10] (the e2e test's), 40-byte
@@ -2914,7 +3150,8 @@ def mnist_kernel_rows(bw, peak_ops, rng) -> list:
     in one graph replay, per launch; device_ms: the profiler's kernel time
     a call. Library: the profiler's device time of F.cross_entropy's
     backward and of torch.optim.AdamW(fused=True)'s step; F.cross_entropy's
-    forward as 50 in a graph replay, and by the profiler."""
+    forward as 50 in a graph replay, and by the profiler. ``batches`` and
+    ``leaf_sizes`` name other shapes (the CNN's leaves)."""
     import torch.nn.functional as F
 
     from mila_tpu_torch.kernels import fused_adamw as fw
@@ -2929,7 +3166,7 @@ def mnist_kernel_rows(bw, peak_ops, rng) -> list:
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to(dev)
 
     V = 10
-    for M in (2048, 128):
+    for M in batches:
         x = rand(M, V, scale=3.0)
         t = torch.from_numpy(rng.integers(0, V, M)).to(dev)
         t32 = t.to(torch.int32)
@@ -2970,7 +3207,7 @@ def mnist_kernel_rows(bw, peak_ops, rng) -> list:
                device_ms=device_ms(lambda: ce.fused_softmax_cross_entropy_bwd(x, t32, gl)),
                dtype="float32")
 
-    for n in (10, 64, 640, 784 * 128):
+    for n in leaf_sizes:
         p, g = rand(n, scale=0.05), rand(n, scale=0.1)
         m, v = rand(n, scale=0.01), rand(n, scale=0.01).square()
         kw = dict(step=10, lr=1e-3, weight_decay=0.01)
@@ -3458,12 +3695,34 @@ def main() -> int:
                                                   dtype="float32", full=False)
     emit({"phase": "train f32", "card": card, **train32})
     torch.cuda.empty_cache()
+    # Llama-3.2-1B trained through Model: its kernel rows, one layer card
+    # against CPU, then the whole model at B 2, T 2048.
+    t_ph = time.monotonic()
+    llama_rows = phase_train_llama_kernels(bw, peak_ops)
+    emit({"phase": "kernels train llama", "card": card, "rows": llama_rows,
+          "phase_s": time.monotonic() - t_ph})
+    rows += llama_rows
+    t_ph = time.monotonic()
+    parity_llama = phase_parity_train_llama(np.random.default_rng(44))
+    emit({"phase": "parity train llama", "card": card, **parity_llama,
+          "phase_s": time.monotonic() - t_ph})
+    t_ph = time.monotonic()
+    tl_counts, el_counts, train_llama = phase_train_llama(peak_ops, np.random.default_rng(45))
+    emit({"phase": "train llama", "card": card, **train_llama,
+          "phase_s": time.monotonic() - t_ph})
+    torch.cuda.empty_cache()
     t_ph = time.monotonic()
     tm_counts, tmr_counts, mnist, mnist_rows, train_mnist = phase_train_mnist(
         bw, peak_ops, np.random.default_rng(40))
     emit({"phase": "train mnist", "card": card, "rows": mnist_rows, **train_mnist,
           "phase_s": time.monotonic() - t_ph})
     rows += mnist_rows
+    t_ph = time.monotonic()
+    tc_counts, tcr_counts, cnn_rows, train_cnn = phase_train_cnn(bw, peak_ops,
+                                                                np.random.default_rng(43))
+    emit({"phase": "train cnn", "card": card, "rows": cnn_rows, **train_cnn,
+          "phase_s": time.monotonic() - t_ph})
+    rows += cnn_rows
     with tempfile.TemporaryDirectory() as tmp:
         t_ph = time.monotonic()
         rm_counts, resume_mnist = phase_resume_mnist(mnist, tmp)
@@ -3496,7 +3755,8 @@ def main() -> int:
                **ps_counts, "serve gpt2": sg_counts, "parity gpt2": pg_counts,
                "generate gpt2": gg_counts, "train mnist": tm_counts,
                "train mnist rate": tmr_counts, "resume mnist": rm_counts,
-               "resume gpt2": rg_counts}
+               "resume gpt2": rg_counts, "train llama": tl_counts, "evaluate llama": el_counts,
+               "train cnn": tc_counts, "train cnn rate": tcr_counts}
     summary = []
     for entry, (source, replaces) in SOURCES.items():
         mine = [r for r in rows if r["entry"] == entry]
@@ -3539,6 +3799,8 @@ def main() -> int:
                        "serve_gpt2": serve_gpt2, "parity_gpt2": parity_gpt2,
                        "generate_gpt2": generate_gpt2, "train_mnist": train_mnist,
                        "resume_mnist": resume_mnist, "resume_gpt2": resume_gpt2, "data": data,
+                       "parity_train_llama": parity_llama, "train_llama": train_llama,
+                       "train_cnn": train_cnn,
                        "summary": summary,
                        "total_s": time.monotonic() - T_START}, f, indent=1)
     emit({"kernels": summary})

@@ -1,5 +1,8 @@
 """Llama-3.x: RMSNorm + RoPE + GQA + SwiGLU with the paged and the
 contiguous KV-cache protocols (port of ``mila_tpu/models/llama.py``).
+``LlamaBlock`` and ``Llama`` are ``CompositeModule``s with JAX's children,
+so ``Model`` builds (``init``) and trains (``apply(..., training=True)``)
+a Llama as it does GPT-2.
 
 Parameters are a plain dict of tensors with the JAX package's tree layout
 (``embed/wte``, ``h{i}/{ln_attn,wq,...}/...``, ``norm_f/gamma``, optional
@@ -70,8 +73,12 @@ from mila_tpu_torch.kernels.layer_mega import (
 )
 from mila_tpu_torch.kernels.layer_stream import layer_tail_stream, pack_layer_stream
 from mila_tpu_torch.kernels.quant_matmul import quant_linear
+from mila_tpu_torch.nn import Encoder, EncoderConfig, Linear, LinearConfig, RMSNorm
+from mila_tpu_torch.nn.layers import LayerNormConfig
+from mila_tpu_torch.nn.module import CompositeModule, Params
 from mila_tpu_torch.ops.attention import attention
 from mila_tpu_torch.utils.config import BaseConfig, ConfigError
+from mila_tpu_torch.utils.rng import split_named
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -130,20 +137,49 @@ def _is_q(w) -> bool:
     return isinstance(w, QTensor)
 
 
-def linear_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """``mila_tpu.nn.Linear.apply``: quantized weights take ``quant_linear``."""
-    w = p["weight"]
-    if _is_q(w):
-        return quant_linear(x, w, p.get("bias"))
-    return ops.linear(x, w, p.get("bias"))
-
-
-class LlamaBlock:
+class LlamaBlock(CompositeModule):
     """Decoder layer: x += wo(attn(rope(q, k), v)) after ln_attn;
-    x += down(swiglu(gate, up)) after ln_mlp."""
+    x += down(swiglu(gate, up)) after ln_mlp. Children and parameter names
+    are JAX's: ln_attn, wq, wk, wv, wo, ln_mlp, gate, up, down (Linear
+    weights [in, out], no bias, normal(0, 0.02); RMSNorm gammas ones)."""
 
-    def __init__(self, config: LlamaConfig):
+    def __init__(self, config: LlamaConfig, name: str):
+        super().__init__(BaseConfig(name=name))
         self.cfg = config
+        H, HD = config.hidden_size, config.hd
+        NH, NKV, FF = config.num_heads, config.num_kv_heads, config.intermediate_size
+        dt = config.param_dtype
+
+        def lin(n, i, o):
+            return Linear(LinearConfig(name=n, in_features=i, out_features=o, has_bias=False,
+                                       initializer="normal", param_dtype=dt))
+
+        def norm(n):
+            return RMSNorm(LayerNormConfig(name=n, features=H, eps=config.rms_eps,
+                                           param_dtype=dt))
+
+        for n, m in (("ln_attn", norm("ln_attn")), ("wq", lin("wq", H, NH * HD)),
+                     ("wk", lin("wk", H, NKV * HD)), ("wv", lin("wv", H, NKV * HD)),
+                     ("wo", lin("wo", NH * HD, H)), ("ln_mlp", norm("ln_mlp")),
+                     ("gate", lin("gate", H, FF)), ("up", lin("up", H, FF)),
+                     ("down", lin("down", FF, H))):
+            self.add(n, m)
+
+    def init(self, gen, input_shape, device=None) -> Params:
+        device = resolve_device(device)
+        gens = split_named(gen, *[n for n, _ in self.children()])
+        cfg, out = self.cfg, {}
+        for name, child in self.children():
+            shape = tuple(input_shape)
+            if name == "down":
+                shape = (*shape[:-1], cfg.intermediate_size)
+            elif name == "wo":
+                shape = (*shape[:-1], cfg.num_heads * cfg.hd)
+            out[name] = child.init(gens[name], shape, device=device)
+        return out
+
+    def output_shape(self, input_shape):
+        return tuple(input_shape)
 
     def _fused_decode(self, params: dict, x: torch.Tensor) -> bool:
         B, T = x.shape[:2]
@@ -161,12 +197,12 @@ class LlamaBlock:
             q, k, v = qkv.split([NQ, NKVD, NKVD], dim=-1)
         elif "wqkv" in params:
             h = ops.rms_norm(x, params["ln_attn"]["gamma"], cfg.rms_eps)
-            q, k, v = linear_apply(params["wqkv"], h).split([NQ, NKVD, NKVD], dim=-1)
+            q, k, v = self.get("wq").apply(params["wqkv"], h).split([NQ, NKVD, NKVD], dim=-1)
         else:
             h = ops.rms_norm(x, params["ln_attn"]["gamma"], cfg.rms_eps)
-            q = linear_apply(params["wq"], h)
-            k = linear_apply(params["wk"], h)
-            v = linear_apply(params["wv"], h)
+            q = self.get("wq").apply(params["wq"], h)
+            k = self.get("wk").apply(params["wk"], h)
+            v = self.get("wv").apply(params["wv"], h)
         return (q.reshape(B, T, cfg.num_heads, cfg.hd),
                 k.reshape(B, T, cfg.num_kv_heads, cfg.hd),
                 v.reshape(B, T, cfg.num_kv_heads, cfg.hd))
@@ -184,18 +220,19 @@ class LlamaBlock:
                 h = rms_quant_linear_swiglu(x, params["ln_mlp"]["gamma"],
                                             params["wgu"]["weight"], eps=cfg.rms_eps)
                 return quant_linear_residual(h, down_q, x)
-        h = linear_apply(params["wo"], att.reshape(B, T, -1))
+        h = self.get("wo").apply(params["wo"], att.reshape(B, T, -1))
         x = ops.residual(h, x)
         h = ops.rms_norm(x, params["ln_mlp"]["gamma"], cfg.rms_eps)
         if "wgu" in params:
-            g, u = linear_apply(params["wgu"], h).chunk(2, dim=-1)
+            g, u = self.get("gate").apply(params["wgu"], h).chunk(2, dim=-1)
         else:
-            g = linear_apply(params["gate"], h)
-            u = linear_apply(params["up"], h)
-        h = linear_apply(params["down"], ops.swiglu(g, u))
+            g = self.get("gate").apply(params["gate"], h)
+            u = self.get("up").apply(params["up"], h)
+        h = self.get("down").apply(params["down"], ops.swiglu(g, u))
         return ops.residual(h, x)
 
-    def apply(self, params: dict, x: torch.Tensor, cos, sin) -> torch.Tensor:
+    def apply(self, params, x, *, cos=None, sin=None, training=False, rngs=None):
+        """Full causal forward of x [B, T, H] with RoPE tables cos, sin."""
         q, k, v = self._qkv(params, x)
         q = ops.apply_rope(q, cos, sin)
         k = ops.apply_rope(k, cos, sin)
@@ -228,18 +265,50 @@ class LlamaBlock:
         return self._finish_attn(params, x, att), {"k": kc, "v": vc}
 
 
-class Llama:
-    """The model's forward passes over a params dict (see module doc).
+class Llama(CompositeModule):
+    """Llama as a module (children embed, h0..h{L-1}, norm_f, and lm_head
+    when the embeddings are untied; JAX's names) with its forward passes
+    over a params dict (see the module doc). ``init`` and ``apply`` are
+    the training interface ``Model`` calls.
 
-    ``device`` is where caches are allocated; it is the GPU unless the
-    caller passes ``device="cpu"``, and without a GPU it raises.
+    ``device`` is where caches, and by default ``init``'s params, are
+    allocated; it is the GPU unless the caller passes ``device="cpu"``,
+    and without a GPU it raises.
     """
 
     def __init__(self, config: LlamaConfig, device: DeviceLike = None):
-        config.validate()
-        self.config = config
+        super().__init__(config)
         self.device = resolve_device(device)
-        self.blocks = [LlamaBlock(config) for _ in range(config.num_layers)]
+        cfg = config
+        self.add("embed", Encoder(EncoderConfig(
+            name="embed", vocab_size=cfg.vocab_size, embedding_dim=cfg.hidden_size,
+            max_seq_len=0, param_dtype=cfg.param_dtype)))
+        for i in range(cfg.num_layers):
+            self.add(f"h{i}", LlamaBlock(cfg, f"h{i}"))
+        self.add("norm_f", RMSNorm(LayerNormConfig(
+            name="norm_f", features=cfg.hidden_size, eps=cfg.rms_eps,
+            param_dtype=cfg.param_dtype)))
+        if not cfg.tie_embeddings:
+            self.add("lm_head", Linear(LinearConfig(
+                name="lm_head", in_features=cfg.hidden_size, out_features=cfg.vocab_size,
+                has_bias=False, param_dtype=cfg.param_dtype)))
+        self.blocks = [self.get(f"h{i}") for i in range(cfg.num_layers)]
+
+    def init(self, gen, input_shape, device=None) -> Params:
+        """Random params on ``device`` (the model's own unless named), drawn
+        on ``gen``'s device: a generator on the card draws there."""
+        device = self.device if device is None else resolve_device(device)
+        gens = split_named(gen, *[n for n, _ in self.children()])
+        B, T = input_shape
+        out: Params = {"embed": self.get("embed").init(gens["embed"], (B, T), device=device)}
+        shape = (B, T, self.config.hidden_size)
+        for name, child in self.children():
+            if name != "embed":
+                out[name] = child.init(gens[name], shape, device=device)
+        return out
+
+    def output_shape(self, input_shape):
+        return (*tuple(input_shape), self.config.vocab_size)
 
     def _rope(self, positions: torch.Tensor):
         cfg = self.config
@@ -250,7 +319,7 @@ class Llama:
             return quant_linear(x, params["lm_head_q"])[..., : self.config.vocab_size]
         if self.config.tie_embeddings:
             return ops.linear(x, params["embed"]["wte"].T, None)
-        return linear_apply(params["lm_head"], x)
+        return self.get("lm_head").apply(params["lm_head"], x)
 
     def _norm_logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         """norm_f + head; the RMSNorm folds into the quantized head stream at
@@ -263,13 +332,16 @@ class Llama:
         x = ops.rms_norm(x, params["norm_f"]["gamma"], self.config.rms_eps)
         return self._logits(params, x)
 
-    def apply(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        """Full causal forward: tokens [B, T] -> logits [B, T, V]."""
+    def apply(self, params, tokens, *, training=False, rngs=None):
+        """Full causal forward: tokens [B, T] -> logits [B, T, V]. Under
+        autograd every op carries JAX's VJP (``embedding_lookup``'s ordered
+        segment sum, ``rms_norm``, ``linear``, ``swiglu``, ``residual``; the
+        flash kernel's backward where ``attention`` takes it)."""
         B, T = tokens.shape
-        x = params["embed"]["wte"][tokens.long()]
+        x = ops.embedding_lookup(tokens, params["embed"]["wte"])
         cos, sin = self._rope(torch.arange(T, device=tokens.device)[None].expand(B, T))
         for i, blk in enumerate(self.blocks):
-            x = blk.apply(params[f"h{i}"], x, cos, sin)
+            x = blk.apply(params[f"h{i}"], x, cos=cos, sin=sin, training=training, rngs=rngs)
         x = ops.rms_norm(x, params["norm_f"]["gamma"], self.config.rms_eps)
         return self._logits(params, x)
 

@@ -1,7 +1,8 @@
-"""Module system, layers and blocks (port of ``mila_tpu/nn``; the
-convolution layers are not ported yet)."""
+"""Module system, layers, convolution layers and blocks (port of
+``mila_tpu/nn``)."""
 
 from mila_tpu_torch.nn.blocks import MLP, MLPConfig, TransformerBlock, TransformerBlockConfig
+from mila_tpu_torch.nn.conv import Conv2D, Conv2DConfig, Flatten, Pool2D, Pool2DConfig
 from mila_tpu_torch.nn.layers import (
     Attention,
     AttentionConfig,
@@ -29,5 +30,6 @@ __all__ = [
     "AttentionConfig", "Dropout", "DropoutConfig", "Encoder", "EncoderConfig", "Gelu",
     "GeluConfig", "LayerNorm", "LayerNormConfig", "Linear", "LinearConfig", "Residual",
     "RMSNorm", "Softmax", "SoftmaxConfig", "SoftmaxCrossEntropy", "SoftmaxCrossEntropyConfig",
-    "CompositeModule", "Lambda", "Module", "Params", "Sequential",
+    "CompositeModule", "Lambda", "Module", "Params", "Sequential", "Conv2D", "Conv2DConfig",
+    "Flatten", "Pool2D", "Pool2DConfig",
 ]

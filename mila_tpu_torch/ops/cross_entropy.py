@@ -20,3 +20,11 @@ def softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     from mila_tpu_torch.kernels.softmax_ce import fused_softmax_cross_entropy
 
     return fused_softmax_cross_entropy(logits, targets, ignore_index)
+
+
+def cross_entropy_from_probs(probs: torch.Tensor, targets: torch.Tensor,
+                             eps: float = 1e-10) -> torch.Tensor:
+    """Plain CE over probabilities already softmaxed: -log(p[target] +
+    eps) in f32 per example (no kernel: JAX's is a plain gather)."""
+    picked = torch.gather(probs.float(), -1, targets.long()[..., None])[..., 0]
+    return -torch.log(picked + eps)

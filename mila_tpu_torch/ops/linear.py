@@ -83,3 +83,11 @@ class _LinearFn(torch.autograd.Function):
 def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [..., in] @ w [in, out] (+ b [out]) -> [..., out] in x's dtype."""
     return _LinearFn.apply(x, w, b)
+
+
+def linear_gelu(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+                approximation: str = "tanh") -> torch.Tensor:
+    """Linear then GELU (JAX's ``"FusedOp"``): two ops, each with its VJP."""
+    from mila_tpu_torch.ops.gelu import gelu
+
+    return gelu(linear(x, w, b), approximation)

@@ -1,5 +1,7 @@
 """Rotary position embeddings (port of ``mila_tpu/ops/rope.py``):
-split-half (HF Llama) convention with optional Llama-3 frequency scaling."""
+split-half (HF Llama) convention with optional Llama-3 frequency scaling,
+and the interleaved (GPT-NeoX) one. Both differentiate through PyTorch's
+autograd, as JAX's do through its own."""
 
 from __future__ import annotations
 
@@ -48,4 +50,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     c = cos[..., None, :].float()
     s = sin[..., None, :].float()
     out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """GPT-NeoX interleaved convention: the pairs (x[2i], x[2i+1]) rotated,
+    in f32; shapes as :func:`apply_rope`."""
+    x1, x2 = x[..., 0::2].float(), x[..., 1::2].float()
+    c = cos[..., None, :].float()
+    s = sin[..., None, :].float()
+    out = torch.stack([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).reshape(x.shape)
     return out.to(x.dtype)

@@ -1,6 +1,7 @@
 """Parameter initializers (port of the part of ``mila_tpu/tensor/init.py``
-that ``Linear``, ``Encoder`` and ``LayerNorm`` use): zeros, ones, normal and
-Glorot/Xavier uniform with the [in, out] weight layout's fans.
+that ``Linear``, ``Encoder``, ``LayerNorm`` and ``Conv2D`` use): zeros,
+ones, normal, Glorot/Xavier uniform and He normal with the [..., in, out]
+weight layout's fans (an HWIO kernel's fan-in is KH * KW * Cin).
 
 Random draws come from an explicit ``torch.Generator`` in f32 on the
 generator's device, then move to ``device`` in ``dtype``.
@@ -50,6 +51,12 @@ def xavier_uniform(gen: torch.Generator, shape: Shape, dtype=torch.float32,
     fan_in, fan_out = _fans(shape)
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     return uniform(gen, shape, -limit, limit, dtype, device)
+
+
+def he_normal(gen: torch.Generator, shape: Shape, dtype=torch.float32,
+              device=None) -> torch.Tensor:
+    fan_in, _ = _fans(shape)
+    return normal(gen, shape, math.sqrt(2.0 / fan_in), dtype, device)
 
 
 INITIALIZERS = {

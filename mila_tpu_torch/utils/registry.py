@@ -54,5 +54,6 @@ class Registry(Generic[T]):
         return deco
 
 
+operations: Registry[Callable] = Registry("operation")  # ops/__init__.py's names
 components: Registry[type] = Registry("component")  # nn/factory.py's builtins
 models: Registry[type] = Registry("model")  # the models an archive may name
