@@ -78,6 +78,11 @@ def _noise(gen: torch.Generator, p: torch.Tensor) -> torch.Tensor:
     return bits.to(p.device)
 
 
+def _like(params: Params, tree: Any) -> Any:
+    """``tree`` with its dicts in ``params``' key order."""
+    return tree_map(lambda _, x: x, params, tree)
+
+
 class AdamW:
     def __init__(self, config: Optional[AdamWConfig] = None):
         self.config = config or AdamWConfig()
@@ -100,6 +105,9 @@ class AdamW:
         cfg = self.config
         lr = cfg.learning_rate if lr is None else float(lr)
         t = int(state.step) + 1
+        # Leaves pair by key, as JAX's tree_map pairs them (its flatten
+        # sorts dict keys): grads in another key order than params.
+        grads = _like(params, grads)
         leaves = tree_leaves(params)
         grad_scale = 1.0
         if cfg.grad_clip_norm > 0:
@@ -109,10 +117,11 @@ class AdamW:
         if rng is None and cfg.stochastic_rounding and leaves:
             rng = torch.Generator(device=leaves[0].device)
             rng.manual_seed(0)
-        masters = tree_leaves(state.master) if state.master is not None else [None] * len(leaves)
+        masters = (tree_leaves(_like(params, state.master)) if state.master is not None
+                   else [None] * len(leaves))
         out = []
-        for p, w, m, v, g in zip(leaves, masters, tree_leaves(state.m), tree_leaves(state.v),
-                                 tree_leaves(grads)):
+        for p, w, m, v, g in zip(leaves, masters, tree_leaves(_like(params, state.m)),
+                                 tree_leaves(_like(params, state.v)), tree_leaves(grads)):
             kw = dict(step=t, lr=lr, beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps,
                       weight_decay=cfg.weight_decay, grad_scale=grad_scale)
             noise = (_noise(rng, p) if cfg.stochastic_rounding and p.dtype == torch.bfloat16

@@ -313,3 +313,24 @@ def test_zero_grads_and_leaf_order():
     z = zero_grads(p)
     assert [t.dtype for t in tree_leaves(z)] == [torch.float32, torch.bfloat16]
     assert all(float(t.abs().sum()) == 0 for t in tree_leaves(z))
+
+
+def test_adamw_step_pairs_leaves_by_key():
+    # JAX's AdamW pairs params, grads and state leaf by leaf through
+    # tree_map, whose flatten sorts dict keys: a gradient dict built in
+    # another key order than the params (JAX's own trees come back sorted)
+    # pairs by key. Two leaves of one shape, so a pairing by position would
+    # run and be wrong.
+    cfg = dict(learning_rate=1e-2, stochastic_rounding=False)
+    jopt, topt = JAdamW(JConfig(**cfg)), AdamW(AdamWConfig(**cfg))
+    w = {"b": _np(100, 64), "a": _np(101, 64)}
+    g = {"a": _np(102, 64), "b": _np(103, 64)}
+    jp2, _ = jopt.step(jopt.init({k: jnp.asarray(x) for k, x in w.items()}),
+                       {k: jnp.asarray(x) for k, x in w.items()},
+                       {k: jnp.asarray(x) for k, x in g.items()})
+    tp = {k: torch.from_numpy(x) for k, x in w.items()}
+    tp2, ts2 = topt.step(topt.init(tp), tp, {k: torch.from_numpy(x) for k, x in g.items()})
+    assert list(tp2) == ["b", "a"]
+    for k in ("a", "b"):
+        _allclose(tp2[k].numpy(), _f(jp2[k]))
+        assert torch.equal(ts2.m[k], torch.from_numpy(g[k]) * np.float32(0.1))
