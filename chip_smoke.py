@@ -116,10 +116,10 @@ exits non-zero without the final line):
            names its family; row errors within 5e-3 of the row's max in f32,
            2e-2 otherwise;
            beside SDPA's forward, its
-           forward + backward and its backward alone), fused AdamW on wte
-           with and without stochastic rounding and in fp16 (bit-equal),
-           softmax-CE forward and backward at [8192, 50304] in bf16 and
-           fp16; every row carries its dtype;
+           forward + backward and its backward alone), fused AdamW's
+           per-leaf entry on wte with and without stochastic rounding and
+           in fp16 (bit-equal), softmax-CE forward and backward at [8192,
+           50304] in bf16 and fp16; every row carries its dtype;
   parity train  a 1-layer GPT-2 at full width (B 2, T 1024, bf16 + SR
            masters, flash): loss, every gradient leaf and one Model train
            step's m, v and masters, on the card against the CPU path from the
@@ -129,7 +129,14 @@ exits non-zero without the final line):
            (4 fixed sequences, so the loss must fall), then Model.evaluate:
            ms/step, tokens/s, model TFLOP/step and its share of the bf16
            peak (MFU), first and last loss, peak memory, one step split into
-           forward, backward and AdamW;
+           forward, backward and AdamW; AdamW's step as a graph replay
+           (adamw_graph_ms; with the noise passed in, adamw_graph_noise_arg_ms)
+           and its kernel rows at the model's own leaves: fused_adamw_step
+           (one launch per dtype group, JAX's Threefry bits drawn inside)
+           bit-equal to its plain twin, grad_clip_scale (the clip's norm, one
+           launch) within 1e-6 of its plain one, beside
+           torch.optim.AdamW(fused=True) over the same leaves (not the same
+           function: no master, no SR) and torch.nn.utils.get_total_norm;
   parity train fp16, train fp16  the same in fp16 (SR masters): 1 layer
            card against CPU at T 512, then 124M over 2 warm-up and 4 timed
            steps (the launch counts of train, the loss falling by 1 nat);
@@ -148,18 +155,19 @@ exits non-zero without the final line):
            params, f32 SR masters, clip 1.0, flash), B 2, T 2048, 12 steps
            over 4 fixed sequences, then evaluate: the loss falls by 1 nat;
            ms/step, tokens/s, MFU, peak memory, three steps split as
-           train's;
+           train's, and AdamW's graph and kernel rows as train's (146
+           leaves);
   train mnist  the reference's MNIST classifier (784-128-64-10 GELU, f32,
            AdamW lr 1e-3) through Model, prefetch depth 2, on the synthetic
-           surrogate: K13 (V 10, the scalar branches) and K12 (the MLP's
-           f32 leaves, no masters) at the step's shapes against their plain
+           surrogate: K13 (V 10, the scalar branches) and K12's step (the MLP's six f32 leaves, no
+           masters, one launch) at the step's shapes against their plain
            versions, beside F.cross_entropy and torch.optim.AdamW(fused=True);
            the JAX e2e test's run (B 128, 4096 samples, 4 epochs: the loss
            halves, >= 0.975 on the 204-sample test split) and bench.py's
            shape (B 2048, 65536 samples, 4 epochs: samples/s, ms/step);
   train cnn  the CNN classifier (conv 32, 64, hidden 128, f32) through
-           Model on the surrogate: K12 at its leaf sizes against its plain
-           version; train mnist's gate run (the loss halves; test accuracy
+           Model on the surrogate: K12's step over its eight leaves against
+           its plain version; train mnist's gate run (the loss halves; test accuracy
            printed) and rate run (samples/s, ms/step);
   resume mnist  2 epochs, a checkpoint, a fresh Model and resume_training for
            2 more, bit-equal to 4 straight (params, moments, predictions);
@@ -392,11 +400,12 @@ def recorder(rows: list, bw: float, peak_ops: float):
     a closure a graph cannot hold (autograd, an optimizer's step), timed
     eagerly. ``peak``: the operations' rate where it is not the bf16
     tensor-core one. ``library_timed``: the library call's ms, timed by the
-    caller. gate: the description of a gate the caller has checked already;
+    caller; ``plain_timed`` likewise the plain version's (``plain`` None). gate: the description of a gate the caller has checked already;
     otherwise err must be within ERR_TOL x ref. wdtype: the row's weight
     format (default: the entry's, ENTRY_WDTYPE; None where it reads none)."""
     def record(entry, shape, err, ref, calls, plain, library, nbytes, nops, gate=None,
-               library_eager=None, peak=None, library_timed=None, wdtype=None, **extra):
+               library_eager=None, peak=None, library_timed=None, wdtype=None,
+               plain_timed=None, **extra):
         if gate is None and err > ERR_TOL * ref:
             raise AssertionError(f"{entry}[{shape}]: max abs err {err} > {ERR_TOL} x {ref}")
         if sum(x is not None for x in (library, library_eager, library_timed)) > 1:
@@ -410,7 +419,8 @@ def recorder(rows: list, bw: float, peak_ops: float):
         rows.append({"entry": entry, "shape": shape,
                      "wdtype": wdtype or ENTRY_WDTYPE.get(entry), "max_abs_err": err,
                      "tolerance": gate or ERR_TOL * ref, "ms": time_graph(calls),
-                     "plain_ms": time_eager(plain), "library_ms": lib_ms,
+                     "plain_ms": plain_timed if plain is None else time_eager(plain),
+                     "library_ms": lib_ms,
                      "bound_ms": b_ms, "bound_by": b_by, **extra,
                      "at_s": time.monotonic() - T_START})
 
@@ -2516,8 +2526,103 @@ def adamw_rows(record, cases) -> None:
                lambda a_=args, kw_=kw: fw.fused_adamw_update_plain(*a_, **kw_),
                None, per * p_.numel(), 14 * p_.numel(), gate="bit-equal to the plain version",
                library_eager=lib_step(lib_leaf, g_), library_what=lib_what, peak=F32_OPS,
-               dtype=str(p_.dtype).replace("torch.", ""))
+               dtype=str(p_.dtype).replace("torch.", ""),
+               device_ms=device_ms(lambda a_=args, kw_=kw: fw.fused_adamw_update(*a_, **kw_)))
         del got, want
+
+
+def lib_step_many(leaves, grads, wd: float = 0.1):
+    """torch.optim.AdamW(fused=True) over clones of ``leaves`` with
+    ``grads``: its step, for timing beside K12's."""
+    ps = [torch.nn.Parameter(p.detach().clone()) for p in leaves]
+    for p, g in zip(ps, grads):
+        p.grad = torch.empty_like(p).copy_(g)  # the param's dtype and layout
+    return torch.optim.AdamW(ps, lr=1e-3, weight_decay=wd, fused=True).step
+
+
+def adamw_update_bytes(leaves, masters) -> int:
+    """Bytes of one AdamW update over the leaves, each read or written once:
+    g (the param's dtype), m, v and the master (or the param) read; the
+    param, m, v and the master written."""
+    total = 0
+    for p, w in zip(leaves, masters):
+        e = p.element_size()
+        total += p.numel() * ((e + 8 + (4 if w is not None else e)) + (e + 8 + (4 if w is not
+                                                                                   None else 0)))
+    return total
+
+
+def timed_once(fn):
+    """(fn's result, its ms between CUDA events): one call."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def adamw_step_rows(record, label: str, leaves, grads, ms, vs, masters, ids, clip: float,
+                    graph_calls: int = 1, profile: bool = False) -> None:
+    """K12 as AdamW.step calls it, at a step's own leaves: grad_clip_scale
+    (where ``clip``) within 1e-6 relative of its plain version, then
+    fused_adamw_step with that factor and JAX's key(0) bit-equal to its plain
+    twin (one eager call each; the plain twin timed once). Library:
+    torch.nn.utils.get_total_norm, and torch.optim.AdamW(fused=True) over
+    the same leaves (not the same function: no master, no SR, its moments in
+    the params' dtype). ``graph_calls`` launches a graph replay;
+    ``profile``: the profiler's device times too."""
+    from mila_tpu_torch.kernels import fused_adamw as fw
+
+    n = sum(p.numel() for p in leaves)
+    shape = f"{label} {len(leaves)} leaves n={n}"
+    scale = None
+    if clip:
+        (scale, norm), _ = timed_once(lambda: fw.grad_clip_scale(grads, clip))
+        (_, want), plain_ms = timed_once(lambda: fw.grad_clip_scale_plain(grads, clip))
+        rel = abs(norm.item() - want.item()) / want.item()
+        if not rel <= 1e-6:
+            raise AssertionError(f"grad_clip_scale[{shape}]: norm {norm.item()} is {rel} from "
+                                 f"the plain version's {want.item()}")
+        total = getattr(torch.nn.utils, "get_total_norm", None)
+        record("grad_clip_scale", shape, abs(norm.item() - want.item()), want.item(),
+               [lambda: fw.grad_clip_scale(grads, clip)] * graph_calls, None,
+               None if total is None else [lambda: total(grads)] * graph_calls,
+               sum(g.numel() * g.element_size() for g in grads), 2 * n,
+               gate="the norm within 1e-6 relative of the plain version's",
+               library_what="torch.nn.utils.get_total_norm (the norm alone)", peak=F32_OPS,
+               plain_timed=plain_ms, norm_rel_err=rel, dtype="+".join(sorted(
+                   {str(g.dtype).replace("torch.", "") for g in grads})),
+               **({"device_ms": device_ms(lambda: fw.grad_clip_scale(grads, clip))}
+                  if profile else {}))
+    kw = dict(step=10, lr=1e-3, weight_decay=0.1, grad_scale=scale, key=None, leaf_ids=ids)
+    got, _ = timed_once(lambda: fw.fused_adamw_step(leaves, grads, ms, vs, masters, **kw))
+    want, plain_ms = timed_once(lambda: fw.fused_adamw_step_plain(leaves, grads, ms, vs,
+                                                                  masters, **kw))
+    for name, a_list, b_list in zip(("p", "m", "v", "master"), got, want):
+        for a, b in zip(a_list, b_list):
+            if b is not None and not torch.equal(a, b):
+                raise AssertionError(f"fused_adamw_step[{shape}]: {name} differs from the "
+                                     f"plain version (max {max_err(a, b)[0]})")
+    del got, want
+    torch.cuda.empty_cache()
+    lib = lib_step_many(leaves, grads)
+    how = {"library_timed": device_ms(lib)} if profile else {"library_eager": lib}
+    record("fused_adamw_step", shape, 0.0, 1.0,
+           [lambda: fw.fused_adamw_step(leaves, grads, ms, vs, masters, **kw)] * graph_calls,
+           None, None, adamw_update_bytes(leaves, masters), 14 * n,
+           gate="bit-equal to the plain version", **how,
+           library_what="torch.optim.AdamW(fused=True) over the same leaves: not the same "
+                        "function (no master, no SR; moments in the params' dtype), "
+                        + ("device time from the profiler" if profile else "eager"),
+           peak=F32_OPS, plain_timed=plain_ms, launches_a_call=len({
+               (p.dtype, g.dtype) for p, g in zip(leaves, grads)}),
+           dtype="+".join(sorted({str(p.dtype).replace("torch.", "") for p in leaves})),
+           **({"device_ms": device_ms(lambda: fw.fused_adamw_step(leaves, grads, ms, vs, masters,
+                                                                   **kw))} if profile else {}))
+    del lib
+    torch.cuda.empty_cache()
 
 
 def ce_rows(record, x, t, gl, tag: str, sub: float) -> None:
@@ -2788,39 +2893,47 @@ def phase_parity_train(rng, dtype: str = "bfloat16", T: int = 1024):
             **parity_train_step(lambda dev: GPT2(cfg), cfg.vocab_size, 2, T, rng)}
 
 
-def adamw_device_ms(model, grads) -> float:
+def adamw_device_ms(model, grads) -> tuple[float, float]:
     """ms of the device's work in one AdamW.step of ``model`` on ``grads``
-    (a tree like its params): the clip's global norm and one fused_adamw_update
-    per leaf, with the step's clip factor and its noise drawn beforehand,
-    as a CUDA-graph replay (no host in the way)."""
-    from mila_tpu_torch.kernels.fused_adamw import fused_adamw_update
-    from mila_tpu_torch.optim.adamw import global_norm
-    from mila_tpu_torch.utils.tree import tree_leaves
+    (a tree like its params) as a CUDA-graph replay: the clip's norm launch
+    and one fused_adamw_step launch per dtype group, the noise drawn in the
+    kernel (no host sync in the step). Then the same launches with each bf16
+    leaf's noise passed in as an argument (drawn beforehand, read as
+    fused_adamw_update's noise is): the draw's share of the step."""
+    from mila_tpu_torch.kernels import fused_adamw as fw
+    from mila_tpu_torch.utils.tree import sorted_leaf_index, tree_leaves
 
-    cfg, st = model.optimizer.config, model.opt_state
-    leaves = tree_leaves(model.params)
+    opt, st, params = model.optimizer, model.opt_state, model.params
+    step_ms = time_graph([lambda: opt.step(st, params, grads)], reps=5)
+    torch.cuda.empty_cache()
+    cfg, leaves = opt.config, tree_leaves(params)
+    g_leaves = tree_leaves(grads)
+    ws = tree_leaves(st.master) if st.master is not None else [None] * len(leaves)
     gen = torch.Generator(device=leaves[0].device).manual_seed(0)
     noises = [torch.randint(0, 1 << 16, p.shape, generator=gen, device=p.device,
                             dtype=torch.int32) if p.dtype == torch.bfloat16 else None
               for p in leaves]
-    scale = float(torch.clamp(cfg.grad_clip_norm / (global_norm(grads) + 1e-6), max=1.0))
     kw = dict(step=int(st.step) + 1, lr=cfg.learning_rate, beta1=cfg.beta1, beta2=cfg.beta2,
-              eps=cfg.eps, weight_decay=cfg.weight_decay, grad_scale=scale)
+              eps=cfg.eps, weight_decay=cfg.weight_decay, key=None)
+    ids = sorted_leaf_index(params)
 
     def update():
-        global_norm(grads)
-        for p, w, m, v, g, nz in zip(leaves, tree_leaves(st.master), tree_leaves(st.m),
-                                     tree_leaves(st.v), tree_leaves(grads), noises):
-            fused_adamw_update(p, g, m, v, w, noise=nz, **kw)
+        scale, _ = fw.grad_clip_scale(g_leaves, cfg.grad_clip_norm)
+        fw._launch(leaves, g_leaves, tree_leaves(st.m), tree_leaves(st.v), ws, noises, ids,
+                   grad_scale=scale, **kw)
 
-    return time_graph([update], reps=5)
+    noise_ms = time_graph([update], reps=5)
+    del noises
+    torch.cuda.empty_cache()
+    return step_ms, noise_ms
 
 
-def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16", full: bool = True):
+def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16", full: bool = True,
+                record=None):
     """GPT-2 124M at full size (``dtype`` params, bf16 unless named; f32 SR
     masters, clip 1.0, flash), B 8, T 1024, through ``train_run``: 148
-    parameter leaves. ``full``: split three more steps into their segments
-    and time AdamW alone (the bf16 run)."""
+    parameter leaves. ``full``: split three more steps into their segments,
+    time AdamW alone and ``record`` its kernel rows (the bf16 run)."""
     from mila_tpu_torch.models.gpt2 import GPT2
     from mila_tpu_torch.models.model import Model, ModelConfig
 
@@ -2833,21 +2946,33 @@ def phase_train(peak_ops, rng, steps: int = 12, dtype: str = "bfloat16", full: b
     return train_run(model, tag, t0, (B, T), (L, cfg.num_heads,
                                                cfg.embedding_dim // cfg.num_heads),
                      cfg.vocab_size, 2 + 12 * L + 2, rng, peak_ops, steps, full,
-                     f"gpt2-124m, {dtype} params + f32 SR masters, flash, random weights")
+                     f"gpt2-124m, {dtype} params + f32 SR masters, flash, random weights",
+                     record)
+
+
+def adamw_per_step(model) -> dict:
+    """AdamW's launches a train step of ``model``: fused_adamw_step once per
+    (param dtype, grad dtype) group (the grads take the params' dtypes),
+    grad_clip_scale once where it clips."""
+    from mila_tpu_torch.utils.tree import tree_leaves
+
+    return {"fused_adamw_step": len({p.dtype for p in tree_leaves(model.params)}),
+            "grad_clip_scale": int(model.optimizer.config.grad_clip_norm > 0)}
 
 
 def train_run(model, tag: str, t0: float, shape, heads, vocab: int, n_expected: int, rng,
-              peak_ops, steps: int, full: bool, what: str):
+              peak_ops, steps: int, full: bool, what: str, record=None):
     """Model.train of a built causal LM (built since ``t0``) over ``steps``
     batches of synthetic windows with structure (each one of 4 fixed random
     sequences, so the loss must fall), then Model.evaluate on one batch;
     ``shape`` (B, T), ``heads`` (L, NH, D), ``n_expected`` the parameter
     leaf count it must have. Paths "train" + tag and "evaluate" + tag: launch
     counts per train step flash_attention_forward L, flash_attention_bwd L,
-    the CE forward and backward once each, fused_adamw_update once per leaf;
-    per eval step flash_attention L and the CE forward once; no plain
-    version anywhere. The loss must fall by 1 nat. ``full``: split three
-    more steps into their segments and time AdamW alone."""
+    the CE forward and backward once each, AdamW's (adamw_per_step); per
+    eval step flash_attention L and the CE forward once; no plain version
+    anywhere. The loss must fall by 1 nat. ``full``: split three more steps
+    into their segments, time AdamW alone and ``record`` its kernel rows at
+    the model's leaves and gradients."""
     from mila_tpu_torch.data.loader import ArrayReader
     from mila_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
@@ -2875,7 +3000,7 @@ def train_run(model, tag: str, t0: float, shape, heads, vocab: int, n_expected: 
     model._train_step = timed
     per_step = {"flash_attention_forward": L, "flash_attention_bwd": L,
                 "fused_softmax_cross_entropy": 1, "fused_softmax_cross_entropy_bwd": 1,
-                "fused_adamw_update": n_leaves}
+                **adamw_per_step(model)}
     torch.cuda.reset_peak_memory_stats()
     _, t_counts = run_counted("train" + tag, lambda: model.train(reader),
                               {k: v * steps for k, v in per_step.items()})
@@ -2907,11 +3032,10 @@ def train_run(model, tag: str, t0: float, shape, heads, vocab: int, n_expected: 
 
     # Three more steps, each split into forward + loss, backward and AdamW:
     # the device's time between CUDA events and the host's clock between
-    # the same marks (no sync but AdamW's own, the clip's factor). Where a
-    # segment's device time is about its host time, the device waited on
-    # the host's launches. Then AdamW's device work alone: the clip's norm
-    # and one kernel update per leaf (noise drawn beforehand) as a graph
-    # replay.
+    # the same marks (no host sync in them). Where a segment's device time
+    # is about its host time, the device waited on the host's launches.
+    # Then AdamW's device work alone, the clip's norm and one update launch
+    # per dtype group, as a graph replay, and its kernel rows.
     x, y = (torch.from_numpy(a).cuda() for a in (data[:B, :-1], data[:B, 1:]))
     names = ("forward_loss", "backward", "adamw")
     split, host = {k: [] for k in names}, {k: [] for k in names}
@@ -2937,13 +3061,28 @@ def train_run(model, tag: str, t0: float, shape, heads, vocab: int, n_expected: 
         for i, k in enumerate(names):
             split[k].append(ev_[i].elapsed_time(ev_[i + 1]))
             host[k].append((marks[i + 1] - marks[i]) * 1e3)
-    adamw_graph_ms = adamw_device_ms(model, tree_unflatten(model.params, list(grads)))
-    del grads, leaves, loss
+    del leaves, loss
+    grads = list(grads)
+    adamw_graph_ms, adamw_noise_ms = adamw_device_ms(model, tree_unflatten(model.params, grads))
+    p_leaves, st = tree_leaves(model.params), model.opt_state
+    masters = tree_leaves(st.master) if st.master is not None else [None] * len(p_leaves)
+    clip = model.optimizer.config.grad_clip_norm
+    # The step's bound: the update's bytes and the clip's read of g.
+    bound_bytes = adamw_update_bytes(p_leaves, masters) + (
+        sum(g.numel() * g.element_size() for g in grads) if clip else 0)
+    if record is not None:
+        from mila_tpu_torch.utils.tree import sorted_leaf_index
+
+        adamw_step_rows(record, what.split(",")[0], p_leaves, grads, tree_leaves(st.m),
+                        tree_leaves(st.v), masters, sorted_leaf_index(model.params), clip)
+    del grads
+    torch.cuda.empty_cache()
 
     return t_counts, e_counts, {
         **out, "step_split_ms": {k: statistics.median(v) for k, v in split.items()},
         "step_split_ms_all": split, "step_split_host_ms_all": host,
-        "adamw_graph_ms": adamw_graph_ms, "adamw_bound_ms": 34 * n_params / 3.35e12 * 1e3}
+        "adamw_graph_ms": adamw_graph_ms, "adamw_graph_noise_arg_ms": adamw_noise_ms,
+        "adamw_bound_ms": bound_bytes / 3.35e12 * 1e3, "adamw_bound_bytes": bound_bytes}
 
 
 # ---------------------------------------------------------------------------
@@ -3011,13 +3150,14 @@ def phase_parity_train_llama(rng):
                                                     cfg.vocab_size, 1, 512, rng)}
 
 
-def phase_train_llama(peak_ops, rng, steps: int = 12):
+def phase_train_llama(peak_ops, rng, steps: int = 12, record=None):
     """Llama-3.2-1B at full width and depth, nothing cut (bf16 params, f32
     SR masters, AdamW with clip 1.0; flash from T 2048), B 2, T 2048,
     through ``train_run``: 146 parameter leaves (the tied wte, 9 a layer,
     norm_f), so per step flash_attention_forward 16, flash_attention_bwd
-    16, the CE forward and backward once each, fused_adamw_update 146. Its
-    random weights are drawn on the card (a generator there)."""
+    16, the CE forward and backward once each, AdamW's (adamw_per_step),
+    and ``record``s AdamW's kernel rows at its 146 leaves. Its random
+    weights are drawn on the card (a generator there)."""
     from mila_tpu_torch.models.llama import Llama
     from mila_tpu_torch.models.model import Model, ModelConfig
 
@@ -3027,17 +3167,20 @@ def phase_train_llama(peak_ops, rng, steps: int = 12):
     model.build(torch.Generator(device="cuda").manual_seed(0), (2, 2048))
     return train_run(model, " llama", t0, (2, 2048), (cfg.num_layers, cfg.num_heads, cfg.hd),
                      cfg.vocab_size, 2 + 9 * cfg.num_layers, rng, peak_ops, steps, True,
-                     "llama-3.2-1b, bfloat16 params + f32 SR masters, flash, random weights")
+                     "llama-3.2-1b, bfloat16 params + f32 SR masters, flash, random weights",
+                     record)
 
 
 # ---------------------------------------------------------------------------
 # The CNN classifier trained through Model
 # ---------------------------------------------------------------------------
 
-# Launches per CNN train step: the CE forward and backward once each, AdamW
-# once per leaf (two Conv2D and two Linear layers: weight and bias each).
+# Launches per CNN train step: the CE forward and backward once each, AdamW's
+# step once (one dtype group: f32; no clip). Its leaves: two Conv2D and two
+# Linear layers, weight and bias each.
 CNN_STEP = {"fused_softmax_cross_entropy": 1, "fused_softmax_cross_entropy_bwd": 1,
-            "fused_adamw_update": 8}
+            "fused_adamw_step": 1}
+CNN_LEAVES = (288, 32, 18432, 64, 401408, 128, 1280, 10)
 
 
 def cnn_model(epochs: int):
@@ -3054,8 +3197,8 @@ def cnn_model(epochs: int):
 def phase_train_cnn(bw, peak_ops, rng):
     """The CNN through Model on the synthetic surrogate (its convolutions
     and pools on cuDNN and PyTorch's own, in true f32): K12 at the CNN's
-    distinct leaf sizes (288, 18432 and 401408 elements; its CE rows are
-    train mnist's shapes) against its plain version; the gate run at train
+    eight leaves in one step (CNN_LEAVES; its CE rows are train mnist's
+    shapes) against its plain version; the gate run at train
     mnist's shape (B 128, 4096 samples, 4 epochs: the loss halves, the JAX
     CNN test's gate; the test split's accuracy printed) and the rate run
     at its rate run's (B 2048, synthetic_mnist(65536, seed 0), 4 epochs:
@@ -3065,12 +3208,13 @@ def phase_train_cnn(bw, peak_ops, rng):
     from mila_tpu_torch.models import accuracy
     from mila_tpu_torch.utils.tree import tree_leaves
 
-    rows = mnist_kernel_rows(bw, peak_ops, rng, batches=(), leaf_sizes=(288, 18432, 401408))
+    rows = mnist_kernel_rows(bw, peak_ops, rng, batches=(), leaf_sizes=CNN_LEAVES, label="cnn")
     train, model = mnist_reader(), cnn_model(4)
     model.build(0, (128, 784))
     n_leaves = len(tree_leaves(model.params))
-    if n_leaves != CNN_STEP["fused_adamw_update"]:
-        raise AssertionError(f"train cnn: {n_leaves} parameter leaves")
+    if [p.numel() for p in tree_leaves(model.params)] != list(CNN_LEAVES):
+        raise AssertionError(f"train cnn: leaves of {[p.numel() for p in tree_leaves(model.params)]}"
+                             f" elements, not CNN_LEAVES")
     steps = 4 * train.num_batches
     t0 = time.monotonic()
     _, counts = run_counted("train cnn", lambda: model.train(train),
@@ -3113,9 +3257,11 @@ def phase_train_cnn(bw, peak_ops, rng):
 # ---------------------------------------------------------------------------
 
 # Launches per MNIST train step: the CE forward and backward once each,
-# AdamW once per leaf (three Linear layers: weight and bias each).
+# AdamW's step once (f32 leaves, no clip). Its leaves: three Linear layers,
+# weight and bias each.
 MNIST_STEP = {"fused_softmax_cross_entropy": 1, "fused_softmax_cross_entropy_bwd": 1,
-              "fused_adamw_update": 6}
+              "fused_adamw_step": 1}
+MNIST_LEAVES = (784 * 128, 128, 128 * 64, 64, 640, 10)
 
 
 def mnist_model(epochs: int, **cfg):
@@ -3138,20 +3284,21 @@ def mnist_reader():
     return MnistReader(batch_size=128, split="train", synthetic_n=4096, seed=0)
 
 
-def mnist_kernel_rows(bw, peak_ops, rng, batches=(2048, 128),
-                      leaf_sizes=(10, 64, 640, 784 * 128)) -> list:
+def mnist_kernel_rows(bw, peak_ops, rng, batches=(2048, 128), leaf_sizes=MNIST_LEAVES,
+                      label: str = "mnist mlp") -> list:
     """Rows 17 and 18 at the MNIST train step's shapes, each against its
     plain version on the card: K13 forward and backward on f32 logits
     [2048, 10] (bench.py's batch) and [128, 10] (the e2e test's), 40-byte
-    rows that take the scalar branches; K12 on the MLP's f32 leaves without
-    masters (10, 64, 640 and 100352 elements; 10 ends in the scalar tail).
-    Gates as in kernels train (CE: loss within 1e-4 + 1e-5 |ref|, each
-    dlogit within 2^-7 of its own size; AdamW bit-equal). ms: 50 launches
-    in one graph replay, per launch; device_ms: the profiler's kernel time
-    a call. Library: the profiler's device time of F.cross_entropy's
-    backward and of torch.optim.AdamW(fused=True)'s step; F.cross_entropy's
-    forward as 50 in a graph replay, and by the profiler. ``batches`` and
-    ``leaf_sizes`` name other shapes (the CNN's leaves)."""
+    rows that take the scalar branches;
+    K12's step over the MLP's six f32 leaves without masters (MNIST_LEAVES;
+    10 ends in the scalar tail), one launch. Gates as in kernels train (CE:
+    loss within 1e-4 + 1e-5 |ref|, each dlogit within 2^-7 of its own size;
+    AdamW bit-equal). ms: 50 launches in one graph replay, per launch;
+    device_ms: the profiler's kernel time a call. Library: the profiler's
+    device time of F.cross_entropy's backward and of
+    torch.optim.AdamW(fused=True)'s step over the same leaves;
+    F.cross_entropy's forward as 50 in a graph replay, and by the profiler.
+    ``batches`` and ``leaf_sizes`` name other shapes (the CNN's leaves)."""
     import torch.nn.functional as F
 
     from mila_tpu_torch.kernels import fused_adamw as fw
@@ -3207,26 +3354,14 @@ def mnist_kernel_rows(bw, peak_ops, rng, batches=(2048, 128),
                device_ms=device_ms(lambda: ce.fused_softmax_cross_entropy_bwd(x, t32, gl)),
                dtype="float32")
 
-    for n in leaf_sizes:
-        p, g = rand(n, scale=0.05), rand(n, scale=0.1)
-        m, v = rand(n, scale=0.01), rand(n, scale=0.01).square()
-        kw = dict(step=10, lr=1e-3, weight_decay=0.01)
-        got = fw.fused_adamw_update(p, g, m, v, None, **kw)
-        want = fw.fused_adamw_update_plain(p, g, m, v, None, **kw)
-        for name, a, b in zip(("p", "m", "v"), got, want):
-            if not torch.equal(a, b):
-                raise AssertionError(f"fused_adamw_update[f32 n={n}]: {name} differs from the "
-                                     f"plain version (max {max_err(a, b)[0]})")
-        lib_p = torch.nn.Parameter(p.clone())
-        lib_p.grad = g.clone()
-        lib = torch.optim.AdamW([lib_p], lr=1e-3, weight_decay=0.01, fused=True)
-        record("fused_adamw_update", f"f32 no master n={n}", 0.0, 1.0,
-               [lambda: fw.fused_adamw_update(p, g, m, v, None, **kw)] * graph_calls,
-               lambda: fw.fused_adamw_update_plain(p, g, m, v, None, **kw), None, 28 * n,
-               14 * n, gate="bit-equal to the plain version", library_timed=device_ms(lib.step),
-               library_what="torch.optim.AdamW(fused=True), f32, device time from the profiler",
-               peak=F32_OPS, device_ms=device_ms(lambda: fw.fused_adamw_update(
-                   p, g, m, v, None, **kw)), dtype="float32")
+    # K12's step over the model's f32 leaves, no masters, as AdamW.step
+    # launches it (one launch; no clip).
+    leaves = [rand(n, scale=0.05) for n in leaf_sizes]
+    grads = [rand(n, scale=0.1) for n in leaf_sizes]
+    ms = [rand(n, scale=0.01) for n in leaf_sizes]
+    vs = [rand(n, scale=0.01).square() for n in leaf_sizes]
+    adamw_step_rows(record, label, leaves, grads, ms, vs, [None] * len(leaves),
+                    list(range(len(leaves))), 0.0, graph_calls=graph_calls, profile=True)
     return rows
 
 
@@ -3382,12 +3517,13 @@ def phase_resume_gpt2(rng, tmp: str):
         fresh.train(reader(), start_epoch=int(meta["epoch"]) + 1)
         return straight, fresh, path
 
-    n_leaves = 2 + 12 * L + 2
-    per_step = {"flash_attention_forward": L, "flash_attention_bwd": L,
-                "fused_softmax_cross_entropy": 1, "fused_softmax_cross_entropy_bwd": 1,
-                "fused_adamw_update": n_leaves}
-    (straight, fresh, path), counts = run_counted("resume gpt2", body,
-                                                  {k: v * 8 for k, v in per_step.items()})
+    def expected(out):
+        per_step = {"flash_attention_forward": L, "flash_attention_bwd": L,
+                    "fused_softmax_cross_entropy": 1, "fused_softmax_cross_entropy_bwd": 1,
+                    **adamw_per_step(out[0])}
+        return {k: v * 8 for k, v in per_step.items()}
+
+    (straight, fresh, path), counts = run_counted("resume gpt2", body, expected)
     a, b = straight.opt_state, fresh.opt_state
     for name, x, y in (("params", straight.params, fresh.params), ("master", a.master, b.master),
                        ("m", a.m, b.m), ("v", a.v, b.v)):
@@ -3507,6 +3643,12 @@ SOURCES = {
                             "_dq_kernel :98)"),
     "fused_adamw_update": ("mila_tpu_torch/csrc/fused_adamw.cu",
                            "mila_tpu/kernels/fused_adamw.py:27 (_adamw_kernel)"),
+    "fused_adamw_step": ("mila_tpu_torch/csrc/fused_adamw.cu",
+                         "mila_tpu/kernels/fused_adamw.py:27 (_adamw_kernel, every leaf of "
+                         "mila_tpu/optim/adamw.py:113 AdamW.step in one launch per dtype group)"),
+    "grad_clip_scale": ("mila_tpu_torch/csrc/fused_adamw.cu",
+                        "none: mila_tpu/optim/adamw.py:88 (global_norm, an XLA reduction; "
+                        "the clip of AdamW.step :130)"),
     "fused_softmax_cross_entropy": ("mila_tpu_torch/csrc/softmax_ce.cu",
                                     "mila_tpu/kernels/softmax_ce.py:28 (_ce_fwd_kernel)"),
     "fused_softmax_cross_entropy_bwd": ("mila_tpu_torch/csrc/softmax_ce.cu",
@@ -3522,6 +3664,7 @@ PRIMARY = {"quant_linear": "wgu", "rms_quant_linear": "lm_head",
            "mlp_block_fused": "layer 0", "quant_linear_int4": "wgu",
            "flash_attention": "B=1 T=4096", "flash_attention_forward": "B=8 T=1024",
            "flash_attention_bwd": "B=8 T=1024", "fused_adamw_update": "wte SR",
+           "fused_adamw_step": "llama-3.2-1b", "grad_clip_scale": "llama-3.2-1b",
            "fused_softmax_cross_entropy": "M=8192", "fused_softmax_cross_entropy_bwd": "M=8192"}
 # "none" reasons for the library yardstick, where no one PyTorch call computes it.
 NO_LIBRARY = {
@@ -3675,8 +3818,11 @@ def main() -> int:
     rows += train_rows
     parity_train = phase_parity_train(rng)
     emit({"phase": "parity train", "card": card, **parity_train})
-    t_counts, e_counts, train = phase_train(peak_ops, rng)
-    emit({"phase": "train", "card": card, **train})
+    train_adamw_rows = []
+    t_counts, e_counts, train = phase_train(peak_ops, rng,
+                                            record=recorder(train_adamw_rows, bw, peak_ops))
+    emit({"phase": "train", "card": card, "rows": train_adamw_rows, **train})
+    rows += train_adamw_rows
     # GPT-2 in fp16 (SR masters as in train): the card against the CPU path
     # at 1 layer and T 512 (the CPU's half of the time), then 124M for 2
     # warm-up and 4 timed steps at T 1024; its loss falls as bf16's does
@@ -3707,9 +3853,12 @@ def main() -> int:
     emit({"phase": "parity train llama", "card": card, **parity_llama,
           "phase_s": time.monotonic() - t_ph})
     t_ph = time.monotonic()
-    tl_counts, el_counts, train_llama = phase_train_llama(peak_ops, np.random.default_rng(45))
-    emit({"phase": "train llama", "card": card, **train_llama,
+    llama_adamw_rows = []
+    tl_counts, el_counts, train_llama = phase_train_llama(
+        peak_ops, np.random.default_rng(45), record=recorder(llama_adamw_rows, bw, peak_ops))
+    emit({"phase": "train llama", "card": card, "rows": llama_adamw_rows, **train_llama,
           "phase_s": time.monotonic() - t_ph})
+    rows += llama_adamw_rows
     torch.cuda.empty_cache()
     t_ph = time.monotonic()
     tm_counts, tmr_counts, mnist, mnist_rows, train_mnist = phase_train_mnist(
@@ -3783,6 +3932,9 @@ def main() -> int:
             summary[-1]["note"] = ("no model path calls this entry (the JAX package's only "
                                    "caller is bench.py's kernel check); its kernel runs on "
                                    "the decode path as layer_tail_stream")
+        if entry == "fused_adamw_update":
+            summary[-1]["note"] = ("JAX's per-leaf entry: AdamW.step launches the same kernel "
+                                   "through fused_adamw_step, once per dtype group a step")
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"header": header, "kernels": rows, "crossover": crossover,

@@ -46,6 +46,8 @@ def entry_points() -> dict:
         "flash_attention_forward": flash_attention.flash_attention_forward,
         "flash_attention_bwd": flash_attention_bwd.flash_attention_bwd,
         "fused_adamw_update": fused_adamw.fused_adamw_update,
+        "fused_adamw_step": fused_adamw.fused_adamw_step,
+        "grad_clip_scale": fused_adamw.grad_clip_scale,
         "fused_softmax_cross_entropy": softmax_ce.fused_softmax_cross_entropy,
         "fused_softmax_cross_entropy_bwd": softmax_ce.fused_softmax_cross_entropy_bwd,
     }
@@ -79,7 +81,8 @@ def plain_versions() -> tuple:
             decode_giga.giga_decode_plain, layer_mega.layer_megakernel_plain,
             decode_mlp.mlp_block_plain, quant_matmul.quant_linear_int4_plain,
             flash_attention.flash_attention_plain, flash_attention_bwd.flash_attention_bwd_plain,
-            fused_adamw.fused_adamw_update_plain, softmax_ce.fused_softmax_cross_entropy_plain,
+            fused_adamw.fused_adamw_update_plain, fused_adamw.fused_adamw_step_plain,
+            fused_adamw.grad_clip_scale_plain, softmax_ce.fused_softmax_cross_entropy_plain,
             softmax_ce.fused_softmax_cross_entropy_bwd_plain)
 
 

@@ -16,9 +16,9 @@ Checkpoints are JAX's archive (``serialization/checkpoint.py``): the
 params, the optimizer state as its dict (AdamW: step, m, v, master), the
 training config and history. ``load_checkpoint`` puts every leaf on the
 model's device in the structure of the built tree (the file's own order
-of sorted keys where the model was not built), so the leaf order, and with
-it the order in which AdamW draws its stochastic-rounding noise, is that
-of an uninterrupted run. ``resume_training`` continues the epoch count
+of sorted keys where the model was not built), so the leaf order is that
+of an uninterrupted run (AdamW's stochastic-rounding noise depends only on
+the step key and each leaf's place in JAX's sorted order). ``resume_training`` continues the epoch count
 after the checkpoint's epoch (the readers' shuffles of the epochs that
 follow), where JAX's restarts it at 0; a resumed run is bit-equal to one
 trained straight through.
@@ -135,9 +135,10 @@ class Model:
 
     ``loss_fn(module, params, inputs, targets)`` defaults to the mean
     softmax cross-entropy of the module's logits. ``device`` defaults to the
-    GPU. ``sr_rng``, when set, is the generator of AdamW's
-    stochastic-rounding noise (JAX's trainer passes no key, so AdamW takes
-    its ``key(0)``; here None gives AdamW's seed-0 generator likewise).
+    GPU. ``sr_rng``, when set, is the stochastic-rounding key of AdamW's
+    steps (a generator drawing a key a step, or a key's two words); JAX's
+    trainer passes no key, so AdamW takes its ``key(0)``, and None here
+    gives that key likewise.
     """
 
     def __init__(self, module: Module, optimizer: Optional[AdamW] = None,

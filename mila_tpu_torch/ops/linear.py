@@ -74,8 +74,15 @@ class _LinearFn(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         g2 = g.reshape(-1, g.shape[-1])
+        x2 = x.reshape(-1, x.shape[-1])
         dx = matmul(g, w.t(), x.dtype) if ctx.needs_input_grad[0] else None
-        dw = matmul(x.reshape(-1, x.shape[-1]).t(), g2, w.dtype)
+        if w.dim() == 2 and not w.is_contiguous() and w.t().is_contiguous():
+            # w is a transposed view (a tied head's wte^T): dw in the layout
+            # of the tensor it views, so the view's backward hands that
+            # parameter a contiguous gradient (AdamW's kernels read it as is).
+            dw = matmul(g2.t(), x2, w.dtype).t()
+        else:
+            dw = matmul(x2.t(), g2, w.dtype)
         db = g2.sum(dim=0, dtype=torch.float32).to(g.dtype) if ctx.has_bias else None
         return dx, dw, db
 

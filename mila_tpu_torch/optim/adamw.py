@@ -4,34 +4,48 @@ rounding onto f32 masters (port of ``mila_tpu/optim/adamw.py``).
 A functional optimizer over nested-dict parameter trees, as in JAX:
 ``init(params) -> state`` and ``step(state, params, grads) -> (params',
 state')``; the new trees are new tensors, the old ones are left as they
-were. Each leaf is updated by ``kernels.fused_adamw.fused_adamw_update``
-(kernel table row 17): the CUDA kernel on the card, its plain version on
-the CPU. JAX's trainer reaches the same per-leaf function as an XLA fusion
-(``tests/kernels/test_fused_kernels.py`` holds the two equal); the port has
-no XLA, so it calls the kernel. The global-norm clip is computed plainly
-and its factor applied inside the update (``grad_scale``).
+were. The update is ``kernels.fused_adamw`` (kernel table row 17): on the
+card the clip's global norm is one launch (``grad_clip_scale``, its factor
+left on the device) and every leaf's update one launch per (param dtype,
+grad dtype) group (``fused_adamw_step``), with no host sync; on the CPU
+their plain versions. JAX's trainer reaches the same per-leaf function as an
+XLA fusion (``tests/kernels/test_fused_kernels.py`` holds the two equal);
+the port has no XLA, so it calls the kernels.
 
-Stochastic-rounding noise: JAX draws ``jax.random.bits`` per leaf from
-``rng`` (``key(0)`` when none is given). Here ``rng`` is a
-``torch.Generator`` and the noise for each bf16 leaf is drawn on its device
-(uint16 values in int32); without one, a generator seeded 0 on the
-parameters' device is made for the step, as JAX falls back to ``key(0)``.
-fp16 parameters draw no noise: the update rounds the f32 master to the
-nearest fp16 value, with or without stochastic rounding. That is what
-JAX's ``_stochastic_round`` gives on fp16: it steps to the neighbouring
-*f32* value and casts back, which is the nearest fp16 value (ROADMAP §C.3).
+Stochastic-rounding noise is JAX's: the step key gives each leaf
+``split(key, n)[j]`` (``j`` the leaf's index in JAX's tree order, which
+sorts dict keys) and each bf16 leaf ``bits(leaf_key, shape) & 0xffff``,
+drawn inside the kernel. ``rng``: None is JAX's ``key(0)``, as JAX's AdamW
+falls back to it; a 2-word integer tensor is a key's words
+(``jax.random.key_data``); a ``torch.Generator`` draws the two words of a
+fresh key on its device each step. With the same key and equal masters the
+rounded params equal JAX's bit for bit. fp16 parameters draw nothing: the
+update rounds the f32 master to the nearest fp16 value, with or without
+stochastic rounding. That is what JAX's ``_stochastic_round`` gives on
+fp16: it steps to the neighbouring *f32* value and casts back, which is the
+nearest fp16 value (ROADMAP §C.3).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple, Optional, Union
 
 import torch
 
-from mila_tpu_torch.kernels.fused_adamw import fused_adamw_update
+from mila_tpu_torch.kernels.fused_adamw import (  # global_norm: the optimizer's public name
+    fused_adamw_step,
+    global_norm,
+    grad_clip_scale,
+)
 from mila_tpu_torch.utils.config import BaseConfig, ConfigError
-from mila_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+from mila_tpu_torch.utils.tree import (
+    sorted_leaf_index,
+    tree_leaves,
+    tree_leaves_like,
+    tree_map,
+    tree_unflatten,
+)
 
 Params = Any
 Grads = Any
@@ -67,20 +81,14 @@ class AdamWState(NamedTuple):
     master: Optional[Params]  # f32 masters when stochastic rounding
 
 
-def global_norm(grads: Grads) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient element, in f32."""
-    return torch.sqrt(sum(g.float().square().sum() for g in tree_leaves(grads)))
-
-
-def _noise(gen: torch.Generator, p: torch.Tensor) -> torch.Tensor:
-    bits = torch.randint(0, 1 << 16, p.shape, generator=gen, device=gen.device,
-                         dtype=torch.int32)
-    return bits.to(p.device)
-
-
-def _like(params: Params, tree: Any) -> Any:
-    """``tree`` with its dicts in ``params``' key order."""
-    return tree_map(lambda _, x: x, params, tree)
+def step_key(rng: Union[None, torch.Tensor, torch.Generator]):
+    """The step key ``AdamW.step`` hands the kernel: None (JAX's ``key(0)``),
+    a key's two words as given, or two words a generator draws on its
+    device (int32 bits)."""
+    if isinstance(rng, torch.Generator):
+        return torch.randint(-1 << 31, 1 << 31, (2,), generator=rng, device=rng.device,
+                             dtype=torch.int32)
+    return rng
 
 
 class AdamW:
@@ -99,38 +107,33 @@ class AdamW:
                           master=master)
 
     def step(self, state: AdamWState, params: Params, grads: Grads, lr=None,
-             rng: Optional[torch.Generator] = None) -> tuple[Params, AdamWState]:
-        """One update. ``lr`` is a float or a 0-dim tensor (a schedule's
-        value); ``rng`` the generator of the stochastic-rounding noise."""
+             rng: Union[None, torch.Tensor, torch.Generator] = None
+             ) -> tuple[Params, AdamWState]:
+        """One update. ``lr`` is a float or a 0-dim CPU tensor (a schedule's
+        value); ``rng`` the stochastic rounding's key (:func:`step_key`)."""
         cfg = self.config
         lr = cfg.learning_rate if lr is None else float(lr)
         t = int(state.step) + 1
         # Leaves pair by key, as JAX's tree_map pairs them (its flatten
         # sorts dict keys): grads in another key order than params.
-        grads = _like(params, grads)
-        leaves = tree_leaves(params)
-        grad_scale = 1.0
-        if cfg.grad_clip_norm > 0:
-            gn = global_norm(grads)
-            num = torch.tensor(cfg.grad_clip_norm, dtype=torch.float32, device=gn.device)
-            grad_scale = float(torch.clamp(num / (gn + 1e-6), max=1.0))
-        if rng is None and cfg.stochastic_rounding and leaves:
-            rng = torch.Generator(device=leaves[0].device)
-            rng.manual_seed(0)
-        masters = (tree_leaves(_like(params, state.master)) if state.master is not None
-                   else [None] * len(leaves))
-        out = []
-        for p, w, m, v, g in zip(leaves, masters, tree_leaves(_like(params, state.m)),
-                                 tree_leaves(_like(params, state.v)), tree_leaves(grads)):
-            kw = dict(step=t, lr=lr, beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps,
-                      weight_decay=cfg.weight_decay, grad_scale=grad_scale)
-            noise = (_noise(rng, p) if cfg.stochastic_rounding and p.dtype == torch.bfloat16
-                     else None)
-            out.append(fused_adamw_update(p, g, m, v, w, noise=noise, **kw))
-        p_new, m_new, v_new, w_new = (tree_unflatten(params, [o[i] for o in out])
-                                      for i in range(4))
-        return p_new, AdamWState(step=t, m=m_new, v=v_new,
-                                 master=w_new if state.master is not None else None)
+        leaves, g_leaves = tree_leaves(params), tree_leaves_like(grads, params)
+        scale = None
+        if cfg.grad_clip_norm > 0 and leaves:
+            scale, _ = grad_clip_scale(g_leaves, cfg.grad_clip_norm)
+        key = step_key(rng) if cfg.stochastic_rounding else None
+        if isinstance(key, torch.Tensor) and key.is_cuda and leaves:
+            key = key.to(leaves[0].device)  # a CPU key stays on the host: two words
+        p_new, m_new, v_new, w_new = fused_adamw_step(
+            leaves, g_leaves, tree_leaves_like(state.m, params),
+            tree_leaves_like(state.v, params),
+            tree_leaves_like(state.master, params) if state.master is not None else None,
+            step=t, lr=lr,
+            beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps, weight_decay=cfg.weight_decay,
+            grad_scale=scale, key=key, leaf_ids=sorted_leaf_index(params))
+        master = tree_unflatten(params, w_new) if state.master is not None else None
+        return tree_unflatten(params, p_new), AdamWState(
+            step=t, m=tree_unflatten(params, m_new), v=tree_unflatten(params, v_new),
+            master=master)
 
     def get_learning_rate(self) -> float:
         return self.config.learning_rate

@@ -186,12 +186,17 @@ def test_adamw_sr_params_are_a_bf16_neighbour_of_the_master():
     step = (lo.abs() * 2 ** -7).clamp_min(1e-38)
     assert ((p2["w"].float() - w).abs() <= step).all()
     assert torch.equal(p2["ln"], st2.master["ln"]) and p2["ln"].dtype == torch.float32
-    # The same generator state draws the same noise; none draws seed 0's.
+    # The same generator state draws the same noise; none draws JAX's
+    # key(0) bits: leaf "w" is leaf 1 of JAX's sorted order ("ln", "w"), so
+    # its noise is bits(split(key(0), 2)[1]).
     p3, _ = opt.step(st, p, g, rng=torch.Generator().manual_seed(3))
     assert torch.equal(p2["w"], p3["w"])
-    p4, _ = opt.step(st, p, g)
-    p5, _ = opt.step(st, p, g, rng=torch.Generator().manual_seed(0))
-    assert torch.equal(p4["w"], p5["w"])
+    p4, st4 = opt.step(st, p, g)
+    assert torch.equal(st4.master["w"], w)
+    bits = np.asarray(jax.random.bits(jax.random.split(jax.random.key(0), 2)[1], (4096,),
+                                      jnp.uint32))
+    want = tfw.stochastic_round_bf16(w, torch.from_numpy(bits.astype(np.int64)))
+    assert torch.equal(p4["w"], want)
 
 
 def test_adamw_fp16_stochastic_rounding_on_the_cpu():
@@ -334,3 +339,76 @@ def test_adamw_step_pairs_leaves_by_key():
     for k in ("a", "b"):
         _allclose(tp2[k].numpy(), _f(jp2[k]))
         assert torch.equal(ts2.m[k], torch.from_numpy(g[k]) * np.float32(0.1))
+
+
+# ---------------------------------------------------------------------------
+# The kernel's draw (Threefry-2x32-20) and JAX's generator
+# ---------------------------------------------------------------------------
+
+def _words(key) -> tuple:
+    return tuple(int(x) for x in np.asarray(jax.random.key_data(key)))
+
+
+@pytest.mark.parametrize("seed", [0, 7, -3, 2 ** 31 - 1])
+def test_plain_threefry_matches_jax(seed):
+    # The plain draw against jax.extend.random.threefry_2x32 on random keys
+    # and counters, then the identities the kernel rests on: fold_in(k, s)
+    # and split(k, n)[j] are threefry(k, (0, s mod 2^32)) and threefry(k,
+    # (0, j)); bits(k, shape).ravel()[i] is x0 ^ x1 of threefry(k, (0, i)).
+    from jax.extend.random import threefry_2x32
+
+    rng = np.random.default_rng(abs(seed) + 5)
+    k = rng.integers(0, 2 ** 32, 2, dtype=np.uint64).astype(np.uint32)
+    c = rng.integers(0, 2 ** 32, (2, 64), dtype=np.uint64).astype(np.uint32)
+    want = np.asarray(threefry_2x32(jnp.asarray(k), jnp.asarray(c.reshape(-1))))
+    got = tfw.threefry2x32(int(k[0]), int(k[1]), torch.from_numpy(c[0].astype(np.int64)),
+                           torch.from_numpy(c[1].astype(np.int64)))
+    np.testing.assert_array_equal(np.concatenate([t.numpy() for t in got]),
+                                  want.astype(np.int64))
+    base = jax.random.fold_in(jax.random.key(1), 5)
+    words = _words(base)
+    assert tfw.leaf_key(words, seed) == _words(jax.random.fold_in(base, jnp.int32(seed)))
+    split = jax.random.split(base, 6)
+    for j in range(6):
+        assert tfw.leaf_key(words, j) == _words(split[j])
+    bits = np.asarray(jax.random.bits(split[3], (3, 50), jnp.uint32)).reshape(-1)
+    np.testing.assert_array_equal(tfw.threefry_bits(words, 3, 150, "cpu").numpy().view(
+        np.uint32), bits)
+    # The card's int64 torch route (here on the CPU) and the CPU's numpy
+    # route over several of its blocks: the same bits.
+    lk = tfw.leaf_key(words, 3)
+    n = 3 * tfw._NP_BLOCK + 5
+    np.testing.assert_array_equal(tfw._bits_torch(*lk, n, "cpu").numpy(),
+                                  tfw._bits_numpy(*lk, n).astype(np.int64))
+    # A key as JAX's key data (uint32 words) or None (key(0)).
+    kd = torch.from_numpy(np.array(jax.random.key_data(base)))
+    assert tfw.key_words(kd) == words and tfw.key_words(None) == _words(jax.random.key(0))
+
+
+@pytest.mark.parametrize("n,seed", [(5000, 0), (5000, 11), (3, -7), (1030, 2 ** 31 - 1)])
+def test_update_with_a_seed_matches_jax_kernel(n, seed):
+    # fused_adamw_update(seed=s) draws JAX's kernel's own bits,
+    # bits(fold_in(key(0), s)) over its padded rows, and equals JAX's
+    # kernel (interpret mode): the bf16 param bit for bit, m, v and the
+    # master to the f32 tolerance.
+    w, g = _np(seed % 97, n), _np(seed % 97 + 1, n, scale=0.1)
+    m, v = _np(seed % 97 + 2, n, scale=0.01), np.abs(_np(seed % 97 + 3, n, scale=0.01))
+    p = jnp.asarray(w).astype(jnp.bfloat16)
+    gb = jnp.asarray(g).astype(jnp.bfloat16)
+    want = j_fused(p, gb, jnp.asarray(m), jnp.asarray(v), jnp.asarray(w), step=jnp.int32(2),
+                   lr=1e-3, weight_decay=0.1, seed=seed, interpret=True)
+    got = tfw.fused_adamw_update(
+        torch.from_numpy(np.array(p.astype(jnp.float32))).bfloat16(),
+        torch.from_numpy(np.array(gb.astype(jnp.float32))).bfloat16(),
+        torch.from_numpy(m), torch.from_numpy(v), torch.from_numpy(w), step=2, lr=1e-3,
+        weight_decay=0.1, seed=seed)
+    for a, b in zip(got[1:], want[1:]):
+        _allclose(a.numpy(), _f(b))
+    np.testing.assert_array_equal(got[0].float().numpy(), _f(want[0]))
+    # The same bits as the noise argument.
+    fed = tfw.fused_adamw_update(
+        torch.from_numpy(np.array(p.astype(jnp.float32))).bfloat16(),
+        torch.from_numpy(np.array(gb.astype(jnp.float32))).bfloat16(),
+        torch.from_numpy(m), torch.from_numpy(v), torch.from_numpy(w), step=2, lr=1e-3,
+        weight_decay=0.1, noise=_jax_noise(n, seed))
+    assert torch.equal(fed[0], got[0])

@@ -1997,6 +1997,126 @@ def test_fused_adamw_refuses_fp16(cuda):
     assert p2.dtype == torch.float16
 
 
+def _adamw_leaves(sizes, pdtype, gdtype, master, seed):
+    ps, gs, ms, vs, ws = [], [], [], [], []
+    for i, n in enumerate(sizes):
+        w = _rand((n,), seed + 5 * i, dtype=torch.float32)
+        ps.append(w.to(pdtype))
+        gs.append(_rand((n,), seed + 5 * i + 1, scale=0.1, dtype=gdtype))
+        ms.append(_rand((n,), seed + 5 * i + 2, scale=0.01, dtype=torch.float32))
+        vs.append(_rand((n,), seed + 5 * i + 3, scale=0.01, dtype=torch.float32).square())
+        ws.append(w if master else None)
+    return ps, gs, ms, vs, ws
+
+
+def _assert_lists_equal(got, want):
+    for k, (a_list, b_list) in enumerate(zip(got, want)):
+        for i, (a, b) in enumerate(zip(a_list, b_list)):
+            if b is None:
+                assert a is None
+                continue
+            assert a.dtype == b.dtype and a.shape == b.shape, (k, i)
+            assert torch.equal(a, b), (k, i, (a.float() - b.float()).abs().max())
+
+
+_ADAMW_GROUPS = {
+    # (param dtype, grad dtype, master)
+    "bf16_master_sr": [(torch.bfloat16, torch.bfloat16, True)],
+    "fp16_master": [(torch.float16, torch.float16, True)],
+    "f32_no_master": [(torch.float32, torch.float32, False)],
+    "mixed": [(torch.bfloat16, torch.bfloat16, True), (torch.float32, torch.float32, True),
+              (torch.float16, torch.float16, True), (torch.bfloat16, torch.float32, True)],
+}
+
+
+@pytest.mark.parametrize("groups", sorted(_ADAMW_GROUPS))
+@pytest.mark.parametrize("key", ["host", "device"])
+def test_fused_adamw_step_kernel(cuda, groups, key):
+    # Leaves of 1, 3, 5, 2048 and 1000003 elements (not a multiple of 4:
+    # the scalar tail) and one over several chunks, in each dtype group:
+    # every output bit-equal to the plain twin given the same clip factor
+    # and step key, one launch per group, two calls bit-equal, and a CUDA
+    # graph replay equal to an eager call.
+    from mila_tpu_torch.kernels import fused_adamw as fw
+
+    sizes = [1, 3, 5, 2048, 1000003, 70001]
+    ps, gs, ms, vs, ws, ids = [], [], [], [], [], []
+    for k, (pd, gd, master) in enumerate(_ADAMW_GROUPS[groups]):
+        leaves = _adamw_leaves(sizes, pd, gd, master, 100 + 40 * k)
+        for lst, new in zip((ps, gs, ms, vs, ws), leaves):
+            lst += new
+    ids = list(range(len(ps)))[::-1]
+    scale, _ = fw.grad_clip_scale(gs, 1.0)
+    words = torch.tensor([0x12345678, -0x2468ACE], dtype=torch.int32)
+    k = words.cuda() if key == "device" else words
+    kw = dict(step=7, lr=3e-4, weight_decay=0.1, grad_scale=scale, key=k, leaf_ids=ids)
+    before = fw.fused_adamw_step.launches
+    got = fw.fused_adamw_step(ps, gs, ms, vs, ws, **kw)
+    again = fw.fused_adamw_step(ps, gs, ms, vs, ws, **kw)
+    torch.cuda.synchronize()
+    assert fw.fused_adamw_step.launches == before + 2 * len(_ADAMW_GROUPS[groups])
+    want = fw.fused_adamw_step_plain(ps, gs, ms, vs, ws, **kw)
+    _assert_lists_equal(got, want)
+    _assert_lists_equal(again, got)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fw.fused_adamw_step(ps, gs, ms, vs, ws, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_lists_equal(out, got)
+
+
+def test_fused_adamw_step_on_llama_wte(cuda):
+    # Llama-3.2-1B's tied wte (262.7M elements, bf16 + f32 master + SR) and
+    # an f32 norm leaf in one step: bit-equal to the plain twin.
+    from mila_tpu_torch.kernels import fused_adamw as fw
+
+    n = 128256 * 2048
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    w = torch.randn(n, generator=gen, device="cuda") * 0.02
+    g = (torch.randn(n, generator=gen, device="cuda") * 1e-3).bfloat16()
+    m = torch.randn(n, generator=gen, device="cuda") * 1e-4
+    v = (torch.randn(n, generator=gen, device="cuda") * 1e-4).square()
+    ln = _adamw_leaves([2048], torch.float32, torch.float32, True, 300)
+    ps, gs, ms, vs, ws = ([w.bfloat16()] + ln[0], [g] + ln[1], [m] + ln[2], [v] + ln[3],
+                          [w] + ln[4])
+    kw = dict(step=3, lr=1e-3, weight_decay=0.1, grad_scale=torch.tensor(0.5, device="cuda"),
+              key=None, leaf_ids=[145, 3])
+    got = fw.fused_adamw_step(ps, gs, ms, vs, ws, **kw)
+    want = fw.fused_adamw_step_plain(ps, gs, ms, vs, ws, **kw)
+    _assert_lists_equal(got, want)
+
+
+def test_grad_clip_scale_kernel(cuda):
+    # One launch over f32, bf16 and fp16 leaves (1 to 5M elements): the
+    # norm within 1e-6 relative of the plain one, the factor too, two calls
+    # bit-equal, a graph replay equal; a small norm gives the factor 1.
+    from mila_tpu_torch.kernels import fused_adamw as fw
+
+    gs = [_rand((n,), 400 + i, dtype=dt) for i, (n, dt) in enumerate(
+        [(1, torch.float32), (3, torch.bfloat16), (2048, torch.float16), (5_000_003,
+                                                                          torch.bfloat16),
+         (70001, torch.float32)])]
+    before = fw.grad_clip_scale.launches
+    f1, n1 = fw.grad_clip_scale(gs, 1.0)
+    f2, n2 = fw.grad_clip_scale(gs, 1.0)
+    torch.cuda.synchronize()
+    assert fw.grad_clip_scale.launches == before + 2
+    wf, wn = fw.grad_clip_scale_plain(gs, 1.0)
+    assert abs(n1.item() - wn.item()) <= 1e-6 * wn.item()
+    assert abs(f1.item() - wf.item()) <= 1e-6 * wf.item() and f1.item() < 1
+    assert torch.equal(n1, n2) and torch.equal(f1, f2)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        f3, n3 = fw.grad_clip_scale(gs, 1.0)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(n3, n1) and torch.equal(f3, f1)
+    f4, _ = fw.grad_clip_scale(gs, 1e9)
+    assert f4.item() == 1.0
+
+
 def _dlogits_gate(got, want):
     # Each dlogit within one bf16 step (2^-7) of its own size, floored at
     # 1e-8 of the largest, so a wrong small probability fails as a wrong
@@ -2157,7 +2277,7 @@ def test_mlp_epoch_on_the_card_matches_the_cpu(cuda):
     assert kernels.plain_calls() == plain
     counts = {k: v for k, v in kernels.launch_counts().items() if v}
     assert counts == {"fused_softmax_cross_entropy": 8, "fused_softmax_cross_entropy_bwd": 8,
-                      "fused_adamw_update": 48}
+                      "fused_adamw_step": 8}
     np.testing.assert_allclose(card.history.train_losses, cpu.history.train_losses, rtol=1e-4)
 
 

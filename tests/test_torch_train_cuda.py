@@ -25,6 +25,13 @@ training shapes.
   the CPU's.
 - ``max_pool2d``'s gradient over tied windows bit-equal to the CPU's
   (each window's first maximum takes it).
+- ``AdamW.step`` with a clip and SR masters over a bf16 + f32 tree: one
+  norm launch and one update launch per dtype group a step; m, v and the
+  masters within 8 f32 ulps of a leaf's largest value of the CPU step's
+  (the clip's norm sums in another order: its factor may be an ulp apart)
+  and every bf16 param equal to the CPU's wherever its master is (the
+  same JAX bits on both devices); the whole step captured in a CUDA graph
+  (no host sync in it) and replayed equal to an eager step.
 """
 
 import numpy as np
@@ -160,3 +167,76 @@ def test_max_pool_ties_on_the_card_match_the_cpu(cuda):
         xd = x.to(dev).requires_grad_()
         grads.append(torch.autograd.grad(max_pool2d(xd, 2), xd, g.to(dev))[0].cpu())
     assert torch.equal(*grads)
+
+
+def _adamw_tree(device):
+    gen = np.random.default_rng(60)
+
+    def r(*shape, scale=1.0, dtype=torch.float32):
+        return torch.from_numpy(gen.standard_normal(shape).astype(np.float32) * scale).to(
+            device, dtype)
+
+    return ({"wte": r(1000, 64, scale=0.02, dtype=torch.bfloat16),
+             "h": {"w": r(64, 3000, scale=0.05, dtype=torch.bfloat16),
+                   "norm": 1.0 + r(64, scale=0.1)},
+             "b": r(77, dtype=torch.bfloat16)},
+            {"wte": r(1000, 64, scale=3.0, dtype=torch.bfloat16),
+             "h": {"w": r(64, 3000, scale=3.0, dtype=torch.bfloat16), "norm": r(64)},
+             "b": r(77, dtype=torch.bfloat16)})
+
+
+def _leaves_of(*trees):
+    from mila_tpu_torch.utils.tree import tree_leaves
+
+    return [leaf for t in trees for leaf in tree_leaves(t)]
+
+
+def test_adamw_step_on_the_card_matches_the_cpu(cuda):
+    from mila_tpu_torch import kernels
+    from mila_tpu_torch.optim import AdamW, AdamWConfig
+    from mila_tpu_torch.utils.tree import tree_leaves
+
+    opt = AdamW(AdamWConfig(learning_rate=1e-2, weight_decay=0.1, grad_clip_norm=1.0,
+                            stochastic_rounding=True))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params, grads = _adamw_tree(dev)
+        state = opt.init(params)
+        kernels.reset_launches()
+        for _ in range(2):
+            params, state = opt.step(state, params, grads)
+        out[dev] = (params, state)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            assert counts == {"grad_clip_scale": 2, "fused_adamw_step": 4}
+    (p_c, s_c), (p_g, s_g) = out["cpu"], out["cuda"]
+    for a, b in zip(_leaves_of(s_g.m, s_g.v, s_g.master), _leaves_of(s_c.m, s_c.v, s_c.master)):
+        err = (a.cpu() - b).abs().max().item()
+        assert err <= 8 * 2 ** -23 * b.abs().max().item(), err
+    equal = 0
+    for a, b, wa, wb in zip(tree_leaves(p_g), tree_leaves(p_c), tree_leaves(s_g.master),
+                            tree_leaves(s_c.master)):
+        same = wa.cpu() == wb
+        equal += int(same.sum())
+        assert torch.equal(a.cpu()[same], b[same])
+    assert equal > 0.3 * sum(t.numel() for t in tree_leaves(p_c))
+
+
+def test_adamw_step_captures_in_a_cuda_graph(cuda):
+    from mila_tpu_torch.optim import AdamW, AdamWConfig
+
+    opt = AdamW(AdamWConfig(learning_rate=1e-2, weight_decay=0.1, grad_clip_norm=1.0,
+                            stochastic_rounding=True))
+    params, grads = _adamw_tree("cuda")
+    state = opt.init(params)
+    want = opt.step(state, params, grads)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = opt.step(state, params, grads)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(_leaves_of(got[0], got[1].m, got[1].v, got[1].master),
+                    _leaves_of(want[0], want[1].m, want[1].v, want[1].master)):
+        assert torch.equal(a, b)
