@@ -159,7 +159,8 @@ exits non-zero without the final line):
            leaves);
   train mnist  the reference's MNIST classifier (784-128-64-10 GELU, f32,
            AdamW lr 1e-3) through Model, prefetch depth 2, on the synthetic
-           surrogate: K13 (V 10, the scalar branches) and K12's step (the MLP's six f32 leaves, no
+           surrogate: K13 (V 10: the short-row forward, the backward's
+           scalar branch) and K12's step (the MLP's six f32 leaves, no
            masters, one launch) at the step's shapes against their plain
            versions, beside F.cross_entropy and torch.optim.AdamW(fused=True);
            the JAX e2e test's run (B 128, 4096 samples, 4 epochs: the loss
@@ -2650,7 +2651,7 @@ def ce_rows(record, x, t, gl, tag: str, sub: float) -> None:
            [lambda: F.cross_entropy(x, t, reduction="none")], 2 * M * V + 8 * M,
            4 * M * V, gate="each loss within 1e-4 + 1e-5 |ref|",
            library_what="F.cross_entropy forward", peak=F32_OPS, excess_over_rtol=excess,
-           dtype=tag)
+           variant=ce.ce_fwd_variant(V, x.element_size()), dtype=tag)
     d = ce.fused_softmax_cross_entropy_bwd(x, t32, gl)
     want = ce.fused_softmax_cross_entropy_bwd_plain(x, t32, gl)
     d_rel = max_elem_rel_err(d, want, floor=1e-8, extra=sub)
@@ -3289,7 +3290,7 @@ def mnist_kernel_rows(bw, peak_ops, rng, batches=(2048, 128), leaf_sizes=MNIST_L
     """Rows 17 and 18 at the MNIST train step's shapes, each against its
     plain version on the card: K13 forward and backward on f32 logits
     [2048, 10] (bench.py's batch) and [128, 10] (the e2e test's), 40-byte
-    rows that take the scalar branches;
+    rows that take the short forward and the backward's scalar branch;
     K12's step over the MLP's six f32 leaves without masters (MNIST_LEAVES;
     10 ends in the scalar tail), one launch. Gates as in kernels train (CE:
     loss within 1e-4 + 1e-5 |ref|, each dlogit within 2^-7 of its own size;
@@ -3332,7 +3333,7 @@ def mnist_kernel_rows(bw, peak_ops, rng, batches=(2048, 128), leaf_sizes=MNIST_L
                library_what="F.cross_entropy forward", peak=F32_OPS, excess_over_rtol=excess,
                device_ms=device_ms(lambda: ce.fused_softmax_cross_entropy(x, t)),
                library_device_ms=device_ms(lambda: F.cross_entropy(x, t, reduction="none")),
-               dtype="float32")
+               variant=ce.ce_fwd_variant(V, 4), dtype="float32")
         d = ce.fused_softmax_cross_entropy_bwd(x, t32, gl)
         want = ce.fused_softmax_cross_entropy_bwd_plain(x, t32, gl)
         d_rel = max_elem_rel_err(d, want, floor=1e-8)

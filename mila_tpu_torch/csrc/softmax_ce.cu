@@ -12,10 +12,20 @@
 // backward reads it and writes its gradient; a handful of operations per
 // element). The TPU wrapper's tiling gate (M % 8, V % 128) is not needed
 // here: any M and V run.
-// Forward: one block of 256 threads per row. Each thread keeps an online
-// (max, sum of exp) pair over its strided share of the row, 16-byte loads
-// where the row allows them; the pairs combine across the warp by shuffles
-// and across warps in shared memory.
+// Forward, in one of two variants that kernels/softmax_ce.py:ce_fwd_variant
+// chooses from V:
+//   row: one block of 256 threads per row. Each thread keeps an online
+//     (max, sum of exp) pair over its strided share of the row, 16-byte
+//     loads where the row allows them; the pairs combine across the warp by
+//     shuffles and across warps in shared memory;
+//   short: a warp per row, or 32 / L rows a warp where V <= 16 (L lanes a
+//     row, the power of two at or above V), 8 warps a block. Neighbouring
+//     lanes read neighbouring elements, so a warp's loads cover its rows'
+//     contiguous bytes (a 40-byte row is not 16-byte aligned: no vector
+//     loads); each lane's (max, sum of exp) pair and its picked logit
+//     combine across the row's lanes by shuffles alone, with no shared
+//     memory and no barrier. At V 10 the row variant kept 246 of a block's
+//     256 threads idle and a barrier per 10 values.
 // Backward: one block of 512 threads per row, in one of three variants of
 // one kernel that kernels/softmax_ce.py:ce_bwd_variant chooses from V, the
 // dtype and the shared-memory budget:
@@ -148,6 +158,45 @@ ce_fwd_kernel(const T* __restrict__ logits, const int* __restrict__ targets,
     const float picked = (t >= 0 && t < V) ? to_f(row[t]) : 0.f;
     loss[r] = t == ignore_index ? 0.f : (logf(s) + m) - picked;
   }
+}
+
+constexpr int FWD_ROW = 0, FWD_SHORT = 1;  // kernels/softmax_ce.py:_FWD_VARIANTS
+
+template <typename T, int L>
+__global__ void __launch_bounds__(THREADS)
+ce_fwd_short_kernel(const T* __restrict__ logits, const int* __restrict__ targets,
+                    float* __restrict__ loss, int M, int V, int ignore_index) {
+  constexpr int RPW = 32 / L;  // rows a warp
+  const int lane = threadIdx.x & 31, c = lane % L;
+  const long long r =
+      ((long long)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5)) * RPW + lane / L;
+  const bool live = r < M;
+  const int t = live ? targets[r] : ignore_index;
+  float m = -INFINITY, s = 0.f, picked = 0.f;
+  if (live) {
+    const T* row = logits + r * V;
+    for (int j = c; j < V; j += L) {
+      const float x = to_f(row[j]);
+      online_add(m, s, x);
+      if (j == t) picked = x;
+    }
+  }
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1) {
+    const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
+    const float s2 = __shfl_xor_sync(0xffffffffu, s, o);
+    combine(m, s, m2, s2);
+    picked += __shfl_xor_sync(0xffffffffu, picked, o);
+  }
+  if (live && c == 0) loss[r] = t == ignore_index ? 0.f : (logf(s) + m) - picked;
+}
+
+template <typename T, int L>
+void launch_fwd_short(const T* logits, const int* t, float* l, int M, int V, int ignore_index,
+                      cudaStream_t s) {
+  constexpr int rows = THREADS / 32 * (32 / L);
+  ce_fwd_short_kernel<T, L><<<(M + rows - 1) / rows, THREADS, 0, s>>>(logits, t, l, M, V,
+                                                                       ignore_index);
 }
 
 constexpr int BWD_THREADS = 512;
@@ -332,29 +381,44 @@ int bwd(int variant, const void* logits, const int* t, const float* g, void* dlo
 }
 
 template <typename T>
-void launch_fwd(const void* logits, const int* t, float* l, int M, int V, int ignore_index,
-                cudaStream_t s) {
-  ce_fwd_kernel<T><<<M, THREADS, 0, s>>>(static_cast<const T*>(logits), t, l, V, ignore_index,
-                                         vec_ok<T>(logits, V));
+void launch_fwd(int variant, const void* logits, const int* t, float* l, int M, int V,
+                int ignore_index, cudaStream_t s) {
+  const T* x = static_cast<const T*>(logits);
+  if (variant != FWD_SHORT) {
+    ce_fwd_kernel<T><<<M, THREADS, 0, s>>>(x, t, l, V, ignore_index, vec_ok<T>(logits, V));
+  } else if (V <= 1) {
+    launch_fwd_short<T, 1>(x, t, l, M, V, ignore_index, s);
+  } else if (V <= 2) {
+    launch_fwd_short<T, 2>(x, t, l, M, V, ignore_index, s);
+  } else if (V <= 4) {
+    launch_fwd_short<T, 4>(x, t, l, M, V, ignore_index, s);
+  } else if (V <= 8) {
+    launch_fwd_short<T, 8>(x, t, l, M, V, ignore_index, s);
+  } else if (V <= 16) {
+    launch_fwd_short<T, 16>(x, t, l, M, V, ignore_index, s);
+  } else {
+    launch_fwd_short<T, 32>(x, t, l, M, V, ignore_index, s);
+  }
 }
 
 }  // namespace
 
 // logits [M, V] (dtype: 0 f32, 1 bf16, 2 fp16), contiguous; targets int32
-// [M]; loss f32 [M].
+// [M]; loss f32 [M]. variant 0 row, 1 short (kernels/softmax_ce.py's
+// ce_fwd_variant).
 extern "C" int softmax_ce_fwd(const void* logits, const void* targets, void* loss, int M, int V,
-                              int ignore_index, int dtype, void* stream) {
+                              int ignore_index, int dtype, int variant, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype < 0 || dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
   if (M > 0) {
     const int* t = static_cast<const int*>(targets);
     float* l = static_cast<float*>(loss);
     if (dtype == 1)
-      launch_fwd<__nv_bfloat16>(logits, t, l, M, V, ignore_index, s);
+      launch_fwd<__nv_bfloat16>(variant, logits, t, l, M, V, ignore_index, s);
     else if (dtype == 2)
-      launch_fwd<__half>(logits, t, l, M, V, ignore_index, s);
+      launch_fwd<__half>(variant, logits, t, l, M, V, ignore_index, s);
     else
-      launch_fwd<float>(logits, t, l, M, V, ignore_index, s);
+      launch_fwd<float>(variant, logits, t, l, M, V, ignore_index, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,7 +16,9 @@ rather than storing probabilities. One block per row. The backward holds
 its row in shared memory, so the row is read from device memory once, where
 the row fits the budget (``CE_RESIDENT_BYTES``: two blocks an SM) and its
 bytes are a multiple of 16; else it streams the row twice
-(:func:`ce_bwd_variant`); see the source.
+(:func:`ce_bwd_variant`). Short rows (the MNIST and CNN steps' V 10) take
+a forward of their own, a warp per row or several rows a warp, reduced by
+shuffles (:func:`ce_fwd_variant`); see the source.
 
 The entry keeps JAX's signature: ``block_rows`` and ``interpret`` are the
 TPU's tiling and interpreter and are not read, and JAX's gate (M % 8, V %
@@ -68,6 +70,22 @@ def fused_softmax_cross_entropy_bwd_plain(logits2: torch.Tensor, targets: torch.
 fused_softmax_cross_entropy_bwd_plain.calls = 0
 
 
+CE_SHORT_MAX_V = 256  # rows up to this many elements take the short forward
+_FWD_VARIANTS = {"row": 0, "short": 1}  # csrc/softmax_ce.cu
+
+
+def ce_fwd_variant(V: int, itemsize: int) -> str:
+    """The forward kernel's variant for rows of V elements of ``itemsize``
+    bytes: "short" (a warp per row, 32 / L rows a warp where V <= 16, shuffles
+    only) up to ``CE_SHORT_MAX_V`` elements, "row" (a 256-thread block per
+    row) above. The crossover is the card's (``tools/ce_fwd_variants.py``,
+    PERF.md row 18 (V 10)): at 128 rows the block per row is faster from V
+    512, at 2048 rows the warp per row up to V 4096; 256 holds at both, in
+    f32 and bf16 alike."""
+    del itemsize
+    return "short" if V <= CE_SHORT_MAX_V else "row"
+
+
 CE_RESIDENT_BYTES = 112 * 1024  # a row held in shared memory: two 512-thread blocks an SM
 _BWD_VARIANTS = {"resident": 0, "streamed": 1, "scalar": 2}  # csrc/softmax_ce.cu
 
@@ -88,7 +106,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("softmax_ce")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.softmax_ce_fwd.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.softmax_ce_fwd.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.softmax_ce_fwd.restype = ci
         lib.softmax_ce_bwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.softmax_ce_bwd.restype = ci
@@ -104,16 +122,17 @@ def _check(logits2: torch.Tensor, targets: torch.Tensor) -> None:
         raise ValueError("softmax_ce: logits and targets must be on one device")
 
 
-def _fwd(logits2, t32, ignore_index):
+def _fwd(logits2, t32, ignore_index, variant=None):
     if not logits2.is_cuda:
         return fused_softmax_cross_entropy_plain(logits2, t32, ignore_index)
     _check(logits2, t32)
     M, V = logits2.shape
+    variant = variant or ce_fwd_variant(V, logits2.element_size())
     loss = torch.empty(M, device=logits2.device, dtype=torch.float32)
     lib = _lib()
     rc = lib.softmax_ce_fwd(_build.ptr(logits2), _build.ptr(t32), _build.ptr(loss), M, V,
                             ignore_index, _build.DTYPE_CODES[logits2.dtype],
-                            _build.stream_of(logits2))
+                            _FWD_VARIANTS[variant], _build.stream_of(logits2))
     _build.check(lib, rc, "softmax_ce_fwd")
     fused_softmax_cross_entropy.launches += 1
     return loss

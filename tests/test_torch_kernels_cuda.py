@@ -2117,6 +2117,39 @@ def test_grad_clip_scale_kernel(cuda):
     assert f4.item() == 1.0
 
 
+@pytest.mark.parametrize("V", [2, 3, 10, 16, 17, 33, 100, 256, 257, 1000, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_ce_short_rows(cuda, V, dtype):
+    # The short-row forward (a warp a row, several rows a warp up to V 16)
+    # against the plain version at V 2-1024, every 5th row ignored; the
+    # wrapper takes it up to CE_SHORT_MAX_V, one launch a call, and a graph
+    # replay equals an eager call.
+    from mila_tpu_torch.kernels import softmax_ce as ce
+
+    chosen = ce.ce_fwd_variant(V, torch.tensor([], dtype=dtype).element_size())
+    assert chosen == ("short" if V <= ce.CE_SHORT_MAX_V else "row")
+    M = 301
+    x = _rand((M, V), 89, scale=3.0, dtype=dtype)
+    t = torch.from_numpy(np.random.default_rng(90).integers(0, V, M)).cuda()
+    t[::5] = -100
+    t32 = t.to(torch.int32)
+    want = ce.fused_softmax_cross_entropy_plain(x, t32)
+    short = ce._fwd(x.contiguous(), t32, -100, "short")
+    torch.testing.assert_close(short, want, rtol=1e-5, atol=1e-4)
+    assert (short[::5] == 0).all()
+    before = ce.fused_softmax_cross_entropy.launches
+    loss = ce.fused_softmax_cross_entropy(x, t)
+    torch.cuda.synchronize()
+    assert ce.fused_softmax_cross_entropy.launches == before + 1
+    torch.testing.assert_close(loss, want, rtol=1e-5, atol=1e-4)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ce.fused_softmax_cross_entropy(x, t)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, loss)
+
+
 def _dlogits_gate(got, want):
     # Each dlogit within one bf16 step (2^-7) of its own size, floored at
     # 1e-8 of the largest, so a wrong small probability fails as a wrong

@@ -49,13 +49,15 @@ def _check(tl, td, jl, jd, dt):
         np.testing.assert_allclose(got, want, rtol=0, atol=step * np.abs(want).max())
 
 
-@pytest.mark.parametrize("lead,V", [((16,), 256), ((2, 8), 384), ((3, 5), 1000), ((7,), 50)])
+@pytest.mark.parametrize("lead,V", [((16,), 256), ((2, 8), 384), ((3, 5), 1000), ((7,), 50),
+                                    ((64,), 10), ((5, 3), 2), ((9,), 33)])
 @pytest.mark.parametrize("dt", [jnp.float32, jnp.bfloat16, jnp.float16])
 @pytest.mark.parametrize("entry", ["fused", "ops"])
 def test_loss_and_dlogits_match_jax(lead, V, dt, entry):
     # (16, 256) and (2, 8, 384) pass JAX's gate (its kernels run); (3, 5,
-    # 1000) and (7, 50) do not (its jnp reference runs): the port's route is
-    # the same op at every shape.
+    # 1000), (7, 50) and the short rows (V 10, 2 and 33: the card's short
+    # forward) do not (its jnp reference runs): the port's route is the same
+    # op at every shape.
     logits, t, g = _case(lead, V, V + len(lead))
     jx = jnp.asarray(logits, dt)
     if entry == "fused":
@@ -106,3 +108,19 @@ def test_ce_bwd_variant_chooser(V, itemsize, variant):
     at a time."""
     assert tce.ce_bwd_variant(V, itemsize) == variant
     assert tce.ce_bwd_variant(V, itemsize, smem=V * itemsize - 16) in ("streamed", "scalar")
+
+
+@pytest.mark.parametrize("V,itemsize,variant", [
+    (10, 4, "short"),     # the MNIST and CNN steps' rows: several a warp
+    (2, 2, "short"),
+    (33, 4, "short"),     # a warp a row
+    (tce.CE_SHORT_MAX_V, 4, "short"),
+    (tce.CE_SHORT_MAX_V + 1, 2, "row"),
+    (50304, 2, "row"),    # GPT-2's vocab
+    (128256, 2, "row"),   # Llama-3.2-1B's
+])
+def test_ce_fwd_variant_chooser(V, itemsize, variant):
+    """The forward kernel's variant is a pure function of V: a warp per row
+    (several rows a warp up to V 16) up to CE_SHORT_MAX_V elements, a block
+    per row above."""
+    assert tce.ce_fwd_variant(V, itemsize) == variant
