@@ -456,8 +456,7 @@ def _launch(params, grads, ms, vs, masters, noises, ids, *, step, lr, beta1, bet
             rc = lib.fused_adamw_step(
                 tab.ctypes.data, len(idx), int(sum(chunks)), chunk, _build.DTYPE_CODES[pd],
                 int(gd != torch.float32), _addr(p_out), _addr(m_out), _addr(v_out), _addr(w_out),
-                _addr(scale_t) or None, gs, _addr(key_t) or None, k0 if key_t is None else 0,
-                k1 if key_t is None else 0, *hyper, stream)
+                _addr(scale_t), gs, _addr(key_t), k0, k1, *hyper, stream)
             _build.check(lib, rc, "fused_adamw_step")
             launches += 1
             shapes = [tuple(params[i].shape) for i in idx]

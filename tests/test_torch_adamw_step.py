@@ -194,7 +194,7 @@ class _FakeLib:
                          bc1, bc2, stream):
         tab = np.frombuffer((ctypes.c_char * (tfw.LEAF.itemsize * nleaves)).from_address(table),
                             tfw.LEAF).copy()
-        assert 0 < nleaves <= tfw.MAX_LEAVES and key is None
+        assert 0 < nleaves <= tfw.MAX_LEAVES and not key
         assert chunk == tfw.chunk_size(int(tab["n"].sum())) and chunk % 2048 == 0
         chunks = -(-tab["n"] // chunk)
         assert list(tab["chunk0"]) == [0] + list(np.cumsum(chunks)[:-1])
