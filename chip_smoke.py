@@ -32,7 +32,8 @@ exits non-zero without the final line):
            beside its plain version, bound and SDPA (K/V cast to q's dtype
            beforehand), with its dtype pair;
   crossover one layer's prefill attention at T 512-4096: the flash kernel
-           against the plain product (FLASH_MIN_SEQ stays 2048);
+           against the plain product (FLASH_MIN_SEQ stays 2048); K13's two
+           forwards across V against F.cross_entropy (CE_SHORT_MAX_V);
   parity   Llama-3.2-1B widths at 2 layers (G = 4: the slot head order is
            exercised), int8, kernels on the card against the same weights
            through the plain path on the CPU: the paged prefill of 8 prompts
@@ -1282,7 +1283,45 @@ def phase_crossover(cfg, rng):
                      "auto_takes": "flash" if T >= FLASH_MIN_SEQ else "plain"})
         del q, k, v
     return {"batch": 1, "heads": NH, "kv_heads": NKV, "head_dim": HD,
-            "flash_min_seq": FLASH_MIN_SEQ, "rows": rows}
+            "flash_min_seq": FLASH_MIN_SEQ, "rows": rows, "ce_fwd": ce_fwd_crossover(rng)}
+
+
+def ce_fwd_crossover(rng) -> dict:
+    """K13's two forwards ("row", a block a row; "short", a warp a row or
+    several rows a warp) at M 2048 and 128, V 10, 256 (CE_SHORT_MAX_V), 512
+    and 4096, f32 and bf16 logits, every 7th row ignored, beside
+    F.cross_entropy: each variant's losses within 1e-4 + 1e-5 |ref| of the
+    plain version's, then each call's device time by the profiler (20 calls)
+    and as a launch within 50 in one graph replay. Places ce_fwd_variant's
+    crossover, CE_SHORT_MAX_V."""
+    import torch.nn.functional as F
+
+    from mila_tpu_torch.kernels import softmax_ce as ce
+
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        for M in (2048, 128):
+            for V in (10, 256, 512, 4096):
+                x = torch.from_numpy(rng.standard_normal((M, V)).astype(np.float32) * 3).to(
+                    "cuda", dt)
+                t = torch.from_numpy(rng.integers(0, V, M)).cuda()
+                t[::7] = -100
+                t32 = t.to(torch.int32)
+                want = ce.fused_softmax_cross_entropy_plain(x, t32)
+                row = {"dtype": str(dt).replace("torch.", ""), "M": M, "V": V,
+                       "chosen": ce.ce_fwd_variant(V, x.element_size())}
+                fns = {v: (lambda v=v: ce._fwd(x, t32, -100, v)) for v in ("row", "short")}
+                fns["library"] = lambda: F.cross_entropy(x, t, reduction="none")
+                for name, fn in fns.items():
+                    if name != "library":
+                        got = fn()
+                        excess = ((got - want).abs() - 1e-5 * want.abs()).max().item()
+                        if not torch.isfinite(got).all() or excess > 1e-4:
+                            raise AssertionError(f"K13 {name} forward at {dt} M {M} V {V}: a "
+                                                 f"loss is {excess} beyond 1e-5 |ref| + 1e-4")
+                    row[name] = {"device_ms": device_ms(fn), "graph_ms": time_graph([fn] * 50)}
+                rows.append(row)
+    return {"short_max_v": ce.CE_SHORT_MAX_V, "rows": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -2569,7 +2608,8 @@ def adamw_step_rows(record, label: str, leaves, grads, ms, vs, masters, ids, cli
     """K12 as AdamW.step calls it, at a step's own leaves: grad_clip_scale
     (where ``clip``) within 1e-6 relative of its plain version, then
     fused_adamw_step with that factor and JAX's key(0) bit-equal to its plain
-    twin (one eager call each; the plain twin timed once). Library:
+    twin (one eager call each; the plain twin timed once), the eager call's
+    launches counted (one per dtype group, ``launches_a_call``). Library:
     torch.nn.utils.get_total_norm, and torch.optim.AdamW(fused=True) over
     the same leaves (not the same function: no master, no SR, its moments in
     the params' dtype). ``graph_calls`` launches a graph replay;
@@ -2598,7 +2638,13 @@ def adamw_step_rows(record, label: str, leaves, grads, ms, vs, masters, ids, cli
                **({"device_ms": device_ms(lambda: fw.grad_clip_scale(grads, clip))}
                   if profile else {}))
     kw = dict(step=10, lr=1e-3, weight_decay=0.1, grad_scale=scale, key=None, leaf_ids=ids)
+    before = fw.fused_adamw_step.launches
     got, _ = timed_once(lambda: fw.fused_adamw_step(leaves, grads, ms, vs, masters, **kw))
+    launches = fw.fused_adamw_step.launches - before
+    groups = len({(p.dtype, g.dtype) for p, g in zip(leaves, grads)})
+    if launches != groups:
+        raise AssertionError(f"fused_adamw_step[{shape}]: {launches} launches for {groups} "
+                             f"dtype groups")
     want, plain_ms = timed_once(lambda: fw.fused_adamw_step_plain(leaves, grads, ms, vs,
                                                                   masters, **kw))
     for name, a_list, b_list in zip(("p", "m", "v", "master"), got, want):
@@ -2617,8 +2663,7 @@ def adamw_step_rows(record, label: str, leaves, grads, ms, vs, masters, ids, cli
            library_what="torch.optim.AdamW(fused=True) over the same leaves: not the same "
                         "function (no master, no SR; moments in the params' dtype), "
                         + ("device time from the profiler" if profile else "eager"),
-           peak=F32_OPS, plain_timed=plain_ms, launches_a_call=len({
-               (p.dtype, g.dtype) for p, g in zip(leaves, grads)}),
+           peak=F32_OPS, plain_timed=plain_ms, launches_a_call=launches,
            dtype="+".join(sorted({str(p.dtype).replace("torch.", "") for p in leaves})),
            **({"device_ms": device_ms(lambda: fw.fused_adamw_step(leaves, grads, ms, vs, masters,
                                                                    **kw))} if profile else {}))

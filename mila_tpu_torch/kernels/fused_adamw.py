@@ -51,6 +51,11 @@ bit for bit.
 
 Outputs are new tensors: per group one flat buffer per stream, each leaf a
 view at a 16-byte-aligned offset; the inputs are left as they were.
+
+A step reads no host value back, so it can be captured in a CUDA graph; but
+the step count's bias corrections, the learning rate and a host key travel
+in the launch's parameters, so every replay of such a graph repeats the step
+it captured (what a timing wants), never the next one.
 """
 
 from __future__ import annotations
@@ -335,16 +340,15 @@ def _ready(t: torch.Tensor) -> torch.Tensor:
 
 
 def _ptr(t: Optional[torch.Tensor], keep: list) -> int:
-    """The address of :func:`_ready`'s t (0 for None); a copy it makes is
-    kept alive in ``keep`` until the launch."""
+    """The address of :func:`_ready`'s t (0 for None). The tensor read, t
+    or its copy, is kept alive in ``keep`` until the launch: a caller's
+    temporary (a master cast to f32, a reshaped noise) freed before it could
+    hand its memory to the next leaf's temporary or to an output."""
     if t is None:
         return 0
-    p = t.data_ptr()
-    if p % 16 or not t.is_contiguous():
-        t = _ready(t)
-        keep.append(t)
-        p = t.data_ptr()
-    return p
+    t = _ready(t)
+    keep.append(t)
+    return t.data_ptr()
 
 
 def _addr(t: Optional[torch.Tensor]) -> int:
@@ -398,8 +402,9 @@ def _check_leaf(p, g, m, v, w):
 def _launch(params, grads, ms, vs, masters, noises, ids, *, step, lr, beta1, beta2, eps,
             weight_decay, grad_scale, key):
     """Launch the update over the leaves, one launch per (param dtype, grad
-    dtype) group of at most MAX_LEAVES leaves; returns the four output lists
-    and the number of launches."""
+    dtype) group of at most MAX_LEAVES leaves (none for a group whose leaves
+    are all empty); returns the four output lists and the number of
+    launches."""
     dev = params[0].device
     n = len(params)
     for i in range(n):
@@ -453,12 +458,13 @@ def _launch(params, grads, ms, vs, masters, noises, ids, *, step, lr, beta1, bet
             m_out, v_out = (torch.empty(total, dtype=torch.float32, device=dev)
                             for _ in range(2))
             w_out = torch.empty(total, dtype=torch.float32, device=dev) if with_master else None
-            rc = lib.fused_adamw_step(
-                tab.ctypes.data, len(idx), int(sum(chunks)), chunk, _build.DTYPE_CODES[pd],
-                int(gd != torch.float32), _addr(p_out), _addr(m_out), _addr(v_out), _addr(w_out),
-                _addr(scale_t), gs, _addr(key_t), k0, k1, *hyper, stream)
-            _build.check(lib, rc, "fused_adamw_step")
-            launches += 1
+            if sum(chunks):
+                rc = lib.fused_adamw_step(
+                    tab.ctypes.data, len(idx), int(sum(chunks)), chunk, _build.DTYPE_CODES[pd],
+                    int(gd != torch.float32), _addr(p_out), _addr(m_out), _addr(v_out),
+                    _addr(w_out), _addr(scale_t), gs, _addr(key_t), k0, k1, *hyper, stream)
+                _build.check(lib, rc, "fused_adamw_step")
+                launches += 1
             shapes = [tuple(params[i].shape) for i in idx]
             offs = offs.tolist()
             for k, buf in enumerate((p_out, m_out, v_out)):
@@ -481,7 +487,8 @@ def fused_adamw_step(params: Sequence[torch.Tensor], grads: Sequence[torch.Tenso
     the step key of the stochastic rounding (:func:`key_words`);
     ``leaf_ids`` each leaf's counter under it (default 0, 1, ...). CUDA
     tensors launch ``fused_adamw_step`` once per (param dtype, grad dtype)
-    group; CPU tensors take :func:`fused_adamw_step_plain`."""
+    group (a graph replay repeats this step: ``step``, ``lr`` and a host key
+    are captured as values); CPU tensors take :func:`fused_adamw_step_plain`."""
     n = len(params)
     if not n:
         return [], [], [], []
@@ -523,8 +530,8 @@ def fused_adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: tor
             raise ValueError("fused_adamw: noise must be int32/uint32 bits, one per element")
         nz = noise.to(p.device)
     leaf_id = 0 if seed is None else int(seed) & _M32
-    out, _ = _launch([p], [g], [m], [v], [master], [nz], [leaf_id], key=None, **kw)
-    fused_adamw_update.launches += 1
+    out, launches = _launch([p], [g], [m], [v], [master], [nz], [leaf_id], key=None, **kw)
+    fused_adamw_update.launches += launches
     return tuple(o[0] for o in out)
 
 
@@ -552,6 +559,8 @@ def _done_counter(dev: torch.device, stream: int) -> torch.Tensor:
 
 
 def _launch_norm(grads: list, max_norm: float):
+    """(factor, norm) over ``grads`` and the number of launches: 1, or 0
+    where every leaf is empty."""
     if len(grads) > MAX_NORM_LEAVES:
         raise NotImplementedError(f"clip_norm takes at most {MAX_NORM_LEAVES} leaves, got "
                                   f"{len(grads)}")
@@ -571,13 +580,13 @@ def _launch_norm(grads: list, max_norm: float):
     out = torch.empty(2, dtype=torch.float32, device=dev)
     if nchunks == 0:  # every leaf empty: the norm is 0 and the factor 1
         out.copy_(torch.tensor([1.0, 0.0]))
-        return out[0], out[1]
+        return (out[0], out[1]), 0
     partial = torch.empty(lib.clip_norm_blocks(nchunks), dtype=torch.float32, device=dev)
     rc = lib.clip_norm(tab.ctypes.data, len(grads), nchunks, chunk, _f32(max_norm),
                        _addr(partial),
                        _addr(_done_counter(dev, stream.value)), _addr(out), stream)
     _build.check(lib, rc, "clip_norm")
-    return out[0], out[1]
+    return (out[0], out[1]), 1
 
 
 def grad_clip_scale(grads: Sequence[torch.Tensor], max_norm: float):
@@ -589,8 +598,8 @@ def grad_clip_scale(grads: Sequence[torch.Tensor], max_norm: float):
     grads = list(grads)
     if not grads[0].is_cuda:
         return grad_clip_scale_plain(grads, max_norm)
-    out = _launch_norm(grads, max_norm)
-    grad_clip_scale.launches += 1
+    out, launches = _launch_norm(grads, max_norm)
+    grad_clip_scale.launches += launches
     return out
 
 

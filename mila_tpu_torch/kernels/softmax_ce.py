@@ -78,8 +78,8 @@ def ce_fwd_variant(V: int, itemsize: int) -> str:
     """The forward kernel's variant for rows of V elements of ``itemsize``
     bytes: "short" (a warp per row, 32 / L rows a warp where V <= 16, shuffles
     only) up to ``CE_SHORT_MAX_V`` elements, "row" (a 256-thread block per
-    row) above. The crossover is the card's (``tools/ce_fwd_variants.py``,
-    PERF.md row 18 (V 10)): at 128 rows the block per row is faster from V
+    row) above. The crossover is the card's (``chip_smoke.py``'s
+    ``crossover`` phase, PERF.md row 18 (V 10)): at 128 rows the block per row is faster from V
     512, at 2048 rows the warp per row up to V 4096; 256 holds at both, in
     f32 and bf16 alike."""
     del itemsize

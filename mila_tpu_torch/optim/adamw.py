@@ -8,7 +8,10 @@ were. The update is ``kernels.fused_adamw`` (kernel table row 17): on the
 card the clip's global norm is one launch (``grad_clip_scale``, its factor
 left on the device) and every leaf's update one launch per (param dtype,
 grad dtype) group (``fused_adamw_step``), with no host sync; on the CPU
-their plain versions. JAX's trainer reaches the same per-leaf function as an
+their plain versions. A CUDA graph captured over ``step`` replays that one
+step (its count and learning rate, and a key given as words on the
+host, are captured as values), so it serves to time a step, not to run a
+sequence of them. JAX's trainer reaches the same per-leaf function as an
 XLA fusion (``tests/kernels/test_fused_kernels.py`` holds the two equal);
 the port has no XLA, so it calls the kernels.
 

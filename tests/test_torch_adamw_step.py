@@ -317,11 +317,34 @@ def test_launch_path_noise_and_norm_with_a_stand_in_kernel(fake):
         assert torch.equal(a[0], b)
     grads = _leaves(rng, [5, 40_000, 3, 70_000], [torch.float32, torch.bfloat16, torch.float16,
                                                    torch.bfloat16])[1]
-    factor, norm = tfw._launch_norm(grads, 1.0)
+    (factor, norm), launches = tfw._launch_norm(grads, 1.0)
     wf, wn = tfw.grad_clip_scale_plain(grads, 1.0)
-    assert fake.launches[-1] == ("norm", 4)
+    assert launches == 1 and fake.launches[-1] == ("norm", 4)
     np.testing.assert_allclose(float(norm), float(wn), rtol=1e-6)
     np.testing.assert_allclose(float(factor), float(wf), rtol=1e-6)
+
+
+def test_launch_path_counts_no_launch_for_empty_leaves(fake):
+    # A group whose leaves are all empty launches nothing and counts nothing
+    # (the C entry would return before its launch); its outputs are empty.
+    # A norm over empty leaves only is 0 with the factor 1, and no launch.
+    rng = np.random.default_rng(52)
+    ps, gs, ms, vs, ws = _leaves(rng, [0, 0, 5, 0], [torch.bfloat16, torch.bfloat16,
+                                                     torch.float32, torch.float16])
+    kw = dict(step=2, lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.0)
+    out, launches = tfw._launch(ps, gs, ms, vs, ws, [None] * 4, [0, 1, 2, 3], grad_scale=None,
+                                key=None, **kw)
+    assert launches == len(fake.launches) == 1 and fake.launches[0][:2] == (0, 0)
+    want = tfw.fused_adamw_step_plain(ps, gs, ms, vs, ws, **kw)
+    for k in range(4):
+        for a, b in zip(out[k], want[k]):
+            assert a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+    _, launches = tfw._launch(ps[:2], gs[:2], ms[:2], vs[:2], ws[:2], [None] * 2, [0, 1],
+                              grad_scale=None, key=None, **kw)
+    assert launches == 0 and len(fake.launches) == 1
+    (factor, norm), launches = tfw._launch_norm([gs[0], gs[3]], 1.0)
+    assert launches == 0 and len(fake.launches) == 1
+    assert float(factor) == 1.0 and float(norm) == 0.0
 
 
 def test_chunk_size():

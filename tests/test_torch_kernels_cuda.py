@@ -2087,6 +2087,51 @@ def test_fused_adamw_step_on_llama_wte(cuda):
     _assert_lists_equal(got, want)
 
 
+def test_fused_adamw_keeps_derived_inputs_alive(cuda):
+    # Inputs the wrapper derives (a bf16 master cast to f32 on every leaf,
+    # equal sizes so the allocator would hand one leaf's freed cast to the
+    # next; a transposed noise copied contiguous, the size of m') live until
+    # the launch: every output equals the plain twin's bit for bit.
+    from mila_tpu_torch.kernels import fused_adamw as fw
+
+    ps, gs, ms, vs, ws = _adamw_leaves([65536] * 4 + [1000003, 5], torch.bfloat16,
+                                       torch.bfloat16, True, 500)
+    ws = [w.bfloat16() for w in ws]
+    kw = dict(step=5, lr=1e-3, weight_decay=0.1, key=(7, 11))
+    for _ in range(2):
+        got = fw.fused_adamw_step(ps, gs, ms, vs, ws, **kw)
+        _assert_lists_equal(got, fw.fused_adamw_step_plain(ps, gs, ms, vs, ws, **kw))
+    p, g, m, v, w = (x[0].reshape(300, 500) for x in _adamw_leaves(
+        [300 * 500], torch.bfloat16, torch.bfloat16, True, 520))
+    noise = torch.randint(-2 ** 31, 2 ** 31 - 1, (500, 300), device="cuda",
+                          dtype=torch.int32).t()
+    kw = dict(step=3, lr=1e-3, noise=noise)
+    got = fw.fused_adamw_update(p, g, m, v, w, **kw)
+    want = fw.fused_adamw_update_plain(p, g, m, v, w, **kw)
+    _assert_lists_equal([[t] for t in got], [[t] for t in want])
+
+
+def test_fused_adamw_counts_only_launches(cuda):
+    # Each wrapper counts the launches it makes: none for a group of empty
+    # leaves, a norm over empty leaves only, or an empty per-leaf update.
+    from mila_tpu_torch.kernels import fused_adamw as fw
+
+    ps, gs, ms, vs, ws = _adamw_leaves([0, 0, 5, 0], torch.bfloat16, torch.bfloat16, True, 540)
+    ps[2], gs[2] = ps[2].float(), gs[2].float()
+    counts = lambda: (fw.fused_adamw_step.launches, fw.grad_clip_scale.launches,  # noqa: E731
+                      fw.fused_adamw_update.launches)
+    before = counts()
+    fw.fused_adamw_step(ps, gs, ms, vs, ws, step=1, lr=1e-3)  # f32: one launch; bf16: none
+    fw.fused_adamw_step(ps[:2], gs[:2], ms[:2], vs[:2], ws[:2], step=1, lr=1e-3)
+    factor, norm = fw.grad_clip_scale([gs[0], gs[1]], 1.0)
+    fw.grad_clip_scale(gs, 1.0)
+    fw.fused_adamw_update(ps[0], gs[0], ms[0], vs[0], ws[0], step=1, lr=1e-3, seed=3)
+    fw.fused_adamw_update(ps[2], gs[2], ms[2], vs[2], ws[2], step=1, lr=1e-3)
+    torch.cuda.synchronize()
+    assert factor.item() == 1.0 and norm.item() == 0.0
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 1)
+
+
 def test_grad_clip_scale_kernel(cuda):
     # One launch over f32, bf16 and fp16 leaves (1 to 5M elements): the
     # norm within 1e-6 relative of the plain one, the factor too, two calls

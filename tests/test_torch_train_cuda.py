@@ -224,6 +224,9 @@ def test_adamw_step_on_the_card_matches_the_cpu(cuda):
 
 
 def test_adamw_step_captures_in_a_cuda_graph(cuda):
+    # A captured step replays that step: each replay equals the eager step
+    # it captured (the step count, learning rate and key are values in the
+    # launch), never the next one.
     from mila_tpu_torch.optim import AdamW, AdamWConfig
 
     opt = AdamW(AdamWConfig(learning_rate=1e-2, weight_decay=0.1, grad_clip_norm=1.0,
@@ -235,8 +238,11 @@ def test_adamw_step_captures_in_a_cuda_graph(cuda):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         got = opt.step(state, params, grads)
-    graph.replay()
-    torch.cuda.synchronize()
-    for a, b in zip(_leaves_of(got[0], got[1].m, got[1].v, got[1].master),
-                    _leaves_of(want[0], want[1].m, want[1].v, want[1].master)):
-        assert torch.equal(a, b)
+    nxt = opt.step(want[1], want[0], grads)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(_leaves_of(got[0], got[1].m, got[1].v, got[1].master),
+                        _leaves_of(want[0], want[1].m, want[1].v, want[1].master)):
+            assert torch.equal(a, b)
+    assert not torch.equal(got[1].m["h"]["w"], nxt[1].m["h"]["w"])
