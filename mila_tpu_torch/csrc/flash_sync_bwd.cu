@@ -1,9 +1,9 @@
 // flash_sync_bwd: the causal grouped-query flash-attention backward from the
-// forward's row statistics, on mma.sync, for what the TMA + wgmma backward
-// (flash_bwd.cu, bf16 and fp16 at D 64-256) does not take: f32 at every D
-// % 64 == 0, bf16 and fp16 past D 256 (the fragments and the tf32 rounding
-// of f32 are in flash_sync.cuh). Its statistics come from the same
-// family's forward (flash_sync_fwd.cu).
+// forward's row statistics, on mma.sync, for what the TMA + wgmma backwards
+// (flash_bwd.cu, bf16 and fp16 at D 64-256; flash_tf32_bwd.cu, f32 at D 64
+// and 128) do not take: f32 at D 192 and 256, every type past D 256 (the
+// fragments and the tf32 rounding of f32 are in flash_sync.cuh). Its
+// statistics come from the same family's forward (flash_sync_fwd.cu).
 //
 // Replaces the TPU kernels mila_tpu/kernels/flash_attention_bwd.py:
 // _dkv_kernel (dK, dV) and _dq_kernel (dQ), entry flash_attention_bwd, at
@@ -54,8 +54,8 @@
 // Tq].
 //
 // Built in five parts (kernels/_build.py: PARTS), one nvcc each: parts 1, 4,
-// 2 and 3 instantiate the f32 D 64-256, f32 past D 256, bf16 and fp16 (past
-// D 256) kernels, part 0 holds the C entry point.
+// 2 and 3 instantiate the f32 D 192 and 256, f32 past D 256, bf16 and fp16
+// (past D 256) kernels, part 0 holds the C entry point.
 #include <type_traits>
 
 #include "flash_sync.cuh"
@@ -1347,9 +1347,7 @@ template <typename T>
 int by_d(const bwd_parts::Call& c) {
   const Args<T> a = args_of<T>(c);
   const int D = c.D, B = c.B;
-  if constexpr (std::is_same<T, float>::value) {  // bf16 and fp16: past D 256 only
-    if (D == 64) return launch<T, 64>(a, B, c.stream);
-    if (D == 128) return launch<T, 128>(a, B, c.stream);
+  if constexpr (std::is_same<T, float>::value) {  // D 64, 128: flash_tf32_bwd.cu
     if (D == 192) return launch<T, 192>(a, B, c.stream);
     if (D == 256) return launch<T, 256>(a, B, c.stream);
     if (D > 256 && D % 64 == 0) return bwd_parts::run_f32_split(c);
@@ -1379,10 +1377,9 @@ int bwd_parts::run_f16(const Call& c) { return by_d<__half>(c); }
 // ptrs: q, k, v, o, do, l, m, delta, dq, dk, dv. q, o, do, dq [B, Tq, NH, D],
 // k, v, dk, dv [B, Tkv, NKV, D] of one type (dtype: 0 f32, 1 bf16, 2 fp16),
 // contiguous, 16-byte-aligned bases; l, m f32 [B, NH, Tq] from
-// flash_sync_fwd; delta f32 [B, NH, Tq] scratch. D in {64, 128, 192, 256}
-// for f32, or any multiple of 64 past 256 for every type (else
-// cudaErrorInvalidValue), Tkv %
-// 64 == 0, NH % NKV == 0 and, when causal, kv_offset >= 0 (checked by
+// flash_sync_fwd; delta f32 [B, NH, Tq] scratch. D in {192, 256} for f32,
+// or any multiple of 64 past 256 for every type (else
+// cudaErrorInvalidValue), Tkv % 64 == 0, NH % NKV == 0 and, when causal, kv_offset >= 0 (checked by
 // the Python wrapper). Two launches (dQ with D, then dK/dV) on `stream`.
 extern "C" int flash_sync_bwd(void* const* ptrs, int B, int Tq, int Tkv, int NH, int NKV, int D,
                               int dtype, float sm_scale, int kv_offset, int causal,

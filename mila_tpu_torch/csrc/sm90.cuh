@@ -3,10 +3,12 @@
 // and 3-D TMA loads, 1-D bulk copies, the proxy fence, wgmma shared-memory
 // descriptors, the bf16 and fp16 wgmma with f32 accumulators (m64n64k16,
 // m64n128k16 and m64n256k16 with both operands in shared memory; m64n64k16
-// and m64n128k16 with A in registers; tf32 m64n32k8), named barriers, and
-// the host-side encoders of TMA descriptors (reached through the runtime's
-// entry-point lookup, so a library needs no -lcuda).
-// Used by qmm_int8.cu, flash_fwd.cu, flash_bwd.cu and flash_sync_bwd.cu.
+// and m64n128k16 with A in registers; tf32 m64n32k8 and m64n64k8 with both
+// operands in shared memory, m64nNk8 for N 64-256 with A in registers),
+// named barriers, and the host-side encoders of TMA descriptors (reached
+// through the runtime's entry-point lookup, so a library needs no -lcuda).
+// Used by qmm_int8.cu, flash_fwd.cu, flash_bwd.cu, flash_sync_bwd.cu and
+// flash_tf32.cuh.
 //
 // Layouts the descriptors describe (128-byte swizzle: inside each
 // 1024-byte atom of 8 rows of 128 bytes, the 16-byte chunk c of row r sits
@@ -349,6 +351,108 @@ __device__ __forceinline__ void wgmma_m64n32k8_tf32(float* d, uint64_t a, uint64
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The accumulator operand lists of the tf32 forms below, as asm text.
+#define SM90_REGS32 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define SM90_REGS64 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, " \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define SM90_REGS96 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, " \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, " \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, " \
+  "%87, %88, %89, %90, %91, %92, %93, %94, %95"
+#define SM90_REGS128 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, " \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, " \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, " \
+  "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, " \
+  "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, " \
+  "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+#define SM90_D96 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+  "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+  "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+  "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), \
+  "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), \
+  "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), \
+  "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), \
+  "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
+  "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), \
+  "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+
+// d (+)= A (64 x 8 tf32, K-major, desc a) x B (8 x N tf32, K-major: N rows
+// of 8 k values, desc b) in f32, N = 32 or 64; accumulate = 0 overwrites d.
+// d's fragment as wgmma_m64n128k16's (d[4 j + i]: row 16 w + l / 4 + 8 (i /
+// 2), column 8 j + 2 (l % 4) + i % 2).
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float* d, uint64_t a, uint64_t b, int accumulate) {
+  static_assert(N == 32 || N == 64, "tf32 SS wgmma: N 32 or 64");
+  if constexpr (N == 32) {
+    wgmma_m64n32k8_tf32(d, a, b, accumulate);
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" SM90_REGS32
+        "}, %32, %33, p, 1, 1;\n}\n"
+        : SM90_D32
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+}
+
+// d (+)= A (64 x 8 tf32 in registers) x B (8 x N, K-major, desc b), N = 64,
+// 128, 192 or 256. A's fragment is mma.sync m16n8k8 .tf32's for each warp's 16 rows
+// (warp w, lane l, g = l / 4, t = l % 4): a[0] = A[16 w + g][t], a[1] =
+// A[16 w + g + 8][t], a[2] = A[16 w + g][t + 4], a[3] = A[16 w + g + 8][t +
+// 4]. An accumulator's columns 2 t and 2 t + 1 of an 8-column group are k
+// indices t and t + 4 here: B's k rows ordered to match (flash_tf32_bwd.cu).
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float* d, const uint32_t* a, uint64_t b,
+                                              int accumulate) {
+  static_assert(N == 64 || N == 128 || N == 192 || N == 256,
+                "tf32 RS wgmma: N 64, 128, 192 or 256");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" SM90_REGS32
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : SM90_D32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" SM90_REGS64
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : SM90_D64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  } else if constexpr (N == 192) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %101, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 {" SM90_REGS96
+        "}, {%96, %97, %98, %99}, %100, p, 1, 1;\n}\n"
+        : SM90_D96
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {" SM90_REGS128
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+        : SM90_D128
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
 }
 
 // The TMA element type of T.

@@ -34,10 +34,10 @@ and fp16 past D 256) launch the simple ``mma.sync`` family
 (``csrc/flash_sync_fwd.cu``, 4 warps of 16 query rows, K/V tiles through
 ``cp.async``; f32 on tf32 products with f32 sums, ROADMAP §C.2; past D 256
 a block owns a column part of O and streams Q and K in 64-column panels).
-The backward takes the ``wgmma`` kernels for bf16 and fp16 up to D 256
-and ``csrc/flash_sync_bwd.cu`` for the rest, its dP on split tf32 operands
-in f32 (f32 past D 256 on 8-warp blocks that form S and dP once a tile).
-``routes`` names the family of each pass.
+The backward takes the ``wgmma`` kernels for bf16 and fp16 up to D 256,
+the tf32 ones for f32 at D 64 and 128, and ``csrc/flash_sync_bwd.cu`` for
+the rest, its dP on split tf32 operands in f32 (f32 past D 256 on 8-warp
+blocks that form S and dP once a tile). ``routes`` names the family of each pass.
 
 Semantics kept from the TPU kernel: the causal tile skip with
 ``kv_offset``, masked scores at -0.7 * f32max, p rounded to V's dtype
@@ -73,17 +73,24 @@ _KV_TILE = 128  # Tkv's multiple: csrc/flash_fwd.cu's key tiles are 128 or 64 ke
 WGMMA_TYPES = (torch.bfloat16, torch.float16)
 WGMMA_FWD_DIMS = (64, 128, 192, 256)
 WGMMA_BWD_DIMS = (64, 128, 192, 256)
+# What the f32 TMA + tf32 wgmma backward takes (csrc/flash_tf32_bwd.cu):
+# its resident f32 tiles (Q, dO hi and lo, or K, V hi and lo, 64 rows each)
+# outgrow shared memory past D 128.
+TF32_BWD_DIMS = (64, 128)
 
 
 def routes(dtype: torch.dtype, D: int) -> tuple[str, str]:
     """The kernel families of a call's forward and backward on the card:
-    "wgmma" (csrc/flash_fwd.cu, csrc/flash_bwd.cu) or "sync"
-    (csrc/flash_sync_fwd.cu, flash_sync_bwd.cu). The backward reads the
-    forward's l and m, whichever family wrote them. Raises for a type
-    neither takes or a D the tiling gate refuses."""
+    "wgmma" (csrc/flash_fwd.cu, csrc/flash_bwd.cu), "tf32" (f32's backward:
+    csrc/flash_tf32_bwd.cu) or "sync" (csrc/flash_sync_fwd.cu,
+    flash_sync_bwd.cu). The backward reads the forward's l and m, whichever
+    family wrote them. Raises for a type none takes or a D the tiling gate
+    refuses."""
     if dtype not in _build.DTYPE_CODES or D <= 0 or D % 64:
         raise NotImplementedError(f"flash attention on the card takes bf16, fp16 or f32 with "
                                   f"D % 64 == 0; got {dtype}, D {D}")
+    if dtype == torch.float32:
+        return "sync", "tf32" if D in TF32_BWD_DIMS else "sync"
     wg = dtype in WGMMA_TYPES
     return ("wgmma" if wg and D in WGMMA_FWD_DIMS else "sync",
             "wgmma" if wg and D in WGMMA_BWD_DIMS else "sync")

@@ -32,14 +32,18 @@ transposed views of the model-layout tensors, which the launch reads
 without a copy. l and m are f32 [B, NH, Tq] (JAX's carry 128 padded lanes;
 the tests compare its column 0). That launch reads either forward's
 statistics (m of the scaled scores, l the f32 sum against the running
-max); the other types and head sizes (``flash_attention.routes``: f32 at
-every D, bf16 and fp16 past D 256) launch ``csrc/flash_sync_bwd.cu``, the
-``mma.sync`` family (a dQ kernel that also forms D, then a dK/dV kernel;
-one call, one count; f32's dP on split tf32 operands, summed in f32), which
-reads the statistics of that family's forward. Past D 256 bf16 and fp16
-blocks own 128-column parts and stream 64-column panels; f32 blocks of 8
-warps own up to 512 columns (two parts at D 1024), form S and dP once a
-tile on ``wgmma``'s tf32 form and stage each operand once. A causal call with a negative ``kv_offset`` (rows with no visible
+max). f32 at D 64 and 128 launches ``csrc/flash_tf32_bwd.cu`` (two prep
+launches write every operand once as tf32 ``wgmma`` reads it: rounded, dO
+and V also split into hi and lo for dP, Q, dO and K also transposed; then
+a dK/dV and a dQ kernel on TMA and tf32 ``wgmma``; one call, one count).
+The other types and head sizes (``flash_attention.routes``: f32 at D 192
+and 256 and past, bf16 and fp16 past D 256) launch
+``csrc/flash_sync_bwd.cu``, the ``mma.sync`` family (a dQ kernel that also
+forms D, then a dK/dV kernel; one call, one count). Every f32 dP runs on
+split tf32 operands, summed in f32. Past D 256 bf16 and fp16 blocks own
+128-column parts and stream 64-column panels; f32 blocks of 8 warps own up
+to 512 columns (two parts at D 1024), form S and dP once a tile on
+``wgmma``'s tf32 form and stage each operand once. A causal call with a negative ``kv_offset`` (rows with no visible
 key) raises on the card, as the forward does.
 """
 
@@ -108,6 +112,18 @@ def _sync_lib() -> ctypes.CDLL:
     return lib
 
 
+def _tf32_lib() -> ctypes.CDLL:
+    lib = _build.library("flash_tf32_bwd")
+    if not getattr(lib, "_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.flash_tf32_bwd.argtypes = [vp, vp] + [ci] * 6 + [ctypes.c_float, ci, ci, vp]
+        lib.flash_tf32_bwd.restype = ci
+        lib.flash_tf32_bwd_scratch.argtypes = [ci] * 6
+        lib.flash_tf32_bwd_scratch.restype = ctypes.c_longlong
+        lib._typed = True
+    return lib
+
+
 def _launch(q, k, v, o, l, m, do, causal: bool, sm_scale: float, kv_offset: int):
     B, NH, Tq, D = q.shape
     NKV, Tkv = k.shape[1], k.shape[2]
@@ -128,6 +144,20 @@ def _launch(q, k, v, o, l, m, do, causal: bool, sm_scale: float, kv_offset: int)
 
     qm, km, vm, om, dom = (model_layout(t) for t in (q, k, v, o, do))
     lc, mc = l.float().contiguous(), m.float().contiguous()
+    if fam == "tf32":
+        lib = _tf32_lib()
+        # The operand copies the prep launches write (rounded, split and
+        # transposed for the products), lse2 and D.
+        scratch = torch.empty(lib.flash_tf32_bwd_scratch(B, Tq, Tkv, NH, NKV, D),
+                              device=q.device, dtype=torch.float32)
+        dq, dk, dv = torch.empty_like(qm), torch.empty_like(km), torch.empty_like(vm)
+        ptrs = (ctypes.c_void_p * 10)(*(t.data_ptr() for t in (qm, km, vm, om, dom, lc, mc, dq,
+                                                                dk, dv)))
+        rc = lib.flash_tf32_bwd(ptrs, _build.ptr(scratch), B, Tq, Tkv, NH, NKV, D, sm_scale,
+                                kv_offset, int(causal), _build.stream_of(q))
+        _build.check(lib, rc, "flash_tf32_bwd")
+        flash_attention_bwd.launches += 1
+        return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
     if fam == "sync":
         delta = torch.empty(B, NH, Tq, device=q.device, dtype=torch.float32)  # scratch
         dq, dk, dv = torch.empty_like(qm), torch.empty_like(km), torch.empty_like(vm)

@@ -4,17 +4,19 @@ float64 reference, beside the plain f32 version's, per head size, on the GPU.
     python -m mila_tpu_torch.tools.flash_f32_rows [--dims 64 128 192 256 320]
         [--truncating]
 
-The f32 branch (``csrc/flash_sync_*.cu``) multiplies on tf32 operands
-(ROADMAP §C.2). The reference takes the same q, k, v, the kernel
-forward's o, l, m and the same do, and computes in float64. A row's error
-is its max |got - ref| over its max |ref|, floored at 1e-3 of the tensor's
-max (as the card tests take it); the first query's row is printed apart,
-since there dS = P (dP - D) is only the forward's rounding residue.
-``--truncating`` also checks a copy of ``csrc/flash_sync_bwd.cu`` whose dP
-sums its split products on the tensor cores alone (without ``mma_rows_rn``'s
-f32 adds, and without ``split::s_dp_panel``'s past D 256: at every head size
-the tensor cores' own sums, rounded toward 0). One JSON line per head size;
-about a minute with the builds.
+The f32 branch (``csrc/flash_tf32_*.cu`` at D 64 and 128,
+``csrc/flash_sync_*.cu`` past them) multiplies on tf32 operands (ROADMAP
+§C.2). The reference takes the same q, k, v, the kernel forward's o, l, m
+and the same do, and computes in float64. A row's error is its max |got -
+ref| over its max |ref|, floored at 1e-3 of the tensor's max (as the card
+tests take it); the first query's row is printed apart, since there dS = P
+(dP - D) is only the forward's rounding residue. ``--truncating`` also
+checks a copy of the backward source each head size routes to whose dP sums
+its split products on the tensor cores alone (``flash_tf32_bwd.cu``: RN
+covering every k-slice; ``flash_sync_bwd.cu``: without ``mma_rows_rn``'s f32
+adds, and without ``split::s_dp_panel``'s past D 256): the tensor cores' own
+sums, rounded toward 0. One JSON line per head size; about a minute with the
+builds.
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ from mila_tpu_torch.kernels import _build
 from mila_tpu_torch.kernels import flash_attention as fa
 from mila_tpu_torch.kernels import flash_attention_bwd as fb
 
-SRC = "flash_sync_bwd.cu"
 
 
 def row_errs(got, want, floor: float = 1e-3) -> torch.Tensor:
@@ -56,52 +57,57 @@ def reference(q, k, v, o, l, m, do, sm: float):
     return (ds @ kh).transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
 
 
-# dP's f32 adds (flash_sync.cuh: mma_rows_rn, called by the kernels up to D
-# 256; flash_sync_bwd.cu: split::s_dp_panel past it), and the same products
-# summed into dP on the tensor cores alone: (file, rn text, truncating).
-TRUNCATING = [
-    (SRC, "          mma_split(acc[ni], ", "          mma_split(dp[ni], "),
-    (SRC, "      for (int ni = 0; ni < BKV / 8; ++ni) mma_rows_rn(dp[ni], acc[ni]);", ""),
-    (SRC, "      for (int ni = 0; ni < BQD / 8; ++ni) mma_rows_rn(dp[ni], acc[ni]);", ""),
-    (SRC, "    wgmma_m64n32k8_tf32(acc, ", "    wgmma_m64n32k8_tf32(dp, "),
-    (SRC, "    wgmma_fence_operand<16>(acc);", "    wgmma_fence_operand<16>(dp);"),
-    (SRC, "    for (int e = 0; e < 16; ++e) dp[e] += acc[e];", ""),
-]
+# dP's f32 adds (flash_tf32_bwd.cu: RN k-slices at a time; flash_sync.cuh:
+# mma_rows_rn, called by flash_sync_bwd.cu's kernels up to D 256, and its
+# split::s_dp_panel past it), and the same products summed into dP on the
+# tensor cores alone: per backward family, (file, rn text, truncating).
+TRUNCATING = {
+    "tf32": [("flash_tf32_bwd.cu", "constexpr int RN = 2;", "constexpr int RN = 1 << 10;")],
+    "sync": [
+        ("flash_sync_bwd.cu", "          mma_split(acc[ni], ", "          mma_split(dp[ni], "),
+        ("flash_sync_bwd.cu",
+         "      for (int ni = 0; ni < BKV / 8; ++ni) mma_rows_rn(dp[ni], acc[ni]);", ""),
+        ("flash_sync_bwd.cu",
+         "      for (int ni = 0; ni < BQD / 8; ++ni) mma_rows_rn(dp[ni], acc[ni]);", ""),
+        ("flash_sync_bwd.cu", "    wgmma_m64n32k8_tf32(acc, ", "    wgmma_m64n32k8_tf32(dp, "),
+        ("flash_sync_bwd.cu", "    wgmma_fence_operand<16>(acc);",
+         "    wgmma_fence_operand<16>(dp);"),
+        ("flash_sync_bwd.cu", "    for (int e = 0; e < 16; ++e) dp[e] += acc[e];", ""),
+    ],
+}
 
 
-def truncating_lib() -> ctypes.CDLL:
-    """A copy of flash_sync_bwd.cu with dP summed on the tensor cores alone."""
-    vdir = _build.BUILD_DIR / "flash_sync_bwd_truncating"
+def truncating_lib(family: str) -> ctypes.CDLL:
+    """A copy of the family's backward source with dP summed on the tensor
+    cores alone, all of it in one nvcc."""
+    src = TRUNCATING[family][0][0]
+    vdir = _build.BUILD_DIR / f"{src[:-3]}_truncating"
     vdir.mkdir(parents=True, exist_ok=True)
-    texts = {f.name: f.read_text() for f in [*_build.CSRC.glob("*.cuh"), _build.CSRC / SRC]}
-    for fname, rn, tc in TRUNCATING:
+    texts = {f.name: f.read_text() for f in [*_build.CSRC.glob("*.cuh"), _build.CSRC / src]}
+    for fname, rn, tc in TRUNCATING[family]:
         if rn not in texts[fname]:
             raise RuntimeError(f"{fname} no longer has dP's f32 step as this tool knows it")
         texts[fname] = texts[fname].replace(rn, tc)
     for fname, text in texts.items():
         (vdir / fname).write_text(text)
     subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(vdir / "lib.so"),
-                    str(vdir / SRC)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(vdir / "lib.so"))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.flash_sync_bwd.argtypes = [vp] + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
-    lib.flash_sync_bwd.restype = ci
-    return lib
+                    str(vdir / src)], check=True, capture_output=True)
+    return ctypes.CDLL(str(vdir / "lib.so"))
 
 
-def call_lib(lib, q, k, v, o, l, m, do, sm: float):
-    """The wrapper's launch of flash_sync_bwd (model layout, f32), on lib."""
-    B, T, NH, D = q.shape
-    NKV = k.shape[2]
-    delta = torch.empty(B, NH, T, device=q.device)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    ptrs = (ctypes.c_void_p * 11)(*(t.data_ptr() for t in (q, k, v, o, do, l, m, delta, dq, dk,
-                                                            dv)))
-    rc = lib.flash_sync_bwd(ptrs, B, T, T, NH, NKV, D, _build.DTYPE_CODES[torch.float32], sm, 0,
-                            1, _build.stream_of(q))
-    if rc:
-        raise RuntimeError(f"flash_sync_bwd (truncating): CUDA error {rc}")
-    return dq, dk, dv
+def backward(hm, l, m, sm: float, lib=None):
+    """flash_attention_bwd on head-major views, through the wrapper; with
+    ``lib``, that library in place of the family's own (the wrapper types
+    it as it types its own)."""
+    name = {"tf32": "flash_tf32_bwd", "sync": "flash_sync_bwd"}[fa.routes(torch.float32,
+                                                                          hm[0].shape[-1])[1]]
+    own = _build.library(name)
+    if lib is not None:
+        _build._libs[name] = lib
+    try:
+        return fb.flash_attention_bwd(*hm[:4], l, m, hm[4], causal=True, sm_scale=sm)
+    finally:
+        _build._libs[name] = own
 
 
 def main() -> None:
@@ -109,7 +115,9 @@ def main() -> None:
     ap.add_argument("--dims", nargs="+", type=int, default=[64, 128, 192, 256, 320])
     ap.add_argument("--truncating", action="store_true")
     args = ap.parse_args()
-    lib = truncating_lib() if args.truncating else None
+    libs = {}
+    if args.truncating:
+        libs = {f: truncating_lib(f) for f in {fa.routes(torch.float32, D)[1] for D in args.dims}}
     card = torch.cuda.get_device_name(0)
     for D in args.dims:
         g = torch.Generator(device="cuda").manual_seed(0)
@@ -120,13 +128,14 @@ def main() -> None:
         o, l, m = fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm)
         ref = reference(q, k, v, o, l, m, do, sm)
         hm = [t.transpose(1, 2) for t in (q, k, v, o, do)]
-        outs = {"kernel": [t.transpose(1, 2) for t in fb.flash_attention_bwd(
-                    *hm[:4], l, m, hm[4], causal=True, sm_scale=sm)],
+        family = fa.routes(torch.float32, D)[1]
+        outs = {"kernel": [t.transpose(1, 2) for t in backward(hm, l, m, sm)],
                 "plain": [t.transpose(1, 2) for t in fb.flash_attention_bwd_plain(
                     *hm[:4], l, m, hm[4], causal=True, sm_scale=sm)]}
-        if lib is not None:
-            outs["truncating"] = call_lib(lib, q, k, v, o, l, m, do, sm)
-        row = {"D": D, "T": T, "card": card}
+        if family in libs:
+            outs["truncating"] = [t.transpose(1, 2) for t in backward(hm, l, m, sm,
+                                                                      libs[family])]
+        row = {"D": D, "T": T, "family": family, "card": card}
         for name, got in outs.items():
             errs = [row_errs(a, b) for a, b in zip(got, ref)]
             row[name] = {n: e.max().item() for n, e in zip(("dq", "dk", "dv"), errs)}

@@ -1780,13 +1780,51 @@ def _sync_forward_then_backward(dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
         assert err <= row_tol, f"{name}: worst row's relative err {err}"
 
 
+# f32's backward takes the TMA + tf32 wgmma family (csrc/flash_tf32_bwd.cu)
+# at D 64 and 128; the mma.sync family takes the rest of f32, and bf16 and
+# fp16 past D 256.
+def _family(dtype, D):
+    return "sync", "tf32" if dtype == torch.float32 and D <= 128 else "sync"
+
+
 @pytest.mark.parametrize("dtype,D,B,Tq,Tkv,NH,NKV,off,causal", _SYNC_CASES)
 def test_flash_sync_kernels(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
-    # The mma.sync family both ways (what the wgmma kernels do not take).
+    # What the bf16 and fp16 wgmma kernels do not take, both ways: the
+    # mma.sync family, and f32's backward at D 64 and 128 on the tf32 family.
     from mila_tpu_torch.kernels import flash_attention as fa
 
-    assert fa.routes(dtype, D) == ("sync", "sync")
+    assert fa.routes(dtype, D) == _family(dtype, D)
     _sync_forward_then_backward(dtype, D, B, Tq, Tkv, NH, NKV, off, causal)
+
+
+@pytest.mark.parametrize("D,B,Tq,Tkv,NH,NKV,off", [
+    (64, 2, 192, 320, 8, 2, 128),  # Tkv not a multiple of the forward's 128
+    (64, 4, 1088, 1088, 12, 12, 0),  # the last 128-key dK/dV block half full
+    (128, 2, 80, 320, 4, 2, 240),  # one ragged q tile, Tkv 320
+])
+def test_flash_tf32_bwd_on_plain_stats(cuda, D, B, Tq, Tkv, NH, NKV, off):
+    # The tf32 backward at key counts the forward does not take, on the
+    # plain forward's o, l and m, against its plain version (f32 gate).
+    from mila_tpu_torch.kernels import flash_attention as fa
+    from mila_tpu_torch.kernels import flash_attention_bwd as fb
+
+    assert fa.routes(torch.float32, D)[1] == "tf32"
+    q = _rand((B, Tq, NH, D), 174, dtype=torch.float32)
+    k, v = (_rand((B, Tkv, NKV, D), s, dtype=torch.float32) for s in (175, 176))
+    do = _rand((B, Tq, NH, D), 177, dtype=torch.float32)
+    sm = D ** -0.5
+    o, l, m = fa.flash_attention_plain(q, k, v, causal=True, scale=sm, kv_offset=off,
+                                       save_stats=True)
+    hm = [t.transpose(1, 2) for t in (q, k, v, o, do)]
+    before = fb.flash_attention_bwd.launches
+    got = fb.flash_attention_bwd(*hm[:4], l, m, hm[4], causal=True, sm_scale=sm, kv_offset=off)
+    torch.cuda.synchronize()
+    assert fb.flash_attention_bwd.launches == before + 1
+    want = fb.flash_attention_bwd_plain(*hm[:4], l, m, hm[4], causal=True, sm_scale=sm,
+                                        kv_offset=off)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err = _row_err(a.transpose(1, 2), b.transpose(1, 2))
+        assert err <= 5e-3, f"{name}: worst row's relative err {err}"
 
 
 @pytest.mark.parametrize("dtype,D,B,Tq,Tkv,NH,NKV,off,causal", _SYNC_FWD_CASES)
@@ -1803,15 +1841,18 @@ def test_flash_wgmma_bwd_on_sync_stats(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off,
 
 @pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.float32, 320),
                                      (torch.bfloat16, 320), (torch.float16, 512),
-                                     (torch.float32, 512), (torch.float32, 1024)])
+                                     (torch.float32, 512), (torch.float32, 1024),
+                                     (torch.float32, 128), (torch.float32, 256)])
 def test_flash_sync_graph_replay_and_determinism(cuda, dtype, D):
-    # The mma.sync family: two forward + backward calls on the same inputs
-    # are bit-equal (no atomics), and a captured forward + backward
-    # replayed after q, k, v and do change in place equals eager calls.
+    # The mma.sync family and f32's tf32 backward (D 64 and 128, its operand
+    # copies in scratch from the graph's pool): two forward + backward calls
+    # on the same inputs are bit-equal (no atomics), and a captured forward
+    # + backward replayed after q, k, v and do change in place equals eager
+    # calls.
     from mila_tpu_torch.kernels import flash_attention as fa
     from mila_tpu_torch.kernels import flash_attention_bwd as fb
 
-    assert fa.routes(dtype, D) == ("sync", "sync")
+    assert fa.routes(dtype, D) == _family(dtype, D)
     sq, skv = (2, 384, 8, D), (2, 512, 2, D)
     q, k, v, do = (_rand(sh, s, dtype=dtype) for sh, s in ((sq, 180), (skv, 181), (skv, 182),
                                                           (sq, 183)))
