@@ -1,7 +1,8 @@
 // The mma.sync flash-attention family (flash_sync_fwd.cu, flash_sync_bwd.cu):
 // what the TMA + wgmma kernels (flash_fwd.cu and flash_bwd.cu: bf16 and fp16
-// at D 64-256) do not take and the TPU kernels' tiling gate admits: f32 at
-// every D % 64 == 0, bf16 and fp16 past D 256.
+// at D 64-256; flash_tf32_*.cu: f32 at D 64-256 forward, 64 and 128
+// backward) do not take and the TPU kernels' tiling gate admits: f32's
+// backward at D 192 and 256, every type past D 256.
 //
 // One warp owns 16 rows of a tile and runs its products on mma.sync with
 // f32 accumulators: bf16 and fp16 on m16n8k16, f32 on m16n8k8 .tf32 (the

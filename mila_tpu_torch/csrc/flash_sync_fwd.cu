@@ -1,25 +1,23 @@
 // flash_sync_fwd: the causal grouped-query flash-attention forward with its
-// row statistics, on mma.sync, for what the TMA + wgmma forward (flash_fwd.cu,
-// bf16 and fp16 at D 64-256) does not take: f32 at every D % 64 == 0, bf16
-// and fp16 past D 256 (the fragments and the tf32 rounding of f32 are in
-// flash_sync.cuh).
+// row statistics, on mma.sync, past D 256 at every type (the TMA + wgmma
+// forwards take D 64-256: flash_fwd.cu bf16 and fp16, flash_tf32_fwd.cu
+// f32; the fragments and the tf32 rounding of f32 are in flash_sync.cuh).
 //
 // Replaces the TPU kernels mila_tpu/kernels/flash_attention.py:_fa_kernel
 // and _fa_kernel_t (entry flash_attention -> _flash_attention_forward, with
-// and without save_stats) at those types and head sizes.
+// and without save_stats) at those head sizes.
 //
 // Bound on the H100: tensor-core operations at prefill lengths (4 Tq Tkv D
 // per head, about half skipped by the causal tiles) against Tq + 2 Tkv rows
 // of D values read. This family is the simple one (no TMA, no warpgroup
 // MMA, no overlap of the softmax with the products): right first, its times
 // in PERF.md.
-// Design: one block of 4 warps per (64 query rows, head, batch row), the q
-// tiles heaviest first; each warp owns 16 query rows. The Q tile is loaded
-// once into shared memory; K/V tiles of N keys (Tile<T, D>: 64, 32 or 16,
-// by the bytes of a row) stream through shared memory by cp.async, double
-// buffered. S = Q K^T and O += P V on mma.sync; the online softmax in f32
-// per row (4 lanes share a row). Past D 256 a block owns a column part of O
-// and streams Q and K in 64-column panels (fwd_wide_kernel below).
+// Design (fwd_wide_kernel below): one block of 4 warps per (64 query rows,
+// head and column part of O, batch row), the q tiles heaviest first; each
+// warp owns 16 query rows. Q and K stream through shared memory in
+// 64-column panels by cp.async, double buffered, beside each key tile's V
+// columns of the part. S = Q K^T and O += P V on mma.sync; the online
+// softmax in f32 per row (4 lanes share a row).
 //
 // The TPU kernel's semantics, as flash_fwd.cu: the causal tile skip with
 // kv_offset (a key tile runs when its first key <= the q tile's last row +
@@ -30,8 +28,6 @@
 // the scaled scores) are written per row when asked for: the statistics
 // flash_sync_bwd.cu reads. Layouts are the model's: q and out [B, Tq, NH,
 // D], k and v [B, Tkv, NKV, D], contiguous, 16-byte-aligned bases.
-#include <type_traits>
-
 #include "flash_sync.cuh"
 
 namespace {
@@ -87,118 +83,6 @@ __device__ __forceinline__ void softmax_tile(float (*s)[4], float (*o)[4], float
     o[di][1] *= alpha[0];
     o[di][2] *= alpha[1];
     o[di][3] *= alpha[1];
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           T* __restrict__ out, float* __restrict__ l_out, float* __restrict__ m_out, int Tq,
-           int Tkv, int NH, int NKV, float sm_scale, int kv_offset, int causal) {
-  using O = Ops<T>;
-  constexpr int BKV = Tile<T, D>::N, RS = Tile<T, D>::RS, KS = O::KS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][RS]
-  T* Ks = Qs + BQ * RS;                      // [2][BKV][RS]
-  T* Vs = Ks + 2 * BKV * RS;                 // [2][BKV][RS]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (NH / NKV);
-  const int q0 = qt * BQ;
-  const int wrow = q0 + warp * 16;  // the warp's first query row
-  const int r0 = wrow + g;          // this thread's rows r0 and r0 + 8
-  const size_t qstride = (size_t)NH * D, kstride = (size_t)NKV * D;
-  const T* qb = q + (size_t)b * Tq * qstride + (size_t)h * D;
-  const T* kb = k + (size_t)b * Tkv * kstride + (size_t)hk * D;
-  const T* vb = v + (size_t)b * Tkv * kstride + (size_t)hk * D;
-
-  int n_kv = Tkv / BKV;
-  if (causal) {
-    const int last = q0 + BQ - 1 + kv_offset;  // the TPU kernel's tile-skip rule
-    n_kv = last < 0 ? 0 : min(n_kv, last / BKV + 1);
-  }
-  auto load_kv = [&](int buf, int j) {
-    load_block<T, RS>(Ks + buf * BKV * RS, kb, kstride, j * BKV, BKV, D, Tkv, tid);
-    load_block<T, RS>(Vs + buf * BKV * RS, vb, kstride, j * BKV, BKV, D, Tkv, tid);
-    cp_async_commit();
-  };
-  load_block<T, RS>(Qs, qb, qstride, q0, BQ, D, Tq, tid);
-  if (n_kv > 0)
-    load_kv(0, 0);  // one group with Q
-  else
-    cp_async_commit();
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int buf = j & 1, k0 = j * BKV;
-    if (j + 1 < n_kv) {
-      load_kv(buf ^ 1, j + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* kt = Ks + buf * BKV * RS;
-    const T* vt = Vs + buf * BKV * RS;
-
-    // S = Q K^T for the warp's 16 rows x BKV keys.
-    float s[BKV / 8][4];
-#pragma unroll
-    for (int ni = 0; ni < BKV / 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[ni][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / KS; ++kk) {
-      uint32_t a[4];
-      O::a_rows(a, Qs, RS, warp * 16, kk * KS, lane);
-#pragma unroll
-      for (int ni = 0; ni < BKV / 8; ++ni) {
-        uint32_t bf[2];
-        O::b_rows(bf, kt, RS, ni * 8, kk * KS, lane);
-        O::mma(s[ni], a, bf);
-      }
-    }
-
-    softmax_tile<BKV, D / 8>(s, o, m, l, k0, wrow, r0, t, sm_scale, kv_offset, causal);
-
-    // O += P V, p rounded to V's type in the A fragments.
-#pragma unroll
-    for (int kk = 0; kk < BKV / KS; ++kk) {
-      uint32_t a[4];
-      O::a_acc(a, &s[kk * KS / 8]);
-#pragma unroll
-      for (int di = 0; di < D / 8; ++di) {
-        uint32_t bf[2];
-        O::b_trans(bf, vt, RS, kk * KS, di * 8, lane);
-        O::mma(o[di], a, bf);
-      }
-    }
-    __syncthreads();  // the next iteration's load overwrites the other buffer's last reader
-  }
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = r0 + 8 * hr;
-    if (row >= Tq) continue;
-    const float inv = l[hr] == 0.f ? 1.f : 1.f / l[hr];
-    if (l_out != nullptr && t == 0) {
-      const size_t srow = ((size_t)b * NH + h) * Tq + row;
-      l_out[srow] = l[hr];
-      m_out[srow] = m[hr];
-    }
-    T* orow = out + (size_t)b * Tq * qstride + (size_t)row * qstride + (size_t)h * D;
-#pragma unroll
-    for (int di = 0; di < D / 8; ++di)
-      O::store2(orow + di * 8 + 2 * t, o[di][2 * hr] * inv, o[di][2 * hr + 1] * inv);
   }
 }
 
@@ -322,22 +206,6 @@ fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, float* l_out, float* m_out,
-           int B, int Tq, int Tkv, int NH, int NKV, float sm_scale, int kv_offset, int causal,
-           cudaStream_t stream) {
-  constexpr int N = Tile<T, D>::N, RS = Tile<T, D>::RS;
-  constexpr int smem = (BQ + 4 * N) * RS * (int)sizeof(T);
-  auto kern = fwd_kernel<T, D>;
-  static bool done[64] = {};
-  if (const int e = opt_in(kern, smem, done)) return e;
-  dim3 grid((Tq + BQ - 1) / BQ, NH, B);
-  kern<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                        static_cast<const T*>(v), static_cast<T*>(out), l_out,
-                                        m_out, Tq, Tkv, NH, NKV, sm_scale, kv_offset, causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T>
 int launch_wide(const void* q, const void* k, const void* v, void* out, float* l_out,
                 float* m_out, int B, int Tq, int Tkv, int NH, int NKV, int D, float sm_scale,
@@ -354,26 +222,12 @@ int launch_wide(const void* q, const void* k, const void* v, void* out, float* l
   return static_cast<int>(cudaGetLastError());
 }
 
-// f32 takes D 64-256 here; bf16 and fp16 take them on flash_fwd.cu; every
-// type takes D % 64 == 0 past 256 (launch_wide).
+// bf16 and fp16 take D 64-256 on flash_fwd.cu, f32 on flash_tf32_fwd.cu;
+// every type takes D % 64 == 0 past 256 here.
 template <typename T>
 int by_d(int D, const void* q, const void* k, const void* v, void* out, float* lo, float* mo,
          int B, int Tq, int Tkv, int NH, int NKV, float sm_scale, int kv_offset, int causal,
          cudaStream_t s) {
-  if constexpr (std::is_same<T, float>::value) {
-    if (D == 64)
-      return launch<T, 64>(q, k, v, out, lo, mo, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset,
-                           causal, s);
-    if (D == 128)
-      return launch<T, 128>(q, k, v, out, lo, mo, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset,
-                            causal, s);
-    if (D == 192)
-      return launch<T, 192>(q, k, v, out, lo, mo, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset,
-                            causal, s);
-    if (D == 256)
-      return launch<T, 256>(q, k, v, out, lo, mo, B, Tq, Tkv, NH, NKV, sm_scale, kv_offset,
-                            causal, s);
-  }
   if (D > 256 && D % 64 == 0)
     return launch_wide<T>(q, k, v, out, lo, mo, B, Tq, Tkv, NH, NKV, D, sm_scale, kv_offset,
                           causal, s);
@@ -383,9 +237,8 @@ int by_d(int D, const void* q, const void* k, const void* v, void* out, float* l
 }  // namespace
 
 // q [B, Tq, NH, D], k and v [B, Tkv, NKV, D], out [B, Tq, NH, D], of one type
-// (dtype: 0 f32, 1 bf16, 2 fp16), contiguous, 16-byte-aligned bases. D in
-// {64, 128, 192, 256} for f32, or any multiple of 64 past 256 for every
-// type (else cudaErrorInvalidValue); Tkv % 64 == 0 and
+// (dtype: 0 f32, 1 bf16, 2 fp16), contiguous, 16-byte-aligned bases. D any
+// multiple of 64 past 256 (else cudaErrorInvalidValue); Tkv % 64 == 0 and
 // NH % NKV == 0 (checked by the Python wrapper). causal != 0 masks key j
 // for query i unless j <= i + kv_offset.
 // l_out and m_out null, or f32 [B, NH, Tq]: each row's softmax sum l and max

@@ -1,6 +1,7 @@
-// The f32 flash-attention backward on TMA and tf32 warpgroup MMA
-// (flash_tf32_bwd.cu at D 64 and 128): the prep pass that writes each
-// operand once as the products read it, and the helpers it shares.
+// The f32 flash-attention family on TMA and tf32 warpgroup MMA
+// (flash_tf32_fwd.cu at D 64-256, flash_tf32_bwd.cu at D 64 and 128): the
+// prep pass that writes each operand once as the products read it, and the
+// helpers both share.
 //
 // tf32 wgmma takes no transpose bit (both operands K-major), and reads
 // whatever f32 bits sit in shared memory without rounding them. So the prep

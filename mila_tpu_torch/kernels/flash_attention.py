@@ -29,15 +29,18 @@ and 256 a producer warpgroup hands its registers to them (``setmaxnreg``).
 The wrapper encodes the three TMA descriptors per call, so a CUDA graph
 replays valid ones; a base that is not 16-byte aligned is copied first.
 
-The other types and head sizes that the gate admits (f32 at every D, bf16
-and fp16 past D 256) launch the simple ``mma.sync`` family
-(``csrc/flash_sync_fwd.cu``, 4 warps of 16 query rows, K/V tiles through
-``cp.async``; f32 on tf32 products with f32 sums, ROADMAP §C.2; past D 256
-a block owns a column part of O and streams Q and K in 64-column panels).
-The backward takes the ``wgmma`` kernels for bf16 and fp16 up to D 256,
-the tf32 ones for f32 at D 64 and 128, and ``csrc/flash_sync_bwd.cu`` for
-the rest, its dP on split tf32 operands in f32 (f32 past D 256 on 8-warp
-blocks that form S and dP once a tile). ``routes`` names the family of each pass.
+f32 at D 64-256 launches the tf32 family (``csrc/flash_tf32_fwd.cu``): a
+prep launch writes K rounded to tf32 and V rounded and transposed (tf32
+``wgmma`` takes no transpose bit), then the same block shape on TMA and
+tf32 ``wgmma`` (one warpgroup with 32-key tiles at D 192 and 256), Q's
+rows rounded once in shared memory, p rounded to tf32 before P V (ROADMAP
+§C.2). Past D 256 every type launches the simple ``mma.sync`` family
+(``csrc/flash_sync_fwd.cu``: a block owns a column part of O and streams Q
+and K in 64-column panels through ``cp.async``). The backward takes the
+``wgmma`` kernels for bf16 and fp16 up to D 256, the tf32 ones for f32 at
+D 64 and 128, and ``csrc/flash_sync_bwd.cu`` for the rest, its dP on split
+tf32 operands in f32 (f32 past D 256 on 8-warp blocks that form S and dP
+once a tile). ``routes`` names the family of each pass.
 
 Semantics kept from the TPU kernel: the causal tile skip with
 ``kv_offset``, masked scores at -0.7 * f32max, p rounded to V's dtype
@@ -73,24 +76,26 @@ _KV_TILE = 128  # Tkv's multiple: csrc/flash_fwd.cu's key tiles are 128 or 64 ke
 WGMMA_TYPES = (torch.bfloat16, torch.float16)
 WGMMA_FWD_DIMS = (64, 128, 192, 256)
 WGMMA_BWD_DIMS = (64, 128, 192, 256)
-# What the f32 TMA + tf32 wgmma backward takes (csrc/flash_tf32_bwd.cu):
-# its resident f32 tiles (Q, dO hi and lo, or K, V hi and lo, 64 rows each)
-# outgrow shared memory past D 128.
+# What the f32 TMA + tf32 wgmma kernels take (csrc/flash_tf32_fwd.cu,
+# csrc/flash_tf32_bwd.cu): the backward's resident f32 tiles (Q, dO hi and
+# lo, or K, V hi and lo, 64 rows each) outgrow shared memory past D 128.
+TF32_FWD_DIMS = (64, 128, 192, 256)
 TF32_BWD_DIMS = (64, 128)
 
 
 def routes(dtype: torch.dtype, D: int) -> tuple[str, str]:
     """The kernel families of a call's forward and backward on the card:
-    "wgmma" (csrc/flash_fwd.cu, csrc/flash_bwd.cu), "tf32" (f32's backward:
-    csrc/flash_tf32_bwd.cu) or "sync" (csrc/flash_sync_fwd.cu,
-    flash_sync_bwd.cu). The backward reads the forward's l and m, whichever
+    "wgmma" (csrc/flash_fwd.cu, csrc/flash_bwd.cu), "tf32" (f32:
+    csrc/flash_tf32_fwd.cu, flash_tf32_bwd.cu) or "sync"
+    (csrc/flash_sync_fwd.cu, flash_sync_bwd.cu). The backward reads the forward's l and m, whichever
     family wrote them. Raises for a type none takes or a D the tiling gate
     refuses."""
     if dtype not in _build.DTYPE_CODES or D <= 0 or D % 64:
         raise NotImplementedError(f"flash attention on the card takes bf16, fp16 or f32 with "
                                   f"D % 64 == 0; got {dtype}, D {D}")
     if dtype == torch.float32:
-        return "sync", "tf32" if D in TF32_BWD_DIMS else "sync"
+        return ("tf32" if D in TF32_FWD_DIMS else "sync",
+                "tf32" if D in TF32_BWD_DIMS else "sync")
     wg = dtype in WGMMA_TYPES
     return ("wgmma" if wg and D in WGMMA_FWD_DIMS else "sync",
             "wgmma" if wg and D in WGMMA_BWD_DIMS else "sync")
@@ -148,6 +153,18 @@ def _sync_lib() -> ctypes.CDLL:
     return lib
 
 
+def _tf32_lib() -> ctypes.CDLL:
+    lib = _build.library("flash_tf32_fwd")
+    if not getattr(lib, "_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.flash_tf32_fwd.argtypes = [vp] * 7 + [ci] * 6 + [ctypes.c_float, ci, ci, vp]
+        lib.flash_tf32_fwd.restype = ci
+        lib.flash_tf32_fwd_scratch.argtypes = [ci] * 4
+        lib.flash_tf32_fwd_scratch.restype = ctypes.c_longlong
+        lib._typed = True
+    return lib
+
+
 def _launch(q, k, v, causal: bool, sm_scale: float, kv_offset: int, stats: bool = False):
     """One flash_fwd or flash_sync_fwd launch; (out, l, m) with ``stats``,
     else out."""
@@ -173,7 +190,15 @@ def _launch(q, k, v, causal: bool, sm_scale: float, kv_offset: int, stats: bool 
         l = torch.empty(B, NH, Tq, device=q.device, dtype=torch.float32)
         m = torch.empty_like(l)
     lm = (None if l is None else _build.ptr(l), None if m is None else _build.ptr(m))
-    if fam == "wgmma":
+    if fam == "tf32":
+        lib = _tf32_lib()
+        # K rounded to tf32 and V rounded and transposed, by the prep launch.
+        scratch = torch.empty(lib.flash_tf32_fwd_scratch(B, Tkv, NKV, D), device=q.device,
+                              dtype=torch.float32)
+        rc = lib.flash_tf32_fwd(_build.ptr(qc), _build.ptr(kc), _build.ptr(vc), _build.ptr(out),
+                                *lm, _build.ptr(scratch), B, Tq, Tkv, NH, NKV, D, sm_scale,
+                                kv_offset, int(causal), _build.stream_of(q))
+    elif fam == "wgmma":
         lib = _lib()
         rc = lib.flash_fwd(_build.ptr(qc), _build.ptr(kc), _build.ptr(vc), _build.ptr(out), *lm,
                            B, Tq, Tkv, NH, NKV, D, _build.DTYPE_CODES[q.dtype], sm_scale,
@@ -183,7 +208,8 @@ def _launch(q, k, v, causal: bool, sm_scale: float, kv_offset: int, stats: bool 
         rc = lib.flash_sync_fwd(_build.ptr(qc), _build.ptr(kc), _build.ptr(vc), _build.ptr(out),
                                 *lm, B, Tq, Tkv, NH, NKV, D, _build.DTYPE_CODES[q.dtype],
                                 sm_scale, kv_offset, int(causal), _build.stream_of(q))
-    _build.check(lib, rc, "flash_fwd" if fam == "wgmma" else "flash_sync_fwd")
+    _build.check(lib, rc, {"tf32": "flash_tf32_fwd", "wgmma": "flash_fwd"}.get(fam,
+                                                                              "flash_sync_fwd"))
     if stats:
         flash_attention_forward.launches += 1
         return out, l, m

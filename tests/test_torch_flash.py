@@ -88,10 +88,10 @@ def test_flash_attention_wide_heads_match_jax(D, dt):
     (torch.bfloat16, 256, ("wgmma", "wgmma")),
     (torch.float16, 192, ("wgmma", "wgmma")),
     (torch.float16, 256, ("wgmma", "wgmma")),
-    (torch.float32, 64, ("sync", "tf32")),
-    (torch.float32, 128, ("sync", "tf32")),
-    (torch.float32, 192, ("sync", "sync")),
-    (torch.float32, 256, ("sync", "sync")),
+    (torch.float32, 64, ("tf32", "tf32")),
+    (torch.float32, 128, ("tf32", "tf32")),
+    (torch.float32, 192, ("tf32", "sync")),
+    (torch.float32, 256, ("tf32", "sync")),
     (torch.float32, 320, ("sync", "sync")),
     (torch.float32, 512, ("sync", "sync")),
     (torch.bfloat16, 320, ("sync", "sync")),
@@ -100,8 +100,8 @@ def test_flash_attention_wide_heads_match_jax(D, dt):
 def test_routes_by_type_and_head_size(dtype, D, want):
     # The card's kernel family of the forward and of the backward: the
     # wgmma kernels take bf16 and fp16 both ways up to D 256, the tf32 ones
-    # f32's backward up to D 128; the mma.sync family the rest of the gate
-    # (f32's backward past D 256 on its 8-warp kernels).
+    # f32 forward up to D 256 and backward up to 128; the mma.sync family
+    # the rest of the gate (f32's backward past D 256 on its 8-warp kernels).
     assert tfa.routes(dtype, D) == want
 
 

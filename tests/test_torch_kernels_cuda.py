@@ -1744,13 +1744,16 @@ _SYNC_FWD_CASES = [
 ]
 
 
-def _sync_forward_then_backward(dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
-    # The mma.sync forward with its statistics against the plain version,
-    # then the backward on them against its plain version. Gate: each (b,
-    # t, head) row within 2e-2 of its own largest value, 5e-3 for f32 (its
-    # products run on tf32 operands, 10 mantissa bits, about 2^-11 of each
-    # product; bf16 operands would miss it). l and m as test_flash_stats_kernel
-    # holds them (1e-4 relative, 1e-3 absolute), but 1e-2 both for f32.
+def _sync_forward_then_backward(dtype, D, B, Tq, Tkv, NH, NKV, off, causal,
+                                plain_entry=False):
+    # The forward with its statistics against the plain version, then the
+    # backward on them against its plain version. Gate: each (b, t, head)
+    # row within 2e-2 of its own largest value, 5e-3 for f32 (its products
+    # run on tf32 operands, 10 mantissa bits, about 2^-11 of each product;
+    # bf16 operands would miss it). l and m as test_flash_stats_kernel holds
+    # them (1e-4 relative, 1e-3 absolute), but 1e-2 both for f32.
+    # plain_entry: also flash_attention (the launch without statistics),
+    # held to the same row gate.
     from mila_tpu_torch.kernels import flash_attention as fa
     from mila_tpu_torch.kernels import flash_attention_bwd as fb
 
@@ -1764,6 +1767,12 @@ def _sync_forward_then_backward(dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
                                                    kv_offset=off, save_stats=True)
     row_tol = 5e-3 if dtype == torch.float32 else 2e-2
     assert o.dtype == dtype and _row_err(o, o_ref, floor=0.0) <= row_tol
+    if plain_entry:
+        n = fa.flash_attention.launches
+        o2 = fa.flash_attention(q, k, v, causal=causal, scale=sm, kv_offset=off)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == n + 1
+        assert o2.dtype == dtype and _row_err(o2, o_ref, floor=0.0) <= row_tol
     tol = 1e-2 if dtype == torch.float32 else None
     assert ((l - l_ref).abs() / l_ref).max().item() <= (tol or 1e-4)
     assert (m - m_ref).abs().max().item() <= (tol or 1e-3)
@@ -1780,21 +1789,56 @@ def _sync_forward_then_backward(dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
         assert err <= row_tol, f"{name}: worst row's relative err {err}"
 
 
-# f32's backward takes the TMA + tf32 wgmma family (csrc/flash_tf32_bwd.cu)
-# at D 64 and 128; the mma.sync family takes the rest of f32, and bf16 and
-# fp16 past D 256.
+# f32 takes the TMA + tf32 wgmma family (csrc/flash_tf32_*.cu) forward at D
+# 64-256 and backward at D 64 and 128; the mma.sync family takes f32's
+# backward at D 192 and 256, and every type past D 256.
 def _family(dtype, D):
-    return "sync", "tf32" if dtype == torch.float32 and D <= 128 else "sync"
+    f32 = dtype == torch.float32
+    return ("tf32" if f32 and D <= 256 else "sync", "tf32" if f32 and D <= 128 else "sync")
 
 
 @pytest.mark.parametrize("dtype,D,B,Tq,Tkv,NH,NKV,off,causal", _SYNC_CASES)
 def test_flash_sync_kernels(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
     # What the bf16 and fp16 wgmma kernels do not take, both ways: the
-    # mma.sync family, and f32's backward at D 64 and 128 on the tf32 family.
+    # mma.sync family, and f32 up to D 256 on the tf32 family (_family).
     from mila_tpu_torch.kernels import flash_attention as fa
 
     assert fa.routes(dtype, D) == _family(dtype, D)
     _sync_forward_then_backward(dtype, D, B, Tq, Tkv, NH, NKV, off, causal)
+
+
+_TF32_CASES = [  # (D, B, Tq, Tkv, NH, NKV, kv_offset, causal)
+    (64, 1, 1024, 1024, 32, 8, 0, True),  # Llama-3.2-1B's GQA heads (G 4)
+    (64, 2, 80, 256, 4, 1, 176, True),  # Tq % 64 != 0 under a kv_offset window
+    (64, 1, 128, 512, 8, 2, 384, True),  # kv_offset > 0, Tq < Tkv
+    (64, 1, 192, 256, 4, 2, 0, False),  # not causal
+    (64, 2, 336, 384, 8, 8, 48, True),  # NH = NKV, a ragged last q tile
+    (128, 1, 1024, 1024, 32, 8, 0, True),  # D 128, G 4
+    (128, 2, 208, 384, 4, 4, 176, True),  # NH = NKV, a ragged q tile, a window
+    (128, 1, 256, 256, 4, 1, 0, False),  # not causal, G 4
+    (128, 1, 2048, 2048, 16, 8, 0, True),  # chip_smoke's D 128 row
+    # D 192 and 256: the tf32 forward, the mma.sync backward on its l and m.
+    (192, 1, 208, 256, 4, 2, 48, True),  # a ragged q tile, a window
+    (192, 1, 2048, 2048, 16, 8, 0, True),
+    (256, 2, 256, 384, 4, 2, 128, True),  # kv_offset > 0, Tq < Tkv
+    (256, 2, 80, 256, 4, 4, 176, True),  # NH = NKV, Tq % 64 != 0
+    (256, 2, 256, 256, 8, 2, 0, False),  # not causal
+    (256, 1, 2048, 2048, 16, 8, 0, True),  # chip_smoke's D 256 row
+]
+
+
+@pytest.mark.parametrize("D,B,Tq,Tkv,NH,NKV,off,causal", _TF32_CASES)
+def test_flash_tf32_kernels(cuda, D, B, Tq, Tkv, NH, NKV, off, causal):
+    # The tf32 family (csrc/flash_tf32_fwd.cu, flash_tf32_bwd.cu): the
+    # forward with and without statistics, then the backward on them (its
+    # own up to D 128, the mma.sync one past it), each against its plain
+    # version under the f32 gates.
+    from mila_tpu_torch.kernels import flash_attention as fa
+
+    assert fa.routes(torch.float32, D) == _family(torch.float32, D)
+    assert fa.routes(torch.float32, D)[0] == "tf32"
+    _sync_forward_then_backward(torch.float32, D, B, Tq, Tkv, NH, NKV, off, causal,
+                                plain_entry=True)
 
 
 @pytest.mark.parametrize("D,B,Tq,Tkv,NH,NKV,off", [
@@ -1844,7 +1888,7 @@ def test_flash_wgmma_bwd_on_sync_stats(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off,
                                      (torch.float32, 512), (torch.float32, 1024),
                                      (torch.float32, 128), (torch.float32, 256)])
 def test_flash_sync_graph_replay_and_determinism(cuda, dtype, D):
-    # The mma.sync family and f32's tf32 backward (D 64 and 128, its operand
+    # The mma.sync family and f32's tf32 family (D 64 and 128, its operand
     # copies in scratch from the graph's pool): two forward + backward calls
     # on the same inputs are bit-equal (no atomics), and a captured forward
     # + backward replayed after q, k, v and do change in place equals eager
