@@ -108,13 +108,15 @@ exits non-zero without the final line):
   kernels train  the training kernels against their plain versions at the
            training path's shapes: flash forward with statistics and flash
            backward (GPT-2 B 8 T 1024, Llama-3.2-1B's GQA heads at T 2048, D
-           128; GPT-2's shape in f32 (the mma.sync family) and fp16
+           128; GPT-2's shape in f32 (the tf32 family) and fp16
            (wgmma), where f32 and fp16 also hold the forward without
            statistics, evaluate's; T 2048, NH 16/8 at D 192 and 256 in bf16
-           (wgmma both ways), at D 320 and 512 in bf16 and f32 (the mma.sync
+           (wgmma both ways), at D 128 and 256 in f32 (tf32 both ways; the
+           mma.sync family), at D 320 and 512 in bf16 and f32 (the mma.sync
            family: bf16's column parts, f32's backward on its split
            kernels), these off the model paths timed on the device alone; every row
-           names its family; row errors within 5e-3 of the row's max in f32,
+           names its family and the CUDA launches behind one call
+           (cuda_launches); row errors within 5e-3 of the row's max in f32,
            2e-2 otherwise;
            beside SDPA's forward, its
            forward + backward and its backward alone), fused AdamW's
@@ -991,7 +993,8 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
                lambda: fa.flash_attention_plain(q, k, v, kv_offset=off), library,
                2 * (2 * q.numel() + 2 * k.numel()), 4 * Bf * NHf * Df * pairs,
                gate=f"each (b, t, head) row: max |d| <= {ERR_TOL} x its max |ref|",
-               max_row_rel_err=row_err)
+               max_row_rel_err=row_err, family=fa.routes(q.dtype, Df)[0],
+               cuda_launches=CUDA_LAUNCHES[fa.routes(q.dtype, Df)[0], "fwd"])
         rows[-1]["tflops"] = 4 * Bf * NHf * Df * pairs / rows[-1]["ms"] / 1e9
         del q, k, v, got, want, qs, ks, vs, library
 
@@ -2411,6 +2414,15 @@ def train_optimizer():
                              grad_clip_norm=1.0))
 
 
+# The CUDA launches behind one counted call of a flash entry, by family
+# (kernels/flash_attention.py:routes) and pass: the tf32 family's prep launch
+# (K rounded, V transposed) and forward; its two preps (the operand copies),
+# dK/dV and dQ; the wgmma backward's statistics, dK/dV and dQ; the mma.sync
+# backward's dQ (with D) and dK/dV.
+CUDA_LAUNCHES = {("wgmma", "fwd"): 1, ("wgmma", "bwd"): 3, ("tf32", "fwd"): 2,
+                 ("tf32", "bwd"): 4, ("sync", "fwd"): 1, ("sync", "bwd"): 2}
+
+
 # K10' (flash_fwd with l, m) and K11 (flash_bwd): GPT-2's training shape,
 # Llama-3.2-1B's GQA heads at T 2048, and D 128 (24 heads over 8), all
 # causal. Gate: each (b, t, head) row of o, dq, dk, dv within ERR_TOL of
@@ -2430,6 +2442,7 @@ def flash_rows(record, rows, B, T, NH, NKV, D, draw, dtype=torch.bfloat16, plain
 
     bf16, sdpa = torch.bfloat16, F.scaled_dot_product_attention
     sm = D ** -0.5
+    fam_fwd, fam_bwd = fa.routes(dtype, D)
     tag = {bf16: "bf16", torch.float32: "f32", torch.float16: "fp16"}[dtype]
     shape = f"B={B} T={T} NH={NH} NKV={NKV} D={D}" + ("" if dtype == bf16 else f" {tag}")
     q, k, v, do = (draw(*sh, dtype=dtype) for sh in ((B, T, NH, D), (B, T, NKV, D),
@@ -2460,7 +2473,7 @@ def flash_rows(record, rows, B, T, NH, NKV, D, draw, dtype=torch.bfloat16, plain
            gate=f"each (b, t, head) row of o within {tol} of its max |ref|; l rel "
                 f"{lim['l']}, m abs {lim['m']}",
            max_row_rel_err=o_err, l_rel_err=l_err, m_abs_err=m_err, dtype=tag,
-           family=fa.routes(dtype, D)[0], peak=peak)
+           family=fam_fwd, cuda_launches=CUDA_LAUNCHES[fam_fwd, "fwd"], peak=peak)
     rows[-1]["tflops"] = 4 * D * pairs / rows[-1]["ms"] / 1e9
     if plain_entry:
         # flash_attention (no statistics: evaluate's forward), the same
@@ -2475,8 +2488,8 @@ def flash_rows(record, rows, B, T, NH, NKV, D, draw, dtype=torch.bfloat16, plain
                [lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=gqa)],
                es * (2 * q.numel() + 2 * k.numel()), 4 * D * pairs,
                gate=f"each (b, t, head) row within {tol} of its max |ref|",
-               max_row_rel_err=o2_err, dtype=tag, family=fa.routes(dtype, D)[0],
-               peak=peak)
+               max_row_rel_err=o2_err, dtype=tag, family=fam_fwd,
+               cuda_launches=CUDA_LAUNCHES[fam_fwd, "fwd"], peak=peak)
         rows[-1]["tflops"] = 4 * D * pairs / rows[-1]["ms"] / 1e9
         del o2
     del o_ref, l_ref, m_ref
@@ -2534,8 +2547,8 @@ def flash_rows(record, rows, B, T, NH, NKV, D, draw, dtype=torch.bfloat16, plain
                         "forward), " + ("device time from the profiler" if device_only else
                                         "20 back-to-back calls between CUDA events"),
            row_rel_errs=errs, library_bwd_device_ms=library_bwd_device_ms,
-           bwd_device_ms=device_ms(ours_bwd), dtype=tag, family=fa.routes(dtype, D)[1],
-           peak=peak, **timed)
+           bwd_device_ms=device_ms(ours_bwd), dtype=tag, family=fam_bwd,
+           cuda_launches=CUDA_LAUNCHES[fam_bwd, "bwd"], peak=peak, **timed)
     rows[-1]["tflops"] = 10 * D * pairs / rows[-1]["ms"] / 1e9
 
 
@@ -2753,7 +2766,7 @@ def phase_train_kernels(bw, peak_ops, rng):
     for B, T, NH, NKV, D in ((8, 1024, 12, 12, 64), (2, 2048, 32, 8, 64), (1, 2048, 24, 8, 128)):
         flash_rows(record, rows, B, T, NH, NKV, D, rand)
     # The other routes (fa.routes), inputs from their own random stream:
-    # GPT-2's shape in f32 (the mma.sync family both ways), Llama-3.2-1B's
+    # GPT-2's shape in f32 (the tf32 family both ways), Llama-3.2-1B's
     # GQA heads at T 2048 with head sizes 192 and 256 in bf16 (wgmma both
     # ways), and GPT-2's shape in fp16 (train fp16's,
     # wgmma both ways); the f32 and fp16 rows also hold evaluate's forward
@@ -2778,6 +2791,15 @@ def phase_train_kernels(bw, peak_ops, rng):
 
     for D, dtype in ((320, bf16), (320, torch.float32), (512, bf16), (512, torch.float32)):
         flash_rows(record, rows, 1, 2048, 16, 8, D, draw_wide, dtype, device_only=True)
+    # f32 at the head sizes off the model paths, from a stream of their own:
+    # D 128 (the tf32 family both ways) and D 256 (the mma.sync family).
+    f32_rng = np.random.default_rng(27)
+
+    def draw_f32(*shape, dtype):
+        return torch.from_numpy(f32_rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+    for D in (128, 256):
+        flash_rows(record, rows, 1, 2048, 16, 8, D, draw_f32, torch.float32, device_only=True)
 
     # K12 on wte (50304 x 768 = 38.6M elements): bf16 param and grad, f32
     # moments and master, uint16 noise in int32, with stochastic rounding;
@@ -3878,8 +3900,8 @@ def main() -> int:
     t16_counts, e16_counts, train16 = phase_train(peak_ops, np.random.default_rng(21), steps=6,
                                                   dtype="float16", full=False)
     emit({"phase": "train fp16", "card": card, **train16})
-    # GPT-2 124M as shipped (f32 params) with flash attention: the mma.sync
-    # family on tf32 products, card against CPU at 1 layer and T 512, then
+    # GPT-2 124M as shipped (f32 params) with flash attention: the tf32
+    # family (f32 at D 64), card against CPU at 1 layer and T 512, then
     # 2 warm-up and 4 timed steps (its loss falls as bf16's does, PERF.md).
     parity_train32 = phase_parity_train(np.random.default_rng(24), "float32", T=512)
     emit({"phase": "parity train f32", "card": card, **parity_train32})
@@ -3970,10 +3992,12 @@ def main() -> int:
             "dtypes": sorted({r["dtype"] for r in mine if r.get("dtype")}),
             "launches_by_path": {p: c[entry] for p, c in by_path.items() if c[entry]},
             "shapes": mine})
-        if entry.startswith("flash_attention"):  # rows of the mma.sync family too
+        if entry.startswith("flash_attention"):  # rows of the tf32 and mma.sync families too
+            way = "bwd" if entry.endswith("bwd") else "fwd"
+            summary[-1]["families"] = sorted({r["family"] for r in mine})
             summary[-1]["sources"] = sorted({SOURCES[entry][0]} | {
-                f"mila_tpu_torch/csrc/flash_sync_{'bwd' if entry.endswith('bwd') else 'fwd'}.cu"
-                for r in mine if r.get("family") == "sync"})
+                f"mila_tpu_torch/csrc/flash_{r['family']}_{way}.cu"
+                for r in mine if r["family"] in ("tf32", "sync")})
         if entry == "mlp_qkv_fused":
             summary[-1]["note"] = ("no model path calls this entry (the JAX package's only "
                                    "caller is bench.py's kernel check); its kernel runs on "

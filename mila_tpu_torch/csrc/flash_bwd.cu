@@ -49,7 +49,7 @@
 //     the transpose bit). Nothing round-trips through shared memory; dK and
 //     dV sum over the GQA group inside the block, deterministically. (Issuing
 //     a step's dV, dK with the next step's S^T, dP^T, and turns between the
-//     warpgroups, both measured slower: tools/flash_bwd_variants.)
+//     warpgroups, both measured slower.)
 //     At D 192 and 256 the dK and dV of 64 keys take D registers a thread
 //     in one warpgroup (dK and dV, f32): too many beside S^T, dP^T and
 //     their A fragments. So a third block shape: 64 keys, both warpgroups
@@ -61,8 +61,8 @@
 //     hand P^T (f32) and T(dS^T) to each other through shared memory, two
 //     named barriers a step; warpgroup 0 issues dV while dS^T is formed.
 //     Against both warpgroups forming both (two of the pass's four products
-//     run twice), 12 % faster at D 192 and 4 % at D 256, bit-equal
-//     (tools/flash_bwd_variants: dkv_both_st). Shared memory: K and V (64 D
+//     run twice), 12 % faster at D 192 and 4 % at D 256, bit-equal.
+//     Shared memory: K and V (64 D
 //     2 bytes each), a ring of Q/dO stages (64 D 2 bytes each; 3 at D 192,
 //     2 at D 256) and the 24 KB handed over: 218 KB.
 //   dq: the forward's skeleton (flash_fwd.cu): one block per (64 NWG query
