@@ -118,15 +118,8 @@ int run_f16_wide(const Call& c);
 
 namespace {
 
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr int STATS_THREADS = 256;
 constexpr int TQ_ALIGN = 64;  // the statistics rows are padded to this
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // ---- stats -------------------------------------------------------------------
 
@@ -765,18 +758,6 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_consta
       *reinterpret_cast<uint32_t*>(drow + 8 * jj + 2 * t) =
           pack2_as<T>(dq[4 * jj + 2 * hr], dq[4 * jj + 2 * hr + 1]);
   }
-}
-
-// Opts a kernel into `bytes` of dynamic shared memory, once per device.
-template <typename K>
-cudaError_t size_smem(K kern, int bytes, bool* sized) {
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 64 && sized[dev]) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             bytes);
-  if (e == cudaSuccess && dev < 64) sized[dev] = true;
-  return e;
 }
 
 template <typename T, int D, bool SPLIT>

@@ -122,12 +122,6 @@ struct Cfg {
   static constexpr int SMEM = Q_TILE + NT * 2 * KV_TILE + (2 * NT + 1) * 8 + 1024;
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The two consumer warpgroups take turns to issue their products, so one's
 // softmax runs under the other's wgmma: wait for this warpgroup's turn, and
 // pass the turn to the other one.

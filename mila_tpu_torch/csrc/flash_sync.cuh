@@ -54,12 +54,6 @@ __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
 // The fragment loads, the one mma and the stores of one input type.
 template <typename T>
 struct Ops;

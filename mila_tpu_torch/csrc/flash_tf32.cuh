@@ -23,24 +23,11 @@
 namespace {
 namespace ftf32 {
 
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr int TQ_ALIGN = 64;    // the Q side's rows are padded to this
 constexpr int PREP_ROWS = 32;   // rows a prep block
 constexpr int PREP_THREADS = 256;
 
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
 __device__ __forceinline__ float tf32f(float x) { return __uint_as_float(tf32(x)); }
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // The row held at position p of the transposed copies: in each group of 8,
 // positions 0-3 hold rows 0 2 4 6 and positions 4-7 rows 1 3 5 7 (the top).
@@ -154,18 +141,6 @@ __device__ __forceinline__ void pack_a(uint32_t (*a)[4], const float* d) {
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return p + ((1024 - (sm90_smem(p) & 1023)) & 1023);
-}
-
-// Opts a kernel into `bytes` of dynamic shared memory, once per device.
-template <typename K>
-cudaError_t size_smem(K kern, int bytes, bool* sized) {
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 64 && sized[dev]) return cudaSuccess;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess && dev < 64) sized[dev] = true;
-  return e;
 }
 
 // An f32 [rows][cols] tensor in boxes of box_rows x 32 columns, 128-byte swizzle.

@@ -116,18 +116,17 @@ struct Scratch {
 
 // ---- wgmma helpers -------------------------------------------------------------
 
-// acc (+)= A B^T over k-slices [k0, k0 + n) on split operands: hi hi + hi
-// lo + lo hi (A rows from a_hi / a_lo, tiles of a_rows rows; B from b_hi /
-// b_lo, b_rows rows); first = 1 overwrites acc.
+// acc = A B^T over k-slices [k0, k0 + n) on split operands: hi hi + hi lo +
+// lo hi (A rows from a_hi / a_lo, tiles of a_rows rows; B from b_hi / b_lo,
+// N rows).
 template <int N>
 __device__ __forceinline__ void issue_split(float* acc, const unsigned char* a_hi,
                                             const unsigned char* a_lo, int a_rows,
                                             const unsigned char* b_hi,
-                                            const unsigned char* b_lo, int k0, int n,
-                                            bool first) {
+                                            const unsigned char* b_lo, int k0, int n) {
 #pragma unroll
   for (int kk = k0; kk < k0 + n; ++kk) {
-    wgmma_tf32<N>(acc, slice(a_hi, a_rows, kk), slice(b_hi, N, kk), !(first && kk == k0));
+    wgmma_tf32<N>(acc, slice(a_hi, a_rows, kk), slice(b_hi, N, kk), kk > k0);
     wgmma_tf32<N>(acc, slice(a_hi, a_rows, kk), slice(b_lo, N, kk), 1);
     wgmma_tf32<N>(acc, slice(a_lo, a_rows, kk), slice(b_hi, N, kk), 1);
   }
@@ -143,7 +142,7 @@ __device__ __forceinline__ void issue_s_dp(float* sc, float* dp, const unsigned 
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 8; ++kk) wgmma_tf32<N>(sc, slice(a, a_rows, kk), slice(b, N, kk), kk > 0);
-  issue_split<N>(dp, a_hi, a_lo, a_rows, b_hi, b_lo, 0, RN < D / 8 ? RN : D / 8, true);
+  issue_split<N>(dp, a_hi, a_lo, a_rows, b_hi, b_lo, 0, RN < D / 8 ? RN : D / 8);
   wgmma_commit();
 }
 
@@ -158,7 +157,7 @@ __device__ __forceinline__ void finish_dp(float* sc, float* dp, const unsigned c
   for (int k0 = RN; k0 < D / 8; k0 += RN) {
     float acc[N / 2];
     wgmma_fence();
-    issue_split<N>(acc, a_hi, a_lo, a_rows, b_hi, b_lo, k0, RN, true);
+    issue_split<N>(acc, a_hi, a_lo, a_rows, b_hi, b_lo, k0, RN);
     wgmma_commit();
     wgmma_wait<0>();
     wgmma_fence_operand<N / 2>(acc);

@@ -5,8 +5,9 @@
 // m64n128k16 and m64n256k16 with both operands in shared memory; m64n64k16
 // and m64n128k16 with A in registers; tf32 m64n32k8 and m64n64k8 with both
 // operands in shared memory, m64nNk8 for N 64-256 with A in registers),
-// named barriers, and the host-side encoders of TMA descriptors (reached
-// through the runtime's entry-point lookup, so a library needs no -lcuda).
+// named barriers, and on the host the dynamic shared memory opt-in and the
+// encoders of TMA descriptors (reached through the runtime's entry-point
+// lookup, so a library needs no -lcuda).
 // Used by qmm_int8.cu, flash_fwd.cu, flash_bwd.cu, flash_sync_bwd.cu and
 // flash_tf32.cuh.
 //
@@ -461,7 +462,21 @@ constexpr CUtensorMapDataType tma_type() {
   return sm90_is_f16<T>() ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
-// ---- host: TMA descriptors ---------------------------------------------------
+// ---- host ----------------------------------------------------------------------
+
+// Opts a kernel into `bytes` of dynamic shared memory, once per device.
+template <typename K>
+cudaError_t size_smem(K kern, int bytes, bool* sized) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 64 && sized[dev]) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             bytes);
+  if (e == cudaSuccess && dev < 64) sized[dev] = true;
+  return e;
+}
+
+// TMA descriptors:
 
 typedef CUresult (*TensorMapEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                          const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,

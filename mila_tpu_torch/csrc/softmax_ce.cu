@@ -200,14 +200,7 @@ void launch_fwd_short(const T* logits, const int* t, float* l, int M, int V, int
 }
 
 constexpr int BWD_THREADS = 512;
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr int RESIDENT = 0, STREAMED = 1, SCALAR = 2;  // kernels/softmax_ce.py:_BWD_VARIANTS
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Adds n values (f32) to the running (max, sum of 2^((x - max) log2 e)).
 template <int N>

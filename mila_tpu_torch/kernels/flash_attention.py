@@ -87,9 +87,9 @@ def routes(dtype: torch.dtype, D: int) -> tuple[str, str]:
     """The kernel families of a call's forward and backward on the card:
     "wgmma" (csrc/flash_fwd.cu, csrc/flash_bwd.cu), "tf32" (f32:
     csrc/flash_tf32_fwd.cu, flash_tf32_bwd.cu) or "sync"
-    (csrc/flash_sync_fwd.cu, flash_sync_bwd.cu). The backward reads the forward's l and m, whichever
-    family wrote them. Raises for a type none takes or a D the tiling gate
-    refuses."""
+    (csrc/flash_sync_fwd.cu, flash_sync_bwd.cu). The backward reads the
+    forward's l and m, whichever family wrote them. Raises for a type none
+    takes or a D the tiling gate refuses."""
     if dtype not in _build.DTYPE_CODES or D <= 0 or D % 64:
         raise NotImplementedError(f"flash attention on the card takes bf16, fp16 or f32 with "
                                   f"D % 64 == 0; got {dtype}, D {D}")
@@ -166,8 +166,8 @@ def _tf32_lib() -> ctypes.CDLL:
 
 
 def _launch(q, k, v, causal: bool, sm_scale: float, kv_offset: int, stats: bool = False):
-    """One flash_fwd or flash_sync_fwd launch; (out, l, m) with ``stats``,
-    else out."""
+    """One call of the forward family ``routes`` names; (out, l, m) with
+    ``stats``, else out."""
     B, Tq, NH, D = q.shape
     _, Tkv, NKV, _ = k.shape
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -208,8 +208,8 @@ def _launch(q, k, v, causal: bool, sm_scale: float, kv_offset: int, stats: bool 
         rc = lib.flash_sync_fwd(_build.ptr(qc), _build.ptr(kc), _build.ptr(vc), _build.ptr(out),
                                 *lm, B, Tq, Tkv, NH, NKV, D, _build.DTYPE_CODES[q.dtype],
                                 sm_scale, kv_offset, int(causal), _build.stream_of(q))
-    _build.check(lib, rc, {"tf32": "flash_tf32_fwd", "wgmma": "flash_fwd"}.get(fam,
-                                                                              "flash_sync_fwd"))
+    _build.check(lib, rc, {"tf32": "flash_tf32_fwd", "wgmma": "flash_fwd",
+                           "sync": "flash_sync_fwd"}[fam])
     if stats:
         flash_attention_forward.launches += 1
         return out, l, m

@@ -43,8 +43,9 @@ forms D, then a dK/dV kernel; one call, one count). Every f32 dP runs on
 split tf32 operands, summed in f32. Past D 256 bf16 and fp16 blocks own
 128-column parts and stream 64-column panels; f32 blocks of 8 warps own up
 to 512 columns (two parts at D 1024), form S and dP once a tile on
-``wgmma``'s tf32 form and stage each operand once. A causal call with a negative ``kv_offset`` (rows with no visible
-key) raises on the card, as the forward does.
+``wgmma``'s tf32 form and stage each operand once. A causal call with a
+negative ``kv_offset`` (rows with no visible key) raises on the card, as
+the forward does.
 """
 
 from __future__ import annotations

@@ -1731,6 +1731,22 @@ _SYNC_CASES = [  # (dtype, D, B, Tq, Tkv, NH, NKV, kv_offset, causal)
     (torch.float32, 384, 1, 256, 256, 4, 2, 0, False),
     (torch.float32, 576, 1, 128, 256, 4, 1, 128, True),
     (torch.float32, 320, 1, 2048, 2048, 16, 8, 0, True),
+    # f32 on the tf32 family (_family): GQA 32/8, NH = NKV, kv_offset > 0
+    # with Tq < Tkv, not causal, Tq % 64 != 0, chip_smoke's f32 shapes; at D
+    # 192 and 256 the mma.sync backward on the tf32 forward's l and m.
+    (torch.float32, 64, 1, 1024, 1024, 32, 8, 0, True),
+    (torch.float32, 64, 2, 80, 256, 4, 1, 176, True),
+    (torch.float32, 64, 1, 128, 512, 8, 2, 384, True),
+    (torch.float32, 64, 1, 192, 256, 4, 2, 0, False),
+    (torch.float32, 64, 2, 336, 384, 8, 8, 48, True),
+    (torch.float32, 128, 1, 1024, 1024, 32, 8, 0, True),
+    (torch.float32, 128, 2, 208, 384, 4, 4, 176, True),
+    (torch.float32, 128, 1, 256, 256, 4, 1, 0, False),
+    (torch.float32, 128, 1, 2048, 2048, 16, 8, 0, True),
+    (torch.float32, 192, 1, 2048, 2048, 16, 8, 0, True),
+    (torch.float32, 256, 2, 256, 384, 4, 2, 128, True),
+    (torch.float32, 256, 2, 80, 256, 4, 4, 176, True),
+    (torch.float32, 256, 1, 2048, 2048, 16, 8, 0, True),
 ]
 # bf16 and fp16 at D 192 and 256: the wgmma forward (384 threads,
 # setmaxnreg) with its statistics, the wgmma backward on them.
@@ -1799,46 +1815,13 @@ def _family(dtype, D):
 
 @pytest.mark.parametrize("dtype,D,B,Tq,Tkv,NH,NKV,off,causal", _SYNC_CASES)
 def test_flash_sync_kernels(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
-    # What the bf16 and fp16 wgmma kernels do not take, both ways: the
-    # mma.sync family, and f32 up to D 256 on the tf32 family (_family).
+    # What the bf16 and fp16 wgmma kernels do not take, both ways, the
+    # forward with and without statistics: the mma.sync family, and f32 up
+    # to D 256 on the tf32 family (_family).
     from mila_tpu_torch.kernels import flash_attention as fa
 
     assert fa.routes(dtype, D) == _family(dtype, D)
-    _sync_forward_then_backward(dtype, D, B, Tq, Tkv, NH, NKV, off, causal)
-
-
-_TF32_CASES = [  # (D, B, Tq, Tkv, NH, NKV, kv_offset, causal)
-    (64, 1, 1024, 1024, 32, 8, 0, True),  # Llama-3.2-1B's GQA heads (G 4)
-    (64, 2, 80, 256, 4, 1, 176, True),  # Tq % 64 != 0 under a kv_offset window
-    (64, 1, 128, 512, 8, 2, 384, True),  # kv_offset > 0, Tq < Tkv
-    (64, 1, 192, 256, 4, 2, 0, False),  # not causal
-    (64, 2, 336, 384, 8, 8, 48, True),  # NH = NKV, a ragged last q tile
-    (128, 1, 1024, 1024, 32, 8, 0, True),  # D 128, G 4
-    (128, 2, 208, 384, 4, 4, 176, True),  # NH = NKV, a ragged q tile, a window
-    (128, 1, 256, 256, 4, 1, 0, False),  # not causal, G 4
-    (128, 1, 2048, 2048, 16, 8, 0, True),  # chip_smoke's D 128 row
-    # D 192 and 256: the tf32 forward, the mma.sync backward on its l and m.
-    (192, 1, 208, 256, 4, 2, 48, True),  # a ragged q tile, a window
-    (192, 1, 2048, 2048, 16, 8, 0, True),
-    (256, 2, 256, 384, 4, 2, 128, True),  # kv_offset > 0, Tq < Tkv
-    (256, 2, 80, 256, 4, 4, 176, True),  # NH = NKV, Tq % 64 != 0
-    (256, 2, 256, 256, 8, 2, 0, False),  # not causal
-    (256, 1, 2048, 2048, 16, 8, 0, True),  # chip_smoke's D 256 row
-]
-
-
-@pytest.mark.parametrize("D,B,Tq,Tkv,NH,NKV,off,causal", _TF32_CASES)
-def test_flash_tf32_kernels(cuda, D, B, Tq, Tkv, NH, NKV, off, causal):
-    # The tf32 family (csrc/flash_tf32_fwd.cu, flash_tf32_bwd.cu): the
-    # forward with and without statistics, then the backward on them (its
-    # own up to D 128, the mma.sync one past it), each against its plain
-    # version under the f32 gates.
-    from mila_tpu_torch.kernels import flash_attention as fa
-
-    assert fa.routes(torch.float32, D) == _family(torch.float32, D)
-    assert fa.routes(torch.float32, D)[0] == "tf32"
-    _sync_forward_then_backward(torch.float32, D, B, Tq, Tkv, NH, NKV, off, causal,
-                                plain_entry=True)
+    _sync_forward_then_backward(dtype, D, B, Tq, Tkv, NH, NKV, off, causal, plain_entry=True)
 
 
 @pytest.mark.parametrize("D,B,Tq,Tkv,NH,NKV,off", [
