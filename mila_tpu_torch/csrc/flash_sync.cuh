@@ -1,21 +1,18 @@
 // The mma.sync flash-attention family (flash_sync_fwd.cu, flash_sync_bwd.cu):
 // what the TMA + wgmma kernels (flash_fwd.cu and flash_bwd.cu: bf16 and fp16
 // at D 64-256; flash_tf32_*.cu: f32 at D 64-256 forward, 64 and 128
-// backward) do not take and the TPU kernels' tiling gate admits: f32's
-// backward at D 192 and 256, every type past D 256.
+// backward) do not take and the TPU kernels' tiling gate admits: every
+// type's forward past D 256, the 16-bit backward past D 256 (f32's backward
+// from D 192 runs flash_sync_bwd.cu's split kernels, on wgmma).
 //
 // One warp owns 16 rows of a tile and runs its products on mma.sync with
 // f32 accumulators: bf16 and fp16 on m16n8k16, f32 on m16n8k8 .tf32 (the
-// operands rounded to tf32 by cvt.rna: q, k, v, p, dO and dS keep 10
-// mantissa bits for the products, the sums stay f32; ROADMAP §C.2). The
-// backward's dP = dO V^T alone runs on split operands in f32 (x = hi + lo,
-// both tf32; hi hi + hi lo + lo hi, about f32's accuracy, Ops::SPLIT): dS =
-// P (dP - D) cancels to 0 where a query sees one key, and D is an f32 sum
-// of o do, so a tf32 dP would leave 2^-11 of |dO| |V| there. Tiles
-// sit in shared memory as row-major [row][column] arrays padded by PAD
-// elements a row; the fragments come from them by 32-bit loads (ld32,
-// 16-bit types), ldmatrix.trans (16-bit, B from a [k][n] tile) or scalar
-// loads converted to tf32 (f32).
+// operands rounded to tf32 by cvt.rna: q, k, v and p keep 10 mantissa bits
+// for the products, the sums stay f32; ROADMAP §C.2). Tiles sit in shared
+// memory as row-major [row][column] arrays padded by PAD elements a row;
+// the fragments come from them by 32-bit loads (ld32, 16-bit types),
+// ldmatrix.trans (16-bit, B from a [k][n] tile) or scalar loads converted
+// to tf32 (f32).
 //
 // Fragment layouts (g = lane / 4, t = lane % 4; C/D of both shapes: c0, c1 =
 // C[g][2t, 2t + 1], c2, c3 = C[g + 8][2t, 2t + 1]):
@@ -63,7 +60,6 @@ template <typename T>
 struct Ops16 {
   static constexpr int KS = 16;  // k values a step
   static constexpr int PAD = 8;  // elements a shared row is padded by (16 bytes)
-  static constexpr bool SPLIT = false;  // 16-bit operands are exact: one product
   __device__ static void a_rows(uint32_t* a, const T* tile, int rs, int r0, int k0, int lane) {
     const int g = lane >> 2, t = lane & 3;
     const T* p = tile + (r0 + g) * rs + k0 + 2 * t;
@@ -119,7 +115,6 @@ template <>
 struct Ops<float> {
   static constexpr int KS = 8;
   static constexpr int PAD = 4;
-  static constexpr bool SPLIT = true;
   __device__ static void a_rows(uint32_t* a, const float* tile, int rs, int r0, int k0,
                                 int lane) {
     const int g = lane >> 2, t = lane & 3;
@@ -136,25 +131,6 @@ struct Ops<float> {
     const float2 v = *reinterpret_cast<const float2*>(tile + (n0 + g) * rs + k0 + 2 * t);
     b[0] = tf32(v.x);
     b[1] = tf32(v.y);
-  }
-  // The low parts of a_rows' and b_rows' fragments: tf32(x - hi) for the hi
-  // they gave (split products, SPLIT).
-  __device__ static void a_rows_lo(uint32_t* lo, const uint32_t* hi, const float* tile, int rs,
-                                   int r0, int k0, int lane) {
-    const int g = lane >> 2, t = lane & 3;
-    const float2 u = *reinterpret_cast<const float2*>(tile + (r0 + g) * rs + k0 + 2 * t);
-    const float2 w = *reinterpret_cast<const float2*>(tile + (r0 + g + 8) * rs + k0 + 2 * t);
-    lo[0] = tf32(u.x - __uint_as_float(hi[0]));
-    lo[1] = tf32(w.x - __uint_as_float(hi[1]));
-    lo[2] = tf32(u.y - __uint_as_float(hi[2]));
-    lo[3] = tf32(w.y - __uint_as_float(hi[3]));
-  }
-  __device__ static void b_rows_lo(uint32_t* lo, const uint32_t* hi, const float* tile, int rs,
-                                   int n0, int k0, int lane) {
-    const int g = lane >> 2, t = lane & 3;
-    const float2 v = *reinterpret_cast<const float2*>(tile + (n0 + g) * rs + k0 + 2 * t);
-    lo[0] = tf32(v.x - __uint_as_float(hi[0]));
-    lo[1] = tf32(v.y - __uint_as_float(hi[1]));
   }
   __device__ static void b_trans(uint32_t* b, const float* tile, int rs, int k0, int n0,
                                  int lane) {
@@ -174,46 +150,6 @@ struct Ops<float> {
   __device__ static void store2(float* p, float x, float y) {
     *reinterpret_cast<float2*>(p) = make_float2(x, y);
   }
-};
-
-// RN_STEPS k-steps of dP's split products (mma_split: hi hi + hi lo + lo
-// hi) sum on the tensor cores into a zeroed tile, which mma_rows_rn adds to
-// dP in f32 (round to nearest). The tensor cores round their own sums
-// toward 0: summed over all D / 8 steps into a dP of size sqrt(D), that
-// bias reached the cancellation dS = P (dP - D) works on where a query sees
-// one key (there only the forward's rounding residue);
-// tools/flash_f32_rows.py checks both against a float64 reference
-// (--truncating). The f32 dP at every head size.
-constexpr int RN_STEPS = 2;
-
-// acc += A B^T on split operands for A rows of a_rows' fragment `a` (`al`
-// its low part, a_rows_lo) and B rows n0.. of tb, k from k0.
-__device__ __forceinline__ void mma_split(float* acc, const uint32_t* a, const uint32_t* al,
-                                          const uint32_t* b, const float* tb, int rs, int n0,
-                                          int k0, int lane) {
-  using O = Ops<float>;
-  uint32_t bl[2];
-  O::b_rows_lo(bl, b, tb, rs, n0, k0, lane);
-  O::mma(acc, a, b);
-  O::mma(acc, a, bl);
-  O::mma(acc, al, b);
-}
-
-// d += acc in f32 (mma_split's tensor-core sums of RN_STEPS k-steps).
-__device__ __forceinline__ void mma_rows_rn(float* d, const float* acc) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] += acc[e];
-}
-
-// Rows per K/V (forward, dQ) or Q/dO (dK/dV) tile: 64 where a row is at
-// most 256 bytes, 32 to 512 bytes, else 16, so that the tiles fit shared
-// memory and the S tile's registers stay few beside the D / 2 of the
-// accumulator.
-template <typename T, int D>
-struct Tile {
-  static constexpr int RB = D * (int)sizeof(T);
-  static constexpr int N = RB <= 256 ? 64 : RB <= 512 ? 32 : 16;
-  static constexpr int RS = D + Ops<T>::PAD;  // elements a shared row
 };
 
 // The kernels past D 256 (fwd_wide, dq_wide, dkv_wide): a block owns DC

@@ -1,9 +1,8 @@
 // flash_sync_bwd: the causal grouped-query flash-attention backward from the
-// forward's row statistics, on mma.sync, for what the TMA + wgmma backwards
-// (flash_bwd.cu, bf16 and fp16 at D 64-256; flash_tf32_bwd.cu, f32 at D 64
-// and 128) do not take: f32 at D 192 and 256, every type past D 256 (the
-// fragments and the tf32 rounding of f32 are in flash_sync.cuh). Its
-// statistics come from the same family's forward (flash_sync_fwd.cu).
+// forward's row statistics for what the TMA + wgmma backwards (flash_bwd.cu,
+// bf16 and fp16 at D 64-256; flash_tf32_bwd.cu, f32 at D 64 and 128) do not
+// take: f32 from D 192, bf16 and fp16 past D 256. Its f32 statistics come
+// from either f32 forward (flash_tf32_fwd.cu, flash_sync_fwd.cu).
 //
 // Replaces the TPU kernels mila_tpu/kernels/flash_attention_bwd.py:
 // _dkv_kernel (dK, dV) and _dq_kernel (dQ), entry flash_attention_bwd, at
@@ -16,46 +15,30 @@
 // inputs' type, tf32 for f32). dq is stored in q's type, dk and dv in k's.
 //
 // Bound on the H100: tensor-core operations (five products of 2 D
-// multiply-adds per visible (query, key) pair and head; the two kernels
-// here run seven, S and dP in each, at D 192 and 256 the dK/dV blocks two
-// more (below), and f32 runs dP three times, on split operands summed in
-// f32: flash_sync.cuh) against q, k, v, o, do, dq, dk, dv moved once. The
-// simple family: right first, its times in PERF.md. Two kernels, 4 warps of
-// 16 rows each (past D 256 in f32, 8 warps: below):
-//   dq (first): one block per (64 query rows, head, batch row), heaviest q
-//     tiles first. Q and dO tiles in shared memory; K/V tiles of N keys
-//     (Tile<T, D>) streamed by cp.async, double buffered. Before the loop the
-//     block forms its rows' D = sum o do from o (device memory) and dO
-//     (shared memory) and stores it into the scratch `delta`, which the dK/dV
-//     kernel reads after it. S = Q K^T and dP = dO V^T, dS in S's registers,
-//     dQ += T(dS) K.
-//   dkv: one block per (64 keys, KV head and column part, batch row). K and
-//     V stay in shared memory; the block sweeps the q tiles of N rows that
-//     see its keys for every query head of the group, Q, dO and the rows' m,
-//     l, D streamed by cp.async, double buffered. Each warp computes S^T = K
-//     Q^T and dP^T = V dO^T for its 16 keys, so P^T and dS^T are A fragments
-//     in place, and dV += T(P^T) dO, dK += T(dS^T) Q. dK and dV sum over the
-//     group in one f32 accumulator inside the block (the TPU kernel writes
-//     f32 per query head and sums afterwards: f32 order only). At D 192 and
-//     256 (f32) a block keeps half the columns of dK and dV (the D / 2
-//     registers of both would not fit beside S^T and dP^T): two blocks per
-//     key block, each running S^T and dP^T in full.
-//   past D 256, bf16 and fp16 (dq_wide, dkv_wide): as dq and dkv, but a
-//     block owns a column part of dQ (or of dK and dV) and streams the
-//     operands of S and dP in 64-column panels (flash_sync.cuh: Wide); D is
-//     formed from o and dO in device memory.
-//   past D 256, f32 (dq_split, dkv_split; namespace split below): 8 warps
-//     a block, which owns up to 512 columns of dQ (or of dK and dV), so S
-//     and dP are formed once a tile, on wgmma's tf32 form; their operands
-//     copied by cp.async two jobs ahead and staged once, rounded to tf32
-//     and split into hi and lo.
+// multiply-adds per visible (query, key) pair and head; the two kernels of
+// each call run seven, S and dP in each, and f32 runs dP three times, on
+// split operands summed in f32) against q, k, v, o, do, dq, dk, dv moved
+// once. Two kernels a call, dQ (with D) first, then dK/dV:
+//   bf16 and fp16 (dq_wide, dkv_wide; flash_sync.cuh's mma.sync fragments,
+//     4 warps of 16 rows): a block owns a column part of dQ (or of dK and
+//     dV) and streams the operands of S and dP in 64-column panels
+//     (flash_sync.cuh: Wide); D is formed from o and dO in device memory.
+//     dK and dV sum over the group in one f32 accumulator inside the block
+//     (the TPU kernel writes f32 per query head and sums afterwards: f32
+//     order only).
+//   f32 (dq_split, dkv_split; namespace split below): 8 warps a block, which
+//     owns up to 512 columns of dQ (or of dK and dV), so S and dP are formed
+//     once a tile, on wgmma's tf32 form; their operands copied by cp.async
+//     two jobs ahead and staged once, rounded to tf32 and split into hi and
+//     lo. At D 192 and 256 (one column part) they replaced 4-warp mma.sync
+//     kernels that ran about twice as long (PERF.md §6, row 16).
 // Layouts are the model's: q, o, do, dq [B, Tq, NH, D], k, v, dk, dv [B,
 // Tkv, NKV, D], contiguous, 16-byte-aligned bases; l, m, delta f32 [B, NH,
 // Tq].
 //
-// Built in five parts (kernels/_build.py: PARTS), one nvcc each: parts 1, 4,
-// 2 and 3 instantiate the f32 D 192 and 256, f32 past D 256, bf16 and fp16
-// (past D 256) kernels, part 0 holds the C entry point.
+// Built in four parts (kernels/_build.py: PARTS), one nvcc each: parts 1, 2
+// and 3 instantiate the f32, bf16 and fp16 kernels, part 0 holds the C entry
+// point.
 #include <type_traits>
 
 #include "flash_sync.cuh"
@@ -71,9 +54,8 @@ struct Call {
   cudaStream_t stream;
 };
 
-int run_f32(const Call& c);
-int run_f32_split(const Call& c);  // f32 past D 256
-int run_bf16(const Call& c);
+int run_f32(const Call& c);   // from D 192: the split kernels
+int run_bf16(const Call& c);  // past D 256: the column-part kernels
 int run_f16(const Call& c);
 
 }  // namespace bwd_parts
@@ -92,12 +74,6 @@ struct Args {
   float sm_scale;
   int kv_offset, causal;
 };
-
-// Column parts of dK/dV a key block is split into (see the top).
-template <int D>
-__host__ __device__ constexpr int parts() {
-  return D >= 192 ? 2 : 1;
-}
 
 // dS = P (dP - D) scale in place of dP for the warp's 16 query rows (r0,
 // r0 + 8) x BKV keys from k0 (the dQ kernels): p = exp(s scale - m) / l,
@@ -141,296 +117,7 @@ __device__ __forceinline__ void ds_cols(float (*s)[4], float (*dp)[4], const Arg
     }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) dq_kernel(Args<T> a) {
-  static_assert(std::is_same<T, float>::value, "bf16 and fp16 up to D 256: flash_bwd.cu");
-  using O = Ops<T>;
-  constexpr int BKV = Tile<T, D>::N, RS = Tile<T, D>::RS, KS = O::KS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][RS]
-  T* Os = Qs + BQ * RS;                      // dO [BQ][RS]
-  T* Ks = Os + BQ * RS;                      // [2][BKV][RS]
-  T* Vs = Ks + 2 * BKV * RS;                 // [2][BKV][RS]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest q tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.NH / a.NKV);
-  const int q0 = qt * BQ;
-  const int r0 = q0 + warp * 16 + g;  // this thread's rows r0 and r0 + 8
-  const size_t qstride = (size_t)a.NH * D, kstride = (size_t)a.NKV * D;
-  const size_t qoff = (size_t)b * a.Tq * qstride + (size_t)h * D;
-  const size_t koff = (size_t)b * a.Tkv * kstride + (size_t)hk * D;
-
-  int n_kv = a.Tkv / BKV;
-  if (a.causal) {
-    const int last = q0 + BQ - 1 + a.kv_offset;
-    n_kv = last < 0 ? 0 : min(n_kv, last / BKV + 1);
-  }
-  auto load_kv = [&](int buf, int j) {
-    load_block<T, RS>(Ks + buf * BKV * RS, a.k + koff, kstride, j * BKV, BKV, D, a.Tkv, tid);
-    load_block<T, RS>(Vs + buf * BKV * RS, a.v + koff, kstride, j * BKV, BKV, D, a.Tkv, tid);
-    cp_async_commit();
-  };
-  load_block<T, RS>(Qs, a.q + qoff, qstride, q0, BQ, D, a.Tq, tid);
-  load_block<T, RS>(Os, a.dout + qoff, qstride, q0, BQ, D, a.Tq, tid);
-  cp_async_commit();
-  if (n_kv > 0) load_kv(0, 0);
-  if (n_kv > 0)
-    cp_async_wait<1>();
-  else
-    cp_async_wait<0>();
-  __syncthreads();  // Q and dO are in
-
-  // The rows' D = sum_d o do (f32), 4 lanes a row; stored for the dK/dV kernel.
-  float mr[2], lr[2], dr[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = r0 + 8 * hr;
-    float acc = 0.f;
-    if (row < a.Tq) {
-      const T* orow = a.o + qoff + (size_t)row * qstride;
-      const T* drow = Os + (warp * 16 + g + 8 * hr) * RS;
-      for (int d = t; d < D; d += 4) acc += to_f(orow[d]) * to_f(drow[d]);
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    dr[hr] = acc;
-    mr[hr] = 0.f;
-    lr[hr] = 1.f;
-    if (row < a.Tq) {
-      const size_t s = ((size_t)b * a.NH + h) * a.Tq + row;
-      if (t == 0) a.delta[s] = acc;
-      mr[hr] = a.m[s];
-      lr[hr] = a.l[s] == 0.f ? 1.f : a.l[s];
-    }
-  }
-  float dq[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[i][e] = 0.f;
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int buf = j & 1, k0 = j * BKV;
-    if (j + 1 < n_kv) {
-      load_kv(buf ^ 1, j + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* kt = Ks + buf * BKV * RS;
-    const T* vt = Vs + buf * BKV * RS;
-
-    // S = Q K^T and dP = dO V^T for the warp's 16 rows x BKV keys, dP on
-    // split operands, RN_STEPS k-steps at a time summed in f32.
-    float s[BKV / 8][4], dp[BKV / 8][4];
-#pragma unroll
-    for (int ni = 0; ni < BKV / 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[ni][e] = dp[ni][e] = 0.f;
-#pragma unroll
-    for (int k0 = 0; k0 < D / KS; k0 += RN_STEPS) {
-      float acc[BKV / 8][4];
-#pragma unroll
-      for (int ni = 0; ni < BKV / 8; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
-#pragma unroll
-      for (int kk = k0; kk < k0 + RN_STEPS; ++kk) {
-        uint32_t qa[4], oa[4], ol[4];
-        O::a_rows(qa, Qs, RS, warp * 16, kk * KS, lane);
-        O::a_rows(oa, Os, RS, warp * 16, kk * KS, lane);
-        O::a_rows_lo(ol, oa, Os, RS, warp * 16, kk * KS, lane);
-#pragma unroll
-        for (int ni = 0; ni < BKV / 8; ++ni) {
-          uint32_t bk[2], bv[2];
-          O::b_rows(bk, kt, RS, ni * 8, kk * KS, lane);
-          O::b_rows(bv, vt, RS, ni * 8, kk * KS, lane);
-          O::mma(s[ni], qa, bk);
-          mma_split(acc[ni], oa, ol, bv, vt, RS, ni * 8, kk * KS, lane);
-        }
-      }
-#pragma unroll
-      for (int ni = 0; ni < BKV / 8; ++ni) mma_rows_rn(dp[ni], acc[ni]);
-    }
-    ds_rows<T, BKV>(s, dp, a, r0, k0, t, mr, lr, dr);
-
-    // dQ += T(dS) K: K's row-major [key][d] tile is B.
-#pragma unroll
-    for (int kk = 0; kk < BKV / KS; ++kk) {
-      uint32_t da[4];
-      O::a_acc(da, &dp[kk * KS / 8]);
-#pragma unroll
-      for (int di = 0; di < D / 8; ++di) {
-        uint32_t bf[2];
-        O::b_trans(bf, kt, RS, kk * KS, di * 8, lane);
-        O::mma(dq[di], da, bf);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = r0 + 8 * hr;
-    if (row >= a.Tq) continue;
-    T* drow = a.dq + qoff + (size_t)row * qstride;
-#pragma unroll
-    for (int di = 0; di < D / 8; ++di)
-      O::store2(drow + di * 8 + 2 * t, dq[di][2 * hr], dq[di][2 * hr + 1]);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) dkv_kernel(Args<T> a) {
-  static_assert(std::is_same<T, float>::value, "bf16 and fp16 up to D 256: flash_bwd.cu");
-  using O = Ops<T>;
-  constexpr int BQD = Tile<T, D>::N, RS = Tile<T, D>::RS, KS = O::KS;
-  constexpr int KB = 16 * WARPS;         // keys a block
-  constexpr int DC = D / parts<D>();     // dK/dV columns a block
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);  // [KB][RS]
-  T* Vs = Ks + KB * RS;                      // [KB][RS]
-  T* Qs = Vs + KB * RS;                      // [2][BQD][RS]
-  T* Os = Qs + 2 * BQD * RS;                 // dO [2][BQD][RS]
-  float* St = reinterpret_cast<float*>(Os + 2 * BQD * RS);  // [2][m, l, D][BQD]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int hk = blockIdx.y / parts<D>(), c0 = (blockIdx.y % parts<D>()) * DC;
-  const int b = blockIdx.z;
-  const int k0 = blockIdx.x * KB;
-  const int G = a.NH / a.NKV;
-  const size_t qstride = (size_t)a.NH * D, kstride = (size_t)a.NKV * D;
-  const size_t koff = (size_t)b * a.Tkv * kstride + (size_t)hk * D;
-
-  load_block<T, RS>(Ks, a.k + koff, kstride, k0, KB, D, a.Tkv, tid);
-  load_block<T, RS>(Vs, a.v + koff, kstride, k0, KB, D, a.Tkv, tid);
-  cp_async_commit();
-
-  // The q tiles that see key k0 or later: from the tile holding query
-  // k0 - kv_offset on (the TPU kernel's skip rule, per tile of BQD rows).
-  const int nq = (a.Tq + BQD - 1) / BQD;
-  int i0 = 0;
-  if (a.causal) i0 = k0 - a.kv_offset > 0 ? (k0 - a.kv_offset) / BQD : 0;
-  const int per_head = nq > i0 ? nq - i0 : 0;
-  const int n_it = per_head * G;
-
-  auto load_q = [&](int buf, int it) {
-    const int h = hk * G + it / per_head;
-    const int q0 = (i0 + it % per_head) * BQD;
-    const size_t qoff = (size_t)b * a.Tq * qstride + (size_t)h * D;
-    load_block<T, RS>(Qs + buf * BQD * RS, a.q + qoff, qstride, q0, BQD, D, a.Tq, tid);
-    load_block<T, RS>(Os + buf * BQD * RS, a.dout + qoff, qstride, q0, BQD, D, a.Tq, tid);
-    if (tid < BQD) {
-      float* st = St + buf * 3 * BQD;
-      const int row = q0 + tid;
-      if (row < a.Tq) {
-        const size_t s = ((size_t)b * a.NH + h) * a.Tq + row;
-        cp_async4(st + tid, a.m + s);
-        cp_async4(st + BQD + tid, a.l + s);
-        cp_async4(st + 2 * BQD + tid, a.delta + s);
-      } else {
-        st[tid] = 0.f;
-        st[BQD + tid] = 1.f;
-        st[2 * BQD + tid] = 0.f;
-      }
-    }
-    cp_async_commit();
-  };
-  if (n_it > 0) load_q(0, 0);
-
-  float dk[DC / 8][4], dv[DC / 8][4];
-#pragma unroll
-  for (int i = 0; i < DC / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
-  const int key0 = k0 + warp * 16 + g;  // this thread's keys key0 and key0 + 8
-
-  for (int it = 0; it < n_it; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_it) {
-      load_q(buf ^ 1, it + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int q0 = (i0 + it % per_head) * BQD;
-    const T* qt = Qs + buf * BQD * RS;
-    const T* ot = Os + buf * BQD * RS;
-    const float* st = St + buf * 3 * BQD;
-
-    // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys x BQD queries,
-    // dP^T on split operands, RN_STEPS k-steps at a time summed in f32.
-    float s[BQD / 8][4], dp[BQD / 8][4];
-#pragma unroll
-    for (int ni = 0; ni < BQD / 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[ni][e] = dp[ni][e] = 0.f;
-#pragma unroll
-    for (int k0 = 0; k0 < D / KS; k0 += RN_STEPS) {
-      float acc[BQD / 8][4];
-#pragma unroll
-      for (int ni = 0; ni < BQD / 8; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
-#pragma unroll
-      for (int kk = k0; kk < k0 + RN_STEPS; ++kk) {
-        uint32_t ka[4], va[4], vl[4];
-        O::a_rows(ka, Ks, RS, warp * 16, kk * KS, lane);
-        O::a_rows(va, Vs, RS, warp * 16, kk * KS, lane);
-        O::a_rows_lo(vl, va, Vs, RS, warp * 16, kk * KS, lane);
-#pragma unroll
-        for (int ni = 0; ni < BQD / 8; ++ni) {
-          uint32_t bq[2], bo[2];
-          O::b_rows(bq, qt, RS, ni * 8, kk * KS, lane);
-          O::b_rows(bo, ot, RS, ni * 8, kk * KS, lane);
-          O::mma(s[ni], ka, bq);
-          mma_split(acc[ni], va, vl, bo, ot, RS, ni * 8, kk * KS, lane);
-        }
-      }
-#pragma unroll
-      for (int ni = 0; ni < BQD / 8; ++ni) mma_rows_rn(dp[ni], acc[ni]);
-    }
-
-    ds_cols<T, BQD>(s, dp, a, q0, key0, t, st);  // P^T and dS^T in place
-
-    // dV += T(P^T) dO, dK += T(dS^T) Q over the tile's queries, this
-    // block's columns.
-#pragma unroll
-    for (int kk = 0; kk < BQD / KS; ++kk) {
-      uint32_t pa[4], da[4];
-      O::a_acc(pa, &s[kk * KS / 8]);
-      O::a_acc(da, &dp[kk * KS / 8]);
-#pragma unroll
-      for (int di = 0; di < DC / 8; ++di) {
-        uint32_t bf[2];
-        O::b_trans(bf, ot, RS, kk * KS, c0 + di * 8, lane);
-        O::mma(dv[di], pa, bf);
-        O::b_trans(bf, qt, RS, kk * KS, c0 + di * 8, lane);
-        O::mma(dk[di], da, bf);
-      }
-    }
-    __syncthreads();  // the next iteration's load overwrites the other buffer's last reader
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const size_t row = koff + (size_t)(key0 + 8 * hr) * kstride + c0;
-#pragma unroll
-    for (int di = 0; di < DC / 8; ++di) {
-      O::store2(a.dk + row + di * 8 + 2 * t, dk[di][2 * hr], dk[di][2 * hr + 1]);
-      O::store2(a.dv + row + di * 8 + 2 * t, dv[di][2 * hr], dv[di][2 * hr + 1]);
-    }
-  }
-}
-
-// ---- past D 256 (flash_sync.cuh: Wide) ---------------------------------------
+// ---- bf16 and fp16 past D 256 (flash_sync.cuh: Wide) -------------------------
 
 // dQ: one block per (64 query rows, head and column part, batch row). The
 // rows' D = sum o do from device memory (part 0 stores it); per key tile,
@@ -439,7 +126,7 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Args<T> a) {
 // then dS and dQ += T(dS) K on the part's columns.
 template <typename T>
 __global__ void __launch_bounds__(THREADS) dq_wide_kernel(Args<T> a, int D) {
-  static_assert(!Ops<T>::SPLIT, "f32 past D 256: the split kernels");
+  static_assert(!std::is_same<T, float>::value, "f32: the split kernels");
   using O = Ops<T>;
   using W = Wide<T>;
   constexpr int BKV = W::NK, RS = W::RS, CS = W::CS, DC = W::DC, KS = O::KS, PW = W::PW;
@@ -575,13 +262,13 @@ __global__ void __launch_bounds__(THREADS) dq_wide_kernel(Args<T> a, int D) {
 
 // dK/dV: one block per (64 keys, KV head and column part, batch row),
 // sweeping the q tiles of NQ rows that see its keys for every query head of
-// the group as dkv_kernel does. Per step, K's, V's, Q's and dO's 64-column
+// the group. Per step, K's, V's, Q's and dO's 64-column
 // panels stream through a double buffer for S^T and dP^T while the step's Q
 // and dO columns of the part and its rows' m, l and D come in beside them;
 // then dV += T(P^T) dO and dK += T(dS^T) Q on the part's columns.
 template <typename T>
 __global__ void __launch_bounds__(THREADS) dkv_wide_kernel(Args<T> a, int D) {
-  static_assert(!Ops<T>::SPLIT, "f32 past D 256: the split kernels");
+  static_assert(!std::is_same<T, float>::value, "f32: the split kernels");
   using O = Ops<T>;
   using W = Wide<T>;
   constexpr int BQD = W::NQ, RS = W::RS, CS = W::CS, DC = W::DC, KS = O::KS, PW = W::PW;
@@ -733,29 +420,12 @@ int launch_wide(const Args<T>& a, int B, int D, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int launch(const Args<T>& a, int B, cudaStream_t stream) {
-  constexpr int N = Tile<T, D>::N, RS = Tile<T, D>::RS, KB = 16 * WARPS;
-  constexpr int smem_dq = (2 * BQ + 4 * N) * RS * (int)sizeof(T);
-  constexpr int smem_dkv = (2 * KB + 4 * N) * RS * (int)sizeof(T) + 2 * 3 * N * 4;
-  auto dq = dq_kernel<T, D>;
-  auto dkv = dkv_kernel<T, D>;
-  static bool done_dq[64] = {}, done_dkv[64] = {};
-  if (const int e = opt_in(dq, smem_dq, done_dq)) return e;
-  if (const int e = opt_in(dkv, smem_dkv, done_dkv)) return e;
-  dq<<<dim3((a.Tq + BQ - 1) / BQ, a.NH, B), THREADS, smem_dq, stream>>>(a);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dkv<<<dim3(a.Tkv / KB, a.NKV * parts<D>(), B), THREADS, smem_dkv, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---- f32 past D 256: S and dP formed once a tile, on wgmma ------------------
+// ---- f32: S and dP formed once a tile, on wgmma -----------------------------
 //
-// dq_split_kernel and dkv_split_kernel take f32 at D % 64 == 0 past 256. A
-// block owns up to DC output columns (one part at D 320 and 512, two at
-// 1024: split::dc_of), so S and dP are formed once per tile and part where
-// the column-part kernels above form them once per 64 columns. Two
+// dq_split_kernel and dkv_split_kernel take f32 at D % 64 == 0 from 192. A
+// block owns up to DC output columns (one part up to D 512, two at 1024:
+// split::dc_of), so S and dP are formed once per tile and part where the
+// column-part kernels above form them once per 64 columns. Two
 // warpgroups share a tile. S = Q K^T and dP = dO V^T run on wgmma's tf32
 // form over 32-column panels, the queries as M in both kernels (every
 // operand K-major as it sits in memory); dS (and P) go through shared
@@ -861,9 +531,9 @@ __device__ __forceinline__ uint64_t slice(const uint32_t* p, int kk) {
 // One panel of S += A_q B_k^T and dP += A_o B_v^T for a warpgroup: A_q, A_o
 // its 64 rows of Q and dO, B_k, B_v 32 rows of K and V (hi; dO and V also
 // lo). dP's three products (hi hi, hi lo, lo hi) of each k-step sum into a
-// zeroed tile on the tensor cores, which is added to dP in f32 (every
-// k-step, as RN_STEPS 1: here the products cost no issue slots). A wait a
-// k-step: the tile's 16 registers, not two.
+// zeroed tile on the tensor cores, which is added to dP in f32 every k-step
+// (the tensor cores round their own sums toward 0; here the products cost
+// no issue slots). A wait a k-step: the tile's 16 registers, not two.
 __device__ __forceinline__ void s_dp_panel(float* s, float* dp, const uint32_t* q,
                                            const uint32_t* oh, const uint32_t* ol,
                                            const uint32_t* k, const uint32_t* vh,
@@ -1343,44 +1013,39 @@ Args<T> args_of(const bwd_parts::Call& c) {
   return a;
 }
 
+// bf16 and fp16 past D 256 (D 64-256: flash_bwd.cu).
 template <typename T>
-int by_d(const bwd_parts::Call& c) {
-  const Args<T> a = args_of<T>(c);
-  const int D = c.D, B = c.B;
-  if constexpr (std::is_same<T, float>::value) {  // D 64, 128: flash_tf32_bwd.cu
-    if (D == 192) return launch<T, 192>(a, B, c.stream);
-    if (D == 256) return launch<T, 256>(a, B, c.stream);
-    if (D > 256 && D % 64 == 0) return bwd_parts::run_f32_split(c);
-  } else {
-    if (D > 256 && D % 64 == 0) return launch_wide<T>(a, B, D, c.stream);
-  }
+int wide(const bwd_parts::Call& c) {
+  if (c.D > 256 && c.D % 64 == 0) return launch_wide<T>(args_of<T>(c), c.B, c.D, c.stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 #if IN_PART(1)
-int bwd_parts::run_f32(const Call& c) { return by_d<float>(c); }
-#endif
-#if IN_PART(4)
-int bwd_parts::run_f32_split(const Call& c) { return split::launch(args_of<float>(c), c.B, c.D, c.stream); }
+// f32 from D 192 (D 64, 128: flash_tf32_bwd.cu).
+int bwd_parts::run_f32(const Call& c) {
+  if (c.D >= 192 && c.D % 64 == 0) return split::launch(args_of<float>(c), c.B, c.D, c.stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 #endif
 #if IN_PART(2)
-int bwd_parts::run_bf16(const Call& c) { return by_d<__nv_bfloat16>(c); }
+int bwd_parts::run_bf16(const Call& c) { return wide<__nv_bfloat16>(c); }
 #endif
 #if IN_PART(3)
-int bwd_parts::run_f16(const Call& c) { return by_d<__half>(c); }
+int bwd_parts::run_f16(const Call& c) { return wide<__half>(c); }
 #endif
 
 #if IN_PART(0)
 
 // ptrs: q, k, v, o, do, l, m, delta, dq, dk, dv. q, o, do, dq [B, Tq, NH, D],
 // k, v, dk, dv [B, Tkv, NKV, D] of one type (dtype: 0 f32, 1 bf16, 2 fp16),
-// contiguous, 16-byte-aligned bases; l, m f32 [B, NH, Tq] from
-// flash_sync_fwd; delta f32 [B, NH, Tq] scratch. D in {192, 256} for f32,
-// or any multiple of 64 past 256 for every type (else
-// cudaErrorInvalidValue), Tkv % 64 == 0, NH % NKV == 0 and, when causal, kv_offset >= 0 (checked by
-// the Python wrapper). Two launches (dQ with D, then dK/dV) on `stream`.
+// contiguous, 16-byte-aligned bases; l, m f32 [B, NH, Tq] from either
+// forward of the type; delta f32 [B, NH, Tq] scratch. D any multiple of 64
+// from 192 for f32, past 256 for bf16 and fp16 (else
+// cudaErrorInvalidValue), Tkv % 64 == 0, NH % NKV == 0 and, when causal,
+// kv_offset >= 0 (checked by the Python wrapper). Two launches (dQ with D,
+// then dK/dV) on `stream`.
 extern "C" int flash_sync_bwd(void* const* ptrs, int B, int Tq, int Tkv, int NH, int NKV, int D,
                               int dtype, float sm_scale, int kv_offset, int causal,
                               void* stream) {

@@ -38,9 +38,9 @@ rows rounded once in shared memory, p rounded to tf32 before P V (ROADMAP
 (``csrc/flash_sync_fwd.cu``: a block owns a column part of O and streams Q
 and K in 64-column panels through ``cp.async``). The backward takes the
 ``wgmma`` kernels for bf16 and fp16 up to D 256, the tf32 ones for f32 at
-D 64 and 128, and ``csrc/flash_sync_bwd.cu`` for the rest, its dP on split
-tf32 operands in f32 (f32 past D 256 on 8-warp blocks that form S and dP
-once a tile). ``routes`` names the family of each pass.
+D 64 and 128, and ``csrc/flash_sync_bwd.cu`` for the rest: f32 from D 192
+on 8-warp blocks that form S and dP once a tile on tf32 ``wgmma``, dP on
+split operands summed in f32. ``routes`` names the family of each pass.
 
 Semantics kept from the TPU kernel: the causal tile skip with
 ``kv_offset``, masked scores at -0.7 * f32max, p rounded to V's dtype

@@ -36,14 +36,14 @@ max). f32 at D 64 and 128 launches ``csrc/flash_tf32_bwd.cu`` (two prep
 launches write every operand once as tf32 ``wgmma`` reads it: rounded, dO
 and V also split into hi and lo for dP, Q, dO and K also transposed; then
 a dK/dV and a dQ kernel on TMA and tf32 ``wgmma``; one call, one count).
-The other types and head sizes (``flash_attention.routes``: f32 at D 192
-and 256 and past, bf16 and fp16 past D 256) launch
-``csrc/flash_sync_bwd.cu``, the ``mma.sync`` family (a dQ kernel that also
-forms D, then a dK/dV kernel; one call, one count). Every f32 dP runs on
-split tf32 operands, summed in f32. Past D 256 bf16 and fp16 blocks own
-128-column parts and stream 64-column panels; f32 blocks of 8 warps own up
-to 512 columns (two parts at D 1024), form S and dP once a tile on
-``wgmma``'s tf32 form and stage each operand once. A causal call with a
+The other types and head sizes (``flash_attention.routes``: f32 from D
+192, bf16 and fp16 past D 256) launch ``csrc/flash_sync_bwd.cu`` (a dQ
+kernel that also forms D, then a dK/dV kernel; one call, one count): bf16
+and fp16 on ``mma.sync`` blocks that own 128-column parts and stream
+64-column panels; f32 on blocks of 8 warps that own up to 512 columns (two
+parts at D 1024), form S and dP once a tile on ``wgmma``'s tf32 form and
+stage each operand once. Every f32 dP runs on split tf32 operands, summed
+in f32. A causal call with a
 negative ``kv_offset`` (rows with no visible key) raises on the card, as
 the forward does.
 """

@@ -4,18 +4,18 @@ float64 reference, beside the plain f32 version's, per head size, on the GPU.
     python -m mila_tpu_torch.tools.flash_f32_rows [--dims 64 128 192 256 320]
         [--truncating]
 
-The f32 branch (``csrc/flash_tf32_*.cu`` at D 64 and 128,
-``csrc/flash_sync_*.cu`` past them) multiplies on tf32 operands (ROADMAP
-§C.2). The reference takes the same q, k, v, the kernel forward's o, l, m
+The f32 backward (``csrc/flash_tf32_bwd.cu`` at D 64 and 128,
+``csrc/flash_sync_bwd.cu``'s split kernels past them) multiplies on tf32
+operands (ROADMAP §C.2). The reference takes the same q, k, v, the kernel forward's o, l, m
 and the same do, and computes in float64. A row's error is its max |got -
 ref| over its max |ref|, floored at 1e-3 of the tensor's max (as the card
 tests take it); the first query's row is printed apart, since there dS = P
 (dP - D) is only the forward's rounding residue. ``--truncating`` also
 checks a copy of the backward source each head size routes to whose dP sums
 its split products on the tensor cores alone (``flash_tf32_bwd.cu``: RN
-covering every k-slice; ``flash_sync_bwd.cu``: without ``mma_rows_rn``'s f32
-adds, and without ``split::s_dp_panel``'s past D 256): the tensor cores' own
-sums, rounded toward 0. One JSON line per head size; about a minute with the
+covering every k-slice; ``flash_sync_bwd.cu`` from D 192: without
+``split::s_dp_panel``'s f32 adds): the tensor cores' own sums, rounded
+toward 0. One JSON line per head size; about a minute with the
 builds.
 """
 
@@ -57,18 +57,13 @@ def reference(q, k, v, o, l, m, do, sm: float):
     return (ds @ kh).transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
 
 
-# dP's f32 adds (flash_tf32_bwd.cu: RN k-slices at a time; flash_sync.cuh:
-# mma_rows_rn, called by flash_sync_bwd.cu's kernels up to D 256, and its
-# split::s_dp_panel past it), and the same products summed into dP on the
-# tensor cores alone: per backward family, (file, rn text, truncating).
+# dP's f32 adds (flash_tf32_bwd.cu: RN k-slices at a time; flash_sync_bwd.cu
+# from D 192: split::s_dp_panel, every k-slice), and the same products summed
+# into dP on the tensor cores alone: per backward family, (file, rn text,
+# truncating).
 TRUNCATING = {
     "tf32": [("flash_tf32_bwd.cu", "constexpr int RN = 2;", "constexpr int RN = 1 << 10;")],
     "sync": [
-        ("flash_sync_bwd.cu", "          mma_split(acc[ni], ", "          mma_split(dp[ni], "),
-        ("flash_sync_bwd.cu",
-         "      for (int ni = 0; ni < BKV / 8; ++ni) mma_rows_rn(dp[ni], acc[ni]);", ""),
-        ("flash_sync_bwd.cu",
-         "      for (int ni = 0; ni < BQD / 8; ++ni) mma_rows_rn(dp[ni], acc[ni]);", ""),
         ("flash_sync_bwd.cu", "    wgmma_m64n32k8_tf32(acc, ", "    wgmma_m64n32k8_tf32(dp, "),
         ("flash_sync_bwd.cu", "    wgmma_fence_operand<16>(acc);",
          "    wgmma_fence_operand<16>(dp);"),

@@ -86,14 +86,14 @@ def test_each_part_holds_code(name):
 @pytest.mark.parametrize("name,part,entry", [
     ("flash_fwd", 1, "run_bf16"), ("flash_fwd", 2, "run_f16"),
     ("flash_fwd", 3, "run_bf16_wide"), ("flash_fwd", 4, "run_f16_wide"),
-    ("flash_sync_bwd", 1, "run_f32"), ("flash_sync_bwd", 4, "run_f32_split"),
+    ("flash_sync_bwd", 1, "run_f32"), ("flash_sync_bwd", 2, "run_bf16"),
     ("flash_tf32_bwd", 1, "run_d64"), ("flash_tf32_bwd", 2, "run_d128"),
 ])
 def test_flash_parts_split_the_instantiations(name, part, entry):
     # The flash sources' heavy instantiations compile in parts of their own:
     # the wgmma forward's D 192/256 kernels apart from D 64/128 per type, the
-    # f32 backward past D 256 apart from D 192/256, the tf32 backward's D 64
-    # apart from its D 128. Each entry is defined in
+    # f32 backward's split kernels apart from the 16-bit ones past D 256, the
+    # tf32 backward's D 64 apart from its D 128. Each entry is defined in
     # the #if block of its part.
     text = (_build.CSRC / f"{name}.cu").read_text()
     block = re.search(rf"#if IN_PART\({part}\)\n(.*?)#endif", text, re.S)
