@@ -111,8 +111,9 @@ exits non-zero without the final line):
            128; GPT-2's shape in f32 (the tf32 family) and fp16
            (wgmma), where f32 and fp16 also hold the forward without
            statistics, evaluate's; T 2048, NH 16/8 at D 192 and 256 in bf16
-           (wgmma both ways), at D 128 and 256 in f32 (tf32 both ways; the
-           mma.sync family), at D 320 and 512 in bf16 and f32 (the mma.sync
+           (wgmma both ways), at D 128 and 256 in f32 (the tf32 forward; the
+           tf32 backward at D 128, the split kernels at 256), at D 320 and
+           512 in bf16 and f32 (the mma.sync
            family: bf16's column parts, f32's backward on its split
            kernels), these off the model paths timed on the device alone; every row
            names its family and the CUDA launches behind one call
@@ -2792,7 +2793,8 @@ def phase_train_kernels(bw, peak_ops, rng):
     for D, dtype in ((320, bf16), (320, torch.float32), (512, bf16), (512, torch.float32)):
         flash_rows(record, rows, 1, 2048, 16, 8, D, draw_wide, dtype, device_only=True)
     # f32 at the head sizes off the model paths, from a stream of their own:
-    # D 128 (the tf32 family both ways) and D 256 (the mma.sync family).
+    # D 128 (the tf32 family both ways) and D 256 (the tf32 forward, the
+    # backward on flash_sync_bwd.cu's split kernels).
     f32_rng = np.random.default_rng(27)
 
     def draw_f32(*shape, dtype):
