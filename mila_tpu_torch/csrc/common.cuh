@@ -23,6 +23,19 @@ extern "C" const char* mila_cuda_error_string(int e) {
 }
 #endif
 
+// Opts a kernel into `bytes` of dynamic shared memory (past 48 KB), once per
+// device; `sized` is the caller's flag per device.
+template <typename K>
+cudaError_t size_smem(K kern, int bytes, bool* sized) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 64 && sized[dev]) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             bytes);
+  if (e == cudaSuccess && dev < 64) sized[dev] = true;
+  return e;
+}
+
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f(__half v) { return __half2float(v); }

@@ -563,13 +563,7 @@ int launch(const fwd_parts::Call& c) {
   }();
   constexpr int threads = D <= 128 ? THREADS : CONSUMERS;
   static bool sized[64] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 64 || !sized[dev]) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev < 64) sized[dev] = true;
-  }
+  if (const cudaError_t e = size_smem(kern, C::SMEM, sized)) return static_cast<int>(e);
   const int q_tiles = (c.Tq + BQ - 1) / BQ;  // past D 128 the grid's x runs over heads
   const dim3 grid = D <= 128 ? dim3(q_tiles, c.NH, c.B) : dim3(c.NH, q_tiles, c.B);
   kern<<<grid, threads, C::SMEM, c.stream>>>(tmq, tmk, tmv, static_cast<T*>(c.out), c.l_out,

@@ -187,18 +187,4 @@ __device__ __forceinline__ void load_block(T* dst, const T* src, size_t stride, 
   }
 }
 
-// Opt a kernel into more than 48 KB of dynamic shared memory, once a device.
-template <typename K>
-int opt_in(K kern, int smem, bool* done) {
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 64 || !done[dev]) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev < 64) done[dev] = true;
-  }
-  return 0;
-}
-
 }  // namespace fsync

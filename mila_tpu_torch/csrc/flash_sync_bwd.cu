@@ -409,9 +409,9 @@ int launch_wide(const Args<T>& a, int B, int D, cudaStream_t stream) {
                            3 * W::NQ * 4;
   auto dq = dq_wide_kernel<T>;
   auto dkv = dkv_wide_kernel<T>;
-  static bool done_dq[64] = {}, done_dkv[64] = {};
-  if (const int e = opt_in(dq, smem_dq, done_dq)) return e;
-  if (const int e = opt_in(dkv, smem_dkv, done_dkv)) return e;
+  static bool sized_dq[64] = {}, sized_dkv[64] = {};
+  if (const int e = size_smem(dq, smem_dq, sized_dq)) return e;
+  if (const int e = size_smem(dkv, smem_dkv, sized_dkv)) return e;
   const int parts = (D + W::DC - 1) / W::DC;
   dq<<<dim3((a.Tq + BQ - 1) / BQ, a.NH * parts, B), THREADS, smem_dq, stream>>>(a, D);
   const cudaError_t e = cudaGetLastError();
@@ -971,9 +971,9 @@ int launch_dc(const Args<float>& a, int B, int D, cudaStream_t stream) {
   auto dq = dq_split_kernel<DC>;
   auto dkv = dkv_split_kernel<DC>;
   constexpr int smem_dq = q::Smem<DC>::BYTES, smem_dkv = kv::Smem<DC>::BYTES;
-  static bool done_dq[64] = {}, done_dkv[64] = {};
-  if (const int e = opt_in(dq, smem_dq, done_dq)) return e;
-  if (const int e = opt_in(dkv, smem_dkv, done_dkv)) return e;
+  static bool sized_dq[64] = {}, sized_dkv[64] = {};
+  if (const int e = size_smem(dq, smem_dq, sized_dq)) return e;
+  if (const int e = size_smem(dkv, smem_dkv, sized_dkv)) return e;
   const int parts = (D + DC - 1) / DC;
   dq<<<dim3(a.NH * parts, (a.Tq + q::BQ - 1) / q::BQ, B), THREADS, smem_dq, stream>>>(a, D);
   const cudaError_t e = cudaGetLastError();

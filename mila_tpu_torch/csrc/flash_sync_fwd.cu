@@ -213,8 +213,8 @@ int launch_wide(const void* q, const void* k, const void* v, void* out, float* l
   using W = Wide<T>;
   constexpr int smem = (2 * (BQ + W::NK) * W::RS + W::NK * W::CS) * (int)sizeof(T);
   auto kern = fwd_wide_kernel<T>;
-  static bool done[64] = {};
-  if (const int e = opt_in(kern, smem, done)) return e;
+  static bool sized[64] = {};
+  if (const int e = size_smem(kern, smem, sized)) return e;
   dim3 grid((Tq + BQ - 1) / BQ, NH * ((D + W::DC - 1) / W::DC), B);
   kern<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                         static_cast<const T*>(v), static_cast<T*>(out), l_out,

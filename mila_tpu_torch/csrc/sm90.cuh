@@ -464,18 +464,6 @@ constexpr CUtensorMapDataType tma_type() {
 
 // ---- host ----------------------------------------------------------------------
 
-// Opts a kernel into `bytes` of dynamic shared memory, once per device.
-template <typename K>
-cudaError_t size_smem(K kern, int bytes, bool* sized) {
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 64 && sized[dev]) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             bytes);
-  if (e == cudaSuccess && dev < 64) sized[dev] = true;
-  return e;
-}
-
 // TMA descriptors:
 
 typedef CUresult (*TensorMapEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -51,6 +51,7 @@ the forward does.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -103,8 +104,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _sync_lib() -> ctypes.CDLL:
-    lib = _build.library("flash_sync_bwd")
+def _sync_lib(lib: Optional[ctypes.CDLL] = None) -> ctypes.CDLL:
+    lib = lib or _build.library("flash_sync_bwd")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.flash_sync_bwd.argtypes = [vp] + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
@@ -113,8 +114,8 @@ def _sync_lib() -> ctypes.CDLL:
     return lib
 
 
-def _tf32_lib() -> ctypes.CDLL:
-    lib = _build.library("flash_tf32_bwd")
+def _tf32_lib(lib: Optional[ctypes.CDLL] = None) -> ctypes.CDLL:
+    lib = lib or _build.library("flash_tf32_bwd")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.flash_tf32_bwd.argtypes = [vp, vp] + [ci] * 6 + [ctypes.c_float, ci, ci, vp]
@@ -125,7 +126,11 @@ def _tf32_lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(q, k, v, o, l, m, do, causal: bool, sm_scale: float, kv_offset: int):
+def _launch(q, k, v, o, l, m, do, causal: bool, sm_scale: float, kv_offset: int,
+            lib: Optional[ctypes.CDLL] = None):
+    """One call of the backward family ``routes`` names. ``lib``: for the
+    f32 families, a library built from a variant of that family's source,
+    launched in place of the package's build (``tools/flash_f32_rows.py``)."""
     B, NH, Tq, D = q.shape
     NKV, Tkv = k.shape[1], k.shape[2]
     if any(t.dtype != q.dtype for t in (k, v, o, do)):
@@ -145,8 +150,10 @@ def _launch(q, k, v, o, l, m, do, causal: bool, sm_scale: float, kv_offset: int)
 
     qm, km, vm, om, dom = (model_layout(t) for t in (q, k, v, o, do))
     lc, mc = l.float().contiguous(), m.float().contiguous()
+    if lib is not None and fam not in ("tf32", "sync"):
+        raise ValueError(f"flash_bwd: no variant library for the {fam} family")
     if fam == "tf32":
-        lib = _tf32_lib()
+        lib = _tf32_lib(lib)
         # The operand copies the prep launches write (rounded, split and
         # transposed for the products), lse2 and D.
         scratch = torch.empty(lib.flash_tf32_bwd_scratch(B, Tq, Tkv, NH, NKV, D),
@@ -164,7 +171,7 @@ def _launch(q, k, v, o, l, m, do, causal: bool, sm_scale: float, kv_offset: int)
         dq, dk, dv = torch.empty_like(qm), torch.empty_like(km), torch.empty_like(vm)
         ptrs = (ctypes.c_void_p * 11)(*(t.data_ptr() for t in (qm, km, vm, om, dom, lc, mc, delta,
                                                                 dq, dk, dv)))
-        lib = _sync_lib()
+        lib = _sync_lib(lib)
         rc = lib.flash_sync_bwd(ptrs, B, Tq, Tkv, NH, NKV, D, _build.DTYPE_CODES[q.dtype],
                                 sm_scale, kv_offset, int(causal), _build.stream_of(q))
         _build.check(lib, rc, "flash_sync_bwd")

@@ -33,7 +33,6 @@ from mila_tpu_torch.kernels import flash_attention as fa
 from mila_tpu_torch.kernels import flash_attention_bwd as fb
 
 
-
 def row_errs(got, want, floor: float = 1e-3) -> torch.Tensor:
     """Per (b, t, head) row of [B, T, H, D] tensors."""
     got, want = got.double(), want.double()
@@ -91,18 +90,10 @@ def truncating_lib(family: str) -> ctypes.CDLL:
 
 
 def backward(hm, l, m, sm: float, lib=None):
-    """flash_attention_bwd on head-major views, through the wrapper; with
-    ``lib``, that library in place of the family's own (the wrapper types
-    it as it types its own)."""
-    name = {"tf32": "flash_tf32_bwd", "sync": "flash_sync_bwd"}[fa.routes(torch.float32,
-                                                                          hm[0].shape[-1])[1]]
-    own = _build.library(name)
-    if lib is not None:
-        _build._libs[name] = lib
-    try:
-        return fb.flash_attention_bwd(*hm[:4], l, m, hm[4], causal=True, sm_scale=sm)
-    finally:
-        _build._libs[name] = own
+    """flash_attention_bwd on head-major views, through the wrapper's
+    launch; with ``lib``, that build of the family's source in place of
+    the package's (the wrapper types it as it types its own)."""
+    return fb._launch(*hm[:4], l, m, hm[4], True, sm, 0, lib=lib)
 
 
 def main() -> None:
