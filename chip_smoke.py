@@ -111,13 +111,14 @@ exits non-zero without the final line):
            128; GPT-2's shape in f32 (the tf32 family) and fp16
            (wgmma), where f32 and fp16 also hold the forward without
            statistics, evaluate's; T 2048, NH 16/8 at D 192 and 256 in bf16
-           (wgmma both ways), at D 128 and 256 in f32 (the tf32 forward; the
-           tf32 backward at D 128, the split kernels at 256), at D 320 and
-           512 in bf16 and f32 (the mma.sync
+           (wgmma both ways), at D 128, 192 and 256 in f32 (the tf32
+           forward; the tf32 backward at D 128, the split kernels at 192
+           and 256), at D 320 and 512 in bf16 and f32 (the mma.sync
            family: bf16's column parts, f32's backward on its split
-           kernels), these off the model paths timed on the device alone; every row
-           names its family and the CUDA launches behind one call
-           (cuda_launches); row errors within 5e-3 of the row's max in f32,
+           kernels), these off the model paths timed on the device alone;
+           every row names its family and the CUDA kernels behind one
+           counted call, counted by the profiler (cuda_kernels, their sum
+           cuda_launches; profiled); row errors within 5e-3 of the row's max in f32,
            2e-2 otherwise;
            beside SDPA's forward, its
            forward + backward and its backward alone), fused AdamW's
@@ -317,26 +318,61 @@ def time_back_to_back(fn, calls: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 20) -> float:
-    """ms of device work per call of ``fn``: the kernels' own times summed
-    by the profiler over ``calls`` calls, so a closure whose host work
-    cannot keep ahead of the card (autograd) is timed by the card alone.
-    The profiler now and then drops a window's records (a row has read
-    0.0): such a window is profiled again, three times at most, and the run
-    fails if none records device time."""
+def kernel_name(full: str) -> str:
+    """A profiler kernel record's name without its return type and
+    parameter list: "void ns::k<64>(Args, int)" -> "ns::k<64>"."""
+    if full.endswith(")"):
+        depth = 0
+        for i in range(len(full) - 1, -1, -1):
+            depth += {")": 1, "(": -1}.get(full[i], 0)
+            if depth == 0:
+                full = full[:i]
+                break
+    return full.removeprefix("void ")
+
+
+def profiled(fn, calls: int = 20, entry=None) -> tuple[float, dict | None]:
+    """(ms of device work per call of ``fn``, and with ``entry`` the CUDA
+    kernels behind one call, {kernel name: launches a call}), from the
+    profiler's kernel records over ``calls`` calls: the kernels' own times
+    summed, so a closure whose host work cannot keep ahead of the card
+    (autograd) is timed by the card alone. With ``entry`` (the wrapper whose
+    count fn adds to) it fails unless that count rose by one a call in the
+    window. The profiler now and then drops a window's records (a row has
+    read 0.0): a window with no device time, or with a kernel's records not
+    a multiple of ``calls``, is profiled again, three times at most."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
+        before = None if entry is None else entry.launches
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+        if entry is not None and entry.launches - before != calls:
+            raise AssertionError(f"{entry.__name__}: counted {entry.launches - before} "
+                                 f"launches in {calls} calls")
         total = sum(e.self_device_time_total for e in prof.key_averages())
-        if total > 0:
-            return total / 1e3 / calls
-    raise AssertionError("the profiler recorded no device time in three windows")
+        if total <= 0:
+            continue
+        if entry is None:
+            return total / 1e3 / calls, None
+        seen: dict = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset")):
+                name = kernel_name(e.name)
+                seen[name] = seen.get(name, 0) + 1
+        if seen and all(n % calls == 0 for n in seen.values()):
+            return total / 1e3 / calls, {name: n // calls for name, n in sorted(seen.items())}
+    raise AssertionError("the profiler recorded no whole window in three")
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """ms of device work per call of ``fn`` (``profiled``)."""
+    return profiled(fn, calls)[0]
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -995,7 +1031,8 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
                2 * (2 * q.numel() + 2 * k.numel()), 4 * Bf * NHf * Df * pairs,
                gate=f"each (b, t, head) row: max |d| <= {ERR_TOL} x its max |ref|",
                max_row_rel_err=row_err, family=fa.routes(q.dtype, Df)[0],
-               cuda_launches=CUDA_LAUNCHES[fa.routes(q.dtype, Df)[0], "fwd"])
+               **launches_of(lambda: fa.flash_attention(q, k, v, kv_offset=off),
+                             fa.flash_attention))
         rows[-1]["tflops"] = 4 * Bf * NHf * Df * pairs / rows[-1]["ms"] / 1e9
         del q, k, v, got, want, qs, ks, vs, library
 
@@ -2415,13 +2452,13 @@ def train_optimizer():
                              grad_clip_norm=1.0))
 
 
-# The CUDA launches behind one counted call of a flash entry, by family
-# (kernels/flash_attention.py:routes) and pass: the tf32 family's prep launch
-# (K rounded, V transposed) and forward; its two preps (the operand copies),
-# dK/dV and dQ; the wgmma backward's statistics, dK/dV and dQ; the mma.sync
-# backward's dQ (with D) and dK/dV.
-CUDA_LAUNCHES = {("wgmma", "fwd"): 1, ("wgmma", "bwd"): 3, ("tf32", "fwd"): 2,
-                 ("tf32", "bwd"): 4, ("sync", "fwd"): 1, ("sync", "bwd"): 2}
+def launches_of(fn, entry, kernels: dict | None = None) -> dict:
+    """A flash row's launch fields: the CUDA kernels behind one counted call
+    of ``entry`` (``kernels`` where the caller has profiled them already,
+    else ``profiled`` over 5 calls of ``fn``) and their sum."""
+    if kernels is None:
+        kernels = profiled(fn, 5, entry)[1]
+    return {"cuda_launches": sum(kernels.values()), "cuda_kernels": kernels}
 
 
 # K10' (flash_fwd with l, m) and K11 (flash_bwd): GPT-2's training shape,
@@ -2474,7 +2511,9 @@ def flash_rows(record, rows, B, T, NH, NKV, D, draw, dtype=torch.bfloat16, plain
            gate=f"each (b, t, head) row of o within {tol} of its max |ref|; l rel "
                 f"{lim['l']}, m abs {lim['m']}",
            max_row_rel_err=o_err, l_rel_err=l_err, m_abs_err=m_err, dtype=tag,
-           family=fam_fwd, cuda_launches=CUDA_LAUNCHES[fam_fwd, "fwd"], peak=peak)
+           family=fam_fwd, peak=peak,
+           **launches_of(lambda: fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm),
+                         fa.flash_attention_forward))
     rows[-1]["tflops"] = 4 * D * pairs / rows[-1]["ms"] / 1e9
     if plain_entry:
         # flash_attention (no statistics: evaluate's forward), the same
@@ -2489,8 +2528,9 @@ def flash_rows(record, rows, B, T, NH, NKV, D, draw, dtype=torch.bfloat16, plain
                [lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=gqa)],
                es * (2 * q.numel() + 2 * k.numel()), 4 * D * pairs,
                gate=f"each (b, t, head) row within {tol} of its max |ref|",
-               max_row_rel_err=o2_err, dtype=tag, family=fam_fwd,
-               cuda_launches=CUDA_LAUNCHES[fam_fwd, "fwd"], peak=peak)
+               max_row_rel_err=o2_err, dtype=tag, family=fam_fwd, peak=peak,
+               **launches_of(lambda: fa.flash_attention(q, k, v, causal=True),
+                             fa.flash_attention))
         rows[-1]["tflops"] = 4 * D * pairs / rows[-1]["ms"] / 1e9
         del o2
     del o_ref, l_ref, m_ref
@@ -2529,6 +2569,7 @@ def flash_rows(record, rows, B, T, NH, NKV, D, draw, dtype=torch.bfloat16, plain
         return torch.autograd.grad(s_out, s_leaves, dos, retain_graph=True)
 
     library_bwd_device_ms = device_ms(library_bwd)
+    bwd_device_ms, bwd_kernels = profiled(ours_bwd, 20, fb.flash_attention_bwd)
     # device_only (rows no model path launches): the profiler's device
     # times and the graph replay alone, SDPA's device time as the library's.
     timed = {} if device_only else {
@@ -2548,8 +2589,8 @@ def flash_rows(record, rows, B, T, NH, NKV, D, draw, dtype=torch.bfloat16, plain
                         "forward), " + ("device time from the profiler" if device_only else
                                         "20 back-to-back calls between CUDA events"),
            row_rel_errs=errs, library_bwd_device_ms=library_bwd_device_ms,
-           bwd_device_ms=device_ms(ours_bwd), dtype=tag, family=fam_bwd,
-           cuda_launches=CUDA_LAUNCHES[fam_bwd, "bwd"], peak=peak, **timed)
+           bwd_device_ms=bwd_device_ms, dtype=tag, family=fam_bwd, peak=peak,
+           **launches_of(ours_bwd, fb.flash_attention_bwd, bwd_kernels), **timed)
     rows[-1]["tflops"] = 10 * D * pairs / rows[-1]["ms"] / 1e9
 
 
@@ -2793,14 +2834,14 @@ def phase_train_kernels(bw, peak_ops, rng):
     for D, dtype in ((320, bf16), (320, torch.float32), (512, bf16), (512, torch.float32)):
         flash_rows(record, rows, 1, 2048, 16, 8, D, draw_wide, dtype, device_only=True)
     # f32 at the head sizes off the model paths, from a stream of their own:
-    # D 128 (the tf32 family both ways) and D 256 (the tf32 forward, the
-    # backward on flash_sync_bwd.cu's split kernels).
+    # D 128 (the tf32 family both ways), D 192 and 256 (the tf32 forward,
+    # the backward on flash_sync_bwd.cu's split kernels).
     f32_rng = np.random.default_rng(27)
 
     def draw_f32(*shape, dtype):
         return torch.from_numpy(f32_rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
 
-    for D in (128, 256):
+    for D in (128, 192, 256):
         flash_rows(record, rows, 1, 2048, 16, 8, D, draw_f32, torch.float32, device_only=True)
 
     # K12 on wte (50304 x 768 = 38.6M elements): bf16 param and grad, f32
