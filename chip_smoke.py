@@ -117,8 +117,8 @@ exits non-zero without the final line):
            family: bf16's column parts, f32's backward on its split
            kernels), these off the model paths timed on the device alone;
            every row names its family and the CUDA kernels behind one
-           counted call, counted by the profiler (cuda_kernels, their sum
-           cuda_launches; profiled); row errors within 5e-3 of the row's max in f32,
+           counted call, read from a captured graph (cuda_launches;
+           graph_launches); row errors within 5e-3 of the row's max in f32,
            2e-2 otherwise;
            beside SDPA's forward, its
            forward + backward and its backward alone), fused AdamW's
@@ -318,61 +318,63 @@ def time_back_to_back(fn, calls: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def kernel_name(full: str) -> str:
-    """A profiler kernel record's name without its return type and
-    parameter list: "void ns::k<64>(Args, int)" -> "ns::k<64>"."""
-    if full.endswith(")"):
-        depth = 0
-        for i in range(len(full) - 1, -1, -1):
-            depth += {")": 1, "(": -1}.get(full[i], 0)
-            if depth == 0:
-                full = full[:i]
-                break
-    return full.removeprefix("void ")
-
-
-def profiled(fn, calls: int = 20, entry=None) -> tuple[float, dict | None]:
-    """(ms of device work per call of ``fn``, and with ``entry`` the CUDA
-    kernels behind one call, {kernel name: launches a call}), from the
-    profiler's kernel records over ``calls`` calls: the kernels' own times
-    summed, so a closure whose host work cannot keep ahead of the card
-    (autograd) is timed by the card alone. With ``entry`` (the wrapper whose
-    count fn adds to) it fails unless that count rose by one a call in the
-    window. The profiler now and then drops a window's records (a row has
-    read 0.0): a window with no device time, or with a kernel's records not
-    a multiple of ``calls``, is profiled again, three times at most."""
-    from torch.autograd import DeviceType
+def device_ms(fn, calls: int = 20) -> float:
+    """ms of device work per call of ``fn``: the kernels' own times summed
+    by the profiler over ``calls`` calls, so a closure whose host work
+    cannot keep ahead of the card (autograd) is timed by the card alone.
+    The profiler now and then drops a window's records (a row has read
+    0.0): such a window is profiled again, three times at most, and the run
+    fails if none records device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        before = None if entry is None else entry.launches
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        if entry is not None and entry.launches - before != calls:
-            raise AssertionError(f"{entry.__name__}: counted {entry.launches - before} "
-                                 f"launches in {calls} calls")
         total = sum(e.self_device_time_total for e in prof.key_averages())
-        if total <= 0:
-            continue
-        if entry is None:
-            return total / 1e3 / calls, None
-        seen: dict = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset")):
-                name = kernel_name(e.name)
-                seen[name] = seen.get(name, 0) + 1
-        if seen and all(n % calls == 0 for n in seen.values()):
-            return total / 1e3 / calls, {name: n // calls for name, n in sorted(seen.items())}
-    raise AssertionError("the profiler recorded no whole window in three")
+        if total > 0:
+            return total / 1e3 / calls
+    raise AssertionError("the profiler recorded no device time in three windows")
 
 
-def device_ms(fn, calls: int = 20) -> float:
-    """ms of device work per call of ``fn`` (``profiled``)."""
-    return profiled(fn, calls)[0]
+def graph_launches(fn, entry) -> int:
+    """The CUDA kernels one call of ``fn`` launches: the kernel nodes of a
+    CUDA graph that captured the call, read through the driver
+    (cuGraphGetNodes, cuGraphNodeGetType). Fails unless ``entry``, the
+    wrapper whose count fn adds to, counted one launch in the capture."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+
+    def ok(rc):
+        if rc != 0:
+            raise RuntimeError(f"CUDA driver error {rc} reading a captured graph")
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    before = entry.launches
+    with torch.cuda.graph(g):
+        fn()
+    if entry.launches - before != 1:
+        raise AssertionError(f"{entry.__name__}: counted {entry.launches - before} launches "
+                             "in one captured call")
+    n = ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(g.raw_cuda_graph(), None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    ok(cu.cuGraphGetNodes(g.raw_cuda_graph(), nodes, ctypes.byref(n)))
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        ok(cu.cuGraphNodeGetType(node, ctypes.byref(kind)))
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    del g
+    return kernels
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -1031,8 +1033,8 @@ def phase_kernels(params, packs, params4, cfg, bw, peak_ops, rng):
                2 * (2 * q.numel() + 2 * k.numel()), 4 * Bf * NHf * Df * pairs,
                gate=f"each (b, t, head) row: max |d| <= {ERR_TOL} x its max |ref|",
                max_row_rel_err=row_err, family=fa.routes(q.dtype, Df)[0],
-               **launches_of(lambda: fa.flash_attention(q, k, v, kv_offset=off),
-                             fa.flash_attention))
+               cuda_launches=graph_launches(lambda: fa.flash_attention(q, k, v, kv_offset=off),
+                                            fa.flash_attention))
         rows[-1]["tflops"] = 4 * Bf * NHf * Df * pairs / rows[-1]["ms"] / 1e9
         del q, k, v, got, want, qs, ks, vs, library
 
@@ -2452,15 +2454,6 @@ def train_optimizer():
                              grad_clip_norm=1.0))
 
 
-def launches_of(fn, entry, kernels: dict | None = None) -> dict:
-    """A flash row's launch fields: the CUDA kernels behind one counted call
-    of ``entry`` (``kernels`` where the caller has profiled them already,
-    else ``profiled`` over 5 calls of ``fn``) and their sum."""
-    if kernels is None:
-        kernels = profiled(fn, 5, entry)[1]
-    return {"cuda_launches": sum(kernels.values()), "cuda_kernels": kernels}
-
-
 # K10' (flash_fwd with l, m) and K11 (flash_bwd): GPT-2's training shape,
 # Llama-3.2-1B's GQA heads at T 2048, and D 128 (24 heads over 8), all
 # causal. Gate: each (b, t, head) row of o, dq, dk, dv within ERR_TOL of
@@ -2511,9 +2504,9 @@ def flash_rows(record, rows, B, T, NH, NKV, D, draw, dtype=torch.bfloat16, plain
            gate=f"each (b, t, head) row of o within {tol} of its max |ref|; l rel "
                 f"{lim['l']}, m abs {lim['m']}",
            max_row_rel_err=o_err, l_rel_err=l_err, m_abs_err=m_err, dtype=tag,
-           family=fam_fwd, peak=peak,
-           **launches_of(lambda: fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm),
-                         fa.flash_attention_forward))
+           family=fam_fwd, peak=peak, cuda_launches=graph_launches(
+               lambda: fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm),
+               fa.flash_attention_forward))
     rows[-1]["tflops"] = 4 * D * pairs / rows[-1]["ms"] / 1e9
     if plain_entry:
         # flash_attention (no statistics: evaluate's forward), the same
@@ -2529,8 +2522,8 @@ def flash_rows(record, rows, B, T, NH, NKV, D, draw, dtype=torch.bfloat16, plain
                es * (2 * q.numel() + 2 * k.numel()), 4 * D * pairs,
                gate=f"each (b, t, head) row within {tol} of its max |ref|",
                max_row_rel_err=o2_err, dtype=tag, family=fam_fwd, peak=peak,
-               **launches_of(lambda: fa.flash_attention(q, k, v, causal=True),
-                             fa.flash_attention))
+               cuda_launches=graph_launches(lambda: fa.flash_attention(q, k, v, causal=True),
+                                            fa.flash_attention))
         rows[-1]["tflops"] = 4 * D * pairs / rows[-1]["ms"] / 1e9
         del o2
     del o_ref, l_ref, m_ref
@@ -2569,7 +2562,6 @@ def flash_rows(record, rows, B, T, NH, NKV, D, draw, dtype=torch.bfloat16, plain
         return torch.autograd.grad(s_out, s_leaves, dos, retain_graph=True)
 
     library_bwd_device_ms = device_ms(library_bwd)
-    bwd_device_ms, bwd_kernels = profiled(ours_bwd, 20, fb.flash_attention_bwd)
     # device_only (rows no model path launches): the profiler's device
     # times and the graph replay alone, SDPA's device time as the library's.
     timed = {} if device_only else {
@@ -2589,8 +2581,8 @@ def flash_rows(record, rows, B, T, NH, NKV, D, draw, dtype=torch.bfloat16, plain
                         "forward), " + ("device time from the profiler" if device_only else
                                         "20 back-to-back calls between CUDA events"),
            row_rel_errs=errs, library_bwd_device_ms=library_bwd_device_ms,
-           bwd_device_ms=bwd_device_ms, dtype=tag, family=fam_bwd, peak=peak,
-           **launches_of(ours_bwd, fb.flash_attention_bwd, bwd_kernels), **timed)
+           bwd_device_ms=device_ms(ours_bwd), dtype=tag, family=fam_bwd, peak=peak,
+           cuda_launches=graph_launches(ours_bwd, fb.flash_attention_bwd), **timed)
     rows[-1]["tflops"] = 10 * D * pairs / rows[-1]["ms"] / 1e9
 
 
