@@ -70,10 +70,18 @@
 // as it stands: wgmma's .f16 form reads the same fragments, descriptors and
 // transpose bits, TMA's FLOAT16 maps the same boxes.
 //
-// Built in five parts (kernels/_build.py: PARTS), one nvcc each: parts 1
+// Past D 256 (flash_fwd_part_kernel, every D % 64 == 0; flash_part.cuh's
+// plan): a block takes 64 query rows and a column part of O of up to 512
+// columns, and its two warpgroups both form the tile's whole S, each adding
+// P V into its own half of the part's columns, so S is formed once a tile and
+// part. Q stays in shared memory when it fits beside a K and a V stage (to
+// D 1024), else streams beside K in 64-column chunks.
+//
+// Built in seven parts (kernels/_build.py: PARTS), one nvcc each: parts 1
 // and 2 instantiate the bf16 and fp16 kernels at D 64 and 128, parts 3 and 4
-// at D 192 and 256, part 0 holds the C entry point.
+// at D 192 and 256, parts 5 and 6 past D 256, part 0 holds the C entry point.
 #include "common.cuh"
+#include "flash_part.cuh"
 #include "mma.cuh"
 #include "sm90.cuh"
 
@@ -93,6 +101,8 @@ int run_bf16(const Call& c);       // D 64, 128
 int run_f16(const Call& c);
 int run_bf16_wide(const Call& c);  // D 192, 256
 int run_f16_wide(const Call& c);
+int run_bf16_part(const Call& c);  // D % 64 == 0 past 256
+int run_f16_part(const Call& c);
 
 }  // namespace fwd_parts
 
@@ -545,6 +555,259 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tmq,
   store_out<T, D>(o, m, l, out, l_out, m_out, r0, t, b, h, Tq, NH, sm_scale);
 }
 
+// ---- past D 256 (flash_part.cuh: the plan) ---------------------------------
+
+// S = Q K^T over `panels` 64-column panels of Q (64 rows, 8 KB apart) and
+// of K (BK rows), four k-slices of 16 columns a panel; the first slice
+// accumulates when acc0 (a streamed chunk after the first). The panel loop
+// is not unrolled, so no wgmma sits in a remainder branch. Issued, not
+// committed.
+template <typename T, int BK>
+__device__ __forceinline__ void issue_s_cols(float* sc, const unsigned char* qs,
+                                             const unsigned char* ks, int panels, int acc0) {
+#pragma unroll 1
+  for (int p = 0; p < panels; ++p) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t a = wgmma_desc(qs + p * (fpart::BQ * 128) + 32 * kk, 16, 1024);
+      const uint64_t b = wgmma_desc(ks + p * (BK * 128) + 32 * kk, 16, 1024);
+      if constexpr (BK == 64)
+        wgmma_m64n64k16<T, 0>(sc, a, b, p > 0 || kk > 0 || acc0);
+      else
+        wgmma_m64n32k16<T, 0>(sc, a, b, p > 0 || kk > 0 || acc0);
+    }
+  }
+}
+
+// O += T(P) V on OP 64-column panels of the V tile from vt (panels BK x 128
+// bytes apart), two panels a product: o[32 q ..] holds panel q. Always all
+// OP panels (flash_part.cuh: v_cols), whatever the part's width. Issued and
+// committed.
+template <typename T, int BK, int OP>
+__device__ __forceinline__ void issue_pv_cols(float* o, const uint32_t (*pa)[4],
+                                              const unsigned char* vt) {
+  constexpr int KP = BK * 128;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const unsigned char* vk = vt + 2048 * kk;
+#pragma unroll
+    for (int q = 0; q + 1 < OP; q += 2)
+      wgmma_m64n128k16_rs<T, 1>(o + 32 * q, pa[kk], wgmma_desc(vk + q * KP, KP, 1024), 1);
+    if constexpr (OP % 2)
+      wgmma_m64n64k16_rs<T, 1>(o + 32 * (OP - 1), pa[kk],
+                               wgmma_desc(vk + (OP - 1) * KP, KP, 1024), 1);
+  }
+  wgmma_commit();
+}
+
+// Past D 256: one block of two warpgroups per (64 query rows, head and
+// column part, batch row), the heaviest q tiles of every head first. Both
+// warpgroups form the same S of each key tile over all D columns and run the
+// same softmax; warpgroup wg then adds P V into its own 64-column panels of
+// the part (the first half, rounded up, to warpgroup 0), so S is formed once
+// a tile and part and O takes at most 4 panels (128 registers) a thread.
+// Thread ISSUER loads Q (resident) or Q and K's chunks (streamed), and each
+// K and V tile into rings of their own, a stage as soon as both warpgroups
+// have released it; with Q resident (QRES) the warpgroups take turns to
+// issue S and P V (the turns of flash_fwd_wide_kernel's D 256 path), so
+// one's softmax runs under the other's products. Each warpgroup's P V spans
+// OP panels: those past its share of the part (warpgroup 1's third at D 320)
+// hold values that are never stored.
+template <typename T, int DCMAX, int BK, bool QRES>
+__global__ void __launch_bounds__(fpart::THREADS, 1)
+flash_fwd_part_kernel(const __grid_constant__ CUtensorMap tmq,
+                      const __grid_constant__ CUtensorMap tmk,
+                      const __grid_constant__ CUtensorMap tmv, T* __restrict__ out,
+                      float* __restrict__ l_out, float* __restrict__ m_out,
+                      const fpart::Args a) {
+  constexpr int OP = (DCMAX / 64 + 1) / 2, NO = 32 * OP, NS = BK / 2;
+  constexpr int KP = BK * 128;  // bytes of a K or V panel: BK rows of 64 columns
+  const fpart::Plan& p = a.p;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (sm90_smem(smem_raw) & 1023)) & 1023);
+  unsigned char* qs = smem;                  // Q resident: [D / 64][64 rows][128 B]
+  unsigned char* kring = qs + p.q_bytes;     // K tiles [D / 64][BK][128 B], or Q and K chunks
+  unsigned char* vring = kring + p.nk * p.k_slot;  // V tiles [part's panels][BK][128 B]
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(vring + p.nv * p.v_slot);
+  uint64_t* empty_k = full_k + p.nk;
+  uint64_t* full_v = empty_k + p.nk;
+  uint64_t* empty_v = full_v + p.nv;
+  uint64_t* q_full = empty_v + p.nv;
+
+  const int tid = threadIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int h = blockIdx.x / p.parts, part = blockIdx.x % p.parts, b = blockIdx.z;
+  const int c0 = part * p.dc, nc = min(p.dc, a.D - c0);
+  const int hk = h / (a.NH / a.NKV);
+  const int q0 = qt * fpart::BQ;
+  int n_kv = a.Tkv / BK;
+  if (a.causal) {
+    const int last = q0 + fpart::BQ - 1 + a.kv_offset;  // the TPU kernel's tile-skip rule
+    n_kv = last < 0 ? 0 : min(n_kv, last / BK + 1);
+  }
+  const int chunks = QRES ? 1 : a.D / 64;  // K jobs a key tile
+  const int n_k = n_kv * chunks;
+  if (tid == 0) {
+    for (int s = 0; s < p.nk; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&empty_k[s], fpart::THREADS);
+    }
+    for (int s = 0; s < p.nv; ++s) {
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_v[s], fpart::THREADS);
+    }
+    mbar_init(q_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  auto load_k = [&](int kj) {  // K job kj into its stage, once both warpgroups freed it
+    const int s = kj % p.nk;
+    if (kj >= p.nk) mbar_wait(&empty_k[s], (kj / p.nk - 1) & 1);
+    unsigned char* dst = kring + s * p.k_slot;
+    mbar_expect_tx(&full_k[s], p.k_slot);
+    if constexpr (QRES) {
+      for (int c = 0; c < a.D / 64; ++c)
+        tma_load_3d(dst + c * KP, &tmk, &full_k[s], hk * a.D + 64 * c, kj * BK, b);
+    } else {  // chunk c of key tile kj / chunks: Q's panel c, then K's
+      const int c = kj % chunks;
+      tma_load_3d(dst, &tmq, &full_k[s], h * a.D + 64 * c, q0, b);
+      tma_load_3d(dst + fpart::BQ * 128, &tmk, &full_k[s], hk * a.D + 64 * c, kj / chunks * BK, b);
+    }
+  };
+  auto load_v = [&](int j) {  // the part's columns of V tile j
+    const int s = j % p.nv;
+    if (j >= p.nv) mbar_wait(&empty_v[s], (j / p.nv - 1) & 1);
+    unsigned char* dst = vring + s * p.v_slot;
+    mbar_expect_tx(&full_v[s], nc / 64 * KP);
+    for (int c = 0; c < nc / 64; ++c)
+      tma_load_3d(dst + c * KP, &tmv, &full_v[s], hk * a.D + c0 + 64 * c, j * BK, b);
+  };
+  if (tid == fpart::ISSUER) {
+    if constexpr (QRES) {
+      mbar_expect_tx(q_full, p.q_bytes);
+      for (int c = 0; c < a.D / 64; ++c)
+        tma_load_3d(qs + c * (fpart::BQ * 128), &tmq, q_full, h * a.D + 64 * c, q0, b);
+    }
+    for (int kj = 0; kj < min(p.nk, n_k); ++kj) load_k(kj);
+    for (int j = 0; j < min(p.nv, n_kv); ++j) load_v(j);
+  }
+
+  const int wg = tid >> 7, lane = tid & 31, w = (tid >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = q0 + 16 * w;  // both warpgroups hold the same 64 rows
+  const int r0 = wrow + g;
+  const float c = a.sm_scale * LOG2E;
+  const int np = nc / 64, np0 = (np + 1) / 2;  // the part's panels, warpgroup 0's
+  const int pan0 = wg ? np0 : 0, mine = wg ? np - np0 : np0;
+
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float alpha[2];
+  uint32_t pa[BK / 16][4];
+  if constexpr (QRES) {
+    mbar_wait(q_full, 0);
+    if (n_kv > 0 && wg == 1) sched_pass(wg);
+  }
+  for (int j = 0; j < n_kv; ++j) {
+    float sc[NS];
+    if constexpr (QRES) {
+      const int s = j % p.nk;
+      mbar_wait(&full_k[s], (j / p.nk) & 1);
+      sched_wait(wg);
+      wgmma_fence();
+      issue_s_cols<T, BK>(sc, qs, kring + s * p.k_slot, a.D / 64, 0);
+      wgmma_commit();
+      sched_pass(wg);
+      wgmma_wait<0>();
+      wgmma_fence_operand<NS>(sc);
+      mbar_arrive(&empty_k[s]);
+      if (tid == fpart::ISSUER && j + p.nk < n_k) load_k(j + p.nk);
+    } else {
+      for (int cc = 0; cc < chunks; ++cc) {
+        const int kj = j * chunks + cc, s = kj % p.nk;
+        const unsigned char* st = kring + s * p.k_slot;
+        mbar_wait(&full_k[s], (kj / p.nk) & 1);
+        wgmma_fence();
+        issue_s_cols<T, BK>(sc, st, st + fpart::BQ * 128, 1, cc > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        wgmma_fence_operand<NS>(sc);
+        mbar_arrive(&empty_k[s]);
+        if (tid == fpart::ISSUER && kj + p.nk < n_k) load_k(kj + p.nk);
+      }
+    }
+    softmax_tile<BK>(sc, m, l, alpha, j * BK, wrow, r0, t, a.kv_offset, a.causal, c);
+    pack_p<T, BK>(pa, sc);
+    rescale_o<NO>(o, alpha);
+    const int sv = j % p.nv;
+    mbar_wait(&full_v[sv], (j / p.nv) & 1);
+    if constexpr (QRES) sched_wait(wg);
+    wgmma_fence_operand<NO>(o);
+    wgmma_fence();
+    issue_pv_cols<T, BK, OP>(o, pa, vring + sv * p.v_slot + pan0 * KP);
+    if (QRES && (wg == 0 || j + 1 < n_kv)) sched_pass(wg);  // warpgroup 1 passed first
+    wgmma_wait<0>();
+    wgmma_fence_operand<NO>(o);
+    mbar_arrive(&empty_v[sv]);
+    if (tid == fpart::ISSUER && j + p.nv < n_kv) load_v(j + p.nv);
+  }
+
+  // The rows' output O / l on the warpgroup's panels; l and m (of the scaled
+  // scores) by warpgroup 0 of the part that holds column 0.
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+    const int row = r0 + 8 * hr;
+    if (row >= a.Tq) continue;
+    const float inv = l[hr] == 0.f ? 1.f : 1.f / l[hr];
+    if (l_out != nullptr && part == 0 && wg == 0 && t == 0) {
+      const size_t srow = ((size_t)b * a.NH + h) * a.Tq + row;
+      l_out[srow] = l[hr];
+      m_out[srow] = m[hr] * a.sm_scale;
+    }
+    T* orow = out + ((size_t)b * a.Tq + row) * a.NH * a.D + (size_t)h * a.D + c0 + 64 * pan0;
+#pragma unroll
+    for (int jj = 0; jj < NO / 4; ++jj)
+      if (jj < 8 * mine)
+        *reinterpret_cast<uint32_t*>(orow + 8 * jj + 2 * t) =
+            pack2_as<T>(o[4 * jj + 2 * hr] * inv, o[4 * jj + 2 * hr + 1] * inv);
+  }
+}
+
+template <typename T, int DCMAX, int BK, bool QRES>
+int launch_part(const fwd_parts::Call& c, const fpart::Plan& p) {
+  CUtensorMap tmq, tmk, tmv;
+  const auto ty = tma_type<T>();
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  const uint64_t qw = (uint64_t)c.NH * c.D, kw = (uint64_t)c.NKV * c.D;
+  if (!encode_3d(&tmq, ty, 2, c.q, c.B, c.Tq, qw, fpart::BQ, 64, sw) ||
+      !encode_3d(&tmk, ty, 2, c.k, c.B, c.Tkv, kw, BK, 64, sw) ||
+      !encode_3d(&tmv, ty, 2, c.v, c.B, c.Tkv, kw, BK, 64, sw))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = flash_fwd_part_kernel<T, DCMAX, BK, QRES>;
+  static bool sized[64] = {};
+  if (const cudaError_t e = size_smem(kern, fpart::SMEM_LIMIT, sized)) return static_cast<int>(e);
+  const fpart::Args a{c.Tq, c.Tkv, c.NH, c.NKV, c.D, c.sm_scale, c.kv_offset, c.causal, p};
+  const dim3 grid(c.NH * p.parts, (c.Tq + fpart::BQ - 1) / fpart::BQ, c.B);
+  kern<<<grid, fpart::THREADS, p.smem, c.stream>>>(tmq, tmk, tmv, static_cast<T*>(c.out), c.l_out,
+                                                   c.m_out, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 and fp16 past D 256: parts of up to 320 columns on 64-key tiles, of
+// up to 512 on 32-key tiles; Q streams only past D 1024, in parts of 512.
+template <typename T>
+int by_plan(const fwd_parts::Call& c) {
+  const fpart::Plan p = fpart::plan(c.D, 2);
+  if (!p.q_res) return launch_part<T, fpart::DC_LARGE, 32, false>(c, p);
+  if (p.dcmax == fpart::DC_SMALL) return launch_part<T, fpart::DC_SMALL, 64, true>(c, p);
+  return launch_part<T, fpart::DC_LARGE, 32, true>(c, p);
+}
+
 template <typename T, int D>
 int launch(const fwd_parts::Call& c) {
   using C = Cfg<D>;
@@ -601,17 +864,24 @@ int fwd_parts::run_bf16_wide(const Call& c) { return by_d_wide<__nv_bfloat16>(c)
 int fwd_parts::run_f16_wide(const Call& c) { return by_d_wide<__half>(c); }
 #endif
 
+#if IN_PART(5)
+int fwd_parts::run_bf16_part(const Call& c) { return by_plan<__nv_bfloat16>(c); }
+#endif
+#if IN_PART(6)
+int fwd_parts::run_f16_part(const Call& c) { return by_plan<__half>(c); }
+#endif
+
 #if IN_PART(0)
 
 // q [B, Tq, NH, D], k and v [B, Tkv, NKV, D], out [B, Tq, NH, D], of one type
 // (dtype: 1 bf16, 2 fp16), contiguous, with 16-byte-aligned bases (TMA).
-// Needs D in {64, 128, 192, 256}, Tkv % 128 == 0 and NH % NKV == 0 (checked
-// by the Python wrapper). causal != 0 masks key j for query i unless j <= i +
+// Needs D % 64 == 0, Tkv % 128 == 0 and NH % NKV == 0 (checked by the
+// Python wrapper). causal != 0 masks key j for query i unless j <= i +
 // kv_offset. l_out and m_out are null (the primal launch) or f32 [B, NH,
 // Tq]: each row's softmax sum l and max m (of the scaled scores), the
 // statistics flash_bwd recomputes p from. Returns a cudaError_t
-// (cudaErrorInvalidValue when a TMA descriptor cannot be encoded, D is none
-// of those or dtype is neither).
+// (cudaErrorInvalidValue when a TMA descriptor cannot be encoded, D is not
+// a multiple of 64 or dtype is neither).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out, void* l_out,
                          void* m_out, int B, int Tq, int Tkv, int NH, int NKV, int D, int dtype,
                          float sm_scale, int kv_offset, int causal, void* stream) {
@@ -619,9 +889,13 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
   const fwd_parts::Call c{q,  k,   v, out, static_cast<float*>(l_out), static_cast<float*>(m_out),
                           B,  Tq,  Tkv, NH, NKV, D, sm_scale, kv_offset, causal,
                           static_cast<cudaStream_t>(stream)};
-  const bool wide = D > 128;
-  if (dtype == 1) return wide ? fwd_parts::run_bf16_wide(c) : fwd_parts::run_bf16(c);
-  if (dtype == 2) return wide ? fwd_parts::run_f16_wide(c) : fwd_parts::run_f16(c);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 1 && dtype != 2) return static_cast<int>(cudaErrorInvalidValue);
+  const bool bf = dtype == 1;
+  if (D > 256) {
+    if (D % 64) return static_cast<int>(cudaErrorInvalidValue);
+    return bf ? fwd_parts::run_bf16_part(c) : fwd_parts::run_f16_part(c);
+  }
+  if (D > 128) return bf ? fwd_parts::run_bf16_wide(c) : fwd_parts::run_f16_wide(c);
+  return bf ? fwd_parts::run_bf16(c) : fwd_parts::run_f16(c);
 }
 #endif  // IN_PART(0)

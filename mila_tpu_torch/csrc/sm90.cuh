@@ -1,10 +1,11 @@
 // Hopper (sm_90a) helpers for kernels that stage tiles through the Tensor
 // Memory Accelerator and multiply them with warpgroup MMAs: mbarriers, 2-D
 // and 3-D TMA loads, 1-D bulk copies, the proxy fence, wgmma shared-memory
-// descriptors, the bf16 and fp16 wgmma with f32 accumulators (m64n64k16,
-// m64n128k16 and m64n256k16 with both operands in shared memory; m64n64k16
-// and m64n128k16 with A in registers; tf32 m64n32k8 and m64n64k8 with both
-// operands in shared memory, m64nNk8 for N 64-256 with A in registers),
+// descriptors (128- and 64-byte swizzle), the bf16 and fp16 wgmma with f32
+// accumulators (m64n32k16, m64n64k16, m64n128k16 and m64n256k16 with both
+// operands in shared memory; m64n64k16 and m64n128k16 with A in registers;
+// tf32 m64n16k8, m64n32k8 and m64n64k8 with both operands in shared memory,
+// m64nNk8 for N 32-256 with A in registers),
 // named barriers, and on the host the dynamic shared memory opt-in and the
 // encoders of TMA descriptors (reached through the runtime's entry-point
 // lookup, so a library needs no -lcuda).
@@ -151,6 +152,17 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo_bytes
   return d;
 }
 
+// The same for a 64-byte-swizzled K-major operand: rows of 64 bytes in atoms
+// of 8 rows (512 bytes), SBO the bytes between 8-row groups; a k-slice of 8
+// tf32 values starts 32 bytes into the row.
+__device__ __forceinline__ uint64_t wgmma_desc_64b(const void* p, uint32_t sbo_bytes) {
+  uint64_t d = (sm90_smem(p) & 0x3FFFFu) >> 4;
+  d |= static_cast<uint64_t>(1) << 16;  // LBO unused (K-major, swizzled)
+  d |= static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFFu) << 32;
+  d |= static_cast<uint64_t>(2) << 62;  // 64-byte swizzle
+  return d;
+}
+
 // Named barrier `id` over `n` threads (a multiple of 32).
 __device__ __forceinline__ void named_bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
@@ -205,6 +217,17 @@ __device__ __forceinline__ void named_bar_arrive(int id, int n) {
   "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), \
   "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), \
   "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+
+#define SM90_SS_N32(TY) \
+  asm volatile( \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n" \
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), \
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B))
 
 #define SM90_SS_N64(TY) \
   asm volatile( \
@@ -298,6 +321,16 @@ __device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t a, uint64_t b
     SM90_SS_N64("f16");
   else
     SM90_SS_N64("bf16");
+}
+
+// d[16] (+)= A (64 x 16) x B (16 x 32): as m64n128k16, a quarter as wide.
+template <typename T, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n32k16(float* d, uint64_t a, uint64_t b,
+                                                int accumulate) {
+  if constexpr (sm90_is_f16<T>())
+    SM90_SS_N32("f16");
+  else
+    SM90_SS_N32("bf16");
 }
 
 // d[128] (+)= A (64 x 16) x B (16 x 256): as above, twice as wide; d[4 j + i]
@@ -396,13 +429,21 @@ __device__ __forceinline__ void wgmma_m64n32k8_tf32(float* d, uint64_t a, uint64
   "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
 
 // d (+)= A (64 x 8 tf32, K-major, desc a) x B (8 x N tf32, K-major: N rows
-// of 8 k values, desc b) in f32, N = 32 or 64; accumulate = 0 overwrites d.
+// of 8 k values, desc b) in f32, N = 16, 32 or 64; accumulate = 0 overwrites d.
 // d's fragment as wgmma_m64n128k16's (d[4 j + i]: row 16 w + l / 4 + 8 (i /
 // 2), column 8 j + 2 (l % 4) + i % 2).
 template <int N>
 __device__ __forceinline__ void wgmma_tf32(float* d, uint64_t a, uint64_t b, int accumulate) {
-  static_assert(N == 32 || N == 64, "tf32 SS wgmma: N 32 or 64");
-  if constexpr (N == 32) {
+  static_assert(N == 16 || N == 32 || N == 64, "tf32 SS wgmma: N 16, 32 or 64");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "l"(a), "l"(b), "r"(accumulate));
+  } else if constexpr (N == 32) {
     wgmma_m64n32k8_tf32(d, a, b, accumulate);
   } else {
     asm volatile(
@@ -414,8 +455,8 @@ __device__ __forceinline__ void wgmma_tf32(float* d, uint64_t a, uint64_t b, int
   }
 }
 
-// d (+)= A (64 x 8 tf32 in registers) x B (8 x N, K-major, desc b), N = 64,
-// 128, 192 or 256. A's fragment is mma.sync m16n8k8 .tf32's for each warp's 16 rows
+// d (+)= A (64 x 8 tf32 in registers) x B (8 x N, K-major, desc b), N = 32,
+// 64, 128, 192 or 256. A's fragment is mma.sync m16n8k8 .tf32's for each warp's 16 rows
 // (warp w, lane l, g = l / 4, t = l % 4): a[0] = A[16 w + g][t], a[1] =
 // A[16 w + g + 8][t], a[2] = A[16 w + g][t + 4], a[3] = A[16 w + g + 8][t +
 // 4]. An accumulator's columns 2 t and 2 t + 1 of an 8-column group are k
@@ -423,9 +464,19 @@ __device__ __forceinline__ void wgmma_tf32(float* d, uint64_t a, uint64_t b, int
 template <int N>
 __device__ __forceinline__ void wgmma_tf32_rs(float* d, const uint32_t* a, uint64_t b,
                                               int accumulate) {
-  static_assert(N == 64 || N == 128 || N == 192 || N == 256,
-                "tf32 RS wgmma: N 64, 128, 192 or 256");
-  if constexpr (N == 64) {
+  static_assert(N == 32 || N == 64 || N == 128 || N == 192 || N == 256,
+                "tf32 RS wgmma: N 32, 64, 128, 192 or 256");
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  } else if constexpr (N == 64) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
         " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" SM90_REGS32

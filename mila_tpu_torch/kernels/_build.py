@@ -32,12 +32,12 @@ KERNELS = ("qmm_int8", "qgemv_int8", "paged_decode_attn", "dense_decode_attn",
            "flash_sync_fwd", "flash_sync_bwd", "flash_tf32_fwd", "flash_tf32_bwd",
            "fused_adamw", "softmax_ce")
 # The float type codes of the C entry points that take f32, bf16 or fp16
-# (fused_adamw.cu, softmax_ce.cu, flash_sync_*.cu).
+# (fused_adamw.cu, softmax_ce.cu, flash_sync_bwd.cu).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # Sources built in parts, and how many (the source says what each holds).
-PARTS = {"decode_step_int8": 4, "flash_fwd": 5, "flash_bwd": 5, "flash_sync_bwd": 4,
+PARTS = {"decode_step_int8": 4, "flash_fwd": 7, "flash_bwd": 5, "flash_sync_bwd": 4,
          "flash_tf32_fwd": 3, "flash_tf32_bwd": 3,
          "dense_decode_attn": 4, "paged_decode_attn": 2}
 

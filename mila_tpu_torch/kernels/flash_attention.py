@@ -25,22 +25,26 @@ memory with TMA (3-D maps, 128-byte swizzle, a ring of mbarriers), and two
 warpgroups of 64 query rows each run S = Q K^T and O += P V on ``wgmma``
 (P from registers), taking turns so that one's online softmax in f32 (one
 FFMA and one ``ex2`` per score) runs under the other's products; at D 192
-and 256 a producer warpgroup hands its registers to them (``setmaxnreg``).
+and 256 they run without the loading thread's warp, one of their own
+threads issuing the loads, so that O may take D / 2 registers a thread.
 The wrapper encodes the three TMA descriptors per call, so a CUDA graph
 replays valid ones; a base that is not 16-byte aligned is copied first.
 
-f32 at D 64-256 launches the tf32 family (``csrc/flash_tf32_fwd.cu``): a
-prep launch writes K rounded to tf32 and V rounded and transposed (tf32
-``wgmma`` takes no transpose bit), then the same block shape on TMA and
-tf32 ``wgmma`` (one warpgroup with 32-key tiles at D 192 and 256), Q's
-rows rounded once in shared memory, p rounded to tf32 before P V (ROADMAP
-§C.2). Past D 256 every type launches the simple ``mma.sync`` family
-(``csrc/flash_sync_fwd.cu``: a block owns a column part of O and streams Q
-and K in 64-column panels through ``cp.async``). The backward takes the
-``wgmma`` kernels for bf16 and fp16 up to D 256, the tf32 ones for f32 at
-D 64 and 128, and ``csrc/flash_sync_bwd.cu`` for the rest: f32 from D 192
-on 8-warp blocks that form S and dP once a tile on tf32 ``wgmma``, dP on
-split operands summed in f32. ``routes`` names the family of each pass.
+f32 launches the tf32 family (``csrc/flash_tf32_fwd.cu``): a prep launch
+writes K rounded to tf32 and V rounded and transposed (tf32 ``wgmma`` takes
+no transpose bit), then the same block shape on TMA and tf32 ``wgmma`` (one
+warpgroup with 32-key tiles at D 192 and 256), Q's rows rounded once in
+shared memory, p rounded to tf32 before P V (ROADMAP §C.2). Past D 256 both
+families run a block of 64 query rows and one column part of O, up to 512
+columns (``plan_wide``): its two warpgroups each form the key tile's whole S
+once and add P V into their own half of the part's columns (bf16 and fp16
+on 32- or 64-key tiles, f32 on 16-key tiles), Q resident in shared memory
+or, where it does not fit, streamed beside K. The backward takes the
+``wgmma`` kernels for bf16 and fp16 up to D 256, the tf32 ones for f32 at D
+64 and 128, and ``csrc/flash_sync_bwd.cu`` for the rest: f32 from D 192 on
+8-warp blocks that form S and dP once a tile on tf32 ``wgmma``, dP on split
+operands summed in f32, 16-bit past D 256 on ``mma.sync`` column parts.
+``routes`` names the family of each pass.
 
 Semantics kept from the TPU kernel: the causal tile skip with
 ``kv_offset``, masked scores at -0.7 * f32max, p rounded to V's dtype
@@ -70,35 +74,81 @@ from mila_tpu_torch.ops.attention import causal_mask, dot_product_attention, fla
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _KV_TILE = 128  # Tkv's multiple: csrc/flash_fwd.cu's key tiles are 128 or 64 keys
-# What the wgmma + TMA kernels take (csrc/flash_fwd.cu, csrc/flash_bwd.cu);
-# the mma.sync family (csrc/flash_sync_*.cu) takes the rest of the types in
-# _build.DTYPE_CODES at every D % 64 == 0.
+# The forward runs on TMA + wgmma at every D % 64 == 0: bf16 and fp16 on
+# csrc/flash_fwd.cu, f32 on tf32 wgmma (csrc/flash_tf32_fwd.cu). The
+# backward's wgmma kernels (csrc/flash_bwd.cu) take bf16 and fp16 up to D
+# 256, its tf32 ones (csrc/flash_tf32_bwd.cu) f32 up to D 128, where their
+# resident f32 tiles (Q, dO hi and lo, or K, V hi and lo, 64 rows each) still
+# fit in shared memory; csrc/flash_sync_bwd.cu takes the rest.
 WGMMA_TYPES = (torch.bfloat16, torch.float16)
-WGMMA_FWD_DIMS = (64, 128, 192, 256)
 WGMMA_BWD_DIMS = (64, 128, 192, 256)
-# What the f32 TMA + tf32 wgmma kernels take (csrc/flash_tf32_fwd.cu,
-# csrc/flash_tf32_bwd.cu): the backward's resident f32 tiles (Q, dO hi and
-# lo, or K, V hi and lo, 64 rows each) outgrow shared memory past D 128.
-TF32_FWD_DIMS = (64, 128, 192, 256)
 TF32_BWD_DIMS = (64, 128)
 
 
 def routes(dtype: torch.dtype, D: int) -> tuple[str, str]:
     """The kernel families of a call's forward and backward on the card:
-    "wgmma" (csrc/flash_fwd.cu, csrc/flash_bwd.cu), "tf32" (f32:
-    csrc/flash_tf32_fwd.cu, flash_tf32_bwd.cu) or "sync"
-    (csrc/flash_sync_fwd.cu, flash_sync_bwd.cu). The backward reads the
+    "wgmma" (bf16, fp16: csrc/flash_fwd.cu, csrc/flash_bwd.cu), "tf32"
+    (f32: csrc/flash_tf32_fwd.cu, flash_tf32_bwd.cu) or, for the backward
+    alone, "sync" (csrc/flash_sync_bwd.cu). The backward reads the
     forward's l and m, whichever family wrote them. Raises for a type none
     takes or a D the tiling gate refuses."""
     if dtype not in _build.DTYPE_CODES or D <= 0 or D % 64:
         raise NotImplementedError(f"flash attention on the card takes bf16, fp16 or f32 with "
                                   f"D % 64 == 0; got {dtype}, D {D}")
     if dtype == torch.float32:
-        return ("tf32" if D in TF32_FWD_DIMS else "sync",
-                "tf32" if D in TF32_BWD_DIMS else "sync")
-    wg = dtype in WGMMA_TYPES
-    return ("wgmma" if wg and D in WGMMA_FWD_DIMS else "sync",
-            "wgmma" if wg and D in WGMMA_BWD_DIMS else "sync")
+        return ("tf32" if D <= 256 else "sync", "tf32" if D in TF32_BWD_DIMS else "sync")
+    return "wgmma", "wgmma" if D in WGMMA_BWD_DIMS else "sync"
+
+
+# csrc/flash_part.cuh's constants: the forward past D 256.
+_WIDE_BQ, _WIDE_LIMIT, _WIDE_STAGES = 64, 232448, 3
+_WIDE_DC_SMALL, _WIDE_DC_LARGE = 320, 512
+
+
+def plan_wide(D: int, elem_bytes: int) -> dict:
+    """The block plan of the forward past D 256, as ``csrc/flash_part.cuh:
+    plan`` computes it for elements of ``elem_bytes`` (2: bf16, fp16; 4:
+    f32): ``parts`` (first column, columns) of each column part of O, the
+    columns of each part that warpgroups 0 and 1 own (``cols``: [(start,
+    count), (start, count)] per part; 16-bit in whole 64-column panels,
+    warpgroup 0 the larger half), keys a tile ``bk``, ``q_res`` (Q resident
+    or streamed in ``chunk``-column chunks), the rings' stages ``nk``/``nv``,
+    the dynamic shared memory ``smem`` and ``o_regs``, O's f32 registers a
+    thread at the widest part the kernel is built for (``dcmax``)."""
+    if D <= 256 or D % 64 or elem_bytes not in (2, 4):
+        raise ValueError(f"plan_wide: D % 64 == 0 past 256 and 2- or 4-byte elements; got D "
+                         f"{D}, {elem_bytes}")
+    if D <= _WIDE_DC_LARGE:
+        dc = D
+    elif -(-D // _WIDE_DC_LARGE) < -(-D // _WIDE_DC_SMALL):
+        dc = _WIDE_DC_LARGE
+    else:
+        dc = _WIDE_DC_SMALL
+    dcmax = _WIDE_DC_SMALL if dc <= _WIDE_DC_SMALL else _WIDE_DC_LARGE
+    bk = 16 if elem_bytes == 4 else 64 if dcmax == _WIDE_DC_SMALL else 32
+    v_slot = bk * (dcmax if elem_bytes == 4 else 128 * -(-dcmax // 128)) * elem_bytes
+
+    def nbytes(q, k, nk, nv):
+        return q + nk * k + nv * v_slot + 1024 + (2 * nk + 2 * nv + 1) * 8
+
+    q, k = _WIDE_BQ * D * elem_bytes, bk * D * elem_bytes
+    fits = [(nk, nv) for nk in range(_WIDE_STAGES, 0, -1) for nv in (nk, nk - 1)
+            if nv >= 1 and nbytes(q, k, nk, nv) <= _WIDE_LIMIT]
+    if fits:
+        (nk, nv), q_res, chunk, k_slot = fits[0], True, D, k
+    else:
+        nk, nv, q_res, chunk, q = 4, 2, False, 128 // elem_bytes, 0
+        k_slot = (_WIDE_BQ + bk) * 128
+    parts, cols = [], []
+    for c0 in range(0, D, dc):
+        nc = min(dc, D - c0)
+        parts.append((c0, nc))
+        half = 64 * ((nc // 64 + 1) // 2) if elem_bytes == 2 else nc // 2
+        cols.append([(c0, half), (c0 + half, nc - half)])
+    o_regs = (64 * ((dcmax // 64 + 1) // 2) if elem_bytes == 2 else dcmax // 2) * 64 // 128
+    return {"dc": dc, "dcmax": dcmax, "parts": parts, "cols": cols, "bk": bk, "q_res": q_res,
+            "chunk": chunk, "nk": nk, "nv": nv, "smem": nbytes(q, k_slot, nk, nv),
+            "o_regs": o_regs}
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, scale: Optional[float] = None,

@@ -86,6 +86,18 @@ VARIANTS = {  # name -> [(file, old text, new text)]
                    "static constexpr bool PV_BEHIND = true;")],
     "pv_after": [(SRC, "static constexpr bool PV_BEHIND = D != 256;",
                   "static constexpr bool PV_BEHIND = false;")],
+    # past D 256 (flash_fwd_part_kernel): without S's products, without P
+    # V's, and with neither nor the softmax (wrong results; times only)
+    "part_no_s": [(SRC, "  for (int p = 0; p < panels; ++p) {", "  for (int p = 0; p < 0; ++p) {")],
+    "part_no_pv": [(SRC, "  for (int kk = 0; kk < BK / 16; ++kk) {\n    const unsigned char* vk",
+                    "  for (int kk = 0; kk < 0; ++kk) {\n    const unsigned char* vk")],
+    "part_loads_only": [
+        (SRC, "  for (int p = 0; p < panels; ++p) {", "  for (int p = 0; p < 0; ++p) {"),
+        (SRC, "  for (int kk = 0; kk < BK / 16; ++kk) {\n    const unsigned char* vk",
+         "  for (int kk = 0; kk < 0; ++kk) {\n    const unsigned char* vk"),
+        (SRC, "float c) {\n  if (causal && k0", "float c) {\n  return;\n  if (causal && k0"),
+        (SRC, "const float* alpha) {\n", "const float* alpha) {\n  return;\n"),
+        (SRC, "const float* sc) {\n", "const float* sc) {\n  return;\n")],
     # 128-key tiles at D 128 too (S, O and P then exceed the registers)
     "bkv128": [(SRC, "BKV = D == 64 ? 128 : 64;", "BKV = 128;"),
                (SRC, "NT = D == 64 ? 3 : 4;", "NT = D == 64 ? 3 : 2;")],
@@ -105,6 +117,9 @@ SHAPES = {
     "D256_T2048": (1, 2048, 2048, 16, 8, 256, False),
     "stats_D192_T2048": (1, 2048, 2048, 16, 8, 192, True),
     "stats_D256_T2048": (1, 2048, 2048, 16, 8, 256, True),
+    # chip_smoke's rows past D 256 (flash_fwd_part_kernel)
+    "stats_D320_T2048": (1, 2048, 2048, 16, 8, 320, True),
+    "stats_D512_T2048": (1, 2048, 2048, 16, 8, 512, True),
 }
 SYNC_ENTRY = "flash_sync_fwd"  # a --source exporting it is called as that entry
 

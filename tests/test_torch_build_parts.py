@@ -86,12 +86,14 @@ def test_each_part_holds_code(name):
 @pytest.mark.parametrize("name,part,entry", [
     ("flash_fwd", 1, "run_bf16"), ("flash_fwd", 2, "run_f16"),
     ("flash_fwd", 3, "run_bf16_wide"), ("flash_fwd", 4, "run_f16_wide"),
+    ("flash_fwd", 5, "run_bf16_part"), ("flash_fwd", 6, "run_f16_part"),
     ("flash_sync_bwd", 1, "run_f32"), ("flash_sync_bwd", 2, "run_bf16"),
     ("flash_tf32_bwd", 1, "run_d64"), ("flash_tf32_bwd", 2, "run_d128"),
 ])
 def test_flash_parts_split_the_instantiations(name, part, entry):
     # The flash sources' heavy instantiations compile in parts of their own:
-    # the wgmma forward's D 192/256 kernels apart from D 64/128 per type, the
+    # the wgmma forward's D 192/256 kernels apart from D 64/128 per type and
+    # its kernels past D 256 apart from both, the tf32 forward's past D 256, the
     # f32 backward's split kernels apart from the 16-bit ones past D 256, the
     # tf32 backward's D 64 apart from its D 128. Each entry is defined in
     # the #if block of its part.

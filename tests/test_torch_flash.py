@@ -94,15 +94,59 @@ def test_flash_attention_wide_heads_match_jax(D, dt):
     (torch.float32, 256, ("tf32", "sync")),
     (torch.float32, 320, ("sync", "sync")),
     (torch.float32, 512, ("sync", "sync")),
-    (torch.bfloat16, 320, ("sync", "sync")),
+    (torch.bfloat16, 320, ("wgmma", "sync")),
     (torch.float32, 1024, ("sync", "sync")),
+    (torch.float32, 384, ("sync", "sync")),
+    (torch.float32, 576, ("sync", "sync")),
+    (torch.bfloat16, 384, ("wgmma", "sync")),
+    (torch.bfloat16, 576, ("wgmma", "sync")),
+    (torch.bfloat16, 1024, ("wgmma", "sync")),
+    (torch.float16, 384, ("wgmma", "sync")),
+    (torch.float16, 576, ("wgmma", "sync")),
+    (torch.float16, 1024, ("wgmma", "sync")),
 ])
 def test_routes_by_type_and_head_size(dtype, D, want):
     # The card's kernel family of the forward and of the backward: the
-    # wgmma kernels take bf16 and fp16 both ways up to D 256, the tf32 ones
-    # f32 forward up to D 256 and backward up to 128; the mma.sync family
-    # the rest of the gate (f32's backward past D 256 on its 8-warp kernels).
+    # forward runs on wgmma at every D, bf16 and fp16 on the wgmma kernels,
+    # f32 on the tf32 ones; the backward takes the wgmma kernels for bf16
+    # and fp16 up to D 256 and the tf32 ones for f32 up to 128, the mma.sync
+    # family the rest (f32's backward past D 128 on its 8-warp kernels).
     assert tfa.routes(dtype, D) == want
+
+
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+@pytest.mark.parametrize("D", range(320, 1025, 64))
+def test_wide_forward_plan(D, elem_bytes):
+    # csrc/flash_part.cuh's plan past D 256, through its Python mirror: the
+    # column parts and each part's two warpgroup halves cover every column
+    # of the head exactly once (16-bit halves in whole 64-column panels, f32
+    # halves of 32-column multiples), the block's shared memory fits the
+    # H100's 232,448 bytes, and O takes at most 128 f32 registers a thread.
+    p = tfa.plan_wide(D, elem_bytes)
+    owned = [c for part in p["cols"] for c0, n in part for c in range(c0, c0 + n)]
+    assert sorted(owned) == list(range(D))
+    assert [c0 for c0, _ in p["parts"]] == [c0 for (c0, _), _ in p["cols"]]
+    for (c0, nc), ((a0, na), (b0, nb)) in zip(p["parts"], p["cols"]):
+        assert nc <= p["dc"] <= p["dcmax"] <= 512 and a0 == c0 and b0 == c0 + na
+        assert na >= nb and na % (64 if elem_bytes == 2 else 32) == 0
+    assert p["smem"] <= 232448 and p["o_regs"] <= 128
+    assert p["nk"] >= p["nv"] >= 1 and p["chunk"] * elem_bytes in (128, D * elem_bytes)
+    assert D % p["chunk"] == 0 and 128 % p["bk"] == 0
+
+
+@pytest.mark.parametrize("elem_bytes,D,want", [
+    (2, 320, (1, 64, True, 2, 2)),
+    (2, 512, (1, 32, True, 3, 2)),
+    (4, 320, (1, 16, True, 3, 3)),
+    (4, 512, (1, 16, True, 2, 1)),
+    (4, 1024, (2, 16, False, 4, 2)),
+    (2, 1088, (3, 32, False, 4, 2)),
+])
+def test_wide_forward_plan_at_timed_shapes(elem_bytes, D, want):
+    # chip_smoke.py's rows (D 320, 512) keep Q resident with two or more K
+    # stages; f32 D 1024 and 16-bit past D 1024 stream Q beside K.
+    p = tfa.plan_wide(D, elem_bytes)
+    assert (len(p["parts"]), p["bk"], p["q_res"], p["nk"], p["nv"]) == want
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.float64, 64), (torch.bfloat16, 96),

@@ -1714,9 +1714,10 @@ _SYNC_CASES = [  # (dtype, D, B, Tq, Tkv, NH, NKV, kv_offset, causal)
     (torch.float32, 128, 2, 256, 384, 8, 2, 128, True),
     (torch.float32, 192, 1, 208, 256, 4, 2, 48, True),  # a ragged q tile
     (torch.float32, 256, 2, 256, 256, 4, 1, 0, False),
-    # Past D 256 (column parts, 64-column panels): a partial last part of
-    # O and dQ at D 320 in 16-bit (128 + 128 + 64 columns), ragged q tiles,
-    # kv_offset windows, not causal, and f32 at D 1024 on a small T.
+    # Past D 256 (the forward's column parts of up to 512 columns on wgmma,
+    # the 16-bit backward's 128-column parts on mma.sync: a partial last part
+    # of dQ at D 320, 128 + 128 + 64 columns), ragged q tiles, kv_offset
+    # windows, not causal, and f32 at D 1024 on a small T.
     (torch.float32, 320, 1, 256, 256, 4, 2, 0, True),
     (torch.bfloat16, 320, 2, 208, 384, 4, 2, 176, True),
     (torch.float16, 320, 1, 128, 512, 4, 1, 384, True),
@@ -1805,23 +1806,68 @@ def _sync_forward_then_backward(dtype, D, B, Tq, Tkv, NH, NKV, off, causal,
         assert err <= row_tol, f"{name}: worst row's relative err {err}"
 
 
-# f32 takes the TMA + tf32 wgmma family (csrc/flash_tf32_*.cu) forward at D
-# 64-256 and backward at D 64 and 128; the mma.sync family takes f32's
-# backward at D 192 and 256, and every type past D 256.
+# The forward runs on TMA + wgmma at every D: f32 on the tf32 family
+# (csrc/flash_tf32_fwd.cu), bf16 and fp16 on csrc/flash_fwd.cu. The tf32
+# backward takes f32 at D 64 and 128; the mma.sync family takes f32's
+# backward past D 128 and the 16-bit one past D 256.
 def _family(dtype, D):
     f32 = dtype == torch.float32
-    return ("tf32" if f32 and D <= 256 else "sync", "tf32" if f32 and D <= 128 else "sync")
+    return ("tf32" if f32 and D <= 256 else "sync" if f32 else "wgmma",
+            "tf32" if f32 and D <= 128 else "sync")
 
 
 @pytest.mark.parametrize("dtype,D,B,Tq,Tkv,NH,NKV,off,causal", _SYNC_CASES)
 def test_flash_sync_kernels(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
-    # What the bf16 and fp16 wgmma kernels do not take, both ways, the
-    # forward with and without statistics: the mma.sync family, and f32 up
-    # to D 256 on the tf32 family (_family).
+    # Both ways, the forward with and without statistics: f32 at every D
+    # (the tf32 forward, its backward on the tf32 or mma.sync family), and
+    # bf16 and fp16 past D 256 (the wgmma forward, the mma.sync backward;
+    # _family).
     from mila_tpu_torch.kernels import flash_attention as fa
 
     assert fa.routes(dtype, D) == _family(dtype, D)
     _sync_forward_then_backward(dtype, D, B, Tq, Tkv, NH, NKV, off, causal, plain_entry=True)
+
+
+_WIDE_FWD_CASES = [  # (D, B, Tq, Tkv, NH, NKV, kv_offset, causal), each type
+    (384, 2, 208, 384, 4, 4, 176, True),   # ragged q tiles, a window Tq < Tkv, NH = NKV
+    (384, 1, 256, 256, 8, 2, 0, False),    # not causal, G 4
+    (576, 1, 80, 256, 8, 2, 176, True),    # two parts (320 + 256), G 4
+    (576, 2, 192, 256, 2, 2, 0, False),
+    (1024, 1, 208, 384, 4, 1, 176, True),  # two parts of 512; f32 streams Q
+    (1024, 1, 128, 256, 4, 4, 0, False),
+    (704, 1, 144, 256, 4, 1, 112, True),   # parts 512 + 192; f32 streams Q
+    (1088, 1, 96, 256, 4, 2, 160, True),   # 16-bit streams Q; a last part of 64
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D,B,Tq,Tkv,NH,NKV,off,causal", _WIDE_FWD_CASES)
+def test_flash_wide_forward(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
+    # The forward past D 256 (kernels/flash_attention.py:plan_wide), with
+    # and without statistics, against the plain version: each (b, t, head)
+    # row within 5e-3 (f32: tf32 products) or 2e-2 of its own max, l and m
+    # at chip_smoke.py:flash_rows' limits (1e-4 relative and 1e-3 absolute,
+    # 1e-2 both in f32), one counted launch each.
+    from mila_tpu_torch.kernels import flash_attention as fa
+
+    assert fa.routes(dtype, D)[0] == _family(dtype, D)[0]
+    q = _rand((B, Tq, NH, D), 190, dtype=dtype)
+    k, v = _rand((B, Tkv, NKV, D), 191, dtype=dtype), _rand((B, Tkv, NKV, D), 192, dtype=dtype)
+    sm = D ** -0.5
+    before = (fa.flash_attention_forward.launches, fa.flash_attention.launches)
+    o, l, m = fa.flash_attention_forward(q, k, v, causal=causal, sm_scale=sm, kv_offset=off)
+    o2 = fa.flash_attention(q, k, v, causal=causal, scale=sm, kv_offset=off)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_forward.launches, fa.flash_attention.launches) == (
+        before[0] + 1, before[1] + 1)
+    o_ref, l_ref, m_ref = fa.flash_attention_plain(q, k, v, causal=causal, scale=sm,
+                                                   kv_offset=off, save_stats=True)
+    f32 = dtype == torch.float32
+    row_tol = 5e-3 if f32 else 2e-2
+    for got in (o, o2):
+        assert got.dtype == dtype and _row_err(got, o_ref, floor=0.0) <= row_tol
+    assert ((l - l_ref).abs() / l_ref).max().item() <= (1e-2 if f32 else 1e-4)
+    assert (m - m_ref).abs().max().item() <= (1e-2 if f32 else 1e-3)
 
 
 @pytest.mark.parametrize("D,B,Tq,Tkv,NH,NKV,off", [
@@ -1869,13 +1915,17 @@ def test_flash_wgmma_bwd_on_sync_stats(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off,
 @pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.float32, 320),
                                      (torch.bfloat16, 320), (torch.float16, 512),
                                      (torch.float32, 512), (torch.float32, 1024),
-                                     (torch.float32, 128), (torch.float32, 256)])
+                                     (torch.float32, 128), (torch.float32, 256),
+                                     (torch.bfloat16, 512), (torch.float16, 320),
+                                     (torch.bfloat16, 1088), (torch.float32, 704)])
 def test_flash_sync_graph_replay_and_determinism(cuda, dtype, D):
-    # The mma.sync family and f32's tf32 family (D 64 and 128, its operand
-    # copies in scratch from the graph's pool): two forward + backward calls
-    # on the same inputs are bit-equal (no atomics), and a captured forward
-    # + backward replayed after q, k, v and do change in place equals eager
-    # calls.
+    # f32's tf32 family (its operand copies in scratch from the graph's
+    # pool) at every D, and past D 256 every build of the forward's part
+    # kernels (bf16 and fp16 at parts of 320 and 512 columns, Q streamed at
+    # 16-bit D 1088 and f32 D 704 and 1024) before the mma.sync backward:
+    # two forward + backward calls on the same inputs are bit-equal (no
+    # atomics), and a captured forward + backward replayed after q, k, v and
+    # do change in place equals eager calls.
     from mila_tpu_torch.kernels import flash_attention as fa
     from mila_tpu_torch.kernels import flash_attention_bwd as fb
 
