@@ -1,6 +1,6 @@
 // flash_tf32_fwd: the causal grouped-query flash-attention forward in f32 at
-// D 64-256, with or without its row statistics, on Hopper's TMA and tf32
-// warpgroup MMA.
+// every D % 64 == 0, with or without its row statistics, on Hopper's TMA and
+// tf32 warpgroup MMA.
 //
 // Replaces the TPU kernels mila_tpu/kernels/flash_attention.py:_fa_kernel
 // and _fa_kernel_t (entry flash_attention -> _flash_attention_forward, with
@@ -22,12 +22,20 @@
 // registers (4 lanes a row), and O += T(P) V on RS wgmma m64nDk8 (P from the
 // accumulator, pack_a; V^T as B). A warpgroup skips the key tiles its rows
 // do not see.
+// Past D 256 (fwd_part_kernel, flash_part.cuh's plan): a prep launch for any
+// D (prep_cols_kernel, 64 columns a block), then one block per (64 query
+// rows, head and column part of up to 512 columns, batch row) whose two
+// warpgroups both form the tile's whole S on 16-key tiles and each add P V
+// into half of the part's columns (V^T's tiles are rows of 16 keys, 64
+// bytes, read with the 64-byte swizzle). Q stays in shared memory when it
+// fits beside a K and a V stage (to D 640), else streams beside K in
+// 32-column chunks, each rounded to tf32 as it lands.
 //
-// Built in three parts (kernels/_build.py: PARTS), one nvcc each: parts 1
-// and 2 instantiate D 64 and 128, and D 192 and 256; part 0 holds the C
-// entry points.
+// Built in four parts (kernels/_build.py: PARTS), one nvcc each: parts 1
+// and 2 instantiate D 64 and 128, and D 192 and 256, part 3 the kernels past
+// D 256; part 0 holds the C entry points.
 //
-// The TPU kernel's semantics, as flash_sync_fwd.cu: the causal tile skip
+// The TPU kernel's semantics: the causal tile skip
 // with kv_offset; masked scores take the finite -0.7 * f32max (after the
 // scaling); p = exp(s - m) rounded to tf32 before P V while l sums the f32
 // p, both against the running max of the key tiles; 1 / l with l == 0
@@ -35,6 +43,7 @@
 // scaled scores) are written per row when asked for: the statistics the
 // backward reads. Layouts are the model's: q and out [B, Tq, NH, D], k and v
 // [B, Tkv, NKV, D], f32, contiguous, 16-byte-aligned bases.
+#include "flash_part.cuh"
 #include "flash_tf32.cuh"
 
 namespace tfwd_parts {  // one call's arguments, and each part's launches
@@ -50,6 +59,7 @@ struct Call {
 
 int run_narrow(const Call& c);  // D 64, 128
 int run_wide(const Call& c);    // D 192, 256
+int run_part(const Call& c);    // D % 64 == 0 past 256
 
 }  // namespace tfwd_parts
 
@@ -286,6 +296,308 @@ int launch(const tfwd_parts::Call& c) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- past D 256 (flash_part.cuh: the plan) ---------------------------------
+
+constexpr int PREP_COLS = 64;  // columns a block of prep_cols_kernel
+
+// K rounded to tf32 ([B NKV T][D]) and V rounded and transposed ([B NKV
+// D][T], each 8 keys in row_at's order), for any D % 64 == 0: one block per
+// (32 keys, 64 columns, KV head, batch row), so its tile stays 8 KB at any D.
+__global__ void __launch_bounds__(PREP_THREADS)
+prep_cols_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                 float* __restrict__ kr, float* __restrict__ vt, int T, int H, int D) {
+  __shared__ float tile[PREP_ROWS][PREP_COLS + 1];  // V's rows, rounded
+  const int tid = threadIdx.x, ncol = D / PREP_COLS;
+  const int t0 = blockIdx.x * PREP_ROWS, h = blockIdx.y / ncol;
+  const int c0 = (blockIdx.y % ncol) * PREP_COLS, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  for (int i = tid; i < PREP_ROWS * PREP_COLS / 4; i += PREP_THREADS) {
+    const int r = i / (PREP_COLS / 4), col = 4 * (i % (PREP_COLS / 4)), t = t0 + r;
+    const size_t src = (((size_t)b * T + t) * H + h) * D + c0 + col;
+    const float4 x = *reinterpret_cast<const float4*>(v + src);
+    const float4 y = *reinterpret_cast<const float4*>(k + src);
+    *reinterpret_cast<float4*>(kr + (bh * T + t) * D + c0 + col) =
+        make_float4(tf32f(y.x), tf32f(y.y), tf32f(y.z), tf32f(y.w));
+    float* pv = &tile[r][col];
+    pv[0] = tf32f(x.x), pv[1] = tf32f(x.y), pv[2] = tf32f(x.z), pv[3] = tf32f(x.w);
+  }
+  __syncthreads();
+  for (int i = tid; i < PREP_COLS * PREP_ROWS; i += PREP_THREADS) {
+    const int d = i / PREP_ROWS, q = i % PREP_ROWS;
+    vt[(bh * D + c0 + d) * T + t0 + q] = tile[row_at(q)][d];
+  }
+}
+
+// 64 x 128 bytes of Q (a 32-column panel) rounded to tf32 in place by the
+// block's 256 threads, then fenced for wgmma and waited for by both.
+__device__ __forceinline__ void round_panels(unsigned char* q, int panels, int tid) {
+  float4* f = reinterpret_cast<float4*>(q);
+  for (int i = tid; i < panels * fpart::BQ * 8; i += fpart::THREADS) {
+    const float4 x = f[i];
+    f[i] = make_float4(tf32f(x.x), tf32f(x.y), tf32f(x.z), tf32f(x.w));
+  }
+  fence_proxy_async();
+  named_bar_sync(fpart::ROUNDED, fpart::THREADS);
+}
+
+// O += T(P) V^T's rows [0, n) from vt (the warpgroup's first row of the V
+// tile: rows of 16 keys, 64 bytes, 64-byte swizzle) for k-slice kk of 8 keys.
+template <int N>
+__device__ __forceinline__ void pv_rows(float* o, const uint32_t* pa, const unsigned char* vt,
+                                       int kk) {
+  wgmma_tf32_rs<N>(o, pa, wgmma_desc_64b(vt + 32 * kk, 512), 1);
+}
+
+// Past D 256, f32: the block of flash_fwd.cu's flash_fwd_part_kernel on tf32
+// wgmma, after the prep launch. Both warpgroups form the same S = Q K^T of
+// each 16-key tile (SS m64n16k8 over D / 8 k-slices) and run the same
+// softmax; warpgroup wg adds P V into its half of the part's columns (RS
+// m64nNk8, P from the accumulator, pack_a; V^T's rows as B), so O takes at
+// most 128 registers a thread. The products always span DCMAX / 2 rows of
+// V^T (past a narrower part's half: values never stored). Q resident (QRES)
+// is rounded to tf32 once in shared memory; streamed, each chunk as it lands.
+template <int DCMAX, bool QRES>
+__global__ void __launch_bounds__(fpart::THREADS, 1)
+fwd_part_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mvt, float* __restrict__ out,
+                float* __restrict__ l_out, float* __restrict__ m_out, const fpart::Args a) {
+  constexpr int BK = 16, BQ = fpart::BQ, NO = DCMAX / 4, NS = BK / 2;
+  constexpr int KP = BK * PANEL_ROW, QP = BQ * PANEL_ROW;  // a K and a Q panel's bytes
+  const fpart::Plan& p = a.p;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* qs = smem;                  // Q resident: [D / 32][64 rows][128 B]
+  unsigned char* kring = qs + p.q_bytes;     // K tiles [D / 32][16][128 B], or Q and K chunks
+  unsigned char* vring = kring + p.nk * p.k_slot;  // V^T tiles [part's columns][64 B]
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(vring + p.nv * p.v_slot);
+  uint64_t* empty_k = full_k + p.nk;
+  uint64_t* full_v = empty_k + p.nk;
+  uint64_t* empty_v = full_v + p.nv;
+  uint64_t* q_full = empty_v + p.nv;
+
+  const int tid = threadIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest q tiles first
+  const int h = blockIdx.x / p.parts, part = blockIdx.x % p.parts, b = blockIdx.z;
+  const int c0 = part * p.dc, nc = min(p.dc, a.D - c0);
+  const int hk = h / (a.NH / a.NKV);
+  const int q0 = qt * BQ;
+  int n_kv = a.Tkv / BK;
+  if (a.causal) {
+    const int last = q0 + BQ - 1 + a.kv_offset;  // the TPU kernel's tile-skip rule
+    n_kv = last < 0 ? 0 : min(n_kv, last / BK + 1);
+  }
+  const int chunks = QRES ? 1 : a.D / 32;
+  const int n_k = n_kv * chunks;
+  const int krow = (b * a.NKV + hk) * a.Tkv, vrow = (b * a.NKV + hk) * a.D + c0;
+  if (tid == 0) {
+    for (int s = 0; s < p.nk; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&empty_k[s], fpart::THREADS);
+    }
+    for (int s = 0; s < p.nv; ++s) {
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_v[s], fpart::THREADS);
+    }
+    mbar_init(q_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  auto load_k = [&](int kj) {
+    const int s = kj % p.nk;
+    if (kj >= p.nk) mbar_wait(&empty_k[s], (kj / p.nk - 1) & 1);
+    unsigned char* dst = kring + s * p.k_slot;
+    mbar_expect_tx(&full_k[s], p.k_slot);
+    if constexpr (QRES) {
+      for (int c = 0; c < a.D / 32; ++c)
+        tma_load_2d(dst + c * KP, &mk, &full_k[s], 32 * c, krow + kj * BK);
+    } else {  // chunk c of key tile kj / chunks: Q's panel c, then K's
+      const int c = kj % chunks;
+      tma_load_3d(dst, &mq, &full_k[s], h * a.D + 32 * c, q0, b);
+      tma_load_2d(dst + QP, &mk, &full_k[s], 32 * c, krow + kj / chunks * BK);
+    }
+  };
+  auto load_v = [&](int j) {  // V^T's rows of the part, 16 keys each
+    const int s = j % p.nv;
+    if (j >= p.nv) mbar_wait(&empty_v[s], (j / p.nv - 1) & 1);
+    unsigned char* dst = vring + s * p.v_slot;
+    mbar_expect_tx(&full_v[s], nc * BK * 4);
+    for (int r = 0; r < nc / 64; ++r)
+      tma_load_2d(dst + r * 64 * BK * 4, &mvt, &full_v[s], j * BK, vrow + 64 * r);
+  };
+  if (tid == fpart::ISSUER) {
+    if constexpr (QRES) {
+      mbar_expect_tx(q_full, p.q_bytes);
+      for (int c = 0; c < a.D / 32; ++c)
+        tma_load_3d(qs + c * QP, &mq, q_full, h * a.D + 32 * c, q0, b);
+    }
+    for (int kj = 0; kj < min(p.nk, n_k); ++kj) load_k(kj);
+    for (int j = 0; j < min(p.nv, n_kv); ++j) load_v(j);
+  }
+
+  const int wg = tid >> 7, lane = tid & 31, w = (tid >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = q0 + 16 * w;  // both warpgroups hold the same 64 rows
+  const int r0 = wrow + g;
+  const int wcols = nc / 2, col0 = wg * wcols;  // this warpgroup's columns of the part
+
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  if constexpr (QRES) {
+    mbar_wait(q_full, 0);
+    round_panels(qs, a.D / 32, tid);
+    if (n_kv > 0 && wg == 1) named_bar_arrive(fpart::SCHED, fpart::THREADS);
+  }
+  for (int j = 0; j < n_kv; ++j) {
+    const int k0 = j * BK;
+    float sc[NS];
+    if constexpr (QRES) {
+      const int s = j % p.nk;
+      const unsigned char* ks = kring + s * p.k_slot;
+      mbar_wait(&full_k[s], (j / p.nk) & 1);
+      named_bar_sync(fpart::SCHED + wg, fpart::THREADS);
+      wgmma_fence();
+#pragma unroll 1
+      for (int c = 0; c < a.D / 32; ++c)  // 32-column panels, not unrolled: no remainder
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          wgmma_tf32<BK>(sc, slice(qs, BQ, 4 * c + i), slice(ks, BK, 4 * c + i), c > 0 || i > 0);
+      wgmma_commit();
+      named_bar_arrive(fpart::SCHED + 1 - wg, fpart::THREADS);
+      wgmma_wait<0>();
+      wgmma_fence_operand<NS>(sc);
+      mbar_arrive(&empty_k[s]);
+      if (tid == fpart::ISSUER && j + p.nk < n_k) load_k(j + p.nk);
+    } else {
+      for (int cc = 0; cc < chunks; ++cc) {
+        const int kj = j * chunks + cc, s = kj % p.nk;
+        unsigned char* st = kring + s * p.k_slot;
+        mbar_wait(&full_k[s], (kj / p.nk) & 1);
+        round_panels(st, 1, tid);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_tf32<BK>(sc, slice(st, BQ, kk), slice(st + QP, BK, kk), kk > 0 || cc > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        wgmma_fence_operand<NS>(sc);
+        mbar_arrive(&empty_k[s]);
+        if (tid == fpart::ISSUER && kj + p.nk < n_k) load_k(kj + p.nk);
+      }
+    }
+    // The online softmax, as fwd_kernel's: sc[4 jj + i] is row r0 + 8 (i /
+    // 2), key k0 + 8 jj + 2 t + i % 2; the mask only on tiles past the
+    // warp's first row.
+    const bool diag = a.causal && k0 + BK - 1 > wrow + a.kv_offset;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int jj = 0; jj < BK / 8; ++jj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = 4 * jj + i, hr = i >> 1;
+        float val = sc[e] * a.sm_scale;
+        if (diag && k0 + 8 * jj + 2 * t + (i & 1) > r0 + 8 * hr + a.kv_offset) val = MASK_VALUE;
+        sc[e] = val;
+        mx[hr] = fmaxf(mx[hr], val);
+      }
+    float alpha[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+      const float m_new = fmaxf(m[hr], mx[hr]);
+      alpha[hr] = ex2((m[hr] - m_new) * LOG2E);
+      m[hr] = m_new;
+    }
+#pragma unroll
+    for (int e = 0; e < NS; ++e) {
+      const int hr = (e >> 1) & 1;
+      const float pe = ex2((sc[e] - m[hr]) * LOG2E);
+      sc[e] = pe;
+      ls[hr] += pe;
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      ls[hr] += __shfl_xor_sync(0xffffffffu, ls[hr], 1);
+      ls[hr] += __shfl_xor_sync(0xffffffffu, ls[hr], 2);
+      l[hr] = alpha[hr] * l[hr] + ls[hr];
+    }
+#pragma unroll
+    for (int e = 0; e < NO; ++e) o[e] *= alpha[(e >> 1) & 1];
+    uint32_t pa[BK / 8][4];
+    pack_a<BK>(pa, sc);
+
+    const int sv = j % p.nv;
+    const unsigned char* vt = vring + sv * p.v_slot + col0 * 64;
+    mbar_wait(&full_v[sv], (j / p.nv) & 1);
+    if constexpr (QRES) named_bar_sync(fpart::SCHED + wg, fpart::THREADS);
+    wgmma_fence_operand<NO>(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {  // DCMAX / 2 columns, past a narrower part's too
+      if constexpr (DCMAX == 512) {
+        pv_rows<256>(o, pa[kk], vt, kk);
+      } else {
+        pv_rows<128>(o, pa[kk], vt, kk);
+        pv_rows<32>(o + 64, pa[kk], vt + 128 * 64, kk);
+      }
+    }
+    wgmma_commit();
+    if (QRES && (wg == 0 || j + 1 < n_kv))  // warpgroup 1 passed first
+      named_bar_arrive(fpart::SCHED + 1 - wg, fpart::THREADS);
+    wgmma_wait<0>();
+    wgmma_fence_operand<NO>(o);
+    mbar_arrive(&empty_v[sv]);
+    if (tid == fpart::ISSUER && j + p.nv < n_kv) load_v(j + p.nv);
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + 8 * hr;
+    if (row >= a.Tq) continue;
+    const float inv = l[hr] == 0.f ? 1.f : 1.f / l[hr];
+    if (l_out != nullptr && part == 0 && wg == 0 && t == 0) {
+      const size_t srow = ((size_t)b * a.NH + h) * a.Tq + row;
+      l_out[srow] = l[hr];
+      m_out[srow] = m[hr];
+    }
+    float* orow = out + (((size_t)b * a.Tq + row) * a.NH + h) * a.D + c0 + col0;
+#pragma unroll
+    for (int jj = 0; jj < NO / 4; ++jj)
+      if (8 * jj < wcols)
+        *reinterpret_cast<float2*>(orow + 8 * jj + 2 * t) =
+            make_float2(o[4 * jj + 2 * hr] * inv, o[4 * jj + 2 * hr + 1] * inv);
+  }
+}
+
+template <int DCMAX, bool QRES>
+int launch_part(const tfwd_parts::Call& c, const fpart::Plan& p) {
+  const size_t RK = (size_t)c.B * c.NKV * c.Tkv;
+  float* kr = c.scratch;           // K rounded [RK][D]
+  float* vt = c.scratch + RK * c.D;  // V rounded, transposed [B NKV D][Tkv]
+  prep_cols_kernel<<<dim3(c.Tkv / PREP_ROWS, c.NKV * (c.D / PREP_COLS), c.B), PREP_THREADS, 0,
+                     c.stream>>>(c.k, c.v, kr, vt, c.Tkv, c.NKV, c.D);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  CUtensorMap mq, mk, mvt;
+  if (!encode_3d(&mq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, c.q, c.B, c.Tq, (uint64_t)c.NH * c.D,
+                 fpart::BQ, 32, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_f32(&mk, kr, RK, c.D, 16) ||
+      !encode_2d(&mvt, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, vt, (uint64_t)c.B * c.NKV * c.D, c.Tkv,
+                 64, 16, CU_TENSOR_MAP_SWIZZLE_64B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = fwd_part_kernel<DCMAX, QRES>;
+  static bool sized[64] = {};
+  e = size_smem(kern, fpart::SMEM_LIMIT, sized);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const fpart::Args a{c.Tq, c.Tkv, c.NH, c.NKV, c.D, c.sm_scale, c.kv_offset, c.causal, p};
+  kern<<<dim3(c.NH * p.parts, (c.Tq + fpart::BQ - 1) / fpart::BQ, c.B), fpart::THREADS, p.smem,
+         c.stream>>>(mq, mk, mvt, c.out, c.l_out, c.m_out, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 #if IN_PART(1)
@@ -303,6 +615,16 @@ int tfwd_parts::run_wide(const Call& c) {
 }
 #endif
 
+#if IN_PART(3)
+int tfwd_parts::run_part(const Call& c) {
+  if (c.D % 64) return static_cast<int>(cudaErrorInvalidValue);
+  const fpart::Plan p = fpart::plan(c.D, 4);  // Q streams only past D 640, in parts of 512
+  if (!p.q_res) return launch_part<fpart::DC_LARGE, false>(c, p);
+  if (p.dcmax == fpart::DC_SMALL) return launch_part<fpart::DC_SMALL, true>(c, p);
+  return launch_part<fpart::DC_LARGE, true>(c, p);
+}
+#endif
+
 #if IN_PART(0)
 
 // The f32 scratch flash_tf32_fwd needs for these shapes, in floats.
@@ -312,10 +634,9 @@ extern "C" long long flash_tf32_fwd_scratch(int B, int Tkv, int NKV, int D) {
 
 // q [B, Tq, NH, D], k and v [B, Tkv, NKV, D], out [B, Tq, NH, D], f32,
 // contiguous, 16-byte-aligned bases; scratch f32 of flash_tf32_fwd_scratch
-// floats, 16-byte aligned. D in {64, 128, 192, 256} (else
-// cudaErrorInvalidValue), Tkv % 64 == 0 and NH % NKV == 0 (checked by the
-// Python wrapper). causal != 0 masks key j for query i unless j <= i +
-// kv_offset. l_out and m_out null, or f32 [B, NH, Tq]: each row's softmax
+// floats, 16-byte aligned. D % 64 == 0 (else cudaErrorInvalidValue), Tkv %
+// 128 == 0 and NH % NKV == 0 (checked by the Python wrapper). causal != 0
+// masks key j for query i unless j <= i + kv_offset. l_out and m_out null, or f32 [B, NH, Tq]: each row's softmax
 // sum l and max m of the scaled scores. Two launches on `stream`: the prep,
 // the forward. Returns a cudaError_t.
 extern "C" int flash_tf32_fwd(const void* q, const void* k, const void* v, void* out,
@@ -332,6 +653,8 @@ extern "C" int flash_tf32_fwd(const void* q, const void* k, const void* v, void*
                            D,                             sm_scale,
                            kv_offset,                     causal,
                            static_cast<cudaStream_t>(stream)};
-  return D <= 128 ? tfwd_parts::run_narrow(c) : tfwd_parts::run_wide(c);
+  return D <= 128 ? tfwd_parts::run_narrow(c)
+         : D <= 256 ? tfwd_parts::run_wide(c)
+                    : tfwd_parts::run_part(c);
 }
 #endif  // IN_PART(0)

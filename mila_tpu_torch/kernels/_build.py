@@ -38,7 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # Sources built in parts, and how many (the source says what each holds).
 PARTS = {"decode_step_int8": 4, "flash_fwd": 7, "flash_bwd": 5, "flash_sync_bwd": 4,
-         "flash_tf32_fwd": 3, "flash_tf32_bwd": 3,
+         "flash_tf32_fwd": 4, "flash_tf32_bwd": 3,
          "dense_decode_attn": 4, "paged_decode_attn": 2}
 
 _lock = threading.Lock()

@@ -96,7 +96,7 @@ def routes(dtype: torch.dtype, D: int) -> tuple[str, str]:
         raise NotImplementedError(f"flash attention on the card takes bf16, fp16 or f32 with "
                                   f"D % 64 == 0; got {dtype}, D {D}")
     if dtype == torch.float32:
-        return ("tf32" if D <= 256 else "sync", "tf32" if D in TF32_BWD_DIMS else "sync")
+        return "tf32", "tf32" if D in TF32_BWD_DIMS else "sync"
     return "wgmma", "wgmma" if D in WGMMA_BWD_DIMS else "sync"
 
 

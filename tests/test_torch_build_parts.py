@@ -87,6 +87,7 @@ def test_each_part_holds_code(name):
     ("flash_fwd", 1, "run_bf16"), ("flash_fwd", 2, "run_f16"),
     ("flash_fwd", 3, "run_bf16_wide"), ("flash_fwd", 4, "run_f16_wide"),
     ("flash_fwd", 5, "run_bf16_part"), ("flash_fwd", 6, "run_f16_part"),
+    ("flash_tf32_fwd", 3, "run_part"),
     ("flash_sync_bwd", 1, "run_f32"), ("flash_sync_bwd", 2, "run_bf16"),
     ("flash_tf32_bwd", 1, "run_d64"), ("flash_tf32_bwd", 2, "run_d128"),
 ])

@@ -1812,8 +1812,7 @@ def _sync_forward_then_backward(dtype, D, B, Tq, Tkv, NH, NKV, off, causal,
 # backward past D 128 and the 16-bit one past D 256.
 def _family(dtype, D):
     f32 = dtype == torch.float32
-    return ("tf32" if f32 and D <= 256 else "sync" if f32 else "wgmma",
-            "tf32" if f32 and D <= 128 else "sync")
+    return ("tf32" if f32 else "wgmma", "tf32" if f32 and D <= 128 else "sync")
 
 
 @pytest.mark.parametrize("dtype,D,B,Tq,Tkv,NH,NKV,off,causal", _SYNC_CASES)
@@ -1840,7 +1839,7 @@ _WIDE_FWD_CASES = [  # (D, B, Tq, Tkv, NH, NKV, kv_offset, causal), each type
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("D,B,Tq,Tkv,NH,NKV,off,causal", _WIDE_FWD_CASES)
 def test_flash_wide_forward(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
     # The forward past D 256 (kernels/flash_attention.py:plan_wide), with
