@@ -86,8 +86,8 @@
 //     and D stay in registers.
 // Layouts are the model's: q, o, do, dq [B, Tq, NH, D], k, v, dk, dv [B,
 // Tkv, NKV, D], contiguous, 16-byte-aligned bases; l, m f32 [B, NH, Tq],
-// from either forward (flash_fwd.cu or flash_sync_fwd.cu: m of the scaled
-// scores, l the f32 sum against the running max).
+// from the forward (flash_fwd.cu: m of the scaled scores, l the f32 sum
+// against the running max).
 //
 // Built in five parts (kernels/_build.py: PARTS), one nvcc each: parts 1
 // and 2 instantiate bf16 and fp16 at D 64 and 128, parts 3 and 4 bf16 and

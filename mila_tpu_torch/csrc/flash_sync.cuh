@@ -1,18 +1,17 @@
-// The mma.sync flash-attention family (flash_sync_fwd.cu, flash_sync_bwd.cu):
-// what the TMA + wgmma kernels (flash_fwd.cu and flash_bwd.cu: bf16 and fp16
-// at D 64-256; flash_tf32_*.cu: f32 at D 64-256 forward, 64 and 128
-// backward) do not take and the TPU kernels' tiling gate admits: every
-// type's forward past D 256, the 16-bit backward past D 256 (f32's backward
-// from D 192 runs flash_sync_bwd.cu's split kernels, on wgmma).
+// The mma.sync pieces of flash_sync_bwd.cu, the flash-attention backward
+// for what the TMA + wgmma backwards (flash_bwd.cu: bf16 and fp16 at D
+// 64-256; flash_tf32_bwd.cu: f32 at D 64 and 128) do not take and the TPU
+// kernels' tiling gate admits: the 16-bit backward past D 256 (column parts,
+// Wide below) and f32's from D 192 (its split kernels form S and dP on
+// wgmma and run dQ, dK and dV on mma.sync m16n8k8 .tf32). Every forward runs
+// on TMA + wgmma (flash_fwd.cu, flash_tf32_fwd.cu).
 //
 // One warp owns 16 rows of a tile and runs its products on mma.sync with
 // f32 accumulators: bf16 and fp16 on m16n8k16, f32 on m16n8k8 .tf32 (the
-// operands rounded to tf32 by cvt.rna: q, k, v and p keep 10 mantissa bits
-// for the products, the sums stay f32; ROADMAP §C.2). Tiles sit in shared
-// memory as row-major [row][column] arrays padded by PAD elements a row;
-// the fragments come from them by 32-bit loads (ld32, 16-bit types),
-// ldmatrix.trans (16-bit, B from a [k][n] tile) or scalar loads converted
-// to tf32 (f32).
+// operands rounded to tf32 by cvt.rna, the sums stay f32; ROADMAP §C.2).
+// Tiles sit in shared memory as row-major [row][column] arrays padded by PAD
+// elements a row; the 16-bit fragments come from them by 32-bit loads (ld32)
+// or ldmatrix.trans (B from a [k][n] tile).
 //
 // Fragment layouts (g = lane / 4, t = lane % 4; C/D of both shapes: c0, c1 =
 // C[g][2t, 2t + 1], c2, c3 = C[g + 8][2t, 2t + 1]):
@@ -32,7 +31,6 @@
 
 namespace fsync {
 
-constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
 constexpr int THREADS = 128, WARPS = 4, BQ = 64;  // 16 rows a warp
 
 __device__ __forceinline__ void mma_f16(float* d, const uint32_t* a, const uint32_t* b) {
@@ -110,62 +108,21 @@ struct Ops<__half> : Ops16<__half> {
   }
 };
 
-// f32: m16n8k8 .tf32, k index t read as column 2t and t + 4 as 2t + 1.
-template <>
-struct Ops<float> {
-  static constexpr int KS = 8;
-  static constexpr int PAD = 4;
-  __device__ static void a_rows(uint32_t* a, const float* tile, int rs, int r0, int k0,
-                                int lane) {
-    const int g = lane >> 2, t = lane & 3;
-    const float2 u = *reinterpret_cast<const float2*>(tile + (r0 + g) * rs + k0 + 2 * t);
-    const float2 w = *reinterpret_cast<const float2*>(tile + (r0 + g + 8) * rs + k0 + 2 * t);
-    a[0] = tf32(u.x);
-    a[1] = tf32(w.x);
-    a[2] = tf32(u.y);
-    a[3] = tf32(w.y);
-  }
-  __device__ static void b_rows(uint32_t* b, const float* tile, int rs, int n0, int k0,
-                                int lane) {
-    const int g = lane >> 2, t = lane & 3;
-    const float2 v = *reinterpret_cast<const float2*>(tile + (n0 + g) * rs + k0 + 2 * t);
-    b[0] = tf32(v.x);
-    b[1] = tf32(v.y);
-  }
-  __device__ static void b_trans(uint32_t* b, const float* tile, int rs, int k0, int n0,
-                                 int lane) {
-    const int g = lane >> 2, t = lane & 3;
-    const float* p = tile + (k0 + 2 * t) * rs + n0 + g;
-    b[0] = tf32(p[0]);
-    b[1] = tf32(p[rs]);
-  }
-  // The A fragment of k-step [8 kk, 8 kk + 8) from C tile c[kk].
-  __device__ static void a_acc(uint32_t* a, const float (*c)[4]) {
-    a[0] = tf32(c[0][0]);
-    a[1] = tf32(c[0][2]);
-    a[2] = tf32(c[0][1]);
-    a[3] = tf32(c[0][3]);
-  }
-  __device__ static void mma(float* d, const uint32_t* a, const uint32_t* b) { mma_tf32(d, a, b); }
-  __device__ static void store2(float* p, float x, float y) {
-    *reinterpret_cast<float2*>(p) = make_float2(x, y);
-  }
-};
-
-// The kernels past D 256 (fwd_wide, dq_wide, dkv_wide): a block owns DC
-// columns of its output (O, dQ, or dK and dV; the last part of a row D -
-// c0 of them when D % DC != 0). S and dP sum over all of D, their operands
+// The 16-bit backward past D 256 (dq_wide, dkv_wide): a block owns DC
+// columns of its output (dQ, or dK and dV; the last part of a row D - c0
+// of them when D % DC != 0). S and dP sum over all of D, their operands
 // streamed through shared memory in 64-column panels, double buffered; the
 // block's own columns of V, K, or Q and dO come in as one tile a step. So
 // shared memory and registers do not grow with D, and any multiple of 64
 // runs, at the cost of S (and dP) formed once per column part.
 template <typename T>
 struct Wide {
-  static constexpr int DC = sizeof(T) == 4 ? 64 : 128;  // output columns a block
+  static_assert(sizeof(T) == 2, "the column-part kernels take bf16 and fp16");
+  static constexpr int DC = 128;                        // output columns a block
   static constexpr int PW = 64;                         // columns a panel
   static constexpr int RS = PW + Ops<T>::PAD;           // elements a panel row
   static constexpr int CS = DC + Ops<T>::PAD;           // elements a column-part row
-  static constexpr int NK = 64;                         // keys a tile (forward, dQ)
+  static constexpr int NK = 64;                         // keys a tile (dQ)
   static constexpr int NQ = 32;                         // query rows a tile (dK/dV)
 };
 

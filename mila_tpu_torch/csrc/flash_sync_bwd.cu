@@ -1,8 +1,9 @@
 // flash_sync_bwd: the causal grouped-query flash-attention backward from the
 // forward's row statistics for what the TMA + wgmma backwards (flash_bwd.cu,
 // bf16 and fp16 at D 64-256; flash_tf32_bwd.cu, f32 at D 64 and 128) do not
-// take: f32 from D 192, bf16 and fp16 past D 256. Its f32 statistics come
-// from either f32 forward (flash_tf32_fwd.cu, flash_sync_fwd.cu).
+// take: f32 from D 192, bf16 and fp16 past D 256. Its statistics come from
+// the forward of the type (flash_fwd.cu, flash_tf32_fwd.cu: m of the scaled
+// scores, l the f32 sum against the running max).
 //
 // Replaces the TPU kernels mila_tpu/kernels/flash_attention_bwd.py:
 // _dkv_kernel (dK, dV) and _dq_kernel (dQ), entry flash_attention_bwd, at

@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNELS = ("qmm_int8", "qgemv_int8", "paged_decode_attn", "dense_decode_attn",
            "layer_tail_int8", "decode_step_int8", "qgemv_int4", "flash_fwd", "flash_bwd",
-           "flash_sync_fwd", "flash_sync_bwd", "flash_tf32_fwd", "flash_tf32_bwd",
+           "flash_sync_bwd", "flash_tf32_fwd", "flash_tf32_bwd",
            "fused_adamw", "softmax_ce")
 # The float type codes of the C entry points that take f32, bf16 or fp16
 # (fused_adamw.cu, softmax_ce.cu, flash_sync_bwd.cu).

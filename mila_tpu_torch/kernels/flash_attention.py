@@ -193,16 +193,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _sync_lib() -> ctypes.CDLL:
-    lib = _build.library("flash_sync_fwd")
-    if not getattr(lib, "_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.flash_sync_fwd.argtypes = [vp] * 6 + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
-        lib.flash_sync_fwd.restype = ci
-        lib._typed = True
-    return lib
-
-
 def _tf32_lib() -> ctypes.CDLL:
     lib = _build.library("flash_tf32_fwd")
     if not getattr(lib, "_typed", False):
@@ -248,18 +238,12 @@ def _launch(q, k, v, causal: bool, sm_scale: float, kv_offset: int, stats: bool 
         rc = lib.flash_tf32_fwd(_build.ptr(qc), _build.ptr(kc), _build.ptr(vc), _build.ptr(out),
                                 *lm, _build.ptr(scratch), B, Tq, Tkv, NH, NKV, D, sm_scale,
                                 kv_offset, int(causal), _build.stream_of(q))
-    elif fam == "wgmma":
+    else:
         lib = _lib()
         rc = lib.flash_fwd(_build.ptr(qc), _build.ptr(kc), _build.ptr(vc), _build.ptr(out), *lm,
                            B, Tq, Tkv, NH, NKV, D, _build.DTYPE_CODES[q.dtype], sm_scale,
                            kv_offset, int(causal), _build.stream_of(q))
-    else:
-        lib = _sync_lib()
-        rc = lib.flash_sync_fwd(_build.ptr(qc), _build.ptr(kc), _build.ptr(vc), _build.ptr(out),
-                                *lm, B, Tq, Tkv, NH, NKV, D, _build.DTYPE_CODES[q.dtype],
-                                sm_scale, kv_offset, int(causal), _build.stream_of(q))
-    _build.check(lib, rc, {"tf32": "flash_tf32_fwd", "wgmma": "flash_fwd",
-                           "sync": "flash_sync_fwd"}[fam])
+    _build.check(lib, rc, "flash_tf32_fwd" if fam == "tf32" else "flash_fwd")
     if stats:
         flash_attention_forward.launches += 1
         return out, l, m

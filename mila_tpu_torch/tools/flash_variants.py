@@ -12,12 +12,13 @@ t, head) row of the output against its own largest value; with
 statistics, l's relative and m's absolute error too), its median ms per
 launch (CUDA events around 10 launches, 5 repeats) and causal TFLOP/s, beside
 ``scaled_dot_product_attention`` on the same inputs. ``--source`` adds a
-whole other ``flash_fwd.cu`` or ``flash_sync_fwd.cu`` (the entry it
-exports decides how it is called; the ``*.cuh`` files beside it, where
-there are any, replace the package's) as a variant named NAME: an earlier
-commit's source (``git show <commit>:mila_tpu_torch/csrc/flash_sync_fwd.cu``
-into a directory ``.gitignore`` lists) times the route it took there.
-Needs a CUDA device and nvcc.
+whole other ``flash_fwd.cu``, or an earlier commit's ``mma.sync`` forward
+``flash_sync_fwd.cu`` (the entry it exports decides how it is called; the
+``*.cuh`` files beside it, where there are any, replace the package's), as
+a variant named NAME: ``git show <commit>:mila_tpu_torch/csrc/<file>`` into
+a directory ``.gitignore`` lists times the route that commit took. The
+shapes past D 256 run ``flash_fwd_part_kernel``, and the ``part_*``
+variants drop its parts. Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -121,7 +122,7 @@ SHAPES = {
     "stats_D320_T2048": (1, 2048, 2048, 16, 8, 320, True),
     "stats_D512_T2048": (1, 2048, 2048, 16, 8, 512, True),
 }
-SYNC_ENTRY = "flash_sync_fwd"  # a --source exporting it is called as that entry
+SYNC_ENTRY = "flash_sync_fwd"  # an earlier commit's mma.sync forward, called as that entry
 
 
 def build(names, sources=None) -> dict:
@@ -194,7 +195,7 @@ def main() -> None:
     ap.add_argument("--variants", nargs="+", default=list(VARIANTS), choices=list(VARIANTS))
     ap.add_argument("--shapes", nargs="+", default=list(SHAPES), choices=list(SHAPES))
     ap.add_argument("--source", nargs="*", default=[], metavar="NAME=PATH",
-                    help="a whole other flash_fwd.cu or flash_sync_fwd.cu, timed as NAME")
+                    help="a whole other flash_fwd.cu or an earlier flash_sync_fwd.cu, timed as NAME")
     ap.add_argument("--dtype", default="bf16", choices=["bf16", "fp16"])
     args = ap.parse_args()
     dtype = {"bf16": torch.bfloat16, "fp16": torch.float16}[args.dtype]
