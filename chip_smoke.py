@@ -113,9 +113,11 @@ exits non-zero without the final line):
            statistics, evaluate's; T 2048, NH 16/8 at D 192 and 256 in bf16
            (wgmma both ways), at D 128, 192 and 256 in f32 (the tf32
            forward; the tf32 backward at D 128, the split kernels at 192
-           and 256), at D 320 and 512 in bf16 and f32 (the mma.sync
-           family: bf16's column parts, f32's backward on its split
-           kernels), these off the model paths timed on the device alone;
+           and 256), at D 320 and 512 in bf16, fp16 and f32 (the forward
+           on the column-part kernels of wgmma and tf32 wgmma, the
+           backward on the mma.sync family: 16-bit column parts, f32's
+           split kernels), these off the model paths timed on the device
+           alone;
            every row names its family and the CUDA kernels behind one
            counted call, read from a captured graph (cuda_launches;
            graph_launches); row errors within 5e-3 of the row's max in f32,
@@ -2814,10 +2816,10 @@ def phase_train_kernels(bw, peak_ops, rng):
     for D in (192, 256):
         flash_rows(record, rows, 1, 2048, 16, 8, D, draw, device_only=True)
     flash_rows(record, rows, 8, 1024, 12, 12, 64, draw, torch.float16, plain_entry=True)
-    # Past D 256 (the mma.sync family: bf16 on its column parts both ways,
-    # f32's forward on them and its backward on the 8-warp split kernels)
-    # at D 320 in bf16 and f32 and at D 512 in bf16 and f32, from a stream of
-    # their own.
+    # Past D 256 (the forward's column-part kernels: bf16 and fp16 on wgmma,
+    # f32 on tf32 wgmma; the backward on the mma.sync family: 16-bit column
+    # parts, f32's 8-warp split kernels) at D 320 and 512 in bf16 and f32,
+    # from a stream of their own, and in fp16 from another.
     wide = np.random.default_rng(26)
 
     def draw_wide(*shape, dtype):
@@ -2825,6 +2827,13 @@ def phase_train_kernels(bw, peak_ops, rng):
 
     for D, dtype in ((320, bf16), (320, torch.float32), (512, bf16), (512, torch.float32)):
         flash_rows(record, rows, 1, 2048, 16, 8, D, draw_wide, dtype, device_only=True)
+    wide16 = np.random.default_rng(28)
+
+    def draw_wide16(*shape, dtype):
+        return torch.from_numpy(wide16.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+    for D in (320, 512):
+        flash_rows(record, rows, 1, 2048, 16, 8, D, draw_wide16, torch.float16, device_only=True)
     # f32 at the head sizes off the model paths, from a stream of their own:
     # D 128 (the tf32 family both ways), D 192 and 256 (the tf32 forward,
     # the backward on flash_sync_bwd.cu's split kernels).

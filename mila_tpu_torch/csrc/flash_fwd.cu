@@ -666,28 +666,26 @@ flash_fwd_part_kernel(const __grid_constant__ CUtensorMap tmq,
     if (kj >= p.nk) mbar_wait(&empty_k[s], (kj / p.nk - 1) & 1);
     unsigned char* dst = kring + s * p.k_slot;
     mbar_expect_tx(&full_k[s], p.k_slot);
-    if constexpr (QRES) {
-      for (int c = 0; c < a.D / 64; ++c)
-        tma_load_3d(dst + c * KP, &tmk, &full_k[s], hk * a.D + 64 * c, kj * BK, b);
+    if constexpr (QRES) {  // the tile's D / 64 panels in one box
+      tma_load_4d(dst, &tmk, &full_k[s], 0, kj * BK, hk * a.D / 64, b);
     } else {  // chunk c of key tile kj / chunks: Q's panel c, then K's
       const int c = kj % chunks;
-      tma_load_3d(dst, &tmq, &full_k[s], h * a.D + 64 * c, q0, b);
-      tma_load_3d(dst + fpart::BQ * 128, &tmk, &full_k[s], hk * a.D + 64 * c, kj / chunks * BK, b);
+      tma_load_4d(dst, &tmq, &full_k[s], 0, q0, h * a.D / 64 + c, b);
+      tma_load_4d(dst + fpart::BQ * 128, &tmk, &full_k[s], 0, kj / chunks * BK, hk * a.D / 64 + c,
+                  b);
     }
   };
   auto load_v = [&](int j) {  // the part's columns of V tile j
     const int s = j % p.nv;
     if (j >= p.nv) mbar_wait(&empty_v[s], (j / p.nv - 1) & 1);
-    unsigned char* dst = vring + s * p.v_slot;
-    mbar_expect_tx(&full_v[s], nc / 64 * KP);
-    for (int c = 0; c < nc / 64; ++c)
-      tma_load_3d(dst + c * KP, &tmv, &full_v[s], hk * a.D + c0 + 64 * c, j * BK, b);
+    unsigned char* dst = vring + s * p.v_slot;  // dc / 64 panels in one box (past a
+    mbar_expect_tx(&full_v[s], p.dc / 64 * KP);  // narrower last part: never read)
+    tma_load_4d(dst, &tmv, &full_v[s], 0, j * BK, (hk * a.D + c0) / 64, b);
   };
   if (tid == fpart::ISSUER) {
     if constexpr (QRES) {
       mbar_expect_tx(q_full, p.q_bytes);
-      for (int c = 0; c < a.D / 64; ++c)
-        tma_load_3d(qs + c * (fpart::BQ * 128), &tmq, q_full, h * a.D + 64 * c, q0, b);
+      tma_load_4d(qs, &tmq, q_full, 0, q0, h * a.D / 64, b);
     }
     for (int kj = 0; kj < min(p.nk, n_k); ++kj) load_k(kj);
     for (int j = 0; j < min(p.nv, n_kv); ++j) load_v(j);
@@ -780,13 +778,20 @@ flash_fwd_part_kernel(const __grid_constant__ CUtensorMap tmq,
 
 template <typename T, int DCMAX, int BK, bool QRES>
 int launch_part(const fwd_parts::Call& c, const fpart::Plan& p) {
+  // [B][len][heads * D] as [B][heads * D / 64 panels][len][64 columns]: a box of
+  // `panels` panels of `rows` rows lands as [panel][row][128 B], swizzled.
+  const auto view = [](CUtensorMap* map, const void* ptr, int B, int len, int HD, int rows,
+                       int panels) {
+    const uint64_t dims[4] = {64, (uint64_t)len, (uint64_t)HD / 64, (uint64_t)B};
+    const uint64_t strides[3] = {(uint64_t)HD * 2, 128, (uint64_t)len * HD * 2};
+    const uint32_t box[4] = {64, (uint32_t)rows, (uint32_t)panels, 1};
+    return encode_nd(map, tma_type<T>(), ptr, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  };
   CUtensorMap tmq, tmk, tmv;
-  const auto ty = tma_type<T>();
-  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  const uint64_t qw = (uint64_t)c.NH * c.D, kw = (uint64_t)c.NKV * c.D;
-  if (!encode_3d(&tmq, ty, 2, c.q, c.B, c.Tq, qw, fpart::BQ, 64, sw) ||
-      !encode_3d(&tmk, ty, 2, c.k, c.B, c.Tkv, kw, BK, 64, sw) ||
-      !encode_3d(&tmv, ty, 2, c.v, c.B, c.Tkv, kw, BK, 64, sw))
+  const int chunk = QRES ? c.D / 64 : 1;  // panels a Q or K box
+  if (!view(&tmq, c.q, c.B, c.Tq, c.NH * c.D, fpart::BQ, chunk) ||
+      !view(&tmk, c.k, c.B, c.Tkv, c.NKV * c.D, BK, chunk) ||
+      !view(&tmv, c.v, c.B, c.Tkv, c.NKV * c.D, BK, p.dc / 64))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = flash_fwd_part_kernel<T, DCMAX, BK, QRES>;
   static bool sized[64] = {};

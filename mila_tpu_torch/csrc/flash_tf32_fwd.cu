@@ -362,7 +362,7 @@ fwd_part_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
                 const __grid_constant__ CUtensorMap mvt, float* __restrict__ out,
                 float* __restrict__ l_out, float* __restrict__ m_out, const fpart::Args a) {
   constexpr int BK = 16, BQ = fpart::BQ, NO = DCMAX / 4, NS = BK / 2;
-  constexpr int KP = BK * PANEL_ROW, QP = BQ * PANEL_ROW;  // a K and a Q panel's bytes
+  constexpr int QP = BQ * PANEL_ROW;  // a Q panel's bytes
   const fpart::Plan& p = a.p;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
@@ -408,28 +408,26 @@ fwd_part_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
     if (kj >= p.nk) mbar_wait(&empty_k[s], (kj / p.nk - 1) & 1);
     unsigned char* dst = kring + s * p.k_slot;
     mbar_expect_tx(&full_k[s], p.k_slot);
-    if constexpr (QRES) {
-      for (int c = 0; c < a.D / 32; ++c)
-        tma_load_2d(dst + c * KP, &mk, &full_k[s], 32 * c, krow + kj * BK);
+    if constexpr (QRES) {  // the tile's D / 32 panels in one box
+      tma_load_3d(dst, &mk, &full_k[s], 0, krow + kj * BK, 0);
     } else {  // chunk c of key tile kj / chunks: Q's panel c, then K's
       const int c = kj % chunks;
-      tma_load_3d(dst, &mq, &full_k[s], h * a.D + 32 * c, q0, b);
-      tma_load_2d(dst + QP, &mk, &full_k[s], 32 * c, krow + kj / chunks * BK);
+      tma_load_4d(dst, &mq, &full_k[s], 0, q0, h * a.D / 32 + c, b);
+      tma_load_3d(dst + QP, &mk, &full_k[s], 0, krow + kj / chunks * BK, c);
     }
   };
   auto load_v = [&](int j) {  // V^T's rows of the part, 16 keys each
     const int s = j % p.nv;
     if (j >= p.nv) mbar_wait(&empty_v[s], (j / p.nv - 1) & 1);
-    unsigned char* dst = vring + s * p.v_slot;
-    mbar_expect_tx(&full_v[s], nc * BK * 4);
-    for (int r = 0; r < nc / 64; ++r)
-      tma_load_2d(dst + r * 64 * BK * 4, &mvt, &full_v[s], j * BK, vrow + 64 * r);
+    unsigned char* dst = vring + s * p.v_slot;  // dc rows in two boxes (past a
+    mbar_expect_tx(&full_v[s], p.dc * BK * 4);   // narrower last part: never read)
+    tma_load_2d(dst, &mvt, &full_v[s], j * BK, vrow);
+    tma_load_2d(dst + p.dc / 2 * BK * 4, &mvt, &full_v[s], j * BK, vrow + p.dc / 2);
   };
   if (tid == fpart::ISSUER) {
     if constexpr (QRES) {
       mbar_expect_tx(q_full, p.q_bytes);
-      for (int c = 0; c < a.D / 32; ++c)
-        tma_load_3d(qs + c * QP, &mq, q_full, h * a.D + 32 * c, q0, b);
+      tma_load_4d(qs, &mq, q_full, 0, q0, h * a.D / 32, b);
     }
     for (int kj = 0; kj < min(p.nk, n_k); ++kj) load_k(kj);
     for (int j = 0; j < min(p.nv, n_kv); ++j) load_v(j);
@@ -581,12 +579,24 @@ int launch_part(const tfwd_parts::Call& c, const fpart::Plan& p) {
                      c.stream>>>(c.k, c.v, kr, vt, c.Tkv, c.NKV, c.D);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
+  // Q [B][Tq][NH D] as [B][NH D / 32 panels][Tq][32 columns] and K rounded
+  // [RK][D] as [D / 32 panels][RK][32 columns]: a box of `chunk` panels lands
+  // as [panel][row][128 B], swizzled. V^T in boxes of half a part's rows.
+  const auto f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  const int chunk = QRES ? c.D / 32 : 1;  // panels a Q or K box
+  const uint64_t qw = (uint64_t)c.NH * c.D;
+  const uint64_t q_dims[4] = {32, (uint64_t)c.Tq, qw / 32, (uint64_t)c.B};
+  const uint64_t q_strides[3] = {qw * 4, 128, (uint64_t)c.Tq * qw * 4};
+  const uint32_t q_box[4] = {32, fpart::BQ, (uint32_t)chunk, 1};
+  const uint64_t k_dims[3] = {32, RK, (uint64_t)c.D / 32};
+  const uint64_t k_strides[2] = {(uint64_t)c.D * 4, 128};
+  const uint32_t k_box[3] = {32, 16, (uint32_t)chunk};
   CUtensorMap mq, mk, mvt;
-  if (!encode_3d(&mq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, c.q, c.B, c.Tq, (uint64_t)c.NH * c.D,
-                 fpart::BQ, 32, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !encode_f32(&mk, kr, RK, c.D, 16) ||
-      !encode_2d(&mvt, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, vt, (uint64_t)c.B * c.NKV * c.D, c.Tkv,
-                 64, 16, CU_TENSOR_MAP_SWIZZLE_64B))
+  if (!encode_nd(&mq, f32, c.q, 4, q_dims, q_strides, q_box, sw) ||
+      !encode_nd(&mk, f32, kr, 3, k_dims, k_strides, k_box, sw) ||
+      !encode_2d(&mvt, f32, 4, vt, (uint64_t)c.B * c.NKV * c.D, c.Tkv, p.dc / 2, 16,
+                 CU_TENSOR_MAP_SWIZZLE_64B))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = fwd_part_kernel<DCMAX, QRES>;
   static bool sized[64] = {};

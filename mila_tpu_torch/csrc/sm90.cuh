@@ -1,6 +1,6 @@
 // Hopper (sm_90a) helpers for kernels that stage tiles through the Tensor
-// Memory Accelerator and multiply them with warpgroup MMAs: mbarriers, 2-D
-// and 3-D TMA loads, 1-D bulk copies, the proxy fence, wgmma shared-memory
+// Memory Accelerator and multiply them with warpgroup MMAs: mbarriers, 2-D,
+// 3-D and 4-D TMA loads, 1-D bulk copies, the proxy fence, wgmma shared-memory
 // descriptors (128- and 64-byte swizzle), the bf16 and fp16 wgmma with f32
 // accumulators (m64n32k16, m64n64k16, m64n128k16 and m64n256k16 with both
 // operands in shared memory; m64n64k16 and m64n128k16 with A in registers;
@@ -98,6 +98,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(sm90_smem(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(sm90_smem(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The box at (c0 inner, .., c3 outer) of a 4-D tensor map, as tma_load_2d.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(sm90_smem(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(sm90_smem(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 
@@ -573,5 +584,22 @@ static inline bool encode_3d(CUtensorMap* map, CUtensorMapDataType type, int ele
   const cuuint32_t estr[3] = {1, 1, 1};
   return fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, estr,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A tensor of `rank` (at most 5) dimensions, dims[0] innermost and dense,
+// strides[i] the bytes between steps of dims[i + 1], read in boxes of box[]
+// elements. Returns false if it cannot be encoded.
+static inline bool encode_nd(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                             int rank, const uint64_t* dims, const uint64_t* strides,
+                             const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  TensorMapEncodeTiled fn = tensor_map_encoder();
+  if (!fn || rank < 1 || rank > 5) return false;
+  cuuint64_t d[5], st[4];
+  cuuint32_t b[5], e[5];
+  for (int i = 0; i < rank; ++i) d[i] = dims[i], b[i] = box[i], e[i] = 1;
+  for (int i = 0; i + 1 < rank; ++i) st[i] = strides[i];
+  return fn(map, type, rank, const_cast<void*>(ptr), d, st, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

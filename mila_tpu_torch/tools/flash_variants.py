@@ -1,8 +1,9 @@
-"""Check and time the flash-attention forward (``csrc/flash_fwd.cu``) and
-variants of it, on the GPU, at the shapes ``chip_smoke.py`` gives its rows.
+"""Check and time the flash-attention forward (``csrc/flash_fwd.cu``, or for
+f32 ``csrc/flash_tf32_fwd.cu``) and variants of it, on the GPU, at the
+shapes ``chip_smoke.py`` gives its rows.
 
     python -m mila_tpu_torch.tools.flash_variants [--variants committed ...]
-        [--source NAME=PATH ...] [--shapes ...] [--dtype bf16|fp16]
+        [--source NAME=PATH ...] [--shapes ...] [--dtype bf16|fp16|f32]
 
 Each variant is a copy of the source (and its headers) with edits,
 compiled with the package's nvcc flags into ``csrc/build/``; its ptxas
@@ -123,12 +124,15 @@ SHAPES = {
     "stats_D512_T2048": (1, 2048, 2048, 16, 8, 512, True),
 }
 SYNC_ENTRY = "flash_sync_fwd"  # an earlier commit's mma.sync forward, called as that entry
+TF32_SRC = "flash_tf32_fwd.cu"  # --dtype f32 builds this source (entry flash_tf32_fwd)
+SCRATCH = {}  # variant -> its library's flash_tf32_fwd_scratch
 
 
-def build(names, sources=None) -> dict:
-    """Compile a copy of flash_fwd.cu per variant with its edits applied, or
-    the given source (name -> path), the headers copied beside it, one nvcc
-    each, all at once. Returns name -> (library, its entry function)."""
+def build(names, sources=None, src=SRC) -> dict:
+    """Compile a copy of ``src`` (flash_fwd.cu, or flash_tf32_fwd.cu for
+    f32) per variant with its edits applied, or the given source (name ->
+    path), the headers copied beside it, one nvcc each, all at once. Returns
+    name -> (library's entry function, its name)."""
     procs = {}
     sources = sources or {}
     heads = {f.name: f.read_text() for f in _build.CSRC.glob("*.cuh")}
@@ -138,18 +142,19 @@ def build(names, sources=None) -> dict:
         if name in sources:  # its own headers where they sit beside it
             path = Path(sources[name])
             texts = {**heads, **{f.name: f.read_text() for f in path.parent.glob("*.cuh")},
-                     SRC: path.read_text()}
+                     src: path.read_text()}
         else:
-            texts = {**heads, SRC: (_build.CSRC / SRC).read_text()}
+            texts = {**heads, src: (_build.CSRC / src).read_text()}
             for fname, old, new in VARIANTS[name]:
-                if old not in texts[fname]:
-                    raise RuntimeError(f"variant {name}: {fname} no longer has {old!r}")
+                if old not in texts.get(fname, ""):
+                    raise RuntimeError(f"variant {name}: {fname} (building {src}) has no {old!r}")
                 texts[fname] = texts[fname].replace(old, new)
         for fname, text in texts.items():
             (vdir / fname).write_text(text)
-        entry = SYNC_ENTRY if f'extern "C" int {SYNC_ENTRY}(' in texts[SRC] else "flash_fwd"
+        entry = next((e for e in (SYNC_ENTRY, "flash_tf32_fwd")
+                      if f'extern "C" int {e}(' in texts[src]), "flash_fwd")
         procs[name] = (subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(vdir / "libflash.so"), str(vdir / SRC)],
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(vdir / "libflash.so"), str(vdir / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT), entry)
     libs = {}
     for name, (proc, entry) in procs.items():
@@ -162,7 +167,13 @@ def build(names, sources=None) -> dict:
         lib = ctypes.CDLL(str(_build.BUILD_DIR / f"flash_variant_{name}" / "libflash.so"))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn = getattr(lib, entry)
-        fn.argtypes = [vp] * 6 + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
+        if entry == "flash_tf32_fwd":  # a scratch pointer more, no type code
+            fn.argtypes = [vp] * 7 + [ci] * 6 + [ctypes.c_float, ci, ci, vp]
+            lib.flash_tf32_fwd_scratch.argtypes = [ci] * 4
+            lib.flash_tf32_fwd_scratch.restype = ctypes.c_longlong
+            SCRATCH[name] = lib.flash_tf32_fwd_scratch
+        else:
+            fn.argtypes = [vp] * 6 + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
         fn.restype = ci
         libs[name] = (fn, entry)
     return libs
@@ -196,10 +207,11 @@ def main() -> None:
     ap.add_argument("--shapes", nargs="+", default=list(SHAPES), choices=list(SHAPES))
     ap.add_argument("--source", nargs="*", default=[], metavar="NAME=PATH",
                     help="a whole other flash_fwd.cu or an earlier flash_sync_fwd.cu, timed as NAME")
-    ap.add_argument("--dtype", default="bf16", choices=["bf16", "fp16"])
+    ap.add_argument("--dtype", default="bf16", choices=["bf16", "fp16", "f32"])
     args = ap.parse_args()
-    dtype = {"bf16": torch.bfloat16, "fp16": torch.float16}[args.dtype]
-    libs = build(args.variants, dict(s.split("=", 1) for s in args.source))
+    dtype = {"bf16": torch.bfloat16, "fp16": torch.float16, "f32": torch.float32}[args.dtype]
+    libs = build(args.variants, dict(s.split("=", 1) for s in args.source),
+                 TF32_SRC if dtype == torch.float32 else SRC)
     rng = np.random.default_rng(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for name in args.shapes:
@@ -217,10 +229,16 @@ def main() -> None:
         pairs = B * NH * sum(min(Tkv, i + off + 1) for i in range(Tq))
         row = {"shape": name, "dtype": args.dtype, "card": torch.cuda.get_device_name(0)}
         for vname, (fn, entry) in libs.items():
-            def call(fn=fn, vname=vname):
-                rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-                        None if l is None else _build.ptr(l), None if m is None else _build.ptr(m),
-                        B, Tq, Tkv, NH, NKV, D, _build.DTYPE_CODES[dtype], sm, off, 1, stream)
+            lm = (None if l is None else _build.ptr(l), None if m is None else _build.ptr(m))
+            if entry == "flash_tf32_fwd":
+                scratch = torch.empty(SCRATCH[vname](B, Tkv, NKV, D), device="cuda")
+                head, mid = (*lm, _build.ptr(scratch)), ()
+            else:
+                head, mid = lm, (_build.DTYPE_CODES[dtype],)
+
+            def call(fn=fn, vname=vname, head=head, mid=mid):
+                rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out), *head,
+                        B, Tq, Tkv, NH, NKV, D, *mid, sm, off, 1, stream)
                 if rc:
                     raise RuntimeError(f"{vname}: CUDA error {rc}")
             for t in (out, l, m):  # nothing left over from the variant before
