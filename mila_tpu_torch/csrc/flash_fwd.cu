@@ -739,7 +739,9 @@ flash_fwd_part_kernel(const __grid_constant__ CUtensorMap tmq,
     }
     softmax_tile<BK>(sc, m, l, alpha, j * BK, wrow, r0, t, a.kv_offset, a.causal, c);
     pack_p<T, BK>(pa, sc);
-    rescale_o<NO>(o, alpha);
+    // O *= alpha, skipped where no row of the warp has a new max (alpha is
+    // exactly 1 there): later key tiles seldom raise a row's max.
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) rescale_o<NO>(o, alpha);
     const int sv = j % p.nv;
     mbar_wait(&full_v[sv], (j / p.nv) & 1);
     if constexpr (QRES) sched_wait(wg);

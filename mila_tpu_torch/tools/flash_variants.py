@@ -40,6 +40,7 @@ from mila_tpu_torch.kernels import flash_attention as fa
 from mila_tpu_torch.ops import causal_mask
 
 SRC = "flash_fwd.cu"
+TF32_SRC = "flash_tf32_fwd.cu"  # --dtype f32 builds this source (entry flash_tf32_fwd)
 VARIANTS = {  # name -> [(file, old text, new text)]
     "committed": [],
     # the two consumer warpgroups issue their products whenever they are
@@ -100,6 +101,14 @@ VARIANTS = {  # name -> [(file, old text, new text)]
         (SRC, "float c) {\n  if (causal && k0", "float c) {\n  return;\n  if (causal && k0"),
         (SRC, "const float* alpha) {\n", "const float* alpha) {\n  return;\n"),
         (SRC, "const float* sc) {\n", "const float* sc) {\n  return;\n")],
+    # past D 256: O rescaled on every key tile, not only where a row's max rose
+    "part_always_rescale": [(SRC, "    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) "
+                                  "rescale_o<NO>(o, alpha);", "    rescale_o<NO>(o, alpha);")],
+    # f32 past D 256 (fwd_part_kernel): without S's products, without P V's
+    "part_f32_no_s": [(TF32_SRC, "      for (int c = 0; c < a.D / 32; ++c)  // 32-column panels",
+                       "      for (int c = 0; c < 0; ++c)  // 32-column panels")],
+    "part_f32_no_pv": [(TF32_SRC, "    for (int kk = 0; kk < BK / 8; ++kk) {  // DCMAX / 2",
+                        "    for (int kk = 0; kk < 0; ++kk) {  // DCMAX / 2")],
     # 128-key tiles at D 128 too (S, O and P then exceed the registers)
     "bkv128": [(SRC, "BKV = D == 64 ? 128 : 64;", "BKV = 128;"),
                (SRC, "NT = D == 64 ? 3 : 4;", "NT = D == 64 ? 3 : 2;")],
@@ -124,7 +133,6 @@ SHAPES = {
     "stats_D512_T2048": (1, 2048, 2048, 16, 8, 512, True),
 }
 SYNC_ENTRY = "flash_sync_fwd"  # an earlier commit's mma.sync forward, called as that entry
-TF32_SRC = "flash_tf32_fwd.cu"  # --dtype f32 builds this source (entry flash_tf32_fwd)
 SCRATCH = {}  # variant -> its library's flash_tf32_fwd_scratch
 
 
@@ -146,6 +154,8 @@ def build(names, sources=None, src=SRC) -> dict:
         else:
             texts = {**heads, src: (_build.CSRC / src).read_text()}
             for fname, old, new in VARIANTS[name]:
+                if fname.endswith(".cu") and fname != src:  # the edit of the other source
+                    continue
                 if old not in texts.get(fname, ""):
                     raise RuntimeError(f"variant {name}: {fname} (building {src}) has no {old!r}")
                 texts[fname] = texts[fname].replace(old, new)
