@@ -579,57 +579,6 @@ __device__ __forceinline__ void issue_s_cols(float* sc, const unsigned char* qs,
   }
 }
 
-// S = Q K^T for the warpgroup's half of a key tile's keys (ks: the K tile's
-// first panel, advanced to the half's first row; panels BK x 128 bytes
-// apart): m64n(BK / 2)k16 over D / 16 k-slices. Issued, not committed.
-template <typename T, int BK>
-__device__ __forceinline__ void issue_s_half(float* sc, const unsigned char* qs,
-                                             const unsigned char* ks, int panels) {
-#pragma unroll 1
-  for (int p = 0; p < panels; ++p) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t a = wgmma_desc(qs + p * (fpart::BQ * 128) + 32 * kk, 16, 1024);
-      const uint64_t b = wgmma_desc(ks + p * (BK * 128) + 32 * kk, 16, 1024);
-      if constexpr (BK == 64)
-        wgmma_m64n32k16<T, 0>(sc, a, b, p > 0 || kk > 0);
-      else
-        wgmma_m64n16k16<T, 0>(sc, a, b, p > 0 || kk > 0);
-    }
-  }
-}
-
-// The byte offset of keys (k, k + 1) of row r in the tile's T(P) [64][BK],
-// K-major and swizzled as wgmma reads it: 128-byte rows (BK 64) or 64-byte
-// rows (BK 32), whose 16-byte chunks sit at chunk ^ (r % 8) or ^ (r / 2 % 4).
-template <int BK>
-__device__ __forceinline__ int p_offset(int r, int k) {
-  if constexpr (BK == 64)
-    return r * 128 + (((k >> 3) ^ (r & 7)) << 4) + (k & 7) * 2;
-  else
-    return r * 64 + (((k >> 3) ^ ((r >> 1) & 3)) << 4) + (k & 7) * 2;
-}
-
-// O += T(P) V with T(P) from shared memory (pt), as issue_pv_cols. Issued
-// and committed.
-template <typename T, int BK, int OP>
-__device__ __forceinline__ void issue_pv_smem(float* o, const unsigned char* pt,
-                                              const unsigned char* vt) {
-  constexpr int KP = BK * 128;
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint64_t a = BK == 64 ? wgmma_desc(pt + 32 * kk, 16, 1024)
-                                : wgmma_desc_64b(pt + 32 * kk, 512);
-    const unsigned char* vk = vt + 2048 * kk;
-#pragma unroll
-    for (int q = 0; q + 1 < OP; q += 2)
-      wgmma_m64n128k16<T, 1>(o + 32 * q, a, wgmma_desc(vk + q * KP, KP, 1024), 1);
-    if constexpr (OP % 2)
-      wgmma_m64n64k16<T, 1>(o + 32 * (OP - 1), a, wgmma_desc(vk + (OP - 1) * KP, KP, 1024), 1);
-  }
-  wgmma_commit();
-}
-
 // O += T(P) V on OP 64-column panels of the V tile from vt (panels BK x 128
 // bytes apart), two panels a product: o[32 q ..] holds panel q. Always all
 // OP panels (flash_part.cuh: v_cols), whatever the part's width. Issued and
@@ -757,92 +706,24 @@ flash_fwd_part_kernel(const __grid_constant__ CUtensorMap tmq,
   float alpha[2];
   uint32_t pa[BK / 16][4];
   if constexpr (QRES) {
-    // Each warpgroup forms S for half of the tile's keys, the two trade
-    // their rows' maxima and write T(P) to shared memory, then each adds P V
-    // into its own columns: S and P V once a tile, two named barriers.
-    constexpr int HALF = BK / 2, NSH = HALF / 2;
-    unsigned char* pt = vring + p.nv * p.v_slot;  // T(P) [64][BK], swizzled
-    float* xmax = reinterpret_cast<float*>(pt + fpart::BQ * BK * 2);  // [2][64]
-    float* xsum = xmax + 2 * fpart::BQ;                               // [2][64]
-    const int lr = 16 * w + g;  // this thread's rows lr and lr + 8 of the block
     mbar_wait(q_full, 0);
-    for (int j = 0; j < n_kv; ++j) {
-      float sc[NSH];
-      const int s = j % p.nk, k0 = j * BK + wg * HALF;
+    if (n_kv > 0 && wg == 1) sched_pass(wg);
+  }
+  for (int j = 0; j < n_kv; ++j) {
+    float sc[NS];
+    if constexpr (QRES) {
+      const int s = j % p.nk;
       mbar_wait(&full_k[s], (j / p.nk) & 1);
+      sched_wait(wg);
       wgmma_fence();
-      issue_s_half<T, BK>(sc, qs, kring + s * p.k_slot + wg * HALF * 128, a.D / 64);
+      issue_s_cols<T, BK>(sc, qs, kring + s * p.k_slot, a.D / 64, 0);
       wgmma_commit();
+      sched_pass(wg);
       wgmma_wait<0>();
-      wgmma_fence_operand<NSH>(sc);
+      wgmma_fence_operand<NS>(sc);
       mbar_arrive(&empty_k[s]);
       if (tid == fpart::ISSUER && j + p.nk < n_k) load_k(j + p.nk);
-      if (a.causal && k0 + HALF - 1 > wrow + a.kv_offset) {
-#pragma unroll
-        for (int jj = 0; jj < HALF / 8; ++jj)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (k0 + 8 * jj + 2 * t + (i & 1) > r0 + 8 * (i >> 1) + a.kv_offset)
-              sc[4 * jj + i] = MASK_VALUE;
-      }
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int jj = 0; jj < HALF / 8; ++jj) {
-        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * jj], sc[4 * jj + 1]));
-        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * jj + 2], sc[4 * jj + 3]));
-      }
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
-        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
-        if (t == 0) xmax[wg * fpart::BQ + lr + 8 * hr] = mx[hr];
-      }
-      named_bar_sync(4, fpart::THREADS);  // both halves' maxima
-      float mc[2];
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        mx[hr] = fmaxf(mx[hr], xmax[(1 - wg) * fpart::BQ + lr + 8 * hr]);
-        alpha[hr] = ex2((m[hr] - mx[hr]) * c);
-        m[hr] = mx[hr];
-        mc[hr] = mx[hr] * c;
-        l[hr] *= alpha[hr];
-      }
-#pragma unroll
-      for (int jj = 0; jj < HALF / 8; ++jj)
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const float p0 = ex2(fmaf(sc[4 * jj + 2 * hr], c, -mc[hr]));
-          const float p1 = ex2(fmaf(sc[4 * jj + 2 * hr + 1], c, -mc[hr]));
-          l[hr] += p0 + p1;
-          *reinterpret_cast<uint32_t*>(pt + p_offset<BK>(lr + 8 * hr, wg * HALF + 8 * jj + 2 * t)) =
-              pack2_as<T>(p0, p1);
-        }
-      fence_proxy_async();  // T(P) is the products' operand
-      named_bar_sync(5, fpart::THREADS);  // both halves of T(P)
-      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) rescale_o<NO>(o, alpha);
-      const int sv = j % p.nv;
-      mbar_wait(&full_v[sv], (j / p.nv) & 1);
-      wgmma_fence_operand<NO>(o);
-      wgmma_fence();
-      issue_pv_smem<T, BK, OP>(o, pt, vring + sv * p.v_slot + pan0 * KP);
-      wgmma_wait<0>();
-      wgmma_fence_operand<NO>(o);
-      mbar_arrive(&empty_v[sv]);
-      if (tid == fpart::ISSUER && j + p.nv < n_kv) load_v(j + p.nv);
-    }
-    // l: this warpgroup's half of the keys; the rows' whole sums after the trade.
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
-      l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
-      if (t == 0) xsum[wg * fpart::BQ + lr + 8 * hr] = l[hr];
-    }
-    named_bar_sync(4, fpart::THREADS);
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) l[hr] += xsum[(1 - wg) * fpart::BQ + lr + 8 * hr];
-  } else {
-    for (int j = 0; j < n_kv; ++j) {  // both warpgroups form S, in chunks as they land
-      float sc[NS];
+    } else {
       for (int cc = 0; cc < chunks; ++cc) {
         const int kj = j * chunks + cc, s = kj % p.nk;
         const unsigned char* st = kring + s * p.k_slot;
@@ -855,30 +736,31 @@ flash_fwd_part_kernel(const __grid_constant__ CUtensorMap tmq,
         mbar_arrive(&empty_k[s]);
         if (tid == fpart::ISSUER && kj + p.nk < n_k) load_k(kj + p.nk);
       }
-      softmax_tile<BK>(sc, m, l, alpha, j * BK, wrow, r0, t, a.kv_offset, a.causal, c);
-      pack_p<T, BK>(pa, sc);
-      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) rescale_o<NO>(o, alpha);
-      const int sv = j % p.nv;
-      mbar_wait(&full_v[sv], (j / p.nv) & 1);
-      wgmma_fence_operand<NO>(o);
-      wgmma_fence();
-      issue_pv_cols<T, BK, OP>(o, pa, vring + sv * p.v_slot + pan0 * KP);
-      wgmma_wait<0>();
-      wgmma_fence_operand<NO>(o);
-      mbar_arrive(&empty_v[sv]);
-      if (tid == fpart::ISSUER && j + p.nv < n_kv) load_v(j + p.nv);
     }
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {  // l over the 4 lanes of a row
-      l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
-      l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
-    }
+    softmax_tile<BK>(sc, m, l, alpha, j * BK, wrow, r0, t, a.kv_offset, a.causal, c);
+    pack_p<T, BK>(pa, sc);
+    // O *= alpha, skipped where no row of the warp has a new max (alpha is
+    // exactly 1 there): later key tiles seldom raise a row's max.
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) rescale_o<NO>(o, alpha);
+    const int sv = j % p.nv;
+    mbar_wait(&full_v[sv], (j / p.nv) & 1);
+    if constexpr (QRES) sched_wait(wg);
+    wgmma_fence_operand<NO>(o);
+    wgmma_fence();
+    issue_pv_cols<T, BK, OP>(o, pa, vring + sv * p.v_slot + pan0 * KP);
+    if (QRES && (wg == 0 || j + 1 < n_kv)) sched_pass(wg);  // warpgroup 1 passed first
+    wgmma_wait<0>();
+    wgmma_fence_operand<NO>(o);
+    mbar_arrive(&empty_v[sv]);
+    if (tid == fpart::ISSUER && j + p.nv < n_kv) load_v(j + p.nv);
   }
 
   // The rows' output O / l on the warpgroup's panels; l and m (of the scaled
   // scores) by warpgroup 0 of the part that holds column 0.
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
     const int row = r0 + 8 * hr;
     if (row >= a.Tq) continue;
     const float inv = l[hr] == 0.f ? 1.f : 1.f / l[hr];

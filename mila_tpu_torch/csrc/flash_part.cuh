@@ -64,11 +64,8 @@ inline Plan plan(int D, int es) {
   p.bk = es == 4 ? 16 : p.dcmax == DC_SMALL ? 64 : 32;
   p.v_slot = p.bk * v_cols(p.dcmax, es) * es;
   const int q = BQ * D * es, k = p.bk * D * es;
-  // 16-bit with Q resident: the tile's T(P) [64][BK] and the rows' partial
-  // maxima and sums [2][64] f32 each, exchanged between the warpgroups.
-  const int xch = es == 2 ? BQ * p.bk * es + 2 * 2 * BQ * 4 : 0;
   auto bytes = [&](int qb, int ks, int nk, int nv) {
-    return qb + nk * ks + nv * p.v_slot + (qb ? xch : 0) + 1024 + (2 * nk + 2 * nv + 1) * 8;
+    return qb + nk * ks + nv * p.v_slot + 1024 + (2 * nk + 2 * nv + 1) * 8;
   };
   for (int nk = MAX_STAGES; nk >= 1 && !p.q_res; --nk)
     for (int nv = nk; nv >= nk - 1 && nv >= 1; --nv)

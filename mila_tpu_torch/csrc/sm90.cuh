@@ -2,7 +2,7 @@
 // Memory Accelerator and multiply them with warpgroup MMAs: mbarriers, 2-D,
 // 3-D and 4-D TMA loads, 1-D bulk copies, the proxy fence, wgmma shared-memory
 // descriptors (128- and 64-byte swizzle), the bf16 and fp16 wgmma with f32
-// accumulators (m64n16k16 to m64n256k16 with both
+// accumulators (m64n32k16, m64n64k16, m64n128k16 and m64n256k16 with both
 // operands in shared memory; m64n64k16 and m64n128k16 with A in registers;
 // tf32 m64n16k8, m64n32k8 and m64n64k8 with both operands in shared memory,
 // m64nNk8 for N 32-256 with A in registers),
@@ -229,15 +229,6 @@ __device__ __forceinline__ void named_bar_arrive(int id, int n) {
   "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), \
   "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
 
-#define SM90_SS_N16(TY) \
-  asm volatile( \
-      "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n" \
-      " wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " {" \
-      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, %11;\n}\n" \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
-        "+f"(d[7]) \
-      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B))
-
 #define SM90_SS_N32(TY) \
   asm volatile( \
       "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n" \
@@ -341,16 +332,6 @@ __device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t a, uint64_t b
     SM90_SS_N64("f16");
   else
     SM90_SS_N64("bf16");
-}
-
-// d[8] (+)= A (64 x 16) x B (16 x 16): as m64n128k16, an eighth as wide.
-template <typename T, int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n16k16(float* d, uint64_t a, uint64_t b,
-                                                int accumulate) {
-  if constexpr (sm90_is_f16<T>())
-    SM90_SS_N16("f16");
-  else
-    SM90_SS_N16("bf16");
 }
 
 // d[16] (+)= A (64 x 16) x B (16 x 32): as m64n128k16, a quarter as wide.

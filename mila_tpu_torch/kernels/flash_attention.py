@@ -128,10 +128,8 @@ def plan_wide(D: int, elem_bytes: int) -> dict:
     bk = 16 if elem_bytes == 4 else 64 if dcmax == _WIDE_DC_SMALL else 32
     v_slot = bk * (dcmax if elem_bytes == 4 else 128 * -(-dcmax // 128)) * elem_bytes
 
-    xch = _WIDE_BQ * bk * elem_bytes + 2 * 2 * _WIDE_BQ * 4 if elem_bytes == 2 else 0
-
     def nbytes(q, k, nk, nv):
-        return q + nk * k + nv * v_slot + (xch if q else 0) + 1024 + (2 * nk + 2 * nv + 1) * 8
+        return q + nk * k + nv * v_slot + 1024 + (2 * nk + 2 * nv + 1) * 8
 
     q, k = _WIDE_BQ * D * elem_bytes, bk * D * elem_bytes
     fits = [(nk, nv) for nk in range(_WIDE_STAGES, 0, -1) for nv in (nk, nk - 1)

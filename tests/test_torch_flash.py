@@ -136,7 +136,7 @@ def test_wide_forward_plan(D, elem_bytes):
 
 @pytest.mark.parametrize("elem_bytes,D,want", [
     (2, 320, (1, 64, True, 2, 2)),
-    (2, 512, (1, 32, True, 2, 2)),
+    (2, 512, (1, 32, True, 3, 2)),
     (4, 320, (1, 16, True, 3, 3)),
     (4, 512, (1, 16, True, 2, 1)),
     (4, 1024, (2, 16, False, 4, 2)),
