@@ -71,7 +71,8 @@ def test_flash_attention_matches_jax(T, D, nkv, dt):
 @pytest.mark.parametrize("dt", [jnp.float32, jnp.bfloat16, jnp.float16])
 def test_flash_attention_wide_heads_match_jax(D, dt):
     # The head sizes past 128 that JAX's gate admits: on the card D 192
-    # and 256 take the mma.sync forward, D 320 its column-part kernels.
+    # and 256 take the wgmma forwards' wide kernels, D 320 their
+    # column-part kernels (plan_wide).
     (jq, jk, jv), (q, k, v) = _both(_qkv(1, 256, 256, 4, 2, D, seed=D), dt)
     want = j_flash(jq, jk, jv, causal=True, interpret=True)
     before = tfa.flash_attention_plain.calls
