@@ -38,11 +38,14 @@
 // BKV is 128 at D 64 and 64 from D 128: S, O and the last tile's P live at
 // once, and at D 128 with 128-key tiles they would need more than the 168
 // registers a thread has under one 288-thread block per SM (ptxas spills).
-// At D 192 and 256 (flash_fwd_wide_kernel), O alone takes 96 and 128 of
-// them: the block runs the two consumer warpgroups alone (256 threads, 255
-// registers a thread) and one consumer thread issues the loads; the ring
-// keeps 3 and 2 stages beside the 48 and 64 KB q tile, and at D 256 P V of
-// a tile goes right after its softmax, freeing its stage a turn earlier.
+// At D 192, 256 and 320 (flash_fwd_wide_kernel), O alone takes 96, 128 and
+// 160 of them: the block runs the two consumer warpgroups alone (256
+// threads, 255 registers a thread) and one consumer thread issues the
+// loads; the ring keeps 3, 2 and 3 stages beside the 48, 64 and 80 KB q
+// tile (32-key tiles at D 320, where S, O and P fit in 219 registers), and
+// at D 256 P V of a tile goes right after its softmax, freeing its stage a
+// turn earlier. At D 320 this takes 0.14 ms where the column-part kernel
+// below takes 0.22 (bf16 at T 2048, tools/flash_variants).
 // (Measured on the card, tools/flash_variants, bf16 at T 2048: a producer
 // warpgroup handing its registers to the consumers with setmaxnreg left
 // ptxas at 168 registers a thread, spilling, 0.26 ms at D 256; a producer
@@ -70,7 +73,7 @@
 // as it stands: wgmma's .f16 form reads the same fragments, descriptors and
 // transpose bits, TMA's FLOAT16 maps the same boxes.
 //
-// Past D 256 (flash_fwd_part_kernel, every D % 64 == 0; flash_part.cuh's
+// Past D 320 (flash_fwd_part_kernel, every D % 64 == 0; flash_part.cuh's
 // plan): a block takes 64 query rows and a column part of O of up to 512
 // columns, and its two warpgroups both form the tile's whole S, each adding
 // P V into its own half of the part's columns, so S is formed once a tile and
@@ -79,7 +82,8 @@
 //
 // Built in seven parts (kernels/_build.py: PARTS), one nvcc each: parts 1
 // and 2 instantiate the bf16 and fp16 kernels at D 64 and 128, parts 3 and 4
-// at D 192 and 256, parts 5 and 6 past D 256, part 0 holds the C entry point.
+// at D 192, 256 and 320, parts 5 and 6 past D 320, part 0 holds the C entry
+// point.
 #include "common.cuh"
 #include "flash_part.cuh"
 #include "mma.cuh"
@@ -99,9 +103,9 @@ struct Call {
 
 int run_bf16(const Call& c);       // D 64, 128
 int run_f16(const Call& c);
-int run_bf16_wide(const Call& c);  // D 192, 256
+int run_bf16_wide(const Call& c);  // D 192, 256, 320
 int run_f16_wide(const Call& c);
-int run_bf16_part(const Call& c);  // D % 64 == 0 past 256
+int run_bf16_part(const Call& c);  // D % 64 == 0 past 320
 int run_f16_part(const Call& c);
 
 }  // namespace fwd_parts
@@ -117,17 +121,17 @@ constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
 
 // BKV keys per K/V tile (see above). A panel is 64 columns (128 bytes) of a
 // tile's rows. NT stages of the K/V ring: past D 128, what fits beside the
-// 48 or 64 KB q tile in 227 KB.
+// 48, 64 or 80 KB q tile in 227 KB.
 template <int D>
 struct Cfg {
-  static constexpr int BKV = D == 64 ? 128 : 64;
+  static constexpr int BKV = D == 64 ? 128 : D <= 256 ? 64 : 32;
   static constexpr int PANELS = D / 64;
   static constexpr int Q_PANEL = BQ * 128, KV_PANEL = BKV * 128;
   static constexpr int Q_TILE = PANELS * Q_PANEL, KV_TILE = PANELS * KV_PANEL;
-  static constexpr int NT = D == 64 ? 3 : D == 128 ? 4 : D == 192 ? 3 : 2;
-  // Past D 128: P V of tile j - 1 issued beside S of tile j (D 192), or P V
-  // of tile j right after its softmax, in a turn of its own, which frees the
-  // tile's stage a turn earlier (D 256, where the ring holds 2 stages).
+  static constexpr int NT = D == 64 ? 3 : D == 128 ? 4 : D == 256 ? 2 : 3;
+  // Past D 128: P V of tile j - 1 issued beside S of tile j (D 192, 320), or
+  // P V of tile j right after its softmax, in a turn of its own, which frees
+  // the tile's stage a turn earlier (D 256, where the ring holds 2 stages).
   static constexpr bool PV_BEHIND = D != 256;
   static constexpr int SMEM = Q_TILE + NT * 2 * KV_TILE + (2 * NT + 1) * 8 + 1024;
 };
@@ -152,8 +156,10 @@ __device__ __forceinline__ void issue_s(float* sc, const unsigned char* qw,
     const uint64_t b = wgmma_desc(kt + p * C::KV_PANEL + off, 16, 1024);
     if constexpr (C::BKV == 128)
       wgmma_m64n128k16<T, 0>(sc, a, b, kk > 0);
-    else
+    else if constexpr (C::BKV == 64)
       wgmma_m64n64k16<T, 0>(sc, a, b, kk > 0);
+    else
+      wgmma_m64n32k16<T, 0>(sc, a, b, kk > 0);
   }
   wgmma_commit();
 }
@@ -401,7 +407,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant_
   store_out<T, D>(o, m, l, out, l_out, m_out, r0, t, b, h, Tq, NH, sm_scale);
 }
 
-// Past D 128 (D 192 and 256): the same two consumer warpgroups taking the
+// Past D 128 (D 192, 256 and 320): the same two consumer warpgroups taking the
 // same turns, but no producer warp: 256 threads may hold 255 registers
 // each (O alone takes D / 2). Thread ISSUER (in warpgroup 1, which issues
 // second in each turn) loads the q tile and the first NT K/V tiles, then at
@@ -853,6 +859,7 @@ template <typename T>
 int by_d_wide(const fwd_parts::Call& c) {
   if (c.D == 192) return launch<T, 192>(c);
   if (c.D == 256) return launch<T, 256>(c);
+  if (c.D == 320) return launch<T, 320>(c);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -898,7 +905,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
                           static_cast<cudaStream_t>(stream)};
   if (dtype != 1 && dtype != 2) return static_cast<int>(cudaErrorInvalidValue);
   const bool bf = dtype == 1;
-  if (D > 256) {
+  if (D > 256 && D != 320) {
     if (D % 64) return static_cast<int>(cudaErrorInvalidValue);
     return bf ? fwd_parts::run_bf16_part(c) : fwd_parts::run_f16_part(c);
   }

@@ -1,6 +1,7 @@
 // The block plan of the flash-attention forward past D 256, shared by its
-// two kernels: flash_fwd.cu's flash_fwd_part_kernel (bf16, fp16) and
-// flash_tf32_fwd.cu's fwd_part_kernel (f32 on tf32 wgmma). A block takes 64
+// two kernels: flash_fwd.cu's flash_fwd_part_kernel (bf16, fp16 past D 320;
+// at D 320 itself flash_fwd_wide_kernel runs) and flash_tf32_fwd.cu's
+// fwd_part_kernel (f32 on tf32 wgmma). A block takes 64
 // query rows and one column part of O, at most 512 columns: all of them up
 // to D 512, past it parts of DC_SMALL or DC_LARGE columns by the f32
 // backward's rule (flash_sync_bwd.cu: split::dc_of). Two consumer

@@ -18,14 +18,14 @@ layer at T 4096, 32 heads).
 What bounds it on the H100: tensor-core operations (4 * Tq * Tkv * D per
 head, about half of them skipped by the causal tiles) against Tq + 2 Tkv
 rows of D bf16 or fp16 values, and at D 64 nearly as much the exponentials.
-The CUDA kernel (``csrc/flash_fwd.cu``, bf16 and fp16 at D 64-256) runs
+The CUDA kernel (``csrc/flash_fwd.cu``, bf16 and fp16 at D 64-320) runs
 a block per (128 query rows, head, batch row): one thread streams the q
-tile and the K/V tiles (128 keys at D 64, else 64) through shared
+tile and the K/V tiles (128 keys at D 64, 32 at D 320, else 64) through shared
 memory with TMA (3-D maps, 128-byte swizzle, a ring of mbarriers), and two
 warpgroups of 64 query rows each run S = Q K^T and O += P V on ``wgmma``
 (P from registers), taking turns so that one's online softmax in f32 (one
-FFMA and one ``ex2`` per score) runs under the other's products; at D 192
-and 256 they run without the loading thread's warp, one of their own
+FFMA and one ``ex2`` per score) runs under the other's products; at D 192,
+256 and 320 they run without the loading thread's warp, one of their own
 threads issuing the loads, so that O may take D / 2 registers a thread.
 The wrapper encodes the three TMA descriptors per call, so a CUDA graph
 replays valid ones; a base that is not 16-byte aligned is copied first.
@@ -34,9 +34,9 @@ f32 launches the tf32 family (``csrc/flash_tf32_fwd.cu``): a prep launch
 writes K rounded to tf32 and V rounded and transposed (tf32 ``wgmma`` takes
 no transpose bit), then the same block shape on TMA and tf32 ``wgmma`` (one
 warpgroup with 32-key tiles at D 192 and 256), Q's rows rounded once in
-shared memory, p rounded to tf32 before P V (ROADMAP §C.2). Past D 256 both
-families run a block of 64 query rows and one column part of O, up to 512
-columns (``plan_wide``): its two warpgroups each form the key tile's whole S
+shared memory, p rounded to tf32 before P V (ROADMAP §C.2). Past D 256 (f32)
+and D 320 (bf16, fp16) both families run a block of 64 query rows and one
+column part of O, up to 512 columns (``plan_wide``): its two warpgroups each form the key tile's whole S
 once and add P V into their own half of the part's columns (bf16 and fp16
 on 32- or 64-key tiles, f32 on 16-key tiles), Q resident in shared memory
 or, where it does not fit, streamed beside K. The backward takes the
@@ -108,7 +108,8 @@ _WIDE_DC_SMALL, _WIDE_DC_LARGE = 320, 512
 def plan_wide(D: int, elem_bytes: int) -> dict:
     """The block plan of the forward past D 256, as ``csrc/flash_part.cuh:
     plan`` computes it for elements of ``elem_bytes`` (2: bf16, fp16; 4:
-    f32): ``parts`` (first column, columns) of each column part of O, the
+    f32; bf16 and fp16 at D 320 itself run K10's wide kernel, their plan's
+    320-column parts serve D 576 and 640): ``parts`` (first column, columns) of each column part of O, the
     columns of each part that warpgroups 0 and 1 own (``cols``: [(start,
     count), (start, count)] per part; 16-bit in whole 64-column panels,
     warpgroup 0 the larger half), keys a tile ``bk``, ``q_res`` (Q resident

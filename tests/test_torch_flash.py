@@ -144,8 +144,9 @@ def test_wide_forward_plan(D, elem_bytes):
     (2, 1088, (3, 32, False, 4, 2)),
 ])
 def test_wide_forward_plan_at_timed_shapes(elem_bytes, D, want):
-    # chip_smoke.py's rows (D 320, 512) keep Q resident with two or more K
-    # stages; f32 D 1024 and 16-bit past D 1024 stream Q beside K.
+    # chip_smoke.py's rows (D 320, 512; 16-bit D 320 itself runs K10's wide
+    # kernel, its plan's parts D 576 and 640) keep Q resident with two or
+    # more K stages; f32 D 1024 and 16-bit past D 1024 stream Q beside K.
     p = tfa.plan_wide(D, elem_bytes)
     assert (len(p["parts"]), p["bk"], p["q_res"], p["nk"], p["nv"]) == want
 
