@@ -1919,9 +1919,9 @@ def test_flash_wgmma_bwd_on_sync_stats(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off,
                                      (torch.bfloat16, 1088), (torch.float32, 704)])
 def test_flash_sync_graph_replay_and_determinism(cuda, dtype, D):
     # f32's tf32 family (its operand copies in scratch from the graph's
-    # pool) at every D, and past D 256 every build of the forward's part
-    # kernels (bf16 and fp16 at parts of 320 and 512 columns, Q streamed at
-    # 16-bit D 1088 and f32 D 704 and 1024) before the mma.sync backward:
+    # pool) at every D, bf16 and fp16 at D 320 on K10's wide kernel and at
+    # D 512 on the part kernel (Q streamed at 16-bit D 1088 and f32 D 704
+    # and 1024) before the mma.sync backward:
     # two forward + backward calls on the same inputs are bit-equal (no
     # atomics), and a captured forward + backward replayed after q, k, v and
     # do change in place equals eager calls.
