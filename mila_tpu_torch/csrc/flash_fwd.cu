@@ -561,7 +561,7 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tmq,
   store_out<T, D>(o, m, l, out, l_out, m_out, r0, t, b, h, Tq, NH, sm_scale);
 }
 
-// ---- past D 256 (flash_part.cuh: the plan) ---------------------------------
+// ---- past D 320 (flash_part.cuh: the plan) ---------------------------------
 
 // S = Q K^T over `panels` 64-column panels of Q (64 rows, 8 KB apart) and
 // of K (BK rows), four k-slices of 16 columns a panel; the first slice
@@ -606,7 +606,7 @@ __device__ __forceinline__ void issue_pv_cols(float* o, const uint32_t (*pa)[4],
   wgmma_commit();
 }
 
-// Past D 256: one block of two warpgroups per (64 query rows, head and
+// Past D 320: one block of two warpgroups per (64 query rows, head and
 // column part, batch row), the heaviest q tiles of every head first. Both
 // warpgroups form the same S of each key tile over all D columns and run the
 // same softmax; warpgroup wg then adds P V into its own 64-column panels of
@@ -811,7 +811,7 @@ int launch_part(const fwd_parts::Call& c, const fpart::Plan& p) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 and fp16 past D 256: parts of up to 320 columns on 64-key tiles, of
+// bf16 and fp16 past D 320: parts of up to 320 columns on 64-key tiles, of
 // up to 512 on 32-key tiles; Q streams only past D 1024, in parts of 512.
 template <typename T>
 int by_plan(const fwd_parts::Call& c) {

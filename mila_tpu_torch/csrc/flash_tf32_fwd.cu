@@ -328,8 +328,9 @@ prep_cols_kernel(const float* __restrict__ k, const float* __restrict__ v,
   }
 }
 
-// 64 x 128 bytes of Q (a 32-column panel) rounded to tf32 in place by the
-// block's 256 threads, then fenced for wgmma and waited for by both.
+// `panels` 32-column panels of Q (64 rows x 128 bytes each) rounded to tf32
+// in place by the block's 256 threads, then fenced for wgmma and waited for
+// by both warpgroups.
 __device__ __forceinline__ void round_panels(unsigned char* q, int panels, int tid) {
   float4* f = reinterpret_cast<float4*>(q);
   for (int i = tid; i < panels * fpart::BQ * 8; i += fpart::THREADS) {
