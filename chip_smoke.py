@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py --only flash_rows   # the off-path flash rows alone
 
 Phases, each printing one JSON line (any failure raises and the script
 exits non-zero without the final line):
@@ -2788,19 +2789,11 @@ def ce_rows(record, x, t, gl, tag: str, sub: float) -> None:
     del d, want, xr
 
 
-def phase_train_kernels(bw, peak_ops, rng):
-    """Rows 15 (the statistics launch), 16, 17 and 18 at the training
-    path's shapes, each against its plain version on the card."""
-    dev, bf16 = torch.device("cuda"), torch.bfloat16
-    rows = []
-    record = recorder(rows, bw, peak_ops)
-
-    def rand(*shape, scale=1.0, dtype=bf16):
-        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to(dev,
-                                                                                         dtype)
-
-    for B, T, NH, NKV, D in ((8, 1024, 12, 12, 64), (2, 2048, 32, 8, 64), (1, 2048, 24, 8, 128)):
-        flash_rows(record, rows, B, T, NH, NKV, D, rand)
+def route_flash_rows(record, rows) -> None:
+    """The flash rows off the bf16 model paths (``--only flash_rows`` runs
+    these alone), each (type, D) group from a random stream of its own, so
+    two trees see the same inputs."""
+    dev = torch.device("cuda")
     # The other routes (fa.routes), inputs from their own random stream:
     # GPT-2's shape in f32 (the tf32 family both ways), Llama-3.2-1B's
     # GQA heads at T 2048 with head sizes 192 and 256 in bf16 (wgmma both
@@ -2816,16 +2809,18 @@ def phase_train_kernels(bw, peak_ops, rng):
     for D in (192, 256):
         flash_rows(record, rows, 1, 2048, 16, 8, D, draw, device_only=True)
     flash_rows(record, rows, 8, 1024, 12, 12, 64, draw, torch.float16, plain_entry=True)
-    # Past D 256 (the forward's column-part kernels: bf16 and fp16 on wgmma,
-    # f32 on tf32 wgmma; the backward on the mma.sync family: 16-bit column
-    # parts, f32's 8-warp split kernels) at D 320 and 512 in bf16 and f32,
-    # from a stream of their own, and in fp16 from another.
+    # Past D 256 (the forward: bf16 and fp16 on wgmma, K10's wide kernel at
+    # D 320 and the column-part kernel at 512, f32 on the tf32 column-part
+    # kernel; the backward on the mma.sync family: 16-bit column parts,
+    # f32's 8-warp split kernels) at D 320 and 512 in bf16 and f32, from a
+    # stream of their own, and in fp16 from another.
     wide = np.random.default_rng(26)
 
     def draw_wide(*shape, dtype):
         return torch.from_numpy(wide.standard_normal(shape).astype(np.float32)).to(dev, dtype)
 
-    for D, dtype in ((320, bf16), (320, torch.float32), (512, bf16), (512, torch.float32)):
+    for D, dtype in ((320, torch.bfloat16), (320, torch.float32), (512, torch.bfloat16),
+                     (512, torch.float32)):
         flash_rows(record, rows, 1, 2048, 16, 8, D, draw_wide, dtype, device_only=True)
     wide16 = np.random.default_rng(28)
 
@@ -2844,6 +2839,22 @@ def phase_train_kernels(bw, peak_ops, rng):
 
     for D in (128, 192, 256):
         flash_rows(record, rows, 1, 2048, 16, 8, D, draw_f32, torch.float32, device_only=True)
+
+
+def phase_train_kernels(bw, peak_ops, rng):
+    """Rows 15 (the statistics launch), 16, 17 and 18 at the training
+    path's shapes, each against its plain version on the card."""
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    rows = []
+    record = recorder(rows, bw, peak_ops)
+
+    def rand(*shape, scale=1.0, dtype=bf16):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to(dev,
+                                                                                         dtype)
+
+    for B, T, NH, NKV, D in ((8, 1024, 12, 12, 64), (2, 2048, 32, 8, 64), (1, 2048, 24, 8, 128)):
+        flash_rows(record, rows, B, T, NH, NKV, D, rand)
+    route_flash_rows(record, rows)
 
     # K12 on wte (50304 x 768 = 38.6M elements): bf16 param and grad, f32
     # moments and master, uint16 noise in int32, with stochastic rounding;
@@ -3786,13 +3797,36 @@ NO_LIBRARY = {
 }
 
 
+def only_flash_rows() -> int:
+    """``--only flash_rows``: route_flash_rows alone, one JSON line a row."""
+    from mila_tpu_torch.kernels import _build
+
+    _build.build_all([n for n in _build.KERNELS if n.startswith("flash")])
+    bw, peak_ops, _ = peaks(torch.cuda.get_device_name(0))
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    route_flash_rows(recorder(rows, bw, peak_ops), rows)
+    for row in rows:
+        emit({"phase": "flash_rows", "card": card, **row})
+    print(card, flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's results to this JSON file")
+    ap.add_argument("--only", choices=["flash_rows"],
+                    help="flash_rows: build the flash sources and print only the flash rows off "
+                         "the bf16 model paths (route_flash_rows), then exit; run it over another "
+                         "tree's package to time two versions of the kernels on the same inputs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
+    if args.only == "flash_rows":
+        return only_flash_rows()
     from mila_tpu_torch import native
     from mila_tpu_torch.kernels import _build
     from mila_tpu_torch.models.llama import (Llama, LlamaConfig, pack_decode_giga,

@@ -3,8 +3,8 @@
 // at D 320 itself flash_fwd_wide_kernel runs) and flash_tf32_fwd.cu's
 // fwd_part_kernel (f32 on tf32 wgmma). A block takes 64
 // query rows and one column part of O, at most 512 columns: all of them up
-// to D 512, past it parts of DC_SMALL or DC_LARGE columns by the f32
-// backward's rule (flash_sync_bwd.cu: split::dc_of). Two consumer
+// to D 512, past it parts of DC_SMALL or DC_LARGE columns (dcmax_of, the
+// f32 backward's rule too). Two consumer
 // warpgroups each form the whole S = Q K^T of a key tile (over all D
 // columns, once a tile and part) and each owns half of the part's columns of
 // O: 64 rows x DC / 2 columns of f32, 128 registers a thread at 512. Q sits
@@ -28,13 +28,15 @@ constexpr int MAX_STAGES = 3;    // per ring, Q resident
 constexpr int STREAM_K = 4, STREAM_V = 2;  // ring stages, Q streamed
 constexpr int DC_SMALL = 320, DC_LARGE = 512;
 
-// The columns a part (DC_SMALL or DC_LARGE: the fewer parts, then the
-// narrower) past D 512; D itself up to it.
-__host__ __device__ constexpr int dc_of(int D) {
-  return D <= DC_LARGE ? D
-         : (D + DC_LARGE - 1) / DC_LARGE < (D + DC_SMALL - 1) / DC_SMALL ? DC_LARGE
-                                                                          : DC_SMALL;
+// The widest part a kernel is built for at head size D: DC_SMALL or
+// DC_LARGE, the fewer parts, then the narrower. The forward's and the f32
+// backward's column parts (flash_sync_bwd.cu: split) both follow it.
+__host__ __device__ constexpr int dcmax_of(int D) {
+  return (D + DC_LARGE - 1) / DC_LARGE < (D + DC_SMALL - 1) / DC_SMALL ? DC_LARGE : DC_SMALL;
 }
+
+// The forward's columns a part: D itself up to DC_LARGE, dcmax_of(D) past it.
+__host__ __device__ constexpr int dc_of(int D) { return D <= DC_LARGE ? D : dcmax_of(D); }
 
 struct Plan {
   int dc, parts;      // a part's columns (the last part may hold fewer), parts a head
@@ -61,7 +63,7 @@ inline Plan plan(int D, int es) {
   Plan p{};
   p.dc = dc_of(D);
   p.parts = (D + p.dc - 1) / p.dc;
-  p.dcmax = p.dc <= DC_SMALL ? DC_SMALL : DC_LARGE;
+  p.dcmax = dcmax_of(D);
   p.bk = es == 4 ? 16 : p.dcmax == DC_SMALL ? 64 : 32;
   p.v_slot = p.bk * v_cols(p.dcmax, es) * es;
   const int q = BQ * D * es, k = p.bk * D * es;

@@ -42,6 +42,7 @@
 // point.
 #include <type_traits>
 
+#include "flash_part.cuh"
 #include "flash_sync.cuh"
 #include "sm90.cuh"
 
@@ -425,7 +426,7 @@ int launch_wide(const Args<T>& a, int B, int D, cudaStream_t stream) {
 //
 // dq_split_kernel and dkv_split_kernel take f32 at D % 64 == 0 from 192. A
 // block owns up to DC output columns (one part up to D 512, two at 1024:
-// split::dc_of), so S and dP are formed once per tile and part where the
+// flash_part.cuh: dcmax_of), so S and dP are formed once per tile and part where the
 // column-part kernels above form them once per 64 columns. Two
 // warpgroups share a tile. S = Q K^T and dP = dO V^T run on wgmma's tf32
 // form over 32-column panels, the queries as M in both kernels (every
@@ -444,13 +445,11 @@ namespace split {
 constexpr int THREADS = 256;                   // two warpgroups
 constexpr int PW = 32;                         // columns a panel: a 128-byte row of tf32
 constexpr int RING = 3;                        // cp.async slots: jobs in flight
-constexpr int DC_SMALL = 320, DC_LARGE = 512;  // the column parts built
-
-// Output columns a block (DC_SMALL or DC_LARGE, the fewer parts, then the
-// narrower) for head size D; a head takes ceil(D / DC) parts.
-__host__ __device__ constexpr int dc_of(int D) {
-  return (D + DC_LARGE - 1) / DC_LARGE < (D + DC_SMALL - 1) / DC_SMALL ? DC_LARGE : DC_SMALL;
-}
+// The column parts built, and a block's output columns at head size D
+// (dcmax_of: the forward's rule); a head takes ceil(D / DC) parts.
+using fpart::DC_LARGE;
+using fpart::DC_SMALL;
+using fpart::dcmax_of;
 
 // A [ROWS][W] f32 panel, N float4 a thread: rows r0.. of a tensor seen from
 // `src` (its column 0; row stride `stride`), columns below `nc`; rows at or
@@ -984,8 +983,8 @@ int launch_dc(const Args<float>& a, int B, int D, cudaStream_t stream) {
 }
 
 int launch(const Args<float>& a, int B, int D, cudaStream_t stream) {
-  return dc_of(D) == DC_LARGE ? launch_dc<DC_LARGE>(a, B, D, stream)
-                              : launch_dc<DC_SMALL>(a, B, D, stream);
+  return dcmax_of(D) == DC_LARGE ? launch_dc<DC_LARGE>(a, B, D, stream)
+                                 : launch_dc<DC_SMALL>(a, B, D, stream);
 }
 
 }  // namespace split

@@ -9,9 +9,10 @@
 // Bound on the H100: tf32 tensor-core operations (4 Tq Tkv D per head, about
 // half skipped by the causal tiles) against q, k, v read and o written once
 // (at GPT-2's shape the bytes bound: 0.030 ms against 0.026 of operations).
-// Design: a prep launch (flash_tf32.cuh) writes K rounded to tf32 and V
-// rounded and transposed ([D][Tkv] per KV head, its rows in row_at's order),
-// since P V contracts over V's rows and tf32 wgmma takes no transpose bit.
+// Design: a prep launch (prep_cols_kernel, 64 columns a block, at every D)
+// writes K rounded to tf32 and V rounded and transposed ([D][Tkv] per KV
+// head, its rows in row_at's order), since P V contracts over V's rows and
+// tf32 wgmma takes no transpose bit.
 // Then one block per (64 NWG query rows, head, batch row), the q tiles
 // heaviest first: a producer warp loads the Q tile once by TMA (rows past
 // Tq read zeros) and streams key tiles of BK (K [BK][D], V^T [D][BK])
@@ -22,14 +23,13 @@
 // registers (4 lanes a row), and O += T(P) V on RS wgmma m64nDk8 (P from the
 // accumulator, pack_a; V^T as B). A warpgroup skips the key tiles its rows
 // do not see.
-// Past D 256 (fwd_part_kernel, flash_part.cuh's plan): a prep launch for any
-// D (prep_cols_kernel, 64 columns a block), then one block per (64 query
-// rows, head and column part of up to 512 columns, batch row) whose two
-// warpgroups both form the tile's whole S on 16-key tiles and each add P V
-// into half of the part's columns (V^T's tiles are rows of 16 keys, 64
-// bytes, read with the 64-byte swizzle). Q stays in shared memory when it
-// fits beside a K and a V stage (to D 640), else streams beside K in
-// 32-column chunks, each rounded to tf32 as it lands.
+// Past D 256 (fwd_part_kernel, flash_part.cuh's plan): the same prep, then
+// one block per (64 query rows, head and column part of up to 512 columns,
+// batch row) whose two warpgroups both form the tile's whole S on 16-key
+// tiles and each add P V into half of the part's columns (V^T's tiles are
+// rows of 16 keys, 64 bytes, read with the 64-byte swizzle). Q stays in
+// shared memory when it fits beside a K and a V stage (to D 640), else
+// streams beside K in 32-column chunks, each rounded to tf32 as it lands.
 //
 // Built in four parts (kernels/_build.py: PARTS), one nvcc each: parts 1
 // and 2 instantiate D 64 and 128, and D 192 and 256, part 3 the kernels past
@@ -263,46 +263,12 @@ fwd_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUten
   }
 }
 
-template <int D>
-int launch(const tfwd_parts::Call& c) {
-  using C = FwdCfg<D>;
-  const size_t RK = (size_t)c.B * c.NKV * c.Tkv;
-  float* kr = c.scratch;          // K rounded [RK][D]
-  float* vt = c.scratch + RK * D;  // V rounded, transposed [B NKV D][Tkv]
-  {
-    constexpr int smem = 2 * PREP_ROWS * (D + 1) * 4;
-    static bool sized[64] = {};
-    cudaError_t e = size_smem(prep_kernel<D, false>, smem, sized);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    prep_kernel<D, false><<<dim3(c.Tkv / PREP_ROWS, c.NKV, c.B), PREP_THREADS, smem, c.stream>>>(
-        c.v, c.k, nullptr, nullptr, nullptr, nullptr, kr, nullptr, vt, nullptr, nullptr, nullptr,
-        c.Tkv, c.Tkv, c.NKV);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  CUtensorMap mq, mk, mvt;
-  if (!encode_3d(&mq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, c.q, c.B, c.Tq, (uint64_t)c.NH * D, 64,
-                 32, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !encode_f32(&mk, kr, RK, D, C::BK) ||
-      !encode_f32(&mvt, vt, (uint64_t)c.B * c.NKV * D, c.Tkv, D))
-    return static_cast<int>(cudaErrorInvalidValue);
-  static bool sized[64] = {};
-  auto kern = fwd_kernel<D>;
-  const cudaError_t e = size_smem(kern, C::SMEM, sized);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<dim3(c.NH, c.B, (c.Tq + C::BQ - 1) / C::BQ), C::THREADS, C::SMEM, c.stream>>>(
-      mq, mk, mvt, c.out, c.l_out, c.m_out, c.Tq, c.Tkv, c.NH, c.NKV, c.sm_scale, c.kv_offset,
-      c.causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---- past D 256 (flash_part.cuh: the plan) ---------------------------------
-
 constexpr int PREP_COLS = 64;  // columns a block of prep_cols_kernel
 
-// K rounded to tf32 ([B NKV T][D]) and V rounded and transposed ([B NKV
-// D][T], each 8 keys in row_at's order), for any D % 64 == 0: one block per
-// (32 keys, 64 columns, KV head, batch row), so its tile stays 8 KB at any D.
+// The prep launch: K rounded to tf32 ([B NKV T][D]) and V rounded and
+// transposed ([B NKV D][T], each 8 keys in row_at's order), for any D % 64
+// == 0: one block per (32 keys, 64 columns, KV head, batch row), so its
+// tile stays 8 KB at any D.
 __global__ void __launch_bounds__(PREP_THREADS)
 prep_cols_kernel(const float* __restrict__ k, const float* __restrict__ v,
                  float* __restrict__ kr, float* __restrict__ vt, int T, int H, int D) {
@@ -327,6 +293,41 @@ prep_cols_kernel(const float* __restrict__ k, const float* __restrict__ v,
     vt[(bh * D + c0 + d) * T + t0 + q] = tile[row_at(q)][d];
   }
 }
+
+
+// The prep launch into the call's scratch: K rounded [B NKV Tkv][D], then V
+// rounded and transposed [B NKV D][Tkv].
+int launch_prep(const tfwd_parts::Call& c) {
+  const size_t RK = (size_t)c.B * c.NKV * c.Tkv;
+  prep_cols_kernel<<<dim3(c.Tkv / PREP_ROWS, c.NKV * (c.D / PREP_COLS), c.B), PREP_THREADS, 0,
+                     c.stream>>>(c.k, c.v, c.scratch, c.scratch + RK * c.D, c.Tkv, c.NKV, c.D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(const tfwd_parts::Call& c) {
+  using C = FwdCfg<D>;
+  const size_t RK = (size_t)c.B * c.NKV * c.Tkv;
+  float* kr = c.scratch;          // K rounded [RK][D]
+  float* vt = c.scratch + RK * D;  // V rounded, transposed [B NKV D][Tkv]
+  if (const int e = launch_prep(c)) return e;
+  CUtensorMap mq, mk, mvt;
+  if (!encode_3d(&mq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, c.q, c.B, c.Tq, (uint64_t)c.NH * D, 64,
+                 32, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_f32(&mk, kr, RK, D, C::BK) ||
+      !encode_f32(&mvt, vt, (uint64_t)c.B * c.NKV * D, c.Tkv, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool sized[64] = {};
+  auto kern = fwd_kernel<D>;
+  const cudaError_t e = size_smem(kern, C::SMEM, sized);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<dim3(c.NH, c.B, (c.Tq + C::BQ - 1) / C::BQ), C::THREADS, C::SMEM, c.stream>>>(
+      mq, mk, mvt, c.out, c.l_out, c.m_out, c.Tq, c.Tkv, c.NH, c.NKV, c.sm_scale, c.kv_offset,
+      c.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- past D 256 (flash_part.cuh: the plan) ---------------------------------
 
 // `panels` 32-column panels of Q (64 rows x 128 bytes each) rounded to tf32
 // in place by the block's 256 threads, then fenced for wgmma and waited for
@@ -576,10 +577,7 @@ int launch_part(const tfwd_parts::Call& c, const fpart::Plan& p) {
   const size_t RK = (size_t)c.B * c.NKV * c.Tkv;
   float* kr = c.scratch;           // K rounded [RK][D]
   float* vt = c.scratch + RK * c.D;  // V rounded, transposed [B NKV D][Tkv]
-  prep_cols_kernel<<<dim3(c.Tkv / PREP_ROWS, c.NKV * (c.D / PREP_COLS), c.B), PREP_THREADS, 0,
-                     c.stream>>>(c.k, c.v, kr, vt, c.Tkv, c.NKV, c.D);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (const int e = launch_prep(c)) return e;
   // Q [B][Tq][NH D] as [B][NH D / 32 panels][Tq][32 columns] and K rounded
   // [RK][D] as [D / 32 panels][RK][32 columns]: a box of `chunk` panels lands
   // as [panel][row][128 B], swizzled. V^T in boxes of half a part's rows.
@@ -601,7 +599,7 @@ int launch_part(const tfwd_parts::Call& c, const fpart::Plan& p) {
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = fwd_part_kernel<DCMAX, QRES>;
   static bool sized[64] = {};
-  e = size_smem(kern, fpart::SMEM_LIMIT, sized);
+  const cudaError_t e = size_smem(kern, fpart::SMEM_LIMIT, sized);
   if (e != cudaSuccess) return static_cast<int>(e);
   const fpart::Args a{c.Tq, c.Tkv, c.NH, c.NKV, c.D, c.sm_scale, c.kv_offset, c.causal, p};
   kern<<<dim3(c.NH * p.parts, (c.Tq + fpart::BQ - 1) / fpart::BQ, c.B), fpart::THREADS, p.smem,

@@ -119,13 +119,9 @@ def plan_wide(D: int, elem_bytes: int) -> dict:
     if D <= 256 or D % 64 or elem_bytes not in (2, 4):
         raise ValueError(f"plan_wide: D % 64 == 0 past 256 and 2- or 4-byte elements; got D "
                          f"{D}, {elem_bytes}")
-    if D <= _WIDE_DC_LARGE:
-        dc = D
-    elif -(-D // _WIDE_DC_LARGE) < -(-D // _WIDE_DC_SMALL):
-        dc = _WIDE_DC_LARGE
-    else:
-        dc = _WIDE_DC_SMALL
-    dcmax = _WIDE_DC_SMALL if dc <= _WIDE_DC_SMALL else _WIDE_DC_LARGE
+    fewer = -(-D // _WIDE_DC_LARGE) < -(-D // _WIDE_DC_SMALL)
+    dcmax = _WIDE_DC_LARGE if fewer else _WIDE_DC_SMALL  # dcmax_of
+    dc = D if D <= _WIDE_DC_LARGE else dcmax  # dc_of
     bk = 16 if elem_bytes == 4 else 64 if dcmax == _WIDE_DC_SMALL else 32
     v_slot = bk * (dcmax if elem_bytes == 4 else 128 * -(-dcmax // 128)) * elem_bytes
 

@@ -13,13 +13,15 @@ t, head) row of the output against its own largest value; with
 statistics, l's relative and m's absolute error too), its median ms per
 launch (CUDA events around 10 launches, 5 repeats) and causal TFLOP/s, beside
 ``scaled_dot_product_attention`` on the same inputs. ``--source`` adds a
-whole other ``flash_fwd.cu``, or an earlier commit's ``mma.sync`` forward
-``flash_sync_fwd.cu`` (the entry it exports decides how it is called; the
-``*.cuh`` files beside it, where there are any, replace the package's), as
-a variant named NAME: ``git show <commit>:mila_tpu_torch/csrc/<file>`` into
-a directory ``.gitignore`` lists times the route that commit took. The
-shapes past D 256 run ``flash_fwd_part_kernel``, and the ``part_*``
-variants drop its parts. Needs a CUDA device and nvcc.
+whole other ``flash_fwd.cu`` or ``flash_tf32_fwd.cu`` (the ``*.cuh`` files
+beside it, where there are any, replace the package's) as a variant named
+NAME: ``git show <commit>:mila_tpu_torch/csrc/<file>`` into a directory
+``.gitignore`` lists times that commit's kernel. The shapes past D 320 (in
+f32 from D 320) run the column-part kernels: the ``part_*`` variants drop
+their parts, ``part_dc_large`` builds them for parts of 512 columns at
+every D (at D 576 and 640: 512 + 64 and 512 + 128 in place of 320 + 256 and
+320 + 320), and ``part_bk32`` gives 16-bit's 320-column parts 32-key
+tiles. Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -109,6 +111,17 @@ VARIANTS = {  # name -> [(file, old text, new text)]
                        "      for (int c = 0; c < 0; ++c)  // 32-column panels")],
     "part_f32_no_pv": [(TF32_SRC, "    for (int kk = 0; kk < BK / 8; ++kk) {  // DCMAX / 2",
                         "    for (int kk = 0; kk < 0; ++kk) {  // DCMAX / 2")],
+    # past D 512: parts of DC_LARGE columns (32-key tiles in 16-bit) at every
+    # D, in place of flash_part.cuh's rule (the fewer parts, then the narrower)
+    "part_dc_large": [("flash_part.cuh", "  p.dc = dc_of(D);\n",
+                       "  p.dc = D <= DC_LARGE ? D : DC_LARGE;\n"),
+                      ("flash_part.cuh", "  p.dcmax = dcmax_of(D);\n", "  p.dcmax = DC_LARGE;\n")],
+    # 16-bit parts of up to 320 columns on 32-key tiles (as the 512-column
+    # parts), in place of 64-key tiles
+    "part_bk32": [("flash_part.cuh", "  p.bk = es == 4 ? 16 : p.dcmax == DC_SMALL ? 64 : 32;\n",
+                   "  p.bk = es == 4 ? 16 : 32;\n"),
+                  (SRC, "launch_part<T, fpart::DC_SMALL, 64, true>(c, p)",
+                   "launch_part<T, fpart::DC_SMALL, 32, true>(c, p)")],
     # 128-key tiles at D 128 too (S, O and P then exceed the registers)
     "bkv128": [(SRC, "BKV = D == 64 ? 128 : 64;", "BKV = 128;"),
                (SRC, "NT = D == 64 ? 3 : 4;", "NT = D == 64 ? 3 : 2;")],
@@ -131,8 +144,10 @@ SHAPES = {
     # chip_smoke's rows past D 256 (flash_fwd_part_kernel)
     "stats_D320_T2048": (1, 2048, 2048, 16, 8, 320, True),
     "stats_D512_T2048": (1, 2048, 2048, 16, 8, 512, True),
+    # two column parts (flash_part.cuh: dc_of): 320 + 256 and 320 + 320
+    "stats_D576_T2048": (1, 2048, 2048, 16, 8, 576, True),
+    "stats_D640_T2048": (1, 2048, 2048, 16, 8, 640, True),
 }
-SYNC_ENTRY = "flash_sync_fwd"  # an earlier commit's mma.sync forward, called as that entry
 SCRATCH = {}  # variant -> its library's flash_tf32_fwd_scratch
 
 
@@ -161,8 +176,7 @@ def build(names, sources=None, src=SRC) -> dict:
                 texts[fname] = texts[fname].replace(old, new)
         for fname, text in texts.items():
             (vdir / fname).write_text(text)
-        entry = next((e for e in (SYNC_ENTRY, "flash_tf32_fwd")
-                      if f'extern "C" int {e}(' in texts[src]), "flash_fwd")
+        entry = "flash_tf32_fwd" if 'extern "C" int flash_tf32_fwd(' in texts[src] else "flash_fwd"
         procs[name] = (subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(vdir / "libflash.so"), str(vdir / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT), entry)
@@ -216,7 +230,7 @@ def main() -> None:
     ap.add_argument("--variants", nargs="+", default=list(VARIANTS), choices=list(VARIANTS))
     ap.add_argument("--shapes", nargs="+", default=list(SHAPES), choices=list(SHAPES))
     ap.add_argument("--source", nargs="*", default=[], metavar="NAME=PATH",
-                    help="a whole other flash_fwd.cu or an earlier flash_sync_fwd.cu, timed as NAME")
+                    help="a whole other flash_fwd.cu or flash_tf32_fwd.cu, timed as NAME")
     ap.add_argument("--dtype", default="bf16", choices=["bf16", "fp16", "f32"])
     args = ap.parse_args()
     dtype = {"bf16": torch.bfloat16, "fp16": torch.float16, "f32": torch.float32}[args.dtype]

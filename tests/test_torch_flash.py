@@ -136,17 +136,18 @@ def test_wide_forward_plan(D, elem_bytes):
 
 
 @pytest.mark.parametrize("elem_bytes,D,want", [
-    (2, 320, (1, 64, True, 2, 2)),
     (2, 512, (1, 32, True, 3, 2)),
+    (2, 576, (2, 64, True, 1, 1)),
     (4, 320, (1, 16, True, 3, 3)),
     (4, 512, (1, 16, True, 2, 1)),
     (4, 1024, (2, 16, False, 4, 2)),
     (2, 1088, (3, 32, False, 4, 2)),
 ])
 def test_wide_forward_plan_at_timed_shapes(elem_bytes, D, want):
-    # chip_smoke.py's rows (D 320, 512; 16-bit D 320 itself runs K10's wide
-    # kernel, its plan's parts D 576 and 640) keep Q resident with two or
-    # more K stages; f32 D 1024 and 16-bit past D 1024 stream Q beside K.
+    # chip_smoke.py's rows (D 512; f32 D 320; 16-bit D 320 runs K10's wide
+    # kernel) keep Q resident with two or more K stages; 16-bit D 576 takes
+    # two 320-column parts; f32 D 1024 and 16-bit past D 1024 stream Q
+    # beside K.
     p = tfa.plan_wide(D, elem_bytes)
     assert (len(p["parts"]), p["bk"], p["q_res"], p["nk"], p["nv"]) == want
 

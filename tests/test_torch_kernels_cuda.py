@@ -1916,12 +1916,14 @@ def test_flash_wgmma_bwd_on_sync_stats(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off,
                                      (torch.float32, 512), (torch.float32, 1024),
                                      (torch.float32, 128), (torch.float32, 256),
                                      (torch.bfloat16, 512), (torch.float16, 320),
-                                     (torch.bfloat16, 1088), (torch.float32, 704)])
+                                     (torch.bfloat16, 1088), (torch.float32, 704),
+                                     (torch.bfloat16, 576), (torch.float16, 1088)])
 def test_flash_sync_graph_replay_and_determinism(cuda, dtype, D):
     # f32's tf32 family (its operand copies in scratch from the graph's
     # pool) at every D, bf16 and fp16 at D 320 on K10's wide kernel and at
-    # D 512 on the part kernel (Q streamed at 16-bit D 1088 and f32 D 704
-    # and 1024) before the mma.sync backward:
+    # D 512 and 576 on the part kernel (512- and 320-column parts; Q
+    # streamed at 16-bit D 1088 and f32 D 704 and 1024) before the mma.sync
+    # backward:
     # two forward + backward calls on the same inputs are bit-equal (no
     # atomics), and a captured forward + backward replayed after q, k, v and
     # do change in place equals eager calls.
