@@ -115,8 +115,8 @@ exits non-zero without the final line):
            (wgmma both ways), at D 128, 192 and 256 in f32 (the tf32
            forward; the tf32 backward at D 128, the split kernels at 192
            and 256), at D 320 and 512 in bf16, fp16 and f32 (the forward
-           on the column-part kernels of wgmma and tf32 wgmma, the
-           backward on the mma.sync family: 16-bit column parts, f32's
+           on the column-part kernels of wgmma and tf32 wgmma, the 16-bit
+           backward on flash_bwd.cu's wgmma part kernels, f32's on the
            split kernels), these off the model paths timed on the device
            alone;
            every row names its family and the CUDA kernels behind one
@@ -2811,8 +2811,9 @@ def route_flash_rows(record, rows) -> None:
     flash_rows(record, rows, 8, 1024, 12, 12, 64, draw, torch.float16, plain_entry=True)
     # Past D 256 (the forward: bf16 and fp16 on wgmma, K10's wide kernel at
     # D 320 and the column-part kernel at 512, f32 on the tf32 column-part
-    # kernel; the backward on the mma.sync family: 16-bit column parts,
-    # f32's 8-warp split kernels) at D 320 and 512 in bf16 and f32, from a
+    # kernel; the backward: bf16 and fp16 on flash_bwd.cu's wgmma part
+    # kernels (plan_bwd: its statistics, dK/dV, dQ; 3 CUDA launches), f32 on
+    # the 8-warp split kernels) at D 320 and 512 in bf16 and f32, from a
     # stream of their own, and in fp16 from another.
     wide = np.random.default_rng(26)
 
@@ -4070,7 +4071,7 @@ def main() -> int:
             "dtypes": sorted({r["dtype"] for r in mine if r.get("dtype")}),
             "launches_by_path": {p: c[entry] for p, c in by_path.items() if c[entry]},
             "shapes": mine})
-        if entry.startswith("flash_attention"):  # rows of the tf32 and mma.sync families too
+        if entry.startswith("flash_attention"):  # rows of the tf32 and sync families too
             way = "bwd" if entry.endswith("bwd") else "fwd"
             summary[-1]["families"] = sorted({r["family"] for r in mine})
             summary[-1]["sources"] = sorted({SOURCES[entry][0]} | {

@@ -2,7 +2,7 @@
 // in and out (the element type T of every template here; fp16 reads the
 // same fragments and descriptors through wgmma's .f16 form and TMA's
 // FLOAT16 maps), from the forward's row statistics, on Hopper's TMA and
-// warpgroup MMA, at D 64, 128, 192 and 256.
+// warpgroup MMA, at every D % 64 == 0 (past 256: the part kernels below).
 //
 // Replaces the TPU kernels mila_tpu/kernels/flash_attention_bwd.py:
 // _dkv_kernel (dK, dV) and _dq_kernel (dQ), entry flash_attention_bwd,
@@ -20,8 +20,8 @@
 // written once. Three launches:
 //   stats: per (batch, head, query row) D = sum_d o do in f32 and lse2 =
 //     (m + ln l) log2(e) (l == 0 taken as 1), 8 lanes a row at D 64 and 192
-//     (one and three 16-byte loads of o and do each), 16 at D 128, 32 at D
-//     256, in the model layout, into
+//     (one and three 16-byte loads of o and do each) and past 256, 16 at D
+//     128, 32 at D 256, in the model layout, into
 //     f32 [B, NH, Tq64] (Tq rounded up to 64; rows past Tq get lse2 = +inf
 //     and D = 0, so their p is 0). Both passes then form p = 2^(s c - lse2)
 //     with c = scale log2(e): one FFMA and one ex2 a score, no divide.
@@ -65,6 +65,28 @@
 //     Shared memory: K and V (64 D
 //     2 bytes each), a ring of Q/dO stages (64 D 2 bytes each; 3 at D 192,
 //     2 at D 256) and the 24 KB handed over: 218 KB.
+//   past D 256 (flash_part.cuh: plan_bwd): the same two passes on column
+//     parts, dK/dV first, then dQ (flash_bwd_dkv_part_kernel,
+//     flash_bwd_dq_part_kernel). A block takes 64 rows and a part of its
+//     output (dQ: the forward's parts of up to 512 columns; dK/dV: 256),
+//     and its two warpgroups form S (S^T) and dP (dP^T) once a tile and part
+//     between them, over all D columns, as the D 192/256 dK/dV shape does:
+//     warpgroup 0 S and P, warpgroup 1 dP and dS, P handed over in f32 and
+//     T(dS) back; then each adds into its own half of the part (dQ: up to
+//     128 f32 registers a thread; dK, dV: 64 + 64). A producer warp streams
+//     every operand through one ring of 16 KB jobs (two 64-row panels of 64
+//     columns, one box each through 5-D maps over [B][heads][D / 64][T][64]):
+//     the other side's panels of S and dP, then the part's
+//     columns of the accumulated products' operand, read again. The block's
+//     own operands of S and dP stay in shared memory where they fit beside
+//     a ring of 4 jobs (to D 512), else stream as jobs of their own. Each
+//     warpgroup's products span a fixed number of panels, whatever the
+//     part's width: no wgmma sits in a branch. The producer warp takes the
+//     block to 288 threads and each thread to 168 registers: dK/dV and dQ at
+//     512-column parts spill a little and ptxas serializes their wgmma
+//     (C7512). A consumer thread issuing the loads (256 threads, 255
+//     registers) ran slower: it waits on the other warpgroup at every job;
+//     so did setmaxnreg (tools/flash_variants.py --bwd). The loads bound it.
 //   dq: the forward's skeleton (flash_fwd.cu): one block per (64 NWG query
 //     rows, head, batch row), heaviest q tiles first; one thread loads Q and
 //     dO once and streams 64-key K/V tiles through a TMA ring (3-D maps over
@@ -89,10 +111,13 @@
 // from the forward (flash_fwd.cu: m of the scaled scores, l the f32 sum
 // against the running max).
 //
-// Built in five parts (kernels/_build.py: PARTS), one nvcc each: parts 1
+// Built in nine parts (kernels/_build.py: PARTS), one nvcc each: parts 1
 // and 2 instantiate bf16 and fp16 at D 64 and 128, parts 3 and 4 bf16 and
-// fp16 at D 192 and 256; part 0 holds the C entry point.
+// fp16 at D 192 and 256, parts 5 and 6 the dK/dV part kernels, 7 and 8 the
+// dQ part kernels; part 0 holds the C entry point and the statistics past D
+// 256.
 #include "common.cuh"
+#include "flash_part.cuh"
 #include "mma.cuh"
 #include "sm90.cuh"
 
@@ -113,6 +138,10 @@ int run_bf16(const Call& c);       // D 64, 128
 int run_f16(const Call& c);
 int run_bf16_wide(const Call& c);  // D 192, 256
 int run_f16_wide(const Call& c);
+int dkv_part_bf16(const Call& c);  // past D 256: the dK/dV and dQ kernels
+int dkv_part_f16(const Call& c);
+int dq_part_bf16(const Call& c);
+int dq_part_f16(const Call& c);
 
 }  // namespace fbwd_parts
 
@@ -131,18 +160,25 @@ template <typename T>
 using Pair = typename std::conditional<std::is_same<T, __half>::value, __half2,
                                        __nv_bfloat162>::type;
 
-// Rows in the model's order (b, t, h), LPR lanes a row (the largest power of
-// two up to 32 that divides D / 8), each lane CH chunks of 8 values (16
-// bytes) LPR chunks apart; the sum over the row's lanes by shuffles.
+// The lanes a statistics row takes at head size D: the largest power of two
+// up to 32 that divides D / 8; past D 256 (D = 0: the head size a runtime
+// argument, a multiple of 64) 8.
+__host__ __device__ constexpr int stats_lanes(int D) {
+  return D == 0 ? 8 : ((D / 8) & -(D / 8)) > 32 ? 32 : (D / 8) & -(D / 8);
+}
+
+// Rows in the model's order (b, t, h), LPR lanes a row (stats_lanes), each
+// lane CH chunks of 8 values (16 bytes) LPR chunks apart; the sum over the
+// row's lanes by shuffles. D = 0: the head size is d_run.
 template <typename T, int D>
 __global__ void __launch_bounds__(STATS_THREADS)
 flash_bwd_stats_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                        const float* __restrict__ l, const float* __restrict__ m,
                        float* __restrict__ lse2, float* __restrict__ delta, int B, int Tq,
-                       int Tq64, int NH) {
-  constexpr int P2 = (D / 8) & -(D / 8);
-  constexpr int LPR = P2 > 32 ? 32 : P2;
-  constexpr int CH = D / 8 / LPR;
+                       int Tq64, int NH, int d_run) {
+  constexpr int LPR = stats_lanes(D);
+  const int hd = D ? D : d_run;
+  const int CH = hd / 8 / LPR;
   const int part = threadIdx.x % LPR;
   const long long r = (long long)blockIdx.x * (STATS_THREADS / LPR) + threadIdx.x / LPR;
   const long long rows = (long long)B * Tq64 * NH;
@@ -152,7 +188,7 @@ flash_bwd_stats_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   const bool live = r < rows && t < Tq;
   float acc = 0.f;
   if (live) {
-    const size_t off = (((size_t)b * Tq + t) * NH + h) * D + 8 * part;
+    const size_t off = (((size_t)b * Tq + t) * NH + h) * hd + 8 * part;
 #pragma unroll
     for (int ch = 0; ch < CH; ++ch) {
       const uint4 ov = *reinterpret_cast<const uint4*>(o + off + 8 * LPR * ch);
@@ -774,20 +810,25 @@ cudaError_t launch_dkv(const CUtensorMap& tmq, const CUtensorMap& tmk, const CUt
   return cudaGetLastError();
 }
 
+int tq64_of(int Tq) { return (Tq + TQ_ALIGN - 1) / TQ_ALIGN * TQ_ALIGN; }
+
+// The statistics launch (D = 0: the head size c.D, past 256).
+template <typename T, int D>
+cudaError_t launch_stats(const fbwd_parts::Call& c) {
+  const int Tq64 = tq64_of(c.Tq);
+  constexpr int per_block = STATS_THREADS / stats_lanes(D);
+  const long long rows = (long long)c.B * Tq64 * c.NH;
+  const unsigned blocks = static_cast<unsigned>((rows + per_block - 1) / per_block);
+  flash_bwd_stats_kernel<T, D><<<blocks, STATS_THREADS, 0, c.stream>>>(
+      static_cast<const T*>(c.o), static_cast<const T*>(c.dout), c.l, c.m, c.lse2, c.delta, c.B,
+      c.Tq, Tq64, c.NH, c.D);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch(const fbwd_parts::Call& c) {
-  const int Tq64 = (c.Tq + TQ_ALIGN - 1) / TQ_ALIGN * TQ_ALIGN;
-  {
-    constexpr int P2 = (D / 8) & -(D / 8);
-    constexpr int per_block = STATS_THREADS / (P2 > 32 ? 32 : P2);
-    const long long rows = (long long)c.B * Tq64 * c.NH;
-    const unsigned blocks = static_cast<unsigned>((rows + per_block - 1) / per_block);
-    flash_bwd_stats_kernel<T, D><<<blocks, STATS_THREADS, 0, c.stream>>>(
-        static_cast<const T*>(c.o), static_cast<const T*>(c.dout), c.l, c.m, c.lse2, c.delta,
-        c.B, c.Tq, Tq64, c.NH);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const int Tq64 = tq64_of(c.Tq);
+  if (const cudaError_t e = launch_stats<T, D>(c)) return static_cast<int>(e);
 
   using C = DqCfg<D>;
   CUtensorMap tmq, tmk, tmv, tmo;
@@ -833,6 +874,516 @@ int launch(const fbwd_parts::Call& c) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- past D 256 (flash_part.cuh: plan_bwd) ------------------------------------
+
+namespace bpart {
+
+constexpr int THREADS = 288;              // two consumer warpgroups, a producer warp
+constexpr int CONSUMERS = 256;            // the producer warp's first thread issues the loads
+constexpr int P_READY = 1, DS_READY = 2;  // named barriers: P, then T(dS), handed over
+
+// Both kernels' shared memory (plan_bwd): the block's own operands of S and
+// dP when resident, the ring of jobs, each job's statistics (dK/dV), the
+// hand-over and the barriers.
+struct Smem {
+  unsigned char* res;   // two [D / 64][64][128 B] (dQ: Q, dO; dK/dV: K, V)
+  unsigned char* ring;  // [ring][2][64][128 B]: warpgroup 0's panel, warpgroup 1's
+  float* st;            // [ring][lse2, D][64]
+  float* pbuf;          // [32][128]: P (f32), element e of thread i of a warpgroup at [e][i]
+  uint32_t* dbuf;       // [16][128]: T(dS) as A fragments, the same way
+  uint64_t *full, *empty, *res_full;
+  __device__ Smem(unsigned char* raw, const fpart::PlanBwd& p) {
+    res = raw + ((1024 - (sm90_smem(raw) & 1023)) & 1023);
+    ring = res + p.res_bytes;
+    st = reinterpret_cast<float*>(ring + p.ring * fpart::BWD_SLOT);
+    pbuf = st + p.ring * 128;
+    dbuf = reinterpret_cast<uint32_t*>(pbuf + 32 * 128);
+    full = reinterpret_cast<uint64_t*>(dbuf + 16 * 128);
+    empty = full + p.ring;
+    res_full = empty + p.ring;
+  }
+  __device__ unsigned char* slot(int s) const { return ring + s * fpart::BWD_SLOT; }
+  __device__ void init(int ring) const {
+    for (int s = 0; s < ring; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_init(res_full, 1);
+    mbar_fence_init();
+  }
+};
+
+// Job n into slot n % ring (the producer), once every consumer has released
+// job n - ring there: panel p0 of map m0 (head h0) for warpgroup 0 and p1
+// of m1 (h1) for warpgroup 1, 64 rows from `row` of batch row b; a negative
+// panel is not loaded (the warpgroup's products on it are never stored). A
+// dK/dV step's last S job also brings its queries' lse2 and D (64 each).
+__device__ __forceinline__ void load_job(const Smem& sm, int ring, int n, const CUtensorMap* m0,
+                                         int p0, int h0, const CUtensorMap* m1, int p1, int h1,
+                                         int row, int b, const float* lse2 = nullptr,
+                                         const float* delta = nullptr) {
+  const int s = n % ring;
+  if (n >= ring) mbar_wait(&sm.empty[s], (n / ring - 1) & 1);
+  unsigned char* dst = sm.slot(s);
+  const uint32_t bytes =
+      (p0 >= 0 ? PANEL64 : 0) + (p1 >= 0 ? PANEL64 : 0) + (lse2 ? fpart::BWD_STATS : 0);
+  mbar_expect_tx(&sm.full[s], bytes);
+  if (p0 >= 0) tma_load_5d(dst, m0, &sm.full[s], 0, row, p0, h0, b);
+  if (p1 >= 0) tma_load_5d(dst + PANEL64, m1, &sm.full[s], 0, row, p1, h1, b);
+  if (lse2) {
+    bulk_load(sm.st + s * 128, lse2, 64 * 4, &sm.full[s]);
+    bulk_load(sm.st + s * 128 + 64, delta, 64 * 4, &sm.full[s]);
+  }
+}
+
+// A consumer thread's side of the ring: jobs in order, each released by
+// every consumer.
+struct Ring {
+  const Smem& sm;
+  int ring, s = 0, ph = 0;
+  __device__ int wait() {
+    mbar_wait(&sm.full[s], ph);
+    const int got = s;
+    if (++s == ring) s = 0, ph ^= 1;
+    return got;
+  }
+  __device__ void release(int slot) const { mbar_arrive(&sm.empty[slot]); }
+};
+
+// x += A B^T for one 64-column panel of A's and of B's 64 rows, both
+// K-major (as TMA writes them): SS wgmma m64n64k16, issued and retired.
+template <typename T>
+__device__ __forceinline__ void s_panel(float* x, const unsigned char* a, const unsigned char* b) {
+  wgmma_fence_operand<32>(x);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n64k16<T, 0>(x, wgmma_desc(a + 32 * kk, 16, 1024), wgmma_desc(b + 32 * kk, 16, 1024),
+                          1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_fence_operand<32>(x);
+}
+
+// x (S or S^T, then dP or dP^T) over all D / 64 panels of a tile: the
+// warpgroup's own operand (resident, or its job's panel) against the next
+// job's. The last job is held, not released, when `hold` (its statistics);
+// its slot is returned.
+template <typename T, bool RES>
+__device__ __forceinline__ int s_tile(float* x, Ring& rg, const unsigned char* own, int P, int wg,
+                                      bool hold) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) x[e] = 0.f;
+  int last = 0;
+  for (int pp = 0; pp < P; ++pp) {
+    const unsigned char* a;
+    int sa = 0;
+    if constexpr (RES) {
+      a = own + pp * PANEL64;
+    } else {
+      sa = rg.wait();
+      a = rg.sm.slot(sa) + wg * PANEL64;
+    }
+    const int sb = rg.wait();
+    s_panel<T>(x, a, rg.sm.slot(sb) + wg * PANEL64);
+    if constexpr (!RES) rg.release(sa);
+    if (hold && pp + 1 == P)
+      last = sb;
+    else
+      rg.release(sb);
+  }
+  return last;
+}
+
+// acc[32 x ..] += T(A) B_x over the next NP jobs' panels (this warpgroup's
+// half of each): A 64 rows x 64 in registers, each panel 64 k rows read
+// MN-major. Issued as one group and retired, the jobs then released.
+template <typename T, int NP>
+__device__ __forceinline__ void acc_panels(float* acc, const uint32_t (*a)[4], Ring& rg, int wg) {
+  int sl[NP];
+#pragma unroll
+  for (int x = 0; x < NP; ++x) sl[x] = rg.wait();
+  wgmma_fence_operand<32 * NP>(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int x = 0; x < NP; ++x)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16_rs<T, 1>(
+          acc + 32 * x, a[kk],
+          wgmma_desc(rg.sm.slot(sl[x]) + wg * PANEL64 + 2048 * kk, PANEL64, 1024), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_fence_operand<32 * NP>(acc);
+#pragma unroll
+  for (int x = 0; x < NP; ++x) rg.release(sl[x]);
+}
+
+}  // namespace bpart
+
+// dQ past D 256: one block per (64 query rows, head and column part, batch
+// row), the heaviest q tiles of every head first. Per key tile: warpgroup 0
+// forms S = Q K^T and P, warpgroup 1 dP = dO V^T and dS (P handed over in
+// f32, T(dS) handed back); then each adds T(dS) K into its OP panels of the
+// part (the first (np + 1) / 2 of the part's np panels to warpgroup 0),
+// K's panels of the part streamed again. The rows' lse2 and D stay in
+// registers.
+template <typename T, int OP, bool RES>
+__global__ void __launch_bounds__(bpart::THREADS, 1)
+flash_bwd_dq_part_kernel(const __grid_constant__ CUtensorMap tmq,
+                         const __grid_constant__ CUtensorMap tmo,
+                         const __grid_constant__ CUtensorMap tmk,
+                         const __grid_constant__ CUtensorMap tmv,
+                         const __grid_constant__ CUtensorMap tmq_all,
+                         const __grid_constant__ CUtensorMap tmo_all,
+                         const float* __restrict__ lse2_in, const float* __restrict__ delta_in,
+                         T* __restrict__ dq_out, const fpart::ArgsBwd a) {
+  constexpr int NO = 32 * OP;
+  const fpart::PlanBwd& p = a.p;
+  extern __shared__ unsigned char smem_raw[];
+  const bpart::Smem sm(smem_raw, p);
+  const int tid = threadIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int h = blockIdx.x / p.dq_parts, part = blockIdx.x % p.dq_parts, b = blockIdx.z;
+  const int c0 = part * p.dq_dc, np = min(p.dq_dc, a.D - c0) / 64, np0 = (np + 1) / 2;
+  const int hk = h / (a.NH / a.NKV);
+  const int q0 = qt * 64, P = a.D / 64;
+  int n_kv = a.Tkv / 64;
+  if (a.causal) {
+    const int last = q0 + 63 + a.kv_offset;  // the TPU kernel's tile-skip rule
+    n_kv = last < 0 ? 0 : min(n_kv, last / 64 + 1);
+  }
+  // A key tile's jobs: per panel (Q and dO's, when streamed, then) K and
+  // V's; then the part's K panels, warpgroup 0's and 1's.
+  const int JS = RES ? P : 2 * P, JT = JS + OP;
+  auto issue = [&](int n) {
+    const int j = n / JT, i = n % JT, pp = RES ? i : i / 2;
+    if (i >= JS) {
+      const int x = i - JS;
+      bpart::load_job(sm, p.ring, n, &tmk, x < np0 ? c0 / 64 + x : -1, hk, &tmk,
+                      x < np - np0 ? c0 / 64 + np0 + x : -1, hk, 64 * j, b);
+    } else if (!RES && i % 2 == 0) {
+      bpart::load_job(sm, p.ring, n, &tmq, pp, h, &tmo, pp, h, q0, b);
+    } else {
+      bpart::load_job(sm, p.ring, n, &tmk, pp, hk, &tmv, pp, hk, 64 * j, b);
+    }
+  };
+  if (tid == 0) sm.init(p.ring);
+  __syncthreads();
+  if (tid >= bpart::CONSUMERS) {  // the producer warp: one thread issues every job
+    if (tid == bpart::CONSUMERS) {
+      if constexpr (RES) {
+        mbar_expect_tx(sm.res_full, p.res_bytes);
+        tma_load_5d(sm.res, &tmq_all, sm.res_full, 0, q0, 0, h, b);
+        tma_load_5d(sm.res + p.res_bytes / 2, &tmo_all, sm.res_full, 0, q0, 0, h, b);
+      }
+      for (int n = 0; n < n_kv * JT; ++n) issue(n);
+    }
+    return;
+  }
+  bpart::Ring rg{sm, p.ring};
+
+  const int wg = tid >> 7, ltid = tid & 127, lane = tid & 31, w = ltid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = q0 + 16 * w;  // the warp's first query row (both warpgroups)
+  const int r0 = wrow + g;       // this thread's rows r0 and r0 + 8
+  const float c = a.sm_scale * LOG2E;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + 8 * hr;
+    const size_t s = ((size_t)b * a.NH + h) * a.Tq64 + row;
+    lse2[hr] = row < a.Tq ? lse2_in[s] : INFINITY;
+    dl[hr] = row < a.Tq ? delta_in[s] : 0.f;
+  }
+  float dq[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dq[i] = 0.f;
+  uint32_t da[4][4];  // T(dS): the A fragments of dQ += T(dS) K
+  const unsigned char* own = sm.res + wg * (p.res_bytes / 2);  // Q or dO (resident)
+  if constexpr (RES) mbar_wait(sm.res_full, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    float x[32];  // warpgroup 0: S, then P; warpgroup 1: dP, then dS
+    bpart::s_tile<T, RES>(x, rg, own, P, wg, false);
+    const int k0 = 64 * j;
+    if (wg == 0) {
+      const bool diag = a.causal && k0 + 63 > wrow + a.kv_offset;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int e = 4 * jj + i, hr = i >> 1;
+          float pv = ex2(fmaf(x[e], c, -lse2[hr]));
+          if (diag && k0 + 8 * jj + 2 * t + (i & 1) > r0 + 8 * hr + a.kv_offset) pv = 0.f;
+          sm.pbuf[e * 128 + ltid] = pv;
+        }
+      named_bar_arrive(bpart::P_READY, bpart::CONSUMERS);
+      named_bar_sync(bpart::DS_READY, bpart::CONSUMERS);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) da[kk][r] = sm.dbuf[(4 * kk + r) * 128 + ltid];
+    } else {
+      named_bar_sync(bpart::P_READY, bpart::CONSUMERS);
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        x[e] = (sm.pbuf[e * 128 + ltid] * (x[e] - dl[(e & 3) >> 1])) * a.sm_scale;
+      pack_a<T>(da, x);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) sm.dbuf[(4 * kk + r) * 128 + ltid] = da[kk][r];
+      named_bar_arrive(bpart::DS_READY, bpart::CONSUMERS);
+    }
+    bpart::acc_panels<T, OP>(dq, da, rg, wg);
+  }
+
+  const int pan0 = wg ? np0 : 0, mine = wg ? np - np0 : np0;  // the warpgroup's panels
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + 8 * hr;
+    if (row >= a.Tq) continue;
+    T* drow = dq_out + ((size_t)b * a.Tq + row) * a.NH * a.D + (size_t)h * a.D + c0 + 64 * pan0;
+#pragma unroll
+    for (int jj = 0; jj < NO / 4; ++jj)
+      if (jj < 8 * mine)
+        *reinterpret_cast<uint32_t*>(drow + 8 * jj + 2 * t) =
+            pack2_as<T>(dq[4 * jj + 2 * hr], dq[4 * jj + 2 * hr + 1]);
+  }
+}
+
+// dK/dV past D 256: one block per (64 keys, KV head and column part of
+// BWD_KV_DC columns, batch row), the first key blocks (which see the most q
+// tiles) first, sweeping the (query head of the group, 64-row q tile) steps
+// that see its keys, as K11 does. Per step: warpgroup 0 forms S^T = K Q^T
+// and P^T, warpgroup 1 dP^T = V dO^T and dS^T (P^T handed over in f32,
+// T(dS^T) handed back); then each adds, on its own 128 columns of the part,
+// T(P^T) dO into dV (warpgroup 0 while warpgroup 1 forms dS^T) and T(dS^T) Q
+// into dK, the step's dO and Q columns of the part streamed again. dK and dV
+// sum over the group in the block's registers, deterministically.
+template <typename T, bool RES>
+__global__ void __launch_bounds__(bpart::THREADS, 1)
+flash_bwd_dkv_part_kernel(const __grid_constant__ CUtensorMap tmq,
+                          const __grid_constant__ CUtensorMap tmo,
+                          const __grid_constant__ CUtensorMap tmk,
+                          const __grid_constant__ CUtensorMap tmv,
+                          const __grid_constant__ CUtensorMap tmk_all,
+                          const __grid_constant__ CUtensorMap tmv_all,
+                          const float* __restrict__ lse2_in, const float* __restrict__ delta_in,
+                          T* __restrict__ dk_out, T* __restrict__ dv_out,
+                          const fpart::ArgsBwd a) {
+  const fpart::PlanBwd& p = a.p;
+  extern __shared__ unsigned char smem_raw[];
+  const bpart::Smem sm(smem_raw, p);
+  const int tid = threadIdx.x;
+  const int hk = blockIdx.x / p.kv_parts, part = blockIdx.x % p.kv_parts, b = blockIdx.z;
+  const int k0 = blockIdx.y * 64;
+  const int c0 = part * fpart::BWD_KV_DC, nc = min(fpart::BWD_KV_DC, a.D - c0);
+  const int G = a.NH / a.NKV, P = a.D / 64;
+  // The sweep: the q tiles that see key k0 or later, from the tile holding
+  // query k0 - kv_offset on (the TPU kernel's skip rule, per 64-row tile),
+  // for every query head of the group.
+  const int nq = (a.Tq + 63) / 64;
+  const int i0 = a.causal && k0 > a.kv_offset ? (k0 - a.kv_offset) / 64 : 0;
+  const int per_head = nq > i0 ? nq - i0 : 0;
+  const int n_it = per_head * G;
+  // A step's jobs: per panel (K and V's, when streamed, then) Q and dO's,
+  // the last with the queries' lse2 and D; then the part's dO columns and
+  // Q's, warpgroup 0's first 128 and warpgroup 1's next.
+  const int JS = RES ? P : 2 * P, JT = JS + 4, cp = c0 / 64;
+  auto issue = [&](int n) {
+    const int it = n / JT, i = n % JT, pp = RES ? i : i / 2;
+    const int h = hk * G + it / per_head, q0 = (i0 + it % per_head) * 64;
+    if (i >= JS) {
+      const int x = (i - JS) % 2;
+      const CUtensorMap* m = i - JS < 2 ? &tmo : &tmq;
+      bpart::load_job(sm, p.ring, n, m, 64 * x < nc ? cp + x : -1, h, m,
+                      128 + 64 * x < nc ? cp + 2 + x : -1, h, q0, b);
+    } else if (!RES && i % 2 == 0) {
+      bpart::load_job(sm, p.ring, n, &tmk, pp, hk, &tmv, pp, hk, k0, b);
+    } else {
+      const size_t srow = ((size_t)b * a.NH + h) * a.Tq64 + q0;
+      const bool last = i == JS - 1;
+      bpart::load_job(sm, p.ring, n, &tmq, pp, h, &tmo, pp, h, q0, b,
+                      last ? lse2_in + srow : nullptr, last ? delta_in + srow : nullptr);
+    }
+  };
+  if (tid == 0) sm.init(p.ring);
+  __syncthreads();
+  if (tid >= bpart::CONSUMERS) {  // the producer warp: one thread issues every job
+    if (tid == bpart::CONSUMERS) {
+      if constexpr (RES) {
+        mbar_expect_tx(sm.res_full, p.res_bytes);
+        tma_load_5d(sm.res, &tmk_all, sm.res_full, 0, k0, 0, hk, b);
+        tma_load_5d(sm.res + p.res_bytes / 2, &tmv_all, sm.res_full, 0, k0, 0, hk, b);
+      }
+      for (int n = 0; n < n_it * JT; ++n) issue(n);
+    }
+    return;
+  }
+  bpart::Ring rg{sm, p.ring};
+
+  const int wg = tid >> 7, ltid = tid & 127, lane = tid & 31, w = ltid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wkey = k0 + 16 * w;  // the warp's first key (both warpgroups)
+  const int r0 = wkey + g;       // this thread's keys r0 and r0 + 8
+  const float c = a.sm_scale * LOG2E;
+  float dk[64], dv[64];  // the warpgroup's 128 columns of the part
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+  uint32_t pa[4][4], da[4][4];  // T(P^T), T(dS^T): the A fragments of dV and dK
+  const unsigned char* own = sm.res + wg * (p.res_bytes / 2);  // K or V (resident)
+  if constexpr (RES) mbar_wait(sm.res_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int q0 = (i0 + it % per_head) * 64;
+    float x[32];  // warpgroup 0: S^T, then P^T; warpgroup 1: dP^T, then dS^T
+    const int sl = bpart::s_tile<T, RES>(x, rg, own, P, wg, true);
+    const float* stp = sm.st + sl * 128;  // the step's lse2 and D (a lane's reads broadcast)
+    if (wg == 0) {
+      const bool diag = a.causal && wkey + 15 > q0 + a.kv_offset;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 ls = *reinterpret_cast<const float2*>(stp + 8 * jj + 2 * t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int e = 4 * jj + i;
+          float pv = ex2(fmaf(x[e], c, -((i & 1) ? ls.y : ls.x)));
+          if (diag && r0 + 8 * (i >> 1) > q0 + 8 * jj + 2 * t + (i & 1) + a.kv_offset) pv = 0.f;
+          x[e] = pv;
+          sm.pbuf[e * 128 + ltid] = pv;
+        }
+      }
+      named_bar_arrive(bpart::P_READY, bpart::CONSUMERS);
+      rg.release(sl);
+      pack_a<T>(pa, x);
+    } else {
+      named_bar_sync(bpart::P_READY, bpart::CONSUMERS);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int e = 8 * kk + 2 * r;  // key r0 + 8 (r % 2), queries 8 (e / 4) + 2 t and + 1
+          const float2 dl = *reinterpret_cast<const float2*>(stp + 64 + 8 * (e >> 2) + 2 * t);
+          const float p0 = sm.pbuf[e * 128 + ltid], p1 = sm.pbuf[(e + 1) * 128 + ltid];
+          pa[kk][r] = pack2_as<T>(p0, p1);
+          x[e] = (p0 * (x[e] - dl.x)) * a.sm_scale;
+          x[e + 1] = (p1 * (x[e + 1] - dl.y)) * a.sm_scale;
+        }
+      rg.release(sl);
+      pack_a<T>(da, x);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) sm.dbuf[(4 * kk + r) * 128 + ltid] = da[kk][r];
+      named_bar_arrive(bpart::DS_READY, bpart::CONSUMERS);
+    }
+    bpart::acc_panels<T, 2>(dv, pa, rg, wg);  // dV += T(P^T) dO
+    if (wg == 0) {
+      named_bar_sync(bpart::DS_READY, bpart::CONSUMERS);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) da[kk][r] = sm.dbuf[(4 * kk + r) * 128 + ltid];
+    }
+    bpart::acc_panels<T, 2>(dk, da, rg, wg);  // dK += T(dS^T) Q
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const size_t row = (((size_t)b * a.Tkv + r0 + 8 * hr) * a.NKV + hk) * a.D + c0 + 128 * wg;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+      if (128 * wg + 8 * jj < nc) {
+        *reinterpret_cast<uint32_t*>(dk_out + row + 8 * jj + 2 * t) =
+            pack2_as<T>(dk[4 * jj + 2 * hr], dk[4 * jj + 2 * hr + 1]);
+        *reinterpret_cast<uint32_t*>(dv_out + row + 8 * jj + 2 * t) =
+            pack2_as<T>(dv[4 * jj + 2 * hr], dv[4 * jj + 2 * hr + 1]);
+      }
+  }
+}
+
+// [B][len][heads][D] as [B][heads][D / 64 panels][len][64 columns], read in
+// boxes of `panels` panels of 64 rows: one lands as [panel][row][128 B],
+// swizzled; rows past len read zeros within their batch row.
+template <typename T>
+bool view_panels(CUtensorMap* map, const void* ptr, int B, int len, int heads, int D, int panels) {
+  const uint64_t dims[5] = {64, (uint64_t)len, (uint64_t)D / 64, (uint64_t)heads, (uint64_t)B};
+  const uint64_t strides[4] = {(uint64_t)heads * D * 2, 128, (uint64_t)D * 2,
+                               (uint64_t)len * heads * D * 2};
+  const uint32_t box[5] = {64, 64, (uint32_t)panels, 1, 1};
+  return encode_nd(map, tma_type<T>(), ptr, 5, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The four operands in one-panel boxes (m[0..3]: q, do, k, v) and the
+// block's own two in whole-head boxes (m[4], m[5]: dQ's q and do, dK/dV's k
+// and v).
+template <typename T>
+bool part_maps(CUtensorMap* m, const fbwd_parts::Call& c, bool dq) {
+  const int P = c.D / 64;
+  return view_panels<T>(&m[0], c.q, c.B, c.Tq, c.NH, c.D, 1) &&
+         view_panels<T>(&m[1], c.dout, c.B, c.Tq, c.NH, c.D, 1) &&
+         view_panels<T>(&m[2], c.k, c.B, c.Tkv, c.NKV, c.D, 1) &&
+         view_panels<T>(&m[3], c.v, c.B, c.Tkv, c.NKV, c.D, 1) &&
+         (dq ? view_panels<T>(&m[4], c.q, c.B, c.Tq, c.NH, c.D, P) &&
+                   view_panels<T>(&m[5], c.dout, c.B, c.Tq, c.NH, c.D, P)
+             : view_panels<T>(&m[4], c.k, c.B, c.Tkv, c.NKV, c.D, P) &&
+                   view_panels<T>(&m[5], c.v, c.B, c.Tkv, c.NKV, c.D, P));
+}
+
+template <typename T, int OP, bool RES>
+int launch_dq_part(const fbwd_parts::Call& c, const fpart::PlanBwd& p) {
+  CUtensorMap m[6];
+  if (!part_maps<T>(m, c, true)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = flash_bwd_dq_part_kernel<T, OP, RES>;
+  static bool sized[64] = {};
+  if (const cudaError_t e = size_smem(kern, fpart::SMEM_LIMIT, sized)) return static_cast<int>(e);
+  const fpart::ArgsBwd a{c.Tq, tq64_of(c.Tq), c.Tkv, c.NH, c.NKV, c.D, c.sm_scale,
+                         c.kv_offset, c.causal, p};
+  const dim3 grid(c.NH * p.dq_parts, (c.Tq + 63) / 64, c.B);
+  kern<<<grid, bpart::THREADS, p.smem, c.stream>>>(m[0], m[1], m[2], m[3], m[4], m[5], c.lse2,
+                                                   c.delta, static_cast<T*>(c.dq), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool RES>
+int launch_dkv_part(const fbwd_parts::Call& c, const fpart::PlanBwd& p) {
+  CUtensorMap m[6];
+  if (!part_maps<T>(m, c, false)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = flash_bwd_dkv_part_kernel<T, RES>;
+  static bool sized[64] = {};
+  if (const cudaError_t e = size_smem(kern, fpart::SMEM_LIMIT, sized)) return static_cast<int>(e);
+  const fpart::ArgsBwd a{c.Tq, tq64_of(c.Tq), c.Tkv, c.NH, c.NKV, c.D, c.sm_scale,
+                         c.kv_offset, c.causal, p};
+  const dim3 grid(c.NKV * p.kv_parts, c.Tkv / 64, c.B);
+  kern<<<grid, bpart::THREADS, p.smem, c.stream>>>(m[0], m[1], m[2], m[3], m[4], m[5], c.lse2,
+                                                   c.delta, static_cast<T*>(c.dk),
+                                                   static_cast<T*>(c.dv), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dq_part(const fbwd_parts::Call& c) {
+  const fpart::PlanBwd p = fpart::plan_bwd(c.D);
+  if (fpart::bwd_op(c.D) == 3)
+    return p.res ? launch_dq_part<T, 3, true>(c, p) : launch_dq_part<T, 3, false>(c, p);
+  return p.res ? launch_dq_part<T, 4, true>(c, p) : launch_dq_part<T, 4, false>(c, p);
+}
+
+template <typename T>
+int dkv_part(const fbwd_parts::Call& c) {
+  const fpart::PlanBwd p = fpart::plan_bwd(c.D);
+  return p.res ? launch_dkv_part<T, true>(c, p) : launch_dkv_part<T, false>(c, p);
+}
+
+// Past D 256 (D % 64 == 0): the statistics, dK/dV, dQ.
+template <typename T>
+int by_plan(const fbwd_parts::Call& c, int (*dkv)(const fbwd_parts::Call&),
+            int (*dq)(const fbwd_parts::Call&)) {
+  if (const cudaError_t e = launch_stats<T, 0>(c)) return static_cast<int>(e);
+  if (const int e = dkv(c)) return e;
+  return dq(c);
+}
+
 template <typename T>
 int narrow(const fbwd_parts::Call& c) {
   if (c.D == 64) return launch<T, 64>(c);
@@ -861,6 +1412,18 @@ int fbwd_parts::run_bf16_wide(const Call& c) { return wide<__nv_bfloat16>(c); }
 #if IN_PART(4)
 int fbwd_parts::run_f16_wide(const Call& c) { return wide<__half>(c); }
 #endif
+#if IN_PART(5)
+int fbwd_parts::dkv_part_bf16(const Call& c) { return dkv_part<__nv_bfloat16>(c); }
+#endif
+#if IN_PART(6)
+int fbwd_parts::dkv_part_f16(const Call& c) { return dkv_part<__half>(c); }
+#endif
+#if IN_PART(7)
+int fbwd_parts::dq_part_bf16(const Call& c) { return dq_part<__nv_bfloat16>(c); }
+#endif
+#if IN_PART(8)
+int fbwd_parts::dq_part_f16(const Call& c) { return dq_part<__half>(c); }
+#endif
 
 #if IN_PART(0)
 
@@ -868,10 +1431,11 @@ int fbwd_parts::run_f16_wide(const Call& c) { return wide<__half>(c); }
 // (dtype: 1 bf16, 2 fp16), contiguous, with 16-byte-aligned bases (TMA); l,
 // m f32 [B, NH, Tq] (the forward's row sum and max); lse2, delta f32
 // scratch [B, NH, Tq64], Tq64 = Tq rounded up to 64. Needs D in {64, 128,
-// 192, 256}, Tkv % 64 == 0, NH % NKV == 0 and, when causal, kv_offset >= 0
-// (checked by the Python wrapper). Three launches on `stream`: the
-// statistics, dK/dV, dQ. Returns a cudaError_t (cudaErrorInvalidValue when
-// a TMA descriptor cannot be encoded, or D or dtype is not one of those).
+// 192, 256} or D % 64 == 0 past 256, Tkv % 64 == 0, NH % NKV == 0 and,
+// when causal, kv_offset >= 0 (checked by the Python wrapper). Three
+// launches on `stream`: the statistics, dK/dV, dQ. Returns a cudaError_t
+// (cudaErrorInvalidValue when a TMA descriptor cannot be encoded, or D or
+// dtype is not one of those).
 extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* o,
                          const void* dout, const void* l, const void* m, void* lse2, void* delta,
                          void* dq, void* dk, void* dv, int B, int Tq, int Tkv, int NH, int NKV,
@@ -900,9 +1464,15 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
                            kv_offset,
                            causal,
                            static_cast<cudaStream_t>(stream)};
+  if (dtype != 1 && dtype != 2) return static_cast<int>(cudaErrorInvalidValue);
+  const bool bf = dtype == 1;
+  if (D > 256) {
+    if (D % 64) return static_cast<int>(cudaErrorInvalidValue);
+    return bf ? by_plan<__nv_bfloat16>(c, fbwd_parts::dkv_part_bf16, fbwd_parts::dq_part_bf16)
+              : by_plan<__half>(c, fbwd_parts::dkv_part_f16, fbwd_parts::dq_part_f16);
+  }
   const bool wide_d = D == 192 || D == 256;
-  if (dtype == 1) return wide_d ? fbwd_parts::run_bf16_wide(c) : fbwd_parts::run_bf16(c);
-  if (dtype == 2) return wide_d ? fbwd_parts::run_f16_wide(c) : fbwd_parts::run_f16(c);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (bf) return wide_d ? fbwd_parts::run_bf16_wide(c) : fbwd_parts::run_bf16(c);
+  return wide_d ? fbwd_parts::run_f16_wide(c) : fbwd_parts::run_f16(c);
 }
 #endif  // IN_PART(0)

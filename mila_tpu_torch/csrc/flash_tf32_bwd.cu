@@ -60,7 +60,7 @@
 //     as B). The rows' lse2 and D stay in registers.
 // dP sums its RN k-slices of 8 (3 products each) on the tensor cores into a
 // zeroed tile, which is added to dP in f32 (round to nearest): the tensor
-// cores truncate their own sums (flash_sync.cuh: RN_STEPS).
+// cores truncate their own sums (ROADMAP §C.2).
 // p = 2^(s scale log2(e) - lse2): one FFMA and one ex2 a score, no divide.
 // Two calls are bit-equal: every sum is taken in a fixed order.
 //

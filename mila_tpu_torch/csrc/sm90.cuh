@@ -1,6 +1,6 @@
 // Hopper (sm_90a) helpers for kernels that stage tiles through the Tensor
-// Memory Accelerator and multiply them with warpgroup MMAs: mbarriers, 2-D,
-// 3-D and 4-D TMA loads, 1-D bulk copies, the proxy fence, wgmma shared-memory
+// Memory Accelerator and multiply them with warpgroup MMAs: mbarriers, 2-D to
+// 5-D TMA loads, 1-D bulk copies, the proxy fence, wgmma shared-memory
 // descriptors (128- and 64-byte swizzle), the bf16 and fp16 wgmma with f32
 // accumulators (m64n32k16, m64n64k16, m64n128k16 and m64n256k16 with both
 // operands in shared memory; m64n64k16 and m64n128k16 with A in registers;
@@ -109,6 +109,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(sm90_smem(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(sm90_smem(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// The box at (c0 inner, .., c4 outer) of a 5-D tensor map, as tma_load_2d.
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(sm90_smem(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(sm90_smem(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
       : "memory");
 }
 

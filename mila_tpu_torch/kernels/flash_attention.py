@@ -40,10 +40,10 @@ column part of O, up to 512 columns (``plan_wide``): its two warpgroups each for
 once and add P V into their own half of the part's columns (bf16 and fp16
 on 32- or 64-key tiles, f32 on 16-key tiles), Q resident in shared memory
 or, where it does not fit, streamed beside K. The backward takes the
-``wgmma`` kernels for bf16 and fp16 up to D 256, the tf32 ones for f32 at D
-64 and 128, and ``csrc/flash_sync_bwd.cu`` for the rest: f32 from D 192 on
-8-warp blocks that form S and dP once a tile on tf32 ``wgmma``, dP on split
-operands summed in f32, 16-bit past D 256 on ``mma.sync`` column parts.
+``wgmma`` kernels for bf16 and fp16 at every D (past 256 on column parts,
+``plan_bwd``), the tf32 ones for f32 at D 64 and 128, and
+``csrc/flash_sync_bwd.cu`` for f32 from D 192: 8-warp blocks that form S
+and dP once a tile on tf32 ``wgmma``, dP on split operands summed in f32.
 ``routes`` names the family of each pass.
 
 Semantics kept from the TPU kernel: the causal tile skip with
@@ -75,21 +75,19 @@ from mila_tpu_torch.ops.attention import causal_mask, dot_product_attention, fla
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _KV_TILE = 128  # Tkv's multiple: csrc/flash_fwd.cu's key tiles are 128 or 64 keys
 # The forward runs on TMA + wgmma at every D % 64 == 0: bf16 and fp16 on
-# csrc/flash_fwd.cu, f32 on tf32 wgmma (csrc/flash_tf32_fwd.cu). The
-# backward's wgmma kernels (csrc/flash_bwd.cu) take bf16 and fp16 up to D
-# 256, its tf32 ones (csrc/flash_tf32_bwd.cu) f32 up to D 128, where their
+# csrc/flash_fwd.cu, f32 on tf32 wgmma (csrc/flash_tf32_fwd.cu). So does the
+# backward of bf16 and fp16 (csrc/flash_bwd.cu, past D 256 on plan_bwd's
+# column parts) and of f32 up to D 128 (csrc/flash_tf32_bwd.cu), where its
 # resident f32 tiles (Q, dO hi and lo, or K, V hi and lo, 64 rows each) still
-# fit in shared memory; csrc/flash_sync_bwd.cu takes the rest.
-WGMMA_TYPES = (torch.bfloat16, torch.float16)
-WGMMA_BWD_DIMS = (64, 128, 192, 256)
+# fit in shared memory; csrc/flash_sync_bwd.cu takes f32 from D 192.
 TF32_BWD_DIMS = (64, 128)
 
 
 def routes(dtype: torch.dtype, D: int) -> tuple[str, str]:
     """The kernel families of a call's forward and backward on the card:
     "wgmma" (bf16, fp16: csrc/flash_fwd.cu, csrc/flash_bwd.cu), "tf32"
-    (f32: csrc/flash_tf32_fwd.cu, flash_tf32_bwd.cu) or, for the backward
-    alone, "sync" (csrc/flash_sync_bwd.cu). The backward reads the
+    (f32: csrc/flash_tf32_fwd.cu, flash_tf32_bwd.cu) or, for f32's backward
+    from D 192, "sync" (csrc/flash_sync_bwd.cu). The backward reads the
     forward's l and m, whichever family wrote them. Raises for a type none
     takes or a D the tiling gate refuses."""
     if dtype not in _build.DTYPE_CODES or D <= 0 or D % 64:
@@ -97,7 +95,7 @@ def routes(dtype: torch.dtype, D: int) -> tuple[str, str]:
                                   f"D % 64 == 0; got {dtype}, D {D}")
     if dtype == torch.float32:
         return "tf32", "tf32" if D in TF32_BWD_DIMS else "sync"
-    return "wgmma", "wgmma" if D in WGMMA_BWD_DIMS else "sync"
+    return "wgmma", "wgmma"
 
 
 # csrc/flash_part.cuh's constants: the forward past D 256.
@@ -146,6 +144,54 @@ def plan_wide(D: int, elem_bytes: int) -> dict:
     return {"dc": dc, "dcmax": dcmax, "parts": parts, "cols": cols, "bk": bk, "q_res": q_res,
             "chunk": chunk, "nk": nk, "nv": nv, "smem": nbytes(q, k_slot, nk, nv),
             "o_regs": o_regs}
+
+
+# csrc/flash_part.cuh's constants: the 16-bit backward past D 256.
+_BWD_SLOT, _BWD_STATS, _BWD_XCHG = 2 * 64 * 128, 2 * 64 * 4, 32 * 128 * 4 + 16 * 128 * 4
+_BWD_KV_DC, _BWD_MIN_RING, _BWD_MAX_RING = 256, 4, 8
+
+
+def plan_bwd(D: int) -> dict:
+    """The block plan of the bf16 and fp16 backward past D 256, as
+    ``csrc/flash_part.cuh: plan_bwd`` computes it: the column parts of dQ
+    (``dq_parts``: (first column, columns) each, the forward's parts) and
+    the columns each warpgroup owns (``dq_cols``, warpgroup 0 the larger
+    half in whole 64-column panels), the panels each warpgroup's dQ
+    products span (``dq_op``) and their f32 registers a thread
+    (``dq_regs``); the same for dK/dV (``kv_parts`` of 256 columns,
+    ``kv_cols``: 128 each, warpgroup 0 first; ``kv_regs``: dK's and dV's
+    registers a thread); ``res`` (the block's own operands resident in
+    shared memory, ``res_bytes``), the ring's jobs ``ring`` and the dynamic
+    shared memory ``smem`` of both kernels."""
+    if D <= 256 or D % 64:
+        raise ValueError(f"plan_bwd: D % 64 == 0 past 256; got D {D}")
+    fewer = -(-D // _WIDE_DC_LARGE) < -(-D // _WIDE_DC_SMALL)
+    dcmax = _WIDE_DC_LARGE if fewer else _WIDE_DC_SMALL  # dcmax_of
+    dq_dc = D if D <= _WIDE_DC_LARGE else dcmax  # dc_of
+    op = (dcmax // 64 + 1) // 2  # bwd_op
+    dq_parts, dq_cols, kv_parts, kv_cols = [], [], [], []
+    for c0 in range(0, D, dq_dc):
+        nc = min(dq_dc, D - c0)
+        half = 64 * ((nc // 64 + 1) // 2)
+        dq_parts.append((c0, nc))
+        dq_cols.append([(c0, half), (c0 + half, nc - half)])
+    for c0 in range(0, D, _BWD_KV_DC):
+        nc = min(_BWD_KV_DC, D - c0)
+        kv_parts.append((c0, nc))
+        half = min(nc, 128)
+        kv_cols.append([(c0, half), (c0 + half, nc - half)])
+    stage = _BWD_SLOT + _BWD_STATS + 16
+    fixed = _BWD_XCHG + 8 + 1024
+    res_bytes = 2 * 64 * D * 2
+    ring = (_WIDE_LIMIT - fixed - res_bytes) // stage
+    res = ring >= _BWD_MIN_RING
+    if not res:
+        res_bytes, ring = 0, (_WIDE_LIMIT - fixed) // stage
+    ring = min(ring, _BWD_MAX_RING)
+    return {"dq_parts": dq_parts, "dq_cols": dq_cols, "dq_op": op, "dq_regs": 32 * op,
+            "kv_parts": kv_parts, "kv_cols": kv_cols, "kv_regs": 2 * 128 * 64 // 128,
+            "res": res, "res_bytes": res_bytes, "ring": ring,
+            "smem": res_bytes + ring * stage + fixed}
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, scale: Optional[float] = None,

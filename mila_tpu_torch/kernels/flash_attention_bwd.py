@@ -19,12 +19,15 @@ differ in f32 order only.
 
 What bounds it on the H100: tensor-core operations (about 10 * D per
 visible pair and head) against q, k, v, o, do, dq, dk, dv moved once. The
-CUDA launch (``csrc/flash_bwd.cu``, bf16 and fp16 at D 64-256) is three
+CUDA launch (``csrc/flash_bwd.cu``, bf16 and fp16 at every D) is three
 kernels: the row statistics (D and lse = m + ln l, per row, in the kernel's
 own launch), a dK/dV pass per key block and KV head (at D 192 and 256 two
 warpgroups on the same keys, each on half of dK's and dV's columns) and a
-dQ pass per q tile and head, on TMA-fed ``wgmma``. One call counts as one
-launch.
+dQ pass per q tile and head, on TMA-fed ``wgmma``. Past D 256 both passes
+run on column parts (``flash_attention.plan_bwd``: dQ the forward's parts
+of up to 512 columns, dK/dV parts of 256), S and dP formed once a tile and
+part between the two warpgroups, a producer warp streaming the operands.
+One call counts as one launch.
 
 The entry keeps the JAX entry's head-major layout (q, o, do [B, NH, Tq,
 D], k, v [B, NKV, Tkv, D]), here as any views: the autograd Function passes
@@ -36,14 +39,12 @@ max). f32 at D 64 and 128 launches ``csrc/flash_tf32_bwd.cu`` (two prep
 launches write every operand once as tf32 ``wgmma`` reads it: rounded, dO
 and V also split into hi and lo for dP, Q, dO and K also transposed; then
 a dK/dV and a dQ kernel on TMA and tf32 ``wgmma``; one call, one count).
-The other types and head sizes (``flash_attention.routes``: f32 from D
-192, bf16 and fp16 past D 256) launch ``csrc/flash_sync_bwd.cu`` (a dQ
-kernel that also forms D, then a dK/dV kernel; one call, one count): bf16
-and fp16 on ``mma.sync`` blocks that own 128-column parts and stream
-64-column panels; f32 on blocks of 8 warps that own up to 512 columns (two
-parts at D 1024), form S and dP once a tile on ``wgmma``'s tf32 form and
-stage each operand once. Every f32 dP runs on split tf32 operands, summed
-in f32. A causal call with a
+f32 from D 192 (``flash_attention.routes``: "sync") launches
+``csrc/flash_sync_bwd.cu`` (a dQ kernel that also forms D, then a dK/dV
+kernel; one call, one count) on blocks of 8 warps that own up to 512
+columns (two parts at D 1024), form S and dP once a tile on ``wgmma``'s
+tf32 form and stage each operand once. Every f32 dP runs on split tf32
+operands, summed in f32. A causal call with a
 negative ``kv_offset`` (rows with no visible key) raises on the card, as
 the forward does.
 """

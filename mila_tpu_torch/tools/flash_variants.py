@@ -1,9 +1,10 @@
 """Check and time the flash-attention forward (``csrc/flash_fwd.cu``, or for
-f32 ``csrc/flash_tf32_fwd.cu``) and variants of it, on the GPU, at the
-shapes ``chip_smoke.py`` gives its rows.
+f32 ``csrc/flash_tf32_fwd.cu``) or, with ``--bwd``, the 16-bit backward
+(``csrc/flash_bwd.cu``), and variants of it, on the GPU, at the shapes
+``chip_smoke.py`` gives its rows.
 
     python -m mila_tpu_torch.tools.flash_variants [--variants committed ...]
-        [--source NAME=PATH ...] [--shapes ...] [--dtype bf16|fp16|f32]
+        [--source NAME=PATH ...] [--shapes ...] [--dtype bf16|fp16|f32] [--bwd]
 
 Each variant is a copy of the source (and its headers) with edits,
 compiled with the package's nvcc flags into ``csrc/build/``; its ptxas
@@ -21,7 +22,16 @@ f32 from D 320) run the column-part kernels: the ``part_*`` variants drop
 their parts, ``part_dc_large`` builds them for parts of 512 columns at
 every D (at D 576 and 640: 512 + 64 and 512 + 128 in place of 320 + 256 and
 320 + 320), and ``part_bk32`` gives 16-bit's 320-column parts 32-key
-tiles. Needs a CUDA device and nvcc.
+tiles. With ``--bwd`` the shapes are the backward's past D 256 (``bwd_*``,
+on the forward's statistics) and each line holds each variant's worst row
+error of dq, dk and dv against the plain version (each row's scale floored
+at 1e-3 of the tensor's max), its median ms per call
+(its three launches) and TFLOP/s (10 D per visible pair), beside SDPA's
+backward alone (``autograd.grad`` on one saved forward, events around 10
+calls); the ``bwd_*`` variants drop a phase of the dQ and dK/dV kernels or
+a whole kernel (``bwd_dkv_only``, ``bwd_dq_only``), or hand the consumers
+more registers (``bwd_setmaxnreg``: a producer warpgroup that gives its
+registers up, the consumers at 240 a thread). Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from mila_tpu_torch.ops import causal_mask
 
 SRC = "flash_fwd.cu"
 TF32_SRC = "flash_tf32_fwd.cu"  # --dtype f32 builds this source (entry flash_tf32_fwd)
+BWD_SRC = "flash_bwd.cu"  # --bwd builds this source (entry flash_bwd)
 VARIANTS = {  # name -> [(file, old text, new text)]
     "committed": [],
     # the two consumer warpgroups issue their products whenever they are
@@ -125,6 +136,34 @@ VARIANTS = {  # name -> [(file, old text, new text)]
     # 128-key tiles at D 128 too (S, O and P then exceed the registers)
     "bkv128": [(SRC, "BKV = D == 64 ? 128 : 64;", "BKV = 128;"),
                (SRC, "NT = D == 64 ? 3 : 4;", "NT = D == 64 ? 3 : 2;")],
+    # the backward past D 256 (flash_bwd_dq_part_kernel, flash_bwd_dkv_part_kernel):
+    # without S's and dP's products, without the accumulated ones (dQ, dK,
+    # dV), with neither (the loads, the hand-over and the element-wise work
+    # left; wrong results, times only), or one kernel alone (the other's
+    # outputs left as they are)
+    "bwd_no_s": [(BWD_SRC, "  for (int kk = 0; kk < 4; ++kk)\n    wgmma_m64n64k16<T, 0>(x,",
+                  "  for (int kk = 0; kk < 0; ++kk)\n    wgmma_m64n64k16<T, 0>(x,")],
+    "bwd_no_acc": [(BWD_SRC, "    for (int kk = 0; kk < 4; ++kk)\n      wgmma_m64n64k16_rs<T, 1>(",
+                    "    for (int kk = 0; kk < 0; ++kk)\n      wgmma_m64n64k16_rs<T, 1>(")],
+    "bwd_loads_only": [
+        (BWD_SRC, "  for (int kk = 0; kk < 4; ++kk)\n    wgmma_m64n64k16<T, 0>(x,",
+         "  for (int kk = 0; kk < 0; ++kk)\n    wgmma_m64n64k16<T, 0>(x,"),
+        (BWD_SRC, "    for (int kk = 0; kk < 4; ++kk)\n      wgmma_m64n64k16_rs<T, 1>(",
+         "    for (int kk = 0; kk < 0; ++kk)\n      wgmma_m64n64k16_rs<T, 1>(")],
+    "bwd_dkv_only": [(BWD_SRC, "  if (const int e = dkv(c)) return e;\n  return dq(c);",
+                      "  return dkv(c);")],
+    "bwd_dq_only": [(BWD_SRC, "  if (const int e = dkv(c)) return e;\n  return dq(c);",
+                     "  return dq(c);")],
+    # a producer warpgroup (384 threads) that lowers its registers to 24 a
+    # thread, the consumers raised to 240 (setmaxnreg)
+    "bwd_setmaxnreg": [
+        (BWD_SRC, "constexpr int THREADS = 288;", "constexpr int THREADS = 384;"),
+        (BWD_SRC, "// the producer warp: one thread issues every job\n",
+         "// the producer warp: one thread issues every job\n"
+         "    asm volatile(\"setmaxnreg.dec.sync.aligned.u32 24;\\n\" ::: \"memory\");\n"),
+        (BWD_SRC, "  bpart::Ring rg{sm, p.ring};\n",
+         "  asm volatile(\"setmaxnreg.inc.sync.aligned.u32 240;\\n\" ::: \"memory\");\n"
+         "  bpart::Ring rg{sm, p.ring};\n")],
 }
 # (B, Tq, Tkv, NH, NKV, D, statistics): chip_smoke's four primal rows and its
 # three statistics rows.
@@ -147,6 +186,12 @@ SHAPES = {
     # two column parts (flash_part.cuh: dc_of): 320 + 256 and 320 + 320
     "stats_D576_T2048": (1, 2048, 2048, 16, 8, 576, True),
     "stats_D640_T2048": (1, 2048, 2048, 16, 8, 640, True),
+    # --bwd: chip_smoke's backward rows past D 256, two dQ parts (D 576) and
+    # operands streamed (D 1024)
+    "bwd_D320_T2048": (1, 2048, 2048, 16, 8, 320, True),
+    "bwd_D512_T2048": (1, 2048, 2048, 16, 8, 512, True),
+    "bwd_D576_T2048": (1, 2048, 2048, 16, 8, 576, True),
+    "bwd_D1024_T2048": (1, 2048, 2048, 16, 8, 1024, True),
 }
 SCRATCH = {}  # variant -> its library's flash_tf32_fwd_scratch
 
@@ -176,7 +221,8 @@ def build(names, sources=None, src=SRC) -> dict:
                 texts[fname] = texts[fname].replace(old, new)
         for fname, text in texts.items():
             (vdir / fname).write_text(text)
-        entry = "flash_tf32_fwd" if 'extern "C" int flash_tf32_fwd(' in texts[src] else "flash_fwd"
+        entry = next(e for e in ("flash_tf32_fwd", "flash_bwd", "flash_fwd")
+                     if f'extern "C" int {e}(' in texts[src])
         procs[name] = (subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(vdir / "libflash.so"), str(vdir / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT), entry)
@@ -196,6 +242,8 @@ def build(names, sources=None, src=SRC) -> dict:
             lib.flash_tf32_fwd_scratch.argtypes = [ci] * 4
             lib.flash_tf32_fwd_scratch.restype = ctypes.c_longlong
             SCRATCH[name] = lib.flash_tf32_fwd_scratch
+        elif entry == "flash_bwd":
+            fn.argtypes = [vp] * 12 + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
         else:
             fn.argtypes = [vp] * 6 + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
         fn.restype = ci
@@ -218,11 +266,59 @@ def time_ms(fn, launches: int = 10, repeats: int = 5) -> float:
     return statistics.median(out)
 
 
-def row_err(got, want) -> float:
+def row_err(got, want, floor: float = 0.0) -> float:
+    """Worst row's max |got - want| over its max |want|, that scale floored at
+    ``floor`` x the tensor's max |want| (dq of query 0 under the causal
+    mask is exactly 0)."""
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         return float("inf")
-    return ((got - want).abs().amax(-1) / want.abs().amax(-1).clamp_min(1e-30)).max().item()
+    scale = want.abs().amax(-1).clamp_min(floor * want.abs().max().item() + 1e-30)
+    return ((got - want).abs().amax(-1) / scale).max().item()
+
+
+def main_bwd(libs, shapes, dtype, tag) -> None:
+    """Per ``bwd_*`` shape, one JSON line: every variant's dq, dk, dv row
+    errors and ms per call, and SDPA's backward alone."""
+    from mila_tpu_torch.kernels import flash_attention_bwd as fb
+
+    rng = np.random.default_rng(0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name in shapes:
+        B, Tq, Tkv, NH, NKV, D, _ = SHAPES[name]
+        q, k, v, do = (torch.from_numpy(rng.standard_normal((B, T, n, D)).astype(np.float32))
+                       .to("cuda", dtype) for T, n in ((Tq, NH), (Tkv, NKV), (Tkv, NKV), (Tq, NH)))
+        sm = D ** -0.5
+        o, l, m = fa.flash_attention_forward(q, k, v, causal=True, sm_scale=sm)
+        hm = [t.transpose(1, 2) for t in (q, k, v, o, do)]
+        want = fb.flash_attention_bwd_plain(*hm[:4], l, m, hm[4], causal=True, sm_scale=sm)
+        tq64 = -(-Tq // 64) * 64
+        lse2, delta = (torch.empty(B, NH, tq64, device="cuda") for _ in range(2))
+        outs = [torch.empty_like(t) for t in (q, k, v)]
+        pairs = B * NH * sum(min(Tkv, i + 1) for i in range(Tq))
+        row = {"shape": name, "dtype": tag, "card": torch.cuda.get_device_name(0)}
+        for vname, (fn, _) in libs.items():
+            def call(fn=fn, vname=vname):
+                rc = fn(*(_build.ptr(t) for t in (q, k, v, o, do, l, m, lse2, delta, *outs)),
+                        B, Tq, Tkv, NH, NKV, D, _build.DTYPE_CODES[dtype], sm, 0, 1,
+                        _build.stream_of(q))
+                if rc:
+                    raise RuntimeError(f"{vname}: CUDA error {rc}")
+            for t in outs:
+                t.fill_(float("nan"))
+            call()
+            torch.cuda.synchronize()
+            errs = {n: row_err(a, b.transpose(1, 2), floor=1e-3)
+                    for n, a, b in zip(("dq", "dk", "dv"), outs, want)}
+            ms = time_ms(call)
+            row[vname] = {**errs, "ms": ms, "tflops": 10 * D * pairs / (ms * 1e-3) / 1e12}
+        leaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+        s_out = sdpa(*leaves, is_causal=True, enable_gqa=NH != NKV)
+        dos = do.transpose(1, 2).contiguous()
+        row["sdpa_bwd_ms"] = time_ms(
+            lambda: torch.autograd.grad(s_out, leaves, dos, retain_graph=True))
+        print(json.dumps(row), flush=True)
+        del q, k, v, do, o, l, m, hm, want, outs, leaves, s_out, dos
 
 
 def main() -> None:
@@ -232,8 +328,18 @@ def main() -> None:
     ap.add_argument("--source", nargs="*", default=[], metavar="NAME=PATH",
                     help="a whole other flash_fwd.cu or flash_tf32_fwd.cu, timed as NAME")
     ap.add_argument("--dtype", default="bf16", choices=["bf16", "fp16", "f32"])
+    ap.add_argument("--bwd", action="store_true",
+                    help="the 16-bit backward past D 256 (csrc/flash_bwd.cu) and its variants")
     args = ap.parse_args()
     dtype = {"bf16": torch.bfloat16, "fp16": torch.float16, "f32": torch.float32}[args.dtype]
+    if args.bwd:
+        if dtype == torch.float32:
+            raise SystemExit("--bwd: the 16-bit backward (bf16 or fp16)")
+        shapes = [s for s in args.shapes if s.startswith("bwd_")]
+        variants = [v for v in args.variants if v == "committed" or v.startswith("bwd_")]
+        libs = build(variants, dict(s.split("=", 1) for s in args.source), BWD_SRC)
+        main_bwd(libs, shapes, dtype, args.dtype)
+        return
     libs = build(args.variants, dict(s.split("=", 1) for s in args.source),
                  TF32_SRC if dtype == torch.float32 else SRC)
     rng = np.random.default_rng(0)

@@ -88,16 +88,19 @@ def test_each_part_holds_code(name):
     ("flash_fwd", 3, "run_bf16_wide"), ("flash_fwd", 4, "run_f16_wide"),
     ("flash_fwd", 5, "run_bf16_part"), ("flash_fwd", 6, "run_f16_part"),
     ("flash_tf32_fwd", 3, "run_part"),
-    ("flash_sync_bwd", 1, "run_f32"), ("flash_sync_bwd", 2, "run_bf16"),
+    ("flash_sync_bwd", 1, "run_f32"), ("flash_bwd", 5, "dkv_part_bf16"),
+    ("flash_bwd", 6, "dkv_part_f16"), ("flash_bwd", 7, "dq_part_bf16"),
+    ("flash_bwd", 8, "dq_part_f16"),
     ("flash_tf32_bwd", 1, "run_d64"), ("flash_tf32_bwd", 2, "run_d128"),
 ])
 def test_flash_parts_split_the_instantiations(name, part, entry):
     # The flash sources' heavy instantiations compile in parts of their own:
     # the wgmma forward's D 192/256 kernels apart from D 64/128 per type and
     # its kernels past D 256 apart from both, the tf32 forward's past D 256, the
-    # f32 backward's split kernels apart from the 16-bit ones past D 256, the
-    # tf32 backward's D 64 apart from its D 128. Each entry is defined in
-    # the #if block of its part.
+    # f32 backward's split kernels apart from its C entry, the 16-bit
+    # backward's dK/dV and dQ kernels past D 256 apart from each other per
+    # type, the tf32 backward's D 64 apart from its D 128. Each entry is
+    # defined in the #if block of its part.
     text = (_build.CSRC / f"{name}.cu").read_text()
     block = re.search(rf"#if IN_PART\({part}\)\n(.*?)#endif", text, re.S)
     assert block is not None and f"::{entry}(const Call& c)" in block.group(1)

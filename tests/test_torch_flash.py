@@ -95,23 +95,23 @@ def test_flash_attention_wide_heads_match_jax(D, dt):
     (torch.float32, 256, ("tf32", "sync")),
     (torch.float32, 320, ("tf32", "sync")),
     (torch.float32, 512, ("tf32", "sync")),
-    (torch.bfloat16, 320, ("wgmma", "sync")),
+    (torch.bfloat16, 320, ("wgmma", "wgmma")),
     (torch.float32, 1024, ("tf32", "sync")),
     (torch.float32, 384, ("tf32", "sync")),
     (torch.float32, 576, ("tf32", "sync")),
-    (torch.bfloat16, 384, ("wgmma", "sync")),
-    (torch.bfloat16, 576, ("wgmma", "sync")),
-    (torch.bfloat16, 1024, ("wgmma", "sync")),
-    (torch.float16, 384, ("wgmma", "sync")),
-    (torch.float16, 576, ("wgmma", "sync")),
-    (torch.float16, 1024, ("wgmma", "sync")),
+    (torch.bfloat16, 384, ("wgmma", "wgmma")),
+    (torch.bfloat16, 576, ("wgmma", "wgmma")),
+    (torch.bfloat16, 1024, ("wgmma", "wgmma")),
+    (torch.float16, 384, ("wgmma", "wgmma")),
+    (torch.float16, 576, ("wgmma", "wgmma")),
+    (torch.float16, 1024, ("wgmma", "wgmma")),
 ])
 def test_routes_by_type_and_head_size(dtype, D, want):
     # The card's kernel family of the forward and of the backward: the
     # forward runs on wgmma at every D, bf16 and fp16 on the wgmma kernels,
     # f32 on the tf32 ones; the backward takes the wgmma kernels for bf16
-    # and fp16 up to D 256 and the tf32 ones for f32 up to 128, the mma.sync
-    # family the rest (f32's backward past D 128 on its 8-warp kernels).
+    # and fp16 at every D (past 256 on plan_bwd's column parts) and the tf32
+    # ones for f32 up to 128, f32's 8-warp "sync" kernels past it.
     assert tfa.routes(dtype, D) == want
 
 
@@ -150,6 +150,43 @@ def test_wide_forward_plan_at_timed_shapes(elem_bytes, D, want):
     # beside K.
     p = tfa.plan_wide(D, elem_bytes)
     assert (len(p["parts"]), p["bk"], p["q_res"], p["nk"], p["nv"]) == want
+
+
+@pytest.mark.parametrize("D", range(320, 1089, 64))
+def test_wide_backward_plan(D):
+    # csrc/flash_part.cuh's plan_bwd, through its Python mirror: the dQ
+    # parts and the dK/dV parts, with each part's two warpgroup halves, cover
+    # every column of the head exactly once in whole 64-column panels; both
+    # kernels' shared memory fits the H100's 232,448 bytes beside a ring of
+    # at least 4 jobs (every accumulating product's jobs at once); dK and dV
+    # take 128 f32 registers a thread, dQ at most 128.
+    p = tfa.plan_bwd(D)
+    for parts, cols, most in ((p["dq_parts"], p["dq_cols"], 512),
+                              (p["kv_parts"], p["kv_cols"], 256)):
+        owned = [c for part in cols for c0, n in part for c in range(c0, c0 + n)]
+        assert sorted(owned) == list(range(D))
+        for (c0, nc), ((a0, na), (b0, nb)) in zip(parts, cols):
+            assert 0 < nc <= most and a0 == c0 and b0 == c0 + na
+            assert na >= nb and na % 64 == 0 and nb % 64 == 0
+    assert all(na <= 64 * p["dq_op"] for (_, na), _ in p["dq_cols"])
+    assert p["smem"] <= 232448 and 4 <= p["ring"] <= 8
+    assert p["kv_regs"] <= 128 and p["dq_regs"] <= 128
+    assert p["res_bytes"] == (2 * 64 * D * 2 if p["res"] else 0)
+
+
+@pytest.mark.parametrize("D,want", [
+    (320, (1, 2, True, 7)),
+    (512, (1, 2, True, 4)),
+    (576, (2, 3, False, 8)),
+    (1024, (2, 4, False, 8)),
+    (1088, (3, 5, False, 8)),
+])
+def test_wide_backward_plan_at_timed_shapes(D, want):
+    # chip_smoke.py's rows (D 320 and 512) keep the block's own operands
+    # resident (Q and dO, or K and V) with four or more jobs in the ring;
+    # from D 576 they stream, and dQ takes two or three parts.
+    p = tfa.plan_bwd(D)
+    assert (len(p["dq_parts"]), len(p["kv_parts"]), p["res"], p["ring"]) == want
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.float64, 64), (torch.bfloat16, 96),

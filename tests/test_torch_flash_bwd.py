@@ -7,7 +7,7 @@ statistics (lanes-padded; we compare column 0), ``flash_attention_bwd`` for
 dq, dk, dv, and ``jax.grad`` through ``flash_attention``. The port's side
 runs its plain versions on CPU tensors (``flash_attention_plain`` with
 ``save_stats``, ``flash_attention_bwd_plain``), all keys in one pass.
-Causal and not, GQA (G 1, 2, 4), D 64, 128, 192, 256 and 320, a ``kv_offset``
+Causal and not, GQA (G 1, 2, 4), D 64, 128, 192, 256, 320 and 512, a ``kv_offset``
 window and several KV tiles of 128 keys on JAX's side; f32, bf16 and fp16.
 
 Tolerances: the same seeded inputs on both sides; f32 results differ by
@@ -54,9 +54,10 @@ CASES = [  # B, Tq, Tkv, NH, NKV, D, kv_offset, causal
     (1, 256, 256, 4, 2, 128, 0, True),  # D 128, G 2
     (1, 128, 512, 4, 2, 64, 384, True),  # kv_offset window over 4 KV tiles
     (2, 128, 256, 2, 1, 64, 0, False),  # not causal, Tq < Tkv
-    (1, 256, 256, 4, 2, 192, 0, True),  # D 192 and 256: the card's mma.sync family
+    (1, 256, 256, 4, 2, 192, 0, True),  # D 192 and 256: the card's two-warpgroup dK/dV
     (1, 128, 256, 2, 1, 256, 128, True),
     (1, 128, 256, 4, 2, 320, 128, True),  # past D 256: the card's column-part kernels
+    (1, 128, 128, 4, 2, 512, 0, True),  # chip_smoke.py's timed D 512, G 2
 ]
 
 

@@ -1714,15 +1714,10 @@ _SYNC_CASES = [  # (dtype, D, B, Tq, Tkv, NH, NKV, kv_offset, causal)
     (torch.float32, 128, 2, 256, 384, 8, 2, 128, True),
     (torch.float32, 192, 1, 208, 256, 4, 2, 48, True),  # a ragged q tile
     (torch.float32, 256, 2, 256, 256, 4, 1, 0, False),
-    # Past D 256 (the forward's column parts of up to 512 columns on wgmma,
-    # the 16-bit backward's 128-column parts on mma.sync: a partial last part
-    # of dQ at D 320, 128 + 128 + 64 columns), ragged q tiles, kv_offset
-    # windows, not causal, and f32 at D 1024 on a small T.
+    # Past D 256 (the forward's column parts of up to 512 columns on tf32
+    # wgmma), ragged q tiles, kv_offset windows, not causal, and D 1024 on a
+    # small T.
     (torch.float32, 320, 1, 256, 256, 4, 2, 0, True),
-    (torch.bfloat16, 320, 2, 208, 384, 4, 2, 176, True),
-    (torch.float16, 320, 1, 128, 512, 4, 1, 384, True),
-    (torch.bfloat16, 512, 1, 512, 512, 8, 2, 0, True),
-    (torch.float16, 512, 2, 256, 256, 4, 2, 0, False),
     (torch.float32, 512, 1, 208, 384, 4, 2, 176, True),
     (torch.float32, 1024, 1, 128, 128, 2, 1, 0, True),
     # f32 backward past D 256 (flash_sync_bwd.cu: split): ragged q tiles
@@ -1807,23 +1802,60 @@ def _sync_forward_then_backward(dtype, D, B, Tq, Tkv, NH, NKV, off, causal,
 
 
 # The forward runs on TMA + wgmma at every D: f32 on the tf32 family
-# (csrc/flash_tf32_fwd.cu), bf16 and fp16 on csrc/flash_fwd.cu. The tf32
-# backward takes f32 at D 64 and 128; the mma.sync family takes f32's
-# backward past D 128 and the 16-bit one past D 256.
+# (csrc/flash_tf32_fwd.cu), bf16 and fp16 on csrc/flash_fwd.cu. So does the
+# 16-bit backward (csrc/flash_bwd.cu) at every D; the tf32 backward takes f32
+# at D 64 and 128, the "sync" family (csrc/flash_sync_bwd.cu) f32's past 128.
 def _family(dtype, D):
-    f32 = dtype == torch.float32
-    return ("tf32" if f32 else "wgmma", "tf32" if f32 and D <= 128 else "sync")
+    if dtype != torch.float32:
+        return ("wgmma", "wgmma")
+    return ("tf32", "tf32" if D <= 128 else "sync")
 
 
 @pytest.mark.parametrize("dtype,D,B,Tq,Tkv,NH,NKV,off,causal", _SYNC_CASES)
 def test_flash_sync_kernels(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
     # Both ways, the forward with and without statistics: f32 at every D
-    # (the tf32 forward, its backward on the tf32 or mma.sync family), and
-    # bf16 and fp16 past D 256 (the wgmma forward, the mma.sync backward;
+    # (the tf32 forward, its backward on the tf32 or 8-warp "sync" family;
     # _family).
     from mila_tpu_torch.kernels import flash_attention as fa
 
     assert fa.routes(dtype, D) == _family(dtype, D)
+    _sync_forward_then_backward(dtype, D, B, Tq, Tkv, NH, NKV, off, causal, plain_entry=True)
+
+
+_WIDE_BWD_CASES = [  # (dtype, D, B, Tq, Tkv, NH, NKV, kv_offset, causal)
+    # The 16-bit backward past D 256 (csrc/flash_bwd.cu, plan_bwd): dK/dV
+    # parts of 256 columns with a partial last one (D 320: 256 + 64; D 384
+    # and 448: + 128, + 192), one dQ part to D 512, the block's own operands
+    # resident to D 512; ragged q tiles under kv_offset windows, G 1, 2 and
+    # 4, not causal.
+    (torch.bfloat16, 320, 2, 208, 384, 4, 2, 176, True),
+    (torch.float16, 320, 1, 128, 512, 4, 1, 384, True),
+    (torch.bfloat16, 512, 1, 512, 512, 8, 2, 0, True),
+    (torch.float16, 512, 2, 256, 256, 4, 2, 0, False),
+    (torch.bfloat16, 384, 1, 256, 256, 4, 4, 0, True),
+    (torch.float16, 384, 2, 208, 384, 8, 2, 176, True),
+    (torch.bfloat16, 448, 2, 80, 256, 4, 1, 176, True),
+    # two dQ parts (320 + 256), operands streamed
+    (torch.bfloat16, 576, 1, 128, 256, 4, 1, 128, True),
+    (torch.float16, 576, 2, 192, 256, 2, 2, 0, False),
+    # streamed, dQ parts of 512 (+ 64 at D 1088), dK/dV's last part 64 wide
+    (torch.bfloat16, 1024, 1, 208, 384, 4, 1, 176, True),
+    (torch.float16, 1024, 1, 128, 256, 4, 4, 0, False),
+    (torch.bfloat16, 1088, 1, 96, 256, 4, 2, 160, True),
+    (torch.float16, 1088, 1, 144, 256, 8, 2, 112, True),
+    # chip_smoke.py's rows
+    (torch.bfloat16, 320, 1, 2048, 2048, 16, 8, 0, True),
+    (torch.float16, 512, 1, 2048, 2048, 16, 8, 0, True),
+]
+
+
+@pytest.mark.parametrize("dtype,D,B,Tq,Tkv,NH,NKV,off,causal", _WIDE_BWD_CASES)
+def test_flash_wgmma_bwd_past_256(cuda, dtype, D, B, Tq, Tkv, NH, NKV, off, causal):
+    # bf16 and fp16 past D 256 both ways, the forward with and without
+    # statistics, the backward on TMA + wgmma (flash_bwd.cu's part kernels).
+    from mila_tpu_torch.kernels import flash_attention as fa
+
+    assert fa.routes(dtype, D) == ("wgmma", "wgmma")
     _sync_forward_then_backward(dtype, D, B, Tq, Tkv, NH, NKV, off, causal, plain_entry=True)
 
 
@@ -1922,8 +1954,9 @@ def test_flash_sync_graph_replay_and_determinism(cuda, dtype, D):
     # f32's tf32 family (its operand copies in scratch from the graph's
     # pool) at every D, bf16 and fp16 at D 320 on K10's wide kernel and at
     # D 512 and 576 on the part kernel (512- and 320-column parts; Q
-    # streamed at 16-bit D 1088 and f32 D 704 and 1024) before the mma.sync
-    # backward:
+    # streamed at 16-bit D 1088 and f32 D 704 and 1024), each before its
+    # backward (16-bit: flash_bwd.cu's part kernels, the operands streamed
+    # at D 576 and 1088):
     # two forward + backward calls on the same inputs are bit-equal (no
     # atomics), and a captured forward + backward replayed after q, k, v and
     # do change in place equals eager calls.
@@ -2030,19 +2063,33 @@ def test_flash_bwd_kernel_copies_an_unaligned_view(cuda):
         assert _row_err(a.transpose(1, 2), b.transpose(1, 2)) <= 2e-2
 
 
+@pytest.mark.parametrize("B,T,NH,NKV,D", [(2, 256, 4, 4, 64), (1, 256, 4, 2, 512)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-def test_flash_autograd_matches_plain_autograd(cuda, dtype):
-    # torch.autograd.grad through the kernels against autograd through the
-    # plain forward (PyTorch differentiating its einsums), GPT-2's head size.
+def test_flash_autograd_matches_plain_autograd(cuda, dtype, B, T, NH, NKV, D):
+    # torch.autograd.grad through the kernels against the same autograd
+    # Function on CPU copies (its plain forward and backward: JAX's custom
+    # VJP, D = rowsum(o dO) on the saved o in q's dtype), GPT-2's head size
+    # and D 512 with GQA (the backward's part kernels); at GPT-2's head size
+    # also against autograd through the plain forward (PyTorch
+    # differentiating its einsums, D from the unrounded output). Past D 256
+    # in bf16 those two references differ themselves, on the CPU, beyond the
+    # gate: query 1's dq row, whose dS = p (dP - D) cancels, by about 8.7e-2.
     from mila_tpu_torch.kernels import flash_attention as fa
 
-    q, k, v = (_rand((2, 256, 4, 64), s, dtype=dtype).requires_grad_() for s in (64, 65, 66))
-    w = _rand((2, 256, 4, 64), 67, dtype=dtype)
+    q = _rand((B, T, NH, D), 64, dtype=dtype).requires_grad_()
+    k, v = (_rand((B, T, NKV, D), s, dtype=dtype).requires_grad_() for s in (65, 66))
+    w = _rand((B, T, NH, D), 67, dtype=dtype)
     got = torch.autograd.grad((fa.flash_attention(q, k, v).float() * w.float()).sum(), (q, k, v))
-    want = torch.autograd.grad(
-        (fa.flash_attention_plain(q, k, v).float() * w.float()).sum(), (q, k, v))
-    for a, b in zip(got, want):
-        assert _row_err(a, b) <= 2e-2
+    leaves = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+    vjp = torch.autograd.grad((fa.flash_attention(*leaves).float() * w.cpu().float()).sum(),
+                              leaves)
+    for a, b in zip(got, vjp):
+        assert _row_err(a.cpu(), b) <= 2e-2
+    if D == 64:
+        want = torch.autograd.grad(
+            (fa.flash_attention_plain(q, k, v).float() * w.float()).sum(), (q, k, v))
+        for a, b in zip(got, want):
+            assert _row_err(a, b) <= 2e-2
 
 
 @pytest.mark.parametrize("n,dtype,master,scale", [
