@@ -340,11 +340,12 @@ def main() -> None:
         libs = build(variants, dict(s.split("=", 1) for s in args.source), BWD_SRC)
         main_bwd(libs, shapes, dtype, args.dtype)
         return
-    libs = build(args.variants, dict(s.split("=", 1) for s in args.source),
+    libs = build([v for v in args.variants if not v.startswith("bwd_")],
+                 dict(s.split("=", 1) for s in args.source),
                  TF32_SRC if dtype == torch.float32 else SRC)
     rng = np.random.default_rng(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for name in args.shapes:
+    for name in (s for s in args.shapes if not s.startswith("bwd_")):
         B, Tq, Tkv, NH, NKV, D, stats = SHAPES[name]
         off = Tkv - Tq
         q, k, v = (torch.from_numpy(rng.standard_normal((B, T, n, D)).astype(np.float32))
