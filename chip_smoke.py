@@ -188,10 +188,33 @@ exits non-zero without the final line):
            bit-equal); the archive's bytes, save and load seconds;
   data     host work: the native IO library loaded (built with g++ beside
            the kernels), native BPE == Python BPE, TokenReader over an
-           llm.c shard == numpy windows, an IDX round trip, CharReader.
+           llm.c shard == numpy windows, an IDX round trip, CharReader;
+  runtime  runtime/ and utils/profiling: get_device("auto") is cuda:0,
+           DeviceProps.query against torch.cuda.get_device_properties,
+           device_memory_stats after a GPT-2 124M Model build, a
+           profiling.trace of two of its train steps naming K12's and K13's
+           CUDA kernels, Timer.scope(sync=) within 10 % of CUDA events
+           (runtime_s);
+  examples the five programs of mila_tpu_torch/examples in-process
+           (runpy), one line each (gpt2_generate one a run) with its exit
+           code, seconds, printed markers, launch counts and rate:
+           gpt2_train at GPT-2 124M's widths (L 12, C 768, B 8, T 1024, 20
+           steps over llm.c shards of V 50257, validation, --quant-eval:
+           the loss falls by 1 nat), gpt2_generate on a GPT-2 124M llm.c
+           checkpoint (blocks x 3; 64 greedy tokens in bf16, int8, fp8 e4m3 and
+           speculatively with k 4; every token within the near-tie bound of
+           f32 logits on dequantized weights, teacher-forced; the first 16
+           ids equal those of the same run on the CPU but for near-ties),
+           mnist_train with its defaults (its 97.5 % gate), charlm_train on
+           the char_lm preset for 200 steps (perplexity and sample lines),
+           viz_demo --ppm-out (the file); then examples_s;
+  kernels examples  K1 at the shapes the examples give it: GPT-2 124M's
+           four projections at M 1 (bf16; int8, fp8 e4m3) and M 8192 (f32;
+           int8, fp8 e4m3, int4), each held to quant_linear_plain.
 Every phase's line carries at_s, the script's seconds so far (every
 kernel row too); kernels pairs, the GPT-2, speculative, MNIST, Llama
-training, CNN, resume and data phases also their own seconds (phase_s).
+training, CNN, resume, data and kernels examples phases also their own
+seconds (phase_s), runtime and examples theirs as runtime_s and examples_s.
 
 On every path (decode prefill, decode, decode fp8 prefill, decode fp8,
 giga prefill, giga, giga bf16 prefill, giga bf16, mega prefill, mega, mega
@@ -200,7 +223,9 @@ serve spec and its plain run, parity spec at k 3 and 4 and its bf16 k 4
 and plain runs, serve long, serve
 gpt2, parity gpt2, generate gpt2, train, evaluate, train and evaluate
 in fp16 and f32, train and evaluate llama, train mnist, train mnist rate,
-train cnn, train cnn rate, resume mnist, resume gpt2)
+train cnn, train cnn rate, resume mnist, resume gpt2, and each example:
+example gpt2_train, example gpt2_generate bf16 / int8 / fp8_e4m3 /
+speculative, example mnist_train, example charlm_train, example viz_demo)
 the launch counts are set to 0 just before it and must equal, just after
 it, the counts the path implies for all twenty entry points (0 for those
 it does not reach), and no plain version may run. Then the kernel summary line
@@ -212,6 +237,7 @@ library and mila_tpu_torch.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -219,6 +245,7 @@ import sys
 import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -529,12 +556,15 @@ def prefill_row(record, name, x, ws, wdtype=None) -> None:
     """quant_linear (the prefill GEMM, K1) over x for projection ``name``,
     cycling over the weights ``ws`` (one a layer); host_us_per_call: the
     wrapper's host time per call (checks, two TMA descriptors, the launch),
-    enqueued back to back. Library: ``matmul`` on the bf16 weight."""
+    enqueued back to back. Library: ``matmul`` on the weight dequantized to
+    x's dtype. Bytes: x read and the output written in x's dtype, the
+    weight and its scales as stored (int4 packed)."""
     from mila_tpu_torch.inference.quantize import dequantize
     from mila_tpu_torch.kernels import quant_matmul as qm
 
-    (M, K), N = x.shape, ws[0].q.shape[1]
-    w_bf = [dequantize(w, torch.bfloat16) for w in ws[:copies(K * N * 2, len(ws))]]
+    (M, K), N, xb = x.shape, ws[0].q.shape[1], x.element_size()
+    w_bf = [dequantize(w, x.dtype) for w in ws[:copies(K * N * xb, len(ws))]]
+    w_bytes = ws[0].q.numel() * ws[0].q.element_size() + ws[0].scale.numel() * 4
     got = qm.quant_linear(x, ws[0])
     want = qm.quant_linear_plain(x, ws[0])
     torch.cuda.synchronize()
@@ -547,7 +577,7 @@ def prefill_row(record, name, x, ws, wdtype=None) -> None:
            [lambda w=w: qm.quant_linear(x, w) for w in ws],
            lambda: qm.quant_linear_plain(x, ws[0]),
            [lambda w=w: torch.matmul(x, w) for w in w_bf],
-           M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * K * N, host_us_per_call=host_us,
+           M * K * xb + w_bytes + M * N * xb, 2 * M * K * N, host_us_per_call=host_us,
            wdtype=wdtype)
 
 
@@ -3728,6 +3758,445 @@ def phase_data(rng, tmp: str):
                     "IDX round trip; CharReader windows shifted by one"}
 
 
+def phase_runtime(rng, tmp: str):
+    """runtime/ and utils/profiling on the card: get_device("auto") and the
+    default context are cuda:0; DeviceProps.query agrees with
+    torch.cuda.get_device_properties; device_memory_stats counts the bytes
+    of a GPT-2 124M Model build (bf16 params, f32 SR masters, flash); a
+    profiling.trace around two of its train steps writes a Chrome trace
+    naming K12's and K13's CUDA kernels (adamw_step_kernel, ce_fwd_kernel,
+    ce_bwd_kernel); Timer.scope with sync= times two steps within 10 % of
+    CUDA events around them (twice)."""
+    from mila_tpu_torch.data.loader import ArrayReader
+    from mila_tpu_torch.models.gpt2 import GPT2
+    from mila_tpu_torch.models.model import Model, ModelConfig
+    from mila_tpu_torch.runtime import (DeviceProps, default_context, device_memory_stats,
+                                        get_device, set_default_context, tree_nbytes)
+    from mila_tpu_torch.utils.profiling import Timer, trace
+
+    set_default_context(None)
+    dev = get_device("auto")
+    if dev != torch.device("cuda", 0) or default_context().device != dev:
+        raise AssertionError(f"runtime: get_device('auto') is {dev}, not cuda:0")
+    props, want = DeviceProps.query(dev), torch.cuda.get_device_properties(0)
+    got = (props.platform, props.kind, props.memory_bytes, props.num_cores,
+           props.compute_capability)
+    if got != ("gpu", want.name, want.total_memory, want.multi_processor_count,
+               (want.major, want.minor)):
+        raise AssertionError(f"runtime: DeviceProps {props} disagrees with {want}")
+    before = device_memory_stats(dev)["bytes_in_use"]
+    cfg = gpt2_config()
+    B, T = 8, 1024
+    model = Model(GPT2(cfg), train_optimizer(), ModelConfig(epochs=1, verbose=False,
+                                                           prefetch_depth=0))
+    model.build(torch.Generator(device="cuda").manual_seed(50), (B, T))
+    torch.cuda.synchronize()
+    stats = device_memory_stats(dev)
+    built = tree_nbytes([model.params, model.opt_state.m, model.opt_state.v,
+                         model.opt_state.master])
+    if not (stats["allocated_bytes.all.current"] > 0
+            and stats["bytes_in_use"] - before >= built):
+        raise AssertionError(f"runtime: device_memory_stats counts {stats['bytes_in_use']} "
+                             f"bytes in use, {before} before a build of {built}")
+    base = rng.integers(0, cfg.vocab_size, (4, T + 1)).astype(np.int32)
+    data = base[rng.integers(0, 4, 2 * B)]
+    reader = ArrayReader(data[:, :-1], data[:, 1:], B, seed=0)
+    model.train(reader)  # warm
+    trace_dir = Path(tmp) / "trace"
+    with trace(str(trace_dir)):
+        model.train(reader)
+        torch.cuda.synchronize()
+    files = sorted(trace_dir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"runtime: trace wrote {len(files)} files")
+    names = {e.get("name", "") for e in json.loads(files[0].read_text())["traceEvents"]}
+    kernels = {k: sum(k in n for n in names) for k in ("adamw_step_kernel", "ce_fwd_kernel",
+                                                       "ce_bwd_kernel")}
+    if not all(kernels.values()):
+        raise AssertionError(f"runtime: the trace's kernels miss K12 or K13: {kernels}")
+    timer, rel = Timer(), []
+    for i in range(2):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        with timer.scope(f"two steps {i}", sync=dev):
+            model.train(reader)
+        b.record()
+        b.synchronize()
+        ev = a.elapsed_time(b) / 1e3
+        rel.append((timer.totals[f"two steps {i}"] - ev) / ev)
+    if max(abs(r) for r in rel) > 0.1:
+        raise AssertionError(f"runtime: Timer.scope and CUDA events differ by {rel}")
+    out = {"device": str(dev), "props": dataclasses.asdict(props),
+           "bytes_in_use_after_build": stats["bytes_in_use"], "built_tree_bytes": built,
+           "trace_bytes": files[0].stat().st_size, "trace_event_names": len(names),
+           "trace_kernels": kernels, "timer_ms": [1e3 * timer.totals[f"two steps {i}"]
+                                                  for i in range(2)],
+           "timer_vs_events": rel}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+EXAMPLES_DIR = Path(__file__).resolve().parent / "mila_tpu_torch" / "examples"
+
+
+def run_example(name: str, argv: list, path=None, expected=None, cwd=None) -> dict:
+    """mila_tpu_torch/examples/<name>.py's main() in-process (runpy, as
+    tests/examples/test_examples_smoke.py runs JAX's), its stdout and its
+    Logger lines captured; under run_counted(path, ..., expected) where
+    ``path`` is given (its launch counts; no plain version may run). Fails
+    unless the example exits 0. Returns its code, seconds, output, log
+    lines and counts."""
+    import contextlib
+    import io
+    import os
+    import runpy
+
+    from mila_tpu_torch.utils.logging import Logger
+
+    script = EXAMPLES_DIR / f"{name}.py"
+    logs, buf = [], io.StringIO()
+
+    def body():
+        old_argv, old_cwd = sys.argv, os.getcwd()
+        sys.argv = [str(script), *argv]
+        Logger.set_backend(lambda level, msg: logs.append(msg))
+        try:
+            if cwd:
+                os.chdir(cwd)
+            with contextlib.redirect_stdout(buf):
+                runpy.run_path(str(script), run_name="__main__")
+            return 0
+        except SystemExit as e:
+            return int(e.code or 0)
+        finally:
+            sys.argv = old_argv
+            os.chdir(old_cwd)
+            Logger.set_backend(None)
+
+    t0 = time.monotonic()
+    if path is None:
+        code, counts = body(), None
+    else:
+        code, counts = run_counted(path, body, expected)
+    wall = time.monotonic() - t0
+    if code != 0:
+        raise AssertionError(f"{path or name}: exited {code}\n{buf.getvalue()}\n" +
+                             "\n".join(logs))
+    return {"code": code, "wall_s": wall, "out": buf.getvalue(), "logs": logs,
+            "counts": counts}
+
+
+def example_line(card: str, label: str, run: dict, markers: dict, **extra) -> dict:
+    """The phase's record of one example (``label``), printed at once: exit
+    code, seconds, each marker found (all must be), launch counts."""
+    missing = [m for m, ok in markers.items() if not ok]
+    if missing:
+        raise AssertionError(f"{label} lacks its markers {missing}:\n{run['out']}")
+    line = {"code": run["code"], "wall_s": run["wall_s"], "markers": sorted(markers),
+            "launches": run["counts"], "plain_ran": False, **extra}
+    emit({"phase": "examples", "card": card, "example": label, **line})
+    return line
+
+
+def example_gpt2_train(rng, tmp: str, card: str) -> tuple[dict, dict]:
+    """gpt2_train at GPT-2 124M's widths (f32 params; T 1024 is under
+    FLASH_MIN_SEQ, so attention takes the plain product as JAX's example
+    does) over llm.c shards written here: a stream of 4 fixed 1025-token
+    sequences over the GPT-2 vocabulary, each ending in 50256 (so V 50257),
+    20 steps, validation at steps 0 and 10 (4 batches), --quant-eval (int8,
+    fp8 e4m3, int4: 8 batches each, bf16 params and quantized). Launches:
+    per step the CE forward and backward, fused_adamw_step (one dtype
+    group) and grad_clip_scale once; the CE forward once a validation or
+    evaluation batch; quant_linear on the 4 projections of each layer per
+    quantized batch (int4 at M 8192 is unpacked to int8 rows, as JAX's
+    gate sends it). The loss must fall by 1 nat from step 0."""
+    from mila_tpu_torch.data import write_token_file
+
+    L, B, T, steps, val_every = 12, 8, 1024, 20, 10
+    seqs = rng.integers(0, 50256, (4, T)).astype(np.int64)
+    seqs = np.concatenate([seqs, np.full((4, 1), 50256)], axis=1)
+    d = Path(tmp) / "shards"
+    d.mkdir()
+    write_token_file(d / "train_000.bin", seqs[rng.integers(0, 4, 200)].reshape(-1))
+    write_token_file(d / "val_000.bin", seqs[rng.integers(0, 4, 72)].reshape(-1))
+    val_batches = 4 * len(range(0, steps, val_every))
+    quant_batches = 3 * 8
+    expected = {"fused_softmax_cross_entropy": steps + val_batches + 2 * quant_batches,
+                "fused_softmax_cross_entropy_bwd": steps, "fused_adamw_step": steps,
+                "grad_clip_scale": steps, "quant_linear": 4 * L * quant_batches}
+    run = run_example("gpt2_train", [
+        "--shards", str(d / "train_*.bin"), "--val-shards", str(d / "val_*.bin"),
+        "--layers", str(L), "--dim", "768", "--heads", "12", "--seq-len", str(T),
+        "--batch-size", str(B), "--steps", str(steps), "--val-every", str(val_every),
+        "--quant-eval"], "example gpt2_train", expected)
+    first = next(float(m.split("train_loss=")[1].split()[0]) for m in run["logs"]
+                 if m.startswith("step 0:"))
+    last = float(run["out"].split("final train loss ")[1].split()[0])
+    gates = [ln for ln in run["out"].splitlines() if ln.startswith("quantization gate [")]
+    if not last <= first - 1.0:
+        raise AssertionError(f"example gpt2_train: loss {first} -> {last}, not 1 nat lower")
+    tok_s = float(run["out"].split("steps, ")[1].split(" tokens/sec")[0].replace(",", ""))
+    markers = {"vocab 50257": any("vocab 50257" in m for m in run["logs"]),
+               "final train loss": True, **{f"quantization gate [{q}]": any(
+                   g.startswith(f"quantization gate [{q}]") for g in gates)
+                   for q in ("int8", "fp8_e4m3", "int4")}}
+    return run["counts"], example_line(card, "gpt2_train", run, markers, first_loss=first,
+                                       final_loss=last, tokens_per_s=tok_s,
+                                       quantization_gates=gates)
+
+
+GENERATE_RUNS = {"bf16": [], "int8": ["--quantize", "int8"],
+                 "fp8_e4m3": ["--quantize", "fp8_e4m3"], "speculative": ["--speculative-k", "4"]}
+GENERATE_NEW = 64  # tokens a card run generates
+GENERATE_CPU_NEW = 16  # tokens the CPU run of the same example generates
+# The block weights' scale of gpt2_generate's checkpoint: GPT2.init's own
+# draw gives near-constant greedy streams (9-15 distinct tokens in 64); x 3
+# gives 34-48, each token within ERR_TOL's bound on the card and on the CPU
+# (mila_tpu_torch/tools/generate_gaps.py). At x 4 bf16 arithmetic itself,
+# the CPU's plain path too, goes past the bound.
+GENERATE_BLOCK_SCALE = 3.0
+
+
+def generate_argv(path: str, extra: list, new: int = GENERATE_NEW) -> list:
+    return ["--checkpoint", path, "--tokens", str(new), "--temperature", "0", *extra]
+
+
+def write_gpt2_124m(tmp: str, wte_scale: float = 1.0, block_scale: float = 1.0) -> str:
+    """A GPT-2 124M llm.c checkpoint of seeded random weights
+    (write_gpt2_checkpoint), for gpt2_generate: GPT2.init's draw, the
+    token embedding (the tied head) times ``wte_scale`` and every block's
+    projection weights times ``block_scale``."""
+    import os
+
+    from mila_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from mila_tpu_torch.serialization import write_gpt2_checkpoint
+
+    cfg = GPT2Config.gpt2_124m()
+    path = os.path.join(tmp, f"gpt2_124M_{wte_scale:g}_{block_scale:g}.bin")
+    params = GPT2(cfg).init(torch.Generator(device="cuda").manual_seed(51), (1, 32))
+    params["encoder"]["wte"] *= wte_scale
+    for i in range(cfg.num_layers):
+        for _, keys in GPT2_PROJECTIONS:
+            leaf = params[f"h{i}"]
+            for k in keys:
+                leaf = leaf[k]
+            leaf["weight"] *= block_scale
+    write_gpt2_checkpoint(path, cfg, params)
+    return path
+
+
+def dequantized_f32(tree):
+    """A params tree in f32, each QTensor dequantized: a forward over it
+    multiplies with plain f32 products and launches no kernel."""
+    from mila_tpu_torch.inference.quantize import QTensor, dequantize
+
+    if isinstance(tree, dict):
+        return {k: dequantized_f32(v) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return dequantize(tree, torch.float32)
+    return tree.float() if isinstance(tree, torch.Tensor) else tree
+
+
+def teacher_forced(prompt: np.ndarray, ids: list, oracle, tol: float = ERR_TOL) -> dict:
+    """Every token of greedy stream ``ids`` after ``prompt`` against the f32
+    logits of one ``oracle`` forward over prompt + ids, teacher-forced on
+    the stream's own prefixes: each token's gap below the largest logit
+    over tol x max |logit| (a near-tie bound; at most 1 passes). Returns the
+    tokens checked, how many were not the oracle's argmax, the largest
+    ratio with its position, and the largest |logit|."""
+    T0 = len(prompt)
+    lg = oracle(np.concatenate([prompt, np.asarray(ids, np.int32)])).float()
+    lg = lg[T0 - 1:T0 - 1 + len(ids)]
+    top = lg.max(-1).values
+    chosen = lg.gather(-1, torch.tensor(ids, device=lg.device)[:, None])[:, 0]
+    over = ((top - chosen) / (tol * lg.abs().amax(-1))).cpu()
+    at = int(over.argmax())
+    return {"tokens_checked": len(ids), "not_argmax": int((top > chosen).sum()),
+            "max_gap_over_tol": float(over[at]), "at": at,
+            "max_abs_logit": float(lg.abs().max())}
+
+
+def example_gpt2_generate(path: str, card: str, cpu_new: int = GENERATE_CPU_NEW,
+                          gate: bool = True) -> tuple[dict, dict]:
+    """gpt2_generate on GPT-2 124M from the llm.c checkpoint at ``path``
+    (write_gpt2_124m: phase_examples scales its blocks by
+    GENERATE_BLOCK_SCALE), 64 greedy tokens after 50256: bf16, --quantize int8,
+    --quantize fp8_e4m3 (quant_linear on the 4 projections of each layer at
+    the prefill and each of the 63 decode steps; the tied head and the
+    contiguous cache's attention are plain, as in JAX's example) and
+    --speculative-k 4 (bf16, a random 1-layer draft). Then the same runs
+    in this process on a CPU context for ``cpu_new`` tokens, through every
+    kernel's plain version. The oracle: the run's weights dequantized to
+    f32 on the card, f32 products and attention, no kernel. Gates: every
+    token of each card stream within ERR_TOL x max |logit| of the oracle's
+    largest logit, teacher-forced (teacher_forced); the card's first
+    ``cpu_new`` ids equal the CPU's or split only at a near-tie
+    (check_streams). The CPU stream's own reading against the oracle
+    (``cpu``) is the witness of what bf16 arithmetic does apart from the
+    card. ``gate`` False records the readings and raises on none."""
+    from mila_tpu_torch.inference.quantize import quantize_model_params
+    from mila_tpu_torch.models.gpt2 import GPT2
+    from mila_tpu_torch.runtime import ExecutionContext, default_context, set_default_context
+    from mila_tpu_torch.serialization import read_gpt2_checkpoint, to_device_tree
+
+    cfg, raw = read_gpt2_checkpoint(path)
+    model, L, NEW = GPT2(cfg), cfg.num_layers, GENERATE_NEW
+    prompt = np.array([50256], np.int32)
+    runs, cpu = {}, {}
+    for tag, extra in GENERATE_RUNS.items():
+        expected = {"quant_linear": 4 * L * NEW} if tag in ("int8", "fp8_e4m3") else {}
+        runs[tag] = run_example("gpt2_generate", generate_argv(path, extra),
+                                f"example gpt2_generate {tag}", expected)
+    context = default_context()
+    set_default_context(ExecutionContext("cpu"))
+    try:
+        for tag, extra in GENERATE_RUNS.items():
+            cpu[tag] = run_example("gpt2_generate", generate_argv(path, extra, cpu_new))
+    finally:
+        set_default_context(context)
+    all_counts, lines, over = {}, {}, {}
+    for tag, run in runs.items():
+        ids, cpu_ids = [json.loads(r["out"].split("token ids: ")[1].splitlines()[0])[1:]
+                        for r in (run, cpu[tag])]
+        params = to_device_tree(raw, dtype=torch.bfloat16)
+        if tag in ("int8", "fp8_e4m3"):
+            params = quantize_model_params(params, tag)
+        p32 = dequantized_f32(params)
+        del params
+
+        def oracle(seq):
+            with torch.no_grad():
+                return model.apply(p32, torch.from_numpy(seq)[None].cuda())[0, :, :cfg.vocab_size]
+
+        label = f"example gpt2_generate {tag}"
+        card_tf, cpu_tf = (teacher_forced(prompt, s, oracle) for s in (ids, cpu_ids))
+        over[tag] = card_tf["max_gap_over_tol"]
+        streams = check_streams(label, [prompt], [ids[:cpu_new]], [cpu_ids], oracle,
+                                tol=ERR_TOL if gate else float("inf"))
+        tok_s = float(run["out"].split("tokens in ")[1].split("(")[1].split(" tok/s")[0])
+        markers = {"token ids:": True, f"generated {NEW} tokens": f"generated {NEW} tokens"
+                   in run["out"]}
+        if tag == "speculative":
+            markers["speculative acceptance"] = "speculative acceptance" in run["out"]
+        all_counts[label] = run["counts"]
+        lines[tag] = example_line(card, f"gpt2_generate {tag}", run, markers,
+                                  tokens_per_s=tok_s, cpu_wall_s=cpu[tag]["wall_s"],
+                                  distinct_tokens=len(set(ids)), teacher_forced=card_tf,
+                                  cpu={"tokens": cpu_new, **cpu_tf}, **streams)
+        del p32
+    bad = {tag: o for tag, o in over.items() if o > 1}
+    if gate and bad:
+        raise AssertionError(f"example gpt2_generate: a token past the near-tie bound "
+                             f"(gap over bound, by run): {bad}")
+    return all_counts, lines
+
+
+# GPT-2 124M's four projections in a block's params (name, path).
+GPT2_PROJECTIONS = (("c_attn", ("qkv",)), ("attn c_proj", ("proj",)),
+                    ("c_fc", ("mlp", "fc1")), ("mlp c_proj", ("mlp", "fc2")))
+
+
+def phase_examples_k1(bw, peak_ops, rng) -> list:
+    """K1 (quant_linear) rows at the shapes the examples give it: GPT-2
+    124M's four projections (768 x 2304, 768 x 768, 768 x 3072, 3072 x
+    768), GPT2.init's weights quantized by quantize_model_params as the
+    examples quantize them, one weight a layer. M 1 on bf16 activations,
+    int8 and fp8 e4m3: gpt2_generate --quantize (its one-token prefill and
+    every decode step). M 8192 on f32 activations, int8, fp8 e4m3 and int4
+    (which the wrapper unpacks to int8 rows, as JAX's gate sends M 8192):
+    gpt2_train --quant-eval's 8 x 1024 batches on f32 params. Each row held
+    to quant_linear_plain on the same inputs under ERR_TOL."""
+    from mila_tpu_torch.inference.quantize import quantize_model_params
+    from mila_tpu_torch.models.gpt2 import GPT2, GPT2Config
+
+    cfg = GPT2Config.gpt2_124m()
+    dense = GPT2(cfg).init(torch.Generator(device="cuda").manual_seed(62), (1, 32))
+    rows = []
+    record = recorder(rows, bw, peak_ops)
+    for wdtype, M, dtype in (("int8", 1, torch.bfloat16), ("fp8_e4m3", 1, torch.bfloat16),
+                             ("int8", 8192, torch.float32), ("fp8_e4m3", 8192, torch.float32),
+                             ("int4", 8192, torch.float32)):
+        q = quantize_model_params(dense, wdtype)
+        for name, keys in GPT2_PROJECTIONS:
+            ws = []
+            for i in range(cfg.num_layers):
+                leaf = q[f"h{i}"]
+                for k in keys:
+                    leaf = leaf[k]
+                ws.append(leaf["weight"])
+            K = ws[0].packed_rows or ws[0].q.shape[0]
+            x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).cuda()
+            prefill_row(record, f"gpt2 {name}", x.to(dtype), ws, wdtype)
+        del q
+    return rows
+
+
+def phase_examples(rng, tmp: str, card: str):
+    """The five example programs of mila_tpu_torch/examples on the card,
+    in-process, each under its launch counts: gpt2_train at GPT-2 124M's
+    widths (example_gpt2_train), mnist_train with its defaults
+    (784-128-64-10, synthetic 12000, 5 epochs of batch 128: its exit code
+    is its 97.5 % gate), charlm_train on the char_lm preset for 200 steps
+    over a corpus written here (the perplexity and sample lines), viz_demo
+    with --ppm-out (the file), and gpt2_generate at GPT-2 124M
+    (example_gpt2_generate). Per step of the trainers: the CE
+    forward and backward and fused_adamw_step once, grad_clip_scale where
+    the example clips (charlm, gpt2_train)."""
+    from mila_tpu_torch.data import MnistReader
+
+    counts, out = {}, {}
+    counts["example gpt2_train"], out["gpt2_train"] = example_gpt2_train(rng, tmp, card)
+
+    steps = 5 * MnistReader(batch_size=128, split="train", synthetic_n=12000,
+                            seed=42).num_batches
+    run = run_example("mnist_train", [], "example mnist_train",
+                      {k: v * steps for k, v in MNIST_STEP.items()})
+    acc = float(run["out"].split("final test accuracy: ")[1].split("%")[0])
+    sps = float(run["out"].split("training throughput: ")[1].split(" samples")[0]
+                .replace(",", ""))
+    counts["example mnist_train"] = run["counts"]
+    out["mnist_train"] = example_line(
+        card, "mnist_train", run, {"final test accuracy": True, "training throughput": True},
+        accuracy_pct=acc, steps=steps, samples_per_s=sps)
+
+    words = ["ROMEO:", "JULIET:", "the", "love", "night", "thou", "art", "sweet", "and",
+             "my", "lord", "fair", "day", "o", "speak", "again", "\n"]
+    corpus = Path(tmp) / "charlm" / "data" / "tinyshakespeare"
+    corpus.mkdir(parents=True)
+    (corpus / "input.txt").write_text(
+        " ".join(words[i] for i in rng.integers(0, len(words), 60_000)))
+    steps = 200
+    run = run_example("charlm_train", ["--steps", str(steps)], "example charlm_train",
+                      {"fused_softmax_cross_entropy": steps,
+                       "fused_softmax_cross_entropy_bwd": steps,
+                       "fused_adamw_step": steps, "grad_clip_scale": steps},
+                      cwd=Path(tmp) / "charlm")
+    ppl = float(run["out"].split("char perplexity ")[1].split()[0])
+    tok_s = float(run["out"].split("throughput: ")[1].split(" tokens")[0].replace(",", ""))
+    counts["example charlm_train"] = run["counts"]
+    out["charlm_train"] = example_line(
+        card, "charlm_train", run, {"perplexity": "perplexity" in run["out"],
+                                    "sample": "--- sample ---\nROMEO:" in run["out"]},
+        char_perplexity=ppl, tokens_per_s=tok_s)
+
+    ppm = Path(tmp) / "w.ppm"
+    steps = 3 * MnistReader(batch_size=128, synthetic_n=2048).num_batches
+    run = run_example("viz_demo", ["--ppm-out", str(ppm)], "example viz_demo",
+                      {k: v * steps for k, v in MNIST_STEP.items()})
+    counts["example viz_demo"] = run["counts"]
+    out["viz_demo"] = example_line(
+        card, "viz_demo", run,
+        {f"wrote {ppm}": f"wrote {ppm}" in run["out"],
+         "ppm": ppm.exists() and ppm.read_bytes().startswith(b"P6 512 256 255\n")},
+        ppm_bytes=ppm.stat().st_size)
+
+    c, out["gpt2_generate"] = example_gpt2_generate(
+        write_gpt2_124m(tmp, block_scale=GENERATE_BLOCK_SCALE), card)
+    counts.update(c)
+    return counts, out
+
+
 SOURCES = {
     "quant_linear": ("mila_tpu_torch/csrc/qmm_int8.cu",
                      "mila_tpu/kernels/quant_matmul.py:74 (_qmm_kernel)"),
@@ -4031,7 +4500,22 @@ def main() -> int:
         t_ph = time.monotonic()
         data = phase_data(np.random.default_rng(42), tmp)
         emit({"phase": "data", "card": card, **data, "phase_s": time.monotonic() - t_ph})
-    del mnist
+        del mnist
+        torch.cuda.empty_cache()
+        t_ph = time.monotonic()
+        runtime = phase_runtime(np.random.default_rng(60), tmp)
+        runtime_s = time.monotonic() - t_ph
+        emit({"phase": "runtime", "card": card, **runtime, "runtime_s": runtime_s})
+        t_ph = time.monotonic()
+        ex_counts, examples = phase_examples(np.random.default_rng(61), tmp, card)
+        examples_s = time.monotonic() - t_ph
+        emit({"phase": "examples", "card": card, "examples_s": examples_s,
+              "runtime_s": runtime_s, "paths": sorted(ex_counts)})
+        t_ph = time.monotonic()
+        ex_rows = phase_examples_k1(bw, peak_ops, np.random.default_rng(62))
+        emit({"phase": "kernels examples", "card": card, "rows": ex_rows,
+              "phase_s": time.monotonic() - t_ph})
+        rows += ex_rows
 
     by_path = {"serve paged": counts, "serve contiguous": c_counts, "serve giga": g_counts,
                "serve fp8": f_counts,
@@ -4052,7 +4536,7 @@ def main() -> int:
                "generate gpt2": gg_counts, "train mnist": tm_counts,
                "train mnist rate": tmr_counts, "resume mnist": rm_counts,
                "resume gpt2": rg_counts, "train llama": tl_counts, "evaluate llama": el_counts,
-               "train cnn": tc_counts, "train cnn rate": tcr_counts}
+               "train cnn": tc_counts, "train cnn rate": tcr_counts, **ex_counts}
     summary = []
     for entry, (source, replaces) in SOURCES.items():
         mine = [r for r in rows if r["entry"] == entry]
@@ -4101,7 +4585,8 @@ def main() -> int:
                        "generate_gpt2": generate_gpt2, "train_mnist": train_mnist,
                        "resume_mnist": resume_mnist, "resume_gpt2": resume_gpt2, "data": data,
                        "parity_train_llama": parity_llama, "train_llama": train_llama,
-                       "train_cnn": train_cnn,
+                       "train_cnn": train_cnn, "runtime": runtime, "runtime_s": runtime_s,
+                       "examples": examples, "examples_s": examples_s,
                        "summary": summary,
                        "total_s": time.monotonic() - T_START}, f, indent=1)
     emit({"kernels": summary})

@@ -6,7 +6,7 @@ from mila_tpu_torch.data.chars import CharReader, CharVocabulary, load_tiny_shak
 from mila_tpu_torch.data.loader import ArrayReader, DatasetReader
 from mila_tpu_torch.data.mnist import MnistReader, load_mnist, synthetic_mnist
 from mila_tpu_torch.data.prefetch import PrefetchLoader, prefetch_to_device
-from mila_tpu_torch.data.tokens import TokenReader, read_token_file
+from mila_tpu_torch.data.tokens import TokenReader, read_token_file, write_token_file
 
 __all__ = [
     "BPETokenizer",
@@ -23,4 +23,5 @@ __all__ = [
     "synthetic_mnist",
     "TokenReader",
     "read_token_file",
+    "write_token_file",
 ]

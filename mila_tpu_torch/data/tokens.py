@@ -1,4 +1,4 @@
-"""Token-shard reader for language-model training (port of
+"""Token-shard reader (and llm.c shard writer) for language-model training (port of
 ``mila_tpu/data/tokens.py``, numpy only and unchanged in behaviour).
 
 Shard format: llm.c's (magic 20240520, a 256-int32 header, then uint16
@@ -41,6 +41,14 @@ def read_token_file(path: str | Path) -> np.ndarray:
         if len(as32) == 0 or (as32.min() >= 0 and as32.max() < 1_000_000):
             return as32.copy()
     return np.frombuffer(raw, dtype=np.uint16).astype(np.int32)
+
+
+def write_token_file(path: str | Path, tokens: np.ndarray) -> None:
+    """Write ``tokens`` (ids below 65536) as one llm.c shard: the 256-int32
+    header (magic, version 1, count), then the tokens as uint16."""
+    header = np.zeros(256, "<i4")
+    header[:3] = (LLMC_TOKENS_MAGIC, 1, len(tokens))
+    Path(path).write_bytes(header.tobytes() + np.asarray(tokens).astype("<u2").tobytes())
 
 
 class TokenReader(DatasetReader):

@@ -15,6 +15,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from mila_tpu_torch.device import resolve_device
+from mila_tpu_torch.runtime.memory import tree_nbytes
 
 
 class QTensor(NamedTuple):
@@ -124,6 +125,15 @@ def quant_linear_ref(x: torch.Tensor, qt: QTensor, bias: Optional[torch.Tensor] 
     return y.to(x.dtype)
 
 
+def quantization_error(w: torch.Tensor, dtype="int8", block_size: int = 0) -> float:
+    """Relative RMS error of quantize then dequantize (a diagnostic)."""
+    back = dequantize(quantize(w, dtype, block_size))
+    w32 = w.float()
+    err = torch.sqrt(torch.mean((back - w32) ** 2))
+    rms = torch.sqrt(torch.mean(w32 ** 2))
+    return float(err / (rms + 1e-12))
+
+
 def quantize_model_params(params: Any, dtype: str = "int8", block_size: int = 0,
                           min_size: int = 4096,
                           skip_names: tuple = ("wte", "wpe", "gamma", "beta", "bias"),
@@ -146,3 +156,9 @@ def quantize_model_params(params: Any, dtype: str = "int8", block_size: int = 0,
         return leaf
 
     return visit([], params)
+
+
+def model_bytes(params: Any) -> int:
+    """Total parameter bytes of a params tree, QTensors' q and scales
+    included (int4 q is stored packed, two values a byte)."""
+    return tree_nbytes(params)

@@ -130,6 +130,18 @@ def split_validation(reader: DatasetReader, fraction: float):
     return train, val
 
 
+def value_and_grad(loss_fn: Callable, params):
+    """(loss_fn(params) detached, the gradient tree of params): the eager
+    stand-in for ``jax.value_and_grad``, autograd through detached leaves
+    that require grad; an unused leaf's gradient is zeros."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss = loss_fn(tree_unflatten(params, leaves))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    return loss.detach(), tree_unflatten(params, grads)
+
+
 class Model:
     """Owns a module, its params, an optimizer and the training step.
 
@@ -175,12 +187,7 @@ class Model:
         self._compile()
 
     def _value_and_grad(self, params, inputs, targets):
-        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        with torch.enable_grad():
-            loss = self._loss_fn(self.module, tree_unflatten(params, leaves), inputs, targets)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        return loss.detach(), tree_unflatten(params, grads)
+        return value_and_grad(lambda p: self._loss_fn(self.module, p, inputs, targets), params)
 
     def _compile(self) -> None:
         opt, accum = self.optimizer, self.config.grad_accum_steps

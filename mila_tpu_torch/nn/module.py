@@ -15,6 +15,7 @@ from typing import Any, Callable, Iterator, Optional, Sequence
 import torch
 
 from mila_tpu_torch.device import resolve_device
+from mila_tpu_torch.runtime.memory import tree_nbytes
 from mila_tpu_torch.utils.config import BaseConfig
 from mila_tpu_torch.utils.rng import split_named
 from mila_tpu_torch.utils.tree import tree_leaves
@@ -51,6 +52,9 @@ class Module:
 
     def parameter_count(self, params: Params) -> int:
         return sum(int(p.numel()) for p in tree_leaves(params) if isinstance(p, torch.Tensor))
+
+    def parameter_bytes(self, params: Params) -> int:
+        return tree_nbytes(params)
 
     def __call__(self, params: Params, x: torch.Tensor, **kw: Any) -> torch.Tensor:
         return self.apply(params, x, **kw)

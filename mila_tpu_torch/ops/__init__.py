@@ -20,7 +20,7 @@ from mila_tpu_torch.ops.attention import (
 from mila_tpu_torch.ops.conv import avg_pool2d, conv2d, max_pool2d
 from mila_tpu_torch.ops.cross_entropy import cross_entropy_from_probs, softmax_cross_entropy
 from mila_tpu_torch.ops.embedding import embedding_lookup, encoder
-from mila_tpu_torch.ops.gelu import gelu
+from mila_tpu_torch.ops.gelu import gelu, gelu_exact, gelu_sigmoid, gelu_tanh
 from mila_tpu_torch.ops.layernorm import layer_norm
 from mila_tpu_torch.ops.linear import linear, linear_gelu
 from mila_tpu_torch.ops.residual import residual
@@ -57,6 +57,7 @@ __all__ = [
     "FLASH_MIN_SEQ", "NEG_INF", "apply_rope", "apply_rope_interleaved", "avg_pool2d",
     "causal_mask", "conv2d", "cross_entropy_from_probs", "decode_attention",
     "dot_product_attention", "embedding_lookup", "encoder", "flash_tiles_ok", "gelu",
+    "gelu_exact", "gelu_sigmoid", "gelu_tanh",
     "layer_norm", "linear", "linear_gelu", "log_softmax", "max_pool2d", "mha_qkv",
     "resolve_attention_impl", "residual", "rms_norm", "rms_norm_ref", "rope_cos_sin",
     "rope_frequencies", "silu", "softmax", "softmax_cross_entropy", "swiglu",

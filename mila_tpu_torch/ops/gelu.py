@@ -55,3 +55,18 @@ def gelu(x: torch.Tensor, approximation: str = "tanh") -> torch.Tensor:
         raise ValueError(f"unknown GELU approximation '{approximation}'; options: "
                          f"{sorted(GELU_VARIANTS)}")
     return _GeluFn.apply(x, approximation)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))."""
+    return gelu(x, "tanh")
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """x Phi(x), Phi the standard normal CDF."""
+    return gelu(x, "exact")
+
+
+def gelu_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """x sigmoid(1.702 x)."""
+    return gelu(x, "sigmoid")

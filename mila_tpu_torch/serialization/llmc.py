@@ -58,7 +58,8 @@ def read_gpt2_checkpoint(path: str | Path, device: DeviceLike = None):
 
     def t(a, transpose=False):
         a = a.T if transpose else a
-        return torch.from_numpy(np.array(a, np.float32)).to(dev)  # a writable copy
+        # A writable row-major copy: the kernels take contiguous weights.
+        return torch.from_numpy(np.array(a, np.float32, order="C")).to(dev)
 
     params = {"encoder": {"wte": t(raw["wte"]), "wpe": t(raw["wpe"])},
               "ln_f": {"gamma": t(raw["lnfw"]), "beta": t(raw["lnfb"])}}

@@ -1,12 +1,14 @@
 """Config base: frozen, validated dataclasses (port of
-``mila_tpu/utils/config.py``). ``to_dict``/``from_dict`` write and read the
-same dicts as JAX's, so a config stored in an archive by either package
-builds the other's module."""
+``mila_tpu/utils/config.py``). ``to_dict``/``from_dict`` and
+``to_json``/``from_json`` write and read the same dicts and text as JAX's,
+so a config stored in an archive by either package builds the other's
+module."""
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import json
 from typing import Any, Type, TypeVar
 
 T = TypeVar("T", bound="BaseConfig")
@@ -40,6 +42,9 @@ class BaseConfig:
 
         return {f.name: enc(getattr(self, f.name)) for f in dataclasses.fields(self)}
 
+    def to_json(self, indent: int | None = None) -> str:
+        return json.dumps(self.to_dict(), indent=indent)
+
     @classmethod
     def from_dict(cls: Type[T], d: dict[str, Any]) -> T:
         """Unknown keys are ignored; enums come back from their names,
@@ -62,6 +67,10 @@ class BaseConfig:
                 v = tuple(v) if _wants_tuple(ftype) else v
             kw[k] = v
         return cls(**kw)
+
+    @classmethod
+    def from_json(cls: Type[T], s: str) -> T:
+        return cls.from_dict(json.loads(s))
 
 
 def _resolve_type(tp: Any, owner: type) -> Any:

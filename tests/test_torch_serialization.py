@@ -19,6 +19,7 @@ from mila_tpu.models import gpt2 as jg
 from mila_tpu.serialization import llmc as jllmc
 from mila_tpu.serialization import safetensors_io as jst
 from mila_tpu_torch.bridge import params_from_jax, tensor_from_numpy
+from mila_tpu_torch.inference.quantize import quantize_model_params
 from mila_tpu_torch.models import llama as tl
 from mila_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from mila_tpu_torch.serialization import (
@@ -66,6 +67,20 @@ class TestLlmcCheckpoint:
         toks = torch.tensor([[1, 2, 3, 4]], dtype=torch.int32)
         torch.testing.assert_close(GPT2(cfg2, device="cpu").apply(params2, toks),
                                    model.apply(params, toks), rtol=1e-5, atol=1e-6)
+
+    def test_leaves_are_contiguous(self, tmp_path):
+        """The reader transposes llm.c's [out, in] weights; its tensors must
+        still be row-major, as the kernels that take them (and their
+        quantized forms) require."""
+        cfg = GPT2Config(**_CFG)
+        path = tmp_path / "gpt2.bin"
+        write_gpt2_checkpoint(path, cfg, GPT2(cfg, device="cpu").init(_gen(0), (1, 8),
+                                                                       device="cpu"))
+        _, params = read_gpt2_checkpoint(path, device="cpu")
+        for name, leaf in _leaves(params):
+            assert leaf.is_contiguous(), name
+        qt = quantize_model_params(params, "int8", min_size=256, device="cpu")
+        assert qt["h0"]["qkv"]["weight"].q.is_contiguous()
 
     def test_bad_magic(self, tmp_path):
         p = tmp_path / "bad.bin"
